@@ -5,24 +5,41 @@
 
 Phases, each printing one JSON line:
 
-  1. device   the card (nvidia-smi name and power limit) and the build of
-              every kernel from lightgbm_tpu_torch/csrc (nvcc, in parallel)
-  2. kernels  each kernel against its plain PyTorch version at the main
-              path's shapes (N = 2^20 rows, F = 28, B = 64, C = 2; K in
-              {1, 16, 128}; L = 255), with kernel / plain / library times
-              and the bytes bound; then, untimed, the int8 (exact int32)
-              and 256-bin modes of the histogram and wave kernels
-  3. train    bench.py's data (numpy seed 42, 2^20 x 28) and model (binary,
-              255 leaves, max_bin 63) trained 8 rounds through
-              lightgbm_tpu_torch.train on the card; every kernel's launch
-              count must be > 0 and train AUC > 0.88, and the first tree
-              must equal the one grown from the same gradients by the plain
-              versions on the card
-  4. serve    4096 held-out rows predicted by the trained Booster, and again
-              after a model_to_string -> Booster(model_str=...) round trip:
-              the two must be bitwise equal
-  5. train on 8 more rounds of the same Booster through update_batch must
-              lift train AUC past 0.9
+  1. device    the card (nvidia-smi name and power limit) and the build of
+               every kernel from lightgbm_tpu_torch/csrc (nvcc, in parallel)
+  2. kernels   each training kernel against its plain PyTorch version at
+               the main path's shapes (N = 2^20 rows, F = 28, B = 64, C = 2;
+               K in {1, 16, 128}; L = 255), with kernel / plain / library
+               times and the bytes bound; then, untimed, the int8 (exact
+               int32) and 256-bin modes of the histogram and wave kernels
+  3. ingest    bench.py's data (numpy seed 42, 2^20 x 28 f32) constructed
+               with binning_impl=auto, which must take the device route
+               (the bucketize kernel, launch count > 0) and give X_t
+               bitwise equal to a host-route construct of the same data
+  4. bucketize the bucketize kernel against its plain version at
+               2^20 x 28, bitwise, on three tables: train mode from the
+               bench data's mappers, serve mode, and a synthetic table of
+               categorical, NaN-missing and zero-missing features fed
+               adversarial values (NaN, +-0, subnormals, +-inf, every bound
+               and one ulp either side)
+  5. train     bench.py's model (binary, 255 leaves, max_bin 63) trained 8
+               rounds through lightgbm_tpu_torch.train on the card; every
+               training kernel's launch count must be > 0 and train AUC >
+               0.88, and the first tree must equal the one grown from the
+               same gradients by the plain versions on the card
+  6. predict   4096 held-out rows predicted by the trained Booster, and
+               again after a model text round trip: bitwise equal
+  7. serve     Booster.serve(engine="binned", max_batch=256, warmup=True)
+               scores the held-out f32 rows on the raw-f32 route (bucketize
+               launches > 0), bitwise equal to the f64 route and to
+               engine="device", within 1e-5 of Booster.predict; then a
+               ModelRegistry + MicroBatcher answers 512 single-row f32
+               requests from 4 threads, each equal to its batch score, with
+               host_fallbacks == 0; then Booster.predict of the 2^20
+               training rows takes the device route, within 1e-5 of the
+               host walk
+  8. train on  8 more rounds of the same Booster through update_batch must
+               lift train AUC past 0.9
 
 then a {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed check raises before the last
@@ -268,6 +285,223 @@ def _small_rows(hc, torch, X, lor, tbl, K, B, L):
     return int(h[:, 0, 0, :].sum())
 
 
+def _mappers_by_feature(ds):
+    """Per-original-feature BinMappers of a constructed dataset."""
+    out = [None] * ds.num_total_features
+    for m, orig in zip(ds.mappers, ds.real_feature_index):
+        out[orig] = m
+    return out
+
+
+def _synthetic_bucketize_case(rng, n, F):
+    """Mappers and raw rows for the adversarial table: every fourth
+    feature categorical (codes -3..60 in the fit sample), the others
+    numeric with NaN-missing, zero-missing or no missing type, fed NaN,
+    +-0, subnormals, +-inf, huge values, every floored bound and one f32
+    ulp either side of it, and fractional, negative and unseen codes."""
+    from lightgbm_tpu_torch.data.binning import (BIN_TYPE_CATEGORICAL,
+                                                 BinMapper)
+    from lightgbm_tpu_torch.ops.bucketize import _floor_f32
+
+    def edge(m):
+        v = rng.normal(scale=50.0, size=m).astype(np.float32)
+        v[rng.rand(m) < 0.06] = np.nan
+        v[rng.rand(m) < 0.06] = 0.0
+        v[rng.rand(m) < 0.03] = -0.0
+        return v
+
+    mappers, cols = [], []
+    s = 20000
+    for f in range(F):
+        if f % 4 == 3:
+            fit = rng.randint(-3, 60, size=s).astype(np.float64)
+            m = BinMapper.find_bin(fit, s, 255, 3, 20,
+                                   bin_type=BIN_TYPE_CATEGORICAL)
+            c = rng.randint(-5, 70, size=n).astype(np.float32)
+            c[rng.rand(n) < 0.05] = np.nan
+            c[:12] = [np.inf, -np.inf, -0.5, 2.7, -1.0, 1e30, -0.0, 3e38,
+                      2.0 ** 24, 1e-45, -1e-45, 59.0]
+        else:
+            fit = edge(s).astype(np.float64)
+            m = BinMapper.find_bin(fit, s, 63 if f % 2 else 255, 3, 20,
+                                   zero_as_missing=f % 4 == 1,
+                                   use_missing=f % 8 != 6)
+            c = edge(n)
+            c[:10] = [1e-45, -1e-45, 1e-40, -1e-40, 3e38, -3e38, np.inf,
+                      -np.inf, np.nan, -0.0]
+            ub = np.asarray(m.bin_upper_bound, np.float64)
+            b = _floor_f32(ub[np.isfinite(ub)])
+            e = np.concatenate([b, np.nextafter(b, np.float32(-np.inf)),
+                                np.nextafter(b, np.float32(np.inf))])
+            c[10:10 + len(e)] = e
+        mappers.append(m)
+        cols.append(c)
+    return mappers, np.ascontiguousarray(np.stack(cols, axis=1))
+
+
+def bucketize_phase(bk, torch, dev, X, train_ds, rng):
+    """Phase 4: the bucketize kernel against its plain version at the
+    ingest shape on three tables, bitwise; times the kernel (into the
+    feature-major X_t layout ingest writes), its plain version and, on the
+    numeric-only train table, torch.searchsorted over the pre-transposed
+    rows as the library yardstick."""
+    n, F = X.shape
+    serve_mappers = _mappers_by_feature(train_ds)
+    syn_mappers, Xs = _synthetic_bucketize_case(rng, n, F)
+    cases = [
+        ("train", bk.pack_bin_table(train_ds.mappers, mode="train"), X,
+         torch.as_tensor(np.asarray(train_ds.real_feature_index,
+                                    np.int32)).to(dev)),
+        ("serve", bk.pack_bin_table(serve_mappers, mode="serve",
+                                    used_features=range(F)), X, None),
+        ("synthetic", bk.pack_bin_table(syn_mappers, mode="serve"), Xs,
+         None),
+    ]
+    recs = {}
+    for name, table, Xh, cols in cases:
+        tt = bk.upload_bin_table(table, dev)
+        Xd = torch.from_numpy(Xh).to(dev)
+        got = bk.bucketize_cuda(Xd, tt, cols=cols)
+        ref = bk.bucketize_plain(Xd, tt, cols=cols)
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref), f"bucketize {name}: not bitwise equal "
+              f"({int((got != ref).sum())} of {got.numel()} bins differ)")
+        X_t = torch.empty((F, n), dtype=torch.uint8, device=dev)
+        bk.bucketize_cuda(Xd, tt, out=X_t.t(), cols=cols)
+        check(torch.equal(X_t.t(), ref),
+              f"bucketize {name}: feature-major output differs")
+        ms = time_ms(lambda: bk.bucketize_cuda(Xd, tt, out=X_t.t(),
+                                               cols=cols), 20)
+        plain_ms = time_ms(lambda: bk.bucketize_plain(Xd, tt, cols=cols),
+                           2, 1)
+        lib_ms = None
+        if name == "train":
+            # numeric-only table: searchsorted of each feature's rows
+            # against its floored bounds is the same count (before the
+            # clamp), one library call over the pre-transposed rows
+            XT = Xd[:, cols.long()].t().contiguous()
+            lib_ms = time_ms(lambda: torch.searchsorted(
+                tt.table, XT, side="left"), 20)
+            del XT
+        nbytes = n * F * 4 + n * F + F * tt.B * 8 + F * 32
+        bms, by = bound_ms(nbytes, 0)
+        rec = dict(name="bucketize", table=name, mode=table.mode, n=n, F=F,
+                   B=tt.B, max_abs_err=0.0, tol=0.0, ms=ms,
+                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                   bound_by=by, bound_us=bms * 1e3)
+        emit({"phase": "bucketize", "kernel_ms": ms, **rec})
+        recs[name] = rec
+        del Xd, got, ref, X_t
+    return recs
+
+
+def _auc(p, y):
+    order = np.argsort(p)
+    ranks = np.empty(len(p))
+    ranks[order] = np.arange(1, len(p) + 1)
+    npos = int(y.sum())
+    return float((ranks[y].sum() - npos * (npos + 1) / 2)
+                 / (npos * (len(y) - npos)))
+
+
+def serve_phase(lt, hc, torch, bst, X, Xt):
+    """Phase 7: the binned engine on the raw-f32 route, the registry and
+    micro-batcher under 4 client threads, and Booster.predict's device
+    route on the 2^20 training rows."""
+    import threading
+    from lightgbm_tpu_torch.serving import MicroBatcher, ModelRegistry
+
+    hc.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sess = bst.serve(engine="binned", max_batch=256, warmup=True)
+    warm_s = time.perf_counter() - t0
+    info = sess.cache_info()
+    check(sess.engine == "binned" and info["device_binning"],
+          f"binned engine without its device bin table: {info}")
+    t0 = time.perf_counter()
+    raw = sess.predict(Xt, raw_score=True)
+    raw_ms = (time.perf_counter() - t0) * 1e3
+    serve_launches = dict(hc.LAUNCHES)
+    check(serve_launches["bucketize"] > 0,
+          "the raw-f32 route never launched the bucketize kernel")
+    f64 = sess.predict(Xt.astype(np.float64), raw_score=True)
+    dev = bst.serve(engine="device", max_batch=256).predict(
+        Xt, raw_score=True)
+    host = bst.predict(Xt, raw_score=True)
+    check(np.array_equal(raw, f64), "raw-f32 route differs from the f64 "
+                                    "route")
+    check(np.array_equal(raw, dev), "binned engine differs from the device "
+                                    "engine")
+    err_host = float(np.max(np.abs(raw - host)))
+    check(err_host <= 1e-5, f"binned engine vs Booster.predict: {err_host}")
+    chunks = -(-len(Xt) // sess.max_batch)
+
+    # registry + micro-batcher: 512 single-row f32 requests, 4 threads
+    reg = ModelRegistry(engine="binned", max_batch=256)
+    reg.register("bench", bst, warmup=True)
+    # the batch scores, from the first session (its own metrics)
+    expect = sess.predict(Xt[:512])
+    got = np.full(512, np.nan)
+    errors = []
+    with MicroBatcher(lambda Xb: reg.predict(Xb, name="bench"),
+                      max_batch=256, max_wait_ms=2.0, timeout_ms=10000.0,
+                      metrics=reg.metrics) as mb:
+        def client(k):
+            try:
+                for i in range(k, 512, 4):
+                    got[i] = mb.predict(Xt[i])[0]
+            except Exception as e:       # reported below, fails the run
+                errors.append(repr(e))
+        ts = [threading.Thread(target=client, args=(k,)) for k in range(4)]
+        t0 = time.perf_counter()
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=120)
+        wall = time.perf_counter() - t0
+        sizes = list(mb.batch_sizes)
+    check(not errors and not any(t.is_alive() for t in ts),
+          f"batcher clients failed: {errors[:3]}")
+    check(np.array_equal(got, expect), "batched single-row answers differ "
+                                       "from the batch scores")
+    summ = reg.metrics.summary()
+    check(summ["counters"]["host_fallbacks"] == 0
+          and sess.metrics.counters["host_fallbacks"] == 0,
+          "a serving chunk fell back to the host")
+    emit({"phase": "serve", "engine": "binned", "route": "raw_f32",
+          "rows": len(Xt), "max_batch": sess.max_batch, "chunks": chunks,
+          "warmup_s": warm_s, "predict_ms": raw_ms,
+          "launches": serve_launches,
+          "bucketize_launches_per_chunk":
+              serve_launches["bucketize"] / chunks,
+          "bitwise_f64_route": True, "bitwise_device_engine": True,
+          "max_abs_err_vs_predict": err_host,
+          "heldout_cache": sess.cache_info(),
+          "batcher_requests": 512, "batcher_threads": 4,
+          "batcher_wall_s": wall, "batcher_batches": len(sizes),
+          "batcher_mean_rows": float(np.mean(sizes)),
+          "request_latency": summ["request_latency"],
+          "batch_latency": summ["batch_latency"],
+          "host_fallbacks": summ["counters"]["host_fallbacks"]})
+
+    # Booster.predict of 2^20 f32 rows: the device route
+    g = bst._gbdt
+    t0 = time.perf_counter()
+    p_dev = bst.predict(X, raw_score=True)
+    dev_s = time.perf_counter() - t0
+    check(getattr(g, "_device_tables_cache", None) is not None,
+          "Booster.predict of 2^20 f32 rows did not take the device route")
+    t0 = time.perf_counter()
+    p_host = bst.predict(X.astype(np.float64), raw_score=True)
+    host_s = time.perf_counter() - t0
+    err = float(np.max(np.abs(p_dev - p_host)))
+    emit({"phase": "predict_device", "rows": len(X), "device_s": dev_s,
+          "host_walk_s": host_s, "max_abs_err": err})
+    check(err <= 1e-5, f"device-route predict vs host walk: {err}")
+    return serve_launches
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -277,6 +511,7 @@ def main():
         return 2
     try:
         import lightgbm_tpu_torch as lt
+        from lightgbm_tpu_torch.ops import bucketize as bk
         from lightgbm_tpu_torch.ops import histogram_cuda as hc
     except ImportError as e:
         print(f"chip_smoke: the lightgbm_tpu_torch package is not beside "
@@ -299,22 +534,50 @@ def main():
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": build_s, "ptxas": regs})
 
-    # ---- 2. kernels against their plain versions
+    # ---- 2. training kernels against their plain versions
     krec = kernel_phase(hc, torch, dev)
     variant_phase(hc, torch, dev)
 
-    # ---- 3. train bench.py's model on bench.py's data
+    # ---- 3. ingest bench.py's data: binning_impl=auto -> device route
     rng = np.random.RandomState(42)
     X = rng.normal(size=(N_ROWS, N_FEAT)).astype(np.float32)
     w = rng.normal(size=N_FEAT)
     y = (X @ w + rng.normal(scale=0.5, size=N_ROWS) > 0).astype(np.float32)
     params = dict(objective="binary", num_leaves=N_LEAVES, max_bin=63,
                   learning_rate=0.1, min_data_in_leaf=20, verbose=-1,
-                  bagging_freq=0, binning_impl="host", device_type="cuda",
+                  bagging_freq=0, binning_impl="auto", device_type="cuda",
                   metric="auc")
+    hc.reset_launch_counts()
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     ds = lt.Dataset(X, label=y, params=params).construct()
+    torch.cuda.synchronize()
     ingest_s = time.perf_counter() - t0
+    ingest_launches = dict(hc.LAUNCHES)
+    t0 = time.perf_counter()
+    ds_host = lt.Dataset(X, label=y, params={
+        **params, "binning_impl": "host"}).construct()
+    torch.cuda.synchronize()
+    ingest_host_s = time.perf_counter() - t0
+    h, hh = ds._handle, ds_host._handle
+    same_xt = torch.equal(h.X_t, hh.X_t)
+    emit({"phase": "ingest", "rows": N_ROWS, "features": N_FEAT,
+          "route": h.binning_route, "ingest_s": ingest_s,
+          "ingest_host_route_s": ingest_host_s,
+          "bucketize_launches": ingest_launches["bucketize"],
+          "launches": ingest_launches, "X_t_bitwise_host_route": same_xt})
+    check(h.binning_route == "device", "binning_impl=auto did not take the "
+                                       "device route on the card")
+    check(ingest_launches["bucketize"] > 0,
+          "ingest never launched the bucketize kernel")
+    check(same_xt and np.array_equal(h.X_binned, hh.X_binned),
+          "device-route X_t differs from the host route")
+    del ds_host, hh
+
+    # ---- 4. the bucketize kernel against its plain version
+    brec = bucketize_phase(bk, torch, dev, X, h, np.random.RandomState(44))
+
+    # ---- 5. train bench.py's model
     iter_ends = []
 
     def stamp(env):
@@ -335,12 +598,12 @@ def main():
     trees = gbdt.models
     leaves = [t.num_leaves for t in trees]
     emit({"phase": "train", "rows": N_ROWS, "features": N_FEAT,
-          "iterations": len(iter_ms), "ingest_s": ingest_s,
-          "iter_ms": iter_ms,
+          "iterations": len(iter_ms), "iter_ms": iter_ms,
           "steady_ms_per_iter": float(np.mean(iter_ms[1:])),
           "launches": launches, "train_auc": auc, "leaves": leaves})
-    for name, n in launches.items():
-        check(n > 0, f"{name} never launched on the main path")
+    for name in ("build_histogram_slots", "take_leaf_values", "wave_pass",
+                 "wave_relabel"):
+        check(launches[name] > 0, f"{name} never launched on the main path")
     # 8 rounds on 2^20 rows reach a train AUC near 0.886 (both packages
     # agree on smaller cuts of this data); 8 more rounds through
     # update_batch, after the serve phase, must pass 0.9
@@ -352,8 +615,9 @@ def main():
     from lightgbm_tpu_torch.ops.grow_wave import grow_tree_wave
     init = float(gbdt.objective.boost_from_score(0))
     s0 = torch.full((N_ROWS,), float(np.float32(init)), device=dev)
-    g, h = gbdt.objective.get_gradients(s0, gbdt.label_dev, gbdt.weight_dev)
-    tp, _ = grow_tree_wave(gbdt.X_t, g, h, gbdt._in_bag, gbdt.meta,
+    g, hs = gbdt.objective.get_gradients(s0, gbdt.label_dev,
+                                         gbdt.weight_dev)
+    tp, _ = grow_tree_wave(gbdt.X_t, g, hs, gbdt._in_bag, gbdt.meta,
                            gbdt.grow_cfg, None, plain=True)
     t_plain = gbdt._device_tree_to_host(tp)
     t_plain.add_bias(init)
@@ -369,14 +633,15 @@ def main():
     check(same, "first tree differs from the plain versions' tree")
     # leaf values come from the same f32 split statistics: 1e-6 absolute
     check(lv_err <= 1e-6, f"first tree leaf values differ by {lv_err}")
+    del g, hs, s0
 
-    # ---- 4. serve held-out rows, then again after a model text round trip
+    # ---- 6. predict held-out rows, then again after a model text trip
     rng_t = np.random.RandomState(43)
     Xt = rng_t.normal(size=(4096, N_FEAT)).astype(np.float32)
     yt = (Xt @ w + rng_t.normal(scale=0.5, size=4096) > 0)
     t0 = time.perf_counter()
     p1 = bst.predict(Xt)
-    serve_ms = (time.perf_counter() - t0) * 1e3
+    predict_ms = (time.perf_counter() - t0) * 1e3
     text = bst.model_to_string()
     p2 = lt.Booster(model_str=text).predict(Xt)
     check(p1.shape == (4096,) and np.all(np.isfinite(p1)),
@@ -389,17 +654,14 @@ def main():
     score_err = float(np.max(np.abs(raw - sc)))
     check(score_err < 1e-4, f"raw predictions differ from the trainer's "
                             f"scores by {score_err}")
-    order = np.argsort(p1)
-    ranks = np.empty(len(p1))
-    ranks[order] = np.arange(1, len(p1) + 1)
-    npos = int(yt.sum())
-    test_auc = (ranks[yt].sum() - npos * (npos + 1) / 2) \
-        / (npos * (len(yt) - npos))
-    emit({"phase": "serve", "rows": 4096, "predict_ms": serve_ms,
+    emit({"phase": "predict", "rows": 4096, "predict_ms": predict_ms,
           "roundtrip_bitwise": True, "score_max_abs_err": score_err,
-          "heldout_auc": float(test_auc), "model_text_bytes": len(text)})
+          "heldout_auc": _auc(p1, yt), "model_text_bytes": len(text)})
 
-    # ---- 5. train on: 8 more rounds of the same booster
+    # ---- 7. serve on the card
+    serve_launches = serve_phase(lt, hc, torch, bst, X, Xt)
+
+    # ---- 8. train on: 8 more rounds of the same booster
     bst.update_batch(8)
     auc16 = bst.eval_train()[0][2]
     emit({"phase": "train_on", "iterations": bst.current_iteration,
@@ -409,13 +671,19 @@ def main():
 
     src = {"build_histogram_slots": "hist_slots.cu",
            "take_leaf_values": "take_leaf_values.cu",
-           "wave_pass": "wave_pass.cu", "wave_relabel": "wave_relabel.cu"}
+           "wave_pass": "wave_pass.cu", "wave_relabel": "wave_relabel.cu",
+           "bucketize": "bucketize.cu"}
     replaces = {
         "build_histogram_slots":
             "lightgbm_tpu/ops/histogram_pallas.py:280",
         "take_leaf_values": "lightgbm_tpu/ops/histogram_pallas.py:340",
         "wave_pass": "lightgbm_tpu/ops/histogram_pallas.py:562",
-        "wave_relabel": "lightgbm_tpu/ops/histogram_pallas.py:718"}
+        "wave_relabel": "lightgbm_tpu/ops/histogram_pallas.py:718",
+        "bucketize": "lightgbm_tpu/ops/bucketize.py:351"}
+    krec["bucketize"] = brec["train"]
+    # the bucketize kernel's main-path launches: ingest plus serving
+    launches["bucketize"] = ingest_launches["bucketize"] \
+        + serve_launches["bucketize"]
     kernels = []
     for name in hc.KERNELS:
         r = krec[name]
@@ -426,7 +694,7 @@ def main():
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "shape": {k: r[k] for k in ("K", "L") if k in r},
+            "shape": {k: r[k] for k in ("K", "L", "n", "F", "B") if k in r},
             "pass": True})
     emit({"kernels": kernels})
     for line in smi:

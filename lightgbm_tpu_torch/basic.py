@@ -57,10 +57,6 @@ class Dataset:
         if self._handle is not None:
             return self
         cfg = resolve_params(self.params)
-        if cfg.binning_impl == "device":
-            raise NotImplementedError(
-                "binning_impl=device is not ported to lightgbm_tpu_torch "
-                "yet (ROADMAP item A13)")
         if self.categorical_feature not in ("auto", None, "", []):
             raise NotImplementedError(
                 "categorical features are not ported to lightgbm_tpu_torch "
@@ -148,7 +144,10 @@ class Booster:
             if model_file is not None:
                 with open(model_file) as f:
                     model_str = f.read()
-            self._gbdt = GBDT.load_model_from_string(model_str)
+            # `params` still choose where the loaded model predicts
+            # (device_type); the model text brings its own objective
+            self._gbdt = GBDT.load_model_from_string(
+                model_str, resolve_params(self.params))
             self._config = self._gbdt.config
         else:
             raise ValueError("need at least one of train_set, model_file "
@@ -220,6 +219,13 @@ class Booster:
         return self._gbdt.predict(_to_2d_numpy(data), raw_score=raw_score,
                                   start_iteration=start_iteration,
                                   num_iteration=ni)
+
+    def serve(self, **kwargs) -> Any:
+        """Inference session over this model: pinned packed trees, the
+        bucket ladder and its scorer cache (serving/session.py). Host-engine
+        outputs are bitwise equal to the host walk of :meth:`predict`."""
+        from .serving import ServingSession
+        return ServingSession.from_booster(self, **kwargs)
 
     # ------------------------------------------------------------------
     def save_model(self, filename: str, num_iteration: Optional[int] = None,

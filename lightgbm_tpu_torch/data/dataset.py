@@ -2,13 +2,17 @@
 
 Counterpart of lightgbm_tpu/data/dataset.py (the reference's Dataset /
 DatasetLoader / Metadata, include/LightGBM/dataset.h:49-1086): sample rows
--> per-feature BinMapper -> dense binned feature matrix, on its host route.
+-> per-feature BinMapper -> dense binned feature matrix.
 
 The binned matrix is ONE dense [num_data, num_features] uint8 (uint16 past
 256 bins) host array, `X_binned`, and its feature-major [F, N] uint8 copy
 `X_t` on the dataset's torch device, which the kernels consume
-(ops/histogram.py). The EFB bundle search runs as in the JAX package; a
-dataset it bundles is refused at training time (ROADMAP item A9).
+(ops/histogram.py). Rows are binned on one of two routes, recorded in
+`binning_route`: "device" (f32 input bucketized by ops/bucketize.py, the
+kernel on a CUDA device) or "host" (the per-feature
+`BinMapper.value_to_bin` loop). The EFB bundle search runs as in the JAX
+package; a dataset it bundles is refused at training time (ROADMAP item
+A9).
 """
 
 from __future__ import annotations
@@ -124,6 +128,8 @@ class BinnedDataset:
         # ops/histogram_tiered.py can size one kernel per class. None =
         # reorder not applied (old binary caches before re-load).
         self.tier_perm: Optional[List[int]] = None
+        # "device" | "host": how the rows were binned (construct_from_matrix)
+        self.binning_route: str = "host"
 
     # -- derived per-feature arrays consumed by device kernels
     @property
@@ -255,6 +261,32 @@ def _alloc_binned(ds: BinnedDataset) -> np.ndarray:
     return np.zeros((ds.num_data, max(len(ds.mappers), 1)), dtype=dtype)
 
 
+def ingest_bin_table(ds: BinnedDataset, config: Config,
+                     device: Optional[torch.device]):
+    """Device-ingest gate: resolve ``binning_impl`` for `device` and pack
+    the train-mode bin table over ``ds.mappers``; None keeps the host
+    ``value_to_bin`` loop. An explicit "device" whose table cannot be
+    packed raises; "auto" falls back to the host route and says so."""
+    from ..ops.bucketize import (BinningUnavailable, pack_bin_table,
+                                 resolve_binning_impl)
+    if config.binning_impl == "auto" and config.autotune:
+        raise NotImplementedError(
+            "autotune of binning_impl=auto is not ported to "
+            "lightgbm_tpu_torch yet (ROADMAP item A14)")
+    if not ds.mappers or device is None:
+        return None
+    if resolve_binning_impl(config.binning_impl, device) != "device":
+        return None
+    try:
+        return pack_bin_table(ds.mappers, mode="train")
+    except BinningUnavailable as e:
+        if config.binning_impl == "device":
+            raise
+        log_warning(f"device binning unavailable ({e}); binning_impl=auto "
+                    "bins this dataset on the host route")
+        return None
+
+
 def _finalize(ds: BinnedDataset, config: Config,
               label, weight, group, init_score,
               reference: Optional[BinnedDataset]) -> BinnedDataset:
@@ -315,16 +347,37 @@ def construct_from_matrix(
                           lambda j: sample[:, j], len(sample),
                           categorical_feature)
 
-    # push rows: per-feature vectorized value->bin on the host (the
-    # device bucketize kernel is not ported yet; ROADMAP item A13)
-    X = _alloc_binned(ds)
-    for inner, (m, orig) in enumerate(zip(ds.mappers,
-                                          ds.real_feature_index)):
-        col = np.asarray(data[:, orig], dtype=np.float64)
-        X[:, inner] = m.value_to_bin(col).astype(X.dtype)
+    # push rows: the bucketize kernel when the raw matrix is f32 and the
+    # mapper set packs (bit-identical to the host loop); per-feature
+    # vectorized value->bin on the host otherwise
+    table = None
+    if data.dtype == np.float32:
+        table = ingest_bin_table(ds, config, device)
+    elif config.binning_impl == "device":
+        raise ValueError(
+            f"binning_impl=device bins float32 input; this matrix is "
+            f"{data.dtype} (binning it in f32 could round away precision "
+            f"the host route keeps)")
+    elif device is not None and device.type == "cuda":
+        log_info(f"binning_impl=auto: {data.dtype} input bins on the host "
+                 "route")
+    if table is not None:
+        from ..ops.bucketize import bin_rows_device
+        ds.X_t = bin_rows_device(data, table, device,
+                                 cols=ds.real_feature_index)
+        # _finalize's bundle search and the metadata read the host copy:
+        # one device-to-host copy of the binned matrix
+        X = ds.X_t.t().cpu().numpy()
+        ds.binning_route = "device"
+    else:
+        X = _alloc_binned(ds)
+        for inner, (m, orig) in enumerate(zip(ds.mappers,
+                                              ds.real_feature_index)):
+            col = np.asarray(data[:, orig], dtype=np.float64)
+            X[:, inner] = m.value_to_bin(col).astype(X.dtype)
+        if device is not None and X.dtype == np.uint8:
+            ds.X_t = torch.from_numpy(np.ascontiguousarray(X.T)).to(device)
     ds.X_binned = X
-    if device is not None and X.dtype == np.uint8:
-        ds.X_t = torch.from_numpy(np.ascontiguousarray(X.T)).to(device)
     return _finalize(ds, config, label, weight, group, init_score,
                      reference)
 

@@ -6,10 +6,12 @@ text of gbdt_model_text.cpp). Scores, gradients, the binned matrix and tree
 growth live on the configured torch device; grown trees stay there as
 `DeviceTree` records until a caller needs host trees (save, predict).
 
-This slice runs one configuration family: the wave grower's megakernel
+Training runs one configuration family: the wave grower's megakernel
 route (F <= 32 storage columns, no EFB bundles, no categorical features)
-with binary or L2 objectives, no bagging, host binning. Everything else
-raises NotImplementedError naming the ROADMAP item that ports it.
+with binary or L2 objectives, no bagging, host or device binning.
+Everything else raises NotImplementedError naming the ROADMAP item that
+ports it. Prediction covers every tree the JAX package writes except
+linear leaves on the device routes.
 """
 
 from __future__ import annotations
@@ -60,8 +62,8 @@ def check_slice_config(cfg: Config) -> None:
     if cfg.histogram_impl != "auto" or cfg.force_row_wise:
         _not_ported(f"histogram_impl={cfg.histogram_impl}",
                     "A14/A15")
-    if cfg.binning_impl == "device":
-        _not_ported("binning_impl=device (the bucketize kernel)", "A13")
+    if cfg.binning_impl == "auto" and cfg.autotune:
+        _not_ported("autotune of binning_impl=auto", "A14")
     if cfg.use_quantized_grad:
         _not_ported("use_quantized_grad", "A8")
     if cfg.monotone_constraints and any(cfg.monotone_constraints):
@@ -385,6 +387,10 @@ class GBDT:
 
     def predict_raw(self, X: np.ndarray, start_iteration: int = 0,
                     num_iteration: int = -1) -> np.ndarray:
+        # f32 inputs may route to the device predictor below: capture the
+        # original dtype before the host walk's f64 upcast
+        x_was_f32 = getattr(X, "dtype", None) == np.float32
+        X32 = X
         X = np.asarray(X, dtype=np.float64)
         K = self.num_tree_per_iteration
         total_iters = len(self.models) // K
@@ -392,7 +398,34 @@ class GBDT:
             total_iters, start_iteration + num_iteration)
         if end <= start_iteration:
             return np.zeros((K, X.shape[0]), dtype=np.float64)
-        return self._packed_model(start_iteration, end).predict_margin(X)
+        # large FLOAT32 batches score on a CUDA device (models/predictor.py
+        # predict_margin_device, gbdt.py:2052-2084 of the JAX package): the
+        # device compares in f32 against floored thresholds, which routes
+        # f32 values exactly like the host's f64 walk. f64 inputs, small
+        # batches and linear leaves stay on the host walk.
+        if (x_was_f32 and X.shape[0] >= 100_000
+                and not any(getattr(t, "is_linear", False)
+                            for t in self.models)
+                and self.config.device_type == "cuda"):
+            from .predictor import (build_device_tables,
+                                    device_tables_bytes,
+                                    predict_margin_device)
+            trees = self.models[start_iteration * K:end * K]
+            if device_tables_bytes(trees) <= 300_000_000:
+                key = (start_iteration, end, len(self.models))
+                cache = getattr(self, "_device_tables_cache", None)
+                if cache is None or cache[0] != key:
+                    cache = (key, build_device_tables(
+                        trees, K, resolve_device(self.config.device_type)))
+                    self._device_tables_cache = cache
+                out = predict_margin_device(trees, K, X32, tables=cache[1])
+                if self.average_output:
+                    out /= (end - start_iteration)
+                return out
+        out = self._packed_model(start_iteration, end).predict_margin(X)
+        if self.average_output:
+            out /= (end - start_iteration)
+        return out
 
     def predict(self, X: np.ndarray, raw_score: bool = False,
                 start_iteration: int = 0,

@@ -1,8 +1,9 @@
-"""Packed multi-tree host predictor.
+"""Packed multi-tree predictor: the host walk and the device predictors.
 
-Counterpart of lightgbm_tpu/models/predictor.py's PackedModel (the host
-walk, without its prediction early stopping and single-row path); the
-device predictors are later work (ROADMAP item A7).
+Counterpart of lightgbm_tpu/models/predictor.py: PackedModel (the host
+walk and its single-row path, without prediction early stopping), its
+device arrays for the serving engines, and the batch device predictor
+`predict_margin_device` that Booster.predict takes for large f32 batches.
 
 The reference predicts by walking trees one at a time per row
 (GBDT::PredictRaw, gbdt_prediction.cpp; Tree::Predict, tree.h:438). Here
@@ -14,9 +15,10 @@ too, so model files of the JAX package that hold them predict the same.
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import numpy as np
+import torch
 
 from .tree import (Tree, MISSING_NAN, MISSING_ZERO, _CATEGORICAL_MASK,
                    _DEFAULT_LEFT_MASK, _KZERO_THRESHOLD)
@@ -53,6 +55,10 @@ class PackedModel:
         cat_off = word_off = 0
         self.single_leaf = np.array(
             [t.num_leaves <= 1 for t in trees], bool)
+        # the deepest leaf of any tree: the step count of the device walks
+        self.max_depth = max((int(t.leaf_depths().max()) for t in trees
+                              if t.num_leaves > 1), default=0)
+        self._device_arrays = {}
         for i, t in enumerate(trees):
             a, b = self.node_start[i], self.node_start[i + 1]
             m = t.num_leaves - 1
@@ -176,6 +182,55 @@ class PackedModel:
         return np.where(nan_found, self.leaf_value[gl], base + add)
 
     # ------------------------------------------------------------------
+    def predict_single(self, x: np.ndarray) -> np.ndarray:
+        """[K] margins for ONE row: all trees walk in lockstep, ~depth
+        vectorized [T]-sized steps."""
+        X = x.reshape(1, -1)
+        rows = np.zeros(1, np.int64)
+        lv = self._leaves(X, rows, np.arange(self.T))[0]  # [T]
+        return lv.reshape(self.T // self.K, self.K).sum(axis=0)
+
+    def device_arrays(self, device: torch.device):
+        """The packed arrays on `device` for the device walk
+        (ops/predict.py predict_margin_packed), uploaded ONCE per model
+        version and device. Thresholds are f32-floored
+        (``floor_threshold_f32``) so the device's single-precision compare
+        routes f32 feature values exactly like the host's f64 walk."""
+        device = torch.device(device)
+        cached = self._device_arrays.get(device)
+        if cached is not None:
+            return cached
+        if self.has_linear:
+            raise ValueError("device serving path does not support "
+                             "linear leaves; use the host path")
+        from ..ops.predict import PackedDeviceArrays
+
+        def i64(a):
+            return torch.as_tensor(np.asarray(a, np.int64)).to(device)
+        pa = PackedDeviceArrays(
+            node_start=i64(self.node_start[:-1]),
+            leaf_start=i64(self.leaf_start[:-1]),
+            split_feature=i64(self.split_feature),
+            threshold=torch.from_numpy(
+                floor_threshold_f32(self.threshold)).to(device),
+            threshold_in_bin=i64(self.threshold_in_bin),
+            decision_type=i64(self.decision_type),
+            left_child=i64(self.left_child),
+            right_child=i64(self.right_child),
+            leaf_value=torch.from_numpy(
+                self.leaf_value.astype(np.float32)).to(device),
+            single_leaf=torch.from_numpy(self.single_leaf).to(device),
+            cat_start=i64(self.cat_start),
+            word_start=i64(self.word_start),
+            cat_boundaries=i64(self.cat_boundaries),
+            cat_threshold=i64(self.cat_threshold),
+            num_cat=int(self.num_cat),
+            depth=self.max_depth,
+        )
+        self._device_arrays[device] = pa
+        return pa
+
+    # ------------------------------------------------------------------
     def predict_margin(self, X: np.ndarray,
                        chunk: int = 8192) -> np.ndarray:
         """[K, N] f64 margins of X [N, F] raw features."""
@@ -189,3 +244,80 @@ class PackedModel:
             out[:, rows] = lv.reshape(len(rows), self.T // K, K) \
                 .sum(axis=1).T
         return out
+
+
+def floor_threshold_f32(t64: np.ndarray) -> np.ndarray:
+    """The f64 thresholds floored to the largest f32 <= each: for f32
+    feature values v, (v <= thr_f64) == (v <= thr_f32floor), so a device
+    single-precision compare routes boundary rows exactly like the host's
+    double-precision walk."""
+    t64 = np.asarray(t64, np.float64)
+    t32 = t64.astype(np.float32)
+    over = t32.astype(np.float64) > t64
+    t32[over] = np.nextafter(t32[over], np.float32(-np.inf))
+    return t32
+
+
+# ----------------------------------------------------------------------
+# batch device predictor (Booster.predict's device route)
+# ----------------------------------------------------------------------
+# [rows, trees] elements a chunk of the walk holds per temporary
+_WALK_CELLS = 1 << 24
+
+
+def build_device_tables(trees: List[Tree], num_class_models: int,
+                        device: torch.device):
+    """The packed device arrays of `trees` for predict_margin_device
+    (cacheable across calls while the model is unchanged)."""
+    if any(getattr(t, "is_linear", False) for t in trees):
+        raise ValueError("predict_margin_device does not support linear "
+                         "leaves; use predict_margin")
+    return (PackedModel(list(trees), num_class_models).device_arrays(device),
+            num_class_models)
+
+
+def device_tables_bytes(trees: List[Tree]) -> int:
+    """Device memory of build_device_tables' arrays: per node five int64
+    index fields, the int64 decision type and the f32 threshold; per leaf
+    one f32; the categorical bitsets. (The JAX package's layout, a
+    one-hot feature selector, also scaled with the feature count.)"""
+    M = sum(max(t.num_leaves - 1, 1) for t in trees)
+    L = sum(t.num_leaves for t in trees)
+    words = sum(len(t.cat_threshold) + len(t.cat_boundaries)
+                for t in trees if t.num_cat > 0)
+    return M * (6 * 8 + 4) + L * 4 + len(trees) * 5 * 8 + words * 8
+
+
+def predict_margin_device(trees: List[Tree], num_class_models: int,
+                          X, chunk: int = 65536,
+                          tables=None,
+                          device: Optional[torch.device] = None
+                          ) -> np.ndarray:
+    """[K, N] f64 margins of X [N, F] float32 on the device. Counterpart
+    of the JAX package's MXU predictor of the same name, which finds each
+    row's leaf by exact one-hot contractions; the port finds the same leaf
+    by the exact gather walk of ops/predict.py (no matmul, so no TF32
+    question), then adds the trees' f32 leaf values one tree at a time in
+    tree order, as the JAX predictor's scan does. Linear leaves are not
+    supported (use the host path)."""
+    from ..ops.predict import predict_leaves_packed
+    K = num_class_models
+    if tables is None:
+        tables = build_device_tables(trees, K, device)
+    pa = tables[0]
+    dev = pa.leaf_value.device
+    T = pa.node_start.shape[0]
+    N = X.shape[0]
+    Xd = torch.as_tensor(np.asarray(X, np.float32)) \
+        if not isinstance(X, torch.Tensor) else X.to(torch.float32)
+    rows = max(1, min(int(chunk), _WALK_CELLS // max(T, 1)))
+    out = torch.empty((K, N), dtype=torch.float32, device=dev)
+    for c0 in range(0, N, rows):
+        xc = Xd[c0:c0 + rows].to(dev)
+        lv = pa.leaf_value[predict_leaves_packed(pa, xc)]      # [n, T]
+        for k in range(K):
+            acc = torch.zeros(xc.shape[0], dtype=torch.float32, device=dev)
+            for t in range(k, T, K):
+                acc = acc + lv[:, t]
+            out[k, c0:c0 + xc.shape[0]] = acc
+    return out.cpu().numpy().astype(np.float64)

@@ -1,7 +1,8 @@
-"""Hopper kernels of the training path, their wrappers and plain versions.
+"""Hopper kernels of the port: the build, the launch counts, and the
+training path's wrappers and plain versions.
 
 Four CUDA kernels (``lightgbm_tpu_torch/csrc/*.cu``) replace the four Pallas
-kernels the JAX package runs on this path (lightgbm_tpu/ops/
+kernels the JAX package runs on the training path (lightgbm_tpu/ops/
 histogram_pallas.py):
 
   build_histogram_slots_cuda  K-slot histogram      <- build_histogram_slots_pallas
@@ -9,6 +10,10 @@ histogram_pallas.py):
   wave_pass_cuda              relabel + candidate membership + slot
                               histogram in one row sweep <- wave_pass_pallas
   wave_relabel_cuda           relabel only          <- wave_relabel_pallas
+
+A fifth, the bucketize kernel of device binning (``csrc/bucketize.cu`` <-
+lightgbm_tpu/ops/bucketize.py::_bucketize_pallas), is built and counted
+here too; its wrapper and plain version live in ``ops/bucketize.py``.
 
 Each kernel is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface (one library per source, all built in parallel on
@@ -35,6 +40,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Optional, Tuple
@@ -44,7 +50,8 @@ import torch
 LAUNCHES: Dict[str, int] = {"build_histogram_slots": 0,
                             "take_leaf_values": 0,
                             "wave_pass": 0,
-                            "wave_relabel": 0}
+                            "wave_relabel": 0,
+                            "bucketize": 0}
 
 # kernel name -> (source file, C entry point)
 KERNELS = {
@@ -52,6 +59,7 @@ KERNELS = {
     "take_leaf_values": ("take_leaf_values.cu", "lgbt_take_leaf_values"),
     "wave_pass": ("wave_pass.cu", "lgbt_wave_pass"),
     "wave_relabel": ("wave_relabel.cu", "lgbt_wave_relabel"),
+    "bucketize": ("bucketize.cu", "lgbt_bucketize"),
 }
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -65,6 +73,10 @@ MAX_WAVE_FEATURES = 32  # the packed table entry holds feat & 31
 MAX_SLOTS = 128         # LGBT_T_ENTRIES in csrc/wave_table.cuh
 MAX_LEAVES = 4096       # LGBT_LEAF_CAP in csrc/wave_table.cuh
 T_ROWS = 16             # rows of the semantic wave table
+
+# one build at a time per process: a serving worker thread and the main
+# thread must not race the temporary files of a first-use build
+_BUILD_LOCK = threading.Lock()
 
 
 def reset_launch_counts() -> None:
@@ -98,6 +110,11 @@ def build_kernels() -> Dict[str, dict]:
     source, all started together. Returns {name: {"path", "seconds",
     "log"}} where ``log`` is nvcc's output (``-Xptxas -v`` register and
     shared-memory counts) for the sources built by this call."""
+    with _BUILD_LOCK:
+        return _build_kernels()
+
+
+def _build_kernels() -> Dict[str, dict]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = _source_tag()
     procs, out = {}, {}
@@ -138,6 +155,7 @@ def _lib(name: str):
         "take_leaf_values": [P, I, P, P, LL, I, P],
         "wave_pass": [P, P, I, P, P, P, P, P, LL, I, I, I, I, I, I, P],
         "wave_relabel": [P, P, P, P, LL, I, I, I, P],
+        "bucketize": [P, LL, LL, P, I, P, P, P, I, P, LL, LL, I, P],
     }[name]
     return fn
 

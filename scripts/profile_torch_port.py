@@ -1,12 +1,20 @@
 #!/usr/bin/env python3
-"""Where one training iteration of the PyTorch/CUDA port spends its time.
+"""Where the PyTorch/CUDA port spends its time: ingest, a training
+iteration, and a served batch.
 
     python3 scripts/profile_torch_port.py [--rows N] [--iters K] [--trace F]
 
-Trains bench.py's model (binary, 255 leaves, max_bin 63, 28 features,
-numpy seed 42) with lightgbm_tpu_torch on the first CUDA device and prints
-JSON lines:
+Builds bench.py's data (28 f32 features, numpy seed 42), ingests it with
+binning_impl=auto, trains bench.py's model (binary, 255 leaves, max_bin
+63) with lightgbm_tpu_torch on the first CUDA device, serves it, and
+prints JSON lines:
 
+  ingest     Dataset construction on the device route, with its stages
+             wrapped in synchronized host timers: bin mappers (row sample
+             and find_bin), the chunked upload + bucketize (and the
+             kernel launches inside it), the bundle search and metadata,
+             and the rest (the one copy of the binned matrix back to the
+             host among it)
   steady     wall ms per iteration over K iterations after two warm-up
              iterations (host clock around work that ends in a synchronize)
   profile    torch.profiler over K iterations: device-busy ms per iteration
@@ -19,8 +27,15 @@ JSON lines:
              root histogram, the wave kernels, the split search, the
              objective, the score update, and everything else
 
-`--trace F` writes the chrome trace of the profiled window to F. Exits 2
-without a CUDA device.
+  serve      after the iterations: the binned engine (max_batch 256) on
+             raw f32 requests of 1, 32 and 256 rows, and the device engine
+             on 256 rows; per request size the host-clock ms per request
+             and, under torch.profiler, the device-busy ms, the device
+             idle share, GPU operations per request and the bucketize
+             kernel's device ms
+
+`--trace F` writes the chrome trace of the profiled training window to F.
+Exits 2 without a CUDA device.
 """
 
 import argparse
@@ -37,6 +52,87 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+def ingest_phase(torch, lt, X, y, params):
+    """Dataset construction with its stages timed (synchronized)."""
+    from lightgbm_tpu_torch.data import dataset as ds_mod
+    from lightgbm_tpu_torch.ops import bucketize as bk
+    spent = defaultdict(float)
+
+    def timed(stage, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent[stage] += time.perf_counter() - t
+            return out
+        return run
+
+    patches = [(ds_mod, "_fit_or_adopt_mappers", "bin mappers"),
+               (ds_mod, "_finalize", "bundle search + metadata"),
+               (bk, "bin_rows_device", "upload + bucketize"),
+               (bk, "bucketize_rows", "bucketize kernel launches")]
+    saved = [(m, n, getattr(m, n)) for m, n, _ in patches]
+    try:
+        for m, n, stage in patches:
+            setattr(m, n, timed(stage, getattr(m, n)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ds = lt.Dataset(X, label=y, params=params).construct()
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+    ms = {k: v * 1e3 for k, v in spent.items()}
+    ms["other (row sample, copy back, allocation)"] = total * 1e3 - sum(
+        v for k, v in ms.items() if k != "bucketize kernel launches")
+    emit({"phase": "ingest", "route": ds._handle.binning_route,
+          "total_ms": total * 1e3, "ms": ms})
+    return ds
+
+
+def serve_phase(torch, bst, X):
+    """Per request size: host-clock ms per request, and device time under
+    the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    out = []
+    for engine, sizes in (("binned", (1, 32, 256)), ("device", (256,))):
+        sess = bst.serve(engine=engine, max_batch=256, warmup=True)
+        for b in sizes:
+            rows = [X[i * b:(i + 1) * b] for i in range(50)]
+            for r in rows[:5]:
+                sess.predict(r)
+            t0 = time.perf_counter()
+            for r in rows:
+                sess.predict(r)
+            wall = (time.perf_counter() - t0) * 1e3 / len(rows)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for r in rows:
+                    sess.predict(r)
+                pwall = (time.perf_counter() - t0) * 1e3 / len(rows)
+            busy = kern = 0.0
+            n_ops = 0
+            for ev in prof.events():
+                if ev.device_type == torch.autograd.DeviceType.CUDA:
+                    t = ev.time_range.elapsed_us() / 1e3
+                    busy += t
+                    n_ops += 1
+                    if "bucketize" in ev.name:
+                        kern += t
+            out.append({"engine": engine, "rows": b,
+                        "ms_per_request": wall,
+                        "profiled_ms_per_request": pwall,
+                        "device_busy_ms": busy / len(rows),
+                        "device_idle_share": 1.0 - busy / len(rows) / pwall,
+                        "gpu_ops_per_request": n_ops / len(rows),
+                        "bucketize_kernel_ms": kern / len(rows),
+                        "walk_steps": sess._pa.depth})
+    emit({"phase": "serve", "requests": out})
 
 
 def main():
@@ -63,8 +159,9 @@ def main():
         .astype(np.float32)
     params = dict(objective="binary", num_leaves=255, max_bin=63,
                   learning_rate=0.1, min_data_in_leaf=20, verbose=-1,
-                  bagging_freq=0, binning_impl="host", device_type="cuda")
-    bst = lt.Booster(params, lt.Dataset(X, label=y, params=params))
+                  bagging_freq=0, binning_impl="auto", device_type="cuda")
+    ingest_phase(torch, lt, X[:1 << 16], y[:1 << 16], params)  # warm-up
+    bst = lt.Booster(params, ingest_phase(torch, lt, X, y, params))
     for _ in range(2):
         bst.update()
     torch.cuda.synchronize()
@@ -148,6 +245,7 @@ def main():
         (total - sum(spent.values())) * 1e3 / args.iters
     emit({"phase": "stages", "wall_ms_per_iter": total * 1e3 / args.iters,
           "ms_per_iter": stages})
+    serve_phase(torch, bst, X)
     return 0
 
 

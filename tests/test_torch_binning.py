@@ -105,3 +105,62 @@ def test_value_to_bin_matches_on_raw_values():
                                 [np.nan, 0.0, -0.0, 1e30, -1e30]])
         np.testing.assert_array_equal(mj.value_to_bin(probe),
                                       mt.value_to_bin(probe))
+
+
+# ---------------------------------------------------------------------------
+# device binning at ingest (ops/bucketize.py): on device_type="cpu" the
+# device route runs the kernel's plain version
+# ---------------------------------------------------------------------------
+def _construct(X, params):
+    y = (np.nan_to_num(X[:, 0]) > 0).astype(np.float32)
+    return lt.Dataset(X, label=y, params={"device_type": "cpu",
+                                          "verbose": -1, **params}
+                      ).construct()._handle
+
+
+@pytest.mark.parametrize("max_bin", [63, 255, 15])
+def test_device_route_equals_host_route_and_jax(max_bin):
+    X = _matrix(max_bin + 100)
+    dev = _construct(X, {"max_bin": max_bin, "binning_impl": "device"})
+    host = _construct(X, {"max_bin": max_bin, "binning_impl": "host"})
+    assert (dev.binning_route, host.binning_route) == ("device", "host")
+    np.testing.assert_array_equal(dev.X_binned, host.X_binned)
+    np.testing.assert_array_equal(dev.X_t.numpy(), host.X_t.numpy())
+    y = (np.nan_to_num(X[:, 0]) > 0).astype(np.float32)
+    dj = lj.Dataset(X, label=y, params={"max_bin": max_bin, "verbose": -1,
+                                        "binning_impl": "device"}).construct()
+    np.testing.assert_array_equal(dev.X_binned, dj._handle.X_binned)
+
+
+def test_device_route_valid_set_and_auto_on_cpu():
+    X = _matrix(6)
+    dtr = lt.Dataset(X, label=X[:, 2] > 1, params={
+        "device_type": "cpu", "max_bin": 63, "binning_impl": "device",
+        "verbose": -1})
+    Xv = _matrix(7, n=900)
+    dva = lt.Dataset(Xv, reference=dtr, params=dtr.params).construct()
+    assert dva._handle.binning_route == "device"
+    host = _construct(Xv, {"max_bin": 63, "binning_impl": "host"})
+    # the valid set reuses the training mappers: compare against a host
+    # construct of the same rows through the same mappers
+    ref = np.stack([m.value_to_bin(np.asarray(Xv[:, o], np.float64))
+                    for m, o in zip(dtr._handle.mappers,
+                                    dtr._handle.real_feature_index)], 1)
+    np.testing.assert_array_equal(dva._handle.X_binned, ref)
+    assert host.binning_route == "host"
+    # auto resolves to the host route on the CPU
+    assert _construct(X, {"max_bin": 63}).binning_route == "host"
+
+
+def test_device_route_refusals():
+    X = _matrix(8)
+    with pytest.raises(ValueError, match="float32"):
+        _construct(X.astype(np.float64), {"binning_impl": "device"})
+    # 300 bins do not fit the uint8 table: explicit device raises
+    rng = np.random.RandomState(0)
+    W = rng.normal(size=(3000, 3)).astype(np.float32)
+    with pytest.raises(ValueError, match="overflow uint8"):
+        _construct(W, {"binning_impl": "device", "max_bin": 300,
+                       "min_data_in_bin": 1})
+    with pytest.raises(NotImplementedError, match="ROADMAP item A14"):
+        _construct(X, {"autotune": True})

@@ -42,6 +42,9 @@ def test_no_jax_or_reference_import(path):
 def test_import_leaves_jax_unloaded():
     code = ("import sys, lightgbm_tpu_torch, lightgbm_tpu_torch.convert\n"
             "import lightgbm_tpu_torch.ops.histogram_cuda\n"
+            "import lightgbm_tpu_torch.ops.bucketize\n"
+            "import lightgbm_tpu_torch.ops.predict_binned\n"
+            "import lightgbm_tpu_torch.serving\n"
             "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', "
             "'lightgbm_tpu') or m.startswith(('jax.', 'jaxlib.', "
             "'lightgbm_tpu.'))]\n"

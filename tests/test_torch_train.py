@@ -197,7 +197,7 @@ def test_valid_sets_early_stopping_and_logging(data):
     ({"tpu_grower": "compact"}, "A11"),
     ({"tpu_grower": "wave_exact"}, "A11"),
     ({"histogram_impl": "rowwise"}, "A14"),
-    ({"binning_impl": "device"}, "A13"),
+    ({"binning_impl": "auto", "autotune": True}, "A14"),
     ({"use_quantized_grad": True}, "A8"),
     ({"monotone_constraints": [1, 0, 0, 0, 0, 0, 0, 0]}, "A10"),
     ({"interaction_constraints": [[0, 1]]}, "A10"),
