@@ -40,8 +40,33 @@ Phases, each printing one JSON line:
                host walk
   8. train on  8 more rounds of the same Booster through update_batch must
                lift train AUC past 0.9
+  9. the wave-apply route (wide, categorical and EFB data):
+     wave_apply      the wave_apply kernel against its plain version,
+                     bitwise, at 2^20 rows, Kd in {16, 128}
+     criteo          the Criteo-shaped table (lightgbm_tpu_torch/utils/
+                     synthetic.py: 2^20 x 39, 26 categorical columns,
+                     max_bin 255) ingested on the device route (X_t
+                     bitwise equal to the host route) and trained 8 rounds
+                     on the apply route: wave_apply and the slot histogram
+                     launch, wave_pass and wave_relabel do not; train AUC
+                     never falls between rounds and passes CRITEO_AUC_MIN;
+                     the first tree equals the plain versions' tree
+     row-wise        the row-wise kernels (plain and nibble-packed) against
+                     their plain versions, bitwise, on the Criteo storage
+                     at K in {1, 16, 128}, and against the col-wise slot
+                     kernel; then 2 rounds under force_row_wise and 2
+                     under histogram_impl=rowwise_packed grow the col-wise
+                     run's first two trees
+     criteo serve    the Criteo model through the binned engine on raw f32
+                     rows with unseen, negative and NaN categories:
+                     bitwise equal to the f64 route and the device engine,
+                     within 1e-5 of Booster.predict
+     efb             2^19 rows of 30 one-hot sparse and 30 dense columns,
+                     4 rounds: bundles form, the apply route runs, the
+                     first tree equals the plain versions'
 
-then a {"kernels": [...]} line, the nvidia-smi line, and last
+then a {"kernels": [...]} line (the eight kernels), the nvidia-smi line,
+and last
 {"ok": true, "device": {...}}. Any failed check raises before the last
 line and the exit code is not 0. Without a CUDA device, or without the
 package beside this script, it exits with 2 and prints no result.
@@ -58,6 +83,11 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 N_ROWS, N_FEAT, N_BINS, N_CH, N_LEAVES = 1 << 20, 28, 64, 2, 255
+# train AUC after 8 rounds of the Criteo-shaped table at 2^20 rows: the
+# port on the CPU reaches CRITEO_AUC_CPU (plain versions); the card must
+# pass CRITEO_AUC_MIN
+CRITEO_AUC_CPU = 0.7982
+CRITEO_AUC_MIN = 0.79
 
 
 def emit(obj):
@@ -502,6 +532,390 @@ def serve_phase(lt, hc, torch, bst, X, Xt):
     return serve_launches
 
 
+# ---------------------------------------------------------------------------
+# the wave-apply route (wide / categorical / EFB data)
+# ---------------------------------------------------------------------------
+def _grid_vals(torch, gen, C, N, dev):
+    """f32 values on a 1/1024 grid in [-8, 8): every f64 sum of up to 2^20
+    of them is exact, so kernel and plain version agree bitwise whatever
+    the order of the atomics."""
+    v = torch.randint(-8192, 8192, (C, N), generator=gen, device=dev,
+                      dtype=torch.int32).to(torch.float32) / 1024.0
+    v[1] = v[1].abs()
+    return v
+
+
+def wave_apply_phase(hc, torch, dev):
+    """The wave_apply kernel against its plain version, bitwise, at
+    N = 2^20 rows, L = 255 leaves, Kd in {16, 128}: a mid-tree wave of
+    min(Kd, 64) applied splits among 120 leaves and Kd candidates among
+    the leaves after them, random decision bits."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    N, L, nl0 = N_ROWS, N_LEAVES, 120
+    lor = torch.randint(0, nl0, (N,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    rng = np.random.RandomState(13)
+    recs = {}
+    for Kd in (16, 128):
+        napp = min(Kd, 64)
+        t = np.full((16, 128), -1, np.int32)
+        t[0, :napp] = rng.choice(nl0, napp, replace=False)
+        t[7, :Kd] = rng.choice(nl0 + napp, Kd, replace=False)
+        t[15] = nl0
+        tbl = torch.from_numpy(t).to(dev)
+        dec = torch.randint(0, 4, (Kd, N), generator=gen, device=dev,
+                            dtype=torch.int32).to(torch.int8)
+        got = hc.wave_apply_cuda(dec, lor, tbl, L)
+        ref = hc.wave_apply_plain(dec, lor, tbl, L)
+        torch.cuda.synchronize()
+        check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
+              f"wave_apply Kd={Kd}: not bitwise equal")
+        # bytes this data needs: leaf ids in, new leaf ids and slots out,
+        # one dec byte per row in an applied leaf and per row in a
+        # candidate leaf after the relabel
+        app_rows = int(torch.isin(lor, tbl[0, :napp]).sum())
+        cand_rows = int(torch.isin(ref[0], tbl[7, :Kd]).sum())
+        nbytes = 12 * N + app_rows + cand_rows + 16 * 128 * 4
+        bms, by = bound_ms(nbytes, 0)
+        ms = time_ms(lambda: hc.wave_apply_cuda(dec, lor, tbl, L), 50)
+        plain_ms = time_ms(lambda: hc.wave_apply_plain(dec, lor, tbl, L),
+                           5)
+        rec = dict(name="wave_apply", Kd=Kd, L=L, max_abs_err=0.0, tol=0.0,
+                   ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bms,
+                   bound_by=by, bound_us=bms * 1e3,
+                   slots=int((ref[1] >= 0).sum()))
+        emit({"phase": "kernels", "kernel_ms": ms, **rec})
+        recs[Kd] = rec
+        del dec
+    return recs[128]
+
+
+def rowwise_phase(hc, hr, torch, dev, X_t, tiers, B):
+    """The row-wise histogram kernels against their plain versions at the
+    Criteo storage (X_t [39, 2^20], its own bin counts), K in {1, 16, 128},
+    bitwise: f32 values on an exact grid, and int8 values (exact int32).
+    The packed kernel is also held to the unpacked one, and the expanded
+    flat buffer to the col-wise slot kernel at B, which the apply route
+    launches on the same storage (timed too). Times each kernel, its plain
+    version and one index_add_ over the flat indices."""
+    from lightgbm_tpu_torch.ops.split import expand_feature_offset_hist
+    gen = torch.Generator(device=dev).manual_seed(10)
+    F, N = X_t.shape
+    C = 2
+    plan = hr.build_rowwise_plan(tuple(tiers))
+    pplan = hr.build_pack4_plan(tuple(tiers))
+    check(hr.pack4_worthwhile(pplan), "Criteo storage has < 2 nibble columns")
+    Xp, Xu = hr.pack4(X_t, pplan)
+    check(torch.equal(hr.unpack4(Xp, Xu, pplan), X_t),
+          "pack4 / unpack4 do not round-trip the storage")
+    vals = _grid_vals(torch, gen, C, N, dev)
+    vals8 = torch.randint(-127, 128, (C, N), generator=gen, device=dev,
+                          dtype=torch.int32).to(torch.int8)
+    offs = torch.tensor(plan.offsets, device=dev)[:, None]
+    wid = torch.tensor(plan.widths, device=dev)[:, None]
+    recs = {"hist_rowwise": {}, "hist_rowwise_packed": {}}
+    for K in (1, 16, 128):
+        slot = (None if K == 1 else torch.randint(
+            -1, K, (N,), generator=gen, device=dev, dtype=torch.int32))
+        args = (slot, K, plan)
+        got = hr.hist_rowwise_cuda(X_t, vals, *args)
+        ref = hr.hist_rowwise_plain(X_t, vals, *args)
+        gotp = hr.hist_rowwise_packed_cuda(Xp, Xu, vals, *args, pplan)
+        refp = hr.hist_rowwise_packed_plain(Xp, Xu, vals, *args, pplan)
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref), f"hist_rowwise K={K}: not bitwise")
+        check(torch.equal(gotp, refp) and torch.equal(gotp, got),
+              f"hist_rowwise_packed K={K}: not bitwise")
+        cw = hc.build_histogram_slots_cuda(X_t, vals, slot, K, B)
+        check(torch.equal(expand_feature_offset_hist(
+            got, plan.offsets, plan.widths, B), cw),
+            f"hist_rowwise K={K}: expanded buffer differs from the col-wise "
+            f"slot histogram")
+        g8 = hr.hist_rowwise_cuda(X_t, vals8, *args)
+        check(g8.dtype == torch.int32 and torch.equal(
+            g8, hr.hist_rowwise_plain(X_t, vals8, *args)) and torch.equal(
+            hr.hist_rowwise_packed_cuda(Xp, Xu, vals8, *args, pplan), g8),
+            f"hist_rowwise int8 K={K}: not bitwise")
+        # library yardstick: one index_add_ over the flat indices
+        s64 = (torch.zeros(N, dtype=torch.int64, device=dev) if slot is None
+               else slot.to(torch.int64))
+        keep = s64 >= 0
+        rows = int(keep.sum())
+        b = X_t[:, keep].to(torch.int64)
+        ok = (b < wid).reshape(-1)
+        c_ix = torch.arange(C, device=dev)[:, None, None]
+        flat = ((s64[keep][None, None, :] * C + c_ix) * plan.total
+                + (offs + b)[None]).reshape(C, -1)[:, ok].reshape(-1)
+        lv = vals[:, None, keep].expand(C, F, rows).reshape(C, -1)[:, ok] \
+            .reshape(-1)
+        acc = torch.zeros(K * C * plan.total, device=dev)
+        lib_ms = time_ms(lambda: acc.index_add_(0, flat, lv), 20)
+        del flat, lv, acc, b
+        out_bytes = K * C * plan.total * 4
+        slot_bytes = 0 if slot is None else 4 * N
+        # the col-wise slot kernel at the apply route's shape
+        ms = time_ms(lambda: hc.build_histogram_slots_cuda(
+            X_t, vals, slot, K, B), 20)
+        bms, by = bound_ms(slot_bytes + rows * (F + 4 * C)
+                           + K * C * F * B * 4, rows * F * C)
+        emit({"phase": "kernels", "kernel_ms": ms,
+              "name": "build_histogram_slots", "shape": "criteo", "K": K,
+              "F": F, "B": B, "max_abs_err": 0.0, "ms": ms,
+              "bound_ms": bms, "bound_by": by, "library_ms": lib_ms})
+        for name, fn, pfn, xin in (
+                ("hist_rowwise", lambda: hr.hist_rowwise_cuda(
+                    X_t, vals, *args),
+                 lambda: hr.hist_rowwise_plain(X_t, vals, *args), F),
+                ("hist_rowwise_packed", lambda: hr.hist_rowwise_packed_cuda(
+                    Xp, Xu, vals, *args, pplan),
+                 lambda: hr.hist_rowwise_packed_plain(
+                     Xp, Xu, vals, *args, pplan),
+                 Xp.shape[0] + pplan.n_rest)):
+            ms = time_ms(fn, 20)
+            plain_ms = time_ms(pfn, 3, 1)
+            bms, by = bound_ms(slot_bytes + rows * (xin + 4 * C)
+                               + out_bytes, rows * F * C)
+            rec = dict(name=name, K=K, F=F, total=plan.total,
+                       max_abs_err=0.0, tol=0.0, ms=ms, plain_ms=plain_ms,
+                       library_ms=lib_ms, bound_ms=bms, bound_by=by,
+                       bound_us=bms * 1e3)
+            emit({"phase": "kernels", "kernel_ms": ms, **rec})
+            recs[name][K] = rec
+    return {name: r[16] for name, r in recs.items()}
+
+
+def _same_host_tree(a, b):
+    """Structure, thresholds and categorical bitsets equal; leaf values'
+    largest difference (None when the structure differs)."""
+    keys = ("split_feature", "threshold_in_bin", "decision_type",
+            "left_child", "right_child", "cat_boundaries", "cat_threshold")
+    same = a.num_leaves == b.num_leaves and a.num_cat == b.num_cat and all(
+        np.array_equal(getattr(a, k), getattr(b, k)) for k in keys)
+    return (float(np.max(np.abs(a.leaf_value - b.leaf_value)))
+            if same else None)
+
+
+def _plain_first_tree(torch, gbdt, n):
+    """The first tree again from the same gradients, grown with the
+    kernels' plain versions on the card."""
+    from lightgbm_tpu_torch.ops.grow_wave import grow_tree_wave
+    init = float(gbdt.objective.boost_from_score(0))
+    s0 = torch.full((n,), float(np.float32(init)), device=gbdt.X_t.device)
+    g, h = gbdt.objective.get_gradients(s0, gbdt.label_dev, gbdt.weight_dev)
+    tp, _ = grow_tree_wave(gbdt.X_t, g, h, gbdt._in_bag, gbdt.meta,
+                           gbdt.grow_cfg, None, hist_plan=gbdt.hist_plan,
+                           plain=True)
+    t = gbdt._device_tree_to_host(tp)
+    t.add_bias(init)
+    return t
+
+
+def criteo_phase(lt, hc, torch, dev):
+    """Ingest the Criteo-shaped table on the device route, train 8 rounds
+    on the wave-apply route, and hold the first tree to the plain
+    versions'. Returns (booster, dataset, held-out rows, launches)."""
+    from lightgbm_tpu_torch.utils.synthetic import (CRITEO_CAT_COLUMNS,
+                                                    criteo_like)
+    X, y = criteo_like(N_ROWS)
+    params = dict(objective="binary", num_leaves=N_LEAVES, max_bin=255,
+                  learning_rate=0.1, min_data_in_leaf=20, verbose=-1,
+                  bagging_freq=0, binning_impl="auto", device_type="cuda",
+                  metric="auc")
+    cats = list(CRITEO_CAT_COLUMNS)
+    hc.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ds = lt.Dataset(X, label=y, categorical_feature=cats,
+                    params=params).construct()
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    ingest_launches = dict(hc.LAUNCHES)
+    hh = lt.Dataset(X, label=y, categorical_feature=cats, params={
+        **params, "binning_impl": "host"}).construct()._handle
+    h = ds._handle
+    same_xt = torch.equal(h.X_t, hh.X_t) and np.array_equal(h.X_binned,
+                                                            hh.X_binned)
+    emit({"phase": "criteo_ingest", "rows": N_ROWS, "features": X.shape[1],
+          "categorical": len(cats), "route": h.binning_route,
+          "ingest_s": ingest_s, "launches": ingest_launches,
+          "bundled": h.bundles is not None,
+          "storage_num_bins": h.storage_num_bins(),
+          "X_t_bitwise_host_route": same_xt})
+    check(h.binning_route == "device" and ingest_launches["bucketize"] > 0,
+          "the Criteo ingest did not take the device route")
+    check(same_xt, "Criteo device-route X_t differs from the host route")
+    del hh
+
+    ends, resumes, aucs = [], [], []
+
+    def stamp(env):
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        aucs.append(env.model.eval_train()[0][2])
+        resumes.append(time.perf_counter())
+    stamp.order = 5
+
+    hc.reset_launch_counts()
+    torch.cuda.synchronize()
+    t_train = time.perf_counter()
+    bst = lt.train(params, ds, num_boost_round=8, callbacks=[stamp])
+    torch.cuda.synchronize()
+    launches = dict(hc.LAUNCHES)
+    iter_ms = [(b - a) * 1e3 for a, b in zip([t_train] + resumes[:-1],
+                                             ends)]
+    g = bst._gbdt
+    trees = g.models
+    emit({"phase": "criteo_train", "rows": N_ROWS, "iterations": len(trees),
+          "grow_route": g.grow_route, "hist_route": g.hist_route,
+          "num_bins_padded": g.num_bins_padded, "iter_ms": iter_ms,
+          "steady_ms_per_iter": float(np.mean(iter_ms[1:])),
+          "launches": launches, "train_auc_per_round": aucs,
+          "leaves": [t.num_leaves for t in trees],
+          "categorical_splits": [t.num_cat for t in trees]})
+    check(g.grow_route == "apply" and g.hist_route == "slots",
+          f"Criteo trained on route {g.grow_route}/{g.hist_route}")
+    check(launches["wave_apply"] > 0 and launches["build_histogram_slots"]
+          > 0, "the apply route never launched wave_apply / the histogram")
+    check(launches["wave_pass"] == 0 and launches["wave_relabel"] == 0,
+          "the apply route launched the megakernel")
+    check(all(b >= a for a, b in zip(aucs, aucs[1:])),
+          f"train AUC fell between rounds: {aucs}")
+    # 2^20 rows on the CPU reach a train AUC of CRITEO_AUC_CPU after 8
+    # rounds; the card must reach the same level
+    check(len(trees) == 8 and aucs[-1] > CRITEO_AUC_MIN,
+          f"Criteo train AUC {aucs[-1]} <= {CRITEO_AUC_MIN}")
+    check(sum(t.num_cat for t in trees) > 0, "no categorical split grown")
+
+    t_plain = _plain_first_tree(torch, g, N_ROWS)
+    lv_err = _same_host_tree(t_plain, trees[0])
+    emit({"phase": "criteo_first_tree", "same_structure": lv_err is not None,
+          "leaves": trees[0].num_leaves, "num_cat": trees[0].num_cat,
+          "leaf_value_max_abs_err": lv_err})
+    check(lv_err is not None, "Criteo first tree differs from the plain "
+                              "versions' tree")
+    check(lv_err <= 1e-6, f"Criteo first tree leaf values differ by {lv_err}")
+    return bst, ds, launches
+
+
+def rowwise_runs_phase(lt, hc, torch, bst, ds):
+    """2 rounds with force_row_wise=true and 2 with
+    histogram_impl=rowwise_packed on the Criteo dataset: their trees are
+    the col-wise run's first two. Returns the launches of each run."""
+    base = bst._gbdt.models[:2]
+    out = {}
+    for over, route, kern in (
+            ({"force_row_wise": True}, "rowwise", "hist_rowwise"),
+            ({"histogram_impl": "rowwise_packed"}, "rowwise_packed",
+             "hist_rowwise_packed")):
+        params = {**bst.params, **over}
+        hc.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b2 = lt.train(params, ds, num_boost_round=2)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(hc.LAUNCHES)
+        g2 = b2._gbdt
+        errs = [_same_host_tree(a, b) for a, b in zip(g2.models, base)]
+        emit({"phase": "criteo_" + route, "grow_route": g2.grow_route,
+              "hist_route": g2.hist_route, "rounds": len(g2.models),
+              "wall_s": wall, "launches": launches,
+              "same_trees_as_colwise": all(e is not None for e in errs),
+              "leaf_value_max_abs_err": errs})
+        check(g2.grow_route == "apply" and g2.hist_route == route,
+              f"{over} trained on route {g2.grow_route}/{g2.hist_route}")
+        check(launches[kern] > 0 and launches["wave_apply"] > 0,
+              f"{over}: {kern} / wave_apply never launched")
+        check(launches["build_histogram_slots"] == 0
+              and launches["wave_pass"] == 0,
+              f"{over}: a col-wise histogram kernel launched")
+        check(len(g2.models) == 2 and all(e is not None and e <= 1e-6
+                                          for e in errs),
+              f"{over}: trees differ from the col-wise run ({errs})")
+        out[kern] = launches
+        del b2, g2
+    return out
+
+
+def criteo_serve_phase(hc, torch, bst):
+    """The Criteo model served by the binned engine on raw f32 rows that
+    hold unseen, negative and NaN categories: bitwise equal to the f64
+    route and the device engine, within 1e-5 of Booster.predict."""
+    from lightgbm_tpu_torch.utils.synthetic import (CRITEO_CAT_COLUMNS,
+                                                    criteo_like)
+    Xs, _ = criteo_like(4096, seed=8)
+    rng = np.random.RandomState(18)
+    cats = np.asarray(CRITEO_CAT_COLUMNS)
+    for vals in ((1000.0, 5000.0, 251.0), (-1.0, -7.0, -0.5), (np.nan,)):
+        m = rng.rand(len(Xs), len(cats)) < 0.03
+        pick = rng.choice(np.asarray(vals, np.float32), size=m.shape)
+        sub = Xs[:, cats]
+        sub[m] = pick[m]
+        Xs[:, cats] = sub
+    hc.reset_launch_counts()
+    sess = bst.serve(engine="binned", max_batch=256, warmup=True)
+    check(sess.cache_info()["device_binning"],
+          "the Criteo binned session has no device bin table")
+    raw = sess.predict(Xs, raw_score=True)
+    launches = dict(hc.LAUNCHES)
+    f64 = sess.predict(Xs.astype(np.float64), raw_score=True)
+    devp = bst.serve(engine="device", max_batch=256).predict(
+        Xs, raw_score=True)
+    host = bst.predict(Xs, raw_score=True)
+    err = float(np.max(np.abs(raw - host)))
+    emit({"phase": "criteo_serve", "rows": len(Xs), "launches": launches,
+          "bitwise_f64_route": bool(np.array_equal(raw, f64)),
+          "bitwise_device_engine": bool(np.array_equal(raw, devp)),
+          "max_abs_err_vs_predict": err,
+          "host_fallbacks": sess.metrics.counters["host_fallbacks"]})
+    check(launches["bucketize"] > 0, "Criteo serving never bucketized")
+    check(np.array_equal(raw, f64), "Criteo raw-f32 route differs from f64")
+    check(np.array_equal(raw, devp), "Criteo binned engine differs from the "
+                                     "device engine")
+    check(err <= 1e-5, f"Criteo binned engine vs Booster.predict: {err}")
+    check(sess.metrics.counters["host_fallbacks"] == 0,
+          "a Criteo serving chunk fell back to the host")
+
+
+def efb_phase(lt, hc, torch):
+    """2^19 rows of 30 one-hot sparse and 30 dense columns, max_bin 63, 4
+    rounds: bundles form, the apply route runs, and the first tree equals
+    the plain versions'."""
+    from lightgbm_tpu_torch.utils.synthetic import efb_like
+    n = N_ROWS // 2
+    X, y = efb_like(n)
+    params = dict(objective="binary", num_leaves=N_LEAVES, max_bin=63,
+                  learning_rate=0.1, min_data_in_leaf=20, verbose=-1,
+                  bagging_freq=0, binning_impl="auto", device_type="cuda",
+                  metric="auc")
+    hc.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bst = lt.train(params, lt.Dataset(X, label=y, params=params),
+                   num_boost_round=4)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(hc.LAUNCHES)
+    g = bst._gbdt
+    ds = bst.train_set._handle
+    lv_err = _same_host_tree(_plain_first_tree(torch, g, n), g.models[0])
+    emit({"phase": "efb", "rows": n, "features": X.shape[1],
+          "storage_columns": int(g.X_t.shape[0]),
+          "bundles": len(ds.bundles or []),
+          "multi_feature_bundles": sum(len(b) > 1 for b in ds.bundles or []),
+          "grow_route": g.grow_route, "hist_route": g.hist_route,
+          "wall_s": wall, "launches": launches,
+          "train_auc": bst.eval_train()[0][2],
+          "first_tree_same": lv_err is not None,
+          "leaf_value_max_abs_err": lv_err})
+    check(ds.bundles is not None and g.X_t.shape[0] < X.shape[1],
+          "EFB formed no bundles")
+    check(g.grow_route == "apply" and launches["wave_apply"] > 0,
+          "the EFB run did not take the apply route")
+    check(lv_err is not None and lv_err <= 1e-6,
+          f"EFB first tree differs from the plain versions' ({lv_err})")
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -513,6 +927,7 @@ def main():
         import lightgbm_tpu_torch as lt
         from lightgbm_tpu_torch.ops import bucketize as bk
         from lightgbm_tpu_torch.ops import histogram_cuda as hc
+        from lightgbm_tpu_torch.ops import histogram_rowwise as hr
     except ImportError as e:
         print(f"chip_smoke: the lightgbm_tpu_torch package is not beside "
               f"this script ({e})", file=sys.stderr)
@@ -612,28 +1027,14 @@ def main():
     # the first tree again, from the same gradients, with the plain
     # versions on the card: kernels and plain versions accumulate in f64,
     # so the histograms and therefore the trees must agree
-    from lightgbm_tpu_torch.ops.grow_wave import grow_tree_wave
-    init = float(gbdt.objective.boost_from_score(0))
-    s0 = torch.full((N_ROWS,), float(np.float32(init)), device=dev)
-    g, hs = gbdt.objective.get_gradients(s0, gbdt.label_dev,
-                                         gbdt.weight_dev)
-    tp, _ = grow_tree_wave(gbdt.X_t, g, hs, gbdt._in_bag, gbdt.meta,
-                           gbdt.grow_cfg, None, plain=True)
-    t_plain = gbdt._device_tree_to_host(tp)
-    t_plain.add_bias(init)
     t_kern = trees[0]
-    same = (t_plain.num_leaves == t_kern.num_leaves
-            and all(np.array_equal(getattr(t_plain, a), getattr(t_kern, a))
-                    for a in ("split_feature", "threshold_in_bin",
-                              "left_child", "right_child")))
-    lv_err = float(np.max(np.abs(t_plain.leaf_value - t_kern.leaf_value))) \
-        if same else None
-    emit({"phase": "first_tree", "same_structure": same,
+    lv_err = _same_host_tree(_plain_first_tree(torch, gbdt, N_ROWS), t_kern)
+    emit({"phase": "first_tree", "same_structure": lv_err is not None,
           "leaves": t_kern.num_leaves, "leaf_value_max_abs_err": lv_err})
-    check(same, "first tree differs from the plain versions' tree")
+    check(lv_err is not None, "first tree differs from the plain versions' "
+                              "tree")
     # leaf values come from the same f32 split statistics: 1e-6 absolute
     check(lv_err <= 1e-6, f"first tree leaf values differ by {lv_err}")
-    del g, hs, s0
 
     # ---- 6. predict held-out rows, then again after a model text trip
     rng_t = np.random.RandomState(43)
@@ -669,21 +1070,43 @@ def main():
     check(bst.current_iteration == 16 and auc16 > 0.9,
           f"train AUC after 16 rounds {auc16} <= 0.9")
 
+    # ---- 9. the wave-apply route: the wave_apply kernel, the Criteo
+    # table trained col-wise, row-wise and nibble-packed, served, and EFB
+    krec["wave_apply"] = wave_apply_phase(hc, torch, dev)
+    bst_c, ds_c, c_launches = criteo_phase(lt, hc, torch, dev)
+    h_c = ds_c._handle
+    krec.update(rowwise_phase(hc, hr, torch, dev, bst_c._gbdt.X_t,
+                              h_c.storage_num_bins(),
+                              bst_c._gbdt.num_bins_padded))
+    rw_launches = rowwise_runs_phase(lt, hc, torch, bst_c, ds_c)
+    criteo_serve_phase(hc, torch, bst_c)
+    del bst_c, ds_c, h_c
+    efb_phase(lt, hc, torch)
+
     src = {"build_histogram_slots": "hist_slots.cu",
            "take_leaf_values": "take_leaf_values.cu",
            "wave_pass": "wave_pass.cu", "wave_relabel": "wave_relabel.cu",
-           "bucketize": "bucketize.cu"}
+           "bucketize": "bucketize.cu", "wave_apply": "wave_apply.cu",
+           "hist_rowwise": "hist_rowwise.cu",
+           "hist_rowwise_packed": "hist_rowwise.cu"}
     replaces = {
         "build_histogram_slots":
             "lightgbm_tpu/ops/histogram_pallas.py:280",
         "take_leaf_values": "lightgbm_tpu/ops/histogram_pallas.py:340",
         "wave_pass": "lightgbm_tpu/ops/histogram_pallas.py:562",
         "wave_relabel": "lightgbm_tpu/ops/histogram_pallas.py:718",
-        "bucketize": "lightgbm_tpu/ops/bucketize.py:351"}
+        "bucketize": "lightgbm_tpu/ops/bucketize.py:351",
+        "wave_apply": "lightgbm_tpu/ops/histogram_pallas.py:658",
+        "hist_rowwise": "lightgbm_tpu/ops/histogram_rowwise.py:213",
+        "hist_rowwise_packed": "lightgbm_tpu/ops/histogram_rowwise.py:431"}
     krec["bucketize"] = brec["train"]
     # the bucketize kernel's main-path launches: ingest plus serving
     launches["bucketize"] = ingest_launches["bucketize"] \
         + serve_launches["bucketize"]
+    # the apply route's kernels: launches on the Criteo run that takes them
+    launches["wave_apply"] = c_launches["wave_apply"]
+    for name in ("hist_rowwise", "hist_rowwise_packed"):
+        launches[name] = rw_launches[name][name]
     kernels = []
     for name in hc.KERNELS:
         r = krec[name]
@@ -694,7 +1117,8 @@ def main():
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "shape": {k: r[k] for k in ("K", "L", "n", "F", "B") if k in r},
+            "shape": {k: r[k] for k in ("K", "Kd", "L", "n", "F", "B",
+                                        "total") if k in r},
             "pass": True})
     emit({"kernels": kernels})
     for line in smi:

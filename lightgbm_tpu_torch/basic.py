@@ -57,10 +57,6 @@ class Dataset:
         if self._handle is not None:
             return self
         cfg = resolve_params(self.params)
-        if self.categorical_feature not in ("auto", None, "", []):
-            raise NotImplementedError(
-                "categorical features are not ported to lightgbm_tpu_torch "
-                "yet (ROADMAP item A9)")
         device = resolve_device(cfg.device_type)
         data = _to_2d_numpy(self.data)
         feature_names = None
@@ -78,11 +74,31 @@ class Dataset:
 
         self._handle = construct_from_matrix(
             data, cfg, label=vec(self.label), weight=vec(self.weight),
-            init_score=vec(self.init_score), feature_names=feature_names,
-            reference=ref_handle, device=device)
+            init_score=vec(self.init_score),
+            categorical_feature=self._cat_indices(feature_names),
+            feature_names=feature_names, reference=ref_handle,
+            device=device)
         if self.free_raw_data:
             self.data = None
         return self
+
+    def _cat_indices(self, feature_names: Optional[List[str]]) -> List[int]:
+        """Column indices of `categorical_feature`: indices, names of
+        `feature_names`, or a comma-separated string; "auto" (there is no
+        pandas category dtype here) and None mean none (JAX basic.py:266)."""
+        cats = self.categorical_feature
+        if cats == "auto" or cats is None:
+            return []
+        if isinstance(cats, str):
+            return [int(c) for c in cats.split(",") if c]
+        out: List[int] = []
+        for c in cats:
+            if isinstance(c, str):
+                if feature_names and c in feature_names:
+                    out.append(feature_names.index(c))
+            else:
+                out.append(int(c))
+        return out
 
     def create_valid(self, data, label=None, weight=None, init_score=None,
                      params=None) -> "Dataset":

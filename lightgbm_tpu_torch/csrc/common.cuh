@@ -12,7 +12,8 @@
 
 #define LGBT_MAX_C 4          // value channels a launch accepts
 #define LGBT_THREADS 256      // threads per block of every kernel here
-#define LGBT_SMEM_HIST_BYTES 32768  // private shared-memory histogram cap
+#define LGBT_SMEM_HIST_BYTES 32768  // private histogram at 4 blocks per SM
+#define LGBT_SMEM_OPTIN_BYTES (200 * 1024)  // largest a block opts into
 
 template <typename V> struct AccOf;
 template <> struct AccOf<float> { typedef double T; };
@@ -51,6 +52,13 @@ static __global__ void acc_to_f32_kernel(const double* __restrict__ acc,
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
        i += (long long)gridDim.x * blockDim.x)
     out[i] = (float)acc[i];
+}
+
+// blocks per SM whose private histograms of `bytes` fit in the SM's 228 KB
+// of shared memory together
+static inline int lgbt_smem_blocks_per_sm(size_t bytes) {
+  if (bytes <= LGBT_SMEM_HIST_BYTES) return 4;
+  return LGBT_SMEM_OPTIN_BYTES / bytes > 1 ? 2 : 1;
 }
 
 static inline int lgbt_grid(long long n, int num_sms, int per_sm) {

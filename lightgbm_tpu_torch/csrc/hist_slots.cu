@@ -11,10 +11,12 @@
 // word); the output is written once. What limits this kernel in practice is
 // the atomic throughput, F*C atomics per row. Design: when the K*C*F*B
 // accumulators fit in shared memory (the root histogram: K=1, C=2, F=28,
-// B=64 is 28 KB in f64), each block privatises them there and flushes once;
-// otherwise the atomics go to the global accumulators, which at K=128 (3.7
-// MB in f64) stay resident in the 50 MB L2. Float channels accumulate in
-// f64 (common.cuh), so the result does not depend on the order of the adds.
+// B=64 is 28 KB in f64; at F=39, B=256 it is 160 KB, which a block opts
+// into, up to LGBT_SMEM_OPTIN_BYTES), each block privatises them there and
+// flushes once; otherwise the atomics go to the global accumulators, which
+// at K=128 (3.7 MB in f64) stay resident in the 50 MB L2. Float channels
+// accumulate in f64 (common.cuh), so the result does not depend on the
+// order of the adds.
 #include "common.cuh"
 
 template <typename V, bool SMEM>
@@ -50,10 +52,15 @@ static void launch(const uint8_t* X, const V* vals, const int* slot,
                    typename AccOf<V>::T* acc, long long N, int F, int C,
                    int K, int B, int num_sms, cudaStream_t stream) {
   const size_t hbytes = (size_t)K * C * F * B * sizeof(typename AccOf<V>::T);
-  if (hbytes <= LGBT_SMEM_HIST_BYTES) {
+  if (hbytes <= LGBT_SMEM_OPTIN_BYTES) {
+    if (hbytes > 48 * 1024)
+      cudaFuncSetAttribute(hist_slots_kernel<V, true>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)hbytes);
     hist_slots_kernel<V, true>
-        <<<lgbt_grid(N, num_sms, 4), LGBT_THREADS, hbytes, stream>>>(
-            X, vals, slot, acc, N, F, C, K, B);
+        <<<lgbt_grid(N, num_sms, lgbt_smem_blocks_per_sm(hbytes)),
+           LGBT_THREADS, hbytes, stream>>>(X, vals, slot, acc, N, F, C, K,
+                                           B);
   } else {
     hist_slots_kernel<V, false>
         <<<lgbt_grid(N, num_sms, 8), LGBT_THREADS, 0, stream>>>(

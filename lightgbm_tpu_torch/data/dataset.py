@@ -11,8 +11,9 @@ The binned matrix is ONE dense [num_data, num_features] uint8 (uint16 past
 `binning_route`: "device" (f32 input bucketized by ops/bucketize.py, the
 kernel on a CUDA device) or "host" (the per-feature
 `BinMapper.value_to_bin` loop). The EFB bundle search runs as in the JAX
-package; a dataset it bundles is refused at training time (ROADMAP item
-A9).
+package, on the host copy of the bins (both routes keep one); a bundled
+dataset also holds `X_bundled` [N, F_b], which training sends to the card
+once in place of `X_t`.
 """
 
 from __future__ import annotations
@@ -148,6 +149,19 @@ class BinnedDataset:
     def feature_is_categorical(self) -> np.ndarray:
         return np.array([m.bin_type == BIN_TYPE_CATEGORICAL
                          for m in self.mappers], dtype=bool)
+
+    def storage_num_bins(self) -> List[int]:
+        """Per-STORAGE-COLUMN bin counts in storage order: an EFB bundle
+        column counts its packed width (1 shared default bin + each
+        member's non-default bins), a raw column its mapper's width
+        (lightgbm_tpu/data/dataset.py:192)."""
+        if self.bundles is not None:
+            return [int(self.mappers[members[0]].num_bin)
+                    if len(members) == 1
+                    else 1 + sum(int(self.mappers[f].num_bin) - 1
+                                 for f in members)
+                    for members in self.bundles]
+        return [int(m.num_bin) for m in self.mappers]
 
     def feature_infos(self) -> List[str]:
         infos = []

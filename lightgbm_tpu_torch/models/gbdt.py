@@ -6,12 +6,14 @@ text of gbdt_model_text.cpp). Scores, gradients, the binned matrix and tree
 growth live on the configured torch device; grown trees stay there as
 `DeviceTree` records until a caller needs host trees (save, predict).
 
-Training runs one configuration family: the wave grower's megakernel
-route (F <= 32 storage columns, no EFB bundles, no categorical features)
-with binary or L2 objectives, no bagging, host or device binning.
-Everything else raises NotImplementedError naming the ROADMAP item that
-ports it. Prediction covers every tree the JAX package writes except
-linear leaves on the device routes.
+Training runs the wave grower with binary or L2 objectives, no bagging,
+host or device binning, on the route the JAX package's accelerator takes
+(`wave_routes`): the megakernel route for at most 32 dense numeric storage
+columns, the wave-apply route for wider, categorical or EFB-bundled data
+and for the row-wise histogram layouts. Everything else raises
+NotImplementedError naming the ROADMAP item that ports it. Prediction
+covers every tree the JAX package writes except linear leaves on the
+device routes.
 """
 
 from __future__ import annotations
@@ -27,8 +29,8 @@ from ..data.dataset import BinnedDataset
 from ..metrics import Metric
 from ..objectives import ObjectiveFunction, create_objective
 from ..ops.grow import DeviceTree, GrowConfig
-from ..ops.grow_wave import MAX_WAVE_FEATURES, _wave_buckets, grow_tree_wave
-from ..ops.histogram import take_leaf_values
+from ..ops.grow_wave import _wave_buckets, grow_tree_wave, wave_routes
+from ..ops.histogram import make_hist_plan, take_leaf_values
 from ..ops.histogram_cuda import MAX_LEAVES
 from ..ops.predict import predict_leaf_binned
 from ..ops.split import FeatureMeta
@@ -59,9 +61,9 @@ def check_slice_config(cfg: Config) -> None:
                     f"{cfg.tree_learner})", "A16")
     if cfg.tpu_grower not in ("auto", "wave"):
         _not_ported(f"tpu_grower={cfg.tpu_grower}", "A11")
-    if cfg.histogram_impl != "auto" or cfg.force_row_wise:
-        _not_ported(f"histogram_impl={cfg.histogram_impl}",
-                    "A14/A15")
+    if cfg.histogram_impl == "fused":
+        _not_ported("histogram_impl=fused (the fused growth kernels)",
+                    "A15")
     if cfg.binning_impl == "auto" and cfg.autotune:
         _not_ported("autotune of binning_impl=auto", "A14")
     if cfg.use_quantized_grad:
@@ -89,13 +91,6 @@ def check_slice_config(cfg: Config) -> None:
 
 
 def _check_slice_data(ds: BinnedDataset) -> None:
-    if ds.bundles is not None:
-        _not_ported("EFB bundled storage", "A9")
-    if bool(ds.feature_is_categorical().any()):
-        _not_ported("categorical features", "A9")
-    if len(ds.mappers) > MAX_WAVE_FEATURES:
-        _not_ported(f"{len(ds.mappers)} storage columns (the wave "
-                    f"megakernel takes at most {MAX_WAVE_FEATURES})", "A9")
     if ds.X_binned.dtype != np.uint8:
         _not_ported("more than 256 bins per feature", "A14")
 
@@ -108,6 +103,26 @@ def build_feature_meta(ds: BinnedDataset, device) -> FeatureMeta:
         missing_type=t(ds.feature_missing_types()),
         default_bin=t(ds.feature_default_bins()),
         is_categorical=t(ds.feature_is_categorical()))
+
+
+def bundle_maps(ds: BinnedDataset, B: int) -> Tuple[np.ndarray, np.ndarray]:
+    """EFB search-time maps (gbdt.py:316-333): `expand` [F * B] gathers
+    each original feature's bins out of the flat bundle histogram (fill
+    index len(bundles) * B reads 0), `mfb` [F, B] marks each feature's
+    default bin (FixHistogram)."""
+    F = len(ds.mappers)
+    expand = np.full((F, B), len(ds.bundles) * B, np.int64)
+    mfb = np.zeros((F, B), np.float32)
+    for f, m in enumerate(ds.mappers):
+        ci, off = ds.bundle_col[f], ds.bundle_off[f]
+        dbf, nbf = m.default_bin, m.num_bin
+        mfb[f, dbf] = 1.0
+        for b in range(nbf):
+            if off < 0:
+                expand[f, b] = ci * B + b
+            elif b != dbf:
+                expand[f, b] = ci * B + off + b - (1 if b > dbf else 0)
+    return expand.reshape(-1), mfb
 
 
 class GBDT:
@@ -160,10 +175,31 @@ class GBDT:
         self.real_feature_index = list(ds.real_feature_index)
 
         max_bin = max((m.num_bin for m in ds.mappers), default=2)
-        self.num_bins_padded = max(round_up(max_bin, 8), 8)
-        self.X_t = (ds.X_t if ds.X_t is not None else torch.from_numpy(
-            np.ascontiguousarray(ds.X_binned.T))).to(self.device)
+        # EFB: ship the bundled columns to the device instead of the raw
+        # matrix; a bundle column may hold more bins than any feature
+        # (gbdt.py:288-300)
+        bundled = ds.bundles is not None
+        if bundled:
+            max_bin = max(max_bin, int(ds.X_bundled.max()) + 1)
+        self.num_bins_padded = B = max(round_up(max_bin, 8), 8)
+        if bundled:
+            self.X_t = torch.from_numpy(
+                np.ascontiguousarray(ds.X_bundled.T)).to(self.device)
+        else:
+            self.X_t = (ds.X_t if ds.X_t is not None else torch.from_numpy(
+                np.ascontiguousarray(ds.X_binned.T))).to(self.device)
         self.meta = build_feature_meta(ds, self.device)
+        if bundled:
+            expand, mfb = bundle_maps(ds, B)
+            self.meta = self.meta._replace(
+                bundle_expand=torch.from_numpy(expand).to(self.device),
+                bundle_mfb=torch.from_numpy(mfb).to(self.device))
+        # per-STORAGE-COLUMN bin counts (gbdt.py:345-348); force_row_wise
+        # pins the row-wise layout (gbdt.py:353-355)
+        hist_tiers = tuple(ds.storage_num_bins())
+        hist_impl = str(cfg.histogram_impl)
+        if cfg.force_row_wise and hist_impl == "auto":
+            hist_impl = "rowwise"
         self.grow_cfg = GrowConfig(
             num_leaves=cfg.num_leaves,
             max_depth=cfg.max_depth,
@@ -174,10 +210,35 @@ class GBDT:
             max_delta_step=cfg.max_delta_step,
             min_gain_to_split=cfg.min_gain_to_split,
             path_smooth=cfg.path_smooth,
-            num_bins_padded=self.num_bins_padded,
+            num_bins_padded=B,
             # slack >= 1 would block the top ready leaf forever; clamp
             wave_gain_slack=min(max(cfg.tpu_wave_gain_slack, 0.0), 0.99),
+            hist_tiers=hist_tiers,
+            hist_impl=hist_impl,
+            has_categorical=bool(ds.feature_is_categorical().any()),
+            max_cat_to_onehot=cfg.max_cat_to_onehot,
+            max_cat_threshold=cfg.max_cat_threshold,
+            cat_l2=cfg.cat_l2,
+            cat_smooth=cfg.cat_smooth,
+            min_data_per_group=float(cfg.min_data_per_group),
+            bundle_col=tuple(ds.bundle_col) if bundled else (),
+            bundle_off=tuple(ds.bundle_off) if bundled else (),
+            bundle_nb=(tuple(int(m.num_bin) for m in ds.mappers)
+                       if bundled else ()),
+            bundle_db=(tuple(int(m.default_bin) for m in ds.mappers)
+                       if bundled else ()),
         )
+        # the route every tree of this run takes (recorded, so a run can
+        # show it against the kernels' launch counts): "mega" or "apply",
+        # and the histogram route of the apply route
+        self.grow_route, self.hist_route = wave_routes(self.grow_cfg,
+                                                       self.X_t.shape[0])
+        # the row-wise layouts' plan (and the nibble pack) is made once
+        self.hist_plan = make_hist_plan(self.X_t, self.hist_route,
+                                        hist_tiers)
+        log_info(f"wave grower route: {self.grow_route} (histogram: "
+                 f"{self.hist_route}, {self.X_t.shape[0]} storage columns, "
+                 f"B={B})")
         # tpu_grower=auto picks the wave grower when its two [L, 3, F, B]
         # histogram caches fit histogram_pool_size (gbdt.py:412-427); the
         # serial growers it would fall back to are not ported
@@ -289,7 +350,8 @@ class GBDT:
                                             self.weight_dev)
         tree, leaf_of_row = grow_tree_wave(self.X_t, g, h, self._in_bag,
                                            self.meta, self.grow_cfg,
-                                           self._feature_mask_for_iter())
+                                           self._feature_mask_for_iter(),
+                                           hist_plan=self.hist_plan)
         lr = self.shrinkage_rate
         self.scores[0] += take_leaf_values(tree.leaf_value * lr, leaf_of_row)
         # valid scores update BEFORE the bias fold (the reference updates
@@ -298,7 +360,7 @@ class GBDT:
             leaf = predict_leaf_binned(
                 tree.split_feature, tree.threshold_bin, tree.default_left,
                 tree.left_child, tree.right_child, tree.num_leaves, Xv,
-                self.meta)
+                self.meta, tree.split_is_cat, tree.split_cat_bitset)
             self._valid_scores[vi][0] += (tree.leaf_value * lr)[leaf]
         self._pending.append((tree, init_score if self.iter == 0 else 0.0))
         self.iter += 1
@@ -315,7 +377,10 @@ class GBDT:
     # ------------------------------------------------------------------
     def _device_tree_to_host(self, t: DeviceTree) -> Tree:
         """Pull a DeviceTree into a host Tree with real thresholds and real
-        feature indices (gbdt.py:_device_tree_to_host)."""
+        feature indices (gbdt.py:1908-1976). Categorical splits translate
+        the bin bitset into the reference's category-value bitsets
+        (cat_boundaries / cat_threshold; tree.cpp Tree::Split categorical
+        path)."""
         n = int(t.num_leaves)
         m = max(n - 1, 0)
 
@@ -325,13 +390,35 @@ class GBDT:
         sf_inner = host(t.split_feature, m).astype(np.int32)
         thr_bin = host(t.threshold_bin, m).astype(np.int32)
         dleft = host(t.default_left, m).astype(bool)
+        is_cat = host(t.split_is_cat, m).astype(bool)
+        cat_bits_bins = host(t.split_cat_bitset, m).astype(np.uint32)
         thr_real = np.zeros(m, dtype=np.float64)
         dtype_arr = np.zeros(m, dtype=np.int8)
+        num_cat = 0
+        cat_boundaries = [0]
+        cat_threshold: List[int] = []
         for i in range(m):
             mp = self.mappers[sf_inner[i]]
-            thr_real[i] = mp.bin_to_value(int(thr_bin[i]))
-            dtype_arr[i] = make_decision_type(False, bool(dleft[i]),
-                                              mp.missing_type)
+            if is_cat[i]:
+                # bins in the left set -> raw category values -> value bitset
+                bits = cat_bits_bins[i]
+                sel_bins = [b for b in range(min(mp.num_bin, 32 * len(bits)))
+                            if (int(bits[b >> 5]) >> (b & 31)) & 1]
+                cats = [mp.bin_2_categorical[b] for b in sel_bins]
+                words = np.zeros(max(cats, default=0) // 32 + 1, np.uint32)
+                for v in cats:
+                    words[v // 32] |= np.uint32(1 << (v % 32))
+                thr_real[i] = num_cat          # threshold stores cat_idx
+                thr_bin[i] = num_cat
+                cat_boundaries.append(cat_boundaries[-1] + len(words))
+                cat_threshold.extend(words.tolist())
+                num_cat += 1
+                dtype_arr[i] = make_decision_type(True, False,
+                                                  mp.missing_type)
+            else:
+                thr_real[i] = mp.bin_to_value(int(thr_bin[i]))
+                dtype_arr[i] = make_decision_type(False, bool(dleft[i]),
+                                                  mp.missing_type)
         real_feat = np.asarray([self.real_feature_index[f] for f in sf_inner],
                                np.int32)
         lr = self.shrinkage_rate
@@ -351,6 +438,9 @@ class GBDT:
             internal_weight=host(t.internal_weight, m).astype(np.float64),
             internal_count=host(t.internal_count, m).astype(np.int64),
             shrinkage=lr,
+            cat_boundaries=np.asarray(cat_boundaries, np.int32),
+            cat_threshold=np.asarray(cat_threshold, np.uint32),
+            num_cat=num_cat,
         )
         tree.split_feature_inner = sf_inner
         return tree

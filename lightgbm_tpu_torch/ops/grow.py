@@ -4,6 +4,10 @@ Counterpart of the types in lightgbm_tpu/ops/grow.py (GrowConfig:49,
 DeviceTree:205). Leaf/node numbering follows Tree::Split (src/io/tree.cpp):
 internal node s is created by split s; the left child keeps leaf id p, the
 right child becomes a new leaf; child pointers store ``~leaf`` for leaves.
+
+Categorical left-sets are bin bitsets of W = ceil(B / 32) words. Torch has
+no full-range uint32, so each word's 32 bits are held in an int64 (values
+0 .. 2^32 - 1), the layout `PackedDeviceArrays.cat_threshold` uses too.
 """
 
 from __future__ import annotations
@@ -12,6 +16,7 @@ from typing import NamedTuple
 
 import torch
 
+from .categorical import CatConfig
 from .split import SplitHyperParams
 
 
@@ -30,6 +35,30 @@ class GrowConfig(NamedTuple):
     num_bins_padded: int        # B: padded bin axis
     # batched-order guard of the wave grower (config tpu_wave_gain_slack)
     wave_gain_slack: float = 0.0
+    # per-STORAGE-COLUMN bin counts in storage order and the histogram
+    # implementation ("auto" | "legacy" | "tiered" | "tiered_hilo" |
+    # "rowwise" | "rowwise_packed"; config histogram_impl)
+    hist_tiers: tuple = ()
+    hist_impl: str = "auto"
+    # categorical split search (reference: config.h cat_* params)
+    has_categorical: bool = False
+    max_cat_to_onehot: int = 4
+    max_cat_threshold: int = 32
+    cat_l2: float = 10.0
+    cat_smooth: float = 10.0
+    min_data_per_group: float = 100.0
+    # EFB (data/dataset.py:_build_bundles): X_t holds BUNDLE columns;
+    # per-ORIGINAL-feature maps unpack them in the decision pass, and
+    # meta.bundle_expand re-slices bundle histograms per feature at search
+    # time. Empty tuples = no bundling.
+    bundle_col: tuple = ()      # orig feature -> bundle column
+    bundle_off: tuple = ()      # offset in the bundle, -1 = raw singleton
+    bundle_nb: tuple = ()       # orig feature num_bin
+    bundle_db: tuple = ()       # orig feature default bin
+
+    @property
+    def bundled(self) -> bool:
+        return len(self.bundle_col) > 0
 
     @property
     def hp(self) -> SplitHyperParams:
@@ -41,6 +70,22 @@ class GrowConfig(NamedTuple):
             max_delta_step=self.max_delta_step,
             min_gain_to_split=self.min_gain_to_split,
             path_smooth=self.path_smooth,
+        )
+
+    @property
+    def cat_words(self) -> int:
+        """W: 32-bit words per bin bitset."""
+        return max((self.num_bins_padded + 31) // 32, 1)
+
+    @property
+    def cat(self) -> CatConfig:
+        return CatConfig(
+            max_cat_to_onehot=self.max_cat_to_onehot,
+            max_cat_threshold=self.max_cat_threshold,
+            cat_l2=self.cat_l2,
+            cat_smooth=self.cat_smooth,
+            min_data_per_group=self.min_data_per_group,
+            num_bitset_words=self.cat_words,
         )
 
 
@@ -62,4 +107,6 @@ class DeviceTree(NamedTuple):
     leaf_weight: torch.Tensor      # [L] f32
     leaf_count: torch.Tensor       # [L] int32
     split_parent_leaf: torch.Tensor  # [M] int64: the leaf each split divided
+    split_is_cat: torch.Tensor     # [M] bool: categorical (bitset) split
+    split_cat_bitset: torch.Tensor  # [M, W] int64 uint32 words: left bins
     num_waves: int                 # histogram waves used (diagnostic)

@@ -10,15 +10,65 @@ Layouts (channel-major, as in the JAX package):
   X_t   [F, N]      uint8, feature-major
   vals  [C, N]      f32 (gradient / hessian channels) or int8
   hist  [C, F, B] (single set) or [K, C, F, B] (wave of K slots)
+
+Histogram routes (`hist_route`, the counterpart of the JAX package's
+`_tier_route`, ops/histogram.py:69): "slots" is one launch of the K-slot
+kernel at B = num_bins_padded over all storage columns, for
+histogram_impl auto / legacy / tiered / tiered_hilo (the TPU lane-width
+layouts of the same sums, which histogram_tiered.py:36-40 states are equal
+bit for bit); "rowwise" and "rowwise_packed" build the flat
+per-feature-offset buffer (ops/histogram_rowwise.py) and expand it to the
+uniform grid. Every route returns the same [K, C, F, B] histogram.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from . import histogram_cuda as hc
+from . import histogram_rowwise as hr
+from .split import expand_feature_offset_hist
+
+ROWWISE_IMPLS = ("rowwise", "rowwise_packed")
+
+
+class HistPlan(NamedTuple):
+    """What a row-wise route reads besides the storage: the flat layout
+    and, for "rowwise_packed", the nibble plan and the operands `pack4`
+    made once from X_t."""
+    rplan: hr.RowWisePlan
+    pplan: Optional[hr.Pack4Plan] = None
+    Xp: Optional[torch.Tensor] = None
+    Xu: Optional[torch.Tensor] = None
+
+
+def hist_route(impl: str, tiers: tuple) -> str:
+    """The histogram route of histogram_impl `impl` over storage columns
+    of bin counts `tiers`: "rowwise_packed" falls back to "rowwise" when
+    fewer than two columns fit a nibble (histogram.py:104-108); without
+    per-column bin counts (or past 256 bins) every impl is "slots"."""
+    if not tiers or max(tiers) > 256:
+        return "slots"
+    if impl == "rowwise_packed" and hr.pack4_worthwhile(
+            hr.build_pack4_plan(tuple(int(t) for t in tiers))):
+        return "rowwise_packed"
+    return "rowwise" if impl in ROWWISE_IMPLS else "slots"
+
+
+def make_hist_plan(X_t: torch.Tensor, route: str,
+                   tiers: tuple) -> Optional[HistPlan]:
+    """The plan of `route` for storage X_t [F, N] (None for "slots")."""
+    if route == "slots":
+        return None
+    tiers = tuple(int(t) for t in tiers)
+    rplan = hr.build_rowwise_plan(tiers)
+    if route == "rowwise":
+        return HistPlan(rplan)
+    pplan = hr.build_pack4_plan(tiers)
+    Xp, Xu = hr.pack4(X_t, pplan)
+    return HistPlan(rplan, pplan, Xp, Xu)
 
 
 def _use_kernel(t: torch.Tensor, plain: bool) -> bool:
@@ -27,23 +77,40 @@ def _use_kernel(t: torch.Tensor, plain: bool) -> bool:
 
 def build_histogram_slots(X_binned_t: torch.Tensor, vals: torch.Tensor,
                           slot: Optional[torch.Tensor], num_slots: int,
-                          num_bins: int, *, plain: bool = False
-                          ) -> torch.Tensor:
-    """Wave histogram: [K, C, F, B]; rows whose slot is outside [0, K)
-    contribute nothing (slot None: every row in slot 0)."""
-    if _use_kernel(X_binned_t, plain):
-        return hc.build_histogram_slots_cuda(X_binned_t, vals, slot,
-                                             num_slots, num_bins)
-    return hc.build_histogram_slots_plain(X_binned_t, vals, slot, num_slots,
-                                          num_bins)
+                          num_bins: int, *, impl: str = "slots",
+                          plan: Optional[HistPlan] = None,
+                          plain: bool = False) -> torch.Tensor:
+    """Wave histogram: [K, C, F, B] on every route; rows whose slot is
+    outside [0, K) contribute nothing (slot None: every row in slot 0).
+    `impl` is a `hist_route`, `plan` its `make_hist_plan`."""
+    kern = _use_kernel(X_binned_t, plain)
+    if impl == "slots":
+        if kern:
+            return hc.build_histogram_slots_cuda(X_binned_t, vals, slot,
+                                                 num_slots, num_bins)
+        return hc.build_histogram_slots_plain(X_binned_t, vals, slot,
+                                              num_slots, num_bins)
+    rp = plan.rplan
+    if impl == "rowwise":
+        fn = hr.hist_rowwise_cuda if kern else hr.hist_rowwise_plain
+        flat = fn(X_binned_t, vals, slot, num_slots, rp)
+    elif impl == "rowwise_packed":
+        fn = (hr.hist_rowwise_packed_cuda if kern
+              else hr.hist_rowwise_packed_plain)
+        flat = fn(plan.Xp, plan.Xu, vals, slot, num_slots, rp, plan.pplan)
+    else:
+        raise ValueError(f"unknown histogram route {impl!r}")
+    return expand_feature_offset_hist(flat, rp.offsets, rp.widths, num_bins)
 
 
 def build_histogram(X_binned_t: torch.Tensor, vals: torch.Tensor,
-                    num_bins: int, *, plain: bool = False) -> torch.Tensor:
+                    num_bins: int, *, impl: str = "slots",
+                    plan: Optional[HistPlan] = None,
+                    plain: bool = False) -> torch.Tensor:
     """Single-set histogram [C, F, B]: the K=1 slot histogram with every
     row active (build_histogram_pallas in the JAX package)."""
     return build_histogram_slots(X_binned_t, vals, None, 1, num_bins,
-                                 plain=plain)[0]
+                                 impl=impl, plan=plan, plain=plain)[0]
 
 
 def take_leaf_values(values: torch.Tensor, leaf_of_row: torch.Tensor, *,
@@ -64,6 +131,16 @@ def wave_pass(X_binned_t: torch.Tensor, vals: torch.Tensor,
                                  num_slots, num_bins, num_leaves)
     return hc.wave_pass_plain(X_binned_t, vals, leaf_of_row, table,
                               num_slots, num_bins, num_leaves)
+
+
+def wave_apply(dec: torch.Tensor, leaf_of_row: torch.Tensor,
+               table: torch.Tensor, num_leaves: int, *, plain: bool = False
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Relabel + candidate slot of one wave from precomputed decision
+    bits (the wide / categorical / EFB route)."""
+    if _use_kernel(dec, plain):
+        return hc.wave_apply_cuda(dec, leaf_of_row, table, num_leaves)
+    return hc.wave_apply_plain(dec, leaf_of_row, table, num_leaves)
 
 
 def wave_relabel(X_binned_t: torch.Tensor, leaf_of_row: torch.Tensor,

@@ -1,8 +1,8 @@
 """Hopper kernels of the port: the build, the launch counts, and the
 training path's wrappers and plain versions.
 
-Four CUDA kernels (``lightgbm_tpu_torch/csrc/*.cu``) replace the four Pallas
-kernels the JAX package runs on the training path (lightgbm_tpu/ops/
+Five CUDA kernels (``lightgbm_tpu_torch/csrc/*.cu``) replace the five
+Pallas kernels the JAX package runs on the training path (lightgbm_tpu/ops/
 histogram_pallas.py):
 
   build_histogram_slots_cuda  K-slot histogram      <- build_histogram_slots_pallas
@@ -10,12 +10,19 @@ histogram_pallas.py):
   wave_pass_cuda              relabel + candidate membership + slot
                               histogram in one row sweep <- wave_pass_pallas
   wave_relabel_cuda           relabel only          <- wave_relabel_pallas
+  wave_apply_cuda             relabel + candidate slot from precomputed
+                              decision bits (wide / categorical / EFB
+                              route)                <- wave_apply_pallas
 
-A fifth, the bucketize kernel of device binning (``csrc/bucketize.cu`` <-
-lightgbm_tpu/ops/bucketize.py::_bucketize_pallas), is built and counted
-here too; its wrapper and plain version live in ``ops/bucketize.py``.
+Three more are built and counted here, their wrappers and plain versions
+living beside the code that calls them: the bucketize kernel of device
+binning (``csrc/bucketize.cu`` <- lightgbm_tpu/ops/bucketize.py::
+_bucketize_pallas; ``ops/bucketize.py``) and the two row-wise multi-value
+histograms (``csrc/hist_rowwise.cu`` <- lightgbm_tpu/ops/
+histogram_rowwise.py's plain and nibble-packed flat kernels;
+``ops/histogram_rowwise.py``).
 
-Each kernel is compiled by ``nvcc`` for ``sm_90a`` into a shared library
+Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface (one library per source, all built in parallel on
 first use into ``lightgbm_tpu_torch/_build/``) and called through
 ``ctypes`` on PyTorch's current stream. Every wrapper checks device, dtype,
@@ -51,7 +58,10 @@ LAUNCHES: Dict[str, int] = {"build_histogram_slots": 0,
                             "take_leaf_values": 0,
                             "wave_pass": 0,
                             "wave_relabel": 0,
-                            "bucketize": 0}
+                            "bucketize": 0,
+                            "wave_apply": 0,
+                            "hist_rowwise": 0,
+                            "hist_rowwise_packed": 0}
 
 # kernel name -> (source file, C entry point)
 KERNELS = {
@@ -60,6 +70,9 @@ KERNELS = {
     "wave_pass": ("wave_pass.cu", "lgbt_wave_pass"),
     "wave_relabel": ("wave_relabel.cu", "lgbt_wave_relabel"),
     "bucketize": ("bucketize.cu", "lgbt_bucketize"),
+    "wave_apply": ("wave_apply.cu", "lgbt_wave_apply"),
+    "hist_rowwise": ("hist_rowwise.cu", "lgbt_hist_rowwise"),
+    "hist_rowwise_packed": ("hist_rowwise.cu", "lgbt_hist_rowwise_packed"),
 }
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -107,9 +120,10 @@ def _source_tag() -> str:
 
 def build_kernels() -> Dict[str, dict]:
     """Compile every kernel source that is not built yet, one ``nvcc`` per
-    source, all started together. Returns {name: {"path", "seconds",
-    "log"}} where ``log`` is nvcc's output (``-Xptxas -v`` register and
-    shared-memory counts) for the sources built by this call."""
+    source, all started together. Returns {kernel name: {"path",
+    "seconds", "log"}} where ``log`` is nvcc's output (``-Xptxas -v``
+    register and shared-memory counts) for the sources built by this call;
+    kernels of one source share its library."""
     with _BUILD_LOCK:
         return _build_kernels()
 
@@ -117,30 +131,30 @@ def build_kernels() -> Dict[str, dict]:
 def _build_kernels() -> Dict[str, dict]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = _source_tag()
-    procs, out = {}, {}
+    procs, built = {}, {}
     t0 = time.perf_counter()
-    for name, (src, _) in KERNELS.items():
-        so = BUILD_DIR / f"{name}-{tag}.so"
-        out[name] = {"path": str(so), "seconds": 0.0, "log": ""}
+    for src in dict.fromkeys(s for s, _ in KERNELS.values()):
+        so = BUILD_DIR / f"{Path(src).stem}-{tag}.so"
+        built[src] = {"path": str(so), "seconds": 0.0, "log": ""}
         if so.exists():
             continue
-        tmp = BUILD_DIR / f"{name}-{tag}.{os.getpid()}.tmp.so"
+        tmp = BUILD_DIR / f"{Path(src).stem}-{tag}.{os.getpid()}.tmp.so"
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, so)
+        procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True),
+                      tmp, so)
     failed = []
-    for name, (proc, tmp, so) in procs.items():
+    for src, (proc, tmp, so) in procs.items():
         log, _ = proc.communicate()
-        out[name]["log"] = log
-        out[name]["seconds"] = time.perf_counter() - t0
+        built[src]["log"] = log
+        built[src]["seconds"] = time.perf_counter() - t0
         if proc.returncode != 0:
-            failed.append(f"{name}:\n{log}")
+            failed.append(f"{src}:\n{log}")
         else:
             os.replace(tmp, so)
     if failed:
         raise RuntimeError("kernel build failed\n" + "\n".join(failed))
-    return out
+    return {name: built[src] for name, (src, _) in KERNELS.items()}
 
 
 @functools.lru_cache(maxsize=None)
@@ -156,6 +170,10 @@ def _lib(name: str):
         "wave_pass": [P, P, I, P, P, P, P, P, LL, I, I, I, I, I, I, P],
         "wave_relabel": [P, P, P, P, LL, I, I, I, P],
         "bucketize": [P, LL, LL, P, I, P, P, P, I, P, LL, LL, I, P],
+        "wave_apply": [P, P, P, P, P, LL, I, I, I, P],
+        "hist_rowwise": [P, P, I, P, P, P, P, LL, I, I, I, I, I, P],
+        "hist_rowwise_packed": [P, P, P, I, P, P, P, P, LL, I, I, I, I, I,
+                                P],
     }[name]
     return fn
 
@@ -435,3 +453,84 @@ def wave_relabel_plain(X: torch.Tensor, leaf_of_row: torch.Tensor,
     """Plain PyTorch version of wave_relabel_cuda."""
     return _relabel_plain(X, leaf_of_row,
                           table.to(torch.int64)).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# 4. wave apply (wide / categorical / EFB route)
+# ---------------------------------------------------------------------------
+def _check_apply_args(dec, leaf_of_row, table, num_leaves, dev):
+    if dec.dim() != 2 or leaf_of_row.dim() != 1:
+        raise ValueError("dec must be [Kd, N] and leaf_of_row [N]")
+    Kd, N = dec.shape
+    if not 1 <= Kd <= MAX_SLOTS:
+        raise ValueError(f"dec must have 1 <= Kd <= {MAX_SLOTS} entry rows, "
+                         f"got {Kd}")
+    _check(dec, "dec", (torch.int8, torch.uint8), (Kd, N), dev)
+    _check(leaf_of_row, "leaf_of_row", (torch.int32,), (N,), dev)
+    _check(table, "table", (torch.int32,), (T_ROWS, MAX_SLOTS), dev)
+    if not 1 <= num_leaves <= MAX_LEAVES:
+        raise ValueError(f"num_leaves must be in [1, {MAX_LEAVES}], got "
+                         f"{num_leaves}")
+    return Kd, N
+
+
+def wave_apply_cuda(dec: torch.Tensor, leaf_of_row: torch.Tensor,
+                    table: torch.Tensor, num_leaves: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Resolve one wave's leaf membership from precomputed decision bits:
+    returns (new leaf_of_row [N] int32, smaller-child slot [N] int32, -1 =
+    none). `dec` [Kd, N] int8: bit 0 = go left under applied entry k, bit
+    1 = in candidate k's smaller child; `table` is the [16, 128] wave
+    table, of which rows 0 (applied leaves), 7 (candidate leaves) and 15
+    (nl0) are read and entries at Kd or above are inactive. Every leaf id
+    in it and in leaf_of_row is below `num_leaves`."""
+    dev = _cuda_device(dec)
+    Kd, N = _check_apply_args(dec, leaf_of_row, table, num_leaves, dev)
+    new_lor = torch.empty_like(leaf_of_row)
+    slot = torch.empty_like(leaf_of_row)
+    sms, stream = _launch_env(dev)
+    rc = _lib("wave_apply")(dec.data_ptr(), leaf_of_row.data_ptr(),
+                            table.data_ptr(), new_lor.data_ptr(),
+                            slot.data_ptr(), N, Kd, num_leaves, sms, stream)
+    _raise_on(rc, "wave_apply")
+    LAUNCHES["wave_apply"] += 1
+    return new_lor, slot
+
+
+def _leaf_entries(leaves: torch.Tensor, Kd: int, cap: int) -> torch.Tensor:
+    """[cap + 1] int64 map leaf -> the one active entry (k < Kd) naming it,
+    -1 where none or several do (the TPU kernel's `inA == 1` rule); slot
+    `cap` takes every leaf outside [0, cap)."""
+    dev = leaves.device
+    k = torch.arange(leaves.shape[0], device=dev)
+    act = (leaves >= 0) & (leaves < cap) & (k < Kd)
+    idx = torch.where(act, leaves, cap)
+    cnt = torch.zeros(cap + 1, dtype=torch.int64, device=dev)
+    cnt.index_add_(0, idx, torch.ones_like(idx))
+    ent = torch.full((cap + 1,), -1, dtype=torch.int64, device=dev)
+    ent.scatter_(0, idx, k)
+    ent = torch.where(cnt == 1, ent, -1)
+    ent[cap] = -1
+    return ent
+
+
+def wave_apply_plain(dec: torch.Tensor, leaf_of_row: torch.Tensor,
+                     table: torch.Tensor, num_leaves: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of wave_apply_cuda."""
+    Kd = dec.shape[0]
+    t = table.to(torch.int64)
+    cap = num_leaves
+    lor = leaf_of_row.to(torch.int64)
+
+    def lookup(ent, leaf):
+        return ent[torch.where((leaf >= 0) & (leaf < cap), leaf, cap)]
+
+    def bits(k):
+        return dec.gather(0, k.clamp(min=0)[None, :])[0].to(torch.int64)
+
+    ka = lookup(_leaf_entries(t[0], Kd, cap), lor)
+    new = torch.where((ka >= 0) & ((bits(ka) & 1) == 0), t[15, 0] + ka, lor)
+    kc = lookup(_leaf_entries(t[7], Kd, cap), new)
+    slot = torch.where((kc >= 0) & (((bits(kc) >> 1) & 1) == 1), kc, -1)
+    return new.to(torch.int32), slot.to(torch.int32)

@@ -14,7 +14,7 @@ level.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -28,8 +28,14 @@ def predict_leaf_binned(split_feature: torch.Tensor,
                         default_left: torch.Tensor,
                         left_child: torch.Tensor, right_child: torch.Tensor,
                         num_leaves: int, X_t: torch.Tensor,
-                        meta: FeatureMeta) -> torch.Tensor:
-    """Leaf index per row ([N] int64) of one tree over X_t [F, N] binned."""
+                        meta: FeatureMeta,
+                        split_is_cat: Optional[torch.Tensor] = None,
+                        split_cat_bitset: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """Leaf index per row ([N] int64) of one tree over X_t [F, N] binned
+    (raw, unbundled features). A categorical node (`split_is_cat`) sends a
+    row left when its bin's bit is set in `split_cat_bitset` [M, W] (32
+    bits per int64 word)."""
     N = X_t.shape[1]
     dev = X_t.device
     if num_leaves <= 1:
@@ -50,6 +56,12 @@ def predict_leaf_binned(split_feature: torch.Tensor,
             | ((mt == MISSING_NAN) & (bin_v == nb_f[f] - 1))
         go_left = torch.where(is_missing, default_left[nd],
                               bin_v <= threshold_bin[nd])
+        if split_is_cat is not None:
+            W = split_cat_bitset.shape[1]
+            words = split_cat_bitset[nd, (bin_v >> 5).clamp(0, W - 1)]
+            go_left = torch.where(split_is_cat[nd],
+                                  ((words >> (bin_v & 31)) & 1) == 1,
+                                  go_left)
         node = torch.where(node >= 0, torch.where(go_left, lc[nd], rc[nd]),
                            node)
         if step % 8 == 7 and not bool((node >= 0).any()):

@@ -45,6 +45,22 @@ class SplitHyperParams(NamedTuple):
     path_smooth: float
 
 
+def expand_feature_offset_hist(flat: torch.Tensor, offsets: tuple,
+                               widths: tuple, num_bins: int) -> torch.Tensor:
+    """Ragged per-feature-offset histogram [..., total] -> uniform
+    [..., F, num_bins] grid (lightgbm_tpu/ops/split.py:62): feature f owns
+    the `widths[f]` columns from `offsets[f]`; bins it does not own read 0
+    (a zero column appended to `flat`, as the JAX package's OOB fill)."""
+    total = flat.shape[-1]
+    offs = torch.tensor(offsets, dtype=torch.int64)[:, None]
+    wid = torch.tensor(widths, dtype=torch.int64)[:, None]
+    b = torch.arange(num_bins, dtype=torch.int64)[None, :]
+    idx = torch.where(b < wid, offs + b, total).reshape(-1)
+    padded = torch.cat([flat, flat.new_zeros(flat.shape[:-1] + (1,))], -1)
+    out = padded.index_select(-1, idx.to(flat.device))
+    return out.reshape(flat.shape[:-1] + (len(offsets), num_bins))
+
+
 class FeatureMeta(NamedTuple):
     """Per-feature metadata tensors (reference: FeatureMetainfo,
     feature_histogram.hpp:30)."""
@@ -52,6 +68,10 @@ class FeatureMeta(NamedTuple):
     missing_type: torch.Tensor    # [F] int32
     default_bin: torch.Tensor     # [F] int32
     is_categorical: torch.Tensor  # [F] bool
+    bundle_expand: Optional[torch.Tensor] = None  # [F*B] int64: EFB bundle-
+    #   histogram -> per-feature histogram gather map (OOB = fill 0)
+    bundle_mfb: Optional[torch.Tensor] = None     # [F, B] f32 one-hot of
+    #   each feature's default bin (FixHistogram reconstruction)
 
 
 class SplitResult(NamedTuple):
@@ -190,7 +210,7 @@ def find_best_split(hist: torch.Tensor, parent_sum_g: torch.Tensor,
     hist [..., 3, F, B] f32; parent scalars with the batch shape [...];
     feature_mask [F] bool (column sampling). Returns gain -inf where no
     split satisfies the constraints. Categorical features are masked out
-    (their search is not part of this port yet)."""
+    (ops/categorical.py searches them)."""
     gain, ok, stats, min_gain_shift = _numeric_gain_map(
         hist, parent_sum_g, parent_sum_h, parent_count, parent_output,
         meta, hp, feature_mask)

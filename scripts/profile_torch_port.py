@@ -2,12 +2,17 @@
 """Where the PyTorch/CUDA port spends its time: ingest, a training
 iteration, and a served batch.
 
-    python3 scripts/profile_torch_port.py [--rows N] [--iters K] [--trace F]
+    python3 scripts/profile_torch_port.py [--config bench|criteo]
+        [--rows N] [--iters K] [--trace F]
 
-Builds bench.py's data (28 f32 features, numpy seed 42), ingests it with
-binning_impl=auto, trains bench.py's model (binary, 255 leaves, max_bin
-63) with lightgbm_tpu_torch on the first CUDA device, serves it, and
-prints JSON lines:
+--config bench (the default) builds bench.py's data (28 f32 features,
+numpy seed 42) and trains bench.py's model (binary, 255 leaves, max_bin
+63) on the wave megakernel route. --config criteo builds the Criteo-shaped
+table of lightgbm_tpu_torch/utils/synthetic.py (13 count and 26
+categorical columns, numpy seed 7) and trains the same model at max_bin
+255 with those columns categorical: the wave-apply route. Either is
+ingested with binning_impl=auto, trained with lightgbm_tpu_torch on the
+first CUDA device and served, and the script prints JSON lines:
 
   ingest     Dataset construction on the device route, with its stages
              wrapped in synchronized host timers: bin mappers (row sample
@@ -25,7 +30,11 @@ prints JSON lines:
              host timers (so the stages do not overlap, and the iteration
              runs a little slower than in `steady`): ms per iteration in the
              root histogram, the wave kernels, the split search, the
-             objective, the score update, and everything else
+             objective, the score update, and everything else. On the
+             apply route the wave stages are the decision-bit build
+             (`dec_go_left`, plain PyTorch), the wave_apply kernel and the
+             wave histogram, and the split search is split into its
+             numeric and categorical parts
 
   serve      after the iterations: the binned engine (max_batch 256) on
              raw f32 requests of 1, 32 and 256 rows, and the device engine
@@ -54,7 +63,7 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def ingest_phase(torch, lt, X, y, params):
+def ingest_phase(torch, lt, X, y, params, cats=()):
     """Dataset construction with its stages timed (synchronized)."""
     from lightgbm_tpu_torch.data import dataset as ds_mod
     from lightgbm_tpu_torch.ops import bucketize as bk
@@ -80,7 +89,8 @@ def ingest_phase(torch, lt, X, y, params):
             setattr(m, n, timed(stage, getattr(m, n)))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        ds = lt.Dataset(X, label=y, params=params).construct()
+        ds = lt.Dataset(X, label=y, categorical_feature=list(cats),
+                        params=params).construct()
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
     finally:
@@ -137,6 +147,7 @@ def serve_phase(torch, bst, X):
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--config", choices=("bench", "criteo"), default="bench")
     ap.add_argument("--rows", type=int, default=1 << 20)
     ap.add_argument("--iters", type=int, default=4)
     ap.add_argument("--trace", help="write the profiled window's chrome "
@@ -152,16 +163,30 @@ def main():
     from lightgbm_tpu_torch.models import gbdt as gbdt_mod
     from lightgbm_tpu_torch.ops import grow_wave
 
-    rng = np.random.RandomState(42)
-    X = rng.normal(size=(args.rows, 28)).astype(np.float32)
-    w = rng.normal(size=28)
-    y = (X @ w + rng.normal(scale=0.5, size=args.rows) > 0) \
-        .astype(np.float32)
     params = dict(objective="binary", num_leaves=255, max_bin=63,
                   learning_rate=0.1, min_data_in_leaf=20, verbose=-1,
                   bagging_freq=0, binning_impl="auto", device_type="cuda")
-    ingest_phase(torch, lt, X[:1 << 16], y[:1 << 16], params)  # warm-up
-    bst = lt.Booster(params, ingest_phase(torch, lt, X, y, params))
+    if args.config == "criteo":
+        from lightgbm_tpu_torch.utils.synthetic import (CRITEO_CAT_COLUMNS,
+                                                        criteo_like)
+        X, y = criteo_like(args.rows)
+        params["max_bin"] = 255
+        cats = CRITEO_CAT_COLUMNS
+    else:
+        rng = np.random.RandomState(42)
+        X = rng.normal(size=(args.rows, 28)).astype(np.float32)
+        w = rng.normal(size=28)
+        y = (X @ w + rng.normal(scale=0.5, size=args.rows) > 0) \
+            .astype(np.float32)
+        cats = ()
+    ingest_phase(torch, lt, X[:1 << 16], y[:1 << 16], params,
+                 cats)                                         # warm-up
+    bst = lt.Booster(params, ingest_phase(torch, lt, X, y, params, cats))
+    g = bst._gbdt
+    emit({"phase": "route", "config": args.config,
+          "grow_route": g.grow_route, "hist_route": g.hist_route,
+          "storage_columns": int(g.X_t.shape[0]),
+          "num_bins_padded": g.num_bins_padded})
     for _ in range(2):
         bst.update()
     torch.cuda.synchronize()
@@ -215,14 +240,26 @@ def main():
             out = fn(*a, **kw)
             torch.cuda.synchronize()
             spent[stage] += time.perf_counter() - t
+            n_calls[stage] += 1
             return out
         return run
 
-    patches = [(grow_wave, "build_histogram", "root histogram"),
-               (grow_wave, "wave_pass", "wave_pass kernel"),
-               (grow_wave, "wave_relabel", "wave_relabel kernel"),
-               (grow_wave, "find_best_split", "split search"),
-               (gbdt_mod, "take_leaf_values", "score update")]
+    if g.grow_route == "apply":
+        patches = [(grow_wave, "build_histogram", "root histogram"),
+                   (grow_wave, "dec_go_left", "dec build (plain PyTorch)"),
+                   (grow_wave, "wave_apply", "wave_apply kernel"),
+                   (grow_wave, "build_histogram_slots", "wave histogram"),
+                   (grow_wave, "find_best_split", "split search, numeric"),
+                   (grow_wave, "find_best_split_categorical",
+                    "split search, categorical"),
+                   (gbdt_mod, "take_leaf_values", "score update")]
+    else:
+        patches = [(grow_wave, "build_histogram", "root histogram"),
+                   (grow_wave, "wave_pass", "wave_pass kernel"),
+                   (grow_wave, "wave_relabel", "wave_relabel kernel"),
+                   (grow_wave, "find_best_split", "split search"),
+                   (gbdt_mod, "take_leaf_values", "score update")]
+    n_calls = defaultdict(int)
     saved = [(m, n, getattr(m, n)) for m, n, _ in patches]
     obj = bst._gbdt.objective
     saved_grad = obj.get_gradients
@@ -244,7 +281,8 @@ def main():
     stages["other (wave bookkeeping, host syncs, tree records)"] = \
         (total - sum(spent.values())) * 1e3 / args.iters
     emit({"phase": "stages", "wall_ms_per_iter": total * 1e3 / args.iters,
-          "ms_per_iter": stages})
+          "ms_per_iter": stages,
+          "calls_per_iter": {k: v / args.iters for k, v in n_calls.items()}})
     serve_phase(torch, bst, X)
     return 0
 

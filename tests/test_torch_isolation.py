@@ -44,6 +44,10 @@ def test_import_leaves_jax_unloaded():
             "import lightgbm_tpu_torch.ops.histogram_cuda\n"
             "import lightgbm_tpu_torch.ops.bucketize\n"
             "import lightgbm_tpu_torch.ops.predict_binned\n"
+            "import lightgbm_tpu_torch.ops.categorical\n"
+            "import lightgbm_tpu_torch.ops.histogram_rowwise\n"
+            "import lightgbm_tpu_torch.ops.grow_wave\n"
+            "import lightgbm_tpu_torch.utils.synthetic\n"
             "import lightgbm_tpu_torch.serving\n"
             "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', "
             "'lightgbm_tpu') or m.startswith(('jax.', 'jaxlib.', "
@@ -105,3 +109,5 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         hc.wave_pass_cuda(X, vals, lor, tbl, 1, 32, 4)
     with pytest.raises(ValueError, match="CUDA"):
         hc.wave_relabel_cuda(X, lor, tbl, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        hc.wave_apply_cuda(X.to(torch.int8), lor, tbl, 4)

@@ -196,7 +196,7 @@ def test_valid_sets_early_stopping_and_logging(data):
     ({"tree_learner": "data"}, "A16"),
     ({"tpu_grower": "compact"}, "A11"),
     ({"tpu_grower": "wave_exact"}, "A11"),
-    ({"histogram_impl": "rowwise"}, "A14"),
+    ({"max_bin": 300}, "A14"),
     ({"binning_impl": "auto", "autotune": True}, "A14"),
     ({"use_quantized_grad": True}, "A8"),
     ({"monotone_constraints": [1, 0, 0, 0, 0, 0, 0, 0]}, "A10"),
@@ -207,6 +207,7 @@ def test_valid_sets_early_stopping_and_logging(data):
     ({"feature_fraction_bynode": 0.5}, "A10"),
     ({"extra_trees": True}, "A10"),
     ({"objective": "multiclass", "num_class": 3}, "A10"),
+    ({"histogram_impl": "fused"}, "A15"),
 ])
 def test_configurations_outside_the_slice_raise(data, over, item):
     X, y = data
@@ -216,11 +217,16 @@ def test_configurations_outside_the_slice_raise(data, over, item):
 
 
 def test_categorical_and_wide_data_raise(data):
+    """Categorical and wide data train on the wave-apply route; what stays
+    outside the slice there is more than 256 bins per feature (A14)."""
     X, y = data
-    with pytest.raises(NotImplementedError, match="ROADMAP item A9"):
-        lt.train({**PARAMS, **TORCH},
-                 lt.Dataset(X, label=y, categorical_feature=[2]), 1)
+    cat = lt.train({**PARAMS, **TORCH},
+                   lt.Dataset(X, label=y, categorical_feature=[2]), 1)
     wide = np.random.RandomState(0).normal(size=(500, 40))
-    with pytest.raises(NotImplementedError, match="ROADMAP item A9"):
-        lt.train({**PARAMS, **TORCH},
+    w = lt.train({**PARAMS, **TORCH},
                  lt.Dataset(wide, label=wide[:, 0] > 0), 1)
+    assert cat._gbdt.grow_route == w._gbdt.grow_route == "apply"
+    assert cat._gbdt.grow_cfg.has_categorical and w._gbdt.X_t.shape[0] == 40
+    with pytest.raises(NotImplementedError, match="ROADMAP item A14"):
+        lt.train({**PARAMS, **TORCH, "max_bin": 300},
+                 lt.Dataset(X, label=y, categorical_feature=[2]), 1)
