@@ -63,9 +63,32 @@ Phases, each printing one JSON line:
                      within 1e-5 of Booster.predict
      efb             2^19 rows of 30 one-hot sparse and 30 dense columns,
                      4 rounds: bundles form, the apply route runs, the
-                     first tree equals the plain versions'
+                     first tree equals the plain versions'; then 2 rounds
+                     under histogram_impl=fused: vetoed (efb_bundled), the
+                     apply route, the same trees
+ 10. the fused routes (histogram_impl="fused"), whose kernels also run the
+     best-split search of every candidate's two children:
+     fused_kernels   kernel #9 (wave_pass_fused) against its plain version
+                     at the bench storage (2^20 x 28, B = 64), K in
+                     {1, 16, 64}; kernel #10 (wave_pass_fused_tiled) at the
+                     Criteo storage (K in {1, 16}), at F = 100 / B = 64
+                     with a live pending relabel, and with int8 values:
+                     leaf_of_row, histogram and split records bitwise on
+                     grid values, the chosen splits equal on continuous
+                     ones (their largest float differences printed)
+     fused_train     bench.py's model under histogram_impl=fused, 8 rounds:
+                     route "fused", kernel #9 launched and wave_pass not,
+                     AUC > 0.88, first tree equal to the plain versions'
+     criteo_fused    the Criteo table under histogram_impl=fused, 8 rounds:
+                     route "fused_tiled", kernel #10 launched, AUC never
+                     falls and passes CRITEO_AUC_MIN, first tree equal to
+                     the plain versions', 2 rounds with
+                     fused_relabel_fusion=false grow the same trees; and
+                     the first tree of the plain versions with the f32
+                     prefix scan the search used before against the f64
+                     one (printed, not checked)
 
-then a {"kernels": [...]} line (the eight kernels), the nvidia-smi line,
+then a {"kernels": [...]} line (the ten kernels), the nvidia-smi line,
 and last
 {"ok": true, "device": {...}}. Any failed check raises before the last
 line and the exit code is not 0. Without a CUDA device, or without the
@@ -880,7 +903,8 @@ def criteo_serve_phase(hc, torch, bst):
 def efb_phase(lt, hc, torch):
     """2^19 rows of 30 one-hot sparse and 30 dense columns, max_bin 63, 4
     rounds: bundles form, the apply route runs, and the first tree equals
-    the plain versions'."""
+    the plain versions'; 2 rounds under histogram_impl=fused are vetoed
+    (efb_bundled), take the apply route and grow the same trees."""
     from lightgbm_tpu_torch.utils.synthetic import efb_like
     n = N_ROWS // 2
     X, y = efb_like(n)
@@ -914,6 +938,402 @@ def efb_phase(lt, hc, torch):
           "the EFB run did not take the apply route")
     check(lv_err is not None and lv_err <= 1e-6,
           f"EFB first tree differs from the plain versions' ({lv_err})")
+    # histogram_impl=fused on bundled storage: vetoed, the apply route
+    hc.reset_launch_counts()
+    bf = lt.train({**params, "histogram_impl": "fused"}, bst.train_set,
+                  num_boost_round=2)
+    gf_ = bf._gbdt
+    errs = [_same_host_tree(a, b) for a, b in zip(gf_.models, g.models)]
+    emit({"phase": "efb_fused", "grow_route": gf_.grow_route,
+          "fused_veto_reasons": gf_.fused_veto_reasons,
+          "launches": dict(hc.LAUNCHES),
+          "same_trees_as_auto": all(e is not None and e == 0.0
+                                    for e in errs)})
+    check(gf_.grow_route == "apply"
+          and gf_.fused_veto_reasons == ["efb_bundled"],
+          f"EFB under histogram_impl=fused: route {gf_.grow_route}, vetoes "
+          f"{gf_.fused_veto_reasons}")
+    check(len(errs) == 2 and all(e is not None and e == 0.0 for e in errs),
+          f"EFB under histogram_impl=fused grew other trees ({errs})")
+
+
+# ---------------------------------------------------------------------------
+# the fused routes (histogram_impl="fused")
+# ---------------------------------------------------------------------------
+FUSED_FIELDS = ("gain", "feature", "threshold", "default_left", "left_sum_g",
+                "left_sum_h", "left_count", "right_sum_g", "right_sum_h",
+                "right_count", "left_output", "right_output")
+
+
+def _fused_operands(torch, hc, X, vals, slot_all, slot_small, sil, K, B):
+    """What the fused scan reads, from real rows: each candidate's parent
+    histogram [K, 2 * F * B] over the rows of its leaf (`slot_all`), and
+    per-child scalars [5, 2K] whose sums and counts are those of its two
+    children (the smaller one's rows in `slot_small`)."""
+    v3 = torch.cat([vals.to(torch.float32),
+                    torch.ones((1, X.shape[1]), device=X.device)])
+    par3 = hc.build_histogram_slots_cuda(X, v3, slot_all, K, B)
+    sm3 = hc.build_histogram_slots_cuda(X, v3, slot_small, K, B)
+    ptot = par3[:, :, 0, :].sum(-1)                # feature 0 holds every row
+    stot = sm3[:, :, 0, :].sum(-1)
+    ltot = torch.where(sil[:, None], stot, ptot - stot)
+    rtot = ptot - ltot
+    lr = torch.cat([ltot, rtot])                   # [2K, 3]
+    out = -lr[:, 0] / (lr[:, 1] + 1.0)
+    scal = torch.stack([lr[:, 0], lr[:, 1], lr[:, 2], out,
+                        torch.cat([sil, sil]).to(torch.float32)])
+    parent = par3[:, :2]
+    if vals.dtype == torch.int8:
+        parent = hc.build_histogram_slots_cuda(X, vals, slot_all, K, B)
+    return parent.reshape(K, -1).contiguous(), scal.contiguous()
+
+
+def _rec_diffs(torch, a, b):
+    """Largest |difference| of each record field (selection fields as
+    counts of differing children)."""
+    out = {}
+    for i, name in enumerate(FUSED_FIELDS):
+        if name in ("feature", "threshold", "default_left"):
+            out[name] = int((a[i] != b[i]).sum())
+        else:
+            fin = torch.isfinite(a[i]) & torch.isfinite(b[i])
+            d = (a[i] - b[i]).abs()[fin]
+            out[name] = float(d.max()) if d.numel() else 0.0
+    return out
+
+
+def _fused_hp():
+    from lightgbm_tpu_torch.ops.split import SplitHyperParams
+    return SplitHyperParams(min_data_in_leaf=20.0,
+                            min_sum_hessian_in_leaf=1e-3, lambda_l1=0.0,
+                            lambda_l2=0.0, max_delta_step=0.0,
+                            min_gain_to_split=0.0, path_smooth=0.0)
+
+
+def _scan_nbytes(K, F, B):
+    """Bytes the split scan must move: the parent histograms read, the
+    per-child scalars, the feature metadata and the records."""
+    return K * 2 * F * B * 4 + 5 * 2 * K * 4 + 4 * F * 4 + 12 * 2 * K * 4
+
+
+def fused_narrow_phase(hc, gf, torch, dev):
+    """Kernel #9 against its plain version at the bench storage shape
+    (N = 2^20, F = 28, B = 64) for K in {1, 16, 64}: a mid-tree wave of 64
+    applied splits among 120 leaves, K candidates among the leaves after
+    it, parents and child statistics from the real rows. leaf_of_row, the
+    histogram and every record field bitwise on 1/1024-grid values (at
+    K = 16 also with every split regularizer set); on
+    continuous values the chosen (feature, threshold, default_left) of
+    every child, and the largest difference of each float field."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    N, F, B, L, nl0, napp = N_ROWS, N_FEAT, N_BINS, N_LEAVES, 120, 64
+    X = torch.randint(0, 63, (F, N), generator=gen, device=dev,
+                      dtype=torch.int32).to(torch.uint8)
+    lor = torch.randint(0, nl0, (N,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    rng = np.random.RandomState(22)
+    hp = _fused_hp()
+    hp_reg = hp._replace(lambda_l1=0.5, lambda_l2=2.0, max_delta_step=0.75,
+                         min_gain_to_split=0.25, path_smooth=3.0)
+    fmeta = torch.tensor(np.stack([np.full(F, 63), rng.randint(0, 3, F),
+                                   rng.randint(0, 63, F), np.zeros(F)]),
+                         dtype=torch.int32, device=dev)
+    fmask = torch.ones(F, dtype=torch.uint8, device=dev)
+    recs = {}
+    for K in (1, 16, 64):
+        tbl = _wave_table(torch, rng, F, B - 1, nl0, napp, K, dev)
+        t64 = tbl.to(torch.int64)
+        new_lor = hc.wave_relabel_plain(X, lor, tbl, L)
+        ent = torch.full((L + 1,), -1, dtype=torch.int64, device=dev)
+        ent[t64[7, :K]] = torch.arange(K, device=dev)
+        slot_all = ent[new_lor.to(torch.int64)]
+        p = hc._pack_entries(t64, 8, t64[14] & 1)[:K]
+        pe = p[slot_all.clamp(min=0)]
+        small = (slot_all >= 0) & (hc._go_left(pe, X)
+                                   == (((pe >> 23) & 1) == 1))
+        slot_small = torch.where(small, slot_all, -1).to(torch.int32)
+        slot_all = slot_all.to(torch.int32)
+        sil = (t64[14, :K] & 1) == 1
+        res = {}
+        # at K = 16 also the regularizers' arithmetic of the scan (l1, l2,
+        # max_delta_step, path_smooth, min_gain_to_split), on grid values
+        kinds = (("regularized",) if K == 16 else ()) + ("grid",
+                                                         "continuous")
+        for kind in kinds:
+            vals = (torch.randn((2, N), generator=gen, device=dev)
+                    if kind == "continuous"
+                    else _grid_vals(torch, gen, 2, N, dev))
+            vals[1] = vals[1].abs()
+            parent, scal = _fused_operands(torch, hc, X, vals, slot_all,
+                                           slot_small, sil, K, B)
+            args = (X, vals, lor, tbl, parent, scal, fmeta, fmask, K, B, L,
+                    hp_reg if kind == "regularized" else hp)
+            gl, gh, gr = gf.wave_pass_fused_cuda(*args)
+            rl, rh, rr = gf.wave_pass_fused_plain(*args)
+            torch.cuda.synchronize()
+            check(torch.equal(gl, rl), f"wave_pass_fused K={K}: leaf_of_row")
+            d = _rec_diffs(torch, gr, rr)
+            check(d["feature"] == d["threshold"] == d["default_left"] == 0,
+                  f"wave_pass_fused K={K} {kind}: chosen splits differ {d}")
+            check(bool(torch.isfinite(gr[0]).any()),
+                  f"wave_pass_fused K={K} {kind}: no child found a split")
+            if kind != "continuous":
+                check(torch.equal(gh, rh) and torch.equal(gr, rr),
+                      f"wave_pass_fused K={K} {kind}: not bitwise equal "
+                      f"({d})")
+            res[kind] = d
+        cand_rows = int((slot_all >= 0).sum())
+        app_rows = int(torch.isin(lor, tbl[0, :napp]).sum())
+        small_rows = int(small.sum())
+        nbytes = 8 * N + app_rows + cand_rows + small_rows * (F + 8) \
+            + K * 2 * F * B * 4 + 16 * 128 * 4 + _scan_nbytes(K, F, B)
+        bms, by = bound_ms(nbytes, small_rows * F * 2 + 2 * K * 2 * F * B
+                           * 40)
+        ms = time_ms(lambda: gf.wave_pass_fused_cuda(*args), 20)
+        plain_ms = time_ms(lambda: gf.wave_pass_fused_plain(*args), 3, 1)
+        rec = dict(name="wave_pass_fused", K=K, F=F, B=B, max_abs_err=0.0,
+                   tol=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+                   bound_ms=bms, bound_by=by, bound_us=bms * 1e3,
+                   launches_per_call=3, continuous_max_diff=res["continuous"])
+        emit({"phase": "fused_kernels", "kernel_ms": ms, **rec})
+        recs[K] = rec
+    return recs[16]
+
+
+def fused_tiled_phase(hc, gf, torch, dev, X_c):
+    """Kernel #10 against its plain version: at the Criteo storage X_c
+    ([39, 2^20], B = 256) for K in {1, 16}; at F = 100, B = 64 with a live
+    pending table (K = 16); and with int8 values (exact int32 sums,
+    descaled after the subtraction). Random decision bits; parents and
+    child statistics from the real rows; per-child feature masks. Bitwise
+    on grid values; on continuous values the chosen splits equal."""
+    gen = torch.Generator(device=dev).manual_seed(23)
+    rng = np.random.RandomState(24)
+    hp = _fused_hp()
+    L = N_LEAVES
+    recs = []
+    cases = [("criteo", X_c, 256, 1, False, False),
+             ("criteo", X_c, 256, 16, False, False),
+             ("wide_pending", None, 64, 16, True, False),
+             ("criteo_int8", X_c, 256, 16, True, True)]
+    for name, X, B, K, pending, quant in cases:
+        if X is None:
+            X = torch.randint(0, 63, (100, N_ROWS), generator=gen,
+                              device=dev, dtype=torch.int32).to(torch.uint8)
+        F, N = X.shape
+        nl0 = 120
+        lor = torch.randint(0, nl0, (N,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        pend = torch.full((128,), -1, dtype=torch.int32, device=dev)
+        pnl0 = 0
+        if pending:
+            # a deferred wave split 8 leaves into new leaves 120-127
+            pend[:8] = torch.from_numpy(rng.choice(nl0, 8, replace=False))
+            pnl0, nl0 = nl0, nl0 + 8
+        napp = min(K, 12)
+        t = np.full((16, 128), -1, np.int32)
+        t[0, :napp] = rng.choice(nl0, napp, replace=False)
+        t[7, :K] = rng.choice(nl0 + napp, K, replace=False)
+        t[15] = nl0
+        tbl = torch.from_numpy(t).to(dev)
+        Kd = max(K, napp, 8 if pending else 1)
+        dec = torch.randint(0, 8, (Kd, N), generator=gen, device=dev,
+                            dtype=torch.int32).to(torch.uint8)
+        every = dec | 2                     # all candidate rows in slot
+        lor1, _ = hc.wave_apply_plain((dec >> 2) & 1, lor, torch.cat(
+            [pend[None], torch.full((14, 128), -1, dtype=torch.int32,
+                                    device=dev),
+             torch.full((1, 128), pnl0, dtype=torch.int32, device=dev)]), L)
+        _, slot_all = hc.wave_apply_plain(every, lor1, tbl, L)
+        _, slot_small = hc.wave_apply_plain(dec, lor1, tbl, L)
+        sil = torch.from_numpy(rng.randint(0, 2, K).astype(bool)).to(dev)
+        fmeta = torch.tensor(np.stack([np.full(F, B - 1),
+                                       rng.randint(0, 3, F),
+                                       rng.randint(0, B - 1, F),
+                                       np.zeros(F)]), dtype=torch.int32,
+                             device=dev)
+        fmask = torch.from_numpy((rng.rand(2 * K, F) < 0.9).astype(
+            np.uint8)).to(dev)
+        res = {}
+        for kind in (("int8",) if quant else ("grid", "continuous")):
+            if quant:
+                vals = torch.randint(-127, 128, (2, N), generator=gen,
+                                     device=dev, dtype=torch.int32) \
+                    .to(torch.int8)
+                vals[1] = vals[1].abs()
+                scale = (0.0078125, 0.00390625)
+            else:
+                vals = (_grid_vals(torch, gen, 2, N, dev) if kind == "grid"
+                        else torch.randn((2, N), generator=gen, device=dev))
+                vals[1] = vals[1].abs()
+                scale = None
+            parent, scal = _fused_operands(torch, hc, X, vals, slot_all,
+                                           slot_small, sil, K, B)
+            args = (X, vals, dec, lor, tbl, pend, pnl0, parent, scal, fmeta,
+                    fmask, K, B, L, hp, scale)
+            gl, gh, gr = gf.wave_pass_fused_tiled_cuda(*args)
+            rl, rh, rr = gf.wave_pass_fused_tiled_plain(*args)
+            torch.cuda.synchronize()
+            check(torch.equal(gl, rl),
+                  f"wave_pass_fused_tiled {name} K={K}: leaf_of_row")
+            d = _rec_diffs(torch, gr, rr)
+            check(d["feature"] == d["threshold"] == d["default_left"] == 0,
+                  f"wave_pass_fused_tiled {name} K={K} {kind}: chosen "
+                  f"splits differ {d}")
+            if kind != "continuous":
+                check(torch.equal(gh, rh) and torch.equal(gr, rr),
+                      f"wave_pass_fused_tiled {name} K={K} {kind}: not "
+                      f"bitwise equal ({d})")
+            res[kind] = d
+        if pending:
+            check(not torch.equal(lor1, lor), "the pending table moved no row")
+        live = int(((slot_all >= 0) | torch.isin(lor, tbl[0, :napp])
+                    | torch.isin(lor, pend)).sum())
+        small_rows = int((slot_small >= 0).sum())
+        C_bytes = 2 if quant else 8
+        # leaf ids in and out; one to three dec bytes per row of a live
+        # entry's leaf; the smaller children's bins and values
+        nbytes = 8 * N + 3 * live + small_rows * (F + C_bytes) \
+            + K * 2 * F * B * 4 + 16 * 128 * 4 + 128 * 4 \
+            + _scan_nbytes(K, F, B) + 2 * K * F
+        bms, by = bound_ms(nbytes, small_rows * F * 2 + 2 * K * 2 * F * B
+                           * 40)
+        ms = time_ms(lambda: gf.wave_pass_fused_tiled_cuda(*args), 20)
+        plain_ms = time_ms(lambda: gf.wave_pass_fused_tiled_plain(*args), 3,
+                           1)
+        rec = dict(name="wave_pass_fused_tiled", case=name, K=K, F=F, B=B,
+                   Kd=Kd, max_abs_err=0.0, tol=0.0, ms=ms,
+                   plain_ms=plain_ms, library_ms=None, bound_ms=bms,
+                   bound_by=by, bound_us=bms * 1e3,
+                   launches_per_call=2 if quant else 3,
+                   continuous_max_diff=res.get("continuous"))
+        emit({"phase": "fused_kernels", "kernel_ms": ms, **rec})
+        recs.append(rec)
+        del dec, every
+    return recs[1]
+
+
+def _train_timed(lt, hc, torch, params, ds, rounds):
+    """Train `rounds` rounds; (booster, launches, per-round ms, train AUC
+    per round)."""
+    ends, resumes, aucs = [], [], []
+
+    def stamp(env):
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        aucs.append(env.model.eval_train()[0][2])
+        resumes.append(time.perf_counter())
+    stamp.order = 5
+    hc.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bst = lt.train(params, ds, num_boost_round=rounds, callbacks=[stamp])
+    torch.cuda.synchronize()
+    iter_ms = [(b - a) * 1e3 for a, b in zip([t0] + resumes[:-1], ends)]
+    return bst, dict(hc.LAUNCHES), iter_ms, aucs
+
+
+def fused_train_phase(lt, hc, torch, params, ds):
+    """bench.py's model on the bench data under histogram_impl=fused, 8
+    rounds: the narrow fused route with kernel #9, AUC > 0.88, and the
+    first tree equal to the plain versions'."""
+    p = {**params, "histogram_impl": "fused"}
+    bst, launches, iter_ms, aucs = _train_timed(lt, hc, torch, p, ds, 8)
+    g = bst._gbdt
+    trees = g.models
+    lv_err = _same_host_tree(_plain_first_tree(torch, g, N_ROWS), trees[0])
+    emit({"phase": "fused_train", "rows": N_ROWS, "grow_route": g.grow_route,
+          "fused_veto_reasons": g.fused_veto_reasons, "iter_ms": iter_ms,
+          "steady_ms_per_iter": float(np.mean(iter_ms[1:])),
+          "launches": launches, "train_auc_per_round": aucs,
+          "leaves": [t.num_leaves for t in trees],
+          "first_tree_same": lv_err is not None,
+          "leaf_value_max_abs_err": lv_err})
+    check(g.grow_route == "fused" and g.fused_veto_reasons == [],
+          f"bench under histogram_impl=fused took route {g.grow_route}")
+    check(launches["wave_pass_fused"] > 0 and launches["wave_pass"] == 0,
+          "the fused route did not run kernel #9 alone")
+    check(len(trees) == 8 and aucs[-1] > 0.88,
+          f"fused train AUC {aucs[-1]} <= 0.88")
+    check(lv_err is not None and lv_err <= 1e-6,
+          f"fused first tree differs from the plain versions' ({lv_err})")
+    return launches
+
+
+class _F32Cumsum:
+    """A stand-in for the torch module in ops/split.py that gives its f64
+    prefix sums the f32 CUDA scan the port used before (the `before` of
+    the criteo_fused phase's cumsum comparison)."""
+
+    def __init__(self, torch):
+        self._torch = torch
+
+    def __getattr__(self, name):
+        return getattr(self._torch, name)
+
+    def cumsum(self, x, dim):
+        return self._torch.cumsum(x.to(self._torch.float32), dim=dim) \
+            .to(self._torch.float64)
+
+
+def criteo_fused_phase(lt, hc, torch, params, ds):
+    """The Criteo table under histogram_impl=fused, 8 rounds: the general
+    fused route with kernel #10, AUC never falls and passes CRITEO_AUC_MIN,
+    the first tree equals the plain versions'; 2 rounds with
+    fused_relabel_fusion=false grow the same trees. Then the search's
+    cumsum on the card: the first tree of the plain versions with an f32
+    prefix scan against the f64 one."""
+    from lightgbm_tpu_torch.ops import split as ts
+    p = {**params, "histogram_impl": "fused"}
+    bst, launches, iter_ms, aucs = _train_timed(lt, hc, torch, p, ds, 8)
+    g = bst._gbdt
+    trees = g.models
+    t_plain = _plain_first_tree(torch, g, N_ROWS)
+    lv_err = _same_host_tree(t_plain, trees[0])
+    off, _, off_ms, _ = _train_timed(
+        lt, hc, torch, {**p, "fused_relabel_fusion": False}, ds, 2)
+    off_errs = [_same_host_tree(a, b) for a, b in zip(off._gbdt.models,
+                                                      trees[:2])]
+    saved = ts.torch
+    ts.torch = _F32Cumsum(torch)
+    try:
+        t_f32 = _plain_first_tree(torch, g, N_ROWS)
+    finally:
+        ts.torch = saved
+    cum_err = _same_host_tree(t_f32, t_plain)
+    emit({"phase": "criteo_fused", "rows": N_ROWS,
+          "grow_route": g.grow_route,
+          "fused_veto_reasons": g.fused_veto_reasons, "iter_ms": iter_ms,
+          "steady_ms_per_iter": float(np.mean(iter_ms[1:])),
+          "launches": launches, "train_auc_per_round": aucs,
+          "leaves": [t.num_leaves for t in trees],
+          "categorical_splits": [t.num_cat for t in trees],
+          "first_tree_same": lv_err is not None,
+          "leaf_value_max_abs_err": lv_err,
+          "fusion_off_ms": off_ms,
+          "fusion_off_same_trees": all(e is not None for e in off_errs),
+          "fusion_off_leaf_value_max_abs_err": off_errs,
+          "cumsum_f32_vs_f64_first_tree": {
+              "same_structure": cum_err is not None,
+              "leaf_value_max_abs_err": cum_err,
+              "split_gain_max_abs_err": (
+                  float(np.max(np.abs(t_f32.split_gain - t_plain.split_gain)))
+                  if cum_err is not None else None)}})
+    check(g.grow_route == "fused_tiled" and g.fused_veto_reasons == [],
+          f"Criteo under histogram_impl=fused took route {g.grow_route}")
+    check(launches["wave_pass_fused_tiled"] > 0
+          and launches["wave_pass_fused"] == 0,
+          "the Criteo fused run did not launch kernel #10")
+    check(all(b >= a for a, b in zip(aucs, aucs[1:])),
+          f"Criteo fused train AUC fell between rounds: {aucs}")
+    check(len(trees) == 8 and aucs[-1] > CRITEO_AUC_MIN,
+          f"Criteo fused train AUC {aucs[-1]} <= {CRITEO_AUC_MIN}")
+    check(lv_err is not None and lv_err <= 1e-6,
+          f"Criteo fused first tree differs from the plain versions' "
+          f"({lv_err})")
+    check(all(e is not None and e <= 1e-6 for e in off_errs),
+          f"fused_relabel_fusion=false grew other trees ({off_errs})")
+    return launches
 
 
 def main():
@@ -926,6 +1346,7 @@ def main():
     try:
         import lightgbm_tpu_torch as lt
         from lightgbm_tpu_torch.ops import bucketize as bk
+        from lightgbm_tpu_torch.ops import grow_fused as gf
         from lightgbm_tpu_torch.ops import histogram_cuda as hc
         from lightgbm_tpu_torch.ops import histogram_rowwise as hr
     except ImportError as e:
@@ -1070,10 +1491,20 @@ def main():
     check(bst.current_iteration == 16 and auc16 > 0.9,
           f"train AUC after 16 rounds {auc16} <= 0.9")
 
+    # ---- 10. the fused routes, bench half: kernel #9, then bench.py's
+    # model under histogram_impl=fused
+    krec["wave_pass_fused"] = fused_narrow_phase(hc, gf, torch, dev)
+    fused_launches = fused_train_phase(lt, hc, torch, params, ds)
+
     # ---- 9. the wave-apply route: the wave_apply kernel, the Criteo
-    # table trained col-wise, row-wise and nibble-packed, served, and EFB
+    # table trained col-wise, row-wise and nibble-packed, served, and EFB;
+    # and the fused routes' Criteo half: kernel #10 and the Criteo table
+    # under histogram_impl=fused
     krec["wave_apply"] = wave_apply_phase(hc, torch, dev)
     bst_c, ds_c, c_launches = criteo_phase(lt, hc, torch, dev)
+    krec["wave_pass_fused_tiled"] = fused_tiled_phase(hc, gf, torch, dev,
+                                                      bst_c._gbdt.X_t)
+    cf_launches = criteo_fused_phase(lt, hc, torch, bst_c.params, ds_c)
     h_c = ds_c._handle
     krec.update(rowwise_phase(hc, hr, torch, dev, bst_c._gbdt.X_t,
                               h_c.storage_num_bins(),
@@ -1088,7 +1519,9 @@ def main():
            "wave_pass": "wave_pass.cu", "wave_relabel": "wave_relabel.cu",
            "bucketize": "bucketize.cu", "wave_apply": "wave_apply.cu",
            "hist_rowwise": "hist_rowwise.cu",
-           "hist_rowwise_packed": "hist_rowwise.cu"}
+           "hist_rowwise_packed": "hist_rowwise.cu",
+           "wave_pass_fused": "wave_pass_fused.cu",
+           "wave_pass_fused_tiled": "wave_pass_fused_tiled.cu"}
     replaces = {
         "build_histogram_slots":
             "lightgbm_tpu/ops/histogram_pallas.py:280",
@@ -1098,7 +1531,9 @@ def main():
         "bucketize": "lightgbm_tpu/ops/bucketize.py:351",
         "wave_apply": "lightgbm_tpu/ops/histogram_pallas.py:658",
         "hist_rowwise": "lightgbm_tpu/ops/histogram_rowwise.py:213",
-        "hist_rowwise_packed": "lightgbm_tpu/ops/histogram_rowwise.py:431"}
+        "hist_rowwise_packed": "lightgbm_tpu/ops/histogram_rowwise.py:431",
+        "wave_pass_fused": "lightgbm_tpu/ops/grow_fused.py:356",
+        "wave_pass_fused_tiled": "lightgbm_tpu/ops/grow_fused.py:656"}
     krec["bucketize"] = brec["train"]
     # the bucketize kernel's main-path launches: ingest plus serving
     launches["bucketize"] = ingest_launches["bucketize"] \
@@ -1107,6 +1542,9 @@ def main():
     launches["wave_apply"] = c_launches["wave_apply"]
     for name in ("hist_rowwise", "hist_rowwise_packed"):
         launches[name] = rw_launches[name][name]
+    # the fused routes' kernels: launches on the runs that take them
+    launches["wave_pass_fused"] = fused_launches["wave_pass_fused"]
+    launches["wave_pass_fused_tiled"] = cf_launches["wave_pass_fused_tiled"]
     kernels = []
     for name in hc.KERNELS:
         r = krec[name]

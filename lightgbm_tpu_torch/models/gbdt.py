@@ -10,10 +10,11 @@ Training runs the wave grower with binary or L2 objectives, no bagging,
 host or device binning, on the route the JAX package's accelerator takes
 (`wave_routes`): the megakernel route for at most 32 dense numeric storage
 columns, the wave-apply route for wider, categorical or EFB-bundled data
-and for the row-wise histogram layouts. Everything else raises
-NotImplementedError naming the ROADMAP item that ports it. Prediction
-covers every tree the JAX package writes except linear leaves on the
-device routes.
+and for the row-wise histogram layouts, and under histogram_impl=fused the
+fused routes, whose kernels also search the children's splits. Everything
+else raises NotImplementedError naming the ROADMAP item that ports it.
+Prediction covers every tree the JAX package writes except linear leaves on
+the device routes.
 """
 
 from __future__ import annotations
@@ -29,7 +30,8 @@ from ..data.dataset import BinnedDataset
 from ..metrics import Metric
 from ..objectives import ObjectiveFunction, create_objective
 from ..ops.grow import DeviceTree, GrowConfig
-from ..ops.grow_wave import _wave_buckets, grow_tree_wave, wave_routes
+from ..ops.grow_wave import (_wave_buckets, fused_veto_reasons,
+                             grow_tree_wave, wave_routes)
 from ..ops.histogram import make_hist_plan, take_leaf_values
 from ..ops.histogram_cuda import MAX_LEAVES
 from ..ops.predict import predict_leaf_binned
@@ -61,9 +63,6 @@ def check_slice_config(cfg: Config) -> None:
                     f"{cfg.tree_learner})", "A16")
     if cfg.tpu_grower not in ("auto", "wave"):
         _not_ported(f"tpu_grower={cfg.tpu_grower}", "A11")
-    if cfg.histogram_impl == "fused":
-        _not_ported("histogram_impl=fused (the fused growth kernels)",
-                    "A15")
     if cfg.binning_impl == "auto" and cfg.autotune:
         _not_ported("autotune of binning_impl=auto", "A14")
     if cfg.use_quantized_grad:
@@ -215,6 +214,8 @@ class GBDT:
             wave_gain_slack=min(max(cfg.tpu_wave_gain_slack, 0.0), 0.99),
             hist_tiers=hist_tiers,
             hist_impl=hist_impl,
+            fused_feature_tile=int(cfg.fused_feature_tile),
+            fused_relabel_fusion=bool(cfg.fused_relabel_fusion),
             has_categorical=bool(ds.feature_is_categorical().any()),
             max_cat_to_onehot=cfg.max_cat_to_onehot,
             max_cat_threshold=cfg.max_cat_threshold,
@@ -229,10 +230,19 @@ class GBDT:
                        if bundled else ()),
         )
         # the route every tree of this run takes (recorded, so a run can
-        # show it against the kernels' launch counts): "mega" or "apply",
-        # and the histogram route of the apply route
+        # show it against the kernels' launch counts): "fused",
+        # "fused_tiled", "mega" or "apply", and the histogram route of the
+        # apply route; under histogram_impl=fused, why a fused kernel does
+        # not run (empty when one does; the profile extras entry of
+        # gbdt.py:674-687)
         self.grow_route, self.hist_route = wave_routes(self.grow_cfg,
                                                        self.X_t.shape[0])
+        self.fused_veto_reasons = (fused_veto_reasons(self.grow_cfg)
+                                   if hist_impl == "fused" else [])
+        if self.fused_veto_reasons:
+            log_warning("histogram_impl=fused: the fused kernels are "
+                        f"vetoed ({', '.join(self.fused_veto_reasons)}); "
+                        f"route {self.grow_route}")
         # the row-wise layouts' plan (and the nibble pack) is made once
         self.hist_plan = make_hist_plan(self.X_t, self.hist_route,
                                         hist_tiers)

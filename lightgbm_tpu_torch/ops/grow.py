@@ -37,9 +37,14 @@ class GrowConfig(NamedTuple):
     wave_gain_slack: float = 0.0
     # per-STORAGE-COLUMN bin counts in storage order and the histogram
     # implementation ("auto" | "legacy" | "tiered" | "tiered_hilo" |
-    # "rowwise" | "rowwise_packed"; config histogram_impl)
+    # "rowwise" | "rowwise_packed" | "fused"; config histogram_impl)
     hist_tiers: tuple = ()
     hist_impl: str = "auto"
+    # the fused routes (histogram_impl="fused"): the feature-tile width
+    # that sets the general kernel's wave width, and whether an
+    # applies-only wave defers its relabel into the next fused launch
+    fused_feature_tile: int = 32
+    fused_relabel_fusion: bool = True
     # categorical split search (reference: config.h cat_* params)
     has_categorical: bool = False
     max_cat_to_onehot: int = 4

@@ -18,6 +18,17 @@ accelerator (`wave_routes`):
     a slim kernel resolves leaf membership (`wave_apply`), and the
     histogram runs as its own pass (`build_histogram_slots` on the route
     `hist_route` picks: the K-slot kernel, or the row-wise kernels).
+  * "fused" and "fused_tiled", histogram_impl="fused" (`use_fused` /
+    `use_fused_tiled`, grow_wave.py:300-309): the row pass of "mega"
+    ("fused", `wave_pass_fused`) or of "apply" ("fused_tiled",
+    `wave_pass_fused_tiled`) also searches both children of every
+    candidate in the same call (ops/grow_fused.py); the categorical search
+    of "fused_tiled" stays outside and merges by gain. On "fused_tiled" an
+    applies-only wave defers its relabel into the next wave's launch as a
+    pending pass (`fused_relabel_fusion`, grow_wave.py:1135-1139), flushed
+    by `wave_apply` when no launch follows. `fused_veto_reasons` lists why
+    a pinned "fused" takes "mega" or "apply" instead. Each fused route
+    keeps the TPU kernel's own wave width (`fused_kcap`).
 
 The algorithm is the JAX package's, restructured from one XLA program into
 a Python loop over waves:
@@ -44,16 +55,20 @@ splits to apply, then the candidate count, which picks the bucketed K); its
 from __future__ import annotations
 
 import functools
-from typing import List, Optional, Tuple
+import os
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
 from ..models.tree import MISSING_NAN, MISSING_ZERO
 from .categorical import find_best_split_categorical
 from .grow import DeviceTree, GrowConfig
+from .grow_fused import (fused_feature_mask, pack_fused_meta,
+                         pack_fused_scalars, unpack_fused_records)
 from .histogram import (ROWWISE_IMPLS, HistPlan, build_histogram,
                         build_histogram_slots, hist_route, make_hist_plan,
-                        wave_apply, wave_pass, wave_relabel)
+                        wave_apply, wave_pass, wave_pass_fused,
+                        wave_pass_fused_tiled, wave_relabel)
 from .split import (NEG_INF, FeatureMeta, SplitResult, find_best_split,
                     synth_count_channel)
 
@@ -68,25 +83,64 @@ def _wave_buckets(L: int, kcap: int = 128) -> List[int]:
     return [k for k in ladder if k < kmax] + [kmax]
 
 
+def _kcap(budget: int) -> int:
+    """A K cap from a VMEM budget in slots: the largest power of two at
+    most `budget`, at most 128."""
+    kcap = max(1 << (budget.bit_length() - 1), 1) if budget >= 1 else 1
+    return min(kcap, 128)
+
+
+def _bin_lane(num_bins_padded: int) -> int:
+    """The TPU kernels' lane-padded bin width (histogram_pallas.py:65)."""
+    return next((w for w in (32, 64, 128) if num_bins_padded <= w), 256)
+
+
 def mega_kcap(num_bins_padded: int) -> int:
     """The widest wave of the megakernel route (grow_wave.py:328-338): the
     TPU kernel's output block bounds K by its VMEM budget. The cap decides
     how many splits a wave may apply and speculate, so the port keeps it to
     grow the same trees."""
-    B_lane = next(w for w in (32, 64, 128, 256) if num_bins_padded <= w) \
-        if num_bins_padded <= 256 else 256
-    kcap = 3_400_000 // (2 * 32 * B_lane * 4)
-    kcap = max(1 << (kcap.bit_length() - 1), 1) if kcap >= 1 else 1
-    return min(kcap, 128)
+    return _kcap(3_400_000 // (2 * 32 * _bin_lane(num_bins_padded) * 4))
+
+
+def fused_kcap(num_bins_padded: int, tile: Optional[int] = None) -> int:
+    """The widest wave of a fused route (grow_wave.py:310-338): the narrow
+    kernel (tile None) halves the megakernel's budget, because it also
+    holds the candidates' parent histograms; the feature-tiled kernel's
+    budget is one tile of `tile` columns, halved the same way. 64 at
+    B <= 64 on both with the default tile of 32; 16 at B = 256."""
+    width = 32 if tile is None else tile
+    return _kcap(3_400_000 // (2 * width * _bin_lane(num_bins_padded) * 4)
+                 // 2)
+
+
+def fused_veto_reasons(cfg: GrowConfig) -> List[str]:
+    """Why no fused kernel runs for this configuration, empty when one does
+    (grow_wave.py:96-139, for the regimes the port trains; the rest are
+    refused before a tree grows). The JAX package's `no_tpu_pallas` has no
+    counterpart: on a CPU tensor the fused routes run their kernels' plain
+    versions."""
+    reasons = []
+    if cfg.hist_impl != "fused":
+        reasons.append("histogram_impl=%s (not 'fused')" % cfg.hist_impl)
+    if os.environ.get("LIGHTGBM_TPU_DISABLE_FUSED", "").lower() \
+            in ("1", "true", "yes"):
+        reasons.append("LIGHTGBM_TPU_DISABLE_FUSED")
+    if cfg.bundled:
+        reasons.append("efb_bundled")
+    return reasons
 
 
 def wave_routes(cfg: GrowConfig, num_storage_cols: int) -> Tuple[str, str]:
-    """(grow route, histogram route) of this configuration: "mega" (with
+    """(grow route, histogram route) of this configuration: "fused" or
+    "fused_tiled" (histogram_impl="fused" with no veto), "mega" (with
     "slots") or "apply" with the `hist_route` of its histogram_impl, the
-    JAX package's accelerator routes (grow_wave.py:287-290, :894)."""
-    if (not cfg.bundled and not cfg.has_categorical
-            and num_storage_cols <= MAX_WAVE_FEATURES
-            and cfg.hist_impl not in ROWWISE_IMPLS):
+    JAX package's accelerator routes (grow_wave.py:287-309, :894)."""
+    narrow = (not cfg.bundled and not cfg.has_categorical
+              and num_storage_cols <= MAX_WAVE_FEATURES)
+    if cfg.hist_impl == "fused" and not fused_veto_reasons(cfg):
+        return ("fused" if narrow else "fused_tiled"), "slots"
+    if narrow and cfg.hist_impl not in ROWWISE_IMPLS:
         return "mega", "slots"
     # per-storage-column bin counts that do not match the storage choose
     # the uniform layout (histogram.py:96)
@@ -96,11 +150,28 @@ def wave_routes(cfg: GrowConfig, num_storage_cols: int) -> Tuple[str, str]:
 
 
 def wave_buckets_for(cfg: GrowConfig, route: str) -> List[int]:
-    """The K ladder of a route: the megakernel's VMEM cap on "mega", 128
-    on "apply" (grow_wave.py:345-347)."""
-    if route == "mega":
-        return _wave_buckets(cfg.num_leaves, mega_kcap(cfg.num_bins_padded))
-    return _wave_buckets(cfg.num_leaves)
+    """The K ladder of a route: the megakernel's or a fused kernel's VMEM
+    cap, 128 on "apply" (grow_wave.py:310-347)."""
+    B = cfg.num_bins_padded
+    cap = {"mega": lambda: mega_kcap(B),
+           "fused": lambda: fused_kcap(B),
+           "fused_tiled": lambda: fused_kcap(B, cfg.fused_feature_tile),
+           "apply": lambda: 128}[route]()
+    return _wave_buckets(cfg.num_leaves, cap)
+
+
+class _Pending(NamedTuple):
+    """An applies-only wave's deferred relabel on the "fused_tiled" route
+    (the `pend_*` fields of grow_wave.py:_WaveState): its applied leaves,
+    their splits and the first new leaf id; entry k's rows that go right
+    move to leaf nl0 + k."""
+    leaves: torch.Tensor
+    feature: torch.Tensor
+    threshold: torch.Tensor
+    default_left: torch.Tensor
+    is_cat: torch.Tensor
+    bits: torch.Tensor
+    nl0: int
 
 
 def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -191,6 +262,27 @@ def dec_go_left(X_t: torch.Tensor, feat: torch.Tensor, thr: torch.Tensor,
     return gl
 
 
+def _flush_pending(X_t: torch.Tensor, leaf_of_row: torch.Tensor,
+                   pend: _Pending, meta: FeatureMeta, cfg: GrowConfig,
+                   buckets: List[int], plain: bool) -> torch.Tensor:
+    """Apply a deferred relabel that no fused launch will run: the wave_apply
+    kernel with the pending applies as its table and their go-left bits as
+    bit 0. The JAX package computes the same in XLA (grow_wave.py:1619-1630,
+    :2108-2120); with unique pending leaves its `hit` equals wave_apply's
+    `inA == 1` rule."""
+    n = pend.leaves.shape[0]
+    Kd = next(k for k in buckets if k >= n)
+    dec = torch.zeros((Kd, X_t.shape[1]), dtype=torch.uint8,
+                      device=X_t.device)
+    dec[:n] = dec_go_left(X_t, pend.feature, pend.threshold,
+                          pend.default_left, pend.is_cat, pend.bits, meta,
+                          cfg)
+    tbl = torch.full((16, 128), -1, dtype=torch.int32, device=X_t.device)
+    tbl[0, :n] = pend.leaves.to(torch.int32)
+    tbl[15] = pend.nl0
+    return wave_apply(dec, leaf_of_row, tbl, cfg.num_leaves, plain=plain)[0]
+
+
 def grow_tree_wave(
     X_t: torch.Tensor,            # [F_storage, N] uint8, feature-major
     grad: torch.Tensor,           # [N] f32
@@ -233,10 +325,15 @@ def grow_tree_wave(
     vals0 = torch.stack([g, h], dim=0)                       # [2, N] f32
     C = 2
 
-    def search(hist2, sum_g, sum_h, count, out):
+    def search(hist2, sum_g, sum_h, count, out, num=None):
         """Best splits of n histograms [n, C, F_st, B] of storage columns:
-        (SplitResult [n], is_cat [n], bitset [n, W])."""
-        n = hist2.shape[0]
+        (SplitResult [n], is_cat [n], bitset [n, W]). `num` is the numeric
+        search's result when a fused kernel already ran it; hist2 is then
+        read only for the categorical search."""
+        n = count.shape[0]
+        if num is not None and not has_cat:
+            return (num, torch.zeros(n, dtype=torch.bool, device=dev),
+                    torch.zeros((n, W), dtype=torch.int64, device=dev))
         if cfg.bundled:
             # EFB: re-slice the bundle histogram per original feature and
             # rebuild each feature's default bin as parent - sum(others)
@@ -249,8 +346,9 @@ def grow_tree_wave(
             miss = parent[:, :, None] - hist2.sum(dim=-1)     # [n, C, F]
             hist2 = hist2 + meta.bundle_mfb * miss[..., None]
         hist = synth_count_channel(hist2, count, sum_h)       # [n, 3, F, B]
-        num = find_best_split(hist, sum_g, sum_h, count, out, meta, hp,
-                              feature_mask)
+        if num is None:
+            num = find_best_split(hist, sum_g, sum_h, count, out, meta, hp,
+                                  feature_mask)
         if not has_cat:
             return (num, torch.zeros(n, dtype=torch.bool, device=dev),
                     torch.zeros((n, W), dtype=torch.int64, device=dev))
@@ -334,6 +432,13 @@ def grow_tree_wave(
     nb_f = meta.num_bins.to(torch.int64)
     j_iota = torch.arange(KMAX, device=dev)
     num_leaves, num_waves = 1, 0
+    fused = route in ("fused", "fused_tiled")
+    if fused:
+        fmeta = pack_fused_meta(meta)
+        fmask = fused_feature_mask(feature_mask, F, dev)
+    # the deferred relabel of an applies-only wave ("fused_tiled")
+    fusion = route == "fused_tiled" and cfg.fused_relabel_fusion
+    pend: Optional[_Pending] = None
 
     while L > 1:
         # ---- ORDER: ready leaves with positive gain split in gain order
@@ -416,7 +521,7 @@ def grow_tree_wave(
                 a[r_idx] = rv
             num_leaves += napp
 
-            if route == "mega":
+            if route in ("mega", "fused"):
                 f2 = bs2.feature
                 tbl[0:7, :napp] = torch.stack([
                     pa, f2, bs2.threshold, bs2.default_left.to(torch.int64),
@@ -439,8 +544,9 @@ def grow_tree_wave(
         n_cand = int(valid.sum())
         num_waves += 1
 
-        # ---- the route's row pass: relabel (+ candidate histograms)
-        if route == "mega":
+        # ---- the route's row pass: relabel (+ candidate histograms, and
+        # on the fused routes their children's splits)
+        if route in ("mega", "fused"):
             fc = bs.feature
             tbl[7:15, :KMAX] = torch.stack([
                 torch.where(valid, cand, -1), fc, bs.threshold,
@@ -451,13 +557,34 @@ def grow_tree_wave(
                                            plain=plain)
                 continue
             K = next(k for k in buckets if k >= n_cand)
-            leaf_of_row, hist_wave = wave_pass(X_t, vals0, leaf_of_row, tbl,
-                                               K, B, L, plain=plain)
+            if route == "mega":
+                leaf_of_row, hist_wave = wave_pass(X_t, vals0, leaf_of_row,
+                                                   tbl, K, B, L, plain=plain)
+            else:
+                leaf_of_row, hist_wave, rec = wave_pass_fused(
+                    X_t, vals0, leaf_of_row, tbl, hist_cache[cand[:K]],
+                    pack_fused_scalars(SplitResult(*[x[:K] for x in bs]),
+                                       smaller_is_left[:K]),
+                    fmeta, fmask, K, B, L, hp, plain=plain)
+        elif fusion and n_cand == 0:
+            # applies-only wave: its relabel rides into the next fused
+            # launch as the pending pass (grow_wave.py:1135-1139); a
+            # pending relabel already waiting is flushed first
+            # (:1615-1633)
+            if pend is not None:
+                leaf_of_row = _flush_pending(X_t, leaf_of_row, pend, meta,
+                                             cfg, buckets, plain)
+            pend = None if napp == 0 else _Pending(
+                pa, bs2.feature, bs2.threshold, bs2.default_left, iscat2,
+                bits2, nl0)
+            continue
         else:
             # go-left bits per (entry, row): bit 0 under applied entry j,
-            # bit 1 = lands in candidate j's smaller child; Kd rows, the
-            # bucketed count of live entries
-            Kd = next(k for k in buckets if k >= max(napp, n_cand, 1))
+            # bit 1 = lands in candidate j's smaller child, bit 2 (fused
+            # route) under pending entry j; Kd rows, the bucketed count of
+            # live entries
+            n_pend = 0 if pend is None else pend.leaves.shape[0]
+            Kd = next(k for k in buckets if k >= max(napp, n_cand, n_pend, 1))
             dec = torch.zeros((Kd, N), dtype=torch.uint8, device=dev)
             if napp > 0:
                 dec[:napp] = dec_go_left(
@@ -472,24 +599,49 @@ def grow_tree_wave(
                 land = glc == smaller_is_left[:n_cand, None]
                 dec[:n_cand] |= land.to(torch.uint8) << 1
                 tbl[7, :n_cand] = ci.to(torch.int32)
-            leaf_of_row, slot_small = wave_apply(dec, leaf_of_row, tbl, L,
-                                                 plain=plain)
-            del dec
-            if n_cand == 0:
-                continue
-            K = next(k for k in buckets if k >= n_cand)
-            hist_wave = build_histogram_slots(
-                X_t, vals0, slot_small, K, B, impl=hroute, plan=hist_plan,
-                plain=plain)
+            if route == "apply" or n_cand == 0:
+                leaf_of_row, slot_small = wave_apply(dec, leaf_of_row, tbl,
+                                                     L, plain=plain)
+                del dec
+                if n_cand == 0:
+                    continue
+                K = next(k for k in buckets if k >= n_cand)
+                hist_wave = build_histogram_slots(
+                    X_t, vals0, slot_small, K, B, impl=hroute,
+                    plan=hist_plan, plain=plain)
+            else:
+                pend_tbl = torch.full((128,), -1, dtype=torch.int32,
+                                      device=dev)
+                if pend is not None:
+                    dec[:n_pend] |= dec_go_left(
+                        X_t, pend.feature, pend.threshold,
+                        pend.default_left, pend.is_cat, pend.bits, meta,
+                        cfg).to(torch.uint8) << 2
+                    pend_tbl[:n_pend] = pend.leaves.to(torch.int32)
+                K = next(k for k in buckets if k >= n_cand)
+                leaf_of_row, hist_wave, rec = wave_pass_fused_tiled(
+                    X_t, vals0, dec, leaf_of_row, tbl, pend_tbl,
+                    0 if pend is None else pend.nl0, hist_cache[cand[:K]],
+                    pack_fused_scalars(SplitResult(*[x[:K] for x in bs]),
+                                       smaller_is_left[:K]),
+                    fmeta, fused_feature_mask(feature_mask, F, dev, 2 * K),
+                    K, B, L, hp, plain=plain)
+                pend = None
+                del dec
 
-        # ---- SEARCH both children of every candidate
+        # ---- SEARCH both children of every candidate (the fused routes'
+        # kernels ran the numeric search already)
         c_idx = cand[:n_cand]
-        sl = smaller_is_left[:n_cand, None]
         hist_small = hist_wave[:n_cand].reshape(n_cand, -1)
-        hist_large = hist_cache[c_idx] - hist_small
-        hist_lr = torch.cat([torch.where(sl, hist_small, hist_large),
-                             torch.where(sl, hist_large, hist_small)]
-                            ).reshape((2 * n_cand,) + tuple(hist_root.shape))
+        num = unpack_fused_records(rec, n_cand) if fused else None
+        hist_lr = None
+        if num is None or has_cat:
+            sl = smaller_is_left[:n_cand, None]
+            hist_large = hist_cache[c_idx] - hist_small
+            hist_lr = torch.cat([torch.where(sl, hist_small, hist_large),
+                                 torch.where(sl, hist_large, hist_small)]
+                                ).reshape((2 * n_cand,)
+                                          + tuple(hist_root.shape))
 
         def both(a, b):
             return torch.cat([a[:n_cand], b[:n_cand]])
@@ -498,7 +650,7 @@ def grow_tree_wave(
             hist_lr, both(bs.left_sum_g, bs.right_sum_g),
             both(bs.left_sum_h, bs.right_sum_h),
             both(bs.left_count, bs.right_count),
-            both(bs.left_output, bs.right_output))
+            both(bs.left_output, bs.right_output), num)
         # depth mask at store time: the order step reads stored gains
         can = (leaf_depth[c_idx] + 1 < max_depth).repeat(2)
         s_lr = s_lr._replace(gain=torch.where(
@@ -511,6 +663,11 @@ def grow_tree_wave(
             a_r[c_idx] = v[n_cand:]
         catl[c_idx], catr[c_idx] = cat_lr[:n_cand], cat_lr[n_cand:]
         bitsl[c_idx], bitsr[c_idx] = bits_lr[:n_cand], bits_lr[n_cand:]
+
+    if pend is not None:
+        # the tree's last wave applied only: no launch follows it
+        leaf_of_row = _flush_pending(X_t, leaf_of_row, pend, meta, cfg,
+                                     buckets, plain)
 
     tree = DeviceTree(
         num_leaves=num_leaves, split_feature=split_feature,

@@ -27,9 +27,10 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from . import grow_fused as gf
 from . import histogram_cuda as hc
 from . import histogram_rowwise as hr
-from .split import expand_feature_offset_hist
+from .split import SplitHyperParams, expand_feature_offset_hist
 
 ROWWISE_IMPLS = ("rowwise", "rowwise_packed")
 
@@ -151,3 +152,39 @@ def wave_relabel(X_binned_t: torch.Tensor, leaf_of_row: torch.Tensor,
         return hc.wave_relabel_cuda(X_binned_t, leaf_of_row, table,
                                     num_leaves)
     return hc.wave_relabel_plain(X_binned_t, leaf_of_row, table, num_leaves)
+
+
+def wave_pass_fused(X_binned_t: torch.Tensor, vals: torch.Tensor,
+                    leaf_of_row: torch.Tensor, table: torch.Tensor,
+                    parent: torch.Tensor, scal: torch.Tensor,
+                    fmeta: torch.Tensor, fmask: torch.Tensor, num_slots: int,
+                    num_bins: int, num_leaves: int, hp: SplitHyperParams, *,
+                    plain: bool = False
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused wave of the megakernel route: relabel, slot histogram and the
+    split records of both children of every candidate."""
+    fn = (gf.wave_pass_fused_cuda if _use_kernel(X_binned_t, plain)
+          else gf.wave_pass_fused_plain)
+    return fn(X_binned_t, vals, leaf_of_row, table, parent, scal, fmeta,
+              fmask, num_slots, num_bins, num_leaves, hp)
+
+
+def wave_pass_fused_tiled(X_binned_t: torch.Tensor, vals: torch.Tensor,
+                          dec: torch.Tensor, leaf_of_row: torch.Tensor,
+                          table: torch.Tensor, pend_leaf: torch.Tensor,
+                          pend_nl0: int, parent: torch.Tensor,
+                          scal: torch.Tensor, fmeta: torch.Tensor,
+                          fmask: torch.Tensor, num_slots: int, num_bins: int,
+                          num_leaves: int, hp: SplitHyperParams,
+                          scale: Optional[Tuple[float, float]] = None, *,
+                          plain: bool = False
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """Fused wave from decision bits (any width, categorical data): the
+    pending relabel, this wave's relabel, the slot histogram and the split
+    records of both children of every candidate."""
+    fn = (gf.wave_pass_fused_tiled_cuda if _use_kernel(X_binned_t, plain)
+          else gf.wave_pass_fused_tiled_plain)
+    return fn(X_binned_t, vals, dec, leaf_of_row, table, pend_leaf, pend_nl0,
+              parent, scal, fmeta, fmask, num_slots, num_bins, num_leaves,
+              hp, scale)

@@ -14,13 +14,16 @@ histogram_pallas.py):
                               decision bits (wide / categorical / EFB
                               route)                <- wave_apply_pallas
 
-Three more are built and counted here, their wrappers and plain versions
+Five more are built and counted here, their wrappers and plain versions
 living beside the code that calls them: the bucketize kernel of device
 binning (``csrc/bucketize.cu`` <- lightgbm_tpu/ops/bucketize.py::
-_bucketize_pallas; ``ops/bucketize.py``) and the two row-wise multi-value
+_bucketize_pallas; ``ops/bucketize.py``), the two row-wise multi-value
 histograms (``csrc/hist_rowwise.cu`` <- lightgbm_tpu/ops/
 histogram_rowwise.py's plain and nibble-packed flat kernels;
-``ops/histogram_rowwise.py``).
+``ops/histogram_rowwise.py``) and the two fused waves, histogram plus
+split search (``csrc/wave_pass_fused.cu``, ``csrc/
+wave_pass_fused_tiled.cu`` <- lightgbm_tpu/ops/grow_fused.py;
+``ops/grow_fused.py``).
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface (one library per source, all built in parallel on
@@ -61,7 +64,9 @@ LAUNCHES: Dict[str, int] = {"build_histogram_slots": 0,
                             "bucketize": 0,
                             "wave_apply": 0,
                             "hist_rowwise": 0,
-                            "hist_rowwise_packed": 0}
+                            "hist_rowwise_packed": 0,
+                            "wave_pass_fused": 0,
+                            "wave_pass_fused_tiled": 0}
 
 # kernel name -> (source file, C entry point)
 KERNELS = {
@@ -73,6 +78,9 @@ KERNELS = {
     "wave_apply": ("wave_apply.cu", "lgbt_wave_apply"),
     "hist_rowwise": ("hist_rowwise.cu", "lgbt_hist_rowwise"),
     "hist_rowwise_packed": ("hist_rowwise.cu", "lgbt_hist_rowwise_packed"),
+    "wave_pass_fused": ("wave_pass_fused.cu", "lgbt_wave_pass_fused"),
+    "wave_pass_fused_tiled": ("wave_pass_fused_tiled.cu",
+                              "lgbt_wave_pass_fused_tiled"),
 }
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -162,7 +170,9 @@ def _lib(name: str):
     """The loaded C entry point of kernel `name` (builds on first use)."""
     paths = build_kernels()
     fn = getattr(ctypes.CDLL(paths[name]["path"]), KERNELS[name][1])
-    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    P, I, LL, FL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+        ctypes.c_float
+    HP = [FL] * 7 + [I, I]      # the split hyperparameters of the scan
     fn.restype = I
     fn.argtypes = {
         "build_histogram_slots": [P, P, I, P, P, P, LL, I, I, I, I, I, P],
@@ -174,6 +184,9 @@ def _lib(name: str):
         "hist_rowwise": [P, P, I, P, P, P, P, LL, I, I, I, I, I, P],
         "hist_rowwise_packed": [P, P, P, I, P, P, P, P, LL, I, I, I, I, I,
                                 P],
+        "wave_pass_fused": [P] * 11 + [I, P, LL, I, I, I, I] + HP + [I, P],
+        "wave_pass_fused_tiled": [P, P, I, P, P, P, P, I] + [P] * 7
+        + [I, P, LL, I, I, I, I, I, FL, FL] + HP + [I, P],
     }[name]
     return fn
 

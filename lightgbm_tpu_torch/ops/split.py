@@ -113,7 +113,10 @@ def leaf_output(sum_g, sum_h, hp: SplitHyperParams, num_data,
     if hp.max_delta_step > 0:
         ret = torch.clamp(ret, -hp.max_delta_step, hp.max_delta_step)
     if hp.path_smooth > 1e-15:
-        n_over_s = num_data / hp.path_smooth
+        # a tensor divisor: torch's CUDA division by a Python scalar
+        # multiplies by its f32 reciprocal, which is not the IEEE quotient
+        # the CPU, the JAX package and the fused kernels' scan compute
+        n_over_s = num_data / torch.full_like(num_data, hp.path_smooth)
         ret = ret * n_over_s / (n_over_s + 1.0) \
             + parent_output / (n_over_s + 1.0)
     return ret
@@ -151,7 +154,11 @@ def _numeric_gain_map(hist, parent_sum_g, parent_sum_h, parent_count,
 
     acc = torch.where(excl, torch.zeros((), dtype=hist.dtype, device=dev),
                       hist)                                    # [..., 3, F, B]
-    cum = torch.cumsum(acc, dim=-1)
+    # prefix sums in f64, each rounded once to f32: what torch's CPU cumsum
+    # of f32 does anyway, while its CUDA cumsum is an f32 parallel scan;
+    # so the search gives the same bits on both devices, and the fused
+    # kernels' in-order f64 scan (csrc/split_scan.cuh) gives them too
+    cum = torch.cumsum(acc.double(), dim=-1).float()
     acc_tot = cum[..., -1:]                                    # [..., 3, F, 1]
 
     parent = torch.stack([parent_sum_g, parent_sum_h,
@@ -183,7 +190,8 @@ def _numeric_gain_map(hist, parent_sum_g, parent_sum_h, parent_count,
           & (lh >= hp.min_sum_hessian_in_leaf)
           & (rh >= hp.min_sum_hessian_in_leaf))
     if feature_mask is not None:
-        ok = ok & feature_mask[:, None]
+        # [F], or [..., F] per histogram of the batch
+        ok = ok & feature_mask[..., None, :, None]
     ok = ok & ~meta.is_categorical[:, None]
 
     po = parent_output[..., None, None, None]
@@ -208,9 +216,9 @@ def find_best_split(hist: torch.Tensor, parent_sum_g: torch.Tensor,
     """Best numerical split per histogram.
 
     hist [..., 3, F, B] f32; parent scalars with the batch shape [...];
-    feature_mask [F] bool (column sampling). Returns gain -inf where no
-    split satisfies the constraints. Categorical features are masked out
-    (ops/categorical.py searches them)."""
+    feature_mask [F] or [..., F] bool (column sampling). Returns gain -inf
+    where no split satisfies the constraints. Categorical features are
+    masked out (ops/categorical.py searches them)."""
     gain, ok, stats, min_gain_shift = _numeric_gain_map(
         hist, parent_sum_g, parent_sum_h, parent_count, parent_output,
         meta, hp, feature_mask)

@@ -2,7 +2,8 @@
 """Where the PyTorch/CUDA port spends its time: ingest, a training
 iteration, and a served batch.
 
-    python3 scripts/profile_torch_port.py [--config bench|criteo]
+    python3 scripts/profile_torch_port.py
+        [--config bench|criteo|bench_fused|criteo_fused]
         [--rows N] [--iters K] [--trace F]
 
 --config bench (the default) builds bench.py's data (28 f32 features,
@@ -10,9 +11,11 @@ numpy seed 42) and trains bench.py's model (binary, 255 leaves, max_bin
 63) on the wave megakernel route. --config criteo builds the Criteo-shaped
 table of lightgbm_tpu_torch/utils/synthetic.py (13 count and 26
 categorical columns, numpy seed 7) and trains the same model at max_bin
-255 with those columns categorical: the wave-apply route. Either is
-ingested with binning_impl=auto, trained with lightgbm_tpu_torch on the
-first CUDA device and served, and the script prints JSON lines:
+255 with those columns categorical: the wave-apply route. The *_fused
+configs train the same data under histogram_impl=fused: the narrow fused
+route (kernel #9) on bench, the general one (kernel #10) on Criteo.
+Either is ingested with binning_impl=auto, trained with lightgbm_tpu_torch
+on the first CUDA device and served, and the script prints JSON lines:
 
   ingest     Dataset construction on the device route, with its stages
              wrapped in synchronized host timers: bin mappers (row sample
@@ -34,7 +37,12 @@ first CUDA device and served, and the script prints JSON lines:
              apply route the wave stages are the decision-bit build
              (`dec_go_left`, plain PyTorch), the wave_apply kernel and the
              wave histogram, and the split search is split into its
-             numeric and categorical parts
+             numeric and categorical parts. On the fused routes the wave
+             stage is the fused kernel (histogram and the children's
+             numeric search), the numeric search outside it is the root's,
+             and on "fused_tiled" the decision-bit build, the categorical
+             search and the wave_apply flushes of deferred relabels are
+             stages of their own
 
   serve      after the iterations: the binned engine (max_batch 256) on
              raw f32 requests of 1, 32 and 256 rows, and the device engine
@@ -147,7 +155,8 @@ def serve_phase(torch, bst, X):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--config", choices=("bench", "criteo"), default="bench")
+    ap.add_argument("--config", choices=("bench", "criteo", "bench_fused",
+                                         "criteo_fused"), default="bench")
     ap.add_argument("--rows", type=int, default=1 << 20)
     ap.add_argument("--iters", type=int, default=4)
     ap.add_argument("--trace", help="write the profiled window's chrome "
@@ -166,7 +175,9 @@ def main():
     params = dict(objective="binary", num_leaves=255, max_bin=63,
                   learning_rate=0.1, min_data_in_leaf=20, verbose=-1,
                   bagging_freq=0, binning_impl="auto", device_type="cuda")
-    if args.config == "criteo":
+    if args.config.endswith("_fused"):
+        params["histogram_impl"] = "fused"
+    if args.config.startswith("criteo"):
         from lightgbm_tpu_torch.utils.synthetic import (CRITEO_CAT_COLUMNS,
                                                         criteo_like)
         X, y = criteo_like(args.rows)
@@ -185,6 +196,7 @@ def main():
     g = bst._gbdt
     emit({"phase": "route", "config": args.config,
           "grow_route": g.grow_route, "hist_route": g.hist_route,
+          "fused_veto_reasons": g.fused_veto_reasons,
           "storage_columns": int(g.X_t.shape[0]),
           "num_bins_padded": g.num_bins_padded})
     for _ in range(2):
@@ -244,7 +256,24 @@ def main():
             return out
         return run
 
-    if g.grow_route == "apply":
+    if g.grow_route == "fused":
+        patches = [(grow_wave, "build_histogram", "root histogram"),
+                   (grow_wave, "wave_pass_fused", "fused kernel #9 "
+                    "(histogram + children's search)"),
+                   (grow_wave, "wave_relabel", "wave_relabel kernel"),
+                   (grow_wave, "find_best_split", "split search, root"),
+                   (gbdt_mod, "take_leaf_values", "score update")]
+    elif g.grow_route == "fused_tiled":
+        patches = [(grow_wave, "build_histogram", "root histogram"),
+                   (grow_wave, "dec_go_left", "dec build (plain PyTorch)"),
+                   (grow_wave, "wave_pass_fused_tiled", "fused kernel #10 "
+                    "(histogram + children's numeric search)"),
+                   (grow_wave, "wave_apply", "wave_apply kernel (flushes)"),
+                   (grow_wave, "find_best_split", "split search, root"),
+                   (grow_wave, "find_best_split_categorical",
+                    "split search, categorical"),
+                   (gbdt_mod, "take_leaf_values", "score update")]
+    elif g.grow_route == "apply":
         patches = [(grow_wave, "build_histogram", "root histogram"),
                    (grow_wave, "dec_go_left", "dec build (plain PyTorch)"),
                    (grow_wave, "wave_apply", "wave_apply kernel"),

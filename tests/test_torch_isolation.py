@@ -47,6 +47,7 @@ def test_import_leaves_jax_unloaded():
             "import lightgbm_tpu_torch.ops.categorical\n"
             "import lightgbm_tpu_torch.ops.histogram_rowwise\n"
             "import lightgbm_tpu_torch.ops.grow_wave\n"
+            "import lightgbm_tpu_torch.ops.grow_fused\n"
             "import lightgbm_tpu_torch.utils.synthetic\n"
             "import lightgbm_tpu_torch.serving\n"
             "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', "
@@ -111,3 +112,16 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         hc.wave_relabel_cuda(X, lor, tbl, 4)
     with pytest.raises(ValueError, match="CUDA"):
         hc.wave_apply_cuda(X.to(torch.int8), lor, tbl, 4)
+    from lightgbm_tpu_torch.ops import grow_fused as gf
+    from lightgbm_tpu_torch.ops.split import SplitHyperParams
+    hp = SplitHyperParams(20.0, 1e-3, 0.0, 0.0, 0.0, 0.0, 0.0)
+    scan = (torch.zeros((1, 192)), torch.zeros((5, 2)),
+            torch.zeros((4, 3), dtype=torch.int32),
+            torch.ones(3, dtype=torch.uint8))
+    with pytest.raises(ValueError, match="CUDA"):
+        gf.wave_pass_fused_cuda(X, vals, lor, tbl, *scan, 1, 32, 4, hp)
+    with pytest.raises(ValueError, match="CUDA"):
+        gf.wave_pass_fused_tiled_cuda(
+            X, vals, X[:1].clone(), lor, tbl,
+            torch.full((128,), -1, dtype=torch.int32), 0, *scan, 1, 32, 4,
+            hp)

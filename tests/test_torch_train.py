@@ -207,7 +207,6 @@ def test_valid_sets_early_stopping_and_logging(data):
     ({"feature_fraction_bynode": 0.5}, "A10"),
     ({"extra_trees": True}, "A10"),
     ({"objective": "multiclass", "num_class": 3}, "A10"),
-    ({"histogram_impl": "fused"}, "A15"),
 ])
 def test_configurations_outside_the_slice_raise(data, over, item):
     X, y = data
