@@ -9,9 +9,19 @@ Phases, each printing one JSON line:
                every kernel from lightgbm_tpu_torch/csrc (nvcc, in parallel)
   2. kernels   each training kernel against its plain PyTorch version at
                the main path's shapes (N = 2^20 rows, F = 28, B = 64, C = 2;
-               K in {1, 16, 128}; L = 255), with kernel / plain / library
-               times and the bytes bound; then, untimed, the int8 (exact
-               int32) and 256-bin modes of the histogram and wave kernels
+               K in {1, 16, 128}, the slot histogram also with half of the
+               rows active; L = 255, the score update in place and the
+               gather), with kernel / plain / library times and the bytes
+               bound; then, untimed, the int8 (exact int32) and 256-bin
+               modes of the histogram and wave kernels, and the slot
+               histogram on narrow storage, where several slots share a
+               tile (bitwise, both channel layouts). Every kernel and
+               library time is given twice: `ms`, the mean call time by CUDA
+               events over back-to-back calls (the host's issue rate where
+               that is the slower side), and `device_ms`, the device's own
+               time per call (kernels and memsets) under torch.profiler;
+               the score update's calls rotate over operands of twice L2,
+               so that each reads HBM
   3. ingest    bench.py's data (numpy seed 42, 2^20 x 28 f32) constructed
                with binning_impl=auto, which must take the device route
                (the bucketize kernel, launch count > 0) and give X_t
@@ -25,8 +35,9 @@ Phases, each printing one JSON line:
   5. train     bench.py's model (binary, 255 leaves, max_bin 63) trained 8
                rounds through lightgbm_tpu_torch.train on the card; every
                training kernel's launch count must be > 0 and train AUC >
-               0.88, and the first tree must equal the one grown from the
-               same gradients by the plain versions on the card
+               0.88, the score update must launch once per tree, and the
+               first tree must equal the one grown from the same gradients
+               by the plain versions on the card
   6. predict   4096 held-out rows predicted by the trained Booster, and
                again after a model text round trip: bitwise equal
   7. serve     Booster.serve(engine="binned", max_batch=256, warmup=True)
@@ -51,10 +62,13 @@ Phases, each printing one JSON line:
                      launch, wave_pass and wave_relabel do not; train AUC
                      never falls between rounds and passes CRITEO_AUC_MIN;
                      the first tree equals the plain versions' tree
-     row-wise        the row-wise kernels (plain and nibble-packed) against
-                     their plain versions, bitwise, on the Criteo storage
-                     at K in {1, 16, 128}, and against the col-wise slot
-                     kernel; then 2 rounds under force_row_wise and 2
+     row-wise        the slot histogram against its plain version,
+                     bitwise, on the Criteo storage at K in {1, 16, 128}
+                     (also with half of the rows active), timed; the
+                     row-wise kernels (plain and nibble-packed) against
+                     their plain versions, bitwise, at K in {1, 16, 128},
+                     and against the col-wise slot kernel; then 2 rounds
+                     under force_row_wise and 2
                      under histogram_impl=rowwise_packed grow the col-wise
                      run's first two trees
      criteo serve    the Criteo model through the binned engine on raw f32
@@ -66,6 +80,10 @@ Phases, each printing one JSON line:
                      first tree equals the plain versions'; then 2 rounds
                      under histogram_impl=fused: vetoed (efb_bundled), the
                      apply route, the same trees
+     narrow_cat      2^19 rows of 4 count and 8 categorical Criteo-shaped
+                     columns at max_bin 63, 2 rounds on the apply route,
+                     whose slot histograms put several slots in a tile: the
+                     first tree equals the plain versions'
  10. the fused routes (histogram_impl="fused"), whose kernels also run the
      best-split search of every candidate's two children:
      fused_kernels   kernel #9 (wave_pass_fused) against its plain version
@@ -104,6 +122,7 @@ import time
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
+L2_BYTES = 50 << 20           # H100 SXM L2 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 N_ROWS, N_FEAT, N_BINS, N_CH, N_LEAVES = 1 << 20, 28, 64, 2, 255
 # train AUC after 8 rounds of the Criteo-shaped table at 2^20 rows: the
@@ -111,6 +130,18 @@ N_ROWS, N_FEAT, N_BINS, N_CH, N_LEAVES = 1 << 20, 28, 64, 2, 255
 # pass CRITEO_AUC_MIN
 CRITEO_AUC_CPU = 0.7982
 CRITEO_AUC_MIN = 0.79
+
+
+def _ptxas(log):
+    """{entry function (mangled): its spill, register and shared-memory
+    lines} from nvcc's -Xptxas -v output."""
+    out, fn = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            fn = ln.split("'")[1]
+        elif fn and ("registers" in ln or "spill" in ln):
+            out.setdefault(fn, []).append(ln.split(":", 1)[-1].strip())
+    return out
 
 
 def emit(obj):
@@ -139,6 +170,76 @@ def time_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
+def timings(fn, reps, warmup=2):
+    """(ms, device_ms) of fn(): `ms` is time_ms's mean call time over
+    `reps` back-to-back calls, which includes the host's issue rate where
+    that is the slower side; `device_ms` is the sum of the device's
+    activity (kernels and memsets) per call under torch.profiler over
+    another `reps` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    ms = time_ms(fn, reps, warmup)
+    # a profiler session now and then records no device activity at all;
+    # such a session is run again, up to three times
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        dev_us = sum(ev.time_range.elapsed_us() for ev in prof.events()
+                     if ev.device_type == torch.autograd.DeviceType.CUDA)
+        if dev_us > 0:
+            break
+    check(dev_us > 0, "torch.profiler saw no device activity in 3 sessions")
+    return ms, dev_us / 1e3 / reps
+
+
+def _slot_case(torch, gen, N, K, active, dev):
+    """The slot array of a histogram case: None at K = 1; "random": slots
+    uniform in [-1, K) (94% of rows active at K = 16); "half": about half
+    of the rows in a slot uniform in [0, K), the rest -1, as a wave's
+    smaller children."""
+    if K == 1:
+        return None
+    if active == "random":
+        return torch.randint(-1, K, (N,), generator=gen, device=dev,
+                             dtype=torch.int32)
+    slot = torch.randint(0, K, (N,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    slot[torch.rand(N, generator=gen, device=dev) < 0.5] = -1
+    return slot
+
+
+def _flat_index_add(torch, X, vals, slot, K, B, width=None, offs=None):
+    """The library yardstick of a slot histogram: (flat indices, values,
+    zeroed f32 accumulators) for one index_add_ over the active rows' (slot,
+    channel, feature, bin) cells; `width` / `offs` give the row-wise flat
+    layout (per-feature bin widths and offsets), else the uniform grid."""
+    F, N = X.shape
+    C = vals.shape[0]
+    dev = X.device
+    s64 = (torch.zeros(N, dtype=torch.int64, device=dev) if slot is None
+           else slot.to(torch.int64))
+    keep = s64 >= 0
+    rows = int(keep.sum())
+    b = X[:, keep].to(torch.int64)
+    c_ix = torch.arange(C, device=dev)[:, None, None]
+    lv = vals[:, None, keep].expand(C, F, rows).reshape(C, -1)
+    if width is None:
+        f_ix = torch.arange(F, device=dev)[:, None]
+        flat = ((s64[keep][None, None, :] * C + c_ix) * F + f_ix[None]) \
+            * B + b[None]
+        total = K * C * F * B
+        return flat.reshape(-1), lv.reshape(-1), torch.zeros(total,
+                                                               device=dev)
+    ok = (b < width).reshape(-1)
+    tot = int(offs[-1] + width[-1])
+    flat = ((s64[keep][None, None, :] * C + c_ix) * tot
+            + (offs + b)[None]).reshape(C, -1)[:, ok].reshape(-1)
+    return flat, lv[:, ok].reshape(-1), torch.zeros(K * C * tot, device=dev)
+
+
 def bound_ms(nbytes, nops):
     """Least time for the work: bytes over HBM rate vs f32 operations over
     the f32 peak, whichever is larger."""
@@ -157,10 +258,12 @@ def kernel_phase(hc, torch, dev):
     vals[1] = vals[1].abs() * 0.25            # hessian-like channel
     out = {}
 
-    # -- 1. slot histogram: K=1 is the main path's root histogram
-    for K in (1, 16, 128):
-        slot = (None if K == 1 else torch.randint(
-            -1, K, (N,), generator=gen, device=dev, dtype=torch.int32))
+    # -- 1. slot histogram: K=1 is the main path's root histogram; the
+    # "half" cases have the row count of a wave's smaller children
+    grid = _grid_vals(torch, gen, C, N, dev)
+    for K, active in ((1, "all"), (16, "random"), (128, "random"),
+                      (16, "half"), (128, "half")):
+        slot = _slot_case(torch, gen, N, K, active, dev)
         got = hc.build_histogram_slots_cuda(X, vals, slot, K, B)
         ref = hc.build_histogram_slots_plain(X, vals, slot, K, B)
         torch.cuda.synchronize()
@@ -169,48 +272,86 @@ def kernel_phase(hc, torch, dev):
         # the last f32 bit where the f64 sums of the two addition orders
         # straddle a rounding boundary
         tol = 1e-6 * float(ref.abs().max()) + 1e-6
-        check(err <= tol, f"build_histogram_slots K={K}: max |err| {err}")
+        check(err <= tol, f"build_histogram_slots K={K} {active}: max |err| "
+                          f"{err}")
+        check(torch.equal(hc.build_histogram_slots_cuda(X, grid, slot, K, B),
+                          hc.build_histogram_slots_plain(X, grid, slot, K,
+                                                         B)),
+              f"build_histogram_slots K={K} {active}: not bitwise on grid "
+              f"values")
         rows = N if slot is None else int((slot >= 0).sum())
-        s64 = (torch.zeros(N, dtype=torch.int64, device=dev) if slot is None
-               else slot.to(torch.int64))
-        keep = s64 >= 0
-        f_ix = torch.arange(F, device=dev)[:, None]
-        c_ix = torch.arange(C, device=dev)[:, None, None]
-        flat = (((s64[None, None, :] * C + c_ix) * F + f_ix[None])
-                * B + X.to(torch.int64)[None])[:, :, keep].reshape(-1)
-        lvals = vals[:, None, keep].expand(C, F, rows).reshape(-1)
-        acc = torch.zeros(K * C * F * B, device=dev)
-        ms = time_ms(lambda: hc.build_histogram_slots_cuda(
+        flat, lvals, acc = _flat_index_add(torch, X, vals, slot, K, B)
+        ms, dms = timings(lambda: hc.build_histogram_slots_cuda(
             X, vals, slot, K, B), 20)
         plain_ms = time_ms(lambda: hc.build_histogram_slots_plain(
             X, vals, slot, K, B), 3, 1)
-        lib_ms = time_ms(lambda: acc.index_add_(0, flat, lvals), 20)
+        lib_ms, lib_dms = timings(lambda: acc.index_add_(0, flat, lvals), 20)
         nbytes = (0 if slot is None else 4 * N) + rows * (F + 4 * C) \
             + K * C * F * B * 4
         bms, by = bound_ms(nbytes, rows * F * C)
-        rec = dict(name="build_histogram_slots", K=K, max_abs_err=err,
-                   tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                   bound_ms=bms, bound_by=by, bound_us=bms * 1e3)
+        rec = dict(name="build_histogram_slots", shape="bench", K=K,
+                   active=active, rows=rows, max_abs_err=err, tol=tol,
+                   ms=ms, device_ms=dms, plain_ms=plain_ms,
+                   library_ms=lib_ms, library_device_ms=lib_dms,
+                   bound_ms=bms, bound_by=by, bound_us=bms * 1e3,
+                   plan=hc.plan_hist_tiles(K, C, F, B)._asdict())
         emit({"phase": "kernels", "kernel_ms": rec["ms"], **rec})
         if K == 1:
             out["build_histogram_slots"] = rec
         del flat, lvals, acc
 
-    # -- 2. leaf-value gather, L = 255
+    # -- 2. leaf values, L = 255: the in-place score update of the main
+    # path and the gather, each bitwise equal to its plain version
     values = torch.randn(L, generator=gen, device=dev)
     lor = torch.randint(-2, L + 2, (N,), generator=gen, device=dev,
                         dtype=torch.int32)
     got = hc.take_leaf_values_cuda(values, lor)
     ref = hc.take_leaf_values_plain(values, lor)
     check(torch.equal(got, ref), "take_leaf_values: not bitwise equal")
-    lor_ok = lor.clamp(0, L - 1)
-    ms = time_ms(lambda: hc.take_leaf_values_cuda(values, lor), 50)
-    plain_ms = time_ms(lambda: hc.take_leaf_values_plain(values, lor), 20)
-    lib_ms = time_ms(lambda: values[lor_ok], 50)
-    bms, by = bound_ms(8 * N + 4 * L, 0)
-    rec = dict(name="take_leaf_values", L=L, max_abs_err=0.0, tol=0.0,
-               ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
-               bound_by=by, bound_us=bms * 1e3)
+    scores = torch.randn(N, generator=gen, device=dev)
+    s_k = hc.add_leaf_values_cuda(scores.clone(), values, lor)
+    s_p = hc.add_leaf_values_plain(scores.clone(), values, lor)
+    check(torch.equal(s_k, s_p), "add_leaf_values: not bitwise equal")
+    # timed over a rotation of (scores, leaf ids) pairs whose bytes exceed
+    # L2 twice over, so that each call reads its operands from HBM, as the
+    # main path's one update per tree does; back-to-back calls on one pair
+    # would keep its 8 MB in L2
+    rot = [(torch.randn(N, generator=gen, device=dev),
+            torch.randint(-2, L + 2, (N,), generator=gen, device=dev,
+                          dtype=torch.int32))
+           for _ in range(-(-2 * L2_BYTES // (8 * N)))]
+    rot_ok = [lr.clamp(0, L - 1) for _, lr in rot]
+    turn = [0]
+
+    def rotating(fn):
+        def call():
+            turn[0] = (turn[0] + 1) % len(rot)
+            return fn(*rot[turn[0]], rot_ok[turn[0]])
+        return call
+    ms, dms = timings(rotating(
+        lambda sc, lr, _: hc.add_leaf_values_cuda(sc, values, lr)), 50)
+    g_ms, g_dms = timings(rotating(
+        lambda _, lr, __: hc.take_leaf_values_cuda(values, lr)), 50)
+    plain_ms = time_ms(rotating(
+        lambda sc, lr, _: hc.add_leaf_values_plain(sc, values, lr)), 20)
+    lib_ms, lib_dms = timings(rotating(
+        lambda sc, _, lo: sc.add_(values[lo])), 50)
+    g_lib_ms, g_lib_dms = timings(rotating(lambda _, __, lo: values[lo]),
+                                  50)
+    del rot, rot_ok
+    # in place: a leaf id and a score read and the score written per row
+    bms, by = bound_ms(12 * N + 4 * L, 0)
+    g_bms, _ = bound_ms(8 * N + 4 * L, 0)
+    rec = dict(name="take_leaf_values", form="in-place score update", L=L,
+               max_abs_err=0.0, tol=0.0, ms=ms, device_ms=dms,
+               plain_ms=plain_ms, library_ms=lib_ms,
+               library_device_ms=lib_dms,
+               library_call="scores += values[lor] (gather, then add)",
+               bound_ms=bms, bound_by=by, bound_us=bms * 1e3,
+               rotation_bytes=-(-2 * L2_BYTES // (8 * N)) * 8 * N,
+               gather_ms=g_ms, gather_device_ms=g_dms,
+               gather_library_ms=g_lib_ms,
+               gather_library_device_ms=g_lib_dms, gather_bound_ms=g_bms)
     emit({"phase": "kernels", "kernel_ms": rec["ms"], **rec})
     out["take_leaf_values"] = rec
 
@@ -238,12 +379,13 @@ def kernel_phase(hc, torch, dev):
         nbytes = 8 * N + app_rows + cand_rows + small * (F + 4 * C) \
             + K * C * F * B * 4 + 16 * 128 * 4
         bms, by = bound_ms(nbytes, small * F * C)
-        ms = time_ms(lambda: hc.wave_pass_cuda(X, vals, lor, tbl, K, B, L),
-                     20)
+        ms, dms = timings(lambda: hc.wave_pass_cuda(X, vals, lor, tbl, K, B,
+                                                    L), 20)
         plain_ms = time_ms(lambda: hc.wave_pass_plain(
             X, vals, lor, tbl, K, B, L), 3, 1)
         rec = dict(name="wave_pass", K=K, max_abs_err=err, tol=tol, ms=ms,
-                   plain_ms=plain_ms, library_ms=None, bound_ms=bms,
+                   device_ms=dms, plain_ms=plain_ms, library_ms=None,
+                   bound_ms=bms,
                    bound_by=by, bound_us=bms * 1e3)
         emit({"phase": "kernels", "kernel_ms": rec["ms"], **rec})
         if K == 16:
@@ -252,12 +394,14 @@ def kernel_phase(hc, torch, dev):
             got = hc.wave_relabel_cuda(X, lor, tbl, L)
             check(torch.equal(got, hc.wave_relabel_plain(X, lor, tbl, L)),
                   "wave_relabel: leaf_of_row not bitwise equal")
-            ms = time_ms(lambda: hc.wave_relabel_cuda(X, lor, tbl, L), 50)
+            ms, dms = timings(lambda: hc.wave_relabel_cuda(X, lor, tbl, L),
+                              50)
             plain_ms = time_ms(lambda: hc.wave_relabel_plain(
                 X, lor, tbl, L), 5)
             bms, by = bound_ms(8 * N + app_rows + 16 * 128 * 4, 0)
             rec = dict(name="wave_relabel", max_abs_err=0.0, tol=0.0,
-                       ms=ms, plain_ms=plain_ms, library_ms=None,
+                       ms=ms, device_ms=dms, plain_ms=plain_ms,
+                       library_ms=None,
                        bound_ms=bms, bound_by=by, bound_us=bms * 1e3)
             emit({"phase": "kernels", "kernel_ms": rec["ms"], **rec})
             out["wave_relabel"] = rec
@@ -327,6 +471,54 @@ def variant_phase(hc, torch, dev):
                 check(err <= 1e-6 * float(ref.abs().max()) + 1e-6,
                       f"{key}: max |err| {err}")
                 res[key] = err
+    # narrow storage (a categorical or EFB table of few columns at a low
+    # max_bin): several slots share a tile, the planner's plan and the one
+    # with the channel pairing turned over, on grid values and int8 values
+    for F_n, B_n in ((9, 64), (40, 32)):
+        Xn = torch.randint(0, B_n, (F_n, N), generator=gen, device=dev,
+                           dtype=torch.int32).to(torch.uint8)
+        grid = _grid_vals(torch, gen, 2, N, dev)
+        v8 = torch.randint(-127, 128, (2, N), generator=gen, device=dev,
+                           dtype=torch.int32).to(torch.int8)
+        for K, active in ((16, "random"), (128, "half")):
+            slot = _slot_case(torch, gen, N, K, active, dev)
+            plan = hc.plan_hist_tiles(K, 2, F_n, B_n)
+            key = (f"build_histogram_slots F={F_n} B={B_n} K={K} {active} "
+                   f"{plan.slots_per_tile} slots a tile")
+            check(plan.slots_per_tile > 1, f"{key}: one slot a tile")
+            ref = hc.build_histogram_slots_plain(Xn, grid, slot, K, B_n)
+            for p in (plan, plan._replace(paired=not plan.paired)):
+                check(torch.equal(hc._hist_slots_launch(Xn, grid, slot, K,
+                                                        B_n, p), ref),
+                      f"{key} paired={p.paired}: not bitwise on grid "
+                      f"values")
+            got = hc.build_histogram_slots_cuda(Xn, v8, slot, K, B_n)
+            check(got.dtype == torch.int32 and torch.equal(
+                got, hc.build_histogram_slots_plain(Xn, v8, slot, K, B_n)),
+                f"{key} int8: not bitwise equal")
+            res[key] = 0.0
+    # few rows (a small table, or the deep waves of one): the direct sweep
+    # at K > 1 and at K = 1 where one tile holds the histogram (B = 64),
+    # the tiled one at K = 1, B = 256; grid values and int8 values
+    n = 1 << 14
+    Xs = X[:, :n].contiguous()
+    grid = _grid_vals(torch, gen, 2, n, dev)
+    v8 = torch.randint(-127, 128, (2, n), generator=gen, device=dev,
+                       dtype=torch.int32).to(torch.int8)
+    for B_s in (64, 256):
+        Xb = Xs & (B_s - 1)
+        for K in (1, 16, 128):
+            slot = _slot_case(torch, gen, n, K, "half", dev)
+            plan = hc.plan_hist_tiles(K, 2, F, B_s, rows=n)
+            key = f"build_histogram_slots N={n} F={F} B={B_s} K={K}"
+            check(plan.direct == (K > 1 or B_s == 64),
+                  f"{key}: direct={plan.direct}")
+            for v in (grid, v8):
+                check(torch.equal(
+                    hc.build_histogram_slots_cuda(Xb, v, slot, K, B_s),
+                    hc.build_histogram_slots_plain(Xb, v, slot, K, B_s)),
+                    f"{key} {v.dtype}: not bitwise equal")
+            res[f"{key} direct={plan.direct}"] = 0.0
     emit({"phase": "kernel_variants", "max_abs_err": res})
 
 
@@ -423,24 +615,25 @@ def bucketize_phase(bk, torch, dev, X, train_ds, rng):
         bk.bucketize_cuda(Xd, tt, out=X_t.t(), cols=cols)
         check(torch.equal(X_t.t(), ref),
               f"bucketize {name}: feature-major output differs")
-        ms = time_ms(lambda: bk.bucketize_cuda(Xd, tt, out=X_t.t(),
-                                               cols=cols), 20)
+        ms, dms = timings(lambda: bk.bucketize_cuda(Xd, tt, out=X_t.t(),
+                                                    cols=cols), 20)
         plain_ms = time_ms(lambda: bk.bucketize_plain(Xd, tt, cols=cols),
                            2, 1)
-        lib_ms = None
+        lib_ms = lib_dms = None
         if name == "train":
             # numeric-only table: searchsorted of each feature's rows
             # against its floored bounds is the same count (before the
             # clamp), one library call over the pre-transposed rows
             XT = Xd[:, cols.long()].t().contiguous()
-            lib_ms = time_ms(lambda: torch.searchsorted(
+            lib_ms, lib_dms = timings(lambda: torch.searchsorted(
                 tt.table, XT, side="left"), 20)
             del XT
         nbytes = n * F * 4 + n * F + F * tt.B * 8 + F * 32
         bms, by = bound_ms(nbytes, 0)
         rec = dict(name="bucketize", table=name, mode=table.mode, n=n, F=F,
-                   B=tt.B, max_abs_err=0.0, tol=0.0, ms=ms,
-                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                   B=tt.B, max_abs_err=0.0, tol=0.0, ms=ms, device_ms=dms,
+                   plain_ms=plain_ms, library_ms=lib_ms,
+                   library_device_ms=lib_dms, bound_ms=bms,
                    bound_by=by, bound_us=bms * 1e3)
         emit({"phase": "bucketize", "kernel_ms": ms, **rec})
         recs[name] = rec
@@ -600,11 +793,12 @@ def wave_apply_phase(hc, torch, dev):
         cand_rows = int(torch.isin(ref[0], tbl[7, :Kd]).sum())
         nbytes = 12 * N + app_rows + cand_rows + 16 * 128 * 4
         bms, by = bound_ms(nbytes, 0)
-        ms = time_ms(lambda: hc.wave_apply_cuda(dec, lor, tbl, L), 50)
+        ms, dms = timings(lambda: hc.wave_apply_cuda(dec, lor, tbl, L), 50)
         plain_ms = time_ms(lambda: hc.wave_apply_plain(dec, lor, tbl, L),
                            5)
         rec = dict(name="wave_apply", Kd=Kd, L=L, max_abs_err=0.0, tol=0.0,
-                   ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bms,
+                   ms=ms, device_ms=dms, plain_ms=plain_ms, library_ms=None,
+                   bound_ms=bms,
                    bound_by=by, bound_us=bms * 1e3,
                    slots=int((ref[1] >= 0).sum()))
         emit({"phase": "kernels", "kernel_ms": ms, **rec})
@@ -619,8 +813,10 @@ def rowwise_phase(hc, hr, torch, dev, X_t, tiers, B):
     bitwise: f32 values on an exact grid, and int8 values (exact int32).
     The packed kernel is also held to the unpacked one, and the expanded
     flat buffer to the col-wise slot kernel at B, which the apply route
-    launches on the same storage (timed too). Times each kernel, its plain
-    version and one index_add_ over the flat indices."""
+    launches on the same storage; the slot kernel is held to its plain
+    version there too, and timed, also with about half of the rows active
+    (a wave's smaller children). Times each kernel, its plain version and
+    one index_add_ over the flat indices."""
     from lightgbm_tpu_torch.ops.split import expand_feature_offset_hist
     gen = torch.Generator(device=dev).manual_seed(10)
     F, N = X_t.shape
@@ -637,10 +833,35 @@ def rowwise_phase(hc, hr, torch, dev, X_t, tiers, B):
     offs = torch.tensor(plan.offsets, device=dev)[:, None]
     wid = torch.tensor(plan.widths, device=dev)[:, None]
     recs = {"hist_rowwise": {}, "hist_rowwise_packed": {}}
-    for K in (1, 16, 128):
-        slot = (None if K == 1 else torch.randint(
-            -1, K, (N,), generator=gen, device=dev, dtype=torch.int32))
+    for K, active in ((1, "all"), (16, "random"), (128, "random"),
+                      (16, "half"), (128, "half")):
+        slot = _slot_case(torch, gen, N, K, active, dev)
+        rows = N if slot is None else int((slot >= 0).sum())
+        slot_bytes = 0 if slot is None else 4 * N
         args = (slot, K, plan)
+        cw = hc.build_histogram_slots_cuda(X_t, vals, slot, K, B)
+        check(torch.equal(cw, hc.build_histogram_slots_plain(
+            X_t, vals, slot, K, B)),
+            f"build_histogram_slots criteo K={K} {active}: not bitwise "
+            f"equal to the plain version")
+        # the col-wise slot kernel at the apply route's shape, against one
+        # index_add_ over the uniform grid
+        flat, lv, acc = _flat_index_add(torch, X_t, vals, slot, K, B)
+        lib_ms, lib_dms = timings(lambda: acc.index_add_(0, flat, lv), 20)
+        del flat, lv, acc
+        ms, dms = timings(lambda: hc.build_histogram_slots_cuda(
+            X_t, vals, slot, K, B), 20)
+        bms, by = bound_ms(slot_bytes + rows * (F + 4 * C)
+                           + K * C * F * B * 4, rows * F * C)
+        emit({"phase": "kernels", "kernel_ms": ms,
+              "name": "build_histogram_slots", "shape": "criteo", "K": K,
+              "active": active, "rows": rows, "F": F, "B": B,
+              "max_abs_err": 0.0, "ms": ms, "device_ms": dms,
+              "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+              "library_device_ms": lib_dms,
+              "plan": hc.plan_hist_tiles(K, C, F, B)._asdict()})
+        if active == "half":
+            continue
         got = hr.hist_rowwise_cuda(X_t, vals, *args)
         ref = hr.hist_rowwise_plain(X_t, vals, *args)
         gotp = hr.hist_rowwise_packed_cuda(Xp, Xu, vals, *args, pplan)
@@ -649,7 +870,6 @@ def rowwise_phase(hc, hr, torch, dev, X_t, tiers, B):
         check(torch.equal(got, ref), f"hist_rowwise K={K}: not bitwise")
         check(torch.equal(gotp, refp) and torch.equal(gotp, got),
               f"hist_rowwise_packed K={K}: not bitwise")
-        cw = hc.build_histogram_slots_cuda(X_t, vals, slot, K, B)
         check(torch.equal(expand_feature_offset_hist(
             got, plan.offsets, plan.widths, B), cw),
             f"hist_rowwise K={K}: expanded buffer differs from the col-wise "
@@ -660,31 +880,11 @@ def rowwise_phase(hc, hr, torch, dev, X_t, tiers, B):
             hr.hist_rowwise_packed_cuda(Xp, Xu, vals8, *args, pplan), g8),
             f"hist_rowwise int8 K={K}: not bitwise")
         # library yardstick: one index_add_ over the flat indices
-        s64 = (torch.zeros(N, dtype=torch.int64, device=dev) if slot is None
-               else slot.to(torch.int64))
-        keep = s64 >= 0
-        rows = int(keep.sum())
-        b = X_t[:, keep].to(torch.int64)
-        ok = (b < wid).reshape(-1)
-        c_ix = torch.arange(C, device=dev)[:, None, None]
-        flat = ((s64[keep][None, None, :] * C + c_ix) * plan.total
-                + (offs + b)[None]).reshape(C, -1)[:, ok].reshape(-1)
-        lv = vals[:, None, keep].expand(C, F, rows).reshape(C, -1)[:, ok] \
-            .reshape(-1)
-        acc = torch.zeros(K * C * plan.total, device=dev)
-        lib_ms = time_ms(lambda: acc.index_add_(0, flat, lv), 20)
-        del flat, lv, acc, b
+        flat, lv, acc = _flat_index_add(torch, X_t, vals, slot, K, B,
+                                        wid, offs)
+        lib_ms, lib_dms = timings(lambda: acc.index_add_(0, flat, lv), 20)
+        del flat, lv, acc
         out_bytes = K * C * plan.total * 4
-        slot_bytes = 0 if slot is None else 4 * N
-        # the col-wise slot kernel at the apply route's shape
-        ms = time_ms(lambda: hc.build_histogram_slots_cuda(
-            X_t, vals, slot, K, B), 20)
-        bms, by = bound_ms(slot_bytes + rows * (F + 4 * C)
-                           + K * C * F * B * 4, rows * F * C)
-        emit({"phase": "kernels", "kernel_ms": ms,
-              "name": "build_histogram_slots", "shape": "criteo", "K": K,
-              "F": F, "B": B, "max_abs_err": 0.0, "ms": ms,
-              "bound_ms": bms, "bound_by": by, "library_ms": lib_ms})
         for name, fn, pfn, xin in (
                 ("hist_rowwise", lambda: hr.hist_rowwise_cuda(
                     X_t, vals, *args),
@@ -694,13 +894,14 @@ def rowwise_phase(hc, hr, torch, dev, X_t, tiers, B):
                  lambda: hr.hist_rowwise_packed_plain(
                      Xp, Xu, vals, *args, pplan),
                  Xp.shape[0] + pplan.n_rest)):
-            ms = time_ms(fn, 20)
+            ms, dms = timings(fn, 20)
             plain_ms = time_ms(pfn, 3, 1)
             bms, by = bound_ms(slot_bytes + rows * (xin + 4 * C)
                                + out_bytes, rows * F * C)
             rec = dict(name=name, K=K, F=F, total=plan.total,
-                       max_abs_err=0.0, tol=0.0, ms=ms, plain_ms=plain_ms,
-                       library_ms=lib_ms, bound_ms=bms, bound_by=by,
+                       max_abs_err=0.0, tol=0.0, ms=ms, device_ms=dms,
+                       plain_ms=plain_ms, library_ms=lib_ms,
+                       library_device_ms=lib_dms, bound_ms=bms, bound_by=by,
                        bound_us=bms * 1e3)
             emit({"phase": "kernels", "kernel_ms": ms, **rec})
             recs[name][K] = rec
@@ -957,6 +1158,49 @@ def efb_phase(lt, hc, torch):
           f"EFB under histogram_impl=fused grew other trees ({errs})")
 
 
+def narrow_cat_phase(lt, hc, torch):
+    """2^19 rows of 4 count and 8 categorical columns of the Criteo-shaped
+    table at max_bin 63, 2 rounds: the apply route, whose waves put several
+    slots in one tile of the slot histogram (12 storage columns, B = 64);
+    the first tree equals the plain versions'."""
+    from lightgbm_tpu_torch.utils.synthetic import (CRITEO_CAT_COLUMNS,
+                                                    criteo_like)
+    n = N_ROWS // 2
+    X, y = criteo_like(n)
+    X = np.ascontiguousarray(X[:, list(range(4))
+                               + list(CRITEO_CAT_COLUMNS[:8])])
+    params = dict(objective="binary", num_leaves=N_LEAVES, max_bin=63,
+                  learning_rate=0.1, min_data_in_leaf=20, verbose=-1,
+                  bagging_freq=0, binning_impl="auto", device_type="cuda",
+                  metric="auc")
+    hc.reset_launch_counts()
+    bst = lt.train(params, lt.Dataset(X, label=y,
+                                      categorical_feature=list(range(4, 12)),
+                                      params=params), num_boost_round=2)
+    torch.cuda.synchronize()
+    launches = dict(hc.LAUNCHES)
+    g = bst._gbdt
+    F, B = int(g.X_t.shape[0]), g.num_bins_padded
+    plans = {K: hc.plan_hist_tiles(K, 2, F, B).slots_per_tile
+             for K in (16, 128)}
+    lv_err = _same_host_tree(_plain_first_tree(torch, g, n), g.models[0])
+    emit({"phase": "narrow_cat", "rows": n, "storage_columns": F, "B": B,
+          "grow_route": g.grow_route, "hist_route": g.hist_route,
+          "slots_per_tile": plans, "launches": launches,
+          "categorical_splits": [t.num_cat for t in g.models],
+          "train_auc": bst.eval_train()[0][2],
+          "first_tree_same": lv_err is not None,
+          "leaf_value_max_abs_err": lv_err})
+    check(g.grow_route == "apply" and g.hist_route == "slots"
+          and launches["build_histogram_slots"] > 0,
+          f"narrow categorical run on route {g.grow_route}/{g.hist_route}")
+    check(min(plans.values()) > 1, f"one slot a tile at F={F}, B={B}")
+    check(sum(t.num_cat for t in g.models) > 0, "no categorical split grown")
+    check(lv_err is not None and lv_err <= 1e-6,
+          f"narrow categorical first tree differs from the plain versions' "
+          f"({lv_err})")
+
+
 # ---------------------------------------------------------------------------
 # the fused routes (histogram_impl="fused")
 # ---------------------------------------------------------------------------
@@ -1089,10 +1333,11 @@ def fused_narrow_phase(hc, gf, torch, dev):
             + K * 2 * F * B * 4 + 16 * 128 * 4 + _scan_nbytes(K, F, B)
         bms, by = bound_ms(nbytes, small_rows * F * 2 + 2 * K * 2 * F * B
                            * 40)
-        ms = time_ms(lambda: gf.wave_pass_fused_cuda(*args), 20)
+        ms, dms = timings(lambda: gf.wave_pass_fused_cuda(*args), 20)
         plain_ms = time_ms(lambda: gf.wave_pass_fused_plain(*args), 3, 1)
         rec = dict(name="wave_pass_fused", K=K, F=F, B=B, max_abs_err=0.0,
-                   tol=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+                   tol=0.0, ms=ms, device_ms=dms, plain_ms=plain_ms,
+                   library_ms=None,
                    bound_ms=bms, bound_by=by, bound_us=bms * 1e3,
                    launches_per_call=3, continuous_max_diff=res["continuous"])
         emit({"phase": "fused_kernels", "kernel_ms": ms, **rec})
@@ -1198,11 +1443,11 @@ def fused_tiled_phase(hc, gf, torch, dev, X_c):
             + _scan_nbytes(K, F, B) + 2 * K * F
         bms, by = bound_ms(nbytes, small_rows * F * 2 + 2 * K * 2 * F * B
                            * 40)
-        ms = time_ms(lambda: gf.wave_pass_fused_tiled_cuda(*args), 20)
+        ms, dms = timings(lambda: gf.wave_pass_fused_tiled_cuda(*args), 20)
         plain_ms = time_ms(lambda: gf.wave_pass_fused_tiled_plain(*args), 3,
                            1)
         rec = dict(name="wave_pass_fused_tiled", case=name, K=K, F=F, B=B,
-                   Kd=Kd, max_abs_err=0.0, tol=0.0, ms=ms,
+                   Kd=Kd, max_abs_err=0.0, tol=0.0, ms=ms, device_ms=dms,
                    plain_ms=plain_ms, library_ms=None, bound_ms=bms,
                    bound_by=by, bound_us=bms * 1e3,
                    launches_per_call=2 if quant else 3,
@@ -1364,8 +1609,7 @@ def main():
     t0 = time.perf_counter()
     built = hc.build_kernels()
     build_s = time.perf_counter() - t0
-    regs = {n: [ln.strip() for ln in b["log"].splitlines()
-                if "registers" in ln] for n, b in built.items()}
+    regs = {n: _ptxas(b["log"]) for n, b in built.items()}
     emit({"phase": "device", "kind": kind, "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": build_s, "ptxas": regs})
@@ -1440,6 +1684,10 @@ def main():
     for name in ("build_histogram_slots", "take_leaf_values", "wave_pass",
                  "wave_relabel"):
         check(launches[name] > 0, f"{name} never launched on the main path")
+    # the score update is one launch of the in-place kernel per tree
+    check(launches["take_leaf_values"] == len(iter_ms),
+          f"take_leaf_values launched {launches['take_leaf_values']} times "
+          f"in {len(iter_ms)} rounds")
     # 8 rounds on 2^20 rows reach a train AUC near 0.886 (both packages
     # agree on smaller cuts of this data); 8 more rounds through
     # update_batch, after the serve phase, must pass 0.9
@@ -1513,6 +1761,7 @@ def main():
     criteo_serve_phase(hc, torch, bst_c)
     del bst_c, ds_c, h_c
     efb_phase(lt, hc, torch)
+    narrow_cat_phase(lt, hc, torch)
 
     src = {"build_histogram_slots": "hist_slots.cu",
            "take_leaf_values": "take_leaf_values.cu",
@@ -1553,8 +1802,10 @@ def main():
             "source": f"lightgbm_tpu_torch/csrc/{src[name]}",
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "library_device_ms": r.get("library_device_ms"),
             "shape": {k: r[k] for k in ("K", "Kd", "L", "n", "F", "B",
                                         "total") if k in r},
             "pass": True})

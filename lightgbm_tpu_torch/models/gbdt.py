@@ -32,7 +32,7 @@ from ..objectives import ObjectiveFunction, create_objective
 from ..ops.grow import DeviceTree, GrowConfig
 from ..ops.grow_wave import (_wave_buckets, fused_veto_reasons,
                              grow_tree_wave, wave_routes)
-from ..ops.histogram import make_hist_plan, take_leaf_values
+from ..ops.histogram import add_leaf_values_, make_hist_plan
 from ..ops.histogram_cuda import MAX_LEAVES
 from ..ops.predict import predict_leaf_binned
 from ..ops.split import FeatureMeta
@@ -363,7 +363,7 @@ class GBDT:
                                            self._feature_mask_for_iter(),
                                            hist_plan=self.hist_plan)
         lr = self.shrinkage_rate
-        self.scores[0] += take_leaf_values(tree.leaf_value * lr, leaf_of_row)
+        add_leaf_values_(self.scores[0], tree.leaf_value * lr, leaf_of_row)
         # valid scores update BEFORE the bias fold (the reference updates
         # scores before AddBias, gbdt.cpp:424-428)
         for vi, Xv in enumerate(self._valid_Xt):

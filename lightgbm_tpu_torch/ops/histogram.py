@@ -122,6 +122,16 @@ def take_leaf_values(values: torch.Tensor, leaf_of_row: torch.Tensor, *,
     return hc.take_leaf_values_plain(values, leaf_of_row)
 
 
+def add_leaf_values_(scores: torch.Tensor, values: torch.Tensor,
+                     leaf_of_row: torch.Tensor, *,
+                     plain: bool = False) -> torch.Tensor:
+    """The score update, in place: scores += values[leaf_of_row], bitwise
+    the f32 add of the gather-then-add; out-of-range leaf ids add 0."""
+    if _use_kernel(values, plain):
+        return hc.add_leaf_values_cuda(scores, values, leaf_of_row)
+    return hc.add_leaf_values_plain(scores, values, leaf_of_row)
+
+
 def wave_pass(X_binned_t: torch.Tensor, vals: torch.Tensor,
               leaf_of_row: torch.Tensor, table: torch.Tensor, num_slots: int,
               num_bins: int, num_leaves: int, *, plain: bool = False

@@ -5,8 +5,10 @@ Five CUDA kernels (``lightgbm_tpu_torch/csrc/*.cu``) replace the five
 Pallas kernels the JAX package runs on the training path (lightgbm_tpu/ops/
 histogram_pallas.py):
 
-  build_histogram_slots_cuda  K-slot histogram      <- build_histogram_slots_pallas
-  take_leaf_values_cuda       values[leaf_of_row]   <- take_leaf_values_pallas
+  build_histogram_slots_cuda  K-slot histogram
+                              <- build_histogram_slots_pallas
+  add_leaf_values_cuda        scores += values[leaf_of_row], in place (and
+  take_leaf_values_cuda       values[leaf_of_row])  <- take_leaf_values_pallas
   wave_pass_cuda              relabel + candidate membership + slot
                               histogram in one row sweep <- wave_pass_pallas
   wave_relabel_cuda           relabel only          <- wave_relabel_pallas
@@ -53,7 +55,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -175,8 +177,8 @@ def _lib(name: str):
     HP = [FL] * 7 + [I, I]      # the split hyperparameters of the scan
     fn.restype = I
     fn.argtypes = {
-        "build_histogram_slots": [P, P, I, P, P, P, LL, I, I, I, I, I, P],
-        "take_leaf_values": [P, I, P, P, LL, I, P],
+        "build_histogram_slots": [P, P, I, P, P, P, P, LL] + [I] * 15 + [P],
+        "take_leaf_values": [P, I, P, P, LL, I, I, P],
         "wave_pass": [P, P, I, P, P, P, P, P, LL, I, I, I, I, I, I, P],
         "wave_relabel": [P, P, P, P, LL, I, I, I, P],
         "bucketize": [P, LL, LL, P, I, P, P, P, I, P, LL, LL, I, P],
@@ -191,10 +193,15 @@ def _lib(name: str):
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _launch_env(device: torch.device) -> Tuple[int, int]:
-    """(SM count, current stream handle) for a launch on `device`."""
-    props = torch.cuda.get_device_properties(device)
-    return props.multi_processor_count, \
+    """(SM count, current stream handle) for a launch on `device`; the SM
+    count is read once per device."""
+    return _sm_count(device.index), \
         torch.cuda.current_stream(device).cuda_stream
 
 
@@ -252,6 +259,112 @@ def _hist_buffers(K, C, F, B, quantized, dev):
 # ---------------------------------------------------------------------------
 # 1. K-slot histogram
 # ---------------------------------------------------------------------------
+# The tile planner of csrc/hist_slots.cu: a fixed rule of the shape, the
+# H100's shared memory and the SM count (no option reaches it).
+HIST_SMEM_BUDGET = 48 * 1024   # a tile's accumulators: 4+ blocks per SM
+SM_SMEM_BYTES = 228 * 1024     # shared memory of one H100 SM
+BLOCK_SMEM_RESERVED = 1024     # the system's share of each resident block
+MAX_BLOCKS_PER_SM = 5          # LGBT_TILE_BLOCKS_PER_SM: the registers
+MIN_SEGMENT_ROWS = 128         # fewer rows per block: the flush dominates
+DIRECT_MAX_ROWS = 1 << 16      # the direct sweep at K > 1 up to this many
+                               # rows, at K = 1 (one tile) up to
+DIRECT_MAX_ADDS = 1 << 24      # this many (row, feature) pairs
+MERGE_MIN_BINS = 65            # the warp merge from this bin count up, the
+                               # channel pairing below it at K = 1
+MAX_GROUP_SLOTS = 1024         # the grouping's per-warp counts in shared mem
+GROUP_ROWS = 256               # rows of a grouping warp, at least
+MAX_GROUP_WARPS = 1024         # the scan's block width
+
+
+class HistTilePlan(NamedTuple):
+    """How csrc/hist_slots.cu cuts a [K, C, F, B] histogram: tiles of
+    `slots_per_tile` slots x `feats_per_tile` features (the last tile of
+    each axis may be smaller), each tile's accumulators in `smem_bytes` of
+    shared memory, `blocks_per_sm` of them resident per SM. `merge`: the
+    warp merge of equal cells before the atomic; `grouped`: rows sorted by
+    slot before the sweep (with a slot array); `paired`: the two channels
+    of a cell side by side, added by one 128-bit compare-and-swap (f32
+    values, C = 2); `direct`: no tiles, a row per thread adds into the
+    global accumulators, or at K = 1 into a block's private copy of the
+    whole histogram (little work, see plan_hist_tiles). On the H100 the merge pays where bins are few and
+    popular (B = 256 with Zipf categoricals) and costs at 63 uniform bins,
+    where the pairing pays instead at the root (K = 1); in the waves the
+    pairing was as often slower as faster, and under the merge it costs
+    (PERF.md), so the rule turns on the merge by B and the pairing only
+    for an unmerged root histogram."""
+    slots_per_tile: int
+    feats_per_tile: int
+    slot_tiles: int
+    feat_tiles: int
+    smem_bytes: int
+    blocks_per_sm: int
+    merge: bool
+    grouped: bool
+    paired: bool
+    direct: bool
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_hist_tiles(K: int, C: int, F: int, B: int, *,
+                    quantized: bool = False,
+                    rows: Optional[int] = None) -> HistTilePlan:
+    """The tile plan of a K-slot histogram of C channels over F features of
+    B bins (f64 accumulators, int32 with `quantized`) over `rows` rows
+    (None: many). A (slot, feature) cell holds C * B accumulators; a tile
+    takes as many features as fit HIST_SMEM_BUDGET (balanced over the
+    feature tiles) and, when one tile holds every feature, as many slots.
+    The direct sweep runs instead at K > 1 over at most DIRECT_MAX_ROWS
+    rows, and at K = 1 over at most DIRECT_MAX_ADDS (row, feature) pairs
+    when one tile holds the histogram: there the grouping, the tiles'
+    zeroing and flush and the pieces cost more than the rows' adds (H100,
+    PERF.md). Raises on a shape it cannot tile."""
+    if not (K >= 1 and 1 <= C <= MAX_CHANNELS and F >= 1 and 1 <= B <= 256):
+        raise ValueError(f"no tile plan for K={K}, C={C}, F={F}, B={B}")
+    if K > MAX_GROUP_SLOTS:
+        raise ValueError(f"the slot histogram takes K <= {MAX_GROUP_SLOTS} "
+                         f"slots, got {K}")
+    cell = C * B * (4 if quantized else 8)
+    per_tile = HIST_SMEM_BUDGET // cell
+    nft = _cdiv(F, per_tile)
+    fpt = _cdiv(F, nft)
+    nst = _cdiv(K, max(1, per_tile // fpt) if nft == 1 else 1)
+    spt = _cdiv(K, nst)
+    smem = spt * fpt * cell
+    bps = min(MAX_BLOCKS_PER_SM, SM_SMEM_BYTES // (smem + BLOCK_SMEM_RESERVED))
+    merge = B >= MERGE_MIN_BINS
+    direct = rows is not None and (
+        rows <= DIRECT_MAX_ROWS if K > 1
+        else nft == 1 and rows * F <= DIRECT_MAX_ADDS)
+    return HistTilePlan(spt, fpt, nst, nft, smem, bps, merge, K > 1,
+                        K == 1 and C == 2 and not quantized and not merge,
+                        direct)
+
+
+def hist_segments(plan: HistTilePlan, N: int, num_sms: int, grouped: bool,
+                  min_rows: int = MIN_SEGMENT_ROWS) -> int:
+    """Row pieces per feature tile (grouped rows) or per tile (rows of [0,
+    N)): as many blocks as one wave of the card holds, of at least
+    `min_rows` rows. The kernel cuts the grouped rows, whose count only the
+    card knows, into at most this many pieces per feature tile, shared
+    among the slot tiles by their rows."""
+    wave = num_sms * plan.blocks_per_sm
+    if grouped:
+        return max(1, wave // plan.feat_tiles)
+    tiles = plan.slot_tiles * plan.feat_tiles
+    return max(1, min(wave // tiles, N // min_rows))
+
+
+def group_warps(N: int) -> int:
+    """Warps of the grouping passes: one per GROUP_ROWS rows, at most
+    MAX_GROUP_WARPS (then each takes a longer chunk); a warp's chunk is
+    ceil(N / warps) rounded up to 32 rows."""
+    return min(MAX_GROUP_WARPS, max(1, _cdiv(N, GROUP_ROWS)))
+
+
 def build_histogram_slots_cuda(X: torch.Tensor, vals: torch.Tensor,
                                slot: Optional[torch.Tensor], num_slots: int,
                                num_bins: int) -> torch.Tensor:
@@ -263,14 +376,48 @@ def build_histogram_slots_cuda(X: torch.Tensor, vals: torch.Tensor,
     C = _check_hist_args(X, vals, F, N, num_slots, num_bins, dev)
     if slot is not None:
         _check(slot, "slot", (torch.int32,), (N,), dev)
+    plan = plan_hist_tiles(num_slots, C, F, num_bins,
+                           quantized=vals.dtype == torch.int8, rows=N)
+    return _hist_slots_launch(X, vals, slot, num_slots, num_bins, plan)
+
+
+def _hist_slots_launch(X, vals, slot, K, B, plan: HistTilePlan,
+                       min_rows: Optional[int] = None):
+    """Launch csrc/hist_slots.cu under `plan` on checked operands, with
+    row pieces of at least `min_rows` rows (None: MIN_SEGMENT_ROWS)."""
+    if min_rows is None:
+        min_rows = MIN_SEGMENT_ROWS
+    if plan.direct and K == 1 and plan.feat_tiles > 1:
+        raise ValueError("the direct sweep at K = 1 keeps the histogram in "
+                         "one tile's shared memory; this plan has "
+                         f"{plan.feat_tiles} feature tiles")
+    dev = X.device
+    F, N = X.shape
+    C = vals.shape[0]
     quant = vals.dtype == torch.int8
-    out, acc = _hist_buffers(num_slots, C, F, num_bins, quant, dev)
     sms, stream = _launch_env(dev)
+    grouped = plan.grouped and slot is not None and not plan.direct
+    segs = 1 if plan.direct else hist_segments(plan, N, sms, grouped,
+                                               min_rows)
+    W = group_warps(N) if grouped else 0
+    scratch = (torch.empty(K * W + 2 * K + 1 + N, dtype=torch.int32,
+                           device=dev) if grouped else None)
+    out = torch.empty((K, C, F, B), device=dev,
+                      dtype=torch.int32 if quant else torch.float32)
+    acc = None
+    if not quant and (grouped or segs > 1 or plan.direct):
+        # f64 sums, then one completion counter per tile
+        tiles = plan.slot_tiles * plan.feat_tiles
+        acc = torch.empty(K * C * F * B + _cdiv(tiles, 2),
+                          dtype=torch.float64, device=dev)
     rc = _lib("build_histogram_slots")(
         X.data_ptr(), vals.data_ptr(), int(quant),
-        slot.data_ptr() if slot is not None else None, out.data_ptr(),
-        acc.data_ptr() if acc is not None else None, N, F, C, num_slots,
-        num_bins, sms, stream)
+        slot.data_ptr() if slot is not None else None,
+        scratch.data_ptr() if scratch is not None else None, out.data_ptr(),
+        acc.data_ptr() if acc is not None else None, N, F, C, K, B,
+        plan.slots_per_tile, plan.feats_per_tile, plan.slot_tiles,
+        plan.feat_tiles, segs, min_rows, int(plan.merge),
+        int(plan.paired), int(plan.direct), W, sms, stream)
     _raise_on(rc, "build_histogram_slots")
     LAUNCHES["build_histogram_slots"] += 1
     return out
@@ -304,26 +451,75 @@ def build_histogram_slots_plain(X: torch.Tensor, vals: torch.Tensor,
     return hist if quant else hist.to(torch.float32)
 
 
+def group_rows_by_slot_plain(slot: torch.Tensor, num_slots: int
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """Plain PyTorch version of the kernel's row grouping: (counts [K]
+    int64, offsets [K + 1] int64, row ids int32 grouped by slot, ascending
+    within each slot); rows whose slot is outside [0, K) are dropped."""
+    s = slot.to(torch.int64)
+    ids = torch.nonzero((s >= 0) & (s < num_slots)).flatten()
+    order = torch.sort(s[ids], stable=True).indices
+    counts = torch.bincount(s[ids], minlength=num_slots)
+    offsets = torch.zeros(num_slots + 1, dtype=torch.int64,
+                          device=slot.device)
+    offsets[1:] = torch.cumsum(counts, 0)
+    return counts, offsets, ids[order].to(torch.int32)
+
+
 # ---------------------------------------------------------------------------
-# 2. leaf-value gather
+# 2. leaf values: the score update and the gather
 # ---------------------------------------------------------------------------
+def _check_leaf_args(values, leaf_of_row, dev):
+    if values.dim() != 1 or leaf_of_row.dim() != 1:
+        raise ValueError("values must be [L] and leaf_of_row [N]")
+    L, N = values.shape[0], leaf_of_row.shape[0]
+    if L > MAX_LEAVES:
+        raise ValueError(f"the leaf-value kernel stages L <= {MAX_LEAVES} "
+                         f"values in shared memory, got {L}")
+    _check(values, "values", (torch.float32,), (L,), dev)
+    _check(leaf_of_row, "leaf_of_row", (torch.int32,), (N,), dev)
+    return L, N
+
+
+def _leaf_values_launch(values, leaf_of_row, out, accumulate: bool):
+    L, N = values.shape[0], leaf_of_row.shape[0]
+    sms, stream = _launch_env(values.device)
+    rc = _lib("take_leaf_values")(values.data_ptr(), L,
+                                  leaf_of_row.data_ptr(), out.data_ptr(), N,
+                                  int(accumulate), sms, stream)
+    _raise_on(rc, "take_leaf_values")
+    LAUNCHES["take_leaf_values"] += 1
+
+
+def add_leaf_values_cuda(scores: torch.Tensor, values: torch.Tensor,
+                         leaf_of_row: torch.Tensor) -> torch.Tensor:
+    """scores += values[leaf_of_row] in place ([N] f32, [L] f32, [N]
+    int32), one launch; rows whose leaf id is outside [0, L) add 0. The
+    scores are bitwise those of `scores += take_leaf_values(values,
+    leaf_of_row)`. Returns `scores`."""
+    dev = _cuda_device(values)
+    _, N = _check_leaf_args(values, leaf_of_row, dev)
+    _check(scores, "scores", (torch.float32,), (N,), dev)
+    _leaf_values_launch(values, leaf_of_row, scores, True)
+    return scores
+
+
+def add_leaf_values_plain(scores: torch.Tensor, values: torch.Tensor,
+                          leaf_of_row: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of add_leaf_values_cuda."""
+    scores += take_leaf_values_plain(values, leaf_of_row)
+    return scores
+
+
 def take_leaf_values_cuda(values: torch.Tensor,
                           leaf_of_row: torch.Tensor) -> torch.Tensor:
     """values[leaf_of_row] ([L] f32, [N] int32 -> [N] f32), bitwise; rows
     whose leaf id is outside [0, L) get 0."""
     dev = _cuda_device(values)
-    if values.dim() != 1 or leaf_of_row.dim() != 1:
-        raise ValueError("values must be [L] and leaf_of_row [N]")
-    L, N = values.shape[0], leaf_of_row.shape[0]
-    _check(values, "values", (torch.float32,), (L,), dev)
-    _check(leaf_of_row, "leaf_of_row", (torch.int32,), (N,), dev)
+    _, N = _check_leaf_args(values, leaf_of_row, dev)
     out = torch.empty((N,), dtype=torch.float32, device=dev)
-    sms, stream = _launch_env(dev)
-    rc = _lib("take_leaf_values")(values.data_ptr(), L,
-                                  leaf_of_row.data_ptr(), out.data_ptr(), N,
-                                  sms, stream)
-    _raise_on(rc, "take_leaf_values")
-    LAUNCHES["take_leaf_values"] += 1
+    _leaf_values_launch(values, leaf_of_row, out, False)
     return out
 
 
@@ -335,7 +531,6 @@ def take_leaf_values_plain(values: torch.Tensor,
     ok = (lor >= 0) & (lor < L)
     picked = values[lor.clamp(0, max(L - 1, 0))]
     return torch.where(ok, picked, torch.zeros_like(picked))
-
 
 # ---------------------------------------------------------------------------
 # 3. / 5. wave pass and relabel

@@ -4,7 +4,7 @@ iteration, and a served batch.
 
     python3 scripts/profile_torch_port.py
         [--config bench|criteo|bench_fused|criteo_fused]
-        [--rows N] [--iters K] [--trace F]
+        [--rows N] [--iters K] [--trace F] [--root DIR]
 
 --config bench (the default) builds bench.py's data (28 f32 features,
 numpy seed 42) and trains bench.py's model (binary, 255 leaves, max_bin
@@ -28,7 +28,11 @@ on the first CUDA device and served, and the script prints JSON lines:
   profile    torch.profiler over K iterations: device-busy ms per iteration
              (the sum of GPU kernel and memcpy/memset times: one stream, so
              they do not overlap), the device idle share, GPU launches per
-             iteration, and the top device-time entries by name
+             iteration, the top device-time entries by name, the device ms
+             per iteration of every kernel of the port (lightgbm_tpu_torch/
+             csrc), and the device ms per iteration spent under each stage
+             of the `stages` line below (its calls wrapped in
+             torch.profiler.record_function, no synchronize)
   stages     a second pass with the grower's stages wrapped in synchronized
              host timers (so the stages do not overlap, and the iteration
              runs a little slower than in `steady`): ms per iteration in the
@@ -52,7 +56,9 @@ on the first CUDA device and served, and the script prints JSON lines:
              kernel's device ms
 
 `--trace F` writes the chrome trace of the profiled training window to F.
-Exits 2 without a CUDA device.
+`--root DIR` imports lightgbm_tpu_torch from DIR instead of this checkout,
+so that two checkouts can be profiled in turns on one card. Exits 2
+without a CUDA device.
 """
 
 import argparse
@@ -65,6 +71,15 @@ from collections import defaultdict
 import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the __global__ functions of lightgbm_tpu_torch/csrc (this checkout's and
+# the earlier ones'), whose device times the profile line lists by name
+PORT_KERNELS = ("hist_slots_kernel", "hist_tiles_kernel", "hist_direct_kernel",
+                "group_pass_kernel", "group_scan_kernel", "acc_to_f32_kernel",
+                "take_leaf_values_kernel", "leaf_values_kernel",
+                "wave_pass_kernel", "wave_relabel_kernel",
+                "wave_apply_kernel", "bucketize_kernel",
+                "hist_rowwise_kernel", "lgbt_split_scan_kernel",
+                "fused_tiled_hist_kernel")
 
 
 def emit(obj):
@@ -161,8 +176,10 @@ def main():
     ap.add_argument("--iters", type=int, default=4)
     ap.add_argument("--trace", help="write the profiled window's chrome "
                     "trace to this file")
+    ap.add_argument("--root", default=ROOT, help="the checkout whose "
+                    "lightgbm_tpu_torch is profiled")
     args = ap.parse_args()
-    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.abspath(args.root))
     import torch
     if not torch.cuda.is_available():
         print("profile_torch_port: torch finds no CUDA device",
@@ -213,19 +230,79 @@ def main():
           "wall_ms_per_iter": wall_ms,
           "device": torch.cuda.get_device_name(0)})
 
+    # the score update: in place since the leaf-value kernel gained that
+    # form, a gather before it (a checkout given by --root may predate it)
+    score_fn = ("add_leaf_values_" if hasattr(gbdt_mod, "add_leaf_values_")
+                else "take_leaf_values")
+    if g.grow_route == "fused":
+        patches = [(grow_wave, "build_histogram", "root histogram"),
+                   (grow_wave, "wave_pass_fused", "fused kernel #9 "
+                    "(histogram + children's search)"),
+                   (grow_wave, "wave_relabel", "wave_relabel kernel"),
+                   (grow_wave, "find_best_split", "split search, root"),
+                   (gbdt_mod, score_fn, "score update")]
+    elif g.grow_route == "fused_tiled":
+        patches = [(grow_wave, "build_histogram", "root histogram"),
+                   (grow_wave, "dec_go_left", "dec build (plain PyTorch)"),
+                   (grow_wave, "wave_pass_fused_tiled", "fused kernel #10 "
+                    "(histogram + children's numeric search)"),
+                   (grow_wave, "wave_apply", "wave_apply kernel (flushes)"),
+                   (grow_wave, "find_best_split", "split search, root"),
+                   (grow_wave, "find_best_split_categorical",
+                    "split search, categorical"),
+                   (gbdt_mod, score_fn, "score update")]
+    elif g.grow_route == "apply":
+        patches = [(grow_wave, "build_histogram", "root histogram"),
+                   (grow_wave, "dec_go_left", "dec build (plain PyTorch)"),
+                   (grow_wave, "wave_apply", "wave_apply kernel"),
+                   (grow_wave, "build_histogram_slots", "wave histogram"),
+                   (grow_wave, "find_best_split", "split search, numeric"),
+                   (grow_wave, "find_best_split_categorical",
+                    "split search, categorical"),
+                   (gbdt_mod, score_fn, "score update")]
+    else:
+        patches = [(grow_wave, "build_histogram", "root histogram"),
+                   (grow_wave, "wave_pass", "wave_pass kernel"),
+                   (grow_wave, "wave_relabel", "wave_relabel kernel"),
+                   (grow_wave, "find_best_split", "split search"),
+                   (gbdt_mod, score_fn, "score update")]
     # ---- profiler window
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(args.iters):
-            bst.update()
-        torch.cuda.synchronize()
-        prof_wall_ms = (time.perf_counter() - t0) * 1e3 / args.iters
+    from torch.profiler import record_function
+
+    def ranged(stage, fn):
+        def run(*a, **kw):
+            with record_function(stage):
+                return fn(*a, **kw)
+        return run
+
+    saved = [(m, n, getattr(m, n)) for m, n, _ in patches]
+    try:
+        for m, n, stage in patches:
+            setattr(m, n, ranged(stage, getattr(m, n)))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(args.iters):
+                bst.update()
+            torch.cuda.synchronize()
+            prof_wall_ms = (time.perf_counter() - t0) * 1e3 / args.iters
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+    # device activity by name; the stages' ranges also show on the device
+    # timeline (as spans over their kernels) and are left out of it. A
+    # stage's device ms is the kernel time the profiler attributes to its
+    # host range.
+    stages = {stage for _, _, stage in patches}
     dev_by_name = defaultdict(float)
     n_dev = defaultdict(int)
+    stage_dev = defaultdict(float)
     for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
+        if ev.name in stages:
+            if ev.device_type == torch.autograd.DeviceType.CPU:
+                stage_dev[ev.name] += ev.device_time_total / 1e3 / args.iters
+        elif ev.device_type == torch.autograd.DeviceType.CUDA:
             dev_by_name[ev.name] += ev.time_range.elapsed_us() / 1e3
             n_dev[ev.name] += 1
     busy_ms = sum(dev_by_name.values()) / args.iters
@@ -234,13 +311,19 @@ def main():
         os.makedirs(os.path.dirname(os.path.abspath(args.trace)),
                     exist_ok=True)
         prof.export_chrome_trace(args.trace)
+    port = sorted(k for k in dev_by_name if k.split("(")[0].split("<")[0]
+                  .split()[-1] in PORT_KERNELS)
     emit({"phase": "profile", "wall_ms_per_iter": prof_wall_ms,
           "device_busy_ms_per_iter": busy_ms,
           "device_idle_share": 1.0 - busy_ms / prof_wall_ms,
           "gpu_ops_per_iter": sum(n_dev.values()) / args.iters,
           "top_device_ms_per_iter": [
               {"name": k[:80], "ms": v / args.iters,
-               "count": n_dev[k] / args.iters} for k, v in top]})
+               "count": n_dev[k] / args.iters} for k, v in top],
+          "port_kernels_device_ms_per_iter": [
+              {"name": k[:80], "ms": dev_by_name[k] / args.iters,
+               "count": n_dev[k] / args.iters} for k in port],
+          "stage_device_ms_per_iter": dict(stage_dev)})
 
     # ---- stage decomposition (synchronized host timers)
     spent = defaultdict(float)
@@ -256,38 +339,6 @@ def main():
             return out
         return run
 
-    if g.grow_route == "fused":
-        patches = [(grow_wave, "build_histogram", "root histogram"),
-                   (grow_wave, "wave_pass_fused", "fused kernel #9 "
-                    "(histogram + children's search)"),
-                   (grow_wave, "wave_relabel", "wave_relabel kernel"),
-                   (grow_wave, "find_best_split", "split search, root"),
-                   (gbdt_mod, "take_leaf_values", "score update")]
-    elif g.grow_route == "fused_tiled":
-        patches = [(grow_wave, "build_histogram", "root histogram"),
-                   (grow_wave, "dec_go_left", "dec build (plain PyTorch)"),
-                   (grow_wave, "wave_pass_fused_tiled", "fused kernel #10 "
-                    "(histogram + children's numeric search)"),
-                   (grow_wave, "wave_apply", "wave_apply kernel (flushes)"),
-                   (grow_wave, "find_best_split", "split search, root"),
-                   (grow_wave, "find_best_split_categorical",
-                    "split search, categorical"),
-                   (gbdt_mod, "take_leaf_values", "score update")]
-    elif g.grow_route == "apply":
-        patches = [(grow_wave, "build_histogram", "root histogram"),
-                   (grow_wave, "dec_go_left", "dec build (plain PyTorch)"),
-                   (grow_wave, "wave_apply", "wave_apply kernel"),
-                   (grow_wave, "build_histogram_slots", "wave histogram"),
-                   (grow_wave, "find_best_split", "split search, numeric"),
-                   (grow_wave, "find_best_split_categorical",
-                    "split search, categorical"),
-                   (gbdt_mod, "take_leaf_values", "score update")]
-    else:
-        patches = [(grow_wave, "build_histogram", "root histogram"),
-                   (grow_wave, "wave_pass", "wave_pass kernel"),
-                   (grow_wave, "wave_relabel", "wave_relabel kernel"),
-                   (grow_wave, "find_best_split", "split search"),
-                   (gbdt_mod, "take_leaf_values", "score update")]
     n_calls = defaultdict(int)
     saved = [(m, n, getattr(m, n)) for m, n, _ in patches]
     obj = bst._gbdt.objective
