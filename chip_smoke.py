@@ -62,13 +62,13 @@ Phases, each printing one JSON line:
                      launch, wave_pass and wave_relabel do not; train AUC
                      never falls between rounds and passes CRITEO_AUC_MIN;
                      the first tree equals the plain versions' tree
-     row-wise        the slot histogram against its plain version,
-                     bitwise, on the Criteo storage at K in {1, 16, 128}
-                     (also with half of the rows active), timed; the
-                     row-wise kernels (plain and nibble-packed) against
-                     their plain versions, bitwise, at K in {1, 16, 128},
-                     and against the col-wise slot kernel; then 2 rounds
-                     under force_row_wise and 2
+     row-wise        the slot histogram and the row-wise kernels (plain
+                     and nibble-packed, both on the tiled engine) against
+                     their plain versions, bitwise, on the Criteo storage
+                     at K in {1, 16, 128}, also with half of the rows
+                     active, and K = 16 "half" on 2^16 rows, timed; the
+                     row-wise buffers also against the col-wise slot
+                     kernel; then 2 rounds under force_row_wise and 2
                      under histogram_impl=rowwise_packed grow the col-wise
                      run's first two trees
      criteo serve    the Criteo model through the binned engine on raw f32
@@ -89,11 +89,15 @@ Phases, each printing one JSON line:
      fused_kernels   kernel #9 (wave_pass_fused) against its plain version
                      at the bench storage (2^20 x 28, B = 64), K in
                      {1, 16, 64}; kernel #10 (wave_pass_fused_tiled) at the
-                     Criteo storage (K in {1, 16}), at F = 100 / B = 64
-                     with a live pending relabel, and with int8 values:
-                     leaf_of_row, histogram and split records bitwise on
-                     grid values, the chosen splits equal on continuous
-                     ones (their largest float differences printed)
+                     Criteo storage (K in {1, 16}; K = 16 with about half
+                     of the rows in a smaller child, a real wave's shape,
+                     on 2^20 rows and, on the direct route, 2^16), at
+                     F = 100 / B = 64 with a live pending relabel, and with
+                     int8 values: leaf_of_row, histogram and split records
+                     bitwise on grid values, the chosen splits equal on
+                     continuous ones (their largest float differences
+                     printed); both under the warp-per-feature scan, with
+                     their kernel launches per call
      fused_train     bench.py's model under histogram_impl=fused, 8 rounds:
                      route "fused", kernel #9 launched and wave_pass not,
                      AUC > 0.88, first tree equal to the plain versions'
@@ -170,29 +174,39 @@ def time_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
-def timings(fn, reps, warmup=2):
+def timings(fn, reps, warmup=2, stats=None):
     """(ms, device_ms) of fn(): `ms` is time_ms's mean call time over
     `reps` back-to-back calls, which includes the host's issue rate where
     that is the slower side; `device_ms` is the sum of the device's
     activity (kernels and memsets) per call under torch.profiler over
-    another `reps` calls."""
+    another `reps` calls. A session now and then records no device
+    activity, or only part of it, so two sessions that saw some are run
+    (at most four in all) and the larger is kept; with `stats` (a dict)
+    its kernel launches per call, memsets not counted, are stored under
+    "kernels_per_call"."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     ms = time_ms(fn, reps, warmup)
-    # a profiler session now and then records no device activity at all;
-    # such a session is run again, up to three times
-    for _ in range(3):
+    best_us, best_n, seen = 0.0, 0, 0
+    for _ in range(4):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        dev_us = sum(ev.time_range.elapsed_us() for ev in prof.events()
-                     if ev.device_type == torch.autograd.DeviceType.CUDA)
-        if dev_us > 0:
+        dev = [ev for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA]
+        us = sum(ev.time_range.elapsed_us() for ev in dev)
+        if us > best_us:
+            best_us = us
+            best_n = sum("memset" not in ev.name.lower() for ev in dev)
+        seen += us > 0
+        if seen == 2:
             break
-    check(dev_us > 0, "torch.profiler saw no device activity in 3 sessions")
-    return ms, dev_us / 1e3 / reps
+    check(best_us > 0, "torch.profiler saw no device activity in 4 sessions")
+    if stats is not None:
+        stats["kernels_per_call"] = best_n / reps
+    return ms, best_us / 1e3 / reps
 
 
 def _slot_case(torch, gen, N, K, active, dev):
@@ -809,14 +823,16 @@ def wave_apply_phase(hc, torch, dev):
 
 def rowwise_phase(hc, hr, torch, dev, X_t, tiers, B):
     """The row-wise histogram kernels against their plain versions at the
-    Criteo storage (X_t [39, 2^20], its own bin counts), K in {1, 16, 128},
-    bitwise: f32 values on an exact grid, and int8 values (exact int32).
-    The packed kernel is also held to the unpacked one, and the expanded
-    flat buffer to the col-wise slot kernel at B, which the apply route
-    launches on the same storage; the slot kernel is held to its plain
-    version there too, and timed, also with about half of the rows active
-    (a wave's smaller children). Times each kernel, its plain version and
-    one index_add_ over the flat indices."""
+    Criteo storage (X_t [39, 2^20], its own bin counts), K in {1, 16, 128}
+    with every row in a random slot, K in {16, 128} with about half of the
+    rows active (a wave's smaller children), and K = 16 "half" on the
+    first 2^16 rows, bitwise: f32 values on an exact grid, and int8 values
+    (exact int32). The packed kernel is also held to the unpacked one, and
+    the expanded flat buffer to the col-wise slot kernel at B, which the
+    apply route launches on the same storage; the slot kernel is held to
+    its plain version there too, and timed. Times each kernel, its plain
+    version and one index_add_ over the flat indices; a record carries the
+    engine's tile plan (`tiles`)."""
     from lightgbm_tpu_torch.ops.split import expand_feature_offset_hist
     gen = torch.Generator(device=dev).manual_seed(10)
     F, N = X_t.shape
@@ -833,11 +849,18 @@ def rowwise_phase(hc, hr, torch, dev, X_t, tiers, B):
     offs = torch.tensor(plan.offsets, device=dev)[:, None]
     wid = torch.tensor(plan.widths, device=dev)[:, None]
     recs = {"hist_rowwise": {}, "hist_rowwise_packed": {}}
-    for K, active in ((1, "all"), (16, "random"), (128, "random"),
-                      (16, "half"), (128, "half")):
-        slot = _slot_case(torch, gen, N, K, active, dev)
-        rows = N if slot is None else int((slot >= 0).sum())
-        slot_bytes = 0 if slot is None else 4 * N
+    X_full, Xp_full, Xu_full = X_t, Xp, Xu
+    vals_full, vals8_full = vals, vals8
+    for K, active, n in ((1, "all", N), (16, "random", N),
+                         (128, "random", N), (16, "half", N),
+                         (128, "half", N), (16, "half", 1 << 16)):
+        X_t, Xp, Xu = (x[:, :n].contiguous()
+                       for x in (X_full, Xp_full, Xu_full))
+        vals, vals8 = vals_full[:, :n].contiguous(), \
+            vals8_full[:, :n].contiguous()
+        slot = _slot_case(torch, gen, n, K, active, dev)
+        rows = n if slot is None else int((slot >= 0).sum())
+        slot_bytes = 0 if slot is None else 4 * n
         args = (slot, K, plan)
         cw = hc.build_histogram_slots_cuda(X_t, vals, slot, K, B)
         check(torch.equal(cw, hc.build_histogram_slots_plain(
@@ -855,13 +878,11 @@ def rowwise_phase(hc, hr, torch, dev, X_t, tiers, B):
                            + K * C * F * B * 4, rows * F * C)
         emit({"phase": "kernels", "kernel_ms": ms,
               "name": "build_histogram_slots", "shape": "criteo", "K": K,
-              "active": active, "rows": rows, "F": F, "B": B,
+              "active": active, "N": n, "rows": rows, "F": F, "B": B,
               "max_abs_err": 0.0, "ms": ms, "device_ms": dms,
               "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
               "library_device_ms": lib_dms,
-              "plan": hc.plan_hist_tiles(K, C, F, B)._asdict()})
-        if active == "half":
-            continue
+              "plan": hc.plan_hist_tiles(K, C, F, B, rows=n)._asdict()})
         got = hr.hist_rowwise_cuda(X_t, vals, *args)
         ref = hr.hist_rowwise_plain(X_t, vals, *args)
         gotp = hr.hist_rowwise_packed_cuda(Xp, Xu, vals, *args, pplan)
@@ -898,14 +919,15 @@ def rowwise_phase(hc, hr, torch, dev, X_t, tiers, B):
             plain_ms = time_ms(pfn, 3, 1)
             bms, by = bound_ms(slot_bytes + rows * (xin + 4 * C)
                                + out_bytes, rows * F * C)
-            rec = dict(name=name, K=K, F=F, total=plan.total,
-                       max_abs_err=0.0, tol=0.0, ms=ms, device_ms=dms,
-                       plain_ms=plain_ms, library_ms=lib_ms,
+            rec = dict(name=name, K=K, active=active, N=n, F=F,
+                       total=plan.total, max_abs_err=0.0, tol=0.0, ms=ms,
+                       device_ms=dms, plain_ms=plain_ms, library_ms=lib_ms,
                        library_device_ms=lib_dms, bound_ms=bms, bound_by=by,
-                       bound_us=bms * 1e3)
+                       bound_us=bms * 1e3,
+                       tiles=hr.flat_plan(plan, K, C, False)._asdict())
             emit({"phase": "kernels", "kernel_ms": ms, **rec})
-            recs[name][K] = rec
-    return {name: r[16] for name, r in recs.items()}
+            recs[name][(K, active, n)] = rec
+    return {name: r[(16, "random", N)] for name, r in recs.items()}
 
 
 def _same_host_tree(a, b):
@@ -1333,13 +1355,16 @@ def fused_narrow_phase(hc, gf, torch, dev):
             + K * 2 * F * B * 4 + 16 * 128 * 4 + _scan_nbytes(K, F, B)
         bms, by = bound_ms(nbytes, small_rows * F * 2 + 2 * K * 2 * F * B
                            * 40)
-        ms, dms = timings(lambda: gf.wave_pass_fused_cuda(*args), 20)
+        st = {}
+        ms, dms = timings(lambda: gf.wave_pass_fused_cuda(*args), 20,
+                          stats=st)
         plain_ms = time_ms(lambda: gf.wave_pass_fused_plain(*args), 3, 1)
         rec = dict(name="wave_pass_fused", K=K, F=F, B=B, max_abs_err=0.0,
                    tol=0.0, ms=ms, device_ms=dms, plain_ms=plain_ms,
                    library_ms=None,
                    bound_ms=bms, bound_by=by, bound_us=bms * 1e3,
-                   launches_per_call=3, continuous_max_diff=res["continuous"])
+                   launches_per_call=st["kernels_per_call"],
+                   continuous_max_diff=res["continuous"])
         emit({"phase": "fused_kernels", "kernel_ms": ms, **rec})
         recs[K] = rec
     return recs[16]
@@ -1347,11 +1372,17 @@ def fused_narrow_phase(hc, gf, torch, dev):
 
 def fused_tiled_phase(hc, gf, torch, dev, X_c):
     """Kernel #10 against its plain version: at the Criteo storage X_c
-    ([39, 2^20], B = 256) for K in {1, 16}; at F = 100, B = 64 with a live
-    pending table (K = 16); and with int8 values (exact int32 sums,
-    descaled after the subtraction). Random decision bits; parents and
-    child statistics from the real rows; per-child feature masks. Bitwise
-    on grid values; on continuous values the chosen splits equal."""
+    ([39, 2^20], B = 256) for K in {1, 16}, a mid-tree wave of 12 applied
+    splits whose K candidates hold a few percent of the rows; a real
+    wave's shape, K = 16 candidates that are all the leaves after 8
+    applied splits, so that about half of the rows land in a smaller
+    child ("half"), on 2^20 rows (the tiled route) and on the first 2^16
+    (the direct route); at F = 100, B = 64 with a live pending table
+    (K = 16); and with int8 values (exact int32 sums, descaled after the
+    subtraction). Random decision bits; parents and child statistics from
+    the real rows; per-child feature masks. Bitwise on grid values; on
+    continuous values the chosen splits equal. A record carries the
+    histogram's plan and the kernels launched per call (profiler)."""
     gen = torch.Generator(device=dev).manual_seed(23)
     rng = np.random.RandomState(24)
     hp = _fused_hp()
@@ -1359,6 +1390,9 @@ def fused_tiled_phase(hc, gf, torch, dev, X_c):
     recs = []
     cases = [("criteo", X_c, 256, 1, False, False),
              ("criteo", X_c, 256, 16, False, False),
+             ("criteo_half", X_c, 256, 16, False, False),
+             ("criteo_half_2^16", X_c[:, :1 << 16].contiguous(), 256, 16,
+              False, False),
              ("wide_pending", None, 64, 16, True, False),
              ("criteo_int8", X_c, 256, 16, True, True)]
     for name, X, B, K, pending, quant in cases:
@@ -1366,7 +1400,9 @@ def fused_tiled_phase(hc, gf, torch, dev, X_c):
             X = torch.randint(0, 63, (100, N_ROWS), generator=gen,
                               device=dev, dtype=torch.int32).to(torch.uint8)
         F, N = X.shape
-        nl0 = 120
+        half = "half" in name
+        # "half": leaves 0-7 split into 0-15, every row a candidate's
+        nl0 = 8 if half else 120
         lor = torch.randint(0, nl0, (N,), generator=gen, device=dev,
                             dtype=torch.int32)
         pend = torch.full((128,), -1, dtype=torch.int32, device=dev)
@@ -1375,7 +1411,7 @@ def fused_tiled_phase(hc, gf, torch, dev, X_c):
             # a deferred wave split 8 leaves into new leaves 120-127
             pend[:8] = torch.from_numpy(rng.choice(nl0, 8, replace=False))
             pnl0, nl0 = nl0, nl0 + 8
-        napp = min(K, 12)
+        napp = 8 if half else min(K, 12)
         t = np.full((16, 128), -1, np.int32)
         t[0, :napp] = rng.choice(nl0, napp, replace=False)
         t[7, :K] = rng.choice(nl0 + napp, K, replace=False)
@@ -1443,14 +1479,21 @@ def fused_tiled_phase(hc, gf, torch, dev, X_c):
             + _scan_nbytes(K, F, B) + 2 * K * F
         bms, by = bound_ms(nbytes, small_rows * F * 2 + 2 * K * 2 * F * B
                            * 40)
-        ms, dms = timings(lambda: gf.wave_pass_fused_tiled_cuda(*args), 20)
+        st = {}
+        ms, dms = timings(lambda: gf.wave_pass_fused_tiled_cuda(*args), 20,
+                          stats=st)
         plain_ms = time_ms(lambda: gf.wave_pass_fused_tiled_plain(*args), 3,
                            1)
-        rec = dict(name="wave_pass_fused_tiled", case=name, K=K, F=F, B=B,
-                   Kd=Kd, max_abs_err=0.0, tol=0.0, ms=ms, device_ms=dms,
-                   plain_ms=plain_ms, library_ms=None, bound_ms=bms,
-                   bound_by=by, bound_us=bms * 1e3,
-                   launches_per_call=2 if quant else 3,
+        plan = hc.plan_hist_tiles(K, 2, F, B, quantized=quant, rows=N)
+        if name == "criteo_half_2^16":
+            check(plan.direct, "the 2^16-row fused case is not on the "
+                               "direct route")
+        rec = dict(name="wave_pass_fused_tiled", case=name, K=K, N=N, F=F,
+                   B=B, Kd=Kd, max_abs_err=0.0, tol=0.0, ms=ms,
+                   device_ms=dms, plain_ms=plain_ms, library_ms=None,
+                   bound_ms=bms, bound_by=by, bound_us=bms * 1e3,
+                   small_rows=small_rows, plan=plan._asdict(),
+                   launches_per_call=st["kernels_per_call"],
                    continuous_max_diff=res.get("continuous"))
         emit({"phase": "fused_kernels", "kernel_ms": ms, **rec})
         recs.append(rec)
@@ -1806,6 +1849,7 @@ def main():
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
             "library_device_ms": r.get("library_device_ms"),
+            "launches_per_call": r.get("launches_per_call"),
             "shape": {k: r[k] for k in ("K", "Kd", "L", "n", "F", "B",
                                         "total") if k in r},
             "pass": True})

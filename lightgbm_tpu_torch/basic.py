@@ -171,8 +171,15 @@ class Booster:
 
     # ------------------------------------------------------------------
     def add_valid(self, data: Dataset, name: str) -> "Booster":
+        """Score `data` each round with the training metrics. A valid set
+        not constructed yet is binned against the training set and, for
+        the parameters it does not set itself, under the booster's (its
+        device_type above all), as the reference merges the training
+        params into its valid sets."""
         if data.reference is not self.train_set:
             data.reference = self.train_set
+        if data._handle is None:
+            data.params = {**self.params, **data.params}
         data.construct()
         metrics = [m for m in (create_metric(n, self._config)
                                for n in self._metric_names) if m is not None]
@@ -227,14 +234,25 @@ class Booster:
     # ------------------------------------------------------------------
     def predict(self, data, start_iteration: int = 0,
                 num_iteration: Optional[int] = None,
-                raw_score: bool = False) -> np.ndarray:
-        """Host walk over the packed trees (the device serving engines are
-        ROADMAP item A7)."""
+                raw_score: bool = False, **kwargs) -> np.ndarray:
+        """Margins or converted outputs of `data`: the host walk over the
+        packed trees, or the device predictor for 100k f32 rows and more
+        on a CUDA booster (models/gbdt.py:predict_raw). `pred_early_stop`
+        / `_freq` / `_margin`, from the keyword arguments or else from the
+        booster's params, stop a row's walk once its margin clears the
+        bound (host walk only), as the JAX package's Booster.predict."""
         ni = num_iteration if num_iteration is not None else (
             self.best_iteration if self.best_iteration > 0 else -1)
+        es_kwargs = {}
+        for p in ("pred_early_stop", "pred_early_stop_freq",
+                  "pred_early_stop_margin"):
+            if p in kwargs:
+                es_kwargs[p] = kwargs[p]
+            elif p in self.params:
+                es_kwargs[p] = self.params[p]
         return self._gbdt.predict(_to_2d_numpy(data), raw_score=raw_score,
                                   start_iteration=start_iteration,
-                                  num_iteration=ni)
+                                  num_iteration=ni, **es_kwargs)
 
     def serve(self, **kwargs) -> Any:
         """Inference session over this model: pinned packed trees, the

@@ -15,150 +15,89 @@
 //                                unpacked remainder.
 // The TPU kernels concatenate every column's one-hot at its own 8-aligned
 // width into one MXU contraction per column chunk. On Hopper the direct
-// form is a scatter-add: one row per thread, walking its F columns, one
-// atomic per (column, channel) into the flat buffer.
+// form is a scatter-add of each row's values into its columns' cells.
 //
 // Bound: bytes. Each row is read once (F bin bytes, or about half of that
 // for nibble-packed columns, C value words and one slot word); the flat
-// output is written once. As in hist_slots.cu the atomic throughput is
-// what limits it in practice. Design: the hist_slots.cu accumulation
-// scheme (common.cuh): float channels accumulate in f64 and are rounded
-// once, so the flat buffer equals the col-wise histogram bit for bit after
-// expansion. The K*C*total accumulators are privatised in shared memory
-// when they fit in what a block opts into (LGBT_SMEM_OPTIN_BYTES: the root
-// histogram of a 39-column, 256-bin table is 80 KB in f64), each block
-// flushing its copy once; else the atomics go to global accumulators
-// resident in the 50 MB L2. The per-column descriptors
-// (offset, width, and for the packed form nibble and remainder positions)
-// are read through the read-only cache: every thread of a warp reads the
-// same one.
-#include "common.cuh"
+// output is written once. The first version walked all F columns of a row
+// per thread into a privatised copy of the whole K * C * total buffer (one
+// block per SM at the Criteo root) or, past the shared-memory opt-in,
+// into global f64 accumulators in L2: 1.1-1.3 ms at Criteo K = 1 / 16 /
+// 128 (PERF.md). The sweep is now the tiled accumulation engine of
+// hist_tiles.cuh with the flat reader (FlatBins): tiles of column ranges
+// whose cells fit 48 KB (plan_flat_tiles in ops/histogram_cuda.py), rows
+// grouped by slot, pieces balanced by rows, the warp merge on every column
+// where one is wider than 64 (merging by each column's width left the
+// narrow Zipf categorical columns' compare-and-swaps serialised: 1.25x
+// slower at the Criteo root, PERF.md), the channel pairing at K = 1
+// without it, and the f32 rounding in each tile's last block. Both entry
+// points share the reader: a column's descriptor names its byte row and,
+// packed, the nibble of its bits. Float channels accumulate in f64 and are
+// rounded once, so the flat buffer equals the col-wise histogram bit for
+// bit after expansion; int8 channels accumulate exactly in int32.
+#include "hist_tiles.cuh"
 
-// desc rows: 0 offset, 1 width, 2 nibble index (-1: remainder), 3
-// remainder row
+// X / Xu and desc as FlatBins (hist_tiles.cuh): desc [4, F] int32 rows
+// offset, width, nibble index (-1: a whole byte), byte row, then the tile
+// cuts [nft + 1]. The plan (spt, nst, nft, max_cols, segs, min_rows,
+// merge, pair, smem) comes from plan_flat_tiles / hist_segments in
+// ops/histogram_cuda.py. Output, accumulator, scratch and slot conventions
+// as lgbt_hist_slots (hist_slots.cu), over the flat [K, C, total] buffer.
 template <bool PACKED>
-__device__ __forceinline__ int rw_bin(const uint8_t* __restrict__ X,
-                                      const uint8_t* __restrict__ Xu,
-                                      const int* __restrict__ desc, int F,
-                                      long long N, int f, long long r) {
-  if (!PACKED) return X[(long long)f * N + r];
-  const int p = __ldg(desc + 2 * F + f);
-  if (p >= 0) return (X[(long long)(p >> 1) * N + r] >> (4 * (p & 1))) & 15;
-  return Xu[(long long)__ldg(desc + 3 * F + f) * N + r];
-}
-
-template <typename V, bool SMEM, bool PACKED>
-__global__ void __launch_bounds__(LGBT_THREADS)
-hist_rowwise_kernel(const uint8_t* __restrict__ X,
-                    const uint8_t* __restrict__ Xu, const V* __restrict__ vals,
-                    const int* __restrict__ slot, const int* __restrict__ desc,
-                    typename AccOf<V>::T* __restrict__ acc, long long N,
-                    int F, int C, int K, int total) {
-  typedef typename AccOf<V>::T A;
-  extern __shared__ __align__(8) unsigned char smem_raw[];
-  A* sh = reinterpret_cast<A*>(smem_raw);
-  const int hsize = K * C * total;
-  if (SMEM) {
-    for (int i = threadIdx.x; i < hsize; i += blockDim.x) sh[i] = (A)0;
-    __syncthreads();
-  }
-  A* dst = SMEM ? sh : acc;
-  for (long long r = blockIdx.x * (long long)blockDim.x + threadIdx.x; r < N;
-       r += (long long)gridDim.x * blockDim.x) {
-    const int k = slot ? slot[r] : 0;
-    if ((unsigned)k >= (unsigned)K) continue;
-    A v[LGBT_MAX_C];
-    bool any = false;
-#pragma unroll
-    for (int c = 0; c < LGBT_MAX_C; ++c) {
-      v[c] = c < C ? (A)vals[(long long)c * N + r] : (A)0;
-      any |= v[c] != (A)0;
-    }
-    if (!any) continue;
-    A* base = dst + (long long)k * C * total;
-    for (int f = 0; f < F; ++f) {
-      const int b = rw_bin<PACKED>(X, Xu, desc, F, N, f, r);
-      if (b >= __ldg(desc + F + f)) continue;
-      const int col = __ldg(desc + f) + b;
-#pragma unroll
-      for (int c = 0; c < LGBT_MAX_C; ++c)
-        if (c < C && v[c] != (A)0) atomicAdd(base + c * total + col, v[c]);
-    }
-  }
-  if (SMEM) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < hsize; i += blockDim.x)
-      if (sh[i] != (A)0) atomicAdd(acc + i, sh[i]);
-  }
-}
-
-template <typename V, bool PACKED>
-static void launch(const uint8_t* X, const uint8_t* Xu, const V* vals,
-                   const int* slot, const int* desc,
-                   typename AccOf<V>::T* acc, long long N, int F, int C,
-                   int K, int total, int num_sms, cudaStream_t stream) {
-  const size_t hbytes =
-      (size_t)K * C * total * sizeof(typename AccOf<V>::T);
-  if (hbytes <= LGBT_SMEM_OPTIN_BYTES) {
-    if (hbytes > 48 * 1024)
-      cudaFuncSetAttribute(hist_rowwise_kernel<V, true, PACKED>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)hbytes);
-    hist_rowwise_kernel<V, true, PACKED>
-        <<<lgbt_grid(N, num_sms, lgbt_smem_blocks_per_sm(hbytes)),
-           LGBT_THREADS, hbytes, stream>>>(X, Xu, vals, slot, desc, acc, N,
-                                           F, C, K, total);
-  } else {
-    hist_rowwise_kernel<V, false, PACKED>
-        <<<lgbt_grid(N, num_sms, 8), LGBT_THREADS, 0, stream>>>(
-            X, Xu, vals, slot, desc, acc, N, F, C, K, total);
-  }
-}
-
-template <bool PACKED>
-static int run(const void* X, const void* Xu, const void* vals, int vals_int8,
-               const void* slot, const void* desc, void* out, void* acc,
-               long long N, int F, int C, int K, int total, int num_sms,
-               void* stream) {
+static int run(const void* X, const void* Xu, const void* vals,
+               int vals_int8, const void* slot, const void* desc,
+               void* scratch, void* out, void* acc, long long N, int F,
+               int C, int K, int total, int spt, int nst, int nft,
+               int max_cols, int segs, int min_rows, int merge, int pair,
+               int group_warps, int smem, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (vals_int8) {
-    launch<int8_t, PACKED>((const uint8_t*)X, (const uint8_t*)Xu,
-                           (const int8_t*)vals, (const int*)slot,
-                           (const int*)desc, (int*)out, N, F, C, K, total,
-                           num_sms, st);
-  } else {
-    launch<float, PACKED>((const uint8_t*)X, (const uint8_t*)Xu,
-                          (const float*)vals, (const int*)slot,
-                          (const int*)desc, (double*)acc, N, F, C, K, total,
-                          num_sms, st);
-    const long long n = (long long)K * C * total;
-    acc_to_f32_kernel<<<lgbt_grid(n, num_sms, 4), LGBT_THREADS, 0, st>>>(
-        (const double*)acc, (float*)out, n);
-  }
+  FlatBins<PACKED> bins;
+  bins.X = (const uint8_t*)X;
+  bins.Xu = (const uint8_t*)Xu;
+  bins.desc = (const int*)desc;
+  bins.N = N;
+  bins.F = F;
+  bins.total = total;
+  bins.max_cols = max_cols;
+  bins.sc = nullptr;
+  const long long n = (long long)K * C * total;
+  if (vals_int8)
+    lgbt_tiles_run(bins, (const int8_t*)vals, (const int*)slot,
+                      (int*)scratch, (int*)out, (int*)nullptr, N, C, K, spt,
+                      nst, nft, segs, min_rows, merge, 0, group_warps,
+                      (size_t)smem, n, st);
+  else
+    lgbt_tiles_run(bins, (const float*)vals, (const int*)slot,
+                      (int*)scratch, (float*)out, (double*)acc, N, C, K, spt,
+                      nst, nft, segs, min_rows, merge, pair && C == 2,
+                      group_warps, (size_t)smem, n, st);
   return (int)cudaGetLastError();
 }
 
-// X [F, N] uint8 storage, desc [2, F] int32 (offset, width). Output and
-// accumulator conventions as lgbt_hist_slots (hist_slots.cu), over the flat
-// [K, C, total] buffer. slot may be null: every row in slot 0.
+// X [F, N] uint8 storage; desc's nibble row all -1 and byte row f.
 extern "C" int lgbt_hist_rowwise(const void* X, const void* vals,
                                  int vals_int8, const void* slot,
-                                 const void* desc, void* out, void* acc,
-                                 long long N, int F, int C, int K, int total,
-                                 int num_sms, void* stream) {
-  return run<false>(X, nullptr, vals, vals_int8, slot, desc, out, acc, N, F,
-                    C, K, total, num_sms, stream);
+                                 const void* desc, void* scratch, void* out,
+                                 void* acc, long long N, int F, int C, int K,
+                                 int total, int spt, int nst, int nft,
+                                 int max_cols, int segs, int min_rows,
+                                 int merge, int pair, int group_warps,
+                                 int smem, void* stream) {
+  return run<false>(X, nullptr, vals, vals_int8, slot, desc, scratch, out,
+                    acc, N, F, C, K, total, spt, nst, nft, max_cols, segs,
+                    min_rows, merge, pair, group_warps, smem, stream);
 }
 
-// Xp [ceil(P / 2), N] nibble-packed bytes, Xu [max(F - P, 1), N] remainder,
-// desc [4, F] int32 (offset, width, nibble index or -1, remainder row or
-// -1). Everything else as lgbt_hist_rowwise.
-extern "C" int lgbt_hist_rowwise_packed(const void* Xp, const void* Xu,
-                                        const void* vals, int vals_int8,
-                                        const void* slot, const void* desc,
-                                        void* out, void* acc, long long N,
-                                        int F, int C, int K, int total,
-                                        int num_sms, void* stream) {
-  return run<true>(Xp, Xu, vals, vals_int8, slot, desc, out, acc, N, F, C,
-                   K, total, num_sms, stream);
+// Xp [ceil(P / 2), N] nibble-packed bytes, Xu [max(F - P, 1), N] remainder;
+// desc's rows 2-3 the nibble index (or -1) and remainder row of each
+// column. Everything else as lgbt_hist_rowwise.
+extern "C" int lgbt_hist_rowwise_packed(
+    const void* Xp, const void* Xu, const void* vals, int vals_int8,
+    const void* slot, const void* desc, void* scratch, void* out, void* acc,
+    long long N, int F, int C, int K, int total, int spt, int nst, int nft,
+    int max_cols, int segs, int min_rows, int merge, int pair,
+    int group_warps, int smem, void* stream) {
+  return run<true>(Xp, Xu, vals, vals_int8, slot, desc, scratch, out, acc,
+                   N, F, C, K, total, spt, nst, nft, max_cols, segs,
+                   min_rows, merge, pair, group_warps, smem, stream);
 }

@@ -7,22 +7,45 @@
 // (_fused_scan :202, _fused_scan_tiled :402), which traces the JAX search
 // on the VMEM-resident histogram on the TPU grid's last step.
 //
-// Layout: one block per child j of [0, 2K) (left children first, as the
-// record columns), one thread per feature (a stride loop past the block
-// width). A thread walks its feature's bins in order twice: once for the
-// channel totals, once for the prefixes and the gains of both scan
-// directions at each threshold. Both walks add in f64 and round each prefix
-// once to f32, which is what the port's plain search does (torch.cumsum
-// over the f64 histogram, rounded), so the two agree bit for bit. The gain
-// and output arithmetic uses __fadd_rn / __fmul_rn / __fdiv_rn: nvcc fuses
-// nothing into an FMA, and each step rounds as one torch operation does.
-// The argmax is the first maximum in (direction, feature, bin) order: a
-// block reduction on (gain descending, flat index ascending). The winner's
-// statistics are recomputed by one thread from the same in-order sums.
+// Layout: a warp per (child, feature). Block (x, j) holds child j of [0,
+// 2K) (left children first, as the record columns) and features
+// [8x, 8x + 8), a warp each. A warp
+//   1. stages the feature's child values (small, or parent - small; the
+//      count channel synthesized) in shared memory, 32 lanes a row of bins;
+//   2. forms the prefix sums: lane c walks channel c's bins in order,
+//      adding in f64, and writes each prefix back rounded once to f32. That
+//      is what the port's plain search does (torch.cumsum over the f64
+//      histogram, rounded), and f64 sums of f32 values are not associative,
+//      so only this order keeps the records bitwise equal to it on
+//      continuous values. Bins past num_bins add zeros, so the walk stops
+//      there and the channel total is the last prefix;
+//   3. computes the cells of both scan directions, each lane at bins lane,
+//      lane + 32, ..., with __fadd_rn / __fmul_rn / __fdiv_rn (nvcc fuses
+//      nothing into an FMA, and each step rounds as one torch operation
+//      does), and reduces the warp's best cell.
+// The argmax is the first maximum in (direction, feature, bin) order: each
+// cell's key is (gain, flat index) packed so that a larger key means a
+// larger gain, then a smaller index (gain -0.0 read as +0.0), and the
+// block's and then the child's best key is an atomicMax, whatever order
+// the warps finish in. A child with no valid cell takes index 0 with gain
+// -inf, as the plain argmax over an all -inf map. The lane holding its
+// warp's best cell keeps that cell's statistics (lgbt_cell on the
+// in-order prefix sums) and writes them to scratch; the last block of a
+// child (a completion counter) copies the winner's into the child's
+// record, so no serial recomputation of a feature's prefix waits at the
+// end; only a child without a valid split recomputes its index-0 cell.
+//
+// The smaller child's histogram comes as f32 (a tile flush rounded it), as
+// int32 (int8 values: parent - small subtracts exactly, then descales), or
+// as the f64 accumulators of a direct sweep; then the warps of the left
+// children also write its f32 rounding, the histogram the grower keeps, so
+// no rounding launch runs.
 //
 // Bound: operations, and few of them (2 F B cells of about 60 f32
-// operations per child). The histogram it reads stays in L2 from the
-// accumulation launch before it.
+// operations per child). The serial part of a warp is the f64 prefix, B
+// dependent adds; every (child, feature) is a warp in flight (2K * F of
+// them), not one thread of 2K blocks walking B cells twice. The histogram
+// it reads stays in L2 from the accumulation launch before it.
 #pragma once
 
 #include <math.h>
@@ -32,6 +55,8 @@
 #define LGBT_REC_FIELDS 12   // SplitResult fields, in field order
 #define LGBT_MISSING_ZERO 1
 #define LGBT_MISSING_NAN 2
+#define LGBT_SCAN_WARPS 8    // features per scan block, a warp each
+#define LGBT_SCAN_MAX_B 256
 
 struct LgbtSplitHp {
   float min_data_slack;  // min_data_in_leaf - 0.5, on the unrounded count
@@ -82,11 +107,17 @@ __device__ __forceinline__ float lgbt_gain_given_output(float sg, float sh,
 }
 
 // one child's value of channel c at a bin: the smaller child's histogram,
-// or parent minus it (f32); int32 histograms subtract exactly and are
-// descaled after (grow_fused.py:437-439)
+// or parent minus it (f32); the f64 accumulators of a direct sweep read as
+// their f32 rounding; int32 histograms subtract exactly and are descaled
+// after (grow_fused.py:437-439)
 __device__ __forceinline__ float lgbt_child_value(float s, float p,
                                                   bool use_small, float) {
   return use_small ? s : __fsub_rn(p, s);
+}
+__device__ __forceinline__ float lgbt_child_value(double s, float p,
+                                                  bool use_small, float) {
+  const float sf = (float)s;
+  return use_small ? sf : __fsub_rn(p, sf);
 }
 __device__ __forceinline__ float lgbt_child_value(int s, int p,
                                                   bool use_small,
@@ -128,146 +159,261 @@ __device__ __forceinline__ float lgbt_finite_or_zero(float x) {
   return isfinite(x) ? x : 0.f;
 }
 
-// small / parent: [K, 2, F, B] (f32, or int32 with the descale factors
-// gscale / hscale); scal [5, 2K] f32 rows sum_g, sum_h, count, output,
-// smaller_is_left (0 / 1) per child; fmeta [4, F] int32 rows num_bins,
-// missing_type, default_bin, is_categorical; fmask [F] (fmask_stride 0) or
-// [2K, F] (fmask_stride F) uint8; rec [12, 2K] f32 out, the SplitResult
-// fields with feature / threshold / default_left as exact small floats.
-template <typename H>
+// The per-child constants of the scan.
+struct LgbtChild {
+  int k;                   // candidate
+  bool use_small;          // this child is the smaller one
+  float sg, sh, cnt, pout;
+  float cntf;              // synth_count_channel's count / sum_h
+  float mgs;               // min_gain_shift
+};
+
+__device__ __forceinline__ LgbtChild lgbt_child(const float* __restrict__ scal,
+                                                int j, int K,
+                                                const LgbtSplitHp& hp) {
+  const int n2 = 2 * K;
+  LgbtChild ch;
+  const bool is_left = j < K;
+  ch.k = is_left ? j : j - K;
+  ch.sg = scal[j];
+  ch.sh = scal[n2 + j];
+  ch.cnt = scal[2 * n2 + j];
+  ch.pout = scal[3 * n2 + j];
+  ch.use_small = is_left == (scal[4 * n2 + j] != 0.f);
+  // synth_count_channel: count / clamp(sum_h, min=1e-12), NaN kept
+  ch.cntf = __fdiv_rn(ch.cnt, ch.sh < 1e-12f ? 1e-12f : ch.sh);
+  ch.mgs = __fadd_rn(
+      lgbt_gain_given_output(
+          ch.sg, ch.sh, lgbt_leaf_output(ch.sg, ch.sh, ch.cnt, ch.pout, hp),
+          hp),
+      hp.min_gain);
+  return ch;
+}
+
+// the excluded bin of a feature (split.py's `excl`): the missing bin
+__device__ __forceinline__ int lgbt_missing_bin(int nb, int mt, int db) {
+  return mt == LGBT_MISSING_NAN ? nb - 1 : (mt == LGBT_MISSING_ZERO ? db : -1);
+}
+
+// Feature f's prefix sums for one child, by one warp: a[c][b] becomes the
+// f32 rounding of the f64 sum of channel c over bins [0, b] for b < top =
+// min(nb, B), tot[c] that of the whole feature (the missing and the
+// out-of-range bins read as 0). Ends synchronised over the warp.
+template <typename S, typename P>
+__device__ __forceinline__ int lgbt_feature_prefix(
+    float (*a)[LGBT_SCAN_MAX_B], float* tot, const S* __restrict__ sm,
+    const P* __restrict__ pa, long long plane, int f, int B, int nb,
+    int mbin, const LgbtChild& ch, float gscale, float hscale, int lane) {
+  const int top = min(nb, B);
+  for (int b = lane; b < top; b += 32) {
+    float g = 0.f, h = 0.f, c = 0.f;
+    if (b != mbin) {
+      const long long i = (long long)f * B + b;
+      g = lgbt_child_value(sm[i], pa[i], ch.use_small, gscale);
+      h = lgbt_child_value(sm[plane + i], pa[plane + i], ch.use_small,
+                           hscale);
+      c = __fmul_rn(h, ch.cntf);
+    }
+    a[0][b] = g;
+    a[1][b] = h;
+    a[2][b] = c;
+  }
+  __syncwarp();
+  if (lane < 3) {
+    // bins in order, one lane a channel: the plain search's f64 cumsum;
+    // eight bins' loads issued together, then their adds in order
+    float* x = a[lane];
+    double s = 0.0;
+    int b = 0;
+    for (; b + 8 <= top; b += 8) {
+      float v[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) v[q] = x[b + q];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        s += (double)v[q];
+        x[b + q] = (float)s;
+      }
+    }
+    for (; b < top; ++b) {
+      s += (double)x[b];
+      x[b] = (float)s;
+    }
+    tot[lane] = (float)s;
+  }
+  __syncwarp();
+  return top;
+}
+
+// the cell of (direction d, bin b) from the staged prefix sums
+__device__ __forceinline__ LgbtCell lgbt_cell_at(
+    float (*a)[LGBT_SCAN_MAX_B], const float* tot, int top, int b,
+    int d, const LgbtChild& ch, const LgbtSplitHp& hp) {
+  const bool in = b < top;               // past num_bins: the total
+  return lgbt_cell(in ? a[0][b] : tot[0], in ? a[1][b] : tot[1],
+                   in ? a[2][b] : tot[2], __fsub_rn(ch.sg, tot[0]),
+                   __fsub_rn(ch.sh, tot[1]), __fsub_rn(ch.cnt, tot[2]), d,
+                   ch.sg, ch.sh, ch.cnt, ch.pout, hp);
+}
+
+// (gain, flat index) as one key: larger gain first, then smaller index
+__device__ __forceinline__ unsigned long long lgbt_key(float g, int idx) {
+  unsigned u = __float_as_uint(g == 0.f ? 0.f : g);
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return ((unsigned long long)u << 32) | (0xFFFFFFFFu - (unsigned)idx);
+}
+
+__device__ __forceinline__ float lgbt_key_gain(unsigned long long key) {
+  const unsigned u = (unsigned)(key >> 32);
+  return __uint_as_float((u & 0x80000000u) ? (u & 0x7FFFFFFFu) : ~u);
+}
+
+__device__ __forceinline__ int lgbt_key_index(unsigned long long key) {
+  return (int)(0xFFFFFFFFu - (unsigned)key);
+}
+
+// the record fields of a child's winning cell
+__device__ __forceinline__ void lgbt_write_record(float* rec, int n2, int j,
+                                                  float gain, float mgs,
+                                                  int f, int b, int d,
+                                                  const float* st) {
+  const float vals[LGBT_REC_FIELDS] = {
+      isfinite(gain) ? __fsub_rn(gain, mgs) : -INFINITY,
+      (float)f, (float)b, (float)d,
+      lgbt_finite_or_zero(st[0]), lgbt_finite_or_zero(st[1]),
+      lgbt_finite_or_zero(st[2]), lgbt_finite_or_zero(st[3]),
+      lgbt_finite_or_zero(st[4]), lgbt_finite_or_zero(st[5]),
+      lgbt_finite_or_zero(st[6]), lgbt_finite_or_zero(st[7])};
+#pragma unroll
+  for (int r = 0; r < LGBT_REC_FIELDS; ++r) rec[r * n2 + j] = vals[r];
+}
+
+// small: [K, 2, F, B] f32 or f64 (parent f32), or int32 (parent int32,
+// descaled by gscale / hscale); parent [K, 2, F, B]; small_out: with f64
+// small, its [K, 2, F, B] f32 rounding written here, else null; scal
+// [5, 2K] f32 rows sum_g, sum_h, count, output, smaller_is_left (0 / 1)
+// per child; fmeta [4, F] int32 rows num_bins, missing_type, default_bin,
+// is_categorical; fmask [F] (fmask_stride 0) or [2K, F] (fmask_stride F)
+// uint8; rec [12, 2K] f32 out, the SplitResult fields with feature /
+// threshold / default_left as exact small floats; best [2K] u64 and done
+// [2K] u32 zeroed by the caller; cells [2K, F, 8] f32 scratch, each
+// (child, feature) warp's best cell's statistics, which the child's last
+// block copies for the winner (recomputing the cell only where no split
+// is valid). Grid (ceil(F / 8), 2K), LGBT_THREADS.
+template <typename S, typename P>
 __global__ void __launch_bounds__(LGBT_THREADS)
-lgbt_split_scan_kernel(const H* __restrict__ small,
-                       const H* __restrict__ parent,
+lgbt_split_scan_kernel(const S* __restrict__ small,
+                       const P* __restrict__ parent,
+                       float* __restrict__ small_out,
                        const float* __restrict__ scal,
                        const int* __restrict__ fmeta,
                        const uint8_t* __restrict__ fmask, int fmask_stride,
-                       float* __restrict__ rec, int K, int F, int B,
-                       float gscale, float hscale, LgbtSplitHp hp) {
-  __shared__ float red_g[LGBT_THREADS];
-  __shared__ int red_i[LGBT_THREADS];
-  const int n2 = 2 * K;
-  const int j = blockIdx.x;
-  const bool is_left = j < K;
-  const int k = is_left ? j : j - K;
-  const float sg = scal[j], sh = scal[n2 + j], cnt = scal[2 * n2 + j];
-  const float pout = scal[3 * n2 + j];
-  const bool use_small = is_left == (scal[4 * n2 + j] != 0.f);
-  // synth_count_channel: count / clamp(sum_h, min=1e-12), NaN kept
-  const float cntf = __fdiv_rn(cnt, sh < 1e-12f ? 1e-12f : sh);
-  const float mgs = __fadd_rn(
-      lgbt_gain_given_output(sg, sh,
-                             lgbt_leaf_output(sg, sh, cnt, pout, hp), hp),
-      hp.min_gain);
+                       float* __restrict__ rec,
+                       unsigned long long* __restrict__ best,
+                       unsigned* __restrict__ done, float* __restrict__ cells,
+                       int K, int F, int B, float gscale, float hscale,
+                       LgbtSplitHp hp) {
+  __shared__ float stage[LGBT_SCAN_WARPS][3][LGBT_SCAN_MAX_B];
+  __shared__ float tots[LGBT_SCAN_WARPS][3];
+  __shared__ unsigned long long blk_best;
+  __shared__ int last;
+  const int n2 = 2 * K, j = blockIdx.y;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const LgbtChild ch = lgbt_child(scal, j, K, hp);
   const long long plane = (long long)F * B;
-  const H* sm = small + (long long)k * 2 * plane;
-  const H* pa = parent + (long long)k * 2 * plane;
-
-  // channel totals of feature f over bins [0, upto], the missing and the
-  // out-of-range bins read as 0 (split.py's `excl`)
-  auto sums = [&](int f, int upto, int mbin, int nb, double* out3) {
-    double tg = 0.0, th = 0.0, tc = 0.0;
-    for (int b = 0; b <= upto; ++b) {
-      float g = 0.f, h = 0.f, c = 0.f;
-      if (b != mbin && b < nb) {
+  const S* sm = small + (long long)ch.k * 2 * plane;
+  const P* pa = parent + (long long)ch.k * 2 * plane;
+  // no valid cell: index 0 with gain -inf
+  const unsigned long long floor_key = lgbt_key(-INFINITY, 0);
+  if (threadIdx.x == 0) blk_best = floor_key;
+  __syncthreads();
+  const int f = blockIdx.x * LGBT_SCAN_WARPS + w;
+  if (f < F) {
+    if (small_out && j < K) {
+      float* so = small_out + (long long)ch.k * 2 * plane;
+      for (int b = lane; b < B; b += 32) {
         const long long i = (long long)f * B + b;
-        g = lgbt_child_value(sm[i], pa[i], use_small, gscale);
-        h = lgbt_child_value(sm[plane + i], pa[plane + i], use_small,
-                             hscale);
-        c = __fmul_rn(h, cntf);
+        so[i] = (float)sm[i];
+        so[plane + i] = (float)sm[plane + i];
       }
-      tg += (double)g;
-      th += (double)h;
-      tc += (double)c;
     }
-    out3[0] = tg;
-    out3[1] = th;
-    out3[2] = tc;
-  };
-
-  float best_g = -INFINITY;
-  int best_i = 0x7FFFFFFF;
-  for (int f = threadIdx.x; f < F; f += blockDim.x) {
     const int nb = fmeta[f], mt = fmeta[F + f], db = fmeta[2 * F + f];
     const bool allowed =
         fmask[(long long)j * fmask_stride + f] != 0 && fmeta[3 * F + f] == 0;
-    const int mbin = mt == LGBT_MISSING_NAN
-                         ? nb - 1
-                         : (mt == LGBT_MISSING_ZERO ? db : -1);
-    double tot[3];
-    sums(f, B - 1, mbin, nb, tot);
-    const float mg = __fsub_rn(sg, (float)tot[0]);
-    const float mh = __fsub_rn(sh, (float)tot[1]);
-    const float mc = __fsub_rn(cnt, (float)tot[2]);
-    const int max_t = nb - 2;
-    const int max_t_r = mt == LGBT_MISSING_NAN ? nb - 3 : max_t;
-    double pg = 0.0, ph = 0.0, pc = 0.0;
-    for (int b = 0; b < B; ++b) {
-      float g = 0.f, h = 0.f, c = 0.f;
-      if (b != mbin && b < nb) {
-        const long long i = (long long)f * B + b;
-        g = lgbt_child_value(sm[i], pa[i], use_small, gscale);
-        h = lgbt_child_value(sm[plane + i], pa[plane + i], use_small,
-                             hscale);
-        c = __fmul_rn(h, cntf);
-      }
-      pg += (double)g;
-      ph += (double)h;
-      pc += (double)c;
-      const bool skip_default = mt == LGBT_MISSING_ZERO && b == db;
-      for (int d = 0; d < 2; ++d) {
-        const LgbtCell o = lgbt_cell((float)pg, (float)ph, (float)pc, mg, mh,
-                                     mc, d, sg, sh, cnt, pout, hp);
-        const bool t_ok = b <= (d ? max_t_r : max_t) && !skip_default;
-        const float gain = (o.ok && t_ok && allowed && o.gain > mgs)
-                               ? o.gain
-                               : -INFINITY;
-        const int idx = (d * F + f) * B + b;
-        if (gain > best_g || (gain == best_g && idx < best_i)) {
-          best_g = gain;
-          best_i = idx;
+    if (allowed) {                       // else every cell is -inf
+      const int top = lgbt_feature_prefix(stage[w], tots[w], sm, pa, plane,
+                                          f, B, nb,
+                                          lgbt_missing_bin(nb, mt, db), ch,
+                                          gscale, hscale, lane);
+      const int max_t = nb - 2;
+      const int max_t_r = mt == LGBT_MISSING_NAN ? nb - 3 : max_t;
+      unsigned long long mine = floor_key;
+      float st[8];
+      for (int b = lane; b <= max_t && b < B; b += 32) {
+        if (mt == LGBT_MISSING_ZERO && b == db) continue;
+        for (int d = 0; d < 2; ++d) {
+          if (b > (d ? max_t_r : max_t)) continue;
+          const LgbtCell o = lgbt_cell_at(stage[w], tots[w], top, b, d, ch,
+                                          hp);
+          if (o.ok && o.gain > ch.mgs) {
+            const unsigned long long key =
+                lgbt_key(o.gain, (d * F + f) * B + b);
+            if (key > mine) {
+              mine = key;
+              st[0] = o.lg; st[1] = o.lh; st[2] = o.lc; st[3] = o.rg;
+              st[4] = o.rh; st[5] = o.rc; st[6] = o.lout; st[7] = o.rout;
+            }
+          }
         }
       }
-    }
-  }
-  red_g[threadIdx.x] = best_g;
-  red_i[threadIdx.x] = best_i;
-  __syncthreads();
-  for (int s = blockDim.x / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) {
-      const float og = red_g[threadIdx.x + s];
-      const int oi = red_i[threadIdx.x + s];
-      if (og > red_g[threadIdx.x] ||
-          (og == red_g[threadIdx.x] && oi < red_i[threadIdx.x])) {
-        red_g[threadIdx.x] = og;
-        red_i[threadIdx.x] = oi;
+      unsigned long long wbest = mine;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        const unsigned long long x = __shfl_xor_sync(0xffffffffu, wbest, o);
+        if (x > wbest) wbest = x;
+      }
+      if (wbest > floor_key && mine == wbest) {   // one lane: the index
+        float* c = cells + ((long long)j * F + f) * 8;
+#pragma unroll
+        for (int q = 0; q < 8; ++q) c[q] = st[q];
+        __threadfence();
+        atomicMax(&blk_best, wbest);
       }
     }
-    __syncthreads();
   }
-  if (threadIdx.x != 0) return;
-  const float bg = red_g[0];
-  const int bi = red_i[0];
-  const int d = bi / (F * B), f = (bi / B) % F, b = bi % B;
-  const int nb = fmeta[f], mt = fmeta[F + f], db = fmeta[2 * F + f];
-  const int mbin = mt == LGBT_MISSING_NAN
-                       ? nb - 1
-                       : (mt == LGBT_MISSING_ZERO ? db : -1);
-  double tot[3], pre[3];
-  sums(f, B - 1, mbin, nb, tot);
-  sums(f, b, mbin, nb, pre);
-  const LgbtCell o = lgbt_cell(
-      (float)pre[0], (float)pre[1], (float)pre[2],
-      __fsub_rn(sg, (float)tot[0]), __fsub_rn(sh, (float)tot[1]),
-      __fsub_rn(cnt, (float)tot[2]), d, sg, sh, cnt, pout, hp);
-  const float vals[LGBT_REC_FIELDS] = {
-      isfinite(bg) ? __fsub_rn(bg, mgs) : -INFINITY,
-      (float)f, (float)b, (float)d,
-      lgbt_finite_or_zero(o.lg), lgbt_finite_or_zero(o.lh),
-      lgbt_finite_or_zero(o.lc), lgbt_finite_or_zero(o.rg),
-      lgbt_finite_or_zero(o.rh), lgbt_finite_or_zero(o.rc),
-      lgbt_finite_or_zero(o.lout), lgbt_finite_or_zero(o.rout)};
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    if (blk_best > floor_key) atomicMax(best + j, blk_best);
+    __threadfence();
+    last = atomicAdd(done + j, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last || w != 0) return;
+  // the child's last block: its first warp writes the record
+  __threadfence();
+  const unsigned long long key = __ldcg(best + j);
+  if (key > floor_key) {
+    const int bi = lgbt_key_index(key);
+    const int bf = (bi / B) % F;
+    if (lane == 0) {
+      float st[8];
+      const float* c = cells + ((long long)j * F + bf) * 8;
 #pragma unroll
-  for (int r = 0; r < LGBT_REC_FIELDS; ++r) rec[r * n2 + j] = vals[r];
+      for (int q = 0; q < 8; ++q) st[q] = __ldcg(c + q);
+      lgbt_write_record(rec, n2, j, lgbt_key_gain(key), ch.mgs, bf, bi % B,
+                        bi / (F * B), st);
+    }
+    return;
+  }
+  // no valid split: the cell at index 0, as the plain argmax picks it
+  const int nb = fmeta[0], mt = fmeta[F], db = fmeta[2 * F];
+  const int top = lgbt_feature_prefix(stage[0], tots[0], sm, pa, plane, 0,
+                                      B, nb, lgbt_missing_bin(nb, mt, db),
+                                      ch, gscale, hscale, lane);
+  if (lane != 0) return;
+  const LgbtCell o = lgbt_cell_at(stage[0], tots[0], top, 0, 0, ch, hp);
+  const float st[8] = {o.lg, o.lh, o.lc, o.rg, o.rh, o.rc, o.lout, o.rout};
+  lgbt_write_record(rec, n2, j, -INFINITY, ch.mgs, 0, 0, 0, st);
 }
 
 static inline LgbtSplitHp lgbt_make_hp(float min_data_slack, float min_hess,
@@ -286,4 +432,25 @@ static inline LgbtSplitHp lgbt_make_hp(float min_data_slack, float min_hess,
   hp.use_mds = use_mds;
   hp.use_ps = use_ps;
   return hp;
+}
+
+// Zero the scan's keys and counters and launch the scan over the 2K
+// children of a wave; scratch is [2K] u64 best keys, [2K] u32 completion
+// counters, then the [2K, F, 8] f32 cells.
+template <typename S, typename P>
+static void lgbt_split_scan_launch(const S* small, const P* parent,
+                                   float* small_out, const float* scal,
+                                   const int* fmeta, const uint8_t* fmask,
+                                   int fmask_stride, float* rec,
+                                   void* scratch, int K, int F, int B,
+                                   float gscale, float hscale,
+                                   const LgbtSplitHp& hp, cudaStream_t st) {
+  unsigned long long* best = (unsigned long long*)scratch;
+  unsigned* done = (unsigned*)(best + 2 * K);
+  float* cells = (float*)(done + 2 * K);
+  cudaMemsetAsync(scratch, 0, (size_t)2 * K * (8 + 4), st);
+  const dim3 grid((F + LGBT_SCAN_WARPS - 1) / LGBT_SCAN_WARPS, 2 * K);
+  lgbt_split_scan_kernel<S, P><<<grid, LGBT_THREADS, 0, st>>>(
+      small, parent, small_out, scal, fmeta, fmask, fmask_stride, rec, best,
+      done, cells, K, F, B, gscale, hscale, hp);
 }

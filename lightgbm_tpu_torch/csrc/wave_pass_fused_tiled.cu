@@ -7,32 +7,45 @@
 // (pallas_call at :656). The TPU kernel walks feature tiles of
 // `fused_feature_tile` columns, because one tile's accumulator and parent
 // slab must fit in VMEM, and merges the tiles' scan records by their raw
-// gains (merge_tile_records). Here no tile is needed: the accumulation is
-// the atomic scatter of hist_slots.cu over all F columns, and the scan
-// (split_scan.cuh) runs one block per child over all F features, so there
-// is nothing to merge. `fused_feature_tile` keeps only its meaning for the
-// wave width (the K cap of ops/grow_wave.py:fused_kcap), which decides the
-// trees.
+// gains (merge_tile_records). Here the scan (split_scan.cuh) gives every
+// (child, feature) a warp and reduces each child's winner across them, so
+// there is nothing to merge. `fused_feature_tile` keeps only its meaning
+// for the wave width (the K cap of ops/grow_wave.py:fused_kcap), which
+// decides the trees.
 //
 // Decision bits, dec [Kd, N] uint8 per (entry k, row): bit 0 = goes left
 // under this wave's applied entry k, bit 1 = lands in candidate k's
 // smaller child, bit 2 = goes left under the pending (deferred) applied
-// entry k of the previous applies-only wave. Each block builds three
-// leaf -> entry maps in shared memory (pending, applied, candidate; 16-bit,
-// 24 KB together), marking a leaf named by two active entries so that it
-// matches neither (the TPU kernel's `inP == 1` / `inA == 1` rule), and a
-// row reads at most three dec bytes. Design (c): like wave_pass_fused.cu,
-// a histogram launch (+ the f64 -> f32 rounding) and then a scan launch.
+// entry k of the previous applies-only wave. The work of a wave:
+//   1. the membership pass (fused_member_kernel): each block builds three
+//      leaf -> entry maps in shared memory (pending, applied, candidate;
+//      16-bit, 24 KB together), marking a leaf named by two active entries
+//      so that it matches neither (the TPU kernel's `inP == 1` / `inA ==
+//      1` rule); a row reads at most three dec bytes and writes its new
+//      leaf id and its slot (the candidate whose smaller child it lands
+//      in, else -1);
+//   2. the smaller children's slot histogram, by the tiled accumulation
+//      engine of hist_tiles.cuh over the uniform storage, on kernel #1's
+//      plan (ops/histogram_cuda.py:plan_hist_tiles): rows grouped by slot,
+//      (slot, feature) tiles of <= 48 KB, the tiles' last blocks rounding
+//      to f32; or, for little work, the direct sweep, whose f64 sums the
+//      scan rounds as it reads them;
+//   3. the scan of every child (split_scan.cuh).
+// The first version accumulated in the membership sweep itself, a row per
+// thread into a private copy of the whole [K, 2, F, B] histogram (one
+// block per SM at the Criteo root) or into global f64 atomics in L2, then
+// ran a rounding launch and a scan of one thread per feature.
 //
 // Quantized gradients: int8 value channels accumulate exactly in int32,
 // and the scan subtracts parent - small in int32 before it descales
 // (grow_fused.py:437-439; c * (a - b) is not c * a - c * b in f32).
 //
-// Bound: bytes. A row reads its leaf id, at most three dec bytes and, in a
-// smaller child, its F bins and C values; it writes its new leaf id. The
-// atomics of the smaller children's rows limit it as they limit
-// hist_slots.cu; the parent histograms (K * 2 * F * B) are read once by
-// the scan.
+// Bound: bytes. A row reads its leaf id and at most three dec bytes and
+// writes its new leaf id; a row of a smaller child also reads its F bins
+// and C values. The engine's shared-memory adds limit the histogram as
+// they limit hist_slots.cu; the parent histograms (K * 2 * F * B) are read
+// once by the scan.
+#include "hist_tiles.cuh"
 #include "split_scan.cuh"
 #include "wave_table.cuh"
 
@@ -64,25 +77,18 @@ __device__ __forceinline__ int lgbt_entry16(const unsigned short* map,
   return v < LGBT_T_ENTRIES ? v : -1;
 }
 
-template <typename V, bool SMEM>
+// The membership pass: lor_out[r] = the row's leaf after the pending and
+// the applied decisions, slot[r] = its candidate if it lands in that
+// candidate's smaller child, else -1.
 __global__ void __launch_bounds__(LGBT_THREADS)
-fused_tiled_hist_kernel(const uint8_t* __restrict__ X,
-                        const V* __restrict__ vals,
-                        const uint8_t* __restrict__ dec,
-                        const int* __restrict__ lor_in,
-                        const int* __restrict__ table,
-                        const int* __restrict__ pend, int pend_nl0,
-                        int* __restrict__ lor_out,
-                        typename AccOf<V>::T* __restrict__ acc, long long N,
-                        int F, int C, int K, int B, int Kd, int leaf_cap) {
-  typedef typename AccOf<V>::T A;
+fused_member_kernel(const uint8_t* __restrict__ dec,
+                    const int* __restrict__ lor_in,
+                    const int* __restrict__ table,
+                    const int* __restrict__ pend, int pend_nl0,
+                    int* __restrict__ lor_out, int* __restrict__ slot,
+                    long long N, int K, int Kd, int leaf_cap) {
   __shared__ unsigned short pend_of[LGBT_LEAF_CAP], app_of[LGBT_LEAF_CAP],
       cand_of[LGBT_LEAF_CAP];
-  extern __shared__ __align__(8) unsigned char smem_raw[];
-  A* sh = reinterpret_cast<A*>(smem_raw);
-  const int hsize = K * C * F * B;
-  if (SMEM)
-    for (int i = threadIdx.x; i < hsize; i += blockDim.x) sh[i] = (A)0;
   for (int i = threadIdx.x; i < leaf_cap; i += blockDim.x)
     pend_of[i] = app_of[i] = cand_of[i] = LGBT_MAP_NONE;
   __syncthreads();
@@ -91,7 +97,6 @@ fused_tiled_hist_kernel(const uint8_t* __restrict__ X,
   lgbt_map_entries16(table + 7 * LGBT_T_ENTRIES, K, leaf_cap, cand_of);
   __syncthreads();
   const int nl0 = table[15 * LGBT_T_ENTRIES];
-  A* dst = SMEM ? sh : acc;
   for (long long r = blockIdx.x * (long long)blockDim.x + threadIdx.x; r < N;
        r += (long long)gridDim.x * blockDim.x) {
     int leaf = lor_in[r];
@@ -102,38 +107,7 @@ fused_tiled_hist_kernel(const uint8_t* __restrict__ X,
     if (ka >= 0 && (dec[(long long)ka * N + r] & 1) == 0) leaf = nl0 + ka;
     lor_out[r] = leaf;
     const int kc = lgbt_entry16(cand_of, leaf, leaf_cap);
-    if (kc >= 0 && ((dec[(long long)kc * N + r] >> 1) & 1))
-      add_row<V, A>(dst, X, vals, N, F, C, B, r, kc);
-  }
-  if (SMEM) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < hsize; i += blockDim.x)
-      if (sh[i] != (A)0) atomicAdd(acc + i, sh[i]);
-  }
-}
-
-template <typename V>
-static void launch(const uint8_t* X, const V* vals, const uint8_t* dec,
-                   const int* lor_in, const int* table, const int* pend,
-                   int pend_nl0, int* lor_out, typename AccOf<V>::T* acc,
-                   long long N, int F, int C, int K, int B, int Kd,
-                   int leaf_cap, int num_sms, cudaStream_t stream) {
-  const size_t hbytes = (size_t)K * C * F * B * sizeof(typename AccOf<V>::T);
-  const size_t maps = 3 * LGBT_LEAF_CAP * sizeof(unsigned short);
-  if (hbytes <= LGBT_SMEM_OPTIN_BYTES) {
-    cudaFuncSetAttribute(fused_tiled_hist_kernel<V, true>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)hbytes);
-    fused_tiled_hist_kernel<V, true>
-        <<<lgbt_grid(N, num_sms, lgbt_smem_blocks_per_sm(hbytes + maps)),
-           LGBT_THREADS, hbytes, stream>>>(X, vals, dec, lor_in, table, pend,
-                                           pend_nl0, lor_out, acc, N, F, C, K,
-                                           B, Kd, leaf_cap);
-  } else {
-    fused_tiled_hist_kernel<V, false>
-        <<<lgbt_grid(N, num_sms, 8), LGBT_THREADS, 0, stream>>>(
-            X, vals, dec, lor_in, table, pend, pend_nl0, lor_out, acc, N, F,
-            C, K, B, Kd, leaf_cap);
+    slot[r] = kc >= 0 && ((dec[(long long)kc * N + r] >> 1) & 1) ? kc : -1;
   }
 }
 
@@ -142,47 +116,72 @@ static void launch(const uint8_t* X, const V* vals, const uint8_t* dec,
 // (applied leaves), 7 (candidate leaves) and 15 (nl0) are read, entries at
 // Kd (applied) or K (candidates) and above inactive; pend [128] int32 the
 // pending applied leaves (-1 = inactive; entries at Kd and above unread)
-// and pend_nl0 their first new leaf id. f32 mode: acc [K * 2 * F * B] f64
-// zeroed by the caller, out [K, 2, F, B] f32 written here, parent f32.
-// int8 mode: out int32 zeroed by the caller is the accumulator, parent
-// int32, descaled by gscale / hscale in the scan. scal / fmeta / fmask /
-// rec as lgbt_split_scan_kernel.
+// and pend_nl0 their first new leaf id. The histogram plan (spt, fpt, nst,
+// nft, segs, min_rows, merge, pair, direct, group_warps) is kernel #1's
+// (lgbt_hist_slots, hist_slots.cu), and so are out and acc: out [K, 2, F,
+// B] f32 or int32 written here, acc f64 ([K * 2 * F * B] sums, then the
+// tiles' completion counters; f32 only). scratch: [N] int32 slots, then
+// the grouping's scratch when group_warps > 0. parent [K, 2, F, B] f32 or
+// int32 (descaled by gscale / hscale in the scan). scal / fmeta / fmask /
+// rec as lgbt_split_scan_kernel, scan_scratch its [2K] keys and [2K]
+// counters.
 extern "C" int lgbt_wave_pass_fused_tiled(
     const void* X, const void* vals, int vals_int8, const void* dec,
     const void* lor_in, const void* table, const void* pend, int pend_nl0,
-    void* lor_out, void* out, void* acc, const void* parent, const void* scal,
-    const void* fmeta, const void* fmask, int fmask_stride, void* rec,
-    long long N, int F, int K, int B, int Kd, int leaf_cap, float gscale,
-    float hscale, float min_data_slack, float min_hess, float l1, float l2,
-    float max_delta_step, float path_smooth, float min_gain, int use_mds,
-    int use_ps, int num_sms, void* stream) {
+    void* lor_out, void* out, void* acc, void* scratch, const void* parent,
+    const void* scal, const void* fmeta, const void* fmask,
+    int fmask_stride, void* rec, void* scan_scratch, long long N, int F,
+    int K, int B, int Kd, int leaf_cap, int spt, int fpt, int nst, int nft,
+    int segs, int min_rows, int merge, int pair, int direct,
+    int group_warps, float gscale, float hscale, float min_data_slack,
+    float min_hess, float l1, float l2, float max_delta_step,
+    float path_smooth, float min_gain, int use_mds, int use_ps, int num_sms,
+    void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int C = 2;
   const LgbtSplitHp hp =
       lgbt_make_hp(min_data_slack, min_hess, l1, l2, max_delta_step,
                    path_smooth, min_gain, use_mds, use_ps);
+  int* slot = (int*)scratch;
+  fused_member_kernel<<<lgbt_grid(N, num_sms, 8), LGBT_THREADS, 0, st>>>(
+      (const uint8_t*)dec, (const int*)lor_in, (const int*)table,
+      (const int*)pend, pend_nl0, (int*)lor_out, slot, N, K, Kd, leaf_cap);
+  const long long n = (long long)K * C * F * B;
+  UniformBins bins;
+  bins.X = (const uint8_t*)X;
+  bins.F = F;
+  bins.B = B;
+  bins.fpt = fpt;
+  const size_t smem = (size_t)spt * C * fpt * B * (vals_int8 ? 4 : 8);
   if (vals_int8) {
-    launch<int8_t>((const uint8_t*)X, (const int8_t*)vals,
-                   (const uint8_t*)dec, (const int*)lor_in,
-                   (const int*)table, (const int*)pend, pend_nl0,
-                   (int*)lor_out, (int*)out, N, F, C, K, B, Kd, leaf_cap,
-                   num_sms, st);
-    lgbt_split_scan_kernel<int><<<2 * K, LGBT_THREADS, 0, st>>>(
-        (const int*)out, (const int*)parent, (const float*)scal,
+    if (direct)
+      lgbt_direct_run<int8_t>((const uint8_t*)X, (const int8_t*)vals, slot,
+                              (int*)out, N, F, C, K, B, num_sms, st);
+    else
+      lgbt_tiles_run(bins, (const int8_t*)vals, slot, slot + N,
+                        (int*)out, (int*)nullptr, N, C, K, spt, nst, nft,
+                        segs, min_rows, merge, 0, group_warps, smem, n, st);
+    lgbt_split_scan_launch<int, int>(
+        (const int*)out, (const int*)parent, nullptr, (const float*)scal,
         (const int*)fmeta, (const uint8_t*)fmask, fmask_stride, (float*)rec,
-        K, F, B, gscale, hscale, hp);
+        scan_scratch, K, F, B, gscale, hscale, hp, st);
+  } else if (direct) {
+    // the scan reads the f64 sums and writes their f32 rounding to out
+    lgbt_direct_run<float>((const uint8_t*)X, (const float*)vals, slot,
+                           (double*)acc, N, F, C, K, B, num_sms, st);
+    lgbt_split_scan_launch<double, float>(
+        (const double*)acc, (const float*)parent, (float*)out,
+        (const float*)scal, (const int*)fmeta, (const uint8_t*)fmask,
+        fmask_stride, (float*)rec, scan_scratch, K, F, B, 1.0f, 1.0f, hp,
+        st);
   } else {
-    launch<float>((const uint8_t*)X, (const float*)vals, (const uint8_t*)dec,
-                  (const int*)lor_in, (const int*)table, (const int*)pend,
-                  pend_nl0, (int*)lor_out, (double*)acc, N, F, C, K, B, Kd,
-                  leaf_cap, num_sms, st);
-    const long long n = (long long)K * C * F * B;
-    acc_to_f32_kernel<<<lgbt_grid(n, num_sms, 4), LGBT_THREADS, 0, st>>>(
-        (const double*)acc, (float*)out, n);
-    lgbt_split_scan_kernel<float><<<2 * K, LGBT_THREADS, 0, st>>>(
-        (const float*)out, (const float*)parent, (const float*)scal,
+    lgbt_tiles_run(bins, (const float*)vals, slot, slot + N, (float*)out,
+                      (double*)acc, N, C, K, spt, nst, nft, segs, min_rows,
+                      merge, pair, group_warps, smem, n, st);
+    lgbt_split_scan_launch<float, float>(
+        (const float*)out, (const float*)parent, nullptr, (const float*)scal,
         (const int*)fmeta, (const uint8_t*)fmask, fmask_stride, (float*)rec,
-        K, F, B, 1.0f, 1.0f, hp);
+        scan_scratch, K, F, B, 1.0f, 1.0f, hp, st);
   }
   return (int)cudaGetLastError();
 }

@@ -87,6 +87,13 @@ def check_slice_config(cfg: Config) -> None:
         _not_ported("multiclass", "A10")
     if cfg.num_leaves > MAX_LEAVES:
         _not_ported(f"num_leaves > {MAX_LEAVES}", "A11")
+    if cfg.checkpoint_interval > 0 or cfg.checkpoint_dir \
+            or cfg.resume_from_checkpoint or cfg.fault_plan:
+        _not_ported("checkpoints, resume and fault plans "
+                    "(checkpoint_interval / checkpoint_dir / "
+                    "resume_from_checkpoint / fault_plan)", "A17")
+    if cfg.device_profile:
+        _not_ported("device_profile", "A14")
 
 
 def _check_slice_data(ds: BinnedDataset) -> None:
@@ -486,7 +493,10 @@ class GBDT:
         return pm
 
     def predict_raw(self, X: np.ndarray, start_iteration: int = 0,
-                    num_iteration: int = -1) -> np.ndarray:
+                    num_iteration: int = -1,
+                    pred_early_stop: bool = False,
+                    pred_early_stop_freq: int = 10,
+                    pred_early_stop_margin: float = 10.0) -> np.ndarray:
         # f32 inputs may route to the device predictor below: capture the
         # original dtype before the host walk's f64 upcast
         x_was_f32 = getattr(X, "dtype", None) == np.float32
@@ -502,8 +512,8 @@ class GBDT:
         # predict_margin_device, gbdt.py:2052-2084 of the JAX package): the
         # device compares in f32 against floored thresholds, which routes
         # f32 values exactly like the host's f64 walk. f64 inputs, small
-        # batches and linear leaves stay on the host walk.
-        if (x_was_f32 and X.shape[0] >= 100_000
+        # batches, linear leaves and early stop stay on the host walk.
+        if (x_was_f32 and X.shape[0] >= 100_000 and not pred_early_stop
                 and not any(getattr(t, "is_linear", False)
                             for t in self.models)
                 and self.config.device_type == "cuda"):
@@ -522,15 +532,22 @@ class GBDT:
                 if self.average_output:
                     out /= (end - start_iteration)
                 return out
-        out = self._packed_model(start_iteration, end).predict_margin(X)
+        # early stop is margin-based and meaningless for averaged output;
+        # its frequency counts iterations (all K class trees of each)
+        margin = (pred_early_stop_margin
+                  if pred_early_stop and not self.average_output else None)
+        out = self._packed_model(start_iteration, end).predict_margin(
+            X, early_stop_margin=margin,
+            early_stop_freq=max(1, int(pred_early_stop_freq)))
         if self.average_output:
             out /= (end - start_iteration)
         return out
 
     def predict(self, X: np.ndarray, raw_score: bool = False,
-                start_iteration: int = 0,
-                num_iteration: int = -1) -> np.ndarray:
-        raw = self.predict_raw(X, start_iteration, num_iteration)
+                start_iteration: int = 0, num_iteration: int = -1,
+                **pred_kwargs) -> np.ndarray:
+        raw = self.predict_raw(X, start_iteration, num_iteration,
+                               **pred_kwargs)
         if not raw_score and self.objective is not None \
                 and self.objective.need_convert_output:
             raw = self.objective.convert_output(raw)

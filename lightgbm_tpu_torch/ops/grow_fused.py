@@ -31,9 +31,12 @@ counterpart of grow_fused.py:pack_fused_scalars), per-feature metadata
 record per child, [12, 2K] f32 in SplitResult field order with left
 children in columns [0, K) and right children in [K, 2K) (feature,
 threshold and default_left are exact small floats). `unpack_fused_records`
-turns the columns of the wave's live candidates into a SplitResult. A GPU
-scan covers all F features in one block, so the TPU kernel's cross-tile
-merge (merge_tile_records) has no counterpart.
+turns the columns of the wave's live candidates into a SplitResult. The
+GPU scan gives every (child, feature) a warp and reduces each child's
+winner across all F features, so the TPU kernel's cross-tile merge
+(merge_tile_records) has no counterpart. Kernel #10's slot histogram is
+the tiled accumulation engine of the col-wise slot histogram, on its plan
+(``histogram_cuda.plan_hist_tiles``).
 """
 
 from __future__ import annotations
@@ -140,6 +143,12 @@ def _check_scan_args(parent, scal, fmeta, fmask, K, F, B, parent_dtype,
     return 0 if fmask.dim() == 1 else F
 
 
+def _scan_scratch(K: int, F: int, device) -> torch.Tensor:
+    """The scan's [2K] u64 best keys and [2K] u32 completion counters
+    (zeroed by the launch), then its [2K, F, 8] f32 cells."""
+    return torch.empty(3 * K + 8 * K * F, dtype=torch.int64, device=device)
+
+
 def _check_slots(num_slots: int) -> None:
     if not 1 <= num_slots <= hc.MAX_SLOTS:
         raise ValueError(f"num_slots must be in [1, {hc.MAX_SLOTS}], got "
@@ -178,7 +187,8 @@ def wave_pass_fused_cuda(X: torch.Tensor, vals: torch.Tensor,
         X.data_ptr(), vals.data_ptr(), leaf_of_row.data_ptr(),
         table.data_ptr(), new_lor.data_ptr(), out.data_ptr(), acc.data_ptr(),
         parent.data_ptr(), scal.data_ptr(), fmeta.data_ptr(),
-        fmask.data_ptr(), stride, rec.data_ptr(), N, F, K, B, num_leaves,
+        fmask.data_ptr(), stride, rec.data_ptr(),
+        _scan_scratch(K, F, dev).data_ptr(), N, F, K, B, num_leaves,
         *_hp_args(hp), sms, stream)
     hc._raise_on(rc, "wave_pass_fused")
     hc.LAUNCHES["wave_pass_fused"] += 1
@@ -244,21 +254,27 @@ def wave_pass_fused_tiled_cuda(X: torch.Tensor, vals: torch.Tensor,
     stride = _check_scan_args(parent, scal, fmeta, fmask, K, F, B,
                               torch.int32 if quant else torch.float32, dev)
     new_lor = torch.empty_like(leaf_of_row)
-    out, acc = hc._hist_buffers(K, 2, F, B, quant, dev)
+    plan = hc.plan_hist_tiles(K, 2, F, B, quantized=quant, rows=N)
+    sms, stream = hc._launch_env(dev)
+    # the scratch leads with the membership pass's [N] slots
+    tb = hc.tile_buffers(plan, (K, 2, F, B), N, True, quant, dev, sms,
+                         lead=N)
     rec = torch.empty((REC_FIELDS, 2 * K), dtype=torch.float32, device=dev)
     gs, hs = scale if quant else (1.0, 1.0)
-    sms, stream = hc._launch_env(dev)
     rc = hc._lib("wave_pass_fused_tiled")(
         X.data_ptr(), vals.data_ptr(), int(quant), dec.data_ptr(),
         leaf_of_row.data_ptr(), table.data_ptr(), pend_leaf.data_ptr(),
-        int(pend_nl0), new_lor.data_ptr(), out.data_ptr(),
-        acc.data_ptr() if acc is not None else None, parent.data_ptr(),
+        int(pend_nl0), new_lor.data_ptr(), tb.out.data_ptr(),
+        hc._ptr(tb.acc), hc._ptr(tb.scratch), parent.data_ptr(),
         scal.data_ptr(), fmeta.data_ptr(), fmask.data_ptr(), stride,
-        rec.data_ptr(), N, F, K, B, Kd, num_leaves, ctypes.c_float(gs),
-        ctypes.c_float(hs), *_hp_args(hp), sms, stream)
+        rec.data_ptr(), _scan_scratch(K, F, dev).data_ptr(), N, F, K, B, Kd,
+        num_leaves, plan.slots_per_tile, plan.feats_per_tile,
+        plan.slot_tiles, plan.feat_tiles, tb.segs, hc.MIN_SEGMENT_ROWS,
+        int(plan.merge), int(plan.paired), int(plan.direct), tb.W,
+        ctypes.c_float(gs), ctypes.c_float(hs), *_hp_args(hp), sms, stream)
     hc._raise_on(rc, "wave_pass_fused_tiled")
     hc.LAUNCHES["wave_pass_fused_tiled"] += 1
-    return new_lor, out, rec
+    return new_lor, tb.out, rec
 
 
 def wave_pass_fused_tiled_plain(X: torch.Tensor, vals: torch.Tensor,

@@ -27,6 +27,12 @@ split search (``csrc/wave_pass_fused.cu``, ``csrc/
 wave_pass_fused_tiled.cu`` <- lightgbm_tpu/ops/grow_fused.py;
 ``ops/grow_fused.py``).
 
+The slot histogram, the two row-wise histograms and the general fused
+wave sweep their rows with one tiled accumulation engine
+(``csrc/hist_tiles.cuh``), planned here: ``plan_hist_tiles`` for the
+uniform [F, B] grid, ``plan_flat_tiles`` for the row-wise flat layout's
+columns of unequal width.
+
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface (one library per source, all built in parallel on
 first use into ``lightgbm_tpu_torch/_build/``) and called through
@@ -183,12 +189,13 @@ def _lib(name: str):
         "wave_relabel": [P, P, P, P, LL, I, I, I, P],
         "bucketize": [P, LL, LL, P, I, P, P, P, I, P, LL, LL, I, P],
         "wave_apply": [P, P, P, P, P, LL, I, I, I, P],
-        "hist_rowwise": [P, P, I, P, P, P, P, LL, I, I, I, I, I, P],
-        "hist_rowwise_packed": [P, P, P, I, P, P, P, P, LL, I, I, I, I, I,
-                                P],
-        "wave_pass_fused": [P] * 11 + [I, P, LL, I, I, I, I] + HP + [I, P],
-        "wave_pass_fused_tiled": [P, P, I, P, P, P, P, I] + [P] * 7
-        + [I, P, LL, I, I, I, I, I, FL, FL] + HP + [I, P],
+        "hist_rowwise": [P, P, I, P, P, P, P, P, LL] + [I] * 14 + [P],
+        "hist_rowwise_packed": [P, P, P, I, P, P, P, P, P, LL] + [I] * 14
+        + [P],
+        "wave_pass_fused": [P] * 11 + [I, P, P, LL, I, I, I, I] + HP
+        + [I, P],
+        "wave_pass_fused_tiled": [P, P, I, P, P, P, P, I] + [P] * 8
+        + [I, P, P, LL] + [I] * 15 + [FL, FL] + HP + [I, P],
     }[name]
     return fn
 
@@ -358,6 +365,106 @@ def hist_segments(plan: HistTilePlan, N: int, num_sms: int, grouped: bool,
     return max(1, min(wave // tiles, N // min_rows))
 
 
+class FlatTilePlan(NamedTuple):
+    """How the engine of csrc/hist_tiles.cuh cuts a flat [K, C, total]
+    row-wise histogram whose storage columns have unequal widths (kernels
+    #7 and #8): column tiles cut before the columns in `col_cuts` (the
+    first column of each tile, then F), each tile's flat span running from
+    its first column's offset to the next tile's (the last to `total`), so
+    the spans cover the buffer, the padding between column chunks
+    included; `slots_per_tile` slots a tile. A block's shared memory is
+    `smem_bytes`: the records of at most `max_cols` columns (COL_RECORD
+    bytes each), then the [slots_per_tile][C][max_span] accumulators.
+    `merge`: the warp merge on every column, where some column is wider
+    than 64 (merging only those left the narrow Zipf categorical columns
+    of the Criteo storage serialised on their popular cells, PERF.md);
+    `paired`: the channel pairing (K = 1, f32, C = 2, no merge);
+    `grouped`: rows sorted by slot (K > 1)."""
+    slots_per_tile: int
+    col_cuts: tuple
+    slot_tiles: int
+    feat_tiles: int
+    max_span: int
+    max_cols: int
+    smem_bytes: int
+    blocks_per_sm: int
+    merge: bool
+    grouped: bool
+    paired: bool
+
+
+COL_RECORD = 16                # sizeof(FlatCol) in csrc/hist_tiles.cuh
+MAX_TILE_COLS = 256            # a flat tile's column records: 4 KB at most
+
+
+def _flat_cuts(offsets: tuple, total: int, cap: int) -> Optional[list]:
+    """Greedy column cuts whose spans (offset of the next tile's first
+    column, or `total`, minus the tile's first offset) stay within `cap`
+    flat columns and MAX_TILE_COLS columns; None when one column's span
+    alone exceeds `cap`."""
+    F = len(offsets)
+    cuts, f0 = [0], 0
+    for f in range(1, F + 1):
+        end = offsets[f] if f < F else total
+        if end - offsets[f0] > cap or f - f0 > MAX_TILE_COLS:
+            if f - 1 == f0:
+                return None
+            cuts.append(f - 1)
+            f0 = f - 1
+            if end - offsets[f0] > cap:
+                return None
+    return cuts + [F]
+
+
+@functools.lru_cache(maxsize=256)
+def plan_flat_tiles(K: int, C: int, offsets: tuple, widths: tuple,
+                    total: int, *, quantized: bool = False) -> FlatTilePlan:
+    """The tile plan of a K-slot flat histogram of C channels over storage
+    columns at `offsets` of `widths` flat columns each, `total` wide (f64
+    accumulators, int32 with `quantized`). A tile takes a column range
+    whose span x C accumulators fits HIST_SMEM_BUDGET; the fewest tiles,
+    with their spans balanced (the least cap that keeps their count);
+    when one tile holds every column, as many slots as fit. Raises on a
+    layout it cannot tile."""
+    F = len(widths)
+    if not (K >= 1 and 1 <= C <= MAX_CHANNELS and F >= 1
+            and len(offsets) == F and all(1 <= w <= 256 for w in widths)):
+        raise ValueError(f"no flat tile plan for K={K}, C={C}, F={F}")
+    if K > MAX_GROUP_SLOTS:
+        raise ValueError(f"the slot histogram takes K <= {MAX_GROUP_SLOTS} "
+                         f"slots, got {K}")
+    if offsets[0] != 0 or any(offsets[f] + widths[f] > (
+            offsets[f + 1] if f + 1 < F else total) for f in range(F)):
+        raise ValueError("the flat columns overlap or leave the buffer")
+    acc = 4 if quantized else 8
+    cap = HIST_SMEM_BUDGET // (C * acc)
+    cuts = _flat_cuts(offsets, total, cap)
+    if cuts is None:
+        raise ValueError(f"a column's span exceeds the {cap}-column tile")
+    nft = len(cuts) - 1
+    lo, hi = 1, cap                      # the least cap giving nft tiles
+    while lo < hi:
+        mid = (lo + hi) // 2
+        c = _flat_cuts(offsets, total, mid)
+        if c is not None and len(c) - 1 <= nft:
+            hi = mid
+        else:
+            lo = mid + 1
+    cuts = _flat_cuts(offsets, total, lo)
+    spans = [(offsets[cuts[t + 1]] if cuts[t + 1] < F else total)
+             - offsets[cuts[t]] for t in range(nft)]
+    span = max(spans)
+    cols = max(cuts[t + 1] - cuts[t] for t in range(nft))
+    nst = _cdiv(K, max(1, cap // span) if nft == 1 else 1)
+    spt = _cdiv(K, nst)
+    smem = cols * COL_RECORD + spt * C * span * acc
+    bps = min(MAX_BLOCKS_PER_SM, SM_SMEM_BYTES // (smem + BLOCK_SMEM_RESERVED))
+    merge = max(widths) >= MERGE_MIN_BINS
+    return FlatTilePlan(spt, tuple(cuts), nst, nft, span, cols, smem, bps,
+                        merge, K > 1,
+                        K == 1 and C == 2 and not quantized and not merge)
+
+
 def group_warps(N: int) -> int:
     """Warps of the grouping passes: one per GROUP_ROWS rows, at most
     MAX_GROUP_WARPS (then each takes a longer chunk); a warp's chunk is
@@ -381,46 +488,79 @@ def build_histogram_slots_cuda(X: torch.Tensor, vals: torch.Tensor,
     return _hist_slots_launch(X, vals, slot, num_slots, num_bins, plan)
 
 
+class TileBuffers(NamedTuple):
+    """What one launch of the tiled engine (or its direct route) needs
+    beside its operands: row pieces per tile `segs`, grouping warps `W` (0:
+    rows not grouped), the int32 `scratch` ([lead] ints for the caller,
+    then the grouping's [K*W | K | K+1 | N]; None when empty), the output
+    and the f64 accumulators with the tiles' completion counters (None
+    where unused)."""
+    segs: int
+    W: int
+    scratch: Optional[torch.Tensor]
+    out: torch.Tensor
+    acc: Optional[torch.Tensor]
+
+
+def tile_buffers(plan, out_shape: tuple, N: int, has_slot: bool,
+                 quant: bool, device: torch.device, sms: int,
+                 min_rows: int = MIN_SEGMENT_ROWS,
+                 lead: int = 0) -> TileBuffers:
+    """Allocate for a launch under `plan` (a HistTilePlan or FlatTilePlan)
+    of an output `out_shape` = (K, C, row_len...) over N rows."""
+    direct = getattr(plan, "direct", False)
+    grouped = plan.grouped and has_slot and not direct
+    segs = 1 if direct else hist_segments(plan, N, sms, grouped, min_rows)
+    K = out_shape[0]
+    W = group_warps(N) if grouped else 0
+    n_scratch = lead + (K * W + 2 * K + 1 + N if grouped else 0)
+    scratch = (torch.empty(n_scratch, dtype=torch.int32, device=device)
+               if n_scratch else None)
+    out = torch.empty(out_shape, device=device,
+                      dtype=torch.int32 if quant else torch.float32)
+    acc = None
+    if not quant and (grouped or segs > 1 or direct):
+        # f64 sums, then one completion counter per tile
+        tiles = plan.slot_tiles * plan.feat_tiles
+        acc = torch.empty(out.numel() + _cdiv(tiles, 2),
+                          dtype=torch.float64, device=device)
+    return TileBuffers(segs, W, scratch, out, acc)
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return t.data_ptr() if t is not None else None
+
+
 def _hist_slots_launch(X, vals, slot, K, B, plan: HistTilePlan,
                        min_rows: Optional[int] = None):
     """Launch csrc/hist_slots.cu under `plan` on checked operands, with
     row pieces of at least `min_rows` rows (None: MIN_SEGMENT_ROWS)."""
     if min_rows is None:
         min_rows = MIN_SEGMENT_ROWS
-    if plan.direct and K == 1 and plan.feat_tiles > 1:
-        raise ValueError("the direct sweep at K = 1 keeps the histogram in "
-                         "one tile's shared memory; this plan has "
-                         f"{plan.feat_tiles} feature tiles")
+    _check_direct(plan, K)
     dev = X.device
     F, N = X.shape
     C = vals.shape[0]
     quant = vals.dtype == torch.int8
     sms, stream = _launch_env(dev)
-    grouped = plan.grouped and slot is not None and not plan.direct
-    segs = 1 if plan.direct else hist_segments(plan, N, sms, grouped,
-                                               min_rows)
-    W = group_warps(N) if grouped else 0
-    scratch = (torch.empty(K * W + 2 * K + 1 + N, dtype=torch.int32,
-                           device=dev) if grouped else None)
-    out = torch.empty((K, C, F, B), device=dev,
-                      dtype=torch.int32 if quant else torch.float32)
-    acc = None
-    if not quant and (grouped or segs > 1 or plan.direct):
-        # f64 sums, then one completion counter per tile
-        tiles = plan.slot_tiles * plan.feat_tiles
-        acc = torch.empty(K * C * F * B + _cdiv(tiles, 2),
-                          dtype=torch.float64, device=dev)
+    tb = tile_buffers(plan, (K, C, F, B), N, slot is not None, quant, dev,
+                      sms, min_rows)
     rc = _lib("build_histogram_slots")(
-        X.data_ptr(), vals.data_ptr(), int(quant),
-        slot.data_ptr() if slot is not None else None,
-        scratch.data_ptr() if scratch is not None else None, out.data_ptr(),
-        acc.data_ptr() if acc is not None else None, N, F, C, K, B,
+        X.data_ptr(), vals.data_ptr(), int(quant), _ptr(slot),
+        _ptr(tb.scratch), tb.out.data_ptr(), _ptr(tb.acc), N, F, C, K, B,
         plan.slots_per_tile, plan.feats_per_tile, plan.slot_tiles,
-        plan.feat_tiles, segs, min_rows, int(plan.merge),
-        int(plan.paired), int(plan.direct), W, sms, stream)
+        plan.feat_tiles, tb.segs, min_rows, int(plan.merge),
+        int(plan.paired), int(plan.direct), tb.W, sms, stream)
     _raise_on(rc, "build_histogram_slots")
     LAUNCHES["build_histogram_slots"] += 1
-    return out
+    return tb.out
+
+
+def _check_direct(plan: HistTilePlan, K: int) -> None:
+    if plan.direct and K == 1 and plan.feat_tiles > 1:
+        raise ValueError("the direct sweep at K = 1 keeps the histogram in "
+                         "one tile's shared memory; this plan has "
+                         f"{plan.feat_tiles} feature tiles")
 
 
 def build_histogram_slots_plain(X: torch.Tensor, vals: torch.Tensor,

@@ -16,7 +16,10 @@ Pallas kernels:
                                made by `pack4`, the rest from an unpacked
                                remainder)
 
-each with its plain PyTorch version (``*_plain``). Float channels
+each with its plain PyTorch version (``*_plain``). Both kernels sweep
+their rows with the tiled accumulation engine of the col-wise slot
+histogram (``csrc/hist_tiles.cuh``), its tiles cut as column ranges of
+the flat buffer (``histogram_cuda.plan_flat_tiles``). Float channels
 accumulate in float64 and are rounded once, as the col-wise slot histogram
 does, so the expanded buffer equals `build_histogram_slots` bit for bit;
 int8 channels accumulate exactly in int32. The plans are the JAX package's
@@ -163,15 +166,27 @@ def unpack4(Xp: torch.Tensor, Xu: torch.Tensor,
     return torch.stack(rows)
 
 
+def flat_plan(plan: RowWisePlan, K: int, C: int,
+              quantized: bool) -> "hc.FlatTilePlan":
+    """The engine's tile plan of a [K, C, total] flat histogram."""
+    return hc.plan_flat_tiles(K, C, plan.offsets, plan.widths, plan.total,
+                              quantized=quantized)
+
+
 @functools.lru_cache(maxsize=64)
-def _desc(plan: RowWisePlan, pplan: Optional[Pack4Plan],
+def _desc(plan: RowWisePlan, pplan: Optional[Pack4Plan], cuts: tuple,
           device: torch.device) -> torch.Tensor:
-    """Per-column descriptors the kernel reads: [2, F] (offset, width) or,
-    packed, [4, F] (+ nibble index, remainder row), int32."""
-    cols = [plan.offsets, plan.widths]
-    if pplan is not None:
-        cols += [pplan.pack_pos, pplan.rest_pos]
-    return torch.tensor(cols, dtype=torch.int32, device=device)
+    """The flat reader's descriptors (csrc/hist_tiles.cuh FlatBins), int32:
+    [4, F] rows offset, width, nibble index (-1: a whole byte) and byte row
+    (of the storage, or of the remainder when packed), then the tile cuts
+    [nft + 1]."""
+    F = len(plan.widths)
+    if pplan is None:
+        rows = [plan.offsets, plan.widths, (-1,) * F, tuple(range(F))]
+    else:
+        rows = [plan.offsets, plan.widths, pplan.pack_pos, pplan.rest_pos]
+    flat = [v for r in rows for v in r] + list(cuts)
+    return torch.tensor(flat, dtype=torch.int32, device=device)
 
 
 def _check_rowwise(vals, slot, num_slots, plan, F, N, dev):
@@ -190,11 +205,29 @@ def _check_rowwise(vals, slot, num_slots, plan, F, N, dev):
     return C
 
 
-def _flat_buffers(K, C, total, quantized, dev):
-    if quantized:
-        return torch.zeros((K, C, total), dtype=torch.int32, device=dev), None
-    return (torch.empty((K, C, total), dtype=torch.float32, device=dev),
-            torch.zeros((K * C * total,), dtype=torch.float64, device=dev))
+def _rowwise_launch(name, X, Xu, vals, slot, K, plan, pplan, tp=None):
+    """Launch `name` (csrc/hist_rowwise.cu) on checked operands, under the
+    tile plan `tp` (None: flat_plan's)."""
+    dev = X.device
+    N = X.shape[1]
+    F, C = len(plan.widths), vals.shape[0]
+    quant = vals.dtype == torch.int8
+    if tp is None:
+        tp = flat_plan(plan, K, C, quant)
+    sms, stream = hc._launch_env(dev)
+    tb = hc.tile_buffers(tp, (K, C, plan.total), N, slot is not None, quant,
+                         dev, sms)
+    args = [X.data_ptr()] + ([Xu.data_ptr()] if Xu is not None else [])
+    rc = hc._lib(name)(
+        *args, vals.data_ptr(), int(quant), hc._ptr(slot),
+        _desc(plan, pplan, tp.col_cuts, dev).data_ptr(), hc._ptr(tb.scratch),
+        tb.out.data_ptr(), hc._ptr(tb.acc), N, F, C, K, plan.total,
+        tp.slots_per_tile, tp.slot_tiles, tp.feat_tiles, tp.max_cols,
+        tb.segs, hc.MIN_SEGMENT_ROWS, int(tp.merge), int(tp.paired), tb.W,
+        tp.smem_bytes, stream)
+    hc._raise_on(rc, name)
+    hc.LAUNCHES[name] += 1
+    return tb.out
 
 
 def hist_rowwise_cuda(X: torch.Tensor, vals: torch.Tensor,
@@ -208,19 +241,9 @@ def hist_rowwise_cuda(X: torch.Tensor, vals: torch.Tensor,
         raise ValueError("X must be [F, N]")
     F, N = X.shape
     hc._check(X, "X", (torch.uint8,), (F, N), dev)
-    C = _check_rowwise(vals, slot, num_slots, plan, F, N, dev)
-    quant = vals.dtype == torch.int8
-    out, acc = _flat_buffers(num_slots, C, plan.total, quant, dev)
-    sms, stream = hc._launch_env(dev)
-    rc = hc._lib("hist_rowwise")(
-        X.data_ptr(), vals.data_ptr(), int(quant),
-        slot.data_ptr() if slot is not None else None,
-        _desc(plan, None, dev).data_ptr(), out.data_ptr(),
-        acc.data_ptr() if acc is not None else None, N, F, C, num_slots,
-        plan.total, sms, stream)
-    hc._raise_on(rc, "hist_rowwise")
-    hc.LAUNCHES["hist_rowwise"] += 1
-    return out
+    _check_rowwise(vals, slot, num_slots, plan, F, N, dev)
+    return _rowwise_launch("hist_rowwise", X, None, vals, slot, num_slots,
+                           plan, None)
 
 
 def hist_rowwise_packed_cuda(Xp: torch.Tensor, Xu: torch.Tensor,
@@ -238,19 +261,9 @@ def hist_rowwise_packed_cuda(Xp: torch.Tensor, Xu: torch.Tensor,
         raise ValueError("no packable columns: use hist_rowwise_cuda")
     hc._check(Xp, "Xp", (torch.uint8,), ((pplan.n_packed + 1) // 2, N), dev)
     hc._check(Xu, "Xu", (torch.uint8,), (max(pplan.n_rest, 1), N), dev)
-    C = _check_rowwise(vals, slot, num_slots, plan, F, N, dev)
-    quant = vals.dtype == torch.int8
-    out, acc = _flat_buffers(num_slots, C, plan.total, quant, dev)
-    sms, stream = hc._launch_env(dev)
-    rc = hc._lib("hist_rowwise_packed")(
-        Xp.data_ptr(), Xu.data_ptr(), vals.data_ptr(), int(quant),
-        slot.data_ptr() if slot is not None else None,
-        _desc(plan, pplan, dev).data_ptr(), out.data_ptr(),
-        acc.data_ptr() if acc is not None else None, N, F, C, num_slots,
-        plan.total, sms, stream)
-    hc._raise_on(rc, "hist_rowwise_packed")
-    hc.LAUNCHES["hist_rowwise_packed"] += 1
-    return out
+    _check_rowwise(vals, slot, num_slots, plan, F, N, dev)
+    return _rowwise_launch("hist_rowwise_packed", Xp, Xu, vals, slot,
+                           num_slots, plan, pplan)
 
 
 def hist_rowwise_plain(X: torch.Tensor, vals: torch.Tensor,

@@ -3,7 +3,7 @@
 iteration, and a served batch.
 
     python3 scripts/profile_torch_port.py
-        [--config bench|criteo|bench_fused|criteo_fused]
+        [--config bench|criteo|criteo_rowwise|bench_fused|criteo_fused]
         [--rows N] [--iters K] [--trace F] [--root DIR]
 
 --config bench (the default) builds bench.py's data (28 f32 features,
@@ -11,7 +11,9 @@ numpy seed 42) and trains bench.py's model (binary, 255 leaves, max_bin
 63) on the wave megakernel route. --config criteo builds the Criteo-shaped
 table of lightgbm_tpu_torch/utils/synthetic.py (13 count and 26
 categorical columns, numpy seed 7) and trains the same model at max_bin
-255 with those columns categorical: the wave-apply route. The *_fused
+255 with those columns categorical: the wave-apply route;
+--config criteo_rowwise the same under force_row_wise, whose histograms
+are the row-wise flat kernel's (#7). The *_fused
 configs train the same data under histogram_impl=fused: the narrow fused
 route (kernel #9) on bench, the general one (kernel #10) on Criteo.
 Either is ingested with binning_impl=auto, trained with lightgbm_tpu_torch
@@ -79,7 +81,7 @@ PORT_KERNELS = ("hist_slots_kernel", "hist_tiles_kernel", "hist_direct_kernel",
                 "wave_pass_kernel", "wave_relabel_kernel",
                 "wave_apply_kernel", "bucketize_kernel",
                 "hist_rowwise_kernel", "lgbt_split_scan_kernel",
-                "fused_tiled_hist_kernel")
+                "fused_tiled_hist_kernel", "fused_member_kernel")
 
 
 def emit(obj):
@@ -170,8 +172,9 @@ def serve_phase(torch, bst, X):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--config", choices=("bench", "criteo", "bench_fused",
-                                         "criteo_fused"), default="bench")
+    ap.add_argument("--config", choices=("bench", "criteo", "criteo_rowwise",
+                                         "bench_fused", "criteo_fused"),
+                    default="bench")
     ap.add_argument("--rows", type=int, default=1 << 20)
     ap.add_argument("--iters", type=int, default=4)
     ap.add_argument("--trace", help="write the profiled window's chrome "
@@ -194,6 +197,8 @@ def main():
                   bagging_freq=0, binning_impl="auto", device_type="cuda")
     if args.config.endswith("_fused"):
         params["histogram_impl"] = "fused"
+    if args.config.endswith("_rowwise"):
+        params["force_row_wise"] = True
     if args.config.startswith("criteo"):
         from lightgbm_tpu_torch.utils.synthetic import (CRITEO_CAT_COLUMNS,
                                                         criteo_like)

@@ -207,6 +207,11 @@ def test_valid_sets_early_stopping_and_logging(data):
     ({"feature_fraction_bynode": 0.5}, "A10"),
     ({"extra_trees": True}, "A10"),
     ({"objective": "multiclass", "num_class": 3}, "A10"),
+    ({"checkpoint_interval": 2, "checkpoint_dir": "ckpt"}, "A17"),
+    ({"checkpoint_dir": "ckpt"}, "A17"),
+    ({"resume_from_checkpoint": "/nonexistent"}, "A17"),
+    ({"fault_plan": "kill@iter=2"}, "A17"),
+    ({"device_profile": True}, "A14"),
 ])
 def test_configurations_outside_the_slice_raise(data, over, item):
     X, y = data
@@ -229,3 +234,47 @@ def test_categorical_and_wide_data_raise(data):
     with pytest.raises(NotImplementedError, match="ROADMAP item A14"):
         lt.train({**PARAMS, **TORCH, "max_bin": 300},
                  lt.Dataset(X, label=y, categorical_feature=[2]), 1)
+
+
+def test_pred_early_stop_matches_jax(data, boosters):
+    """pred_early_stop / _freq / _margin from the predict call or from the
+    booster's params stop a row's walk as the JAX package's does."""
+    X, _ = data
+    bj, bt = boosters
+    es = dict(pred_early_stop=True, pred_early_stop_freq=1,
+              pred_early_stop_margin=0.2)
+    got = bt.predict(X, raw_score=True, **es)
+    ref = bj.predict(X, raw_score=True, **es)
+    full = bt.predict(X, raw_score=True)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+    # the margin stops some rows early, so the prediction is not the full
+    # walk's
+    assert np.abs(got - full).max() > 1e-3
+    bt.params.update(es)
+    try:
+        np.testing.assert_array_equal(bt.predict(X, raw_score=True), got)
+    finally:
+        for k in es:
+            del bt.params[k]
+    np.testing.assert_array_equal(bt.predict(X, raw_score=True), full)
+
+
+def test_valid_set_without_params_follows_the_booster(data):
+    """A valid set made with reference= and no params is binned and scored
+    under the booster's params, so a CPU run stays on the CPU; its metric
+    equals the JAX package's."""
+    X, y = data
+    p = {**PARAMS, **TORCH, "metric": "auc"}
+    ev_t, ev_j = {}, {}
+    dtr = lt.Dataset(X[:2000], label=y[:2000])
+    lt.train(p, dtr, num_boost_round=3,
+             valid_sets=[lt.Dataset(X[2000:], label=y[2000:],
+                                    reference=dtr)],
+             callbacks=[lt.record_evaluation(ev_t)])
+    jtr = lj.Dataset(X[:2000], label=y[:2000])
+    lj.train({**PARAMS, "metric": "auc"}, jtr, num_boost_round=3,
+             valid_sets=[lj.Dataset(X[2000:], label=y[2000:],
+                                    reference=jtr)],
+             callbacks=[lj.record_evaluation(ev_j)])
+    np.testing.assert_allclose(ev_t["valid_0"]["auc"],
+                               ev_j["valid_0"]["auc"], rtol=0, atol=1e-6)
