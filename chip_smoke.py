@@ -10,12 +10,18 @@ Phases, each printing one JSON line:
   2. kernels   each training kernel against its plain PyTorch version at
                the main path's shapes (N = 2^20 rows, F = 28, B = 64, C = 2;
                K in {1, 16, 128}, the slot histogram also with half of the
-               rows active; L = 255, the score update in place and the
-               gather), with kernel / plain / library times and the bytes
-               bound; then, untimed, the int8 (exact int32) and 256-bin
-               modes of the histogram and wave kernels, and the slot
+               rows active, the wave pass on a mid-tree wave ("few"), on a
+               wave whose smaller children hold about half of the rows
+               ("half") and on 2^16 rows (the direct route), bitwise on
+               grid values; L = 255, the score update in place and the
+               gather), with kernel / plain / library times, the bytes
+               bound and the wave pass's launches per call; then, untimed,
+               the int8 (exact int32) and 256-bin (wave pass at its K cap
+               of 32) modes of the histogram and wave kernels, the slot
                histogram on narrow storage, where several slots share a
-               tile (bitwise, both channel layouts). Every kernel and
+               tile (bitwise, both channel layouts), and the wave pass and
+               relabel on a table naming a leaf twice (the lowest entry
+               wins, as in the plain versions; bitwise). Every kernel and
                library time is given twice: `ms`, the mean call time by CUDA
                events over back-to-back calls (the host's issue rate where
                that is the slower side), and `device_ms`, the device's own
@@ -88,7 +94,10 @@ Phases, each printing one JSON line:
      best-split search of every candidate's two children:
      fused_kernels   kernel #9 (wave_pass_fused) against its plain version
                      at the bench storage (2^20 x 28, B = 64), K in
-                     {1, 16, 64}; kernel #10 (wave_pass_fused_tiled) at the
+                     {1, 16, 64}, "few" and "half" waves as the wave pass's,
+                     K = 16 "half" on 2^16 rows (the direct route) and on a
+                     table naming a leaf twice; kernel #10
+                     (wave_pass_fused_tiled) at the
                      Criteo storage (K in {1, 16}; K = 16 with about half
                      of the rows in a smaller child, a real wave's shape,
                      on 2^20 rows and, on the direct route, 2^16), at
@@ -369,42 +378,63 @@ def kernel_phase(hc, torch, dev):
     emit({"phase": "kernels", "kernel_ms": rec["ms"], **rec})
     out["take_leaf_values"] = rec
 
-    # -- 3. / 5. wave pass and relabel: a mid-tree wave, 120 leaves, 64 of
-    # them split, K candidates among the 184 leaves after the split
-    nl0, napp = 120, 64
-    lor = torch.randint(0, nl0, (N,), generator=gen, device=dev,
-                        dtype=torch.int32)
+    # -- 3. / 5. wave pass and relabel. "few": a mid-tree wave, 120
+    # leaves, 64 of them split, K candidates among the 184 leaves after
+    # the split, whose smaller children hold a few percent of the rows;
+    # "half": every leaf after the split a candidate (K / 2 leaves, K / 2
+    # of them split; at K = 1 the root), so that about half of the rows
+    # land in a smaller child, a real wave's shape; "half_2^16" the same on
+    # the first 2^16 rows (the direct route)
     rng = np.random.RandomState(11)
-    for K in (1, 16, 128):
+    cases = [(1, "few", N), (16, "few", N), (128, "few", N),
+             (1, "half", N), (16, "half", N), (128, "half", N),
+             (16, "half_2^16", 1 << 16)]
+    for K, case, n in cases:
+        nl0, napp = (120, 64) if case == "few" else (max(K // 2, 1), K // 2)
+        Xw, vw, gw = ((X, vals, grid) if n == N else
+                      (X[:, :n].contiguous(), vals[:, :n].contiguous(),
+                       grid[:, :n].contiguous()))
+        lor = torch.randint(0, nl0, (n,), generator=gen, device=dev,
+                            dtype=torch.int32)
         tbl = _wave_table(torch, rng, F, B - 1, nl0, napp, K, dev)
-        got_l, got_h = hc.wave_pass_cuda(X, vals, lor, tbl, K, B, L)
-        ref_l, ref_h = hc.wave_pass_plain(X, vals, lor, tbl, K, B, L)
+        got_l, got_h = hc.wave_pass_cuda(Xw, vw, lor, tbl, K, B, L)
+        ref_l, ref_h = hc.wave_pass_plain(Xw, vw, lor, tbl, K, B, L)
         torch.cuda.synchronize()
-        check(torch.equal(got_l, ref_l), f"wave_pass K={K}: leaf_of_row")
+        key = f"wave_pass K={K} {case}"
+        check(torch.equal(got_l, ref_l), f"{key}: leaf_of_row")
         err = float((got_h - ref_h).abs().max())
         tol = 1e-6 * float(ref_h.abs().max()) + 1e-6
-        check(err <= tol, f"wave_pass K={K}: max |err| {err}")
+        check(err <= tol, f"{key}: max |err| {err}")
+        check(torch.equal(hc.wave_pass_cuda(Xw, gw, lor, tbl, K, B, L)[1],
+                          hc.wave_pass_plain(Xw, gw, lor, tbl, K, B, L)[1]),
+              f"{key}: not bitwise on grid values")
         # bytes this data needs: leaf ids in and out, one bin byte per row
         # tested against an applied or candidate split, and the bins and
         # values of the rows that land in a smaller child
         app_rows = int(torch.isin(lor, tbl[0, :napp]).sum())
         cand_rows = int(torch.isin(ref_l, tbl[7, :K]).sum())
-        small = _small_rows(hc, torch, X, lor, tbl, K, B, L)
-        nbytes = 8 * N + app_rows + cand_rows + small * (F + 4 * C) \
+        small = _small_rows(hc, torch, Xw, lor, tbl, K, B, L)
+        nbytes = 8 * n + app_rows + cand_rows + small * (F + 4 * C) \
             + K * C * F * B * 4 + 16 * 128 * 4
         bms, by = bound_ms(nbytes, small * F * C)
-        ms, dms = timings(lambda: hc.wave_pass_cuda(X, vals, lor, tbl, K, B,
-                                                    L), 20)
+        st = {}
+        ms, dms = timings(lambda: hc.wave_pass_cuda(Xw, vw, lor, tbl, K, B,
+                                                    L), 20, stats=st)
         plain_ms = time_ms(lambda: hc.wave_pass_plain(
-            X, vals, lor, tbl, K, B, L), 3, 1)
-        rec = dict(name="wave_pass", K=K, max_abs_err=err, tol=tol, ms=ms,
-                   device_ms=dms, plain_ms=plain_ms, library_ms=None,
-                   bound_ms=bms,
-                   bound_by=by, bound_us=bms * 1e3)
+            Xw, vw, lor, tbl, K, B, L), 3, 1)
+        lay = hc.wave_hist_layout(K, C, F, B, n, False, hc._sm_count(0))
+        rec = dict(name="wave_pass", K=K, case=case, N=n, small_rows=small,
+                   max_abs_err=err, tol=tol, ms=ms, device_ms=dms,
+                   plain_ms=plain_ms, library_ms=None, bound_ms=bms,
+                   bound_by=by, bound_us=bms * 1e3,
+                   launches_per_call=st["kernels_per_call"],
+                   plan=lay.plan._asdict())
         emit({"phase": "kernels", "kernel_ms": rec["ms"], **rec})
-        if K == 16:
+        if case == "half_2^16":
+            check(lay.plan.direct, f"{key}: not on the direct route")
+        if K == 16 and case == "few":
             out["wave_pass"] = rec
-        if K == 128:
+        if K == 128 and case == "few":
             got = hc.wave_relabel_cuda(X, lor, tbl, L)
             check(torch.equal(got, hc.wave_relabel_plain(X, lor, tbl, L)),
                   "wave_relabel: leaf_of_row not bitwise equal")
@@ -442,6 +472,20 @@ def _wave_table(torch, rng, F, num_bins, nl0, napp, K, dev):
     return torch.from_numpy(t.astype(np.int32)).to(dev)
 
 
+def _dup_wave_table(torch, rng, F, num_bins, nl0, napp, K, dev):
+    """_wave_table with applied entry 1 naming entry 0's leaf and, at
+    K > 1, candidate entry 1 naming candidate 0's leaf, each with a split
+    of its own."""
+    t = _wave_table(torch, rng, F, num_bins, nl0, napp, K, dev)
+    t[0, 1] = t[0, 0]
+    t[1, 1] = (t[1, 0] + 1) % F
+    if K > 1:
+        t[7, 1] = t[7, 0]
+        t[8, 1] = (t[8, 0] + 1) % F
+        t[14, 1] = 1 - t[14, 0]
+    return t
+
+
 def variant_phase(hc, torch, dev):
     """The kernels' modes that later slices need, not timed: int8 value
     channels (exact int32 sums, bitwise) and 256 bins (f32, within the
@@ -462,19 +506,21 @@ def variant_phase(hc, torch, dev):
             vals = torch.randn((2, N), generator=gen, device=dev)
         slot = torch.randint(-1, 17, (N,), generator=gen, device=dev,
                              dtype=torch.int32)
-        tbl = _wave_table(torch, rng, F, B, 120, 64, 16, dev)
+        # the wave pass at its K cap for B = 256 (32), else 16
+        Kw = 32 if B == 256 else 16
+        tbl = _wave_table(torch, rng, F, B, 120, 64, Kw, dev)
         pairs = [(hc.build_histogram_slots_cuda(X, vals, slot, 16, B),
                   hc.build_histogram_slots_plain(X, vals, slot, 16, B))]
-        gl, gh = hc.wave_pass_cuda(X, vals, lor, tbl, 16, B, L)
-        rl, rh = hc.wave_pass_plain(X, vals, lor, tbl, 16, B, L)
+        gl, gh = hc.wave_pass_cuda(X, vals, lor, tbl, Kw, B, L)
+        rl, rh = hc.wave_pass_plain(X, vals, lor, tbl, Kw, B, L)
         torch.cuda.synchronize()
         check(torch.equal(gl, rl), f"wave_pass B={B}: leaf_of_row")
         check(torch.equal(hc.wave_relabel_cuda(X, lor, tbl, L),
                           hc.wave_relabel_plain(X, lor, tbl, L)),
               f"wave_relabel B={B}: leaf_of_row")
         pairs.append((gh, rh))
-        for (got, ref), name in zip(pairs, ("build_histogram_slots",
-                                            "wave_pass")):
+        for (got, ref), name in zip(pairs, ("build_histogram_slots K=16",
+                                            f"wave_pass K={Kw}")):
             key = f"{name} B={B} {str(dtype).split('.')[-1]}"
             if dtype == torch.int8:
                 check(got.dtype == torch.int32 and torch.equal(got, ref),
@@ -533,6 +579,25 @@ def variant_phase(hc, torch, dev):
                     hc.build_histogram_slots_plain(Xb, v, slot, K, B_s)),
                     f"{key} {v.dtype}: not bitwise equal")
             res[f"{key} direct={plan.direct}"] = 0.0
+    # a leaf named by two applied entries and one named by two candidate
+    # entries, with other splits: the kernels' maps keep the lowest entry,
+    # as the plain versions' first match does (the grower never names a
+    # leaf twice); bitwise on grid values, on the tiled and direct routes
+    grid = _grid_vals(torch, gen, 2, N, dev)
+    X = torch.randint(0, 63, (F, N), generator=gen, device=dev,
+                      dtype=torch.int32).to(torch.uint8)
+    for K, n in ((16, N), (16, 1 << 16), (1, N)):
+        tbl = _dup_wave_table(torch, rng, F, 63, 120, 64, K, dev)
+        Xn, vn, ln = X[:, :n].contiguous(), grid[:, :n].contiguous(), lor[:n]
+        key = f"duplicated leaves K={K} N={n}"
+        gl, gh = hc.wave_pass_cuda(Xn, vn, ln, tbl, K, 64, L)
+        rl, rh = hc.wave_pass_plain(Xn, vn, ln, tbl, K, 64, L)
+        check(torch.equal(gl, rl) and torch.equal(gh, rh),
+              f"wave_pass {key}: not bitwise equal")
+        check(torch.equal(hc.wave_relabel_cuda(Xn, ln, tbl, L),
+                          hc.wave_relabel_plain(Xn, ln, tbl, L)),
+              f"wave_relabel {key}: not bitwise equal")
+        res[f"wave_pass + wave_relabel {key}"] = 0.0
     emit({"phase": "kernel_variants", "max_abs_err": res})
 
 
@@ -1284,19 +1349,21 @@ def _scan_nbytes(K, F, B):
 
 def fused_narrow_phase(hc, gf, torch, dev):
     """Kernel #9 against its plain version at the bench storage shape
-    (N = 2^20, F = 28, B = 64) for K in {1, 16, 64}: a mid-tree wave of 64
-    applied splits among 120 leaves, K candidates among the leaves after
-    it, parents and child statistics from the real rows. leaf_of_row, the
+    (N = 2^20, F = 28, B = 64) for K in {1, 16, 64}: "few", a mid-tree wave
+    of 64 applied splits among 120 leaves, K candidates among the leaves
+    after it; "half", every leaf after K / 2 applied splits among K / 2
+    leaves a candidate (about half of the rows in a smaller child), also
+    on the first 2^16 rows (the direct route); "dup" (K = 16, untimed), a
+    leaf named by two applied entries and one by two candidate entries.
+    Parents and child statistics from the real rows. leaf_of_row, the
     histogram and every record field bitwise on 1/1024-grid values (at
-    K = 16 also with every split regularizer set); on
-    continuous values the chosen (feature, threshold, default_left) of
-    every child, and the largest difference of each float field."""
+    K = 16 "few" also with every split regularizer set); on continuous
+    values the chosen (feature, threshold, default_left) of every child,
+    and the largest difference of each float field."""
     gen = torch.Generator(device=dev).manual_seed(21)
-    N, F, B, L, nl0, napp = N_ROWS, N_FEAT, N_BINS, N_LEAVES, 120, 64
-    X = torch.randint(0, 63, (F, N), generator=gen, device=dev,
-                      dtype=torch.int32).to(torch.uint8)
-    lor = torch.randint(0, nl0, (N,), generator=gen, device=dev,
-                        dtype=torch.int32)
+    N, F, B, L = N_ROWS, N_FEAT, N_BINS, N_LEAVES
+    X_all = torch.randint(0, 63, (F, N), generator=gen, device=dev,
+                          dtype=torch.int32).to(torch.uint8)
     rng = np.random.RandomState(22)
     hp = _fused_hp()
     hp_reg = hp._replace(lambda_l1=0.5, lambda_l2=2.0, max_delta_step=0.75,
@@ -1306,13 +1373,21 @@ def fused_narrow_phase(hc, gf, torch, dev):
                          dtype=torch.int32, device=dev)
     fmask = torch.ones(F, dtype=torch.uint8, device=dev)
     recs = {}
-    for K in (1, 16, 64):
-        tbl = _wave_table(torch, rng, F, B - 1, nl0, napp, K, dev)
+    cases = [(1, "few", N), (16, "few", N), (64, "few", N), (1, "half", N),
+             (16, "half", N), (64, "half", N), (16, "half_2^16", 1 << 16),
+             (16, "dup", N)]
+    for K, case, n in cases:
+        nl0, napp = ((max(K // 2, 1), K // 2) if "half" in case
+                     else (120, 64))
+        X = X_all if n == N else X_all[:, :n].contiguous()
+        lor = torch.randint(0, nl0, (n,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        tbl = (_dup_wave_table if case == "dup" else _wave_table)(
+            torch, rng, F, B - 1, nl0, napp, K, dev)
         t64 = tbl.to(torch.int64)
         new_lor = hc.wave_relabel_plain(X, lor, tbl, L)
-        ent = torch.full((L + 1,), -1, dtype=torch.int64, device=dev)
-        ent[t64[7, :K]] = torch.arange(K, device=dev)
-        slot_all = ent[new_lor.to(torch.int64)]
+        # each row's candidate entry, the first match (the kernels' rule)
+        slot_all = hc._entry_of(new_lor.to(torch.int64), t64[7, :K])
         p = hc._pack_entries(t64, 8, t64[14] & 1)[:K]
         pe = p[slot_all.clamp(min=0)]
         small = (slot_all >= 0) & (hc._go_left(pe, X)
@@ -1323,12 +1398,12 @@ def fused_narrow_phase(hc, gf, torch, dev):
         res = {}
         # at K = 16 also the regularizers' arithmetic of the scan (l1, l2,
         # max_delta_step, path_smooth, min_gain_to_split), on grid values
-        kinds = (("regularized",) if K == 16 else ()) + ("grid",
-                                                         "continuous")
+        kinds = ((("regularized",) if (K, case) == (16, "few") else ())
+                 + ("grid",) + (() if case == "dup" else ("continuous",)))
         for kind in kinds:
-            vals = (torch.randn((2, N), generator=gen, device=dev)
+            vals = (torch.randn((2, n), generator=gen, device=dev)
                     if kind == "continuous"
-                    else _grid_vals(torch, gen, 2, N, dev))
+                    else _grid_vals(torch, gen, 2, n, dev))
             vals[1] = vals[1].abs()
             parent, scal = _fused_operands(torch, hc, X, vals, slot_all,
                                            slot_small, sil, K, B)
@@ -1337,21 +1412,29 @@ def fused_narrow_phase(hc, gf, torch, dev):
             gl, gh, gr = gf.wave_pass_fused_cuda(*args)
             rl, rh, rr = gf.wave_pass_fused_plain(*args)
             torch.cuda.synchronize()
-            check(torch.equal(gl, rl), f"wave_pass_fused K={K}: leaf_of_row")
+            key = f"wave_pass_fused K={K} {case} {kind}"
+            check(torch.equal(gl, rl), f"{key}: leaf_of_row")
             d = _rec_diffs(torch, gr, rr)
             check(d["feature"] == d["threshold"] == d["default_left"] == 0,
-                  f"wave_pass_fused K={K} {kind}: chosen splits differ {d}")
+                  f"{key}: chosen splits differ {d}")
             check(bool(torch.isfinite(gr[0]).any()),
-                  f"wave_pass_fused K={K} {kind}: no child found a split")
+                  f"{key}: no child found a split")
             if kind != "continuous":
                 check(torch.equal(gh, rh) and torch.equal(gr, rr),
-                      f"wave_pass_fused K={K} {kind}: not bitwise equal "
-                      f"({d})")
+                      f"{key}: not bitwise equal ({d})")
             res[kind] = d
+        if case == "dup":
+            emit({"phase": "fused_kernels", "name": "wave_pass_fused",
+                  "K": K, "case": case, "N": n, "bitwise": True})
+            continue
+        lay = hc.wave_hist_layout(K, 2, F, B, n, False, hc._sm_count(0))
+        if case == "half_2^16":
+            check(lay.plan.direct, "the 2^16-row case of kernel #9 is not "
+                                   "on the direct route")
         cand_rows = int((slot_all >= 0).sum())
         app_rows = int(torch.isin(lor, tbl[0, :napp]).sum())
         small_rows = int(small.sum())
-        nbytes = 8 * N + app_rows + cand_rows + small_rows * (F + 8) \
+        nbytes = 8 * n + app_rows + cand_rows + small_rows * (F + 8) \
             + K * 2 * F * B * 4 + 16 * 128 * 4 + _scan_nbytes(K, F, B)
         bms, by = bound_ms(nbytes, small_rows * F * 2 + 2 * K * 2 * F * B
                            * 40)
@@ -1359,15 +1442,17 @@ def fused_narrow_phase(hc, gf, torch, dev):
         ms, dms = timings(lambda: gf.wave_pass_fused_cuda(*args), 20,
                           stats=st)
         plain_ms = time_ms(lambda: gf.wave_pass_fused_plain(*args), 3, 1)
-        rec = dict(name="wave_pass_fused", K=K, F=F, B=B, max_abs_err=0.0,
+        rec = dict(name="wave_pass_fused", K=K, case=case, N=n, F=F, B=B,
+                   small_rows=small_rows, max_abs_err=0.0,
                    tol=0.0, ms=ms, device_ms=dms, plain_ms=plain_ms,
                    library_ms=None,
                    bound_ms=bms, bound_by=by, bound_us=bms * 1e3,
                    launches_per_call=st["kernels_per_call"],
+                   plan=lay.plan._asdict(),
                    continuous_max_diff=res["continuous"])
         emit({"phase": "fused_kernels", "kernel_ms": ms, **rec})
-        recs[K] = rec
-    return recs[16]
+        recs[(K, case)] = rec
+    return recs[(16, "few")]
 
 
 def fused_tiled_phase(hc, gf, torch, dev, X_c):

@@ -1,5 +1,6 @@
 // The tiled accumulation engine of the port's slot histograms: what
-// hist_slots.cu (kernel #1), hist_rowwise.cu (#7, #8) and
+// hist_slots.cu (kernel #1), hist_rowwise.cu (#7, #8) and the three wave
+// kernels wave_pass.cu (#3), wave_pass_fused.cu (#9) and
 // wave_pass_fused_tiled.cu (#10) sweep their rows with.
 //
 //   out[k, c, col] = sum_r vals[c, r] * [slot[r] == k] * [col(r) hit]
@@ -19,8 +20,8 @@
 //       row-wise storage, FlatBins<true> the nibble-packed one plus its
 //       remainder);
 //   (b) the slot source: an [N] int32 slot array, the caller's (#1, #7,
-//       #8) or the one written by #10's membership pass; null puts every
-//       row in slot 0.
+//       #8) or the one written by a wave's membership pass (#3, #9, #10);
+//       null puts every row in slot 0.
 //
 // Bound: bytes (each row's bins, values and slot read once, the output
 // written once). What limits the sweep on the card is its f64 adds in
@@ -58,9 +59,11 @@
 //   pairing   at K = 1 without the merge (C = 2, f32) the two channels of a
 //             cell sit side by side and one 128-bit compare-and-swap adds
 //             both (ATOMS.CAS.128): half the atomics at the root.
-//   direct    little work on the uniform grid (kernel #1's and #10's rule):
-//             the first version's sweep, a row per thread into global
-//             accumulators, or at K = 1 a private copy per block.
+//   direct    little work on the uniform grid (the planner's rule for the
+//             uniform kernels): the first version's sweep, a row per thread
+//             into global accumulators, or at K = 1 a private copy per
+//             block (wave_pass.cu rounds its sums in the same,
+//             cooperative, launch).
 //
 // The flush: a tile of one piece writes its cells straight to the output;
 // otherwise each block adds its nonzero cells into the f64 accumulators in
@@ -234,11 +237,10 @@ static inline void lgbt_group_rows(const int* slot, long long N, int K,
 // sweep's row grouping, per-tile zeroing and flush and its pieces' edges
 // cost more than the rows' adds (the planner's rule, PERF.md).
 template <typename V, bool SMEM>
-__global__ void __launch_bounds__(LGBT_THREADS)
-hist_direct_kernel(const uint8_t* __restrict__ X, const V* __restrict__ vals,
-                   const int* __restrict__ slot,
-                   typename AccOf<V>::T* __restrict__ acc, long long N,
-                   int F, int C, int K, int B) {
+__device__ __forceinline__ void direct_sweep(
+    const uint8_t* __restrict__ X, const V* __restrict__ vals,
+    const int* __restrict__ slot, typename AccOf<V>::T* __restrict__ acc,
+    long long N, int F, int C, int K, int B) {
   typedef typename AccOf<V>::T A;
   extern __shared__ __align__(8) unsigned char smem_raw[];
   A* sh = reinterpret_cast<A*>(smem_raw);
@@ -260,17 +262,27 @@ hist_direct_kernel(const uint8_t* __restrict__ X, const V* __restrict__ vals,
   }
 }
 
+template <typename V, bool SMEM>
+__global__ void __launch_bounds__(LGBT_THREADS)
+hist_direct_kernel(const uint8_t* __restrict__ X, const V* __restrict__ vals,
+                   const int* __restrict__ slot,
+                   typename AccOf<V>::T* __restrict__ acc, long long N,
+                   int F, int C, int K, int B) {
+  direct_sweep<V, SMEM>(X, vals, slot, acc, N, F, C, K, B);
+}
+
 // Zero the accumulators (acc: f64 for f32 values, the int32 output for
-// int8 values) and launch the direct sweep on the first version's grids
-// for num_sms SMs. The f64 sums are left for the caller to round.
+// int8 values; not when `zeroed`, the caller having zeroed them) and
+// launch the direct sweep on the first version's grids for num_sms SMs.
+// The f64 sums are left for the caller to round.
 template <typename V>
 static void lgbt_direct_run(const uint8_t* X, const V* vals, const int* slot,
                             typename AccOf<V>::T* acc, long long N, int F,
                             int C, int K, int B, int num_sms,
-                            cudaStream_t st) {
+                            cudaStream_t st, bool zeroed = false) {
   typedef typename AccOf<V>::T A;
   const long long n = (long long)K * C * F * B;
-  cudaMemsetAsync(acc, 0, n * sizeof(A), st);
+  if (!zeroed) cudaMemsetAsync(acc, 0, n * sizeof(A), st);
   if (K == 1) {
     const int blocks = lgbt_grid(N, num_sms,
                                  lgbt_smem_blocks_per_sm(n * sizeof(A)));
@@ -391,6 +403,16 @@ struct UniformBins {
                                      long long r) const {
     return X[(long long)(t.f0 + fl) * N + r];
   }
+};
+
+// The uniform storage read P columns ahead: a row's bins of P columns are
+// loaded before any of their adds, so their loads are in flight together
+// (the shared-memory compare-and-swap of an add orders the next load
+// after it). The waves of kernels #3 and #9, whose smaller children put
+// few rows in a block, wait on that chain of loads and adds.
+template <int P>
+struct UniformBinsAhead : UniformBins {
+  static const int kPrefetch = P;
 };
 
 // One storage column of the flat layout as the sweep reads it: the byte
@@ -680,7 +702,9 @@ static void lgbt_tiles_launch(const R& rd, const V* vals, const int* slot,
 // merge, pair) from ops/histogram_cuda.py, smem the dynamic shared memory
 // of a block (the reader's column records, then the accumulators): the
 // grouping when group_warps > 0 (slot given; scratch as lgbt_group_rows),
-// the zeroing of what the blocks add into, then the sweep. n is the output
+// the zeroing of what the blocks add into (not when `zeroed`: the caller's
+// membership pass zeroed it, ops/histogram_cuda.py:wave_hist_layout),
+// then the sweep. n is the output
 // size K * C * row_len. vals f32: out f32, acc [n] f64 followed by nst * nft
 // unsigned completion counters when a tile may take several pieces
 // (grouped rows, or segs > 1), else unused; vals int8: out int32, the
@@ -710,18 +734,19 @@ static void lgbt_tiles_run(const R& rd, const V* vals, const int* slot,
                            int K, int spt, int nst, int nft, int segs,
                            int min_rows, int merge, int pair,
                            int group_warps, size_t smem, long long n,
-                           cudaStream_t st) {
+                           cudaStream_t st, bool zeroed = false) {
   const int* rows = nullptr;
   const int* offsets = nullptr;
   if (group_warps > 0)
     lgbt_group_rows(slot, N, K, group_warps, scratch, &rows, &offsets, st);
   const bool quant = !OutOf<V>::kRound;
-  if (rows || segs > 1)
+  if ((rows || segs > 1) && !zeroed)
     cudaMemsetAsync(quant ? (void*)out : (void*)acc, 0,
                     quant ? n * sizeof(int)
                           : (n + (nst * nft + 1) / 2) * sizeof(double),
                     st);
-  if (rows && !quant) cudaMemsetAsync(out, 0, n * sizeof(float), st);
+  if (rows && !quant && !zeroed)
+    cudaMemsetAsync(out, 0, n * sizeof(float), st);
   unsigned* counters =
       quant || !acc ? nullptr : (unsigned*)((double*)acc + n);
   typename AccOf<V>::T* sum = quant ? (typename AccOf<V>::T*)out : acc;

@@ -31,6 +31,7 @@
 //      to f32; or, for little work, the direct sweep, whose f64 sums the
 //      scan rounds as it reads them;
 //   3. the scan of every child (split_scan.cuh).
+// Steps 2 and 3 are the tail this kernel shares with #9 (fused_tail.cuh).
 // The first version accumulated in the membership sweep itself, a row per
 // thread into a private copy of the whole [K, 2, F, B] histogram (one
 // block per SM at the Criteo root) or into global f64 atomics in L2, then
@@ -45,8 +46,7 @@
 // and C values. The engine's shared-memory adds limit the histogram as
 // they limit hist_slots.cu; the parent histograms (K * 2 * F * B) are read
 // once by the scan.
-#include "hist_tiles.cuh"
-#include "split_scan.cuh"
+#include "fused_tail.cuh"
 #include "wave_table.cuh"
 
 #define LGBT_MAP_NONE 0xFFFF
@@ -138,7 +138,6 @@ extern "C" int lgbt_wave_pass_fused_tiled(
     float path_smooth, float min_gain, int use_mds, int use_ps, int num_sms,
     void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int C = 2;
   const LgbtSplitHp hp =
       lgbt_make_hp(min_data_slack, min_hess, l1, l2, max_delta_step,
                    path_smooth, min_gain, use_mds, use_ps);
@@ -146,42 +145,19 @@ extern "C" int lgbt_wave_pass_fused_tiled(
   fused_member_kernel<<<lgbt_grid(N, num_sms, 8), LGBT_THREADS, 0, st>>>(
       (const uint8_t*)dec, (const int*)lor_in, (const int*)table,
       (const int*)pend, pend_nl0, (int*)lor_out, slot, N, K, Kd, leaf_cap);
-  const long long n = (long long)K * C * F * B;
-  UniformBins bins;
-  bins.X = (const uint8_t*)X;
-  bins.F = F;
-  bins.B = B;
-  bins.fpt = fpt;
-  const size_t smem = (size_t)spt * C * fpt * B * (vals_int8 ? 4 : 8);
-  if (vals_int8) {
-    if (direct)
-      lgbt_direct_run<int8_t>((const uint8_t*)X, (const int8_t*)vals, slot,
-                              (int*)out, N, F, C, K, B, num_sms, st);
-    else
-      lgbt_tiles_run(bins, (const int8_t*)vals, slot, slot + N,
-                        (int*)out, (int*)nullptr, N, C, K, spt, nst, nft,
-                        segs, min_rows, merge, 0, group_warps, smem, n, st);
-    lgbt_split_scan_launch<int, int>(
-        (const int*)out, (const int*)parent, nullptr, (const float*)scal,
+  const LgbtTilePlan p = {spt,  fpt,   nst,  nft,    segs,
+                          min_rows, merge, pair, direct, group_warps};
+  if (vals_int8)
+    lgbt_fused_hist_scan<int8_t>(
+        (const uint8_t*)X, (const int8_t*)vals, slot, slot + N, (int*)out,
+        nullptr, (const int*)parent, (const float*)scal, (const int*)fmeta,
+        (const uint8_t*)fmask, fmask_stride, (float*)rec, scan_scratch, N, F,
+        K, B, p, false, gscale, hscale, hp, num_sms, st);
+  else
+    lgbt_fused_hist_scan<float>(
+        (const uint8_t*)X, (const float*)vals, slot, slot + N, (float*)out,
+        (double*)acc, (const float*)parent, (const float*)scal,
         (const int*)fmeta, (const uint8_t*)fmask, fmask_stride, (float*)rec,
-        scan_scratch, K, F, B, gscale, hscale, hp, st);
-  } else if (direct) {
-    // the scan reads the f64 sums and writes their f32 rounding to out
-    lgbt_direct_run<float>((const uint8_t*)X, (const float*)vals, slot,
-                           (double*)acc, N, F, C, K, B, num_sms, st);
-    lgbt_split_scan_launch<double, float>(
-        (const double*)acc, (const float*)parent, (float*)out,
-        (const float*)scal, (const int*)fmeta, (const uint8_t*)fmask,
-        fmask_stride, (float*)rec, scan_scratch, K, F, B, 1.0f, 1.0f, hp,
-        st);
-  } else {
-    lgbt_tiles_run(bins, (const float*)vals, slot, slot + N, (float*)out,
-                      (double*)acc, N, C, K, spt, nst, nft, segs, min_rows,
-                      merge, pair, group_warps, smem, n, st);
-    lgbt_split_scan_launch<float, float>(
-        (const float*)out, (const float*)parent, nullptr, (const float*)scal,
-        (const int*)fmeta, (const uint8_t*)fmask, fmask_stride, (float*)rec,
-        scan_scratch, K, F, B, 1.0f, 1.0f, hp, st);
-  }
+        scan_scratch, N, F, K, B, p, false, 1.0f, 1.0f, hp, num_sms, st);
   return (int)cudaGetLastError();
 }

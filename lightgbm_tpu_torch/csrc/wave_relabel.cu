@@ -17,7 +17,7 @@ wave_relabel_kernel(const uint8_t* __restrict__ X,
                     const int* __restrict__ table, int* __restrict__ lor_out,
                     long long N, int F, int leaf_cap) {
   __shared__ int app_p[LGBT_T_ENTRIES];
-  __shared__ signed char app_of[LGBT_LEAF_CAP];
+  __shared__ __align__(4) signed char app_of[LGBT_LEAF_CAP];
   lgbt_load_table(table, 0, leaf_cap, false, app_p, nullptr, app_of, nullptr);
   const int nl0 = table[15 * LGBT_T_ENTRIES];
   for (long long r = blockIdx.x * (long long)blockDim.x + threadIdx.x; r < N;

@@ -1,4 +1,5 @@
-// The wave table shared by wave_pass.cu and wave_relabel.cu.
+// The wave table shared by wave_pass.cu, wave_pass_fused.cu (through the
+// membership pass of wave_member.cuh) and wave_relabel.cu.
 //
 // The caller hands over the JAX package's 16-row semantic table [16, 128]
 // int32 (lightgbm_tpu/ops/histogram_pallas.py:379-381):
@@ -14,7 +15,11 @@
 // MissingType::Zero, num_bins-1 for MissingType::NaN, else 0x1FF (never a
 // uint8 bin). Leaf ids map to their entry through a per-block shared table
 // of LGBT_LEAF_CAP entries, so a row finds its entry with one lookup
-// instead of comparing against all 128.
+// instead of comparing against all 128. A leaf named by several active
+// entries maps to the lowest of them, the first match of the plain
+// versions (ops/histogram_cuda.py:_entry_of), whatever order the threads
+// write in; the TPU kernel's masked sum assumes a leaf is named once, and
+// the grower never names one twice.
 #pragma once
 
 #include "common.cuh"
@@ -50,6 +55,23 @@ __device__ __forceinline__ bool lgbt_go_left(int p, const uint8_t* __restrict__ 
   return col == mb ? dl : (col <= thr);
 }
 
+// map[leaf] = min(map[leaf], k) for a byte map whose unset entries are -1:
+// a compare-and-swap on the aligned word holding the byte.
+__device__ __forceinline__ void lgbt_map_min(signed char* map, int leaf,
+                                             int k) {
+  const unsigned sh = 8u * ((unsigned)(uintptr_t)(map + leaf) & 3u);
+  unsigned* w = (unsigned*)((uintptr_t)(map + leaf) & ~(uintptr_t)3);
+  unsigned old = *w;
+  while (true) {
+    const int cur = (signed char)((old >> sh) & 0xFFu);
+    if (cur >= 0 && cur <= k) return;
+    const unsigned nw = (old & ~(0xFFu << sh)) | ((unsigned)k << sh);
+    const unsigned prev = atomicCAS(w, old, nw);
+    if (prev == old) return;
+    old = prev;
+  }
+}
+
 // Block prologue: packed entries and leaf -> entry maps in shared memory.
 // Candidate entries past K are not mapped (the histogram width is K).
 __device__ __forceinline__ void lgbt_load_table(
@@ -69,10 +91,10 @@ __device__ __forceinline__ void lgbt_load_table(
   if (threadIdx.x < LGBT_T_ENTRIES) {
     const int k = threadIdx.x;
     const int la = t[k];
-    if (la >= 0 && la < leaf_cap) app_of[la] = (signed char)k;
+    if (la >= 0 && la < leaf_cap) lgbt_map_min(app_of, la, k);
     if (with_cand && k < K) {
       const int lc = t[7 * LGBT_T_ENTRIES + k];
-      if (lc >= 0 && lc < leaf_cap) cand_of[lc] = (signed char)k;
+      if (lc >= 0 && lc < leaf_cap) lgbt_map_min(cand_of, lc, k);
     }
   }
   __syncthreads();

@@ -6,9 +6,10 @@ its two Pallas kernels, both with the numeric split scan of
 ``csrc/split_scan.cuh``:
 
   wave_pass_fused_cuda        <- wave_pass_fused_pallas (pallas_call at
-                                 :356): the megakernel route's row sweep
-                                 (at most 32 storage columns, the 16-row
-                                 wave table, f32 values) and the scan;
+                                 :356): the megakernel route's membership
+                                 pass and slot histogram (kernel #3's; at
+                                 most 32 storage columns, the 16-row wave
+                                 table, f32 values) and the scan;
                                  ``csrc/wave_pass_fused.cu``
   wave_pass_fused_tiled_cuda  <- wave_pass_fused_tiled_pallas (:656):
                                  membership from decision bits with a
@@ -34,9 +35,10 @@ threshold and default_left are exact small floats). `unpack_fused_records`
 turns the columns of the wave's live candidates into a SplitResult. The
 GPU scan gives every (child, feature) a warp and reduces each child's
 winner across all F features, so the TPU kernel's cross-tile merge
-(merge_tile_records) has no counterpart. Kernel #10's slot histogram is
+(merge_tile_records) has no counterpart. Both kernels' slot histograms are
 the tiled accumulation engine of the col-wise slot histogram, on its plan
-(``histogram_cuda.plan_hist_tiles``).
+(``histogram_cuda.plan_hist_tiles``), and its scan the tail they share
+(``csrc/fused_tail.cuh``).
 """
 
 from __future__ import annotations
@@ -179,20 +181,21 @@ def wave_pass_fused_cuda(X: torch.Tensor, vals: torch.Tensor,
     hc._check(vals, "vals", (torch.float32,), (2, N), dev)
     stride = _check_scan_args(parent, scal, fmeta, fmask, K, F, B,
                               torch.float32, dev)
-    new_lor = torch.empty_like(leaf_of_row)
-    out, acc = hc._hist_buffers(K, 2, F, B, False, dev)
-    rec = torch.empty((REC_FIELDS, 2 * K), dtype=torch.float32, device=dev)
     sms, stream = hc._launch_env(dev)
+    lay = hc.wave_hist_layout(K, 2, F, B, N, False, sms)
+    new_lor = torch.empty_like(leaf_of_row)
+    tb = hc._alloc_tiles(lay.sizes, (K, 2, F, B), False, dev)
+    rec = torch.empty((REC_FIELDS, 2 * K), dtype=torch.float32, device=dev)
     rc = hc._lib("wave_pass_fused")(
         X.data_ptr(), vals.data_ptr(), leaf_of_row.data_ptr(),
-        table.data_ptr(), new_lor.data_ptr(), out.data_ptr(), acc.data_ptr(),
-        parent.data_ptr(), scal.data_ptr(), fmeta.data_ptr(),
-        fmask.data_ptr(), stride, rec.data_ptr(),
-        _scan_scratch(K, F, dev).data_ptr(), N, F, K, B, num_leaves,
-        *_hp_args(hp), sms, stream)
+        table.data_ptr(), new_lor.data_ptr(), tb.out.data_ptr(),
+        hc._ptr(tb.acc), hc._ptr(tb.scratch), parent.data_ptr(),
+        scal.data_ptr(), fmeta.data_ptr(), fmask.data_ptr(), stride,
+        rec.data_ptr(), _scan_scratch(K, F, dev).data_ptr(), N, F, K, B,
+        num_leaves, *hc._wave_hist_args(lay), *_hp_args(hp), sms, stream)
     hc._raise_on(rc, "wave_pass_fused")
     hc.LAUNCHES["wave_pass_fused"] += 1
-    return new_lor, out, rec
+    return new_lor, tb.out, rec
 
 
 def wave_pass_fused_plain(X: torch.Tensor, vals: torch.Tensor,

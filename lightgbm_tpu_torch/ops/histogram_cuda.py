@@ -9,8 +9,8 @@ histogram_pallas.py):
                               <- build_histogram_slots_pallas
   add_leaf_values_cuda        scores += values[leaf_of_row], in place (and
   take_leaf_values_cuda       values[leaf_of_row])  <- take_leaf_values_pallas
-  wave_pass_cuda              relabel + candidate membership + slot
-                              histogram in one row sweep <- wave_pass_pallas
+  wave_pass_cuda              relabel + candidate membership, then the
+                              slot histogram  <- wave_pass_pallas
   wave_relabel_cuda           relabel only          <- wave_relabel_pallas
   wave_apply_cuda             relabel + candidate slot from precomputed
                               decision bits (wide / categorical / EFB
@@ -27,11 +27,13 @@ split search (``csrc/wave_pass_fused.cu``, ``csrc/
 wave_pass_fused_tiled.cu`` <- lightgbm_tpu/ops/grow_fused.py;
 ``ops/grow_fused.py``).
 
-The slot histogram, the two row-wise histograms and the general fused
-wave sweep their rows with one tiled accumulation engine
-(``csrc/hist_tiles.cuh``), planned here: ``plan_hist_tiles`` for the
-uniform [F, B] grid, ``plan_flat_tiles`` for the row-wise flat layout's
-columns of unequal width.
+The slot histogram, the two row-wise histograms and the three wave
+kernels (#3 and the two fused waves) sweep their rows with one tiled
+accumulation engine (``csrc/hist_tiles.cuh``), planned here:
+``plan_hist_tiles`` for the uniform [F, B] grid, ``plan_flat_tiles`` for
+the row-wise flat layout's columns of unequal width; the waves of the
+megakernel route first run a membership pass (``csrc/wave_member.cuh``)
+and take their launch's shape from ``wave_hist_layout``.
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface (one library per source, all built in parallel on
@@ -55,6 +57,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -185,15 +188,16 @@ def _lib(name: str):
     fn.argtypes = {
         "build_histogram_slots": [P, P, I, P, P, P, P, LL] + [I] * 15 + [P],
         "take_leaf_values": [P, I, P, P, LL, I, I, P],
-        "wave_pass": [P, P, I, P, P, P, P, P, LL, I, I, I, I, I, I, P],
+        "wave_pass": [P, P, I] + [P] * 6 + [LL] + [I] * 15
+        + [LL, LL, I, I, P],
         "wave_relabel": [P, P, P, P, LL, I, I, I, P],
         "bucketize": [P, LL, LL, P, I, P, P, P, I, P, LL, LL, I, P],
         "wave_apply": [P, P, P, P, P, LL, I, I, I, P],
         "hist_rowwise": [P, P, I, P, P, P, P, P, LL] + [I] * 14 + [P],
         "hist_rowwise_packed": [P, P, P, I, P, P, P, P, P, LL] + [I] * 14
         + [P],
-        "wave_pass_fused": [P] * 11 + [I, P, P, LL, I, I, I, I] + HP
-        + [I, P],
+        "wave_pass_fused": [P] * 12 + [I, P, P, LL] + [I] * 14
+        + [LL, LL, I] + HP + [I, P],
         "wave_pass_fused_tiled": [P, P, I, P, P, P, P, I] + [P] * 8
         + [I, P, P, LL] + [I] * 15 + [FL, FL] + HP + [I, P],
     }[name]
@@ -253,14 +257,6 @@ def _check_hist_args(X, vals, F, N, num_slots, num_bins, dev):
     if num_slots < 1 or num_slots * C * F * num_bins >= 2 ** 31:
         raise ValueError(f"num_slots={num_slots} is out of range")
     return C
-
-
-def _hist_buffers(K, C, F, B, quantized, dev):
-    """(out, f64 accumulators or None) for a histogram launch."""
-    if quantized:
-        return torch.zeros((K, C, F, B), dtype=torch.int32, device=dev), None
-    return (torch.empty((K, C, F, B), dtype=torch.float32, device=dev),
-            torch.zeros((K * C * F * B,), dtype=torch.float64, device=dev))
 
 
 # ---------------------------------------------------------------------------
@@ -488,13 +484,42 @@ def build_histogram_slots_cuda(X: torch.Tensor, vals: torch.Tensor,
     return _hist_slots_launch(X, vals, slot, num_slots, num_bins, plan)
 
 
-class TileBuffers(NamedTuple):
+class TileSizes(NamedTuple):
     """What one launch of the tiled engine (or its direct route) needs
     beside its operands: row pieces per tile `segs`, grouping warps `W` (0:
-    rows not grouped), the int32 `scratch` ([lead] ints for the caller,
-    then the grouping's [K*W | K | K+1 | N]; None when empty), the output
-    and the f64 accumulators with the tiles' completion counters (None
-    where unused)."""
+    rows not grouped), the int32 words of scratch ([lead] for the caller,
+    then the grouping's [K*W | K | K+1 | N]; 0: none) and the f64 words of
+    the accumulators with the tiles' completion counters (0: unused)."""
+    segs: int
+    W: int
+    scratch: int
+    acc: int
+
+
+def tile_sizes(plan, out_shape: tuple, N: int, has_slot: bool, quant: bool,
+               sms: int, min_rows: int = MIN_SEGMENT_ROWS,
+               lead: int = 0) -> TileSizes:
+    """The sizes of a launch under `plan` (a HistTilePlan or FlatTilePlan)
+    of an output `out_shape` = (K, C, row_len...) over N rows on `sms` SMs
+    (no allocation, so it runs anywhere)."""
+    direct = getattr(plan, "direct", False)
+    grouped = plan.grouped and has_slot and not direct
+    segs = 1 if direct else hist_segments(plan, N, sms, grouped, min_rows)
+    K = out_shape[0]
+    W = group_warps(N) if grouped else 0
+    n_scratch = lead + (K * W + 2 * K + 1 + N if grouped else 0)
+    acc = 0
+    if not quant and (grouped or segs > 1 or direct):
+        # f64 sums, then one completion counter per tile
+        acc = math.prod(out_shape) + _cdiv(plan.slot_tiles
+                                           * plan.feat_tiles, 2)
+    return TileSizes(segs, W, n_scratch, acc)
+
+
+class TileBuffers(NamedTuple):
+    """The buffers of a launch of tile_sizes' sizes: the int32 `scratch`
+    (None when empty), the output and the f64 accumulators (None where
+    unused)."""
     segs: int
     W: int
     scratch: Optional[torch.Tensor]
@@ -508,23 +533,19 @@ def tile_buffers(plan, out_shape: tuple, N: int, has_slot: bool,
                  lead: int = 0) -> TileBuffers:
     """Allocate for a launch under `plan` (a HistTilePlan or FlatTilePlan)
     of an output `out_shape` = (K, C, row_len...) over N rows."""
-    direct = getattr(plan, "direct", False)
-    grouped = plan.grouped and has_slot and not direct
-    segs = 1 if direct else hist_segments(plan, N, sms, grouped, min_rows)
-    K = out_shape[0]
-    W = group_warps(N) if grouped else 0
-    n_scratch = lead + (K * W + 2 * K + 1 + N if grouped else 0)
-    scratch = (torch.empty(n_scratch, dtype=torch.int32, device=device)
-               if n_scratch else None)
+    sz = tile_sizes(plan, out_shape, N, has_slot, quant, sms, min_rows, lead)
+    return _alloc_tiles(sz, out_shape, quant, device)
+
+
+def _alloc_tiles(sz: TileSizes, out_shape: tuple, quant: bool,
+                 device: torch.device) -> TileBuffers:
+    scratch = (torch.empty(sz.scratch, dtype=torch.int32, device=device)
+               if sz.scratch else None)
     out = torch.empty(out_shape, device=device,
                       dtype=torch.int32 if quant else torch.float32)
-    acc = None
-    if not quant and (grouped or segs > 1 or direct):
-        # f64 sums, then one completion counter per tile
-        tiles = plan.slot_tiles * plan.feat_tiles
-        acc = torch.empty(out.numel() + _cdiv(tiles, 2),
-                          dtype=torch.float64, device=device)
-    return TileBuffers(segs, W, scratch, out, acc)
+    acc = (torch.empty(sz.acc, dtype=torch.float64, device=device)
+           if sz.acc else None)
+    return TileBuffers(sz.segs, sz.W, scratch, out, acc)
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -691,6 +712,70 @@ def _check_wave_args(X, leaf_of_row, table, num_leaves, dev):
     return F, N
 
 
+class WaveHistLayout(NamedTuple):
+    """The host-side choice of a megakernel-route wave's (kernels #3 and
+    #9) histogram launch: kernel #1's tile plan, chosen on the N rows (how
+    many rows land in the smaller children only the card knows, and the
+    wave loop reads nothing back for it), the least rows of a piece, the
+    engine's sizes with the membership pass's [N] slots leading the
+    scratch, and the bytes of the f64 accumulators and of the output that
+    the membership pass zeroes: whatever the histogram launch adds into
+    rather than writes."""
+    plan: HistTilePlan
+    min_rows: int
+    prefetch: int
+    sizes: TileSizes
+    zero_acc_bytes: int
+    zero_out_bytes: int
+
+
+WAVE_PREFETCH = 4       # columns of a row's bins loaded ahead of its adds
+
+
+@functools.lru_cache(maxsize=1024)
+def wave_hist_layout(K: int, C: int, F: int, B: int, N: int,
+                     quantized: bool, sms: int,
+                     plan: Optional[HistTilePlan] = None,
+                     min_rows: int = MIN_SEGMENT_ROWS,
+                     prefetch: Optional[int] = None) -> WaveHistLayout:
+    """The WaveHistLayout of a wave of K slots over X [F, N] of B bins and
+    C value channels (int32 sums with `quantized`) on `sms` SMs, under
+    `plan` (None: plan_hist_tiles') with pieces of at least `min_rows`
+    rows, the tiles reading a row's bins `prefetch` (1 or WAVE_PREFETCH)
+    columns ahead of its adds. None: WAVE_PREFETCH, but 1 under the
+    channel pairing (the root-like K = 1 wave, where reading ahead cost
+    25% on an H100 while it saved 3-10% on the grouped waves, PERF.md)."""
+    if plan is None:
+        plan = plan_hist_tiles(K, C, F, B, quantized=quantized, rows=N)
+    if prefetch is None:
+        prefetch = 1 if plan.paired else WAVE_PREFETCH
+    if prefetch not in (1, WAVE_PREFETCH):
+        raise ValueError(f"the wave kernels read 1 or {WAVE_PREFETCH} "
+                         f"columns ahead, not {prefetch}")
+    sz = tile_sizes(plan, (K, C, F, B), N, True, quantized, sms, min_rows,
+                    lead=N)
+    n = K * C * F * B
+    if quantized:
+        # the int32 output is the accumulator, unless each tile is one
+        # piece that writes its cells
+        out_adds = plan.direct or sz.W > 0 or sz.segs > 1
+    else:
+        # a slot tile without grouped rows takes no block
+        out_adds = sz.W > 0
+    return WaveHistLayout(plan, min_rows, prefetch, sz, 8 * sz.acc,
+                          4 * n if out_adds else 0)
+
+
+def _wave_hist_args(lay: WaveHistLayout) -> list:
+    """The plan and zeroing arguments of lgbt_wave_pass /
+    lgbt_wave_pass_fused."""
+    p, sz = lay.plan, lay.sizes
+    return [p.slots_per_tile, p.feats_per_tile, p.slot_tiles, p.feat_tiles,
+            sz.segs, lay.min_rows, int(p.merge), int(p.paired),
+            int(p.direct), sz.W, lay.zero_acc_bytes, lay.zero_out_bytes,
+            lay.prefetch]
+
+
 def wave_pass_cuda(X: torch.Tensor, vals: torch.Tensor,
                    leaf_of_row: torch.Tensor, table: torch.Tensor,
                    num_slots: int, num_bins: int,
@@ -698,25 +783,39 @@ def wave_pass_cuda(X: torch.Tensor, vals: torch.Tensor,
     """One wave's row sweep: returns (new leaf_of_row [N] int32, smaller-
     child slot histogram [K, C, F, B]). `table` is the [16, 128] int32
     semantic wave table (csrc/wave_table.cuh); every leaf id in it and in
-    leaf_of_row is below `num_leaves`."""
+    leaf_of_row is below `num_leaves`. Two steps on the card: the
+    membership pass (each row's new leaf and slot), then the slot
+    histogram by the tiled engine or its direct route (wave_hist_layout)."""
     dev = _cuda_device(X)
     F, N = _check_wave_args(X, leaf_of_row, table, num_leaves, dev)
     if not 1 <= num_slots <= MAX_SLOTS:
         raise ValueError(f"num_slots must be in [1, {MAX_SLOTS}], got "
                          f"{num_slots}")
     C = _check_hist_args(X, vals, F, N, num_slots, num_bins, dev)
+    lay = wave_hist_layout(num_slots, C, F, num_bins, N,
+                           vals.dtype == torch.int8, _sm_count(dev.index))
+    return _wave_pass_launch(X, vals, leaf_of_row, table, num_slots,
+                             num_bins, num_leaves, lay)
+
+
+def _wave_pass_launch(X, vals, leaf_of_row, table, K, B, L,
+                      lay: WaveHistLayout):
+    """Launch csrc/wave_pass.cu under `lay` on checked operands."""
+    dev = X.device
+    F, N = X.shape
+    C = vals.shape[0]
     quant = vals.dtype == torch.int8
-    new_lor = torch.empty_like(leaf_of_row)
-    out, acc = _hist_buffers(num_slots, C, F, num_bins, quant, dev)
     sms, stream = _launch_env(dev)
+    new_lor = torch.empty_like(leaf_of_row)
+    tb = _alloc_tiles(lay.sizes, (K, C, F, B), quant, dev)
     rc = _lib("wave_pass")(
         X.data_ptr(), vals.data_ptr(), int(quant), leaf_of_row.data_ptr(),
-        table.data_ptr(), new_lor.data_ptr(), out.data_ptr(),
-        acc.data_ptr() if acc is not None else None, N, F, C, num_slots,
-        num_bins, num_leaves, sms, stream)
+        table.data_ptr(), new_lor.data_ptr(), tb.out.data_ptr(),
+        _ptr(tb.acc), _ptr(tb.scratch), N, F, C, K, B, L,
+        *_wave_hist_args(lay), sms, stream)
     _raise_on(rc, "wave_pass")
     LAUNCHES["wave_pass"] += 1
-    return new_lor, out
+    return new_lor, tb.out
 
 
 def wave_relabel_cuda(X: torch.Tensor, leaf_of_row: torch.Tensor,
@@ -777,13 +876,13 @@ def _relabel_plain(X, lor, t):
     return torch.where((ka >= 0) & ~gl, nl0 + ka, lor.to(torch.int64))
 
 
-def wave_pass_plain(X: torch.Tensor, vals: torch.Tensor,
-                    leaf_of_row: torch.Tensor, table: torch.Tensor,
-                    num_slots: int, num_bins: int,
-                    num_leaves: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of wave_pass_cuda (`num_leaves` bounds the
-    leaf ids for the kernel's lookup table; the plain version compares
-    every row against every entry instead)."""
+def wave_member_plain(X: torch.Tensor, leaf_of_row: torch.Tensor,
+                      table: torch.Tensor, num_slots: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the wave kernels' membership pass
+    (csrc/wave_member.cuh): (new leaf_of_row [N] int32, slot [N] int32,
+    the candidate entry k < num_slots whose smaller child the row lands
+    in, else -1)."""
     t = table.to(torch.int64)
     new = _relabel_plain(X, leaf_of_row, t)
     K = num_slots
@@ -792,8 +891,20 @@ def wave_pass_plain(X: torch.Tensor, vals: torch.Tensor,
     p = cand[kc.clamp(min=0)]
     in_small = (kc >= 0) & (_go_left(p, X) == (((p >> 23) & 1) == 1))
     slot = torch.where(in_small, kc, -1).to(torch.int32)
-    hist = build_histogram_slots_plain(X, vals, slot, K, num_bins)
-    return new.to(torch.int32), hist
+    return new.to(torch.int32), slot
+
+
+def wave_pass_plain(X: torch.Tensor, vals: torch.Tensor,
+                    leaf_of_row: torch.Tensor, table: torch.Tensor,
+                    num_slots: int, num_bins: int,
+                    num_leaves: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of wave_pass_cuda (`num_leaves` bounds the
+    leaf ids for the kernel's lookup table; the plain version compares
+    every row against every entry instead): the membership pass, then the
+    slot histogram."""
+    new, slot = wave_member_plain(X, leaf_of_row, table, num_slots)
+    return new, build_histogram_slots_plain(X, vals, slot, num_slots,
+                                            num_bins)
 
 
 def wave_relabel_plain(X: torch.Tensor, leaf_of_row: torch.Tensor,

@@ -16,7 +16,25 @@ one CUDA device, under each variant of their tile plans.
   fused_tiled     the general fused wave, kernel #10
                   (csrc/wave_pass_fused_tiled.cu): a mid-tree wave of the
                   case's K candidates among 120 leaves, random decision
-                  bits, parents and child statistics from the real rows.
+                  bits, parents and child statistics from the real rows;
+  wave_pass       the wave megakernel, kernel #3 (csrc/wave_pass.cu), on
+                  the bench storage: chip_smoke.py's waves, "few" (64
+                  applied splits among 120 leaves, K candidates among the
+                  184 after them: a few percent of the rows land in a
+                  smaller child) and "half" (every leaf after K / 2 splits
+                  of K / 2 leaves a candidate: about half of the rows), K
+                  in {1, 16, 128}, and "half" K = 16 on 2^16 rows;
+  wave_pass_fused the narrow fused wave, kernel #9 (csrc/wave_pass_fused.cu),
+                  the same waves at K in {1, 16, 64}, parents and child
+                  statistics from the real rows.
+The wave kernels are timed through their wrappers ("auto"; "default" in
+a checkout without the membership pass, such as a parent given by
+--root), and kernel #3 also under its layout's variants: the bins of
+the other number of columns (1 or 4) loaded ahead of a row's adds, 32
+and 512 rows a piece, the row grouping and the direct route each turned
+over;
+their `device_ms_by_kernel` splits a call by device operation (memsets,
+membership, grouping, tiles, rounding, scan).
 
 --root DIR imports lightgbm_tpu_torch from DIR (default: the checkout this
 script lives in), so that two checkouts can be timed in turns on one card:
@@ -67,7 +85,8 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STORAGES = ("bench", "narrow", "criteo")
-KERNELS = ("slots", "rowwise", "rowwise_packed", "fused_tiled")
+KERNELS = ("slots", "rowwise", "rowwise_packed", "fused_tiled", "wave_pass",
+           "wave_pass_fused")
 
 
 def emit(obj):
@@ -207,6 +226,137 @@ def fused_case(torch, hc, gf, X, B, K, active, gen, rng):
     return args, int((slot_small >= 0).sum())
 
 
+def wave_table(rng, F, B, nl0, napp, K):
+    """[16, 128] int32 wave table (chip_smoke.py's): `napp` applied splits
+    among leaves [0, nl0), K candidates among the nl0 + napp leaves after
+    them, thresholds among the B - 1 bins in use."""
+    t = np.full((16, 128), -1, np.int64)
+    t[0, :napp] = rng.choice(nl0, napp, replace=False)
+    t[7, :K] = rng.choice(nl0 + napp, K, replace=False)
+    nb = B - 1
+    for r0 in (1, 8):
+        n = napp if r0 == 1 else K
+        t[r0, :n] = rng.randint(0, F, n)
+        t[r0 + 1, :n] = rng.randint(0, nb - 1, n)
+        t[r0 + 2, :n] = rng.randint(0, 2, n)
+        t[r0 + 3, :n] = rng.randint(0, 3, n)
+        t[r0 + 4, :n] = rng.randint(0, nb, n)
+        t[r0 + 5, :n] = nb
+    t[14, :K] = rng.randint(0, 2, K)
+    t[15] = nl0
+    return t.astype(np.int32)
+
+
+def wave_kernel(args, torch, hc, dev):
+    """--kernel wave_pass / wave_pass_fused: kernels #3 and #9 through
+    their wrappers, bitwise against their plain versions."""
+    from lightgbm_tpu_torch.ops import grow_fused as gf
+    from lightgbm_tpu_torch.ops.split import SplitHyperParams
+    fused = args.kernel == "wave_pass_fused"
+    gen = torch.Generator(device=dev).manual_seed(9)
+    rng = np.random.RandomState(9)
+    F, B, L, N_all = 28, 64, 255, 1 << 20
+    kmax = 64 if fused else 128
+    X_all = torch.randint(0, 63, (F, N_all), generator=gen, device=dev,
+                          dtype=torch.uint8)
+    N_all = X_all.shape[1]
+    vals_all = torch.randint(-8192, 8192, (2, N_all), generator=gen,
+                             device=dev, dtype=torch.int32
+                             ).to(torch.float32) / 1024.0
+    vals_all[1] = vals_all[1].abs()
+    hp = SplitHyperParams(min_data_in_leaf=20.0,
+                          min_sum_hessian_in_leaf=1e-3, lambda_l1=0.0,
+                          lambda_l2=0.0, max_delta_step=0.0,
+                          min_gain_to_split=0.0, path_smooth=0.0)
+    fmeta = torch.tensor(np.stack([np.full(F, 63), rng.randint(0, 3, F),
+                                   rng.randint(0, 63, F), np.zeros(F)]),
+                         dtype=torch.int32, device=dev)
+    fmask = torch.ones(F, dtype=torch.uint8, device=dev)
+    cases = [(K, active, N_all) for active in ("few", "half")
+             for K in (1, 16, kmax)] + [(16, "half", 1 << 16)]
+    for K, active, N in cases:
+        X = X_all if N == N_all else X_all[:, :N].contiguous()
+        vals = vals_all if N == N_all else vals_all[:, :N].contiguous()
+        nl0, napp = (120, 64) if active == "few" else (max(K // 2, 1),
+                                                       K // 2)
+        lor = torch.randint(0, nl0, (N,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        tbl = torch.from_numpy(wave_table(rng, F, B, nl0, napp, K)).to(dev)
+        t64 = tbl.to(torch.int64)
+        slot_all = hc._entry_of(hc.wave_relabel_plain(X, lor, tbl, L)
+                                .to(torch.int64), t64[7, :K])
+        pe = hc._pack_entries(t64, 8, t64[14] & 1)[:K][slot_all.clamp(min=0)]
+        small = (slot_all >= 0) & (hc._go_left(pe, X)
+                                   == (((pe >> 23) & 1) == 1))
+        rows = int(small.sum())
+        if fused:
+            slot_small = torch.where(small, slot_all, -1).to(torch.int32)
+            slot_all = slot_all.to(torch.int32)
+            v3 = torch.cat([vals, torch.ones((1, N), device=dev)])
+            par3 = hc.build_histogram_slots_plain(X, v3, slot_all, K, B)
+            sm3 = hc.build_histogram_slots_plain(X, v3, slot_small, K, B)
+            sil = (t64[14, :K] & 1) == 1
+            ptot, stot = par3[:, :, 0].sum(-1), sm3[:, :, 0].sum(-1)
+            ltot = torch.where(sil[:, None], stot, ptot - stot)
+            lr = torch.cat([ltot, ptot - ltot])
+            scal = torch.stack([lr[:, 0], lr[:, 1], lr[:, 2],
+                                -lr[:, 0] / (lr[:, 1] + 1.0),
+                                torch.cat([sil, sil]).float()]).contiguous()
+            wargs = (X, vals, lor, tbl,
+                     par3[:, :2].reshape(K, -1).contiguous(), scal, fmeta,
+                     fmask, K, B, L, hp)
+            ref = gf.wave_pass_fused_plain(*wargs)
+
+            def fn():
+                return gf.wave_pass_fused_cuda(*wargs)
+        else:
+            ref = hc.wave_pass_plain(X, vals, lor, tbl, K, B, L)
+
+            def fn():
+                return hc.wave_pass_cuda(X, vals, lor, tbl, K, B, L)
+        variants = {"default": (fn, None)}
+        if hasattr(hc, "wave_hist_layout"):
+            sms = hc._sm_count(dev.index or 0)
+            auto = hc.wave_hist_layout(K, 2, F, B, N, False, sms)
+            variants = {"auto": (fn, auto)}
+            if not fused:
+                # kernel #3 under the plan's variants: rows per piece,
+                # the row grouping and the direct route turned over
+                p = auto.plan
+                q = hc.WAVE_PREFETCH if auto.prefetch == 1 else 1
+                lays = {f"prefetch {q}": hc.wave_hist_layout(
+                    K, 2, F, B, N, False, sms, p, auto.min_rows, q)}
+                lays.update({f"{r} rows a piece": hc.wave_hist_layout(
+                    K, 2, F, B, N, False, sms, p, r) for r in (32, 512)})
+                lays["grouping flipped"] = hc.wave_hist_layout(
+                    K, 2, F, B, N, False, sms,
+                    p._replace(grouped=not (auto.sizes.W > 0),
+                               direct=False))
+                lays["direct flipped"] = hc.wave_hist_layout(
+                    K, 2, F, B, N, False, sms,
+                    p._replace(direct=not p.direct))
+                for v, lay in lays.items():
+                    variants[v] = ((lambda lay=lay: hc._wave_pass_launch(
+                        X, vals, lor, tbl, K, B, L, lay)), lay)
+        for vname, (f, lay) in variants.items():
+            if not wanted(args, vname):
+                continue
+            got = f()
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+                raise AssertionError(f"{args.kernel} K={K} {active} N={N} "
+                                     f"{vname}: not bitwise equal to the "
+                                     f"plain version")
+            ms, dms, by = timed(torch, f, args.reps)
+            emit({"kernel": args.kernel, "storage": "bench", "N": N,
+                  "F": F, "B": B, "K": K, "active": active, "rows": rows,
+                  "variant": vname,
+                  "plan": lay.plan._asdict() if lay is not None else None,
+                  "min_rows": lay.min_rows if lay is not None else None,
+                  "ms": ms, "device_ms": dms, "device_ms_by_kernel": by})
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE)
@@ -225,6 +375,8 @@ def main():
     import lightgbm_tpu_torch as lt
     from lightgbm_tpu_torch.ops import histogram_cuda as hc
     dev = torch.device("cuda", 0)
+    if args.kernel in ("wave_pass", "wave_pass_fused"):
+        return wave_kernel(args, torch, hc, dev)
     if args.kernel != "slots":
         return other_kernel(args, torch, lt, hc, dev)
     planned = hasattr(hc, "plan_hist_tiles")

@@ -81,7 +81,8 @@ PORT_KERNELS = ("hist_slots_kernel", "hist_tiles_kernel", "hist_direct_kernel",
                 "wave_pass_kernel", "wave_relabel_kernel",
                 "wave_apply_kernel", "bucketize_kernel",
                 "hist_rowwise_kernel", "lgbt_split_scan_kernel",
-                "fused_tiled_hist_kernel", "fused_member_kernel")
+                "fused_tiled_hist_kernel", "fused_member_kernel",
+                "wave_member_kernel", "hist_direct_round_kernel")
 
 
 def emit(obj):
