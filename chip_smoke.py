@@ -32,12 +32,16 @@ Phases, each printing one JSON line:
                with binning_impl=auto, which must take the device route
                (the bucketize kernel, launch count > 0) and give X_t
                bitwise equal to a host-route construct of the same data
-  4. bucketize the bucketize kernel against its plain version at
-               2^20 x 28, bitwise, on three tables: train mode from the
-               bench data's mappers, serve mode, and a synthetic table of
-               categorical, NaN-missing and zero-missing features fed
-               adversarial values (NaN, +-0, subnormals, +-inf, every bound
-               and one ulp either side)
+  4. bucketize the bucketize kernel against its plain version at 2^20,
+               2^18 (an ingest chunk), 256 and 8 rows (served buckets) x
+               28 features, bitwise in both output layouts, on three
+               tables: train mode from the bench data's mappers, serve
+               mode, and a synthetic table of categorical, NaN-missing and
+               zero-missing features fed adversarial values (NaN, +-0,
+               subnormals, +-inf, every bound and one ulp either side);
+               timed at each shape in the layout the main path writes
+               there, with the bound and the launch plan; and with a
+               permuted column selection at 2^18 and 256 rows, bitwise
   5. train     bench.py's model (binary, 255 leaves, max_bin 63) trained 8
                rounds through lightgbm_tpu_torch.train on the card; every
                training kernel's launch count must be > 0 and train AUC >
@@ -58,14 +62,13 @@ Phases, each printing one JSON line:
   8. train on  8 more rounds of the same Booster through update_batch must
                lift train AUC past 0.9
   9. the wave-apply route (wide, categorical and EFB data):
-     wave_apply      the wave_apply kernel against its plain version,
-                     bitwise, at 2^20 rows, Kd in {16, 128}
      criteo          the Criteo-shaped table (lightgbm_tpu_torch/utils/
                      synthetic.py: 2^20 x 39, 26 categorical columns,
                      max_bin 255) ingested on the device route (X_t
                      bitwise equal to the host route) and trained 8 rounds
                      on the apply route: wave_apply and the slot histogram
-                     launch, wave_pass and wave_relabel do not; train AUC
+                     launch, wave_pass and wave_relabel do not, and no
+                     dec_go_left decision matrix is built; train AUC
                      never falls between rounds and passes CRITEO_AUC_MIN;
                      the first tree equals the plain versions' tree
      row-wise        the slot histogram and the row-wise kernels (plain
@@ -82,14 +85,23 @@ Phases, each printing one JSON line:
                      bitwise equal to the f64 route and the device engine,
                      within 1e-5 of Booster.predict
      efb             2^19 rows of 30 one-hot sparse and 30 dense columns,
-                     4 rounds: bundles form, the apply route runs, the
-                     first tree equals the plain versions'; then 2 rounds
+                     4 rounds: bundles form, the apply route runs without
+                     a decision matrix, the first tree equals the plain
+                     versions'; then 2 rounds
                      under histogram_impl=fused: vetoed (efb_bundled), the
                      apply route, the same trees
      narrow_cat      2^19 rows of 4 count and 8 categorical Criteo-shaped
                      columns at max_bin 63, 2 rounds on the apply route,
                      whose slot histograms put several slots in a tile: the
                      first tree equals the plain versions'
+     wave_apply      the wave_apply kernel, which decides each row under
+                     the wave's split records, at 2^20 rows, L = 255, Kd
+                     in {16, 128}, on split records drawn from three
+                     storages (the bench storage with every missing type,
+                     the Criteo storage with 8-word bitsets, the EFB
+                     storage): bitwise against its plain version and
+                     against dec_go_left + wave_apply_plain, timed beside
+                     that decision build
  10. the fused routes (histogram_impl="fused"), whose kernels also run the
      best-split search of every candidate's two children:
      fused_kernels   kernel #9 (wave_pass_fused) against its plain version
@@ -663,17 +675,24 @@ def _synthetic_bucketize_case(rng, n, F):
     return mappers, np.ascontiguousarray(np.stack(cols, axis=1))
 
 
+BUCKETIZE_ROWS = (1 << 20, 1 << 18, 256, 8)
+
+
 def bucketize_phase(bk, torch, dev, X, train_ds, rng):
-    """Phase 4: the bucketize kernel against its plain version at the
-    ingest shape on three tables, bitwise; times the kernel (into the
-    feature-major X_t layout ingest writes), its plain version and, on the
-    numeric-only train table, torch.searchsorted over the pre-transposed
-    rows as the library yardstick."""
-    n, F = X.shape
+    """Phase 4: the bucketize kernel against its plain version on three
+    tables, at the ingest shape (2^20 rows), an ingest chunk (2^18) and
+    the served buckets of 256 and 8 rows, bitwise in both output layouts;
+    times the kernel in the layout the main path writes at that shape
+    (the feature-major X_t at ingest, row-major bins when serving), its
+    plain version and, on the numeric-only train table at 2^20 rows,
+    torch.searchsorted over the pre-transposed rows as the library
+    yardstick. Returns the 2^20-row records by table."""
+    n_all, F = X.shape
     serve_mappers = _mappers_by_feature(train_ds)
-    syn_mappers, Xs = _synthetic_bucketize_case(rng, n, F)
+    syn_mappers, Xs = _synthetic_bucketize_case(rng, n_all, F)
+    train_table = bk.pack_bin_table(train_ds.mappers, mode="train")
     cases = [
-        ("train", bk.pack_bin_table(train_ds.mappers, mode="train"), X,
+        ("train", train_table, X,
          torch.as_tensor(np.asarray(train_ds.real_feature_index,
                                     np.int32)).to(dev)),
         ("serve", bk.pack_bin_table(serve_mappers, mode="serve",
@@ -681,43 +700,72 @@ def bucketize_phase(bk, torch, dev, X, train_ds, rng):
         ("synthetic", bk.pack_bin_table(syn_mappers, mode="serve"), Xs,
          None),
     ]
+    # a column selection that is not the identity (each table row reads
+    # another column of X): bitwise too
+    tt = bk.upload_bin_table(train_table, dev)
+    perm = torch.from_numpy(rng.permutation(F).astype(np.int32)).to(dev)
+    Xp = torch.from_numpy(X[:1 << 18]).to(dev)
+    for n in (1 << 18, 256):
+        check(torch.equal(bk.bucketize_cuda(Xp[:n], tt, cols=perm),
+                          bk.bucketize_plain(Xp[:n], tt, cols=perm)),
+              f"bucketize with permuted columns n={n}: not bitwise equal")
+    del Xp
     recs = {}
     for name, table, Xh, cols in cases:
         tt = bk.upload_bin_table(table, dev)
-        Xd = torch.from_numpy(Xh).to(dev)
-        got = bk.bucketize_cuda(Xd, tt, cols=cols)
-        ref = bk.bucketize_plain(Xd, tt, cols=cols)
-        torch.cuda.synchronize()
-        check(torch.equal(got, ref), f"bucketize {name}: not bitwise equal "
-              f"({int((got != ref).sum())} of {got.numel()} bins differ)")
-        X_t = torch.empty((F, n), dtype=torch.uint8, device=dev)
-        bk.bucketize_cuda(Xd, tt, out=X_t.t(), cols=cols)
-        check(torch.equal(X_t.t(), ref),
-              f"bucketize {name}: feature-major output differs")
-        ms, dms = timings(lambda: bk.bucketize_cuda(Xd, tt, out=X_t.t(),
-                                                    cols=cols), 20)
-        plain_ms = time_ms(lambda: bk.bucketize_plain(Xd, tt, cols=cols),
-                           2, 1)
-        lib_ms = lib_dms = None
-        if name == "train":
-            # numeric-only table: searchsorted of each feature's rows
-            # against its floored bounds is the same count (before the
-            # clamp), one library call over the pre-transposed rows
-            XT = Xd[:, cols.long()].t().contiguous()
-            lib_ms, lib_dms = timings(lambda: torch.searchsorted(
-                tt.table, XT, side="left"), 20)
-            del XT
-        nbytes = n * F * 4 + n * F + F * tt.B * 8 + F * 32
-        bms, by = bound_ms(nbytes, 0)
-        rec = dict(name="bucketize", table=name, mode=table.mode, n=n, F=F,
-                   B=tt.B, max_abs_err=0.0, tol=0.0, ms=ms, device_ms=dms,
-                   plain_ms=plain_ms, library_ms=lib_ms,
-                   library_device_ms=lib_dms, bound_ms=bms,
-                   bound_by=by, bound_us=bms * 1e3)
-        emit({"phase": "bucketize", "kernel_ms": ms, **rec})
-        recs[name] = rec
-        del Xd, got, ref, X_t
+        Xa = torch.from_numpy(Xh).to(dev)
+        for n in BUCKETIZE_ROWS:
+            Xd = Xa[:n]
+            ref = bk.bucketize_plain(Xd, tt, cols=cols)
+            got = bk.bucketize_cuda(Xd, tt, cols=cols)
+            X_t = torch.empty((F, n), dtype=torch.uint8, device=dev)
+            bk.bucketize_cuda(Xd, tt, out=X_t.t(), cols=cols)
+            torch.cuda.synchronize()
+            check(torch.equal(got, ref),
+                  f"bucketize {name} n={n}: not bitwise equal "
+                  f"({int((got != ref).sum())} of {got.numel()} bins "
+                  f"differ)")
+            check(torch.equal(X_t.t(), ref),
+                  f"bucketize {name} n={n}: feature-major output differs")
+            layout = "feature-major" if n >= 1 << 18 else "row-major"
+            if layout == "feature-major":
+                def call():
+                    return bk.bucketize_cuda(Xd, tt, out=X_t.t(), cols=cols)
+            else:
+                def call():
+                    return bk.bucketize_cuda(Xd, tt, cols=cols)
+            ms, dms = timings(call, 20)
+            plain_ms = time_ms(lambda: bk.bucketize_plain(Xd, tt, cols=cols),
+                               2, 1)
+            lib_ms = lib_dms = None
+            if name == "train" and n == n_all:
+                # numeric-only table: searchsorted of each feature's rows
+                # against its floored bounds is the same count (before the
+                # clamp), one library call over the pre-transposed rows
+                XT = Xd[:, cols.long()].t().contiguous()
+                lib_ms, lib_dms = timings(lambda: torch.searchsorted(
+                    tt.table, XT, side="left"), 20)
+                del XT
+            nbytes = n * F * 4 + n * F + F * tt.B * 8 + F * 32
+            bms, by = bound_ms(nbytes, 0)
+            plan = bk.plan_bucketize(n, F, tt.B, tt.grids.shape[1] - 2,
+                                     _sms(torch, dev))
+            rec = dict(name="bucketize", table=name, mode=table.mode, n=n,
+                       F=F, B=tt.B, layout=layout, max_abs_err=0.0, tol=0.0,
+                       ms=ms, device_ms=dms, plain_ms=plain_ms,
+                       library_ms=lib_ms, library_device_ms=lib_dms,
+                       bound_ms=bms, bound_by=by, bound_us=bms * 1e3,
+                       plan=plan._asdict())
+            emit({"phase": "bucketize", "kernel_ms": ms, **rec})
+            if n == n_all:
+                recs[name] = rec
+            del got, ref, X_t
+        del Xa
     return recs
+
+
+def _sms(torch, dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _auc(p, y):
@@ -840,50 +888,154 @@ def _grid_vals(torch, gen, C, N, dev):
     return v
 
 
-def wave_apply_phase(hc, torch, dev):
-    """The wave_apply kernel against its plain version, bitwise, at
-    N = 2^20 rows, L = 255 leaves, Kd in {16, 128}: a mid-tree wave of
-    min(Kd, 64) applied splits among 120 leaves and Kd candidates among
-    the leaves after them, random decision bits."""
+def _apply_records(torch, rng, meta, cfg, n, dev):
+    """n split records drawn from a storage's feature metadata: features,
+    thresholds inside their bins, default_left, and bitsets over the bins
+    of the categorical ones."""
+    nb = meta.num_bins.cpu().numpy().astype(np.int64)
+    cat_f = meta.is_categorical.cpu().numpy() & cfg.has_categorical
+    feat = rng.randint(0, len(nb), n)
+    thr = np.array([rng.randint(0, max(nb[f] - 1, 1)) for f in feat])
+    dl = rng.randint(0, 2, n).astype(bool)
+    iscat = cat_f[feat]
+    bits = np.zeros((n, cfg.cat_words), np.int64)
+    for i in np.flatnonzero(iscat):
+        for b in np.flatnonzero(rng.rand(nb[feat[i]]) < 0.3):
+            bits[i, b >> 5] |= 1 << (b & 31)
+    return [torch.from_numpy(a).to(dev)
+            for a in (feat, thr, dl, iscat, bits)]
+
+
+def wave_apply_phase(hc, torch, dev, storages):
+    """The wave_apply kernel (#4), which decides each row under the wave's
+    split records, at N = 2^20 rows, L = 255 leaves, Kd in {16, 128}: a
+    mid-tree wave of min(Kd, 64) applied splits among 120 leaves and Kd
+    candidates among the leaves after them, on each storage of
+    `storages` ([(name, X_t, meta, cfg)]: numeric with every missing type,
+    Criteo with 8-word categorical bitsets at B = 256, and EFB-bundled).
+    Bitwise against its plain version and against the parent's
+    composition, the decision matrix of dec_go_left + wave_apply_plain;
+    timed beside that decision build (`parent_path_ms`: dec_go_left for
+    the applied entries and for the candidates with the land bit, which
+    the parent's route ran before its kernel, whose own dec-reading
+    kernel is no longer in the tree). Returns the Criteo Kd = 128
+    record."""
+    from lightgbm_tpu_torch.ops import grow_wave as tw
     gen = torch.Generator(device=dev).manual_seed(9)
-    N, L, nl0 = N_ROWS, N_LEAVES, 120
-    lor = torch.randint(0, nl0, (N,), generator=gen, device=dev,
-                        dtype=torch.int32)
     rng = np.random.RandomState(13)
-    recs = {}
-    for Kd in (16, 128):
-        napp = min(Kd, 64)
-        t = np.full((16, 128), -1, np.int32)
-        t[0, :napp] = rng.choice(nl0, napp, replace=False)
-        t[7, :Kd] = rng.choice(nl0 + napp, Kd, replace=False)
-        t[15] = nl0
-        tbl = torch.from_numpy(t).to(dev)
-        dec = torch.randint(0, 4, (Kd, N), generator=gen, device=dev,
-                            dtype=torch.int32).to(torch.int8)
-        got = hc.wave_apply_cuda(dec, lor, tbl, L)
-        ref = hc.wave_apply_plain(dec, lor, tbl, L)
-        torch.cuda.synchronize()
-        check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
-              f"wave_apply Kd={Kd}: not bitwise equal")
-        # bytes this data needs: leaf ids in, new leaf ids and slots out,
-        # one dec byte per row in an applied leaf and per row in a
-        # candidate leaf after the relabel
-        app_rows = int(torch.isin(lor, tbl[0, :napp]).sum())
-        cand_rows = int(torch.isin(ref[0], tbl[7, :Kd]).sum())
-        nbytes = 12 * N + app_rows + cand_rows + 16 * 128 * 4
-        bms, by = bound_ms(nbytes, 0)
-        ms, dms = timings(lambda: hc.wave_apply_cuda(dec, lor, tbl, L), 50)
-        plain_ms = time_ms(lambda: hc.wave_apply_plain(dec, lor, tbl, L),
-                           5)
-        rec = dict(name="wave_apply", Kd=Kd, L=L, max_abs_err=0.0, tol=0.0,
-                   ms=ms, device_ms=dms, plain_ms=plain_ms, library_ms=None,
-                   bound_ms=bms,
-                   bound_by=by, bound_us=bms * 1e3,
-                   slots=int((ref[1] >= 0).sum()))
-        emit({"phase": "kernels", "kernel_ms": ms, **rec})
-        recs[Kd] = rec
-        del dec
-    return recs[128]
+    L, nl0 = N_LEAVES, 120
+    out = None
+    for name, X_t, meta, cfg in storages:
+        N = X_t.shape[1]
+        lor = torch.randint(0, nl0, (N,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        for Kd in (16, 128):
+            napp = min(Kd, 64)
+            fa, ta, da, ca, ba = _apply_records(torch, rng, meta, cfg, napp,
+                                                dev)
+            fc, tc, dc, cc, bc = _apply_records(torch, rng, meta, cfg, Kd,
+                                                dev)
+            sil = torch.from_numpy(rng.randint(0, 2, Kd).astype(bool)) \
+                .to(dev)
+            tbl = torch.full((16, 128), -1, dtype=torch.int32, device=dev)
+            tbl[0, :napp] = torch.from_numpy(
+                rng.choice(nl0, napp, replace=False)).to(dev)
+            tbl[1:7, :napp] = tw._split_rows(fa, ta, da, meta)
+            tbl[7, :Kd] = torch.from_numpy(
+                rng.choice(nl0 + napp, Kd, replace=False)).to(dev)
+            tbl[8:14, :Kd] = tw._split_rows(fc, tc, dc, meta)
+            tbl[14, :Kd] = sil.to(torch.int32)
+            tbl[15] = nl0
+            cats = (tw.pack_wave_cats(ca, ba, cc, bc, cfg.cat_words)
+                    if cfg.has_categorical else None)
+            bmap = tw.wave_bundle_map(cfg, dev)
+            args = (X_t, lor, tbl, cats, bmap, Kd, L)
+
+            def dec_build():
+                dec = torch.zeros((Kd, N), dtype=torch.uint8, device=dev)
+                dec[:napp] = tw.dec_go_left(X_t, fa, ta, da, ca, ba, meta,
+                                            cfg)
+                glc = tw.dec_go_left(X_t, fc, tc, dc, cc, bc, meta, cfg)
+                dec |= (glc == sil[:, None]).to(torch.uint8) << 1
+                return dec
+            got = hc.wave_apply_cuda(*args)
+            ref = hc.wave_apply_rows_plain(*args)
+            dec = dec_build()
+            par = hc.wave_apply_plain(dec, lor, tbl, L)
+            torch.cuda.synchronize()
+            del dec
+            check(all(torch.equal(a, b) for a, b in zip(got, ref)),
+                  f"wave_apply {name} Kd={Kd}: not bitwise equal to its "
+                  f"plain version")
+            check(all(torch.equal(a, b) for a, b in zip(got, par)),
+                  f"wave_apply {name} Kd={Kd}: not bitwise equal to "
+                  f"dec_go_left + wave_apply_plain")
+            # bytes this data needs: leaf ids in, new leaf ids and slots
+            # out, one storage byte per row in an applied leaf and per row
+            # in a candidate leaf after the relabel, the tables
+            app_rows = int(torch.isin(lor, tbl[0, :napp]).sum())
+            cand_rows = int(torch.isin(ref[0], tbl[7, :Kd]).sum())
+            nbytes = 12 * N + app_rows + cand_rows + 16 * 128 * 4 \
+                + (0 if cats is None else cats.numel() * 4)
+            bms, by = bound_ms(nbytes, 0)
+            ms, dms = timings(lambda: hc.wave_apply_cuda(*args), 50)
+            parent_ms, parent_dms = timings(dec_build, 10)
+            plain_ms = time_ms(lambda: hc.wave_apply_rows_plain(*args), 5)
+            rec = dict(name="wave_apply", storage=name, Kd=Kd, L=L, N=N,
+                       categorical_entries=int(ca.sum() + cc.sum()),
+                       bundled=cfg.bundled, max_abs_err=0.0, tol=0.0,
+                       ms=ms, device_ms=dms, plain_ms=plain_ms,
+                       library_ms=None, parent_path_ms=parent_ms,
+                       parent_path_device_ms=parent_dms, bound_ms=bms,
+                       bound_by=by, bound_us=bms * 1e3,
+                       rows_applied=app_rows, rows_candidate=cand_rows,
+                       slots=int((ref[1] >= 0).sum()))
+            emit({"phase": "kernels", "kernel_ms": ms, **rec})
+            if name == "criteo" and Kd == 128:
+                out = rec
+            del got, ref, par
+    check(out is not None, "wave_apply: no Criteo Kd = 128 case")
+    return out
+
+
+def _numeric_storage(torch, X_t, dev):
+    """The bench storage with every missing type: feature metadata of 63
+    bins whose missing type cycles None / Zero / NaN, default bins spread
+    over the bins."""
+    from lightgbm_tpu_torch.ops.grow import GrowConfig
+    from lightgbm_tpu_torch.ops.split import FeatureMeta
+    F = X_t.shape[0]
+    f = torch.arange(F, device=dev)
+    meta = FeatureMeta(num_bins=torch.full((F,), 63, dtype=torch.int32,
+                                           device=dev),
+                       missing_type=(f % 3).to(torch.int32),
+                       default_bin=((f * 7) % 63).to(torch.int32),
+                       is_categorical=torch.zeros(F, dtype=torch.bool,
+                                                  device=dev))
+    cfg = GrowConfig(num_leaves=N_LEAVES, max_depth=-1, min_data_in_leaf=20.0,
+                     min_sum_hessian_in_leaf=1e-3, lambda_l1=0.0,
+                     lambda_l2=0.0, max_delta_step=0.0,
+                     min_gain_to_split=0.0, path_smooth=0.0,
+                     num_bins_padded=N_BINS)
+    return "numeric", X_t, meta, cfg
+
+
+class _CallCount:
+    """Counts the calls of a module function while installed."""
+
+    def __init__(self, mod, name):
+        self.mod, self.name, self.n = mod, name, 0
+        self.fn = getattr(mod, name)
+
+    def __enter__(self):
+        def counted(*a, **k):
+            self.n += 1
+            return self.fn(*a, **k)
+        setattr(self.mod, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.fn)
 
 
 def rowwise_phase(hc, hr, torch, dev, X_t, tiers, B):
@@ -1023,8 +1175,10 @@ def _plain_first_tree(torch, gbdt, n):
 
 def criteo_phase(lt, hc, torch, dev):
     """Ingest the Criteo-shaped table on the device route, train 8 rounds
-    on the wave-apply route, and hold the first tree to the plain
-    versions'. Returns (booster, dataset, held-out rows, launches)."""
+    on the wave-apply route (no dec_go_left decision matrix: each row is
+    decided inside wave_apply), and hold the first tree to the plain
+    versions'. Returns (booster, dataset, launches)."""
+    from lightgbm_tpu_torch.ops import grow_wave as tw
     from lightgbm_tpu_torch.utils.synthetic import (CRITEO_CAT_COLUMNS,
                                                     criteo_like)
     X, y = criteo_like(N_ROWS)
@@ -1069,7 +1223,8 @@ def criteo_phase(lt, hc, torch, dev):
     hc.reset_launch_counts()
     torch.cuda.synchronize()
     t_train = time.perf_counter()
-    bst = lt.train(params, ds, num_boost_round=8, callbacks=[stamp])
+    with _CallCount(tw, "dec_go_left") as dec_calls:
+        bst = lt.train(params, ds, num_boost_round=8, callbacks=[stamp])
     torch.cuda.synchronize()
     launches = dict(hc.LAUNCHES)
     iter_ms = [(b - a) * 1e3 for a, b in zip([t_train] + resumes[:-1],
@@ -1080,13 +1235,16 @@ def criteo_phase(lt, hc, torch, dev):
           "grow_route": g.grow_route, "hist_route": g.hist_route,
           "num_bins_padded": g.num_bins_padded, "iter_ms": iter_ms,
           "steady_ms_per_iter": float(np.mean(iter_ms[1:])),
-          "launches": launches, "train_auc_per_round": aucs,
+          "launches": launches, "dec_go_left_calls": dec_calls.n,
+          "train_auc_per_round": aucs,
           "leaves": [t.num_leaves for t in trees],
           "categorical_splits": [t.num_cat for t in trees]})
     check(g.grow_route == "apply" and g.hist_route == "slots",
           f"Criteo trained on route {g.grow_route}/{g.hist_route}")
     check(launches["wave_apply"] > 0 and launches["build_histogram_slots"]
           > 0, "the apply route never launched wave_apply / the histogram")
+    check(dec_calls.n == 0, f"the apply route built a decision matrix "
+                            f"({dec_calls.n} dec_go_left calls)")
     check(launches["wave_pass"] == 0 and launches["wave_relabel"] == 0,
           "the apply route launched the megakernel")
     check(all(b >= a for a, b in zip(aucs, aucs[1:])),
@@ -1190,9 +1348,12 @@ def criteo_serve_phase(hc, torch, bst):
 
 def efb_phase(lt, hc, torch):
     """2^19 rows of 30 one-hot sparse and 30 dense columns, max_bin 63, 4
-    rounds: bundles form, the apply route runs, and the first tree equals
-    the plain versions'; 2 rounds under histogram_impl=fused are vetoed
-    (efb_bundled), take the apply route and grow the same trees."""
+    rounds: bundles form, the apply route runs without a decision matrix,
+    and the first tree equals the plain versions'; 2 rounds under
+    histogram_impl=fused are vetoed (efb_bundled), take the apply route
+    and grow the same trees. Returns the bundled storage (name, X_t of
+    2^20 rows, meta, grower configuration)."""
+    from lightgbm_tpu_torch.ops import grow_wave as tw
     from lightgbm_tpu_torch.utils.synthetic import efb_like
     n = N_ROWS // 2
     X, y = efb_like(n)
@@ -1203,8 +1364,9 @@ def efb_phase(lt, hc, torch):
     hc.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    bst = lt.train(params, lt.Dataset(X, label=y, params=params),
-                   num_boost_round=4)
+    with _CallCount(tw, "dec_go_left") as dec_calls:
+        bst = lt.train(params, lt.Dataset(X, label=y, params=params),
+                       num_boost_round=4)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(hc.LAUNCHES)
@@ -1217,6 +1379,7 @@ def efb_phase(lt, hc, torch):
           "multi_feature_bundles": sum(len(b) > 1 for b in ds.bundles or []),
           "grow_route": g.grow_route, "hist_route": g.hist_route,
           "wall_s": wall, "launches": launches,
+          "dec_go_left_calls": dec_calls.n,
           "train_auc": bst.eval_train()[0][2],
           "first_tree_same": lv_err is not None,
           "leaf_value_max_abs_err": lv_err})
@@ -1224,6 +1387,8 @@ def efb_phase(lt, hc, torch):
           "EFB formed no bundles")
     check(g.grow_route == "apply" and launches["wave_apply"] > 0,
           "the EFB run did not take the apply route")
+    check(dec_calls.n == 0, f"the EFB apply route built a decision matrix "
+                            f"({dec_calls.n} dec_go_left calls)")
     check(lv_err is not None and lv_err <= 1e-6,
           f"EFB first tree differs from the plain versions' ({lv_err})")
     # histogram_impl=fused on bundled storage: vetoed, the apply route
@@ -1243,6 +1408,8 @@ def efb_phase(lt, hc, torch):
           f"{gf_.fused_veto_reasons}")
     check(len(errs) == 2 and all(e is not None and e == 0.0 for e in errs),
           f"EFB under histogram_impl=fused grew other trees ({errs})")
+    # its rows twice over: the 2^20 rows of the wave_apply phase
+    return "efb", torch.cat([g.X_t, g.X_t], dim=1), g.meta, g.grow_cfg
 
 
 def narrow_cat_phase(lt, hc, torch):
@@ -1876,8 +2043,10 @@ def main():
     # table trained col-wise, row-wise and nibble-packed, served, and EFB;
     # and the fused routes' Criteo half: kernel #10 and the Criteo table
     # under histogram_impl=fused
-    krec["wave_apply"] = wave_apply_phase(hc, torch, dev)
     bst_c, ds_c, c_launches = criteo_phase(lt, hc, torch, dev)
+    g_c = bst_c._gbdt
+    apply_storages = [_numeric_storage(torch, gbdt.X_t, dev),
+                      ("criteo", g_c.X_t, g_c.meta, g_c.grow_cfg)]
     krec["wave_pass_fused_tiled"] = fused_tiled_phase(hc, gf, torch, dev,
                                                       bst_c._gbdt.X_t)
     cf_launches = criteo_fused_phase(lt, hc, torch, bst_c.params, ds_c)
@@ -1887,9 +2056,11 @@ def main():
                               bst_c._gbdt.num_bins_padded))
     rw_launches = rowwise_runs_phase(lt, hc, torch, bst_c, ds_c)
     criteo_serve_phase(hc, torch, bst_c)
-    del bst_c, ds_c, h_c
-    efb_phase(lt, hc, torch)
+    del bst_c, ds_c, h_c, g_c
+    apply_storages.append(efb_phase(lt, hc, torch))
     narrow_cat_phase(lt, hc, torch)
+    krec["wave_apply"] = wave_apply_phase(hc, torch, dev, apply_storages)
+    del apply_storages
 
     src = {"build_histogram_slots": "hist_slots.cu",
            "take_leaf_values": "take_leaf_values.cu",

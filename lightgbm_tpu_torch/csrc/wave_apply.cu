@@ -1,85 +1,210 @@
-// Split application and candidate slot assignment from precomputed
-// decision bits, the wide / categorical / EFB wave route.
+// Decide-and-apply pass of the wide / categorical / EFB wave route: each
+// row's applied split and candidate split are decided here, from the
+// wave's split records, and no [Kd, N] decision matrix is built.
 //
 // Replaces lightgbm_tpu/ops/histogram_pallas.py::wave_apply_pallas
-// (`_wave_apply_kernel`, pallas_call at :658). Inputs: dec [Kd, N] int8
-// (bit 0 = row goes left under applied entry k, bit 1 = row lands in
-// candidate k's smaller child), leaf_of_row [N] int32 and the [16, 128]
-// wave table (row 0 applied leaf ids, row 7 candidate leaf ids, -1 =
-// inactive, row 15 nl0). Outputs: new_lor = nl0 + k for rows of applied
-// entry k whose bit 0 is 0 (else unchanged), and slot = k for rows whose
-// new leaf is candidate k and whose bit 1 is 1 (else -1). Entries at Kd or
-// above are inactive. A leaf named by two active entries matches neither,
+// (`_wave_apply_kernel`, pallas_call at :658) together with the decision
+// build that feeds it (lightgbm_tpu/ops/grow_wave.py:896-929
+// `dec_go_left`). The TPU computes every row's go-left bit under every
+// entry in dense compare-select chains, because gathers from small tables
+// crawl there (grow_wave.py:937-940), and the membership kernel reads one
+// bit per row from that matrix. Here a row looks its leaf up in a
+// leaf -> entry map in shared memory, reads the one storage byte its
+// entry's feature needs and tests it, the per-row form of the TPU's
+// `table_go_left` (grow_wave.py:931-995).
+//
+// Inputs: X [C, N] uint8 storage columns, leaf_of_row [N], the [16, 128]
+// wave table (wave_table.cuh: rows 0-6 applied leaf, feature, threshold,
+// default_left, missing_type, default_bin, num_bins; rows 7-14 the same
+// for the candidates plus smaller_is_left; row 15 nl0) with full int32
+// feature ids, the entries' categorical flags and bitsets ([2, 128,
+// 1 + W] int32: flag, then W 32-bit words; null when the data has no
+// categorical feature), and for EFB storage the [4, F] bundle map
+// (column, offset (-1 = raw singleton), num_bin, default bin of each
+// feature; null: feature f is column f). Outputs: new_lor = nl0 + k for
+// the rows of applied entry k that go right (else unchanged), and slot =
+// k for the rows whose new leaf is candidate k's and that land in its
+// smaller child (go-left == smaller_is_left), else -1.
+//
+// Per row, the rules of dec_go_left: the feature clamps to [0, F); a
+// bundled feature's bin is unpacked from its column (FastFeatureBundling's
+// inverse, dataset.cpp:251), a raw singleton read as it is; a categorical
+// entry tests bit `bin` of its bitset; a numeric one sends its missing bin
+// (default_bin under MissingType::Zero, num_bins - 1 under NaN) to
+// default_left and the rest to `bin <= threshold`. Entries at Kd or above
+// are inactive, and a leaf named by two active entries matches neither,
 // as the TPU kernel's `inA == 1` / `inC == 1` rule has it.
 //
-// The TPU kernel compares every row against all 128 entries, because it has
-// no gather. Here each block builds a leaf -> entry map in shared memory
-// (the wave_table.cuh layout, LGBT_LEAF_CAP leaves) once, and each row does
-// one lookup per table and reads at most two bytes of dec, only when its
-// leaf is in the table.
-//
-// Bound: bytes. A row reads its leaf id (4 B) and at most two dec bytes and
-// writes its new leaf id and slot (8 B): about 14 B per row, 14.7 MB at
-// N = 2^20. Design: a grid-stride loop of one thread per row over a
-// persistent grid, coalesced [N] reads and writes; the dec reads are one
-// byte each, coalesced where neighbouring rows share an entry.
-#include "wave_table.cuh"
+// Bound: bytes. A row reads its leaf id (4 B), at most one storage byte
+// for its applied test and one for its candidate test, and writes its new
+// leaf id and slot (8 B). The storage bytes are scattered (neighbouring
+// rows sit in different leaves), but a Criteo-sized X (2^20 x 39, 41 MB)
+// stays in the 50 MB L2, so they are L2 sectors, not DRAM ones. Design:
+// each block stages both entry tables (one 16-byte record each), the
+// bitsets of the active entries and the two leaf maps once, then runs a
+// persistent grid-stride loop (four blocks an SM) in which a thread takes
+// four rows a grid stride apart, so that four rows' chains of dependent
+// loads are in flight together.
+#include "common.cuh"
 
-#define LGBT_DUP (-2)   // leaf named by more than one active entry
+#define LGBT_AP_ENTRIES 128   // LGBT_T_ENTRIES: entries of a wave table
+#define LGBT_AP_MAX_W 8       // bitset words of an entry (bins <= 256)
+#define LGBT_AP_ILP 4         // rows a thread carries at once
+#define LGBT_DUP (-2)         // leaf named by more than one active entry
 
-// map[leaf] = k for the active entries k < Kd of table row `row`; a leaf
+// An entry's split as one 16-byte record:
+//   x column of X to read
+//   y thr+1 (9 bits, thr clamped to [-1, 255]) | (miss_bin+1) << 9 (9 bits,
+//     -1 = none) | default_left << 18 | is_cat << 19 | smaller_is_left << 20
+//   z bundle offset, -1 = the column's bin as it is
+//   w bundle num_bin | bundle default bin << 16
+__device__ __forceinline__ int4 ap_entry(const int* __restrict__ t, int row0,
+                                         int k, int sil, int is_cat,
+                                         const int* __restrict__ bundle,
+                                         int F) {
+  const int feat = t[(row0 + 0) * LGBT_AP_ENTRIES + k];
+  const int thr = t[(row0 + 1) * LGBT_AP_ENTRIES + k];
+  const int dl = t[(row0 + 2) * LGBT_AP_ENTRIES + k] != 0;
+  const int mt = t[(row0 + 3) * LGBT_AP_ENTRIES + k];
+  const int db = t[(row0 + 4) * LGBT_AP_ENTRIES + k];
+  const int nb = t[(row0 + 5) * LGBT_AP_ENTRIES + k];
+  int mb = mt == 1 ? db : (mt == 2 ? nb - 1 : -1);
+  if (mb < 0 || mb > 255) mb = -1;     // no uint8 bin equals it
+  const int f = min(max(feat, 0), F - 1);
+  int4 e;
+  e.x = bundle ? bundle[f] : f;
+  e.y = (min(max(thr, -1), 255) + 1) | ((mb + 1) << 9) | (dl << 18) |
+        ((is_cat != 0) << 19) | ((sil & 1) << 20);
+  e.z = bundle ? bundle[F + f] : -1;
+  e.w = bundle ? ((bundle[2 * F + f] & 0xFFFF) | (bundle[3 * F + f] << 16))
+               : 0;
+  return e;
+}
+
+// go-left of row r under entry e (bitset `bits` of W words)
+__device__ __forceinline__ bool ap_go_left(int4 e, const unsigned* bits,
+                                           int W, int bin) {
+  if (e.z >= 0) {
+    const int nbf = e.w & 0xFFFF, dbf = e.w >> 16;
+    const int rb = bin - e.z;
+    bin = (rb >= 0 && rb < nbf - 1) ? rb + (rb >= dbf) : dbf;
+  }
+  const int y = e.y;
+  if ((y >> 19) & 1) return (bits[min(bin >> 5, W - 1)] >> (bin & 31)) & 1u;
+  const int thr = (y & 0x1FF) - 1, mb = ((y >> 9) & 0x1FF) - 1;
+  return bin == mb ? ((y >> 18) & 1) != 0 : bin <= thr;
+}
+
+// map[leaf] = k for the active entries k < Kd of the leaf row `t`; a leaf
 // named twice becomes LGBT_DUP.
-__device__ __forceinline__ void lgbt_map_entries(const int* __restrict__ t,
-                                                 int row, int Kd,
-                                                 int leaf_cap, int* map) {
-  if (threadIdx.x < LGBT_T_ENTRIES && threadIdx.x < Kd) {
-    const int leaf = t[row * LGBT_T_ENTRIES + threadIdx.x];
+__device__ __forceinline__ void ap_map_entries(const int* __restrict__ t,
+                                               int Kd, int leaf_cap,
+                                               int* map) {
+  const int k = threadIdx.x;
+  if (k < LGBT_AP_ENTRIES && k < Kd) {
+    const int leaf = t[k];
     if (leaf >= 0 && leaf < leaf_cap) {
-      const int old = atomicCAS(map + leaf, -1, (int)threadIdx.x);
+      const int old = atomicCAS(map + leaf, -1, k);
       if (old != -1) atomicExch(map + leaf, LGBT_DUP);
     }
   }
 }
 
 __global__ void __launch_bounds__(LGBT_THREADS)
-wave_apply_kernel(const int8_t* __restrict__ dec,
+wave_apply_kernel(const uint8_t* __restrict__ X,
                   const int* __restrict__ lor_in,
-                  const int* __restrict__ table, int* __restrict__ lor_out,
-                  int* __restrict__ slot_out, long long N, int Kd,
-                  int leaf_cap) {
-  __shared__ int app_of[LGBT_LEAF_CAP], cand_of[LGBT_LEAF_CAP];
-  for (int i = threadIdx.x; i < leaf_cap; i += blockDim.x) {
-    app_of[i] = -1;
-    cand_of[i] = -1;
+                  const int* __restrict__ table,
+                  const int* __restrict__ cats, int W,
+                  const int* __restrict__ bundle, int F,
+                  int* __restrict__ lor_out, int* __restrict__ slot_out,
+                  long long N, int Kd, int leaf_cap) {
+  __shared__ int4 ent[2 * LGBT_AP_ENTRIES];   // applied, then candidates
+  __shared__ unsigned bits[2 * LGBT_AP_ENTRIES * LGBT_AP_MAX_W];
+  extern __shared__ int maps[];               // [2, leaf_cap]
+  int* app_of = maps;
+  int* cand_of = maps + leaf_cap;
+  for (int i = threadIdx.x; i < 2 * leaf_cap; i += blockDim.x) maps[i] = -1;
+  {
+    // the active entries' records (the maps name no other)
+    const int k = threadIdx.x;
+    const int side = k / LGBT_AP_ENTRIES, j = k % LGBT_AP_ENTRIES;
+    if (k < 2 * LGBT_AP_ENTRIES && j < Kd) {
+      const int* c = cats ? cats + (long long)k * (1 + W) : nullptr;
+      const int sil = side ? table[14 * LGBT_AP_ENTRIES + j] : 0;
+      ent[k] = ap_entry(table, side ? 8 : 1, j, sil, c ? c[0] : 0, bundle,
+                        F);
+      if (c)
+        for (int w = 0; w < W; ++w)
+          bits[k * LGBT_AP_MAX_W + w] = (unsigned)c[1 + w];
+    }
   }
   __syncthreads();
-  lgbt_map_entries(table, 0, Kd, leaf_cap, app_of);
-  lgbt_map_entries(table, 7, Kd, leaf_cap, cand_of);
+  ap_map_entries(table, Kd, leaf_cap, app_of);
+  ap_map_entries(table + 7 * LGBT_AP_ENTRIES, Kd, leaf_cap, cand_of);
   __syncthreads();
-  const int nl0 = table[15 * LGBT_T_ENTRIES];
-  for (long long r = blockIdx.x * (long long)blockDim.x + threadIdx.x; r < N;
-       r += (long long)gridDim.x * blockDim.x) {
-    int leaf = lor_in[r];
-    const int ka = (unsigned)leaf < (unsigned)leaf_cap ? app_of[leaf] : -1;
-    if (ka >= 0 && (dec[(long long)ka * N + r] & 1) == 0) leaf = nl0 + ka;
-    lor_out[r] = leaf;
-    const int kc = (unsigned)leaf < (unsigned)leaf_cap ? cand_of[leaf] : -1;
-    slot_out[r] =
-        (kc >= 0 && ((dec[(long long)kc * N + r] >> 1) & 1)) ? kc : -1;
+
+  const int nl0 = table[15 * LGBT_AP_ENTRIES];
+  const long long S = (long long)gridDim.x * blockDim.x;
+  for (long long r0 = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       r0 < N; r0 += LGBT_AP_ILP * S) {
+    long long r[LGBT_AP_ILP];
+    int leaf[LGBT_AP_ILP], k[LGBT_AP_ILP], bin[LGBT_AP_ILP];
+#pragma unroll
+    for (int i = 0; i < LGBT_AP_ILP; ++i) {
+      r[i] = r0 + i * S;
+      leaf[i] = r[i] < N ? lor_in[r[i]] : -1;
+    }
+    // the applied split: the row's entry, its byte, its test
+#pragma unroll
+    for (int i = 0; i < LGBT_AP_ILP; ++i) {
+      k[i] = (unsigned)leaf[i] < (unsigned)leaf_cap ? app_of[leaf[i]] : -1;
+      bin[i] = k[i] >= 0 ? X[(long long)ent[k[i]].x * N + r[i]] : 0;
+    }
+#pragma unroll
+    for (int i = 0; i < LGBT_AP_ILP; ++i) {
+      if (k[i] >= 0 && !ap_go_left(ent[k[i]], bits + k[i] * LGBT_AP_MAX_W,
+                                   W, bin[i]))
+        leaf[i] = nl0 + k[i];
+      if (r[i] < N) lor_out[r[i]] = leaf[i];
+    }
+    // the candidate split of the row's new leaf
+#pragma unroll
+    for (int i = 0; i < LGBT_AP_ILP; ++i) {
+      k[i] = (unsigned)leaf[i] < (unsigned)leaf_cap ? cand_of[leaf[i]] : -1;
+      bin[i] = k[i] >= 0 ? X[(long long)ent[LGBT_AP_ENTRIES + k[i]].x * N +
+                             r[i]]
+                         : 0;
+    }
+#pragma unroll
+    for (int i = 0; i < LGBT_AP_ILP; ++i) {
+      int s = -1;
+      if (k[i] >= 0) {
+        const int e = LGBT_AP_ENTRIES + k[i];
+        const bool gl =
+            ap_go_left(ent[e], bits + e * LGBT_AP_MAX_W, W, bin[i]);
+        if (gl == (((ent[e].y >> 20) & 1) != 0)) s = k[i];
+      }
+      if (r[i] < N) slot_out[r[i]] = s;
+    }
   }
 }
 
-// dec [Kd, N] int8 (Kd >= 1; rows at Kd and above of the table inactive),
-// lor_in / lor_out / slot_out [N] int32, table [16, 128] int32; every leaf
-// id of the table and of lor_in that should match lies below leaf_cap
-// (<= LGBT_LEAF_CAP).
-extern "C" int lgbt_wave_apply(const void* dec, const void* lor_in,
-                               const void* table, void* lor_out,
+// X [C, N] uint8, lor_in / lor_out / slot_out [N] int32, table [16, 128]
+// int32, cats [2, 128, 1 + W] int32 or null (W <= 8), bundle [4, F] int32
+// or null (F: the features the table's ids index; C when null); 1 <= Kd
+// <= 128; every leaf id that should match lies below leaf_cap (<= 4096).
+extern "C" int lgbt_wave_apply(const void* X, const void* lor_in,
+                               const void* table, const void* cats, int W,
+                               const void* bundle, int F, void* lor_out,
                                void* slot_out, long long N, int Kd,
                                int leaf_cap, int num_sms, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  wave_apply_kernel<<<lgbt_grid(N, num_sms, 8), LGBT_THREADS, 0, st>>>(
-      (const int8_t*)dec, (const int*)lor_in, (const int*)table,
-      (int*)lor_out, (int*)slot_out, N, Kd, leaf_cap);
+  // the maps (at most 32 KB) and the static 12 KB stay under 48 KB
+  const size_t smem = 2 * (size_t)leaf_cap * sizeof(int);
+  const long long quads = (N + LGBT_AP_ILP - 1) / LGBT_AP_ILP;
+  wave_apply_kernel<<<lgbt_grid(quads, num_sms, 4), LGBT_THREADS, smem,
+                      (cudaStream_t)stream>>>(
+      (const uint8_t*)X, (const int*)lor_in, (const int*)table,
+      (const int*)cats, W, (const int*)bundle, F, (int*)lor_out,
+      (int*)slot_out, N, Kd, leaf_cap);
   return (int)cudaGetLastError();
 }

@@ -36,7 +36,7 @@ the kernel and a CPU tensor to its plain version, ``bucketize_plain``.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -52,6 +52,8 @@ _M_NAN_BIN = 2    # numeric: bin id NaN rows take
 _M_NAN_KEY = 3    # categorical: key substituted for NaN values
 _M_MISS_BIN = 4   # categorical: bin id for unseen/invalid values
 _M_NEG_INV = 5    # categorical: 1.0 = negative values are invalid (serve)
+_M_DEPTH = 6      # device copy only: probes of a key's in-bucket search
+_M_COUNT = 7      # device copy only: searchable lanes of the row
 _META_COLS = 8
 
 _LANES = 128              # bin-table lane quantum
@@ -60,10 +62,15 @@ _SUBLANES = 32            # feature-axis padding quantum
 # largest integer magnitude where every int is f32-exact
 _F32_EXACT_INT = 1 << 24
 
-# csrc/bucketize.cu: rows per tile, shared tile pitch, and the shared
-# memory one launch may take (the kernel opts in above 48 KB)
-_TILE_PITCH = 132
-_MAX_SMEM = 200 * 1024
+# csrc/bucketize.cu: rows per tile, the most features of a block (a lane
+# each), the value and bin tile pitches, and the shared memory of an SM
+_TILE_ROWS = 128
+_GROUP_MAX = 32
+_X_PITCH = _TILE_ROWS + 1
+_OUT_PITCH = _TILE_ROWS + 4
+_SM_SMEM = 228 * 1024
+_BLOCK_RESERVED = 1024     # shared memory CUDA reserves per resident block
+_MAX_BLOCKS_PER_SM = 8     # 2048 threads of 256
 
 
 class BinningUnavailable(ValueError):
@@ -87,12 +94,15 @@ class DeviceBinTable(NamedTuple):
 
 class BinTableTensors(NamedTuple):
     """A DeviceBinTable's first ``num_features`` rows as contiguous
-    tensors on one device (``upload_bin_table``)."""
+    tensors on one device (``upload_bin_table``); the meta rows carry
+    each row's search depth and searchable lanes, and ``grids`` the
+    kernel's bucket grid of each row (``search_grids``)."""
     table: torch.Tensor      # [F, B] f32
     cat_val: torch.Tensor    # [F, B] f32
     meta: torch.Tensor       # [F, 8] f32
     num_features: int
     B: int
+    grids: torch.Tensor      # [F, 2 + NB] int32
 
 
 def resolve_binning_impl(knob: str, device: torch.device) -> str:
@@ -208,24 +218,121 @@ def pack_bin_table(mappers: Sequence, *, mode: str = "train",
                           num_features=F, B=B, mode=mode)
 
 
+def search_counts(table: np.ndarray) -> np.ndarray:
+    """[F] int: the lanes that lead each table row before its +inf
+    (numeric) or NaN (categorical) pads, which no key's search passes."""
+    stop = ~(np.asarray(table, np.float32) < np.inf)
+    count = np.where(stop.any(axis=1), stop.argmax(axis=1), stop.shape[1])
+    return count.astype(np.int64)
+
+
+def grid_buckets(x: np.ndarray, lo: np.float32, scale: np.float32,
+                 nb: int) -> np.ndarray:
+    """The kernel's bucket of each f32 x: clamp(floor((x - lo) * scale),
+    0, nb - 1) in f32 with round-to-nearest, NaN to bucket 0 (fmax/fmin
+    skip a NaN, as CUDA's fmaxf/fminf do). Monotone in x."""
+    x = np.asarray(x, np.float32)
+    with np.errstate(invalid="ignore", over="ignore"):
+        t = np.floor((x - np.float32(lo)) * np.float32(scale))
+        t = np.fmin(np.fmax(t, np.float32(0)), np.float32(nb - 1))
+    return t.astype(np.int64)
+
+
+def search_grids(table: np.ndarray, count: np.ndarray,
+                 nb: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(grids [F, 2 + nb] int32, depth [F]) of the kernel's search: each
+    row's lo and scale (f32 bits; scale nb / (last - first bound), 0 when
+    the bounds span no finite range: one bucket), then per bucket its
+    bounds [first, end) packed first | end << 16; depth = ceil(log2(the
+    largest bucket's bounds + 1)), the probes a key's search takes."""
+    table = np.asarray(table, np.float32)
+    F = table.shape[0]
+    grids = np.zeros((F, 2 + nb), np.int32)
+    depth = np.zeros(F, np.int64)
+    for f in range(F):
+        c = int(count[f])
+        t = table[f, :c]
+        lo = scale = np.float32(0)
+        if c >= 2 and np.isfinite(t[0]) and np.isfinite(t[-1]) \
+                and t[-1] > t[0]:
+            with np.errstate(over="ignore"):
+                sc = np.float32(nb) / (t[-1] - t[0])
+            if np.isfinite(sc) and sc > 0:
+                lo, scale = t[0], sc
+        first = np.searchsorted(grid_buckets(t, lo, scale, nb),
+                                np.arange(nb + 1), side="left")
+        grids[f, 0] = np.float32(lo).view(np.int32)
+        grids[f, 1] = np.float32(scale).view(np.int32)
+        grids[f, 2:] = first[:-1] | (first[1:] << 16)
+        depth[f] = int(np.diff(first).max(initial=0)).bit_length()
+    return grids, depth
+
+
 def upload_bin_table(t: DeviceBinTable,
                      device: torch.device) -> BinTableTensors:
-    """The table's ``num_features`` real rows on `device`."""
+    """The table's ``num_features`` real rows on `device`, with the
+    kernel's search grids (``search_grids``, B buckets a row) and, in meta
+    columns 6 and 7, each row's search depth and searchable lanes."""
     F = t.num_features
+    meta = np.array(t.meta[:F], np.float32)
+    count = search_counts(t.table[:F])
+    grids, depth = search_grids(t.table[:F], count, t.B)
+    meta[:, _M_DEPTH], meta[:, _M_COUNT] = depth, count
 
     def up(a):
         return torch.from_numpy(np.ascontiguousarray(a[:F])).to(device)
     return BinTableTensors(table=up(t.table), cat_val=up(t.cat_val),
-                           meta=up(t.meta), num_features=F, B=t.B)
+                           meta=up(meta), num_features=F, B=t.B,
+                           grids=up(grids))
 
 
 # ----------------------------------------------------------------------
 # the kernel and its plain version
 # ----------------------------------------------------------------------
-def _smem_bytes(F: int, B: int) -> int:
-    """Shared memory of one kernel launch over F features (the sum in
-    csrc/bucketize.cu bucketize_smem)."""
-    return F * (B + 1) * 8 + F * _META_COLS * 4 + F * 4 + F * _TILE_PITCH
+def _smem_bytes(Fg: int, B: int, NB: int) -> int:
+    """Shared memory of a block over Fg features of a B-lane table with
+    grids of NB buckets (the sum in csrc/bucketize.cu bk_smem): the table
+    rows, the grids, the value tile, the meta rows, the cat_val bytes and
+    the bin tile."""
+    return Fg * (4 * B + 4 * (2 + NB) + 4 * _X_PITCH + 4 * _META_COLS + B
+                 + _OUT_PITCH)
+
+
+class BucketizePlan(NamedTuple):
+    """One launch of the bucketize kernel: `groups` feature groups of
+    `group` features (the last may be short), `grid` blocks (a multiple of
+    `groups`: each group walks the row tiles over grid / groups blocks),
+    `smem` bytes of shared memory per block."""
+    group: int
+    groups: int
+    grid: int
+    smem: int
+
+
+def plan_bucketize(n: int, F: int, B: int, NB: int,
+                   sms: int) -> BucketizePlan:
+    """The launch of n rows x F features over a B-lane table with grids of
+    NB buckets on `sms` SMs. Features split into groups of at most 32 (a
+    lane each) whose tables let four blocks share an SM; when there are
+    fewer (group, tile) items than two per SM, as for a served chunk, the
+    groups narrow (to 4 features at the least) so that the chunk spreads
+    over more blocks, each staging only its own rows. The blocks of a
+    group are as many as fit on the card at once, at most one per row
+    tile, so each resident block stages its rows once (the kernel's entry
+    cuts the grid to the blocks its registers let fit)."""
+    tiles = max(-(-n // _TILE_ROWS), 1)
+    want = -(-F * tiles // (2 * sms))
+    fit4 = (_SM_SMEM // 4 - _BLOCK_RESERVED) // _smem_bytes(1, B, NB)
+    cap = min(_GROUP_MAX, max(4, want), max(fit4, 1))
+    groups = -(-F // cap)
+    group = -(-F // groups)
+    smem = _smem_bytes(group, B, NB)
+    per_sm = min(_MAX_BLOCKS_PER_SM, _SM_SMEM // (smem + _BLOCK_RESERVED))
+    if per_sm < 1:
+        raise ValueError(f"a {B}-lane bin table does not fit the kernel's "
+                         "shared memory")
+    per_group = min(tiles, max(1, per_sm * sms // groups))
+    return BucketizePlan(group, groups, groups * per_group, smem)
 
 
 def _check_args(X, t: BinTableTensors, out, cols):
@@ -253,8 +360,8 @@ def bucketize_cuda(X: torch.Tensor, t: BinTableTensors,
     unit-stride) through the kernel. ``cols`` [F] int32 names the column
     of X each table row reads (default: the first F). ``out`` may be any
     [n, F] uint8 view (e.g. ``X_t[:, c0:c1].t()`` of a feature-major
-    matrix): the kernel writes through its two strides. One launch per
-    feature group that fits the kernel's shared memory."""
+    matrix): the kernel writes through its two strides. One launch
+    (``plan_bucketize``); ``t`` must come from ``upload_bin_table``."""
     dev = hc._cuda_device(X)
     n, F = _check_args(X, t, out, cols)
     if X.shape[1] > 1 and X.stride(1) != 1:
@@ -268,24 +375,27 @@ def bucketize_cuda(X: torch.Tensor, t: BinTableTensors,
         out = torch.empty((n, F), dtype=torch.uint8, device=dev)
     elif out.device != dev:
         raise ValueError(f"out is on {out.device}, expected {dev}")
-    per = max(1, min(F, _MAX_SMEM // _smem_bytes(1, t.B)))
-    if _smem_bytes(1, t.B) > _MAX_SMEM:
-        raise ValueError(f"a {t.B}-lane bin table does not fit the "
-                         "kernel's shared memory")
+    if t.B % _LANES or t.B > 2 * _LANES:
+        raise ValueError(f"the kernel takes 128 or 256 table lanes, not "
+                         f"{t.B}")
+    NB = t.grids.shape[1] - 2
+    hc._check(t.grids, "grids", (torch.int32,), (F, NB + 2), dev)
+    if t.table.data_ptr() % 16 or t.cat_val.data_ptr() % 16:
+        raise ValueError("table and cat_val must be 16-byte aligned")
+    if n == 0:
+        return out
     sms, stream = hc._launch_env(dev)
-    fn = hc._lib("bucketize")
-    esz_t, esz_m = t.table.stride(0), t.meta.stride(0)
+    plan = plan_bucketize(n, F, t.B, NB, sms)
     s_row, s_feat = out.stride()
-    for f0 in range(0, F, per):
-        g = min(per, F - f0)
-        rc = fn(X.data_ptr(), n, X.stride(0),
-                cols.data_ptr() + 4 * f0 if cols is not None else None, g,
-                t.table.data_ptr() + 4 * f0 * esz_t,
-                t.cat_val.data_ptr() + 4 * f0 * esz_t,
-                t.meta.data_ptr() + 4 * f0 * esz_m, t.B,
-                out.data_ptr() + f0 * s_feat, s_row, s_feat, sms, stream)
-        hc._raise_on(rc, "bucketize")
-        hc.LAUNCHES["bucketize"] += 1
+    vec4 = s_row == 1 and s_feat % 4 == 0 and out.data_ptr() % 4 == 0
+    rc = hc._lib("bucketize")(
+        X.data_ptr(), n, X.stride(0),
+        cols.data_ptr() if cols is not None else None, F, plan.group,
+        plan.groups, plan.grid, t.table.data_ptr(), t.grids.data_ptr(), NB,
+        t.cat_val.data_ptr(), t.meta.data_ptr(), t.B, out.data_ptr(), s_row,
+        s_feat, int(vec4), stream)
+    hc._raise_on(rc, "bucketize")
+    hc.LAUNCHES["bucketize"] += 1
     return out
 
 

@@ -12,21 +12,23 @@ accelerator (`wave_routes`):
     runs the relabel only (`wave_relabel`).
   * "apply", the wide / categorical / EFB route (`use_apply`,
     grow_wave.py:892-894, :1659-1689): every other dataset, and any width
-    under histogram_impl rowwise / rowwise_packed. Each wave's go-left
-    decisions per (table entry, row) are precomputed in plain tensor code
-    (`dec_go_left`: EFB bundle unpacking and categorical bitsets included),
-    a slim kernel resolves leaf membership (`wave_apply`), and the
-    histogram runs as its own pass (`build_histogram_slots` on the route
-    `hist_route` picks: the K-slot kernel, or the row-wise kernels).
+    under histogram_impl rowwise / rowwise_packed. One kernel
+    (`wave_apply`) decides each row under the wave's split records (EFB
+    bundle unpacking and categorical bitsets included) and resolves its
+    leaf membership, where the TPU route precomputes a [K, N] decision
+    matrix (`dec_go_left`); the histogram runs as its own pass
+    (`build_histogram_slots` on the route `hist_route` picks: the K-slot
+    kernel, or the row-wise kernels).
   * "fused" and "fused_tiled", histogram_impl="fused" (`use_fused` /
     `use_fused_tiled`, grow_wave.py:300-309): the row pass of "mega"
     ("fused", `wave_pass_fused`) or of "apply" ("fused_tiled",
     `wave_pass_fused_tiled`) also searches both children of every
     candidate in the same call (ops/grow_fused.py); the categorical search
-    of "fused_tiled" stays outside and merges by gain. On "fused_tiled" an
-    applies-only wave defers its relabel into the next wave's launch as a
-    pending pass (`fused_relabel_fusion`, grow_wave.py:1135-1139), flushed
-    by `wave_apply` when no launch follows. `fused_veto_reasons` lists why
+    of "fused_tiled" stays outside and merges by gain; its kernel reads
+    the go-left bits of `dec_go_left`. On "fused_tiled" an applies-only
+    wave defers its relabel into the next wave's launch as a pending pass
+    (`fused_relabel_fusion`, grow_wave.py:1135-1139), flushed by
+    `wave_apply` when no launch follows. `fused_veto_reasons` lists why
     a pinned "fused" takes "mega" or "apply" instead. Each fused route
     keeps the TPU kernel's own wave width (`fused_kcap`).
 
@@ -210,18 +212,61 @@ def _slack_guard(sel: torch.Tensor, gains: torch.Tensor, keyed: torch.Tensor,
 
 @functools.lru_cache(maxsize=16)
 def _bundle_maps(col: tuple, off: tuple, nb: tuple, db: tuple,
-                 device: torch.device) -> torch.Tensor:
-    """[4, F] int64: bundle column, offset (-1 = raw singleton), num_bin
-    and default bin of every original feature."""
-    return torch.tensor([col, off, nb, db], dtype=torch.int64,
-                        device=device)
+                 device: torch.device,
+                 dtype: torch.dtype = torch.int64) -> torch.Tensor:
+    """[4, F]: bundle column, offset (-1 = raw singleton), num_bin and
+    default bin of every original feature."""
+    return torch.tensor([col, off, nb, db], dtype=dtype, device=device)
+
+
+def wave_bundle_map(cfg: GrowConfig,
+                    device: torch.device) -> Optional[torch.Tensor]:
+    """The wave_apply kernel's [4, F] int32 bundle map of EFB storage, None
+    when every feature is its own storage column."""
+    if not cfg.bundled:
+        return None
+    return _bundle_maps(cfg.bundle_col, cfg.bundle_off, cfg.bundle_nb,
+                        cfg.bundle_db, device, torch.int32)
+
+
+def pack_wave_cats(is_cat_app: Optional[torch.Tensor],
+                   bits_app: Optional[torch.Tensor],
+                   is_cat_cand: Optional[torch.Tensor],
+                   bits_cand: Optional[torch.Tensor],
+                   W: int) -> torch.Tensor:
+    """[2, 128, 1 + W] int32: the applied (0) and candidate (1) entries'
+    categorical flags, then their bitsets' W 32-bit words (the int64
+    words of the split records, bit for bit); None for a side with no
+    entries. Entries past a side's count are numeric with empty sets."""
+    dev = next(t.device for t in (bits_app, bits_cand) if t is not None)
+    cats = torch.zeros((2, 128, 1 + W), dtype=torch.int64, device=dev)
+    for side, ic, bits in ((0, is_cat_app, bits_app),
+                           (1, is_cat_cand, bits_cand)):
+        if ic is not None:
+            n = ic.shape[0]
+            cats[side, :n, 0] = ic.to(torch.int64)
+            cats[side, :n, 1:] = bits
+    cats = torch.where(cats >= 1 << 31, cats - (1 << 32), cats)
+    return cats.to(torch.int32)
+
+
+def _split_rows(feat: torch.Tensor, thr: torch.Tensor, dl: torch.Tensor,
+                meta: FeatureMeta) -> torch.Tensor:
+    """[6, n] int32 wave-table rows of n splits: feature, threshold,
+    default_left, and the feature's missing type, default bin and bin
+    count."""
+    return torch.stack([
+        feat, thr, dl.to(torch.int64), meta.missing_type.to(torch.int64)[feat],
+        meta.default_bin.to(torch.int64)[feat],
+        meta.num_bins.to(torch.int64)[feat]]).to(torch.int32)
 
 
 def dec_go_left(X_t: torch.Tensor, feat: torch.Tensor, thr: torch.Tensor,
                 dl: torch.Tensor, iscat: torch.Tensor, bits: torch.Tensor,
                 meta: FeatureMeta, cfg: GrowConfig) -> torch.Tensor:
     """[n, N] bool go-left of every row under each of n splits
-    (grow_wave.py:896-929). X_t holds storage columns: with EFB a feature's
+    (grow_wave.py:896-929), the decision bits the general fused wave (#10)
+    reads. X_t holds storage columns: with EFB a feature's
     bins are unpacked from its bundle column (FastFeatureBundling's
     inverse, dataset.cpp:251). A categorical split tests its bin bitset
     (bits [n, W], 32 bits per int64 word) as a gather from the [n, 32 W]
@@ -266,21 +311,22 @@ def _flush_pending(X_t: torch.Tensor, leaf_of_row: torch.Tensor,
                    pend: _Pending, meta: FeatureMeta, cfg: GrowConfig,
                    buckets: List[int], plain: bool) -> torch.Tensor:
     """Apply a deferred relabel that no fused launch will run: the wave_apply
-    kernel with the pending applies as its table and their go-left bits as
-    bit 0. The JAX package computes the same in XLA (grow_wave.py:1619-1630,
-    :2108-2120); with unique pending leaves its `hit` equals wave_apply's
-    `inA == 1` rule."""
+    kernel with the pending applies as its applied entries. The JAX package
+    computes the same in XLA (grow_wave.py:1619-1630, :2108-2120); with
+    unique pending leaves its `hit` equals wave_apply's `inA == 1` rule."""
     n = pend.leaves.shape[0]
     Kd = next(k for k in buckets if k >= n)
-    dec = torch.zeros((Kd, X_t.shape[1]), dtype=torch.uint8,
-                      device=X_t.device)
-    dec[:n] = dec_go_left(X_t, pend.feature, pend.threshold,
-                          pend.default_left, pend.is_cat, pend.bits, meta,
-                          cfg)
-    tbl = torch.full((16, 128), -1, dtype=torch.int32, device=X_t.device)
+    dev = X_t.device
+    tbl = torch.full((16, 128), -1, dtype=torch.int32, device=dev)
     tbl[0, :n] = pend.leaves.to(torch.int32)
+    tbl[1:7, :n] = _split_rows(pend.feature, pend.threshold,
+                               pend.default_left, meta)
     tbl[15] = pend.nl0
-    return wave_apply(dec, leaf_of_row, tbl, cfg.num_leaves, plain=plain)[0]
+    cats = (pack_wave_cats(pend.is_cat, pend.bits, None, None,
+                           cfg.cat_words) if cfg.has_categorical else None)
+    return wave_apply(X_t, leaf_of_row, tbl, cats,
+                      wave_bundle_map(cfg, dev), Kd, cfg.num_leaves,
+                      plain=plain)[0]
 
 
 def grow_tree_wave(
@@ -427,9 +473,7 @@ def grow_tree_wave(
     catl, catr = zeros(L, torch.bool), zeros(L, torch.bool)
     bitsl, bitsr = zeros((L, W), torch.int64), zeros((L, W), torch.int64)
 
-    mt_f = meta.missing_type.to(torch.int64)
-    db_f = meta.default_bin.to(torch.int64)
-    nb_f = meta.num_bins.to(torch.int64)
+    bundle_map = wave_bundle_map(cfg, dev)
     j_iota = torch.arange(KMAX, device=dev)
     num_leaves, num_waves = 1, 0
     fused = route in ("fused", "fused_tiled")
@@ -521,13 +565,9 @@ def grow_tree_wave(
                 a[r_idx] = rv
             num_leaves += napp
 
-            if route in ("mega", "fused"):
-                f2 = bs2.feature
-                tbl[0:7, :napp] = torch.stack([
-                    pa, f2, bs2.threshold, bs2.default_left.to(torch.int64),
-                    mt_f[f2], db_f[f2], nb_f[f2]]).to(torch.int32)
-            else:
-                tbl[0, :napp] = pa.to(torch.int32)
+            tbl[0, :napp] = pa.to(torch.int32)
+            tbl[1:7, :napp] = _split_rows(bs2.feature, bs2.threshold,
+                                          bs2.default_left, meta)
 
         # ---- SPECULATE: top-K unready frontier leaves by gain
         budget2 = L - num_leaves
@@ -547,11 +587,10 @@ def grow_tree_wave(
         # ---- the route's row pass: relabel (+ candidate histograms, and
         # on the fused routes their children's splits)
         if route in ("mega", "fused"):
-            fc = bs.feature
-            tbl[7:15, :KMAX] = torch.stack([
-                torch.where(valid, cand, -1), fc, bs.threshold,
-                bs.default_left.to(torch.int64), mt_f[fc], db_f[fc],
-                nb_f[fc], smaller_is_left.to(torch.int64)]).to(torch.int32)
+            tbl[7, :KMAX] = torch.where(valid, cand, -1).to(torch.int32)
+            tbl[8:14, :KMAX] = _split_rows(bs.feature, bs.threshold,
+                                           bs.default_left, meta)
+            tbl[14, :KMAX] = smaller_is_left.to(torch.int32)
             if n_cand == 0:
                 leaf_of_row = wave_relabel(X_t, leaf_of_row, tbl, L,
                                            plain=plain)
@@ -579,30 +618,28 @@ def grow_tree_wave(
                 bits2, nl0)
             continue
         else:
-            # go-left bits per (entry, row): bit 0 under applied entry j,
-            # bit 1 = lands in candidate j's smaller child, bit 2 (fused
-            # route) under pending entry j; Kd rows, the bucketed count of
-            # live entries
             n_pend = 0 if pend is None else pend.leaves.shape[0]
             Kd = next(k for k in buckets if k >= max(napp, n_cand, n_pend, 1))
-            dec = torch.zeros((Kd, N), dtype=torch.uint8, device=dev)
-            if napp > 0:
-                dec[:napp] = dec_go_left(
-                    X_t, bs2.feature, bs2.threshold, bs2.default_left,
-                    iscat2, bits2, meta, cfg)
+            ci = cand[:n_cand]
             if n_cand > 0:
-                ci = cand[:n_cand]
-                glc = dec_go_left(
-                    X_t, bs.feature[:n_cand], bs.threshold[:n_cand],
-                    bs.default_left[:n_cand], best_is_cat[ci],
-                    best_bitset[ci], meta, cfg)
-                land = glc == smaller_is_left[:n_cand, None]
-                dec[:n_cand] |= land.to(torch.uint8) << 1
                 tbl[7, :n_cand] = ci.to(torch.int32)
+                tbl[8:14, :n_cand] = _split_rows(
+                    bs.feature[:n_cand], bs.threshold[:n_cand],
+                    bs.default_left[:n_cand], meta)
+                tbl[14, :n_cand] = smaller_is_left[:n_cand].to(torch.int32)
             if route == "apply" or n_cand == 0:
-                leaf_of_row, slot_small = wave_apply(dec, leaf_of_row, tbl,
-                                                     L, plain=plain)
-                del dec
+                # one kernel decides each row under the applied and the
+                # candidate splits: no [Kd, N] decision matrix
+                cats = None
+                if has_cat:
+                    cats = pack_wave_cats(
+                        iscat2 if napp > 0 else None,
+                        bits2 if napp > 0 else None,
+                        best_is_cat[ci] if n_cand > 0 else None,
+                        best_bitset[ci] if n_cand > 0 else None, W)
+                leaf_of_row, slot_small = wave_apply(
+                    X_t, leaf_of_row, tbl, cats, bundle_map, Kd, L,
+                    plain=plain)
                 if n_cand == 0:
                     continue
                 K = next(k for k in buckets if k >= n_cand)
@@ -610,6 +647,21 @@ def grow_tree_wave(
                     X_t, vals0, slot_small, K, B, impl=hroute,
                     plan=hist_plan, plain=plain)
             else:
+                # kernel #10 reads go-left bits per (entry, row): bit 0
+                # under applied entry j, bit 1 = lands in candidate j's
+                # smaller child, bit 2 under pending entry j; Kd rows, the
+                # bucketed count of live entries
+                dec = torch.zeros((Kd, N), dtype=torch.uint8, device=dev)
+                if napp > 0:
+                    dec[:napp] = dec_go_left(
+                        X_t, bs2.feature, bs2.threshold, bs2.default_left,
+                        iscat2, bits2, meta, cfg)
+                glc = dec_go_left(
+                    X_t, bs.feature[:n_cand], bs.threshold[:n_cand],
+                    bs.default_left[:n_cand], best_is_cat[ci],
+                    best_bitset[ci], meta, cfg)
+                land = glc == smaller_is_left[:n_cand, None]
+                dec[:n_cand] |= land.to(torch.uint8) << 1
                 pend_tbl = torch.full((128,), -1, dtype=torch.int32,
                                       device=dev)
                 if pend is not None:

@@ -144,14 +144,17 @@ def wave_pass(X_binned_t: torch.Tensor, vals: torch.Tensor,
                               num_slots, num_bins, num_leaves)
 
 
-def wave_apply(dec: torch.Tensor, leaf_of_row: torch.Tensor,
-               table: torch.Tensor, num_leaves: int, *, plain: bool = False
+def wave_apply(X_binned_t: torch.Tensor, leaf_of_row: torch.Tensor,
+               table: torch.Tensor, cats: Optional[torch.Tensor],
+               bundle: Optional[torch.Tensor], num_entries: int,
+               num_leaves: int, *, plain: bool = False
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Relabel + candidate slot of one wave from precomputed decision
-    bits (the wide / categorical / EFB route)."""
-    if _use_kernel(dec, plain):
-        return hc.wave_apply_cuda(dec, leaf_of_row, table, num_leaves)
-    return hc.wave_apply_plain(dec, leaf_of_row, table, num_leaves)
+    """Relabel + candidate slot of one wave of the wide / categorical /
+    EFB route, each row decided from the wave's split records."""
+    fn = (hc.wave_apply_cuda if _use_kernel(X_binned_t, plain)
+          else hc.wave_apply_rows_plain)
+    return fn(X_binned_t, leaf_of_row, table, cats, bundle, num_entries,
+              num_leaves)
 
 
 def wave_relabel(X_binned_t: torch.Tensor, leaf_of_row: torch.Tensor,

@@ -12,9 +12,10 @@ histogram_pallas.py):
   wave_pass_cuda              relabel + candidate membership, then the
                               slot histogram  <- wave_pass_pallas
   wave_relabel_cuda           relabel only          <- wave_relabel_pallas
-  wave_apply_cuda             relabel + candidate slot from precomputed
-                              decision bits (wide / categorical / EFB
-                              route)                <- wave_apply_pallas
+  wave_apply_cuda             relabel + candidate slot, each row decided
+                              from the wave's split records (wide /
+                              categorical / EFB route)
+                              <- wave_apply_pallas + dec_go_left
 
 Five more are built and counted here, their wrappers and plain versions
 living beside the code that calls them: the bucketize kernel of device
@@ -191,8 +192,9 @@ def _lib(name: str):
         "wave_pass": [P, P, I] + [P] * 6 + [LL] + [I] * 15
         + [LL, LL, I, I, P],
         "wave_relabel": [P, P, P, P, LL, I, I, I, P],
-        "bucketize": [P, LL, LL, P, I, P, P, P, I, P, LL, LL, I, P],
-        "wave_apply": [P, P, P, P, P, LL, I, I, I, P],
+        "bucketize": [P, LL, LL, P, I, I, I, I, P, P, I, P, P, I, P, LL,
+                      LL, I, P],
+        "wave_apply": [P, P, P, P, I, P, I, P, P, LL, I, I, I, P],
         "hist_rowwise": [P, P, I, P, P, P, P, P, LL] + [I] * 14 + [P],
         "hist_rowwise_packed": [P, P, P, I, P, P, P, P, P, LL] + [I] * 14
         + [P],
@@ -933,27 +935,126 @@ def _check_apply_args(dec, leaf_of_row, table, num_leaves, dev):
     return Kd, N
 
 
-def wave_apply_cuda(dec: torch.Tensor, leaf_of_row: torch.Tensor,
-                    table: torch.Tensor, num_leaves: int
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Resolve one wave's leaf membership from precomputed decision bits:
-    returns (new leaf_of_row [N] int32, smaller-child slot [N] int32, -1 =
-    none). `dec` [Kd, N] int8: bit 0 = go left under applied entry k, bit
-    1 = in candidate k's smaller child; `table` is the [16, 128] wave
-    table, of which rows 0 (applied leaves), 7 (candidate leaves) and 15
-    (nl0) are read and entries at Kd or above are inactive. Every leaf id
-    in it and in leaf_of_row is below `num_leaves`."""
-    dev = _cuda_device(dec)
-    Kd, N = _check_apply_args(dec, leaf_of_row, table, num_leaves, dev)
+MAX_CAT_WORDS = 8       # LGBT_AP_MAX_W in csrc/wave_apply.cu
+
+
+def _check_split_args(X, leaf_of_row, table, cats, bundle, num_entries,
+                      num_leaves, dev):
+    """Check the operands of the decide-and-apply pass; returns (N, F,
+    W): rows, the features the table's ids index, bitset words."""
+    if X.dim() != 2 or leaf_of_row.dim() != 1:
+        raise ValueError("X must be [C, N] and leaf_of_row [N]")
+    C, N = X.shape
+    _check(X, "X", (torch.uint8,), (C, N), dev)
+    _check(leaf_of_row, "leaf_of_row", (torch.int32,), (N,), dev)
+    _check(table, "table", (torch.int32,), (T_ROWS, MAX_SLOTS), dev)
+    if not 1 <= num_entries <= MAX_SLOTS:
+        raise ValueError(f"num_entries must be in [1, {MAX_SLOTS}], got "
+                         f"{num_entries}")
+    if not 1 <= num_leaves <= MAX_LEAVES:
+        raise ValueError(f"num_leaves must be in [1, {MAX_LEAVES}], got "
+                         f"{num_leaves}")
+    W = 0
+    if cats is not None:
+        W = cats.shape[-1] - 1 if cats.dim() == 3 else -1
+        if not 1 <= W <= MAX_CAT_WORDS:
+            raise ValueError(f"cats must be [2, {MAX_SLOTS}, 1 + W] with "
+                             f"1 <= W <= {MAX_CAT_WORDS}")
+        _check(cats, "cats", (torch.int32,), (2, MAX_SLOTS, 1 + W), dev)
+    F = C
+    if bundle is not None:
+        if bundle.dim() != 2 or bundle.shape[0] != 4:
+            raise ValueError("bundle must be [4, F]")
+        F = bundle.shape[1]
+        _check(bundle, "bundle", (torch.int32,), (4, F), dev)
+    return N, F, W
+
+
+def wave_apply_cuda(X: torch.Tensor, leaf_of_row: torch.Tensor,
+                    table: torch.Tensor, cats: Optional[torch.Tensor],
+                    bundle: Optional[torch.Tensor], num_entries: int,
+                    num_leaves: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One wave of the wide / categorical / EFB route, each row decided
+    from the split records: returns (new leaf_of_row [N] int32, smaller-
+    child slot [N] int32, -1 = none). X [C, N] uint8 holds the storage
+    columns; `table` is the [16, 128] wave table with rows 0-15 filled
+    (csrc/wave_apply.cu), entries at `num_entries` or above inactive;
+    `cats` [2, 128, 1 + W] int32 the applied and candidate entries'
+    categorical flags and bitset words (None: no categorical entry);
+    `bundle` [4, F] int32 the EFB map of each feature (column, offset or
+    -1, num_bin, default bin; None: feature f is column f). Every leaf id
+    in the table and in leaf_of_row that should match is below
+    `num_leaves`."""
+    dev = _cuda_device(X)
+    N, F, W = _check_split_args(X, leaf_of_row, table, cats, bundle,
+                                num_entries, num_leaves, dev)
     new_lor = torch.empty_like(leaf_of_row)
     slot = torch.empty_like(leaf_of_row)
     sms, stream = _launch_env(dev)
-    rc = _lib("wave_apply")(dec.data_ptr(), leaf_of_row.data_ptr(),
-                            table.data_ptr(), new_lor.data_ptr(),
-                            slot.data_ptr(), N, Kd, num_leaves, sms, stream)
+    rc = _lib("wave_apply")(X.data_ptr(), leaf_of_row.data_ptr(),
+                            table.data_ptr(), _ptr(cats), W, _ptr(bundle),
+                            F, new_lor.data_ptr(), slot.data_ptr(), N,
+                            num_entries, num_leaves, sms, stream)
     _raise_on(rc, "wave_apply")
     LAUNCHES["wave_apply"] += 1
     return new_lor, slot
+
+
+def _row_go_left(X: torch.Tensor, t: torch.Tensor, row0: int,
+                 cat: Optional[torch.Tensor], bundle: Optional[torch.Tensor],
+                 k: torch.Tensor) -> torch.Tensor:
+    """[N] go-left of each row under entry k[row] (k >= 0) of the split
+    rows row0..row0+5 of the int64 wave table `t`: the entry's record
+    gathered per row, its feature's byte read, unpacked and tested."""
+    C, N = X.shape
+    kk = k.clamp(min=0)
+    feat, thr, dl, mt, db, nb = (t[row0 + i][kk] for i in range(6))
+    F = C if bundle is None else bundle.shape[1]
+    f = feat.clamp(0, F - 1)
+    rows = torch.arange(N, device=X.device)
+    if bundle is None:
+        b = X[f, rows].to(torch.int64)
+    else:
+        bm = bundle.to(torch.int64)[:, f]
+        src = X[bm[0], rows].to(torch.int64)
+        rb = src - bm[1]
+        unp = torch.where((rb >= 0) & (rb < bm[2] - 1),
+                          rb + (rb >= bm[3]).to(torch.int64), bm[3])
+        b = torch.where(bm[1] < 0, src, unp)
+    mb = torch.where(mt == 1, db, torch.where(mt == 2, nb - 1,
+                                              torch.full_like(db, -1)))
+    gl = torch.where(b == mb, dl != 0, b <= thr)
+    if cat is not None:
+        c = cat.to(torch.int64)[kk]                    # [N, 1 + W]
+        W = c.shape[1] - 1
+        word = c.gather(1, 1 + (b >> 5).clamp(max=W - 1)[:, None])[:, 0]
+        gl = torch.where(c[:, 0] != 0, ((word >> (b & 31)) & 1) == 1, gl)
+    return gl
+
+
+def wave_apply_rows_plain(X: torch.Tensor, leaf_of_row: torch.Tensor,
+                          table: torch.Tensor, cats: Optional[torch.Tensor],
+                          bundle: Optional[torch.Tensor], num_entries: int,
+                          num_leaves: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of wave_apply_cuda, in the kernel's per-row
+    form: each row's entry from the leaf maps (a leaf named by two active
+    entries matches neither), its split tested on its own byte."""
+    t = table.to(torch.int64)
+    cap = num_leaves
+    lor = leaf_of_row.to(torch.int64)
+
+    def lookup(ent, leaf):
+        return ent[torch.where((leaf >= 0) & (leaf < cap), leaf, cap)]
+
+    ka = lookup(_leaf_entries(t[0], num_entries, cap), lor)
+    gl = _row_go_left(X, t, 1, None if cats is None else cats[0], bundle, ka)
+    new = torch.where((ka >= 0) & ~gl, t[15, 0] + ka, lor)
+    kc = lookup(_leaf_entries(t[7], num_entries, cap), new)
+    gl = _row_go_left(X, t, 8, None if cats is None else cats[1], bundle, kc)
+    land = gl == ((t[14][kc.clamp(min=0)] & 1) == 1)
+    slot = torch.where((kc >= 0) & land, kc, -1)
+    return new.to(torch.int32), slot.to(torch.int32)
 
 
 def _leaf_entries(leaves: torch.Tensor, Kd: int, cap: int) -> torch.Tensor:
@@ -976,7 +1077,13 @@ def _leaf_entries(leaves: torch.Tensor, Kd: int, cap: int) -> torch.Tensor:
 def wave_apply_plain(dec: torch.Tensor, leaf_of_row: torch.Tensor,
                      table: torch.Tensor, num_leaves: int
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of wave_apply_cuda."""
+    """Leaf membership of one wave from precomputed decision bits, the TPU
+    kernel's form (wave_apply_pallas): returns (new leaf_of_row, slot).
+    `dec` [Kd, N]: bit 0 = go left under applied entry k, bit 1 = in
+    candidate k's smaller child; table rows 0, 7 and 15 are read, entries
+    at Kd or above are inactive. The plain side of the fused waves
+    (#10's decision bits) and the reference that wave_apply_cuda, which
+    decides each row itself, is held to."""
     Kd = dec.shape[0]
     t = table.to(torch.int64)
     cap = num_leaves

@@ -4,7 +4,7 @@ one CUDA device, under each variant of their tile plans.
 
     python3 scripts/hist_slots_bench.py [--kernel KERNEL] [--root DIR]
         [--reps N] [--segment-rows R ...] [--variants NAME ...]
-        [--storage {bench,narrow,criteo} ...]
+        [--storage {bench,narrow,criteo,efb} ...]
 
 --kernel picks what is timed (default slots):
   slots           the K-slot histogram, kernel #1 (csrc/hist_slots.cu);
@@ -26,7 +26,38 @@ one CUDA device, under each variant of their tile plans.
                   in {1, 16, 128}, and "half" K = 16 on 2^16 rows;
   wave_pass_fused the narrow fused wave, kernel #9 (csrc/wave_pass_fused.cu),
                   the same waves at K in {1, 16, 64}, parents and child
-                  statistics from the real rows.
+                  statistics from the real rows;
+  bucketize       device binning, kernel #6 (csrc/bucketize.cu), on
+                  chip_smoke.py's three tables (train: bench.py's data and
+                  mappers with the dataset's column selection; serve: the
+                  serve-mode table of the same mappers; synthetic: the
+                  adversarial categorical / NaN / zero-missing table) at
+                  2^20 and 2^18 rows (ingest: the feature-major X_t) and
+                  at 256 and 8 rows (served chunks: row-major bins), each
+                  layout timed and held bitwise to bucketize_plain; and,
+                  in the layout the main path writes at that shape, under
+                  variants built from the kernel's own source (BK_VARIANTS:
+                  "stage only", "no loads", "no stores", "no search", "6
+                  blocks an SM"), so that a call splits into staging (with
+                  the launch), loads and stores, and the search;
+  wave_apply      the apply route's per-wave row pass, kernel #4
+                  (csrc/wave_apply.cu), at N = 2^20, L = 255, Kd in {16,
+                  128} (min(Kd, 64) applied splits among 120 leaves, Kd
+                  candidates among the leaves after them) on three
+                  storages: bench (bench.py's data, max_bin 63, numeric),
+                  criteo (criteo_like, max_bin 255, B = 256, categorical
+                  bitsets) and efb (efb_like, max_bin 63, bundled). The
+                  split records are drawn from each storage's own feature
+                  metadata (features, thresholds inside their bins, every
+                  missing type the data has, bitsets over a categorical
+                  feature's bins, EFB unpacking). Timed apart: the
+                  decision build the parent's route ran (dec_go_left for
+                  the applied entries and for the candidates with the
+                  land bit: a [Kd, N] byte matrix) and the kernel; in a
+                  checkout whose kernel decides each row itself, the
+                  kernel is also held bitwise to the decision build +
+                  wave_apply_plain and to its own plain version, and
+                  timed under WA_VARIANTS too ("8 blocks an SM").
 The wave kernels are timed through their wrappers ("auto"; "default" in
 a checkout without the membership pass, such as a parent given by
 --root), and kernel #3 also under its layout's variants: the bins of
@@ -86,7 +117,7 @@ import numpy as np
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STORAGES = ("bench", "narrow", "criteo")
 KERNELS = ("slots", "rowwise", "rowwise_packed", "fused_tiled", "wave_pass",
-           "wave_pass_fused")
+           "wave_pass_fused", "bucketize", "wave_apply")
 
 
 def emit(obj):
@@ -362,8 +393,8 @@ def main():
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--segment-rows", type=int, nargs="*", default=[])
-    ap.add_argument("--storage", nargs="*", default=STORAGES,
-                    choices=STORAGES)
+    ap.add_argument("--storage", nargs="*", default=None,
+                    choices=STORAGES + ("efb",))
     ap.add_argument("--kernel", default="slots", choices=KERNELS)
     ap.add_argument("--variants", nargs="*", default=None)
     args = ap.parse_args()
@@ -375,6 +406,10 @@ def main():
     import lightgbm_tpu_torch as lt
     from lightgbm_tpu_torch.ops import histogram_cuda as hc
     dev = torch.device("cuda", 0)
+    if args.kernel == "bucketize":
+        return bucketize_kernel(args, torch, lt, dev)
+    if args.kernel == "wave_apply":
+        return wave_apply_kernel(args, torch, lt, hc, dev)
     if args.kernel in ("wave_pass", "wave_pass_fused"):
         return wave_kernel(args, torch, hc, dev)
     if args.kernel != "slots":
@@ -386,7 +421,8 @@ def main():
         (128, "half"))]
     cases += [(K, active, n) for n in (1 << 14, 1 << 16)
               for K, active in ((1, "all"), (16, "half"), (128, "half"))]
-    for name, X_all, B, _ in storages(torch, lt, dev, args.storage):
+    for name, X_all, B, _ in storages(torch, lt, dev,
+                                      args.storage or STORAGES):
         F, N_all = X_all.shape
         vals_all = torch.randint(-8192, 8192, (2, N_all), generator=gen,
                                  device=dev, dtype=torch.int32
@@ -481,7 +517,8 @@ def other_kernel(args, torch, lt, hc, dev):
         cases += [(K, active, n) for n in (1 << 14, 1 << 16)
                   for K, active in ((1, "all"), (16, "half"),
                                     (128, "half"))]
-    for name, X_all, B, bins in storages(torch, lt, dev, args.storage):
+    for name, X_all, B, bins in storages(torch, lt, dev,
+                                         args.storage or STORAGES):
         F, N_all = X_all.shape
         plan = hr.build_rowwise_plan(bins)
         pplan = hr.build_pack4_plan(bins)
@@ -557,6 +594,316 @@ def other_kernel(args, torch, lt, hc, dev):
                       "plan": tp._asdict() if tp is not None else None,
                       "ms": ms, "device_ms": dms,
                       "device_ms_by_kernel": by})
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# kernel #6: device binning
+# ---------------------------------------------------------------------------
+# patches of the kernel's source that cut one part out or change one
+# choice; each pattern names the parent's form and the redesigned one,
+# whichever the source has ("stage only": no tile is binned; "no loads":
+# a value made from its row index stands in for the read one; "no
+# stores": nothing is written out; "no search": a value's low bits stand
+# in for its bin, or for its search's result; "6 blocks an SM": the
+# registers capped so that six blocks fit)
+BK_VARIANTS = {
+    "stage only": [(r"\bt < n_tiles", "t < 0")],
+    "no loads": [(r"v\[k\] = X\[\(r0 \+ r\) \* ldx \+ s_col\[f\]\];",
+                  "v[k] = (float)((r0 + r) & 1023) - 512.0f;"),
+                 (r"\? \*p : 0\.0f;",
+                  "? (float)((r0 + i * LGBT_BK_WARPS) & 1023) - 512.0f "
+                  ": 0.0f;")],
+    "no stores": [(r"if \(r0 \+ r < n\) out\[", "if (false) out["),
+                  (r"if \(feat_major\) \{", "if (false) {"),
+                  (r"\} else if \(mine\) \{", "} else if (false) {")],
+    "6 blocks an SM": [(r"__launch_bounds__\(LGBT_THREADS\)"
+                        r"\nbucketize_kernel",
+                        "__launch_bounds__(LGBT_THREADS, 6)\n"
+                        "bucketize_kernel")],
+    "no search": [(r"bin_one\(v\[k\],[^;]*\)",
+                   "(unsigned char)__float_as_uint(v[k])"),
+                  (r"const int g = bk_bucket\([^;]*\);",
+                   "const int g = __float_as_uint(q[i]) & 15;"),
+                  (r"int step = D > 0 \? 1 << \(D - 1\) : 0;",
+                   "int step = 0;")],
+}
+
+
+# the same for kernel #4's source (the redesigned one only)
+WA_VARIANTS = {
+    "8 blocks an SM": [(r"lgbt_grid\(quads, num_sms, 4\)",
+                        "lgbt_grid(quads, num_sms, 8)")],
+}
+
+
+def variant_fn(hc, kernel, patches, tag):
+    """The C entry point of kernel `kernel`'s source with `patches`
+    applied, built into the package's _build directory; None when the
+    source has none of the patterns."""
+    import ctypes
+    import re
+    import subprocess
+    src_name, entry = hc.KERNELS[kernel]
+    src = (hc.CSRC / src_name).read_text()
+    hits = 0
+    for pat, rep in patches:
+        src, k = re.subn(pat, rep, src)
+        hits += k
+    if not hits:
+        return None
+    hc.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{kernel}_{tag.replace(' ', '_')}"
+    cu = hc.BUILD_DIR / f"{tag}.cu"
+    so = hc.BUILD_DIR / f"{tag}.so"
+    cu.write_text(src)
+    subprocess.run([hc._nvcc(), *hc.NVCC_FLAGS, "-I", str(hc.CSRC), "-o",
+                    str(so), str(cu)], check=True, capture_output=True)
+    fn = getattr(ctypes.CDLL(str(so)), entry)
+    ref = hc._lib(kernel)
+    fn.argtypes, fn.restype = ref.argtypes, ref.restype
+    return fn
+
+
+def patched(hc, kernel, fn):
+    """Context: hc._lib(kernel) returns fn (None: unchanged)."""
+    import contextlib
+    lib = hc._lib
+
+    @contextlib.contextmanager
+    def ctx():
+        if fn is not None:
+            hc._lib = lambda k: fn if k == kernel else lib(k)
+        try:
+            yield
+        finally:
+            hc._lib = lib
+    return ctx()
+
+
+def bucketize_tables(torch, lt, bk, dev):
+    """chip_smoke.py's three tables: [(name, DeviceBinTable, rows [2^20,
+    F] f32 on the card, cols or None)]."""
+    sys.path.insert(1, HERE)
+    import chip_smoke as cs
+    N, F = 1 << 20, 28
+    rng = np.random.RandomState(42)
+    X = rng.normal(size=(N, F)).astype(np.float32)
+    w = rng.normal(size=F)
+    y = (X @ w + rng.normal(scale=0.5, size=N) > 0).astype(np.float32)
+    params = dict(objective="binary", max_bin=63, verbose=-1,
+                  binning_impl="auto", device_type="cuda")
+    h = lt.Dataset(X, label=y, params=params).construct()._handle
+    syn_mappers, Xs = cs._synthetic_bucketize_case(
+        np.random.RandomState(44), N, F)
+    Xd = torch.from_numpy(X).to(dev)
+    cols = torch.as_tensor(np.asarray(h.real_feature_index,
+                                      np.int32)).to(dev)
+    return [
+        ("train", bk.pack_bin_table(h.mappers, mode="train"), Xd, cols),
+        ("serve", bk.pack_bin_table(cs._mappers_by_feature(h), mode="serve",
+                                    used_features=range(F)), Xd, None),
+        ("synthetic", bk.pack_bin_table(syn_mappers, mode="serve"),
+         torch.from_numpy(Xs).to(dev), None)]
+
+
+def bucketize_kernel(args, torch, lt, dev):
+    """--kernel bucketize: kernel #6 through its wrapper, both output
+    layouts bitwise against bucketize_plain at 2^20, 2^18, 256 and 8 rows;
+    the layout a shape takes on the main path (feature-major at ingest,
+    row-major when serving) also under BK_VARIANTS."""
+    from lightgbm_tpu_torch.ops import bucketize as bk
+    hc = bk.hc
+    variants = {v: variant_fn(hc, "bucketize", pats, v)
+                for v, pats in BK_VARIANTS.items() if wanted(args, v)}
+    for name, table, X_all, cols in bucketize_tables(torch, lt, bk, dev):
+        tt = bk.upload_bin_table(table, dev)
+        F = tt.num_features
+        for n in (1 << 20, 1 << 18, 256, 8):
+            X = X_all[:n]
+            ref = bk.bucketize_plain(X, tt, cols=cols)
+            X_t = torch.empty((F, n), dtype=torch.uint8, device=dev)
+            layouts = {"feature-major": lambda: bk.bucketize_cuda(
+                X, tt, out=X_t.t(), cols=cols),
+                "row-major": lambda: bk.bucketize_cuda(X, tt, cols=cols)}
+            main = "feature-major" if n >= 1 << 18 else "row-major"
+            for lay, fn in layouts.items():
+                got = fn()
+                torch.cuda.synchronize()
+                if not torch.equal(got, ref):
+                    raise AssertionError(f"bucketize {name} n={n} {lay}: "
+                                         f"not bitwise equal to the plain "
+                                         f"version")
+                runs = {"full": None}
+                if lay == main:
+                    runs.update({v: f for v, f in variants.items()
+                                 if f is not None})
+                for vname, vfn in runs.items():
+                    if not wanted(args, vname):
+                        continue
+                    with patched(hc, "bucketize", vfn):
+                        ms, dms, by = timed(torch, fn, args.reps)
+                    emit({"kernel": "bucketize", "table": name,
+                          "mode": table.mode, "n": n, "F": F, "B": tt.B,
+                          "layout": lay, "variant": vname,
+                          "bytes": n * F * 5 + F * tt.B * 8 + F * 32,
+                          "ms": ms, "device_ms": dms,
+                          "device_ms_by_kernel": by})
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# kernel #4: the apply route's row pass
+# ---------------------------------------------------------------------------
+def apply_storages(torch, lt, dev, names):
+    """(name, gbdt) of the bench, criteo and efb storages at 2^20 rows,
+    ingested on the card."""
+    from lightgbm_tpu_torch.utils.synthetic import (CRITEO_CAT_COLUMNS,
+                                                    criteo_like, efb_like)
+    N = 1 << 20
+    base = dict(objective="binary", num_leaves=255, verbose=-1,
+                binning_impl="auto", device_type="cuda")
+    for name in names:
+        cats = None
+        if name == "bench":
+            rng = np.random.RandomState(42)
+            X = rng.normal(size=(N, 28)).astype(np.float32)
+            y = (X @ rng.normal(size=28) > 0).astype(np.float32)
+            params = dict(base, max_bin=63)
+        elif name == "criteo":
+            X, y = criteo_like(N)
+            cats = list(CRITEO_CAT_COLUMNS)
+            params = dict(base, max_bin=255)
+        else:
+            X, y = efb_like(N)
+            params = dict(base, max_bin=63)
+        ds = lt.Dataset(X, label=y, categorical_feature=cats,
+                        params=params).construct()
+        yield name, lt.Booster(params, ds)._gbdt
+
+
+def apply_records(torch, rng, g, n, dev):
+    """n split records drawn from the storage's feature metadata:
+    (feature, threshold, default_left, is_cat, bitset [n, W] int64)."""
+    meta, cfg = g.meta, g.grow_cfg
+    nb = meta.num_bins.cpu().numpy().astype(np.int64)
+    cat_f = meta.is_categorical.cpu().numpy() & cfg.has_categorical
+    W = cfg.cat_words
+    feat = rng.randint(0, len(nb), n)
+    thr = np.array([rng.randint(0, max(nb[f] - 1, 1)) for f in feat])
+    dl = rng.randint(0, 2, n).astype(bool)
+    iscat = cat_f[feat]
+    bits = np.zeros((n, W), np.int64)
+    for i in np.flatnonzero(iscat):
+        on = np.flatnonzero(rng.rand(nb[feat[i]]) < 0.3)
+        for b in on:
+            bits[i, b >> 5] |= 1 << (b & 31)
+    t = [torch.from_numpy(a).to(dev) for a in (feat, thr, dl, iscat, bits)]
+    return t
+
+
+def wave_apply_kernel(args, torch, lt, hc, dev):
+    """--kernel wave_apply: the parent's decision build and kernel #4,
+    timed apart; the redesigned kernel also held to the parent's
+    composition (bitwise)."""
+    from lightgbm_tpu_torch.ops import grow_wave as tw
+    from lightgbm_tpu_torch.ops import histogram as th
+    per_row = hasattr(hc, "wave_apply_rows_plain")
+    wa_variants = {}
+    if per_row:
+        wa_variants = {v: variant_fn(hc, "wave_apply", pats, v)
+                       for v, pats in WA_VARIANTS.items()
+                       if wanted(args, v)}
+    gen = torch.Generator(device=dev).manual_seed(9)
+    rng = np.random.RandomState(9)
+    L, nl0 = 255, 120
+    names = [s for s in ("bench", "criteo", "efb")
+             if args.storage is None or s in args.storage]
+    for name, g in apply_storages(torch, lt, dev, names):
+        X_t, meta, cfg = g.X_t, g.meta, g.grow_cfg
+        N = X_t.shape[1]
+        lor = torch.randint(0, nl0, (N,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        for Kd in (16, 128):
+            napp = min(Kd, 64)
+            fa, ta, da, ca, ba = apply_records(torch, rng, g, napp, dev)
+            fc, tc, dc, cc, bc = apply_records(torch, rng, g, Kd, dev)
+            sil = torch.from_numpy(rng.randint(0, 2, Kd).astype(bool)) \
+                .to(dev)
+            t = np.full((16, 128), -1, np.int32)
+            t[0, :napp] = rng.choice(nl0, napp, replace=False)
+            t[7, :Kd] = rng.choice(nl0 + napp, Kd, replace=False)
+            t[15] = nl0
+            tbl = torch.from_numpy(t).to(dev)
+
+            def dec_build():
+                dec = torch.zeros((Kd, N), dtype=torch.uint8, device=dev)
+                dec[:napp] = tw.dec_go_left(X_t, fa, ta, da, ca, ba, meta,
+                                            cfg)
+                glc = tw.dec_go_left(X_t, fc, tc, dc, cc, bc, meta, cfg)
+                dec |= (glc == sil[:, None]).to(torch.uint8) << 1
+                return dec
+            dec = dec_build()
+            ref = hc.wave_apply_plain(dec, lor, tbl, L)
+            rec = {"kernel": "wave_apply", "storage": name, "N": N,
+                   "F": int(X_t.shape[0]), "B": cfg.num_bins_padded,
+                   "Kd": Kd, "napp": napp,
+                   "cat_entries": int(ca.sum() + cc.sum()),
+                   "bundled": cfg.bundled,
+                   "rows_applied": int(torch.isin(lor, tbl[0, :napp]).sum()),
+                   "rows_candidate": int(torch.isin(
+                       ref[0], tbl[7, :Kd]).sum()),
+                   "slots": int((ref[1] >= 0).sum())}
+            ms, dms, by = timed(torch, dec_build, args.reps)
+            emit({**rec, "part": "decision build", "ms": ms,
+                  "device_ms": dms, "device_ms_by_kernel": by})
+            if per_row:
+                full = tbl.clone()
+                full[1:7, :napp] = torch.stack([
+                    fa, ta, da.long(), meta.missing_type.long()[fa],
+                    meta.default_bin.long()[fa],
+                    meta.num_bins.long()[fa]]).to(torch.int32)
+                full[8:15, :Kd] = torch.stack([
+                    fc, tc, dc.long(), meta.missing_type.long()[fc],
+                    meta.default_bin.long()[fc], meta.num_bins.long()[fc],
+                    sil.long()]).to(torch.int32)
+                cats = (tw.pack_wave_cats(ca, ba, cc, bc, cfg.cat_words)
+                        if cfg.has_categorical else None)
+                bmap = tw.wave_bundle_map(cfg, dev)
+                kargs = (X_t, lor, full, cats, bmap, Kd, L)
+                got = hc.wave_apply_cuda(*kargs)
+                plain = hc.wave_apply_rows_plain(*kargs)
+                torch.cuda.synchronize()
+                for a, b, c in zip(got, ref, plain):
+                    if not (torch.equal(a, b) and torch.equal(a, c)):
+                        raise AssertionError(
+                            f"wave_apply {name} Kd={Kd}: not bitwise "
+                            f"equal to the decision build + "
+                            f"wave_apply_plain / the plain version")
+
+                def fn():
+                    return th.wave_apply(*kargs)
+                for vname, vfn in wa_variants.items():
+                    with patched(hc, "wave_apply", vfn):
+                        ms, dms, by = timed(torch, fn, args.reps)
+                    emit({**rec, "part": "kernel", "per_row": per_row,
+                          "variant": vname, "ms": ms, "device_ms": dms,
+                          "device_ms_by_kernel": by})
+            else:
+                got = hc.wave_apply_cuda(dec, lor, tbl, L)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+                    raise AssertionError(f"wave_apply {name} Kd={Kd}: not "
+                                         f"bitwise equal")
+
+                def fn():
+                    return hc.wave_apply_cuda(dec, lor, tbl, L)
+            ms, dms, by = timed(torch, fn, args.reps)
+            emit({**rec, "part": "kernel", "per_row": per_row,
+                  "variant": "full", "ms": ms, "device_ms": dms,
+                  "device_ms_by_kernel": by})
+            del dec
+        del g
     return 0
 
 

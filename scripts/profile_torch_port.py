@@ -41,9 +41,10 @@ on the first CUDA device and served, and the script prints JSON lines:
              root histogram, the wave kernels, the split search, the
              objective, the score update, and everything else. On the
              apply route the wave stages are the decision-bit build
-             (`dec_go_left`, plain PyTorch), the wave_apply kernel and the
-             wave histogram, and the split search is split into its
-             numeric and categorical parts. On the fused routes the wave
+             (`dec_go_left`, plain PyTorch: a checkout whose wave_apply
+             kernel decides each row itself never calls it), the
+             wave_apply kernel and the wave histogram, and the split
+             search is split into its numeric and categorical parts. On the fused routes the wave
              stage is the fused kernel (histogram and the children's
              numeric search), the numeric search outside it is the root's,
              and on "fused_tiled" the decision-bit build, the categorical

@@ -10,6 +10,8 @@ serve-mode table lands on a pad lane (bin 0) there, while the Pallas kernel,
 the host path and the port give the sentinel bin (ROADMAP C).
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -231,3 +233,174 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     tt = tb.upload_bin_table(tb.pack_bin_table(tm), "cpu")
     with pytest.raises(ValueError, match="CUDA"):
         tb.bucketize_cuda(torch.zeros((4, len(tm))), tt)
+
+
+# ---------------------------------------------------------------------------
+# the redesigned kernel's host-side pieces: the per-row search depth in the
+# uploaded meta rows, the search it bounds, and the launch planner
+# ---------------------------------------------------------------------------
+def _synthetic_style_mappers(seed, F=8):
+    """chip_smoke's synthetic table in small: every fourth feature
+    categorical, the others numeric with NaN-missing, zero-missing or no
+    missing type at max_bin 63 or 255."""
+    rng = np.random.RandomState(seed)
+    n = 3000
+    out = []
+    for f in range(F):
+        if f % 4 == 3:
+            fit = rng.randint(-3, 60, size=n).astype(np.float64)
+            m = JBinMapper.find_bin(fit, n, 255, 3, 20, bin_type=J_CAT)
+        else:
+            m = JBinMapper.find_bin(_edge_col(rng, n).astype(np.float64), n,
+                                    63 if f % 2 else 255, 3, 20,
+                                    zero_as_missing=f % 4 == 1,
+                                    use_missing=f % 8 != 6)
+        out.append(m)
+    return out, [TBinMapper.from_dict(m.to_dict()) for m in out]
+
+
+def _table_cases():
+    jm, tm = _mappers(13)
+    sj, st = _synthetic_style_mappers(14)
+    used = [0, 2, 3, 5]
+    return [("train", jm, tb.pack_bin_table(tm, mode="train"), None),
+            ("serve", jm, tb.pack_bin_table(tm, mode="serve",
+                                            used_features=used), used),
+            ("synthetic", sj, tb.pack_bin_table(st, mode="serve"), None)]
+
+
+def _searchable(m, f, used):
+    """The lanes a feature's search covers, from its mapper: its keys, or
+    its finite upper bounds (the +inf last bound and the NaN bin's are
+    not searched); none for an unused feature."""
+    if used is not None and f not in used:
+        return 0
+    if m.bin_type == J_CAT:
+        return len(m.categorical_2_bin)
+    ub = np.asarray(m.bin_upper_bound, np.float64)
+    return int(np.sum(ub < np.inf))
+
+
+@pytest.mark.parametrize("case", range(3), ids=["train", "serve",
+                                                  "synthetic"])
+def test_search_depth_in_meta_rows(case):
+    """upload_bin_table writes each row's searchable lanes (column 7) and
+    the depth of the kernel's search (column 6): ceil(log2(n + 1)) for the
+    largest of the row's grid buckets, at most ceil(log2(count + 1)), the
+    depth of a search over the whole row, which a row whose bounds span no
+    range (one bucket) takes; the packed numpy table itself stays the JAX
+    package's."""
+    name, jm, t, used = _table_cases()[case]
+    tt = tb.upload_bin_table(t, "cpu")
+    meta, grids = tt.meta.numpy(), tt.grids.numpy()
+    np.testing.assert_array_equal(meta[:, :6], t.meta[:t.num_features, :6])
+    shallower = 0
+    for f, m in enumerate(jm):
+        cnt = _searchable(m, f, used)
+        full = math.ceil(math.log2(cnt + 1)) if cnt else 0
+        assert meta[f, 7] == cnt, (name, f)
+        g = grids[f, 2:]
+        sizes = (g >> 16) - (g & 0xFFFF)
+        assert sizes.sum() == cnt
+        largest = int(sizes.max())
+        assert meta[f, 6] == (math.ceil(math.log2(largest + 1))
+                              if largest else 0)
+        assert meta[f, 6] <= full
+        if grids[f, 1] == 0:                       # scale 0: one bucket
+            assert meta[f, 6] == full
+        shallower += meta[f, 6] < full
+    assert shallower >= len(jm) // 2
+
+
+def _kernel_search(X, tt):
+    """numpy transcription of csrc/bucketize.cu's search: a key's bucket
+    on its row's grid, then a lower-bound search of `depth` probes among
+    that bucket's bounds; a categorical key is present iff the lane at
+    its count equals it."""
+    tab, cv, m = (a.numpy() for a in (tt.table, tt.cat_val, tt.meta))
+    grids = tt.grids.numpy()
+    nb = grids.shape[1] - 2
+    out = np.zeros(X.shape, np.uint8)
+    for f in range(tab.shape[0]):
+        v = X[:, f]
+        nan = np.isnan(v)
+        is_cat = m[f, 0] > 0
+        if is_cat:
+            with np.errstate(invalid="ignore"):
+                q = np.where(nan, m[f, 3], np.trunc(v)).astype(np.float32)
+                q = np.where((v < 0) & (m[f, 5] > 0), np.float32(-2.0), q)
+        else:
+            q = v
+        lo, scale = grids[f, :2].view(np.float32)
+        g = grids[f, 2:][tb.grid_buckets(q, lo, scale, nb)]
+        p, e = (g & 0xFFFF).astype(np.int64), (g >> 16).astype(np.int64)
+        depth, cnt = int(m[f, 6]), int(m[f, 7])
+        step = 1 << (depth - 1) if depth else 0
+        while step:
+            c = np.minimum(p + step, e)
+            with np.errstate(invalid="ignore"):
+                p = np.where(tab[f, np.maximum(c - 1, p)] < q, c, p)
+            step >>= 1
+        if is_cat:
+            hit = (p < cnt) & (tab[f, np.minimum(p, tab.shape[1] - 1)] == q)
+            out[:, f] = np.where(hit, cv[f, np.minimum(p, cv.shape[1] - 1)],
+                                 m[f, 4]).astype(np.uint8)
+        else:
+            out[:, f] = np.where(nan, m[f, 2],
+                                 np.minimum(p, m[f, 1])).astype(np.uint8)
+    return out
+
+
+def test_grid_buckets_are_monotone():
+    """The bucket function is monotone in f32, the property the grid's
+    partition of the bounds rests on: over the probe values (NaN aside)
+    and every row's grid, a larger value never lands in a smaller
+    bucket."""
+    _, jm, t, _ = _table_cases()[2]
+    tt = tb.upload_bin_table(t, "cpu")
+    X = _probe(np.random.RandomState(16), jm, n=600)
+    v = np.sort(X[~np.isnan(X)].astype(np.float32))
+    grids = tt.grids.numpy()
+    for f in range(grids.shape[0]):
+        lo, scale = grids[f, :2].view(np.float32)
+        b = tb.grid_buckets(v, lo, scale, grids.shape[1] - 2)
+        assert (np.diff(b) >= 0).all()
+
+
+@pytest.mark.parametrize("case", range(3), ids=["train", "serve",
+                                                  "synthetic"])
+def test_depth_bounded_search_equals_plain(case):
+    """The kernel's search, a grid bucket and a few probes, bins the probe
+    rows (every bound and one ulp either side, NaN, +-0, subnormals,
+    +-inf, unseen and negative categories) as the plain version does."""
+    name, jm, t, _ = _table_cases()[case]
+    tt = tb.upload_bin_table(t, "cpu")
+    X = _probe(np.random.RandomState(15 + case), jm, n=600)
+    np.testing.assert_array_equal(_kernel_search(X, tt), _plain(X, t),
+                                  err_msg=name)
+
+
+@pytest.mark.parametrize("n,F,B,want", [
+    (1 << 20, 28, 128, (28, 1, 528)),    # ingest: the train table
+    (1 << 18, 28, 128, (28, 1, 528)),    # an ingest chunk
+    (256, 28, 128, (4, 7, 14)),          # the served bucket of 256 rows
+    (8, 28, 128, (4, 7, 7)),             # the smallest served bucket
+    (1 << 20, 28, 256, (14, 2, 660)),    # the synthetic table's lanes
+    (1 << 20, 39, 256, (13, 3, 660)),    # the Criteo schema
+])
+def test_bucketize_planner(n, F, B, want):
+    """The launch of kernel #6 on an H100's 132 SMs, grids of B buckets:
+    feature groups of at most 32 whose tables let four blocks share an
+    SM, cut to 4 features for served chunks so that a chunk spreads over
+    blocks; a grid of the blocks that fit, a multiple of the groups, at
+    most one block per row tile and group."""
+    p = tb.plan_bucketize(n, F, B, B, 132)
+    assert (p.group, p.groups, p.grid) == want
+    assert p.group <= 32 and p.groups * p.group >= F
+    assert (p.groups - 1) * p.group < F
+    assert p.grid % p.groups == 0
+    assert p.grid // p.groups <= -(-n // 128)
+    assert p.smem == tb._smem_bytes(p.group, B, B)
+    assert p.group <= 4 or p.smem + 1024 <= 228 * 1024 // 4
+    per_sm = (228 * 1024) // (p.smem + 1024)
+    assert p.grid <= 132 * min(per_sm, 8)

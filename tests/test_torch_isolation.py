@@ -111,7 +111,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         hc.wave_relabel_cuda(X, lor, tbl, 4)
     with pytest.raises(ValueError, match="CUDA"):
-        hc.wave_apply_cuda(X.to(torch.int8), lor, tbl, 4)
+        hc.wave_apply_cuda(X, lor, tbl, None, None, 4, 4)
     from lightgbm_tpu_torch.ops import grow_fused as gf
     from lightgbm_tpu_torch.ops.split import SplitHyperParams
     hp = SplitHyperParams(20.0, 1e-3, 0.0, 0.0, 0.0, 0.0, 0.0)
