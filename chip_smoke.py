@@ -130,6 +130,26 @@ Phases, each printing one JSON line:
                      the first tree of the plain versions with the f32
                      prefix scan the search used before against the f64
                      one (printed, not checked)
+ 11. the constraints (monotone `basic`, interaction sets):
+     constraints_kernel  kernel #10 with its monotone operand live (every
+                     odd child bounded, the features' directions mixed) on
+                     the Criteo storage at K in {1, 16}: records bitwise
+                     equal to its plain version on grid values, chosen
+                     splits equal on continuous ones, some records changed
+                     by the operand; timed beside the same call with the
+                     operand off
+     constraints_train   bench.py's model with features 0-3 constrained
+                     in their weights' directions (+1 / +1 / +1 / -1), 4
+                     rounds on the megakernel route and 4 under
+                     histogram_impl=fused (route "fused_tiled"): first
+                     tree equal to the plain versions' and unlike the
+                     unconstrained run's, AUC > 0.75, and the raw score of
+                     4096 rows never moves against a constraint along a
+                     32-point sweep of its feature and moves along some
+                     (the device predictor); then the Criteo table with two
+                     interaction sets, 2 rounds on the apply route and 2
+                     under fused: first tree equal to the plain versions',
+                     every branch inside one set
 
 then a {"kernels": [...]} line (the ten kernels), the nvidia-smi line,
 and last
@@ -1466,8 +1486,9 @@ FUSED_FIELDS = ("gain", "feature", "threshold", "default_left", "left_sum_g",
 def _fused_operands(torch, hc, X, vals, slot_all, slot_small, sil, K, B):
     """What the fused scan reads, from real rows: each candidate's parent
     histogram [K, 2 * F * B] over the rows of its leaf (`slot_all`), and
-    per-child scalars [5, 2K] whose sums and counts are those of its two
-    children (the smaller one's rows in `slot_small`)."""
+    per-child scalars [7, 2K] whose sums and counts are those of its two
+    children (the smaller one's rows in `slot_small`), with the monotone
+    bounds off (-inf, +inf)."""
     v3 = torch.cat([vals.to(torch.float32),
                     torch.ones((1, X.shape[1]), device=X.device)])
     par3 = hc.build_histogram_slots_cuda(X, v3, slot_all, K, B)
@@ -1478,8 +1499,9 @@ def _fused_operands(torch, hc, X, vals, slot_all, slot_small, sil, K, B):
     rtot = ptot - ltot
     lr = torch.cat([ltot, rtot])                   # [2K, 3]
     out = -lr[:, 0] / (lr[:, 1] + 1.0)
+    inf = torch.full_like(out, float("inf"))
     scal = torch.stack([lr[:, 0], lr[:, 1], lr[:, 2], out,
-                        torch.cat([sil, sil]).to(torch.float32)])
+                        torch.cat([sil, sil]).to(torch.float32), -inf, inf])
     parent = par3[:, :2]
     if vals.dtype == torch.int8:
         parent = hc.build_histogram_slots_cuda(X, vals, slot_all, K, B)
@@ -1511,7 +1533,7 @@ def _fused_hp():
 def _scan_nbytes(K, F, B):
     """Bytes the split scan must move: the parent histograms read, the
     per-child scalars, the feature metadata and the records."""
-    return K * 2 * F * B * 4 + 5 * 2 * K * 4 + 4 * F * 4 + 12 * 2 * K * 4
+    return K * 2 * F * B * 4 + 7 * 2 * K * 4 + 5 * F * 4 + 12 * 2 * K * 4
 
 
 def fused_narrow_phase(hc, gf, torch, dev):
@@ -1536,7 +1558,8 @@ def fused_narrow_phase(hc, gf, torch, dev):
     hp_reg = hp._replace(lambda_l1=0.5, lambda_l2=2.0, max_delta_step=0.75,
                          min_gain_to_split=0.25, path_smooth=3.0)
     fmeta = torch.tensor(np.stack([np.full(F, 63), rng.randint(0, 3, F),
-                                   rng.randint(0, 63, F), np.zeros(F)]),
+                                   rng.randint(0, 63, F), np.zeros(F),
+                                   np.zeros(F)]),
                          dtype=torch.int32, device=dev)
     fmask = torch.ones(F, dtype=torch.uint8, device=dev)
     recs = {}
@@ -1683,8 +1706,8 @@ def fused_tiled_phase(hc, gf, torch, dev, X_c):
         fmeta = torch.tensor(np.stack([np.full(F, B - 1),
                                        rng.randint(0, 3, F),
                                        rng.randint(0, B - 1, F),
-                                       np.zeros(F)]), dtype=torch.int32,
-                             device=dev)
+                                       np.zeros(F), np.zeros(F)]),
+                             dtype=torch.int32, device=dev)
         fmask = torch.from_numpy((rng.rand(2 * K, F) < 0.9).astype(
             np.uint8)).to(dev)
         res = {}
@@ -1876,6 +1899,261 @@ def criteo_fused_phase(lt, hc, torch, params, ds):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the constraints: monotone `basic` and interaction sets
+# ---------------------------------------------------------------------------
+def constraints_kernel_phase(hc, gf, torch, dev, X_c):
+    """Kernel #10 with its monotone operand live, against its plain version,
+    at the Criteo storage X_c ([39, 2^20], B = 256) for K in {1, 16}: the
+    mid-tree wave of fused_tiled_phase's "criteo" case, every odd child
+    bounded to a window of a quarter of its output around it, the features'
+    directions drawn from {-1, 0, +1}. Records bitwise on grid values,
+    chosen splits equal on continuous ones; the operand must change some
+    records. Then the same call with the operand off (+-inf, zeros), the
+    unconstrained kernel's input, timed beside it."""
+    gen = torch.Generator(device=dev).manual_seed(25)
+    rng = np.random.RandomState(26)
+    hp = _fused_hp()
+    L, B = N_LEAVES, 256
+    F, N = X_c.shape
+    recs = []
+    for K in (1, 16):
+        nl0, napp = 120, min(K, 12)
+        lor = torch.randint(0, nl0, (N,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        pend = torch.full((128,), -1, dtype=torch.int32, device=dev)
+        t = np.full((16, 128), -1, np.int32)
+        t[0, :napp] = rng.choice(nl0, napp, replace=False)
+        t[7, :K] = rng.choice(nl0 + napp, K, replace=False)
+        t[15] = nl0
+        tbl = torch.from_numpy(t).to(dev)
+        Kd = max(K, napp)
+        # bits 0 and 1 only: no pending entry is live
+        dec = torch.randint(0, 4, (Kd, N), generator=gen, device=dev,
+                            dtype=torch.int32).to(torch.uint8)
+        _, slot_all = hc.wave_apply_plain(dec | 2, lor, tbl, L)
+        _, slot_small = hc.wave_apply_plain(dec, lor, tbl, L)
+        sil = torch.from_numpy(rng.randint(0, 2, K).astype(bool)).to(dev)
+        mono = rng.choice([-1, 0, 1], F)
+        meta = np.stack([np.full(F, B - 1), rng.randint(0, 3, F),
+                         rng.randint(0, B - 1, F), np.zeros(F), mono])
+        fmeta = torch.tensor(meta, dtype=torch.int32, device=dev)
+        fmeta_off = fmeta.clone()
+        fmeta_off[4] = 0
+        fmask = torch.from_numpy((rng.rand(2 * K, F) < 0.9).astype(
+            np.uint8)).to(dev)
+        res, changed = {}, {}
+        for kind in ("grid", "continuous"):
+            vals = (_grid_vals(torch, gen, 2, N, dev) if kind == "grid"
+                    else torch.randn((2, N), generator=gen, device=dev))
+            vals[1] = vals[1].abs()
+            parent, scal_off = _fused_operands(torch, hc, X_c, vals,
+                                               slot_all, slot_small, sil, K,
+                                               B)
+            scal = scal_off.clone()
+            out = scal[3, 1::2]
+            scal[5, 1::2] = out - 0.25 * out.abs()
+            scal[6, 1::2] = out + 0.25 * out.abs()
+            args = (X_c, vals, dec, lor, tbl, pend, 0, parent, scal, fmeta,
+                    fmask, K, B, L, hp, None)
+            args_off = args[:8] + (scal_off, fmeta_off) + args[10:]
+            gl, gh, gr = gf.wave_pass_fused_tiled_cuda(*args)
+            rl, rh, rr = gf.wave_pass_fused_tiled_plain(*args)
+            _, _, gr_off = gf.wave_pass_fused_tiled_cuda(*args_off)
+            _, _, rr_off = gf.wave_pass_fused_tiled_plain(*args_off)
+            torch.cuda.synchronize()
+            key = f"wave_pass_fused_tiled monotone K={K} {kind}"
+            check(torch.equal(gl, rl), f"{key}: leaf_of_row")
+            d = _rec_diffs(torch, gr, rr)
+            check(d["feature"] == d["threshold"] == d["default_left"] == 0,
+                  f"{key}: chosen splits differ {d}")
+            check(bool(torch.isfinite(gr[0]).any()),
+                  f"{key}: no child found a split")
+            d_off = _rec_diffs(torch, gr_off, rr_off)
+            check(d_off["feature"] == d_off["threshold"]
+                  == d_off["default_left"] == 0,
+                  f"{key}, operand off: chosen splits differ {d_off}")
+            if kind == "grid":
+                check(torch.equal(gh, rh) and torch.equal(gr, rr),
+                      f"{key}: not bitwise equal ({d})")
+                check(torch.equal(gr_off, rr_off),
+                      f"{key}, operand off: not bitwise equal ({d_off})")
+            changed[kind] = int((gr != gr_off).any(0).sum())
+            res[kind] = d
+        check(K == 1 or changed["grid"] > 0,
+              f"the monotone operand changed no record at K={K}")
+        small_rows = int((slot_small >= 0).sum())
+        live = int(((slot_all >= 0) | torch.isin(lor, tbl[0, :napp])).sum())
+        nbytes = 8 * N + 2 * live + small_rows * (F + 8) \
+            + K * 2 * F * B * 4 + 16 * 128 * 4 + 128 * 4 \
+            + _scan_nbytes(K, F, B) + 2 * K * F
+        bms, by = bound_ms(nbytes, small_rows * F * 2 + 2 * K * 2 * F * B
+                           * 44)
+        ms, dms = timings(lambda: gf.wave_pass_fused_tiled_cuda(*args), 20)
+        ms_off, dms_off = timings(
+            lambda: gf.wave_pass_fused_tiled_cuda(*args_off), 20)
+        ms2, dms2 = timings(lambda: gf.wave_pass_fused_tiled_cuda(*args), 20)
+        plain_ms = time_ms(lambda: gf.wave_pass_fused_tiled_plain(*args), 3,
+                           1)
+        rec = dict(name="wave_pass_fused_tiled", operand="monotone", K=K,
+                   N=N, F=F, B=B, Kd=Kd, max_abs_err=0.0, tol=0.0,
+                   ms=[ms, ms2], device_ms=[dms, dms2], ms_off=ms_off,
+                   device_ms_off=dms_off, plain_ms=plain_ms,
+                   bound_ms=bms, bound_by=by, small_rows=small_rows,
+                   bounded_children=K, records_changed=changed,
+                   continuous_max_diff=res["continuous"])
+        emit({"phase": "constraints_kernel", **rec})
+        recs.append(rec)
+    return recs
+
+
+def _sweep_monotone(bst, rows, feats):
+    """Raw scores of `rows` along a 32-point sweep of each feature j of
+    `feats` ((j, direction) pairs), through Booster.predict, whose batches
+    of 100k rows and more take the device predictor: (worst step against
+    the direction, steps that moved with it) per feature."""
+    grid = np.linspace(-3.0, 3.0, 32, dtype=np.float32)
+    out = {}
+    for j, sign in feats:
+        Xs = np.repeat(rows, len(grid), axis=0)
+        Xs[:, j] = np.tile(grid, len(rows))
+        p = bst.predict(Xs, raw_score=True).reshape(len(rows), len(grid))
+        step = np.diff(p, axis=1) * sign
+        out[j] = (float(step.min()), int((step > 0).sum()))
+    return out
+
+
+def constraints_train_phase(lt, hc, torch, params, ds, w, t_free):
+    """bench.py's model with features 0-3 constrained in the directions of
+    their weights `w` in the label (+1 / +1 / +1 / -1 for the bench data),
+    monotone `basic`, 4 rounds on the megakernel route and 4 under
+    histogram_impl=fused (the general fused kernel, #10, with its
+    monotone operand): the first tree equals the plain versions' and
+    differs from the unconstrained run's first tree `t_free` (the
+    constraints bind), and the raw score of 4096 rows never moves against
+    a constraint along a sweep of its feature (the device predictor), and
+    moves along some. Returns the launches of the fused run."""
+    mono = [int(np.sign(x)) for x in w[:4]] + [0] * (N_FEAT - 4)
+    rows = np.random.RandomState(45).normal(size=(4096, N_FEAT)) \
+        .astype(np.float32)
+    fused_launches = None
+    for impl, route in (("auto", "mega"), ("fused", "fused_tiled")):
+        p = {**params, "monotone_constraints": mono, "histogram_impl": impl}
+        bst, launches, iter_ms, aucs = _train_timed(lt, hc, torch, p, ds, 4)
+        g = bst._gbdt
+        trees = g.models
+        lv_err = _same_host_tree(_plain_first_tree(torch, g, N_ROWS),
+                                 trees[0])
+        free_err = _same_host_tree(t_free, trees[0])
+        g._device_tables_cache = None
+        sweep = _sweep_monotone(bst, rows,
+                                [(j, mono[j]) for j in range(4)])
+        emit({"phase": "constraints_train", "model": "bench",
+              "monotone_constraints": mono[:4], "rows": N_ROWS,
+              "grow_route": g.grow_route,
+              "fused_veto_reasons": g.fused_veto_reasons,
+              "iter_ms": iter_ms,
+              "steady_ms_per_iter": float(np.mean(iter_ms[1:])),
+              "launches": launches, "train_auc_per_round": aucs,
+              "leaves": [t.num_leaves for t in trees],
+              "first_tree_same": lv_err is not None,
+              "leaf_value_max_abs_err": lv_err,
+              "unconstrained_first_tree_leaf_value_max_abs_diff": free_err,
+              "sweep_rows": len(rows), "sweep_worst_step": sweep,
+              "sweep_device_route":
+                  g._device_tables_cache is not None})
+        check(g.grow_route == route and g.fused_veto_reasons == [],
+              f"monotone bench under {impl} took route {g.grow_route}")
+        kernels = (("wave_pass", "wave_relabel", "build_histogram_slots",
+                    "take_leaf_values") if route == "mega"
+                   else ("wave_pass_fused_tiled", "build_histogram_slots",
+                         "take_leaf_values"))
+        for name in kernels:
+            check(launches[name] > 0,
+                  f"{name} never launched on the monotone {route} run")
+        if route == "fused_tiled":
+            check(launches["wave_pass_fused"] == 0
+                  and launches["wave_pass"] == 0,
+                  "the monotone fused run launched a narrow kernel")
+            fused_launches = launches
+        check(len(trees) == 4 and aucs[-1] > 0.75,
+              f"monotone bench ({route}) train AUC {aucs[-1]} <= 0.75")
+        check(lv_err is not None and lv_err <= 1e-6,
+              f"monotone bench ({route}) first tree differs from the plain "
+              f"versions' ({lv_err})")
+        check(free_err is None or free_err > 0.0,
+              f"monotone bench ({route}): the constraints changed nothing")
+        check(g._device_tables_cache is not None,
+              "the sweep did not take the device predictor")
+        check(all(w >= 0.0 for w, _ in sweep.values()),
+              f"monotone bench ({route}): a score moved against its "
+              f"constraint {sweep}")
+        check(sum(m for _, m in sweep.values()) > 0,
+              f"monotone bench ({route}): no constrained feature moved the "
+              f"score {sweep}")
+    return fused_launches
+
+
+def _paths_in_sets(tree, sets):
+    """Whether every root-to-leaf path of a host tree splits on features
+    of one interaction set."""
+    def walk(node, feats):
+        if node < 0:
+            return any(feats <= s for s in sets)
+        f = feats | {int(tree.split_feature[node])}
+        return (walk(int(tree.left_child[node]), f)
+                and walk(int(tree.right_child[node]), f))
+    return tree.num_leaves <= 1 or walk(0, frozenset())
+
+
+def constraints_criteo_phase(lt, hc, torch, params, ds):
+    """The Criteo table with two interaction sets (count columns 0-6 with
+    categorical columns 13-25, and 7-12 with 26-38), 2 rounds on the apply
+    route and 2 under histogram_impl=fused (#10 with per-child feature
+    masks): the first tree equals the plain versions', and every branch
+    stays inside one set. Returns the launches of the fused run."""
+    sets = [list(range(0, 7)) + list(range(13, 26)),
+            list(range(7, 13)) + list(range(26, 39))]
+    set_ids = [set(s) for s in sets]
+    fused_launches = None
+    for impl, route in (("auto", "apply"), ("fused", "fused_tiled")):
+        p = {**params, "interaction_constraints": sets,
+             "histogram_impl": impl}
+        bst, launches, iter_ms, aucs = _train_timed(lt, hc, torch, p, ds, 2)
+        g = bst._gbdt
+        trees = g.models
+        lv_err = _same_host_tree(_plain_first_tree(torch, g, N_ROWS),
+                                 trees[0])
+        # host trees name real feature indices, as the sets do
+        in_sets = all(_paths_in_sets(t, set_ids) for t in trees)
+        emit({"phase": "constraints_train", "model": "criteo",
+              "interaction_constraints": sets, "rows": N_ROWS,
+              "grow_route": g.grow_route,
+              "fused_veto_reasons": g.fused_veto_reasons,
+              "iter_ms": iter_ms,
+              "steady_ms_per_iter": float(np.mean(iter_ms[1:])),
+              "launches": launches, "train_auc_per_round": aucs,
+              "leaves": [t.num_leaves for t in trees],
+              "categorical_splits": [t.num_cat for t in trees],
+              "first_tree_same": lv_err is not None,
+              "leaf_value_max_abs_err": lv_err,
+              "branches_inside_one_set": in_sets})
+        check(g.grow_route == route and g.fused_veto_reasons == [],
+              f"Criteo with interaction sets under {impl} took route "
+              f"{g.grow_route}")
+        name = "wave_apply" if route == "apply" else "wave_pass_fused_tiled"
+        check(launches[name] > 0,
+              f"{name} never launched on the interaction {route} run")
+        if route == "fused_tiled":
+            fused_launches = launches
+        check(lv_err is not None and lv_err <= 1e-6,
+              f"Criteo interaction ({route}) first tree differs from the "
+              f"plain versions' ({lv_err})")
+        check(in_sets, f"Criteo interaction ({route}): a branch left its "
+                       "set")
+    return fused_launches
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -2050,6 +2328,13 @@ def main():
     krec["wave_pass_fused_tiled"] = fused_tiled_phase(hc, gf, torch, dev,
                                                       bst_c._gbdt.X_t)
     cf_launches = criteo_fused_phase(lt, hc, torch, bst_c.params, ds_c)
+
+    # ---- 11. the constraints: kernel #10 with its monotone operand live,
+    # then the bench model under monotone constraints and the Criteo table
+    # under interaction sets, each on its non-fused and its fused route
+    constraints_kernel_phase(hc, gf, torch, dev, bst_c._gbdt.X_t)
+    constraints_train_phase(lt, hc, torch, params, ds, w, trees[0])
+    constraints_criteo_phase(lt, hc, torch, bst_c.params, ds_c)
     h_c = ds_c._handle
     krec.update(rowwise_phase(hc, hr, torch, dev, bst_c._gbdt.X_t,
                               h_c.storage_num_bins(),

@@ -1,7 +1,12 @@
 // The numeric best-split search of the fused wave kernels: for every child
 // of a wave's candidates, what lightgbm_tpu_torch/ops/split.py:
 // find_best_split computes on synth_count_channel of the child's
-// histogram, field for field.
+// histogram, field for field, with the monotone operand: each cell's child
+// outputs clipped into the child's bounds (scalar rows 5 / 6, +-inf when
+// unconstrained: a bitwise no-op), and a cell of a feature whose direction
+// (meta row 4) is +1 rejected when its clipped left output exceeds the
+// right one, -1 when it falls below (_fused_scan_tiled's monotone rows,
+// lightgbm_tpu/ops/grow_fused.py:402-449).
 //
 // Replaces the in-kernel scan of lightgbm_tpu/ops/grow_fused.py
 // (_fused_scan :202, _fused_scan_tiled :402), which traces the JAX search
@@ -130,12 +135,24 @@ struct LgbtCell {
   bool ok;
 };
 
+// torch.clamp(x, lo, hi) on the card, bit for bit: NaN passes through,
+// then fmaxf / fminf (no arithmetic, so nothing to contract)
+__device__ __forceinline__ float lgbt_clip(float x, float lo, float hi) {
+  if (isnan(x)) return x;
+  if (isnan(lo)) return lo;
+  if (isnan(hi)) return hi;
+  return fminf(fmaxf(x, lo), hi);
+}
+
 // split.py:_numeric_gain_map at one (direction, threshold) cell from the
-// f32 prefixes (cg, chh, cc) and the missing mass (mg, mh, mc)
+// f32 prefixes (cg, chh, cc) and the missing mass (mg, mh, mc); the
+// outputs clipped into [bmin, bmax], the direction `mono` enforced on them
 __device__ __forceinline__ LgbtCell lgbt_cell(float cg, float chh, float cc,
                                               float mg, float mh, float mc,
                                               int d, float pg, float ph,
                                               float pc, float pout,
+                                              float bmin, float bmax,
+                                              int mono,
                                               const LgbtSplitHp& hp) {
   LgbtCell o;
   const float lcu = d ? __fadd_rn(cc, mc) : cc;
@@ -148,8 +165,12 @@ __device__ __forceinline__ LgbtCell lgbt_cell(float cg, float chh, float cc,
   o.rc = rintf(rcu);
   o.ok = lcu >= hp.min_data_slack && rcu >= hp.min_data_slack &&
          o.lh >= hp.min_hess && o.rh >= hp.min_hess;
-  o.lout = lgbt_leaf_output(o.lg, o.lh, o.lc, pout, hp);
-  o.rout = lgbt_leaf_output(o.rg, o.rh, o.rc, pout, hp);
+  o.lout = lgbt_clip(lgbt_leaf_output(o.lg, o.lh, o.lc, pout, hp), bmin,
+                     bmax);
+  o.rout = lgbt_clip(lgbt_leaf_output(o.rg, o.rh, o.rc, pout, hp), bmin,
+                     bmax);
+  if ((mono > 0 && o.lout > o.rout) || (mono < 0 && o.lout < o.rout))
+    o.ok = false;
   o.gain = __fadd_rn(lgbt_gain_given_output(o.lg, o.lh, o.lout, hp),
                      lgbt_gain_given_output(o.rg, o.rh, o.rout, hp));
   return o;
@@ -166,6 +187,7 @@ struct LgbtChild {
   float sg, sh, cnt, pout;
   float cntf;              // synth_count_channel's count / sum_h
   float mgs;               // min_gain_shift
+  float bmin, bmax;        // the monotone bounds of the child's outputs
 };
 
 __device__ __forceinline__ LgbtChild lgbt_child(const float* __restrict__ scal,
@@ -180,6 +202,8 @@ __device__ __forceinline__ LgbtChild lgbt_child(const float* __restrict__ scal,
   ch.cnt = scal[2 * n2 + j];
   ch.pout = scal[3 * n2 + j];
   ch.use_small = is_left == (scal[4 * n2 + j] != 0.f);
+  ch.bmin = scal[5 * n2 + j];
+  ch.bmax = scal[6 * n2 + j];
   // synth_count_channel: count / clamp(sum_h, min=1e-12), NaN kept
   ch.cntf = __fdiv_rn(ch.cnt, ch.sh < 1e-12f ? 1e-12f : ch.sh);
   ch.mgs = __fadd_rn(
@@ -245,15 +269,17 @@ __device__ __forceinline__ int lgbt_feature_prefix(
   return top;
 }
 
-// the cell of (direction d, bin b) from the staged prefix sums
+// the cell of (direction d, bin b) from the staged prefix sums, on a
+// feature of monotone direction `mono`
 __device__ __forceinline__ LgbtCell lgbt_cell_at(
     float (*a)[LGBT_SCAN_MAX_B], const float* tot, int top, int b,
-    int d, const LgbtChild& ch, const LgbtSplitHp& hp) {
+    int d, int mono, const LgbtChild& ch, const LgbtSplitHp& hp) {
   const bool in = b < top;               // past num_bins: the total
   return lgbt_cell(in ? a[0][b] : tot[0], in ? a[1][b] : tot[1],
                    in ? a[2][b] : tot[2], __fsub_rn(ch.sg, tot[0]),
                    __fsub_rn(ch.sh, tot[1]), __fsub_rn(ch.cnt, tot[2]), d,
-                   ch.sg, ch.sh, ch.cnt, ch.pout, hp);
+                   ch.sg, ch.sh, ch.cnt, ch.pout, ch.bmin, ch.bmax, mono,
+                   hp);
 }
 
 // (gain, flat index) as one key: larger gain first, then smaller index
@@ -291,11 +317,12 @@ __device__ __forceinline__ void lgbt_write_record(float* rec, int n2, int j,
 // small: [K, 2, F, B] f32 or f64 (parent f32), or int32 (parent int32,
 // descaled by gscale / hscale); parent [K, 2, F, B]; small_out: with f64
 // small, its [K, 2, F, B] f32 rounding written here, else null; scal
-// [5, 2K] f32 rows sum_g, sum_h, count, output, smaller_is_left (0 / 1)
-// per child; fmeta [4, F] int32 rows num_bins, missing_type, default_bin,
-// is_categorical; fmask [F] (fmask_stride 0) or [2K, F] (fmask_stride F)
-// uint8; rec [12, 2K] f32 out, the SplitResult fields with feature /
-// threshold / default_left as exact small floats; best [2K] u64 and done
+// [7, 2K] f32 rows sum_g, sum_h, count, output, smaller_is_left (0 / 1),
+// bounds min, bounds max per child; fmeta [5, F] int32 rows num_bins,
+// missing_type, default_bin, is_categorical, monotone direction; fmask
+// [F] (fmask_stride 0) or [2K, F] (fmask_stride F) uint8; rec [12, 2K]
+// f32 out, the SplitResult fields with feature / threshold /
+// default_left as exact small floats; best [2K] u64 and done
 // [2K] u32 zeroed by the caller; cells [2K, F, 8] f32 scratch, each
 // (child, feature) warp's best cell's statistics, which the child's last
 // block copies for the winner (recomputing the cell only where no split
@@ -338,6 +365,7 @@ lgbt_split_scan_kernel(const S* __restrict__ small,
       }
     }
     const int nb = fmeta[f], mt = fmeta[F + f], db = fmeta[2 * F + f];
+    const int mono = fmeta[4 * F + f];
     const bool allowed =
         fmask[(long long)j * fmask_stride + f] != 0 && fmeta[3 * F + f] == 0;
     if (allowed) {                       // else every cell is -inf
@@ -353,8 +381,8 @@ lgbt_split_scan_kernel(const S* __restrict__ small,
         if (mt == LGBT_MISSING_ZERO && b == db) continue;
         for (int d = 0; d < 2; ++d) {
           if (b > (d ? max_t_r : max_t)) continue;
-          const LgbtCell o = lgbt_cell_at(stage[w], tots[w], top, b, d, ch,
-                                          hp);
+          const LgbtCell o = lgbt_cell_at(stage[w], tots[w], top, b, d,
+                                          mono, ch, hp);
           if (o.ok && o.gain > ch.mgs) {
             const unsigned long long key =
                 lgbt_key(o.gain, (d * F + f) * B + b);
@@ -411,7 +439,8 @@ lgbt_split_scan_kernel(const S* __restrict__ small,
                                       B, nb, lgbt_missing_bin(nb, mt, db),
                                       ch, gscale, hscale, lane);
   if (lane != 0) return;
-  const LgbtCell o = lgbt_cell_at(stage[0], tots[0], top, 0, 0, ch, hp);
+  const LgbtCell o =
+      lgbt_cell_at(stage[0], tots[0], top, 0, 0, fmeta[4 * F], ch, hp);
   const float st[8] = {o.lg, o.lh, o.lc, o.rg, o.rh, o.rc, o.lout, o.rout};
   lgbt_write_record(rec, n2, j, -INFINITY, ch.mgs, 0, 0, 0, st);
 }

@@ -11,8 +11,10 @@ host or device binning, on the route the JAX package's accelerator takes
 (`wave_routes`): the megakernel route for at most 32 dense numeric storage
 columns, the wave-apply route for wider, categorical or EFB-bundled data
 and for the row-wise histogram layouts, and under histogram_impl=fused the
-fused routes, whose kernels also search the children's splits. Everything
-else raises NotImplementedError naming the ROADMAP item that ports it.
+fused routes, whose kernels also search the children's splits; monotone
+constraints (method `basic`, with `monotone_penalty`) and interaction
+constraints on every route. Everything else raises NotImplementedError
+naming the ROADMAP item that ports it.
 Prediction covers every tree the JAX package writes except linear leaves on
 the device routes.
 """
@@ -20,6 +22,7 @@ the device routes.
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -67,10 +70,9 @@ def check_slice_config(cfg: Config) -> None:
         _not_ported("autotune of binning_impl=auto", "A14")
     if cfg.use_quantized_grad:
         _not_ported("use_quantized_grad", "A8")
-    if cfg.monotone_constraints and any(cfg.monotone_constraints):
-        _not_ported("monotone_constraints", "A10")
-    if cfg.interaction_constraints:
-        _not_ported("interaction_constraints", "A10")
+    if cfg.monotone_constraints and any(cfg.monotone_constraints) \
+            and cfg.monotone_constraints_method == "intermediate":
+        _not_ported("monotone_constraints_method=intermediate", "A10")
     if cfg.forcedsplits_filename:
         _not_ported("forced splits", "A10")
     if cfg.cegb_penalty_split > 0.0 or cfg.cegb_penalty_feature_coupled \
@@ -101,14 +103,58 @@ def _check_slice_data(ds: BinnedDataset) -> None:
         _not_ported("more than 256 bins per feature", "A14")
 
 
-def build_feature_meta(ds: BinnedDataset, device) -> FeatureMeta:
+def _parse_interaction_constraints(spec) -> List[List[int]]:
+    """'[0,1,2],[2,3]' or a list of lists -> list of real-index groups
+    (gbdt.py:51-60; reference: config.h interaction_constraints)."""
+    if not spec:
+        return []
+    if isinstance(spec, str):
+        return [[int(x) for x in grp.split(",") if x.strip() != ""]
+                for grp in re.findall(r"\[([^\]]*)\]", spec)]
+    return [list(map(int, grp)) for grp in spec]
+
+
+def build_feature_meta(ds: BinnedDataset, device,
+                       monotone: Optional[Sequence[int]] = None,
+                       interactions=None) -> FeatureMeta:
+    """The per-feature metadata in inner-feature order (gbdt.py:105-150):
+    monotone directions and interaction sets come by real feature index
+    and map to the used features; None where unconstrained."""
     def t(a):
         return torch.as_tensor(a).to(device)
+    mono_t = None
+    if monotone:
+        # the reference fatals on a size mismatch (config.cpp
+        # CheckParamConflict): no silent drops
+        if len(monotone) != ds.num_total_features:
+            log_fatal(f"monotone_constraints has {len(monotone)} entries "
+                      f"but the dataset has {ds.num_total_features} "
+                      "features")
+        mono = np.zeros(len(ds.mappers), np.int8)
+        for inner, real in enumerate(ds.real_feature_index):
+            mono[inner] = np.sign(monotone[real])
+        if mono.any():
+            mono_t = t(mono)
+    inter_t = None
+    groups = _parse_interaction_constraints(interactions)
+    if groups:
+        real2inner = {r: i for i, r in enumerate(ds.real_feature_index)}
+        sets = np.zeros((len(groups), len(ds.mappers)), bool)
+        for s, grp in enumerate(groups):
+            for real in grp:
+                if real >= ds.num_total_features or real < 0:
+                    log_fatal(f"interaction_constraints references feature "
+                              f"{real}, but the dataset has "
+                              f"{ds.num_total_features} features")
+                if real in real2inner:   # unused (trivial) features are
+                    sets[s, real2inner[real]] = True  # legitimately absent
+        inter_t = t(sets)
     return FeatureMeta(
         num_bins=t(ds.feature_num_bins()),
         missing_type=t(ds.feature_missing_types()),
         default_bin=t(ds.feature_default_bins()),
-        is_categorical=t(ds.feature_is_categorical()))
+        is_categorical=t(ds.feature_is_categorical()),
+        monotone=mono_t, inter_sets=inter_t)
 
 
 def bundle_maps(ds: BinnedDataset, B: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -194,7 +240,9 @@ class GBDT:
         else:
             self.X_t = (ds.X_t if ds.X_t is not None else torch.from_numpy(
                 np.ascontiguousarray(ds.X_binned.T))).to(self.device)
-        self.meta = build_feature_meta(ds, self.device)
+        self.meta = build_feature_meta(ds, self.device,
+                                       cfg.monotone_constraints,
+                                       cfg.interaction_constraints)
         if bundled:
             expand, mfb = bundle_maps(ds, B)
             self.meta = self.meta._replace(
@@ -229,6 +277,10 @@ class GBDT:
             cat_l2=cfg.cat_l2,
             cat_smooth=cfg.cat_smooth,
             min_data_per_group=float(cfg.min_data_per_group),
+            has_monotone=self.meta.monotone is not None,
+            has_interaction=self.meta.inter_sets is not None,
+            monotone_method=str(cfg.monotone_constraints_method),
+            monotone_penalty=float(cfg.monotone_penalty),
             bundle_col=tuple(ds.bundle_col) if bundled else (),
             bundle_off=tuple(ds.bundle_off) if bundled else (),
             bundle_nb=(tuple(int(m.num_bin) for m in ds.mappers)

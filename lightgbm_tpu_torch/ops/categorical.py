@@ -50,9 +50,16 @@ class CatConfig(NamedTuple):
     num_bitset_words: int       # W: ceil(num_bins_padded / 32)
 
 
-def _gain_and_outputs(lg, lh, lc, rg, rh, rc, hp, parent_output):
+def _gain_and_outputs(lg, lh, lc, rg, rh, rc, hp, parent_output,
+                      leaf_min=None, leaf_max=None):
     lout = leaf_output(lg, lh, hp, lc, parent_output)
     rout = leaf_output(rg, rh, hp, rc, parent_output)
+    if leaf_min is not None:
+        # monotone ancestors bound every descendant's output, categorical
+        # splits included; the direction rule is the numeric search's only
+        # (lightgbm_tpu/ops/categorical.py:48-62)
+        lout = torch.clamp(lout, leaf_min, leaf_max)
+        rout = torch.clamp(rout, leaf_min, leaf_max)
     gain = (leaf_gain_given_output(lg, lh, hp, lout)
             + leaf_gain_given_output(rg, rh, hp, rout))
     return gain, lout, rout
@@ -80,11 +87,15 @@ def find_best_split_categorical(
     hp: SplitHyperParams,
     cat: CatConfig,
     feature_mask: Optional[torch.Tensor] = None,
+    leaf_min: Optional[torch.Tensor] = None,
+    leaf_max: Optional[torch.Tensor] = None,
 ) -> Tuple[SplitResult, torch.Tensor]:
     """Best categorical split over all features per histogram.
 
-    Returns (SplitResult with the batch shape, bin bitset [..., W] int64).
-    gain == -inf where no categorical split is valid."""
+    feature_mask [F] or [..., F]; leaf_min / leaf_max [...] the monotone
+    bounds the child outputs are clipped into. Returns (SplitResult with
+    the batch shape, bin bitset [..., W] int64). gain == -inf where no
+    categorical split is valid."""
     F, B = hist.shape[-2:]
     batch = hist.shape[:-3]
     dev = hist.device
@@ -98,12 +109,15 @@ def find_best_split_categorical(
 
     is_cat = meta.is_categorical
     if feature_mask is not None:
-        is_cat = is_cat & feature_mask
+        is_cat = is_cat & feature_mask                          # [..., F]
     # bin 0 is the missing/other bin (binning.py categorical layout)
-    valid = (bins >= 1) & (bins < nb) & is_cat[:, None]         # [F, B]
+    valid = (bins >= 1) & (bins < nb) & is_cat[..., None]       # [..., F, B]
 
     def bcast(x):
         return x[..., None, None]
+
+    bmin = None if leaf_min is None else bcast(leaf_min)
+    bmax = None if leaf_max is None else bcast(leaf_max)
 
     pg, ph = bcast(parent_sum_g), bcast(parent_sum_h)
     pc = bcast(parent_count.to(torch.float32))
@@ -130,7 +144,7 @@ def find_best_split_categorical(
     lg1, lh1, lc1 = g, h + _EPS, c
     rg1, rh1, rc1 = pg - lg1, ph - lh1 - _EPS, pc - lc1
     gain1, lout1, rout1 = _gain_and_outputs(lg1, lh1, lc1, rg1, rh1, rc1,
-                                            hp, po)
+                                            hp, po, bmin, bmax)
     gain1 = masked(gain1, valid & onehot_f
                    & constraints_ok(lh1, lc1, rh1, rc1))
 
@@ -156,8 +170,8 @@ def find_best_split_categorical(
         lc = torch.cumsum(sc, dim=-1)
         rg, rh, rc = pg - lg, ph - lh - _EPS, pc - lc
         gain, lout, rout = _gain_and_outputs(lg, lh, lc, rg, rh, rc,
-                                             hp_cat, po)
-        ok = ((bins < lim) & ~onehot_f & is_cat[:, None]
+                                             hp_cat, po, bmin, bmax)
+        ok = ((bins < lim) & ~onehot_f & is_cat[..., None]
               & constraints_ok(lh, lc, rh, rc, cat.min_data_per_group))
         return masked(gain, ok), (lg, lh, lc, rg, rh, rc, lout, rout), rank
 

@@ -52,6 +52,13 @@ class GrowConfig(NamedTuple):
     cat_l2: float = 10.0
     cat_smooth: float = 10.0
     min_data_per_group: float = 100.0
+    # search-side constraints: whether meta carries monotone directions /
+    # interaction sets (they decide the fused route, grow_wave.py:300-309),
+    # the monotone method and monotone_penalty
+    has_monotone: bool = False
+    has_interaction: bool = False
+    monotone_method: str = "basic"
+    monotone_penalty: float = 0.0
     # EFB (data/dataset.py:_build_bundles): X_t holds BUNDLE columns;
     # per-ORIGINAL-feature maps unpack them in the decision pass, and
     # meta.bundle_expand re-slices bundle histograms per feature at search

@@ -26,9 +26,13 @@ computation: the wave's relabel and slot histogram by the plain versions of
 the two-pass kernels, then `synth_count_channel` + `find_best_split` of each
 child (small, or parent - small).
 
-The scan reads per-child parent statistics (`pack_fused_scalars`, the
-counterpart of grow_fused.py:pack_fused_scalars), per-feature metadata
-(`pack_fused_meta`) and a feature mask of [F] or [2K, F]; it writes one
+The scan reads per-child parent statistics and monotone bounds
+(`pack_fused_scalars`, the counterpart of grow_fused.py:pack_fused_scalars),
+per-feature metadata with the monotone direction (`pack_fused_meta`) and a
+feature mask of [F] or [2K, F] (column sampling and interaction sets); as
+the JAX scan (_fused_scan_tiled, grow_fused.py:402-449) it clips each
+cell's child outputs into the child's bounds and rejects a split on a
++-1 feature whose clipped outputs go the wrong way. It writes one
 record per child, [12, 2K] f32 in SplitResult field order with left
 children in columns [0, K) and right children in [K, 2K) (feature,
 threshold and default_left are exact small floats). `unpack_fused_records`
@@ -55,26 +59,38 @@ from .split import (SYNTH_COUNT_SLACK, FeatureMeta, SplitHyperParams,
 REC_FIELDS = 12
 
 
-def pack_fused_scalars(bs: SplitResult,
-                       smaller_is_left: torch.Tensor) -> torch.Tensor:
-    """[5, 2K] f32 per-child parent statistics of K candidates' best splits
-    `bs` (rows sum_g, sum_h, count, output, smaller_is_left as 0 / 1; left
-    children in columns [0, K), right in [K, 2K))."""
+def pack_fused_scalars(bs: SplitResult, smaller_is_left: torch.Tensor,
+                       leaf_min_lr: Optional[torch.Tensor] = None,
+                       leaf_max_lr: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """[7, 2K] f32 per-child parent statistics of K candidates' best splits
+    `bs` (rows sum_g, sum_h, count, output, smaller_is_left as 0 / 1, then
+    each child's monotone bounds min and max, +-inf when unconstrained;
+    left children in columns [0, K), right in [K, 2K)), the scalar block
+    of grow_fused.py:pack_fused_scalars without its quantized row 7."""
     sil = smaller_is_left.to(torch.float32)
+    K = sil.shape[0]
+    if leaf_min_lr is None:
+        leaf_min_lr = torch.full((2 * K,), float("-inf"), device=sil.device)
+        leaf_max_lr = torch.full((2 * K,), float("inf"), device=sil.device)
     rows = [torch.cat([bs.left_sum_g, bs.right_sum_g]),
             torch.cat([bs.left_sum_h, bs.right_sum_h]),
             torch.cat([bs.left_count, bs.right_count]),
             torch.cat([bs.left_output, bs.right_output]),
-            torch.cat([sil, sil])]
+            torch.cat([sil, sil]), leaf_min_lr, leaf_max_lr]
     return torch.stack([r.to(torch.float32) for r in rows]).contiguous()
 
 
 def pack_fused_meta(meta: FeatureMeta) -> torch.Tensor:
-    """[4, F] int32: num_bins, missing_type, default_bin, is_categorical."""
+    """[5, F] int32: num_bins, missing_type, default_bin, is_categorical
+    and the monotone direction (zeros when unconstrained)."""
+    mono = (torch.zeros_like(meta.num_bins) if meta.monotone is None
+            else meta.monotone)
     return torch.stack([meta.num_bins.to(torch.int32),
                         meta.missing_type.to(torch.int32),
                         meta.default_bin.to(torch.int32),
-                        meta.is_categorical.to(torch.int32)]).contiguous()
+                        meta.is_categorical.to(torch.int32),
+                        mono.to(torch.int32)]).contiguous()
 
 
 def fused_feature_mask(feature_mask: Optional[torch.Tensor], F: int,
@@ -118,10 +134,14 @@ def _scan_plain(hist: torch.Tensor, parent: torch.Tensor,
         # int32 sums subtract exactly, then descale (grow_fused.py:437-439)
         ch = ch.to(torch.float32) * torch.tensor(
             scale, dtype=torch.float32, device=ch.device)[:, None, None]
+    # the monotone operand: directions and bounds clip and reject as in
+    # find_best_split; zeros and +-inf leave the records unchanged
     meta = FeatureMeta(num_bins=fmeta[0], missing_type=fmeta[1],
-                       default_bin=fmeta[2], is_categorical=fmeta[3] != 0)
+                       default_bin=fmeta[2], is_categorical=fmeta[3] != 0,
+                       monotone=fmeta[4])
     res = find_best_split(synth_count_channel(ch, scal[2], scal[1]), scal[0],
-                          scal[1], scal[2], scal[3], meta, hp, fmask != 0)
+                          scal[1], scal[2], scal[3], meta, hp, fmask != 0,
+                          leaf_min=scal[5], leaf_max=scal[6])
     return torch.stack([x.to(torch.float32) for x in res])
 
 
@@ -138,8 +158,8 @@ def _hp_args(hp: SplitHyperParams) -> list:
 def _check_scan_args(parent, scal, fmeta, fmask, K, F, B, parent_dtype,
                      dev):
     hc._check(parent, "parent", (parent_dtype,), (K, 2 * F * B), dev)
-    hc._check(scal, "scal", (torch.float32,), (5, 2 * K), dev)
-    hc._check(fmeta, "fmeta", (torch.int32,), (4, F), dev)
+    hc._check(scal, "scal", (torch.float32,), (7, 2 * K), dev)
+    hc._check(fmeta, "fmeta", (torch.int32,), (5, F), dev)
     shape = (F,) if fmask.dim() == 1 else (2 * K, F)
     hc._check(fmask, "fmask", (torch.uint8,), shape, dev)
     return 0 if fmask.dim() == 1 else F

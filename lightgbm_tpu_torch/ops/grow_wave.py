@@ -130,6 +130,11 @@ def fused_veto_reasons(cfg: GrowConfig) -> List[str]:
         reasons.append("LIGHTGBM_TPU_DISABLE_FUSED")
     if cfg.bundled:
         reasons.append("efb_bundled")
+    if cfg.has_monotone:
+        if cfg.monotone_method == "intermediate":
+            reasons.append("monotone_intermediate")
+        if cfg.monotone_penalty > 0.0:
+            reasons.append("monotone_penalty")
     return reasons
 
 
@@ -141,7 +146,11 @@ def wave_routes(cfg: GrowConfig, num_storage_cols: int) -> Tuple[str, str]:
     narrow = (not cfg.bundled and not cfg.has_categorical
               and num_storage_cols <= MAX_WAVE_FEATURES)
     if cfg.hist_impl == "fused" and not fused_veto_reasons(cfg):
-        return ("fused" if narrow else "fused_tiled"), "slots"
+        # monotone and interaction constraints take the general kernel,
+        # never the narrow one (grow_wave.py:302-309)
+        constrained = cfg.has_monotone or cfg.has_interaction
+        return ("fused" if narrow and not constrained else "fused_tiled"), \
+            "slots"
     if narrow and cfg.hist_impl not in ROWWISE_IMPLS:
         return "mega", "slots"
     # per-storage-column bin counts that do not match the storage choose
@@ -371,11 +380,87 @@ def grow_tree_wave(
     vals0 = torch.stack([g, h], dim=0)                       # [2, N] f32
     C = 2
 
-    def search(hist2, sum_g, sum_h, count, out, num=None):
+    # search-side constraints (grow_wave.py:422-423, :718): monotone
+    # `basic` bounds per leaf, interaction sets per leaf, monotone_penalty
+    has_mono = meta.monotone is not None
+    has_inter = meta.inter_sets is not None
+    use_mpen = has_mono and cfg.monotone_penalty > 0.0
+    S = meta.inter_sets.shape[0] if has_inter else 1
+
+    def sets_to_fmask(sets):
+        """[n, S] satisfiable sets -> [n, F] allowed features, with the
+        column-sampling mask (grow_wave.py:531-536)."""
+        m = (meta.inter_sets[None, :, :] & sets[:, :, None]).any(dim=1)
+        return m if feature_mask is None else m & feature_mask
+
+    def child_sets(bsx, psets):
+        """The parent's sets that contain the split feature, for both
+        children (grow_wave.py:709-715)."""
+        return psets & meta.inter_sets.t()[bsx.feature]
+
+    def mpen_factor(depth):
+        """monotone_penalty's gain factor by leaf depth
+        (ComputeMonotoneSplitGainPenalty, monotone_constraints.hpp:358;
+        grow_wave.py:720-731)."""
+        pen, eps = cfg.monotone_penalty, 1e-15
+        d = depth.to(torch.float32)
+        if pen <= 1.0:
+            f = 1.0 - pen / torch.exp2(d) + eps
+        else:
+            f = 1.0 - torch.exp2(pen - 1.0 - d) + eps
+        return torch.where(pen >= d + 1.0, torch.full_like(f, eps), f)
+
+    def child_bounds(bsx, pmin, pmax):
+        """The children's bounds after the splits `bsx` of leaves bounded
+        by [pmin, pmax]: the `basic` rule separates them at the midpoint
+        of the clipped outputs (BasicLeafConstraints::Update,
+        monotone_constraints.hpp:330; grow_wave.py:733-757)."""
+        mono_f = meta.monotone[bsx.feature]
+        cap = 0.5 * (bsx.left_output + bsx.right_output)
+        lmax = torch.where(mono_f > 0, torch.minimum(pmax, cap), pmax)
+        rmin = torch.where(mono_f > 0, torch.maximum(pmin, cap), pmin)
+        lmin = torch.where(mono_f < 0, torch.maximum(pmin, cap), pmin)
+        rmax = torch.where(mono_f < 0, torch.minimum(pmax, cap), pmax)
+        return lmin, lmax, rmin, rmax
+
+    def children_constraints(bsx, leaves):
+        """What the search of both children of the candidates `leaves`
+        (best splits `bsx`) reads, left children first: (bounds min,
+        bounds max, feature mask [2n, F] or the global one, penalty
+        factor); None where the regime is off."""
+        bmin = bmax = mpf = None
+        fm = feature_mask
+        if has_mono:
+            lmin, lmax, rmin, rmax = child_bounds(bsx, leaf_min[leaves],
+                                                  leaf_max[leaves])
+            bmin, bmax = torch.cat([lmin, rmin]), torch.cat([lmax, rmax])
+        if has_inter:
+            allow = sets_to_fmask(child_sets(bsx, leaf_sets[leaves]))
+            fm = torch.cat([allow, allow])
+        if use_mpen:
+            d = leaf_depth[leaves] + 1
+            mpf = mpen_factor(torch.cat([d, d]))
+        return bmin, bmax, fm, mpf
+
+    def fused_operands(bsx, leaves, sil):
+        """The fused scan's per-child scalars [7, 2K] (with the monotone
+        bounds, grow_wave.py:1573-1583) and feature masks [2K, F] (the
+        interaction sets', :1586-1599) of the K candidates `leaves`."""
+        bmin, bmax, fm, _ = children_constraints(bsx, leaves)
+        scal = pack_fused_scalars(bsx, sil, bmin, bmax)
+        if has_inter:
+            return scal, fm.to(torch.uint8).contiguous()
+        return scal, fused_feature_mask(feature_mask, F, dev,
+                                        2 * leaves.shape[0])
+
+    def search(hist2, sum_g, sum_h, count, out, num=None, bmin=None,
+               bmax=None, fmask=None, mpf=None):
         """Best splits of n histograms [n, C, F_st, B] of storage columns:
         (SplitResult [n], is_cat [n], bitset [n, W]). `num` is the numeric
         search's result when a fused kernel already ran it; hist2 is then
-        read only for the categorical search."""
+        read only for the categorical search. bmin / bmax [n] are the
+        monotone bounds, fmask the feature mask ([F] or [n, F]), mpf [n]
+        monotone_penalty's factor."""
         n = count.shape[0]
         if num is not None and not has_cat:
             return (num, torch.zeros(n, dtype=torch.bool, device=dev),
@@ -394,12 +479,14 @@ def grow_tree_wave(
         hist = synth_count_channel(hist2, count, sum_h)       # [n, 3, F, B]
         if num is None:
             num = find_best_split(hist, sum_g, sum_h, count, out, meta, hp,
-                                  feature_mask)
+                                  fmask, leaf_min=bmin, leaf_max=bmax,
+                                  mono_pen_factor=mpf)
         if not has_cat:
             return (num, torch.zeros(n, dtype=torch.bool, device=dev),
                     torch.zeros((n, W), dtype=torch.int64, device=dev))
         catres, bits = find_best_split_categorical(
-            hist, sum_g, sum_h, count, out, meta, hp, cfg.cat, feature_mask)
+            hist, sum_g, sum_h, count, out, meta, hp, cfg.cat, fmask,
+            leaf_min=bmin, leaf_max=bmax)
         # numeric wins ties (grow_wave.py:629)
         use_cat = catres.gain > num.gain
         merged = SplitResult(*[torch.where(use_cat, cv, nv)
@@ -412,9 +499,15 @@ def grow_tree_wave(
                 / (root_h + hp.lambda_l2))
     hist_root = build_histogram(X_t, vals0, B, impl=hroute, plan=hist_plan,
                                 plain=plain)                 # [2, F_st, B]
+    one = torch.ones(1, dtype=torch.float32, device=dev)
+    root_fmask = (sets_to_fmask(torch.ones((1, S), dtype=torch.bool,
+                                           device=dev))
+                  if has_inter else feature_mask)
     root_split, root_cat, root_bits = search(
         hist_root[None], root_g[None], root_h[None], root_c[None],
-        root_out[None])
+        root_out[None], bmin=-torch.inf * one if has_mono else None,
+        bmax=torch.inf * one if has_mono else None, fmask=root_fmask,
+        mpf=mpen_factor(0 * one) if use_mpen else None)
     if max_depth < 1:
         root_split = root_split._replace(
             gain=torch.full_like(root_split.gain, NEG_INF))
@@ -455,6 +548,9 @@ def grow_tree_wave(
     leaf_sum_g[0] = root_g
     leaf_sum_h = zeros(L)
     leaf_sum_h[0] = root_h
+    leaf_min = torch.full((L,), -torch.inf, device=dev)
+    leaf_max = torch.full((L,), torch.inf, device=dev)
+    leaf_sets = torch.ones((L, S), dtype=torch.bool, device=dev)
     hist_cache = torch.zeros((L, C * hist_root[0].numel()),
                              dtype=torch.float32, device=dev)
     hist_cache[0] = hist_root.reshape(-1)
@@ -518,6 +614,16 @@ def grow_tree_wave(
             hsm = small_hist[pa]
             hlg = hist_cache[pa] - hsm
             sil = small_is_left[pa][:, None]
+            # the children's constraints, from the parents' before the
+            # writes below (grow_wave.py:1358-1363)
+            if has_mono:
+                almin, almax, armin, armax = child_bounds(
+                    bs2, leaf_min[pa], leaf_max[pa])
+                leaf_min[pa], leaf_min[r_idx] = almin, armin
+                leaf_max[pa], leaf_max[r_idx] = almax, armax
+            if has_inter:
+                asets = child_sets(bs2, leaf_sets[pa])
+                leaf_sets[pa], leaf_sets[r_idx] = asets, asets
 
             split_feature[s_idx] = bs2.feature
             threshold_bin[s_idx] = bs2.threshold
@@ -602,8 +708,8 @@ def grow_tree_wave(
             else:
                 leaf_of_row, hist_wave, rec = wave_pass_fused(
                     X_t, vals0, leaf_of_row, tbl, hist_cache[cand[:K]],
-                    pack_fused_scalars(SplitResult(*[x[:K] for x in bs]),
-                                       smaller_is_left[:K]),
+                    fused_operands(SplitResult(*[x[:K] for x in bs]),
+                                   cand[:K], smaller_is_left[:K])[0],
                     fmeta, fmask, K, B, L, hp, plain=plain)
         elif fusion and n_cand == 0:
             # applies-only wave: its relabel rides into the next fused
@@ -671,13 +777,13 @@ def grow_tree_wave(
                         cfg).to(torch.uint8) << 2
                     pend_tbl[:n_pend] = pend.leaves.to(torch.int32)
                 K = next(k for k in buckets if k >= n_cand)
+                scal, fmask_lr = fused_operands(
+                    SplitResult(*[x[:K] for x in bs]), cand[:K],
+                    smaller_is_left[:K])
                 leaf_of_row, hist_wave, rec = wave_pass_fused_tiled(
                     X_t, vals0, dec, leaf_of_row, tbl, pend_tbl,
                     0 if pend is None else pend.nl0, hist_cache[cand[:K]],
-                    pack_fused_scalars(SplitResult(*[x[:K] for x in bs]),
-                                       smaller_is_left[:K]),
-                    fmeta, fused_feature_mask(feature_mask, F, dev, 2 * K),
-                    K, B, L, hp, plain=plain)
+                    scal, fmeta, fmask_lr, K, B, L, hp, plain=plain)
                 pend = None
                 del dec
 
@@ -698,11 +804,14 @@ def grow_tree_wave(
         def both(a, b):
             return torch.cat([a[:n_cand], b[:n_cand]])
 
+        bmin_lr, bmax_lr, fmask_lr, mpf_lr = children_constraints(
+            SplitResult(*[x[:n_cand] for x in bs]), c_idx)
         s_lr, cat_lr, bits_lr = search(
             hist_lr, both(bs.left_sum_g, bs.right_sum_g),
             both(bs.left_sum_h, bs.right_sum_h),
             both(bs.left_count, bs.right_count),
-            both(bs.left_output, bs.right_output), num)
+            both(bs.left_output, bs.right_output), num, bmin_lr, bmax_lr,
+            fmask_lr, mpf_lr)
         # depth mask at store time: the order step reads stored gains
         can = (leaf_depth[c_idx] + 1 < max_depth).repeat(2)
         s_lr = s_lr._replace(gain=torch.where(

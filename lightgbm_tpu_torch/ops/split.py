@@ -72,6 +72,10 @@ class FeatureMeta(NamedTuple):
     #   histogram -> per-feature histogram gather map (OOB = fill 0)
     bundle_mfb: Optional[torch.Tensor] = None     # [F, B] f32 one-hot of
     #   each feature's default bin (FixHistogram reconstruction)
+    monotone: Optional[torch.Tensor] = None       # [F] int8: -1 / 0 / +1
+    #   constraint; None when no feature is constrained
+    inter_sets: Optional[torch.Tensor] = None     # [S, F] bool: interaction
+    #   constraint set membership; None without interaction constraints
 
 
 class SplitResult(NamedTuple):
@@ -136,7 +140,8 @@ def leaf_gain(sum_g, sum_h, hp: SplitHyperParams, num_data, parent_output):
 
 def _numeric_gain_map(hist, parent_sum_g, parent_sum_h, parent_count,
                       parent_output, meta: FeatureMeta,
-                      hp: SplitHyperParams, feature_mask):
+                      hp: SplitHyperParams, feature_mask, leaf_min=None,
+                      leaf_max=None):
     """Gain map [..., 2, F, B] (dir 0 forward, dir 1 reverse), validity
     mask, the eight per-cell stat maps, and min_gain_shift [...]."""
     F, B = hist.shape[-2:]
@@ -197,6 +202,17 @@ def _numeric_gain_map(hist, parent_sum_g, parent_sum_h, parent_count,
     po = parent_output[..., None, None, None]
     lout = leaf_output(lg, lh, hp, lc, po)
     rout = leaf_output(rg, rh, hp, rc, po)
+    if leaf_min is not None:
+        # the monotone bounds of the leaf ([...], one per histogram)
+        lo = leaf_min[..., None, None, None]
+        hi = leaf_max[..., None, None, None]
+        lout = torch.clamp(lout, lo, hi)
+        rout = torch.clamp(rout, lo, hi)
+    if meta.monotone is not None:
+        # a split on a +-1 feature whose clipped outputs go the wrong way
+        mono = meta.monotone[:, None]
+        ok = ok & ~(((mono > 0) & (lout > rout))
+                    | ((mono < 0) & (lout < rout)))
     gain = (leaf_gain_given_output(lg, lh, hp, lout)
             + leaf_gain_given_output(rg, rh, hp, rout))
 
@@ -211,19 +227,40 @@ def find_best_split(hist: torch.Tensor, parent_sum_g: torch.Tensor,
                     parent_sum_h: torch.Tensor, parent_count: torch.Tensor,
                     parent_output: torch.Tensor, meta: FeatureMeta,
                     hp: SplitHyperParams,
-                    feature_mask: Optional[torch.Tensor] = None
+                    feature_mask: Optional[torch.Tensor] = None,
+                    leaf_min: Optional[torch.Tensor] = None,
+                    leaf_max: Optional[torch.Tensor] = None,
+                    mono_pen_factor: Optional[torch.Tensor] = None
                     ) -> SplitResult:
     """Best numerical split per histogram.
 
     hist [..., 3, F, B] f32; parent scalars with the batch shape [...];
-    feature_mask [F] or [..., F] bool (column sampling). Returns gain -inf
-    where no split satisfies the constraints. Categorical features are
-    masked out (ops/categorical.py searches them)."""
+    feature_mask [F] or [..., F] bool (column sampling, interaction sets).
+    Returns gain -inf where no split satisfies the constraints.
+    Categorical features are masked out (ops/categorical.py searches
+    them).
+
+    Monotone constraints, the reference's "basic" method
+    (lightgbm_tpu/ops/split.py:find_best_split; BasicLeafConstraints,
+    monotone_constraints.hpp:330): the child outputs are clipped into the
+    leaf's bounds `leaf_min` / `leaf_max` ([...]), the gain is that of the
+    clipped outputs, and a split on a +-1 feature of `meta.monotone` whose
+    clipped outputs go the wrong way is rejected. `mono_pen_factor` [...]
+    (monotone_penalty) multiplies the shifted gain of splits on monotone
+    features (serial_tree_learner.cpp:1001-1005)."""
     gain, ok, stats, min_gain_shift = _numeric_gain_map(
         hist, parent_sum_g, parent_sum_h, parent_count, parent_output,
-        meta, hp, feature_mask)
-    gain = torch.where(ok & (gain > min_gain_shift[..., None, None, None]),
-                       gain, torch.full_like(gain, NEG_INF))
+        meta, hp, feature_mask, leaf_min, leaf_max)
+    mgs = min_gain_shift[..., None, None, None]
+    gain = torch.where(ok & (gain > mgs), gain,
+                       torch.full_like(gain, NEG_INF))
+    if mono_pen_factor is not None and meta.monotone is not None:
+        # an affine map around the shift, in map space (split.py:343-351)
+        mono_f = (meta.monotone != 0)[:, None]
+        gain = torch.where(
+            mono_f & torch.isfinite(gain),
+            (gain - mgs) * mono_pen_factor[..., None, None, None] + mgs,
+            gain)
     return _pick_best(gain, stats, min_gain_shift)
 
 

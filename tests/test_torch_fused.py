@@ -62,14 +62,16 @@ def _meta(rng, F, B):
 
 
 def _scalars(rng, K):
-    """[5, 2K] per-child parent scalars: sums, counts, outputs and the
-    smaller_is_left flags (left children first)."""
+    """[7, 2K] per-child parent scalars: sums, counts, outputs, the
+    smaller_is_left flags (left children first) and unconstrained monotone
+    bounds (-inf, +inf)."""
     sg = rng.normal(size=2 * K)
     sh = np.abs(rng.normal(size=2 * K)) * 30 + 5
     cnt = rng.randint(40, 400, size=2 * K).astype(np.float64)
     out = rng.normal(size=2 * K) * 0.1
     sil = np.tile(rng.randint(0, 2, size=K), 2)
-    return np.stack([sg, sh, cnt, out, sil]).astype(np.float32)
+    inf = np.full(2 * K, np.inf)
+    return np.stack([sg, sh, cnt, out, sil, -inf, inf]).astype(np.float32)
 
 
 def _jax_children(small, parent, scal, meta, fmask, scale=None):
@@ -111,7 +113,8 @@ def _assert_records(rec, ref, K):
 
 def _fmeta(meta):
     nb, mt, db = meta
-    return _t(np.stack([nb, mt, db, np.zeros_like(nb)]).astype(np.int32))
+    return _t(np.stack([nb, mt, db, np.zeros_like(nb),
+                        np.zeros_like(nb)]).astype(np.int32))
 
 
 # ---------------------------------------------------------------------------

@@ -115,8 +115,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     from lightgbm_tpu_torch.ops import grow_fused as gf
     from lightgbm_tpu_torch.ops.split import SplitHyperParams
     hp = SplitHyperParams(20.0, 1e-3, 0.0, 0.0, 0.0, 0.0, 0.0)
-    scan = (torch.zeros((1, 192)), torch.zeros((5, 2)),
-            torch.zeros((4, 3), dtype=torch.int32),
+    scan = (torch.zeros((1, 192)), torch.zeros((7, 2)),
+            torch.zeros((5, 3), dtype=torch.int32),
             torch.ones(3, dtype=torch.uint8))
     with pytest.raises(ValueError, match="CUDA"):
         gf.wave_pass_fused_cuda(X, vals, lor, tbl, *scan, 1, 32, 4, hp)

@@ -422,8 +422,9 @@ def _key_gain(key):
     return u.astype(np.uint32).view(np.float32)
 
 
-def _cell(pg, ph, pc, tot, d, sg, sh, cnt, pout, hp):
-    """lgbt_cell with split.py's formulas, all f32 tensors."""
+def _cell(pg, ph, pc, tot, d, sg, sh, cnt, pout, hp, bmin, bmax, mono):
+    """lgbt_cell with split.py's formulas, all f32 tensors: the outputs
+    clipped into [bmin, bmax], the direction `mono` enforced on them."""
     mg, mh, mc = sg - tot[0], sh - tot[1], cnt - tot[2]
     lcu = pc + mc if d else pc
     lg = pg + mg if d else pg
@@ -433,8 +434,9 @@ def _cell(pg, ph, pc, tot, d, sg, sh, cnt, pout, hp):
     slack = hp.min_data_in_leaf - ts.SYNTH_COUNT_SLACK
     ok = (lcu >= slack) & (rcu >= slack) & (lh >= hp.min_sum_hessian_in_leaf) \
         & (rh >= hp.min_sum_hessian_in_leaf)
-    lout = ts.leaf_output(lg, lh, hp, lc, pout)
-    rout = ts.leaf_output(rg, rh, hp, rc, pout)
+    lout = torch.clamp(ts.leaf_output(lg, lh, hp, lc, pout), bmin, bmax)
+    rout = torch.clamp(ts.leaf_output(rg, rh, hp, rc, pout), bmin, bmax)
+    ok = ok & ~(((mono > 0) & (lout > rout)) | ((mono < 0) & (lout < rout)))
     gain = ts.leaf_gain_given_output(lg, lh, hp, lout) \
         + ts.leaf_gain_given_output(rg, rh, hp, rout)
     return ok, gain, (lg, lh, lc, rg, rh, rc, lout, rout)
@@ -448,15 +450,17 @@ def _scan_emulated(hist, parent, scal, fmeta, fmask, hp):
     keeping its best key and that cell's statistics; the warp's best (its
     statistics kept for the feature), then the block's (8 features) and
     the child's; the winner's kept statistics, or the index-0 cell
-    recomputed where no cell is valid. Returns the [12, 2K] records."""
+    recomputed where no cell is valid; with the monotone operand (scalar
+    rows 5 / 6, meta row 4). Returns the [12, 2K] records."""
     K, _, F, B = hist.shape
     n2 = 2 * K
     rec = torch.zeros((12, n2), dtype=torch.float32)
-    nb_, mt_, db_, cat_ = (fmeta[i].tolist() for i in range(4))
+    nb_, mt_, db_, cat_, mono_ = (fmeta[i].tolist() for i in range(5))
     floor = _keys(np.float32([-np.inf]), np.array([0]))[0]
     for j in range(n2):
         k = j if j < K else j - K
         sg, sh, cnt, pout = (scal[i, j:j + 1] for i in range(4))
+        bmin, bmax = scal[5, j:j + 1], scal[6, j:j + 1]
         use_small = (j < K) == bool(scal[4, j] != 0)
         cntf = cnt / torch.clamp(sh, min=1e-12)
         mgs = ts.leaf_gain(sg, sh, hp, cnt, pout) + hp.min_gain_to_split
@@ -501,7 +505,7 @@ def _scan_emulated(hist, parent, scal, fmeta, fmask, hp):
                             ok, gain, st = _cell(
                                 pre[0, b:b + 1], pre[1, b:b + 1],
                                 pre[2, b:b + 1], tot, d, sg, sh, cnt, pout,
-                                hp)
+                                hp, bmin, bmax, mono_[f])
                             if not bool(ok & (gain > mgs)):
                                 continue
                             key = _keys(gain.numpy(),
@@ -524,7 +528,7 @@ def _scan_emulated(hist, parent, scal, fmeta, fmask, hp):
             pre, tot, top = prefix(0)
             at = pre[:, :1] if top > 0 else tot[:, None]
             _, _, stats = _cell(at[0], at[1], at[2], tot, 0, sg, sh, cnt,
-                                pout, hp)
+                                pout, hp, bmin, bmax, mono_[0])
         fields = [torch.where(torch.isfinite(bg), bg - mgs,
                               torch.tensor([-np.inf])),
                   torch.tensor([float(f)]), torch.tensor([float(b)]),
@@ -535,10 +539,13 @@ def _scan_emulated(hist, parent, scal, fmeta, fmask, hp):
     return rec
 
 
-def _scan_case(seed, K, F, B, grid):
+def _scan_case(seed, K, F, B, grid, mono=False):
     """A wave's scan operands from real rows: each candidate's parent
     histogram over its leaf's rows, the smaller child's histogram, the
-    per-child scalars, random feature metadata and masks."""
+    per-child scalars, random feature metadata and masks. Without `mono`
+    the monotone operand is off (bounds +-inf, directions 0); with it
+    every other child is bounded around its output and the directions are
+    mixed."""
     rng = np.random.RandomState(seed)
     N = 4000
     nb = rng.randint(B // 4, B + 1, size=F)
@@ -558,12 +565,22 @@ def _scan_case(seed, K, F, B, grid):
     ptot, stot = par[:, :, 0].sum(-1), sm[:, :, 0].sum(-1)
     ltot = torch.where(sil[:, None], stot, ptot - stot)
     lr = torch.cat([ltot, ptot - ltot])
-    scal = torch.stack([lr[:, 0], lr[:, 1], lr[:, 2],
-                        -lr[:, 0] / (lr[:, 1] + 1.0),
-                        torch.cat([sil, sil]).float()]).contiguous()
+    out = -lr[:, 0] / (lr[:, 1] + 1.0)
+    bmin = torch.full((2 * K,), -np.inf)
+    bmax = torch.full((2 * K,), np.inf)
+    dirs = np.zeros(F, np.int64)
+    if mono:
+        # the odd children: a window of +-0.05 around the output, which
+        # the children's own outputs cross
+        bmin[1::2], bmax[1::2] = out[1::2] - 0.05, out[1::2] + 0.05
+        dirs = rng.choice([-1, 0, 1], size=F)
+    scal = torch.stack([lr[:, 0], lr[:, 1], lr[:, 2], out,
+                        torch.cat([sil, sil]).float(), bmin,
+                        bmax]).contiguous()
     fmeta = torch.tensor(np.stack([nb, rng.randint(0, 3, F),
                                    rng.randint(0, B // 4, F),
-                                   (rng.rand(F) < 0.1)]), dtype=torch.int32)
+                                   (rng.rand(F) < 0.1), dirs]),
+                         dtype=torch.int32)
     fmask = torch.from_numpy((rng.rand(2 * K, F) < 0.85).astype(np.uint8))
     return sm[:, :2].contiguous(), par[:, :2].reshape(K, -1), scal, fmeta, \
         fmask
@@ -595,6 +612,27 @@ def test_scan_with_no_valid_split_takes_index_zero():
                          HP, None)
     assert torch.equal(got, ref)
     assert torch.isinf(got[0]).all() and (got[1:4] == 0).all()
+
+
+@pytest.mark.parametrize("K,F,B,grid", [(2, 11, 64, False),
+                                         (2, 9, 40, True)])
+def test_scan_with_the_monotone_operand_equals_plain(K, F, B, grid):
+    """The warp-per-feature scan with live bounds and directions against
+    the plain version (find_best_split with leaf_min / leaf_max /
+    monotone), bitwise; the operand changes the records, and off (+-inf,
+    zeros) it gives the unconstrained records."""
+    hist, parent, scal, fmeta, fmask = _scan_case(K * F + B + 1, K, F, B,
+                                                  grid, mono=True)
+    got = _scan_emulated(hist, parent, scal, fmeta, fmask, HP)
+    ref = gf._scan_plain(hist, parent, scal, fmeta, fmask, HP, None)
+    assert torch.isfinite(got[0]).any()
+    assert torch.equal(got, ref)
+    off_scal, off_meta = scal.clone(), fmeta.clone()
+    off_scal[5], off_scal[6], off_meta[4] = -np.inf, np.inf, 0
+    off = gf._scan_plain(hist, parent, off_scal, off_meta, fmask, HP, None)
+    assert not torch.equal(off, ref)
+    assert torch.equal(off, _scan_emulated(hist, parent, off_scal, off_meta,
+                                           fmask, HP))
 
 
 def test_scan_order_equals_jax_two_pass_on_grid_values():

@@ -199,8 +199,9 @@ def test_valid_sets_early_stopping_and_logging(data):
     ({"max_bin": 300}, "A14"),
     ({"binning_impl": "auto", "autotune": True}, "A14"),
     ({"use_quantized_grad": True}, "A8"),
-    ({"monotone_constraints": [1, 0, 0, 0, 0, 0, 0, 0]}, "A10"),
-    ({"interaction_constraints": [[0, 1]]}, "A10"),
+    ({"monotone_constraints": [1, 0, 0, 0, 0, 0, 0, 0],
+      "monotone_constraints_method": "intermediate"}, "A10"),
+    ({"cegb_penalty_feature_coupled": [1.0] * 8}, "A10"),
     ({"cegb_penalty_split": 1.0}, "A10"),
     ({"bagging_freq": 1, "bagging_fraction": 0.5}, "A10"),
     ({"data_sample_strategy": "goss"}, "A10"),
