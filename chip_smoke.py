@@ -467,17 +467,33 @@ def kernel_phase(hc, torch, dev):
         if K == 16 and case == "few":
             out["wave_pass"] = rec
         if K == 128 and case == "few":
+            ref = hc.wave_relabel_plain(X, lor, tbl, L)
             got = hc.wave_relabel_cuda(X, lor, tbl, L)
-            check(torch.equal(got, hc.wave_relabel_plain(X, lor, tbl, L)),
+            check(torch.equal(got, ref),
                   "wave_relabel: leaf_of_row not bitwise equal")
-            ms, dms = timings(lambda: hc.wave_relabel_cuda(X, lor, tbl, L),
-                              50)
+            # in place, as the grower runs it
+            lor_ip = lor.clone()
+            got = hc.wave_relabel_cuda(X, lor_ip, tbl, L, out=lor_ip)
+            check(got.data_ptr() == lor_ip.data_ptr()
+                  and torch.equal(got, ref),
+                  "wave_relabel in place: leaf_of_row not bitwise equal")
+            # timed into a preallocated tensor: the work of the in-place
+            # call (which would relabel its own output on the next call)
+            # without an allocation; and into a new tensor each call
+            out_t = torch.empty_like(lor)
+            st = {}
+            ms, dms = timings(lambda: hc.wave_relabel_cuda(
+                X, lor, tbl, L, out=out_t), 50, stats=st)
+            new_ms, new_dms = timings(lambda: hc.wave_relabel_cuda(
+                X, lor, tbl, L), 50)
             plain_ms = time_ms(lambda: hc.wave_relabel_plain(
                 X, lor, tbl, L), 5)
             bms, by = bound_ms(8 * N + app_rows + 16 * 128 * 4, 0)
-            rec = dict(name="wave_relabel", max_abs_err=0.0, tol=0.0,
-                       ms=ms, device_ms=dms, plain_ms=plain_ms,
-                       library_ms=None,
+            rec = dict(name="wave_relabel", N=N, applied_rows=app_rows,
+                       max_abs_err=0.0, tol=0.0, ms=ms, device_ms=dms,
+                       new_tensor_ms=new_ms, new_tensor_device_ms=new_dms,
+                       plain_ms=plain_ms, library_ms=None,
+                       launches_per_call=st["kernels_per_call"],
                        bound_ms=bms, bound_by=by, bound_us=bms * 1e3)
             emit({"phase": "kernels", "kernel_ms": rec["ms"], **rec})
             out["wave_relabel"] = rec
@@ -629,7 +645,25 @@ def variant_phase(hc, torch, dev):
         check(torch.equal(hc.wave_relabel_cuda(Xn, ln, tbl, L),
                           hc.wave_relabel_plain(Xn, ln, tbl, L)),
               f"wave_relabel {key}: not bitwise equal")
+        lip = ln.clone()
+        hc.wave_relabel_cuda(Xn, lip, tbl, L, out=lip)
+        check(torch.equal(lip, hc.wave_relabel_plain(Xn, ln, tbl, L)),
+              f"wave_relabel in place {key}: not bitwise equal")
         res[f"wave_pass + wave_relabel {key}"] = 0.0
+    # #5's scalar tail (N % 4 != 0) and its row-at-a-time path (leaf ids
+    # not 16-byte aligned), in place and into a new tensor
+    tbl = _wave_table(torch, rng, F, 63, 120, 64, 16, dev)
+    for n, off in ((N - 3, 0), (N - 1, 1), (1 << 16, 3)):
+        Xn = X[:, :n].contiguous()
+        ln = lor[off:off + n]
+        ref = hc.wave_relabel_plain(Xn, ln, tbl, L)
+        lip = ln.clone()
+        key = f"wave_relabel N={n} offset={off}"
+        check(torch.equal(hc.wave_relabel_cuda(Xn, ln, tbl, L), ref)
+              and torch.equal(hc.wave_relabel_cuda(Xn, lip, tbl, L,
+                                                   out=lip), ref),
+              f"{key}: not bitwise equal")
+        res[key] = 0.0
     emit({"phase": "kernel_variants", "max_abs_err": res})
 
 
@@ -1178,18 +1212,24 @@ def _same_host_tree(a, b):
             if same else None)
 
 
-def _plain_first_tree(torch, gbdt, n):
-    """The first tree again from the same gradients, grown with the
+def _plain_first_tree(torch, gbdt, n, scores=None, it=0):
+    """The first tree again (or tree `it` from the `scores` before it)
+    from the same gradients, sample mask and seed, grown with the
     kernels' plain versions on the card."""
     from lightgbm_tpu_torch.ops.grow_wave import grow_tree_wave
     init = float(gbdt.objective.boost_from_score(0))
-    s0 = torch.full((n,), float(np.float32(init)), device=gbdt.X_t.device)
-    g, h = gbdt.objective.get_gradients(s0, gbdt.label_dev, gbdt.weight_dev)
-    tp, _ = grow_tree_wave(gbdt.X_t, g, h, gbdt._in_bag, gbdt.meta,
-                           gbdt.grow_cfg, None, hist_plan=gbdt.hist_plan,
-                           plain=True)
+    if scores is None:
+        scores = torch.full((n,), float(np.float32(init)),
+                            device=gbdt.X_t.device)
+    g, h = gbdt.objective.get_gradients(scores, gbdt.label_dev,
+                                        gbdt.weight_dev)
+    bag = gbdt.sample_strategy.sample(it, g, h)
+    tp, _ = grow_tree_wave(gbdt.X_t, g, h, bag, gbdt.meta, gbdt.grow_cfg,
+                           None, hist_plan=gbdt.hist_plan,
+                           rng_seed=gbdt.tree_seed(it), plain=True)
     t = gbdt._device_tree_to_host(tp)
-    t.add_bias(init)
+    if it == 0:
+        t.add_bias(init)
     return t
 
 
@@ -1776,9 +1816,9 @@ def fused_tiled_phase(hc, gf, torch, dev, X_c):
     return recs[1]
 
 
-def _train_timed(lt, hc, torch, params, ds, rounds):
-    """Train `rounds` rounds; (booster, launches, per-round ms, train AUC
-    per round)."""
+def _train_timed(lt, hc, torch, params, ds, rounds, callbacks=()):
+    """Train `rounds` rounds (with `callbacks` besides the timing one);
+    (booster, launches, per-round ms, train AUC per round)."""
     ends, resumes, aucs = [], [], []
 
     def stamp(env):
@@ -1790,7 +1830,8 @@ def _train_timed(lt, hc, torch, params, ds, rounds):
     hc.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    bst = lt.train(params, ds, num_boost_round=rounds, callbacks=[stamp])
+    bst = lt.train(params, ds, num_boost_round=rounds,
+                   callbacks=[stamp, *callbacks])
     torch.cuda.synchronize()
     iter_ms = [(b - a) * 1e3 for a, b in zip([t0] + resumes[:-1], ends)]
     return bst, dict(hc.LAUNCHES), iter_ms, aucs
@@ -2154,6 +2195,236 @@ def constraints_criteo_phase(lt, hc, torch, params, ds):
     return fused_launches
 
 
+# ---------------------------------------------------------------------------
+# quantized gradients and row sampling
+# ---------------------------------------------------------------------------
+class _Int8Calls:
+    """Counts, while installed, the calls of the histogram kernels'
+    wrappers whose values are int8 (the quantized modes), by kernel."""
+
+    def __init__(self, torch, hc, hr, gf):
+        self.torch = torch
+        # (module, wrapper, index of its values argument, kernel)
+        self.spots = [(hc, "build_histogram_slots_cuda", 1,
+                       "build_histogram_slots"),
+                      (hc, "wave_pass_cuda", 1, "wave_pass"),
+                      (hr, "hist_rowwise_cuda", 1, "hist_rowwise"),
+                      (hr, "hist_rowwise_packed_cuda", 2,
+                       "hist_rowwise_packed"),
+                      (gf, "wave_pass_fused_tiled_cuda", 1,
+                       "wave_pass_fused_tiled")]
+        self.n = {k: 0 for *_, k in self.spots}
+
+    def __enter__(self):
+        self.saved = []
+        for mod, name, arg, key in self.spots:
+            fn = getattr(mod, name)
+            self.saved.append((mod, name, fn))
+
+            def counted(*a, _fn=fn, _arg=arg, _key=key, **k):
+                if a[_arg].dtype == self.torch.int8:
+                    self.n[_key] += 1
+                return _fn(*a, **k)
+            setattr(mod, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def quantized_phase(lt, hc, hr, gf, torch, dev, params, ds, params_c,
+                    ds_c):
+    """use_quantized_grad (4 bins, stochastic rounding) on every wave
+    route: the bench model 8 rounds on "mega", 4 under
+    histogram_impl=fused ("fused_tiled") and 4 with quant_train_renew_leaf;
+    the Criteo table 2 rounds each on "apply", under force_row_wise,
+    rowwise_packed and fused. Each run: its route, its kernels launched
+    with int8 values, the first tree equal to the plain versions' (int
+    sums are exact: structure bitwise, leaf values within 1e-6), train AUC
+    above the float run of the same configuration and rounds - 0.01. Then
+    the discretizer on the card against its CPU run, bitwise, and its
+    time per tree with and without the draws."""
+    from lightgbm_tpu_torch.ops.grow_wave import discretize_gradients
+    from lightgbm_tpu_torch.utils.random import PRNGKey, split, uniform
+    qp = dict(use_quantized_grad=True, num_grad_quant_bins=4,
+              stochastic_rounding=True)
+    cases = [
+        ("bench", params, ds, {}, 8, "mega", "wave_pass"),
+        ("bench", params, ds, {"histogram_impl": "fused"}, 4, "fused_tiled",
+         "wave_pass_fused_tiled"),
+        ("bench", params, ds, {"quant_train_renew_leaf": True}, 4, "mega",
+         "wave_pass"),
+        ("criteo", params_c, ds_c, {}, 2, "apply", "build_histogram_slots"),
+        ("criteo", params_c, ds_c, {"force_row_wise": True}, 2, "apply",
+         "hist_rowwise"),
+        ("criteo", params_c, ds_c, {"histogram_impl": "rowwise_packed"}, 2,
+         "apply", "hist_rowwise_packed"),
+        ("criteo", params_c, ds_c, {"histogram_impl": "fused"}, 2,
+         "fused_tiled", "wave_pass_fused_tiled")]
+    out = {}
+    for model, base, d, over, rounds, route, k8 in cases:
+        p = {**base, **over}
+        fb, _, f_ms, f_aucs = _train_timed(lt, hc, torch, p, d, rounds)
+        del fb
+        with _Int8Calls(torch, hc, hr, gf) as q8:
+            bst, launches, iter_ms, aucs = _train_timed(
+                lt, hc, torch, {**p, **qp}, d, rounds)
+        g = bst._gbdt
+        trees = g.models
+        lv_err = _same_host_tree(_plain_first_tree(torch, g, N_ROWS),
+                                 trees[0])
+        key = f"{model} {route}" + "".join(f" {k}={v}"
+                                           for k, v in over.items())
+        emit({"phase": "quantized", "model": model, "case": key,
+              "rows": N_ROWS, "grow_route": g.grow_route,
+              "hist_route": g.hist_route, "rounds": rounds,
+              "iter_ms": iter_ms,
+              "steady_ms_per_iter": float(np.mean(iter_ms[1:])),
+              "float_iter_ms": f_ms, "launches": launches,
+              "int8_launches": q8.n, "train_auc_per_round": aucs,
+              "float_train_auc_per_round": f_aucs,
+              "leaves": [t.num_leaves for t in trees],
+              "first_tree_same": lv_err is not None,
+              "leaf_value_max_abs_err": lv_err})
+        check(g.grow_route == route, f"quantized {key} took route "
+                                     f"{g.grow_route}")
+        check(q8.n[k8] > 0 and launches["wave_pass_fused"] == 0,
+              f"quantized {key}: {k8} never launched on int8 values")
+        check(launches["take_leaf_values"] == rounds,
+              f"quantized {key}: {launches['take_leaf_values']} score "
+              f"updates in {rounds} rounds")
+        if over.get("quant_train_renew_leaf"):
+            # the leaf renewal's exact float sums: #1 on f32 values
+            check(launches["build_histogram_slots"]
+                  > q8.n["build_histogram_slots"],
+                  f"quantized {key}: no float leaf sums on kernel #1")
+        check(lv_err is not None and lv_err <= 1e-6,
+              f"quantized {key}: first tree differs from the plain "
+              f"versions' ({lv_err})")
+        check(len(trees) == rounds and aucs[-1] > f_aucs[-1] - 0.01,
+              f"quantized {key}: train AUC {aucs[-1]} <= the float run's "
+              f"{f_aucs[-1]} - 0.01")
+        out[key] = dict(launches=launches, int8_launches=dict(q8.n))
+        del bst, g, trees
+
+    # the discretizer on the card against its CPU run, and its cost
+    gen = torch.Generator(device=dev).manual_seed(9)
+    g = torch.randn(N_ROWS, generator=gen, device=dev)
+    h = torch.rand(N_ROWS, generator=gen, device=dev) * 0.25
+    for stoch in (True, False):
+        v8, sc = discretize_gradients(g, h, 4, stoch, -7)
+        v8c, scc = discretize_gradients(g.cpu(), h.cpu(), 4, stoch, -7)
+        check(torch.equal(v8.cpu(), v8c) and torch.equal(sc.cpu(), scc),
+              f"discretizer (stochastic={stoch}): the card's int8 values "
+              f"differ from the CPU's")
+    key = split(PRNGKey(-7))[0]
+    check(torch.equal(uniform(key, (N_ROWS,), dev).cpu(),
+                      uniform(key, (N_ROWS,))),
+          "threefry uniform: the card's draws differ from the CPU's")
+    rec = {}
+    for name, fn in (
+            ("discretizer", lambda: discretize_gradients(g, h, 4, True, 7)),
+            ("discretizer_no_draws",
+             lambda: discretize_gradients(g, h, 4, False, 7)),
+            ("uniform", lambda: uniform(key, (N_ROWS,), dev))):
+        st = {}
+        ms, dms = timings(fn, 20, stats=st)
+        rec[name] = dict(ms=ms, device_ms=dms,
+                         kernels_per_call=st["kernels_per_call"])
+    emit({"phase": "quantized_draws", "rows": N_ROWS,
+          "draws_per_tree": 2, "bitwise_cpu": True, **rec})
+    return out
+
+
+def sampling_phase(lt, hc, torch, params, ds):
+    """Row sampling on the megakernel route: bagging_fraction 0.8 with
+    bagging_freq 1 for 8 rounds, and GOSS for 12 (its warm-up at
+    learning_rate 0.1 is 10 rounds). The first sampled tree (0 for
+    bagging, 10 for GOSS) equals the plain versions' tree from the same
+    scores, mask and seed; the mask counts are exact (int(0.8 N) rows in
+    bag; top_k rows kept at 1, the sampled rest amplified; both counted
+    again by NumPy from the CPU's draws, ties at the threshold kept as the
+    JAX package keeps them); train AUC > 0.85. The mask's time a draw is
+    printed."""
+    from lightgbm_tpu_torch.utils.random import PRNGKey, fold_in, uniform
+    cases = (("bagging", dict(bagging_fraction=0.8, bagging_freq=1), 8, 0),
+             ("goss", dict(data_sample_strategy="goss"), 12, 10))
+    out = {}
+    for name, over, rounds, first in cases:
+        snap = {}
+
+        def keep(env, _first=first, _snap=snap):
+            if env.iteration == _first:
+                _snap["scores"] = env.model._gbdt.scores[0].clone()
+        keep.before_iteration = True
+        bst, launches, iter_ms, aucs = _train_timed(
+            lt, hc, torch, {**params, **over}, ds, rounds, [keep])
+        g = bst._gbdt
+        trees = g.models
+        scores = snap["scores"] if first else None
+        lv_err = _same_host_tree(_plain_first_tree(torch, g, N_ROWS, scores,
+                                                   first), trees[first])
+        strat = g.sample_strategy
+        if scores is None:
+            scores = torch.full((N_ROWS,), float(np.float32(
+                g.objective.boost_from_score(0))), device=g.X_t.device)
+        gg, hh = g.objective.get_gradients(scores, g.label_dev,
+                                           g.weight_dev)
+        mask = strat.sample(first, gg, hh)
+        in_bag = int((mask > 0).sum())
+        ones = int((mask == 1.0).sum())
+        amplified = int((mask > 1.0).sum())
+        # the same rule in NumPy over the CPU's threefry draws
+        cfg = g.config
+        if name == "bagging":
+            u = uniform(fold_in(PRNGKey(cfg.bagging_seed), first),
+                        (N_ROWS,)).numpy()
+            cnt = int(N_ROWS * cfg.bagging_fraction)
+            want_ones, want_amp = int((u <= np.sort(u)[cnt - 1]).sum()), 0
+        else:
+            ga = np.abs((gg * hh).cpu().numpy())
+            top_k = int(N_ROWS * cfg.top_rate)
+            top = ga >= np.sort(ga)[N_ROWS - top_k]
+            u = uniform(fold_in(PRNGKey(cfg.data_random_seed), first),
+                        (N_ROWS,)).numpy()
+            p_acc = np.float32(int(N_ROWS * cfg.other_rate)
+                               / (N_ROWS - top_k))
+            want_ones = int(top.sum())
+            want_amp = int((~top & (u < p_acc)).sum())
+        st = {}
+        ms, dms = timings(lambda: strat.sample(first, gg, hh), 20, stats=st)
+        emit({"phase": "sampling", "case": name, "rows": N_ROWS,
+              "grow_route": g.grow_route, "rounds": rounds,
+              "first_sampled_tree": first, "iter_ms": iter_ms,
+              "steady_ms_per_iter": float(np.mean(iter_ms[1:])),
+              "launches": launches, "train_auc_per_round": aucs,
+              "leaves": [t.num_leaves for t in trees],
+              "in_bag_rows": in_bag, "rows_at_1": ones,
+              "rows_amplified": amplified, "numpy_rows_at_1": want_ones,
+              "numpy_rows_amplified": want_amp,
+              "first_sampled_tree_same": lv_err is not None,
+              "leaf_value_max_abs_err": lv_err,
+              "mask_ms": ms, "mask_device_ms": dms,
+              "mask_kernels_per_call": st["kernels_per_call"]})
+        check(g.grow_route == "mega", f"{name} took route {g.grow_route}")
+        check(ones == want_ones and amplified == want_amp
+              and in_bag == ones + amplified,
+              f"{name} mask: {ones} rows at 1 and {amplified} amplified, "
+              f"NumPy counts {want_ones} and {want_amp}")
+        check(0 < in_bag < N_ROWS and int(trees[first].internal_count[0])
+              == in_bag, f"{name}: the first sampled tree did not grow on "
+                         f"the {in_bag} sampled rows")
+        check(lv_err is not None and lv_err <= 1e-6,
+              f"{name}: first sampled tree differs from the plain "
+              f"versions' ({lv_err})")
+        check(len(trees) == rounds and aucs[-1] > 0.85,
+              f"{name}: train AUC {aucs[-1]} <= 0.85")
+        out[name] = launches
+        del bst, g, trees
+    return out
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -2335,6 +2606,11 @@ def main():
     constraints_kernel_phase(hc, gf, torch, dev, bst_c._gbdt.X_t)
     constraints_train_phase(lt, hc, torch, params, ds, w, trees[0])
     constraints_criteo_phase(lt, hc, torch, bst_c.params, ds_c)
+
+    # ---- 12. quantized gradients on every wave route, and row sampling
+    quantized_phase(lt, hc, hr, gf, torch, dev, params, ds, bst_c.params,
+                    ds_c)
+    sampling_phase(lt, hc, torch, params, ds)
     h_c = ds_c._handle
     krec.update(rowwise_phase(hc, hr, torch, dev, bst_c._gbdt.X_t,
                               h_c.storage_num_bins(),

@@ -74,29 +74,28 @@ __device__ __forceinline__ void lgbt_map_min(signed char* map, int leaf,
 
 // Block prologue: packed entries and leaf -> entry maps in shared memory.
 // Candidate entries past K are not mapped (the histogram width is K).
+// Every load of the table is issued before the first barrier (the maps'
+// leaves kept in registers across it), so the prologue waits for the
+// table once.
 __device__ __forceinline__ void lgbt_load_table(
     const int* __restrict__ t, int K, int leaf_cap, bool with_cand,
     int* app_p, int* cand_p, signed char* app_of, signed char* cand_of) {
-  for (int i = threadIdx.x; i < leaf_cap; i += blockDim.x) {
-    app_of[i] = -1;
-    if (with_cand) cand_of[i] = -1;
-  }
-  if (threadIdx.x < LGBT_T_ENTRIES) {
-    const int k = threadIdx.x;
+  const int k = threadIdx.x;
+  int la = -1, lc = -1;
+  if (k < LGBT_T_ENTRIES) {
+    la = t[k];
+    if (with_cand && k < K) lc = t[7 * LGBT_T_ENTRIES + k];
     app_p[k] = lgbt_pack_entry(t, 1, k, 0);
     if (with_cand)
       cand_p[k] = lgbt_pack_entry(t, 8, k, t[14 * LGBT_T_ENTRIES + k] & 1);
   }
-  __syncthreads();
-  if (threadIdx.x < LGBT_T_ENTRIES) {
-    const int k = threadIdx.x;
-    const int la = t[k];
-    if (la >= 0 && la < leaf_cap) lgbt_map_min(app_of, la, k);
-    if (with_cand && k < K) {
-      const int lc = t[7 * LGBT_T_ENTRIES + k];
-      if (lc >= 0 && lc < leaf_cap) lgbt_map_min(cand_of, lc, k);
-    }
+  for (int i = threadIdx.x; i < leaf_cap; i += blockDim.x) {
+    app_of[i] = -1;
+    if (with_cand) cand_of[i] = -1;
   }
+  __syncthreads();
+  if (la >= 0 && la < leaf_cap) lgbt_map_min(app_of, la, k);
+  if (lc >= 0 && lc < leaf_cap) lgbt_map_min(cand_of, lc, k);
   __syncthreads();
 }
 

@@ -6,14 +6,16 @@ text of gbdt_model_text.cpp). Scores, gradients, the binned matrix and tree
 growth live on the configured torch device; grown trees stay there as
 `DeviceTree` records until a caller needs host trees (save, predict).
 
-Training runs the wave grower with binary or L2 objectives, no bagging,
-host or device binning, on the route the JAX package's accelerator takes
+Training runs the wave grower with binary or L2 objectives, host or
+device binning, on the route the JAX package's accelerator takes
 (`wave_routes`): the megakernel route for at most 32 dense numeric storage
 columns, the wave-apply route for wider, categorical or EFB-bundled data
 and for the row-wise histogram layouts, and under histogram_impl=fused the
 fused routes, whose kernels also search the children's splits; monotone
 constraints (method `basic`, with `monotone_penalty`) and interaction
-constraints on every route. Everything else raises NotImplementedError
+constraints on every route, quantized gradients (use_quantized_grad) and
+uniform, class-stratified or GOSS row sampling
+(models/sample_strategy.py). Everything else raises NotImplementedError
 naming the ROADMAP item that ports it.
 Prediction covers every tree the JAX package writes except linear leaves on
 the device routes.
@@ -41,6 +43,7 @@ from ..ops.predict import predict_leaf_binned
 from ..ops.split import FeatureMeta
 from ..utils import resolve_device, round_up
 from ..utils.log import log_fatal, log_info, log_warning
+from .sample_strategy import create_sample_strategy
 from .tree import Tree, make_decision_type
 
 _KEPS = 1e-15
@@ -68,8 +71,6 @@ def check_slice_config(cfg: Config) -> None:
         _not_ported(f"tpu_grower={cfg.tpu_grower}", "A11")
     if cfg.binning_impl == "auto" and cfg.autotune:
         _not_ported("autotune of binning_impl=auto", "A14")
-    if cfg.use_quantized_grad:
-        _not_ported("use_quantized_grad", "A8")
     if cfg.monotone_constraints and any(cfg.monotone_constraints) \
             and cfg.monotone_constraints_method == "intermediate":
         _not_ported("monotone_constraints_method=intermediate", "A10")
@@ -78,11 +79,6 @@ def check_slice_config(cfg: Config) -> None:
     if cfg.cegb_penalty_split > 0.0 or cfg.cegb_penalty_feature_coupled \
             or cfg.cegb_penalty_feature_lazy:
         _not_ported("CEGB penalties", "A10")
-    bagging = (cfg.bagging_freq > 0 and (
-        cfg.bagging_fraction < 1.0 or cfg.pos_bagging_fraction < 1.0
-        or cfg.neg_bagging_fraction < 1.0))
-    if bagging or cfg.data_sample_strategy == "goss":
-        _not_ported("bagging / GOSS", "A10")
     if cfg.feature_fraction_bynode < 1.0 or cfg.extra_trees:
         _not_ported("feature_fraction_bynode / extra_trees", "A10")
     if cfg.num_class > 1:
@@ -281,6 +277,10 @@ class GBDT:
             has_interaction=self.meta.inter_sets is not None,
             monotone_method=str(cfg.monotone_constraints_method),
             monotone_penalty=float(cfg.monotone_penalty),
+            use_quantized_grad=bool(cfg.use_quantized_grad),
+            num_grad_quant_bins=int(cfg.num_grad_quant_bins),
+            stochastic_rounding=bool(cfg.stochastic_rounding),
+            quant_renew_leaf=bool(cfg.quant_train_renew_leaf),
             bundle_col=tuple(ds.bundle_col) if bundled else (),
             bundle_off=tuple(ds.bundle_off) if bundled else (),
             bundle_nb=(tuple(int(m.num_bin) for m in ds.mappers)
@@ -336,7 +336,11 @@ class GBDT:
         if self._has_init_score:
             scores += np.asarray(md.init_score, np.float64).reshape(1, N)
         self.scores = torch.from_numpy(scores).to(self.device)
-        self._in_bag = torch.ones(N, dtype=torch.float32, device=self.device)
+        # bagging / GOSS (sample_strategy.cpp:16); the mask is drawn at
+        # the first iteration and again where the strategy resamples
+        self.sample_strategy = create_sample_strategy(cfg, N, md,
+                                                      self.device)
+        self._in_bag: Optional[torch.Tensor] = None
         if self.objective is not None:
             self.objective.init(md, N)
         for m in self.training_metrics:
@@ -409,6 +413,11 @@ class GBDT:
         mask[rng.choice(F, used, replace=False)] = True
         return torch.from_numpy(mask).to(self.device)
 
+    def tree_seed(self, it: int) -> int:
+        """The seed of iteration `it`'s tree, an int32 as the JAX package
+        passes it (gbdt.py:1488-1498, one tree an iteration)."""
+        return ((self.config.seed or 0) + it + 2 ** 31) % 2 ** 32 - 2 ** 31
+
     def train_one_iter(self) -> bool:
         """One boosting iteration (GBDT::TrainOneIter, gbdt.cpp:353).
         Returns True if training should stop (no splits possible)."""
@@ -417,10 +426,14 @@ class GBDT:
         init_score = self._boost_from_average() if self.iter == 0 else 0.0
         g, h = self.objective.get_gradients(self.scores[0], self.label_dev,
                                             self.weight_dev)
+        strat = self.sample_strategy
+        if self._in_bag is None or strat.resamples_at(self.iter):
+            self._in_bag = strat.sample(self.iter, g, h)
         tree, leaf_of_row = grow_tree_wave(self.X_t, g, h, self._in_bag,
                                            self.meta, self.grow_cfg,
                                            self._feature_mask_for_iter(),
-                                           hist_plan=self.hist_plan)
+                                           hist_plan=self.hist_plan,
+                                           rng_seed=self.tree_seed(self.iter))
         lr = self.shrinkage_rate
         add_leaf_values_(self.scores[0], tree.leaf_value * lr, leaf_of_row)
         # valid scores update BEFORE the bias fold (the reference updates

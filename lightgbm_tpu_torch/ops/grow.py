@@ -59,6 +59,15 @@ class GrowConfig(NamedTuple):
     has_interaction: bool = False
     monotone_method: str = "basic"
     monotone_penalty: float = 0.0
+    # quantized gradients (use_quantized_grad, grow_wave.py:381-404): int8
+    # (grad, hess) with per-tree scales, exact int32 histograms descaled
+    # for the search; stochastic rounding draws from the tree's seed;
+    # quant_renew_leaf (quant_train_renew_leaf) refits the leaf values
+    # from exact float leaf sums
+    use_quantized_grad: bool = False
+    num_grad_quant_bins: int = 4
+    stochastic_rounding: bool = True
+    quant_renew_leaf: bool = False
     # EFB (data/dataset.py:_build_bundles): X_t holds BUNDLE columns;
     # per-ORIGINAL-feature maps unpack them in the decision pass, and
     # meta.bundle_expand re-slices bundle histograms per feature at search

@@ -48,6 +48,13 @@ a Python loop over waves:
      features; numeric wins ties), cached per leaf with their categorical
      flags and bitsets until the leaf is applied.
 
+Under use_quantized_grad (grow_wave.py:381-404) the gradients become int8
+with per-tree scales (`discretize_gradients`, stochastic rounding drawn
+from the tree's seed by the port's threefry), every route's histograms are
+exact int32, parent minus smaller child subtracts in int32, and the search
+reads them descaled to f32; `quant_renew_leaf` then refits the leaf values
+from exact float leaf sums (the slot histogram over a one-bin feature).
+
 The JAX package's `lax.while_loop` over waves becomes a Python loop that
 reads two host scalars per wave (whether to go on plus the number of
 splits to apply, then the candidate count, which picks the bucketed K); its
@@ -72,9 +79,16 @@ from .histogram import (ROWWISE_IMPLS, HistPlan, build_histogram,
                         wave_apply, wave_pass, wave_pass_fused,
                         wave_pass_fused_tiled, wave_relabel)
 from .split import (NEG_INF, FeatureMeta, SplitResult, find_best_split,
-                    synth_count_channel)
+                    synth_count_channel, threshold_l1)
+from ..utils.random import PRNGKey, split, uniform
 
 MAX_WAVE_FEATURES = 32
+# the one-bin storage of the leaf renewal's sums: every row adds into bin
+# 0, so the histogram's bin count only sets the tile shape; from 65 bins
+# on the slot histogram merges a warp's equal cells before its atomic,
+# which is the whole of this histogram's work (all lanes of a warp of
+# rows grouped by leaf hit one cell)
+RENEW_BINS = 128
 
 
 def _wave_buckets(L: int, kcap: int = 128) -> List[int]:
@@ -146,10 +160,11 @@ def wave_routes(cfg: GrowConfig, num_storage_cols: int) -> Tuple[str, str]:
     narrow = (not cfg.bundled and not cfg.has_categorical
               and num_storage_cols <= MAX_WAVE_FEATURES)
     if cfg.hist_impl == "fused" and not fused_veto_reasons(cfg):
-        # monotone and interaction constraints take the general kernel,
-        # never the narrow one (grow_wave.py:302-309)
-        constrained = cfg.has_monotone or cfg.has_interaction
-        return ("fused" if narrow and not constrained else "fused_tiled"), \
+        # quantized gradients and monotone and interaction constraints take
+        # the general kernel, never the narrow one (grow_wave.py:302-309)
+        general = (cfg.has_monotone or cfg.has_interaction
+                   or cfg.use_quantized_grad)
+        return ("fused" if narrow and not general else "fused_tiled"), \
             "slots"
     if narrow and cfg.hist_impl not in ROWWISE_IMPLS:
         return "mega", "slots"
@@ -169,6 +184,71 @@ def wave_buckets_for(cfg: GrowConfig, route: str) -> List[int]:
            "fused_tiled": lambda: fused_kcap(B, cfg.fused_feature_tile),
            "apply": lambda: 128}[route]()
     return _wave_buckets(cfg.num_leaves, cap)
+
+
+def discretize_gradients(g: torch.Tensor, h: torch.Tensor, num_bins: int,
+                         stochastic: bool, seed: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The int8 (grad, hess) of use_quantized_grad and their descale
+    factors: ([2, N] int8, [2] f32 (grad scale, hess scale)), as
+    grow_wave.py:381-404 (GradientDiscretizer::DiscretizeGradients,
+    gradient_discretizer.cpp:72-162). Scales max|g| / (num_bins // 2) and
+    max h / num_bins, at least 1e-30; values truncate toward zero after
+    adding sign(g) * u to g / scale (u / 0.5 for the hessians), u the
+    uniform draws of the split of PRNGKey(seed), or 0.5 without
+    `stochastic`. The scales are tensors on g's device and every division
+    divides by a tensor: torch on CUDA divides by a Python scalar as a
+    multiply by its f32 reciprocal, not the IEEE quotient JAX computes."""
+    dev = g.device
+
+    def f32(v):
+        return torch.tensor(v, dtype=torch.float32, device=dev)
+    g_scale = torch.maximum(g.abs().max() / f32(num_bins // 2), f32(1e-30))
+    h_scale = torch.maximum(h.max() / f32(num_bins), f32(1e-30))
+    if stochastic:
+        kg, kh = split(PRNGKey(seed))
+        ug = uniform(kg, g.shape, dev)
+        uh = uniform(kh, h.shape, dev)
+    else:
+        ug = uh = 0.5
+    # sign(g) * u is exact, so a contracted multiply-add rounds the same
+    g8 = torch.clamp(torch.trunc(g / g_scale + torch.sign(g) * ug),
+                     -127, 127).to(torch.int8)
+    h8 = torch.clamp(torch.trunc(h / h_scale + uh), 0, 127).to(torch.int8)
+    return torch.stack([g8, h8]), torch.stack([g_scale, h_scale])
+
+
+def renew_leaf_values(leaf_value: torch.Tensor, leaf_of_row: torch.Tensor,
+                      g: torch.Tensor, h: torch.Tensor, num_leaves: int,
+                      slots: int, hp, *, plain: bool = False
+                      ) -> torch.Tensor:
+    """quant_train_renew_leaf (RenewIntGradTreeOutput,
+    gradient_discretizer.cpp:210; grow_wave.py:2126-2150): the leaf values
+    of a tree of `num_leaves` leaves from the exact float sums of g / h
+    over each leaf's rows, -threshold_l1(sum g) / (sum h + lambda_l2)
+    clipped to max_delta_step; leaves with no hessian keep theirs. The
+    sums are the slot histogram of [g, h] over a one-column storage whose
+    rows all sit in bin 0, leaf ids as slots, `slots` leaves a call."""
+    L = leaf_value.shape[0]
+    N = g.shape[0]
+    dev = g.device
+    dummy = torch.zeros((1, N), dtype=torch.uint8, device=dev)
+    fp2 = torch.stack([g, h])
+    sums = []
+    for off in range(0, L, slots):
+        sl = torch.where((leaf_of_row >= off) & (leaf_of_row < off + slots),
+                         leaf_of_row - off, -1).to(torch.int32)
+        hs = build_histogram_slots(dummy, fp2, sl, slots, RENEW_BINS,
+                                   plain=plain)
+        sums.append(hs[:, :, 0, 0])                        # [slots, 2]
+    sums = torch.cat(sums)[:L]
+    sg, sh = sums[:, 0], sums[:, 1]
+    lv = -threshold_l1(sg, hp.lambda_l1) / (sh + hp.lambda_l2)
+    if hp.max_delta_step > 0:
+        lv = torch.clamp(lv, -hp.max_delta_step, hp.max_delta_step)
+    ok = (torch.arange(L, device=dev) < num_leaves) & (sh > 0.0) \
+        & (num_leaves > 1)
+    return torch.where(ok, lv, leaf_value)
 
 
 class _Pending(NamedTuple):
@@ -348,14 +428,16 @@ def grow_tree_wave(
     feature_mask: Optional[torch.Tensor] = None,
     *,
     hist_plan: Optional[HistPlan] = None,
+    rng_seed: int = 0,
     plain: bool = False,
 ) -> Tuple[DeviceTree, torch.Tensor]:
     """Grow one tree; returns (DeviceTree, leaf_of_row [N] int32).
 
     With EFB, X_t holds the bundle columns and `meta` describes the
     original features. `hist_plan` is `make_hist_plan`'s plan of the
-    row-wise routes (made here when not given). `plain=True` runs the
-    kernels' plain PyTorch versions on any device."""
+    row-wise routes (made here when not given). `rng_seed` (an int32)
+    keys the quantized gradients' stochastic rounding.
+    `plain=True` runs the kernels' plain PyTorch versions on any device."""
     dev = X_t.device
     F_st, N = X_t.shape
     F = meta.num_bins.shape[0]
@@ -377,8 +459,26 @@ def grow_tree_wave(
     h = hess.to(torch.float32) * in_bag
     cnt_row = (in_bag > 0).to(torch.float32)
     root_g, root_h, root_c = g.sum(), h.sum(), cnt_row.sum()
-    vals0 = torch.stack([g, h], dim=0)                       # [2, N] f32
+    quant = cfg.use_quantized_grad
+    if quant:
+        # int8 values, exact int32 histograms (grow_wave.py:381-404); the
+        # root sums above stay the float sums
+        vals0, ch_scale = discretize_gradients(
+            g, h, cfg.num_grad_quant_bins, cfg.stochastic_rounding,
+            rng_seed)
+        # the general fused kernel takes the factors as launch arguments
+        scale_args = (tuple(ch_scale.tolist()) if route == "fused_tiled"
+                      else None)
+    else:
+        vals0 = torch.stack([g, h], dim=0)                   # [2, N] f32
+        ch_scale = scale_args = None
     C = 2
+
+    def to_f32(hist):
+        """Descale [n, C, F, B] int32 sums (grow_wave.py:409-413)."""
+        if quant:
+            return hist.to(torch.float32) * ch_scale[:, None, None]
+        return hist
 
     # search-side constraints (grow_wave.py:422-423, :718): monotone
     # `basic` bounds per leaf, interaction sets per leaf, monotone_penalty
@@ -471,11 +571,13 @@ def grow_tree_wave(
             # (Dataset::FixHistogram, dataset.h:778; grow_wave.py:542-554)
             flat = hist2.reshape(n, C, -1)
             flat = torch.cat([flat, flat.new_zeros((n, C, 1))], dim=-1)
-            hist2 = flat.index_select(-1, meta.bundle_expand) \
-                .reshape(n, C, F, B)
+            hist2 = to_f32(flat.index_select(-1, meta.bundle_expand)
+                           .reshape(n, C, F, B))
             parent = torch.stack([sum_g, sum_h], dim=-1)      # [n, C]
             miss = parent[:, :, None] - hist2.sum(dim=-1)     # [n, C, F]
             hist2 = hist2 + meta.bundle_mfb * miss[..., None]
+        else:
+            hist2 = to_f32(hist2)
         hist = synth_count_channel(hist2, count, sum_h)       # [n, 3, F, B]
         if num is None:
             num = find_best_split(hist, sum_g, sum_h, count, out, meta, hp,
@@ -551,8 +653,9 @@ def grow_tree_wave(
     leaf_min = torch.full((L,), -torch.inf, device=dev)
     leaf_max = torch.full((L,), torch.inf, device=dev)
     leaf_sets = torch.ones((L, S), dtype=torch.bool, device=dev)
+    # int32 under quantized gradients (grow_wave.py:1027, :1108)
     hist_cache = torch.zeros((L, C * hist_root[0].numel()),
-                             dtype=torch.float32, device=dev)
+                             dtype=hist_root.dtype, device=dev)
     hist_cache[0] = hist_root.reshape(-1)
     small_hist = torch.zeros_like(hist_cache)
     small_is_left = zeros(L, torch.bool)
@@ -698,8 +801,9 @@ def grow_tree_wave(
                                            bs.default_left, meta)
             tbl[14, :KMAX] = smaller_is_left.to(torch.int32)
             if n_cand == 0:
-                leaf_of_row = wave_relabel(X_t, leaf_of_row, tbl, L,
-                                           plain=plain)
+                # in place: the tree's last wave allocates nothing
+                wave_relabel(X_t, leaf_of_row, tbl, L, out=leaf_of_row,
+                             plain=plain)
                 continue
             K = next(k for k in buckets if k >= n_cand)
             if route == "mega":
@@ -783,7 +887,8 @@ def grow_tree_wave(
                 leaf_of_row, hist_wave, rec = wave_pass_fused_tiled(
                     X_t, vals0, dec, leaf_of_row, tbl, pend_tbl,
                     0 if pend is None else pend.nl0, hist_cache[cand[:K]],
-                    scal, fmeta, fmask_lr, K, B, L, hp, plain=plain)
+                    scal, fmeta, fmask_lr, K, B, L, hp, scale_args,
+                    plain=plain)
                 pend = None
                 del dec
 
@@ -829,6 +934,10 @@ def grow_tree_wave(
         # the tree's last wave applied only: no launch follows it
         leaf_of_row = _flush_pending(X_t, leaf_of_row, pend, meta, cfg,
                                      buckets, plain)
+
+    if quant and cfg.quant_renew_leaf and cfg.path_smooth <= 1e-15:
+        leaf_value = renew_leaf_values(leaf_value, leaf_of_row, g, h,
+                                       num_leaves, KMAX, hp, plain=plain)
 
     tree = DeviceTree(
         num_leaves=num_leaves, split_feature=split_feature,

@@ -159,12 +159,13 @@ def wave_apply(X_binned_t: torch.Tensor, leaf_of_row: torch.Tensor,
 
 def wave_relabel(X_binned_t: torch.Tensor, leaf_of_row: torch.Tensor,
                  table: torch.Tensor, num_leaves: int, *,
+                 out: Optional[torch.Tensor] = None,
                  plain: bool = False) -> torch.Tensor:
-    """Relabel-only wave (a tree's last wave)."""
-    if _use_kernel(X_binned_t, plain):
-        return hc.wave_relabel_cuda(X_binned_t, leaf_of_row, table,
-                                    num_leaves)
-    return hc.wave_relabel_plain(X_binned_t, leaf_of_row, table, num_leaves)
+    """Relabel-only wave (a tree's last wave), into `out` (None: a new
+    tensor; leaf_of_row itself: in place)."""
+    fn = (hc.wave_relabel_cuda if _use_kernel(X_binned_t, plain)
+          else hc.wave_relabel_plain)
+    return fn(X_binned_t, leaf_of_row, table, num_leaves, out)
 
 
 def wave_pass_fused(X_binned_t: torch.Tensor, vals: torch.Tensor,

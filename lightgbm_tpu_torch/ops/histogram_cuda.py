@@ -820,12 +820,26 @@ def _wave_pass_launch(X, vals, leaf_of_row, table, K, B, L,
     return new_lor, tb.out
 
 
+def _relabel_out(leaf_of_row: torch.Tensor,
+                 out: Optional[torch.Tensor]) -> torch.Tensor:
+    if out is None:
+        return torch.empty_like(leaf_of_row)
+    if out.shape != leaf_of_row.shape or out.dtype != torch.int32 \
+            or out.device != leaf_of_row.device or not out.is_contiguous():
+        raise ValueError("out must be a contiguous int32 tensor like "
+                         "leaf_of_row")
+    return out
+
+
 def wave_relabel_cuda(X: torch.Tensor, leaf_of_row: torch.Tensor,
-                      table: torch.Tensor, num_leaves: int) -> torch.Tensor:
-    """Apply the wave table's splits only: new leaf_of_row [N] int32."""
+                      table: torch.Tensor, num_leaves: int,
+                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Apply the wave table's splits only: new leaf_of_row [N] int32,
+    written to `out` (None: a new tensor; `out` may be leaf_of_row
+    itself, a relabel in place, as the grower runs it)."""
     dev = _cuda_device(X)
     F, N = _check_wave_args(X, leaf_of_row, table, num_leaves, dev)
-    new_lor = torch.empty_like(leaf_of_row)
+    new_lor = _relabel_out(leaf_of_row, out)
     sms, stream = _launch_env(dev)
     rc = _lib("wave_relabel")(X.data_ptr(), leaf_of_row.data_ptr(),
                               table.data_ptr(), new_lor.data_ptr(), N, F,
@@ -910,10 +924,11 @@ def wave_pass_plain(X: torch.Tensor, vals: torch.Tensor,
 
 
 def wave_relabel_plain(X: torch.Tensor, leaf_of_row: torch.Tensor,
-                       table: torch.Tensor, num_leaves: int) -> torch.Tensor:
+                       table: torch.Tensor, num_leaves: int,
+                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch version of wave_relabel_cuda."""
-    return _relabel_plain(X, leaf_of_row,
-                          table.to(torch.int64)).to(torch.int32)
+    new = _relabel_plain(X, leaf_of_row, table.to(torch.int64))
+    return _relabel_out(leaf_of_row, out).copy_(new)
 
 
 # ---------------------------------------------------------------------------

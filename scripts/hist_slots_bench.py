@@ -57,7 +57,23 @@ one CUDA device, under each variant of their tile plans.
                   checkout whose kernel decides each row itself, the
                   kernel is also held bitwise to the decision build +
                   wave_apply_plain and to its own plain version, and
-                  timed under WA_VARIANTS too ("8 blocks an SM").
+                  timed under WA_VARIANTS too ("8 blocks an SM");
+  wave_relabel    the relabel of a tree's last wave, kernel #5
+                  (csrc/wave_relabel.cu), through its wrapper at N = 2^20
+                  (and 2^20 - 3: the scalar tail), L = 255, F = 28, B =
+                  64 on chip_smoke.py's wave tables, "few" (64 applied
+                  splits among 120 leaves) and "half" (64 splits of 64
+                  leaves: every row reads a bin), and "few" on 2^16 rows:
+                  into a new tensor each call and, where the wrapper takes
+                  `out`, into a preallocated one (the in-place call's
+                  work), bitwise against wave_relabel_plain; and, in a
+                  checkout whose source has them, under RL_VARIANTS built
+                  from it (threads a block, blocks an SM, 16-byte loads a
+                  thread in flight) and two diagnostics that are not the
+                  function ("no bin loads": split rows read bin 0; "copy
+                  only": every row keeps its leaf), which split a call
+                  into the table's decode and the copy, the leaf map, and
+                  the bin loads.
 The wave kernels are timed through their wrappers ("auto"; "default" in
 a checkout without the membership pass, such as a parent given by
 --root), and kernel #3 also under its layout's variants: the bins of
@@ -117,7 +133,7 @@ import numpy as np
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STORAGES = ("bench", "narrow", "criteo")
 KERNELS = ("slots", "rowwise", "rowwise_packed", "fused_tiled", "wave_pass",
-           "wave_pass_fused", "bucketize", "wave_apply")
+           "wave_pass_fused", "bucketize", "wave_apply", "wave_relabel")
 
 
 def emit(obj):
@@ -388,6 +404,80 @@ def wave_kernel(args, torch, hc, dev):
     return 0
 
 
+def _rl(threads, blocks, unroll):
+    return [(r"LGBT_RELABEL_THREADS \d+", f"LGBT_RELABEL_THREADS {threads}"),
+            (r"LGBT_RELABEL_BLOCKS_PER_SM \d+",
+             f"LGBT_RELABEL_BLOCKS_PER_SM {blocks}"),
+            (r"LGBT_RELABEL_UNROLL \d+", f"LGBT_RELABEL_UNROLL {unroll}")]
+
+
+RL_VARIANTS = {"256 threads x 8 blocks an SM": _rl(256, 8, 1),
+               "1024 threads x 2 blocks an SM": _rl(1024, 2, 1),
+               "512 threads x 2 blocks an SM": _rl(512, 2, 1),
+               "unroll 2": _rl(512, 4, 2),
+               # diagnostics, not the function: the split rows' bin bytes
+               # read as 0; every row keeps its leaf (the table's decode
+               # and the leaf ids' copy only)
+               "no bin loads": [(r"\(int\)X\[\(long long\)feat \* N \+ r \+ j\]",
+                                 "0")],
+               "copy only": [(r"out\[j\] = \(ka\[j\] >= 0 && !left\) \? "
+                              r"nl0 \+ ka\[j\] : lor\[j\];",
+                              "out[j] = lor[j];")]}
+RL_DIAGNOSTIC = ("no bin loads", "copy only")
+
+
+def relabel_kernel(args, torch, hc, dev):
+    """--kernel wave_relabel: kernel #5 through its wrapper, bitwise
+    against its plain version."""
+    import inspect
+    gen = torch.Generator(device=dev).manual_seed(9)
+    rng = np.random.RandomState(9)
+    F, B, L, N_all = 28, 64, 255, 1 << 20
+    X_all = torch.randint(0, 63, (F, N_all), generator=gen, device=dev,
+                          dtype=torch.uint8)
+    takes_out = "out" in inspect.signature(hc.wave_relabel_cuda).parameters
+    srcs = {"auto": None}
+    for vname, patches in RL_VARIANTS.items():
+        if wanted(args, vname):
+            fn = variant_fn(hc, "wave_relabel", patches, vname)
+            if fn is not None:
+                srcs[vname] = fn
+    for case, N in (("few", N_all), ("half", N_all), ("few", N_all - 3),
+                    ("few", 1 << 16)):
+        X = X_all if N == N_all else X_all[:, :N].contiguous()
+        nl0, napp = (120, 64) if case == "few" else (64, 64)
+        lor = torch.randint(0, nl0, (N,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        tbl = torch.from_numpy(wave_table(rng, F, B, nl0, napp, 1)).to(dev)
+        ref = hc.wave_relabel_plain(X, lor, tbl, L)
+        app_rows = int(torch.isin(lor, tbl[0, :napp]).sum())
+        out = torch.empty_like(lor)
+        forms = {"new tensor": lambda: hc.wave_relabel_cuda(X, lor, tbl, L)}
+        if takes_out:
+            forms["preallocated"] = lambda: hc.wave_relabel_cuda(
+                X, lor, tbl, L, out=out)
+        for vname, lib in srcs.items():
+            if not wanted(args, vname):
+                continue
+            for form, f in forms.items():
+                with patched(hc, "wave_relabel", lib):
+                    got = f()
+                    torch.cuda.synchronize()
+                    if vname not in RL_DIAGNOSTIC \
+                            and not torch.equal(got, ref):
+                        raise AssertionError(
+                            f"wave_relabel {case} N={N} {vname} {form}: "
+                            f"not bitwise equal to the plain version")
+                    ms, dms, by = timed(torch, f, args.reps)
+                emit({"kernel": "wave_relabel", "storage": "bench", "N": N,
+                      "F": F, "L": L, "case": case, "applied_rows": app_rows,
+                      "variant": vname, "form": form, "ms": ms,
+                      "device_ms": dms, "device_ms_by_kernel": by,
+                      "bound_ms": (8 * N + app_rows + 16 * 128 * 4)
+                      / 3.35e12 * 1e3})
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE)
@@ -412,6 +502,8 @@ def main():
         return wave_apply_kernel(args, torch, lt, hc, dev)
     if args.kernel in ("wave_pass", "wave_pass_fused"):
         return wave_kernel(args, torch, hc, dev)
+    if args.kernel == "wave_relabel":
+        return relabel_kernel(args, torch, hc, dev)
     if args.kernel != "slots":
         return other_kernel(args, torch, lt, hc, dev)
     planned = hasattr(hc, "plan_hist_tiles")

@@ -3,7 +3,8 @@
 iteration, and a served batch.
 
     python3 scripts/profile_torch_port.py
-        [--config bench|criteo|criteo_rowwise|bench_fused|criteo_fused]
+        [--config bench|criteo|criteo_rowwise|bench_fused|criteo_fused|
+                  bench_quant]
         [--rows N] [--iters K] [--trace F] [--root DIR]
 
 --config bench (the default) builds bench.py's data (28 f32 features,
@@ -16,6 +17,10 @@ categorical columns, numpy seed 7) and trains the same model at max_bin
 are the row-wise flat kernel's (#7). The *_fused
 configs train the same data under histogram_impl=fused: the narrow fused
 route (kernel #9) on bench, the general one (kernel #10) on Criteo.
+--config bench_quant trains bench.py's model with quantized gradients
+(use_quantized_grad, 4 bins, stochastic rounding): int8 values through
+the megakernel route, whose stages add the discretizer (scales, int8
+values) and, inside it, the threefry draws of its stochastic rounding.
 Either is ingested with binning_impl=auto, trained with lightgbm_tpu_torch
 on the first CUDA device and served, and the script prints JSON lines:
 
@@ -175,7 +180,8 @@ def serve_phase(torch, bst, X):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", choices=("bench", "criteo", "criteo_rowwise",
-                                         "bench_fused", "criteo_fused"),
+                                         "bench_fused", "criteo_fused",
+                                         "bench_quant"),
                     default="bench")
     ap.add_argument("--rows", type=int, default=1 << 20)
     ap.add_argument("--iters", type=int, default=4)
@@ -201,6 +207,8 @@ def main():
         params["histogram_impl"] = "fused"
     if args.config.endswith("_rowwise"):
         params["force_row_wise"] = True
+    if args.config.endswith("_quant"):
+        params.update(use_quantized_grad=True, num_grad_quant_bins=4)
     if args.config.startswith("criteo"):
         from lightgbm_tpu_torch.utils.synthetic import (CRITEO_CAT_COLUMNS,
                                                         criteo_like)
@@ -273,6 +281,13 @@ def main():
                    (grow_wave, "wave_relabel", "wave_relabel kernel"),
                    (grow_wave, "find_best_split", "split search"),
                    (gbdt_mod, score_fn, "score update")]
+    # stages timed inside another stage: left out of the "other" sum
+    nested = set()
+    if params.get("use_quantized_grad"):
+        patches += [(grow_wave, "discretize_gradients",
+                     "quantize (scales, draws, int8 values)"),
+                    (grow_wave, "uniform", "threefry draws")]
+        nested.add("threefry draws")
     # ---- profiler window
     from torch.profiler import ProfilerActivity, profile
     from torch.profiler import record_function
@@ -366,7 +381,8 @@ def main():
         obj.get_gradients = saved_grad
     stages = {k: v * 1e3 / args.iters for k, v in spent.items()}
     stages["other (wave bookkeeping, host syncs, tree records)"] = \
-        (total - sum(spent.values())) * 1e3 / args.iters
+        (total - sum(v for k, v in spent.items() if k not in nested)) \
+        * 1e3 / args.iters
     emit({"phase": "stages", "wall_ms_per_iter": total * 1e3 / args.iters,
           "ms_per_iter": stages,
           "calls_per_iter": {k: v / args.iters for k, v in n_calls.items()}})

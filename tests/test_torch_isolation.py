@@ -49,6 +49,8 @@ def test_import_leaves_jax_unloaded():
             "import lightgbm_tpu_torch.ops.grow_wave\n"
             "import lightgbm_tpu_torch.ops.grow_fused\n"
             "import lightgbm_tpu_torch.utils.synthetic\n"
+            "import lightgbm_tpu_torch.utils.random\n"
+            "import lightgbm_tpu_torch.models.sample_strategy\n"
             "import lightgbm_tpu_torch.serving\n"
             "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', "
             "'lightgbm_tpu') or m.startswith(('jax.', 'jaxlib.', "
@@ -110,6 +112,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         hc.wave_pass_cuda(X, vals, lor, tbl, 1, 32, 4)
     with pytest.raises(ValueError, match="CUDA"):
         hc.wave_relabel_cuda(X, lor, tbl, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        hc.wave_relabel_cuda(X, lor, tbl, 4, out=lor)
     with pytest.raises(ValueError, match="CUDA"):
         hc.wave_apply_cuda(X, lor, tbl, None, None, 4, 4)
     from lightgbm_tpu_torch.ops import grow_fused as gf

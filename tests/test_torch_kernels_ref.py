@@ -213,6 +213,18 @@ def test_wave_relabel_matches_pallas(F, N, B, K, nl0, napp, ncand):
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
 
 
+@pytest.mark.parametrize("N", [3000, 3001, 3003])
+def test_wave_relabel_in_place_equals_a_new_tensor(N):
+    """out=leaf_of_row (the grower's last wave) relabels in place and gives
+    what a new tensor gets; N % 4 != 0 is the kernel's scalar tail."""
+    X, vals, lor, tbl = _wave_inputs(28, N, 64, 16, 40, 20, 16, 5)
+    ref = th.wave_relabel(_t(X), _t(lor), _t(tbl), 256)
+    lor_t = _t(lor.copy())
+    got = th.wave_relabel(_t(X), lor_t, _t(tbl), 256, out=lor_t)
+    assert got.data_ptr() == lor_t.data_ptr()
+    assert torch.equal(got, ref) and not np.array_equal(lor, ref.numpy())
+
+
 def test_wave_pass_relabel_half_is_wave_relabel():
     X, vals, lor, tbl = _wave_inputs(28, 3000, 64, 16, 40, 20, 16, 9)
     lor_pass, _ = th.wave_pass(_t(X), _t(vals), _t(lor), _t(tbl), 16, 64,

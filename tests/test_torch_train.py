@@ -198,13 +198,14 @@ def test_valid_sets_early_stopping_and_logging(data):
     ({"tpu_grower": "wave_exact"}, "A11"),
     ({"max_bin": 300}, "A14"),
     ({"binning_impl": "auto", "autotune": True}, "A14"),
-    ({"use_quantized_grad": True}, "A8"),
+    ({"boosting": "rf", "bagging_freq": 1, "bagging_fraction": 0.5}, "A10"),
     ({"monotone_constraints": [1, 0, 0, 0, 0, 0, 0, 0],
       "monotone_constraints_method": "intermediate"}, "A10"),
     ({"cegb_penalty_feature_coupled": [1.0] * 8}, "A10"),
     ({"cegb_penalty_split": 1.0}, "A10"),
-    ({"bagging_freq": 1, "bagging_fraction": 0.5}, "A10"),
-    ({"data_sample_strategy": "goss"}, "A10"),
+    ({"bagging_freq": 1, "bagging_fraction": 0.5, "bagging_by_query": True},
+     "A10"),
+    ({"objective": "huber"}, "A10"),
     ({"feature_fraction_bynode": 0.5}, "A10"),
     ({"extra_trees": True}, "A10"),
     ({"objective": "multiclass", "num_class": 3}, "A10"),
