@@ -151,6 +151,39 @@ Phases, each printing one JSON line:
                      under fused: first tree equal to the plain versions',
                      every branch inside one set
 
+ 13. objectives, multiclass, ranking and per-node sampling (each line
+     with the card's nvidia-smi name and power limit):
+     multiclass      bench's 28 columns, labels in 5 classes from a seeded
+                     projection, 255 leaves: 4 rounds of softmax on
+                     "mega", 2 under fused (#9), 2 of multiclassova; the
+                     first iteration's 5 trees equal the plain versions',
+                     multi_logloss falls every round, launches per round;
+                     for softmax: probabilities sum to 1 within 1e-6, the
+                     device predictor within 1e-5 of the host walk on
+                     [N, 5], pred_leaf [n, 20] equal to the device walk's
+                     leaves, a bitwise model-text trip, serving margins
+                     [5, n] equal to Booster.predict(raw_score=True), and
+                     #2 on a row view of the [5, N] scores bitwise its
+                     plain version
+     objectives      the bench table, 2 rounds each of l1, huber, fair,
+                     quantile, mape, poisson, gamma, tweedie, xentropy
+                     and xentlambda: each one's metric falls; the first
+                     trees of l1 (renewed) and poisson equal the plain
+                     versions'; the renewal's host ms a tree
+     bynode_xt       the bench model, 4 rounds each with
+                     feature_fraction_bynode=0.5 and extra_trees: the
+                     card's draws bitwise the CPU's, the first tree equal
+                     to the plain versions', AUC > 0.85, and under fused
+                     the veto naming the parameter
+     rank            MSLR-WEB30K's schema (136 numeric features, relevance
+                     0-4, queries of 64-256 documents), 2^20 documents,
+                     max_bin 255, the apply route: 2 rounds of lambdarank
+                     (ndcg@1,3,5,10) and 2 of rank_xendcg; the first tree
+                     equal to the plain versions', the card's lambdarank
+                     gradients at iterations 0 and 1 within rtol 1e-5 of
+                     a CPU copy's, ndcg@10 above the initial scores'; the
+                     gradient's device ms
+
 then a {"kernels": [...]} line (the ten kernels), the nvidia-smi line,
 and last
 {"ok": true, "device": {...}}. Any failed check raises before the last
@@ -1212,25 +1245,34 @@ def _same_host_tree(a, b):
             if same else None)
 
 
-def _plain_first_tree(torch, gbdt, n, scores=None, it=0):
-    """The first tree again (or tree `it` from the `scores` before it)
-    from the same gradients, sample mask and seed, grown with the
-    kernels' plain versions on the card."""
+def _plain_trees(torch, gbdt, n, scores=None, it=0):
+    """Iteration `it`'s K trees again (from the [N] or [K, N] `scores`
+    before it; at iteration 0 the boost-from-average start), from the same
+    gradients, sample mask and seeds, grown with the kernels' plain
+    versions on the card, each renewed where the objective renews
+    leaves."""
     from lightgbm_tpu_torch.ops.grow_wave import grow_tree_wave
-    init = float(gbdt.objective.boost_from_score(0))
+    K = gbdt.num_tree_per_iteration
+    init = [float(gbdt.objective.boost_from_score(k)) for k in range(K)]
     if scores is None:
-        scores = torch.full((n,), float(np.float32(init)),
-                            device=gbdt.X_t.device)
-    g, h = gbdt.objective.get_gradients(scores, gbdt.label_dev,
-                                        gbdt.weight_dev)
+        scores = torch.tensor([[float(np.float32(v))] for v in init],
+                              device=gbdt.X_t.device).repeat(1, n)
+    scores = scores.reshape(K, n)
+    g, h = gbdt._gradients(scores)
     bag = gbdt.sample_strategy.sample(it, g, h)
-    tp, _ = grow_tree_wave(gbdt.X_t, g, h, bag, gbdt.meta, gbdt.grow_cfg,
-                           None, hist_plan=gbdt.hist_plan,
-                           rng_seed=gbdt.tree_seed(it), plain=True)
-    t = gbdt._device_tree_to_host(tp)
-    if it == 0:
-        t.add_bias(init)
-    return t
+    out = []
+    for k in range(K):
+        tp, lor = grow_tree_wave(gbdt.X_t, g[k], h[k], bag, gbdt.meta,
+                                 gbdt.grow_cfg, None,
+                                 hist_plan=gbdt.hist_plan,
+                                 rng_seed=gbdt.tree_seed(it, k), plain=True)
+        if gbdt.objective.need_renew_tree_output:
+            tp = gbdt._renew_tree_output(k, tp, lor, scores[k])
+        t = gbdt._device_tree_to_host(tp)
+        if it == 0 and abs(init[k]) > 1e-15:
+            t.add_bias(init[k])
+        out.append(t)
+    return out
 
 
 def criteo_phase(lt, hc, torch, dev):
@@ -1315,7 +1357,7 @@ def criteo_phase(lt, hc, torch, dev):
           f"Criteo train AUC {aucs[-1]} <= {CRITEO_AUC_MIN}")
     check(sum(t.num_cat for t in trees) > 0, "no categorical split grown")
 
-    t_plain = _plain_first_tree(torch, g, N_ROWS)
+    t_plain = _plain_trees(torch, g, N_ROWS)[0]
     lv_err = _same_host_tree(t_plain, trees[0])
     emit({"phase": "criteo_first_tree", "same_structure": lv_err is not None,
           "leaves": trees[0].num_leaves, "num_cat": trees[0].num_cat,
@@ -1432,7 +1474,7 @@ def efb_phase(lt, hc, torch):
     launches = dict(hc.LAUNCHES)
     g = bst._gbdt
     ds = bst.train_set._handle
-    lv_err = _same_host_tree(_plain_first_tree(torch, g, n), g.models[0])
+    lv_err = _same_host_tree(_plain_trees(torch, g, n)[0], g.models[0])
     emit({"phase": "efb", "rows": n, "features": X.shape[1],
           "storage_columns": int(g.X_t.shape[0]),
           "bundles": len(ds.bundles or []),
@@ -1497,7 +1539,7 @@ def narrow_cat_phase(lt, hc, torch):
     F, B = int(g.X_t.shape[0]), g.num_bins_padded
     plans = {K: hc.plan_hist_tiles(K, 2, F, B).slots_per_tile
              for K in (16, 128)}
-    lv_err = _same_host_tree(_plain_first_tree(torch, g, n), g.models[0])
+    lv_err = _same_host_tree(_plain_trees(torch, g, n)[0], g.models[0])
     emit({"phase": "narrow_cat", "rows": n, "storage_columns": F, "B": B,
           "grow_route": g.grow_route, "hist_route": g.hist_route,
           "slots_per_tile": plans, "launches": launches,
@@ -1816,15 +1858,20 @@ def fused_tiled_phase(hc, gf, torch, dev, X_c):
     return recs[1]
 
 
-def _train_timed(lt, hc, torch, params, ds, rounds, callbacks=()):
+def _train_timed(lt, hc, torch, params, ds, rounds, callbacks=(),
+                 evals=None):
     """Train `rounds` rounds (with `callbacks` besides the timing one);
-    (booster, launches, per-round ms, train AUC per round)."""
+    (booster, launches, per-round ms, train AUC (the first metric) per
+    round). `evals`, a list, receives every round's whole evaluation."""
     ends, resumes, aucs = [], [], []
 
     def stamp(env):
         torch.cuda.synchronize()
         ends.append(time.perf_counter())
-        aucs.append(env.model.eval_train()[0][2])
+        res = env.model.eval_train()
+        aucs.append(res[0][2])
+        if evals is not None:
+            evals.append({m: float(v) for _, m, v, _ in res})
         resumes.append(time.perf_counter())
     stamp.order = 5
     hc.reset_launch_counts()
@@ -1845,7 +1892,7 @@ def fused_train_phase(lt, hc, torch, params, ds):
     bst, launches, iter_ms, aucs = _train_timed(lt, hc, torch, p, ds, 8)
     g = bst._gbdt
     trees = g.models
-    lv_err = _same_host_tree(_plain_first_tree(torch, g, N_ROWS), trees[0])
+    lv_err = _same_host_tree(_plain_trees(torch, g, N_ROWS)[0], trees[0])
     emit({"phase": "fused_train", "rows": N_ROWS, "grow_route": g.grow_route,
           "fused_veto_reasons": g.fused_veto_reasons, "iter_ms": iter_ms,
           "steady_ms_per_iter": float(np.mean(iter_ms[1:])),
@@ -1892,7 +1939,7 @@ def criteo_fused_phase(lt, hc, torch, params, ds):
     bst, launches, iter_ms, aucs = _train_timed(lt, hc, torch, p, ds, 8)
     g = bst._gbdt
     trees = g.models
-    t_plain = _plain_first_tree(torch, g, N_ROWS)
+    t_plain = _plain_trees(torch, g, N_ROWS)[0]
     lv_err = _same_host_tree(t_plain, trees[0])
     off, _, off_ms, _ = _train_timed(
         lt, hc, torch, {**p, "fused_relabel_fusion": False}, ds, 2)
@@ -1901,7 +1948,7 @@ def criteo_fused_phase(lt, hc, torch, params, ds):
     saved = ts.torch
     ts.torch = _F32Cumsum(torch)
     try:
-        t_f32 = _plain_first_tree(torch, g, N_ROWS)
+        t_f32 = _plain_trees(torch, g, N_ROWS)[0]
     finally:
         ts.torch = saved
     cum_err = _same_host_tree(t_f32, t_plain)
@@ -2083,7 +2130,7 @@ def constraints_train_phase(lt, hc, torch, params, ds, w, t_free):
         bst, launches, iter_ms, aucs = _train_timed(lt, hc, torch, p, ds, 4)
         g = bst._gbdt
         trees = g.models
-        lv_err = _same_host_tree(_plain_first_tree(torch, g, N_ROWS),
+        lv_err = _same_host_tree(_plain_trees(torch, g, N_ROWS)[0],
                                  trees[0])
         free_err = _same_host_tree(t_free, trees[0])
         g._device_tables_cache = None
@@ -2163,7 +2210,7 @@ def constraints_criteo_phase(lt, hc, torch, params, ds):
         bst, launches, iter_ms, aucs = _train_timed(lt, hc, torch, p, ds, 2)
         g = bst._gbdt
         trees = g.models
-        lv_err = _same_host_tree(_plain_first_tree(torch, g, N_ROWS),
+        lv_err = _same_host_tree(_plain_trees(torch, g, N_ROWS)[0],
                                  trees[0])
         # host trees name real feature indices, as the sets do
         in_sets = all(_paths_in_sets(t, set_ids) for t in trees)
@@ -2272,7 +2319,7 @@ def quantized_phase(lt, hc, hr, gf, torch, dev, params, ds, params_c,
                 lt, hc, torch, {**p, **qp}, d, rounds)
         g = bst._gbdt
         trees = g.models
-        lv_err = _same_host_tree(_plain_first_tree(torch, g, N_ROWS),
+        lv_err = _same_host_tree(_plain_trees(torch, g, N_ROWS)[0],
                                  trees[0])
         key = f"{model} {route}" + "".join(f" {k}={v}"
                                            for k, v in over.items())
@@ -2363,8 +2410,8 @@ def sampling_phase(lt, hc, torch, params, ds):
         g = bst._gbdt
         trees = g.models
         scores = snap["scores"] if first else None
-        lv_err = _same_host_tree(_plain_first_tree(torch, g, N_ROWS, scores,
-                                                   first), trees[first])
+        lv_err = _same_host_tree(_plain_trees(torch, g, N_ROWS, scores,
+                                              first)[0], trees[first])
         strat = g.sample_strategy
         if scores is None:
             scores = torch.full((N_ROWS,), float(np.float32(
@@ -2422,6 +2469,380 @@ def sampling_phase(lt, hc, torch, params, ds):
               f"{name}: train AUC {aucs[-1]} <= 0.85")
         out[name] = launches
         del bst, g, trees
+    return out
+
+
+# ---------------------------------------------------------------------------
+# objectives, multiclass, ranking, per-node sampling
+# ---------------------------------------------------------------------------
+def _first_iteration_err(torch, gbdt, n, trees):
+    """The largest leaf-value difference of the first iteration's trees
+    against the plain versions' (None when a structure differs)."""
+    errs = [_same_host_tree(a, b) for a, b in
+            zip(_plain_trees(torch, gbdt, n), trees)]
+    return None if any(e is None for e in errs) else max(errs)
+
+
+def multiclass_phase(lt, hc, torch, dev, X, w, smi):
+    """bench's 28 columns at 2^20 rows with labels in 5 classes from a
+    seeded projection (the reference's examples/multiclass_classification:
+    objective=multiclass, num_class=5, metric=multi_logloss), at bench's
+    255 leaves and max_bin=63: 4 rounds of softmax on the megakernel
+    route, 2 under histogram_impl=fused (#9), 2 of multiclassova. Checks:
+    the first iteration's 5 trees equal the plain versions'; multi_logloss
+    falls every round; probabilities sum to 1 within 1e-6; the device
+    predictor is within 1e-5 of the host walk on [N, 5]; pred_leaf is
+    [n, 20] and equals the device walk's leaves; a model-text round trip
+    predicts bitwise; a serving session's [5, n] margins equal
+    Booster.predict(raw_score=True) (bitwise on the host engine, within
+    1e-5 on the binned one); #2 on a row view of the [5, N] scores equals
+    its plain version."""
+    K = 5
+    rng = np.random.RandomState(51)
+    proj = X @ np.stack([w] + [rng.normal(size=N_FEAT)
+                               for _ in range(K - 1)], axis=1)
+    y = np.argmax(proj + rng.normal(scale=0.5, size=proj.shape),
+                  axis=1).astype(np.float32)
+    params = dict(objective="multiclass", num_class=K, num_leaves=N_LEAVES,
+                  max_bin=63, learning_rate=0.1, min_data_in_leaf=20,
+                  verbose=-1, binning_impl="auto", device_type="cuda",
+                  metric="multi_logloss")
+    ds = lt.Dataset(X, label=y, params=params).construct()
+    names = ("build_histogram_slots", "take_leaf_values", "wave_pass",
+             "wave_relabel", "wave_pass_fused")
+    out = {}
+    for case, over, rounds, route in (
+            ("softmax", {}, 4, "mega"),
+            ("softmax fused", {"histogram_impl": "fused"}, 2, "fused"),
+            ("multiclassova", {"objective": "multiclassova"}, 2, "mega")):
+        bst, launches, iter_ms, loss = _train_timed(
+            lt, hc, torch, {**params, **over}, ds, rounds)
+        g = bst._gbdt
+        trees = g.models
+        lv_err = _first_iteration_err(torch, g, N_ROWS, trees[:K])
+        rec = {"phase": "multiclass", "case": case, "rows": N_ROWS,
+               "classes": K, "card": smi, "grow_route": g.grow_route,
+               "rounds": rounds, "iter_ms": iter_ms,
+               "steady_ms_per_iter": float(np.mean(iter_ms[1:])),
+               "launches": launches,
+               "launches_per_round": {k: launches[k] / rounds
+                                      for k in names},
+               "multi_logloss_per_round": loss,
+               "leaves": [t.num_leaves for t in trees],
+               "first_iteration_same": lv_err is not None,
+               "leaf_value_max_abs_err": lv_err}
+        check(g.grow_route == route, f"multiclass {case} took route "
+                                     f"{g.grow_route}")
+        check(len(trees) == rounds * K and g.scores.shape == (K, N_ROWS),
+              f"multiclass {case}: {len(trees)} trees, scores "
+              f"{tuple(g.scores.shape)}")
+        kern = "wave_pass_fused" if route == "fused" else "wave_pass"
+        check(launches["take_leaf_values"] == rounds * K
+              and launches[kern] > 0 and launches["build_histogram_slots"]
+              >= rounds * K, f"multiclass {case}: launches {launches}")
+        check(all(b < a for a, b in zip(loss, loss[1:])),
+              f"multiclass {case}: multi_logloss did not fall every round "
+              f"{loss}")
+        check(lv_err is not None and lv_err <= 1e-6,
+              f"multiclass {case}: the first iteration's trees differ from "
+              f"the plain versions' ({lv_err})")
+        if case == "softmax":
+            rec.update(_multiclass_outputs(lt, hc, torch, dev, bst, X, K))
+        emit(rec)
+        out[case] = launches
+        del bst, g, trees
+    return out
+
+
+def _multiclass_outputs(lt, hc, torch, dev, bst, X, K):
+    """The softmax model's outputs on the card: probabilities, the device
+    predictor, pred_leaf, a model-text trip, serving, and #2 on a row view
+    of [K, N] scores."""
+    from lightgbm_tpu_torch.ops.histogram import add_leaf_values_
+    from lightgbm_tpu_torch.ops.predict import predict_leaves_packed
+    g = bst._gbdt
+    prob = bst.predict(X)                            # device route, f32
+    check(getattr(g, "_device_tables_cache", None) is not None,
+          "multiclass predict of 2^20 f32 rows did not take the device "
+          "route")
+    host = bst.predict(X.astype(np.float64))
+    dev_err = float(np.max(np.abs(prob - host)))
+    sum_err = float(np.max(np.abs(prob.sum(axis=1) - 1.0)))
+    check(prob.shape == (N_ROWS, K) and dev_err <= 1e-5,
+          f"multiclass device predictor vs host walk: {prob.shape}, "
+          f"{dev_err}")
+    check(sum_err <= 1e-6, f"multiclass probabilities sum to 1 +- {sum_err}")
+    q = X[:4096]
+    leaves = bst.predict(q, pred_leaf=True)
+    pa = g._packed_model(0, g.iter).device_arrays(dev)
+    walk = (predict_leaves_packed(pa, torch.from_numpy(q).to(dev))
+            - pa.leaf_start[None, :]).cpu().numpy()
+    check(leaves.shape == (4096, 4 * K) and np.array_equal(leaves, walk),
+          "pred_leaf differs from the device walk's leaves")
+    text = bst.model_to_string()
+    back = lt.Booster(model_str=text)
+    check(np.array_equal(back.predict(q), bst.predict(q)),
+          "multiclass predictions changed over a model text round trip")
+    raw = bst.predict(q, raw_score=True)
+    host_m = bst.serve(engine="host").score_margin(q)
+    sess = bst.serve(engine="binned", max_batch=256)
+    bin_m = sess.score_margin(q)
+    serve_err = float(np.max(np.abs(bin_m - raw.T)))
+    check(host_m.shape == (K, 4096) and np.array_equal(host_m, raw.T),
+          "the host serving engine's [K, n] margins differ from "
+          "Booster.predict(raw_score=True)")
+    check(serve_err <= 1e-5, f"binned serving margins vs Booster.predict: "
+                             f"{serve_err}")
+    # #2 on a row view of the [K, N] scores, against its plain version
+    gen = torch.Generator(device=dev).manual_seed(12)
+    vals = torch.randn(N_LEAVES, generator=gen, device=dev)
+    lor = torch.randint(0, N_LEAVES, (N_ROWS,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    a, b = g.scores.clone(), g.scores.clone()
+    hc.reset_launch_counts()
+    add_leaf_values_(a[2], vals, lor)
+    check(hc.LAUNCHES["take_leaf_values"] == 1, "#2 did not launch")
+    add_leaf_values_(b[2], vals, lor, plain=True)
+    check(torch.equal(a, b), "#2 on a row view of [K, N] differs from its "
+                             "plain version")
+    return {"predict_device_max_abs_err": dev_err,
+            "prob_sum_max_abs_err": sum_err, "pred_leaf_shape":
+            list(leaves.shape), "pred_leaf_equals_walk": True,
+            "roundtrip_bitwise": True, "serve_host_bitwise": True,
+            "serve_binned_max_abs_err": serve_err,
+            "row_view_update_bitwise": True}
+
+
+def _mslr_like(rng, n):
+    """MSLR-WEB30K's schema: 136 numeric features, relevance 0-4 (most
+    documents 0), queries of 64-256 documents; synthetic from `rng`."""
+    sizes = rng.randint(64, 257, size=n // 64 + 1)
+    sizes = sizes[:np.searchsorted(np.cumsum(sizes), n)]
+    sizes = np.append(sizes, n - sizes.sum())
+    if sizes[-1] < 64:
+        sizes[-2] += sizes[-1]
+        sizes = sizes[:-1]
+    X = rng.normal(size=(n, 136)).astype(np.float32)
+    qid = np.repeat(np.arange(len(sizes)), sizes)
+    q_eff = rng.normal(size=len(sizes))[qid]
+    s = X[:, :20] @ rng.normal(size=20) / 4.0 + q_eff \
+        + rng.normal(scale=0.7, size=n)
+    y = np.digitize(s, np.quantile(s, [0.55, 0.8, 0.93, 0.98]))
+    return X, y.astype(np.float32), sizes
+
+
+def rank_phase(lt, hc, torch, dev, smi):
+    """MSLR-WEB30K's schema (136 numeric features, relevance 0-4, queries
+    of 64-256 documents), synthetic from a seed, 2^20 documents,
+    max_bin=255, 255 leaves: the apply route (#4). 2 rounds of lambdarank
+    (ndcg@1,3,5,10), then 2 of rank_xendcg (host gradients). Checks: the
+    first tree equals the plain versions'; the card's lambdarank
+    gradients at iterations 0 and 1 are within rtol 1e-5 (atol 1e-6 of
+    the largest, the cancellation of f32 pair sums in another order) of
+    the same function on a CPU copy; ndcg@10 after 2 rounds is above the
+    initial scores'. Records the gradient's device ms a round."""
+    from lightgbm_tpu_torch.config import resolve_params
+    from lightgbm_tpu_torch.metrics import create_metric
+    rng = np.random.RandomState(61)
+    X, y, sizes = _mslr_like(rng, N_ROWS)
+    params = dict(objective="lambdarank", num_leaves=N_LEAVES, max_bin=255,
+                  learning_rate=0.1, min_data_in_leaf=20, verbose=-1,
+                  binning_impl="auto", device_type="cuda", metric="ndcg",
+                  eval_at=[1, 3, 5, 10])
+    t0 = time.perf_counter()
+    ds = lt.Dataset(X, label=y, group=sizes, params=params).construct()
+    ingest_s = time.perf_counter() - t0
+    md = ds._handle.metadata
+    m0 = create_metric("ndcg", resolve_params(params))
+    m0.init(md, N_ROWS)
+    ndcg0 = {k: float(v) for k, v, _ in m0.eval(np.zeros(N_ROWS), None)}
+    snaps = []
+
+    def keep(env):
+        snaps.append(env.model._gbdt.scores.clone())
+    keep.before_iteration = True
+    out = {}
+    for obj in ("lambdarank", "rank_xendcg"):
+        snaps.clear()
+        evals = []
+        bst, launches, iter_ms, _ = _train_timed(
+            lt, hc, torch, {**params, "objective": obj}, ds, 2, [keep],
+            evals)
+        g = bst._gbdt
+        trees = g.models
+        rec = {"phase": "rank", "objective": obj, "rows": N_ROWS,
+               "queries": len(sizes), "features": 136, "card": smi,
+               "ingest_s": ingest_s, "grow_route": g.grow_route,
+               "hist_route": g.hist_route, "iter_ms": iter_ms,
+               "launches": launches, "ndcg_initial": ndcg0,
+               "ndcg_per_round": evals,
+               "leaves": [t.num_leaves for t in trees]}
+        check(g.grow_route == "apply" and launches["wave_apply"] > 0,
+              f"rank {obj}: route {g.grow_route}, launches {launches}")
+        check(evals[-1]["ndcg@10"] > ndcg0["ndcg@10"],
+              f"rank {obj}: ndcg@10 {evals[-1]['ndcg@10']} after 2 rounds "
+              f"<= {ndcg0['ndcg@10']} of the initial scores")
+        if obj == "lambdarank":
+            lv_err = _first_iteration_err(torch, g, N_ROWS, trees[:1])
+            check(lv_err is not None and lv_err <= 1e-6,
+                  f"rank: first tree differs from the plain versions' "
+                  f"({lv_err})")
+            errs = []
+            for sc in snaps[:2]:
+                gd, hd = g.objective.get_gradients(sc[0], g.label_dev, None)
+                gc, hcpu = g.objective.get_gradients(
+                    sc[0].cpu(), g.label_dev.cpu(), None)
+                for a, b in ((gd.cpu(), gc), (hd.cpu(), hcpu)):
+                    tol = 1e-5 * b.abs() + 1e-6 * float(b.abs().max())
+                    errs.append(float(((a - b).abs() / tol).max()))
+            check(max(errs) <= 1.0, f"rank: the card's lambdarank gradients "
+                                    f"differ from the CPU's ({errs})")
+            st = {}
+            ms, dms = timings(lambda: g.objective.get_gradients(
+                snaps[1][0], g.label_dev, None), 10, stats=st)
+            rec.update(first_tree_same=True, leaf_value_max_abs_err=lv_err,
+                       gradient_err_over_tol=errs, gradient_ms=ms,
+                       gradient_device_ms=dms,
+                       gradient_kernels_per_call=st["kernels_per_call"])
+        emit(rec)
+        out[obj] = launches
+        del bst, g, trees
+    return out
+
+
+def objectives_phase(lt, hc, torch, X, w, ds, smi):
+    """The bench table at 2^20 rows, 2 rounds of each regression,
+    cross-entropy objective: l1, huber, fair, quantile, mape (labels
+    shifted away from 0), poisson, gamma and tweedie (a positive label
+    made from the bench margin), xentropy and xentlambda (its sigmoid).
+    Checks: each run's own metric falls (for poisson, gamma and tweedie
+    on the exp of the scores: the JAX package, and so the port, leaves
+    their outputs and metrics on the raw scores, need_convert_output
+    unset); the first trees of l1 (renewed) and poisson equal the plain
+    versions'. Records the renewal's host ms a tree."""
+    from lightgbm_tpu_torch.ops.grow_wave import grow_tree_wave
+    rng = np.random.RandomState(71)
+    m = (X @ w).astype(np.float64)
+    m = m / m.std()
+    noisy = m + rng.normal(scale=0.3, size=len(m))
+    labels = {"real": noisy.astype(np.float32),
+              "shifted": (noisy - noisy.min() + 1.0).astype(np.float32),
+              "positive": np.exp(0.5 * noisy).astype(np.float32),
+              "unit": (1.0 / (1.0 + np.exp(-noisy))).astype(np.float32)}
+    cases = (("regression_l1", "real"), ("huber", "real"),
+             ("fair", "real"), ("quantile", "real"), ("mape", "shifted"),
+             ("poisson", "positive"), ("gamma", "positive"),
+             ("tweedie", "positive"), ("xentropy", "unit"),
+             ("xentlambda", "unit"))
+    params = dict(num_leaves=N_LEAVES, max_bin=63, learning_rate=0.1,
+                  min_data_in_leaf=20, verbose=-1, device_type="cuda")
+    out = {}
+    for obj, kind in cases:
+        d = lt.Dataset(X, label=labels[kind], reference=ds,
+                       params=params).construct()
+        snaps = []
+
+        def keep(env, _snaps=snaps):
+            _snaps.append(env.model._gbdt.scores[0].cpu().numpy().copy())
+        keep.before_iteration = True
+        bst, launches, iter_ms, _ = _train_timed(
+            lt, hc, torch, {**params, "objective": obj}, d, 2, [keep])
+        g = bst._gbdt
+        # from the boost-from-average start, then after each round
+        snaps[0] = np.full(N_ROWS, np.float32(
+            g.objective.boost_from_score(0)), np.float32)
+        snaps.append(g.scores[0].cpu().numpy().copy())
+        start, *metric = [_own_metric(g, sc) for sc in snaps]
+        rec = {"phase": "objectives", "objective": obj, "rows": N_ROWS,
+               "card": smi, "grow_route": g.grow_route,
+               "metric": g.training_metrics[0].name, "metric_initial": start,
+               "metric_per_round": metric, "iter_ms": iter_ms,
+               "launches": launches,
+               "leaves": [t.num_leaves for t in g.models]}
+        check(metric[0] < start and metric[1] < metric[0],
+              f"objective {obj}: its metric did not fall {start} -> "
+              f"{metric}")
+        if obj in ("regression_l1", "poisson"):
+            lv_err = _first_iteration_err(torch, g, N_ROWS, g.models[:1])
+            check(lv_err is not None and lv_err <= 1e-6,
+                  f"objective {obj}: first tree differs from the plain "
+                  f"versions' ({lv_err})")
+            rec.update(first_tree_same=True, leaf_value_max_abs_err=lv_err)
+        if obj == "regression_l1":
+            gg, hh = g._gradients()
+            tp, lor = grow_tree_wave(g.X_t, gg[0], hh[0], g._in_bag, g.meta,
+                                     g.grow_cfg, None,
+                                     hist_plan=g.hist_plan, rng_seed=1)
+            t0 = time.perf_counter()
+            for _ in range(3):
+                g._renew_tree_output(0, tp, lor)
+            rec["renewal_host_ms_per_tree"] = \
+                (time.perf_counter() - t0) * 1e3 / 3
+        emit(rec)
+        out[obj] = launches
+        del bst, g, d
+    return out
+
+
+def _own_metric(g, score):
+    """The training metric of [N] scores through the objective's output
+    transform, which the JAX package applies only where
+    need_convert_output is set."""
+    obj = g.objective
+    if not obj.need_convert_output:
+        score, obj = obj.convert_output(score.astype(np.float64)), None
+    return g.training_metrics[0].eval(score, obj)[0][1]
+
+
+def bynode_xt_phase(lt, hc, torch, dev, params, ds, smi):
+    """The bench model, 4 rounds with feature_fraction_bynode=0.5, then 4
+    with extra_trees=true, on the megakernel route. Checks: the masks and
+    thresholds drawn on the card equal the CPU's bitwise; the first tree
+    equals the plain versions'; train AUC after 4 rounds > 0.85; under
+    histogram_impl=fused the route is "mega" and the veto reasons name the
+    parameter."""
+    from lightgbm_tpu_torch.ops.grow_wave import node_masks, xt_bins
+    from lightgbm_tpu_torch.utils.random import PRNGKey, fold_in
+    out = {}
+    for name, over in (("feature_fraction_bynode",
+                        {"feature_fraction_bynode": 0.5}),
+                       ("extra_trees", {"extra_trees": True})):
+        bst, launches, iter_ms, aucs = _train_timed(
+            lt, hc, torch, {**params, **over}, ds, 4)
+        g = bst._gbdt
+        trees = g.models
+        lv_err = _first_iteration_err(torch, g, N_ROWS, trees[:1])
+        fused = lt.Booster({**params, **over, "histogram_impl": "fused"},
+                           ds)._gbdt
+        key = fold_in(PRNGKey(g.tree_seed(0) + 0x5EED), 3)
+        same_draws = (
+            torch.equal(node_masks(key, 256, N_FEAT, 0.5, dev).cpu(),
+                        node_masks(key, 256, N_FEAT, 0.5, "cpu"))
+            and torch.equal(xt_bins(key, 256, g.meta.num_bins).cpu(),
+                            xt_bins(key, 256, g.meta.num_bins.cpu())))
+        emit({"phase": "bynode_xt", "case": name, "rows": N_ROWS,
+              "card": smi, "grow_route": g.grow_route, "iter_ms": iter_ms,
+              "steady_ms_per_iter": float(np.mean(iter_ms[1:])),
+              "launches": launches, "train_auc_per_round": aucs,
+              "leaves": [t.num_leaves for t in trees],
+              "first_tree_same": lv_err is not None,
+              "leaf_value_max_abs_err": lv_err,
+              "draws_bitwise_cpu": same_draws,
+              "fused_route": fused.grow_route,
+              "fused_veto_reasons": fused.fused_veto_reasons})
+        check(g.grow_route == "mega", f"{name} took route {g.grow_route}")
+        check(same_draws, f"{name}: the card's draws differ from the CPU's")
+        check(lv_err is not None and lv_err <= 1e-6,
+              f"{name}: first tree differs from the plain versions' "
+              f"({lv_err})")
+        check(len(trees) == 4 and aucs[-1] > 0.85,
+              f"{name}: train AUC {aucs[-1]} <= 0.85 after 4 rounds")
+        check(fused.grow_route == "mega"
+              and fused.fused_veto_reasons == [name],
+              f"{name} under histogram_impl=fused: route "
+              f"{fused.grow_route}, vetoes {fused.fused_veto_reasons}")
+        out[name] = launches
+        del bst, g, trees, fused
     return out
 
 
@@ -2541,7 +2962,7 @@ def main():
     # versions on the card: kernels and plain versions accumulate in f64,
     # so the histograms and therefore the trees must agree
     t_kern = trees[0]
-    lv_err = _same_host_tree(_plain_first_tree(torch, gbdt, N_ROWS), t_kern)
+    lv_err = _same_host_tree(_plain_trees(torch, gbdt, N_ROWS)[0], t_kern)
     emit({"phase": "first_tree", "same_structure": lv_err is not None,
           "leaves": t_kern.num_leaves, "leaf_value_max_abs_err": lv_err})
     check(lv_err is not None, "first tree differs from the plain versions' "
@@ -2622,6 +3043,13 @@ def main():
     narrow_cat_phase(lt, hc, torch)
     krec["wave_apply"] = wave_apply_phase(hc, torch, dev, apply_storages)
     del apply_storages
+
+    # ---- 13. every objective, multiclass [K, N] scores, ranking, and
+    # per-node sampling
+    multiclass_phase(lt, hc, torch, dev, X, w, smi)
+    objectives_phase(lt, hc, torch, X, w, ds, smi)
+    bynode_xt_phase(lt, hc, torch, dev, params, ds, smi)
+    rank_phase(lt, hc, torch, dev, smi)
 
     src = {"build_histogram_slots": "hist_slots.cu",
            "take_leaf_values": "take_leaf_values.cu",

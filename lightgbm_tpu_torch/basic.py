@@ -33,11 +33,15 @@ def _to_2d_numpy(data: Any) -> np.ndarray:
     return arr
 
 
+_EARLY_STOP_KEYS = ("pred_early_stop", "pred_early_stop_freq",
+                    "pred_early_stop_margin")
+
+
 class Dataset:
     """Dataset container (reference: basic.py:1692)."""
 
     def __init__(self, data, label=None, reference: Optional["Dataset"] = None,
-                 weight=None, init_score=None,
+                 weight=None, group=None, init_score=None,
                  feature_name: Union[str, List[str]] = "auto",
                  categorical_feature: Union[str, List[int]] = "auto",
                  params: Optional[Dict[str, Any]] = None,
@@ -46,6 +50,7 @@ class Dataset:
         self.label = label
         self.reference = reference
         self.weight = weight
+        self.group = group
         self.init_score = init_score
         self.feature_name = feature_name
         self.categorical_feature = categorical_feature
@@ -74,7 +79,7 @@ class Dataset:
 
         self._handle = construct_from_matrix(
             data, cfg, label=vec(self.label), weight=vec(self.weight),
-            init_score=vec(self.init_score),
+            group=vec(self.group), init_score=vec(self.init_score),
             categorical_feature=self._cat_indices(feature_names),
             feature_names=feature_names, reference=ref_handle,
             device=device)
@@ -100,11 +105,11 @@ class Dataset:
                 out.append(int(c))
         return out
 
-    def create_valid(self, data, label=None, weight=None, init_score=None,
-                     params=None) -> "Dataset":
+    def create_valid(self, data, label=None, weight=None, group=None,
+                     init_score=None, params=None) -> "Dataset":
         """reference: basic.py Dataset.create_valid."""
         return Dataset(data, label=label, reference=self, weight=weight,
-                       init_score=init_score,
+                       group=group, init_score=init_score,
                        params=params if params is not None else self.params)
 
     def num_data(self) -> int:
@@ -234,18 +239,33 @@ class Booster:
     # ------------------------------------------------------------------
     def predict(self, data, start_iteration: int = 0,
                 num_iteration: Optional[int] = None,
-                raw_score: bool = False, **kwargs) -> np.ndarray:
+                raw_score: bool = False, pred_leaf: bool = False,
+                pred_contrib: bool = False, **kwargs) -> np.ndarray:
         """Margins or converted outputs of `data`: the host walk over the
         packed trees, or the device predictor for 100k f32 rows and more
-        on a CUDA booster (models/gbdt.py:predict_raw). `pred_early_stop`
-        / `_freq` / `_margin`, from the keyword arguments or else from the
-        booster's params, stop a row's walk once its margin clears the
-        bound (host walk only), as the JAX package's Booster.predict."""
+        on a CUDA booster (models/gbdt.py:predict_raw); `[N, K]` for K
+        models an iteration. `pred_leaf` gives each row's leaf index in
+        every tree, `[N, iterations * K]`, columns in iteration then class
+        order. `pred_early_stop` / `_freq` / `_margin`, from the keyword
+        arguments or else from the booster's params, stop a row's walk
+        once its margin clears the bound (host walk only), as the JAX
+        package's Booster.predict. Any other keyword raises."""
+        unknown = sorted(set(kwargs) - set(_EARLY_STOP_KEYS))
+        if unknown:
+            raise NotImplementedError(
+                f"Booster.predict keyword(s) {unknown} are not ported to "
+                "lightgbm_tpu_torch yet (ROADMAP item A6)")
         ni = num_iteration if num_iteration is not None else (
             self.best_iteration if self.best_iteration > 0 else -1)
+        if pred_contrib:
+            raise NotImplementedError(
+                "pred_contrib (SHAP values) is not ported to "
+                "lightgbm_tpu_torch yet (ROADMAP item A18)")
+        if pred_leaf:
+            return self._gbdt.predict_leaf_index(_to_2d_numpy(data),
+                                                 start_iteration, ni)
         es_kwargs = {}
-        for p in ("pred_early_stop", "pred_early_stop_freq",
-                  "pred_early_stop_margin"):
+        for p in _EARLY_STOP_KEYS:
             if p in kwargs:
                 es_kwargs[p] = kwargs[p]
             elif p in self.params:

@@ -1,9 +1,13 @@
 """Evaluation metrics.
 
 Host numpy metrics, counterpart of lightgbm_tpu/metrics/__init__.py (the
-reference's src/metric/*): scores are pulled from the device once per
-evaluation. This slice has auc, binary_logloss, l2 and rmse; the other
-metrics of the JAX package are ROADMAP item A10.
+reference's src/metric/*, factory metric.cpp:88): scores are pulled from
+the device once per evaluation, [N] for one model an iteration and [K, N]
+for multiclass. Each metric returns (name, value, is_higher_better)
+tuples, and applies the objective's output transform itself, as the
+reference metrics take the ObjectiveFunction's ConvertOutput. The JAX
+package's in-scan device metrics (`device_eval_fn`) come with batched
+training (ROADMAP item A12).
 """
 
 from __future__ import annotations
@@ -13,7 +17,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from ..config import Config
-from ..utils.log import log_warning
+from ..utils.log import log_fatal, log_warning
 
 _KEPS = 1e-15
 
@@ -50,11 +54,27 @@ class Metric:
             return self.weight.astype(np.float64)
         return np.ones(self.num_data, dtype=np.float64)
 
+    def _mean(self, loss: np.ndarray) -> float:
+        return float(np.sum(loss * self._w()) / self.sum_weights)
 
+
+def _converted(score, objective, otherwise=None) -> np.ndarray:
+    """[N] f64 scores through the objective's output transform, or through
+    `otherwise` (identity when None) without one."""
+    s = np.asarray(score, np.float64).reshape(-1)
+    if objective is not None and objective.need_convert_output:
+        return objective.convert_output(s)
+    return s if otherwise is None else otherwise(s)
+
+
+def _sigmoid(s):
+    return 1.0 / (1.0 + np.exp(-s))
+
+
+# ---------------------------------------------------------------------------
+# regression metrics (reference: regression_metric.hpp RegressionMetric<T>)
+# ---------------------------------------------------------------------------
 class _PointwiseRegressionMetric(Metric):
-    """reference: regression_metric.hpp RegressionMetric<T>."""
-
-    transform_output = True
 
     def point_loss(self, label: np.ndarray, score: np.ndarray) -> np.ndarray:
         raise NotImplementedError
@@ -63,14 +83,10 @@ class _PointwiseRegressionMetric(Metric):
         return mean_loss
 
     def eval(self, score, objective) -> List[MetricResult]:
-        score = np.asarray(score, np.float64).reshape(-1)
-        if objective is not None and self.transform_output \
-                and objective.need_convert_output:
-            score = objective.convert_output(score)
-        label = self.label.astype(np.float64)
-        w = self._w()
-        loss = float(np.sum(self.point_loss(label, score) * w) / self.sum_weights)
-        return [(self.name, self.final_transform(loss), self.is_higher_better)]
+        s = _converted(score, objective)
+        loss = self._mean(self.point_loss(self.label.astype(np.float64), s))
+        return [(self.name, self.final_transform(loss),
+                 self.is_higher_better)]
 
 
 class L2Metric(_PointwiseRegressionMetric):
@@ -87,18 +103,122 @@ class RMSEMetric(L2Metric):
         return float(np.sqrt(v))
 
 
+class L1Metric(_PointwiseRegressionMetric):
+    name = "l1"
+
+    def point_loss(self, y, s):
+        return np.abs(s - y)
+
+
+class QuantileMetric(_PointwiseRegressionMetric):
+    name = "quantile"
+
+    def point_loss(self, y, s):
+        a = self.config.alpha
+        d = y - s
+        return np.where(d >= 0, a * d, (a - 1.0) * d)
+
+
+class HuberMetric(_PointwiseRegressionMetric):
+    name = "huber"
+
+    def point_loss(self, y, s):
+        a = self.config.alpha
+        d = np.abs(s - y)
+        return np.where(d <= a, 0.5 * d * d, a * (d - 0.5 * a))
+
+
+class FairMetric(_PointwiseRegressionMetric):
+    name = "fair"
+
+    def point_loss(self, y, s):
+        c = self.config.fair_c
+        x = np.abs(s - y)
+        return c * x - c * c * np.log1p(x / c)
+
+
+class PoissonMetric(_PointwiseRegressionMetric):
+    name = "poisson"
+
+    def point_loss(self, y, s):
+        s = np.maximum(s, 1e-10)
+        return s - y * np.log(s)
+
+
+class MAPEMetric(_PointwiseRegressionMetric):
+    name = "mape"
+
+    def point_loss(self, y, s):
+        return np.abs((y - s)) / np.maximum(1.0, np.abs(y))
+
+
+class GammaMetric(_PointwiseRegressionMetric):
+    """Gamma negative log-likelihood with psi = 1
+    (regression_metric.hpp GammaMetric): y / s + log(s)."""
+    name = "gamma"
+
+    def point_loss(self, y, s):
+        s = np.maximum(s, 1e-10)
+        return y / s + np.log(s)
+
+
+class GammaDevianceMetric(_PointwiseRegressionMetric):
+    """regression_metric.hpp GammaDevianceMetric:
+    2 (frac - log(frac) - 1), frac = label / score."""
+    name = "gamma_deviance"
+
+    def point_loss(self, y, s):
+        eps = 1e-9
+        frac = np.maximum(y / np.maximum(s, eps), eps)
+        return 2.0 * (frac - np.log(frac) - 1.0)
+
+
+class TweedieMetric(_PointwiseRegressionMetric):
+    name = "tweedie"
+
+    def point_loss(self, y, s):
+        rho = self.config.tweedie_variance_power
+        s = np.maximum(s, 1e-10)
+        a = y * np.power(s, 1.0 - rho) / (1.0 - rho)
+        b = np.power(s, 2.0 - rho) / (2.0 - rho)
+        return -a + b
+
+
+class R2Metric(_PointwiseRegressionMetric):
+    name = "r2"
+    is_higher_better = True
+
+    def eval(self, score, objective):
+        s = _converted(score, objective)
+        y = self.label.astype(np.float64)
+        w = self._w()
+        ybar = np.sum(y * w) / self.sum_weights
+        ss_res = np.sum(w * (y - s) ** 2)
+        ss_tot = np.sum(w * (y - ybar) ** 2)
+        return [(self.name, float(1.0 - ss_res / max(ss_tot, _KEPS)), True)]
+
+
+# ---------------------------------------------------------------------------
+# binary metrics (reference: binary_metric.hpp:116-271)
+# ---------------------------------------------------------------------------
 class BinaryLoglossMetric(Metric):
     name = "binary_logloss"
 
     def eval(self, score, objective) -> List[MetricResult]:
-        p = objective.convert_output(np.asarray(score, np.float64).reshape(-1)) \
-            if objective is not None and objective.need_convert_output else \
-            1.0 / (1.0 + np.exp(-np.asarray(score, np.float64).reshape(-1)))
+        p = np.clip(_converted(score, objective, _sigmoid), _KEPS,
+                    1.0 - _KEPS)
         y = (self.label > 0).astype(np.float64)
-        p = np.clip(p, _KEPS, 1.0 - _KEPS)
         loss = -(y * np.log(p) + (1 - y) * np.log(1 - p))
-        w = self._w()
-        return [(self.name, float(np.sum(loss * w) / self.sum_weights), False)]
+        return [(self.name, self._mean(loss), False)]
+
+
+class BinaryErrorMetric(Metric):
+    name = "binary_error"
+
+    def eval(self, score, objective) -> List[MetricResult]:
+        p = _converted(score, objective)
+        err = ((p > 0.5) != (self.label > 0)).astype(np.float64)
+        return [(self.name, self._mean(err), False)]
 
 
 class AUCMetric(Metric):
@@ -126,25 +246,205 @@ class AUCMetric(Metric):
         return [(self.name, float(auc), True)]
 
 
+class AveragePrecisionMetric(Metric):
+    name = "average_precision"
+    is_higher_better = True
+
+    def eval(self, score, objective) -> List[MetricResult]:
+        s = np.asarray(score, np.float64).reshape(-1)
+        y = (self.label > 0).astype(np.float64)
+        w = self._w()
+        order = np.argsort(-s, kind="mergesort")
+        y_s, w_s = y[order], w[order]
+        tp = np.cumsum(w_s * y_s)
+        fp = np.cumsum(w_s * (1 - y_s))
+        total_pos = tp[-1]
+        if total_pos <= 0:
+            return [(self.name, 1.0, True)]
+        precision = tp / np.maximum(tp + fp, _KEPS)
+        recall = tp / total_pos
+        d_recall = np.diff(np.concatenate([[0.0], recall]))
+        return [(self.name, float(np.sum(precision * d_recall)), True)]
+
+
+# ---------------------------------------------------------------------------
+# multiclass metrics (reference: multiclass_metric.hpp)
+# ---------------------------------------------------------------------------
+class MultiLoglossMetric(Metric):
+    name = "multi_logloss"
+
+    def eval(self, score, objective) -> List[MetricResult]:
+        s = np.asarray(score, np.float64)                      # [K, N] raw
+        p = objective.convert_output(s) if objective is not None \
+            and objective.need_convert_output else s
+        li = self.label.astype(np.int64)
+        pi = np.clip(p[li, np.arange(len(li))], _KEPS, 1.0)
+        return [(self.name, self._mean(-np.log(pi)), False)]
+
+
+class MultiErrorMetric(Metric):
+    name = "multi_error"
+
+    def eval(self, score, objective) -> List[MetricResult]:
+        s = np.asarray(score, np.float64)
+        li = self.label.astype(np.int64)
+        k = self.config.multi_error_top_k
+        if k <= 1:
+            err = (np.argmax(s, axis=0) != li).astype(np.float64)
+        else:
+            # top-k error: 1 when the true class is not among the k largest
+            part = np.argpartition(-s, k - 1, axis=0)[:k]
+            err = (~np.any(part == li[None, :], axis=0)).astype(np.float64)
+        return [(self.result_name(), self._mean(err), False)]
+
+    def result_name(self) -> str:
+        k = self.config.multi_error_top_k
+        return self.name if k <= 1 else f"multi_error@{k}"
+
+
+class AucMuMetric(Metric):
+    """Multi-class AUC-mu (reference: multiclass_metric.hpp:184, after
+    Kleiman & Page, pmlr v97): pairwise class separability along the
+    partition-weight direction, averaged over class pairs."""
+    name = "auc_mu"
+    is_higher_better = True
+
+    def init(self, metadata, num_data):
+        super().init(metadata, num_data)
+        nc = self.config.num_class
+        wspec = self.config.auc_mu_weights
+        if wspec:
+            if len(wspec) != nc * nc:
+                log_fatal(f"auc_mu_weights must have {nc * nc} elements")
+            self._cw = np.asarray(wspec, np.float64).reshape(nc, nc)
+            np.fill_diagonal(self._cw, 0.0)
+        else:
+            self._cw = np.ones((nc, nc)) - np.eye(nc)
+
+    def eval(self, score, objective) -> List[MetricResult]:
+        nc = self.config.num_class
+        s = np.asarray(score, np.float64).reshape(nc, -1)
+        lab = self.label.astype(np.int64)
+        w = None if self.weight is None else np.asarray(self.weight,
+                                                        np.float64)
+        ans = 0.0
+        for i in range(nc):
+            for j in range(i + 1, nc):
+                curr_v = self._cw[i] - self._cw[j]
+                t1 = curr_v[i] - curr_v[j]
+                idx = np.flatnonzero((lab == i) | (lab == j))
+                va = t1 * (curr_v @ s[:, idx])
+                # sorted by distance, ties put class j (the higher label)
+                # first: within a tie group every j row precedes every i
+                # row, so the reference's sequential half-credit rule is:
+                # each i row counts the j weight of all groups up to its
+                # own, less half of its own group's
+                order = np.lexsort((-lab[idx], va))
+                a = idx[order]
+                dist = va[order]
+                is_i = lab[a] == i
+                wt = np.ones(len(a)) if w is None else w[a]
+                grp = np.zeros(len(a), np.int64)
+                if len(a) > 1:
+                    grp[1:] = np.cumsum(np.abs(np.diff(dist)) >= 1e-15)
+                j_in = np.bincount(grp, weights=np.where(is_i, 0.0, wt))
+                j_incl = np.cumsum(j_in)
+                sij = float(np.sum(wt[is_i] * (j_incl[grp[is_i]]
+                                               - 0.5 * j_in[grp[is_i]])))
+                if w is None:
+                    ci = float(np.sum(lab == i))
+                    cj = float(np.sum(lab == j))
+                else:
+                    ci = float(np.sum(w[lab == i]))
+                    cj = float(np.sum(w[lab == j]))
+                if ci > 0 and cj > 0:
+                    ans += (sij / ci) / cj
+        ans = (2.0 * ans / nc) / (nc - 1)
+        return [(self.name, float(ans), True)]
+
+
+# ---------------------------------------------------------------------------
+# ranking metrics (reference: rank_metric.hpp:20, map_metric.hpp:21)
+# ---------------------------------------------------------------------------
+class NDCGMetric(Metric):
+    name = "ndcg"
+    is_higher_better = True
+
+    def eval(self, score, objective) -> List[MetricResult]:
+        from .rank_utils import eval_ndcg
+        return eval_ndcg(np.asarray(score, np.float64).reshape(-1),
+                         self.label, self.query_boundaries, self.weight,
+                         self.config.eval_at, self.config.label_gain)
+
+
+class MapMetric(Metric):
+    name = "map"
+    is_higher_better = True
+
+    def eval(self, score, objective) -> List[MetricResult]:
+        from .rank_utils import eval_map
+        return eval_map(np.asarray(score, np.float64).reshape(-1),
+                        self.label, self.query_boundaries, self.weight,
+                        self.config.eval_at)
+
+
+# ---------------------------------------------------------------------------
+# cross-entropy metrics (reference: xentropy_metric.hpp)
+# ---------------------------------------------------------------------------
+class CrossEntropyMetric(Metric):
+    name = "cross_entropy"
+
+    def eval(self, score, objective) -> List[MetricResult]:
+        p = np.clip(_converted(score, objective, _sigmoid), _KEPS,
+                    1.0 - _KEPS)
+        y = self.label.astype(np.float64)
+        loss = -(y * np.log(p) + (1 - y) * np.log(1 - p))
+        return [(self.name, self._mean(loss), False)]
+
+
+class KLDivMetric(Metric):
+    name = "kullback_leibler"
+
+    def eval(self, score, objective) -> List[MetricResult]:
+        p = np.clip(_converted(score, objective, _sigmoid), _KEPS,
+                    1.0 - _KEPS)
+        y = np.clip(self.label.astype(np.float64), _KEPS, 1 - _KEPS)
+        kl = y * np.log(y / p) + (1 - y) * np.log((1 - y) / (1 - p))
+        return [(self.name, self._mean(kl), False)]
+
+
 _METRIC_REGISTRY = {
     "l2": L2Metric, "mean_squared_error": L2Metric, "mse": L2Metric,
     "regression": L2Metric, "regression_l2": L2Metric,
     "rmse": RMSEMetric, "root_mean_squared_error": RMSEMetric,
     "l2_root": RMSEMetric,
+    "l1": L1Metric, "mean_absolute_error": L1Metric, "mae": L1Metric,
+    "regression_l1": L1Metric,
+    "quantile": QuantileMetric,
+    "huber": HuberMetric,
+    "fair": FairMetric,
+    "poisson": PoissonMetric,
+    "mape": MAPEMetric, "mean_absolute_percentage_error": MAPEMetric,
+    "gamma": GammaMetric,
+    "gamma_deviance": GammaDevianceMetric,
+    "tweedie": TweedieMetric,
+    "r2": R2Metric,
     "binary_logloss": BinaryLoglossMetric, "binary": BinaryLoglossMetric,
+    "binary_error": BinaryErrorMetric,
     "auc": AUCMetric,
+    "auc_mu": AucMuMetric,
+    "average_precision": AveragePrecisionMetric,
+    "multi_logloss": MultiLoglossMetric, "multiclass": MultiLoglossMetric,
+    "softmax": MultiLoglossMetric, "multiclassova": MultiLoglossMetric,
+    "multi_error": MultiErrorMetric,
+    "ndcg": NDCGMetric, "lambdarank": NDCGMetric,
+    "rank_xendcg": NDCGMetric, "xendcg": NDCGMetric,
+    "map": MapMetric, "mean_average_precision": MapMetric,
+    "cross_entropy": CrossEntropyMetric, "xentropy": CrossEntropyMetric,
+    "cross_entropy_lambda": CrossEntropyMetric,
+    "xentlambda": CrossEntropyMetric,
+    "kullback_leibler": KLDivMetric, "kldiv": KLDivMetric,
 }
-
-# metrics of the JAX package that this port does not have yet
-_NOT_PORTED = {
-    "l1", "mean_absolute_error", "mae", "regression_l1", "quantile",
-    "huber", "fair", "poisson", "mape", "mean_absolute_percentage_error",
-    "gamma", "gamma_deviance", "tweedie", "r2", "binary_error", "auc_mu",
-    "average_precision", "multi_logloss", "multiclass", "softmax",
-    "multiclassova", "multi_error", "ndcg", "lambdarank", "rank_xendcg",
-    "xendcg", "map", "mean_average_precision", "cross_entropy",
-    "xentropy", "cross_entropy_lambda", "xentlambda", "kullback_leibler",
-    "kldiv"}
 
 
 def create_metric(name: str, config: Config) -> Optional[Metric]:
@@ -152,10 +452,6 @@ def create_metric(name: str, config: Config) -> Optional[Metric]:
     name = name.strip()
     if name in ("", "none", "null", "custom", "na"):
         return None
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"metric '{name}' is not ported to lightgbm_tpu_torch yet "
-            "(ROADMAP item A10)")
     if name not in _METRIC_REGISTRY:
         log_warning(f"Unknown metric {name!r}; ignored")
         return None

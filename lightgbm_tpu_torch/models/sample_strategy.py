@@ -9,9 +9,8 @@ counts the rows where it is positive.
 
 Uniform bagging and GOSS draw from the port's threefry
 (utils/random.py), bit for bit the JAX package's `jax.random` draws, and
-each mask is a function of the iteration alone; class-stratified bagging
-draws with NumPy, as the JAX package does. `bagging_by_query` needs query
-data and the ranking objectives (ROADMAP A10(a)) and raises.
+each mask is a function of the iteration alone; class-stratified and
+by-query bagging draw with NumPy, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -22,7 +21,7 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..utils.log import log_warning
+from ..utils.log import log_fatal, log_warning
 from ..utils.random import PRNGKey, fold_in, uniform
 
 
@@ -56,7 +55,7 @@ class SampleStrategy:
     def sample(self, it: int, grad: Optional[torch.Tensor] = None,
                hess: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The [N] f32 in-bag multiplier of iteration `it` (GOSS reads the
-        gradients and hessians, the others do not)."""
+        [N] or [K, N] gradients and hessians, the others do not)."""
         return torch.ones(self.num_data, dtype=torch.float32,
                           device=self.device)
 
@@ -64,20 +63,24 @@ class SampleStrategy:
 class BaggingSampleStrategy(SampleStrategy):
     """reference: bagging.hpp:15. A new mask every `bagging_freq`
     iterations keeping `bagging_fraction` of the rows (pos / neg
-    fractions: of the positive and the negative rows)."""
+    fractions: of the positive and the negative rows; bagging_by_query:
+    of the queries, each whole)."""
 
     def __init__(self, config: Config, num_data: int, metadata,
                  device: torch.device):
         super().__init__(config, num_data, metadata, device)
-        if config.bagging_by_query:
-            raise NotImplementedError(
-                "bagging_by_query is not ported to lightgbm_tpu_torch yet "
-                "(ROADMAP item A10)")
         self._balanced = (config.pos_bagging_fraction < 1.0
                           or config.neg_bagging_fraction < 1.0)
         if self._balanced and metadata.label is None:
             log_warning("pos/neg bagging needs labels; falling back to "
                         "uniform bagging")
+            self._balanced = False
+        self._by_query = bool(config.bagging_by_query)
+        if self._by_query and metadata.query_boundaries is None:
+            log_fatal("bagging_by_query requires query/group information")
+        if self._by_query and self._balanced:
+            log_warning("bagging_by_query ignores pos/neg bagging "
+                        "fractions (query-level sampling)")
             self._balanced = False
         self._cnt = max(1, int(num_data * config.bagging_fraction))
         self._key = PRNGKey(config.bagging_seed)
@@ -91,6 +94,8 @@ class BaggingSampleStrategy(SampleStrategy):
 
     def sample(self, it, grad=None, hess=None):
         it_r = self._floor_iter(it)
+        if self._by_query:
+            return self._by_query_mask(it_r)
         if self._balanced:
             return self._stratified(it_r)
         # keyed by the floored iteration: a bagging window shares one
@@ -98,6 +103,19 @@ class BaggingSampleStrategy(SampleStrategy):
         # top_k threshold; a draw equal to it is in bag too)
         u = uniform(fold_in(self._key, it_r), (self.num_data,), self.device)
         return (u <= _kth_smallest(u, self._cnt)).to(torch.float32)
+
+    def _by_query_mask(self, it_r: int) -> torch.Tensor:
+        """Whole queries in or out of bag: max(1, int(Q * fraction)) of the
+        Q queries drawn without replacement (sample_strategy.py:131-147)."""
+        rng = np.random.RandomState(self.config.bagging_seed + it_r)
+        qb = np.asarray(self.metadata.query_boundaries, np.int64)
+        nq = len(qb) - 1
+        keep = rng.choice(nq, max(int(nq * self.config.bagging_fraction), 1),
+                          replace=False)
+        flags = np.zeros(nq, np.float32)
+        flags[keep] = 1.0
+        return torch.from_numpy(np.repeat(flags, np.diff(qb))).to(
+            self.device)
 
     def _stratified(self, it_r: int) -> torch.Tensor:
         rng = np.random.RandomState(self.config.bagging_seed + it_r)
@@ -135,6 +153,13 @@ class GOSSStrategy(SampleStrategy):
         if it < self.warmup_iters:
             return super().sample(it)
         g_abs = torch.abs(grad * hess)
+        if g_abs.dim() == 2:
+            # summed over the classes (goss.hpp Bagging; sample_strategy.py:
+            # 188-191), in class order
+            acc = g_abs[0].clone()
+            for row in g_abs[1:]:
+                acc += row
+            g_abs = acc
         # the top_k-th largest magnitude; ties with it are kept too
         is_top = g_abs >= _kth_smallest(g_abs, N - self.top_k + 1)
         u = uniform(fold_in(self._key, it), (N,), self.device)

@@ -59,6 +59,13 @@ class GrowConfig(NamedTuple):
     has_interaction: bool = False
     monotone_method: str = "basic"
     monotone_penalty: float = 0.0
+    # per-node column sampling and one random threshold per node and
+    # feature (feature_fraction_bynode, extra_trees with extra_seed),
+    # drawn from the tree's seed by the port's threefry
+    # (grow_wave.py:657-682)
+    feature_fraction_bynode: float = 1.0
+    extra_trees: bool = False
+    extra_seed: int = 6
     # quantized gradients (use_quantized_grad, grow_wave.py:381-404): int8
     # (grad, hess) with per-tree scales, exact int32 histograms descaled
     # for the search; stochastic rounding draws from the tree's seed;

@@ -80,7 +80,7 @@ from .histogram import (ROWWISE_IMPLS, HistPlan, build_histogram,
                         wave_pass_fused_tiled, wave_relabel)
 from .split import (NEG_INF, FeatureMeta, SplitResult, find_best_split,
                     synth_count_channel, threshold_l1)
-from ..utils.random import PRNGKey, split, uniform
+from ..utils.random import PRNGKey, fold_in, split, uniform
 
 MAX_WAVE_FEATURES = 32
 # the one-bin storage of the leaf renewal's sums: every row adds into bin
@@ -144,6 +144,10 @@ def fused_veto_reasons(cfg: GrowConfig) -> List[str]:
         reasons.append("LIGHTGBM_TPU_DISABLE_FUSED")
     if cfg.bundled:
         reasons.append("efb_bundled")
+    if cfg.feature_fraction_bynode < 1.0:
+        reasons.append("feature_fraction_bynode")
+    if cfg.extra_trees:
+        reasons.append("extra_trees")
     if cfg.has_monotone:
         if cfg.monotone_method == "intermediate":
             reasons.append("monotone_intermediate")
@@ -263,6 +267,29 @@ class _Pending(NamedTuple):
     is_cat: torch.Tensor
     bits: torch.Tensor
     nl0: int
+
+
+def node_masks(key: torch.Tensor, n: int, F: int, fraction: float,
+               device) -> torch.Tensor:
+    """[n, F] bool feature_fraction_bynode masks (ColSampler::GetByNode,
+    col_sampler.hpp:208; grow_wave.py:660-666): row i keeps the features
+    whose uniform is at most the row's max(1, int(F * fraction))-th
+    smallest, all of them when draws tie there (jax.lax.top_k's
+    threshold). Row i is counters i * F .. i * F + F - 1 of the draw, so
+    it does not depend on n."""
+    k_keep = max(1, int(F * fraction))
+    u = uniform(key, (n, F), device)
+    return u <= torch.sort(u, dim=1).values[:, k_keep - 1:k_keep]
+
+
+def xt_bins(key: torch.Tensor, n: int, num_bins: torch.Tensor
+            ) -> torch.Tensor:
+    """[n, F] int32 extra_trees thresholds, each uniform in
+    [0, max(num_bin - 2, 1)) (grow_wave.py:677-682): the one bin of each
+    feature whose threshold the search may take."""
+    hi = torch.clamp(num_bins.to(torch.int32) - 2, min=1)
+    u = uniform(key, (n, hi.shape[0]), hi.device)
+    return torch.minimum((u * hi.to(torch.float32)).to(torch.int32), hi - 1)
 
 
 def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -437,6 +464,10 @@ def grow_tree_wave(
     original features. `hist_plan` is `make_hist_plan`'s plan of the
     row-wise routes (made here when not given). `rng_seed` (an int32)
     keys the quantized gradients' stochastic rounding.
+    `rng_seed` also keys feature_fraction_bynode's masks
+    (PRNGKey(rng_seed + 0x5EED)) and extra_trees' thresholds
+    (PRNGKey(rng_seed * 31 + extra_seed)), folded with 0 at the root and
+    with the wave count + 1 in the waves, as the JAX package's.
     `plain=True` runs the kernels' plain PyTorch versions on any device."""
     dev = X_t.device
     F_st, N = X_t.shape
@@ -486,6 +517,28 @@ def grow_tree_wave(
     has_inter = meta.inter_sets is not None
     use_mpen = has_mono and cfg.monotone_penalty > 0.0
     S = meta.inter_sets.shape[0] if has_inter else 1
+    # per-node draws (grow_wave.py:657-682): int32 seeds, wrapped as
+    # PRNGKey wraps them
+    bynode = cfg.feature_fraction_bynode < 1.0
+    xt = cfg.extra_trees
+    bn_base = PRNGKey(rng_seed + 0x5EED) if bynode else None
+    xt_base = PRNGKey(rng_seed * 31 + cfg.extra_seed) if xt else None
+
+    def node_draws(step: int, n: int, rows: torch.Tensor):
+        """(bynode masks, extra_trees bins) of the rows `rows` of draw
+        `step`, which has n rows (1 at the root, step 0; in the waves step
+        the wave count + 1 and a row per slot of the [2 KMAX] search batch,
+        left children first: grow_wave.py:1829, :1870-1873, :1967-1970);
+        None where the regime is off."""
+        fm = (node_masks(fold_in(bn_base, step), n, F,
+                         cfg.feature_fraction_bynode, dev)[rows]
+              if bynode else None)
+        rb = xt_bins(fold_in(xt_base, step), n, meta.num_bins)[rows] \
+            if xt else None
+        return fm, rb
+
+    def and_masks(a, b):
+        return b if a is None else (a if b is None else a & b)
 
     def sets_to_fmask(sets):
         """[n, S] satisfiable sets -> [n, F] allowed features, with the
@@ -554,13 +607,14 @@ def grow_tree_wave(
                                         2 * leaves.shape[0])
 
     def search(hist2, sum_g, sum_h, count, out, num=None, bmin=None,
-               bmax=None, fmask=None, mpf=None):
+               bmax=None, fmask=None, mpf=None, rand_bins=None):
         """Best splits of n histograms [n, C, F_st, B] of storage columns:
         (SplitResult [n], is_cat [n], bitset [n, W]). `num` is the numeric
         search's result when a fused kernel already ran it; hist2 is then
         read only for the categorical search. bmin / bmax [n] are the
         monotone bounds, fmask the feature mask ([F] or [n, F]), mpf [n]
-        monotone_penalty's factor."""
+        monotone_penalty's factor, rand_bins [n, F] extra_trees' one
+        threshold a feature (numeric features only, as in JAX)."""
         n = count.shape[0]
         if num is not None and not has_cat:
             return (num, torch.zeros(n, dtype=torch.bool, device=dev),
@@ -582,7 +636,7 @@ def grow_tree_wave(
         if num is None:
             num = find_best_split(hist, sum_g, sum_h, count, out, meta, hp,
                                   fmask, leaf_min=bmin, leaf_max=bmax,
-                                  mono_pen_factor=mpf)
+                                  mono_pen_factor=mpf, rand_bins=rand_bins)
         if not has_cat:
             return (num, torch.zeros(n, dtype=torch.bool, device=dev),
                     torch.zeros((n, W), dtype=torch.int64, device=dev))
@@ -605,11 +659,14 @@ def grow_tree_wave(
     root_fmask = (sets_to_fmask(torch.ones((1, S), dtype=torch.bool,
                                            device=dev))
                   if has_inter else feature_mask)
+    root_bn, root_rb = node_draws(0, 1, torch.zeros(1, dtype=torch.int64,
+                                                    device=dev))
     root_split, root_cat, root_bits = search(
         hist_root[None], root_g[None], root_h[None], root_c[None],
         root_out[None], bmin=-torch.inf * one if has_mono else None,
-        bmax=torch.inf * one if has_mono else None, fmask=root_fmask,
-        mpf=mpen_factor(0 * one) if use_mpen else None)
+        bmax=torch.inf * one if has_mono else None,
+        fmask=and_masks(root_fmask, root_bn),
+        mpf=mpen_factor(0 * one) if use_mpen else None, rand_bins=root_rb)
     if max_depth < 1:
         root_split = root_split._replace(
             gain=torch.full_like(root_split.gain, NEG_INF))
@@ -911,12 +968,19 @@ def grow_tree_wave(
 
         bmin_lr, bmax_lr, fmask_lr, mpf_lr = children_constraints(
             SplitResult(*[x[:n_cand] for x in bs]), c_idx)
+        rb_lr = None
+        if bynode or xt:
+            # slot j's children are rows j and KMAX + j of the wave's draw
+            j = torch.arange(n_cand, device=dev)
+            bn_lr, rb_lr = node_draws(num_waves + 1, 2 * KMAX,
+                                      torch.cat([j, j + KMAX]))
+            fmask_lr = and_masks(fmask_lr, bn_lr)
         s_lr, cat_lr, bits_lr = search(
             hist_lr, both(bs.left_sum_g, bs.right_sum_g),
             both(bs.left_sum_h, bs.right_sum_h),
             both(bs.left_count, bs.right_count),
             both(bs.left_output, bs.right_output), num, bmin_lr, bmax_lr,
-            fmask_lr, mpf_lr)
+            fmask_lr, mpf_lr, rb_lr)
         # depth mask at store time: the order step reads stored gains
         can = (leaf_depth[c_idx] + 1 < max_depth).repeat(2)
         s_lr = s_lr._replace(gain=torch.where(

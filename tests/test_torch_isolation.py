@@ -51,6 +51,8 @@ def test_import_leaves_jax_unloaded():
             "import lightgbm_tpu_torch.utils.synthetic\n"
             "import lightgbm_tpu_torch.utils.random\n"
             "import lightgbm_tpu_torch.models.sample_strategy\n"
+            "import lightgbm_tpu_torch.objectives.rank\n"
+            "import lightgbm_tpu_torch.metrics.rank_utils\n"
             "import lightgbm_tpu_torch.serving\n"
             "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', "
             "'lightgbm_tpu') or m.startswith(('jax.', 'jaxlib.', "

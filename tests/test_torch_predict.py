@@ -77,7 +77,7 @@ def _train_jax(kind, seed):
 
 def _port(jbst):
     """The JAX model's trees and mappers as the port's objects, in a
-    GBDT-shaped namespace (multiclass has no port objective yet)."""
+    GBDT-shaped namespace (the fields the predictors read)."""
     g = jbst._gbdt
     return types.SimpleNamespace(
         models=[tree_from_arrays(vars(t)) for t in g.models],
@@ -206,3 +206,36 @@ def test_booster_predict_large_f32_batch(big_binary, monkeypatch):
     np.testing.assert_array_equal(bst.predict(Q[:99_999]), host[:99_999])
     bst.predict(Q.astype(np.float64))
     assert g._device_tables_cache is None
+
+
+def _port_booster(jbst):
+    """The JAX model as a port Booster (convert.booster_from_state)."""
+    from lightgbm_tpu_torch.convert import booster_from_state
+    g = jbst._gbdt
+    return booster_from_state(
+        params={**jbst.params, "device_type": "cpu"},
+        trees=[vars(t) for t in g.models],
+        mappers=[m.to_dict() for m in g.mappers],
+        real_feature_index=g.real_feature_index,
+        feature_names=g.feature_names_,
+        num_total_features=g.max_feature_idx_ + 1)
+
+
+def test_pred_leaf_matches_jax(models):
+    """Booster.predict(pred_leaf=True) of the first 3 iterations is the
+    JAX package's [N, 3 K] leaf indices (iteration, then class), and the
+    whole model's too; pred_contrib and unknown keywords raise."""
+    jbst, g, q = models
+    K = g.num_tree_per_iteration
+    bst = _port_booster(jbst)
+    q64 = q.astype(np.float64)
+    got = bst.predict(q64, pred_leaf=True, num_iteration=3)
+    assert got.shape == (len(q), 3 * K)
+    np.testing.assert_array_equal(
+        got, jbst.predict(q64, pred_leaf=True, num_iteration=3))
+    np.testing.assert_array_equal(bst.predict(q64, pred_leaf=True),
+                                  jbst.predict(q64, pred_leaf=True))
+    with pytest.raises(NotImplementedError, match="ROADMAP item A18"):
+        bst.predict(q64, pred_contrib=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP item A6"):
+        bst.predict(q64, validate_features=True)

@@ -203,12 +203,11 @@ def test_valid_sets_early_stopping_and_logging(data):
       "monotone_constraints_method": "intermediate"}, "A10"),
     ({"cegb_penalty_feature_coupled": [1.0] * 8}, "A10"),
     ({"cegb_penalty_split": 1.0}, "A10"),
-    ({"bagging_freq": 1, "bagging_fraction": 0.5, "bagging_by_query": True},
-     "A10"),
-    ({"objective": "huber"}, "A10"),
-    ({"feature_fraction_bynode": 0.5}, "A10"),
-    ({"extra_trees": True}, "A10"),
-    ({"objective": "multiclass", "num_class": 3}, "A10"),
+    ({"forcedsplits_filename": "forced.json"}, "A10"),
+    ({"cegb_penalty_feature_lazy": [1.0] * 8}, "A10"),
+    ({"tree_learner": "voting"}, "A16"),
+    ({"num_leaves": 4097}, "A11"),
+    ({"num_leaves": 255, "histogram_pool_size": 1}, "A11"),
     ({"checkpoint_interval": 2, "checkpoint_dir": "ckpt"}, "A17"),
     ({"checkpoint_dir": "ckpt"}, "A17"),
     ({"resume_from_checkpoint": "/nonexistent"}, "A17"),
