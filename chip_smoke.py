@@ -151,6 +151,27 @@ Phases, each printing one JSON line:
                      under fused: first tree equal to the plain versions',
                      every branch inside one set
 
+ 11b. the rest of the constraints, on the two-pass routes (each line with
+     the card's nvidia-smi name and power limit):
+     intermediate    monotone_constraints_method=intermediate: bench.py's
+                     model with features 0-3 constrained, 2 rounds on
+                     "mega" (#1, #3, #5, #2) beside 2 of `basic`, and the
+                     Criteo table with its two heaviest count columns
+                     constrained, 2 rounds on "apply" (#4, #1): first tree
+                     equal to the plain versions', raw scores never against
+                     a constraint along a 32-point sweep, histogram_impl=
+                     fused vetoed naming monotone_intermediate; waves per
+                     tree, ms per round, train logloss beside basic's
+     forced_cegb     a forced root and both its children (bench, "mega", 2
+                     rounds): trees 0 and 1 carry them in BFS order with
+                     the forced bin thresholds, first tree equal to the
+                     plain versions'; CEGB split and coupled penalties on
+                     the Criteo table ("apply", 4 rounds) beside the run
+                     without: trees 0 and 1 equal the plain versions'
+                     (tree 1 grown with tree 0's features paid), no more
+                     distinct features; the fused vetoes forced_splits and
+                     cegb
+
  13. objectives, multiclass, ranking and per-node sampling (each line
      with the card's nvidia-smi name and power limit):
      multiclass      bench's 28 columns, labels in 5 classes from a seeded
@@ -183,6 +204,19 @@ Phases, each printing one JSON line:
                      gradients at iterations 0 and 1 within rtol 1e-5 of
                      a CPU copy's, ndcg@10 above the initial scores'; the
                      gradient's device ms
+
+ 14. the training loop (its line with the card's name and power limit):
+     continued       bench.py's model, 4 rounds saved as text, then
+                     lt.train(init_model=text) for 4 more: the replayed
+                     training scores (the device binned walk, #2 once a
+                     tree) within 1e-6 of predict(raw_score) and bitwise
+                     the CPU replay's, 8 trees; a valid set of 2^18 rows
+                     added after training within 1e-5 of predict; an fobj
+                     of binary logloss in torch on the card grows the
+                     built-in objective's first tree, feval reported each
+                     round; reset_parameter's rates are the trees'
+                     shrinkage; refit of the 2^18 rows at decay 0.9 within
+                     1e-6 of the CPU refit, at 1.0 the model text unchanged
 
 then a {"kernels": [...]} line (the ten kernels), the nvidia-smi line,
 and last
@@ -1245,12 +1279,12 @@ def _same_host_tree(a, b):
             if same else None)
 
 
-def _plain_trees(torch, gbdt, n, scores=None, it=0):
+def _plain_trees(torch, gbdt, n, scores=None, it=0, cegb_used=None):
     """Iteration `it`'s K trees again (from the [N] or [K, N] `scores`
     before it; at iteration 0 the boost-from-average start), from the same
-    gradients, sample mask and seeds, grown with the kernels' plain
-    versions on the card, each renewed where the objective renews
-    leaves."""
+    gradients, sample mask and seeds (and CEGB's used features
+    `cegb_used`, none by default), grown with the kernels' plain versions
+    on the card, each renewed where the objective renews leaves."""
     from lightgbm_tpu_torch.ops.grow_wave import grow_tree_wave
     K = gbdt.num_tree_per_iteration
     init = [float(gbdt.objective.boost_from_score(k)) for k in range(K)]
@@ -1265,7 +1299,8 @@ def _plain_trees(torch, gbdt, n, scores=None, it=0):
         tp, lor = grow_tree_wave(gbdt.X_t, g[k], h[k], bag, gbdt.meta,
                                  gbdt.grow_cfg, None,
                                  hist_plan=gbdt.hist_plan,
-                                 rng_seed=gbdt.tree_seed(it, k), plain=True)
+                                 rng_seed=gbdt.tree_seed(it, k),
+                                 cegb_used=cegb_used, plain=True)
         if gbdt.objective.need_renew_tree_output:
             tp = gbdt._renew_tree_output(k, tp, lor, scores[k])
         t = gbdt._device_tree_to_host(tp)
@@ -2095,14 +2130,17 @@ def constraints_kernel_phase(hc, gf, torch, dev, X_c):
     return recs
 
 
-def _sweep_monotone(bst, rows, feats):
+def _sweep_monotone(bst, rows, feats, grids=None):
     """Raw scores of `rows` along a 32-point sweep of each feature j of
-    `feats` ((j, direction) pairs), through Booster.predict, whose batches
-    of 100k rows and more take the device predictor: (worst step against
-    the direction, steps that moved with it) per feature."""
-    grid = np.linspace(-3.0, 3.0, 32, dtype=np.float32)
+    `feats` ((j, direction) pairs; over grids[j] where given, else
+    [-3, 3]), through Booster.predict, whose batches of 100k rows and more
+    take the device predictor: (worst step against the direction, steps
+    that moved with it) per feature."""
     out = {}
     for j, sign in feats:
+        grid = (grids or {}).get(j)
+        if grid is None:
+            grid = np.linspace(-3.0, 3.0, 32, dtype=np.float32)
         Xs = np.repeat(rows, len(grid), axis=0)
         Xs[:, j] = np.tile(grid, len(rows))
         p = bst.predict(Xs, raw_score=True).reshape(len(rows), len(grid))
@@ -2846,6 +2884,402 @@ def bynode_xt_phase(lt, hc, torch, dev, params, ds, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the rest of the constraints: monotone `intermediate`, forced splits, CEGB
+# ---------------------------------------------------------------------------
+def _criteo_count_weights():
+    """The label weights of criteo_like's 13 count columns (its seed 7,
+    drawn after their means, spreads and NaN rates)."""
+    from lightgbm_tpu_torch.utils.synthetic import CRITEO_NUM_COUNTS as k
+    rng = np.random.RandomState(7)
+    for lo, hi in ((0.0, 4.0), (0.5, 1.5), (0.0, 0.4)):
+        rng.uniform(lo, hi, k)
+    return rng.normal(0.0, 0.3, k)
+
+
+def _waves(trees):
+    return [int(getattr(t, "num_waves", -1)) for t in trees]
+
+
+def _logloss(evals):
+    return [e["binary_logloss"] for e in evals]
+
+
+def intermediate_phase(lt, hc, torch, smi, params, ds, w, params_c, ds_c):
+    """monotone_constraints_method=intermediate: bench.py's model with
+    features 0-3 constrained in their weights' directions, 2 rounds on
+    "mega" (#1 the root, #3 the waves, #5 the last relabel, #2 the score
+    update), beside the same 2 rounds of `basic`; then the Criteo table
+    with its two heaviest count columns constrained, 2 rounds on "apply"
+    (#4, #1). Each: first tree equal to the plain versions', raw scores
+    never against a constraint along a 32-point sweep, histogram_impl=
+    fused vetoed naming monotone_intermediate; waves per tree, ms per
+    round, train logloss beside basic's."""
+    from lightgbm_tpu_torch.utils.synthetic import criteo_like
+    mono_b = [int(np.sign(x)) for x in w[:4]] + [0] * (N_FEAT - 4)
+    wc = _criteo_count_weights()
+    cols = [int(j) for j in np.argsort(-np.abs(wc))[:2]]
+    mono_c = [0] * 39
+    for j in cols:
+        mono_c[j] = int(np.sign(wc[j]))
+    Xc_rows = criteo_like(4096, seed=8)[0]
+    cases = (
+        ("bench", params, ds, mono_b, "mega",
+         np.random.RandomState(45).normal(size=(4096, N_FEAT))
+         .astype(np.float32), {},
+         ("build_histogram_slots", "wave_pass", "wave_relabel",
+          "take_leaf_values")),
+        ("criteo", params_c, ds_c, mono_c, "apply", Xc_rows,
+         {j: np.floor(np.expm1(np.linspace(
+             0.0, np.log1p(np.nanmax(Xc_rows[:, j])), 32)))
+          .astype(np.float32) for j in cols},
+         ("wave_apply", "build_histogram_slots", "take_leaf_values")))
+    out = {}
+    for model, base, dset, mono, route, rows, grids, kernels in cases:
+        runs = {}
+        for method in ("basic", "intermediate"):
+            evals = []
+            p = {**base, "metric": ["binary_logloss", "auc"],
+                 "monotone_constraints": mono,
+                 "monotone_constraints_method": method}
+            runs[method] = (_train_timed(lt, hc, torch, p, dset, 2,
+                                         evals=evals), evals, p)
+        (bst, launches, iter_ms, _), evals, p = runs["intermediate"]
+        (bb, _, basic_ms, _), basic_evals, _ = runs["basic"]
+        g = bst._gbdt
+        trees = g.models
+        lv_err = _same_host_tree(_plain_trees(torch, g, N_ROWS)[0],
+                                 trees[0])
+        g._device_tables_cache = None
+        feats = [(j, m) for j, m in enumerate(mono) if m]
+        sweep = _sweep_monotone(bst, rows, feats, grids)
+        veto = lt.Booster({**p, "histogram_impl": "fused"}, dset)._gbdt
+        emit({"phase": "intermediate", "model": model, "rows": N_ROWS,
+              "nvidia_smi": smi, "monotone_constraints":
+                  {str(j): m for j, m in feats},
+              "grow_route": g.grow_route,
+              "waves_per_tree": _waves(trees),
+              "basic_waves_per_tree": _waves(bb._gbdt.models),
+              "iter_ms": iter_ms, "ms_per_round": float(np.mean(iter_ms)),
+              "basic_iter_ms": basic_ms,
+              "train_logloss_per_round": _logloss(evals),
+              "basic_train_logloss_per_round": _logloss(basic_evals),
+              "launches": launches,
+              "leaves": [t.num_leaves for t in trees],
+              "first_tree_same": lv_err is not None,
+              "leaf_value_max_abs_err": lv_err,
+              "sweep_worst_step": sweep,
+              "sweep_device_route": g._device_tables_cache is not None,
+              "fused_route": veto.grow_route,
+              "fused_veto_reasons": veto.fused_veto_reasons})
+        check(g.grow_route == route, f"intermediate {model} took route "
+                                     f"{g.grow_route}")
+        for name in kernels:
+            check(launches[name] > 0,
+                  f"{name} never launched on the intermediate {model} run")
+        check(lv_err is not None and lv_err <= 1e-6,
+              f"intermediate {model}: first tree differs from the plain "
+              f"versions' ({lv_err})")
+        check(all(s >= 0.0 for s, _ in sweep.values()),
+              f"intermediate {model}: a score moved against its "
+              f"constraint {sweep}")
+        check(sum(m for _, m in sweep.values()) > 0,
+              f"intermediate {model}: no constrained feature moved the "
+              f"score {sweep}")
+        check(veto.grow_route == route
+              and veto.fused_veto_reasons == ["monotone_intermediate"],
+              f"intermediate {model} under fused: {veto.grow_route} "
+              f"{veto.fused_veto_reasons}")
+        ll = _logloss(evals)
+        check(len(trees) == 2 and all(np.isfinite(ll)) and ll[1] < ll[0],
+              f"intermediate {model}: train logloss {ll}")
+        out[model] = launches
+        del veto, bst, bb, runs
+    return out
+
+
+def forced_cegb_phase(lt, hc, torch, smi, params, ds, X, params_c, ds_c):
+    """Forced splits: bench.py's model with a forced root and both its
+    children (numeric features 0, 1, 2 at data quantiles), 2 rounds on
+    "mega": trees 0 and 1 carry the forced nodes with the forced bin
+    thresholds in BFS order, the first tree equals the plain versions'.
+    CEGB: the Criteo table with cegb_penalty_split and a coupled penalty on
+    all 39 columns, 4 rounds on "apply", beside the same run without
+    penalties: the first tree equals the plain versions', the second tree
+    the plain versions' grown with the features of the first marked paid
+    (so each coupled feature is charged in at most one tree), and the
+    penalized run uses no more distinct features. histogram_impl=fused is
+    vetoed naming forced_splits, and cegb."""
+    import tempfile
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = {"feature": 0, "threshold": float(np.quantile(X[:, 0], 0.5)),
+            "left": {"feature": 1,
+                     "threshold": float(np.quantile(X[:, 1], 0.3))},
+            "right": {"feature": 2,
+                      "threshold": float(np.quantile(X[:, 2], 0.7))}}
+    with tempfile.TemporaryDirectory(dir=here) as tmp:
+        path = os.path.join(tmp, "forced.json")
+        with open(path, "w") as f:
+            json.dump(spec, f)
+        p = {**params, "forcedsplits_filename": path}
+        bst, launches, iter_ms, aucs = _train_timed(lt, hc, torch, p, ds, 2)
+        veto = lt.Booster({**p, "histogram_impl": "fused"}, ds)._gbdt
+    g = bst._gbdt
+    trees = g.models
+    table = g.meta.forced.cpu().numpy()
+    bfs = [bool(np.array_equal(t.split_feature_inner[:3], table[0])
+                and np.array_equal(t.threshold_in_bin[:3], table[1])
+                and t.left_child[0] == 1 and t.right_child[0] == 2)
+           for t in trees]
+    lv_err = _same_host_tree(_plain_trees(torch, g, N_ROWS)[0], trees[0])
+    emit({"phase": "forced_cegb", "model": "bench", "rows": N_ROWS,
+          "nvidia_smi": smi, "forced": spec,
+          "forced_table": table.tolist(), "grow_route": g.grow_route,
+          "iter_ms": iter_ms, "launches": launches,
+          "train_auc_per_round": aucs,
+          "leaves": [t.num_leaves for t in trees],
+          "forced_nodes_in_bfs_order": bfs,
+          "first_tree_same": lv_err is not None,
+          "leaf_value_max_abs_err": lv_err,
+          "fused_route": veto.grow_route,
+          "fused_veto_reasons": veto.fused_veto_reasons})
+    check(g.grow_route == "mega" and table.shape == (4, 3),
+          f"forced bench: route {g.grow_route}, table {table.shape}")
+    for name in ("build_histogram_slots", "wave_pass", "wave_relabel",
+                 "take_leaf_values"):
+        check(launches[name] > 0, f"{name} never launched on the forced "
+                                  "run")
+    check(len(trees) == 2 and all(bfs),
+          f"forced bench: the trees do not carry the forced nodes {bfs}")
+    check(lv_err is not None and lv_err <= 1e-6,
+          f"forced bench: first tree differs from the plain versions' "
+          f"({lv_err})")
+    check(veto.grow_route == "mega"
+          and veto.fused_veto_reasons == ["forced_splits"],
+          f"forced under fused: {veto.grow_route} {veto.fused_veto_reasons}")
+    del bst, veto
+
+    pen = {"cegb_penalty_split": 1e-5,
+           "cegb_penalty_feature_coupled": [20.0] * 39}
+    res = {}
+    for name, over in (("free", {}), ("cegb", pen)):
+        after = []
+
+        def keep(env):
+            after.append(env.model._gbdt.scores.clone())
+        keep.order = 6
+        res[name] = _train_timed(lt, hc, torch, {**params_c, **over}, ds_c,
+                                 4, callbacks=[keep]) + (after,)
+    bst, launches, iter_ms, aucs, after = res["cegb"]
+    g = bst._gbdt
+    trees = g.models
+
+    def feats(ts):
+        return sorted({int(f) for t in ts
+                       for f in t.split_feature_inner[:t.num_leaves - 1]})
+    used0 = torch.zeros(len(g.mappers), dtype=torch.bool, device=g.X_t.device)
+    used0[feats(trees[:1])] = True
+    err0 = _same_host_tree(_plain_trees(torch, g, N_ROWS)[0], trees[0])
+    err1 = _same_host_tree(_plain_trees(torch, g, N_ROWS, scores=after[0],
+                                        it=1, cegb_used=used0)[0], trees[1])
+    new_feats = []
+    seen = set()
+    for t in trees:
+        f = set(feats([t]))
+        new_feats.append(sorted(f - seen))
+        seen |= f
+    free_feats = feats(res["free"][0]._gbdt.models)
+    veto = lt.Booster({**params_c, **pen, "histogram_impl": "fused"},
+                      ds_c)._gbdt
+    emit({"phase": "forced_cegb", "model": "criteo", "rows": N_ROWS,
+          "nvidia_smi": smi, "penalties": {
+              "cegb_penalty_split": pen["cegb_penalty_split"],
+              "cegb_penalty_feature_coupled": 20.0},
+          "grow_route": g.grow_route, "iter_ms": iter_ms,
+          "free_iter_ms": res["free"][2], "launches": launches,
+          "train_auc_per_round": aucs,
+          "free_train_auc_per_round": res["free"][3],
+          "leaves": [t.num_leaves for t in trees],
+          "free_leaves": [t.num_leaves
+                          for t in res["free"][0]._gbdt.models],
+          "features_first_used_per_tree": new_feats,
+          "distinct_features": len(seen),
+          "free_distinct_features": len(free_feats),
+          "used_state": int(g._cegb_used.sum()),
+          "first_tree_same": err0 is not None,
+          "first_tree_leaf_value_max_abs_err": err0,
+          "second_tree_same_with_paid_state": err1 is not None,
+          "second_tree_leaf_value_max_abs_err": err1,
+          "fused_route": veto.grow_route,
+          "fused_veto_reasons": veto.fused_veto_reasons})
+    check(g.grow_route == "apply" and launches["wave_apply"] > 0
+          and launches["build_histogram_slots"] > 0,
+          f"CEGB Criteo: route {g.grow_route}, launches {launches}")
+    check(err0 is not None and err0 <= 1e-6,
+          f"CEGB Criteo: first tree differs from the plain versions' "
+          f"({err0})")
+    check(err1 is not None and err1 <= 1e-6,
+          f"CEGB Criteo: second tree differs from the plain versions' "
+          f"with the first tree's features paid ({err1})")
+    check(sorted(seen) == sorted(np.flatnonzero(
+        g._cegb_used.cpu().numpy()).tolist()),
+          "CEGB Criteo: the used-feature state is not the model's features")
+    check(len(seen) <= len(free_feats),
+          f"CEGB Criteo: {len(seen)} distinct features against "
+          f"{len(free_feats)} without penalties")
+    check(veto.grow_route == "apply" and veto.fused_veto_reasons == ["cegb"],
+          f"CEGB under fused: {veto.grow_route} {veto.fused_veto_reasons}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# the training loop: continued training, late valid sets, fobj / feval,
+# reset_parameter, refit
+# ---------------------------------------------------------------------------
+def continued_phase(lt, hc, torch, dev, smi, params, ds, X, y, w):
+    """bench.py's model: 4 rounds saved as model text, then lt.train(
+    init_model=text) for 4 more (the replay on the card: the device binned
+    walk and #2 a tree), the replayed scores against predict(raw_score)
+    within 1e-6 and bitwise the CPU replay of the same text; a valid set
+    added after training against predict within 1e-5; an fobj of binary
+    logloss in torch on the card growing the built-in objective's first
+    tree, feval reported each round; the reset_parameter callback's rates
+    as each tree's shrinkage; refit of 2^18 held-out rows at decay 0.9
+    against the CPU refit within 1e-6, and at 1.0 an unchanged model."""
+    p = {**params, "metric": "binary_logloss"}
+    b4 = lt.train(p, ds, 4)
+    text = b4.model_to_string()
+    grab = {}
+
+    def at_start(env):
+        if env.iteration == 0:
+            torch.cuda.synchronize()
+            grab["scores"] = env.model._gbdt.scores.clone()
+            grab["launches"] = dict(hc.LAUNCHES)
+    at_start.before_iteration = True
+    hc.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    b8 = lt.train(p, ds, 4, init_model=text, callbacks=[at_start])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = dict(hc.LAUNCHES)
+    replayed = grab["scores"]
+    pred = b4.predict(X, raw_score=True)
+    replay_err = float(np.max(np.abs(replayed[0].cpu().numpy() - pred)))
+    gc = lt.Booster({**p, "device_type": "cpu"}, ds)._gbdt
+    t1 = time.perf_counter()
+    gc.load_init_model(text)
+    cpu_replay_s = time.perf_counter() - t1
+    replay_bitwise = torch.equal(gc.scores, replayed.cpu())
+    del gc
+    # the card's replay alone (the text parsed, 4 trees walked and added)
+    gd = lt.Booster(p, ds)._gbdt
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    gd.load_init_model(text)
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t1
+    del gd
+    rng = np.random.RandomState(46)
+    Xh = rng.normal(size=(1 << 18, N_FEAT)).astype(np.float32)
+    yh = (Xh @ w + rng.normal(scale=0.5, size=1 << 18) > 0) \
+        .astype(np.float32)
+    hc.reset_launch_counts()
+    b8.add_valid(lt.Dataset(Xh, label=yh), "late")
+    late_launches = dict(hc.LAUNCHES)
+    late = b8._gbdt._valid_scores[0][0].cpu().numpy()
+    late_err = float(np.max(np.abs(
+        late - b8.predict(Xh, raw_score=True, num_iteration=8))))
+
+    # fobj in torch on the card, against the built-in objective
+    lab = torch.from_numpy(y).to(dev)
+
+    def fobj(score, dset):
+        pr = torch.sigmoid(torch.from_numpy(score).to(dev))
+        return pr - lab, pr * (1.0 - pr)
+
+    def feval(score, dset):
+        pr = 1.0 / (1.0 + np.exp(-score.astype(np.float64)))
+        return ("logloss_np", float(-np.mean(
+            y * np.log(pr) + (1 - y) * np.log(1 - pr))), False)
+    rec = {}
+    pf = {**p, "boost_from_average": False}
+    bf = lt.train({**pf, "objective": "none", "metric": "none"}, ds, 2,
+                  valid_sets=[ds], fobj=fobj, feval=feval,
+                  callbacks=[lt.record_evaluation(rec)])
+    bb = lt.train(pf, ds, 1)
+    fobj_err = _same_host_tree(bf._gbdt.models[0], bb._gbdt.models[0])
+    feval_rounds = rec.get("valid_0", {}).get("logloss_np", [])
+
+    # learning-rate schedule
+    lrs = [0.3, 0.2, 0.1]
+    br = lt.train(pf, ds, 3, callbacks=[lt.reset_parameter(
+        learning_rate=lrs)])
+    shrink = [float(blk.split("shrinkage=")[1].split("\n")[0])
+              for blk in br.model_to_string().split("Tree=")[1:]]
+    sched_err = float(np.max(np.abs(
+        br.predict(X[:4096], raw_score=True)
+        - br._gbdt.scores[0, :4096].cpu().numpy())))
+
+    # refit on held-out rows, on the card and on the CPU
+    t2 = time.perf_counter()
+    rc = b4.refit(Xh, yh, decay_rate=0.9)
+    refit_s = time.perf_counter() - t2
+    rcpu = lt.Booster(model_str=text, params={**p, "device_type": "cpu"}) \
+        .refit(Xh, yh, decay_rate=0.9)
+    refit_err = max(float(np.max(np.abs(a.leaf_value - b.leaf_value)))
+                    for a, b in zip(rc._gbdt.models, rcpu._gbdt.models))
+    refit_moved = max(float(np.max(np.abs(a.leaf_value - b.leaf_value)))
+                      for a, b in zip(rc._gbdt.models, b4._gbdt.models))
+    same_at_1 = b4.refit(Xh, yh, decay_rate=1.0).model_to_string() == text
+    emit({"phase": "continued", "model": "bench", "rows": N_ROWS,
+          "nvidia_smi": smi, "trees": b8.num_trees(),
+          "iterations": b8.current_iteration, "train_s": train_s,
+          "replay_launches": grab["launches"], "launches": launches,
+          "replay_vs_predict_max_abs_err": replay_err,
+          "replay_bitwise_cpu": replay_bitwise,
+          "replay_s": replay_s, "cpu_replay_s": cpu_replay_s,
+          "late_valid_rows": len(yh), "late_valid_launches": late_launches,
+          "late_valid_vs_predict_max_abs_err": late_err,
+          "fobj_first_tree_same": fobj_err is not None,
+          "fobj_leaf_value_max_abs_err": fobj_err,
+          "feval_per_round": feval_rounds,
+          "reset_parameter_rates": lrs, "tree_shrinkage": shrink,
+          "schedule_predict_vs_scores_max_abs_err": sched_err,
+          "refit_rows": len(yh), "refit_s": refit_s,
+          "refit_vs_cpu_max_abs_err": refit_err,
+          "refit_leaf_value_max_abs_change": refit_moved,
+          "refit_decay_1_text_unchanged": same_at_1})
+    check(b8.num_trees() == 8 and b8.current_iteration == 8,
+          f"continued training holds {b8.num_trees()} trees")
+    check(grab["launches"]["take_leaf_values"] == 4
+          and launches["take_leaf_values"] == 8,
+          f"the replay did not launch #2 once a tree: {grab['launches']}, "
+          f"{launches}")
+    check(replay_err <= 1e-6, f"replayed scores differ from predict by "
+                              f"{replay_err}")
+    check(replay_bitwise, "the card's replay differs from the CPU's")
+    check(late_launches["take_leaf_values"] == 8,
+          f"the late valid set's replay launched #2 "
+          f"{late_launches['take_leaf_values']} times for 8 trees")
+    check(late_err <= 1e-5, f"late valid scores differ from predict by "
+                            f"{late_err}")
+    check(fobj_err is not None and fobj_err <= 1e-6,
+          f"fobj's first tree differs from the built-in objective's "
+          f"({fobj_err})")
+    check(len(feval_rounds) == 2 and feval_rounds[1] < feval_rounds[0],
+          f"feval per round {feval_rounds}")
+    check(shrink == lrs, f"tree shrinkage {shrink} against rates {lrs}")
+    check(sched_err <= 1e-5, f"the scheduled model's predictions differ "
+                             f"from its training scores by {sched_err}")
+    check(refit_err <= 1e-6, f"the card's refit differs from the CPU's "
+                             f"by {refit_err}")
+    check(refit_moved > 0.0, "refit at decay 0.9 changed no leaf value")
+    check(same_at_1, "refit at decay 1.0 changed the model text")
+    return grab["launches"], late_launches
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -3027,6 +3461,11 @@ def main():
     constraints_kernel_phase(hc, gf, torch, dev, bst_c._gbdt.X_t)
     constraints_train_phase(lt, hc, torch, params, ds, w, trees[0])
     constraints_criteo_phase(lt, hc, torch, bst_c.params, ds_c)
+    # monotone intermediate, then forced splits and CEGB, on the two-pass
+    # routes ("mega" for bench, "apply" for Criteo)
+    intermediate_phase(lt, hc, torch, smi, params, ds, w, bst_c.params,
+                       ds_c)
+    forced_cegb_phase(lt, hc, torch, smi, params, ds, X, bst_c.params, ds_c)
 
     # ---- 12. quantized gradients on every wave route, and row sampling
     quantized_phase(lt, hc, hr, gf, torch, dev, params, ds, bst_c.params,
@@ -3050,6 +3489,10 @@ def main():
     objectives_phase(lt, hc, torch, X, w, ds, smi)
     bynode_xt_phase(lt, hc, torch, dev, params, ds, smi)
     rank_phase(lt, hc, torch, dev, smi)
+
+    # ---- 14. the training loop: init_model, a late valid set, fobj /
+    # feval, reset_parameter, refit
+    continued_phase(lt, hc, torch, dev, smi, params, ds, X, y, w)
 
     src = {"build_histogram_slots": "hist_slots.cu",
            "take_leaf_values": "take_leaf_values.cu",

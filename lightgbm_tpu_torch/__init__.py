@@ -13,7 +13,7 @@ lightgbm_tpu.
 
 from .basic import Booster, Dataset
 from .callback import (EarlyStopException, early_stopping, log_evaluation,
-                       record_evaluation)
+                       record_evaluation, reset_parameter)
 from .config import Config
 from .engine import train
 from .utils.log import FatalError, register_logger
@@ -21,5 +21,5 @@ from .utils.log import FatalError, register_logger
 __all__ = [
     "Booster", "Config", "Dataset", "EarlyStopException", "FatalError",
     "early_stopping", "log_evaluation", "record_evaluation",
-    "register_logger", "train",
+    "register_logger", "reset_parameter", "train",
 ]

@@ -17,7 +17,7 @@ from typing import Any, Dict, List, Optional, Union
 import numpy as np
 
 from .config import resolve_params
-from .data.dataset import BinnedDataset, construct_from_matrix
+from .data.dataset import BinnedDataset, Metadata, construct_from_matrix
 from .metrics import Metric, create_metric, default_metric_for_objective
 from .models.gbdt import GBDT, check_slice_config
 from .objectives import create_objective
@@ -193,16 +193,29 @@ class Booster:
         self.name_valid_sets.append(name)
         return self
 
-    def update(self) -> bool:
-        """One boosting iteration (reference: basic.py:4005). Returns True
-        when no further splits are possible."""
+    def update(self, train_set: Optional[Dataset] = None,
+               fobj=None) -> bool:
+        """One boosting iteration (reference: basic.py:4005). With `fobj`,
+        fobj(raw scores, training Dataset) -> (grad, hess) gives the
+        iteration's gradients: the scores as NumPy, [N] or class-major
+        [K * N]; the arrays it returns (NumPy or tensors on any device) go
+        to the scores' device (JAX basic.py:658-668). Returns True when no
+        further splits are possible."""
+        if fobj is not None:
+            grad, hess = fobj(self._inner_raw_score(), self.train_set)
+            return self._gbdt.train_one_iter(grad, hess)
         return self._gbdt.train_one_iter()
 
+    def _inner_raw_score(self) -> np.ndarray:
+        """The training rows' raw scores, [N] or class-major [K * N]."""
+        s = self._gbdt.scores.cpu().numpy()
+        return s[0] if s.shape[0] == 1 else s.reshape(-1)
+
     def update_batch(self, n: int) -> None:
-        """Run `n` boosting iterations. The JAX package fuses them into
-        device scans whose models are md5-equal to repeated update() calls;
-        this port runs the per-iteration loop (the batched path is ROADMAP
-        item A12)."""
+        """Run `n` boosting iterations through update(): the per-iteration
+        loop. The JAX package fuses them into device scans whose models are
+        md5-equal to repeated update() calls; the port's batched path is
+        ROADMAP item A12."""
         for _ in range(n):
             if self.update():
                 break
@@ -227,14 +240,45 @@ class Booster:
         return imp if t else imp.astype(np.int64)
 
     # ------------------------------------------------------------------
-    def eval_train(self) -> List:
-        return self._gbdt.get_eval_result({"training": self._train_metrics})
+    def eval_train(self, feval=None) -> List:
+        return self._eval("training", feval)
 
-    def eval_valid(self) -> List:
+    def eval_valid(self, feval=None) -> List:
         out = []
-        for name, metrics in zip(self.name_valid_sets, self._valid_metrics):
-            out.extend(self._gbdt.get_eval_result({name: metrics}))
+        for name in self.name_valid_sets:
+            out.extend(self._eval(name, feval))
         return out
+
+    def eval(self, data: Dataset, name: str, feval=None) -> List:
+        """The metrics of the training set (name "training") or of the
+        valid set added under `name` (JAX basic.py:771-774)."""
+        if name == "training":
+            return self.eval_train(feval)
+        return self._eval(name, feval)
+
+    def _eval(self, name: str, feval=None) -> List:
+        """The set's metrics, then feval(raw scores, Dataset) -> one
+        (name, value, is_higher_better) or a list of them, appended as
+        (set name, name, value, is_higher_better); the scores as NumPy, [n]
+        or class-major [K * n], the Dataset the training set's or None for
+        a valid set (JAX basic.py:776-795)."""
+        if name == "training":
+            metrics = self._train_metrics
+            score, dataset = self._gbdt.scores, self.train_set
+        else:
+            vi = self.name_valid_sets.index(name)
+            metrics = self._valid_metrics[vi]
+            score, dataset = self._gbdt._valid_scores[vi], None
+        res = self._gbdt.get_eval_result({name: metrics})
+        if feval is not None:
+            s = score.cpu().numpy()
+            ret = feval(s[0] if s.shape[0] == 1 else s.reshape(-1), dataset)
+            if ret is not None:
+                if isinstance(ret, tuple):
+                    ret = [ret]
+                for mn, val, hib in ret:
+                    res.append((name, mn, val, hib))
+        return res
 
     # ------------------------------------------------------------------
     def predict(self, data, start_iteration: int = 0,
@@ -273,6 +317,84 @@ class Booster:
         return self._gbdt.predict(_to_2d_numpy(data), raw_score=raw_score,
                                   start_iteration=start_iteration,
                                   num_iteration=ni, **es_kwargs)
+
+    def reset_parameter(self, params: Dict[str, Any]) -> "Booster":
+        """reference: basic.py Booster.reset_parameter; the JAX package's
+        (basic.py:1072-1079): the booster's config is rebuilt from its
+        params updated with `params`, and the learning rate of the trees
+        to come changes with it. The grower keeps the configuration it
+        was built with, as in the JAX package."""
+        self.params.update(params)
+        cfg = resolve_params(self.params)
+        self._gbdt.config = cfg
+        self._gbdt.shrinkage_rate = cfg.learning_rate
+        return self
+
+    def refit(self, data, label, decay_rate: float = 0.9, weight=None,
+              **kwargs) -> "Booster":
+        """A new Booster whose trees keep this model's structures with
+        their leaf values refit to `data` (JAX basic.py:890-985; the leaf
+        math of GBDT::RefitTree, gbdt.cpp:200-228): each leaf value becomes
+        decay_rate * old + (1 - decay_rate) * new, `new` the regularized,
+        shrunk output of the gradients of the rows that fall in the leaf.
+        The leaves come from predict(pred_leaf=True); the gradients, once
+        an iteration before any class's trees, from the objective on the
+        device of the booster's (and `kwargs`') device_type; the per-leaf
+        sums in f64 on the host, in row order. `weight` scales the rows'
+        gradients as at training time. This booster is unchanged."""
+        import torch
+        data = _to_2d_numpy(data)
+        new_booster = Booster(model_str=self.model_to_string())
+        g = new_booster._gbdt
+        if g.objective is None:
+            raise ValueError("Cannot refit a model without an objective")
+        # the training regularization (the model text carries only the
+        # objective); refit-time params override
+        cfg = resolve_params({**self.params, **kwargs})
+        g.config = cfg
+        device = resolve_device(cfg.device_type)
+        label = np.asarray(label, np.float32).reshape(-1)
+        K = g.num_tree_per_iteration
+        N = data.shape[0]
+        leaf_preds = self.predict(data, pred_leaf=True).reshape(N, -1)
+        md = Metadata(N)
+        md.set_label(label)
+        if weight is not None:
+            md.set_weight(np.asarray(weight, np.float32).reshape(-1))
+        g.objective.init(md, N)
+        label_dev = torch.from_numpy(label).to(device)
+        weight_dev = (None if md.weight is None
+                      else torch.from_numpy(md.weight).to(device))
+        scores = np.zeros((K, N), dtype=np.float64)
+        for it in range(len(g.models) // max(K, 1)):
+            if g.objective.runs_on_host:
+                gr, he = g.objective.get_gradients_numpy(
+                    scores.reshape(-1).astype(np.float64))
+            else:
+                s = torch.from_numpy(scores.astype(np.float32)).to(device)
+                gr, he = g.objective.get_gradients(s[0] if K == 1 else s,
+                                                   label_dev, weight_dev)
+                gr, he = gr.cpu().numpy(), he.cpu().numpy()
+            grads, hesss = gr.reshape(K, N), he.reshape(K, N)
+            for k in range(K):
+                mi = it * K + k
+                tree = g.models[mi]
+                if getattr(tree, "is_linear", False):
+                    raise NotImplementedError(
+                        "refitting linear trees is not ported to "
+                        "lightgbm_tpu_torch yet (ROADMAP item A10)")
+                leaf = leaf_preds[:, mi]
+                nl = tree.num_leaves
+                sum_g = np.bincount(leaf, weights=grads[k], minlength=nl)
+                sum_h = np.bincount(leaf, weights=hesss[k], minlength=nl)
+                reg = np.abs(sum_g) - cfg.lambda_l1
+                new_val = -np.sign(sum_g) * np.maximum(reg, 0.0) / (
+                    sum_h + cfg.lambda_l2 + 1e-15)
+                new_val *= tree.shrinkage
+                tree.leaf_value = (decay_rate * tree.leaf_value
+                                   + (1.0 - decay_rate) * new_val[:nl])
+                scores[k] += tree.leaf_value[leaf]
+        return new_booster
 
     def serve(self, **kwargs) -> Any:
         """Inference session over this model: pinned packed trees, the

@@ -2,9 +2,9 @@
 
 Copy of lightgbm_tpu/callback.py, API-compatible with the reference python
 package (python-package/lightgbm/callback.py): log_evaluation:109,
-record_evaluation:183, early_stopping:278 (reset_parameter is not ported
-yet, ROADMAP item A10). The evaluation result list entries are
-(dataset_name, metric_name, value, is_higher_better) tuples.
+record_evaluation:183, reset_parameter:254, early_stopping:278. The
+evaluation result list entries are (dataset_name, metric_name, value,
+is_higher_better) tuples.
 """
 
 from __future__ import annotations
@@ -66,6 +66,35 @@ def record_evaluation(eval_result: Dict[str, Dict[str, List[float]]]) -> Callabl
             eval_result.setdefault(name, {}).setdefault(metric, []).append(value)
 
     _callback.order = 20  # type: ignore
+    return _callback
+
+
+def reset_parameter(**kwargs: Union[list, Callable]) -> Callable:
+    """reference: callback.py:254. Each keyword's value is a list (one
+    value per iteration of this training call) or a callable of the
+    iteration counted from its beginning; a value that differs from the
+    current parameter goes to Booster.reset_parameter before the
+    iteration."""
+
+    def _callback(env: CallbackEnv) -> None:
+        new_parameters = {}
+        for key, value in kwargs.items():
+            if isinstance(value, list):
+                if len(value) != env.end_iteration - env.begin_iteration:
+                    raise ValueError(
+                        f"Length of list {key!r} has to equal to "
+                        f"'num_boost_round'.")
+                new_param = value[env.iteration - env.begin_iteration]
+            else:
+                new_param = value(env.iteration - env.begin_iteration)
+            if new_param != env.params.get(key, None):
+                new_parameters[key] = new_param
+        if new_parameters:
+            env.model.reset_parameter(new_parameters)
+            env.params.update(new_parameters)
+
+    _callback.before_iteration = True  # type: ignore
+    _callback.order = 10  # type: ignore
     return _callback
 
 

@@ -14,18 +14,26 @@ host or device binning, on the route the JAX package's accelerator takes
 columns, the wave-apply route for wider, categorical or EFB-bundled data
 and for the row-wise histogram layouts, and under histogram_impl=fused the
 fused routes, whose kernels also search the children's splits; monotone
-constraints (method `basic`, with `monotone_penalty`) and interaction
-constraints on every route, quantized gradients (use_quantized_grad),
-feature_fraction_bynode and extra_trees, and uniform, class-stratified,
-by-query or GOSS row sampling (models/sample_strategy.py). Everything else
-raises NotImplementedError naming the ROADMAP item that ports it.
-Prediction covers every tree the JAX package writes except linear leaves on
-the device routes.
+constraints (method `basic` with `monotone_penalty`, and `intermediate`)
+and interaction constraints on every route, forced splits and CEGB
+penalties on the two-pass routes, quantized gradients
+(use_quantized_grad), feature_fraction_bynode and extra_trees, and
+uniform, class-stratified, by-query or GOSS row sampling
+(models/sample_strategy.py). The loop around it: continued training from an
+existing model (`load_init_model`, its trees replayed onto the scores on
+the device), valid sets added at any time, and iterations on caller-given
+gradients (`train_one_iter(grad, hess)`). Everything else raises
+NotImplementedError naming the ROADMAP item that ports it. Prediction
+covers every tree the JAX package writes except linear leaves on the
+device routes.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import json
+import os
 import re
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -47,7 +55,8 @@ from ..ops.split import FeatureMeta
 from ..utils import resolve_device, round_up
 from ..utils.log import log_fatal, log_info, log_warning
 from .sample_strategy import create_sample_strategy
-from .tree import Tree, make_decision_type
+from .tree import (_CATEGORICAL_MASK, _DEFAULT_LEFT_MASK, Tree,
+                   make_decision_type)
 
 _KEPS = 1e-15
 MODEL_VERSION = "v4"
@@ -74,14 +83,6 @@ def check_slice_config(cfg: Config) -> None:
         _not_ported(f"tpu_grower={cfg.tpu_grower}", "A11")
     if cfg.binning_impl == "auto" and cfg.autotune:
         _not_ported("autotune of binning_impl=auto", "A14")
-    if cfg.monotone_constraints and any(cfg.monotone_constraints) \
-            and cfg.monotone_constraints_method == "intermediate":
-        _not_ported("monotone_constraints_method=intermediate", "A10")
-    if cfg.forcedsplits_filename:
-        _not_ported("forced splits", "A10")
-    if cfg.cegb_penalty_split > 0.0 or cfg.cegb_penalty_feature_coupled \
-            or cfg.cegb_penalty_feature_lazy:
-        _not_ported("CEGB penalties", "A10")
     if cfg.num_leaves > MAX_LEAVES:
         _not_ported(f"num_leaves > {MAX_LEAVES}", "A11")
     if cfg.checkpoint_interval > 0 or cfg.checkpoint_dir \
@@ -107,6 +108,50 @@ def _parse_interaction_constraints(spec) -> List[List[int]]:
         return [[int(x) for x in grp.split(",") if x.strip() != ""]
                 for grp in re.findall(r"\[([^\]]*)\]", spec)]
     return [list(map(int, grp)) for grp in spec]
+
+
+def parse_forced_splits(filename: str,
+                        ds: BinnedDataset) -> Optional[np.ndarray]:
+    """forcedsplits_filename's JSON -> [4, S] int32 BFS table of (inner
+    feature, bin threshold, left id, right id), -1 for no child (gbdt.py:
+    63-100; the reference reads the nested {feature, threshold, left,
+    right} JSON in SerialTreeLearner::Init and walks it in ForceSplits,
+    serial_tree_learner.cpp:628). Real thresholds become bin thresholds
+    through the feature's bin mapper. A node on an unused feature is
+    dropped with a warning (its branch stops forcing); one on a
+    categorical feature is fatal. None when nothing is forced."""
+    with open(filename) as f:
+        root = json.load(f)
+    if not root:
+        return None
+    real2inner = {r: i for i, r in enumerate(ds.real_feature_index)}
+    is_cat = np.asarray(ds.feature_is_categorical())
+    rows = []                # (feature, bin_thr, left, right)
+    queue = [(root, -1, "")]
+    while queue:
+        node, parent_idx, side = queue.pop(0)
+        real_f = int(node["feature"])
+        thr = float(node["threshold"])
+        if real_f not in real2inner:
+            log_warning(f"forced split on trivial/unused feature {real_f} "
+                        "ignored (its branch stops forcing)")
+            continue
+        inner = real2inner[real_f]
+        if bool(is_cat[inner]):
+            log_fatal("forced splits on categorical features are not "
+                      "supported")
+        bin_thr = int(ds.mappers[inner].value_to_bin(
+            np.asarray([thr], np.float64))[0])
+        idx = len(rows)
+        rows.append([inner, bin_thr, -1, -1])
+        if parent_idx >= 0:
+            rows[parent_idx][2 if side == "left" else 3] = idx
+        for s in ("left", "right"):
+            if isinstance(node.get(s), dict) and node[s]:
+                queue.append((node[s], idx, s))
+    if not rows:
+        return None
+    return np.asarray(rows, np.int32).T          # [4, S]
 
 
 def build_feature_meta(ds: BinnedDataset, device,
@@ -183,10 +228,12 @@ class GBDT:
         self.train_set = train_set
         self.training_metrics = list(training_metrics)
         self._models: List[Tree] = []
-        # device trees not yet materialized on the host: (DeviceTree, bias)
-        self._pending: List[Tuple[DeviceTree, float]] = []
+        # device trees not yet materialized on the host: (DeviceTree, bias,
+        # the learning rate the tree was grown under)
+        self._pending: List[Tuple[DeviceTree, float, float]] = []
         self._stop_check_interval = 32
         self._stopped = False
+        self._cegb_used: Optional[torch.Tensor] = None
         self.iter = 0
         self.num_class = config.num_class
         self.num_tree_per_iteration = (
@@ -238,11 +285,17 @@ class GBDT:
         self.meta = build_feature_meta(ds, self.device,
                                        cfg.monotone_constraints,
                                        cfg.interaction_constraints)
+        if cfg.forcedsplits_filename:
+            forced = parse_forced_splits(cfg.forcedsplits_filename, ds)
+            if forced is not None:
+                self.meta = self.meta._replace(forced=torch.from_numpy(
+                    forced.astype(np.int64)).to(self.device))
         if bundled:
             expand, mfb = bundle_maps(ds, B)
             self.meta = self.meta._replace(
                 bundle_expand=torch.from_numpy(expand).to(self.device),
                 bundle_mfb=torch.from_numpy(mfb).to(self.device))
+        self._init_cegb(ds, bundled)
         # per-STORAGE-COLUMN bin counts (gbdt.py:345-348); force_row_wise
         # pins the row-wise layout (gbdt.py:353-355)
         hist_tiers = tuple(ds.storage_num_bins())
@@ -276,6 +329,10 @@ class GBDT:
             has_interaction=self.meta.inter_sets is not None,
             monotone_method=str(cfg.monotone_constraints_method),
             monotone_penalty=float(cfg.monotone_penalty),
+            has_forced=self.meta.forced is not None,
+            cegb_tradeoff=float(cfg.cegb_tradeoff),
+            cegb_penalty_split=float(cfg.cegb_penalty_split),
+            has_cegb_coupled=self.meta.cegb_coupled is not None,
             feature_fraction_bynode=float(cfg.feature_fraction_bynode),
             extra_trees=bool(cfg.extra_trees),
             extra_seed=int(cfg.extra_seed),
@@ -347,16 +404,54 @@ class GBDT:
         for m in self.training_metrics:
             m.init(md, N)
 
+    def _init_cegb(self, ds: BinnedDataset, bundled: bool) -> None:
+        """CEGB's split and coupled penalties (gbdt.py:508-540;
+        cost_effective_gradient_boosting.hpp): the coupled vector by inner
+        feature, and the [F] state of the features the model has split
+        on, which carries over trees and over a round's K trees. The lazy
+        penalty, a coupled vector of the wrong length and EFB bundles are
+        fatal, with the JAX package's messages. The JAX package's warning
+        for a grower other than the wave grower has no case here: the port
+        has no other."""
+        cfg = self.config
+        if cfg.cegb_penalty_feature_lazy:
+            log_fatal("cegb_penalty_feature_lazy is not implemented in "
+                      "lightgbm_tpu yet")
+        self._cegb_used = None
+        if not (cfg.cegb_penalty_split > 0.0
+                or cfg.cegb_penalty_feature_coupled):
+            return
+        if cfg.cegb_penalty_feature_coupled:
+            if len(cfg.cegb_penalty_feature_coupled) \
+                    != ds.num_total_features:
+                log_fatal("cegb_penalty_feature_coupled should be the "
+                          "same size as feature number.")
+            cpl = np.zeros(len(ds.mappers), np.float32)
+            for inner, real in enumerate(ds.real_feature_index):
+                cpl[inner] = cfg.cegb_penalty_feature_coupled[real]
+            self.meta = self.meta._replace(
+                cegb_coupled=torch.from_numpy(cpl).to(self.device))
+        if bundled:
+            log_fatal("cegb_* with EFB bundling (enable_bundle) is "
+                      "not supported; set enable_bundle=false")
+        self._cegb_used = torch.zeros(len(ds.mappers), dtype=torch.bool,
+                                      device=self.device)
+
     # ------------------------------------------------------------------
     def add_valid_dataset(self, ds: BinnedDataset, name: str,
                           metrics: Sequence[Metric]) -> None:
-        if self._models or self._pending:
-            _not_ported("adding a valid set after training started "
-                        "(continued training)", "A10")
-        self._valid_Xt.append(torch.from_numpy(
-            np.ascontiguousarray(ds.X_binned.T)).to(self.device))
-        self._valid_scores.append(torch.from_numpy(self._initial_scores(
-            ds.metadata.init_score, ds.num_data)).to(self.device))
+        """Score `ds` each round from now on; a model that already has
+        trees (a late valid set, continued training) is replayed onto its
+        starting scores first, tree by tree in model order, on the device
+        (gbdt.py:966-990)."""
+        Xv = torch.from_numpy(np.ascontiguousarray(ds.X_binned.T)).to(
+            self.device)
+        scores = torch.from_numpy(self._initial_scores(
+            ds.metadata.init_score, ds.num_data)).to(self.device)
+        if self.models:
+            self._replay(self.models, Xv, scores)
+        self._valid_Xt.append(Xv)
+        self._valid_scores.append(scores)
         self.valid_sets.append(ds)
         self.valid_names.append(name)
         for m in metrics:
@@ -379,8 +474,8 @@ class GBDT:
         """Host trees; materializes any pending device trees first."""
         if self._pending:
             pending, self._pending = self._pending, []
-            for tree_dev, bias in pending:
-                tree = self._device_tree_to_host(tree_dev)
+            for tree_dev, bias, lr in pending:
+                tree = self._device_tree_to_host(tree_dev, lr)
                 if abs(bias) > _KEPS:
                     tree.add_bias(bias)
                 self._models.append(tree)
@@ -390,7 +485,7 @@ class GBDT:
         """Report whether the last iteration's K trees are all stumps
         (reference stop condition, gbdt.cpp:376-384)."""
         K = self.num_tree_per_iteration
-        counts = [t.num_leaves for t, _ in self._pending[-K:]] \
+        counts = [p[0].num_leaves for p in self._pending[-K:]] \
             or [t.num_leaves for t in self._models[-K:]]
         if counts and all(int(c) <= 1 for c in counts):
             log_warning("Stopped training because there are no more leaves "
@@ -456,16 +551,36 @@ class GBDT:
                                             self.weight_dev)
         return g[None], h[None]
 
-    def train_one_iter(self) -> bool:
-        """One boosting iteration (GBDT::TrainOneIter, gbdt.cpp:353;
-        gbdt.py:1443-1530): gradients once for all K classes, then K trees.
-        Returns True if training should stop (no splits possible)."""
-        if self.objective is None:
-            log_fatal("No objective function provided for boosting")
+    def _custom_rows(self, a) -> torch.Tensor:
+        """Caller-given gradients or hessians ([N] or [K * N] values,
+        class-major; a NumPy array or a tensor on any device) as [K, N]
+        f32 on the scores' device (gbdt.py:1451-1458)."""
         K = self.num_tree_per_iteration
-        init_scores = (self._boost_from_average() if self.iter == 0
-                       else np.zeros(K))
-        g, h = self._gradients()
+        if isinstance(a, torch.Tensor):
+            t = a.detach().to(torch.float32)
+        else:
+            t = torch.from_numpy(np.ascontiguousarray(
+                np.asarray(a, np.float32)))
+        return t.reshape(K, -1).to(self.scores.device)
+
+    def train_one_iter(self, grad=None, hess=None) -> bool:
+        """One boosting iteration (GBDT::TrainOneIter, gbdt.cpp:353;
+        gbdt.py:1437-1530): gradients once for all K classes, then K trees.
+        With `grad` and `hess` given (a custom objective's, gbdt.py:
+        1447-1458) those are the iteration's gradients, and no score is
+        boosted from the average. Sampling, quantization and leaf renewal
+        see them as they see the objective's. Returns True if training
+        should stop (no splits possible)."""
+        K = self.num_tree_per_iteration
+        init_scores = np.zeros(K)
+        if grad is None or hess is None:
+            if self.iter == 0:
+                init_scores = self._boost_from_average()
+            if self.objective is None:
+                log_fatal("No objective function provided for boosting")
+            g, h = self._gradients()
+        else:
+            g, h = self._custom_rows(grad), self._custom_rows(hess)
         strat = self.sample_strategy
         if self._in_bag is None or strat.resamples_at(self.iter):
             self._in_bag = strat.sample(self.iter, g, h)
@@ -475,8 +590,17 @@ class GBDT:
             tree, leaf_of_row = grow_tree_wave(
                 self.X_t, g[k], h[k], self._in_bag, self.meta, self.grow_cfg,
                 feat_mask, hist_plan=self.hist_plan,
-                rng_seed=self.tree_seed(self.iter, k))
-            if self.objective.need_renew_tree_output:
+                rng_seed=self.tree_seed(self.iter, k),
+                cegb_used=self._cegb_used)
+            if self._cegb_used is not None and tree.num_leaves > 1:
+                # the features this tree split on are paid for: later trees,
+                # the round's next class included, use them freely
+                # (cost_effective_gradient_boosting.hpp:110; gbdt.py:
+                # 912-932)
+                self._cegb_used[tree.split_feature[:tree.num_leaves - 1]] \
+                    = True
+            if self.objective is not None \
+                    and self.objective.need_renew_tree_output:
                 tree = self._renew_tree_output(k, tree, leaf_of_row)
             add_leaf_values_(self.scores[k], tree.leaf_value * lr,
                              leaf_of_row)
@@ -489,7 +613,7 @@ class GBDT:
                     tree.num_leaves, Xv, self.meta, tree.split_is_cat,
                     tree.split_cat_bitset)
                 self._valid_scores[vi][k] += (tree.leaf_value * lr)[leaf]
-            self._pending.append((tree, float(init_scores[k])))
+            self._pending.append((tree, float(init_scores[k]), lr))
         self.iter += 1
         # the stop check is evaluated at the JAX package's iterations
         # (powers of two, then every 32), so both grow the same number of
@@ -534,12 +658,14 @@ class GBDT:
             leaf_vals.astype(np.float32)).to(self.device))
 
     # ------------------------------------------------------------------
-    def _device_tree_to_host(self, t: DeviceTree) -> Tree:
+    def _device_tree_to_host(self, t: DeviceTree,
+                             lr: Optional[float] = None) -> Tree:
         """Pull a DeviceTree into a host Tree with real thresholds and real
-        feature indices (gbdt.py:1908-1976). Categorical splits translate
-        the bin bitset into the reference's category-value bitsets
-        (cat_boundaries / cat_threshold; tree.cpp Tree::Split categorical
-        path)."""
+        feature indices (gbdt.py:1908-1976), its values shrunk by `lr`, the
+        learning rate it was grown under (the current one by default).
+        Categorical splits translate the bin bitset into the reference's
+        category-value bitsets (cat_boundaries / cat_threshold; tree.cpp
+        Tree::Split categorical path)."""
         n = int(t.num_leaves)
         m = max(n - 1, 0)
 
@@ -580,7 +706,8 @@ class GBDT:
                                                   mp.missing_type)
         real_feat = np.asarray([self.real_feature_index[f] for f in sf_inner],
                                np.int32)
-        lr = self.shrinkage_rate
+        if lr is None:
+            lr = self.shrinkage_rate
         tree = Tree.from_arrays(
             num_leaves=n,
             split_feature=real_feat,
@@ -601,8 +728,131 @@ class GBDT:
             cat_threshold=np.asarray(cat_threshold, np.uint32),
             num_cat=num_cat,
         )
+        # the training-time attributes of a binned replay (late valid
+        # sets, continued training; gbdt.py:1970-1973)
         tree.split_feature_inner = sf_inner
+        tree.split_is_cat = is_cat
+        tree.split_cat_bitset_bins = cat_bits_bins
+        tree.num_waves = int(t.num_waves)     # diagnostic, not in the text
         return tree
+
+    # ------------------------------------------------------------------
+    # continued training (engine.py:234-242 -> CreateBoosting(file),
+    # boosting.cpp:70-90)
+    # ------------------------------------------------------------------
+    def load_init_model(self, init) -> None:
+        """Adopt an existing model's trees ahead of this run's and replay
+        them onto the training scores (gbdt.py:1662-1690). `init` is a GBDT
+        or a model file's path or text. Later iterations continue the
+        count, so the scores are not boosted from the average again."""
+        if isinstance(init, str):
+            text = init
+            if os.path.exists(init):
+                with open(init) as f:
+                    text = f.read()
+            init = GBDT.load_model_from_string(text, self.config)
+        trees = [copy.deepcopy(t) for t in init.models]
+        if not trees:
+            return
+        K = self.num_tree_per_iteration
+        # the original features: with EFB self.X_t holds bundle columns
+        X_t = self.X_t if self.train_set.bundles is None else \
+            torch.from_numpy(np.ascontiguousarray(
+                self.train_set.X_binned.T)).to(self.device)
+        add = torch.zeros_like(self.scores)
+        self._replay(trees, X_t, add)
+        self.scores += add
+        self._models = trees + self.models
+        self.iter = len(trees) // max(K, 1) + self.iter
+        log_info(f"Continued training from {len(trees)} existing trees")
+
+    def _replay(self, trees: Sequence[Tree], X_t: torch.Tensor,
+                scores: torch.Tensor) -> None:
+        """scores[i % K] += tree i's shrunk leaf values at each row's leaf,
+        in place, tree by tree: the device binned walk (ops/predict.py)
+        over X_t [F, N] (original features), then the score update (#2),
+        f32 values added in model order as the JAX package's NumPy loop
+        adds them."""
+        K = self.num_tree_per_iteration
+        for i, tree in enumerate(trees):
+            if getattr(tree, "is_linear", False):
+                _not_ported("replaying linear trees onto scores", "A10")
+            leaf = self._tree_leaves_binned(tree, X_t)
+            values = torch.from_numpy(np.asarray(
+                tree.leaf_value, np.float32)).to(X_t.device)
+            add_leaf_values_(scores[i % K], values, leaf)
+
+    def _tree_leaves_binned(self, tree: Tree,
+                            X_t: torch.Tensor) -> torch.Tensor:
+        """[N] int32 leaf of every row of the binned X_t [F, N] in a host
+        tree (Tree.get_leaf_binned's walk, on X_t's device)."""
+        self._ensure_binned_traversal(tree)
+        m = max(tree.num_leaves - 1, 0)
+        dev = X_t.device
+
+        def t(a, dtype):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(
+                device=dev, dtype=dtype)
+        dt = np.asarray(tree.decision_type[:m], np.int64)
+        bits = getattr(tree, "split_cat_bitset_bins", None)
+        is_cat = cat_bits = None
+        if bits is not None and len(bits):
+            is_cat = t((dt & _CATEGORICAL_MASK) != 0, torch.bool)
+            cat_bits = t(np.asarray(bits, np.int64), torch.int64)
+        leaf = predict_leaf_binned(
+            t(np.asarray(tree.split_feature_inner, np.int64), torch.int64),
+            t(np.asarray(tree.threshold_in_bin, np.int64), torch.int64),
+            t((dt & _DEFAULT_LEFT_MASK) != 0, torch.bool),
+            t(tree.left_child[:m], torch.int32),
+            t(tree.right_child[:m], torch.int32), tree.num_leaves, X_t,
+            self.meta, is_cat, cat_bits)
+        return leaf.to(torch.int32)
+
+    def _ensure_binned_traversal(self, tree: Tree) -> None:
+        """A file-loaded tree carries real thresholds: derive the binned
+        attributes of the walk on this Dataset's mappers (gbdt.py:1692-
+        1732): inner feature ids, bin thresholds (the mapper's bin of the
+        threshold) and, for categorical nodes, bin bitsets (the bins whose
+        category is in the node's category bitset)."""
+        if getattr(tree, "split_feature_inner", None) is not None:
+            return
+        real2inner = {r: i for i, r in enumerate(self.real_feature_index)}
+        m = max(tree.num_leaves - 1, 0)
+        inner = np.zeros(m, np.int32)
+        thr_bin = np.zeros(m, np.int32)
+        is_cat = np.zeros(m, bool)
+        W = max((self.num_bins_padded + 31) // 32, 1)
+        bits = np.zeros((m, W), np.uint32)
+        for i in range(m):
+            real = int(tree.split_feature[i])
+            if real not in real2inner:
+                log_fatal(
+                    f"init_model splits on feature {real} which is unused "
+                    "(trivial/constant) in the current training data; "
+                    "continued training requires compatible features")
+            fi = real2inner[real]
+            inner[i] = fi
+            mp = self.mappers[fi]
+            if tree.num_cat > 0 and (int(tree.decision_type[i]) & 1):
+                is_cat[i] = True
+                ci = int(tree.threshold[i])   # cat splits store cat_idx
+                thr_bin[i] = ci
+                s0 = int(tree.cat_boundaries[ci])
+                s1 = int(tree.cat_boundaries[ci + 1])
+                words = np.asarray(tree.cat_threshold[s0:s1], np.uint32)
+                for b in range(min(mp.num_bin, 32 * W)):
+                    v = mp.bin_2_categorical[b] \
+                        if b < len(mp.bin_2_categorical) else -1
+                    if 0 <= v < 32 * len(words) and \
+                            (words[v >> 5] >> (v & 31)) & 1:
+                        bits[i, b >> 5] |= np.uint32(1 << (b & 31))
+            else:
+                thr_bin[i] = int(mp.value_to_bin(
+                    np.asarray([tree.threshold[i]]))[0])
+        tree.split_feature_inner = inner
+        tree.threshold_in_bin = thr_bin
+        tree.split_is_cat = is_cat
+        tree.split_cat_bitset_bins = bits
 
     # ------------------------------------------------------------------
     def get_eval_result(self, metrics_per_set: Dict[str, Sequence[Metric]]

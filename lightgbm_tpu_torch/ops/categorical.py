@@ -89,13 +89,17 @@ def find_best_split_categorical(
     feature_mask: Optional[torch.Tensor] = None,
     leaf_min: Optional[torch.Tensor] = None,
     leaf_max: Optional[torch.Tensor] = None,
+    cegb_pen: Optional[torch.Tensor] = None,
 ) -> Tuple[SplitResult, torch.Tensor]:
     """Best categorical split over all features per histogram.
 
     feature_mask [F] or [..., F]; leaf_min / leaf_max [...] the monotone
-    bounds the child outputs are clipped into. Returns (SplitResult with
-    the batch shape, bin bitset [..., W] int64). gain == -inf where no
-    categorical split is valid."""
+    bounds the child outputs are clipped into; cegb_pen [F] or [..., F]
+    CEGB's per-feature penalty, subtracted from every finite gain of the
+    three candidate kinds before the argmax (lightgbm_tpu/ops/
+    categorical.py:158-160). Returns (SplitResult with the batch shape,
+    bin bitset [..., W] int64). gain == -inf where no categorical split is
+    valid."""
     F, B = hist.shape[-2:]
     batch = hist.shape[:-3]
     dev = hist.device
@@ -180,6 +184,10 @@ def find_best_split_categorical(
     stats1 = (lg1, lh1, lc1, rg1, rh1, rc1, lout1, rout1)
 
     all_gain = torch.stack([gain1, gain_a, gain_d], dim=-3)  # [..., 3, F, B]
+    if cegb_pen is not None:
+        all_gain = torch.where(torch.isfinite(all_gain),
+                               all_gain - cegb_pen[..., None, :, None],
+                               all_gain)
     flat = all_gain.reshape(batch + (3 * F * B,))
     best_k = torch.argmax(flat, dim=-1, keepdim=True)
     best_gain = torch.gather(flat, -1, best_k)[..., 0]

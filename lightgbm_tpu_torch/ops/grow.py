@@ -54,11 +54,19 @@ class GrowConfig(NamedTuple):
     min_data_per_group: float = 100.0
     # search-side constraints: whether meta carries monotone directions /
     # interaction sets (they decide the fused route, grow_wave.py:300-309),
-    # the monotone method and monotone_penalty
+    # the monotone method ("basic" or "intermediate") and monotone_penalty
     has_monotone: bool = False
     has_interaction: bool = False
     monotone_method: str = "basic"
     monotone_penalty: float = 0.0
+    # forced splits (meta.forced, forcedsplits_filename) and CEGB
+    # (cost_effective_gradient_boosting.hpp): the penalty tradeoff *
+    # (penalty_split * leaf count + coupled[f] on a feature's first use),
+    # whether meta carries the coupled vector (grow_wave.py:424-428)
+    has_forced: bool = False
+    cegb_tradeoff: float = 1.0
+    cegb_penalty_split: float = 0.0
+    has_cegb_coupled: bool = False
     # per-node column sampling and one random threshold per node and
     # feature (feature_fraction_bynode, extra_trees with extra_seed),
     # drawn from the tree's seed by the port's threefry
@@ -87,6 +95,10 @@ class GrowConfig(NamedTuple):
     @property
     def bundled(self) -> bool:
         return len(self.bundle_col) > 0
+
+    @property
+    def has_cegb(self) -> bool:
+        return self.cegb_penalty_split > 0.0 or self.has_cegb_coupled
 
     @property
     def hp(self) -> SplitHyperParams:

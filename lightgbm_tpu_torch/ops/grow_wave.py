@@ -55,10 +55,30 @@ exact int32, parent minus smaller child subtracts in int32, and the search
 reads them descaled to f32; `quant_renew_leaf` then refits the leaf values
 from exact float leaf sums (the slot histogram over a one-bin feature).
 
+Three regimes take the two-pass routes only ("mega", "apply"; the fused
+kernels are vetoed, as in the JAX package):
+
+  * forced splits (meta.forced, grow_wave.py:431-439, :600-643,
+    :1815-1825): a leaf whose cached best is its forced-table node's split
+    outranks every other (key 3e18 - node id * 1e12, so forced nodes apply
+    in BFS order), and its children continue the table; a forced split
+    that cannot be made leaves the branch to normal growth;
+  * CEGB (grow_wave.py:577-598): every search subtracts tradeoff *
+    (penalty_split * count + coupled * (1 - used)) per feature, `used` the
+    features split on so far (`cegb_used` from the earlier trees, then
+    this tree's applied splits);
+  * monotone `intermediate` (grow_wave.py:1201-1272, :1403-1438,
+    :1767-1800): children bounded by their sibling's output, at most one
+    split a wave among the leaves under a monotone node, every apply
+    followed by a refresh of all bounds against the subtree outputs, and
+    the leaves whose bounds moved re-searched as a third block of the
+    wave's search before they speculate again.
+
 The JAX package's `lax.while_loop` over waves becomes a Python loop that
 reads two host scalars per wave (whether to go on plus the number of
-splits to apply, then the candidate count, which picks the bucketed K); its
-`lax.switch` over K buckets becomes a direct call with the bucketed K.
+splits to apply, then the candidate count, which picks the bucketed K,
+with the stale leaves' count under `intermediate`); its `lax.switch` over
+K buckets becomes a direct call with the bucketed K.
 """
 
 from __future__ import annotations
@@ -79,7 +99,8 @@ from .histogram import (ROWWISE_IMPLS, HistPlan, build_histogram,
                         wave_apply, wave_pass, wave_pass_fused,
                         wave_pass_fused_tiled, wave_relabel)
 from .split import (NEG_INF, FeatureMeta, SplitResult, find_best_split,
-                    synth_count_channel, threshold_l1)
+                    find_best_split_and_forced, synth_count_channel,
+                    threshold_l1)
 from ..utils.random import PRNGKey, fold_in, split, uniform
 
 MAX_WAVE_FEATURES = 32
@@ -144,6 +165,10 @@ def fused_veto_reasons(cfg: GrowConfig) -> List[str]:
         reasons.append("LIGHTGBM_TPU_DISABLE_FUSED")
     if cfg.bundled:
         reasons.append("efb_bundled")
+    if cfg.has_forced:
+        reasons.append("forced_splits")
+    if cfg.has_cegb:
+        reasons.append("cegb")
     if cfg.feature_fraction_bynode < 1.0:
         reasons.append("feature_fraction_bynode")
     if cfg.extra_trees:
@@ -456,6 +481,7 @@ def grow_tree_wave(
     *,
     hist_plan: Optional[HistPlan] = None,
     rng_seed: int = 0,
+    cegb_used: Optional[torch.Tensor] = None,
     plain: bool = False,
 ) -> Tuple[DeviceTree, torch.Tensor]:
     """Grow one tree; returns (DeviceTree, leaf_of_row [N] int32).
@@ -468,6 +494,9 @@ def grow_tree_wave(
     (PRNGKey(rng_seed + 0x5EED)) and extra_trees' thresholds
     (PRNGKey(rng_seed * 31 + extra_seed)), folded with 0 at the root and
     with the wave count + 1 in the waves, as the JAX package's.
+    `cegb_used` [F] bool marks the features earlier trees of the model
+    split on: CEGB's coupled penalty charges only the others (all of them
+    when None).
     `plain=True` runs the kernels' plain PyTorch versions on any device."""
     dev = X_t.device
     F_st, N = X_t.shape
@@ -516,7 +545,43 @@ def grow_tree_wave(
     has_mono = meta.monotone is not None
     has_inter = meta.inter_sets is not None
     use_mpen = has_mono and cfg.monotone_penalty > 0.0
+    # monotone `intermediate` (grow_wave.py:717-757, :1201-1272,
+    # :1403-1438, :1767-1800): children bounded by their sibling's output,
+    # at most one split a wave under a monotone node, and the bounds
+    # refreshed after every apply, with an own re-search of the leaves
+    # whose bounds moved
+    mono_inter = has_mono and cfg.monotone_method == "intermediate"
     S = meta.inter_sets.shape[0] if has_inter else 1
+    # forced splits (meta.forced) and CEGB (grow_wave.py:424-428)
+    has_forced = meta.forced is not None
+    has_cegb = cfg.has_cegb
+    feat_used = (cegb_used.clone() if cegb_used is not None
+                 else torch.zeros(F, dtype=torch.bool, device=dev))
+
+    def sel_key(gain, is_forced, fid):
+        """The wave's selection key (grow_wave.py:431-439): a leaf whose
+        best is its forced split outranks every other, forced nodes in BFS
+        order, 3e18 - fid * 1e12 in f32; the stored gain stays the real
+        one (ForceSplits walks its queue first, serial_tree_learner.cpp:
+        628)."""
+        if not has_forced:
+            return gain
+        return torch.where(is_forced, 3e18 - fid.to(torch.float32) * 1e12,
+                           gain)
+
+    def cegb_penalty(count):
+        """[n, F] CEGB penalties of n leaves of `count` rows
+        (DeltaGain, cost_effective_gradient_boosting.hpp:81;
+        grow_wave.py:577-598): tradeoff * (penalty_split * count +
+        coupled * (1 - used)), `used` the features split on so far, in this
+        tree and before it. As in the JAX package, and not the reference's
+        UpdateLeafBestSplits, leaves searched before a feature's first use
+        keep the penalized gains they cached."""
+        pen = (cfg.cegb_tradeoff * cfg.cegb_penalty_split) * count[:, None]
+        if meta.cegb_coupled is not None:
+            pen = pen + (cfg.cegb_tradeoff * meta.cegb_coupled
+                         * (1.0 - feat_used.to(torch.float32)))
+        return pen.expand(count.shape[0], F)
     # per-node draws (grow_wave.py:657-682): int32 seeds, wrapped as
     # PRNGKey wraps them
     bynode = cfg.feature_fraction_bynode < 1.0
@@ -567,14 +632,56 @@ def grow_tree_wave(
         """The children's bounds after the splits `bsx` of leaves bounded
         by [pmin, pmax]: the `basic` rule separates them at the midpoint
         of the clipped outputs (BasicLeafConstraints::Update,
-        monotone_constraints.hpp:330; grow_wave.py:733-757)."""
+        monotone_constraints.hpp:330), `intermediate` bounds each child by
+        its sibling's output (IntermediateLeafConstraints::
+        UpdateConstraintsWithOutputs, :548; grow_wave.py:733-757)."""
         mono_f = meta.monotone[bsx.feature]
-        cap = 0.5 * (bsx.left_output + bsx.right_output)
-        lmax = torch.where(mono_f > 0, torch.minimum(pmax, cap), pmax)
-        rmin = torch.where(mono_f > 0, torch.maximum(pmin, cap), pmin)
-        lmin = torch.where(mono_f < 0, torch.maximum(pmin, cap), pmin)
-        rmax = torch.where(mono_f < 0, torch.minimum(pmax, cap), pmax)
+        if mono_inter:
+            lcap, rcap = bsx.right_output, bsx.left_output
+        else:
+            lcap = rcap = 0.5 * (bsx.left_output + bsx.right_output)
+        lmax = torch.where(mono_f > 0, torch.minimum(pmax, lcap), pmax)
+        rmin = torch.where(mono_f > 0, torch.maximum(pmin, rcap), pmin)
+        lmin = torch.where(mono_f < 0, torch.maximum(pmin, lcap), pmin)
+        rmax = torch.where(mono_f < 0, torch.minimum(pmax, rcap), pmax)
         return lmin, lmax, rmin, rmax
+
+    def refresh_bounds(n_leaves):
+        """Refresh every leaf's intermediate bounds against the current
+        outputs under each monotone node, the batched fixpoint of the
+        reference's GoUpToFindLeavesToUpdate (monotone_constraints.hpp:
+        625; grow_wave.py:1403-1438): for an increasing split at node s,
+        each leaf of its left subtree is capped above by the least output
+        of its right subtree and each leaf of its right subtree below by
+        the largest of its left, the other way round for a decreasing
+        one. A leaf whose bounds moved by more than 1e-12 leaves the ready
+        set and is marked stale until its own best is searched again."""
+        act = torch.arange(L, device=dev) < n_leaves
+        inf = torch.full((), torch.inf, device=dev)
+        o_min = torch.where(act, leaf_output, inf)[:, None]
+        o_max = torch.where(act, leaf_output, -inf)[:, None]
+        u_l, u_r = under == 1, under == 2                    # [L, M]
+        lmax_n = torch.where(u_l, o_max, -inf).amax(dim=0)   # [M]
+        rmin_n = torch.where(u_r, o_min, inf).amin(dim=0)
+        lmin_n = torch.where(u_l, o_min, inf).amin(dim=0)
+        rmax_n = torch.where(u_r, o_max, -inf).amax(dim=0)
+        node_act = torch.arange(M, device=dev) < n_leaves - 1
+        mono_n = torch.where(node_act, meta.monotone[split_feature],
+                             0)[None, :]
+        capmax = torch.where((mono_n > 0) & u_l, rmin_n[None, :],
+                             torch.where((mono_n < 0) & u_r,
+                                         lmin_n[None, :], inf))
+        capmin = torch.where((mono_n > 0) & u_r, lmax_n[None, :],
+                             torch.where((mono_n < 0) & u_l,
+                                         rmax_n[None, :], -inf))
+        new_max = capmax.amin(dim=1)                         # [L]
+        new_min = capmin.amax(dim=1)
+        moved = act & (((new_min - leaf_min).abs() > 1e-12)
+                       | ((new_max - leaf_max).abs() > 1e-12))
+        leaf_min.copy_(new_min)
+        leaf_max.copy_(new_max)
+        ready.logical_and_(~moved)
+        stale.logical_or_(moved)
 
     def children_constraints(bsx, leaves):
         """What the search of both children of the candidates `leaves`
@@ -607,18 +714,23 @@ def grow_tree_wave(
                                         2 * leaves.shape[0])
 
     def search(hist2, sum_g, sum_h, count, out, num=None, bmin=None,
-               bmax=None, fmask=None, mpf=None, rand_bins=None):
+               bmax=None, fmask=None, mpf=None, rand_bins=None, fid=None):
         """Best splits of n histograms [n, C, F_st, B] of storage columns:
-        (SplitResult [n], is_cat [n], bitset [n, W]). `num` is the numeric
-        search's result when a fused kernel already ran it; hist2 is then
-        read only for the categorical search. bmin / bmax [n] are the
-        monotone bounds, fmask the feature mask ([F] or [n, F]), mpf [n]
-        monotone_penalty's factor, rand_bins [n, F] extra_trees' one
-        threshold a feature (numeric features only, as in JAX)."""
+        (SplitResult [n], is_cat [n], bitset [n, W], forced [n]). `num` is
+        the numeric search's result when a fused kernel already ran it;
+        hist2 is then read only for the categorical search. bmin / bmax
+        [n] are the monotone bounds, fmask the feature mask ([F] or
+        [n, F]), mpf [n] monotone_penalty's factor, rand_bins [n, F]
+        extra_trees' one threshold a feature (numeric features only, as in
+        JAX), fid [n] the leaves' forced-node ids (-1: none): a forced
+        split that can be made replaces the best, and `forced` marks it
+        (grow_wave.py:600-643)."""
         n = count.shape[0]
+        unforced = torch.zeros(n, dtype=torch.bool, device=dev)
         if num is not None and not has_cat:
-            return (num, torch.zeros(n, dtype=torch.bool, device=dev),
-                    torch.zeros((n, W), dtype=torch.int64, device=dev))
+            return (num, unforced,
+                    torch.zeros((n, W), dtype=torch.int64, device=dev),
+                    unforced)
         if cfg.bundled:
             # EFB: re-slice the bundle histogram per original feature and
             # rebuild each feature's default bin as parent - sum(others)
@@ -633,21 +745,39 @@ def grow_tree_wave(
         else:
             hist2 = to_f32(hist2)
         hist = synth_count_channel(hist2, count, sum_h)       # [n, 3, F, B]
-        if num is None:
+        pen = cegb_penalty(count) if has_cegb else None
+        fres = None
+        if num is None and has_forced:
+            # one gain map gives the normal best and the forced cell's
+            fc = fid.clamp(0, meta.forced.shape[1] - 1)
+            num, fres = find_best_split_and_forced(
+                hist, sum_g, sum_h, count, out, meta, hp, fmask, bmin, bmax,
+                meta.forced[0, fc], meta.forced[1, fc], cegb_pen=pen,
+                rand_bins=rand_bins, mono_pen_factor=mpf)
+        elif num is None:
             num = find_best_split(hist, sum_g, sum_h, count, out, meta, hp,
                                   fmask, leaf_min=bmin, leaf_max=bmax,
-                                  mono_pen_factor=mpf, rand_bins=rand_bins)
-        if not has_cat:
-            return (num, torch.zeros(n, dtype=torch.bool, device=dev),
-                    torch.zeros((n, W), dtype=torch.int64, device=dev))
-        catres, bits = find_best_split_categorical(
-            hist, sum_g, sum_h, count, out, meta, hp, cfg.cat, fmask,
-            leaf_min=bmin, leaf_max=bmax)
-        # numeric wins ties (grow_wave.py:629)
-        use_cat = catres.gain > num.gain
-        merged = SplitResult(*[torch.where(use_cat, cv, nv)
-                               for cv, nv in zip(catres, num)])
-        return merged, use_cat, torch.where(use_cat[:, None], bits, 0)
+                                  mono_pen_factor=mpf, rand_bins=rand_bins,
+                                  cegb_pen=pen)
+        if has_cat:
+            catres, bits = find_best_split_categorical(
+                hist, sum_g, sum_h, count, out, meta, hp, cfg.cat, fmask,
+                leaf_min=bmin, leaf_max=bmax, cegb_pen=pen)
+            # numeric wins ties (grow_wave.py:629)
+            use_cat = catres.gain > num.gain
+            merged = SplitResult(*[torch.where(use_cat, cv, nv)
+                                   for cv, nv in zip(catres, num)])
+            bits = torch.where(use_cat[:, None], bits, 0)
+        else:
+            merged, use_cat = num, unforced
+            bits = torch.zeros((n, W), dtype=torch.int64, device=dev)
+        if fres is None:
+            return merged, use_cat, bits, unforced
+        use_f = (fid >= 0) & torch.isfinite(fres.gain)
+        merged = SplitResult(*[torch.where(use_f, fv, mv)
+                               for fv, mv in zip(fres, merged)])
+        return (merged, use_cat & ~use_f,
+                torch.where(use_f[:, None], 0, bits), use_f)
 
     # ---- root
     root_out = (-torch.sign(root_g)
@@ -661,15 +791,20 @@ def grow_tree_wave(
                   if has_inter else feature_mask)
     root_bn, root_rb = node_draws(0, 1, torch.zeros(1, dtype=torch.int64,
                                                     device=dev))
-    root_split, root_cat, root_bits = search(
+    # the forced table's node 0 is the root's (grow_wave.py:771)
+    root_fid = torch.full((1,), 0 if has_forced else -1, dtype=torch.int64,
+                          device=dev)
+    root_split, root_cat, root_bits, root_forced = search(
         hist_root[None], root_g[None], root_h[None], root_c[None],
         root_out[None], bmin=-torch.inf * one if has_mono else None,
         bmax=torch.inf * one if has_mono else None,
         fmask=and_masks(root_fmask, root_bn),
-        mpf=mpen_factor(0 * one) if use_mpen else None, rand_bins=root_rb)
+        mpf=mpen_factor(0 * one) if use_mpen else None, rand_bins=root_rb,
+        fid=root_fid)
     if max_depth < 1:
         root_split = root_split._replace(
             gain=torch.full_like(root_split.gain, NEG_INF))
+        root_forced = torch.zeros_like(root_forced)
 
     def zeros(n, dtype=torch.float32):
         return torch.zeros(n, dtype=dtype, device=dev)
@@ -728,6 +863,21 @@ def grow_tree_wave(
     bestr = _empty_split_cache(L, dev)
     catl, catr = zeros(L, torch.bool), zeros(L, torch.bool)
     bitsl, bitsr = zeros((L, W), torch.int64), zeros((L, W), torch.int64)
+    # forced splits: each leaf's forced-node id (-1: none), whether its
+    # cached best is that forced split, and the same for the speculated
+    # children (grow_wave.py:215-221)
+    leaf_forced = torch.full((L,), -1, dtype=torch.int64, device=dev)
+    leaf_forced[0] = root_fid[0]
+    best_forced = zeros(L, torch.bool)
+    best_forced[0] = root_forced[0]
+    fidl = torch.full((L,), -1, dtype=torch.int64, device=dev)
+    fidr = fidl.clone()
+    bfl, bfr = zeros(L, torch.bool), zeros(L, torch.bool)
+    # monotone intermediate: `under[l, s]` is 1 / 2 when leaf l lies in the
+    # left / right subtree of node s, and `stale` marks the leaves whose
+    # bounds moved since their own best was searched (grow_wave.py:222-226)
+    under = zeros((L, M), torch.int8) if mono_inter else None
+    stale = zeros(L, torch.bool)
 
     bundle_map = wave_bundle_map(cfg, dev)
     j_iota = torch.arange(KMAX, device=dev)
@@ -741,14 +891,34 @@ def grow_tree_wave(
     pend: Optional[_Pending] = None
 
     while L > 1:
+        im_leaf = None
+        if mono_inter:
+            # leaves under a monotone node already in the tree: their
+            # applications serialize (grow_wave.py:1201-1211)
+            node_act = torch.arange(M, device=dev) < num_leaves - 1
+            mono_n = torch.where(node_act, meta.monotone[split_feature], 0)
+            im_leaf = ((under != 0) & (mono_n != 0)[None, :]).any(dim=1)
         # ---- ORDER: ready leaves with positive gain split in gain order
-        keyed = best.gain
+        keyed = sel_key(best.gain, best_forced, leaf_forced)
         budget = L - num_leaves
         rg, rl = _top_k(torch.where(ready, keyed,
                                     torch.full_like(keyed, NEG_INF)), KMAX)
         sel = (rg > 0.0) & (j_iota < budget)
         if slack > 0.0:
             sel = _slack_guard(sel, rg, keyed, j_iota, budget, L, slack)
+        if mono_inter:
+            # intermediate bounds come from the siblings' outputs, which
+            # move as splits land: among the leaves under a monotone node
+            # or splitting on a monotone feature, only the first in gain
+            # order applies this wave (grow_wave.py:1259-1271)
+            ser = im_leaf | (meta.monotone[best.feature] != 0)
+            sel_mono = sel & ser[rl]
+            first = (torch.cumsum(sel_mono.to(torch.int32), 0) == 1) \
+                & sel_mono
+            sel = sel & (~sel_mono | first)
+            # the selection need not be a prefix now: the applied entries
+            # are the selected ones, in gain order
+            rl = rl[torch.sort((~sel).to(torch.int8), stable=True).indices]
         napp, go_on = torch.stack([sel.sum(),
                                    (keyed.max() > 0.0).to(torch.int64)]
                                   ).tolist()
@@ -758,7 +928,7 @@ def grow_tree_wave(
         tbl = torch.full((16, 128), -1, dtype=torch.int32, device=dev)
         tbl[15] = nl0
 
-        # ---- APPLY (the selection is a prefix of the gain order)
+        # ---- APPLY (the applied leaves lead the gain order)
         if napp > 0:
             pa = rl[:napp]
             s_idx = torch.arange(nl0 - 1, nl0 - 1 + napp, device=dev)
@@ -784,6 +954,16 @@ def grow_tree_wave(
             if has_inter:
                 asets = child_sets(bs2, leaf_sets[pa])
                 leaf_sets[pa], leaf_sets[r_idx] = asets, asets
+            if mono_inter:
+                # the children inherit the parent's subtree membership and
+                # join the new node's sides (grow_wave.py:1369-1378)
+                pu = under[pa]
+                newcol = torch.arange(M, device=dev)[None, :] \
+                    == s_idx[:, None]
+                under[pa] = torch.where(newcol, 1, pu).to(torch.int8)
+                under[r_idx] = torch.where(newcol, 2, pu).to(torch.int8)
+            if has_cegb:
+                feat_used[bs2.feature] = True
 
             split_feature[s_idx] = bs2.feature
             threshold_bin[s_idx] = bs2.threshold
@@ -821,7 +1001,9 @@ def grow_tree_wave(
                                 (leaf_sum_h, bs2.left_sum_h,
                                  bs2.right_sum_h),
                                 (best_is_cat, cl, cr),
-                                (best_bitset, bil, bir)):
+                                (best_bitset, bil, bir),
+                                (leaf_forced, fidl[pa], fidr[pa]),
+                                (best_forced, bfl[pa], bfr[pa])):
                 arr[pa] = lv
                 arr[r_idx] = rv
             hist_cache[pa] = torch.where(sil, hsm, hlg)
@@ -834,11 +1016,14 @@ def grow_tree_wave(
             tbl[0, :napp] = pa.to(torch.int32)
             tbl[1:7, :napp] = _split_rows(bs2.feature, bs2.threshold,
                                           bs2.default_left, meta)
+            if mono_inter:
+                refresh_bounds(num_leaves)
 
-        # ---- SPECULATE: top-K unready frontier leaves by gain
+        # ---- SPECULATE: top-K unready frontier leaves by gain (a stale
+        # leaf waits for its own re-search)
         budget2 = L - num_leaves
-        keyed2 = best.gain
-        gains, cand = _top_k(torch.where(ready,
+        keyed2 = sel_key(best.gain, best_forced, leaf_forced)
+        gains, cand = _top_k(torch.where(ready | stale,
                                          torch.full_like(keyed2, NEG_INF),
                                          keyed2), KMAX)
         valid = (gains > 0.0) & (j_iota < budget2)
@@ -847,7 +1032,14 @@ def grow_tree_wave(
                                  slack)
         bs = SplitResult(*[x[cand] for x in best])
         smaller_is_left = bs.left_count <= bs.right_count
-        n_cand = int(valid.sum())
+        if mono_inter:
+            # the stale leaves' own re-search runs even in a wave with no
+            # candidate (grow_wave.py:2090-2093); one read for both counts
+            n_cand, n_stale = torch.stack([valid.sum(), stale.sum()]
+                                          ).tolist()
+            n_rs = min(n_stale, KMAX)
+        else:
+            n_cand, n_rs = int(valid.sum()), 0
         num_waves += 1
 
         # ---- the route's row pass: relabel (+ candidate histograms, and
@@ -861,12 +1053,14 @@ def grow_tree_wave(
                 # in place: the tree's last wave allocates nothing
                 wave_relabel(X_t, leaf_of_row, tbl, L, out=leaf_of_row,
                              plain=plain)
-                continue
-            K = next(k for k in buckets if k >= n_cand)
-            if route == "mega":
+                if n_rs == 0:
+                    continue
+            elif route == "mega":
+                K = next(k for k in buckets if k >= n_cand)
                 leaf_of_row, hist_wave = wave_pass(X_t, vals0, leaf_of_row,
                                                    tbl, K, B, L, plain=plain)
             else:
+                K = next(k for k in buckets if k >= n_cand)
                 leaf_of_row, hist_wave, rec = wave_pass_fused(
                     X_t, vals0, leaf_of_row, tbl, hist_cache[cand[:K]],
                     fused_operands(SplitResult(*[x[:K] for x in bs]),
@@ -907,12 +1101,13 @@ def grow_tree_wave(
                 leaf_of_row, slot_small = wave_apply(
                     X_t, leaf_of_row, tbl, cats, bundle_map, Kd, L,
                     plain=plain)
-                if n_cand == 0:
+                if n_cand == 0 and n_rs == 0:
                     continue
-                K = next(k for k in buckets if k >= n_cand)
-                hist_wave = build_histogram_slots(
-                    X_t, vals0, slot_small, K, B, impl=hroute,
-                    plan=hist_plan, plain=plain)
+                if n_cand > 0:
+                    K = next(k for k in buckets if k >= n_cand)
+                    hist_wave = build_histogram_slots(
+                        X_t, vals0, slot_small, K, B, impl=hroute,
+                        plan=hist_plan, plain=plain)
             else:
                 # kernel #10 reads go-left bits per (entry, row): bit 0
                 # under applied entry j, bit 1 = lands in candidate j's
@@ -950,49 +1145,113 @@ def grow_tree_wave(
                 del dec
 
         # ---- SEARCH both children of every candidate (the fused routes'
-        # kernels ran the numeric search already)
+        # kernels ran the numeric search already), and under intermediate
+        # the stale leaves' own bests as a third block (grow_wave.py:
+        # 1766-1800)
         c_idx = cand[:n_cand]
-        hist_small = hist_wave[:n_cand].reshape(n_cand, -1)
+        hist_small = hist_wave[:n_cand].reshape(n_cand, -1) \
+            if n_cand > 0 else None
         num = unpack_fused_records(rec, n_cand) if fused else None
         hist_lr = None
-        if num is None or has_cat:
+        if n_cand > 0 and (num is None or has_cat):
             sl = smaller_is_left[:n_cand, None]
             hist_large = hist_cache[c_idx] - hist_small
             hist_lr = torch.cat([torch.where(sl, hist_small, hist_large),
                                  torch.where(sl, hist_large, hist_small)]
                                 ).reshape((2 * n_cand,)
                                           + tuple(hist_root.shape))
+        bsc = SplitResult(*[x[:n_cand] for x in bs])
 
         def both(a, b):
             return torch.cat([a[:n_cand], b[:n_cand]])
 
-        bmin_lr, bmax_lr, fmask_lr, mpf_lr = children_constraints(
-            SplitResult(*[x[:n_cand] for x in bs]), c_idx)
-        rb_lr = None
+        sg_lr = both(bs.left_sum_g, bs.right_sum_g)
+        sh_lr = both(bs.left_sum_h, bs.right_sum_h)
+        c_lr = both(bs.left_count, bs.right_count)
+        o_lr = both(bs.left_output, bs.right_output)
+        bmin_lr, bmax_lr, fmask_lr, mpf_lr = children_constraints(bsc,
+                                                                  c_idx)
+        # the children's forced-node ids: a candidate whose best is its
+        # forced split hands the table's children on (BFS walk,
+        # grow_wave.py:1815-1825)
+        fidl_k = fidr_k = fid_lr = None
+        if has_forced:
+            cf = best_forced[c_idx]
+            fc = leaf_forced[c_idx].clamp(0, meta.forced.shape[1] - 1)
+            fidl_k = torch.where(cf, meta.forced[2, fc], -1)
+            fidr_k = torch.where(cf, meta.forced[3, fc], -1)
+            fid_lr = torch.cat([fidl_k, fidr_k])
+        # depth mask at store time: the order step reads stored gains
+        can = (leaf_depth[c_idx] + 1 < max_depth).repeat(2)
+        draw_rows = None
         if bynode or xt:
             # slot j's children are rows j and KMAX + j of the wave's draw
             j = torch.arange(n_cand, device=dev)
-            bn_lr, rb_lr = node_draws(num_waves + 1, 2 * KMAX,
-                                      torch.cat([j, j + KMAX]))
+            draw_rows = torch.cat([j, j + KMAX])
+        if n_rs > 0:
+            # the stale leaves' own histograms, sums, bounds and sets; the
+            # own block re-splits the leaf itself, so its depth gate is
+            # depth < max_depth
+            rs_gain = torch.where(stale, torch.clamp(best.gain, min=0.0),
+                                  torch.full_like(best.gain, NEG_INF))
+            rs_i = _top_k(rs_gain, KMAX)[1][:n_rs]
+            hist_own = hist_cache[rs_i].reshape((n_rs,)
+                                                + tuple(hist_root.shape))
+            hist_lr = hist_own if hist_lr is None \
+                else torch.cat([hist_lr, hist_own])
+            sg_lr = torch.cat([sg_lr, leaf_sum_g[rs_i]])
+            sh_lr = torch.cat([sh_lr, leaf_sum_h[rs_i]])
+            c_lr = torch.cat([c_lr, leaf_count[rs_i].to(torch.float32)])
+            o_lr = torch.cat([o_lr, leaf_output[rs_i]])
+            bmin_lr = torch.cat([bmin_lr, leaf_min[rs_i]])
+            bmax_lr = torch.cat([bmax_lr, leaf_max[rs_i]])
+            if has_inter:
+                fmask_lr = torch.cat([fmask_lr,
+                                      sets_to_fmask(leaf_sets[rs_i])])
+            if use_mpen:
+                mpf_lr = torch.cat([mpf_lr, mpen_factor(leaf_depth[rs_i])])
+            if has_forced:
+                fid_lr = torch.cat([fid_lr, leaf_forced[rs_i]])
+            can = torch.cat([can, leaf_depth[rs_i] < max_depth])
+            if draw_rows is not None:
+                draw_rows = torch.cat([
+                    draw_rows, torch.arange(n_rs, device=dev) + 2 * KMAX])
+        rb_lr = None
+        if draw_rows is not None:
+            bn_lr, rb_lr = node_draws(num_waves + 1,
+                                      (3 if mono_inter else 2) * KMAX,
+                                      draw_rows)
             fmask_lr = and_masks(fmask_lr, bn_lr)
-        s_lr, cat_lr, bits_lr = search(
-            hist_lr, both(bs.left_sum_g, bs.right_sum_g),
-            both(bs.left_sum_h, bs.right_sum_h),
-            both(bs.left_count, bs.right_count),
-            both(bs.left_output, bs.right_output), num, bmin_lr, bmax_lr,
-            fmask_lr, mpf_lr, rb_lr)
-        # depth mask at store time: the order step reads stored gains
-        can = (leaf_depth[c_idx] + 1 < max_depth).repeat(2)
+        s_lr, cat_lr, bits_lr, forced_lr = search(
+            hist_lr, sg_lr, sh_lr, c_lr, o_lr, num, bmin_lr, bmax_lr,
+            fmask_lr, mpf_lr, rb_lr, fid_lr)
         s_lr = s_lr._replace(gain=torch.where(
             can, s_lr.gain, torch.full_like(s_lr.gain, NEG_INF)))
-        small_hist[c_idx] = hist_small
-        small_is_left[c_idx] = smaller_is_left[:n_cand]
-        ready[c_idx] = True
-        for a_l, a_r, v in zip(bestl, bestr, s_lr):
-            a_l[c_idx] = v[:n_cand]
-            a_r[c_idx] = v[n_cand:]
-        catl[c_idx], catr[c_idx] = cat_lr[:n_cand], cat_lr[n_cand:]
-        bitsl[c_idx], bitsr[c_idx] = bits_lr[:n_cand], bits_lr[n_cand:]
+        forced_lr = forced_lr & can
+        if n_cand > 0:
+            small_hist[c_idx] = hist_small
+            small_is_left[c_idx] = smaller_is_left[:n_cand]
+            ready[c_idx] = True
+            n2 = 2 * n_cand
+            for a_l, a_r, v in zip(bestl, bestr, s_lr):
+                a_l[c_idx] = v[:n_cand]
+                a_r[c_idx] = v[n_cand:n2]
+            catl[c_idx], catr[c_idx] = cat_lr[:n_cand], cat_lr[n_cand:n2]
+            bitsl[c_idx], bitsr[c_idx] = bits_lr[:n_cand], bits_lr[n_cand:n2]
+            if has_forced:
+                fidl[c_idx], fidr[c_idx] = fidl_k, fidr_k
+                bfl[c_idx] = forced_lr[:n_cand]
+                bfr[c_idx] = forced_lr[n_cand:n2]
+        if n_rs > 0:
+            # install the re-searched bests; the leaves re-enter as
+            # candidates next wave (grow_wave.py:2066-2085)
+            o = 2 * n_cand
+            for a, v in zip(best, s_lr):
+                a[rs_i] = v[o:]
+            best_is_cat[rs_i] = cat_lr[o:]
+            best_bitset[rs_i] = bits_lr[o:]
+            best_forced[rs_i] = forced_lr[o:]
+            stale[rs_i] = False
 
     if pend is not None:
         # the tree's last wave applied only: no launch follows it

@@ -21,7 +21,7 @@ Direction semantics (feature_histogram.hpp:855-1030):
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -76,6 +76,13 @@ class FeatureMeta(NamedTuple):
     #   constraint; None when no feature is constrained
     inter_sets: Optional[torch.Tensor] = None     # [S, F] bool: interaction
     #   constraint set membership; None without interaction constraints
+    forced: Optional[torch.Tensor] = None         # [4, S] int64 forced-split
+    #   tree in BFS order: rows (inner feature, bin threshold, left child,
+    #   right child), children forced-node ids or -1 (forcedsplits_filename,
+    #   serial_tree_learner.cpp:628); None without forced splits
+    cegb_coupled: Optional[torch.Tensor] = None   # [F] f32 coupled CEGB
+    #   penalty by inner feature (cegb_penalty_feature_coupled,
+    #   cost_effective_gradient_boosting.hpp:87); None when not given
 
 
 class SplitResult(NamedTuple):
@@ -231,7 +238,10 @@ def find_best_split(hist: torch.Tensor, parent_sum_g: torch.Tensor,
                     leaf_min: Optional[torch.Tensor] = None,
                     leaf_max: Optional[torch.Tensor] = None,
                     mono_pen_factor: Optional[torch.Tensor] = None,
-                    rand_bins: Optional[torch.Tensor] = None
+                    rand_bins: Optional[torch.Tensor] = None,
+                    forced_f: Optional[torch.Tensor] = None,
+                    forced_b: Optional[torch.Tensor] = None,
+                    cegb_pen: Optional[torch.Tensor] = None
                     ) -> SplitResult:
     """Best numerical split per histogram.
 
@@ -251,26 +261,92 @@ def find_best_split(hist: torch.Tensor, parent_sum_g: torch.Tensor,
     features (serial_tree_learner.cpp:1001-1005). `rand_bins` [..., F]
     (extra_trees) leaves each feature one candidate threshold, its drawn
     bin (BeforeNumerical's rand.NextInt(0, num_bin - 2),
-    feature_histogram.hpp:203-207; lightgbm_tpu/ops/split.py:339-345)."""
+    feature_histogram.hpp:203-207; lightgbm_tpu/ops/split.py:339-345).
+
+    Forced mode (`forced_f` / `forced_b` [...], SerialTreeLearner::
+    ForceSplits, serial_tree_learner.cpp:628): only the cell of that
+    (feature, bin threshold) competes, in either missing direction, and the
+    min-gain bar does not apply (split.py:327-337). `cegb_pen` [F] or
+    [..., F] (CEGB's DeltaGain, cost_effective_gradient_boosting.hpp:81) is
+    subtracted from every finite gain of its feature before the argmax, so
+    the stored gain is the penalized one (split.py:345-351)."""
     gain, ok, stats, min_gain_shift = _numeric_gain_map(
         hist, parent_sum_g, parent_sum_h, parent_count, parent_output,
         meta, hp, feature_mask, leaf_min, leaf_max)
     mgs = min_gain_shift[..., None, None, None]
-    gain = torch.where(ok & (gain > mgs), gain,
-                       torch.full_like(gain, NEG_INF))
+    if forced_f is not None:
+        keep = ok & _forced_cell(gain, forced_f, forced_b)
+    else:
+        keep = ok & (gain > mgs)
+    gain = torch.where(keep, gain, torch.full_like(gain, NEG_INF))
+    gain = _penalize(gain, mgs, meta, rand_bins, cegb_pen, mono_pen_factor)
+    return _pick_best(gain, stats, min_gain_shift)
+
+
+def _forced_cell(gain: torch.Tensor, forced_f: torch.Tensor,
+                 forced_b: torch.Tensor) -> torch.Tensor:
+    """[..., 1, F, B] bool: the one (feature, bin) cell of each histogram's
+    forced split, in both directions."""
+    F, B = gain.shape[-2:]
+    dev = gain.device
+    fsel = torch.arange(F, device=dev) == forced_f[..., None]      # [..., F]
+    bsel = torch.arange(B, device=dev) == forced_b[..., None]      # [..., B]
+    return (fsel[..., :, None] & bsel[..., None, :])[..., None, :, :]
+
+
+def _penalize(gain, mgs, meta: FeatureMeta, rand_bins, cegb_pen,
+              mono_pen_factor):
+    """The normal selection's filters after the validity mask, in the JAX
+    package's order (split.py:338-360): extra_trees' drawn bin, CEGB's
+    per-feature penalty, then monotone_penalty's affine map around the
+    shift."""
     if rand_bins is not None:
         B = gain.shape[-1]
         drawn = torch.arange(B, device=gain.device) == rand_bins[..., None]
         gain = torch.where(drawn[..., None, :, :], gain,
                            torch.full_like(gain, NEG_INF))
+    if cegb_pen is not None:
+        gain = torch.where(torch.isfinite(gain),
+                           gain - cegb_pen[..., None, :, None], gain)
     if mono_pen_factor is not None and meta.monotone is not None:
-        # an affine map around the shift, in map space (split.py:343-351)
+        # an affine map around the shift, in map space (split.py:352-360)
         mono_f = (meta.monotone != 0)[:, None]
         gain = torch.where(
             mono_f & torch.isfinite(gain),
             (gain - mgs) * mono_pen_factor[..., None, None, None] + mgs,
             gain)
-    return _pick_best(gain, stats, min_gain_shift)
+    return gain
+
+
+def find_best_split_and_forced(
+        hist: torch.Tensor, parent_sum_g: torch.Tensor,
+        parent_sum_h: torch.Tensor, parent_count: torch.Tensor,
+        parent_output: torch.Tensor, meta: FeatureMeta,
+        hp: SplitHyperParams, feature_mask: Optional[torch.Tensor],
+        leaf_min: Optional[torch.Tensor], leaf_max: Optional[torch.Tensor],
+        forced_f: torch.Tensor, forced_b: torch.Tensor,
+        cegb_pen: Optional[torch.Tensor] = None,
+        rand_bins: Optional[torch.Tensor] = None,
+        mono_pen_factor: Optional[torch.Tensor] = None
+        ) -> Tuple[SplitResult, SplitResult]:
+    """The best numerical split and the forced (feature, threshold) cell's
+    split per histogram, from one gain map (split.py:409-449). The column
+    sampler, extra_trees, CEGB and monotone_penalty apply only to the
+    normal selection: a forced split bypasses them, and the min-gain bar
+    (ForceSplits, serial_tree_learner.cpp:628)."""
+    gain, ok, stats, min_gain_shift = _numeric_gain_map(
+        hist, parent_sum_g, parent_sum_h, parent_count, parent_output,
+        meta, hp, None, leaf_min, leaf_max)
+    mgs = min_gain_shift[..., None, None, None]
+    ok_n = ok if feature_mask is None \
+        else ok & feature_mask[..., None, :, None]
+    neg = torch.full_like(gain, NEG_INF)
+    gain_n = _penalize(torch.where(ok_n & (gain > mgs), gain, neg), mgs,
+                       meta, rand_bins, cegb_pen, mono_pen_factor)
+    gain_f = torch.where(ok & _forced_cell(gain, forced_f, forced_b), gain,
+                         neg)
+    return (_pick_best(gain_n, stats, min_gain_shift),
+            _pick_best(gain_f, stats, min_gain_shift))
 
 
 def _pick_best(gain, stats, min_gain_shift) -> SplitResult:

@@ -199,12 +199,11 @@ def test_valid_sets_early_stopping_and_logging(data):
     ({"max_bin": 300}, "A14"),
     ({"binning_impl": "auto", "autotune": True}, "A14"),
     ({"boosting": "rf", "bagging_freq": 1, "bagging_fraction": 0.5}, "A10"),
-    ({"monotone_constraints": [1, 0, 0, 0, 0, 0, 0, 0],
-      "monotone_constraints_method": "intermediate"}, "A10"),
-    ({"cegb_penalty_feature_coupled": [1.0] * 8}, "A10"),
-    ({"cegb_penalty_split": 1.0}, "A10"),
-    ({"forcedsplits_filename": "forced.json"}, "A10"),
-    ({"cegb_penalty_feature_lazy": [1.0] * 8}, "A10"),
+    ({"tree_learner": "feature"}, "A16"),
+    ({"num_machines": 2}, "A16"),
+    ({"pre_partition": True}, "A16"),
+    ({"tpu_grower": "masked"}, "A11"),
+    ({"max_bin_by_feature": [300] * 8}, "A14"),
     ({"tree_learner": "voting"}, "A16"),
     ({"num_leaves": 4097}, "A11"),
     ({"num_leaves": 255, "histogram_pool_size": 1}, "A11"),
