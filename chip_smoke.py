@@ -217,6 +217,26 @@ Phases, each printing one JSON line:
                      round; reset_parameter's rates are the trees'
                      shrinkage; refit of the 2^18 rows at decay 0.9 within
                      1e-6 of the CPU refit, at 1.0 the model text unchanged
+ 15. the other boosting modes (one line, with the card's name and power
+     limit):
+     boosting_modes  bench.py's model: boosting=rf with bagging 0.8 every
+                     round, 4 rounds (first tree as the plain versions',
+                     average_output in the text, predict(raw_score) of the
+                     training rows within 1e-5 of scores / iterations, AUC
+                     rising over the rounds, > 0.83); boosting=dart with
+                     drop_rate 0.3, skip_drop 0, 8 rounds and a 2^18-row
+                     valid set (the drop sets those of a CPU run of the
+                     same RandomState, training and
+                     valid scores within 1e-5 of predict(raw_score), #2
+                     launched once a tree and three times a dropped tree);
+                     linear_tree=True beside constant leaves, 4 rounds each
+                     (tree 0 constant, later trees linear, the training
+                     scores within 1e-4 of the host walk's predict, a lower
+                     train logloss, the host fit's ms a tree); then
+                     rollback_one_iter on the dart and linear boosters,
+                     their scores within 1e-5 of the rolled-back model's
+                     predict(raw_score); ms a round and launches of each
+                     run
 
 then a {"kernels": [...]} line (the ten kernels), the nvidia-smi line,
 and last
@@ -1894,10 +1914,11 @@ def fused_tiled_phase(hc, gf, torch, dev, X_c):
 
 
 def _train_timed(lt, hc, torch, params, ds, rounds, callbacks=(),
-                 evals=None):
-    """Train `rounds` rounds (with `callbacks` besides the timing one);
-    (booster, launches, per-round ms, train AUC (the first metric) per
-    round). `evals`, a list, receives every round's whole evaluation."""
+                 evals=None, valid_sets=()):
+    """Train `rounds` rounds (with `callbacks` besides the timing one, and
+    `valid_sets`); (booster, launches, per-round ms, train AUC (the first
+    metric) per round). `evals`, a list, receives every round's whole
+    evaluation."""
     ends, resumes, aucs = [], [], []
 
     def stamp(env):
@@ -1913,6 +1934,7 @@ def _train_timed(lt, hc, torch, params, ds, rounds, callbacks=(),
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     bst = lt.train(params, ds, num_boost_round=rounds,
+                   valid_sets=list(valid_sets),
                    callbacks=[stamp, *callbacks])
     torch.cuda.synchronize()
     iter_ms = [(b - a) * 1e3 for a, b in zip([t0] + resumes[:-1], ends)]
@@ -3280,6 +3302,156 @@ def continued_phase(lt, hc, torch, dev, smi, params, ds, X, y, w):
     return grab["launches"], late_launches
 
 
+def _scores_err(bst, scores, X, avg=False):
+    """Largest |kept score - predict(raw_score)| over the rows of X that
+    the [n] `scores` keep (the first n); the scores divided by the
+    iterations where the model averages (rf)."""
+    s = scores.cpu().numpy().astype(np.float64)
+    if avg:
+        s /= bst._gbdt.iter
+    return float(np.max(np.abs(
+        bst.predict(X[:len(s)], raw_score=True) - s)))
+
+
+def boosting_modes_phase(lt, hc, torch, smi, params, ds, X, y, w):
+    """boosting=rf, boosting=dart and linear_tree on bench.py's model and
+    the device-ingested table, then rollback_one_iter (phase 15)."""
+    out = {"phase": "boosting_modes", "model": "bench", "rows": N_ROWS,
+           "nvidia_smi": smi}
+    checks = []         # run after the line is printed
+    # -- random forest: gradients once, trees averaged
+    p_rf = {**params, "boosting": "rf", "bagging_fraction": 0.8,
+            "bagging_freq": 1}
+    b_rf, l_rf, ms_rf, auc_rf = _train_timed(lt, hc, torch, p_rf, ds, 4)
+    g = b_rf._gbdt
+    first = _same_host_tree(_plain_trees(torch, g, N_ROWS)[0], g.models[0])
+    rf_err = _scores_err(b_rf, g.scores[0], X, avg=True)
+    rf_avg = "\naverage_output\n" in b_rf.model_to_string()
+    out["rf"] = {"rounds": 4, "ms_per_round": ms_rf, "launches": l_rf,
+                 "auc_per_round": auc_rf,
+                 "first_tree_same": first is not None,
+                 "first_tree_leaf_value_max_abs_err": first,
+                 "average_output": rf_avg,
+                 "predict_vs_scores_over_iterations_max_abs_err": rf_err}
+    checks += [
+        (first is not None and first <= 1e-6,
+         f"rf's first tree differs from the plain versions' ({first})"),
+        (rf_avg, "the rf model text has no average_output"),
+        (rf_err <= 1e-5, f"rf predictions differ from its averaged scores "
+                         f"by {rf_err}"),
+        # every tree fits the same gradients, so averaging bags lifts the
+        # AUC above the first tree's, not to a boosted model's
+        (auc_rf[-1] > auc_rf[0] and auc_rf[-1] > 0.83,
+         f"rf train AUC per round {auc_rf}")]
+    del b_rf, g
+
+    # -- DART with a valid set; its drop sets against a CPU run's
+    rng = np.random.RandomState(47)
+    Xv = rng.normal(size=(1 << 18, N_FEAT)).astype(np.float32)
+    yv = (Xv @ w + rng.normal(scale=0.5, size=1 << 18) > 0) \
+        .astype(np.float32)
+    p_dart = {**params, "boosting": "dart", "drop_rate": 0.3,
+              "skip_drop": 0.0}
+
+    def drop_log(sink):
+        def keep(env):
+            sink.append(list(env.model._gbdt._drop_index))
+        return keep
+    drops, drops_cpu = [], []
+    dv = lt.Dataset(Xv, label=yv, reference=ds)
+    b_d, l_d, ms_d, auc_d = _train_timed(lt, hc, torch, p_dart, ds, 8,
+                                         callbacks=[drop_log(drops)],
+                                         valid_sets=[dv])
+    # the drop sets depend on the RandomState and the drop sets before
+    # them only: a small CPU run draws the same
+    lt.train({**p_dart, "device_type": "cpu", "binning_impl": "host",
+              "num_leaves": 15}, lt.Dataset(X[:20000], label=y[:20000]), 8,
+             callbacks=[drop_log(drops_cpu)])
+    n_drop = sum(len(d) for d in drops)
+    want_2 = 8 + 3 * n_drop     # new trees; each drop out, back, valid
+    d_err = _scores_err(b_d, b_d._gbdt.scores[0], X)
+    dv_err = _scores_err(b_d, b_d._gbdt._valid_scores[0][0], Xv)
+    out["dart"] = {"rounds": 8, "ms_per_round": ms_d, "launches": l_d,
+                   "auc_per_round": auc_d, "drop_sets": drops,
+                   "drop_sets_equal_cpu": drops == drops_cpu,
+                   "take_leaf_values_expected": want_2,
+                   "valid_rows": len(yv),
+                   "predict_vs_scores_max_abs_err": d_err,
+                   "valid_predict_vs_scores_max_abs_err": dv_err}
+    checks += [
+        (drops == drops_cpu, f"DART drop sets {drops} differ from the CPU "
+                             f"run's {drops_cpu}"),
+        (n_drop > 0, "DART dropped no tree in 8 rounds"),
+        (l_d["take_leaf_values"] == want_2,
+         f"DART launched #2 {l_d['take_leaf_values']} times, {want_2} "
+         f"expected"),
+        (d_err <= 1e-5 and dv_err <= 1e-5,
+         f"DART scores differ from predict by {d_err} (train), {dv_err} "
+         f"(valid)")]
+
+    # -- linear trees beside constant leaves; a Dataset that keeps the raw
+    # rows
+    p_lin = {**params, "metric": ["binary_logloss", "auc"]}
+    ds_lin = lt.Dataset(X, label=y,
+                        params={**p_lin, "linear_tree": True}).construct()
+    ev_c, ev_l = [], []
+    _, l_c, ms_c, _ = _train_timed(lt, hc, torch, p_lin, ds, 4, evals=ev_c)
+    b_l, l_l, ms_l, _ = _train_timed(lt, hc, torch,
+                                     {**p_lin, "linear_tree": True},
+                                     ds_lin, 4, evals=ev_l)
+    trees = b_l._gbdt.models
+    shape_ok = (not any(trees[0].leaf_features)
+                and all(t.is_linear for t in trees)
+                and all(any(t.leaf_features) for t in trees[1:]))
+    n_chk = 1 << 18
+    l_err = _scores_err(b_l, b_l._gbdt.scores[0, :n_chk], X)
+    ll_c, ll_l = _logloss(ev_c), _logloss(ev_l)
+    out["linear"] = {"rounds": 4, "ms_per_round": ms_l, "launches": l_l,
+                     "constant_ms_per_round": ms_c, "constant_launches": l_c,
+                     "logloss_per_round": ll_l,
+                     "constant_logloss_per_round": ll_c,
+                     "fit_host_ms_per_tree": b_l._gbdt.linear_fit_ms,
+                     "tree0_constant_later_linear": shape_ok,
+                     "checked_rows": n_chk,
+                     "host_predict_vs_scores_max_abs_err": l_err}
+    checks += [
+        (shape_ok, "linear trees: tree 0 is not constant or a later tree "
+                   "has no linear leaf"),
+        (l_err <= 1e-4, f"linear scores differ from the host walk's "
+                        f"predict by {l_err}"),
+        (ll_l[-1] < ll_c[-1], f"linear train logloss {ll_l[-1]} not below "
+                              f"the constant run's {ll_c[-1]}")]
+
+    # -- rollback_one_iter on the dart and linear boosters
+    hc.reset_launch_counts()
+    b_d.rollback_one_iter()
+    rb_d_launches = dict(hc.LAUNCHES)
+    rb_d = _scores_err(b_d, b_d._gbdt.scores[0], X)
+    rb_dv = _scores_err(b_d, b_d._gbdt._valid_scores[0][0], Xv)
+    b_l.rollback_one_iter()
+    rb_l = _scores_err(b_l, b_l._gbdt.scores[0, :n_chk], X)
+    out["rollback"] = {
+        "dart_iterations": b_d.current_iteration,
+        "dart_launches": rb_d_launches,
+        "dart_predict_vs_scores_max_abs_err": rb_d,
+        "dart_valid_predict_vs_scores_max_abs_err": rb_dv,
+        "linear_iterations": b_l.current_iteration,
+        "linear_predict_vs_scores_max_abs_err": rb_l}
+    emit(out)
+    checks += [
+        (b_d.current_iteration == 7 and b_l.current_iteration == 3,
+         "rollback_one_iter left the wrong iteration count"),
+        (rb_d_launches["take_leaf_values"] == 2,
+         f"DART's rollback launched #2 {rb_d_launches['take_leaf_values']}"
+         f" times for one tree on two score sets"),
+        (max(rb_d, rb_dv, rb_l) <= 1e-5,
+         f"scores after rollback differ from predict by {rb_d} (dart), "
+         f"{rb_dv} (dart valid), {rb_l} (linear)")]
+    for ok, what in checks:
+        check(ok, what)
+    return {"rf": l_rf, "dart": l_d, "linear": l_l}
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -3493,6 +3665,9 @@ def main():
     # ---- 14. the training loop: init_model, a late valid set, fobj /
     # feval, reset_parameter, refit
     continued_phase(lt, hc, torch, dev, smi, params, ds, X, y, w)
+
+    # ---- 15. random forests, DART, linear trees, rollback_one_iter
+    boosting_modes_phase(lt, hc, torch, smi, params, ds, X, y, w)
 
     src = {"build_histogram_slots": "hist_slots.cu",
            "take_leaf_values": "take_leaf_values.cu",

@@ -11,15 +11,16 @@ This package imports torch and numpy, never jax and nothing of
 lightgbm_tpu.
 """
 
-from .basic import Booster, Dataset
+from .basic import Booster, Dataset, Sequence
 from .callback import (EarlyStopException, early_stopping, log_evaluation,
                        record_evaluation, reset_parameter)
-from .config import Config
-from .engine import train
+from .config import Config, resolve_params
+from .engine import CVBooster, cv, train
 from .utils.log import FatalError, register_logger
 
 __all__ = [
-    "Booster", "Config", "Dataset", "EarlyStopException", "FatalError",
-    "early_stopping", "log_evaluation", "record_evaluation",
-    "register_logger", "reset_parameter", "train",
+    "Booster", "CVBooster", "Config", "Dataset", "EarlyStopException",
+    "FatalError", "cv", "early_stopping", "log_evaluation",
+    "record_evaluation", "register_logger", "reset_parameter",
+    "resolve_params", "Sequence", "train",
 ]

@@ -15,13 +15,17 @@ import os
 from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
+import torch
 
 from .config import resolve_params
 from .data.dataset import BinnedDataset, Metadata, construct_from_matrix
 from .metrics import Metric, create_metric, default_metric_for_objective
-from .models.gbdt import GBDT, check_slice_config
+from .models import create_boosting
+from .models.gbdt import GBDT, _not_ported, check_slice_config
+from .models.linear import fit_linear_models
 from .objectives import create_objective
 from .utils import resolve_device
+from .utils.log import log_fatal, log_warning
 
 
 def _to_2d_numpy(data: Any) -> np.ndarray:
@@ -35,6 +39,21 @@ def _to_2d_numpy(data: Any) -> np.ndarray:
 
 _EARLY_STOP_KEYS = ("pred_early_stop", "pred_early_stop_freq",
                     "pred_early_stop_margin")
+
+
+class Sequence:
+    """The out-of-core row interface of the JAX package (basic.py:82-100;
+    reference basic.py:841): `__len__` and `__getitem__`. A Dataset built
+    from one raises until its streaming construction is ported (ROADMAP
+    item A6)."""
+
+    batch_size: int = 65536
+
+    def __len__(self) -> int:
+        raise NotImplementedError
+
+    def __getitem__(self, idx):
+        raise NotImplementedError
 
 
 class Dataset:
@@ -61,6 +80,10 @@ class Dataset:
     def construct(self) -> "Dataset":
         if self._handle is not None:
             return self
+        if isinstance(self.data, Sequence) or (
+                isinstance(self.data, list) and self.data
+                and isinstance(self.data[0], Sequence)):
+            _not_ported("Dataset from a Sequence", "A6")
         cfg = resolve_params(self.params)
         device = resolve_device(cfg.device_type)
         data = _to_2d_numpy(self.data)
@@ -125,9 +148,157 @@ class Dataset:
             return self._handle.metadata.label
         return None if self.label is None else np.asarray(self.label)
 
+    def get_weight(self) -> Optional[np.ndarray]:
+        if self._handle is not None:
+            return self._handle.metadata.weight
+        return None if self.weight is None else np.asarray(self.weight)
+
+    def get_group(self) -> Optional[np.ndarray]:
+        """Query sizes (the metadata's boundaries differenced)."""
+        if self._handle is not None \
+                and self._handle.metadata.query_boundaries is not None:
+            return np.diff(self._handle.metadata.query_boundaries)
+        return None if self.group is None else np.asarray(self.group)
+
+    def get_init_score(self):
+        return self.init_score
+
     def get_feature_name(self) -> List[str]:
         self.construct()
         return list(self._handle.feature_names)
+
+    # the setters change the constructed metadata too (JAX basic.py:
+    # 343-369); a booster already built keeps the copies it took
+    def set_label(self, label) -> "Dataset":
+        self.label = label
+        if self._handle is not None:
+            self._handle.metadata.set_label(
+                None if label is None else np.asarray(label))
+        return self
+
+    def set_weight(self, weight) -> "Dataset":
+        self.weight = weight
+        if self._handle is not None:
+            self._handle.metadata.set_weight(
+                None if weight is None else np.asarray(weight))
+        return self
+
+    def set_group(self, group) -> "Dataset":
+        self.group = group
+        if self._handle is not None:
+            self._handle.metadata.set_group(
+                None if group is None else np.asarray(group))
+        return self
+
+    def set_init_score(self, init_score) -> "Dataset":
+        self.init_score = init_score
+        if self._handle is not None:
+            self._handle.metadata.set_init_score(
+                None if init_score is None else np.asarray(init_score))
+        return self
+
+    def subset(self, used_indices, params=None) -> "Dataset":
+        """A Dataset of the rows `used_indices` that shares this one's bin
+        mappers: the bins are taken, not recomputed (JAX basic.py:371-421;
+        Dataset::CopySubrow, dataset.h:674), on the host and, where this
+        one has them on a device, there too. Query boundaries survive a
+        subset of whole queries in order, and are dropped with a warning
+        otherwise."""
+        self.construct()
+        h = self._handle
+        idx = np.asarray(used_indices, np.int64)
+        sub = Dataset(None, params=(params if params is not None
+                                    else self.params),
+                      free_raw_data=self.free_raw_data)
+        nh = BinnedDataset()
+        nh.num_data = int(len(idx))
+        nh.num_total_features = h.num_total_features
+        nh.mappers = h.mappers
+        nh.real_feature_index = h.real_feature_index
+        nh.used_feature_map = h.used_feature_map
+        nh.feature_names = list(h.feature_names)
+        nh.max_bin = h.max_bin
+        nh.reference = h
+        nh.X_binned = h.X_binned[idx]
+        if h.X_t is not None:
+            nh.X_t = h.X_t[:, torch.from_numpy(idx).to(h.X_t.device)]
+        md = Metadata(nh.num_data)
+        if h.metadata.label is not None:
+            md.set_label(h.metadata.label[idx])
+        if h.metadata.weight is not None:
+            md.set_weight(h.metadata.weight[idx])
+        if h.metadata.init_score is not None:
+            ins = np.asarray(h.metadata.init_score).reshape(-1)
+            if ins.size == h.num_data:
+                md.set_init_score(ins[idx])
+            else:   # per-class init scores, class-major
+                k = ins.size // h.num_data
+                md.set_init_score(
+                    ins.reshape(k, h.num_data)[:, idx].reshape(-1))
+        if h.metadata.query_boundaries is not None:
+            qb = np.asarray(h.metadata.query_boundaries)
+            qid = np.searchsorted(qb, idx, side="right") - 1
+            sel_q, counts = np.unique(qid, return_counts=True)
+            full = np.all(counts == np.diff(qb)[sel_q])
+            contiguous = np.all(np.diff(qid) >= 0)
+            if full and contiguous:
+                md.set_group(counts)
+            else:
+                log_warning("Dataset.subset dropped query boundaries: "
+                            "the row subset does not keep queries whole")
+        nh.metadata = md
+        sub._handle = nh
+        return sub
+
+    def save_binary(self, filename: str) -> "Dataset":
+        _not_ported("Dataset.save_binary", "A6")
+
+    def init_streaming(self, *args, **kwargs) -> "Dataset":
+        _not_ported("streaming Datasets (init_streaming / push_rows / "
+                    "mark_finished)", "A13")
+
+    push_rows = mark_finished = init_streaming
+
+    def add_features_from(self, other: "Dataset") -> "Dataset":
+        """Append `other`'s features to this Dataset in place (JAX
+        basic.py:423-462; Dataset::AddFeaturesFrom, dataset.h:971). Both
+        must hold the same rows; `other`'s bin mappers come along. EFB
+        bundles are dropped and not rebuilt, so the result trains
+        unbundled."""
+        self.construct()
+        other.construct()
+        h, o = self._handle, other._handle
+        if h.num_data != o.num_data:
+            log_fatal("Cannot add features from a Dataset with "
+                      f"{o.num_data} rows to one with {h.num_data}")
+        off = h.num_total_features          # original-column offset
+        inner_off = len(h.mappers)          # inner-feature offset
+        h.X_binned = np.concatenate([h.X_binned[:, :len(h.mappers)],
+                                     o.X_binned[:, :len(o.mappers)]],
+                                    axis=1)
+        if h.X_t is not None:
+            h.X_t = torch.from_numpy(np.ascontiguousarray(
+                h.X_binned.T)).to(h.X_t.device)
+        h.mappers = list(h.mappers) + list(o.mappers)
+        h.real_feature_index = list(h.real_feature_index) + [
+            off + r for r in o.real_feature_index]
+        h.used_feature_map = list(h.used_feature_map) + [
+            (-1 if m < 0 else m + inner_off) for m in o.used_feature_map]
+        # default names renumbered, user names made unique, so name-based
+        # column specs stay unambiguous
+        new_names = []
+        existing = set(h.feature_names)
+        for r, name in enumerate(o.feature_names):
+            if name == f"Column_{r}":
+                name = f"Column_{off + r}"
+            while name in existing:
+                name = name + "_y"
+            existing.add(name)
+            new_names.append(name)
+        h.feature_names = list(h.feature_names) + new_names
+        h.num_total_features = off + o.num_total_features
+        h.bundles = h.X_bundled = h.bundle_col = h.bundle_off = None
+        return self
 
 
 class Booster:
@@ -157,8 +328,8 @@ class Booster:
             self._train_metrics = [
                 m for m in (create_metric(n, cfg) for n in self._metric_names)
                 if m is not None]
-            self._gbdt = GBDT(cfg, train_set._handle, objective,
-                              self._train_metrics)
+            self._gbdt = create_boosting(cfg, train_set._handle, objective,
+                                         self._train_metrics)
             self.train_set = train_set
             self._config = cfg
         elif model_file is not None or model_str is not None:
@@ -220,9 +391,18 @@ class Booster:
             if self.update():
                 break
 
+    def rollback_one_iter(self) -> "Booster":
+        """Remove the last iteration's trees and their outputs from the
+        training and valid scores (JAX basic.py:719)."""
+        self._gbdt.rollback_one_iter()
+        return self
+
     @property
     def current_iteration(self):
         return self._gbdt.iter
+
+    def num_model_per_iteration(self) -> int:
+        return self._gbdt.num_tree_per_iteration
 
     def num_trees(self) -> int:
         return len(self._gbdt.models)
@@ -341,8 +521,11 @@ class Booster:
         an iteration before any class's trees, from the objective on the
         device of the booster's (and `kwargs`') device_type; the per-leaf
         sums in f64 on the host, in row order. `weight` scales the rows'
-        gradients as at training time. This booster is unchanged."""
-        import torch
+        gradients as at training time. A linear tree's leaves are then
+        fitted again on the host over the saved feature sets, blended with
+        the old coefficients at decay_rate (JAX basic.py:956-978;
+        linear_tree_learner.cpp:139-156, 330-390). This booster is
+        unchanged."""
         data = _to_2d_numpy(data)
         new_booster = Booster(model_str=self.model_to_string())
         g = new_booster._gbdt
@@ -379,10 +562,6 @@ class Booster:
             for k in range(K):
                 mi = it * K + k
                 tree = g.models[mi]
-                if getattr(tree, "is_linear", False):
-                    raise NotImplementedError(
-                        "refitting linear trees is not ported to "
-                        "lightgbm_tpu_torch yet (ROADMAP item A10)")
                 leaf = leaf_preds[:, mi]
                 nl = tree.num_leaves
                 sum_g = np.bincount(leaf, weights=grads[k], minlength=nl)
@@ -393,7 +572,22 @@ class Booster:
                 new_val *= tree.shrinkage
                 tree.leaf_value = (decay_rate * tree.leaf_value
                                    + (1.0 - decay_rate) * new_val[:nl])
-                scores[k] += tree.leaf_value[leaf]
+                if getattr(tree, "is_linear", False):
+                    # the saved feature sets are raw column ids; the
+                    # gradients carry the weights, so no row is out of bag
+                    Ftot = data.shape[1]
+                    scores[k] += fit_linear_models(
+                        tree, np.asarray(data, np.float32),
+                        leaf.astype(np.int32), grads[k], hesss[k],
+                        np.ones(N, np.float32),
+                        linear_lambda=float(cfg.linear_lambda),
+                        shrinkage=tree.shrinkage,
+                        numeric_inner=np.ones(Ftot, bool),
+                        inner_to_real=np.arange(Ftot, dtype=np.int64),
+                        leaf_features_inner=tree.leaf_features,
+                        is_refit=True, decay_rate=decay_rate)
+                else:
+                    scores[k] += tree.leaf_value[leaf]
         return new_booster
 
     def serve(self, **kwargs) -> Any:
@@ -423,3 +617,57 @@ class Booster:
         s = self._gbdt.save_model_to_string(
             start_iteration, ni, 0 if importance_type == "split" else 1)
         return s + "\npandas_categorical:null\n"
+
+    def model_from_string(self, model_str: str) -> "Booster":
+        """Replace this booster's model by the one in `model_str`; the
+        booster's params still choose where it predicts."""
+        self._gbdt = GBDT.load_model_from_string(
+            model_str, resolve_params(self.params))
+        self._config = self._gbdt.config
+        return self
+
+    def dump_model(self, num_iteration: Optional[int] = None,
+                   start_iteration: int = 0,
+                   importance_type: str = "split") -> Dict[str, Any]:
+        """The model as JSON (GBDT::DumpModel, gbdt_model_text.cpp:31; JAX
+        basic.py:853-888)."""
+        g = self._gbdt
+        ni = num_iteration if num_iteration is not None else (
+            self.best_iteration if self.best_iteration > 0 else -1)
+        K = g.num_tree_per_iteration
+        total_iters = len(g.models) // K if K else 0
+        end = total_iters if ni <= 0 else min(total_iters,
+                                              start_iteration + ni)
+        trees = []
+        for it in range(start_iteration, end):
+            for k in range(K):
+                d = g.models[it * K + k].to_json()
+                d["tree_index"] = len(trees)
+                trees.append(d)
+        return {
+            "name": "tree",
+            "version": "v4",
+            "num_class": g.num_class,
+            "num_tree_per_iteration": K,
+            "label_index": g.label_idx_,
+            "max_feature_idx": g.max_feature_idx_,
+            "objective": (g.objective.to_string() if g.objective else ""),
+            "average_output": g.average_output,
+            "feature_names": list(g.feature_names_),
+            "feature_importances": {
+                name: float(v) for name, v in zip(
+                    g.feature_names_,
+                    g.feature_importance(
+                        0 if importance_type == "split" else 1))
+                if v > 0},
+            "tree_info": trees,
+        }
+
+    def dump_model_to_cpp(self) -> str:
+        _not_ported("Booster.dump_model_to_cpp", "A6")
+
+    def free_dataset(self) -> "Booster":
+        return self
+
+    def free_network(self) -> "Booster":
+        return self

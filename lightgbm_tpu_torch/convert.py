@@ -49,15 +49,18 @@ _TREE_FIELDS = {
 def tree_from_arrays(d: Dict[str, Any]) -> Tree:
     """A host Tree from a dict of its arrays (the keys of `vars(tree)` of
     the JAX package's Tree)."""
-    if d.get("is_linear", False):
-        raise NotImplementedError("linear trees are not ported to "
-                                  "lightgbm_tpu_torch yet (ROADMAP item A10)")
     t = Tree(int(d["num_leaves"]))
     t.num_cat = int(d.get("num_cat", 0))
     for name, dtype in _TREE_FIELDS.items():
         if name in d:
             setattr(t, name, np.array(d[name], dtype=dtype))
     t.shrinkage = float(d.get("shrinkage", 1.0))
+    if d.get("is_linear", False):
+        # a linear leaf: its constant, and its coefficients on raw columns
+        t.is_linear = True
+        t.leaf_const = np.array(d["leaf_const"], dtype=np.float64)
+        t.leaf_features = [[int(f) for f in fs] for fs in d["leaf_features"]]
+        t.leaf_coeff = [[float(c) for c in cs] for cs in d["leaf_coeff"]]
     return t
 
 

@@ -131,6 +131,10 @@ class BinnedDataset:
         self.tier_perm: Optional[List[int]] = None
         # "device" | "host": how the rows were binned (construct_from_matrix)
         self.binning_route: str = "host"
+        # raw feature values, kept only when config.linear_tree needs them
+        # at fit time (the reference keeps its Dataset's raw data the same
+        # way, linear_tree_learner.cpp raw_index), whatever free_raw_data
+        self.raw_data: Optional[np.ndarray] = None
 
     # -- derived per-feature arrays consumed by device kernels
     @property
@@ -392,6 +396,8 @@ def construct_from_matrix(
         if device is not None and X.dtype == np.uint8:
             ds.X_t = torch.from_numpy(np.ascontiguousarray(X.T)).to(device)
     ds.X_binned = X
+    if config.linear_tree:
+        ds.raw_data = np.ascontiguousarray(data, dtype=np.float32)
     return _finalize(ds, config, label, weight, group, init_score,
                      reference)
 

@@ -1,20 +1,25 @@
-"""Training entry point.
+"""Training entry points: train() and cv().
 
-Counterpart of lightgbm_tpu/engine.py:train (the reference python
-package's engine.py:109) on the per-iteration loop: the booster starts
-from `init_model`'s trees when one is given, then each iteration runs the
-before-iteration callbacks (reset_parameter), updates the booster (on
-`fobj`'s gradients when given), evaluates the training set where it is
-also a valid set and the valid sets (with `feval`), then runs the other
-callbacks; early stopping ends the loop.
+Counterpart of lightgbm_tpu/engine.py (the reference python package's
+engine.py: train:109, cv:626, CVBooster:356) on the per-iteration loop: the
+booster starts from `init_model`'s trees when one is given, then each
+iteration runs the before-iteration callbacks (reset_parameter), updates
+the booster (on `fobj`'s gradients when given), evaluates the training set
+where it is also a valid set and the valid sets (with `feval`), then runs
+the other callbacks; early stopping ends the loop. cv() trains one booster
+a fold in lockstep and reports each metric's mean and standard deviation
+over the folds every round.
 """
 
 from __future__ import annotations
 
+import collections
 import copy
 from typing import Any, Callable, Dict, List, Optional, Union
 
-from .basic import Booster, Dataset
+import numpy as np
+
+from .basic import Booster, Dataset, _to_2d_numpy
 from .callback import CallbackEnv, EarlyStopException, early_stopping
 from .config import resolve_params
 from .utils.log import log_warning
@@ -102,3 +107,162 @@ def train(
     if booster.best_iteration <= 0:
         booster.best_iteration = booster.current_iteration
     return booster
+
+
+class CVBooster:
+    """The boosters of a cross-validation, one a fold (reference:
+    engine.py:356): a method called on it is called on each, and the
+    results come back as a list."""
+
+    def __init__(self) -> None:
+        self.boosters: List[Booster] = []
+        self.best_iteration = -1
+
+    def append(self, booster: Booster) -> None:
+        self.boosters.append(booster)
+
+    def __getattr__(self, name: str):
+        def handler_function(*args: Any, **kwargs: Any) -> List[Any]:
+            return [getattr(b, name)(*args, **kwargs) for b in self.boosters]
+        return handler_function
+
+
+def _make_n_folds(full_data: Dataset, nfold: int, params: Dict[str, Any],
+                  stratified: bool, shuffle: bool, seed: int):
+    """(train rows, test rows, test queries) a fold (JAX engine.py:
+    324-362): whole queries where the Dataset has groups, else rows taken
+    in label order every nfold-th (stratified) or split after an optional
+    shuffle by RandomState(seed)."""
+    full_data.construct()
+    num_data = full_data.num_data()
+    label = full_data.get_label()
+    group = full_data.get_group()
+    rng = np.random.RandomState(seed)
+
+    if group is not None:
+        gidx = np.arange(len(group))
+        if shuffle:
+            rng.shuffle(gidx)
+        boundaries = np.concatenate([[0], np.cumsum(group)])
+        for fg in np.array_split(gidx, nfold):
+            test_rows = np.concatenate(
+                [np.arange(boundaries[g], boundaries[g + 1]) for g in fg]) \
+                if len(fg) else np.array([], dtype=np.int64)
+            mask = np.zeros(num_data, dtype=bool)
+            mask[test_rows.astype(np.int64)] = True
+            yield np.flatnonzero(~mask), np.flatnonzero(mask), fg
+        return
+
+    idx = np.arange(num_data)
+    if stratified and label is not None:
+        order = np.argsort(label, kind="stable")
+        folds = [order[i::nfold] for i in range(nfold)]
+    else:
+        if shuffle:
+            rng.shuffle(idx)
+        folds = np.array_split(idx, nfold)
+    for f in folds:
+        mask = np.zeros(num_data, dtype=bool)
+        mask[f] = True
+        yield np.flatnonzero(~mask), np.flatnonzero(mask), None
+
+
+def cv(params: Dict[str, Any], train_set: Dataset,
+       num_boost_round: int = 100, folds=None, nfold: int = 5,
+       stratified: bool = True, shuffle: bool = True,
+       metrics: Optional[Union[str, List[str]]] = None,
+       feval: Optional[Callable] = None, init_model=None,
+       fpreproc: Optional[Callable] = None, seed: int = 0,
+       callbacks: Optional[List[Callable]] = None,
+       eval_train_metric: bool = False,
+       return_cvbooster: bool = False) -> Dict[str, Any]:
+    """Cross-validation (reference: engine.py:626; JAX engine.py:365-473):
+    each fold's rows binned anew from `train_set`'s raw rows (so it needs
+    free_raw_data=False), a booster a fold with the held-out rows as its
+    valid set "valid", and per round "valid <metric>-mean" / "-stdv" (and
+    "train ..." with eval_train_metric) over the folds. Stratified folds
+    only for binary and multiclass objectives. `init_model` and `fpreproc`
+    are accepted and unused, as in the JAX package."""
+    params = copy.deepcopy(params)
+    if metrics is not None:
+        params["metric"] = metrics
+    cfg = resolve_params(params)
+    if cfg.num_iterations != 100 and num_boost_round == 100:
+        num_boost_round = cfg.num_iterations
+    if cfg.objective not in ("binary", "multiclass", "multiclassova"):
+        stratified = False
+
+    train_set.construct()
+    if train_set.data is None:
+        raise ValueError("cv() needs the Dataset constructed with "
+                         "free_raw_data=False")
+    full_X = _to_2d_numpy(train_set.data)
+    label = train_set.get_label()
+    weight = train_set.get_weight()
+    group = train_set.get_group()
+    if folds is None:
+        folds = _make_n_folds(train_set, nfold, params, stratified, shuffle,
+                              seed)
+
+    cvbooster = CVBooster()
+    for train_idx, test_idx, _ in folds:
+        tr_kwargs: Dict[str, Any] = {}
+        va_kwargs: Dict[str, Any] = {}
+        if group is not None:
+            row2q = np.repeat(np.arange(len(group)), group.astype(np.int64))
+            trq, vaq = row2q[train_idx], row2q[test_idx]
+            tr_kwargs["group"] = np.bincount(
+                trq, minlength=len(group))[np.unique(trq)]
+            va_kwargs["group"] = np.bincount(
+                vaq, minlength=len(group))[np.unique(vaq)]
+        dtrain = Dataset(full_X[train_idx],
+                         label=None if label is None else label[train_idx],
+                         weight=None if weight is None else weight[train_idx],
+                         params=train_set.params, free_raw_data=False,
+                         **tr_kwargs)
+        dvalid = dtrain.create_valid(
+            full_X[test_idx],
+            label=None if label is None else label[test_idx],
+            weight=None if weight is None else weight[test_idx],
+            **va_kwargs)
+        bst = Booster(params=params, train_set=dtrain)
+        bst.add_valid(dvalid, "valid")
+        cvbooster.append(bst)
+
+    callbacks = list(callbacks) if callbacks else []
+    es_cb = None
+    if cfg.early_stopping_round and cfg.early_stopping_round > 0:
+        es_cb = early_stopping(cfg.early_stopping_round,
+                               cfg.first_metric_only, verbose=False)
+    results = collections.defaultdict(list)
+    for it in range(num_boost_round):
+        agg: Dict[str, List] = collections.defaultdict(list)
+        for bst in cvbooster.boosters:
+            bst.update()
+            for _, m, v, h in bst.eval_valid(feval):
+                agg[f"valid {m}"].append((v, h))
+            if eval_train_metric:
+                for _, m, v, h in bst.eval_train(feval):
+                    agg[f"train {m}"].append((v, h))
+        merged = []
+        for key, vals in agg.items():
+            vs = [v for v, _ in vals]
+            results[f"{key}-mean"].append(float(np.mean(vs)))
+            results[f"{key}-stdv"].append(float(np.std(vs)))
+            merged.append(("cv_agg", key, float(np.mean(vs)), vals[0][1]))
+        try:
+            for cb in callbacks + ([es_cb] if es_cb is not None else []):
+                cb(CallbackEnv(model=cvbooster, params=params, iteration=it,
+                               begin_iteration=0,
+                               end_iteration=num_boost_round,
+                               evaluation_result_list=merged))
+        except EarlyStopException as e:
+            cvbooster.best_iteration = e.best_iteration + 1
+            for k in list(results.keys()):
+                results[k] = results[k][:cvbooster.best_iteration]
+            break
+
+    out = dict(results)
+    if return_cvbooster:
+        out["cvbooster"] = cvbooster
+    return out

@@ -19,10 +19,13 @@ and interaction constraints on every route, forced splits and CEGB
 penalties on the two-pass routes, quantized gradients
 (use_quantized_grad), feature_fraction_bynode and extra_trees, and
 uniform, class-stratified, by-query or GOSS row sampling
-(models/sample_strategy.py). The loop around it: continued training from an
+(models/sample_strategy.py), and linear leaves fitted on the host
+(models/linear.py). The loop around it: continued training from an
 existing model (`load_init_model`, its trees replayed onto the scores on
-the device), valid sets added at any time, and iterations on caller-given
-gradients (`train_one_iter(grad, hess)`). Everything else raises
+the device), valid sets added at any time, iterations on caller-given
+gradients (`train_one_iter(grad, hess)`) and `rollback_one_iter`; random
+forests (models/rf.py) and DART (models/dart.py) subclass it. Everything
+else raises
 NotImplementedError naming the ROADMAP item that ports it. Prediction
 covers every tree the JAX package writes except linear leaves on the
 device routes.
@@ -35,6 +38,7 @@ import dataclasses
 import json
 import os
 import re
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -54,6 +58,7 @@ from ..ops.predict import predict_leaf_binned
 from ..ops.split import FeatureMeta
 from ..utils import resolve_device, round_up
 from ..utils.log import log_fatal, log_info, log_warning
+from .linear import fit_linear_models, linear_output_for_leaves
 from .sample_strategy import create_sample_strategy
 from .tree import (_CATEGORICAL_MASK, _DEFAULT_LEFT_MASK, Tree,
                    make_decision_type)
@@ -70,13 +75,15 @@ def _not_ported(what: str, item: str) -> None:
 
 def check_slice_config(cfg: Config) -> None:
     """Refuse every configuration outside this slice, naming the ROADMAP
-    item that will port it; none may quietly take another route."""
-    if cfg.boosting != "gbdt":
-        _not_ported(f"boosting={cfg.boosting}", "A10")
-    if cfg.linear_tree:
-        _not_ported("linear_tree", "A10")
-    if cfg.tree_learner != "serial" or cfg.num_machines > 1 \
-            or cfg.pre_partition:
+    item that will port it; none may quietly take another route. Linear
+    trees with a distributed learner are fatal first, as in the JAX package
+    (gbdt.py:494-496)."""
+    distributed = (cfg.tree_learner != "serial" or cfg.num_machines > 1
+                   or cfg.pre_partition)
+    if cfg.linear_tree and distributed:
+        log_fatal("linear_tree is not supported with distributed tree "
+                  "learners (matches the reference)")
+    if distributed:
         _not_ported("distributed training (tree_learner="
                     f"{cfg.tree_learner})", "A16")
     if cfg.tpu_grower not in ("auto", "wave"):
@@ -296,6 +303,7 @@ class GBDT:
                 bundle_expand=torch.from_numpy(expand).to(self.device),
                 bundle_mfb=torch.from_numpy(mfb).to(self.device))
         self._init_cegb(ds, bundled)
+        self._init_linear(ds)
         # per-STORAGE-COLUMN bin counts (gbdt.py:345-348); force_row_wise
         # pins the row-wise layout (gbdt.py:353-355)
         hist_tiers = tuple(ds.storage_num_bins())
@@ -404,6 +412,24 @@ class GBDT:
         for m in self.training_metrics:
             m.init(md, N)
 
+    def _init_linear(self, ds: BinnedDataset) -> None:
+        """Linear trees (gbdt.py:491-507; linear_tree_learner.cpp): the fit
+        reads the training rows' raw values, which the Dataset keeps only
+        under linear_tree; `linear_fit_ms` records each tree's host fit."""
+        self._linear = bool(self.config.linear_tree)
+        self.linear_fit_ms: List[float] = []
+        if not self._linear:
+            return
+        if ds.raw_data is None:
+            log_fatal(
+                "linear_tree requires raw feature values at train "
+                "time; construct the Dataset from an in-memory "
+                "matrix or text file (binary caches, Sequences and "
+                "sparse inputs do not retain raw data)")
+        self._raw = ds.raw_data
+        self._lin_numeric = ~ds.feature_is_categorical()
+        self._lin_inner2real = np.asarray(ds.real_feature_index, np.int64)
+
     def _init_cegb(self, ds: BinnedDataset, bundled: bool) -> None:
         """CEGB's split and coupled penalties (gbdt.py:508-540;
         cost_effective_gradient_boosting.hpp): the coupled vector by inner
@@ -449,7 +475,7 @@ class GBDT:
         scores = torch.from_numpy(self._initial_scores(
             ds.metadata.init_score, ds.num_data)).to(self.device)
         if self.models:
-            self._replay(self.models, Xv, scores)
+            self._replay(self.models, Xv, scores, ds.raw_data)
         self._valid_Xt.append(Xv)
         self._valid_scores.append(scores)
         self.valid_sets.append(ds)
@@ -578,7 +604,7 @@ class GBDT:
                 init_scores = self._boost_from_average()
             if self.objective is None:
                 log_fatal("No objective function provided for boosting")
-            g, h = self._gradients()
+            g, h = self.boost()
         else:
             g, h = self._custom_rows(grad), self._custom_rows(hess)
         strat = self.sample_strategy
@@ -602,6 +628,12 @@ class GBDT:
             if self.objective is not None \
                     and self.objective.need_renew_tree_output:
                 tree = self._renew_tree_output(k, tree, leaf_of_row)
+            if self._linear:
+                # scores advance by the trees' linear outputs (gbdt.py:
+                # 1504-1510)
+                self._fit_and_apply_linear(k, tree, leaf_of_row, g[k], h[k],
+                                           float(init_scores[k]))
+                continue
             add_leaf_values_(self.scores[k], tree.leaf_value * lr,
                              leaf_of_row)
             # valid scores update BEFORE the bias fold (the reference
@@ -624,6 +656,45 @@ class GBDT:
         if (it & (it - 1)) == 0 or it % self._stop_check_interval == 0:
             self._stopped = self._check_stopped()
         return self._stopped
+
+    def boost(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The iteration's [K, N] gradients and hessians (GBDT::Boosting;
+        random forests keep their first ones)."""
+        return self._gradients()
+
+    def _fit_and_apply_linear(self, k: int, tree_dev: DeviceTree,
+                              leaf_of_row: torch.Tensor, g: torch.Tensor,
+                              h: torch.Tensor, bias: float) -> None:
+        """Materialize class k's new tree, ridge-fit its leaves on the raw
+        branch features on the host (models/linear.py;
+        linear_tree_learner.cpp:183-345), advance the training and valid
+        scores by its linear outputs, fold the boost-from-average `bias` in
+        and keep the host tree (gbdt.py:1737-1781). The first tree of a
+        model stays constant."""
+        t0 = time.perf_counter()
+        lr = self.shrinkage_rate
+        tree = self._device_tree_to_host(tree_dev, lr)
+        lor, g, h, bag = (t.cpu().numpy() for t in (leaf_of_row, g, h,
+                                                    self._in_bag))
+        # pending trees first, so the model stays in iteration order
+        is_first = len(self.models) < self.num_tree_per_iteration
+        delta = fit_linear_models(
+            tree, self._raw, lor, g, h, bag,
+            linear_lambda=float(self.config.linear_lambda), shrinkage=lr,
+            numeric_inner=self._lin_numeric,
+            inner_to_real=self._lin_inner2real, is_first_tree=is_first)
+        self.scores[k] += torch.from_numpy(
+            np.asarray(delta, np.float32)).to(self.device)
+        for vi, ds in enumerate(self.valid_sets):
+            if ds.raw_data is None:
+                log_fatal("linear_tree validation requires raw data on "
+                          "the valid Dataset")
+            self._valid_scores[vi][k] += torch.from_numpy(np.asarray(
+                tree.predict(ds.raw_data), np.float32)).to(self.device)
+        if abs(bias) > _KEPS:
+            tree.add_bias(bias)
+        self._models.append(tree)
+        self.linear_fit_ms.append((time.perf_counter() - t0) * 1e3)
 
     def _renew_tree_output(self, k: int, tree: DeviceTree,
                            leaf_of_row: torch.Tensor,
@@ -755,32 +826,81 @@ class GBDT:
         if not trees:
             return
         K = self.num_tree_per_iteration
-        # the original features: with EFB self.X_t holds bundle columns
-        X_t = self.X_t if self.train_set.bundles is None else \
-            torch.from_numpy(np.ascontiguousarray(
-                self.train_set.X_binned.T)).to(self.device)
         add = torch.zeros_like(self.scores)
-        self._replay(trees, X_t, add)
+        self._replay(trees, self._binned_features(), add,
+                     self.train_set.raw_data)
         self.scores += add
         self._models = trees + self.models
         self.iter = len(trees) // max(K, 1) + self.iter
         log_info(f"Continued training from {len(trees)} existing trees")
 
+    def _binned_features(self) -> torch.Tensor:
+        """The training rows' [F, N] binned original features on the
+        scores' device: X_t, or with EFB (whose X_t holds bundle columns) a
+        copy made once."""
+        if self.train_set.bundles is None:
+            return self.X_t
+        if getattr(self, "_X_unbundled", None) is None:
+            self._X_unbundled = torch.from_numpy(np.ascontiguousarray(
+                self.train_set.X_binned.T)).to(self.device)
+        return self._X_unbundled
+
     def _replay(self, trees: Sequence[Tree], X_t: torch.Tensor,
-                scores: torch.Tensor) -> None:
-        """scores[i % K] += tree i's shrunk leaf values at each row's leaf,
-        in place, tree by tree: the device binned walk (ops/predict.py)
-        over X_t [F, N] (original features), then the score update (#2),
-        f32 values added in model order as the JAX package's NumPy loop
-        adds them."""
+                scores: torch.Tensor, raw: Optional[np.ndarray]) -> None:
+        """scores[i % K] += tree i's output at each row, in place, tree by
+        tree in model order, as the JAX package's NumPy loop adds them: the
+        device binned walk (ops/predict.py) over X_t [F, N] (original
+        features), then `_add_tree_output`."""
         K = self.num_tree_per_iteration
         for i, tree in enumerate(trees):
-            if getattr(tree, "is_linear", False):
-                _not_ported("replaying linear trees onto scores", "A10")
-            leaf = self._tree_leaves_binned(tree, X_t)
-            values = torch.from_numpy(np.asarray(
-                tree.leaf_value, np.float32)).to(X_t.device)
-            add_leaf_values_(scores[i % K], values, leaf)
+            self._add_tree_output(scores[i % K], tree,
+                                  self._tree_leaves_binned(tree, X_t), raw)
+
+    def _add_tree_output(self, row: torch.Tensor, tree: Tree,
+                         leaf: torch.Tensor, raw: Optional[np.ndarray],
+                         sign: float = 1.0) -> None:
+        """row += sign * the tree's f32 output at each row's leaf (gbdt.py:
+        1895-1905): the shrunk leaf values through the score update (#2),
+        or a linear tree's outputs on the rows' raw values `raw`, computed
+        on the host."""
+        if not getattr(tree, "is_linear", False):
+            values = np.asarray(tree.leaf_value, np.float32) * np.float32(
+                sign)
+            add_leaf_values_(row, torch.from_numpy(values).to(row.device),
+                             leaf)
+            return
+        if raw is None:
+            log_fatal("replaying a linear tree onto scores requires the "
+                      "dataset's raw feature values")
+        out = np.asarray(linear_output_for_leaves(
+            tree, np.asarray(raw), leaf.cpu().numpy()), np.float32)
+        row += torch.from_numpy(out * np.float32(sign)).to(row.device)
+
+    def rollback_one_iter(self) -> None:
+        """Undo the last iteration (GBDT::RollbackOneIter, gbdt.cpp:463;
+        gbdt.py:1859-1890): its K trees leave the model, and their outputs
+        leave the training and valid scores (#2 with negated values, a
+        linear tree's outputs negated); the predict caches are cleared."""
+        if self.iter <= 0:
+            return
+        self._stopped = False
+        self._packed_cache = None
+        self._device_tables_cache = None
+        K = self.num_tree_per_iteration
+        models = self.models
+        for k in range(K):
+            tree = models.pop()
+            kk = K - 1 - k
+            self._add_tree_output(
+                self.scores[kk], tree,
+                self._tree_leaves_binned(tree, self._binned_features()),
+                self.train_set.raw_data, -1.0)
+            for vi, ds in enumerate(self.valid_sets):
+                self._add_tree_output(
+                    self._valid_scores[vi][kk], tree,
+                    self._tree_leaves_binned(tree, self._valid_Xt[vi]),
+                    ds.raw_data, -1.0)
+        self.iter -= 1
 
     def _tree_leaves_binned(self, tree: Tree,
                             X_t: torch.Tensor) -> torch.Tensor:

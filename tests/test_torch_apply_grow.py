@@ -28,6 +28,10 @@ from lightgbm_tpu_torch.ops.grow_wave import grow_tree_wave as t_grow
 from lightgbm_tpu_torch.utils.synthetic import (CRITEO_CAT_COLUMNS,
                                                 criteo_like, efb_like)
 
+# xdist runs several test processes side by side: one intra-op thread each,
+# not a pool of one a core in every process
+torch.set_num_threads(1)
+
 PARAMS = dict(objective="binary", num_leaves=15, max_bin=63, verbose=-1,
               min_data_in_leaf=20)
 

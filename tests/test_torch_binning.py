@@ -9,6 +9,10 @@ import torch
 import lightgbm_tpu as lj
 import lightgbm_tpu_torch as lt
 
+# xdist runs several test processes side by side: one intra-op thread each,
+# not a pool of one a core in every process
+torch.set_num_threads(1)
+
 
 def _matrix(seed, n=3000):
     rng = np.random.RandomState(seed)

@@ -24,6 +24,10 @@ from lightgbm_tpu.ops import bucketize as jb
 from lightgbm_tpu_torch.data.binning import BinMapper as TBinMapper
 from lightgbm_tpu_torch.ops import bucketize as tb
 
+# xdist runs several test processes side by side: one intra-op thread each,
+# not a pool of one a core in every process
+torch.set_num_threads(1)
+
 INTERP = "LIGHTGBM_TPU_PALLAS_INTERPRET"
 
 

@@ -25,6 +25,10 @@ from lightgbm_tpu_torch.ops import split as tsplit
 from lightgbm_tpu_torch.ops.grow_wave import node_masks, xt_bins
 from lightgbm_tpu_torch.utils.random import PRNGKey, fold_in
 
+# xdist runs several test processes side by side: one intra-op thread each,
+# not a pool of one a core in every process
+torch.set_num_threads(1)
+
 SEEDS = [0, 7, -5, 2 ** 31 - 100]
 
 

@@ -21,6 +21,10 @@ from lightgbm_tpu.ops import split as js
 from lightgbm_tpu_torch.ops import categorical as tc
 from lightgbm_tpu_torch.ops import split as ts
 
+# xdist runs several test processes side by side: one intra-op thread each,
+# not a pool of one a core in every process
+torch.set_num_threads(1)
+
 B = 256
 
 

@@ -41,6 +41,10 @@ from lightgbm_tpu_torch.ops import grow_fused as gf
 from lightgbm_tpu_torch.ops import grow_wave as tgw
 from lightgbm_tpu_torch.ops import split as ts
 
+# xdist runs several test processes side by side: one intra-op thread each,
+# not a pool of one a core in every process
+torch.set_num_threads(1)
+
 PARAMS = dict(objective="binary", num_leaves=15, max_bin=63,
               learning_rate=0.1, min_data_in_leaf=20, verbose=-1,
               bagging_freq=0)

@@ -21,11 +21,16 @@ under; the trees' structures equal the JAX package's.
 """
 
 import numpy as np
+import torch
 import jax
 import pytest
 
 import lightgbm_tpu as lj
 import lightgbm_tpu_torch as lt
+
+# xdist runs several test processes side by side: one intra-op thread each,
+# not a pool of one a core in every process
+torch.set_num_threads(1)
 
 PARAMS = dict(objective="binary", num_leaves=15, max_bin=63,
               learning_rate=0.1, min_data_in_leaf=20, verbose=-1)

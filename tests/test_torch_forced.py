@@ -41,6 +41,10 @@ from lightgbm_tpu_torch.models.gbdt import parse_forced_splits as t_parse
 from lightgbm_tpu_torch.ops import split as ts
 from lightgbm_tpu_torch.utils.log import FatalError as TFatal
 
+# xdist runs several test processes side by side: one intra-op thread each,
+# not a pool of one a core in every process
+torch.set_num_threads(1)
+
 PARAMS = dict(objective="binary", num_leaves=15, max_bin=63,
               learning_rate=0.1, min_data_in_leaf=5, verbose=-1)
 TORCH = {"device_type": "cpu", "binning_impl": "host"}

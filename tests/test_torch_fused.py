@@ -43,6 +43,10 @@ from lightgbm_tpu_torch.ops import grow_fused as tf
 from lightgbm_tpu_torch.ops import grow_wave as tgw
 from lightgbm_tpu_torch.ops import split as ts
 
+# xdist runs several test processes side by side: one intra-op thread each,
+# not a pool of one a core in every process
+torch.set_num_threads(1)
+
 HP = dict(min_data_in_leaf=5.0, min_sum_hessian_in_leaf=1e-3,
           lambda_l1=0.0, lambda_l2=0.0, max_delta_step=0.0,
           min_gain_to_split=0.0, path_smooth=0.0)

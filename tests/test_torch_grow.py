@@ -26,6 +26,10 @@ from lightgbm_tpu_torch.ops import grow as tg
 from lightgbm_tpu_torch.ops import grow_wave as tw
 from lightgbm_tpu_torch.ops import split as ts
 
+# xdist runs several test processes side by side: one intra-op thread each,
+# not a pool of one a core in every process
+torch.set_num_threads(1)
+
 
 def _inputs(N, F, B, seed, grid=True):
     rng = np.random.RandomState(seed)

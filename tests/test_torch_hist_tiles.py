@@ -24,6 +24,10 @@ from lightgbm_tpu.ops.histogram_pallas import take_leaf_values_pallas
 from lightgbm_tpu_torch.ops import histogram as th
 from lightgbm_tpu_torch.ops import histogram_cuda as hc
 
+# xdist runs several test processes side by side: one intra-op thread each,
+# not a pool of one a core in every process
+torch.set_num_threads(1)
+
 
 def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))

@@ -13,6 +13,10 @@ import torch
 
 import lightgbm_tpu_torch as lt
 
+# xdist runs several test processes side by side: one intra-op thread each,
+# not a pool of one a core in every process
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "lightgbm_tpu_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"]

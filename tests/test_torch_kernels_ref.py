@@ -26,6 +26,10 @@ from lightgbm_tpu.ops.histogram_pallas import (build_histogram_pallas,
 from lightgbm_tpu_torch.ops import histogram as th
 from lightgbm_tpu_torch.ops import histogram_cuda as hc
 
+# xdist runs several test processes side by side: one intra-op thread each,
+# not a pool of one a core in every process
+torch.set_num_threads(1)
+
 
 def _grid_vals(rng, C, N):
     """Values on a 0.25 grid in [-8, 8): exact in bf16."""

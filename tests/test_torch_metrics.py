@@ -10,6 +10,7 @@ rounded so that some tie.
 """
 
 import numpy as np
+import torch
 import pytest
 
 from lightgbm_tpu import config as jcfg
@@ -21,6 +22,10 @@ from lightgbm_tpu_torch import metrics as tmet
 from lightgbm_tpu_torch import objectives as tobj
 from lightgbm_tpu_torch.data.dataset import Metadata as TMetadata
 from lightgbm_tpu_torch.metrics import rank_utils as trank
+
+# xdist runs several test processes side by side: one intra-op thread each,
+# not a pool of one a core in every process
+torch.set_num_threads(1)
 
 N = 1500
 # metric name -> (objective whose output transform it reads, label kind)

@@ -22,6 +22,10 @@ from lightgbm_tpu_torch.convert import booster_from_state
 from lightgbm_tpu_torch.data.dataset import Metadata as TMetadata
 from lightgbm_tpu_torch.models import sample_strategy as tss
 
+# xdist runs several test processes side by side: one intra-op thread each,
+# not a pool of one a core in every process
+torch.set_num_threads(1)
+
 K = 3
 CASES = {
     "softmax": dict(objective="multiclass", num_class=K,

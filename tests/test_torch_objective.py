@@ -22,6 +22,10 @@ from lightgbm_tpu_torch import config as tcfg
 from lightgbm_tpu_torch import objectives as tobj
 from lightgbm_tpu_torch.data.dataset import Metadata as TMetadata
 
+# xdist runs several test processes side by side: one intra-op thread each,
+# not a pool of one a core in every process
+torch.set_num_threads(1)
+
 
 def _objectives(params, label, weight):
     out = []

@@ -43,6 +43,10 @@ from lightgbm_tpu_torch.ops.predict_binned import (build_binned_model,
                                                    predict_leaves_binned,
                                                    predict_margin_binned)
 
+# xdist runs several test processes side by side: one intra-op thread each,
+# not a pool of one a core in every process
+torch.set_num_threads(1)
+
 COLS = 8
 CPU = torch.device("cpu")
 

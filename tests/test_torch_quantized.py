@@ -38,6 +38,10 @@ from lightgbm_tpu_torch.utils.synthetic import efb_like
 from test_torch_apply_grow import _assert_same_tree
 from test_torch_train import PARAMS, TORCH, _assert_same_trees
 
+# xdist runs several test processes side by side: one intra-op thread each,
+# not a pool of one a core in every process
+torch.set_num_threads(1)
+
 SEED = 12345
 
 

@@ -10,6 +10,10 @@ import torch
 
 from lightgbm_tpu_torch.utils import random as tr
 
+# xdist runs several test processes side by side: one intra-op thread each,
+# not a pool of one a core in every process
+torch.set_num_threads(1)
+
 SEEDS = [0, 1, 7, 2 ** 31 - 1, -5]
 SIZES = [1, 7, 1000, 2 ** 17 + 3]
 

@@ -22,6 +22,10 @@ from lightgbm_tpu_torch import objectives as tobj
 from lightgbm_tpu_torch.data.dataset import Metadata as TMetadata
 from lightgbm_tpu_torch.models import sample_strategy as tss
 
+# xdist runs several test processes side by side: one intra-op thread each,
+# not a pool of one a core in every process
+torch.set_num_threads(1)
+
 # query sizes that fill every padded-length bucket, with 1- and 2-row
 # queries and an all-zero-relevance query
 SIZES = np.array([1, 2, 8, 9, 16, 17, 40, 3, 64, 100, 5, 33])

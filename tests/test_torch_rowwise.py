@@ -23,6 +23,10 @@ from lightgbm_tpu_torch.ops import histogram_cuda as hc
 from lightgbm_tpu_torch.ops import histogram_rowwise as tr
 from lightgbm_tpu_torch.ops.split import expand_feature_offset_hist
 
+# xdist runs several test processes side by side: one intra-op thread each,
+# not a pool of one a core in every process
+torch.set_num_threads(1)
+
 MIXED = (33, 256, 12, 100, 256, 8, 64, 7, 3, 16, 2)
 WIDE = tuple([256] * 9 + [5, 17, 4] + [64] * 30)    # > one column chunk
 

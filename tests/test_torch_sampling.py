@@ -28,6 +28,10 @@ from lightgbm_tpu_torch.models.sample_strategy import \
     create_sample_strategy as t_create
 from test_torch_train import PARAMS, TORCH, _nums, _tree_blocks
 
+# xdist runs several test processes side by side: one intra-op thread each,
+# not a pool of one a core in every process
+torch.set_num_threads(1)
+
 N = 5000
 
 

@@ -16,6 +16,7 @@ import threading
 import time
 
 import numpy as np
+import torch
 import pytest
 
 import lightgbm_tpu as lj
@@ -27,6 +28,10 @@ from lightgbm_tpu_torch.serving import (MicroBatcher, ModelRegistry,
                                         QueueFullError, RequestTimeout,
                                         ServingMetrics, ServingSession,
                                         bucket_for)
+
+# xdist runs several test processes side by side: one intra-op thread each,
+# not a pool of one a core in every process
+torch.set_num_threads(1)
 
 COLS = 10
 CPU = {"device_type": "cpu"}

@@ -19,6 +19,10 @@ import torch
 from lightgbm_tpu.ops import split as js
 from lightgbm_tpu_torch.ops import split as ts
 
+# xdist runs several test processes side by side: one intra-op thread each,
+# not a pool of one a core in every process
+torch.set_num_threads(1)
+
 HP = dict(min_data_in_leaf=20.0, min_sum_hessian_in_leaf=1e-3,
           lambda_l1=0.0, lambda_l2=0.0, max_delta_step=0.0,
           min_gain_to_split=0.0, path_smooth=0.0)

@@ -31,6 +31,10 @@ from lightgbm_tpu_torch.ops import histogram_cuda as hc
 from lightgbm_tpu_torch.ops import histogram_rowwise as tr
 from lightgbm_tpu_torch.ops import split as ts
 
+# xdist runs several test processes side by side: one intra-op thread each,
+# not a pool of one a core in every process
+torch.set_num_threads(1)
+
 MIXED = (33, 256, 12, 100, 256, 8, 64, 7, 3, 16, 2)
 # the Criteo storage's shape: 13 count columns, 26 categorical of 3-250
 CRITEO = (256, 193, 256, 71, 256, 256, 218, 101, 256, 9, 48, 40, 256,

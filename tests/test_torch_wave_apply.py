@@ -23,6 +23,10 @@ from lightgbm_tpu_torch.ops import histogram as th
 from lightgbm_tpu_torch.ops import histogram_cuda as hc
 from lightgbm_tpu_torch.ops import split as ts
 
+# xdist runs several test processes side by side: one intra-op thread each,
+# not a pool of one a core in every process
+torch.set_num_threads(1)
+
 
 def _table(rng, nl0, napp, ncand, leaves_after):
     t = np.full((16, 128), -1, np.int32)

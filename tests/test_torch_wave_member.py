@@ -18,6 +18,10 @@ from lightgbm_tpu.ops.histogram_pallas import wave_pass_pallas
 from lightgbm_tpu_torch.ops import histogram_cuda as hc
 from lightgbm_tpu_torch.ops.grow_wave import fused_kcap, mega_kcap
 
+# xdist runs several test processes side by side: one intra-op thread each,
+# not a pool of one a core in every process
+torch.set_num_threads(1)
+
 T = 128          # LGBT_T_ENTRIES
 
 

@@ -25,12 +25,17 @@ lowering, so the row-wise layouts are held to its default run.
 """
 
 import numpy as np
+import torch
 import pytest
 
 import lightgbm_tpu as lj
 import lightgbm_tpu_torch as lt
 from lightgbm_tpu_torch.convert import booster_from_state
 from lightgbm_tpu_torch.utils.synthetic import efb_like
+
+# xdist runs several test processes side by side: one intra-op thread each,
+# not a pool of one a core in every process
+torch.set_num_threads(1)
 
 PARAMS = dict(objective="binary", num_leaves=15, max_bin=63,
               learning_rate=0.1, min_data_in_leaf=20, verbose=-1,
