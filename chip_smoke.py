@@ -237,6 +237,24 @@ Phases, each printing one JSON line:
                      their scores within 1e-5 of the rolled-back model's
                      predict(raw_score); ms a round and launches of each
                      run
+ 16. the serial growers and strict leaf-wise order (one line, with the
+     card's name and power limit):
+     serial_growers  bench.py's model and table, 2 rounds each of
+                     tpu_grower=masked (#1 at K = 2 a split), compact (#1
+                     over each split's gathered window), wave_exact on
+                     "mega" and under histogram_impl=fused; then the
+                     Criteo table, 2 rounds of wave_exact on "apply": each
+                     first tree equal to the same grower's with the plain
+                     versions, masked's leaf counts equal to a bincount of
+                     its leaf_of_row, tree 0 of masked, compact and
+                     wave_exact compared split by split (a divergence
+                     must be a float tie, gains within 1e-5 relative),
+                     train AUC within 0.01 of the batched wave run's after
+                     2 rounds, training scores within 1e-5 of
+                     predict(raw_score); then tpu_grower=auto under two
+                     histogram_pool_size values, which pick compact and
+                     masked; launches, waves and host reads per tree and
+                     ms a round recorded
 
 then a {"kernels": [...]} line (the ten kernels), the nvidia-smi line,
 and last
@@ -1299,13 +1317,14 @@ def _same_host_tree(a, b):
             if same else None)
 
 
-def _plain_trees(torch, gbdt, n, scores=None, it=0, cegb_used=None):
+def _plain_trees(torch, gbdt, n, scores=None, it=0, cegb_used=None,
+                 lors=None):
     """Iteration `it`'s K trees again (from the [N] or [K, N] `scores`
     before it; at iteration 0 the boost-from-average start), from the same
     gradients, sample mask and seeds (and CEGB's used features
-    `cegb_used`, none by default), grown with the kernels' plain versions
-    on the card, each renewed where the objective renews leaves."""
-    from lightgbm_tpu_torch.ops.grow_wave import grow_tree_wave
+    `cegb_used`, none by default), grown on the run's grower with the
+    kernels' plain versions on the card, each renewed where the objective
+    renews leaves; `lors`, a list, receives each tree's leaf_of_row."""
     K = gbdt.num_tree_per_iteration
     init = [float(gbdt.objective.boost_from_score(k)) for k in range(K)]
     if scores is None:
@@ -1316,11 +1335,10 @@ def _plain_trees(torch, gbdt, n, scores=None, it=0, cegb_used=None):
     bag = gbdt.sample_strategy.sample(it, g, h)
     out = []
     for k in range(K):
-        tp, lor = grow_tree_wave(gbdt.X_t, g[k], h[k], bag, gbdt.meta,
-                                 gbdt.grow_cfg, None,
-                                 hist_plan=gbdt.hist_plan,
-                                 rng_seed=gbdt.tree_seed(it, k),
-                                 cegb_used=cegb_used, plain=True)
+        tp, lor = gbdt.grow_one(g[k], h[k], bag, None, gbdt.tree_seed(it, k),
+                                cegb_used=cegb_used, plain=True)
+        if lors is not None:
+            lors.append(lor)
         if gbdt.objective.need_renew_tree_output:
             tp = gbdt._renew_tree_output(k, tp, lor, scores[k])
         t = gbdt._device_tree_to_host(tp)
@@ -3452,6 +3470,146 @@ def boosting_modes_phase(lt, hc, torch, smi, params, ds, X, y, w):
     return {"rf": l_rf, "dart": l_d, "linear": l_l}
 
 
+def _split_divergence(a, b):
+    """Tree 0 of two runs node by node: (equal leading splits, the first
+    diverging node or None, its two gains)."""
+    m = min(a.num_leaves, b.num_leaves) - 1
+    for i in range(m):
+        if (a.split_feature[i] != b.split_feature[i]
+                or a.threshold_in_bin[i] != b.threshold_in_bin[i]
+                or a.decision_type[i] != b.decision_type[i]
+                or a.left_child[i] != b.left_child[i]
+                or a.right_child[i] != b.right_child[i]):
+            return i, i, (float(a.split_gain[i]), float(b.split_gain[i]))
+    if a.num_leaves != b.num_leaves:
+        return m, m, (None, None)
+    return m, None, (None, None)
+
+
+def serial_growers_phase(lt, hc, torch, smi, params, ds, X, params_c,
+                         ds_c):
+    """tpu_grower=masked, compact and wave_exact on the bench table, then
+    wave_exact on the Criteo table, then the histogram_pool_size ladder
+    (phase 16)."""
+    from lightgbm_tpu_torch.utils.synthetic import criteo_like
+    t_phase = time.perf_counter()
+    out = {"phase": "serial_growers", "model": "bench", "rows": N_ROWS,
+           "nvidia_smi": smi}
+    checks = []         # run after the line is printed
+    n_chk = 1 << 16
+    _, _, ms_w, auc_w = _train_timed(lt, hc, torch, params, ds, 2)
+    _, _, ms_wc, auc_wc = _train_timed(lt, hc, torch, params_c, ds_c, 2)
+    out["wave"] = {"ms_per_round": ms_w, "auc_per_round": auc_w,
+                   "criteo_ms_per_round": ms_wc,
+                   "criteo_auc_per_round": auc_wc}
+    Xc = criteo_like(N_ROWS)[0][:n_chk]
+    exact = {**params, "tpu_grower": "wave_exact"}
+    runs = {
+        "masked": ({**params, "tpu_grower": "masked"}, ds, X, auc_w,
+                   "masked"),
+        "compact": ({**params, "tpu_grower": "compact"}, ds, X, auc_w,
+                    "compact"),
+        "wave_exact": (exact, ds, X, auc_w, "mega"),
+        "wave_exact_fused": ({**exact, "histogram_impl": "fused"}, ds, X,
+                             auc_w, "fused"),
+        "wave_exact_criteo": ({**params_c, "tpu_grower": "wave_exact"},
+                              ds_c, Xc, auc_wc, "apply")}
+    tree0 = {}
+    for name, (p, d, Xr, auc_ref, route) in runs.items():
+        b, l, ms, auc = _train_timed(lt, hc, torch, p, d, 2)
+        g = b._gbdt
+        trees = g.models
+        lors = []
+        first = _same_host_tree(_plain_trees(torch, g, N_ROWS,
+                                             lors=lors)[0], trees[0])
+        err = _scores_err(b, g.scores[0, :n_chk], Xr)
+        serial = g.grower in ("masked", "compact")
+        splits = sum(t.num_leaves - 1 for t in trees)
+        rec = {"grower": g.grower, "grow_route": g.grow_route,
+               "rounds": 2, "ms_per_round": ms, "launches": l,
+               "auc_per_round": auc, "wave_auc_per_round": auc_ref,
+               "leaves": [t.num_leaves for t in trees],
+               "waves_per_tree": _waves(trees),
+               "host_reads_per_tree": [t.host_reads for t in trees],
+               "first_tree_same": first is not None,
+               "first_tree_leaf_value_max_abs_err": first,
+               "predict_vs_scores_max_abs_err": err}
+        if serial:
+            # #1: the root, then one launch a split; #2 one a tree
+            rec["launches_expected"] = {
+                "build_histogram_slots": len(trees) + splits,
+                "take_leaf_values": len(trees)}
+            nl = trees[0].num_leaves
+            cnt = torch.bincount(lors[0].long(), minlength=nl)[:nl].cpu()
+            rec["leaf_count_vs_bincount_max_abs_diff"] = int(np.max(np.abs(
+                np.asarray(trees[0].leaf_count[:nl], np.int64)
+                - cnt.numpy())))
+        out[name] = rec
+        tree0[name] = trees[0]
+        checks += [
+            (g.grow_route == route,
+             f"{name} trained on route {g.grow_route}, not {route}"),
+            (first is not None and first <= 1e-6,
+             f"{name}'s first tree differs from the plain versions' "
+             f"({first})"),
+            (abs(auc[-1] - auc_ref[-1]) <= 0.01,
+             f"{name}'s train AUC {auc[-1]} is not within 0.01 of the wave "
+             f"run's {auc_ref[-1]}"),
+            (err <= 1e-5, f"{name}'s scores differ from predict by {err}")]
+        if g.grower == "masked":
+            # masked counts each child's in-bag rows exactly at split time
+            checks.append((rec["leaf_count_vs_bincount_max_abs_diff"] == 0,
+                           "masked's leaf counts are not its rows'"))
+        del b, g, trees, lors
+    pairs = {}
+    for a, b in (("masked", "compact"), ("compact", "wave_exact"),
+                 ("masked", "wave_exact")):
+        n_eq, div, gains = _split_divergence(tree0[a], tree0[b])
+        pairs[f"{a}_vs_{b}"] = {"equal_splits": n_eq,
+                                "first_divergence": div,
+                                "gains_at_divergence": gains}
+        tie = (div is None or (gains[0] is not None and abs(
+            gains[0] - gains[1]) <= 1e-5 * max(abs(gains[0]),
+                                               abs(gains[1]))))
+        checks.append((tie, f"tree 0 of {a} and {b} diverge at node {div} "
+                            f"with gains {gains}, not a float tie"))
+    out["tree0_split_by_split"] = pairs
+    # the ladder: pools between the wave grower's two [L, 3, F, B] caches
+    # plus two [KMAX, 3, F, B] temporaries and one cache, then below one
+    # cache (5.2 and 15.7 MB at F = 28, B = 64, 255 leaves)
+    from lightgbm_tpu_torch.ops.grow_wave import _wave_buckets
+    L = params["num_leaves"]
+    cache = L * N_FEAT * N_BINS * 3 * 4
+    wave = 2 * cache + 2 * _wave_buckets(L)[-1] * N_FEAT * N_BINS * 3 * 4
+    ladder = []
+    for pool, want in (((cache + wave) / 2 / 2 ** 20, "compact"),
+                       (cache / 2 / 2 ** 20, "masked")):
+        g = lt.Booster({**params, "histogram_pool_size": pool}, ds)._gbdt
+        ladder.append({"histogram_pool_size": pool, "grower": g.grower,
+                       "feasible": g._grower_feasible})
+        checks.append((g.grower == want,
+                       f"histogram_pool_size={pool} picked {g.grower}, "
+                       f"not {want}"))
+        del g
+    out["ladder"] = ladder
+    # one masked split's histogram: #1 at K = 2 over every row, a leaf of
+    # half the rows split in two
+    X_t = ds._handle.X_t
+    gen = torch.Generator(device=X_t.device).manual_seed(5)
+    slot = torch.randint(-2, 2, (N_ROWS,), generator=gen,
+                         device=X_t.device, dtype=torch.int32)
+    slot = torch.where(slot < 0, -1, slot).to(torch.int32)
+    vals = torch.rand((2, N_ROWS), generator=gen, device=X_t.device)
+    ms, dms = timings(lambda: hc.build_histogram_slots_cuda(
+        X_t, vals, slot, 2, N_BINS), 20)
+    out["masked_split_hist"] = {"K": 2, "rows": N_ROWS, "F": N_FEAT,
+                                "B": N_BINS, "ms": ms, "device_ms": dms}
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    for ok, what in checks:
+        check(ok, what)
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -3649,6 +3807,7 @@ def main():
                               bst_c._gbdt.num_bins_padded))
     rw_launches = rowwise_runs_phase(lt, hc, torch, bst_c, ds_c)
     criteo_serve_phase(hc, torch, bst_c)
+    params_criteo, ds_criteo = bst_c.params, ds_c
     del bst_c, ds_c, h_c, g_c
     apply_storages.append(efb_phase(lt, hc, torch))
     narrow_cat_phase(lt, hc, torch)
@@ -3668,6 +3827,11 @@ def main():
 
     # ---- 15. random forests, DART, linear trees, rollback_one_iter
     boosting_modes_phase(lt, hc, torch, smi, params, ds, X, y, w)
+
+    # ---- 16. the serial growers, strict leaf-wise order, the ladder
+    serial_growers_phase(lt, hc, torch, smi, params, ds, X, params_criteo,
+                         ds_criteo)
+    del ds_criteo
 
     src = {"build_histogram_slots": "hist_slots.cu",
            "take_leaf_values": "take_leaf_values.cu",

@@ -17,18 +17,60 @@ from typing import Any, Dict, List, Optional, Union
 import numpy as np
 import torch
 
-from .config import resolve_params
-from .data.dataset import BinnedDataset, Metadata, construct_from_matrix
+from .config import Config, resolve_params
+from .data.dataset import (BinnedDataset, Metadata, construct_from_matrix,
+                           construct_from_sequences, construct_from_sparse,
+                           load_binary_file)
 from .metrics import Metric, create_metric, default_metric_for_objective
 from .models import create_boosting
 from .models.gbdt import GBDT, _not_ported, check_slice_config
 from .models.linear import fit_linear_models
+from .models.predictor import format_tree_indices, linear_tree_indices
 from .objectives import create_objective
 from .utils import resolve_device
 from .utils.log import log_fatal, log_warning
 
 
+def _is_arrow(data: Any) -> bool:
+    return type(data).__module__.startswith("pyarrow")
+
+
+def _is_scipy_sparse(data: Any) -> bool:
+    return type(data).__module__.startswith("scipy.sparse")
+
+
+def _arrow_to_numpy(data: Any) -> np.ndarray:
+    """Arrow Table / RecordBatch / Array -> float64 matrix (JAX basic.py:
+    39-56; the reference's Arrow ingestion, include/LightGBM/arrow.h:50),
+    one column at a time."""
+    import pyarrow as pa
+    if isinstance(data, pa.RecordBatch):
+        data = pa.Table.from_batches([data])
+    if isinstance(data, pa.Table):
+        cols = [np.asarray(c.to_numpy(zero_copy_only=False), np.float64)
+                for c in data.columns]
+        return np.column_stack(cols) if cols else np.zeros((0, 0))
+    if isinstance(data, (pa.Array, pa.ChunkedArray)):
+        return np.asarray(data.to_numpy(zero_copy_only=False),
+                          np.float64).reshape(-1, 1)
+    raise TypeError(f"Unsupported pyarrow input type {type(data)}")
+
+
+def _to_1d_numpy(v: Any) -> np.ndarray:
+    """Label / weight / group / init_score, Arrow arrays included
+    (Metadata's Arrow setters, dataset.h:49-134)."""
+    if _is_arrow(v):
+        return _arrow_to_numpy(v).reshape(-1)
+    return np.asarray(v).reshape(-1)
+
+
 def _to_2d_numpy(data: Any) -> np.ndarray:
+    if _is_arrow(data):
+        return _arrow_to_numpy(data)
+    if _is_scipy_sparse(data):
+        # prediction-sized batches; a Dataset takes sparse input through
+        # construct_from_sparse and never densifies it
+        return np.asarray(data.todense())
     if hasattr(data, "values"):   # pandas DataFrame
         data = data.values
     arr = np.asarray(data)
@@ -42,10 +84,13 @@ _EARLY_STOP_KEYS = ("pred_early_stop", "pred_early_stop_freq",
 
 
 class Sequence:
-    """The out-of-core row interface of the JAX package (basic.py:82-100;
-    reference basic.py:841): `__len__` and `__getitem__`. A Dataset built
-    from one raises until its streaming construction is ported (ROADMAP
-    item A6)."""
+    """Out-of-core row source (JAX basic.py:82-100; reference basic.py:841).
+    Subclass with ``__len__()`` (the number of rows) and
+    ``__getitem__(idx)`` (a row for an int, a 2-D batch for a slice), and
+    optionally set ``batch_size``, the rows fetched per binning batch.
+    Pass one (or a list of them, concatenated in order) as
+    ``Dataset(data=...)``: construction samples rows for the bin mappers,
+    then bins batch by batch, and never holds the whole raw matrix."""
 
     batch_size: int = 65536
 
@@ -78,34 +123,91 @@ class Dataset:
         self._handle: Optional[BinnedDataset] = None
 
     def construct(self) -> "Dataset":
+        """Bin the data (JAX basic.py:126-262): a path loads a binary cache
+        (the npz magic) and anything else raises naming A18 (text files);
+        Sequence sources, a scipy sparse matrix, an Arrow table or any
+        2-D array each take their constructor."""
         if self._handle is not None:
             return self
-        if isinstance(self.data, Sequence) or (
-                isinstance(self.data, list) and self.data
-                and isinstance(self.data[0], Sequence)):
-            _not_ported("Dataset from a Sequence", "A6")
         cfg = resolve_params(self.params)
         device = resolve_device(cfg.device_type)
-        data = _to_2d_numpy(self.data)
-        feature_names = None
-        if isinstance(self.feature_name, list):
-            feature_names = list(self.feature_name)
-        elif hasattr(self.data, "columns"):
-            feature_names = [str(c) for c in self.data.columns]
+        if isinstance(self.data, (str, os.PathLike)):
+            return self._construct_from_path(os.fspath(self.data), cfg,
+                                             device)
+        seqs = None
+        if isinstance(self.data, Sequence):
+            seqs = [self.data]
+        elif isinstance(self.data, (list, tuple)) and self.data \
+                and all(isinstance(s, Sequence) for s in self.data):
+            seqs = list(self.data)
+        sparse = _is_scipy_sparse(self.data)
+        if seqs is not None or sparse:
+            feature_names = (list(self.feature_name)
+                             if isinstance(self.feature_name, list)
+                             else None)
+            build, data = ((construct_from_sequences, seqs)
+                           if seqs is not None
+                           else (construct_from_sparse, self.data))
+        else:
+            data = _to_2d_numpy(self.data)
+            feature_names = None
+            if isinstance(self.feature_name, list):
+                feature_names = list(self.feature_name)
+            elif _is_arrow(self.data) and hasattr(self.data,
+                                                  "column_names"):
+                feature_names = list(self.data.column_names)
+            elif hasattr(self.data, "columns") and not _is_arrow(self.data):
+                feature_names = [str(c) for c in self.data.columns]
+            build = construct_from_matrix
         ref_handle = None
         if self.reference is not None:
             self.reference.construct()
             ref_handle = self.reference._handle
 
         def vec(v):
-            return None if v is None else np.asarray(v).reshape(-1)
+            return None if v is None else _to_1d_numpy(v)
 
-        self._handle = construct_from_matrix(
+        self._handle = build(
             data, cfg, label=vec(self.label), weight=vec(self.weight),
             group=vec(self.group), init_score=vec(self.init_score),
             categorical_feature=self._cat_indices(feature_names),
             feature_names=feature_names, reference=ref_handle,
             device=device)
+        if self.free_raw_data:
+            self.data = None
+        return self
+
+    def _construct_from_path(self, path: str, cfg: Config,
+                             device) -> "Dataset":
+        """A binary cache (npz / zip magic) with its own mappers, which a
+        `reference` must equal (its raw rows are gone, so they cannot be
+        binned again; Dataset::CheckAlign), and the metadata given here
+        over the cached (JAX basic.py:131-168)."""
+        with open(path, "rb") as f:
+            magic = f.read(4)
+        if magic[:2] != b"PK":
+            _not_ported("a Dataset from a text file (text-file input and "
+                        "its native loader)", "A18")
+        self._handle = load_binary_file(path, cfg, device)
+        if self.reference is not None:
+            self.reference.construct()
+            rh = self.reference._handle
+            ours = [m.to_dict() for m in self._handle.mappers]
+            refs = [m.to_dict() for m in rh.mappers]
+            if ours != refs:
+                log_fatal(
+                    f"binary dataset {path} was saved with bin mappers that "
+                    "differ from the reference dataset's; rebuild the cache "
+                    "from a Dataset constructed with reference=...")
+            self._handle.reference = rh
+        md = self._handle.metadata
+        for setter, val in ((md.set_label, self.label),
+                            (md.set_weight, self.weight),
+                            (md.set_group, self.group)):
+            if val is not None:
+                setter(np.asarray(val))
+        if self.init_score is not None:
+            md.set_init_score(_to_1d_numpy(self.init_score))
         if self.free_raw_data:
             self.data = None
         return self
@@ -251,7 +353,35 @@ class Dataset:
         return sub
 
     def save_binary(self, filename: str) -> "Dataset":
-        _not_ported("Dataset.save_binary", "A6")
+        """The binary dataset cache (LGBM_DatasetSaveBinary, c_api.h:540):
+        the JAX package's npz, with the same keys, so either package loads
+        the other's (JAX basic.py:566-598)."""
+        self.construct()
+        # a file object: savez would otherwise append ".npz"
+        with open(filename, "wb") as fout:
+            self._write_binary(fout, self._handle)
+        return self
+
+    @staticmethod
+    def _write_binary(fout, h: BinnedDataset) -> None:
+        import json
+        md = h.metadata
+
+        def arr(a):
+            return a if a is not None else np.zeros(0)
+        np.savez_compressed(
+            fout,
+            X_binned=h.X_binned,
+            label=arr(md.label),
+            weight=arr(md.weight),
+            query_boundaries=arr(md.query_boundaries),
+            init_score=arr(md.init_score),
+            mappers=json.dumps([m.to_dict() for m in h.mappers]),
+            real_feature_index=np.asarray(h.real_feature_index),
+            used_feature_map=np.asarray(h.used_feature_map),
+            feature_names=json.dumps(h.feature_names),
+            num_total_features=h.num_total_features,
+        )
 
     def init_streaming(self, *args, **kwargs) -> "Dataset":
         _not_ported("streaming Datasets (init_streaming / push_rows / "
@@ -473,12 +603,15 @@ class Booster:
         order. `pred_early_stop` / `_freq` / `_margin`, from the keyword
         arguments or else from the booster's params, stop a row's walk
         once its margin clears the bound (host walk only), as the JAX
-        package's Booster.predict. Any other keyword raises."""
+        package's Booster.predict. Any other keyword raises (the JAX
+        package ignores them). Sparse and Arrow rows are densified."""
         unknown = sorted(set(kwargs) - set(_EARLY_STOP_KEYS))
         if unknown:
+            # the reference's other keywords (validate_features,
+            # data_has_header, ...) belong to its file-input surface
             raise NotImplementedError(
                 f"Booster.predict keyword(s) {unknown} are not ported to "
-                "lightgbm_tpu_torch yet (ROADMAP item A6)")
+                "lightgbm_tpu_torch yet (ROADMAP item A18)")
         ni = num_iteration if num_iteration is not None else (
             self.best_iteration if self.best_iteration > 0 else -1)
         if pred_contrib:
@@ -664,10 +797,90 @@ class Booster:
         }
 
     def dump_model_to_cpp(self) -> str:
-        _not_ported("Booster.dump_model_to_cpp", "A6")
+        """C++ if-else code of the model (GBDT::SaveModelToIfElse,
+        gbdt_model_text.cpp:262; JAX basic.py:982-1070), byte for byte the
+        JAX package's: the missing types None / Zero / NaN of
+        Tree::NumericalDecision (tree.h:375-407) and the bitsets of
+        Tree::CategoricalDecision. Linear trees are fatal, naming them."""
+        linear = linear_tree_indices(self._gbdt.models)
+        if linear:
+            log_fatal("convert_model to C++ is not supported for linear "
+                      f"trees: {format_tree_indices(linear)} carry fitted "
+                      "linear leaf functions; retrain with "
+                      "linear_tree=false")
+        g = self._gbdt
+        lines = ["#include <cmath>", "#include <cstdint>", "",
+                 f"// generated by lightgbm_tpu; {len(g.models)} trees"]
+        for i, tree in enumerate(g.models):
+            # constant bitset tables of this tree's categorical splits
+            for ci in range(tree.num_cat):
+                s0 = int(tree.cat_boundaries[ci])
+                s1 = int(tree.cat_boundaries[ci + 1])
+                words = ", ".join(
+                    f"{int(w)}u" for w in tree.cat_threshold[s0:s1])
+                lines.append(f"static const uint32_t kCatBits{i}_{ci}[] = "
+                             f"{{{words}}};")
+            lines.append(f"double PredictTree{i}(const double* arr) {{")
+            if tree.num_leaves <= 1:
+                lines.append(f"  return {float(tree.leaf_value[0])!r};")
+            else:
+                _emit_cpp_node(lines, tree, i, 0, 0)
+            lines.append("}")
+            lines.append("")
+        n = len(g.models)
+        lines.append("double Predict(const double* arr) {")
+        lines.append("  double result = 0.0;")
+        for i in range(n):
+            lines.append(f"  result += PredictTree{i}(arr);")
+        if g.average_output and n:
+            lines.append(f"  result /= {n};")
+        lines.append("  return result;")
+        lines.append("}")
+        return "\n".join(lines) + "\n"
 
     def free_dataset(self) -> "Booster":
         return self
 
     def free_network(self) -> "Booster":
         return self
+
+
+def _emit_cpp_node(lines: List[str], tree, i: int, node: int,
+                   depth: int) -> None:
+    """The if-else of `node` of tree i (a leaf when negative)."""
+    ind = "  " * (depth + 1)
+    if node < 0:
+        lines.append(f"{ind}return {float(tree.leaf_value[~node])!r};")
+        return
+    f = int(tree.split_feature[node])
+    dt = int(tree.decision_type[node])
+    if dt & 1:
+        # CategoricalDecision: NaN, negative and out-of-range values go
+        # right; otherwise bitset membership
+        ci = int(tree.threshold_in_bin[node])
+        nwords = int(tree.cat_boundaries[ci + 1] - tree.cat_boundaries[ci])
+        cond = (f"(!std::isnan(arr[{f}]) && arr[{f}] >= 0 && "
+                f"static_cast<int>(arr[{f}]) < {nwords * 32} && "
+                f"((kCatBits{i}_{ci}"
+                f"[static_cast<int>(arr[{f}]) / 32] >> "
+                f"(static_cast<int>(arr[{f}]) % 32)) & 1))")
+    else:
+        thr = float(tree.threshold[node])
+        missing_type = (dt >> 2) & 3
+        # NumericalDecision: NaN is 0 unless the missing type is NaN; Zero
+        # follows the default direction
+        val = f"(std::isnan(arr[{f}]) ? 0.0 : arr[{f}])"
+        if missing_type == 2:       # MissingType::NaN
+            miss = f"std::isnan(arr[{f}])"
+            val = f"arr[{f}]"
+        elif missing_type == 1:     # MissingType::Zero
+            miss = f"(std::fabs({val}) <= 1e-35)"
+        else:
+            miss = "false"
+        dirn = "true" if dt & 2 else "false"
+        cond = f"({miss} ? {dirn} : ({val} <= {thr!r}))"
+    lines.append(f"{ind}if {cond} {{")
+    _emit_cpp_node(lines, tree, i, int(tree.left_child[node]), depth + 1)
+    lines.append(f"{ind}}} else {{")
+    _emit_cpp_node(lines, tree, i, int(tree.right_child[node]), depth + 1)
+    lines.append(f"{ind}}}")

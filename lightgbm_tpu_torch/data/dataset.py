@@ -2,7 +2,9 @@
 
 Counterpart of lightgbm_tpu/data/dataset.py (the reference's Dataset /
 DatasetLoader / Metadata, include/LightGBM/dataset.h:49-1086): sample rows
--> per-feature BinMapper -> dense binned feature matrix.
+-> per-feature BinMapper -> dense binned feature matrix, from a dense
+matrix, a scipy sparse matrix (one column at a time, never densified),
+Sequence sources (two rounds, batch by batch) or a binary cache.
 
 The binned matrix is ONE dense [num_data, num_features] uint8 (uint16 past
 256 bins) host array, `X_binned`, and its feature-major [F, N] uint8 copy
@@ -393,13 +395,176 @@ def construct_from_matrix(
                                               ds.real_feature_index)):
             col = np.asarray(data[:, orig], dtype=np.float64)
             X[:, inner] = m.value_to_bin(col).astype(X.dtype)
-        if device is not None and X.dtype == np.uint8:
-            ds.X_t = torch.from_numpy(np.ascontiguousarray(X.T)).to(device)
     ds.X_binned = X
+    if table is None:
+        _to_device(ds, device)
     if config.linear_tree:
         ds.raw_data = np.ascontiguousarray(data, dtype=np.float32)
     return _finalize(ds, config, label, weight, group, init_score,
                      reference)
+
+
+def _to_device(ds: BinnedDataset, device: Optional[torch.device]) -> None:
+    """The feature-major `X_t` copy of a host-binned matrix on `device`,
+    as the matrix path's host route makes it (none past 256 bins)."""
+    if device is not None and ds.X_binned.dtype == np.uint8:
+        ds.X_t = torch.from_numpy(
+            np.ascontiguousarray(ds.X_binned.T)).to(device)
+
+
+def construct_from_sequences(
+    seqs,
+    config: Config,
+    label: Optional[np.ndarray] = None,
+    weight: Optional[np.ndarray] = None,
+    group: Optional[np.ndarray] = None,
+    init_score: Optional[np.ndarray] = None,
+    categorical_feature: Sequence[int] = (),
+    feature_names: Optional[Sequence[str]] = None,
+    reference: Optional[BinnedDataset] = None,
+    device: Optional[torch.device] = None,
+) -> BinnedDataset:
+    """Out-of-core two-round construction from Sequence sources (JAX
+    data/dataset.py:554-622; the reference's Sequence, basic.py:841, and
+    its two-round loader, dataset_loader.cpp:1162-1213): round one samples
+    bin_construct_sample_cnt rows with RandomState(data_random_seed) in
+    batches of the first source's `batch_size`, round two streams batches
+    through `value_to_bin` on the host. Peak memory is the binned matrix
+    plus one raw batch. With `reference` its mappers are adopted."""
+    lens = [len(s) for s in seqs]
+    num_data = int(sum(lens))
+    if num_data == 0:
+        log_fatal("Sequence sources are empty")
+    probe = np.asarray(seqs[0][0:1], dtype=np.float64)
+    ds = _init_ds(num_data, probe.shape[1], config, feature_names)
+    starts = np.concatenate([[0], np.cumsum(lens)])
+    b = getattr(seqs[0], "batch_size", None) or 65536
+
+    def fetch(global_lo, global_hi):
+        """Rows [global_lo, global_hi) across the concatenated sources."""
+        parts = []
+        for si, s in enumerate(seqs):
+            lo = max(global_lo, starts[si])
+            hi = min(global_hi, starts[si + 1])
+            if lo < hi:
+                parts.append(np.asarray(
+                    s[int(lo - starts[si]):int(hi - starts[si])],
+                    dtype=np.float64))
+        return parts[0] if len(parts) == 1 else np.concatenate(parts)
+
+    if reference is None:
+        sample_cnt = min(config.bin_construct_sample_cnt, num_data)
+        rng = np.random.RandomState(config.data_random_seed)
+        idx = np.sort(rng.choice(num_data, sample_cnt, replace=False)) \
+            if sample_cnt < num_data else np.arange(num_data)
+        chunks = []
+        for lo in range(0, num_data, b):
+            sel = idx[(idx >= lo) & (idx < lo + b)]
+            if sel.size:
+                batch = fetch(lo, min(lo + b, num_data))
+                chunks.append(batch[sel - lo])
+        sample = np.concatenate(chunks)
+    else:
+        sample = probe
+    _fit_or_adopt_mappers(ds, config, reference,
+                          lambda j: sample[:, j], len(sample),
+                          categorical_feature)
+    X = _alloc_binned(ds)
+    for lo in range(0, num_data, b):
+        hi = min(lo + b, num_data)
+        batch = fetch(lo, hi)
+        for inner, (m, orig) in enumerate(
+                zip(ds.mappers, ds.real_feature_index)):
+            X[lo:hi, inner] = m.value_to_bin(batch[:, orig]).astype(X.dtype)
+    ds.X_binned = X
+    _to_device(ds, device)
+    return _finalize(ds, config, label, weight, group, init_score,
+                     reference)
+
+
+def construct_from_sparse(
+    data,
+    config: Config,
+    label: Optional[np.ndarray] = None,
+    weight: Optional[np.ndarray] = None,
+    group: Optional[np.ndarray] = None,
+    init_score: Optional[np.ndarray] = None,
+    categorical_feature: Sequence[int] = (),
+    feature_names: Optional[Sequence[str]] = None,
+    reference: Optional[BinnedDataset] = None,
+    device: Optional[torch.device] = None,
+) -> BinnedDataset:
+    """Build from a scipy CSR / CSC matrix without densifying it (JAX
+    data/dataset.py:625-666): the sample rows and then each raw column
+    are materialized one column at a time from CSC on the host (absent
+    entries are 0, the reference's sparse semantics, sparse_bin.hpp) and
+    binned by `value_to_bin`; the binned matrix reaches the device as the
+    matrix path's host route sends it. No raw rows are kept, so
+    linear_tree refuses such a Dataset at training time."""
+    num_data, num_cols = data.shape
+    ds = _init_ds(num_data, num_cols, config, feature_names)
+    csc = data.tocsc()
+    if reference is None:
+        sample_cnt = min(config.bin_construct_sample_cnt, num_data)
+        rng = np.random.RandomState(config.data_random_seed)
+        idx = np.sort(rng.choice(num_data, sample_cnt, replace=False)) \
+            if sample_cnt < num_data else np.arange(num_data)
+        sample = data.tocsr()[idx].tocsc()
+        n_sample = len(idx)
+    else:
+        sample, n_sample = None, 0
+    _fit_or_adopt_mappers(
+        ds, config, reference,
+        lambda j: np.asarray(sample[:, j].todense(), np.float64).ravel(),
+        n_sample, categorical_feature)
+    X = _alloc_binned(ds)
+    for inner, (m, orig) in enumerate(zip(ds.mappers,
+                                          ds.real_feature_index)):
+        col = np.asarray(csc[:, orig].todense(), np.float64).ravel()
+        X[:, inner] = m.value_to_bin(col).astype(X.dtype)
+    ds.X_binned = X
+    _to_device(ds, device)
+    return _finalize(ds, config, label, weight, group, init_score,
+                     reference)
+
+
+def load_binary_file(path: str, config: Config,
+                     device: Optional[torch.device] = None
+                     ) -> BinnedDataset:
+    """Load a binary dataset cache that Dataset.save_binary wrote, in this
+    package or the JAX one (the same npz keys; JAX data/dataset.py:
+    668-703; DatasetLoader::LoadFromBinFile, dataset_loader.h:53): no
+    sampling or binning, the mappers ride in the file. The tier order is
+    applied again (the identity on a tier-ordered cache) and the EFB
+    search runs under the grower condition of the matrix path."""
+    import json
+    z = np.load(path, allow_pickle=False)
+    ds = BinnedDataset()
+    ds.X_binned = z["X_binned"]
+    ds.num_data = int(ds.X_binned.shape[0])
+    ds.mappers = [BinMapper.from_dict(d)
+                  for d in json.loads(str(z["mappers"]))]
+    ds.real_feature_index = [int(v) for v in z["real_feature_index"]]
+    ds.used_feature_map = [int(v) for v in z["used_feature_map"]]
+    ds.feature_names = json.loads(str(z["feature_names"]))
+    ds.num_total_features = int(z["num_total_features"])
+    ds.max_bin = config.max_bin
+    md = Metadata(ds.num_data)
+    if z["label"].size:
+        md.set_label(z["label"])
+    if z["weight"].size:
+        md.set_weight(z["weight"])
+    if z["query_boundaries"].size:
+        md.query_boundaries = np.asarray(z["query_boundaries"], np.int64)
+    if "init_score" in z.files and z["init_score"].size:
+        md.set_init_score(z["init_score"])
+    ds.metadata = md
+    _apply_tier_order(ds, reorder_binned=True)
+    _to_device(ds, device)
+    if (config.enable_bundle and config.boosting in ("gbdt", "gbrt")
+            and config.tpu_grower in ("auto", "wave", "wave_exact")):
+        _build_bundles(ds, config)
+    return ds
 
 
 def _build_bundles(ds: BinnedDataset, config: Config) -> None:

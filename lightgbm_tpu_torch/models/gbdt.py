@@ -20,7 +20,10 @@ penalties on the two-pass routes, quantized gradients
 (use_quantized_grad), feature_fraction_bynode and extra_trees, and
 uniform, class-stratified, by-query or GOSS row sampling
 (models/sample_strategy.py), and linear leaves fitted on the host
-(models/linear.py). The loop around it: continued training from an
+(models/linear.py); or, as tpu_grower and the histogram_pool_size ladder
+choose (`_select_grower`), strict leaf-wise order on the wave grower
+(wave_exact) or a serial grower: masked (ops/grow.py) or compact
+(ops/grow_fast.py). The loop around it: continued training from an
 existing model (`load_init_model`, its trees replayed onto the scores on
 the device), valid sets added at any time, iterations on caller-given
 gradients (`train_one_iter(grad, hess)`) and `rollback_one_iter`; random
@@ -49,7 +52,9 @@ from ..data.dataset import BinnedDataset
 from ..metrics import Metric
 from ..objectives import (ObjectiveFunction, create_objective,
                           percentile_ref, weighted_percentile_ref)
-from ..ops.grow import DeviceTree, GrowConfig
+from ..ops.grow import (DeviceTree, GrowConfig, grow_tree,
+                        serial_hist_route)
+from ..ops.grow_fast import grow_tree_fast
 from ..ops.grow_wave import (_wave_buckets, fused_veto_reasons,
                              grow_tree_wave, wave_routes)
 from ..ops.histogram import add_leaf_values_, make_hist_plan
@@ -86,12 +91,12 @@ def check_slice_config(cfg: Config) -> None:
     if distributed:
         _not_ported("distributed training (tree_learner="
                     f"{cfg.tree_learner})", "A16")
-    if cfg.tpu_grower not in ("auto", "wave"):
-        _not_ported(f"tpu_grower={cfg.tpu_grower}", "A11")
     if cfg.binning_impl == "auto" and cfg.autotune:
         _not_ported("autotune of binning_impl=auto", "A14")
     if cfg.num_leaves > MAX_LEAVES:
-        _not_ported(f"num_leaves > {MAX_LEAVES}", "A11")
+        # #2, #3, #5 and #10 stage the leaf tables in shared memory
+        _not_ported(f"num_leaves > {MAX_LEAVES} (the kernels' "
+                    f"{MAX_LEAVES}-entry leaf tables)", "A11, the leaf cap")
     if cfg.checkpoint_interval > 0 or cfg.checkpoint_dir \
             or cfg.resume_from_checkpoint or cfg.fault_plan:
         _not_ported("checkpoints, resume and fault plans "
@@ -278,8 +283,10 @@ class GBDT:
         max_bin = max((m.num_bin for m in ds.mappers), default=2)
         # EFB: ship the bundled columns to the device instead of the raw
         # matrix; a bundle column may hold more bins than any feature
-        # (gbdt.py:288-300)
-        bundled = ds.bundles is not None
+        # (gbdt.py:288-300). The serial growers do not unpack bundles, so a
+        # forced serial grower trains on the unbundled matrix
+        bundled = ds.bundles is not None and cfg.tpu_grower in (
+            "auto", "wave", "wave_exact")
         if bundled:
             max_bin = max(max_bin, int(ds.X_bundled.max()) + 1)
         self.num_bins_padded = B = max(round_up(max_bin, 8), 8)
@@ -302,11 +309,13 @@ class GBDT:
             self.meta = self.meta._replace(
                 bundle_expand=torch.from_numpy(expand).to(self.device),
                 bundle_mfb=torch.from_numpy(mfb).to(self.device))
+        self._select_grower(ds, bundled)
         self._init_cegb(ds, bundled)
         self._init_linear(ds)
         # per-STORAGE-COLUMN bin counts (gbdt.py:345-348); force_row_wise
         # pins the row-wise layout (gbdt.py:353-355)
-        hist_tiers = tuple(ds.storage_num_bins())
+        hist_tiers = (tuple(ds.storage_num_bins()) if bundled
+                      else tuple(int(m.num_bin) for m in ds.mappers))
         hist_impl = str(cfg.histogram_impl)
         if cfg.force_row_wise and hist_impl == "auto":
             hist_impl = "rowwise"
@@ -323,6 +332,7 @@ class GBDT:
             num_bins_padded=B,
             # slack >= 1 would block the top ready leaf forever; clamp
             wave_gain_slack=min(max(cfg.tpu_wave_gain_slack, 0.0), 0.99),
+            wave_exact=cfg.tpu_grower == "wave_exact",
             hist_tiers=hist_tiers,
             hist_impl=hist_impl,
             fused_feature_tile=int(cfg.fused_feature_tile),
@@ -357,14 +367,21 @@ class GBDT:
         )
         # the route every tree of this run takes (recorded, so a run can
         # show it against the kernels' launch counts): "fused",
-        # "fused_tiled", "mega" or "apply", and the histogram route of the
-        # apply route; under histogram_impl=fused, why a fused kernel does
-        # not run (empty when one does; the profile extras entry of
-        # gbdt.py:674-687)
-        self.grow_route, self.hist_route = wave_routes(self.grow_cfg,
-                                                       self.X_t.shape[0])
-        self.fused_veto_reasons = (fused_veto_reasons(self.grow_cfg)
-                                   if hist_impl == "fused" else [])
+        # "fused_tiled", "mega" or "apply" for the wave grower, the serial
+        # grower's name otherwise, and the histogram route; under
+        # histogram_impl=fused, why a fused kernel does not run (empty when
+        # one does; the profile extras entry of gbdt.py:674-687)
+        if self.grower in ("masked", "compact"):
+            self.grow_route = self.grower
+            self.hist_route = serial_hist_route(self.grow_cfg,
+                                                self.X_t.shape[0])
+        else:
+            self.grow_route, self.hist_route = wave_routes(
+                self.grow_cfg, self.X_t.shape[0])
+        self.fused_veto_reasons = (
+            fused_veto_reasons(self.grow_cfg)
+            if hist_impl == "fused" and self.grower in ("wave", "wave_exact")
+            else [])
         if self.fused_veto_reasons:
             log_warning("histogram_impl=fused: the fused kernels are "
                         f"vetoed ({', '.join(self.fused_veto_reasons)}); "
@@ -372,22 +389,9 @@ class GBDT:
         # the row-wise layouts' plan (and the nibble pack) is made once
         self.hist_plan = make_hist_plan(self.X_t, self.hist_route,
                                         hist_tiers)
-        log_info(f"wave grower route: {self.grow_route} (histogram: "
-                 f"{self.hist_route}, {self.X_t.shape[0]} storage columns, "
-                 f"B={B})")
-        # tpu_grower=auto picks the wave grower when its two [L, 3, F, B]
-        # histogram caches fit histogram_pool_size (gbdt.py:412-427); the
-        # serial growers it would fall back to are not ported
-        cache_bytes = (cfg.num_leaves * len(ds.mappers)
-                       * self.num_bins_padded * 3 * 4)
-        wave_bytes = cache_bytes * 2 + (
-            _wave_buckets(cfg.num_leaves)[-1] * len(ds.mappers)
-            * self.num_bins_padded * 3 * 4) * 2
-        pool_limit = (cfg.histogram_pool_size * 1024 * 1024
-                      if cfg.histogram_pool_size > 0 else 512 * 1024 * 1024)
-        if cfg.tpu_grower == "auto" and wave_bytes > pool_limit:
-            _not_ported("the serial growers (wave caches exceed "
-                        "histogram_pool_size)", "A11")
+        log_info(f"grower {self.grower}, route: {self.grow_route} "
+                 f"(histogram: {self.hist_route}, {self.X_t.shape[0]} "
+                 f"storage columns, B={B})")
 
         md = ds.metadata
         N = self.num_data
@@ -411,6 +415,65 @@ class GBDT:
             self.objective.init(md, N)
         for m in self.training_metrics:
             m.init(md, N)
+
+    def _select_grower(self, ds: BinnedDataset, bundled: bool) -> None:
+        """The grower (gbdt.py:404-469): a forced tpu_grower passes through;
+        auto walks the histogram_pool_size ladder, "wave" when its two
+        [L, 3, F, B] histogram caches and two [KMAX, 3, F, B] wave
+        temporaries fit, else "compact" when one [L, 3, F, B] cache fits,
+        else "masked" (the reference bounds the analogous structure with
+        histogram_pool_size, serial_tree_learner.cpp:40). EFB-bundled
+        storage, quantized gradients, constraints, forced splits and the
+        per-node draws take the wave grower whatever the ladder said, with
+        the JAX package's warnings; CEGB's switch is in `_init_cegb`.
+        `_grower_feasible` lists the growers whose caches fit."""
+        cfg = self.config
+        cache_bytes = (cfg.num_leaves * len(ds.mappers)
+                       * self.num_bins_padded * 3 * 4)
+        wave_bytes = cache_bytes * 2 + (
+            _wave_buckets(cfg.num_leaves)[-1] * len(ds.mappers)
+            * self.num_bins_padded * 3 * 4) * 2
+        pool_limit = (cfg.histogram_pool_size * 1024 * 1024
+                      if cfg.histogram_pool_size > 0 else 512 * 1024 * 1024)
+        if cfg.tpu_grower in ("compact", "masked", "wave", "wave_exact"):
+            self.grower = cfg.tpu_grower
+        elif wave_bytes <= pool_limit:
+            self.grower = "wave"
+        elif cache_bytes <= pool_limit:
+            self.grower = "compact"
+        else:
+            self.grower = "masked"
+        self._grower_feasible = ["masked"]
+        if cache_bytes <= pool_limit:
+            self._grower_feasible.insert(0, "compact")
+        if wave_bytes <= pool_limit:
+            self._grower_feasible.insert(0, "wave")
+        wave = ("wave", "wave_exact")
+        if bundled and self.grower not in wave:
+            # the storage is bundled already and the serial growers cannot
+            # unpack bundles (histogram_pool_size is a soft hint)
+            wave_bytes_b = 2 * (cfg.num_leaves
+                                + _wave_buckets(cfg.num_leaves)[-1]) \
+                * len(ds.bundles) * self.num_bins_padded * 2 * 4
+            if wave_bytes_b > pool_limit:
+                log_warning(
+                    "EFB wave histogram caches (%.0f MB) exceed "
+                    "histogram_pool_size; using the wave grower anyway"
+                    % (wave_bytes_b / 1e6))
+            self.grower = "wave"
+        if cfg.use_quantized_grad and self.grower not in wave:
+            log_warning("use_quantized_grad is implemented by the wave "
+                        "grower; switching tpu_grower to 'wave'")
+            self.grower = "wave"
+        if (self.meta.monotone is not None
+                or self.meta.inter_sets is not None
+                or self.meta.forced is not None
+                or cfg.feature_fraction_bynode < 1.0
+                or cfg.extra_trees) and self.grower not in wave:
+            log_warning("monotone/interaction/forced-split/by-node-"
+                        "sampling/extra_trees features are implemented by "
+                        "the wave grower; switching tpu_grower to 'wave'")
+            self.grower = "wave"
 
     def _init_linear(self, ds: BinnedDataset) -> None:
         """Linear trees (gbdt.py:491-507; linear_tree_learner.cpp): the fit
@@ -436,9 +499,8 @@ class GBDT:
         feature, and the [F] state of the features the model has split
         on, which carries over trees and over a round's K trees. The lazy
         penalty, a coupled vector of the wrong length and EFB bundles are
-        fatal, with the JAX package's messages. The JAX package's warning
-        for a grower other than the wave grower has no case here: the port
-        has no other."""
+        fatal, with the JAX package's messages; a serial grower switches
+        to the wave grower, with its warning."""
         cfg = self.config
         if cfg.cegb_penalty_feature_lazy:
             log_fatal("cegb_penalty_feature_lazy is not implemented in "
@@ -457,6 +519,10 @@ class GBDT:
                 cpl[inner] = cfg.cegb_penalty_feature_coupled[real]
             self.meta = self.meta._replace(
                 cegb_coupled=torch.from_numpy(cpl).to(self.device))
+        if self.grower not in ("wave", "wave_exact"):
+            log_warning("cegb_* is implemented by the wave grower; "
+                        "switching tpu_grower to 'wave'")
+            self.grower = "wave"
         if bundled:
             log_fatal("cegb_* with EFB bundling (enable_bundle) is "
                       "not supported; set enable_bundle=false")
@@ -613,11 +679,9 @@ class GBDT:
         feat_mask = self._feature_mask_for_iter()
         lr = self.shrinkage_rate
         for k in range(K):
-            tree, leaf_of_row = grow_tree_wave(
-                self.X_t, g[k], h[k], self._in_bag, self.meta, self.grow_cfg,
-                feat_mask, hist_plan=self.hist_plan,
-                rng_seed=self.tree_seed(self.iter, k),
-                cegb_used=self._cegb_used)
+            tree, leaf_of_row = self.grow_one(
+                g[k], h[k], self._in_bag, feat_mask,
+                self.tree_seed(self.iter, k), cegb_used=self._cegb_used)
             if self._cegb_used is not None and tree.num_leaves > 1:
                 # the features this tree split on are paid for: later trees,
                 # the round's next class included, use them freely
@@ -656,6 +720,22 @@ class GBDT:
         if (it & (it - 1)) == 0 or it % self._stop_check_interval == 0:
             self._stopped = self._check_stopped()
         return self._stopped
+
+    def grow_one(self, g: torch.Tensor, h: torch.Tensor,
+                 in_bag: torch.Tensor, feat_mask: Optional[torch.Tensor],
+                 seed: int, cegb_used: Optional[torch.Tensor] = None,
+                 plain: bool = False) -> Tuple[DeviceTree, torch.Tensor]:
+        """One tree on this run's grower (gbdt.py:886-893): the wave grower
+        (with its seed and CEGB's used features) or a serial one, which
+        takes no seed; `plain=True` runs the kernels' plain versions."""
+        if self.grower in ("masked", "compact"):
+            fn = grow_tree if self.grower == "masked" else grow_tree_fast
+            return fn(self.X_t, g, h, in_bag, self.meta, self.grow_cfg,
+                      feat_mask, hist_plan=self.hist_plan, plain=plain)
+        return grow_tree_wave(self.X_t, g, h, in_bag, self.meta,
+                              self.grow_cfg, feat_mask,
+                              hist_plan=self.hist_plan, rng_seed=seed,
+                              cegb_used=cegb_used, plain=plain)
 
     def boost(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """The iteration's [K, N] gradients and hessians (GBDT::Boosting;
@@ -804,7 +884,9 @@ class GBDT:
         tree.split_feature_inner = sf_inner
         tree.split_is_cat = is_cat
         tree.split_cat_bitset_bins = cat_bits_bins
-        tree.num_waves = int(t.num_waves)     # diagnostic, not in the text
+        # diagnostics, not in the text
+        tree.num_waves = int(t.num_waves)
+        tree.host_reads = int(t.host_reads)
         return tree
 
     # ------------------------------------------------------------------

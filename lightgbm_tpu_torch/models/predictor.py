@@ -275,6 +275,20 @@ class PackedModel:
         return out
 
 
+def linear_tree_indices(trees) -> List[int]:
+    """Indices of the linear-leaf trees, which the paths that refuse them
+    name in their error (JAX models/predictor.py:287-296)."""
+    return [i for i, t in enumerate(trees)
+            if getattr(t, "is_linear", False)]
+
+
+def format_tree_indices(linear: List[int]) -> str:
+    """'tree(s) [0, 3, 7]', the first 8, elided beyond (the refusals'
+    shared phrasing)."""
+    return (f"tree(s) {linear[:8]}"
+            f"{'...' if len(linear) > 8 else ''}")
+
+
 def floor_threshold_f32(t64: np.ndarray) -> np.ndarray:
     """The f64 thresholds floored to the largest f32 <= each: for f32
     feature values v, (v <= thr_f64) == (v <= thr_f32floor), so a device

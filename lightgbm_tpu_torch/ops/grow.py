@@ -1,9 +1,22 @@
-"""Grower configuration and the device-resident tree record.
+"""Grower configuration, the device-resident tree record and the masked
+serial grower.
 
-Counterpart of the types in lightgbm_tpu/ops/grow.py (GrowConfig:49,
-DeviceTree:205). Leaf/node numbering follows Tree::Split (src/io/tree.cpp):
+Counterpart of lightgbm_tpu/ops/grow.py (GrowConfig:49, DeviceTree:205,
+grow_tree:263). Leaf/node numbering follows Tree::Split (src/io/tree.cpp):
 internal node s is created by split s; the left child keeps leaf id p, the
 right child becomes a new leaf; child pointers store ``~leaf`` for leaves.
+
+`grow_tree` is the reference's one-split-at-a-time loop
+(SerialTreeLearner::Train, serial_tree_learner.cpp:222-240) with a
+row -> leaf vector in place of index lists: each split takes the leaf of
+largest cached gain, records node s, re-tags that leaf's rows and builds
+both children's histograms in ONE pass over all rows, the slot histogram
+(#1) at K = 2 with the leaf's left rows in slot 0, its right rows in slot
+1 and every other row outside [0, 2). The JAX package runs the L - 1
+splits inside a `fori_loop` that `lax.cond` skips once the tree is done;
+here the loop reads the best leaf and whether its gain is positive, one
+host read a split, and stops at the first split that cannot be made
+(`done` is sticky there, so the trees are the same).
 
 Categorical left-sets are bin bitsets of W = ceil(B / 32) words. Torch has
 no full-range uint32, so each word's 32 bits are held in an int64 (values
@@ -12,12 +25,15 @@ no full-range uint32, so each word's 32 bits are held in an int64 (values
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
-from .categorical import CatConfig
-from .split import SplitHyperParams
+from .categorical import CatConfig, find_best_split_categorical
+from .histogram import (HistPlan, build_histogram, build_histogram_slots,
+                        hist_route, make_hist_plan)
+from .split import (NEG_INF, FeatureMeta, SplitHyperParams, SplitResult,
+                    find_best_split, synth_count_channel)
 
 
 class GrowConfig(NamedTuple):
@@ -35,6 +51,11 @@ class GrowConfig(NamedTuple):
     num_bins_padded: int        # B: padded bin axis
     # batched-order guard of the wave grower (config tpu_wave_gain_slack)
     wave_gain_slack: float = 0.0
+    # the wave grower in strict leaf-wise order (tpu_grower=wave_exact):
+    # each wave applies what the serial growers' priority rule would, up
+    # to the first leaf whose children are not yet speculated; the gain
+    # slack is ignored (grow_wave.py:1215-1231, :1448)
+    wave_exact: bool = False
     # per-STORAGE-COLUMN bin counts in storage order and the histogram
     # implementation ("auto" | "legacy" | "tiered" | "tiered_hilo" |
     # "rowwise" | "rowwise_packed" | "fused"; config histogram_impl)
@@ -149,4 +170,294 @@ class DeviceTree(NamedTuple):
     split_parent_leaf: torch.Tensor  # [M] int64: the leaf each split divided
     split_is_cat: torch.Tensor     # [M] bool: categorical (bitset) split
     split_cat_bitset: torch.Tensor  # [M, W] int64 uint32 words: left bins
-    num_waves: int                 # histogram waves used (diagnostic)
+    num_waves: int                 # histogram waves used (diagnostic;
+    #                                0 on the serial growers)
+    host_reads: int = 0            # device-to-host reads while growing
+
+
+def empty_split_cache(L: int, dev) -> SplitResult:
+    """[L] best-split records with gain -inf (no split)."""
+    def z():
+        return torch.zeros(L, dtype=torch.float32, device=dev)
+    return SplitResult(
+        gain=torch.full((L,), NEG_INF, dtype=torch.float32, device=dev),
+        feature=torch.zeros(L, dtype=torch.int64, device=dev),
+        threshold=torch.zeros(L, dtype=torch.int64, device=dev),
+        default_left=torch.zeros(L, dtype=torch.bool, device=dev),
+        left_sum_g=z(), left_sum_h=z(), left_count=z(),
+        right_sum_g=z(), right_sum_h=z(), right_count=z(),
+        left_output=z(), right_output=z())
+
+
+def serial_hist_route(cfg: GrowConfig, num_storage_cols: int) -> str:
+    """The histogram route of the serial growers: the `hist_route` of
+    histogram_impl over the storage's bin counts ("fused", which has no
+    plain-histogram form, routes as "auto"; JAX histogram.py:92-108)."""
+    tiers = cfg.hist_tiers if len(cfg.hist_tiers) == num_storage_cols \
+        else ()
+    return hist_route(cfg.hist_impl, tiers)
+
+
+def serial_search(hist2: torch.Tensor, sum_g: torch.Tensor,
+                  sum_h: torch.Tensor, count: torch.Tensor,
+                  out: torch.Tensor, meta: FeatureMeta, cfg: GrowConfig,
+                  feature_mask: Optional[torch.Tensor]
+                  ) -> Tuple[SplitResult, torch.Tensor, torch.Tensor]:
+    """Best splits of n leaves from their [n, 2, F, B] (grad, hess)
+    histograms: the count channel synthesized from the hessians
+    (cnt_factor, feature_histogram.hpp:529,844), the numerical search,
+    and with categorical features the bitset search, numeric winning ties
+    (grow.py:374-390). Returns (SplitResult [n], is_cat [n], bitset
+    [n, W])."""
+    n = count.shape[0]
+    hist = synth_count_channel(hist2, count, sum_h)
+    num = find_best_split(hist, sum_g, sum_h, count, out, meta, cfg.hp,
+                          feature_mask)
+    if not cfg.has_categorical:
+        return (num, torch.zeros(n, dtype=torch.bool, device=count.device),
+                torch.zeros((n, cfg.cat_words), dtype=torch.int64,
+                            device=count.device))
+    catr, bits = find_best_split_categorical(
+        hist, sum_g, sum_h, count, out, meta, cfg.hp, cfg.cat, feature_mask)
+    use_cat = catr.gain > num.gain
+    merged = SplitResult(*[torch.where(use_cat, cv, nv)
+                           for cv, nv in zip(catr, num)])
+    return merged, use_cat, torch.where(use_cat[:, None], bits, 0)
+
+
+def split_go_left(X_t: torch.Tensor, bs: SplitResult, is_cat, bits,
+                  meta: FeatureMeta, cfg: GrowConfig) -> torch.Tensor:
+    """[N] bool: which rows of X_t go left under one split (its best `bs`,
+    categorical flag and [W] bitset words), the wave grower's
+    `dec_go_left` for n = 1 (grow_wave imports this module)."""
+    from .grow_wave import dec_go_left
+    return dec_go_left(X_t, bs.feature.reshape(1), bs.threshold.reshape(1),
+                       bs.default_left.reshape(1), is_cat.reshape(1),
+                       bits[None], meta, cfg)[0]
+
+
+class _TreeRecord:
+    """The tree under construction and the per-leaf state both serial
+    growers keep: device arrays of the node and leaf records and of the
+    cached best splits, and the leaves' parent node, side and depth on
+    the host, which follow from the chosen leaves alone."""
+
+    def __init__(self, L: int, W: int, dev, root_g, root_h, root_c,
+                 root_out, root_split: SplitResult, root_cat, root_bits):
+        M = max(L - 1, 1)
+
+        def zeros(n, dtype=torch.float32):
+            return torch.zeros(n, dtype=dtype, device=dev)
+        self.split_feature = zeros(M, torch.int64)
+        self.threshold_bin = zeros(M, torch.int64)
+        self.default_left = zeros(M, torch.bool)
+        self.split_gain = zeros(M)
+        self.left_child = zeros(M, torch.int32)
+        self.right_child = zeros(M, torch.int32)
+        self.internal_value = zeros(M)
+        self.internal_weight = zeros(M)
+        self.internal_count = zeros(M, torch.int32)
+        self.split_parent_leaf = zeros(M, torch.int64)
+        self.split_is_cat = zeros(M, torch.bool)
+        self.split_cat_bitset = zeros((M, W), torch.int64)
+        # leaf 0 stays 0.0 until a split sets it: a no-split tree is a
+        # constant-zero tree (AsConstantTree(0), gbdt.cpp:443)
+        self.leaf_value = zeros(L)
+        self.leaf_weight = zeros(L)
+        self.leaf_weight[0] = root_h
+        self.leaf_count = zeros(L, torch.int32)
+        self.leaf_count[0] = root_c.to(torch.int32)
+        self.leaf_output = zeros(L)
+        self.leaf_output[0] = root_out
+        self.leaf_sum_g = zeros(L)
+        self.leaf_sum_g[0] = root_g
+        self.leaf_sum_h = zeros(L)
+        self.leaf_sum_h[0] = root_h
+        self.best = empty_split_cache(L, dev)
+        for a, v in zip(self.best, root_split):
+            a[0] = v[0]
+        self.best_is_cat = zeros(L, torch.bool)
+        self.best_is_cat[0] = root_cat[0]
+        self.best_bitset = zeros((L, W), torch.int64)
+        self.best_bitset[0] = root_bits[0]
+        self.parent_node: List[int] = [-1] * L
+        self.is_left: List[bool] = [False] * L
+        self.depth: List[int] = [0] * L
+        self.num_leaves = 1
+
+    def apply(self, s: int, p: int, bs: SplitResult, is_cat, bits,
+              left_count: torch.Tensor, right_count: torch.Tensor) -> int:
+        """Record split s of leaf p (its best `bs`, children's counts) as
+        Tree::Split does, rewire the parent's child pointer and move the
+        leaf state to both children; returns the children's depth."""
+        r = s + 1
+        self.split_feature[s] = bs.feature
+        self.threshold_bin[s] = bs.threshold
+        self.default_left[s] = bs.default_left
+        self.split_gain[s] = bs.gain
+        self.left_child[s] = ~p
+        self.right_child[s] = ~r
+        self.internal_value[s] = self.leaf_output[p]
+        self.internal_weight[s] = self.leaf_sum_h[p]
+        self.internal_count[s] = self.leaf_count[p]
+        self.split_parent_leaf[s] = p
+        self.split_is_cat[s] = is_cat
+        self.split_cat_bitset[s] = bits
+        prev = self.parent_node[p]
+        if prev >= 0:
+            (self.left_child if self.is_left[p]
+             else self.right_child)[prev] = s
+        depth = self.depth[p] + 1
+        for leaf, left in ((p, True), (r, False)):
+            self.parent_node[leaf] = s
+            self.is_left[leaf] = left
+            self.depth[leaf] = depth
+        for arr, lv, rv in ((self.leaf_value, bs.left_output,
+                             bs.right_output),
+                            (self.leaf_weight, bs.left_sum_h,
+                             bs.right_sum_h),
+                            (self.leaf_count, left_count.to(torch.int32),
+                             right_count.to(torch.int32)),
+                            (self.leaf_output, bs.left_output,
+                             bs.right_output),
+                            (self.leaf_sum_g, bs.left_sum_g,
+                             bs.right_sum_g),
+                            (self.leaf_sum_h, bs.left_sum_h,
+                             bs.right_sum_h)):
+            arr[p] = lv
+            arr[r] = rv
+        self.num_leaves += 1
+        return depth
+
+    def cache(self, p: int, r: int, s_lr: SplitResult, cat_lr, bits_lr,
+              can: bool) -> None:
+        """Cache both children's best splits (gain -inf past max_depth)."""
+        for a, v in zip(self.best, s_lr):
+            a[p] = v[0]
+            a[r] = v[1]
+        if not can:
+            self.best.gain[p] = NEG_INF
+            self.best.gain[r] = NEG_INF
+        self.best_is_cat[p], self.best_is_cat[r] = cat_lr[0], cat_lr[1]
+        self.best_bitset[p], self.best_bitset[r] = bits_lr[0], bits_lr[1]
+
+    def next_leaf(self, *extra: torch.Tensor) -> Tuple[int, bool, list]:
+        """The leaf of largest cached gain (the lowest id on ties, as
+        jnp.argmax) and whether it splits (gain > 0), with `extra` scalars,
+        in one host read."""
+        p = torch.argmax(self.best.gain)
+        vals = torch.stack([p.to(torch.float64),
+                            (self.best.gain[p] > 0.0).to(torch.float64),
+                            *[e.to(torch.float64) for e in extra]]).tolist()
+        return int(vals[0]), bool(vals[1]), vals[2:]
+
+    def device_tree(self, host_reads: int) -> DeviceTree:
+        return DeviceTree(
+            num_leaves=self.num_leaves, split_feature=self.split_feature,
+            threshold_bin=self.threshold_bin,
+            default_left=self.default_left, split_gain=self.split_gain,
+            left_child=self.left_child, right_child=self.right_child,
+            internal_value=self.internal_value,
+            internal_weight=self.internal_weight,
+            internal_count=self.internal_count, leaf_value=self.leaf_value,
+            leaf_weight=self.leaf_weight, leaf_count=self.leaf_count,
+            split_parent_leaf=self.split_parent_leaf,
+            split_is_cat=self.split_is_cat,
+            split_cat_bitset=self.split_cat_bitset, num_waves=0,
+            host_reads=host_reads)
+
+
+def serial_root(X_t: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
+                in_bag: torch.Tensor, meta: FeatureMeta, cfg: GrowConfig,
+                feature_mask: Optional[torch.Tensor], hroute: str,
+                hist_plan: Optional[HistPlan], plain: bool):
+    """The root of both serial growers (BeforeTrain, serial_tree_learner.
+    cpp:292-342): (g, h, in-bag row indicator, root histogram [2, F, B],
+    tree record with the root's best split)."""
+    hp = cfg.hp
+    g = grad.to(torch.float32) * in_bag
+    h = hess.to(torch.float32) * in_bag
+    # the in-bag ROW indicator for exact counts (GOSS amplification rides
+    # only on g / h in the reference, goss.hpp)
+    cnt_row = (in_bag > 0).to(torch.float32)
+    root_g, root_h, root_c = g.sum(), h.sum(), cnt_row.sum()
+    root_out = (-torch.sign(root_g)
+                * torch.clamp(torch.abs(root_g) - hp.lambda_l1, min=0.0)
+                / (root_h + hp.lambda_l2))
+    hist_root = build_histogram(X_t, torch.stack([g, h]),
+                                cfg.num_bins_padded, impl=hroute,
+                                plan=hist_plan, plain=plain)  # [2, F, B]
+    root_split, root_cat, root_bits = serial_search(
+        hist_root[None], root_g[None], root_h[None], root_c[None],
+        root_out[None], meta, cfg, feature_mask)
+    rec = _TreeRecord(cfg.num_leaves, cfg.cat_words, X_t.device, root_g,
+                      root_h, root_c, root_out, root_split, root_cat,
+                      root_bits)
+    return g, h, cnt_row, hist_root, rec
+
+
+def grow_tree(
+    X_t: torch.Tensor,            # [F, N] uint8, feature-major
+    grad: torch.Tensor,           # [N] f32
+    hess: torch.Tensor,           # [N] f32
+    in_bag: torch.Tensor,         # [N] f32 (0/1 bagging mask; GOSS weights)
+    meta: FeatureMeta,
+    cfg: GrowConfig,
+    feature_mask: Optional[torch.Tensor] = None,  # [F] bool
+    *,
+    hist_plan: Optional[HistPlan] = None,
+    plain: bool = False,
+) -> Tuple[DeviceTree, torch.Tensor]:
+    """Grow one tree leaf-wise, one split at a time over all rows (the
+    masked grower); returns (DeviceTree, leaf_of_row [N] int32).
+
+    Each split: the leaf p of largest cached gain, node s recorded, the
+    parent's pointer rewired, p's rows re-tagged (the right child is leaf
+    s + 1), the children's exact in-bag counts (update_cnt,
+    serial_tree_learner.cpp:796-799), then both children's histograms in
+    one slot-histogram pass and their splits searched. `hist_plan` is
+    `make_hist_plan`'s plan of a row-wise histogram route (made here when
+    not given); `plain=True` runs the kernels' plain versions on any
+    device."""
+    F_st, N = X_t.shape
+    L = cfg.num_leaves
+    B = cfg.num_bins_padded
+    max_depth = cfg.max_depth if cfg.max_depth > 0 else 10 ** 9
+    hroute = serial_hist_route(cfg, F_st)
+    if hroute != "slots" and hist_plan is None:
+        hist_plan = make_hist_plan(X_t, hroute, cfg.hist_tiers)
+    g, h, cnt_row, _, t = serial_root(X_t, grad, hess, in_bag, meta, cfg,
+                                      feature_mask, hroute, hist_plan,
+                                      plain)
+    vals = torch.stack([g, h])
+    leaf_of_row = torch.zeros(N, dtype=torch.int32, device=X_t.device)
+    reads = 0
+    for s in range(L - 1):
+        p, valid, _ = t.next_leaf()
+        reads += 1
+        if not valid:
+            break
+        bs = SplitResult(*[a[p] for a in t.best])
+        is_cat, bits = t.best_is_cat[p], t.best_bitset[p]
+        gl = split_go_left(X_t, bs, is_cat, bits, meta, cfg)
+        in_p = leaf_of_row == p
+        # rows of p: slot 0 going left, slot 1 going right; others -1
+        slot = torch.where(in_p, (~gl).to(torch.int32),
+                           torch.full_like(leaf_of_row, -1))
+        leaf_of_row = torch.where(in_p & ~gl,
+                                  torch.full_like(leaf_of_row, s + 1),
+                                  leaf_of_row)
+        n_left = (cnt_row * (in_p & gl).to(torch.float32)).sum()
+        n_right = t.leaf_count[p].to(torch.float32) - n_left
+        bs = bs._replace(left_count=n_left, right_count=n_right)
+        depth = t.apply(s, p, bs, is_cat, bits, n_left, n_right)
+        hist_lr = build_histogram_slots(X_t, vals, slot, 2, B, impl=hroute,
+                                        plan=hist_plan, plain=plain)
+        s_lr, cat_lr, bits_lr = serial_search(
+            hist_lr, torch.stack([bs.left_sum_g, bs.right_sum_g]),
+            torch.stack([bs.left_sum_h, bs.right_sum_h]),
+            torch.stack([n_left, n_right]),
+            torch.stack([bs.left_output, bs.right_output]), meta, cfg,
+            feature_mask)
+        t.cache(p, s + 1, s_lr, cat_lr, bits_lr, depth < max_depth)
+    return t.device_tree(reads), leaf_of_row

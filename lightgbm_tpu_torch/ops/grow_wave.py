@@ -1,8 +1,8 @@
 """Wave-pipelined leaf-wise tree growth.
 
-Counterpart of lightgbm_tpu/ops/grow_wave.py:grow_tree_wave with the
-default gain-slack batching, on the two routes the JAX package takes on its
-accelerator (`wave_routes`):
+Counterpart of lightgbm_tpu/ops/grow_wave.py:grow_tree_wave, with the
+default gain-slack batching or in strict leaf-wise order, on the routes
+the JAX package takes on its accelerator (`wave_routes`):
 
   * "mega", the fused megakernel route (`use_mega`, grow_wave.py:287-290):
     at most 32 storage columns, no EFB bundles, no categorical features and
@@ -37,7 +37,11 @@ a Python loop over waves:
 
   1. APPLY: ready leaves with positive gain split in gain order (the
      gain-slack rule decides how many), trimmed to the leaf budget — pure
-     [L]-array bookkeeping.
+     [L]-array bookkeeping. Under `wave_exact` (tpu_grower=wave_exact)
+     the wave applies instead what the serial growers' strict leaf-wise
+     order would, one leaf after another, up to the first leaf whose
+     children are not speculated yet (`exact_order`, on the host from the
+     gains the step reads anyway); the gain slack is then ignored.
   2. SPECULATE: the top-K unready frontier leaves by cached gain become
      the wave's candidates.
   3. The row pass of the route relabels the rows and builds every
@@ -87,11 +91,12 @@ import functools
 import os
 from typing import List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..models.tree import MISSING_NAN, MISSING_ZERO
 from .categorical import find_best_split_categorical
-from .grow import DeviceTree, GrowConfig
+from .grow import DeviceTree, GrowConfig, empty_split_cache
 from .grow_fused import (fused_feature_mask, pack_fused_meta,
                          pack_fused_scalars, unpack_fused_records)
 from .histogram import (ROWWISE_IMPLS, HistPlan, build_histogram,
@@ -323,17 +328,40 @@ def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[:k], idx[:k]
 
 
-def _empty_split_cache(L: int, dev) -> SplitResult:
-    def z():
-        return torch.zeros(L, dtype=torch.float32, device=dev)
-    return SplitResult(
-        gain=torch.full((L,), NEG_INF, dtype=torch.float32, device=dev),
-        feature=torch.zeros(L, dtype=torch.int64, device=dev),
-        threshold=torch.zeros(L, dtype=torch.int64, device=dev),
-        default_left=torch.zeros(L, dtype=torch.bool, device=dev),
-        left_sum_g=z(), left_sum_h=z(), left_count=z(),
-        right_sum_g=z(), right_sum_h=z(), right_count=z(),
-        left_output=z(), right_output=z())
+def exact_order(keyed: torch.Tensor, keyed_l: torch.Tensor,
+                keyed_r: torch.Tensor, ready: torch.Tensor,
+                im_leaf: Optional[torch.Tensor], num_leaves: int, L: int,
+                kmax: int) -> Tuple[List[int], bool]:
+    """wave_exact's ORDER step (make_sim, grow_wave.py:1151-1180,
+    :1215-1231), on the host from one read of the [L] arrays: the serial
+    growers' priority rule replayed on the cached gains (selection keys)
+    `keyed`, each applied leaf's entry replaced by its left child's key
+    `keyed_l` and the new leaf's by its right child's `keyed_r`, until the
+    head of the queue is not ready, has no positive gain, the leaf budget
+    or `kmax` applies are reached, or (monotone intermediate, `im_leaf`)
+    it lies under a monotone node after one such leaf applied. Returns
+    (the applied leaves in order, whether any gain is positive)."""
+    cols = [keyed, keyed_l, keyed_r, ready]
+    if im_leaf is not None:
+        cols.append(im_leaf)
+    a = torch.stack([c.to(torch.float64) for c in cols]).cpu().numpy()
+    gain, gl, gr = a[0].copy(), a[1], a[2]
+    rdy = a[3] > 0
+    im = a[4] > 0 if im_leaf is not None else np.zeros(L, bool)
+    go_on = bool(gain.max() > 0.0)
+    app: List[int] = []
+    n, mono_done = num_leaves, False
+    while True:
+        p = int(np.argmax(gain))          # ties to the lower leaf id
+        if not (gain[p] > 0.0 and rdy[p] and n < L and len(app) < kmax
+                and not (im[p] and mono_done)):
+            break
+        gain[p], gain[n] = gl[p], gr[p]
+        rdy[p] = False
+        n += 1
+        app.append(p)
+        mono_done |= bool(im[p])
+    return app, go_on
 
 
 def _slack_guard(sel: torch.Tensor, gains: torch.Tensor, keyed: torch.Tensor,
@@ -852,15 +880,15 @@ def grow_tree_wave(
     small_hist = torch.zeros_like(hist_cache)
     small_is_left = zeros(L, torch.bool)
     ready = zeros(L, torch.bool)
-    best = _empty_split_cache(L, dev)
+    best = empty_split_cache(L, dev)
     for a, v in zip(best, root_split):
         a[0] = v[0]
     best_is_cat = zeros(L, torch.bool)
     best_is_cat[0] = root_cat[0]
     best_bitset = zeros((L, W), torch.int64)
     best_bitset[0] = root_bits[0]
-    bestl = _empty_split_cache(L, dev)
-    bestr = _empty_split_cache(L, dev)
+    bestl = empty_split_cache(L, dev)
+    bestr = empty_split_cache(L, dev)
     catl, catr = zeros(L, torch.bool), zeros(L, torch.bool)
     bitsl, bitsr = zeros((L, W), torch.int64), zeros((L, W), torch.int64)
     # forced splits: each leaf's forced-node id (-1: none), whether its
@@ -890,16 +918,11 @@ def grow_tree_wave(
     fusion = route == "fused_tiled" and cfg.fused_relabel_fusion
     pend: Optional[_Pending] = None
 
-    while L > 1:
-        im_leaf = None
-        if mono_inter:
-            # leaves under a monotone node already in the tree: their
-            # applications serialize (grow_wave.py:1201-1211)
-            node_act = torch.arange(M, device=dev) < num_leaves - 1
-            mono_n = torch.where(node_act, meta.monotone[split_feature], 0)
-            im_leaf = ((under != 0) & (mono_n != 0)[None, :]).any(dim=1)
-        # ---- ORDER: ready leaves with positive gain split in gain order
-        keyed = sel_key(best.gain, best_forced, leaf_forced)
+    def batched_order(keyed, im_leaf):
+        """The default ORDER step: ready leaves with positive gain in gain
+        order, trimmed to the leaf budget and the gain-slack rule, and
+        under monotone intermediate serialized (grow_wave.py:1232-1272);
+        (applies, whether any gain is positive, applied leaves first)."""
         budget = L - num_leaves
         rg, rl = _top_k(torch.where(ready, keyed,
                                     torch.full_like(keyed, NEG_INF)), KMAX)
@@ -922,6 +945,32 @@ def grow_tree_wave(
         napp, go_on = torch.stack([sel.sum(),
                                    (keyed.max() > 0.0).to(torch.int64)]
                                   ).tolist()
+        return napp, go_on, rl
+
+    host_reads = 0
+    while L > 1:
+        im_leaf = None
+        if mono_inter:
+            # leaves under a monotone node already in the tree: their
+            # applications serialize (grow_wave.py:1201-1211)
+            node_act = torch.arange(M, device=dev) < num_leaves - 1
+            mono_n = torch.where(node_act, meta.monotone[split_feature], 0)
+            im_leaf = ((under != 0) & (mono_n != 0)[None, :]).any(dim=1)
+        # ---- ORDER: ready leaves with positive gain split in gain order
+        keyed = sel_key(best.gain, best_forced, leaf_forced)
+        if cfg.wave_exact:
+            # strict leaf-wise: the serial priority rule, stopping at the
+            # first leaf whose children are not speculated yet
+            app, go_on = exact_order(
+                keyed, sel_key(bestl.gain, bfl, fidl),
+                sel_key(bestr.gain, bfr, fidr), ready, im_leaf, num_leaves,
+                L, KMAX)
+            host_reads += 1
+            napp = len(app)
+            rl = torch.tensor(app, dtype=torch.int64, device=dev)
+        else:
+            napp, go_on, rl = batched_order(keyed, im_leaf)
+            host_reads += 1
         if num_leaves >= L or not go_on:
             break
         nl0 = num_leaves
@@ -1027,7 +1076,7 @@ def grow_tree_wave(
                                          torch.full_like(keyed2, NEG_INF),
                                          keyed2), KMAX)
         valid = (gains > 0.0) & (j_iota < budget2)
-        if slack > 0.0:
+        if slack > 0.0 and not cfg.wave_exact:
             valid = _slack_guard(valid, gains, keyed2, j_iota, budget2, L,
                                  slack)
         bs = SplitResult(*[x[cand] for x in best])
@@ -1040,6 +1089,7 @@ def grow_tree_wave(
             n_rs = min(n_stale, KMAX)
         else:
             n_cand, n_rs = int(valid.sum()), 0
+        host_reads += 1
         num_waves += 1
 
         # ---- the route's row pass: relabel (+ candidate histograms, and
@@ -1271,5 +1321,6 @@ def grow_tree_wave(
         leaf_value=leaf_value, leaf_weight=leaf_weight,
         leaf_count=leaf_count, split_parent_leaf=split_parent_leaf,
         split_is_cat=split_is_cat, split_cat_bitset=split_cat_bitset,
-        num_waves=num_waves)
+        num_waves=num_waves,
+        host_reads=host_reads + (scale_args is not None))
     return tree, leaf_of_row

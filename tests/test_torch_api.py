@@ -244,22 +244,15 @@ def test_cv_early_stopping_and_raw_data():
         lt.cv({**PARAMS, **TORCH}, lt.Dataset(X, label=Y, params=TORCH), 2)
 
 
-class _Rows(lt.Sequence):
-    def __len__(self):
-        return len(X)
-
-    def __getitem__(self, idx):
-        return X[idx]
-
-
 @pytest.mark.parametrize("call,item", [
-    (lambda: lt.Dataset(_Rows(), label=Y, params=TORCH).construct(), "A6"),
-    (lambda: lt.Dataset(X, label=Y, params=TORCH).save_binary("d.bin"),
-     "A6"),
-    (lambda: lt.Dataset(None, params=TORCH).push_rows(X), "A13"),
-    (lambda: lt.train({**PARAMS, **TORCH}, lt.Dataset(X, label=Y),
-                      1).dump_model_to_cpp(), "A6"),
+    (lambda p: lt.Dataset(str(p), label=Y, params=TORCH).construct(), "A18"),
+    (lambda p: lt.Dataset(None, params=TORCH).init_streaming(), "A13"),
+    (lambda p: lt.Dataset(None, params=TORCH).push_rows(X), "A13"),
+    (lambda p: lt.Dataset(None, params=TORCH).mark_finished(), "A13"),
 ])
-def test_surface_left_out_raises(call, item):
+def test_surface_left_out_raises(tmp_path, call, item):
+    # a text file (the text loader is ROADMAP item A18)
+    path = tmp_path / "train.csv"
+    np.savetxt(path, np.column_stack([Y, X]), delimiter=",")
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-        call()
+        call(path)

@@ -241,5 +241,5 @@ def test_pred_leaf_matches_jax(models):
                                   jbst.predict(q64, pred_leaf=True))
     with pytest.raises(NotImplementedError, match="ROADMAP item A18"):
         bst.predict(q64, pred_contrib=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP item A6"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item A18"):
         bst.predict(q64, validate_features=True)

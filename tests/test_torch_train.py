@@ -199,19 +199,19 @@ def test_valid_sets_early_stopping_and_logging(data):
     ({"num_machines": 4}, "A16"),
     ({"max_bin": 1023}, "A14"),
     ({"tree_learner": "data"}, "A16"),
-    ({"tpu_grower": "compact"}, "A11"),
-    ({"tpu_grower": "wave_exact"}, "A11"),
+    ({"num_machines": 8, "tpu_grower": "compact"}, "A16"),
+    ({"max_bin_by_feature": [1000] * 8}, "A14"),
     ({"max_bin": 300}, "A14"),
     ({"binning_impl": "auto", "autotune": True}, "A14"),
-    ({"num_leaves": 8192}, "A11"),
+    ({"num_leaves": 8192}, "A11, the leaf cap"),
     ({"tree_learner": "feature"}, "A16"),
     ({"num_machines": 2}, "A16"),
     ({"pre_partition": True}, "A16"),
-    ({"tpu_grower": "masked"}, "A11"),
+    ({"tree_learner": "voting", "tpu_grower": "masked"}, "A16"),
     ({"max_bin_by_feature": [300] * 8}, "A14"),
     ({"tree_learner": "voting"}, "A16"),
-    ({"num_leaves": 4097}, "A11"),
-    ({"num_leaves": 255, "histogram_pool_size": 1}, "A11"),
+    ({"num_leaves": 4097}, "A11, the leaf cap"),
+    ({"fault_plan": "kill@iter=5", "tpu_grower": "wave_exact"}, "A17"),
     ({"checkpoint_interval": 2, "checkpoint_dir": "ckpt"}, "A17"),
     ({"checkpoint_dir": "ckpt"}, "A17"),
     ({"resume_from_checkpoint": "/nonexistent"}, "A17"),
