@@ -256,6 +256,26 @@ Phases, each printing one JSON line:
                      masked; launches, waves and host reads per tree and
                      ms a round recorded
 
+ 17. batched training, lt.train's default path (one line a case, with
+     the card's name and power limit; every earlier line passes
+     batched_train=False and runs per iteration):
+     batched         bench 37 rounds (a chunk of 32 and a tail of 5),
+                     bench with bagging 0.8 every round and with quantized
+                     gradients, 16 rounds each, bench with a 2^18-row
+                     valid set (auc, binary_logloss) 32 rounds, the Criteo
+                     table 16 rounds on "apply" and 2 under force_row_wise,
+                     each beside the same configuration per iteration: the
+                     model text md5 equal, batched_veto empty, the start,
+                     wave and finish graphs captured once each (none on
+                     the tail), at most ceil(waves / 4) + 1 blocking reads
+                     a tree; the replayed metric values within 1e-5
+                     relative of the host evaluation with the same
+                     best_iteration; bench's first tree through the
+                     fixed-shape step equal to the bucketed grower's; ms a
+                     round and device-busy share of both paths, graph
+                     replays and launches a round, inert waves a tree and
+                     the drain's lag recorded
+
 then a {"kernels": [...]} line (the ten kernels), the nvidia-smi line,
 and last
 {"ok": true, "device": {...}}. Any failed check raises before the last
@@ -1360,7 +1380,8 @@ def criteo_phase(lt, hc, torch, dev):
     params = dict(objective="binary", num_leaves=N_LEAVES, max_bin=255,
                   learning_rate=0.1, min_data_in_leaf=20, verbose=-1,
                   bagging_freq=0, binning_impl="auto", device_type="cuda",
-                  metric="auc")
+                  metric="auc",
+                  batched_train=False)
     cats = list(CRITEO_CAT_COLUMNS)
     hc.reset_launch_counts()
     torch.cuda.synchronize()
@@ -1535,7 +1556,8 @@ def efb_phase(lt, hc, torch):
     params = dict(objective="binary", num_leaves=N_LEAVES, max_bin=63,
                   learning_rate=0.1, min_data_in_leaf=20, verbose=-1,
                   bagging_freq=0, binning_impl="auto", device_type="cuda",
-                  metric="auc")
+                  metric="auc",
+                  batched_train=False)
     hc.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1601,7 +1623,8 @@ def narrow_cat_phase(lt, hc, torch):
     params = dict(objective="binary", num_leaves=N_LEAVES, max_bin=63,
                   learning_rate=0.1, min_data_in_leaf=20, verbose=-1,
                   bagging_freq=0, binning_impl="auto", device_type="cuda",
-                  metric="auc")
+                  metric="auc",
+                  batched_train=False)
     hc.reset_launch_counts()
     bst = lt.train(params, lt.Dataset(X, label=y,
                                       categorical_feature=list(range(4, 12)),
@@ -2584,7 +2607,8 @@ def multiclass_phase(lt, hc, torch, dev, X, w, smi):
     params = dict(objective="multiclass", num_class=K, num_leaves=N_LEAVES,
                   max_bin=63, learning_rate=0.1, min_data_in_leaf=20,
                   verbose=-1, binning_impl="auto", device_type="cuda",
-                  metric="multi_logloss")
+                  metric="multi_logloss",
+                  batched_train=False)
     ds = lt.Dataset(X, label=y, params=params).construct()
     names = ("build_histogram_slots", "take_leaf_values", "wave_pass",
              "wave_relabel", "wave_pass_fused")
@@ -2726,7 +2750,8 @@ def rank_phase(lt, hc, torch, dev, smi):
     params = dict(objective="lambdarank", num_leaves=N_LEAVES, max_bin=255,
                   learning_rate=0.1, min_data_in_leaf=20, verbose=-1,
                   binning_impl="auto", device_type="cuda", metric="ndcg",
-                  eval_at=[1, 3, 5, 10])
+                  eval_at=[1, 3, 5, 10],
+                  batched_train=False)
     t0 = time.perf_counter()
     ds = lt.Dataset(X, label=y, group=sizes, params=params).construct()
     ingest_s = time.perf_counter() - t0
@@ -3610,6 +3635,217 @@ def serial_growers_phase(lt, hc, torch, smi, params, ds, X, params_c,
         check(ok, what)
 
 
+# ---------------------------------------------------------------------------
+# batched training: the default lt.train path
+# ---------------------------------------------------------------------------
+def _device_busy(torch, fn):
+    """(device-busy ms, wall ms) of fn() under torch.profiler: the union of
+    the device's activity intervals, and the host clock around the call
+    and a synchronize; (None, wall) when the profiler saw no device
+    activity."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    # the device's activity only: host op events of the per-iteration
+    # rounds would cost seconds to collect
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    iv = sorted((ev.time_range.start, ev.time_range.end)
+                for ev in prof.events()
+                if ev.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, None
+    for a, b in iv:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return (busy / 1e3 if iv else None), wall
+
+
+def batched_phase(lt, hc, torch, smi, params, ds, X, w, params_c, ds_c):
+    """lt.train's default path, batched (models/batched.py), beside the
+    per-iteration path on the same configuration: bench 37 rounds (a chunk
+    of 32 and a tail of 5), bench with bagging 0.8 every round and with
+    quantized gradients (4 bins), 16 rounds each, bench with a 2^18-row
+    valid set (auc, binary_logloss, record_evaluation, early_stopping(10))
+    32 rounds, the Criteo table on the apply route 16 rounds, then 2 under
+    force_row_wise. Each: the model text md5 equal to the per-iteration
+    run's, batched_veto empty, every graph captured once (none on the
+    tail), at most ceil(waves / 4) + 1 blocking reads a tree; the valid
+    run's metric values within 1e-5 relative of the host evaluation, row
+    by row, and the same best_iteration. Recorded: ms a round of both
+    paths over the run (the batched one with its three captures) and
+    over 4 more steady rounds, the device-busy share of both on bench and
+    Criteo (torch.profiler over those rounds), graph replays and launches
+    a round, inert waves a tree, the drain's lag, and on bench a chunk of
+    32 steady rounds without and with the drain; bench's first tree
+    through the fixed-shape step equal to the bucketed grower's from the
+    same gradients, array by array."""
+    import hashlib
+    from lightgbm_tpu_torch.models.batched import LAG
+    from lightgbm_tpu_torch.ops.grow_batched import grow_tree_wave_batched
+    from lightgbm_tpu_torch.ops.grow_wave import grow_tree_wave
+
+    def md5(b):
+        return hashlib.md5(b.model_to_string().encode()).hexdigest()
+
+    def timed(p, d, rounds, **kw):
+        hc.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b = lt.train(p, d, num_boost_round=rounds, **kw)
+        torch.cuda.synchronize()
+        return b, (time.perf_counter() - t0) * 1e3 / rounds, \
+            dict(hc.LAUNCHES)
+
+    # the first tree, wave by wave: the fixed-shape step against the
+    # bucketed grower, same gradients, eagerly
+    g0 = lt.Booster({**params, "batched_train": False}, ds)._gbdt
+    g0._boost_from_average()
+    gg, hh = g0._gradients()
+    ones = torch.ones(N_ROWS, device=gg.device)
+    t_b, l_b = grow_tree_wave(g0.X_t, gg[0], hh[0], ones, g0.meta,
+                              g0.grow_cfg, rng_seed=g0.tree_seed(0))
+    t_f, l_f, _, _ = grow_tree_wave_batched(
+        g0.X_t, gg[0], hh[0], ones, g0.meta, g0.grow_cfg,
+        hist_plan=g0.hist_plan, rng_seed=g0.tree_seed(0))
+    first_diff = [f for f in t_b._fields
+                  if isinstance(getattr(t_b, f), torch.Tensor)
+                  and not torch.equal(getattr(t_b, f), getattr(t_f, f))]
+    first_same = not first_diff and torch.equal(l_b, l_f)
+    del g0, gg, hh, t_b, t_f, l_b, l_f
+
+    rv = np.random.RandomState(45)
+    Xv = rv.normal(size=(1 << 18, N_FEAT)).astype(np.float32)
+    yv = (Xv @ w + rv.normal(scale=0.5, size=1 << 18) > 0).astype(
+        np.float32)
+    dv = lt.Dataset(Xv, label=yv, reference=ds).construct()
+    pv = {**params, "metric": ["auc", "binary_logloss"]}
+    cases = (
+        ("bench", params, ds, 37, False),
+        ("bagging", {**params, "bagging_fraction": 0.8,
+                     "bagging_freq": 1}, ds, 16, False),
+        ("quantized", {**params, "use_quantized_grad": True,
+                       "num_grad_quant_bins": 4}, ds, 16, False),
+        ("valid", pv, ds, 32, True),
+        ("criteo", params_c, ds_c, 16, False),
+        ("criteo_rowwise", {**params_c, "force_row_wise": True}, ds_c, 2,
+         False))
+    for name, p, d, rounds, valid in cases:
+        t_case = time.perf_counter()
+        runs = []
+        for batched in (False, True):
+            kw = {}
+            rec = {}
+            if valid:
+                kw = dict(valid_sets=[dv], callbacks=[
+                    lt.record_evaluation(rec),
+                    lt.early_stopping(10, verbose=False)])
+            b, ms, launches = timed({**p, "batched_train": batched}, d,
+                                    rounds, **kw)
+            runs.append((b, ms, launches, rec))
+        (bi, ms_i, li, rec_i), (bb, ms_b, lb, rec_b) = runs
+        g = bb._gbdt
+        runner = next(iter(g._runners.values()))
+        trees = g.models
+        waves = [t.num_waves for t in trees]
+        reads = runner.tree_reads[:len(trees)]
+        ran = runner.tree_waves[:len(trees)]
+        inert = [r - a for r, a in zip(ran, waves)]
+        replays = sum(runner.replays.values())
+        # the steady round: 4 more rounds of each booster (the batched
+        # one replays its captured graphs), with the device-busy share
+        # under torch.profiler on bench and Criteo (a profiled window
+        # costs some 3 s)
+        t_prof = time.perf_counter()
+        if name in ("bench", "criteo"):
+            busy_i, wall_i = _device_busy(
+                torch, lambda: [bi.update() for _ in range(4)])
+            busy_b, wall_b = _device_busy(torch, lambda: bb.update_batch(4))
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bb.update_batch(4)
+            torch.cuda.synchronize()
+            wall_b = (time.perf_counter() - t0) * 1e3
+            busy_i = busy_b = wall_i = None
+        t_prof = time.perf_counter() - t_prof
+        out = {"phase": "batched", "case": name, "nvidia_smi": smi,
+               "rows": g.num_data, "rounds": rounds,
+               "grow_route": g.grow_route, "hist_route": g.hist_route,
+               "batched_veto": g.batched_veto, "md5_equal": md5(bi) == md5(bb),
+               "ms_per_round": ms_b, "per_iteration_ms_per_round": ms_i,
+               "steady_ms_per_round": wall_b / 4,
+               "per_iteration_steady_ms_per_round": (
+                   None if wall_i is None else wall_i / 4),
+               "device_busy_ms_per_round": (None if busy_b is None
+                                            else busy_b / 4),
+               "device_busy_share": (None if busy_b is None
+                                     else busy_b / wall_b),
+               "per_iteration_device_busy_ms_per_round": (
+                   None if busy_i is None else busy_i / 4),
+               "per_iteration_device_busy_share": (
+                   None if busy_i is None else busy_i / wall_i),
+               "captures": dict(runner.captures),
+               "capture_s": runner.capture_s,
+               "graph_replays_per_round": replays / rounds,
+               "launches_per_round": {k: v / rounds for k, v in lb.items()
+                                      if v},
+               "per_iteration_launches_per_round": {
+                   k: v / rounds for k, v in li.items() if v},
+               "waves_per_tree": waves, "reads_per_tree": reads,
+               "inert_waves_per_tree": float(np.mean(inert)),
+               "drain_lag_ms": g.drain_lags_ms,
+               "case_s": time.perf_counter() - t_case, "profile_s": t_prof}
+        if name == "bench":
+            # a chunk of 32 more rounds without the drain (the trees stay
+            # on the card), then with it (converted on its thread)
+            drain_ms = []
+            for drain in (False, True):
+                if drain:
+                    g.start_drain()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                bb.update_batch(32)
+                g.stop_drain()
+                torch.cuda.synchronize()
+                drain_ms.append((time.perf_counter() - t0) * 1e3 / 32)
+            out.update(first_tree_same=first_same,
+                       first_tree_diff=first_diff,
+                       steady_ms_per_round_without_drain=drain_ms[0],
+                       steady_ms_per_round_with_drain=drain_ms[1])
+        if valid:
+            hv, bv = rec_i["valid_0"], rec_b["valid_0"]
+            rel = max(abs(a - c) / max(abs(a), 1e-12) for m in hv
+                      for a, c in zip(hv[m], bv[m]))
+            out.update(metric_rows=len(bv["auc"]), metric_max_rel_err=rel,
+                       best_iteration=[bi.best_iteration, bb.best_iteration],
+                       valid_auc=bv["auc"][-1])
+            check(len(hv["auc"]) == len(bv["auc"]) and rel <= 1e-5,
+                  f"batched valid metrics differ by {rel} relative")
+            check(bi.best_iteration == bb.best_iteration,
+                  "batched best_iteration differs")
+        emit(out)
+        check(out["md5_equal"], f"batched {name}: the model differs from "
+                                "the per-iteration run's")
+        check(g.batched_veto == "", f"batched {name} vetoed: "
+                                    f"{g.batched_veto}")
+        check(len(g._runners) == 1 and dict(runner.captures) == {
+            "start": 1, "wave": 1, "finish": 1},
+            f"batched {name}: captures {dict(runner.captures)}")
+        check(all(r <= -(-a // LAG) + 1 for r, a in zip(reads, waves)),
+              f"batched {name}: reads {reads} for waves {waves}")
+        if name == "bench":
+            check(first_same, f"the fixed-shape first tree differs in "
+                              f"{first_diff}")
+        del bi, bb, g, runner, trees, runs
+    del dv
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -3655,7 +3891,8 @@ def main():
     params = dict(objective="binary", num_leaves=N_LEAVES, max_bin=63,
                   learning_rate=0.1, min_data_in_leaf=20, verbose=-1,
                   bagging_freq=0, binning_impl="auto", device_type="cuda",
-                  metric="auc")
+                  metric="auc",
+                  batched_train=False)
     hc.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3831,6 +4068,11 @@ def main():
     # ---- 16. the serial growers, strict leaf-wise order, the ladder
     serial_growers_phase(lt, hc, torch, smi, params, ds, X, params_criteo,
                          ds_criteo)
+
+    # ---- 17. batched training, lt.train's default path, beside the
+    # per-iteration path
+    batched_phase(lt, hc, torch, smi, params, ds, X, w, params_criteo,
+                  ds_criteo)
     del ds_criteo
 
     src = {"build_histogram_slots": "hist_slots.cu",

@@ -512,12 +512,32 @@ class Booster:
         s = self._gbdt.scores.cpu().numpy()
         return s[0] if s.shape[0] == 1 else s.reshape(-1)
 
-    def update_batch(self, n: int) -> None:
-        """Run `n` boosting iterations through update(): the per-iteration
-        loop. The JAX package fuses them into device scans whose models are
-        md5-equal to repeated update() calls; the port's batched path is
-        ROADMAP item A12."""
-        for _ in range(n):
+    def update_batch(self, n: int, chunk: Optional[int] = None) -> None:
+        """Run `n` boosting iterations in batched chunks of `chunk`
+        (batched_chunk_size by default) while can_batch_iters allows them,
+        the rest through update() (JAX basic.py:670-710); the model equals
+        that of n update() calls. A tail chunk replays its chunk's graphs.
+        The stop check runs at power-of-two chunk counts, the first and
+        the last chunk exempt."""
+        gbdt = self._gbdt
+        if gbdt._stopped:
+            return
+        chunk = max(int(chunk or self._config.batched_chunk_size), 1)
+        done = chunks = 0
+        if gbdt.can_batch_iters(min(n, chunk)):
+            n_chunks = -(-n // chunk)
+            while done < n:
+                step = min(chunk, n - done)
+                if not gbdt.can_batch_iters(step):
+                    break
+                gbdt.train_iters_batched(step, n_pad=chunk)
+                done += step
+                chunks += 1
+                if 1 < chunks < n_chunks and (chunks & (chunks - 1)) == 0 \
+                        and gbdt.batched_stopped():
+                    gbdt._stopped = True
+                    return
+        for _ in range(n - done):
             if self.update():
                 break
 

@@ -5,6 +5,10 @@ package (python-package/lightgbm/callback.py): log_evaluation:109,
 record_evaluation:183, reset_parameter:254, early_stopping:278. The
 evaluation result list entries are (dataset_name, metric_name, value,
 is_higher_better) tuples.
+
+`batched_replay = True` marks a callback that is a function of its
+CallbackEnv alone: the batched trainer replays it row by row from a
+chunk's device metric values after the chunk (JAX callback.py:48-50).
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ def log_evaluation(period: int = 1, show_stdv: bool = True) -> Callable:
             log_info(f"[{env.iteration + 1}]\t{result}")
 
     _callback.order = 10  # type: ignore
+    _callback.batched_replay = True  # type: ignore
     return _callback
 
 
@@ -66,6 +71,7 @@ def record_evaluation(eval_result: Dict[str, Dict[str, List[float]]]) -> Callabl
             eval_result.setdefault(name, {}).setdefault(metric, []).append(value)
 
     _callback.order = 20  # type: ignore
+    _callback.batched_replay = True  # type: ignore
     return _callback
 
 
@@ -169,4 +175,8 @@ def early_stopping(stopping_rounds: int, first_metric_only: bool = False,
                                          state["best_score_list"][i])
 
     _callback.order = 30  # type: ignore
+    # replay-safe: the stop depends on the evaluation lists alone, and a
+    # later tree never changes an earlier iteration's metrics; the engine
+    # cuts the surplus trees back to the stop (JAX callback.py:201-204)
+    _callback.batched_replay = True  # type: ignore
     return _callback

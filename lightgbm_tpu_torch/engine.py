@@ -1,14 +1,18 @@
 """Training entry points: train() and cv().
 
 Counterpart of lightgbm_tpu/engine.py (the reference python package's
-engine.py: train:109, cv:626, CVBooster:356) on the per-iteration loop: the
-booster starts from `init_model`'s trees when one is given, then each
-iteration runs the before-iteration callbacks (reset_parameter), updates
-the booster (on `fobj`'s gradients when given), evaluates the training set
-where it is also a valid set and the valid sets (with `feval`), then runs
-the other callbacks; early stopping ends the loop. cv() trains one booster
-a fold in lockstep and reports each metric's mean and standard deviation
-over the folds every round.
+engine.py: train:109, cv:626, CVBooster:356). train() runs batched by
+default, as the JAX package does (`_try_batched_train`): chunks of
+`batched_chunk_size` iterations with no host round trip per iteration,
+the valid sets evaluated on the device, and the callbacks that declare
+`batched_replay` replayed row by row after each chunk. Otherwise it runs
+the per-iteration loop: the booster starts from `init_model`'s trees when
+one is given, then each iteration runs the before-iteration callbacks
+(reset_parameter), updates the booster (on `fobj`'s gradients when
+given), evaluates the training set where it is also a valid set and the
+valid sets (with `feval`), then runs the other callbacks; early stopping
+ends the loop. cv() trains one booster a fold in lockstep and reports
+each metric's mean and standard deviation over the folds every round.
 """
 
 from __future__ import annotations
@@ -79,6 +83,12 @@ def train(
                     if not getattr(cb, "before_iteration", False)),
                    key=lambda cb: getattr(cb, "order", 0))
 
+    if _try_batched_train(booster, cfg, params, num_boost_round, before,
+                          after, fobj, feval, valid_contain_train):
+        if booster.best_iteration <= 0:
+            booster.best_iteration = booster.current_iteration
+        return booster
+
     for it in range(num_boost_round):
         for cb in before:
             cb(CallbackEnv(model=booster, params=params, iteration=it,
@@ -107,6 +117,89 @@ def train(
     if booster.best_iteration <= 0:
         booster.best_iteration = booster.current_iteration
     return booster
+
+
+def _try_batched_train(booster: Booster, cfg, params: Dict[str, Any],
+                       num_boost_round: int, before: List[Callable],
+                       after: List[Callable], fobj, feval,
+                       valid_contain_train: bool) -> bool:
+    """Train in chunks with callback replay (JAX engine.py:158-278).
+    Each chunk's valid metrics come back as one [n, M] read; the
+    callbacks then run row by row from them, early stopping included: its
+    stop is exact in retrospect (a later tree never changes an earlier
+    iteration's metrics), and the trees past it are cut. Returns False,
+    training nothing, where the per-iteration loop must run: fobj / feval,
+    before-iteration callbacks (reset_parameter), a callback without
+    `batched_replay`, the training set as a valid set, a metric with no
+    device form, or a `can_batch_iters` veto (gbdt.batched_veto)."""
+    gbdt = booster._gbdt
+    if fobj is not None or feval is not None or valid_contain_train:
+        return False
+    if before or any(not getattr(cb, "batched_replay", False)
+                     for cb in after):
+        return False
+    if num_boost_round <= 0:
+        return False
+    chunk = max(int(cfg.batched_chunk_size), 1)
+    # a resample that the chunk cannot draw on the device cuts the
+    # chunks at its period: a chunk start resamples as update() would
+    strat = gbdt.sample_strategy
+    host_period = (strat.resample_period()
+                   if gbdt._batched_sampling_mode() == "host" else 0)
+
+    begin = gbdt.iter      # the iterations of an init_model come first
+
+    def boundary(it: int) -> int:
+        b = min(it + chunk, num_boost_round)
+        if host_period > 0:
+            b = min(b, ((begin + it) // host_period + 1) * host_period
+                    - begin)
+        return b
+
+    # the first chunk's verdict holds for every later one, cut the same
+    if not gbdt.can_batch_iters(boundary(0)):
+        return False
+    layout = gbdt.batched_eval_layout() if booster.name_valid_sets else []
+    if layout is None:
+        return False
+    gbdt.start_drain()
+    try:
+        it, chunks = 0, 0
+        while it < num_boost_round:
+            end = boundary(it)
+            mvals = gbdt.train_iters_batched(end - it, n_pad=chunk)
+            chunks += 1
+            rows = (mvals.cpu().numpy() if mvals is not None and after
+                    else None)
+            for j in range(it, end):
+                evals = []
+                if rows is not None:
+                    evals = [(name, mname, float(rows[j - it][c]), hib)
+                             for c, (name, mname, hib) in enumerate(layout)]
+                try:
+                    for cb in after:
+                        cb(CallbackEnv(model=booster, params=params,
+                                       iteration=j, begin_iteration=0,
+                                       end_iteration=num_boost_round,
+                                       evaluation_result_list=evals))
+                except EarlyStopException as e:
+                    booster.best_iteration = e.best_iteration + 1
+                    for ds, metric, value, _ in e.best_score:
+                        booster.best_score.setdefault(ds, {})[metric] = \
+                            value
+                    gbdt.truncate_to_iteration(begin + j + 1)
+                    return True
+            it = end
+            # the amortized stop check (one read) at power-of-two chunk
+            # counts, the first chunk exempt
+            if it < num_boost_round and chunks > 1 \
+                    and (chunks & (chunks - 1)) == 0 \
+                    and gbdt.batched_stopped():
+                gbdt._stopped = True
+                break
+    finally:
+        gbdt.stop_drain()
+    return True
 
 
 class CVBooster:

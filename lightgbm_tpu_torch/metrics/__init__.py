@@ -5,21 +5,31 @@ reference's src/metric/*, factory metric.cpp:88): scores are pulled from
 the device once per evaluation, [N] for one model an iteration and [K, N]
 for multiclass. Each metric returns (name, value, is_higher_better)
 tuples, and applies the objective's output transform itself, as the
-reference metrics take the ObjectiveFunction's ConvertOutput. The JAX
-package's in-scan device metrics (`device_eval_fn`) come with batched
-training (ROADMAP item A12).
+reference metrics take the ObjectiveFunction's ConvertOutput.
+
+Batched training evaluates the valid sets on the device instead, inside
+the graphs of a chunk: `device_eval_fn(objective)` gives a tensor function
+`fn(score, label, weight, sum_weights) -> f32 scalar` of the [K, N]
+scores, or None where the JAX package has no device form (JAX metrics/
+__init__.py:28-101, :265, :295, :334, :399, :436); the run then stays per
+iteration. Device values are f32 and may differ from the f64 host value
+in the low bits.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..config import Config
 from ..utils.log import log_fatal, log_warning
 
 _KEPS = 1e-15
+# device metrics run in f32, where 1e-15 would round `1 - eps` to 1 and
+# log(0) follow: the smallest eps that survives it (JAX metrics:22)
+_KEPS_F32 = 1e-7
 
 MetricResult = Tuple[str, float, bool]  # (name, value, is_higher_better)
 
@@ -49,6 +59,12 @@ class Metric:
         multi_error@k differs from the class-level name."""
         return self.name
 
+    def device_eval_fn(self, objective) -> Optional[Callable]:
+        """The metric as a tensor function of (score [K, N], label [N],
+        weight [N], sum_weights) for the batched trainer, or None when it
+        has none."""
+        return None
+
     def _w(self) -> np.ndarray:
         if self.weight is not None:
             return self.weight.astype(np.float64)
@@ -56,6 +72,27 @@ class Metric:
 
     def _mean(self, loss: np.ndarray) -> float:
         return float(np.sum(loss * self._w()) / self.sum_weights)
+
+
+def _device_convert_output(objective) -> Optional[Callable]:
+    """The objective's output transform as a tensor function (identity
+    when it has none), or None when it has no device form (JAX metrics/
+    __init__.py:28-44)."""
+    if objective is None or not objective.need_convert_output:
+        return lambda s: s
+    name = getattr(objective, "name", "")
+    if name in ("binary", "multiclassova"):
+        sig = float(objective.config.sigmoid)
+        return lambda s: 1.0 / (1.0 + torch.exp(-sig * s))
+    if name == "multiclass":
+        return lambda s: torch.softmax(s, dim=0)
+    if name in ("poisson", "gamma", "tweedie"):
+        return torch.exp
+    return None
+
+
+def _sigmoid_t(s: torch.Tensor) -> torch.Tensor:
+    return 1.0 / (1.0 + torch.exp(-s))
 
 
 def _converted(score, objective, otherwise=None) -> np.ndarray:
@@ -75,12 +112,30 @@ def _sigmoid(s):
 # regression metrics (reference: regression_metric.hpp RegressionMetric<T>)
 # ---------------------------------------------------------------------------
 class _PointwiseRegressionMetric(Metric):
+    # (config, label, score) -> loss as tensors, or None: no device form
+    _device_point_loss = None
 
     def point_loss(self, label: np.ndarray, score: np.ndarray) -> np.ndarray:
         raise NotImplementedError
 
     def final_transform(self, mean_loss: float) -> float:
         return mean_loss
+
+    def _device_final(self, v: torch.Tensor) -> torch.Tensor:
+        return v
+
+    def device_eval_fn(self, objective):
+        point = type(self)._device_point_loss
+        conv = _device_convert_output(objective)
+        if point is None or conv is None:
+            return None
+        final, cfg = self._device_final, self.config
+
+        def fn(score, label, weight, sum_weights):
+            s = conv(score.reshape(-1))
+            return final(torch.sum(point(cfg, label, s) * weight)
+                         / sum_weights)
+        return fn
 
     def eval(self, score, objective) -> List[MetricResult]:
         s = _converted(score, objective)
@@ -91,6 +146,7 @@ class _PointwiseRegressionMetric(Metric):
 
 class L2Metric(_PointwiseRegressionMetric):
     name = "l2"
+    _device_point_loss = staticmethod(lambda cfg, y, s: (s - y) ** 2)
 
     def point_loss(self, y, s):
         return (s - y) ** 2
@@ -102,9 +158,13 @@ class RMSEMetric(L2Metric):
     def final_transform(self, v):
         return float(np.sqrt(v))
 
+    def _device_final(self, v):
+        return torch.sqrt(v)
+
 
 class L1Metric(_PointwiseRegressionMetric):
     name = "l1"
+    _device_point_loss = staticmethod(lambda cfg, y, s: torch.abs(s - y))
 
     def point_loss(self, y, s):
         return np.abs(s - y)
@@ -112,6 +172,9 @@ class L1Metric(_PointwiseRegressionMetric):
 
 class QuantileMetric(_PointwiseRegressionMetric):
     name = "quantile"
+    _device_point_loss = staticmethod(
+        lambda cfg, y, s: torch.where((y - s) >= 0, cfg.alpha * (y - s),
+                                      (cfg.alpha - 1.0) * (y - s)))
 
     def point_loss(self, y, s):
         a = self.config.alpha
@@ -211,6 +274,21 @@ class BinaryLoglossMetric(Metric):
         loss = -(y * np.log(p) + (1 - y) * np.log(1 - p))
         return [(self.name, self._mean(loss), False)]
 
+    def device_eval_fn(self, objective):
+        conv = (_device_convert_output(objective)
+                if objective is not None and objective.need_convert_output
+                else _sigmoid_t)
+        if conv is None:
+            return None
+
+        def fn(score, label, weight, sum_weights):
+            p = torch.clamp(conv(score.reshape(-1)), _KEPS_F32,
+                            1.0 - _KEPS_F32)
+            y = (label > 0).to(torch.float32)
+            loss = -(y * torch.log(p) + (1 - y) * torch.log(1 - p))
+            return torch.sum(loss * weight) / sum_weights
+        return fn
+
 
 class BinaryErrorMetric(Metric):
     name = "binary_error"
@@ -219,6 +297,17 @@ class BinaryErrorMetric(Metric):
         p = _converted(score, objective)
         err = ((p > 0.5) != (self.label > 0)).astype(np.float64)
         return [(self.name, self._mean(err), False)]
+
+    def device_eval_fn(self, objective):
+        conv = _device_convert_output(objective)
+        if conv is None:
+            return None
+
+        def fn(score, label, weight, sum_weights):
+            p = conv(score.reshape(-1))
+            err = ((p > 0.5) != (label > 0)).to(torch.float32)
+            return torch.sum(err * weight) / sum_weights
+        return fn
 
 
 class AUCMetric(Metric):
@@ -244,6 +333,30 @@ class AUCMetric(Metric):
         cum_neg = np.cumsum(group_neg) - group_neg
         auc = np.sum(group_pos * (cum_neg + 0.5 * group_neg)) / (pos_w * neg_w)
         return [(self.name, float(auc), True)]
+
+    def device_eval_fn(self, objective):
+        # rank-based: the monotone output transform changes nothing
+        def fn(score, label, weight, sum_weights):
+            s = score.reshape(-1)
+            n = s.shape[0]
+            order = torch.sort(s, stable=True).indices
+            s_s, y_s, w_s = s[order], (label > 0)[order], weight[order]
+            yw = w_s * y_s.to(torch.float32)
+            nw = w_s * (~y_s).to(torch.float32)
+            pos_w, neg_w = torch.sum(yw), torch.sum(nw)
+            # tie groups: runs of equal scores share a group id
+            gid = torch.cumsum(torch.cat([
+                torch.zeros(1, dtype=torch.int64, device=s.device),
+                (s_s[1:] != s_s[:-1]).to(torch.int64)]), 0)
+            group_pos = torch.zeros_like(yw).index_add_(0, gid, yw)
+            group_neg = torch.zeros_like(nw).index_add_(0, gid, nw)
+            cum_neg = torch.cumsum(group_neg, 0) - group_neg
+            auc = torch.sum(group_pos * (cum_neg + 0.5 * group_neg)) \
+                / torch.clamp(pos_w * neg_w, min=_KEPS_F32)
+            # a one-class valid set reports 1.0, as on the host
+            return torch.where((pos_w <= 0) | (neg_w <= 0),
+                               torch.ones_like(auc), auc)
+        return fn
 
 
 class AveragePrecisionMetric(Metric):
@@ -281,6 +394,18 @@ class MultiLoglossMetric(Metric):
         pi = np.clip(p[li, np.arange(len(li))], _KEPS, 1.0)
         return [(self.name, self._mean(-np.log(pi)), False)]
 
+    def device_eval_fn(self, objective):
+        conv = _device_convert_output(objective)
+        if conv is None:
+            return None
+
+        def fn(score, label, weight, sum_weights):
+            p = conv(score)                                  # [K, N]
+            li = label.to(torch.int64)
+            pi = torch.clamp(p.gather(0, li[None, :])[0], _KEPS_F32, 1.0)
+            return torch.sum(-torch.log(pi) * weight) / sum_weights
+        return fn
+
 
 class MultiErrorMetric(Metric):
     name = "multi_error"
@@ -300,6 +425,20 @@ class MultiErrorMetric(Metric):
     def result_name(self) -> str:
         k = self.config.multi_error_top_k
         return self.name if k <= 1 else f"multi_error@{k}"
+
+    def device_eval_fn(self, objective):
+        # argmax and top-k membership ignore the output transform
+        k = self.config.multi_error_top_k
+
+        def fn(score, label, weight, sum_weights):
+            li = label.to(torch.int64)
+            if k <= 1:
+                err = torch.argmax(score, dim=0) != li
+            else:
+                topi = torch.topk(score.t(), k, dim=1).indices   # [N, k]
+                err = ~torch.any(topi == li[:, None], dim=1)
+            return torch.sum(err.to(torch.float32) * weight) / sum_weights
+        return fn
 
 
 class AucMuMetric(Metric):

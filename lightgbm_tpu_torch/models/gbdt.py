@@ -1,4 +1,4 @@
-"""GBDT training orchestrator, per-iteration path.
+"""GBDT training orchestrator: the per-iteration path and batched chunks.
 
 Counterpart of lightgbm_tpu/models/gbdt.py (the reference's
 src/boosting/gbdt.cpp: TrainOneIter:353, UpdateScore:502, and the model
@@ -32,10 +32,19 @@ else raises
 NotImplementedError naming the ROADMAP item that ports it. Prediction
 covers every tree the JAX package writes except linear leaves on the
 device routes.
+
+Batched training (`can_batch_iters`, `train_iters_batched`, JAX gbdt.py:
+1108-1418) runs chunks of iterations with no host round trip per
+iteration on the "mega" and "apply" routes (models/batched.py,
+ops/grow_batched.py), md5-equal to train_one_iter's models; a chunk's
+trees reach the model through a worker thread (`start_drain`). The
+JAX package's vetoes keep the per-iteration path, as do the regimes
+still to port (ROADMAP item A12(b)); `batched_veto` names the reason.
 """
 
 from __future__ import annotations
 
+import collections
 import copy
 import dataclasses
 import json
@@ -54,6 +63,7 @@ from ..objectives import (ObjectiveFunction, create_objective,
                           percentile_ref, weighted_percentile_ref)
 from ..ops.grow import (DeviceTree, GrowConfig, grow_tree,
                         serial_hist_route)
+from ..ops.grow_batched import batched_veto
 from ..ops.grow_fast import grow_tree_fast
 from ..ops.grow_wave import (_wave_buckets, fused_veto_reasons,
                              grow_tree_wave, wave_routes)
@@ -63,6 +73,7 @@ from ..ops.predict import predict_leaf_binned
 from ..ops.split import FeatureMeta
 from ..utils import resolve_device, round_up
 from ..utils.log import log_fatal, log_info, log_warning
+from .batched import AsyncTreeDrain, ChunkRunner
 from .linear import fit_linear_models, linear_output_for_leaves
 from .sample_strategy import create_sample_strategy
 from .tree import (_CATEGORICAL_MASK, _DEFAULT_LEFT_MASK, Tree,
@@ -256,6 +267,17 @@ class GBDT:
         self.valid_names: List[str] = []
         self._valid_scores: List[torch.Tensor] = []
         self._valid_Xt: List[torch.Tensor] = []
+        self._valid_metrics: List[List[Metric]] = []
+        # batched training (train_iters_batched): why the last
+        # can_batch_iters refused ("" when it allowed), the chunk runners
+        # by key, the attached tree drain, the runner calls made
+        self.batched_veto = ""
+        self._batched_logged: set = set()
+        self._runners: "collections.OrderedDict" = collections.OrderedDict()
+        self._drain: Optional[AsyncTreeDrain] = None
+        self.drain_lags_ms: List[float] = []
+        self._last_chunk_leaves: Optional[torch.Tensor] = None
+        self.dispatch_count = 0
         self.best_iteration = -1
         self.loaded_parameter = ""
         self.max_feature_idx_ = 0
@@ -546,6 +568,7 @@ class GBDT:
         self._valid_scores.append(scores)
         self.valid_sets.append(ds)
         self.valid_names.append(name)
+        self._valid_metrics.append(list(metrics))
         for m in metrics:
             m.init(ds.metadata, ds.num_data)
 
@@ -602,17 +625,23 @@ class GBDT:
                 log_info(f"Start training from score {init:.6f}")
         return init_scores
 
-    def _feature_mask_for_iter(self) -> Optional[torch.Tensor]:
+    def _feature_mask_np(self, it: int) -> Optional[np.ndarray]:
+        """Iteration `it`'s feature_fraction mask [F] bool, drawn from the
+        host RandomState(feature_fraction_seed + it); None without one."""
         frac = self.config.feature_fraction
         F = len(self.mappers)
         if frac >= 1.0:
             return None
         used = max(1, int(round(F * frac)))
-        rng = np.random.RandomState(self.config.feature_fraction_seed
-                                    + self.iter)
+        rng = np.random.RandomState(self.config.feature_fraction_seed + it)
         mask = np.zeros(F, dtype=bool)
         mask[rng.choice(F, used, replace=False)] = True
-        return torch.from_numpy(mask).to(self.device)
+        return mask
+
+    def _feature_mask_for_iter(self) -> Optional[torch.Tensor]:
+        mask = self._feature_mask_np(self.iter)
+        return None if mask is None else torch.from_numpy(mask).to(
+            self.device)
 
     def tree_seed(self, it: int, k: int = 0) -> int:
         """The seed of iteration `it`'s tree of class k,
@@ -720,6 +749,211 @@ class GBDT:
         if (it & (it - 1)) == 0 or it % self._stop_check_interval == 0:
             self._stopped = self._check_stopped()
         return self._stopped
+
+    # ------------------------------------------------------------------
+    # batched training: chunks of iterations with no host round trip per
+    # iteration (JAX gbdt.py:1108-1418; models/batched.py)
+    # ------------------------------------------------------------------
+    _RUNNER_CACHE_MAX = 4     # a bounded LRU, as the JAX _SCAN_CACHE_MAX
+
+    def _batched_sampling_mode(self) -> str:
+        """"scan": the in-bag mask is drawn inside the chunk as a function
+        of the iteration (bagging, GOSS); "host": a mask that stays
+        constant over the chunk is passed in (JAX gbdt.py:1119-1127)."""
+        strat = self.sample_strategy
+        if strat.supports_scan and (strat.resample_period() > 0
+                                    or strat.needs_grad):
+            return "scan"
+        return "host"
+
+    def _device_metric_layout(self):
+        """[(valid index, metric, device fn)] over every valid-set metric,
+        or None when one has no device form (JAX gbdt.py:1129-1142)."""
+        out = []
+        for vi, metrics in enumerate(self._valid_metrics):
+            for m in metrics:
+                fn = m.device_eval_fn(self.objective)
+                if fn is None:
+                    return None
+                out.append((vi, m, fn))
+        return out
+
+    def batched_eval_layout(self):
+        """(valid name, metric name, higher better) of each column of a
+        chunk's metric values; None when a metric has no device form."""
+        lay = self._device_metric_layout()
+        if lay is None:
+            return None
+        return [(self.valid_names[vi], m.result_name(), m.is_higher_better)
+                for vi, m, _ in lay]
+
+    def _batched_refusal(self, n: int) -> Tuple[str, bool]:
+        """(why `n` iterations from self.iter cannot run batched, whether
+        the reason waits for ROADMAP item A12(b)); ("", False) when they
+        can. The JAX package's vetoes first (gbdt.py:1155-1204)."""
+        if type(self) is not GBDT:
+            return f"boosting={self.config.boosting}", False
+        if not self.config.batched_train:
+            return "batched_train=false", False
+        if os.environ.get("LIGHTGBM_TPU_DISABLE_BATCHED", "") \
+                not in ("", "0"):
+            return "LIGHTGBM_TPU_DISABLE_BATCHED", False
+        if self.num_tree_per_iteration != 1:
+            return "multiclass (K > 1)", False
+        if self._linear:
+            return "linear_tree", False
+        if self.objective is None or self.objective.runs_on_host:
+            return "an objective on the host", False
+        if self.objective.need_renew_tree_output:
+            return "leaf renewal (objective)", False
+        if self._cegb_used is not None:
+            return "CEGB", False
+        strat = self.sample_strategy
+        if self._batched_sampling_mode() == "host":
+            if strat.needs_grad:
+                return "gradient-aware sampling off the device", False
+            p = strat.resample_period()
+            if p > 0 and (self.iter + n - 1) // p > self.iter // p:
+                return "a resample inside the chunk", False
+        if self.valid_sets and self._device_metric_layout() is None:
+            return "a valid metric without a device form", False
+        if self.grower in ("masked", "compact"):
+            return f"the serial grower {self.grower}", True
+        why = batched_veto(self.grow_cfg, self.X_t.shape[0])
+        return why, bool(why)
+
+    def can_batch_iters(self, n: int) -> bool:
+        """Whether `n` iterations from self.iter may run as one batched
+        chunk (train_iters_batched), with the models of n train_one_iter
+        calls. Sets `batched_veto` to the reason when not ("" when so); a
+        regime that waits for A12(b) says so in it and logs once at info
+        level."""
+        why, later = self._batched_refusal(n)
+        self.batched_veto = f"{why} (A12(b))" if later else why
+        if later and why not in self._batched_logged:
+            self._batched_logged.add(why)
+            log_info(f"batched training of {why} is not ported yet "
+                     "(ROADMAP item A12(b)); training per iteration")
+        return not why
+
+    def _runner(self, chunk: int, mode: str, layout) -> ChunkRunner:
+        """The chunk runner (its buffers and captured graphs) of this
+        key, from a bounded LRU; a tail chunk reuses its chunk's."""
+        metric_sig = tuple((vi, type(m).__name__, m.result_name())
+                           for vi, m, _ in (layout or []))
+        key = (self.grow_route, self.grow_cfg, self.X_t.shape,
+               self.X_t.data_ptr(), chunk, mode, len(self.valid_sets),
+               metric_sig)
+        runner = self._runners.get(key)
+        if runner is not None:
+            self._runners.move_to_end(key)
+            return runner
+        runner = self._runners[key] = ChunkRunner(self, chunk, mode, layout)
+        while len(self._runners) > self._RUNNER_CACHE_MAX:
+            self._runners.popitem(last=False)
+        return runner
+
+    def train_iters_batched(self, n: int, n_pad: Optional[int] = None
+                            ) -> Optional[torch.Tensor]:
+        """Run `n` boosting iterations as one chunk with no host round
+        trip per iteration (JAX gbdt.py:1206-1304); the caller checked
+        can_batch_iters. `n_pad` is the chunk the runner is sized for (a
+        tail chunk of n < n_pad replays the same graphs). Returns the
+        chunk's [n, M] device metric values (columns as
+        batched_eval_layout), or None without valid metrics."""
+        n_pad = max(n, int(n_pad or n))
+        init = 0.0
+        if self.iter == 0:
+            init = float(self._boost_from_average()[0])
+        mode = self._batched_sampling_mode()
+        in_bag = None
+        if mode == "host":
+            strat = self.sample_strategy
+            if self._in_bag is None or strat.resamples_at(self.iter):
+                self._in_bag = strat.sample(self.iter, None, None)
+            in_bag = self._in_bag
+        layout = self._device_metric_layout() if self.valid_sets else []
+        runner = self._runner(n_pad, mode, layout)
+        its = [self.iter + i for i in range(n)]
+        masks = None
+        if runner.has_fmask:
+            masks = np.stack([self._feature_mask_np(it) for it in its])
+        lr = self.shrinkage_rate
+        runner.run(n, its, [self.tree_seed(it) for it in its], masks, lr,
+                   in_bag)
+        self.dispatch_count += 1
+        self._last_chunk_leaves = runner.stack["num_leaves"][n - 1].clone()
+        biases = [init if it == 0 else 0.0 for it in its]
+        if self._drain is not None:
+            self._drain.submit((runner.record(n, True), biases, lr))
+        else:
+            rec, _ = runner.record(n, False)
+            for i in range(n):
+                tree = DeviceTree(**{k: rec[k][i] for k in rec})
+                self._pending.append((tree, biases[i], lr))
+        self.iter += n
+        if not runner.metric_fns:
+            return None
+        return runner.mbuf[:n].clone()
+
+    def _record_to_trees(self, rec: Dict[str, torch.Tensor],
+                         biases: List[float], lr: float) -> List[Tree]:
+        """Host trees of a chunk record ({field: [n, ...]}), the first
+        tree of the model with the boost-from-average bias folded in."""
+        trees = []
+        for i, bias in enumerate(biases):
+            tree = self._device_tree_to_host(
+                DeviceTree(**{k: rec[k][i] for k in rec}), lr)
+            if abs(bias) > _KEPS:
+                tree.add_bias(bias)
+            trees.append(tree)
+        return trees
+
+    def batched_stopped(self) -> bool:
+        """The amortized stop check of batched training (one read): the
+        last chunk's last tree is a stump (gbdt.cpp:376-384)."""
+        if self._last_chunk_leaves is None \
+                or int(self._last_chunk_leaves) > 1:
+            return False
+        log_warning("Stopped training because there are no more leaves "
+                    "that meet the split requirements")
+        return True
+
+    def start_drain(self) -> None:
+        """Attach a tree drain: chunk records go to a worker thread that
+        converts them to host trees while the next chunk runs. The
+        pending per-iteration trees are materialized first, so the model
+        stays in order. Idempotent."""
+        if self._drain is not None:
+            return
+        _ = self.models
+        self._drain = AsyncTreeDrain(self)
+
+    def stop_drain(self) -> None:
+        """Join the drain, folding what it converted into the model; safe
+        to call repeatedly or without start_drain."""
+        drain, self._drain = self._drain, None
+        if drain is not None:
+            try:
+                drain.close()
+            finally:
+                self.drain_lags_ms.extend(drain.lags_ms)
+
+    def truncate_to_iteration(self, n_iters: int) -> None:
+        """Keep the first `n_iters` iterations' trees (the stop of batched
+        early stopping: a later tree never changed an earlier iteration's
+        metrics, so the model is the one a live stop gives). The scores
+        keep the surplus trees' outputs, as in the JAX package
+        (gbdt.py:1420-1435)."""
+        if self._drain is not None:
+            self._drain.flush()
+        keep = n_iters * self.num_tree_per_iteration
+        models = self.models
+        if keep < len(models):
+            del models[keep:]
+        self.iter = min(self.iter, n_iters)
+        self._packed_cache = None
+        self._device_tables_cache = None
 
     def grow_one(self, g: torch.Tensor, h: torch.Tensor,
                  in_bag: torch.Tensor, feat_mask: Optional[torch.Tensor],

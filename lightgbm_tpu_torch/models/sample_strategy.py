@@ -11,6 +11,14 @@ Uniform bagging and GOSS draw from the port's threefry
 (utils/random.py), bit for bit the JAX package's `jax.random` draws, and
 each mask is a function of the iteration alone; class-stratified and
 by-query bagging draw with NumPy, as the JAX package does.
+
+The batched trainer's contract (sample_strategy.py:14-23 of the JAX
+package): a strategy with `supports_scan` gives its mask as
+`mask_for_iter(it, grad, hess)`, a pure tensor function of the iteration
+(an int, or an int64 tensor on the device that a captured CUDA graph
+reads) and, for GOSS (`needs_grad`), of the gradients; it equals
+`sample(it, ...)` bit for bit. Class-stratified and by-query bagging keep
+`supports_scan = False`: their NumPy draws stay on the host.
 """
 
 from __future__ import annotations
@@ -22,7 +30,7 @@ import torch
 
 from ..config import Config
 from ..utils.log import log_fatal, log_warning
-from ..utils.random import PRNGKey, fold_in, uniform
+from ..utils.random import PRNGKey, device_key, fold_in, uniform
 
 
 def _kth_smallest(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -34,6 +42,9 @@ def _kth_smallest(x: torch.Tensor, k: int) -> torch.Tensor:
 
 class SampleStrategy:
     """No sampling: every row in bag, drawn once."""
+
+    needs_grad = False       # sample() reads the gradients
+    supports_scan = True     # mask_for_iter is a tensor function of `it`
 
     def __init__(self, config: Config, num_data: int, metadata,
                  device: torch.device):
@@ -56,6 +67,13 @@ class SampleStrategy:
                hess: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The [N] f32 in-bag multiplier of iteration `it` (GOSS reads the
         [N] or [K, N] gradients and hessians, the others do not)."""
+        return torch.ones(self.num_data, dtype=torch.float32,
+                          device=self.device)
+
+    def mask_for_iter(self, it, grad: Optional[torch.Tensor] = None,
+                      hess: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The mask of iteration `it` (an int or an int64 device tensor),
+        read from no host value; bitwise `sample(it, grad, hess)`."""
         return torch.ones(self.num_data, dtype=torch.float32,
                           device=self.device)
 
@@ -82,8 +100,10 @@ class BaggingSampleStrategy(SampleStrategy):
             log_warning("bagging_by_query ignores pos/neg bagging "
                         "fractions (query-level sampling)")
             self._balanced = False
+        self.supports_scan = not (self._balanced or self._by_query)
         self._cnt = max(1, int(num_data * config.bagging_fraction))
         self._key = PRNGKey(config.bagging_seed)
+        self._dkey = device_key(self._key, device)
 
     def resample_period(self) -> int:
         return max(self.config.bagging_freq, 1)
@@ -98,10 +118,15 @@ class BaggingSampleStrategy(SampleStrategy):
             return self._by_query_mask(it_r)
         if self._balanced:
             return self._stratified(it_r)
+        return self.mask_for_iter(it_r)
+
+    def mask_for_iter(self, it, grad=None, hess=None):
         # keyed by the floored iteration: a bagging window shares one
         # key; the `cnt` smallest uniforms are in bag (the JAX package's
         # top_k threshold; a draw equal to it is in bag too)
-        u = uniform(fold_in(self._key, it_r), (self.num_data,), self.device)
+        key = self._dkey if isinstance(it, torch.Tensor) else self._key
+        u = uniform(fold_in(key, self._floor_iter(it)), (self.num_data,),
+                    self.device)
         return (u <= _kth_smallest(u, self._cnt)).to(torch.float32)
 
     def _by_query_mask(self, it_r: int) -> torch.Tensor:
@@ -137,6 +162,8 @@ class GOSSStrategy(SampleStrategy):
     (1 - top_rate) / other_rate; every row for the first
     int(1 / learning_rate) iterations."""
 
+    needs_grad = True
+
     def __init__(self, config: Config, num_data: int, metadata,
                  device: torch.device):
         super().__init__(config, num_data, metadata, device)
@@ -144,14 +171,28 @@ class GOSSStrategy(SampleStrategy):
         self.other_k = max(1, int(num_data * config.other_rate))
         self.warmup_iters = int(1.0 / config.learning_rate)
         self._key = PRNGKey(config.data_random_seed)
+        self._dkey = device_key(self._key, device)
 
     def resample_period(self) -> int:
         return 1
 
     def sample(self, it, grad=None, hess=None):
-        N = self.num_data
         if it < self.warmup_iters:
             return super().sample(it)
+        return self._goss_mask(it, grad, hess)
+
+    def mask_for_iter(self, it, grad=None, hess=None):
+        # every row in bag through the warm-up: a select, not a branch, so
+        # `it` may be a device tensor
+        if not isinstance(it, torch.Tensor):
+            return self.sample(it, grad, hess)
+        ones = torch.ones(self.num_data, dtype=torch.float32,
+                          device=self.device)
+        return torch.where(it < self.warmup_iters, ones,
+                           self._goss_mask(it, grad, hess))
+
+    def _goss_mask(self, it, grad, hess):
+        N = self.num_data
         g_abs = torch.abs(grad * hess)
         if g_abs.dim() == 2:
             # summed over the classes (goss.hpp Bagging; sample_strategy.py:
@@ -162,12 +203,15 @@ class GOSSStrategy(SampleStrategy):
             g_abs = acc
         # the top_k-th largest magnitude; ties with it are kept too
         is_top = g_abs >= _kth_smallest(g_abs, N - self.top_k + 1)
-        u = uniform(fold_in(self._key, it), (N,), self.device)
+        key = self._dkey if isinstance(it, torch.Tensor) else self._key
+        u = uniform(fold_in(key, it), (N,), self.device)
 
         def f32(v):
             # the JAX package compares and scales in f32 (weakly typed
-            # Python floats)
-            return torch.tensor(v, dtype=torch.float32, device=self.device)
+            # Python floats); a fill, not a copy from the host, so a
+            # captured graph may hold it
+            return torch.full((), v, dtype=torch.float32,
+                              device=self.device)
         p_accept = f32(self.other_k / max(N - self.top_k, 1))
         sampled = ~is_top & (u < p_accept)
         mult = f32((1.0 - self.config.top_rate) / self.config.other_rate)

@@ -153,7 +153,9 @@ class GrowConfig(NamedTuple):
 class DeviceTree(NamedTuple):
     """Grown tree, device-resident (analog of CUDATree, cuda_tree.hpp:29).
     M = num_leaves - 1 node slots, L leaf slots; `num_leaves` and
-    `num_waves` are host ints."""
+    `num_waves` are host ints, or 0-dim device tensors in the records of
+    batched training (ops/grow_batched.py), read only when a tree becomes
+    a host Tree."""
     num_leaves: int                # leaves actually grown
     split_feature: torch.Tensor    # [M] int64 inner feature index
     threshold_bin: torch.Tensor    # [M] int64

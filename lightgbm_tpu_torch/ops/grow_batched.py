@@ -1,0 +1,593 @@
+"""The wave grower at one fixed shape, with no host reads: batched training's
+tree step on the "mega" and "apply" routes.
+
+Counterpart of the body and condition of the JAX package's
+`lax.while_loop` over waves (lightgbm_tpu/ops/grow_wave.py:2095-2124):
+`wave_step` and `cond`, and of its start state (:760-790). Where the
+per-iteration grower (ops/grow_wave.py:grow_tree_wave) reads two counts a
+wave to pick the bucketed K and slice its operands, every wave here runs
+at the route's K cap (the largest of `wave_buckets_for`) over the same
+shapes:
+
+  * the counts stay on the device: the number of leaves, of waves, and
+    the masks of the applied and speculated entries (`sel`, `valid`);
+  * every `[:n]` slice and `if n == 0` branch becomes a masked write: an
+    entry outside its mask writes to a trash slot (leaf L, node M) that
+    nothing reads, as JAX's `scat(..., mode="drop")` drops it;
+  * the row pass always runs: a wave table entry of -1 names no leaf, so
+    the kernels skip it (#3 through rows 0 and 7, #4 through its leaf
+    maps, #1 through slots outside [0, K));
+  * a wave after the tree has ended (`active` false: no positive gain,
+    or the leaf budget spent) applies and speculates nothing and leaves
+    every array bitwise as it was, so a host that polls with a lag may
+    run a few such waves.
+
+`more` ([] int32) says after the root and after every wave whether another
+wave would do work; the host reads it (batched.py polls it every LAG
+waves). The float histograms accumulate in f64 and the quantized ones in
+int32, so a candidate's sums do not depend on K: the trees equal the
+per-iteration grower's bit for bit.
+
+Covered: float and int8 quantized gradients (with `quant_renew_leaf`),
+categorical and EFB storages, the row-wise histogram layouts, monotone
+`basic` with monotone_penalty, interaction sets, feature_fraction_bynode,
+extra_trees and the gain-slack rule. Forced splits, CEGB, monotone
+`intermediate`, wave_exact and the fused routes stay on the per-iteration
+grower (models/gbdt.py:can_batch_iters names them).
+
+Every per-tree value arrives as a tensor (the seed keys the draws through
+utils/random.py's DevKey), the steps write their state in place, and no
+step reads the device from the host: a CUDA graph captured from a step
+replays it (models/batched.py). The valid sets' rows are relabelled by the
+same wave tables (#5 on "mega", #4 on "apply"), so a tree's valid-set
+leaves are ready when it ends, with no walk over the tree.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+
+from .categorical import find_best_split_categorical
+from .grow import DeviceTree, GrowConfig, empty_split_cache
+from .grow_wave import (_slack_guard, _split_rows, _top_k,
+                        discretize_gradients, monotone_child_bounds,
+                        monotone_penalty_factor, node_masks, pack_wave_cats,
+                        renew_leaf_values, wave_buckets_for, wave_bundle_map,
+                        wave_routes, xt_bins)
+from .histogram import (HistPlan, add_leaf_values_, build_histogram,
+                        build_histogram_slots, wave_apply, wave_pass,
+                        wave_relabel)
+from .split import (NEG_INF, FeatureMeta, SplitResult, find_best_split,
+                    synth_count_channel)
+from ..utils.random import PRNGKey, fold_in
+
+BATCHED_ROUTES = ("mega", "apply")
+
+# the fields of a tree's record (DeviceTree's but the grower's host reads)
+TREE_FIELDS = tuple(f for f in DeviceTree._fields if f != "host_reads")
+
+
+def batched_veto(cfg: GrowConfig, num_storage_cols: int) -> str:
+    """Why a tree of this configuration cannot grow through the fixed-shape
+    step ("" when it can): the regimes of A12(b)."""
+    route, _ = wave_routes(cfg, num_storage_cols)
+    if route not in BATCHED_ROUTES:
+        return f"the {route} route"
+    if cfg.wave_exact:
+        return "tpu_grower=wave_exact"
+    if cfg.has_monotone and cfg.monotone_method == "intermediate":
+        return "monotone_constraints_method=intermediate"
+    if cfg.has_forced:
+        return "forced splits"
+    if cfg.has_cegb:
+        return "CEGB"
+    return ""
+
+
+class WaveStepper:
+    """The fixed-shape state of one tree and its three steps: `start` (the
+    root), `wave` (one wave at K = the route's cap) and `finish` (leaf
+    renewal and the score updates). Leaf arrays hold L + 1 entries and
+    node arrays M + 1, the last one the trash slot of masked writes;
+    `device_tree()` views the first L / M."""
+
+    def __init__(self, X_t: torch.Tensor, meta: FeatureMeta,
+                 cfg: GrowConfig, *, hist_plan: Optional[HistPlan] = None,
+                 valid_X: Sequence[torch.Tensor] = (),
+                 plain: bool = False):
+        veto = batched_veto(cfg, X_t.shape[0])
+        if veto:
+            raise ValueError(f"no fixed-shape wave step for {veto}")
+        self.X_t, self.meta, self.cfg = X_t, meta, cfg
+        self.plain = plain
+        dev = self.dev = X_t.device
+        F_st, N = X_t.shape
+        self.F = F = meta.num_bins.shape[0]
+        self.route, self.hroute = wave_routes(cfg, F_st)
+        self.hist_plan = hist_plan
+        self.L = L = cfg.num_leaves
+        self.M = M = max(L - 1, 1)
+        self.B = B = cfg.num_bins_padded
+        self.W = W = cfg.cat_words
+        self.K = K = wave_buckets_for(cfg, self.route)[-1]
+        self.C = C = 2
+        self.quant = cfg.use_quantized_grad
+        self.has_mono = meta.monotone is not None
+        self.has_inter = meta.inter_sets is not None
+        self.use_mpen = self.has_mono and cfg.monotone_penalty > 0.0
+        self.S = meta.inter_sets.shape[0] if self.has_inter else 1
+        self.bynode = cfg.feature_fraction_bynode < 1.0
+        self.xt = cfg.extra_trees
+        self.max_depth = cfg.max_depth if cfg.max_depth > 0 else 10 ** 9
+        self.bundle_map = wave_bundle_map(cfg, dev)
+        self.j_iota = torch.arange(K, device=dev)
+        self.valid_X = list(valid_X)
+
+        def z(shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+        hdt = torch.int32 if self.quant else torch.float32
+        self.hist_shape = (C, F_st, B)
+        # per-tree inputs the waves read
+        self.vals0 = z((C, N), torch.int8 if self.quant else torch.float32)
+        self.ch_scale = z(2)
+        self.g, self.h = z(N), z(N)
+        self.seed = z((), torch.int64)
+        self.fmask = None
+        # tree record
+        self.split_feature = z(M + 1, torch.int64)
+        self.threshold_bin = z(M + 1, torch.int64)
+        self.default_left = z(M + 1, torch.bool)
+        self.split_gain = z(M + 1)
+        self.left_child = z(M + 1, torch.int32)
+        self.right_child = z(M + 1, torch.int32)
+        self.internal_value = z(M + 1)
+        self.internal_weight = z(M + 1)
+        self.internal_count = z(M + 1, torch.int32)
+        self.split_parent_leaf = z(M + 1, torch.int64)
+        self.split_is_cat = z(M + 1, torch.bool)
+        self.split_cat_bitset = z((M + 1, W), torch.int64)
+        self.leaf_value = z(L + 1)
+        self.leaf_weight = z(L + 1)
+        self.leaf_count = z(L + 1, torch.int32)
+        # grower state
+        self.leaf_of_row = z(N, torch.int32)
+        self.leaf_parent_node = z(L + 1, torch.int64)
+        self.leaf_is_left = z(L + 1, torch.bool)
+        self.leaf_depth = z(L + 1, torch.int64)
+        self.leaf_output = z(L + 1)
+        self.leaf_sum_g = z(L + 1)
+        self.leaf_sum_h = z(L + 1)
+        self.leaf_min = z(L + 1)
+        self.leaf_max = z(L + 1)
+        self.leaf_sets = z((L + 1, self.S), torch.bool)
+        self.hist_cache = z((L + 1, C * F_st * B), hdt)
+        self.small_hist = z((L + 1, C * F_st * B), hdt)
+        self.small_is_left = z(L + 1, torch.bool)
+        self.ready = z(L + 1, torch.bool)
+        self.best = empty_split_cache(L + 1, dev)
+        self.best_is_cat = z(L + 1, torch.bool)
+        self.best_bitset = z((L + 1, W), torch.int64)
+        self.bestl = empty_split_cache(L + 1, dev)
+        self.bestr = empty_split_cache(L + 1, dev)
+        self.catl, self.catr = z(L + 1, torch.bool), z(L + 1, torch.bool)
+        self.bitsl = z((L + 1, W), torch.int64)
+        self.bitsr = z((L + 1, W), torch.int64)
+        self.num_leaves = z((), torch.int64)
+        self.num_waves = z((), torch.int64)
+        self.more = z((), torch.int32)
+        self.valid_leaf = [z(Xv.shape[1], torch.int32) for Xv in valid_X]
+
+    # ------------------------------------------------------------------
+    def _to_f32(self, hist):
+        """Descale [n, C, F, B] int32 sums (grow_wave.py:409-413)."""
+        if self.quant:
+            return hist.to(torch.float32) * self.ch_scale[:, None, None]
+        return hist
+
+    def _sets_to_fmask(self, sets):
+        m = (self.meta.inter_sets[None, :, :] & sets[:, :, None]).any(dim=1)
+        return m if self.fmask is None else m & self.fmask
+
+    def _mpen_factor(self, depth):
+        return monotone_penalty_factor(depth, self.cfg.monotone_penalty)
+
+    def _child_bounds(self, bsx, pmin, pmax):
+        return monotone_child_bounds(bsx, pmin, pmax, self.meta.monotone)
+
+    def _child_sets(self, bsx, psets):
+        return psets & self.meta.inter_sets.t()[bsx.feature]
+
+    def _node_draws(self, step, n: int):
+        """The per-node draws of step `step` (0 at the root, the wave count
+        + 1 in the waves), n rows (grow_wave.py:620-631): PRNGKey(seed +
+        0x5EED) and PRNGKey(seed * 31 + extra_seed), on the device."""
+        fm = rb = None
+        if self.bynode:
+            fm = node_masks(fold_in(PRNGKey(self.seed + 0x5EED), step), n,
+                            self.F, self.cfg.feature_fraction_bynode,
+                            self.dev)
+        if self.xt:
+            rb = xt_bins(fold_in(PRNGKey(self.seed * 31
+                                         + self.cfg.extra_seed), step), n,
+                         self.meta.num_bins)
+        return fm, rb
+
+    def _search(self, hist2, sum_g, sum_h, count, out, bmin=None, bmax=None,
+                fmask=None, mpf=None, rand_bins=None):
+        """Best splits of n histograms [n, C, F_st, B] of storage columns:
+        (SplitResult [n], is_cat [n], bitset [n, W]), the per-iteration
+        grower's search without forced splits and CEGB."""
+        meta, cfg, hp = self.meta, self.cfg, self.cfg.hp
+        n = count.shape[0]
+        if cfg.bundled:
+            flat = hist2.reshape(n, self.C, -1)
+            flat = torch.cat([flat, flat.new_zeros((n, self.C, 1))], dim=-1)
+            hist2 = self._to_f32(flat.index_select(-1, meta.bundle_expand)
+                                 .reshape(n, self.C, self.F, self.B))
+            parent = torch.stack([sum_g, sum_h], dim=-1)
+            miss = parent[:, :, None] - hist2.sum(dim=-1)
+            hist2 = hist2 + meta.bundle_mfb * miss[..., None]
+        else:
+            hist2 = self._to_f32(hist2)
+        hist = synth_count_channel(hist2, count, sum_h)
+        num = find_best_split(hist, sum_g, sum_h, count, out, meta, hp,
+                              fmask, leaf_min=bmin, leaf_max=bmax,
+                              mono_pen_factor=mpf, rand_bins=rand_bins)
+        if not cfg.has_categorical:
+            return (num, torch.zeros(n, dtype=torch.bool, device=self.dev),
+                    torch.zeros((n, self.W), dtype=torch.int64,
+                                device=self.dev))
+        catres, bits = find_best_split_categorical(
+            hist, sum_g, sum_h, count, out, meta, hp, cfg.cat, fmask,
+            leaf_min=bmin, leaf_max=bmax)
+        use_cat = catres.gain > num.gain          # numeric wins ties
+        merged = SplitResult(*[torch.where(use_cat, cv, nv)
+                               for cv, nv in zip(catres, num)])
+        return merged, use_cat, torch.where(use_cat[:, None], bits, 0)
+
+    # ------------------------------------------------------------------
+    def start(self, grad: torch.Tensor, hess: torch.Tensor,
+              in_bag: torch.Tensor, feature_mask: Optional[torch.Tensor],
+              seed: torch.Tensor) -> None:
+        """The root of a tree: sampled gradients (and their int8 form),
+        the root histogram and search, and the state reset in place.
+        `seed` is the tree's int32 seed as an int64 device tensor."""
+        L, dev = self.L, self.dev
+        cfg, hp = self.cfg, self.cfg.hp
+        self.seed.copy_(seed)
+        self.fmask = feature_mask
+        g = grad.to(torch.float32) * in_bag
+        h = hess.to(torch.float32) * in_bag
+        cnt_row = (in_bag > 0).to(torch.float32)
+        root_g, root_h, root_c = g.sum(), h.sum(), cnt_row.sum()
+        self.g.copy_(g)
+        self.h.copy_(h)
+        if self.quant:
+            vals0, ch_scale = discretize_gradients(
+                g, h, cfg.num_grad_quant_bins, cfg.stochastic_rounding,
+                self.seed)
+            self.vals0.copy_(vals0)
+            self.ch_scale.copy_(ch_scale)
+        else:
+            self.vals0.copy_(torch.stack([g, h]))
+        root_out = (-torch.sign(root_g)
+                    * torch.clamp(torch.abs(root_g) - hp.lambda_l1, min=0.0)
+                    / (root_h + hp.lambda_l2))
+        hist_root = build_histogram(self.X_t, self.vals0, self.B,
+                                    impl=self.hroute, plan=self.hist_plan,
+                                    plain=self.plain)
+        one = torch.ones(1, dtype=torch.float32, device=dev)
+        root_fmask = (self._sets_to_fmask(
+            torch.ones((1, self.S), dtype=torch.bool, device=dev))
+            if self.has_inter else feature_mask)
+        root_bn, root_rb = self._node_draws(0, 1)
+        if root_bn is not None:
+            root_fmask = root_bn if root_fmask is None \
+                else root_fmask & root_bn
+        split, is_cat, bits = self._search(
+            hist_root[None], root_g[None], root_h[None], root_c[None],
+            root_out[None], bmin=-torch.inf * one if self.has_mono else None,
+            bmax=torch.inf * one if self.has_mono else None,
+            fmask=root_fmask,
+            mpf=self._mpen_factor(0 * one) if self.use_mpen else None,
+            rand_bins=root_rb)
+        if self.max_depth < 1:
+            split = split._replace(gain=torch.full_like(split.gain, NEG_INF))
+
+        for name in ("split_feature", "threshold_bin", "default_left",
+                     "split_gain", "left_child", "right_child",
+                     "internal_value", "internal_weight", "internal_count",
+                     "split_parent_leaf", "split_is_cat", "split_cat_bitset",
+                     "leaf_value", "leaf_weight", "leaf_count", "leaf_of_row",
+                     "leaf_is_left", "leaf_depth", "leaf_output",
+                     "leaf_sum_g", "leaf_sum_h", "hist_cache", "small_hist",
+                     "small_is_left", "ready", "best_is_cat", "best_bitset",
+                     "catl", "catr", "bitsl", "bitsr"):
+            getattr(self, name).zero_()
+        self.leaf_weight[0] = root_h
+        self.leaf_count[0] = root_c.to(torch.int32)
+        self.leaf_parent_node.fill_(-1)
+        self.leaf_output[0] = root_out
+        self.leaf_sum_g[0] = root_g
+        self.leaf_sum_h[0] = root_h
+        self.leaf_min.fill_(-torch.inf)
+        self.leaf_max.fill_(torch.inf)
+        self.leaf_sets.fill_(True)
+        self.hist_cache[0] = hist_root.reshape(-1)
+        for cache in (self.best, self.bestl, self.bestr):
+            cache.gain.fill_(NEG_INF)
+            for a in cache[1:]:
+                a.zero_()
+        for a, v in zip(self.best, split):
+            a[0] = v[0]
+        self.best_is_cat[0] = is_cat[0]
+        self.best_bitset[0] = bits[0]
+        self.num_leaves.fill_(1)
+        self.num_waves.zero_()
+        for vl in self.valid_leaf:
+            vl.zero_()
+        self.more.copy_(((split.gain[0] > 0.0) & (L > 1)).to(torch.int32))
+
+    # ------------------------------------------------------------------
+    def wave(self) -> None:
+        """One wave at K = the route's cap: APPLY the ready leaves the
+        order selects, SPECULATE the top-K frontier leaves, the route's
+        row pass, SEARCH both children of every candidate; inert when the
+        tree has ended."""
+        L, M, K, W, dev = self.L, self.M, self.K, self.W, self.dev
+        cfg, meta = self.cfg, self.meta
+        slack = cfg.wave_gain_slack
+        j = self.j_iota
+        nl0 = self.num_leaves.clone()
+        best, ready = self.best, self.ready[:L]
+
+        # ---- ORDER (grow_wave.py:921-948): whether the tree goes on, and
+        # the ready leaves with positive gain in gain order
+        keyed = best.gain[:L]
+        active = (keyed.max() > 0.0) & (nl0 < L)
+        budget = L - nl0
+        rg, pa = _top_k(torch.where(ready, keyed,
+                                    torch.full_like(keyed, NEG_INF)), K)
+        sel = (rg > 0.0) & (j < budget)
+        if slack > 0.0:
+            sel = _slack_guard(sel, rg, keyed, j, budget, L, slack)
+        sel = sel & active
+        napp = sel.sum()
+
+        # ---- APPLY: the applied entries lead the gain order, so entry j
+        # splits node nl0 - 1 + j and its right child is leaf nl0 + j
+        s_idx = nl0 - 1 + j
+        r_idx = nl0 + j
+        pa_w = torch.where(sel, pa, L)
+        r_w = torch.where(sel, r_idx, L)
+        s_w = torch.where(sel, s_idx, M)
+        bs2 = SplitResult(*[x[pa] for x in best])
+        iscat2, bits2 = self.best_is_cat[pa], self.best_bitset[pa]
+        bl = [x[pa] for x in self.bestl]
+        br = [x[pa] for x in self.bestr]
+        cl, cr = self.catl[pa], self.catr[pa]
+        bil, bir = self.bitsl[pa], self.bitsr[pa]
+        iv, iw = self.leaf_output[pa], self.leaf_sum_h[pa]
+        ic = self.leaf_count[pa]
+        prev, was_left = self.leaf_parent_node[pa], self.leaf_is_left[pa]
+        depth_child = self.leaf_depth[pa] + 1
+        hsm = self.small_hist[pa]
+        hlg = self.hist_cache[pa] - hsm
+        sil = self.small_is_left[pa][:, None]
+        if self.has_mono:
+            almin, almax, armin, armax = self._child_bounds(
+                bs2, self.leaf_min[pa], self.leaf_max[pa])
+            self.leaf_min[pa_w] = almin
+            self.leaf_min[r_w] = armin
+            self.leaf_max[pa_w] = almax
+            self.leaf_max[r_w] = armax
+        if self.has_inter:
+            asets = self._child_sets(bs2, self.leaf_sets[pa])
+            self.leaf_sets[pa_w] = asets
+            self.leaf_sets[r_w] = asets
+        self.split_feature[s_w] = bs2.feature
+        self.threshold_bin[s_w] = bs2.threshold
+        self.default_left[s_w] = bs2.default_left
+        self.split_gain[s_w] = bs2.gain
+        self.left_child[s_w] = (~pa).to(torch.int32)
+        self.right_child[s_w] = (~r_idx).to(torch.int32)
+        self.internal_value[s_w] = iv
+        self.internal_weight[s_w] = iw
+        self.internal_count[s_w] = ic
+        self.split_parent_leaf[s_w] = pa
+        self.split_is_cat[s_w] = iscat2
+        self.split_cat_bitset[s_w] = bits2
+        # rewire the parent node's child pointer (~p -> s)
+        fix = (prev >= 0) & sel
+        s32 = s_idx.to(torch.int32)
+        self.left_child[torch.where(fix & was_left, prev, M)] = s32
+        self.right_child[torch.where(fix & ~was_left, prev, M)] = s32
+        for arr, lv, rv in (
+                (self.leaf_value, bs2.left_output, bs2.right_output),
+                (self.leaf_weight, bs2.left_sum_h, bs2.right_sum_h),
+                (self.leaf_count, bs2.left_count.to(torch.int32),
+                 bs2.right_count.to(torch.int32)),
+                (self.leaf_parent_node, s_idx, s_idx),
+                (self.leaf_depth, depth_child, depth_child),
+                (self.leaf_output, bs2.left_output, bs2.right_output),
+                (self.leaf_sum_g, bs2.left_sum_g, bs2.right_sum_g),
+                (self.leaf_sum_h, bs2.left_sum_h, bs2.right_sum_h),
+                (self.best_is_cat, cl, cr),
+                (self.best_bitset, bil, bir)):
+            arr[pa_w] = lv
+            arr[r_w] = rv
+        # constant writes fill: a Python value assigned through an index
+        # would be copied in from the host
+        self.ready.index_fill_(0, pa_w, False)
+        self.ready.index_fill_(0, r_w, False)
+        self.leaf_is_left.index_fill_(0, pa_w, True)
+        self.leaf_is_left.index_fill_(0, r_w, False)
+        self.hist_cache[pa_w] = torch.where(sil, hsm, hlg)
+        self.hist_cache[r_w] = torch.where(sil, hlg, hsm)
+        for a, lv, rv in zip(best, bl, br):
+            a[pa_w] = lv
+            a[r_w] = rv
+        self.num_leaves.add_(napp)
+        tbl = torch.full((16, 128), -1, dtype=torch.int32, device=dev)
+        tbl[15] = nl0
+        tbl[0, :K] = torch.where(sel, pa, -1).to(torch.int32)
+        tbl[1:7, :K] = _split_rows(bs2.feature, bs2.threshold,
+                                   bs2.default_left, meta)
+
+        # ---- SPECULATE: the top-K unready frontier leaves by gain
+        budget2 = L - self.num_leaves
+        keyed2 = best.gain[:L]
+        gains, cand = _top_k(torch.where(ready,
+                                         torch.full_like(keyed2, NEG_INF),
+                                         keyed2), K)
+        valid = (gains > 0.0) & (j < budget2)
+        if slack > 0.0:
+            valid = _slack_guard(valid, gains, keyed2, j, budget2, L, slack)
+        valid = valid & active
+        bs = SplitResult(*[x[cand] for x in best])
+        smaller_is_left = bs.left_count <= bs.right_count
+        self.num_waves.add_(active.to(torch.int64))
+        tbl[7, :K] = torch.where(valid, cand, -1).to(torch.int32)
+        tbl[8:14, :K] = _split_rows(bs.feature, bs.threshold,
+                                    bs.default_left, meta)
+        tbl[14, :K] = smaller_is_left.to(torch.int32)
+
+        # ---- the route's row pass: relabel, candidate histograms
+        if self.route == "mega":
+            lor, hist_wave = wave_pass(self.X_t, self.vals0, self.leaf_of_row,
+                                       tbl, K, self.B, L, plain=self.plain)
+            for Xv, vl in zip(self.valid_X, self.valid_leaf):
+                wave_relabel(Xv, vl, tbl, L, out=vl, plain=self.plain)
+            cats = None
+        else:
+            cats = None
+            if cfg.has_categorical:
+                cats = pack_wave_cats(iscat2, bits2, self.best_is_cat[cand],
+                                      self.best_bitset[cand], W)
+            lor, slot_small = wave_apply(self.X_t, self.leaf_of_row, tbl,
+                                         cats, self.bundle_map, K, L,
+                                         plain=self.plain)
+            hist_wave = build_histogram_slots(
+                self.X_t, self.vals0, slot_small, K, self.B,
+                impl=self.hroute, plan=self.hist_plan, plain=self.plain)
+            for Xv, vl in zip(self.valid_X, self.valid_leaf):
+                # the valid rows hold the original features: no bundle map
+                vl.copy_(wave_apply(Xv, vl, tbl, cats, None, K, L,
+                                    plain=self.plain)[0])
+        self.leaf_of_row.copy_(lor)
+
+        # ---- SEARCH both children of every candidate
+        hist_small = hist_wave.reshape(K, -1)
+        sl = smaller_is_left[:, None]
+        hist_large = self.hist_cache[cand] - hist_small
+        hist_lr = torch.cat([torch.where(sl, hist_small, hist_large),
+                             torch.where(sl, hist_large, hist_small)]
+                            ).reshape((2 * K,) + self.hist_shape)
+
+        def both(a, b):
+            return torch.cat([a, b])
+        sg_lr = both(bs.left_sum_g, bs.right_sum_g)
+        sh_lr = both(bs.left_sum_h, bs.right_sum_h)
+        c_lr = both(bs.left_count, bs.right_count)
+        o_lr = both(bs.left_output, bs.right_output)
+        bmin = bmax = mpf = None
+        fmask = self.fmask
+        if self.has_mono:
+            lmin, lmax, rmin, rmax = self._child_bounds(
+                bs, self.leaf_min[cand], self.leaf_max[cand])
+            bmin, bmax = both(lmin, rmin), both(lmax, rmax)
+        if self.has_inter:
+            allow = self._sets_to_fmask(self._child_sets(
+                bs, self.leaf_sets[cand]))
+            fmask = both(allow, allow)
+        if self.use_mpen:
+            d = self.leaf_depth[cand] + 1
+            mpf = self._mpen_factor(both(d, d))
+        bn, rb = self._node_draws(self.num_waves + 1, 2 * K)
+        if bn is not None:
+            fmask = bn if fmask is None else fmask & bn
+        s_lr, cat_lr, bits_lr = self._search(
+            hist_lr, sg_lr, sh_lr, c_lr, o_lr, bmin, bmax, fmask, mpf, rb)
+        can = (self.leaf_depth[cand] + 1 < self.max_depth).repeat(2)
+        s_lr = s_lr._replace(gain=torch.where(
+            can, s_lr.gain, torch.full_like(s_lr.gain, NEG_INF)))
+        c_w = torch.where(valid, cand, L)
+        self.small_hist[c_w] = hist_small
+        self.small_is_left[c_w] = smaller_is_left
+        self.ready.index_fill_(0, c_w, True)
+        for a_l, a_r, v in zip(self.bestl, self.bestr, s_lr):
+            a_l[c_w] = v[:K]
+            a_r[c_w] = v[K:]
+        self.catl[c_w], self.catr[c_w] = cat_lr[:K], cat_lr[K:]
+        self.bitsl[c_w], self.bitsr[c_w] = bits_lr[:K], bits_lr[K:]
+        self.more.copy_(((best.gain[:L].max() > 0.0)
+                         & (self.num_leaves < L)).to(torch.int32))
+
+    # ------------------------------------------------------------------
+    def finish(self, lr: torch.Tensor, scores: torch.Tensor,
+               valid_scores: Sequence[torch.Tensor] = ()) -> None:
+        """The tree's end: quant_train_renew_leaf's refit, then the score
+        updates (#2) of the training rows and of each valid set by the
+        leaf values times `lr` (an f32 device scalar)."""
+        self.renew_leaves()
+        step = self.leaf_value[:self.L] * lr
+        add_leaf_values_(scores, step, self.leaf_of_row, plain=self.plain)
+        for vs, vl in zip(valid_scores, self.valid_leaf):
+            add_leaf_values_(vs, step, vl, plain=self.plain)
+
+    def renew_leaves(self) -> None:
+        """quant_train_renew_leaf: the leaf values refitted from exact float
+        leaf sums (grow_wave.py:1311-1313)."""
+        L, cfg = self.L, self.cfg
+        if self.quant and cfg.quant_renew_leaf and cfg.path_smooth <= 1e-15:
+            self.leaf_value[:L].copy_(renew_leaf_values(
+                self.leaf_value[:L], self.leaf_of_row, self.g, self.h,
+                self.num_leaves, self.K, cfg.hp, plain=self.plain))
+
+    def device_tree(self) -> DeviceTree:
+        """The tree grown so far as a DeviceTree whose num_leaves and
+        num_waves are device scalars."""
+        L, M = self.L, self.M
+        return DeviceTree(
+            num_leaves=self.num_leaves, split_feature=self.split_feature[:M],
+            threshold_bin=self.threshold_bin[:M],
+            default_left=self.default_left[:M],
+            split_gain=self.split_gain[:M], left_child=self.left_child[:M],
+            right_child=self.right_child[:M],
+            internal_value=self.internal_value[:M],
+            internal_weight=self.internal_weight[:M],
+            internal_count=self.internal_count[:M],
+            leaf_value=self.leaf_value[:L], leaf_weight=self.leaf_weight[:L],
+            leaf_count=self.leaf_count[:L],
+            split_parent_leaf=self.split_parent_leaf[:M],
+            split_is_cat=self.split_is_cat[:M],
+            split_cat_bitset=self.split_cat_bitset[:M],
+            num_waves=self.num_waves)
+
+
+def grow_tree_wave_batched(
+    X_t: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
+    in_bag: torch.Tensor, meta: FeatureMeta, cfg: GrowConfig,
+    feature_mask: Optional[torch.Tensor] = None, *,
+    hist_plan: Optional[HistPlan] = None, rng_seed: int = 0,
+    lag: int = 4, plain: bool = False) -> tuple:
+    """One tree through the fixed-shape steps, eagerly, polling `more`
+    every `lag` waves as the batched trainer does: (DeviceTree with device
+    counts, leaf_of_row, host reads, waves run). The same tree as
+    grow_tree_wave's with the same arguments."""
+    st = WaveStepper(X_t, meta, cfg, hist_plan=hist_plan, plain=plain)
+    st.start(grad, hess, in_bag, feature_mask,
+             torch.tensor(rng_seed, dtype=torch.int64, device=X_t.device))
+    reads = waves = 0
+    while True:
+        for _ in range(lag):
+            st.wave()
+            waves += 1
+        reads += 1
+        if not int(st.more):
+            break
+    st.renew_leaves()
+    return st.device_tree(), st.leaf_of_row, reads, waves
+

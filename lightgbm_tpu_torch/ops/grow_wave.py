@@ -82,7 +82,9 @@ The JAX package's `lax.while_loop` over waves becomes a Python loop that
 reads two host scalars per wave (whether to go on plus the number of
 splits to apply, then the candidate count, which picks the bucketed K,
 with the stale leaves' count under `intermediate`); its `lax.switch` over
-K buckets becomes a direct call with the bucketed K.
+K buckets becomes a direct call with the bucketed K. Batched training
+grows the same trees through one fixed-shape wave with no host read
+(ops/grow_batched.py).
 """
 
 from __future__ import annotations
@@ -229,14 +231,15 @@ def discretize_gradients(g: torch.Tensor, h: torch.Tensor, num_bins: int,
     gradient_discretizer.cpp:72-162). Scales max|g| / (num_bins // 2) and
     max h / num_bins, at least 1e-30; values truncate toward zero after
     adding sign(g) * u to g / scale (u / 0.5 for the hessians), u the
-    uniform draws of the split of PRNGKey(seed), or 0.5 without
-    `stochastic`. The scales are tensors on g's device and every division
+    uniform draws of the split of PRNGKey(seed) (`seed` an int, or an
+    int64 device tensor), or 0.5 without `stochastic`. The scales are tensors on g's device and every division
     divides by a tensor: torch on CUDA divides by a Python scalar as a
     multiply by its f32 reciprocal, not the IEEE quotient JAX computes."""
     dev = g.device
 
     def f32(v):
-        return torch.tensor(v, dtype=torch.float32, device=dev)
+        # a fill, not a copy from the host: a captured graph may hold it
+        return torch.full((), v, dtype=torch.float32, device=dev)
     g_scale = torch.maximum(g.abs().max() / f32(num_bins // 2), f32(1e-30))
     h_scale = torch.maximum(h.max() / f32(num_bins), f32(1e-30))
     if stochastic:
@@ -320,6 +323,41 @@ def xt_bins(key: torch.Tensor, n: int, num_bins: torch.Tensor
     hi = torch.clamp(num_bins.to(torch.int32) - 2, min=1)
     u = uniform(key, (n, hi.shape[0]), hi.device)
     return torch.minimum((u * hi.to(torch.float32)).to(torch.int32), hi - 1)
+
+
+def monotone_penalty_factor(depth: torch.Tensor,
+                            penalty: float) -> torch.Tensor:
+    """monotone_penalty's gain factor by leaf depth
+    (ComputeMonotoneSplitGainPenalty, monotone_constraints.hpp:358;
+    grow_wave.py:720-731)."""
+    eps = 1e-15
+    d = depth.to(torch.float32)
+    if penalty <= 1.0:
+        f = 1.0 - penalty / torch.exp2(d) + eps
+    else:
+        f = 1.0 - torch.exp2(penalty - 1.0 - d) + eps
+    return torch.where(penalty >= d + 1.0, torch.full_like(f, eps), f)
+
+
+def monotone_child_bounds(bsx: SplitResult, pmin: torch.Tensor,
+                          pmax: torch.Tensor, monotone: torch.Tensor,
+                          intermediate: bool = False):
+    """The children's bounds (lmin, lmax, rmin, rmax) after the splits
+    `bsx` of leaves bounded by [pmin, pmax]: the `basic` rule separates
+    them at the midpoint of the clipped outputs (BasicLeafConstraints::
+    Update, monotone_constraints.hpp:330), `intermediate` bounds each
+    child by its sibling's output (IntermediateLeafConstraints::
+    UpdateConstraintsWithOutputs, :548; grow_wave.py:733-757)."""
+    mono_f = monotone[bsx.feature]
+    if intermediate:
+        lcap, rcap = bsx.right_output, bsx.left_output
+    else:
+        lcap = rcap = 0.5 * (bsx.left_output + bsx.right_output)
+    lmax = torch.where(mono_f > 0, torch.minimum(pmax, lcap), pmax)
+    rmin = torch.where(mono_f > 0, torch.maximum(pmin, rcap), pmin)
+    lmin = torch.where(mono_f < 0, torch.maximum(pmin, lcap), pmin)
+    rmax = torch.where(mono_f < 0, torch.minimum(pmax, rcap), pmax)
+    return lmin, lmax, rmin, rmax
 
 
 def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -645,34 +683,11 @@ def grow_tree_wave(
         return psets & meta.inter_sets.t()[bsx.feature]
 
     def mpen_factor(depth):
-        """monotone_penalty's gain factor by leaf depth
-        (ComputeMonotoneSplitGainPenalty, monotone_constraints.hpp:358;
-        grow_wave.py:720-731)."""
-        pen, eps = cfg.monotone_penalty, 1e-15
-        d = depth.to(torch.float32)
-        if pen <= 1.0:
-            f = 1.0 - pen / torch.exp2(d) + eps
-        else:
-            f = 1.0 - torch.exp2(pen - 1.0 - d) + eps
-        return torch.where(pen >= d + 1.0, torch.full_like(f, eps), f)
+        return monotone_penalty_factor(depth, cfg.monotone_penalty)
 
     def child_bounds(bsx, pmin, pmax):
-        """The children's bounds after the splits `bsx` of leaves bounded
-        by [pmin, pmax]: the `basic` rule separates them at the midpoint
-        of the clipped outputs (BasicLeafConstraints::Update,
-        monotone_constraints.hpp:330), `intermediate` bounds each child by
-        its sibling's output (IntermediateLeafConstraints::
-        UpdateConstraintsWithOutputs, :548; grow_wave.py:733-757)."""
-        mono_f = meta.monotone[bsx.feature]
-        if mono_inter:
-            lcap, rcap = bsx.right_output, bsx.left_output
-        else:
-            lcap = rcap = 0.5 * (bsx.left_output + bsx.right_output)
-        lmax = torch.where(mono_f > 0, torch.minimum(pmax, lcap), pmax)
-        rmin = torch.where(mono_f > 0, torch.maximum(pmin, rcap), pmin)
-        lmin = torch.where(mono_f < 0, torch.maximum(pmin, lcap), pmin)
-        rmax = torch.where(mono_f < 0, torch.minimum(pmax, rcap), pmax)
-        return lmin, lmax, rmin, rmax
+        return monotone_child_bounds(bsx, pmin, pmax, meta.monotone,
+                                     mono_inter)
 
     def refresh_bounds(n_leaves):
         """Refresh every leaf's intermediate bounds against the current

@@ -1085,7 +1085,7 @@ def _leaf_entries(leaves: torch.Tensor, Kd: int, cap: int) -> torch.Tensor:
     ent = torch.full((cap + 1,), -1, dtype=torch.int64, device=dev)
     ent.scatter_(0, idx, k)
     ent = torch.where(cnt == 1, ent, -1)
-    ent[cap] = -1
+    ent[cap:].fill_(-1)
     return ent
 
 

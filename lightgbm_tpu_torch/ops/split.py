@@ -21,6 +21,7 @@ Direction semantics (feature_histogram.hpp:855-1030):
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -51,14 +52,23 @@ def expand_feature_offset_hist(flat: torch.Tensor, offsets: tuple,
     [..., F, num_bins] grid (lightgbm_tpu/ops/split.py:62): feature f owns
     the `widths[f]` columns from `offsets[f]`; bins it does not own read 0
     (a zero column appended to `flat`, as the JAX package's OOB fill)."""
-    total = flat.shape[-1]
+    padded = torch.cat([flat, flat.new_zeros(flat.shape[:-1] + (1,))], -1)
+    idx = _offset_gather_index(tuple(offsets), tuple(widths), num_bins,
+                               flat.shape[-1], flat.device)
+    out = padded.index_select(-1, idx)
+    return out.reshape(flat.shape[:-1] + (len(offsets), num_bins))
+
+
+@functools.lru_cache(maxsize=64)
+def _offset_gather_index(offsets: tuple, widths: tuple, num_bins: int,
+                         total: int, device: torch.device) -> torch.Tensor:
+    """expand_feature_offset_hist's [F * num_bins] gather index, made once
+    per layout and device: a copy from the host at every call could not
+    run inside a captured CUDA graph."""
     offs = torch.tensor(offsets, dtype=torch.int64)[:, None]
     wid = torch.tensor(widths, dtype=torch.int64)[:, None]
     b = torch.arange(num_bins, dtype=torch.int64)[None, :]
-    idx = torch.where(b < wid, offs + b, total).reshape(-1)
-    padded = torch.cat([flat, flat.new_zeros(flat.shape[:-1] + (1,))], -1)
-    out = padded.index_select(-1, idx.to(flat.device))
-    return out.reshape(flat.shape[:-1] + (len(offsets), num_bins))
+    return torch.where(b < wid, offs + b, total).reshape(-1).to(device)
 
 
 class FeatureMeta(NamedTuple):

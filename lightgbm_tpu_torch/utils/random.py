@@ -19,12 +19,19 @@ key (`jax.random.key_data` of the same key, widened). Keys are a few words
 and are derived on the host; `uniform` computes its bits on `device`.
 torch has no full-range uint32 arithmetic, so every word is an int64
 holding 0 .. 2^32 - 1, masked after each add and left shift.
+
+A `DevKey` holds the two words as int64 tensors on the device instead, and
+the functions below never read it back: `PRNGKey` of a seed tensor,
+`fold_in` of a DevKey or of a data tensor, and `split` of a DevKey give
+DevKeys, and `uniform` draws from one on its words' device. The batched
+trainer keys its draws so, from per-iteration device buffers that a
+captured CUDA graph reads (a Python int would be baked into the graph).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple, Union
+from typing import List, NamedTuple, Sequence, Tuple, Union
 
 import torch
 
@@ -55,52 +62,87 @@ def threefry2x32(k1: Word, k2: Word, x1: Word, x2: Word) -> Tuple[Word, Word]:
     return x[0], x[1]
 
 
+class DevKey(NamedTuple):
+    """A key whose words stay on the device: int64 tensors (0-dim, or of a
+    common shape) holding 0 .. 2^32 - 1."""
+    k1: torch.Tensor
+    k2: torch.Tensor
+
+
+Key = Union[torch.Tensor, DevKey]
+
+
 def _key(k1: int, k2: int) -> torch.Tensor:
     return torch.tensor([k1, k2], dtype=torch.int64)
 
 
-def _words(key: torch.Tensor) -> Tuple[int, int]:
+def _words(key: Key) -> Tuple[Word, Word]:
+    if isinstance(key, DevKey):
+        return key.k1, key.k2
     k1, k2 = (int(v) for v in key.reshape(2).tolist())
     return k1, k2
 
 
-def PRNGKey(seed: int) -> torch.Tensor:
+def PRNGKey(seed: Union[int, torch.Tensor]) -> Key:
     """jax.random.PRNGKey of an int32 seed (x64 off): the high word is the
     seed shifted right by 32 bits, which is 0 for an int32, the low word
     its two's-complement bits (threefry_seed). Seeds outside the int32
-    range wrap, as `jnp.int32(seed)` would have to."""
+    range wrap, as `jnp.int32(seed)` would have to. An int64 tensor seed
+    gives a DevKey on its device."""
+    if isinstance(seed, torch.Tensor):
+        s = seed.to(torch.int64)
+        return DevKey(torch.zeros_like(s), s & _M32)
     return _key(0, int(seed) & _M32)
 
 
-def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
-    """jax.random.fold_in: the hash of the counter (0, data as uint32)
-    under `key` (threefry_fold_in)."""
+def device_key(key: torch.Tensor, device) -> DevKey:
+    """A host key's words as a DevKey on `device` (one read of the host
+    key, where it is made)."""
     k1, k2 = _words(key)
+    return DevKey(torch.tensor(k1, dtype=torch.int64, device=device),
+                  torch.tensor(k2, dtype=torch.int64, device=device))
+
+
+def fold_in(key: Key, data: Union[int, torch.Tensor]) -> Key:
+    """jax.random.fold_in: the hash of the counter (0, data as uint32)
+    under `key` (threefry_fold_in). A DevKey, or data given as an int64
+    tensor, gives a DevKey."""
+    k1, k2 = _words(key)
+    if isinstance(data, torch.Tensor) or isinstance(key, DevKey):
+        d = data.to(torch.int64) & _M32 if isinstance(data, torch.Tensor) \
+            else int(data) & _M32
+        return DevKey(*threefry2x32(k1, k2, 0, d))
     return _key(*threefry2x32(k1, k2, 0, int(data) & _M32))
 
 
-def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+def split(key: Key, num: int = 2) -> Union[torch.Tensor, List[DevKey]]:
     """jax.random.split: [num, 2] keys, key i the hash of the counter
-    (0, i) (_threefry_split_foldlike over an iota of `num`)."""
+    (0, i) (_threefry_split_foldlike over an iota of `num`); of a DevKey,
+    a list of `num` DevKeys."""
     k1, k2 = _words(key)
+    if isinstance(key, DevKey):
+        return [DevKey(*threefry2x32(k1, k2, 0, i)) for i in range(num)]
     lo = torch.arange(num, dtype=torch.int64)
     b1, b2 = threefry2x32(k1, k2, lo >> 32, lo & _M32)
     return torch.stack([b1, b2], dim=1)
 
 
-def random_bits(key: torch.Tensor, shape: Sequence[int],
+def random_bits(key: Key, shape: Sequence[int],
                 device=None) -> torch.Tensor:
     """32 random bits per element as int64 in [0, 2^32): the two hash
     words of element i's counter (i >> 32, i & 0xFFFFFFFF), xored
-    (_threefry_random_bits_partitionable, bit_width 32)."""
+    (_threefry_random_bits_partitionable, bit_width 32). A DevKey draws
+    on its words' device."""
     k1, k2 = _words(key)
+    if isinstance(key, DevKey):
+        device = key.k1.device
     n = math.prod(shape)
     i = torch.arange(n, dtype=torch.int64, device=device)
     b1, b2 = threefry2x32(k1, k2, i >> 32, i & _M32)
     return (b1 ^ b2).reshape(tuple(shape))
 
 
-def uniform(key: torch.Tensor, shape: Sequence[int],
+def uniform(key: Key, shape: Sequence[int],
             device=None) -> torch.Tensor:
     """jax.random.uniform(key, shape, float32) on [0, 1): the top 23 bits
     as the mantissa of a float in [1, 2), minus 1 (random.py _uniform; its
