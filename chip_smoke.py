@@ -274,7 +274,17 @@ Phases, each printing one JSON line:
                      fixed-shape step equal to the bucketed grower's; ms a
                      round and device-busy share of both paths, graph
                      replays and launches a round, inert waves a tree and
-                     the drain's lag recorded
+                     the drain's lag recorded; then the regimes of the
+                     extended step, each beside its per-iteration run with
+                     the same checks: bench under histogram_impl=fused 16
+                     rounds (#9), Criteo under it 8 (#10) and with
+                     quantized gradients 4 (#10's descale factors from
+                     device memory), bench with features 0-3 monotone
+                     intermediate 2, wave_exact on bench 4 and Criteo 2,
+                     bench with a forced root and both children 4; the
+                     route kernel's launches a round above 0 (it ran in
+                     the replayed graphs), the wave graph's launches and
+                     one replay's device operations and ms recorded
 
 then a {"kernels": [...]} line (the ten kernels), the nvidia-smi line,
 and last
@@ -1895,7 +1905,7 @@ def fused_tiled_phase(hc, gf, torch, dev, X_c):
                                      device=dev, dtype=torch.int32) \
                     .to(torch.int8)
                 vals[1] = vals[1].abs()
-                scale = (0.0078125, 0.00390625)
+                scale = torch.tensor([0.0078125, 0.00390625], device=dev)
             else:
                 vals = (_grid_vals(torch, gen, 2, N, dev) if kind == "grid"
                         else torch.randn((2, N), generator=gen, device=dev))
@@ -1903,8 +1913,9 @@ def fused_tiled_phase(hc, gf, torch, dev, X_c):
                 scale = None
             parent, scal = _fused_operands(torch, hc, X, vals, slot_all,
                                            slot_small, sil, K, B)
-            args = (X, vals, dec, lor, tbl, pend, pnl0, parent, scal, fmeta,
-                    fmask, K, B, L, hp, scale)
+            args = (X, vals, dec, lor, tbl, pend,
+                    torch.full((1,), pnl0, dtype=torch.int32, device=dev),
+                    parent, scal, fmeta, fmask, K, B, L, hp, scale)
             gl, gh, gr = gf.wave_pass_fused_tiled_cuda(*args)
             rl, rh, rr = gf.wave_pass_fused_tiled_plain(*args)
             torch.cuda.synchronize()
@@ -2140,8 +2151,9 @@ def constraints_kernel_phase(hc, gf, torch, dev, X_c):
             out = scal[3, 1::2]
             scal[5, 1::2] = out - 0.25 * out.abs()
             scal[6, 1::2] = out + 0.25 * out.abs()
-            args = (X_c, vals, dec, lor, tbl, pend, 0, parent, scal, fmeta,
-                    fmask, K, B, L, hp, None)
+            args = (X_c, vals, dec, lor, tbl, pend,
+                    torch.zeros(1, dtype=torch.int32, device=dev), parent,
+                    scal, fmeta, fmask, K, B, L, hp, None)
             args_off = args[:8] + (scal_off, fmeta_off) + args[10:]
             gl, gh, gr = gf.wave_pass_fused_tiled_cuda(*args)
             rl, rh, rr = gf.wave_pass_fused_tiled_plain(*args)
@@ -3666,6 +3678,26 @@ def _device_busy(torch, fn):
     return (busy / 1e3 if iv else None), wall
 
 
+def _wave_graph_device(torch, runner):
+    """(device operations, device ms) of one replay of a runner's wave
+    graph under torch.profiler; the tree has ended, so the wave is inert
+    and changes nothing. (None, None) when the profiler sees nothing."""
+    from torch.profiler import ProfilerActivity, profile
+    graph = runner.graphs.get("wave")
+    if graph is None:
+        return None, None
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    evs = [ev for ev in prof.events()
+           if ev.device_type == torch.autograd.DeviceType.CUDA]
+    if not evs:
+        return None, None
+    return len(evs), sum(ev.time_range.end - ev.time_range.start
+                         for ev in evs) / 1e3
+
+
 def batched_phase(lt, hc, torch, smi, params, ds, X, w, params_c, ds_c):
     """lt.train's default path, batched (models/batched.py), beside the
     per-iteration path on the same configuration: bench 37 rounds (a chunk
@@ -3673,7 +3705,12 @@ def batched_phase(lt, hc, torch, smi, params, ds, X, w, params_c, ds_c):
     quantized gradients (4 bins), 16 rounds each, bench with a 2^18-row
     valid set (auc, binary_logloss, record_evaluation, early_stopping(10))
     32 rounds, the Criteo table on the apply route 16 rounds, then 2 under
-    force_row_wise. Each: the model text md5 equal to the per-iteration
+    force_row_wise; then the regimes of the extended step: bench under
+    histogram_impl=fused 16 rounds (#9), Criteo under it 8 (#10) and with
+    quantized gradients 4 (#10's device descale factors), bench with
+    features 0-3 monotone `intermediate` 2, wave_exact on bench 4 and on
+    Criteo 2, bench with a forced root and both children 4. Each: the
+    model text md5 equal to the per-iteration
     run's, batched_veto empty, every graph captured once (none on the
     tail), at most ceil(waves / 4) + 1 blocking reads a tree; the valid
     run's metric values within 1e-5 relative of the host evaluation, row
@@ -3684,8 +3721,13 @@ def batched_phase(lt, hc, torch, smi, params, ds, X, w, params_c, ds_c):
     a round, inert waves a tree, the drain's lag, and on bench a chunk of
     32 steady rounds without and with the drain; bench's first tree
     through the fixed-shape step equal to the bucketed grower's from the
-    same gradients, array by array."""
+    same gradients, array by array. The regimes' lines skip the steady
+    rounds; they record the wave graph's launches (the route kernel's
+    and every device operation of one replay, with its device ms), and
+    on the fused routes the route kernel's launches a round, which must
+    be above 0 (it ran inside the replayed graphs)."""
     import hashlib
+    import tempfile
     from lightgbm_tpu_torch.models.batched import LAG
     from lightgbm_tpu_torch.ops.grow_batched import grow_tree_wave_batched
     from lightgbm_tpu_torch.ops.grow_wave import grow_tree_wave
@@ -3725,17 +3767,47 @@ def batched_phase(lt, hc, torch, smi, params, ds, X, w, params_c, ds_c):
         np.float32)
     dv = lt.Dataset(Xv, label=yv, reference=ds).construct()
     pv = {**params, "metric": ["auc", "binary_logloss"]}
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.TemporaryDirectory(dir=here)
+    forced_path = os.path.join(tmp.name, "forced.json")
+    with open(forced_path, "w") as f:
+        json.dump({"feature": 0, "threshold": float(np.quantile(X[:, 0],
+                                                                0.5)),
+                   "left": {"feature": 1, "threshold": float(
+                       np.quantile(X[:, 1], 0.3))},
+                   "right": {"feature": 2, "threshold": float(
+                       np.quantile(X[:, 2], 0.7))}}, f)
+    mono_b = [int(np.sign(x)) for x in w[:4]] + [0] * (N_FEAT - 4)
+    fused_c = {**params_c, "histogram_impl": "fused"}
+    # (name, params, dataset, rounds, valid set, the regime's route and
+    # kernel; None for the A12(a) cases)
     cases = (
-        ("bench", params, ds, 37, False),
+        ("bench", params, ds, 37, False, None),
         ("bagging", {**params, "bagging_fraction": 0.8,
-                     "bagging_freq": 1}, ds, 16, False),
+                     "bagging_freq": 1}, ds, 16, False, None),
         ("quantized", {**params, "use_quantized_grad": True,
-                       "num_grad_quant_bins": 4}, ds, 16, False),
-        ("valid", pv, ds, 32, True),
-        ("criteo", params_c, ds_c, 16, False),
+                       "num_grad_quant_bins": 4}, ds, 16, False, None),
+        ("valid", pv, ds, 32, True, None),
+        ("criteo", params_c, ds_c, 16, False, None),
         ("criteo_rowwise", {**params_c, "force_row_wise": True}, ds_c, 2,
-         False))
-    for name, p, d, rounds, valid in cases:
+         False, None),
+        ("fused", {**params, "histogram_impl": "fused"}, ds, 16, False,
+         ("fused", "wave_pass_fused")),
+        ("criteo_fused", fused_c, ds_c, 8, False,
+         ("fused_tiled", "wave_pass_fused_tiled")),
+        ("criteo_fused_quantized", {**fused_c, "use_quantized_grad": True,
+                                    "num_grad_quant_bins": 4}, ds_c, 4,
+         False, ("fused_tiled", "wave_pass_fused_tiled")),
+        ("intermediate", {**params, "monotone_constraints": mono_b,
+                          "monotone_constraints_method": "intermediate"},
+         ds, 2, False, ("mega", "wave_pass")),
+        ("wave_exact", {**params, "tpu_grower": "wave_exact"}, ds, 4, False,
+         ("mega", "wave_pass")),
+        ("wave_exact_criteo", {**params_c, "tpu_grower": "wave_exact"},
+         ds_c, 2, False, ("apply", "wave_apply")),
+        ("forced", {**params, "forcedsplits_filename": forced_path}, ds, 4,
+         False, ("mega", "wave_pass")))
+    for name, p, d, rounds, valid, regime in cases:
         t_case = time.perf_counter()
         runs = []
         for batched in (False, True):
@@ -3762,24 +3834,24 @@ def batched_phase(lt, hc, torch, smi, params, ds, X, w, params_c, ds_c):
         # under torch.profiler on bench and Criteo (a profiled window
         # costs some 3 s)
         t_prof = time.perf_counter()
+        wall_b = busy_i = busy_b = wall_i = None
         if name in ("bench", "criteo"):
             busy_i, wall_i = _device_busy(
                 torch, lambda: [bi.update() for _ in range(4)])
             busy_b, wall_b = _device_busy(torch, lambda: bb.update_batch(4))
-        else:
+        elif regime is None:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             bb.update_batch(4)
             torch.cuda.synchronize()
             wall_b = (time.perf_counter() - t0) * 1e3
-            busy_i = busy_b = wall_i = None
         t_prof = time.perf_counter() - t_prof
         out = {"phase": "batched", "case": name, "nvidia_smi": smi,
                "rows": g.num_data, "rounds": rounds,
                "grow_route": g.grow_route, "hist_route": g.hist_route,
                "batched_veto": g.batched_veto, "md5_equal": md5(bi) == md5(bb),
                "ms_per_round": ms_b, "per_iteration_ms_per_round": ms_i,
-               "steady_ms_per_round": wall_b / 4,
+               "steady_ms_per_round": None if wall_b is None else wall_b / 4,
                "per_iteration_steady_ms_per_round": (
                    None if wall_i is None else wall_i / 4),
                "device_busy_ms_per_round": (None if busy_b is None
@@ -3801,6 +3873,13 @@ def batched_phase(lt, hc, torch, smi, params, ds, X, w, params_c, ds_c):
                "inert_waves_per_tree": float(np.mean(inert)),
                "drain_lag_ms": g.drain_lags_ms,
                "case_s": time.perf_counter() - t_case, "profile_s": t_prof}
+        if regime is not None:
+            ops, dms = _wave_graph_device(torch, runner)
+            out.update(wave_graph_launches=runner.captured.get("wave"),
+                       wave_graph_device_ops=ops, wave_graph_device_ms=dms,
+                       route_kernel=regime[1],
+                       route_kernel_launches_per_round=(
+                           lb.get(regime[1], 0) / rounds))
         if name == "bench":
             # a chunk of 32 more rounds without the drain (the trees stay
             # on the card), then with it (converted on its thread)
@@ -3842,7 +3921,14 @@ def batched_phase(lt, hc, torch, smi, params, ds, X, w, params_c, ds_c):
         if name == "bench":
             check(first_same, f"the fixed-shape first tree differs in "
                               f"{first_diff}")
+        if regime is not None:
+            check(g.grow_route == regime[0],
+                  f"batched {name}: route {g.grow_route}")
+            check(out["route_kernel_launches_per_round"] > 0,
+                  f"batched {name}: {regime[1]} never ran in the replayed "
+                  "graphs")
         del bi, bb, g, runner, trees, runs
+    tmp.cleanup()
     del dv
 
 

@@ -28,7 +28,8 @@ struct LgbtTilePlan {
 // group_scratch the grouping's scratch (lgbt_group_rows), out [K, 2, F, B]
 // f32 or int32, acc the f32 path's f64 sums and tile counters, parent [K,
 // 2, F, B] f32 or int32; scal / fmeta / fmask / rec / scan_scratch as
-// lgbt_split_scan_kernel. `zeroed`: the caller zeroed what the histogram
+// lgbt_split_scan_kernel, scale its [2] f32 descale factors of int32 sums
+// (null for f32 sums). `zeroed`: the caller zeroed what the histogram
 // adds into (else it is zeroed here). Bins: the engine's reader of the
 // uniform storage (UniformBins, or UniformBinsAhead).
 template <typename V, typename Bins = UniformBins>
@@ -38,7 +39,7 @@ static void lgbt_fused_hist_scan(
     const typename OutOf<V>::T* parent, const float* scal, const int* fmeta,
     const uint8_t* fmask, int fmask_stride, float* rec, void* scan_scratch,
     long long N, int F, int K, int B, const LgbtTilePlan& p, bool zeroed,
-    float gscale, float hscale, const LgbtSplitHp& hp, int num_sms,
+    const float* scale, const LgbtSplitHp& hp, int num_sms,
     cudaStream_t st) {
   typedef typename OutOf<V>::T O;
   const int C = 2;
@@ -51,7 +52,7 @@ static void lgbt_fused_hist_scan(
                              zeroed);
       lgbt_split_scan_launch<double, float>(
           acc, parent, out, scal, fmeta, fmask, fmask_stride, rec,
-          scan_scratch, K, F, B, 1.0f, 1.0f, hp, st);
+          scan_scratch, K, F, B, nullptr, hp, st);
       return;
     } else {
       lgbt_direct_run<int8_t>(X, vals, slot, out, N, F, C, K, B, num_sms, st,
@@ -71,5 +72,5 @@ static void lgbt_fused_hist_scan(
   }
   lgbt_split_scan_launch<O, O>(out, parent, nullptr, scal, fmeta, fmask,
                                fmask_stride, rec, scan_scratch, K, F, B,
-                               gscale, hscale, hp, st);
+                               scale, hp, st);
 }

@@ -315,7 +315,8 @@ __device__ __forceinline__ void lgbt_write_record(float* rec, int n2, int j,
 }
 
 // small: [K, 2, F, B] f32 or f64 (parent f32), or int32 (parent int32,
-// descaled by gscale / hscale); parent [K, 2, F, B]; small_out: with f64
+// descaled by scale[0] / scale[1], a [2] f32 device operand; null for
+// f32 sums); parent [K, 2, F, B]; small_out: with f64
 // small, its [K, 2, F, B] f32 rounding written here, else null; scal
 // [7, 2K] f32 rows sum_g, sum_h, count, output, smaller_is_left (0 / 1),
 // bounds min, bounds max per child; fmeta [5, F] int32 rows num_bins,
@@ -338,8 +339,8 @@ lgbt_split_scan_kernel(const S* __restrict__ small,
                        float* __restrict__ rec,
                        unsigned long long* __restrict__ best,
                        unsigned* __restrict__ done, float* __restrict__ cells,
-                       int K, int F, int B, float gscale, float hscale,
-                       LgbtSplitHp hp) {
+                       int K, int F, int B,
+                       const float* __restrict__ scale, LgbtSplitHp hp) {
   __shared__ float stage[LGBT_SCAN_WARPS][3][LGBT_SCAN_MAX_B];
   __shared__ float tots[LGBT_SCAN_WARPS][3];
   __shared__ unsigned long long blk_best;
@@ -347,6 +348,10 @@ lgbt_split_scan_kernel(const S* __restrict__ small,
   const int n2 = 2 * K, j = blockIdx.y;
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const LgbtChild ch = lgbt_child(scal, j, K, hp);
+  // the int32 histograms' descale factors, read from device memory so that
+  // a captured graph replays each tree's own (null: f32 sums, unscaled)
+  const float gscale = scale ? scale[0] : 1.0f;
+  const float hscale = scale ? scale[1] : 1.0f;
   const long long plane = (long long)F * B;
   const S* sm = small + (long long)ch.k * 2 * plane;
   const P* pa = parent + (long long)ch.k * 2 * plane;
@@ -472,7 +477,7 @@ static void lgbt_split_scan_launch(const S* small, const P* parent,
                                    const int* fmeta, const uint8_t* fmask,
                                    int fmask_stride, float* rec,
                                    void* scratch, int K, int F, int B,
-                                   float gscale, float hscale,
+                                   const float* scale,
                                    const LgbtSplitHp& hp, cudaStream_t st) {
   unsigned long long* best = (unsigned long long*)scratch;
   unsigned* done = (unsigned*)(best + 2 * K);
@@ -481,5 +486,5 @@ static void lgbt_split_scan_launch(const S* small, const P* parent,
   const dim3 grid((F + LGBT_SCAN_WARPS - 1) / LGBT_SCAN_WARPS, 2 * K);
   lgbt_split_scan_kernel<S, P><<<grid, LGBT_THREADS, 0, st>>>(
       small, parent, small_out, scal, fmeta, fmask, fmask_stride, rec, best,
-      done, cells, K, F, B, gscale, hscale, hp);
+      done, cells, K, F, B, scale, hp);
 }

@@ -64,7 +64,7 @@ extern "C" int lgbt_wave_pass_fused(
         (const uint8_t*)X, (const float*)vals, slot, slot + N, (float*)out,
         (double*)acc, (const float*)parent, (const float*)scal,
         (const int*)fmeta, (const uint8_t*)fmask, fmask_stride, (float*)rec,
-        scan_scratch, N, F, K, B, p, true, 1.0f, 1.0f, hp, num_sms, st);
+        scan_scratch, N, F, K, B, p, true, nullptr, hp, num_sms, st);
   };
   if (prefetch > 1)
     tail(UniformBinsAhead<4>());

@@ -84,7 +84,8 @@ __global__ void __launch_bounds__(LGBT_THREADS)
 fused_member_kernel(const uint8_t* __restrict__ dec,
                     const int* __restrict__ lor_in,
                     const int* __restrict__ table,
-                    const int* __restrict__ pend, int pend_nl0,
+                    const int* __restrict__ pend,
+                    const int* __restrict__ pend_nl0,
                     int* __restrict__ lor_out, int* __restrict__ slot,
                     long long N, int K, int Kd, int leaf_cap) {
   __shared__ unsigned short pend_of[LGBT_LEAF_CAP], app_of[LGBT_LEAF_CAP],
@@ -96,13 +97,13 @@ fused_member_kernel(const uint8_t* __restrict__ dec,
   lgbt_map_entries16(table, Kd, leaf_cap, app_of);
   lgbt_map_entries16(table + 7 * LGBT_T_ENTRIES, K, leaf_cap, cand_of);
   __syncthreads();
-  const int nl0 = table[15 * LGBT_T_ENTRIES];
+  const int nl0 = table[15 * LGBT_T_ENTRIES], pnl0 = *pend_nl0;
   for (long long r = blockIdx.x * (long long)blockDim.x + threadIdx.x; r < N;
        r += (long long)gridDim.x * blockDim.x) {
     int leaf = lor_in[r];
     const int kp = lgbt_entry16(pend_of, leaf, leaf_cap);
     if (kp >= 0 && ((dec[(long long)kp * N + r] >> 2) & 1) == 0)
-      leaf = pend_nl0 + kp;
+      leaf = pnl0 + kp;
     const int ka = lgbt_entry16(app_of, leaf, leaf_cap);
     if (ka >= 0 && (dec[(long long)ka * N + r] & 1) == 0) leaf = nl0 + ka;
     lor_out[r] = leaf;
@@ -116,24 +117,28 @@ fused_member_kernel(const uint8_t* __restrict__ dec,
 // (applied leaves), 7 (candidate leaves) and 15 (nl0) are read, entries at
 // Kd (applied) or K (candidates) and above inactive; pend [128] int32 the
 // pending applied leaves (-1 = inactive; entries at Kd and above unread)
-// and pend_nl0 their first new leaf id. The histogram plan (spt, fpt, nst,
+// and pend_nl0 [1] int32 their first new leaf id. Every per-tree and
+// per-wave value is read from device memory, so a captured graph replays
+// each wave's own. The histogram plan (spt, fpt, nst,
 // nft, segs, min_rows, merge, pair, direct, group_warps) is kernel #1's
 // (lgbt_hist_slots, hist_slots.cu), and so are out and acc: out [K, 2, F,
 // B] f32 or int32 written here, acc f64 ([K * 2 * F * B] sums, then the
 // tiles' completion counters; f32 only). scratch: [N] int32 slots, then
 // the grouping's scratch when group_warps > 0. parent [K, 2, F, B] f32 or
-// int32 (descaled by gscale / hscale in the scan). scal / fmeta / fmask /
+// int32 (descaled in the scan by scale [2] f32, the grad and hess factors;
+// null with f32 vals). scal / fmeta / fmask /
 // rec as lgbt_split_scan_kernel, scan_scratch its [2K] keys and [2K]
 // counters.
 extern "C" int lgbt_wave_pass_fused_tiled(
     const void* X, const void* vals, int vals_int8, const void* dec,
-    const void* lor_in, const void* table, const void* pend, int pend_nl0,
+    const void* lor_in, const void* table, const void* pend,
+    const void* pend_nl0,
     void* lor_out, void* out, void* acc, void* scratch, const void* parent,
     const void* scal, const void* fmeta, const void* fmask,
     int fmask_stride, void* rec, void* scan_scratch, long long N, int F,
     int K, int B, int Kd, int leaf_cap, int spt, int fpt, int nst, int nft,
     int segs, int min_rows, int merge, int pair, int direct,
-    int group_warps, float gscale, float hscale, float min_data_slack,
+    int group_warps, const void* scale, float min_data_slack,
     float min_hess, float l1, float l2, float max_delta_step,
     float path_smooth, float min_gain, int use_mds, int use_ps, int num_sms,
     void* stream) {
@@ -144,7 +149,8 @@ extern "C" int lgbt_wave_pass_fused_tiled(
   int* slot = (int*)scratch;
   fused_member_kernel<<<lgbt_grid(N, num_sms, 8), LGBT_THREADS, 0, st>>>(
       (const uint8_t*)dec, (const int*)lor_in, (const int*)table,
-      (const int*)pend, pend_nl0, (int*)lor_out, slot, N, K, Kd, leaf_cap);
+      (const int*)pend, (const int*)pend_nl0, (int*)lor_out, slot, N, K, Kd,
+      leaf_cap);
   const LgbtTilePlan p = {spt,  fpt,   nst,  nft,    segs,
                           min_rows, merge, pair, direct, group_warps};
   if (vals_int8)
@@ -152,12 +158,12 @@ extern "C" int lgbt_wave_pass_fused_tiled(
         (const uint8_t*)X, (const int8_t*)vals, slot, slot + N, (int*)out,
         nullptr, (const int*)parent, (const float*)scal, (const int*)fmeta,
         (const uint8_t*)fmask, fmask_stride, (float*)rec, scan_scratch, N, F,
-        K, B, p, false, gscale, hscale, hp, num_sms, st);
+        K, B, p, false, (const float*)scale, hp, num_sms, st);
   else
     lgbt_fused_hist_scan<float>(
         (const uint8_t*)X, (const float*)vals, slot, slot + N, (float*)out,
         (double*)acc, (const float*)parent, (const float*)scal,
         (const int*)fmeta, (const uint8_t*)fmask, fmask_stride, (float*)rec,
-        scan_scratch, N, F, K, B, p, false, 1.0f, 1.0f, hp, num_sms, st);
+        scan_scratch, N, F, K, B, p, false, nullptr, hp, num_sms, st);
   return (int)cudaGetLastError();
 }

@@ -285,6 +285,10 @@ def cv(params: Dict[str, Any], train_set: Dataset,
     if cfg.objective not in ("binary", "multiclass", "multiclassova"):
         stratified = False
 
+    # bin under the caller's params (device_type above all), as
+    # Booster.__init__ does
+    if train_set._handle is None:
+        train_set.params = {**train_set.params, **params}
     train_set.construct()
     if train_set.data is None:
         raise ValueError("cv() needs the Dataset constructed with "

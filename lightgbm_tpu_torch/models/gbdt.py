@@ -35,11 +35,13 @@ device routes.
 
 Batched training (`can_batch_iters`, `train_iters_batched`, JAX gbdt.py:
 1108-1418) runs chunks of iterations with no host round trip per
-iteration on the "mega" and "apply" routes (models/batched.py,
-ops/grow_batched.py), md5-equal to train_one_iter's models; a chunk's
-trees reach the model through a worker thread (`start_drain`). The
-JAX package's vetoes keep the per-iteration path, as do the regimes
-still to port (ROADMAP item A12(b)); `batched_veto` names the reason.
+iteration on every wave route ("mega", "apply", "fused", "fused_tiled"),
+with monotone intermediate, wave_exact and forced splits
+(models/batched.py, ops/grow_batched.py), md5-equal to train_one_iter's
+models; a chunk's trees reach the model through a worker thread
+(`start_drain`). The JAX package's vetoes keep the per-iteration path, as
+do the serial growers masked and compact, still to port (ROADMAP item
+A12(b)); `batched_veto` names the reason.
 """
 
 from __future__ import annotations
@@ -63,7 +65,6 @@ from ..objectives import (ObjectiveFunction, create_objective,
                           percentile_ref, weighted_percentile_ref)
 from ..ops.grow import (DeviceTree, GrowConfig, grow_tree,
                         serial_hist_route)
-from ..ops.grow_batched import batched_veto
 from ..ops.grow_fast import grow_tree_fast
 from ..ops.grow_wave import (_wave_buckets, fused_veto_reasons,
                              grow_tree_wave, wave_routes)
@@ -819,8 +820,7 @@ class GBDT:
             return "a valid metric without a device form", False
         if self.grower in ("masked", "compact"):
             return f"the serial grower {self.grower}", True
-        why = batched_veto(self.grow_cfg, self.X_t.shape[0])
-        return why, bool(why)
+        return "", False
 
     def can_batch_iters(self, n: int) -> bool:
         """Whether `n` iterations from self.iter may run as one batched

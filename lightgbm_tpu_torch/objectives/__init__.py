@@ -80,6 +80,12 @@ def _weighted(grad, hess, weight):
     return grad, hess
 
 
+def sign_nan(x: torch.Tensor) -> torch.Tensor:
+    """jnp.sign: torch.sign maps NaN to 0, jnp.sign keeps it NaN, so a NaN
+    label gives NaN gradients (and 1-leaf trees) as in the JAX package."""
+    return torch.where(torch.isnan(x), x, torch.sign(x))
+
+
 def _const(score: torch.Tensor, v: float) -> torch.Tensor:
     """A Python float as an f32 tensor of score's shape (a weakly typed
     scalar of the JAX package's jnp.where)."""
@@ -111,7 +117,7 @@ class RegressionL1(RegressionL2):
     need_renew_tree_output = True
 
     def get_gradients(self, score, label, weight):
-        return _weighted(torch.sign(score - label), torch.ones_like(score),
+        return _weighted(sign_nan(score - label), torch.ones_like(score),
                          weight)
 
     def boost_from_score(self, class_id: int) -> float:
@@ -133,7 +139,7 @@ class RegressionHuber(RegressionL2):
     def get_gradients(self, score, label, weight):
         a = self.config.alpha
         diff = score - label
-        grad = torch.where(torch.abs(diff) <= a, diff, torch.sign(diff) * a)
+        grad = torch.where(torch.abs(diff) <= a, diff, sign_nan(diff) * a)
         return _weighted(grad, torch.ones_like(score), weight)
 
 
@@ -216,7 +222,7 @@ class RegressionMAPE(RegressionL2):
             self._lw_dev = torch.from_numpy(self._label_weight).to(
                 score.device)
         lw = self._lw_dev
-        return torch.sign(score - label) * lw, lw.expand_as(score)
+        return sign_nan(score - label) * lw, lw.expand_as(score)
 
     def boost_from_score(self, class_id: int) -> float:
         if not self.config.boost_from_average or self.label is None:

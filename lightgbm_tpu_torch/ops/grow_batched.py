@@ -1,5 +1,5 @@
 """The wave grower at one fixed shape, with no host reads: batched training's
-tree step on the "mega" and "apply" routes.
+tree step on every wave route ("mega", "apply", "fused", "fused_tiled").
 
 Counterpart of the body and condition of the JAX package's
 `lax.while_loop` over waves (lightgbm_tpu/ops/grow_wave.py:2095-2124):
@@ -15,8 +15,8 @@ shapes:
     entry outside its mask writes to a trash slot (leaf L, node M) that
     nothing reads, as JAX's `scat(..., mode="drop")` drops it;
   * the row pass always runs: a wave table entry of -1 names no leaf, so
-    the kernels skip it (#3 through rows 0 and 7, #4 through its leaf
-    maps, #1 through slots outside [0, K));
+    the kernels skip it (#3 / #9 through rows 0 and 7, #4 / #10 through
+    their leaf maps, #1 through slots outside [0, K));
   * a wave after the tree has ended (`active` false: no positive gain,
     or the leaf budget spent) applies and speculates nothing and leaves
     every array bitwise as it was, so a host that polls with a lag may
@@ -30,17 +30,36 @@ per-iteration grower's bit for bit.
 
 Covered: float and int8 quantized gradients (with `quant_renew_leaf`),
 categorical and EFB storages, the row-wise histogram layouts, monotone
-`basic` with monotone_penalty, interaction sets, feature_fraction_bynode,
-extra_trees and the gain-slack rule. Forced splits, CEGB, monotone
-`intermediate`, wave_exact and the fused routes stay on the per-iteration
-grower (models/gbdt.py:can_batch_iters names them).
+`basic` with monotone_penalty, monotone `intermediate`, interaction sets,
+feature_fraction_bynode, extra_trees, the gain-slack rule, forced splits,
+wave_exact and the fused routes:
+
+  * "fused" runs #9 and "fused_tiled" #10 every wave at the route's cap
+    (`fused_kcap`), their records unpacked over the fixed width and, on
+    "fused_tiled", merged with the categorical search outside; #10 takes
+    its descale factors and the pending relabel's first leaf from device
+    memory. "fused_tiled" drops the applies-only deferral of the
+    per-iteration grower (`fused_relabel_fusion`): every wave's applied
+    entries go in `dec` bit 0, its candidates in bit 1, and no relabel is
+    pending. A deferral moves no row to another leaf, so the trees are
+    the same;
+  * monotone `intermediate` serializes its applies on the device, refreshes
+    every bound after a wave that applied, and re-searches the stale
+    leaves as a third block of K children, masked by `stale`;
+  * wave_exact takes its applies from `exact_order`, on the device;
+  * forced splits rank a leaf whose best is its forced split first and
+    hand the forced table's children on.
+
+CEGB stays on the per-iteration grower, as in the JAX package
+(models/gbdt.py:can_batch_iters names it).
 
 Every per-tree value arrives as a tensor (the seed keys the draws through
 utils/random.py's DevKey), the steps write their state in place, and no
 step reads the device from the host: a CUDA graph captured from a step
 replays it (models/batched.py). The valid sets' rows are relabelled by the
-same wave tables (#5 on "mega", #4 on "apply"), so a tree's valid-set
-leaves are ready when it ends, with no walk over the tree.
+same wave tables (#5 on "mega" / "fused", #4 on "apply" / "fused_tiled"),
+so a tree's valid-set leaves are ready when it ends, with no walk over the
+tree.
 """
 
 from __future__ import annotations
@@ -51,39 +70,23 @@ import torch
 
 from .categorical import find_best_split_categorical
 from .grow import DeviceTree, GrowConfig, empty_split_cache
-from .grow_wave import (_slack_guard, _split_rows, _top_k,
-                        discretize_gradients, monotone_child_bounds,
+from .grow_fused import (fused_feature_mask, pack_fused_meta,
+                         pack_fused_scalars, unpack_fused_records)
+from .grow_wave import (_slack_guard, _split_rows, _top_k, dec_go_left,
+                        discretize_gradients, exact_order,
+                        intermediate_leaves, monotone_child_bounds,
                         monotone_penalty_factor, node_masks, pack_wave_cats,
-                        renew_leaf_values, wave_buckets_for, wave_bundle_map,
-                        wave_routes, xt_bins)
+                        refresh_bounds, renew_leaf_values, wave_buckets_for,
+                        wave_bundle_map, wave_routes, xt_bins)
 from .histogram import (HistPlan, add_leaf_values_, build_histogram,
                         build_histogram_slots, wave_apply, wave_pass,
-                        wave_relabel)
+                        wave_pass_fused, wave_pass_fused_tiled, wave_relabel)
 from .split import (NEG_INF, FeatureMeta, SplitResult, find_best_split,
-                    synth_count_channel)
+                    find_best_split_and_forced, synth_count_channel)
 from ..utils.random import PRNGKey, fold_in
-
-BATCHED_ROUTES = ("mega", "apply")
 
 # the fields of a tree's record (DeviceTree's but the grower's host reads)
 TREE_FIELDS = tuple(f for f in DeviceTree._fields if f != "host_reads")
-
-
-def batched_veto(cfg: GrowConfig, num_storage_cols: int) -> str:
-    """Why a tree of this configuration cannot grow through the fixed-shape
-    step ("" when it can): the regimes of A12(b)."""
-    route, _ = wave_routes(cfg, num_storage_cols)
-    if route not in BATCHED_ROUTES:
-        return f"the {route} route"
-    if cfg.wave_exact:
-        return "tpu_grower=wave_exact"
-    if cfg.has_monotone and cfg.monotone_method == "intermediate":
-        return "monotone_constraints_method=intermediate"
-    if cfg.has_forced:
-        return "forced splits"
-    if cfg.has_cegb:
-        return "CEGB"
-    return ""
 
 
 class WaveStepper:
@@ -97,15 +100,17 @@ class WaveStepper:
                  cfg: GrowConfig, *, hist_plan: Optional[HistPlan] = None,
                  valid_X: Sequence[torch.Tensor] = (),
                  plain: bool = False):
-        veto = batched_veto(cfg, X_t.shape[0])
-        if veto:
-            raise ValueError(f"no fixed-shape wave step for {veto}")
+        if cfg.has_cegb:
+            # CEGB's used features carry over from tree to tree: the JAX
+            # package trains it per iteration too
+            raise ValueError("no fixed-shape wave step for CEGB")
         self.X_t, self.meta, self.cfg = X_t, meta, cfg
         self.plain = plain
         dev = self.dev = X_t.device
         F_st, N = X_t.shape
         self.F = F = meta.num_bins.shape[0]
         self.route, self.hroute = wave_routes(cfg, F_st)
+        self.fused = self.route in ("fused", "fused_tiled")
         self.hist_plan = hist_plan
         self.L = L = cfg.num_leaves
         self.M = M = max(L - 1, 1)
@@ -115,7 +120,11 @@ class WaveStepper:
         self.C = C = 2
         self.quant = cfg.use_quantized_grad
         self.has_mono = meta.monotone is not None
+        self.mono_inter = (self.has_mono
+                           and cfg.monotone_method == "intermediate")
         self.has_inter = meta.inter_sets is not None
+        self.has_forced = meta.forced is not None
+        self.exact = cfg.wave_exact
         self.use_mpen = self.has_mono and cfg.monotone_penalty > 0.0
         self.S = meta.inter_sets.shape[0] if self.has_inter else 1
         self.bynode = cfg.feature_fraction_bynode < 1.0
@@ -174,6 +183,28 @@ class WaveStepper:
         self.catl, self.catr = z(L + 1, torch.bool), z(L + 1, torch.bool)
         self.bitsl = z((L + 1, W), torch.int64)
         self.bitsr = z((L + 1, W), torch.int64)
+        # forced splits: each leaf's forced-node id (-1: none), whether its
+        # cached best is that forced split, and the same for the
+        # speculated children (grow_wave.py:215-221)
+        self.leaf_forced = z(L + 1, torch.int64)
+        self.best_forced = z(L + 1, torch.bool)
+        self.fidl = z(L + 1, torch.int64)
+        self.fidr = z(L + 1, torch.int64)
+        self.bfl, self.bfr = z(L + 1, torch.bool), z(L + 1, torch.bool)
+        # monotone intermediate: each leaf's side of every node and the
+        # leaves whose bounds moved since their own search
+        if self.mono_inter:
+            self.under = z((L + 1, M), torch.int8)
+            self.stale = z(L + 1, torch.bool)
+        if self.fused:
+            self.fmeta = pack_fused_meta(meta)
+        if self.route == "fused_tiled":
+            # #10's decision bits, one row an entry, and its pending
+            # operands, never live here
+            self.dec = z((K, N), torch.uint8)
+            self.pend_leaf = torch.full((128,), -1, dtype=torch.int32,
+                                        device=dev)
+            self.pend_nl0 = z(1, torch.int32)
         self.num_leaves = z((), torch.int64)
         self.num_waves = z((), torch.int64)
         self.more = z((), torch.int32)
@@ -194,10 +225,26 @@ class WaveStepper:
         return monotone_penalty_factor(depth, self.cfg.monotone_penalty)
 
     def _child_bounds(self, bsx, pmin, pmax):
-        return monotone_child_bounds(bsx, pmin, pmax, self.meta.monotone)
+        return monotone_child_bounds(bsx, pmin, pmax, self.meta.monotone,
+                                     self.mono_inter)
 
     def _child_sets(self, bsx, psets):
         return psets & self.meta.inter_sets.t()[bsx.feature]
+
+    def _sel_key(self, gain, is_forced, fid):
+        """The wave's selection key (grow_wave.py:431-439): a leaf whose
+        best is its forced split outranks every other, forced nodes in BFS
+        order."""
+        if not self.has_forced:
+            return gain
+        return torch.where(is_forced, 3e18 - fid.to(torch.float32) * 1e12,
+                           gain)
+
+    def _keyed(self):
+        """The [L] selection keys of the cached bests."""
+        L = self.L
+        return self._sel_key(self.best.gain[:L], self.best_forced[:L],
+                             self.leaf_forced[:L])
 
     def _node_draws(self, step, n: int):
         """The per-node draws of step `step` (0 at the root, the wave count
@@ -215,12 +262,19 @@ class WaveStepper:
         return fm, rb
 
     def _search(self, hist2, sum_g, sum_h, count, out, bmin=None, bmax=None,
-                fmask=None, mpf=None, rand_bins=None):
+                fmask=None, mpf=None, rand_bins=None, fid=None, num=None):
         """Best splits of n histograms [n, C, F_st, B] of storage columns:
-        (SplitResult [n], is_cat [n], bitset [n, W]), the per-iteration
-        grower's search without forced splits and CEGB."""
+        (SplitResult [n], is_cat [n], bitset [n, W], forced [n]), the
+        per-iteration grower's search without CEGB. `num` is the numeric
+        search's result when a fused kernel ran it (hist2 then feeds the
+        categorical search alone); `fid` [n] the leaves' forced-node ids
+        (-1: none), whose split replaces the best where it can be made."""
         meta, cfg, hp = self.meta, self.cfg, self.cfg.hp
         n = count.shape[0]
+        unforced = torch.zeros(n, dtype=torch.bool, device=self.dev)
+        nobits = torch.zeros((n, self.W), dtype=torch.int64, device=self.dev)
+        if num is not None and not cfg.has_categorical:
+            return num, unforced, nobits, unforced
         if cfg.bundled:
             flat = hist2.reshape(n, self.C, -1)
             flat = torch.cat([flat, flat.new_zeros((n, self.C, 1))], dim=-1)
@@ -232,20 +286,34 @@ class WaveStepper:
         else:
             hist2 = self._to_f32(hist2)
         hist = synth_count_channel(hist2, count, sum_h)
-        num = find_best_split(hist, sum_g, sum_h, count, out, meta, hp,
-                              fmask, leaf_min=bmin, leaf_max=bmax,
-                              mono_pen_factor=mpf, rand_bins=rand_bins)
-        if not cfg.has_categorical:
-            return (num, torch.zeros(n, dtype=torch.bool, device=self.dev),
-                    torch.zeros((n, self.W), dtype=torch.int64,
-                                device=self.dev))
-        catres, bits = find_best_split_categorical(
-            hist, sum_g, sum_h, count, out, meta, hp, cfg.cat, fmask,
-            leaf_min=bmin, leaf_max=bmax)
-        use_cat = catres.gain > num.gain          # numeric wins ties
-        merged = SplitResult(*[torch.where(use_cat, cv, nv)
-                               for cv, nv in zip(catres, num)])
-        return merged, use_cat, torch.where(use_cat[:, None], bits, 0)
+        fres = None
+        if num is None and fid is not None:
+            fc = fid.clamp(0, meta.forced.shape[1] - 1)
+            num, fres = find_best_split_and_forced(
+                hist, sum_g, sum_h, count, out, meta, hp, fmask, bmin, bmax,
+                meta.forced[0, fc], meta.forced[1, fc], rand_bins=rand_bins,
+                mono_pen_factor=mpf)
+        elif num is None:
+            num = find_best_split(hist, sum_g, sum_h, count, out, meta, hp,
+                                  fmask, leaf_min=bmin, leaf_max=bmax,
+                                  mono_pen_factor=mpf, rand_bins=rand_bins)
+        if cfg.has_categorical:
+            catres, bits = find_best_split_categorical(
+                hist, sum_g, sum_h, count, out, meta, hp, cfg.cat, fmask,
+                leaf_min=bmin, leaf_max=bmax)
+            use_cat = catres.gain > num.gain          # numeric wins ties
+            merged = SplitResult(*[torch.where(use_cat, cv, nv)
+                                   for cv, nv in zip(catres, num)])
+            bits = torch.where(use_cat[:, None], bits, 0)
+        else:
+            merged, use_cat, bits = num, unforced, nobits
+        if fres is None:
+            return merged, use_cat, bits, unforced
+        use_f = (fid >= 0) & torch.isfinite(fres.gain)
+        merged = SplitResult(*[torch.where(use_f, fv, mv)
+                               for fv, mv in zip(fres, merged)])
+        return (merged, use_cat & ~use_f,
+                torch.where(use_f[:, None], 0, bits), use_f)
 
     # ------------------------------------------------------------------
     def start(self, grad: torch.Tensor, hess: torch.Tensor,
@@ -286,15 +354,19 @@ class WaveStepper:
         if root_bn is not None:
             root_fmask = root_bn if root_fmask is None \
                 else root_fmask & root_bn
-        split, is_cat, bits = self._search(
+        # the forced table's node 0 is the root's (grow_wave.py:771)
+        root_fid = (torch.zeros(1, dtype=torch.int64, device=dev)
+                    if self.has_forced else None)
+        split, is_cat, bits, forced = self._search(
             hist_root[None], root_g[None], root_h[None], root_c[None],
             root_out[None], bmin=-torch.inf * one if self.has_mono else None,
             bmax=torch.inf * one if self.has_mono else None,
             fmask=root_fmask,
             mpf=self._mpen_factor(0 * one) if self.use_mpen else None,
-            rand_bins=root_rb)
+            rand_bins=root_rb, fid=root_fid)
         if self.max_depth < 1:
             split = split._replace(gain=torch.full_like(split.gain, NEG_INF))
+            forced = torch.zeros_like(forced)
 
         for name in ("split_feature", "threshold_bin", "default_left",
                      "split_gain", "left_child", "right_child",
@@ -304,11 +376,16 @@ class WaveStepper:
                      "leaf_is_left", "leaf_depth", "leaf_output",
                      "leaf_sum_g", "leaf_sum_h", "hist_cache", "small_hist",
                      "small_is_left", "ready", "best_is_cat", "best_bitset",
-                     "catl", "catr", "bitsl", "bitsr"):
+                     "catl", "catr", "bitsl", "bitsr", "best_forced", "bfl",
+                     "bfr"):
             getattr(self, name).zero_()
+        for name in ("leaf_forced", "fidl", "fidr", "leaf_parent_node"):
+            getattr(self, name).fill_(-1)
+        if self.mono_inter:
+            self.under.zero_()
+            self.stale.zero_()
         self.leaf_weight[0] = root_h
         self.leaf_count[0] = root_c.to(torch.int32)
-        self.leaf_parent_node.fill_(-1)
         self.leaf_output[0] = root_out
         self.leaf_sum_g[0] = root_g
         self.leaf_sum_h[0] = root_h
@@ -324,40 +401,79 @@ class WaveStepper:
             a[0] = v[0]
         self.best_is_cat[0] = is_cat[0]
         self.best_bitset[0] = bits[0]
+        if self.has_forced:
+            self.leaf_forced[:1].zero_()
+            self.best_forced[0] = forced[0]
         self.num_leaves.fill_(1)
         self.num_waves.zero_()
         for vl in self.valid_leaf:
             vl.zero_()
-        self.more.copy_(((split.gain[0] > 0.0) & (L > 1)).to(torch.int32))
+        self.more.copy_(((self._keyed().max() > 0.0) & (L > 1))
+                        .to(torch.int32))
 
     # ------------------------------------------------------------------
+    def _order(self, keyed, nl0, im_leaf, active):
+        """ORDER (grow_wave.py:921-963): the leaves that split this wave, in
+        the order they split, and the mask of the applied ones (a prefix):
+        the ready leaves with positive gain in gain order, trimmed to the
+        leaf budget and the gain-slack rule and, under intermediate,
+        serialized; or wave_exact's strict leaf-wise order."""
+        L, K, j = self.L, self.K, self.j_iota
+        ready = self.ready[:L]
+        if self.exact:
+            pa, sel = exact_order(
+                keyed, self._sel_key(self.bestl.gain[:L], self.bfl[:L],
+                                     self.fidl[:L]),
+                self._sel_key(self.bestr.gain[:L], self.bfr[:L],
+                              self.fidr[:L]),
+                ready, im_leaf, nl0, L, K)
+            return pa, sel & active
+        budget = L - nl0
+        rg, pa = _top_k(torch.where(ready, keyed,
+                                    torch.full_like(keyed, NEG_INF)), K)
+        sel = (rg > 0.0) & (j < budget)
+        if self.cfg.wave_gain_slack > 0.0:
+            sel = _slack_guard(sel, rg, keyed, j, budget, L,
+                               self.cfg.wave_gain_slack)
+        if self.mono_inter:
+            # among the leaves under a monotone node or splitting on a
+            # monotone feature, only the first in gain order applies; the
+            # selected entries then lead, in gain order (grow_wave.py:
+            # 1259-1271)
+            ser = im_leaf | (self.meta.monotone[self.best.feature[:L]] != 0)
+            sel_mono = sel & ser[pa]
+            first = (torch.cumsum(sel_mono.to(torch.int32), 0) == 1) \
+                & sel_mono
+            sel = sel & (~sel_mono | first)
+            order = torch.sort((~sel).to(torch.int8), stable=True).indices
+            pa, sel = pa[order], sel[order]
+        return pa, sel & active
+
     def wave(self) -> None:
         """One wave at K = the route's cap: APPLY the ready leaves the
         order selects, SPECULATE the top-K frontier leaves, the route's
-        row pass, SEARCH both children of every candidate; inert when the
-        tree has ended."""
+        row pass, SEARCH both children of every candidate (and under
+        intermediate the stale leaves); inert when the tree has ended."""
         L, M, K, W, dev = self.L, self.M, self.K, self.W, self.dev
         cfg, meta = self.cfg, self.meta
         slack = cfg.wave_gain_slack
         j = self.j_iota
         nl0 = self.num_leaves.clone()
         best, ready = self.best, self.ready[:L]
+        im_leaf = None
+        if self.mono_inter:
+            im_leaf = intermediate_leaves(self.under[:L],
+                                          self.split_feature[:M],
+                                          meta.monotone, nl0)
 
-        # ---- ORDER (grow_wave.py:921-948): whether the tree goes on, and
-        # the ready leaves with positive gain in gain order
-        keyed = best.gain[:L]
+        # ---- ORDER: whether the tree goes on, and the applied leaves
+        keyed = self._keyed()
         active = (keyed.max() > 0.0) & (nl0 < L)
-        budget = L - nl0
-        rg, pa = _top_k(torch.where(ready, keyed,
-                                    torch.full_like(keyed, NEG_INF)), K)
-        sel = (rg > 0.0) & (j < budget)
-        if slack > 0.0:
-            sel = _slack_guard(sel, rg, keyed, j, budget, L, slack)
-        sel = sel & active
+        pa, sel = self._order(keyed, nl0, im_leaf, active)
         napp = sel.sum()
 
-        # ---- APPLY: the applied entries lead the gain order, so entry j
-        # splits node nl0 - 1 + j and its right child is leaf nl0 + j
+        # ---- APPLY: the applied entries lead, so entry j splits node
+        # nl0 - 1 + j and its right child is leaf nl0 + j
         s_idx = nl0 - 1 + j
         r_idx = nl0 + j
         pa_w = torch.where(sel, pa, L)
@@ -387,6 +503,13 @@ class WaveStepper:
             asets = self._child_sets(bs2, self.leaf_sets[pa])
             self.leaf_sets[pa_w] = asets
             self.leaf_sets[r_w] = asets
+        if self.mono_inter:
+            # the children inherit the parent's subtree membership and
+            # join the new node's sides (grow_wave.py:1369-1378)
+            pu = self.under[pa]
+            newcol = torch.arange(M, device=dev)[None, :] == s_idx[:, None]
+            self.under[pa_w] = torch.where(newcol, 1, pu).to(torch.int8)
+            self.under[r_w] = torch.where(newcol, 2, pu).to(torch.int8)
         self.split_feature[s_w] = bs2.feature
         self.threshold_bin[s_w] = bs2.threshold
         self.default_left[s_w] = bs2.default_left
@@ -404,18 +527,21 @@ class WaveStepper:
         s32 = s_idx.to(torch.int32)
         self.left_child[torch.where(fix & was_left, prev, M)] = s32
         self.right_child[torch.where(fix & ~was_left, prev, M)] = s32
-        for arr, lv, rv in (
-                (self.leaf_value, bs2.left_output, bs2.right_output),
-                (self.leaf_weight, bs2.left_sum_h, bs2.right_sum_h),
-                (self.leaf_count, bs2.left_count.to(torch.int32),
-                 bs2.right_count.to(torch.int32)),
-                (self.leaf_parent_node, s_idx, s_idx),
-                (self.leaf_depth, depth_child, depth_child),
-                (self.leaf_output, bs2.left_output, bs2.right_output),
-                (self.leaf_sum_g, bs2.left_sum_g, bs2.right_sum_g),
-                (self.leaf_sum_h, bs2.left_sum_h, bs2.right_sum_h),
-                (self.best_is_cat, cl, cr),
-                (self.best_bitset, bil, bir)):
+        pairs = [(self.leaf_value, bs2.left_output, bs2.right_output),
+                 (self.leaf_weight, bs2.left_sum_h, bs2.right_sum_h),
+                 (self.leaf_count, bs2.left_count.to(torch.int32),
+                  bs2.right_count.to(torch.int32)),
+                 (self.leaf_parent_node, s_idx, s_idx),
+                 (self.leaf_depth, depth_child, depth_child),
+                 (self.leaf_output, bs2.left_output, bs2.right_output),
+                 (self.leaf_sum_g, bs2.left_sum_g, bs2.right_sum_g),
+                 (self.leaf_sum_h, bs2.left_sum_h, bs2.right_sum_h),
+                 (self.best_is_cat, cl, cr),
+                 (self.best_bitset, bil, bir)]
+        if self.has_forced:
+            pairs += [(self.leaf_forced, self.fidl[pa], self.fidr[pa]),
+                      (self.best_forced, self.bfl[pa], self.bfr[pa])]
+        for arr, lv, rv in pairs:
             arr[pa_w] = lv
             arr[r_w] = rv
         # constant writes fill: a Python value assigned through an index
@@ -430,20 +556,37 @@ class WaveStepper:
             a[pa_w] = lv
             a[r_w] = rv
         self.num_leaves.add_(napp)
+        if self.mono_inter:
+            # after a wave that applied, every bound against the new
+            # outputs; a leaf whose bounds moved waits for its re-search
+            new_min, new_max, moved = refresh_bounds(
+                self.under[:L], self.leaf_output[:L], self.leaf_min[:L],
+                self.leaf_max[:L], self.split_feature[:M], meta.monotone,
+                self.num_leaves)
+            applied = napp > 0
+            moved = moved & applied
+            self.leaf_min[:L] = torch.where(applied, new_min,
+                                            self.leaf_min[:L])
+            self.leaf_max[:L] = torch.where(applied, new_max,
+                                            self.leaf_max[:L])
+            ready.logical_and_(~moved)
+            self.stale[:L].logical_or_(moved)
         tbl = torch.full((16, 128), -1, dtype=torch.int32, device=dev)
         tbl[15] = nl0
         tbl[0, :K] = torch.where(sel, pa, -1).to(torch.int32)
         tbl[1:7, :K] = _split_rows(bs2.feature, bs2.threshold,
                                    bs2.default_left, meta)
 
-        # ---- SPECULATE: the top-K unready frontier leaves by gain
+        # ---- SPECULATE: the top-K unready frontier leaves by gain (a
+        # stale leaf waits for its own re-search)
         budget2 = L - self.num_leaves
-        keyed2 = best.gain[:L]
-        gains, cand = _top_k(torch.where(ready,
+        keyed2 = self._keyed()
+        excl = ready | self.stale[:L] if self.mono_inter else ready
+        gains, cand = _top_k(torch.where(excl,
                                          torch.full_like(keyed2, NEG_INF),
                                          keyed2), K)
         valid = (gains > 0.0) & (j < budget2)
-        if slack > 0.0:
+        if slack > 0.0 and not self.exact:
             valid = _slack_guard(valid, gains, keyed2, j, budget2, L, slack)
         valid = valid & active
         bs = SplitResult(*[x[cand] for x in best])
@@ -453,38 +596,80 @@ class WaveStepper:
         tbl[8:14, :K] = _split_rows(bs.feature, bs.threshold,
                                     bs.default_left, meta)
         tbl[14, :K] = smaller_is_left.to(torch.int32)
+        cons = self._children_constraints(bs, cand)
 
-        # ---- the route's row pass: relabel, candidate histograms
-        if self.route == "mega":
-            lor, hist_wave = wave_pass(self.X_t, self.vals0, self.leaf_of_row,
-                                       tbl, K, self.B, L, plain=self.plain)
+        # ---- the route's row pass: relabel, candidate histograms (and on
+        # the fused routes their children's numeric searches)
+        rec = None
+        if self.route in ("mega", "fused"):
+            if self.route == "mega":
+                lor, hist_wave = wave_pass(self.X_t, self.vals0,
+                                           self.leaf_of_row, tbl, K, self.B,
+                                           L, plain=self.plain)
+            else:
+                lor, hist_wave, rec = wave_pass_fused(
+                    self.X_t, self.vals0, self.leaf_of_row, tbl,
+                    self.hist_cache[cand],
+                    pack_fused_scalars(bs, smaller_is_left, cons[0],
+                                       cons[1]),
+                    self.fmeta, fused_feature_mask(self.fmask, self.F, dev),
+                    K, self.B, L, cfg.hp, plain=self.plain)
             for Xv, vl in zip(self.valid_X, self.valid_leaf):
                 wave_relabel(Xv, vl, tbl, L, out=vl, plain=self.plain)
-            cats = None
         else:
             cats = None
             if cfg.has_categorical:
                 cats = pack_wave_cats(iscat2, bits2, self.best_is_cat[cand],
                                       self.best_bitset[cand], W)
-            lor, slot_small = wave_apply(self.X_t, self.leaf_of_row, tbl,
-                                         cats, self.bundle_map, K, L,
-                                         plain=self.plain)
-            hist_wave = build_histogram_slots(
-                self.X_t, self.vals0, slot_small, K, self.B,
-                impl=self.hroute, plan=self.hist_plan, plain=self.plain)
+            if self.route == "apply":
+                lor, slot_small = wave_apply(self.X_t, self.leaf_of_row, tbl,
+                                             cats, self.bundle_map, K, L,
+                                             plain=self.plain)
+                hist_wave = build_histogram_slots(
+                    self.X_t, self.vals0, slot_small, K, self.B,
+                    impl=self.hroute, plan=self.hist_plan, plain=self.plain)
+            else:
+                # #10 reads go-left bits per (entry, row): bit 0 under
+                # applied entry j, bit 1 = lands in candidate j's smaller
+                # child; no relabel is pending
+                gla = dec_go_left(self.X_t, bs2.feature, bs2.threshold,
+                                  bs2.default_left, iscat2, bits2, meta, cfg)
+                glc = dec_go_left(self.X_t, bs.feature, bs.threshold,
+                                  bs.default_left, self.best_is_cat[cand],
+                                  self.best_bitset[cand], meta, cfg)
+                land = glc == smaller_is_left[:, None]
+                torch.bitwise_or(gla.to(torch.uint8),
+                                 land.to(torch.uint8) << 1, out=self.dec)
+                del gla, glc, land
+                fm_lr = cons[2]
+                fm_lr = (fm_lr.to(torch.uint8).contiguous()
+                         if self.has_inter else
+                         fused_feature_mask(self.fmask, self.F, dev, 2 * K))
+                lor, hist_wave, rec = wave_pass_fused_tiled(
+                    self.X_t, self.vals0, self.dec, self.leaf_of_row, tbl,
+                    self.pend_leaf, self.pend_nl0, self.hist_cache[cand],
+                    pack_fused_scalars(bs, smaller_is_left, cons[0],
+                                       cons[1]),
+                    self.fmeta, fm_lr, K, self.B, L, cfg.hp,
+                    self.ch_scale if self.quant else None, plain=self.plain)
             for Xv, vl in zip(self.valid_X, self.valid_leaf):
                 # the valid rows hold the original features: no bundle map
                 vl.copy_(wave_apply(Xv, vl, tbl, cats, None, K, L,
                                     plain=self.plain)[0])
         self.leaf_of_row.copy_(lor)
 
-        # ---- SEARCH both children of every candidate
+        # ---- SEARCH both children of every candidate (the fused kernels
+        # ran the numeric search already), and under intermediate the
+        # stale leaves' own bests as a third block (grow_wave.py:1766-1800)
         hist_small = hist_wave.reshape(K, -1)
-        sl = smaller_is_left[:, None]
-        hist_large = self.hist_cache[cand] - hist_small
-        hist_lr = torch.cat([torch.where(sl, hist_small, hist_large),
-                             torch.where(sl, hist_large, hist_small)]
-                            ).reshape((2 * K,) + self.hist_shape)
+        num = unpack_fused_records(rec, K) if rec is not None else None
+        hist_lr = None
+        if num is None or cfg.has_categorical:
+            sl = smaller_is_left[:, None]
+            hist_large = self.hist_cache[cand] - hist_small
+            hist_lr = torch.cat([torch.where(sl, hist_small, hist_large),
+                                 torch.where(sl, hist_large, hist_small)]
+                                ).reshape((2 * K,) + self.hist_shape)
 
         def both(a, b):
             return torch.cat([a, b])
@@ -492,38 +677,100 @@ class WaveStepper:
         sh_lr = both(bs.left_sum_h, bs.right_sum_h)
         c_lr = both(bs.left_count, bs.right_count)
         o_lr = both(bs.left_output, bs.right_output)
-        bmin = bmax = mpf = None
-        fmask = self.fmask
-        if self.has_mono:
-            lmin, lmax, rmin, rmax = self._child_bounds(
-                bs, self.leaf_min[cand], self.leaf_max[cand])
-            bmin, bmax = both(lmin, rmin), both(lmax, rmax)
-        if self.has_inter:
-            allow = self._sets_to_fmask(self._child_sets(
-                bs, self.leaf_sets[cand]))
-            fmask = both(allow, allow)
-        if self.use_mpen:
-            d = self.leaf_depth[cand] + 1
-            mpf = self._mpen_factor(both(d, d))
-        bn, rb = self._node_draws(self.num_waves + 1, 2 * K)
+        bmin, bmax, fmask, mpf = cons
+        # the children's forced-node ids: a candidate whose best is its
+        # forced split hands the table's children on (grow_wave.py:
+        # 1815-1825)
+        fid_lr = None
+        if self.has_forced:
+            cf = self.best_forced[cand]
+            fc = self.leaf_forced[cand].clamp(0, meta.forced.shape[1] - 1)
+            fidl_k = torch.where(cf, meta.forced[2, fc], -1)
+            fidr_k = torch.where(cf, meta.forced[3, fc], -1)
+            fid_lr = both(fidl_k, fidr_k)
+        can = (self.leaf_depth[cand] + 1 < self.max_depth).repeat(2)
+        rows = 2 * K
+        if self.mono_inter:
+            # the stale leaves' own histograms, sums, bounds and sets; the
+            # own block re-splits the leaf itself, so its depth gate is
+            # depth < max_depth
+            stale = self.stale[:L]
+            rs_i = _top_k(torch.where(stale,
+                                      torch.clamp(best.gain[:L], min=0.0),
+                                      torch.full_like(best.gain[:L],
+                                                      NEG_INF)), K)[1]
+            rs_ok = (j < stale.sum()) & active
+            hist_lr = torch.cat([hist_lr, self.hist_cache[rs_i].reshape(
+                (K,) + self.hist_shape)])
+            sg_lr = both(sg_lr, self.leaf_sum_g[rs_i])
+            sh_lr = both(sh_lr, self.leaf_sum_h[rs_i])
+            c_lr = both(c_lr, self.leaf_count[rs_i].to(torch.float32))
+            o_lr = both(o_lr, self.leaf_output[rs_i])
+            bmin = both(bmin, self.leaf_min[rs_i])
+            bmax = both(bmax, self.leaf_max[rs_i])
+            if self.has_inter:
+                fmask = both(fmask, self._sets_to_fmask(self.leaf_sets[rs_i]))
+            if self.use_mpen:
+                mpf = both(mpf, self._mpen_factor(self.leaf_depth[rs_i]))
+            if self.has_forced:
+                fid_lr = both(fid_lr, self.leaf_forced[rs_i])
+            can = both(can, self.leaf_depth[rs_i] < self.max_depth)
+            rows = 3 * K
+        bn, rb = self._node_draws(self.num_waves + 1, rows)
         if bn is not None:
             fmask = bn if fmask is None else fmask & bn
-        s_lr, cat_lr, bits_lr = self._search(
-            hist_lr, sg_lr, sh_lr, c_lr, o_lr, bmin, bmax, fmask, mpf, rb)
-        can = (self.leaf_depth[cand] + 1 < self.max_depth).repeat(2)
+        s_lr, cat_lr, bits_lr, forced_lr = self._search(
+            hist_lr, sg_lr, sh_lr, c_lr, o_lr, bmin, bmax, fmask, mpf, rb,
+            fid_lr, num)
         s_lr = s_lr._replace(gain=torch.where(
             can, s_lr.gain, torch.full_like(s_lr.gain, NEG_INF)))
+        forced_lr = forced_lr & can
         c_w = torch.where(valid, cand, L)
         self.small_hist[c_w] = hist_small
         self.small_is_left[c_w] = smaller_is_left
         self.ready.index_fill_(0, c_w, True)
         for a_l, a_r, v in zip(self.bestl, self.bestr, s_lr):
             a_l[c_w] = v[:K]
-            a_r[c_w] = v[K:]
-        self.catl[c_w], self.catr[c_w] = cat_lr[:K], cat_lr[K:]
-        self.bitsl[c_w], self.bitsr[c_w] = bits_lr[:K], bits_lr[K:]
-        self.more.copy_(((best.gain[:L].max() > 0.0)
+            a_r[c_w] = v[K:2 * K]
+        self.catl[c_w], self.catr[c_w] = cat_lr[:K], cat_lr[K:2 * K]
+        self.bitsl[c_w], self.bitsr[c_w] = bits_lr[:K], bits_lr[K:2 * K]
+        if self.has_forced:
+            self.fidl[c_w], self.fidr[c_w] = fidl_k, fidr_k
+            self.bfl[c_w] = forced_lr[:K]
+            self.bfr[c_w] = forced_lr[K:2 * K]
+        if self.mono_inter:
+            # install the re-searched bests; the leaves re-enter as
+            # candidates next wave (grow_wave.py:2066-2085)
+            r_w2 = torch.where(rs_ok, rs_i, L)
+            for a, v in zip(best, s_lr):
+                a[r_w2] = v[2 * K:]
+            self.best_is_cat[r_w2] = cat_lr[2 * K:]
+            self.best_bitset[r_w2] = bits_lr[2 * K:]
+            if self.has_forced:
+                self.best_forced[r_w2] = forced_lr[2 * K:]
+            self.stale.index_fill_(0, r_w2, False)
+        self.more.copy_(((self._keyed().max() > 0.0)
                          & (self.num_leaves < L)).to(torch.int32))
+
+    def _children_constraints(self, bsx, leaves):
+        """What the search of both children of the candidates `leaves`
+        (best splits `bsx`) reads, left children first: (bounds min,
+        bounds max, feature mask [2K, F] or the tree's, penalty factor);
+        None where the regime is off."""
+        bmin = bmax = mpf = None
+        fmask = self.fmask
+        if self.has_mono:
+            lmin, lmax, rmin, rmax = self._child_bounds(
+                bsx, self.leaf_min[leaves], self.leaf_max[leaves])
+            bmin, bmax = torch.cat([lmin, rmin]), torch.cat([lmax, rmax])
+        if self.has_inter:
+            allow = self._sets_to_fmask(self._child_sets(
+                bsx, self.leaf_sets[leaves]))
+            fmask = torch.cat([allow, allow])
+        if self.use_mpen:
+            d = self.leaf_depth[leaves] + 1
+            mpf = self._mpen_factor(torch.cat([d, d]))
+        return bmin, bmax, fmask, mpf
 
     # ------------------------------------------------------------------
     def finish(self, lr: torch.Tensor, scores: torch.Tensor,

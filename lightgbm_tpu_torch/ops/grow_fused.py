@@ -121,7 +121,7 @@ def unpack_fused_records(rec: torch.Tensor, n: int) -> SplitResult:
 def _scan_plain(hist: torch.Tensor, parent: torch.Tensor,
                 scal: torch.Tensor, fmeta: torch.Tensor, fmask: torch.Tensor,
                 hp: SplitHyperParams,
-                scale: Optional[Tuple[float, float]]) -> torch.Tensor:
+                scale: Optional[torch.Tensor]) -> torch.Tensor:
     """Plain version of the split scan: the [12, 2K] records of the 2K
     children of the smaller-child histograms `hist` [K, 2, F, B] and the
     candidates' parent histograms `parent` [K, 2 * F * B]."""
@@ -132,8 +132,7 @@ def _scan_plain(hist: torch.Tensor, parent: torch.Tensor,
                     torch.where(sil, large, hist)])          # [2K, 2, F, B]
     if scale is not None:
         # int32 sums subtract exactly, then descale (grow_fused.py:437-439)
-        ch = ch.to(torch.float32) * torch.tensor(
-            scale, dtype=torch.float32, device=ch.device)[:, None, None]
+        ch = ch.to(torch.float32) * scale[:, None, None]
     # the monotone operand: directions and bounds clip and reject as in
     # find_best_split; zeros and +-inf leave the records unchanged
     meta = FeatureMeta(num_bins=fmeta[0], missing_type=fmeta[1],
@@ -239,12 +238,12 @@ def wave_pass_fused_plain(X: torch.Tensor, vals: torch.Tensor,
 def wave_pass_fused_tiled_cuda(X: torch.Tensor, vals: torch.Tensor,
                                dec: torch.Tensor, leaf_of_row: torch.Tensor,
                                table: torch.Tensor, pend_leaf: torch.Tensor,
-                               pend_nl0: int, parent: torch.Tensor,
+                               pend_nl0: torch.Tensor, parent: torch.Tensor,
                                scal: torch.Tensor, fmeta: torch.Tensor,
                                fmask: torch.Tensor, num_slots: int,
                                num_bins: int, num_leaves: int,
                                hp: SplitHyperParams,
-                               scale: Optional[Tuple[float, float]] = None
+                               scale: Optional[torch.Tensor] = None
                                ) -> Tuple[torch.Tensor, torch.Tensor,
                                           torch.Tensor]:
     """One fused wave from decision bits: returns (new leaf_of_row [N]
@@ -255,9 +254,10 @@ def wave_pass_fused_tiled_cuda(X: torch.Tensor, vals: torch.Tensor,
     k. `table` is the [16, 128] wave table (rows 0, 7 and 15 read, as
     wave_apply_cuda), `pend_leaf` [128] int32 the pending (deferred)
     applies' leaves, -1 = inactive, whose right children are leaves
-    pend_nl0 + k. int8 `vals` accumulate in int32 and take an int32
-    `parent`; `scale` = (grad, hess) descale factors. Every leaf id is
-    below `num_leaves`; K <= Kd."""
+    pend_nl0 + k (`pend_nl0` [1] int32). int8 `vals` accumulate in int32
+    and take an int32 `parent`; `scale` [2] f32 = the (grad, hess) descale
+    factors. Both live in device memory, so a captured graph replays each
+    wave's own. Every leaf id is below `num_leaves`; K <= Kd."""
     dev = hc._cuda_device(X)
     if X.dim() != 2:
         raise ValueError("X must be [F, N]")
@@ -270,10 +270,13 @@ def wave_pass_fused_tiled_cuda(X: torch.Tensor, vals: torch.Tensor,
     hc._check_hist_args(X, vals, F, N, K, B, dev)
     hc._check(vals, "vals", (torch.float32, torch.int8), (2, N), dev)
     hc._check(pend_leaf, "pend_leaf", (torch.int32,), (hc.MAX_SLOTS,), dev)
+    hc._check(pend_nl0, "pend_nl0", (torch.int32,), (1,), dev)
     quant = vals.dtype == torch.int8
     if quant == (scale is None):
         raise ValueError("int8 vals take the descale factors `scale`, f32 "
                          "vals none")
+    if quant:
+        hc._check(scale, "scale", (torch.float32,), (2,), dev)
     stride = _check_scan_args(parent, scal, fmeta, fmask, K, F, B,
                               torch.int32 if quant else torch.float32, dev)
     new_lor = torch.empty_like(leaf_of_row)
@@ -283,18 +286,17 @@ def wave_pass_fused_tiled_cuda(X: torch.Tensor, vals: torch.Tensor,
     tb = hc.tile_buffers(plan, (K, 2, F, B), N, True, quant, dev, sms,
                          lead=N)
     rec = torch.empty((REC_FIELDS, 2 * K), dtype=torch.float32, device=dev)
-    gs, hs = scale if quant else (1.0, 1.0)
     rc = hc._lib("wave_pass_fused_tiled")(
         X.data_ptr(), vals.data_ptr(), int(quant), dec.data_ptr(),
         leaf_of_row.data_ptr(), table.data_ptr(), pend_leaf.data_ptr(),
-        int(pend_nl0), new_lor.data_ptr(), tb.out.data_ptr(),
+        pend_nl0.data_ptr(), new_lor.data_ptr(), tb.out.data_ptr(),
         hc._ptr(tb.acc), hc._ptr(tb.scratch), parent.data_ptr(),
         scal.data_ptr(), fmeta.data_ptr(), fmask.data_ptr(), stride,
         rec.data_ptr(), _scan_scratch(K, F, dev).data_ptr(), N, F, K, B, Kd,
         num_leaves, plan.slots_per_tile, plan.feats_per_tile,
         plan.slot_tiles, plan.feat_tiles, tb.segs, hc.MIN_SEGMENT_ROWS,
         int(plan.merge), int(plan.paired), int(plan.direct), tb.W,
-        ctypes.c_float(gs), ctypes.c_float(hs), *_hp_args(hp), sms, stream)
+        scale.data_ptr() if quant else None, *_hp_args(hp), sms, stream)
     hc._raise_on(rc, "wave_pass_fused_tiled")
     hc.LAUNCHES["wave_pass_fused_tiled"] += 1
     return new_lor, tb.out, rec
@@ -303,12 +305,12 @@ def wave_pass_fused_tiled_cuda(X: torch.Tensor, vals: torch.Tensor,
 def wave_pass_fused_tiled_plain(X: torch.Tensor, vals: torch.Tensor,
                                 dec: torch.Tensor, leaf_of_row: torch.Tensor,
                                 table: torch.Tensor, pend_leaf: torch.Tensor,
-                                pend_nl0: int, parent: torch.Tensor,
+                                pend_nl0: torch.Tensor, parent: torch.Tensor,
                                 scal: torch.Tensor, fmeta: torch.Tensor,
                                 fmask: torch.Tensor, num_slots: int,
                                 num_bins: int, num_leaves: int,
                                 hp: SplitHyperParams,
-                                scale: Optional[Tuple[float, float]] = None
+                                scale: Optional[torch.Tensor] = None
                                 ) -> Tuple[torch.Tensor, torch.Tensor,
                                            torch.Tensor]:
     """Plain PyTorch version of wave_pass_fused_tiled_cuda: the pending
@@ -317,11 +319,11 @@ def wave_pass_fused_tiled_plain(X: torch.Tensor, vals: torch.Tensor,
     K = num_slots
     tp = torch.full_like(table, -1)
     tp[0] = pend_leaf
-    tp[15] = int(pend_nl0)
+    tp[15] = pend_nl0
     lor, _ = hc.wave_apply_plain((dec >> 2) & 1, leaf_of_row, tp,
                                  num_leaves)
     t = table.clone()
-    t[7, K:] = -1                       # the kernel maps candidates k < K
+    t[7, K:].fill_(-1)                  # the kernel maps candidates k < K
     new_lor, slot = hc.wave_apply_plain(dec, lor, t, num_leaves)
     hist = hc.build_histogram_slots_plain(X, vals, slot, K, num_bins)
     return new_lor, hist, _scan_plain(hist, parent, scal, fmeta, fmask, hp,

@@ -40,8 +40,8 @@ a Python loop over waves:
      [L]-array bookkeeping. Under `wave_exact` (tpu_grower=wave_exact)
      the wave applies instead what the serial growers' strict leaf-wise
      order would, one leaf after another, up to the first leaf whose
-     children are not speculated yet (`exact_order`, on the host from the
-     gains the step reads anyway); the gain slack is then ignored.
+     children are not speculated yet (`exact_order`, on the device); the
+     gain slack is then ignored.
   2. SPECULATE: the top-K unready frontier leaves by cached gain become
      the wave's candidates.
   3. The row pass of the route relabels the rows and builds every
@@ -93,7 +93,6 @@ import functools
 import os
 from typing import List, NamedTuple, Optional, Tuple
 
-import numpy as np
 import torch
 
 from ..models.tree import MISSING_NAN, MISSING_ZERO
@@ -368,38 +367,96 @@ def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def exact_order(keyed: torch.Tensor, keyed_l: torch.Tensor,
                 keyed_r: torch.Tensor, ready: torch.Tensor,
-                im_leaf: Optional[torch.Tensor], num_leaves: int, L: int,
-                kmax: int) -> Tuple[List[int], bool]:
+                im_leaf: Optional[torch.Tensor], num_leaves, L: int,
+                kmax: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """wave_exact's ORDER step (make_sim, grow_wave.py:1151-1180,
-    :1215-1231), on the host from one read of the [L] arrays: the serial
-    growers' priority rule replayed on the cached gains (selection keys)
-    `keyed`, each applied leaf's entry replaced by its left child's key
-    `keyed_l` and the new leaf's by its right child's `keyed_r`, until the
-    head of the queue is not ready, has no positive gain, the leaf budget
-    or `kmax` applies are reached, or (monotone intermediate, `im_leaf`)
-    it lies under a monotone node after one such leaf applied. Returns
-    (the applied leaves in order, whether any gain is positive)."""
-    cols = [keyed, keyed_l, keyed_r, ready]
+    :1215-1231) on the device, with no host read: the serial growers'
+    priority rule replayed on the cached gains (selection keys) `keyed`,
+    each applied leaf's entry replaced by its left child's key `keyed_l`
+    and the new leaf's (num_leaves + i for the i-th apply) by its right
+    child's `keyed_r`, until the head of the queue is not ready, has no
+    positive gain, the leaf budget or `kmax` applies are reached, or
+    (monotone intermediate, `im_leaf`) it lies under a monotone node after
+    one such leaf applied. `num_leaves` is an int or a device scalar.
+
+    The rule's argmax (ties to the lower leaf id, NaN first, as np.argmax)
+    takes the leaves in the order of a stable descending sort of `keyed`
+    for as long as it applies; the children are never ready, so it stops
+    at the first sorted leaf that a child key of an earlier apply outranks.
+    Returns (the top-kmax leaves in that order [kmax], the applied prefix
+    mask [kmax])."""
+    k, s = _top_k(keyed, kmax)
+    t = torch.arange(kmax, device=keyed.device)
+    nid = num_leaves + t
+
+    def beats(c, ci):
+        # child key c at leaf ci outranks the sorted leaf s[t] of key k[t]
+        return ((c[:, None] > k[None, :])
+                | ((c[:, None] == k[None, :]) & (ci[:, None] < s[None, :]))
+                | torch.isnan(c)[:, None])
+    wins = (beats(keyed_l[s], s) | beats(keyed_r[s], nid)) \
+        & (t[:, None] < t[None, :])
+    ok = (k > 0.0) & ready[s] & (nid < L) & ~wins.any(dim=0)
     if im_leaf is not None:
-        cols.append(im_leaf)
-    a = torch.stack([c.to(torch.float64) for c in cols]).cpu().numpy()
-    gain, gl, gr = a[0].copy(), a[1], a[2]
-    rdy = a[3] > 0
-    im = a[4] > 0 if im_leaf is not None else np.zeros(L, bool)
-    go_on = bool(gain.max() > 0.0)
-    app: List[int] = []
-    n, mono_done = num_leaves, False
-    while True:
-        p = int(np.argmax(gain))          # ties to the lower leaf id
-        if not (gain[p] > 0.0 and rdy[p] and n < L and len(app) < kmax
-                and not (im[p] and mono_done)):
-            break
-        gain[p], gain[n] = gl[p], gr[p]
-        rdy[p] = False
-        n += 1
-        app.append(p)
-        mono_done |= bool(im[p])
-    return app, go_on
+        ims = im_leaf[s]
+        earlier = torch.cumsum(ims.to(torch.int32), 0) - ims.to(torch.int32)
+        ok = ok & ~(ims & (earlier > 0))
+    return s, torch.cumprod(ok.to(torch.int32), 0) > 0
+
+
+def intermediate_leaves(under: torch.Tensor, split_feature: torch.Tensor,
+                        monotone: torch.Tensor, num_leaves) -> torch.Tensor:
+    """[L] bool: the leaves under a monotone node already in the tree, whose
+    applications serialize under monotone `intermediate`
+    (grow_wave.py:1201-1211). `under` [L, M] int8 is 1 / 2 where leaf l
+    lies in the left / right subtree of node s; `num_leaves` an int or a
+    device scalar."""
+    M = under.shape[1]
+    node_act = torch.arange(M, device=under.device) < num_leaves - 1
+    mono_n = torch.where(node_act, monotone[split_feature], 0)
+    return ((under != 0) & (mono_n != 0)[None, :]).any(dim=1)
+
+
+def refresh_bounds(under: torch.Tensor, leaf_output: torch.Tensor,
+                   leaf_min: torch.Tensor, leaf_max: torch.Tensor,
+                   split_feature: torch.Tensor, monotone: torch.Tensor,
+                   num_leaves) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """Every leaf's intermediate bounds against the current outputs under
+    each monotone node, the batched fixpoint of the reference's
+    GoUpToFindLeavesToUpdate (monotone_constraints.hpp:625;
+    grow_wave.py:1403-1438): for an increasing split at node s, each leaf
+    of its left subtree is capped above by the least output of its right
+    subtree and each leaf of its right subtree below by the largest of its
+    left, the other way round for a decreasing one. Returns (new min, new
+    max, moved) over the [L] leaves, `moved` where a bound moved by more
+    than 1e-12: such a leaf leaves the ready set and is marked stale until
+    its own best is searched again. `num_leaves` is an int or a device
+    scalar."""
+    L, M = under.shape
+    dev = under.device
+    act = torch.arange(L, device=dev) < num_leaves
+    inf = torch.full((), torch.inf, device=dev)
+    o_min = torch.where(act, leaf_output, inf)[:, None]
+    o_max = torch.where(act, leaf_output, -inf)[:, None]
+    u_l, u_r = under == 1, under == 2                    # [L, M]
+    lmax_n = torch.where(u_l, o_max, -inf).amax(dim=0)   # [M]
+    rmin_n = torch.where(u_r, o_min, inf).amin(dim=0)
+    lmin_n = torch.where(u_l, o_min, inf).amin(dim=0)
+    rmax_n = torch.where(u_r, o_max, -inf).amax(dim=0)
+    node_act = torch.arange(M, device=dev) < num_leaves - 1
+    mono_n = torch.where(node_act, monotone[split_feature], 0)[None, :]
+    capmax = torch.where((mono_n > 0) & u_l, rmin_n[None, :],
+                         torch.where((mono_n < 0) & u_r, lmin_n[None, :],
+                                     inf))
+    capmin = torch.where((mono_n > 0) & u_r, lmax_n[None, :],
+                         torch.where((mono_n < 0) & u_l, rmax_n[None, :],
+                                     -inf))
+    new_max = capmax.amin(dim=1)                         # [L]
+    new_min = capmin.amax(dim=1)
+    moved = act & (((new_min - leaf_min).abs() > 1e-12)
+                   | ((new_max - leaf_max).abs() > 1e-12))
+    return new_min, new_max, moved
 
 
 def _slack_guard(sel: torch.Tensor, gains: torch.Tensor, keyed: torch.Tensor,
@@ -592,12 +649,9 @@ def grow_tree_wave(
         vals0, ch_scale = discretize_gradients(
             g, h, cfg.num_grad_quant_bins, cfg.stochastic_rounding,
             rng_seed)
-        # the general fused kernel takes the factors as launch arguments
-        scale_args = (tuple(ch_scale.tolist()) if route == "fused_tiled"
-                      else None)
     else:
         vals0 = torch.stack([g, h], dim=0)                   # [2, N] f32
-        ch_scale = scale_args = None
+        ch_scale = None
     C = 2
 
     def to_f32(hist):
@@ -688,43 +742,6 @@ def grow_tree_wave(
     def child_bounds(bsx, pmin, pmax):
         return monotone_child_bounds(bsx, pmin, pmax, meta.monotone,
                                      mono_inter)
-
-    def refresh_bounds(n_leaves):
-        """Refresh every leaf's intermediate bounds against the current
-        outputs under each monotone node, the batched fixpoint of the
-        reference's GoUpToFindLeavesToUpdate (monotone_constraints.hpp:
-        625; grow_wave.py:1403-1438): for an increasing split at node s,
-        each leaf of its left subtree is capped above by the least output
-        of its right subtree and each leaf of its right subtree below by
-        the largest of its left, the other way round for a decreasing
-        one. A leaf whose bounds moved by more than 1e-12 leaves the ready
-        set and is marked stale until its own best is searched again."""
-        act = torch.arange(L, device=dev) < n_leaves
-        inf = torch.full((), torch.inf, device=dev)
-        o_min = torch.where(act, leaf_output, inf)[:, None]
-        o_max = torch.where(act, leaf_output, -inf)[:, None]
-        u_l, u_r = under == 1, under == 2                    # [L, M]
-        lmax_n = torch.where(u_l, o_max, -inf).amax(dim=0)   # [M]
-        rmin_n = torch.where(u_r, o_min, inf).amin(dim=0)
-        lmin_n = torch.where(u_l, o_min, inf).amin(dim=0)
-        rmax_n = torch.where(u_r, o_max, -inf).amax(dim=0)
-        node_act = torch.arange(M, device=dev) < n_leaves - 1
-        mono_n = torch.where(node_act, meta.monotone[split_feature],
-                             0)[None, :]
-        capmax = torch.where((mono_n > 0) & u_l, rmin_n[None, :],
-                             torch.where((mono_n < 0) & u_r,
-                                         lmin_n[None, :], inf))
-        capmin = torch.where((mono_n > 0) & u_r, lmax_n[None, :],
-                             torch.where((mono_n < 0) & u_l,
-                                         rmax_n[None, :], -inf))
-        new_max = capmax.amin(dim=1)                         # [L]
-        new_min = capmin.amax(dim=1)
-        moved = act & (((new_min - leaf_min).abs() > 1e-12)
-                       | ((new_max - leaf_max).abs() > 1e-12))
-        leaf_min.copy_(new_min)
-        leaf_max.copy_(new_max)
-        ready.logical_and_(~moved)
-        stale.logical_or_(moved)
 
     def children_constraints(bsx, leaves):
         """What the search of both children of the candidates `leaves`
@@ -966,23 +983,21 @@ def grow_tree_wave(
     while L > 1:
         im_leaf = None
         if mono_inter:
-            # leaves under a monotone node already in the tree: their
-            # applications serialize (grow_wave.py:1201-1211)
-            node_act = torch.arange(M, device=dev) < num_leaves - 1
-            mono_n = torch.where(node_act, meta.monotone[split_feature], 0)
-            im_leaf = ((under != 0) & (mono_n != 0)[None, :]).any(dim=1)
+            im_leaf = intermediate_leaves(under, split_feature,
+                                          meta.monotone, num_leaves)
         # ---- ORDER: ready leaves with positive gain split in gain order
         keyed = sel_key(best.gain, best_forced, leaf_forced)
         if cfg.wave_exact:
             # strict leaf-wise: the serial priority rule, stopping at the
             # first leaf whose children are not speculated yet
-            app, go_on = exact_order(
+            rl, sel = exact_order(
                 keyed, sel_key(bestl.gain, bfl, fidl),
                 sel_key(bestr.gain, bfr, fidr), ready, im_leaf, num_leaves,
                 L, KMAX)
+            napp, go_on = torch.stack([sel.sum(),
+                                       (keyed.max() > 0.0).to(torch.int64)]
+                                      ).tolist()
             host_reads += 1
-            napp = len(app)
-            rl = torch.tensor(app, dtype=torch.int64, device=dev)
         else:
             napp, go_on, rl = batched_order(keyed, im_leaf)
             host_reads += 1
@@ -1081,7 +1096,13 @@ def grow_tree_wave(
             tbl[1:7, :napp] = _split_rows(bs2.feature, bs2.threshold,
                                           bs2.default_left, meta)
             if mono_inter:
-                refresh_bounds(num_leaves)
+                new_min, new_max, moved = refresh_bounds(
+                    under, leaf_output, leaf_min, leaf_max, split_feature,
+                    meta.monotone, num_leaves)
+                leaf_min.copy_(new_min)
+                leaf_max.copy_(new_max)
+                ready.logical_and_(~moved)
+                stale.logical_or_(moved)
 
         # ---- SPECULATE: top-K unready frontier leaves by gain (a stale
         # leaf waits for its own re-search)
@@ -1191,6 +1212,8 @@ def grow_tree_wave(
                 dec[:n_cand] |= land.to(torch.uint8) << 1
                 pend_tbl = torch.full((128,), -1, dtype=torch.int32,
                                       device=dev)
+                pend_nl0 = torch.full((1,), 0 if pend is None else pend.nl0,
+                                      dtype=torch.int32, device=dev)
                 if pend is not None:
                     dec[:n_pend] |= dec_go_left(
                         X_t, pend.feature, pend.threshold,
@@ -1202,10 +1225,9 @@ def grow_tree_wave(
                     SplitResult(*[x[:K] for x in bs]), cand[:K],
                     smaller_is_left[:K])
                 leaf_of_row, hist_wave, rec = wave_pass_fused_tiled(
-                    X_t, vals0, dec, leaf_of_row, tbl, pend_tbl,
-                    0 if pend is None else pend.nl0, hist_cache[cand[:K]],
-                    scal, fmeta, fmask_lr, K, B, L, hp, scale_args,
-                    plain=plain)
+                    X_t, vals0, dec, leaf_of_row, tbl, pend_tbl, pend_nl0,
+                    hist_cache[cand[:K]], scal, fmeta, fmask_lr, K, B, L, hp,
+                    ch_scale, plain=plain)
                 pend = None
                 del dec
 
@@ -1336,6 +1358,5 @@ def grow_tree_wave(
         leaf_value=leaf_value, leaf_weight=leaf_weight,
         leaf_count=leaf_count, split_parent_leaf=split_parent_leaf,
         split_is_cat=split_is_cat, split_cat_bitset=split_cat_bitset,
-        num_waves=num_waves,
-        host_reads=host_reads + (scale_args is not None))
+        num_waves=num_waves, host_reads=host_reads)
     return tree, leaf_of_row

@@ -186,11 +186,11 @@ def wave_pass_fused(X_binned_t: torch.Tensor, vals: torch.Tensor,
 def wave_pass_fused_tiled(X_binned_t: torch.Tensor, vals: torch.Tensor,
                           dec: torch.Tensor, leaf_of_row: torch.Tensor,
                           table: torch.Tensor, pend_leaf: torch.Tensor,
-                          pend_nl0: int, parent: torch.Tensor,
+                          pend_nl0: torch.Tensor, parent: torch.Tensor,
                           scal: torch.Tensor, fmeta: torch.Tensor,
                           fmask: torch.Tensor, num_slots: int, num_bins: int,
                           num_leaves: int, hp: SplitHyperParams,
-                          scale: Optional[Tuple[float, float]] = None, *,
+                          scale: Optional[torch.Tensor] = None, *,
                           plain: bool = False
                           ) -> Tuple[torch.Tensor, torch.Tensor,
                                      torch.Tensor]:

@@ -200,8 +200,8 @@ def _lib(name: str):
         + [P],
         "wave_pass_fused": [P] * 12 + [I, P, P, LL] + [I] * 14
         + [LL, LL, I] + HP + [I, P],
-        "wave_pass_fused_tiled": [P, P, I, P, P, P, P, I] + [P] * 8
-        + [I, P, P, LL] + [I] * 15 + [FL, FL] + HP + [I, P],
+        "wave_pass_fused_tiled": [P, P, I] + [P] * 13
+        + [I, P, P, LL] + [I] * 15 + [P] + HP + [I, P],
     }[name]
     return fn
 

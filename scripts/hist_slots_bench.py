@@ -255,11 +255,15 @@ def fused_case(torch, hc, gf, X, B, K, active, gen, rng):
     ptot, stot = par3[:, :, 0].sum(-1), sm3[:, :, 0].sum(-1)
     ltot = torch.where(sil[:, None], stot, ptot - stot)
     lr = torch.cat([ltot, ptot - ltot])
+    inf = torch.full((2 * K,), float("inf"), device=dev)
+    # the scan's [7, 2K] scalars and [5, F] metadata: no monotone bounds
     scal = torch.stack([lr[:, 0], lr[:, 1], lr[:, 2],
                         -lr[:, 0] / (lr[:, 1] + 1.0),
-                        torch.cat([sil, sil]).float()]).contiguous()
+                        torch.cat([sil, sil]).float(), -inf, inf]
+                       ).contiguous()
     fmeta = torch.tensor(np.stack([np.full(F, B - 1), rng.randint(0, 3, F),
-                                   rng.randint(0, B - 1, F), np.zeros(F)]),
+                                   rng.randint(0, B - 1, F), np.zeros(F),
+                                   np.zeros(F)]),
                          dtype=torch.int32, device=dev)
     fmask = torch.ones(F, dtype=torch.uint8, device=dev)
     from lightgbm_tpu_torch.ops.split import SplitHyperParams
@@ -267,7 +271,8 @@ def fused_case(torch, hc, gf, X, B, K, active, gen, rng):
                           min_sum_hessian_in_leaf=1e-3, lambda_l1=0.0,
                           lambda_l2=0.0, max_delta_step=0.0,
                           min_gain_to_split=0.0, path_smooth=0.0)
-    args = (X, vals, dec, lor, tbl, pend, 0,
+    args = (X, vals, dec, lor, tbl, pend,
+            torch.zeros(1, dtype=torch.int32, device=dev),
             par3[:, :2].reshape(K, -1).contiguous(), scal, fmeta, fmask, K,
             B, L, hp, None)
     return args, int((slot_small >= 0).sum())

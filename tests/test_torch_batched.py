@@ -13,8 +13,10 @@ array by array, and its steps read nothing from the host (a dispatch
 guard). The device metrics agree with the host metrics and the JAX
 package's device metrics, `mask_for_iter` with the eager masks and JAX's,
 and the threefry's device keys with its host keys. The per-iteration
-path runs for every JAX veto and every A12(b) regime, the latter named in
-`batched_veto`; the drain stops on every exit. `tests/conftest.py` turns
+path runs for every JAX veto and for the serial growers masked and
+compact (A12(b)), the latter named in `batched_veto`; the drain stops on
+every exit. The fused routes, monotone intermediate, wave_exact and forced
+splits batch: tests/test_torch_batched_regimes.py. `tests/conftest.py` turns
 batched training off suite-wide; each test here turns it on again.
 """
 
@@ -484,14 +486,6 @@ def test_rank_xendcg_and_the_env_escape_train_per_iteration(monkeypatch):
 
 
 A12B_VETOES = {
-    "fused": (dict(histogram_impl="fused"), "dense", "the fused route"),
-    "fused_tiled": (dict(histogram_impl="fused", max_bin=255), "criteo",
-                    "the fused_tiled route"),
-    "wave_exact": (dict(tpu_grower="wave_exact"), "dense",
-                   "tpu_grower=wave_exact"),
-    "intermediate": (dict(monotone_constraints=[1, 0, 0, 0, 0, 0, 0, 0],
-                          monotone_constraints_method="intermediate"),
-                     "dense", "monotone_constraints_method=intermediate"),
     "masked": (dict(tpu_grower="masked"), "dense", "the serial grower"),
     "compact": (dict(tpu_grower="compact"), "dense", "the serial grower"),
 }
@@ -504,13 +498,6 @@ def test_a12b_regimes_name_a12b(case):
     assert g.batched_veto.startswith(why)
     assert g.batched_veto.endswith("(A12(b))")
     assert not g._runners
-
-
-def test_forced_splits_name_a12b(tmp_path):
-    path = tmp_path / "forced.json"
-    path.write_text('{"feature": 2, "threshold": 0.0}')
-    g = _veto({"forcedsplits_filename": str(path)})
-    assert g.batched_veto == "forced splits (A12(b))"
 
 
 def test_engine_refusals_train_per_iteration():

@@ -222,9 +222,10 @@ def test_wave_pass_fused_tiled_plain_matches_two_pass(F, B, tile, quant):
     K = tgw.fused_kcap(B, tile)       # the route's widest wave
     X, vals, dec, lor, t, pend, parent, scal, meta, fmask = _tiled_wave(
         F, B, K, quant, F + B + tile)
-    scale = (0.03125, 0.0078125) if quant else None
+    scale = torch.tensor([0.03125, 0.0078125]) if quant else None
     got_lor, got_hist, rec = tf.wave_pass_fused_tiled_plain(
-        _t(X), _t(vals), _t(dec), _t(lor), _t(t), _t(pend), 12,
+        _t(X), _t(vals), _t(dec), _t(lor), _t(t), _t(pend),
+        torch.tensor([12], dtype=torch.int32),
         _t(parent.reshape(K, -1)), _t(scal), _fmeta(meta),
         _t(fmask.astype(np.uint8)), K, B, 256, ts.SplitHyperParams(**HP),
         scale)
@@ -239,7 +240,8 @@ def test_wave_pass_fused_tiled_plain_matches_two_pass(F, B, tile, quant):
     assert got_hist.dtype == (torch.int32 if quant else torch.float32)
     np.testing.assert_array_equal(got_hist.numpy(), ref_hist)
     assert int((np.asarray(lor1) != lor).sum()) > 0      # pending pass ran
-    ref = _jax_children(ref_hist, parent, scal, meta, fmask, scale)
+    ref = _jax_children(ref_hist, parent, scal, meta, fmask,
+                        None if scale is None else scale.numpy())
     _assert_records(rec, ref, K)
 
 

@@ -133,5 +133,5 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         gf.wave_pass_fused_tiled_cuda(
             X, vals, X[:1].clone(), lor, tbl,
-            torch.full((128,), -1, dtype=torch.int32), 0, *scan, 1, 32, 4,
-            hp)
+            torch.full((128,), -1, dtype=torch.int32),
+            torch.zeros(1, dtype=torch.int32), *scan, 1, 32, 4, hp)
