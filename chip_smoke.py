@@ -241,7 +241,7 @@ Phases, each printing one JSON line:
      card's name and power limit):
      serial_growers  bench.py's model and table, 2 rounds each of
                      tpu_grower=masked (#1 at K = 2 a split), compact (#1
-                     over each split's gathered window), wave_exact on
+                     over each split's window), wave_exact on
                      "mega" and under histogram_impl=fused; then the
                      Criteo table, 2 rounds of wave_exact on "apply": each
                      first tree equal to the same grower's with the plain
@@ -255,6 +255,14 @@ Phases, each printing one JSON line:
                      histogram_pool_size values, which pick compact and
                      masked; launches, waves and host reads per tree and
                      ms a round recorded
+     batched         masked and compact batched (a split graph replayed
+                     four at a time), 2 rounds each beside their
+                     per-iteration runs: model text md5 equal, the start,
+                     split and finish graphs captured once, #1 (and for
+                     compact the window partition) inside the split
+                     graph, at most ceil(splits / 4) + 1 reads a tree;
+                     one more round of each path under torch.profiler:
+                     device-busy ms and share, device ms a split
 
  17. batched training, lt.train's default path (one line a case, with
      the card's name and power limit; every earlier line passes
@@ -285,8 +293,31 @@ Phases, each printing one JSON line:
                      route kernel's launches a round above 0 (it ran in
                      the replayed graphs), the wave graph's launches and
                      one replay's device operations and ms recorded
+ 18. more than 256 bins a feature (uint16 storage; one line a case):
+     wide_bins       bench.py's table at max_bin=1023, 4 rounds; the
+                     Criteo schema with six categorical columns of
+                     300-1000 categories at 1023, 2 rounds; the ranking
+                     table (2^18 documents) at 1023, 1 round, where the
+                     histogram_pool_size ladder picks compact: each per
+                     iteration and batched (md5 equal; bench and Criteo
+                     beside a max_bin=255 run), the host
+                     binning route, the apply route (compact for
+                     ranking), the first tree equal to the plain versions'
+                     (bench, Criteo), train AUC at least the 255 run's
+                     less 0.01 (ranking: ndcg@10 above the initial
+                     scores'), ingest seconds and launches a round
+     wide_kernels    #1 on the uint16 storages at K = 1 and 128 (bitwise
+                     on grid values), timed beside its plain version and
+                     index_add_; then #4 on the Criteo one (kernels lines,
+                     Kd 16 / 128, bitwise)
+     kernels         the compact grower's window operations on the bench
+                     storage and its uint16 one: #1 over a window of the row
+                     order and the partition kernel, windows of half the
+                     rows and of 2^14 rows, bitwise against their plain
+                     versions and timed
 
-then a {"kernels": [...]} line (the ten kernels), the nvidia-smi line,
+then a {"kernels": [...]} line (the eleven kernels, #1 and #4 with their
+uint16 times), the nvidia-smi line,
 and last
 {"ok": true, "device": {...}}. Any failed check raises before the last
 line and the exit code is not 0. Without a CUDA device, or without the
@@ -305,6 +336,12 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 L2_BYTES = 50 << 20           # H100 SXM L2 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 N_ROWS, N_FEAT, N_BINS, N_CH, N_LEAVES = 1 << 20, 28, 64, 2, 255
+# ndcg@10 of one lambdarank round at max_bin=1023 may sit this far below
+# the max_bin=255 round's (wide_bins_phase's ranking case): on the CPU, the
+# JAX package's compact grower reads 0.6333 against 0.6487 on the ranking
+# table cut to 2^14 documents, and the port 0.5237 against 0.5506 (the JAX
+# package's own 255-bin value) at 2^16; about twice the larger gap
+RANK_WIDE_GAP = 0.05
 # train AUC after 8 rounds of the Criteo-shaped table at 2^20 rows: the
 # port on the CPU reaches CRITEO_AUC_CPU (plain versions); the card must
 # pass CRITEO_AUC_MIN
@@ -357,14 +394,14 @@ def timings(fn, reps, warmup=2, stats=None):
     activity (kernels and memsets) per call under torch.profiler over
     another `reps` calls. A session now and then records no device
     activity, or only part of it, so two sessions that saw some are run
-    (at most four in all) and the larger is kept; with `stats` (a dict)
+    (at most eight in all) and the larger is kept; with `stats` (a dict)
     its kernel launches per call, memsets not counted, are stored under
     "kernels_per_call"."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     ms = time_ms(fn, reps, warmup)
     best_us, best_n, seen = 0.0, 0, 0
-    for _ in range(4):
+    for _ in range(8):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -379,7 +416,7 @@ def timings(fn, reps, warmup=2, stats=None):
         seen += us > 0
         if seen == 2:
             break
-    check(best_us > 0, "torch.profiler saw no device activity in 4 sessions")
+    check(best_us > 0, "torch.profiler saw no device activity in 8 sessions")
     if stats is not None:
         stats["kernels_per_call"] = best_n / reps
     return ms, best_us / 1e3 / reps
@@ -1095,7 +1132,7 @@ def _apply_records(torch, rng, meta, cfg, n, dev):
             for a in (feat, thr, dl, iscat, bits)]
 
 
-def wave_apply_phase(hc, torch, dev, storages):
+def wave_apply_phase(hc, torch, dev, storages, want="criteo"):
     """The wave_apply kernel (#4), which decides each row under the wave's
     split records, at N = 2^20 rows, L = 255 leaves, Kd in {16, 128}: a
     mid-tree wave of min(Kd, 64) applied splits among 120 leaves and Kd
@@ -1107,8 +1144,8 @@ def wave_apply_phase(hc, torch, dev, storages):
     timed beside that decision build (`parent_path_ms`: dec_go_left for
     the applied entries and for the candidates with the land bit, which
     the parent's route ran before its kernel, whose own dec-reading
-    kernel is no longer in the tree). Returns the Criteo Kd = 128
-    record."""
+    kernel is no longer in the tree). Returns the Kd = 128 record of the
+    storage named `want`."""
     from lightgbm_tpu_torch.ops import grow_wave as tw
     gen = torch.Generator(device=dev).manual_seed(9)
     rng = np.random.RandomState(13)
@@ -1180,10 +1217,10 @@ def wave_apply_phase(hc, torch, dev, storages):
                        rows_applied=app_rows, rows_candidate=cand_rows,
                        slots=int((ref[1] >= 0).sum()))
             emit({"phase": "kernels", "kernel_ms": ms, **rec})
-            if name == "criteo" and Kd == 128:
+            if name == want and Kd == 128:
                 out = rec
             del got, ref, par
-    check(out is not None, "wave_apply: no Criteo Kd = 128 case")
+    check(out is not None, f"wave_apply: no {want} Kd = 128 case")
     return out
 
 
@@ -3597,6 +3634,9 @@ def serial_growers_phase(lt, hc, torch, smi, params, ds, X, params_c,
             # masked counts each child's in-bag rows exactly at split time
             checks.append((rec["leaf_count_vs_bincount_max_abs_diff"] == 0,
                            "masked's leaf counts are not its rows'"))
+        if serial:
+            checks += _serial_batched(lt, hc, torch, smi, name, p, d, b,
+                                      ms, l)
         del b, g, trees, lors
     pairs = {}
     for a, b in (("masked", "compact"), ("compact", "wave_exact"),
@@ -3645,6 +3685,75 @@ def serial_growers_phase(lt, hc, torch, smi, params, ds, X, params_c,
     emit(out)
     for ok, what in checks:
         check(ok, what)
+
+
+def _serial_batched(lt, hc, torch, smi, name, p, d, bi, ms_i, li):
+    """The serial grower `name` batched (ops/grow_batched.py:SerialStepper)
+    beside its per-iteration run `bi` (ms a round `ms_i`, launches `li`):
+    2 rounds, then one more round under torch.profiler. Emits a `batched`
+    line; returns its checks."""
+    import hashlib
+    from lightgbm_tpu_torch.models.batched import LAG
+
+    def md5(b):
+        return hashlib.md5(b.model_to_string().encode()).hexdigest()
+    hc.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bb = lt.train({**p, "batched_train": True}, d, num_boost_round=2)
+    torch.cuda.synchronize()
+    ms_b = (time.perf_counter() - t0) * 1e3 / 2
+    lb = dict(hc.LAUNCHES)
+    g = bb._gbdt
+    runner = next(iter(g._runners.values()))
+    trees = g.models
+    splits = [t.num_leaves - 1 for t in trees]
+    reads = runner.tree_reads[:len(trees)]
+    captured = runner.captured.get("split", {})
+    same = md5(bi) == md5(bb)
+    replays = sum(runner.replays.values())
+    # one more batched round under torch.profiler: the device's busy ms,
+    # and over the new tree's splits the device ms a split
+    busy_b, wall_b = _device_busy(torch, lambda: bb.update_batch(1))
+    n3 = g.models[-1].num_leaves - 1
+    out = {"phase": "batched", "case": name, "nvidia_smi": smi,
+           "rows": g.num_data, "rounds": 2, "grow_route": g.grow_route,
+           "hist_route": g.hist_route, "batched_veto": g.batched_veto,
+           "md5_equal": same, "ms_per_round": ms_b,
+           "per_iteration_ms_per_round": ms_i,
+           "steady_ms_per_round": wall_b,
+           "device_busy_ms_per_round": busy_b,
+           "device_busy_share": (None if busy_b is None
+                                 else busy_b / wall_b),
+           "device_ms_per_split": (None if busy_b is None
+                                   else busy_b / max(n3, 1)),
+           "splits_per_tree": splits, "steady_round_splits": n3,
+           "captures": dict(runner.captures), "capture_s": runner.capture_s,
+           "graph_replays_per_round": replays / 2,
+           "split_graph_launches": captured,
+           "launches_per_round": {k: v / 2 for k, v in lb.items() if v},
+           "per_iteration_launches_per_round": {
+               k: v / 2 for k, v in li.items() if v},
+           "reads_per_tree": reads,
+           "per_iteration_reads_per_tree": [t.host_reads
+                                            for t in bi._gbdt.models[:2]],
+           "drain_lag_ms": g.drain_lags_ms}
+    emit(out)
+    want = ["build_histogram_slots"] + (["window_partition"]
+                                        if name == "compact" else [])
+    checks = [
+        (same, f"batched {name}: the model differs from the per-iteration "
+               "run's"),
+        (g.batched_veto == "", f"batched {name} vetoed: {g.batched_veto}"),
+        (dict(runner.captures) == {"start": 1, "split": 1, "finish": 1},
+         f"batched {name}: captures {dict(runner.captures)}"),
+        (all(r <= -(-a // LAG) + 1 for r, a in zip(reads, splits)),
+         f"batched {name}: reads {reads} for splits {splits}")]
+    checks += [(captured.get(k, 0) > 0 and lb.get(k, 0) > 0,
+                f"batched {name}: {k} never ran in the replayed split graph")
+               for k in want]
+    del bb, g, runner
+    return checks
 
 
 # ---------------------------------------------------------------------------
@@ -3932,6 +4041,344 @@ def batched_phase(lt, hc, torch, smi, params, ds, X, w, params_c, ds_c):
     del dv
 
 
+# ---------------------------------------------------------------------------
+# more than 256 bins a feature: uint16 storage on the apply route
+# ---------------------------------------------------------------------------
+def _wide_hist_records(hc, torch, dev, storages):
+    """Kernel #1 on uint16 storages ([(name, X_t, B)]): the root (K = 1)
+    and a wave's smaller children (K = 128, about half the rows in a
+    slot), bitwise against the plain version on grid values and within
+    1e-6 on float values, timed beside the plain version and one
+    index_add_ (the library call, CUDA events only), with the byte
+    bound. Returns {name:
+    the K = 1 record}."""
+    from lightgbm_tpu_torch.utils import indexable_bins
+    gen = torch.Generator(device=dev).manual_seed(17)
+    out = {}
+    for name, X, B in storages:
+        F, N = X.shape
+        C = N_CH
+        vals = torch.randn((C, N), generator=gen, device=dev)
+        vals[1] = vals[1].abs() * 0.25
+        grid = _grid_vals(torch, gen, C, N, dev)
+        for K, active in ((1, "all"), (128, "half")):
+            slot = _slot_case(torch, gen, N, K, active, dev)
+            got = hc.build_histogram_slots_cuda(X, vals, slot, K, B)
+            ref = hc.build_histogram_slots_plain(X, vals, slot, K, B)
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            tol = 1e-6 * float(ref.abs().max()) + 1e-6
+            check(err <= tol, f"build_histogram_slots {name} K={K}: max "
+                              f"|err| {err}")
+            check(torch.equal(
+                hc.build_histogram_slots_cuda(X, grid, slot, K, B),
+                hc.build_histogram_slots_plain(X, grid, slot, K, B)),
+                f"build_histogram_slots {name} K={K}: not bitwise on grid "
+                "values")
+            del got, ref
+            rows = N if slot is None else int((slot >= 0).sum())
+            s64 = (torch.zeros(N, dtype=torch.int64, device=dev)
+                   if slot is None else slot.to(torch.int64))
+            keep = torch.nonzero(s64 >= 0).flatten()
+            b = indexable_bins(X).index_select(1, keep).to(torch.int64) \
+                & 0xFFFF
+            c_ix = torch.arange(C, device=dev)[:, None, None]
+            f_ix = torch.arange(F, device=dev)[None, :, None]
+            flat = (((s64[keep][None, None, :] * C + c_ix) * F + f_ix) * B
+                    + b[None]).reshape(-1)
+            lvals = vals[:, None, keep].expand(C, F, rows).reshape(-1)
+            acc = torch.zeros(K * C * F * B, device=dev)
+            del b
+            ms, dms = timings(lambda: hc.build_histogram_slots_cuda(
+                X, vals, slot, K, B), 20)
+            plain_ms = time_ms(lambda: hc.build_histogram_slots_plain(
+                X, vals, slot, K, B), 2, 1)
+            lib_ms = time_ms(lambda: acc.index_add_(0, flat, lvals), 10)
+            nbytes = (0 if slot is None else 4 * N) + rows * (2 * F + 4 * C) \
+                + K * C * F * B * 4
+            bms, by = bound_ms(nbytes, rows * F * C)
+            rec = dict(name="build_histogram_slots", shape=name, K=K,
+                       active=active, rows=rows, F=F, B=B, bin_bytes=2,
+                       max_abs_err=err, tol=tol, ms=ms, device_ms=dms,
+                       plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                       bound_by=by, bound_us=bms * 1e3,
+                       plan=hc.plan_hist_tiles(K, C, F, B)._asdict())
+            emit({"phase": "wide_kernels", "kernel_ms": ms, **rec})
+            if K == 1:
+                out[name] = rec
+            del flat, lvals, acc
+    return out
+
+
+def window_phase(hc, torch, dev, storages):
+    """The compact grower's two window operations on each storage of
+    `storages` ([(name, X_t, B)]): #1 over a window of the row order (its
+    id list and bounds in device memory) and the partition kernel, on a
+    leaf of half the rows and one of 2^14 rows, each bitwise against its
+    plain version (grid values for #1), timed beside it, with the byte
+    bound and, for #1, one index_add_ over the window's rows. Returns the
+    partition record of the first storage's half-rows window (the kernels
+    line's)."""
+    from lightgbm_tpu_torch.ops.grow_batched import partition_record
+    from lightgbm_tpu_torch.ops.split import SplitResult
+    from lightgbm_tpu_torch.utils import indexable_bins
+    gen = torch.Generator(device=dev).manual_seed(23)
+    out = None
+    for name, X, B in storages:
+        F, N = X.shape
+        bb = 1 if X.dtype == torch.uint8 else 2
+        order = torch.randperm(N, generator=gen, device=dev).to(torch.int32)
+        grid = _grid_vals(torch, gen, 2, N, dev)
+        lor = torch.zeros(N, dtype=torch.int32, device=dev)
+        for count in (N // 2, 1 << 14):
+            start = (N - count) // 3
+            win = torch.tensor([start, start + count], dtype=torch.int32,
+                               device=dev)
+            got = hc.build_histogram_window_cuda(X, grid, order, win, B)
+            ref = hc.build_histogram_window_plain(X, grid, order, win, B)
+            check(torch.equal(got, ref), f"window histogram {name} "
+                                         f"{count} rows: not bitwise")
+            rows = order[start:start + count].long()
+            b = indexable_bins(X).index_select(1, rows).to(torch.int64) \
+                & 0xFFFF
+            flat = ((torch.arange(2, device=dev)[:, None, None] * F
+                     + torch.arange(F, device=dev)[None, :, None]) * B
+                    + b[None]).reshape(-1)
+            lvals = grid[:, None, rows].expand(2, F, count).reshape(-1)
+            acc = torch.zeros(2 * F * B, device=dev)
+            del b
+            ms, dms = timings(lambda: hc.build_histogram_window_cuda(
+                X, grid, order, win, B), 20)
+            plain_ms = time_ms(lambda: hc.build_histogram_window_plain(
+                X, grid, order, win, B), 2, 1)
+            lib_ms = time_ms(lambda: acc.index_add_(0, flat, lvals), 10)
+            bms, by = bound_ms(count * (4 + bb * F + 8) + 2 * F * B * 4,
+                               count * F * 2)
+            emit({"phase": "kernels", "name": "build_histogram_slots",
+                  "shape": f"{name}_window", "rows": count, "F": F, "B": B,
+                  "max_abs_err": 0.0, "ms": ms, "device_ms": dms,
+                  "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                  "bound_ms": bms, "bound_by": by, "bound_us": bms * 1e3})
+            del flat, lvals, acc, got, ref
+            # a numeric split of feature 3 at its middle bin, the missing
+            # bin to the left
+            one = torch.ones(1, dtype=torch.int64, device=dev)
+            bs = SplitResult(*([torch.zeros(1, device=dev)] * 12))._replace(
+                feature=3 * one, threshold=(B // 2) * one,
+                default_left=one.bool())
+            meta = _window_meta(torch, F, B, dev)
+            rec = partition_record(start * one, count * one, bs,
+                                   torch.zeros(1, dtype=torch.bool,
+                                               device=dev),
+                                   torch.zeros((1, (B + 31) // 32),
+                                               dtype=torch.int64,
+                                               device=dev), 7 * one, meta)
+            o1, l1 = order.clone(), lor.clone()
+            o2, l2 = order.clone(), lor.clone()
+            n1 = hc.window_partition_cuda(X, o1, l1, rec)
+            n2 = hc.window_partition_plain(X, o2, l2, rec)
+            check(torch.equal(o1, o2) and torch.equal(l1, l2)
+                  and torch.equal(n1, n2),
+                  f"window_partition {name} {count} rows: not bitwise")
+            n_left = int(n1)
+            # timed in place: a partitioned window partitions again into
+            # the same sides
+            ms, dms = timings(lambda: hc.window_partition_cuda(X, o1, l1,
+                                                               rec), 20)
+            plain_ms = time_ms(lambda: hc.window_partition_plain(
+                X, o2, l2, rec), 2, 1)
+            del o1, l1, o2, l2
+            # the window's ids and bins read, ids written to the scratch and
+            # back, the right rows' leaf ids written
+            bms, by = bound_ms(count * (4 + bb) + 8 * count
+                               + 4 * (count - n_left), 0)
+            r = dict(name="window_partition", shape=name, rows=count,
+                     n_left=n_left, max_abs_err=0.0, ms=ms, device_ms=dms,
+                     plain_ms=plain_ms, library_ms=None, bound_ms=bms,
+                     bound_by=by, bound_us=bms * 1e3)
+            emit({"phase": "kernels", "kernel_ms": r["ms"], **r})
+            if out is None and count == N // 2:
+                out = r
+    return out
+
+
+def _window_meta(torch, F, B, dev):
+    """Feature metadata of F numeric features of B bins, NaN missing."""
+    from lightgbm_tpu_torch.models.tree import MISSING_NAN
+    from lightgbm_tpu_torch.ops.split import FeatureMeta
+    z = torch.zeros(F, dtype=torch.int64, device=dev)
+    return FeatureMeta(num_bins=z + B, missing_type=z + MISSING_NAN,
+                       default_bin=z, is_categorical=z.bool())
+
+
+def wide_bins_phase(lt, hc, torch, dev, smi, X, y):
+    """max_bin past 255 (uint16 storage, the apply route): bench.py's table
+    at max_bin=1023, 4 rounds batched and per iteration, beside a
+    max_bin=255 run of the same rounds; the Criteo schema with its last
+    six categorical columns at 300-1000 categories, max_bin=1023, 2 rounds
+    of each path beside max_bin=255; the MSLR-shaped ranking table (2^18
+    documents) at max_bin=1023, where the histogram_pool_size ladder
+    picks compact, 1 round of each path beside a max_bin=255 round on
+    compact. Each: ingest seconds, model text md5 equal across the paths,
+    the first tree equal to the plain versions', the train metric against
+    the max_bin=255 run's (AUC less 0.01; ranking: ndcg@10 less
+    RANK_WIDE_GAP, and above the initial scores'), #1 and #4 (the
+    partition kernel on ranking) launches a round. Then #1 and #4 on the
+    uint16 storages against their plain versions (`_wide_hist_records`,
+    wave_apply_phase, on the Criteo storage), #1 also on bench's shape at
+    4096 bins, where a tile holds a range of one column's bins. Returns
+    (#1 records, #4 record, the uint16 storages [(name, X_t, B)], the
+    4096-bin one last, the compact run's launches)."""
+    import hashlib
+    from lightgbm_tpu_torch.config import resolve_params
+    from lightgbm_tpu_torch.metrics import create_metric
+    from lightgbm_tpu_torch.utils.synthetic import (
+        CRITEO_CAT_COLUMNS, CRITEO_WIDE_CARDINALITIES, criteo_like)
+
+    def md5(b):
+        return hashlib.md5(b.model_to_string().encode()).hexdigest()
+    Xc, yc = criteo_like(N_ROWS, cardinalities=CRITEO_WIDE_CARDINALITIES)
+    # the ranking table cut to 2^18 documents: the ladder's choice depends
+    # on L, F and B alone, and host binning of 136 columns at 1023 bins
+    # takes 39 s at 2^20
+    Xr, yr, sizes = _mslr_like(np.random.RandomState(61), N_ROWS // 4)
+    base = dict(objective="binary", num_leaves=N_LEAVES, learning_rate=0.1,
+                min_data_in_leaf=20, verbose=-1, binning_impl="auto",
+                device_type="cuda", metric="auc")
+    cases = (
+        ("bench", X, y, {}, {}, 4),
+        ("criteo", Xc, yc, {"categorical_feature": list(CRITEO_CAT_COLUMNS)},
+         {}, 2),
+        ("rank", Xr, yr, {"group": sizes},
+         {"objective": "lambdarank", "metric": "ndcg", "eval_at": [10]}, 1))
+    storages, records = [], {}
+    compact_launches = None
+    for name, Xd, yd, dskw, over, rounds in cases:
+        t_case = time.perf_counter()
+        res = {}
+        for mb in (255, 1023):
+            p = {**base, **over, "max_bin": mb}
+            if name == "rank" and mb == 255:
+                # at 255 bins the ladder picks the wave grower; the
+                # comparison holds the grower
+                p["tpu_grower"] = "compact"
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ds = lt.Dataset(Xd, label=yd, params=p, **dskw).construct()
+            torch.cuda.synchronize()
+            ingest_s = time.perf_counter() - t0
+            runs = []
+            for batched in ((False, True) if mb == 1023 else (True,)):
+                hc.reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                b = lt.train({**p, "batched_train": batched}, ds, rounds)
+                torch.cuda.synchronize()
+                runs.append((b, (time.perf_counter() - t0) * 1e3 / rounds,
+                             dict(hc.LAUNCHES)))
+            res[mb] = (ds, ingest_s, runs)
+        ds, ingest_s, ((bi, ms_i, li), (bb, ms_b, lb)) = res[1023]
+        _, ingest_255, ((b255, ms_255, _),) = res[255]
+        g = bb._gbdt
+        h = ds._handle
+        metric = bb.eval_train()[0][2]
+        metric_255 = b255.eval_train()[0][2]
+        first = _same_host_tree(_plain_trees(torch, bi._gbdt, len(yd))[0],
+                                bi._gbdt.models[0])
+        rec = {"phase": "wide_bins", "case": name, "nvidia_smi": smi,
+               "rows": len(yd), "features": Xd.shape[1], "rounds": rounds,
+               "max_bin": 1023, "num_bins_padded": g.num_bins_padded,
+               "storage_dtype": str(g.X_t.dtype),
+               "max_num_bin": int(max(m.num_bin for m in h.mappers)),
+               "binning_route": h.binning_route, "ingest_s": ingest_s,
+               "ingest_s_max_bin_255": ingest_255,
+               "grower": g.grower, "grow_route": g.grow_route,
+               "hist_route": g.hist_route, "batched_veto": g.batched_veto,
+               "md5_equal": md5(bi) == md5(bb),
+               "first_tree_same": first is not None,
+               "first_tree_leaf_value_max_abs_err": first,
+               "ms_per_round": ms_b, "per_iteration_ms_per_round": ms_i,
+               "max_bin_255_ms_per_round": ms_255,
+               "train_metric": metric, "train_metric_max_bin_255":
+               metric_255, "max_bin_255_grower": b255._gbdt.grower,
+               "launches_per_round": {k: v / rounds for k, v in lb.items()
+                                      if v},
+               "per_iteration_launches_per_round": {
+                   k: v / rounds for k, v in li.items() if v},
+               "leaves": [t.num_leaves for t in g.models],
+               "categorical_splits": [t.num_cat for t in g.models],
+               "case_s": time.perf_counter() - t_case}
+        if name == "rank":
+            m0 = create_metric("ndcg", resolve_params(
+                {**base, **over, "max_bin": 1023}))
+            m0.init(h.metadata, len(yd))
+            rec["ndcg_initial"] = float(m0.eval(np.zeros(len(yd)),
+                                                None)[0][1])
+        if name == "bench":
+            fused = lt.Booster({**base, "max_bin": 1023,
+                                "histogram_impl": "fused"}, ds)._gbdt
+            rec["fused_veto_reasons"] = fused.fused_veto_reasons
+            check(fused.fused_veto_reasons == [
+                f"wide_bins (B={g.num_bins_padded} > 256)"],
+                f"wide bins: fused veto {fused.fused_veto_reasons}")
+            del fused
+        emit(rec)
+        want = "compact" if name == "rank" else "wave"
+        check(g.grower == want, f"wide {name}: grower {g.grower}, not {want}")
+        check(g.X_t.dtype == torch.uint16 and g.num_bins_padded > 256,
+              f"wide {name}: storage {g.X_t.dtype} B={g.num_bins_padded}")
+        check(h.binning_route == "host", f"wide {name}: binning route "
+                                         f"{h.binning_route}")
+        check(g.grow_route == ("compact" if name == "rank" else "apply")
+              and g.hist_route == "slots",
+              f"wide {name}: route {g.grow_route}/{g.hist_route}")
+        check(rec["md5_equal"] and g.batched_veto == "",
+              f"wide {name}: batched model differs ({g.batched_veto})")
+        check(first is not None,
+              f"wide {name}: first tree differs from the plain versions'")
+        check(first <= 1e-6,
+              f"wide {name}: first tree leaf values differ by {first}")
+        if name == "rank":
+            # one round of 255 leaves may fit ndcg@10 less well at 1023
+            # bins than at 255 (RANK_WIDE_GAP)
+            check(metric > rec["ndcg_initial"],
+                  f"wide rank: ndcg@10 {metric} not above the initial "
+                  f"{rec['ndcg_initial']}")
+            check(metric >= metric_255 - RANK_WIDE_GAP,
+                  f"wide rank: ndcg@10 {metric} below the max_bin=255 "
+                  f"run's {metric_255} less {RANK_WIDE_GAP}")
+        else:
+            check(metric >= metric_255 - 0.01,
+                  f"wide {name}: train metric {metric} below the "
+                  f"max_bin=255 run's {metric_255} less 0.01")
+        kern = (("build_histogram_slots", "window_partition")
+                if name == "rank" else ("build_histogram_slots",
+                                        "wave_apply"))
+        check(all(lb.get(k, 0) > 0 for k in kern),
+              f"wide {name}: {kern} not all launched")
+        if name == "rank":
+            compact_launches = lb
+        else:
+            storages.append((f"{name}_u16", g.X_t, g.meta, g.grow_cfg))
+        del bi, bb, b255, res, g, h
+    wide = [(n, X_t, cfg.num_bins_padded) for n, X_t, _, cfg in storages]
+    # past 3072 bins at C = 2 one column's bins do not fit a tile: a tile
+    # holds a range of them (HistTilePlan.bins_per_tile); bench's shape
+    # with 4096 bins drawn uniformly
+    gen = torch.Generator(device=dev).manual_seed(29)
+    X4 = torch.randint(0, 4096, (N_FEAT, N_ROWS), generator=gen, device=dev,
+                       dtype=torch.int32).to(torch.uint16)
+    for K in (1, 128):
+        plan = hc.plan_hist_tiles(K, N_CH, N_FEAT, 4096)
+        check(plan.bins_per_tile < 4096,
+              f"B = 4096, K = {K}: the plan cuts no bin range ({plan})")
+    wide.append(("grid4096_u16", X4, 4096))
+    hist = _wide_hist_records(hc, torch, dev, wide)
+    apply_rec = wave_apply_phase(hc, torch, dev, storages[1:],
+                                 want="criteo_u16")
+    return hist, apply_rec, wide, compact_launches
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -4161,6 +4608,16 @@ def main():
                   ds_criteo)
     del ds_criteo
 
+    # ---- 18. more than 256 bins a feature: uint16 storage through #1 and
+    # #4 on the apply route and the compact grower; the compact grower's
+    # window operations (#1 over a window, the partition kernel)
+    wide_hist, wide_apply, wide, rank_launches = wide_bins_phase(
+        lt, hc, torch, dev, smi, X, y)
+    krec["window_partition"] = window_phase(
+        hc, torch, dev, [("bench", gbdt.X_t, gbdt.num_bins_padded)]
+        + wide[:1] + wide[-1:])
+    del wide
+
     src = {"build_histogram_slots": "hist_slots.cu",
            "take_leaf_values": "take_leaf_values.cu",
            "wave_pass": "wave_pass.cu", "wave_relabel": "wave_relabel.cu",
@@ -4168,7 +4625,8 @@ def main():
            "hist_rowwise": "hist_rowwise.cu",
            "hist_rowwise_packed": "hist_rowwise.cu",
            "wave_pass_fused": "wave_pass_fused.cu",
-           "wave_pass_fused_tiled": "wave_pass_fused_tiled.cu"}
+           "wave_pass_fused_tiled": "wave_pass_fused_tiled.cu",
+           "window_partition": "window_partition.cu"}
     replaces = {
         "build_histogram_slots":
             "lightgbm_tpu/ops/histogram_pallas.py:280",
@@ -4180,7 +4638,10 @@ def main():
         "hist_rowwise": "lightgbm_tpu/ops/histogram_rowwise.py:213",
         "hist_rowwise_packed": "lightgbm_tpu/ops/histogram_rowwise.py:431",
         "wave_pass_fused": "lightgbm_tpu/ops/grow_fused.py:356",
-        "wave_pass_fused_tiled": "lightgbm_tpu/ops/grow_fused.py:656"}
+        "wave_pass_fused_tiled": "lightgbm_tpu/ops/grow_fused.py:656",
+        # an XLA partition there, no pallas_call: the port's kernel for the
+        # batched compact step
+        "window_partition": "lightgbm_tpu/ops/grow_fast.py:218"}
     krec["bucketize"] = brec["train"]
     # the bucketize kernel's main-path launches: ingest plus serving
     launches["bucketize"] = ingest_launches["bucketize"] \
@@ -4192,9 +4653,20 @@ def main():
     # the fused routes' kernels: launches on the runs that take them
     launches["wave_pass_fused"] = fused_launches["wave_pass_fused"]
     launches["wave_pass_fused_tiled"] = cf_launches["wave_pass_fused_tiled"]
+    # the partition kernel's launches on the ranking table's compact run
+    launches["window_partition"] = rank_launches["window_partition"]
+    # uint16 storage past 256 bins: #1 at the bench and Criteo roots, #4 on
+    # the Criteo storage at Kd = 128
+    wide_rec = {"build_histogram_slots": wide_hist,
+                "wave_apply": {"criteo_u16": wide_apply}}
     kernels = []
     for name in hc.KERNELS:
         r = krec[name]
+        uint16 = {n: {k: w[k] for k in ("ms", "device_ms", "plain_ms",
+                                        "bound_ms", "bound_by", "library_ms",
+                                        "K", "Kd", "F", "B", "rows", "N")
+                      if k in w}
+                  for n, w in wide_rec.get(name, {}).items()}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"lightgbm_tpu_torch/csrc/{src[name]}",
@@ -4206,8 +4678,8 @@ def main():
             "library_device_ms": r.get("library_device_ms"),
             "launches_per_call": r.get("launches_per_call"),
             "shape": {k: r[k] for k in ("K", "Kd", "L", "n", "F", "B",
-                                        "total") if k in r},
-            "pass": True})
+                                        "total", "rows") if k in r},
+            "uint16": uint16 or None, "pass": True})
     emit({"kernels": kernels})
     for line in smi:
         print(line)

@@ -27,7 +27,7 @@ from .models.gbdt import GBDT, _not_ported, check_slice_config
 from .models.linear import fit_linear_models
 from .models.predictor import format_tree_indices, linear_tree_indices
 from .objectives import create_objective
-from .utils import resolve_device
+from .utils import indexable_bins, resolve_device
 from .utils.log import log_fatal, log_warning
 
 
@@ -323,7 +323,8 @@ class Dataset:
         nh.reference = h
         nh.X_binned = h.X_binned[idx]
         if h.X_t is not None:
-            nh.X_t = h.X_t[:, torch.from_numpy(idx).to(h.X_t.device)]
+            nh.X_t = indexable_bins(h.X_t)[:, torch.from_numpy(idx).to(
+                h.X_t.device)].view(h.X_t.dtype)
         md = Metadata(nh.num_data)
         if h.metadata.label is not None:
             md.set_label(h.metadata.label[idx])

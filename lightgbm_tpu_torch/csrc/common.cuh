@@ -21,9 +21,10 @@ template <> struct AccOf<int8_t> { typedef int T; };
 
 // hist[k, c, f, bin] += vals[c, r] for every feature f of row r: one atomic
 // per (channel, feature), bins >= B add nothing (the one-hot of the TPU
-// kernel never matches them either). X is feature-major [F, N] uint8.
-template <typename V, typename A>
-__device__ __forceinline__ void add_row(A* hist, const uint8_t* __restrict__ X,
+// kernel never matches them either). X is feature-major [F, N], uint8 or
+// (past 256 bins) uint16.
+template <typename V, typename A, typename T>
+__device__ __forceinline__ void add_row(A* hist, const T* __restrict__ X,
                                         const V* __restrict__ vals,
                                         long long N, int F, int C, int B,
                                         long long r, int k) {

@@ -14,7 +14,9 @@
 // Templated on
 //   (a) the bin reader: where row r's bin of storage column f comes from,
 //       how wide the column is and where its cells start in the tile:
-//       UniformBins ([F, N] uint8 storage, B bins a column) or FlatBins
+//       UniformBinsOf ([F, N] uint8 storage, B bins a column, or past 256
+//       bins uint16, whose tile may hold a range of one column's bins) or
+//       FlatBins
 //       (per-column descriptors: the byte row, the nibble of the column's
 //       bits in it, its width and flat offset; FlatBins<false> the plain
 //       row-wise storage, FlatBins<true> the nibble-packed one plus its
@@ -22,6 +24,11 @@
 //   (b) the slot source: an [N] int32 slot array, the caller's (#1, #7,
 //       #8) or the one written by a wave's membership pass (#3, #9, #10);
 //       null puts every row in slot 0.
+//
+// A caller may hand the sweep its rows instead of a slot array: the row ids
+// at positions [offsets[0], offsets[1]) of an id list, the bounds in device
+// memory (#1's window, the compact grower's leaf of one split). The blocks
+// are planned for N rows, and those past the window's pieces exit at once.
 //
 // Bound: bytes (each row's bins, values and slot read once, the output
 // written once). What limits the sweep on the card is its f64 adds in
@@ -236,9 +243,9 @@ static inline void lgbt_group_rows(const int* slot, long long N, int K,
 // adds into the global ones at its end. Where the rows are few, the tiled
 // sweep's row grouping, per-tile zeroing and flush and its pieces' edges
 // cost more than the rows' adds (the planner's rule, PERF.md).
-template <typename V, bool SMEM>
+template <typename V, bool SMEM, typename T>
 __device__ __forceinline__ void direct_sweep(
-    const uint8_t* __restrict__ X, const V* __restrict__ vals,
+    const T* __restrict__ X, const V* __restrict__ vals,
     const int* __restrict__ slot, typename AccOf<V>::T* __restrict__ acc,
     long long N, int F, int C, int K, int B) {
   typedef typename AccOf<V>::T A;
@@ -262,9 +269,9 @@ __device__ __forceinline__ void direct_sweep(
   }
 }
 
-template <typename V, bool SMEM>
+template <typename V, bool SMEM, typename T>
 __global__ void __launch_bounds__(LGBT_THREADS)
-hist_direct_kernel(const uint8_t* __restrict__ X, const V* __restrict__ vals,
+hist_direct_kernel(const T* __restrict__ X, const V* __restrict__ vals,
                    const int* __restrict__ slot,
                    typename AccOf<V>::T* __restrict__ acc, long long N,
                    int F, int C, int K, int B) {
@@ -275,8 +282,8 @@ hist_direct_kernel(const uint8_t* __restrict__ X, const V* __restrict__ vals,
 // int8 values; not when `zeroed`, the caller having zeroed them) and
 // launch the direct sweep on the first version's grids for num_sms SMs.
 // The f64 sums are left for the caller to round.
-template <typename V>
-static void lgbt_direct_run(const uint8_t* X, const V* vals, const int* slot,
+template <typename V, typename T>
+static void lgbt_direct_run(const T* X, const V* vals, const int* slot,
                             typename AccOf<V>::T* acc, long long N, int F,
                             int C, int K, int B, int num_sms,
                             cudaStream_t st, bool zeroed = false) {
@@ -286,12 +293,13 @@ static void lgbt_direct_run(const uint8_t* X, const V* vals, const int* slot,
   if (K == 1) {
     const int blocks = lgbt_grid(N, num_sms,
                                  lgbt_smem_blocks_per_sm(n * sizeof(A)));
-    hist_direct_kernel<V, true><<<blocks, LGBT_THREADS, n * sizeof(A), st>>>(
+    hist_direct_kernel<V, true, T><<<blocks, LGBT_THREADS, n * sizeof(A),
+                                     st>>>(
         X, vals, slot, acc, N, F, C, K, B);
   } else {
-    hist_direct_kernel<V, false><<<lgbt_grid(N, num_sms, 8), LGBT_THREADS,
-                                   0, st>>>(X, vals, slot, acc, N, F, C, K,
-                                            B);
+    hist_direct_kernel<V, false, T><<<lgbt_grid(N, num_sms, 8),
+                                      LGBT_THREADS, 0, st>>>(
+        X, vals, slot, acc, N, F, C, K, B);
   }
 }
 
@@ -381,12 +389,27 @@ struct Tile {
   int k0, nk, f0, nf, lo, span;
 };
 
-// Uniform [F, N] uint8 storage of B bins a column, tiles of `fpt` columns.
-struct UniformBins {
+// Uniform [F, N] storage of B bins a column, of bin type T (uint8, or
+// uint16 past 256 bins), tiles of `fpt` columns. CUT: where one column's B
+// cells do not fit a tile (past 3072 bins at C = 2 in f64), a tile holds the
+// bins [b0, b0 + bw) of one column, `nbt` tiles of `bpt` bins a column; a
+// bin outside them reads as `bw`, past the tile.
+template <typename T, bool CUT>
+struct UniformBinsOf {
   static const int kPrefetch = 1;
-  const uint8_t* __restrict__ X;
+  const T* __restrict__ X;
   int F, B, fpt;
+  int nbt, bpt;                          // CUT: bin tiles a column, their bins
+  int b0, bw;                            // CUT: this tile's bins (setup)
   __device__ __forceinline__ void cols(int ft, Tile* t) const {
+    if (CUT) {
+      const int bt = ft % nbt;
+      t->f0 = ft / nbt;
+      t->nf = 1;
+      t->lo = t->f0 * B + bt * bpt;
+      t->span = min(bpt, B - bt * bpt);
+      return;
+    }
     t->f0 = ft * fpt;
     t->nf = min(F - t->f0, fpt);
     t->lo = t->f0 * B;
@@ -396,14 +419,22 @@ struct UniformBins {
     return (long long)F * B;
   }
   static __device__ __forceinline__ int desc_bytes() { return 0; }
-  __device__ __forceinline__ void setup(const Tile&, unsigned char*) {}
-  __device__ __forceinline__ int width(int) const { return B; }
-  __device__ __forceinline__ int loc(int fl) const { return fl * B; }
+  __device__ __forceinline__ void setup(const Tile& t, unsigned char*) {
+    if (CUT) {
+      b0 = t.lo - t.f0 * B;
+      bw = t.span;
+    }
+  }
+  __device__ __forceinline__ int width(int) const { return CUT ? bw : B; }
+  __device__ __forceinline__ int loc(int fl) const { return CUT ? 0 : fl * B; }
   __device__ __forceinline__ int bin(const Tile& t, int fl, long long N,
                                      long long r) const {
-    return X[(long long)(t.f0 + fl) * N + r];
+    const int b = X[(long long)(t.f0 + fl) * N + r];
+    if (!CUT) return b;
+    return (unsigned)(b - b0) < (unsigned)bw ? b - b0 : bw;
   }
 };
+typedef UniformBinsOf<uint8_t, false> UniformBins;
 
 // The uniform storage read P columns ahead: a row's bins of P columns are
 // loaded before any of their adds, so their loads are in flight together
@@ -568,7 +599,8 @@ __device__ __forceinline__ void sweep_tile(
 
 // Block (tile, piece): each tile's rows are cut into `pieces` even pieces
 // and its block of piece j sweeps piece j. Grouped rows (rows != null): per
-// column tile, the R = offsets[K] grouped rows make at most `segs` pieces
+// column tile, the R = offsets[K] - offsets[0] grouped rows (offsets[0] is
+// 0 but for a caller's window) make at most `segs` pieces
 // of at least min_rows rows, and each slot tile takes pieces in proportion
 // to its rows, so a wave's large and small children cost alike and no
 // block crosses a tile's edge; block p of column tile ft finds its (slot
@@ -596,7 +628,7 @@ hist_tiles_kernel(R rd, const V* __restrict__ vals,
   long long lo, hi, pieces = 1;
   if (rows) {
     const int ft = blockIdx.x % nft, nst = (K + spt - 1) / spt;
-    const long long R_ = offsets[K];
+    const long long R_ = offsets[K] - offsets[0];
     // the tiles' rounding up adds at most nst pieces: one wave in all
     const long long P = max(1LL, min((long long)segs - nst, R_ / min_rows));
     const long long target = max(1LL, (R_ + P - 1) / P);
@@ -702,6 +734,8 @@ static void lgbt_tiles_launch(const R& rd, const V* vals, const int* slot,
 // merge, pair) from ops/histogram_cuda.py, smem the dynamic shared memory
 // of a block (the reader's column records, then the accumulators): the
 // grouping when group_warps > 0 (slot given; scratch as lgbt_group_rows),
+// or the caller's row ids `rows` at positions [offsets[0], offsets[K]) in
+// device memory (slot null, K = 1),
 // the zeroing of what the blocks add into (not when `zeroed`: the caller's
 // membership pass zeroed it, ops/histogram_cuda.py:wave_hist_layout),
 // then the sweep. n is the output
@@ -734,9 +768,9 @@ static void lgbt_tiles_run(const R& rd, const V* vals, const int* slot,
                            int K, int spt, int nst, int nft, int segs,
                            int min_rows, int merge, int pair,
                            int group_warps, size_t smem, long long n,
-                           cudaStream_t st, bool zeroed = false) {
-  const int* rows = nullptr;
-  const int* offsets = nullptr;
+                           cudaStream_t st, bool zeroed = false,
+                           const int* rows = nullptr,
+                           const int* offsets = nullptr) {
   if (group_warps > 0)
     lgbt_group_rows(slot, N, K, group_warps, scratch, &rows, &offsets, st);
   const bool quant = !OutOf<V>::kRound;

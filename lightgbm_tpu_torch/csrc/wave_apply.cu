@@ -13,7 +13,8 @@
 // entry's feature needs and tests it, the per-row form of the TPU's
 // `table_go_left` (grow_wave.py:931-995).
 //
-// Inputs: X [C, N] uint8 storage columns, leaf_of_row [N], the [16, 128]
+// Inputs: X [C, N] storage columns (uint8, or uint16 past 256 bins, where
+// EFB is off), leaf_of_row [N], the [16, 128]
 // wave table (wave_table.cuh: rows 0-6 applied leaf, feature, threshold,
 // default_left, missing_type, default_bin, num_bins; rows 7-14 the same
 // for the candidates plus smaller_is_left; row 15 nl0) with full int32
@@ -44,24 +45,30 @@
 // bitsets of the active entries and the two leaf maps once, then runs a
 // persistent grid-stride loop (four blocks an SM) in which a thread takes
 // four rows a grid stride apart, so that four rows' chains of dependent
-// loads are in flight together.
+// loads are in flight together. Past 256 bins (uint16 storage) a
+// categorical bitset has up to cat_words(B) words (ops/grow.py), more than
+// the staged table holds: that instance reads an entry's word from `cats`
+// in global memory (a few KB, in L1 and L2), one load a categorical test.
 #include "common.cuh"
 
 #define LGBT_AP_ENTRIES 128   // LGBT_T_ENTRIES: entries of a wave table
-#define LGBT_AP_MAX_W 8       // bitset words of an entry (bins <= 256)
+#define LGBT_AP_MAX_W 8       // bitset words staged (bins <= 256)
 #define LGBT_AP_ILP 4         // rows a thread carries at once
 #define LGBT_DUP (-2)         // leaf named by more than one active entry
 
-// An entry's split as one 16-byte record:
+// An entry's split as one 16-byte record (bins of type T):
 //   x column of X to read
-//   y thr+1 (9 bits, thr clamped to [-1, 255]) | (miss_bin+1) << 9 (9 bits,
-//     -1 = none) | default_left << 18 | is_cat << 19 | smaller_is_left << 20
-//   z bundle offset, -1 = the column's bin as it is
+//   y thr+1 (17 bits, thr clamped to [-1, max T]) | default_left << 17 |
+//     is_cat << 18 | smaller_is_left << 19
+//   z miss_bin+1 (17 bits, 0 = none) | (bundle offset + 1) << 17 (0 = the
+//     column's bin as it is)
 //   w bundle num_bin | bundle default bin << 16
+template <typename T>
 __device__ __forceinline__ int4 ap_entry(const int* __restrict__ t, int row0,
                                          int k, int sil, int is_cat,
                                          const int* __restrict__ bundle,
                                          int F) {
+  const int tmax = (int)(T)~(T)0;
   const int feat = t[(row0 + 0) * LGBT_AP_ENTRIES + k];
   const int thr = t[(row0 + 1) * LGBT_AP_ENTRIES + k];
   const int dl = t[(row0 + 2) * LGBT_AP_ENTRIES + k] != 0;
@@ -69,30 +76,43 @@ __device__ __forceinline__ int4 ap_entry(const int* __restrict__ t, int row0,
   const int db = t[(row0 + 4) * LGBT_AP_ENTRIES + k];
   const int nb = t[(row0 + 5) * LGBT_AP_ENTRIES + k];
   int mb = mt == 1 ? db : (mt == 2 ? nb - 1 : -1);
-  if (mb < 0 || mb > 255) mb = -1;     // no uint8 bin equals it
+  if (mb < 0 || mb > tmax) mb = -1;    // no bin of type T equals it
   const int f = min(max(feat, 0), F - 1);
+  const int off = bundle ? bundle[F + f] : -1;
   int4 e;
   e.x = bundle ? bundle[f] : f;
-  e.y = (min(max(thr, -1), 255) + 1) | ((mb + 1) << 9) | (dl << 18) |
-        ((is_cat != 0) << 19) | ((sil & 1) << 20);
-  e.z = bundle ? bundle[F + f] : -1;
+  e.y = (min(max(thr, -1), tmax) + 1) | (dl << 17) | ((is_cat != 0) << 18) |
+        ((sil & 1) << 19);
+  e.z = (mb + 1) | ((off + 1) << 17);
   e.w = bundle ? ((bundle[2 * F + f] & 0xFFFF) | (bundle[3 * F + f] << 16))
                : 0;
   return e;
 }
 
-// go-left of row r under entry e (bitset `bits` of W words)
+// the smaller_is_left bit of an entry record
+__device__ __forceinline__ bool ap_sil(int4 e) { return (e.y >> 19) & 1; }
+
+// go-left of a row of bin `bin` under entry e; a categorical entry tests
+// bit `bin` of its W-word bitset: the staged `bits` (STAGED), or the
+// entry's words `gbits` in global memory
+template <bool STAGED>
 __device__ __forceinline__ bool ap_go_left(int4 e, const unsigned* bits,
+                                           const int* __restrict__ gbits,
                                            int W, int bin) {
-  if (e.z >= 0) {
+  const int off = (e.z >> 17) - 1;
+  if (off >= 0) {
     const int nbf = e.w & 0xFFFF, dbf = e.w >> 16;
-    const int rb = bin - e.z;
+    const int rb = bin - off;
     bin = (rb >= 0 && rb < nbf - 1) ? rb + (rb >= dbf) : dbf;
   }
   const int y = e.y;
-  if ((y >> 19) & 1) return (bits[min(bin >> 5, W - 1)] >> (bin & 31)) & 1u;
-  const int thr = (y & 0x1FF) - 1, mb = ((y >> 9) & 0x1FF) - 1;
-  return bin == mb ? ((y >> 18) & 1) != 0 : bin <= thr;
+  if ((y >> 18) & 1) {
+    const int wi = min(bin >> 5, W - 1);
+    const unsigned word = STAGED ? bits[wi] : (unsigned)__ldg(gbits + wi);
+    return (word >> (bin & 31)) & 1u;
+  }
+  const int thr = (y & 0x1FFFF) - 1, mb = (e.z & 0x1FFFF) - 1;
+  return bin == mb ? ((y >> 17) & 1) != 0 : bin <= thr;
 }
 
 // map[leaf] = k for the active entries k < Kd of the leaf row `t`; a leaf
@@ -110,16 +130,21 @@ __device__ __forceinline__ void ap_map_entries(const int* __restrict__ t,
   }
 }
 
+// T = uint8_t stages the bitsets (W <= LGBT_AP_MAX_W); uint16_t reads them
+// from `cats`
+template <typename T>
 __global__ void __launch_bounds__(LGBT_THREADS)
-wave_apply_kernel(const uint8_t* __restrict__ X,
+wave_apply_kernel(const T* __restrict__ X,
                   const int* __restrict__ lor_in,
                   const int* __restrict__ table,
                   const int* __restrict__ cats, int W,
                   const int* __restrict__ bundle, int F,
                   int* __restrict__ lor_out, int* __restrict__ slot_out,
                   long long N, int Kd, int leaf_cap) {
+  constexpr bool kStaged = sizeof(T) == 1;
   __shared__ int4 ent[2 * LGBT_AP_ENTRIES];   // applied, then candidates
-  __shared__ unsigned bits[2 * LGBT_AP_ENTRIES * LGBT_AP_MAX_W];
+  __shared__ unsigned bits[kStaged ? 2 * LGBT_AP_ENTRIES * LGBT_AP_MAX_W
+                                   : 1];
   extern __shared__ int maps[];               // [2, leaf_cap]
   int* app_of = maps;
   int* cand_of = maps + leaf_cap;
@@ -131,9 +156,9 @@ wave_apply_kernel(const uint8_t* __restrict__ X,
     if (k < 2 * LGBT_AP_ENTRIES && j < Kd) {
       const int* c = cats ? cats + (long long)k * (1 + W) : nullptr;
       const int sil = side ? table[14 * LGBT_AP_ENTRIES + j] : 0;
-      ent[k] = ap_entry(table, side ? 8 : 1, j, sil, c ? c[0] : 0, bundle,
-                        F);
-      if (c)
+      ent[k] = ap_entry<T>(table, side ? 8 : 1, j, sil, c ? c[0] : 0,
+                           bundle, F);
+      if (kStaged && c)
         for (int w = 0; w < W; ++w)
           bits[k * LGBT_AP_MAX_W + w] = (unsigned)c[1 + w];
     }
@@ -162,8 +187,11 @@ wave_apply_kernel(const uint8_t* __restrict__ X,
     }
 #pragma unroll
     for (int i = 0; i < LGBT_AP_ILP; ++i) {
-      if (k[i] >= 0 && !ap_go_left(ent[k[i]], bits + k[i] * LGBT_AP_MAX_W,
-                                   W, bin[i]))
+      if (k[i] >= 0 &&
+          !ap_go_left<kStaged>(ent[k[i]],
+                               bits + (kStaged ? k[i] : 0) * LGBT_AP_MAX_W,
+                               cats + (long long)k[i] * (1 + W) + 1, W,
+                               bin[i]))
         leaf[i] = nl0 + k[i];
       if (r[i] < N) lor_out[r[i]] = leaf[i];
     }
@@ -180,20 +208,22 @@ wave_apply_kernel(const uint8_t* __restrict__ X,
       int s = -1;
       if (k[i] >= 0) {
         const int e = LGBT_AP_ENTRIES + k[i];
-        const bool gl =
-            ap_go_left(ent[e], bits + e * LGBT_AP_MAX_W, W, bin[i]);
-        if (gl == (((ent[e].y >> 20) & 1) != 0)) s = k[i];
+        const bool gl = ap_go_left<kStaged>(
+            ent[e], bits + (kStaged ? e : 0) * LGBT_AP_MAX_W,
+            cats + (long long)e * (1 + W) + 1, W, bin[i]);
+        if (gl == ap_sil(ent[e])) s = k[i];
       }
       if (r[i] < N) slot_out[r[i]] = s;
     }
   }
 }
 
-// X [C, N] uint8, lor_in / lor_out / slot_out [N] int32, table [16, 128]
-// int32, cats [2, 128, 1 + W] int32 or null (W <= 8), bundle [4, F] int32
-// or null (F: the features the table's ids index; C when null); 1 <= Kd
-// <= 128; every leaf id that should match lies below leaf_cap (<= 4096).
-extern "C" int lgbt_wave_apply(const void* X, const void* lor_in,
+// X [C, N] uint8 (bin16 = 0; cats W <= 8) or uint16 (bundle null), lor_in
+// / lor_out / slot_out [N] int32, table [16, 128] int32, cats [2, 128,
+// 1 + W] int32 or null, bundle [4, F] int32 or null (F: the features the
+// table's ids index; C when null); 1 <= Kd <= 128; every leaf id that
+// should match lies below leaf_cap (<= 4096).
+extern "C" int lgbt_wave_apply(const void* X, int bin16, const void* lor_in,
                                const void* table, const void* cats, int W,
                                const void* bundle, int F, void* lor_out,
                                void* slot_out, long long N, int Kd,
@@ -201,10 +231,17 @@ extern "C" int lgbt_wave_apply(const void* X, const void* lor_in,
   // the maps (at most 32 KB) and the static 12 KB stay under 48 KB
   const size_t smem = 2 * (size_t)leaf_cap * sizeof(int);
   const long long quads = (N + LGBT_AP_ILP - 1) / LGBT_AP_ILP;
-  wave_apply_kernel<<<lgbt_grid(quads, num_sms, 4), LGBT_THREADS, smem,
-                      (cudaStream_t)stream>>>(
-      (const uint8_t*)X, (const int*)lor_in, (const int*)table,
-      (const int*)cats, W, (const int*)bundle, F, (int*)lor_out,
-      (int*)slot_out, N, Kd, leaf_cap);
+  const int grid = lgbt_grid(quads, num_sms, 4);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (bin16)
+    wave_apply_kernel<uint16_t><<<grid, LGBT_THREADS, smem, st>>>(
+        (const uint16_t*)X, (const int*)lor_in, (const int*)table,
+        (const int*)cats, W, (const int*)bundle, F, (int*)lor_out,
+        (int*)slot_out, N, Kd, leaf_cap);
+  else
+    wave_apply_kernel<uint8_t><<<grid, LGBT_THREADS, smem, st>>>(
+        (const uint8_t*)X, (const int*)lor_in, (const int*)table,
+        (const int*)cats, W, (const int*)bundle, F, (int*)lor_out,
+        (int*)slot_out, N, Kd, leaf_cap);
   return (int)cudaGetLastError();
 }

@@ -406,8 +406,9 @@ def construct_from_matrix(
 
 def _to_device(ds: BinnedDataset, device: Optional[torch.device]) -> None:
     """The feature-major `X_t` copy of a host-binned matrix on `device`,
-    as the matrix path's host route makes it (none past 256 bins)."""
-    if device is not None and ds.X_binned.dtype == np.uint8:
+    as the matrix path's host route makes it: uint8, or uint16 past 256
+    bins (`_alloc_binned`)."""
+    if device is not None:
         ds.X_t = torch.from_numpy(
             np.ascontiguousarray(ds.X_binned.T)).to(device)
 

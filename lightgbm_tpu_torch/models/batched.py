@@ -10,12 +10,13 @@ replays three CUDA graphs instead, captured once per runner:
 
   * "start": the gradients of the scores, the in-chunk bagging or GOSS
     mask (`mask_for_iter`), the discretized gradients and the root pass
-    (ops/grow_batched.py:WaveStepper.start);
-  * "wave": one fixed-shape wave (WaveStepper.wave), replayed LAG at a
-    time; after each group the host copies the step's `more` flag into
-    pinned memory behind an event and reads it, so a tree of w waves
+    (ops/grow_batched.py:WaveStepper.start, SerialStepper.start);
+  * "wave", or "split" on the serial growers masked and compact: one
+    fixed-shape step (WaveStepper.wave, SerialStepper.split), replayed
+    LAG at a time; after each group the host copies the step's `more` flag
+    into pinned memory behind an event and reads it, so a tree of w steps
     costs ceil(w / LAG) blocking reads (one when it has none) and runs
-    at most LAG - 1 inert waves;
+    at most LAG - 1 inert steps;
   * "finish": leaf renewal, the score update (#2) of the training rows
     and of each valid set, whose rows the waves relabelled, the metric
     row written into the [chunk, M] buffer, and the tree record written
@@ -47,9 +48,10 @@ import numpy as np
 import torch
 
 from ..ops import histogram_cuda as hc
-from ..ops.grow_batched import TREE_FIELDS, WaveStepper
+from ..ops.grow_batched import TREE_FIELDS, make_stepper
 
-# waves replayed between two polls of the tree's `more` flag
+# steps (waves or splits) replayed between two polls of the tree's `more`
+# flag
 LAG = 4
 
 
@@ -62,9 +64,9 @@ class ChunkRunner:
         self.cuda = dev.type == "cuda"
         self.chunk = chunk
         self.mode = mode
-        st = self.stepper = WaveStepper(
-            gbdt.X_t, gbdt.meta, gbdt.grow_cfg, hist_plan=gbdt.hist_plan,
-            valid_X=gbdt._valid_Xt)
+        st = self.stepper = make_stepper(
+            gbdt.grower, gbdt.X_t, gbdt.meta, gbdt.grow_cfg,
+            hist_plan=gbdt.hist_plan, valid_X=gbdt._valid_Xt)
         N, F = gbdt.num_data, len(gbdt.mappers)
 
         def z(shape, dtype=torch.float32):
@@ -102,8 +104,8 @@ class ChunkRunner:
         self.captured: Dict[str, Dict[str, int]] = {}
         self.captures = collections.Counter()
         self.replays = collections.Counter()
-        # per tree grown: blocking host reads of its `more` flag, waves
-        # run; seconds each capture took
+        # per tree grown: blocking host reads of its `more` flag, steps
+        # (waves or splits) run; seconds each capture took
         self.tree_reads: List[int] = []
         self.tree_waves: List[int] = []
         self.capture_s: Dict[str, float] = {}
@@ -124,8 +126,8 @@ class ChunkRunner:
                            self.cur_fmask if self.has_fmask else None,
                            self.cur[1])
 
-    def _wave(self) -> None:
-        self.stepper.wave()
+    def _step(self) -> None:
+        self.stepper.step()
 
     def _finish(self) -> None:
         st = self.stepper
@@ -203,7 +205,7 @@ class ChunkRunner:
             reads = 0
             while True:
                 for _ in range(LAG):
-                    self._call("wave", self._wave)
+                    self._call(self.stepper.step_name, self._step)
                 reads += 1
                 if not self._more():
                     break

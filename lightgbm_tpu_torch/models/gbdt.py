@@ -36,12 +36,13 @@ device routes.
 Batched training (`can_batch_iters`, `train_iters_batched`, JAX gbdt.py:
 1108-1418) runs chunks of iterations with no host round trip per
 iteration on every wave route ("mega", "apply", "fused", "fused_tiled"),
-with monotone intermediate, wave_exact and forced splits
-(models/batched.py, ops/grow_batched.py), md5-equal to train_one_iter's
-models; a chunk's trees reach the model through a worker thread
-(`start_drain`). The JAX package's vetoes keep the per-iteration path, as
-do the serial growers masked and compact, still to port (ROADMAP item
-A12(b)); `batched_veto` names the reason.
+with monotone intermediate, wave_exact and forced splits, and on the
+serial growers masked and compact (models/batched.py, ops/grow_batched.py),
+md5-equal to train_one_iter's models; a chunk's trees reach the model
+through a worker thread (`start_drain`). The JAX package's vetoes keep the
+per-iteration path; `batched_veto` names the reason. Past 256 bins a
+feature the storage is uint16 and every wave takes the apply route
+(`wave_routes`), as the JAX package's Pallas-free path does.
 """
 
 from __future__ import annotations
@@ -116,11 +117,6 @@ def check_slice_config(cfg: Config) -> None:
                     "resume_from_checkpoint / fault_plan)", "A17")
     if cfg.device_profile:
         _not_ported("device_profile", "A14")
-
-
-def _check_slice_data(ds: BinnedDataset) -> None:
-    if ds.X_binned.dtype != np.uint8:
-        _not_ported("more than 256 bins per feature", "A14")
 
 
 def _parse_interaction_constraints(spec) -> List[List[int]]:
@@ -273,7 +269,6 @@ class GBDT:
         # can_batch_iters refused ("" when it allowed), the chunk runners
         # by key, the attached tree drain, the runner calls made
         self.batched_veto = ""
-        self._batched_logged: set = set()
         self._runners: "collections.OrderedDict" = collections.OrderedDict()
         self._drain: Optional[AsyncTreeDrain] = None
         self.drain_lags_ms: List[float] = []
@@ -294,7 +289,6 @@ class GBDT:
     def _init_train(self, ds: BinnedDataset) -> None:
         cfg = self.config
         check_slice_config(cfg)
-        _check_slice_data(ds)
         self.device = resolve_device(cfg.device_type)
         self.num_data = ds.num_data
         self.max_feature_idx_ = ds.num_total_features - 1
@@ -788,53 +782,43 @@ class GBDT:
         return [(self.valid_names[vi], m.result_name(), m.is_higher_better)
                 for vi, m, _ in lay]
 
-    def _batched_refusal(self, n: int) -> Tuple[str, bool]:
-        """(why `n` iterations from self.iter cannot run batched, whether
-        the reason waits for ROADMAP item A12(b)); ("", False) when they
-        can. The JAX package's vetoes first (gbdt.py:1155-1204)."""
+    def _batched_refusal(self, n: int) -> str:
+        """Why `n` iterations from self.iter cannot run batched; "" when
+        they can. The JAX package's vetoes (gbdt.py:1155-1204)."""
         if type(self) is not GBDT:
-            return f"boosting={self.config.boosting}", False
+            return f"boosting={self.config.boosting}"
         if not self.config.batched_train:
-            return "batched_train=false", False
+            return "batched_train=false"
         if os.environ.get("LIGHTGBM_TPU_DISABLE_BATCHED", "") \
                 not in ("", "0"):
-            return "LIGHTGBM_TPU_DISABLE_BATCHED", False
+            return "LIGHTGBM_TPU_DISABLE_BATCHED"
         if self.num_tree_per_iteration != 1:
-            return "multiclass (K > 1)", False
+            return "multiclass (K > 1)"
         if self._linear:
-            return "linear_tree", False
+            return "linear_tree"
         if self.objective is None or self.objective.runs_on_host:
-            return "an objective on the host", False
+            return "an objective on the host"
         if self.objective.need_renew_tree_output:
-            return "leaf renewal (objective)", False
+            return "leaf renewal (objective)"
         if self._cegb_used is not None:
-            return "CEGB", False
+            return "CEGB"
         strat = self.sample_strategy
         if self._batched_sampling_mode() == "host":
             if strat.needs_grad:
-                return "gradient-aware sampling off the device", False
+                return "gradient-aware sampling off the device"
             p = strat.resample_period()
             if p > 0 and (self.iter + n - 1) // p > self.iter // p:
-                return "a resample inside the chunk", False
+                return "a resample inside the chunk"
         if self.valid_sets and self._device_metric_layout() is None:
-            return "a valid metric without a device form", False
-        if self.grower in ("masked", "compact"):
-            return f"the serial grower {self.grower}", True
-        return "", False
+            return "a valid metric without a device form"
+        return ""
 
     def can_batch_iters(self, n: int) -> bool:
         """Whether `n` iterations from self.iter may run as one batched
         chunk (train_iters_batched), with the models of n train_one_iter
-        calls. Sets `batched_veto` to the reason when not ("" when so); a
-        regime that waits for A12(b) says so in it and logs once at info
-        level."""
-        why, later = self._batched_refusal(n)
-        self.batched_veto = f"{why} (A12(b))" if later else why
-        if later and why not in self._batched_logged:
-            self._batched_logged.add(why)
-            log_info(f"batched training of {why} is not ported yet "
-                     "(ROADMAP item A12(b)); training per iteration")
-        return not why
+        calls. Sets `batched_veto` to the reason when not ("" when so)."""
+        self.batched_veto = self._batched_refusal(n)
+        return not self.batched_veto
 
     def _runner(self, chunk: int, mode: str, layout) -> ChunkRunner:
         """The chunk runner (its buffers and captured graphs) of this

@@ -13,10 +13,12 @@ largest cached gain, records node s, re-tags that leaf's rows and builds
 both children's histograms in ONE pass over all rows, the slot histogram
 (#1) at K = 2 with the leaf's left rows in slot 0, its right rows in slot
 1 and every other row outside [0, 2). The JAX package runs the L - 1
-splits inside a `fori_loop` that `lax.cond` skips once the tree is done;
-here the loop reads the best leaf and whether its gain is positive, one
-host read a split, and stops at the first split that cannot be made
-(`done` is sticky there, so the trees are the same).
+splits inside a `fori_loop` that `lax.cond` skips once the tree is done.
+The split itself is ops/grow_batched.py:SerialStepper's, which batched
+training replays with no read; here `grow_tree` drives it eagerly and
+reads whether another split would do work, one host read a split, and
+stops at the first split that cannot be made (`done` is sticky there, so
+the trees are the same).
 
 Categorical left-sets are bin bitsets of W = ceil(B / 32) words. Torch has
 no full-range uint32, so each word's 32 bits are held in an int64 (values
@@ -25,13 +27,12 @@ no full-range uint32, so each word's 32 bits are held in an int64 (values
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from .categorical import CatConfig, find_best_split_categorical
-from .histogram import (HistPlan, build_histogram, build_histogram_slots,
-                        hist_route, make_hist_plan)
+from .histogram import HistPlan, build_histogram, hist_route
 from .split import (NEG_INF, FeatureMeta, SplitHyperParams, SplitResult,
                     find_best_split, synth_count_channel)
 
@@ -132,6 +133,14 @@ class GrowConfig(NamedTuple):
             min_gain_to_split=self.min_gain_to_split,
             path_smooth=self.path_smooth,
         )
+
+    @property
+    def wide_bins(self) -> bool:
+        """More than 256 bins a storage column: the uint16 storage
+        (data/dataset.py:_alloc_binned), which only the apply route's
+        kernels (#1, #4) and the serial growers read; the JAX package's
+        Pallas kernels refuse it (histogram.py:_use_pallas)."""
+        return self.num_bins_padded > 256
 
     @property
     def cat_words(self) -> int:
@@ -239,10 +248,9 @@ def split_go_left(X_t: torch.Tensor, bs: SplitResult, is_cat, bits,
 
 
 class _TreeRecord:
-    """The tree under construction and the per-leaf state both serial
-    growers keep: device arrays of the node and leaf records and of the
-    cached best splits, and the leaves' parent node, side and depth on
-    the host, which follow from the chosen leaves alone."""
+    """The root's tree record and per-leaf state, device arrays that
+    SerialStepper.start copies into its own: the node records empty, leaf
+    0 the root's sums and the cached best splits the root's."""
 
     def __init__(self, L: int, W: int, dev, root_g, root_h, root_c,
                  root_out, root_split: SplitResult, root_cat, root_bits):
@@ -282,91 +290,6 @@ class _TreeRecord:
         self.best_is_cat[0] = root_cat[0]
         self.best_bitset = zeros((L, W), torch.int64)
         self.best_bitset[0] = root_bits[0]
-        self.parent_node: List[int] = [-1] * L
-        self.is_left: List[bool] = [False] * L
-        self.depth: List[int] = [0] * L
-        self.num_leaves = 1
-
-    def apply(self, s: int, p: int, bs: SplitResult, is_cat, bits,
-              left_count: torch.Tensor, right_count: torch.Tensor) -> int:
-        """Record split s of leaf p (its best `bs`, children's counts) as
-        Tree::Split does, rewire the parent's child pointer and move the
-        leaf state to both children; returns the children's depth."""
-        r = s + 1
-        self.split_feature[s] = bs.feature
-        self.threshold_bin[s] = bs.threshold
-        self.default_left[s] = bs.default_left
-        self.split_gain[s] = bs.gain
-        self.left_child[s] = ~p
-        self.right_child[s] = ~r
-        self.internal_value[s] = self.leaf_output[p]
-        self.internal_weight[s] = self.leaf_sum_h[p]
-        self.internal_count[s] = self.leaf_count[p]
-        self.split_parent_leaf[s] = p
-        self.split_is_cat[s] = is_cat
-        self.split_cat_bitset[s] = bits
-        prev = self.parent_node[p]
-        if prev >= 0:
-            (self.left_child if self.is_left[p]
-             else self.right_child)[prev] = s
-        depth = self.depth[p] + 1
-        for leaf, left in ((p, True), (r, False)):
-            self.parent_node[leaf] = s
-            self.is_left[leaf] = left
-            self.depth[leaf] = depth
-        for arr, lv, rv in ((self.leaf_value, bs.left_output,
-                             bs.right_output),
-                            (self.leaf_weight, bs.left_sum_h,
-                             bs.right_sum_h),
-                            (self.leaf_count, left_count.to(torch.int32),
-                             right_count.to(torch.int32)),
-                            (self.leaf_output, bs.left_output,
-                             bs.right_output),
-                            (self.leaf_sum_g, bs.left_sum_g,
-                             bs.right_sum_g),
-                            (self.leaf_sum_h, bs.left_sum_h,
-                             bs.right_sum_h)):
-            arr[p] = lv
-            arr[r] = rv
-        self.num_leaves += 1
-        return depth
-
-    def cache(self, p: int, r: int, s_lr: SplitResult, cat_lr, bits_lr,
-              can: bool) -> None:
-        """Cache both children's best splits (gain -inf past max_depth)."""
-        for a, v in zip(self.best, s_lr):
-            a[p] = v[0]
-            a[r] = v[1]
-        if not can:
-            self.best.gain[p] = NEG_INF
-            self.best.gain[r] = NEG_INF
-        self.best_is_cat[p], self.best_is_cat[r] = cat_lr[0], cat_lr[1]
-        self.best_bitset[p], self.best_bitset[r] = bits_lr[0], bits_lr[1]
-
-    def next_leaf(self, *extra: torch.Tensor) -> Tuple[int, bool, list]:
-        """The leaf of largest cached gain (the lowest id on ties, as
-        jnp.argmax) and whether it splits (gain > 0), with `extra` scalars,
-        in one host read."""
-        p = torch.argmax(self.best.gain)
-        vals = torch.stack([p.to(torch.float64),
-                            (self.best.gain[p] > 0.0).to(torch.float64),
-                            *[e.to(torch.float64) for e in extra]]).tolist()
-        return int(vals[0]), bool(vals[1]), vals[2:]
-
-    def device_tree(self, host_reads: int) -> DeviceTree:
-        return DeviceTree(
-            num_leaves=self.num_leaves, split_feature=self.split_feature,
-            threshold_bin=self.threshold_bin,
-            default_left=self.default_left, split_gain=self.split_gain,
-            left_child=self.left_child, right_child=self.right_child,
-            internal_value=self.internal_value,
-            internal_weight=self.internal_weight,
-            internal_count=self.internal_count, leaf_value=self.leaf_value,
-            leaf_weight=self.leaf_weight, leaf_count=self.leaf_count,
-            split_parent_leaf=self.split_parent_leaf,
-            split_is_cat=self.split_is_cat,
-            split_cat_bitset=self.split_cat_bitset, num_waves=0,
-            host_reads=host_reads)
 
 
 def serial_root(X_t: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
@@ -417,49 +340,10 @@ def grow_tree(
     parent's pointer rewired, p's rows re-tagged (the right child is leaf
     s + 1), the children's exact in-bag counts (update_cnt,
     serial_tree_learner.cpp:796-799), then both children's histograms in
-    one slot-histogram pass and their splits searched. `hist_plan` is
-    `make_hist_plan`'s plan of a row-wise histogram route (made here when
-    not given); `plain=True` runs the kernels' plain versions on any
-    device."""
-    F_st, N = X_t.shape
-    L = cfg.num_leaves
-    B = cfg.num_bins_padded
-    max_depth = cfg.max_depth if cfg.max_depth > 0 else 10 ** 9
-    hroute = serial_hist_route(cfg, F_st)
-    if hroute != "slots" and hist_plan is None:
-        hist_plan = make_hist_plan(X_t, hroute, cfg.hist_tiers)
-    g, h, cnt_row, _, t = serial_root(X_t, grad, hess, in_bag, meta, cfg,
-                                      feature_mask, hroute, hist_plan,
-                                      plain)
-    vals = torch.stack([g, h])
-    leaf_of_row = torch.zeros(N, dtype=torch.int32, device=X_t.device)
-    reads = 0
-    for s in range(L - 1):
-        p, valid, _ = t.next_leaf()
-        reads += 1
-        if not valid:
-            break
-        bs = SplitResult(*[a[p] for a in t.best])
-        is_cat, bits = t.best_is_cat[p], t.best_bitset[p]
-        gl = split_go_left(X_t, bs, is_cat, bits, meta, cfg)
-        in_p = leaf_of_row == p
-        # rows of p: slot 0 going left, slot 1 going right; others -1
-        slot = torch.where(in_p, (~gl).to(torch.int32),
-                           torch.full_like(leaf_of_row, -1))
-        leaf_of_row = torch.where(in_p & ~gl,
-                                  torch.full_like(leaf_of_row, s + 1),
-                                  leaf_of_row)
-        n_left = (cnt_row * (in_p & gl).to(torch.float32)).sum()
-        n_right = t.leaf_count[p].to(torch.float32) - n_left
-        bs = bs._replace(left_count=n_left, right_count=n_right)
-        depth = t.apply(s, p, bs, is_cat, bits, n_left, n_right)
-        hist_lr = build_histogram_slots(X_t, vals, slot, 2, B, impl=hroute,
-                                        plan=hist_plan, plain=plain)
-        s_lr, cat_lr, bits_lr = serial_search(
-            hist_lr, torch.stack([bs.left_sum_g, bs.right_sum_g]),
-            torch.stack([bs.left_sum_h, bs.right_sum_h]),
-            torch.stack([n_left, n_right]),
-            torch.stack([bs.left_output, bs.right_output]), meta, cfg,
-            feature_mask)
-        t.cache(p, s + 1, s_lr, cat_lr, bits_lr, depth < max_depth)
-    return t.device_tree(reads), leaf_of_row
+    one slot-histogram pass and their splits searched (SerialStepper's
+    split, driven by grow_tree_serial). `hist_plan` is `make_hist_plan`'s
+    plan of a row-wise histogram route (made here when not given);
+    `plain=True` runs the kernels' plain versions on any device."""
+    from .grow_batched import grow_tree_serial
+    return grow_tree_serial(X_t, grad, hess, in_bag, meta, cfg, feature_mask,
+                            compact=False, hist_plan=hist_plan, plain=plain)

@@ -1,5 +1,7 @@
-"""The wave grower at one fixed shape, with no host reads: batched training's
-tree step on every wave route ("mega", "apply", "fused", "fused_tiled").
+"""The growers at one fixed shape, with no host reads: batched training's
+tree step on every wave route ("mega", "apply", "fused", "fused_tiled")
+(`WaveStepper`) and on the serial growers masked and compact
+(`SerialStepper`, one split a step; see its docstring).
 
 Counterpart of the body and condition of the JAX package's
 `lax.while_loop` over waves (lightgbm_tpu/ops/grow_wave.py:2095-2124):
@@ -68,8 +70,11 @@ from typing import Optional, Sequence
 
 import torch
 
+from ..models.tree import MISSING_NAN, MISSING_ZERO
 from .categorical import find_best_split_categorical
-from .grow import DeviceTree, GrowConfig, empty_split_cache
+from .grow import (DeviceTree, GrowConfig, empty_split_cache,
+                   serial_hist_route, serial_root, serial_search,
+                   split_go_left)
 from .grow_fused import (fused_feature_mask, pack_fused_meta,
                          pack_fused_scalars, unpack_fused_records)
 from .grow_wave import (_slack_guard, _split_rows, _top_k, dec_go_left,
@@ -79,8 +84,10 @@ from .grow_wave import (_slack_guard, _split_rows, _top_k, dec_go_left,
                         refresh_bounds, renew_leaf_values, wave_buckets_for,
                         wave_bundle_map, wave_routes, xt_bins)
 from .histogram import (HistPlan, add_leaf_values_, build_histogram,
-                        build_histogram_slots, wave_apply, wave_pass,
-                        wave_pass_fused, wave_pass_fused_tiled, wave_relabel)
+                        build_histogram_slots, build_histogram_window,
+                        make_hist_plan, wave_apply, wave_pass,
+                        wave_pass_fused, wave_pass_fused_tiled, wave_relabel,
+                        window_partition)
 from .split import (NEG_INF, FeatureMeta, SplitResult, find_best_split,
                     find_best_split_and_forced, synth_count_channel)
 from ..utils.random import PRNGKey, fold_in
@@ -91,10 +98,12 @@ TREE_FIELDS = tuple(f for f in DeviceTree._fields if f != "host_reads")
 
 class WaveStepper:
     """The fixed-shape state of one tree and its three steps: `start` (the
-    root), `wave` (one wave at K = the route's cap) and `finish` (leaf
-    renewal and the score updates). Leaf arrays hold L + 1 entries and
-    node arrays M + 1, the last one the trash slot of masked writes;
-    `device_tree()` views the first L / M."""
+    root), `wave` (one wave at K = the route's cap; `step`, the runner's
+    name for it) and `finish` (leaf renewal and the score updates). Leaf
+    arrays hold L + 1 entries and node arrays M + 1, the last one the trash
+    slot of masked writes; `device_tree()` views the first L / M."""
+
+    step_name = "wave"
 
     def __init__(self, X_t: torch.Tensor, meta: FeatureMeta,
                  cfg: GrowConfig, *, hist_plan: Optional[HistPlan] = None,
@@ -752,6 +761,8 @@ class WaveStepper:
         self.more.copy_(((self._keyed().max() > 0.0)
                          & (self.num_leaves < L)).to(torch.int32))
 
+    step = wave
+
     def _children_constraints(self, bsx, leaves):
         """What the search of both children of the candidates `leaves`
         (best splits `bsx`) reads, left children first: (bounds min,
@@ -814,6 +825,378 @@ class WaveStepper:
             num_waves=self.num_waves)
 
 
+def partition_record(start: torch.Tensor, count: torch.Tensor,
+                     bs: SplitResult, is_cat: torch.Tensor,
+                     bits: torch.Tensor, new_leaf: torch.Tensor,
+                     meta: FeatureMeta) -> torch.Tensor:
+    """The int32 record of `window_partition` for one split ([1] tensors
+    on the device; bits [1, W] int64 words): start, count, storage column,
+    threshold, default_left, the missing bin (dec_go_left's `mbin`, -1:
+    none), is_cat, new leaf, W, then the W words as int32 bit patterns."""
+    F = meta.num_bins.shape[0]
+    f = bs.feature.clamp(0, F - 1)
+    mt = meta.missing_type.to(torch.int64)[f]
+    db = meta.default_bin.to(torch.int64)[f]
+    nb = meta.num_bins.to(torch.int64)[f]
+    mbin = torch.where(mt == MISSING_ZERO, db,
+                       torch.where(mt == MISSING_NAN, nb - 1,
+                                   torch.full_like(db, -1)))
+    words = bits.reshape(-1)
+    words = torch.where(words >= 1 << 31, words - (1 << 32), words)
+    head = torch.cat([start, count, f, bs.threshold,
+                      bs.default_left.to(torch.int64), mbin,
+                      is_cat.to(torch.int64), new_leaf,
+                      torch.full_like(start, words.shape[0])])
+    return torch.cat([head, words]).to(torch.int32)
+
+
+class SerialStepper:
+    """The fixed-shape state of one tree of a serial grower, `masked` or
+    `compact`, and its three steps: `start` (the root), `split` (one split; `step`,
+    the runner's name for it) and `finish` (the score updates). The
+    counterpart of the JAX package's serial growers inside its batched
+    scan (`fori_loop` over L - 1 splits, grow.py:610, grow_fast.py:394),
+    which run every split, a finished tree's ones inert.
+
+    The per-iteration growers (ops/grow.py:grow_tree and
+    ops/grow_fast.py:grow_tree_fast) drive these steps eagerly, through
+    grow_tree_serial, so both paths grow the same trees. The split counter,
+    the chosen leaf (`argmax` of the cached gains, the lowest id on ties,
+    as jnp.argmax) and the new leaf's id live on the device, and every
+    write into the tree record goes through device indices; a split after
+    the tree has ended (no positive gain, or the leaves spent) writes only
+    to the trash slots (leaf L, node M) and moves no row. `more` ([] int32)
+    says whether another split would do work.
+
+    masked: one pass over all rows a split, #1 at K = 2 (the leaf's left
+    rows in slot 0, its right rows in slot 1), the children's exact in-bag
+    counts. compact: the leaf windows' start and count are [L] device
+    tensors; the split's stable partition of its window
+    (`window_partition`, left rows first, the right rows relabelled) and
+    the smaller child's histogram (#1 over the window's row ids,
+    `build_histogram_window`) both read the window from device memory, so
+    their work follows the window, not N; the larger child is the parent's
+    histogram less the smaller's, in f32. The windows are exact, not the
+    JAX package's power-of-two buckets, whose padded rows add nothing to
+    the sums. The window histograms take the uniform grid whatever
+    histogram_impl says (the row-wise layouts give the same
+    f64-accumulated sums); the root takes the configured route.
+
+    Valid rows follow each split's decision (`split_go_left`), so a tree's
+    valid-set leaves are ready when it ends."""
+
+    step_name = "split"
+
+    def __init__(self, X_t: torch.Tensor, meta: FeatureMeta,
+                 cfg: GrowConfig, *, compact: bool,
+                 hist_plan: Optional[HistPlan] = None,
+                 valid_X: Sequence[torch.Tensor] = (),
+                 plain: bool = False):
+        self.X_t, self.meta, self.cfg = X_t, meta, cfg
+        self.compact = compact
+        self.plain = plain
+        dev = self.dev = X_t.device
+        F_st, N = X_t.shape
+        self.L = L = cfg.num_leaves
+        self.M = M = max(L - 1, 1)
+        self.B = cfg.num_bins_padded
+        W = cfg.cat_words
+        self.hroute = serial_hist_route(cfg, F_st)
+        if self.hroute != "slots" and hist_plan is None:
+            hist_plan = make_hist_plan(X_t, self.hroute, cfg.hist_tiers)
+        self.hist_plan = hist_plan
+        self.max_depth = cfg.max_depth if cfg.max_depth > 0 else 10 ** 9
+        self.valid_X = list(valid_X)
+        self.fmask = None
+
+        def z(shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+        self.vals = z((2, N))
+        self.cnt_row = z(N)
+        # the tree record, then the per-leaf state
+        self.split_feature = z(M + 1, torch.int64)
+        self.threshold_bin = z(M + 1, torch.int64)
+        self.default_left = z(M + 1, torch.bool)
+        self.split_gain = z(M + 1)
+        self.left_child = z(M + 1, torch.int32)
+        self.right_child = z(M + 1, torch.int32)
+        self.internal_value = z(M + 1)
+        self.internal_weight = z(M + 1)
+        self.internal_count = z(M + 1, torch.int32)
+        self.split_parent_leaf = z(M + 1, torch.int64)
+        self.split_is_cat = z(M + 1, torch.bool)
+        self.split_cat_bitset = z((M + 1, W), torch.int64)
+        self.leaf_value = z(L + 1)
+        self.leaf_weight = z(L + 1)
+        self.leaf_count = z(L + 1, torch.int32)
+        self.leaf_output = z(L + 1)
+        self.leaf_sum_g = z(L + 1)
+        self.leaf_sum_h = z(L + 1)
+        self.leaf_parent_node = z(L + 1, torch.int64)
+        self.leaf_is_left = z(L + 1, torch.bool)
+        self.leaf_depth = z(L + 1, torch.int64)
+        self.best = empty_split_cache(L + 1, dev)
+        self.best_is_cat = z(L + 1, torch.bool)
+        self.best_bitset = z((L + 1, W), torch.int64)
+        self.leaf_of_row = z(N, torch.int32)
+        self.num_leaves = z((), torch.int64)
+        self.num_waves = z((), torch.int64)
+        self.more = z((), torch.int32)
+        self.valid_leaf = [z(Xv.shape[1], torch.int32) for Xv in valid_X]
+        if compact:
+            self.rows = torch.arange(N, dtype=torch.int32, device=dev)
+            self.order = z(N, torch.int32)
+            self.leaf_start = z(L + 1, torch.int64)
+            self.leaf_cnt = z(L + 1, torch.int64)
+            self.hist_cache = z((L + 1, 2, F_st, self.B))
+            self.win = z(2, torch.int32)
+
+    # ------------------------------------------------------------------
+    def start(self, grad: torch.Tensor, hess: torch.Tensor,
+              in_bag: torch.Tensor, feature_mask: Optional[torch.Tensor],
+              seed: torch.Tensor) -> None:
+        """The root (ops/grow.py:serial_root, the per-iteration growers'
+        own) copied into the static state, which is reset in place. The
+        serial growers take no seed."""
+        L, M = self.L, self.M
+        self.fmask = feature_mask
+        g, h, cnt_row, hist_root, rec = serial_root(
+            self.X_t, grad, hess, in_bag, self.meta, self.cfg, feature_mask,
+            self.hroute, self.hist_plan, self.plain)
+        self.vals.copy_(torch.stack([g, h]))
+        self.cnt_row.copy_(cnt_row)
+        for name in ("split_feature", "threshold_bin", "default_left",
+                     "split_gain", "left_child", "right_child",
+                     "internal_value", "internal_weight", "internal_count",
+                     "split_parent_leaf", "split_is_cat",
+                     "split_cat_bitset"):
+            dst = getattr(self, name)
+            dst[:M].copy_(getattr(rec, name))
+            dst[M:].zero_()
+        for name in ("leaf_value", "leaf_weight", "leaf_count",
+                     "leaf_output", "leaf_sum_g", "leaf_sum_h",
+                     "best_is_cat", "best_bitset"):
+            dst = getattr(self, name)
+            dst[:L].copy_(getattr(rec, name))
+            dst[L:].zero_()
+        for dst, src in zip(self.best, rec.best):
+            dst[:L].copy_(src)
+            dst[L:].zero_()
+        self.best.gain[L:].fill_(NEG_INF)
+        self.leaf_parent_node.fill_(-1)
+        self.leaf_is_left.zero_()
+        self.leaf_depth.zero_()
+        self.leaf_of_row.zero_()
+        for vl in self.valid_leaf:
+            vl.zero_()
+        self.num_leaves.fill_(1)
+        self.num_waves.zero_()
+        if self.compact:
+            self.order.copy_(self.rows)
+            self.leaf_start.zero_()
+            self.leaf_cnt.zero_()
+            self.leaf_cnt[:1].fill_(self.X_t.shape[1])
+            self.hist_cache[0] = hist_root
+        self.more.copy_(((self.best.gain[:L].max() > 0.0) & (L > 1))
+                        .to(torch.int32))
+
+    # ------------------------------------------------------------------
+    def split(self) -> None:
+        """One split: the leaf of largest cached gain, its node recorded and
+        the parent's pointer rewired, its rows moved, both children's
+        histograms and searches cached; inert once the tree has ended."""
+        L, M, meta, cfg = self.L, self.M, self.meta, self.cfg
+        gains = self.best.gain[:L]
+        p = torch.argmax(gains).reshape(1)
+        active = (gains.index_select(0, p) > 0.0) & (self.num_leaves < L)
+        s = (self.num_leaves - 1).reshape(1)
+        r = self.num_leaves.clone().reshape(1)   # _apply counts the leaf
+        p_w = torch.where(active, p, L)
+        s_w = torch.where(active, s, M)
+        r_w = torch.where(active, r, L)
+        bs = SplitResult(*[a.index_select(0, p) for a in self.best])
+        is_cat = self.best_is_cat.index_select(0, p)
+        bits = self.best_bitset.index_select(0, p)
+        if self.compact:
+            sil = (bs.left_count <= bs.right_count).reshape(())
+            n_left, n_right = bs.left_count, bs.right_count
+        else:
+            gl = split_go_left(self.X_t, bs, is_cat, bits[0], meta, cfg)
+            lor = self.leaf_of_row
+            in_p = lor == p_w
+            # rows of p: slot 0 going left, slot 1 going right; others -1
+            slot = torch.where(in_p, (~gl).to(torch.int32),
+                               torch.full_like(lor, -1))
+            self.leaf_of_row.copy_(torch.where(in_p & ~gl,
+                                               r.to(torch.int32), lor))
+            n_left = (self.cnt_row * (in_p & gl).to(torch.float32)).sum() \
+                .reshape(1)
+            n_right = self.leaf_count.index_select(0, p).to(torch.float32) \
+                - n_left
+            bs = bs._replace(left_count=n_left, right_count=n_right)
+        depth = self._apply(p, p_w, s, s_w, r, r_w, active, bs, is_cat, bits,
+                            n_left, n_right)
+        if self.compact:
+            lo = self.leaf_start.index_select(0, p_w)
+            n = self.leaf_cnt.index_select(0, p_w)
+            nl = window_partition(
+                self.X_t, self.order, self.leaf_of_row,
+                partition_record(lo, n, bs, is_cat, bits, r, meta),
+                plain=self.plain).to(torch.int64)
+            # the left child keeps [lo, lo + nl), the right child the rest
+            self.leaf_start[r_w] = lo + nl
+            self.leaf_cnt[r_w] = n - nl
+            self.leaf_cnt[p_w] = nl
+            a = lo + torch.where(sil, 0, nl)
+            m = torch.where(sil, nl, n - nl)
+            self.win.copy_(torch.cat([a, a + m]).to(torch.int32))
+            hist_small = build_histogram_window(self.X_t, self.vals,
+                                                self.order, self.win, self.B,
+                                                plain=self.plain)
+            hist_large = self.hist_cache.index_select(0, p)[0] - hist_small
+            hist_l = torch.where(sil, hist_small, hist_large)
+            hist_r = torch.where(sil, hist_large, hist_small)
+            self.hist_cache[p_w] = hist_l[None]
+            self.hist_cache[r_w] = hist_r[None]
+            hist_lr = torch.stack([hist_l, hist_r])
+        else:
+            hist_lr = build_histogram_slots(
+                self.X_t, self.vals, slot, 2, self.B, impl=self.hroute,
+                plan=self.hist_plan, plain=self.plain)
+        s_lr, cat_lr, bits_lr = serial_search(
+            hist_lr, torch.cat([bs.left_sum_g, bs.right_sum_g]),
+            torch.cat([bs.left_sum_h, bs.right_sum_h]),
+            torch.cat([n_left, n_right]),
+            torch.cat([bs.left_output, bs.right_output]), meta, cfg,
+            self.fmask)
+        # both children's bests, gain -inf past max_depth
+        can = depth < self.max_depth
+        s_lr = s_lr._replace(gain=torch.where(
+            can, s_lr.gain, torch.full_like(s_lr.gain, NEG_INF)))
+        for a, v in zip(self.best, s_lr):
+            a[p_w] = v[:1]
+            a[r_w] = v[1:]
+        self.best_is_cat[p_w] = cat_lr[:1]
+        self.best_is_cat[r_w] = cat_lr[1:]
+        self.best_bitset[p_w] = bits_lr[:1]
+        self.best_bitset[r_w] = bits_lr[1:]
+        for Xv, vl in zip(self.valid_X, self.valid_leaf):
+            glv = split_go_left(Xv, bs, is_cat, bits[0], meta, cfg)
+            vl.copy_(torch.where((vl == p_w) & ~glv, r.to(torch.int32), vl))
+        self.more.copy_(((self.best.gain[:L].max() > 0.0)
+                         & (self.num_leaves < L)).to(torch.int32))
+
+    step = split
+
+    def _apply(self, p, p_w, s, s_w, r, r_w, active, bs, is_cat, bits,
+               left_count, right_count) -> torch.Tensor:
+        """Record split s of leaf p as Tree::Split does (node s, the
+        parent's child pointer, both children's leaf state), through the
+        masked indices; returns the children's depth ([1])."""
+        M = self.M
+        self.split_feature[s_w] = bs.feature
+        self.threshold_bin[s_w] = bs.threshold
+        self.default_left[s_w] = bs.default_left
+        self.split_gain[s_w] = bs.gain
+        self.left_child[s_w] = (~p).to(torch.int32)
+        self.right_child[s_w] = (~r).to(torch.int32)
+        self.internal_value[s_w] = self.leaf_output.index_select(0, p)
+        self.internal_weight[s_w] = self.leaf_sum_h.index_select(0, p)
+        self.internal_count[s_w] = self.leaf_count.index_select(0, p)
+        self.split_parent_leaf[s_w] = p
+        self.split_is_cat[s_w] = is_cat
+        self.split_cat_bitset[s_w] = bits
+        prev = self.leaf_parent_node.index_select(0, p)
+        was_left = self.leaf_is_left.index_select(0, p)
+        fix = (prev >= 0) & active
+        s32 = s.to(torch.int32)
+        self.left_child[torch.where(fix & was_left, prev, M)] = s32
+        self.right_child[torch.where(fix & ~was_left, prev, M)] = s32
+        depth = self.leaf_depth.index_select(0, p) + 1
+        pairs = [(self.leaf_parent_node, s, s),
+                 (self.leaf_depth, depth, depth),
+                 (self.leaf_value, bs.left_output, bs.right_output),
+                 (self.leaf_weight, bs.left_sum_h, bs.right_sum_h),
+                 (self.leaf_count, left_count.to(torch.int32),
+                  right_count.to(torch.int32)),
+                 (self.leaf_output, bs.left_output, bs.right_output),
+                 (self.leaf_sum_g, bs.left_sum_g, bs.right_sum_g),
+                 (self.leaf_sum_h, bs.left_sum_h, bs.right_sum_h)]
+        for arr, lv, rv in pairs:
+            arr[p_w] = lv
+            arr[r_w] = rv
+        # constant writes fill: a Python value assigned through an index
+        # would be copied in from the host
+        self.leaf_is_left.index_fill_(0, p_w, True)
+        self.leaf_is_left.index_fill_(0, r_w, False)
+        self.num_leaves.add_(active[0].to(torch.int64))
+        return depth
+
+    # ------------------------------------------------------------------
+    def finish(self, lr: torch.Tensor, scores: torch.Tensor,
+               valid_scores: Sequence[torch.Tensor] = ()) -> None:
+        """The score updates (#2) of the training rows and of each valid
+        set by the leaf values times `lr` (an f32 device scalar)."""
+        step = self.leaf_value[:self.L] * lr
+        add_leaf_values_(scores, step, self.leaf_of_row, plain=self.plain)
+        for vs, vl in zip(valid_scores, self.valid_leaf):
+            add_leaf_values_(vs, step, vl, plain=self.plain)
+
+    def device_tree(self) -> DeviceTree:
+        """The tree grown so far as a DeviceTree whose num_leaves and
+        num_waves (0) are device scalars."""
+        L, M = self.L, self.M
+        return DeviceTree(
+            num_leaves=self.num_leaves, split_feature=self.split_feature[:M],
+            threshold_bin=self.threshold_bin[:M],
+            default_left=self.default_left[:M],
+            split_gain=self.split_gain[:M], left_child=self.left_child[:M],
+            right_child=self.right_child[:M],
+            internal_value=self.internal_value[:M],
+            internal_weight=self.internal_weight[:M],
+            internal_count=self.internal_count[:M],
+            leaf_value=self.leaf_value[:L], leaf_weight=self.leaf_weight[:L],
+            leaf_count=self.leaf_count[:L],
+            split_parent_leaf=self.split_parent_leaf[:M],
+            split_is_cat=self.split_is_cat[:M],
+            split_cat_bitset=self.split_cat_bitset[:M],
+            num_waves=self.num_waves)
+
+
+def grow_tree_serial(
+    X_t: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
+    in_bag: torch.Tensor, meta: FeatureMeta, cfg: GrowConfig,
+    feature_mask: Optional[torch.Tensor] = None, *, compact: bool,
+    hist_plan: Optional[HistPlan] = None, plain: bool = False) -> tuple:
+    """One tree of a serial grower (masked, or compact when `compact`)
+    through SerialStepper's steps, eagerly: before each split one host read
+    of `more`, and none after the split that makes the last leaf. Returns
+    (DeviceTree with host counts and its reads, leaf_of_row)."""
+    st = SerialStepper(X_t, meta, cfg, compact=compact, hist_plan=hist_plan,
+                       plain=plain)
+    st.start(grad, hess, in_bag, feature_mask, None)
+    splits = reads = 0
+    while splits < st.L - 1:
+        reads += 1
+        if not int(st.more):
+            break
+        st.split()
+        splits += 1
+    tree = st.device_tree()._replace(num_leaves=splits + 1, num_waves=0,
+                                     host_reads=reads)
+    return tree, st.leaf_of_row
+
+
+def make_stepper(grower: str, X_t: torch.Tensor, meta: FeatureMeta,
+                 cfg: GrowConfig, **kw):
+    """The fixed-shape stepper of a grower: SerialStepper for "masked" and
+    "compact", WaveStepper for the wave grower ("wave", "wave_exact")."""
+    if grower in ("masked", "compact"):
+        return SerialStepper(X_t, meta, cfg, compact=grower == "compact",
+                             **kw)
+    return WaveStepper(X_t, meta, cfg, **kw)
+
+
 def grow_tree_wave_batched(
     X_t: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     in_bag: torch.Tensor, meta: FeatureMeta, cfg: GrowConfig,
@@ -837,4 +1220,5 @@ def grow_tree_wave_batched(
             break
     st.renew_leaves()
     return st.device_tree(), st.leaf_of_row, reads, waves
+
 

@@ -107,6 +107,7 @@ from .histogram import (ROWWISE_IMPLS, HistPlan, build_histogram,
 from .split import (NEG_INF, FeatureMeta, SplitResult, find_best_split,
                     find_best_split_and_forced, synth_count_channel,
                     threshold_l1)
+from ..utils import bin_values, indexable_bins
 from ..utils.random import PRNGKey, fold_in, split, uniform
 
 MAX_WAVE_FEATURES = 32
@@ -160,12 +161,16 @@ def fused_kcap(num_bins_padded: int, tile: Optional[int] = None) -> int:
 def fused_veto_reasons(cfg: GrowConfig) -> List[str]:
     """Why no fused kernel runs for this configuration, empty when one does
     (grow_wave.py:96-139, for the regimes the port trains; the rest are
-    refused before a tree grows). The JAX package's `no_tpu_pallas` has no
-    counterpart: on a CPU tensor the fused routes run their kernels' plain
-    versions."""
+    refused before a tree grows). The JAX package's `no_tpu_pallas` stands
+    for its one case the port shares: more than 256 bins a column (its
+    Pallas kernels refuse uint16 storage, histogram.py:_use_pallas), which
+    the port names with the bin count. On a CPU tensor the fused routes
+    run their kernels' plain versions."""
     reasons = []
     if cfg.hist_impl != "fused":
         reasons.append("histogram_impl=%s (not 'fused')" % cfg.hist_impl)
+    if cfg.wide_bins:
+        reasons.append("wide_bins (B=%d > 256)" % cfg.num_bins_padded)
     if os.environ.get("LIGHTGBM_TPU_DISABLE_FUSED", "").lower() \
             in ("1", "true", "yes"):
         reasons.append("LIGHTGBM_TPU_DISABLE_FUSED")
@@ -191,7 +196,12 @@ def wave_routes(cfg: GrowConfig, num_storage_cols: int) -> Tuple[str, str]:
     """(grow route, histogram route) of this configuration: "fused" or
     "fused_tiled" (histogram_impl="fused" with no veto), "mega" (with
     "slots") or "apply" with the `hist_route` of its histogram_impl, the
-    JAX package's accelerator routes (grow_wave.py:287-309, :894)."""
+    JAX package's accelerator routes (grow_wave.py:287-309, :894). Past
+    256 bins (uint16 storage) only "apply" with "slots" runs, as the JAX
+    package's Pallas-free path (`use_mega` false, the fused kernels vetoed,
+    no row-wise layout: data/dataset.py:_multival_layout)."""
+    if cfg.wide_bins:
+        return "apply", "slots"
     narrow = (not cfg.bundled and not cfg.has_categorical
               and num_storage_cols <= MAX_WAVE_FEATURES)
     if cfg.hist_impl == "fused" and not fused_veto_reasons(cfg):
@@ -536,7 +546,8 @@ def dec_go_left(X_t: torch.Tensor, feat: torch.Tensor, thr: torch.Tensor,
     (bits [n, W], 32 bits per int64 word) as a gather from the [n, 32 W]
     bool table the words expand to; bins are below 32 W by construction.
     Intermediates stay uint8 / int16 / bool, plus the int32 flat index of
-    the categorical gather."""
+    the categorical gather; uint16 storage (past 256 bins) is read as
+    int32."""
     F = meta.num_bins.shape[0]
     n = feat.shape[0]
     featc = feat.clamp(0, F - 1)
@@ -550,7 +561,11 @@ def dec_go_left(X_t: torch.Tensor, feat: torch.Tensor, thr: torch.Tensor,
         unp = torch.where(inr, rb + (rb >= dbf).to(torch.int16), dbf)
         binv = torch.where(off < 0, src, unp)
     else:
-        binv = X_t.index_select(0, featc)
+        binv = indexable_bins(X_t).index_select(0, featc)
+        if X_t.dtype == torch.uint16:
+            # torch compares no uint16 on the CPU: the wide storage's bins
+            # are read as int32 (uint8 ones compare as they are)
+            binv = bin_values(binv, torch.int32)
     mt = meta.missing_type.to(torch.int64)[featc]
     db = meta.default_bin.to(torch.int64)[featc]
     nb = meta.num_bins.to(torch.int64)[featc]

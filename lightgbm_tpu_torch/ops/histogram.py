@@ -7,7 +7,7 @@ PyTorch version; ``plain=True`` asks for the plain version on any device
 fallback: a kernel that cannot take its inputs raises.
 
 Layouts (channel-major, as in the JAX package):
-  X_t   [F, N]      uint8, feature-major
+  X_t   [F, N]      uint8 (uint16 past 256 bins), feature-major
   vals  [C, N]      f32 (gradient / hessian channels) or int8
   hist  [C, F, B] (single set) or [K, C, F, B] (wave of K slots)
 
@@ -112,6 +112,29 @@ def build_histogram(X_binned_t: torch.Tensor, vals: torch.Tensor,
     row active (build_histogram_pallas in the JAX package)."""
     return build_histogram_slots(X_binned_t, vals, None, 1, num_bins,
                                  impl=impl, plan=plan, plain=plain)[0]
+
+
+def build_histogram_window(X_binned_t: torch.Tensor, vals: torch.Tensor,
+                           rows: torch.Tensor, win: torch.Tensor,
+                           num_bins: int, *, plain: bool = False
+                           ) -> torch.Tensor:
+    """[C, F, B] histogram of the rows rows[win[0] .. win[1]) (the compact
+    grower's window, `win` [2] int32 on the device): #1 over the window's
+    ids, its work following the window."""
+    fn = (hc.build_histogram_window_cuda if _use_kernel(X_binned_t, plain)
+          else hc.build_histogram_window_plain)
+    return fn(X_binned_t, vals, rows, win, num_bins)
+
+
+def window_partition(X_binned_t: torch.Tensor, order: torch.Tensor,
+                     leaf_of_row: torch.Tensor, rec: torch.Tensor, *,
+                     plain: bool = False) -> torch.Tensor:
+    """The stable partition of one leaf's window of `order` under its split
+    record `rec`, in place (the right rows relabelled in leaf_of_row);
+    returns the left count, [1] int32 on the device."""
+    fn = (hc.window_partition_cuda if _use_kernel(X_binned_t, plain)
+          else hc.window_partition_plain)
+    return fn(X_binned_t, order, leaf_of_row, rec)
 
 
 def take_leaf_values(values: torch.Tensor, leaf_of_row: torch.Tensor, *,

@@ -26,7 +26,11 @@ histogram_rowwise.py's plain and nibble-packed flat kernels;
 ``ops/histogram_rowwise.py``) and the two fused waves, histogram plus
 split search (``csrc/wave_pass_fused.cu``, ``csrc/
 wave_pass_fused_tiled.cu`` <- lightgbm_tpu/ops/grow_fused.py;
-``ops/grow_fused.py``).
+``ops/grow_fused.py``). One more replaces no Pallas kernel: the compact
+grower's partition of a leaf's window (``csrc/window_partition.cu`` <- the
+XLA partition of lightgbm_tpu/ops/grow_fast.py), which the batched compact
+step runs with its window in device memory, beside #1's window operand
+(``build_histogram_window_cuda``).
 
 The slot histogram, the two row-wise histograms and the three wave
 kernels (#3 and the two fused waves) sweep their rows with one tiled
@@ -69,6 +73,8 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..utils import bin_values, indexable_bins
+
 LAUNCHES: Dict[str, int] = {"build_histogram_slots": 0,
                             "take_leaf_values": 0,
                             "wave_pass": 0,
@@ -78,7 +84,8 @@ LAUNCHES: Dict[str, int] = {"build_histogram_slots": 0,
                             "hist_rowwise": 0,
                             "hist_rowwise_packed": 0,
                             "wave_pass_fused": 0,
-                            "wave_pass_fused_tiled": 0}
+                            "wave_pass_fused_tiled": 0,
+                            "window_partition": 0}
 
 # kernel name -> (source file, C entry point)
 KERNELS = {
@@ -93,6 +100,7 @@ KERNELS = {
     "wave_pass_fused": ("wave_pass_fused.cu", "lgbt_wave_pass_fused"),
     "wave_pass_fused_tiled": ("wave_pass_fused_tiled.cu",
                               "lgbt_wave_pass_fused_tiled"),
+    "window_partition": ("window_partition.cu", "lgbt_window_partition"),
 }
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -187,14 +195,15 @@ def _lib(name: str):
     HP = [FL] * 7 + [I, I]      # the split hyperparameters of the scan
     fn.restype = I
     fn.argtypes = {
-        "build_histogram_slots": [P, P, I, P, P, P, P, LL] + [I] * 15 + [P],
+        "build_histogram_slots": [P, I, P, I, P, P, P, P, P, P, LL]
+        + [I] * 16 + [P],
         "take_leaf_values": [P, I, P, P, LL, I, I, P],
         "wave_pass": [P, P, I] + [P] * 6 + [LL] + [I] * 15
         + [LL, LL, I, I, P],
         "wave_relabel": [P, P, P, P, LL, I, I, I, P],
         "bucketize": [P, LL, LL, P, I, I, I, I, P, P, I, P, P, I, P, LL,
                       LL, I, P],
-        "wave_apply": [P, P, P, P, I, P, I, P, P, LL, I, I, I, P],
+        "wave_apply": [P, I, P, P, P, I, P, I, P, P, LL, I, I, I, P],
         "hist_rowwise": [P, P, I, P, P, P, P, P, LL] + [I] * 14 + [P],
         "hist_rowwise_packed": [P, P, P, I, P, P, P, P, P, LL] + [I] * 14
         + [P],
@@ -202,6 +211,7 @@ def _lib(name: str):
         + [LL, LL, I] + HP + [I, P],
         "wave_pass_fused_tiled": [P, P, I] + [P] * 13
         + [I, P, P, LL] + [I] * 15 + [P] + HP + [I, P],
+        "window_partition": [P, I] + [P] * 6 + [LL, I, I, I, P],
     }[name]
     return fn
 
@@ -245,17 +255,26 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
+BIN_DTYPES = (torch.uint8, torch.uint16)   # the storage #1 and #4 read
+MAX_BINS = 1 << 16                         # bins a uint16 column can hold
+
+
+def _max_bins(X: torch.Tensor) -> int:
+    return 256 if X.dtype == torch.uint8 else MAX_BINS
+
+
 def _check_hist_args(X, vals, F, N, num_slots, num_bins, dev):
     if F < 1 or N < 0:
         raise ValueError(f"X must be [F, N] with F >= 1, got {tuple(X.shape)}")
-    _check(X, "X", (torch.uint8,), (F, N), dev)
+    _check(X, "X", BIN_DTYPES, (F, N), dev)
     C = vals.shape[0] if vals.dim() == 2 else -1
     if not 1 <= C <= MAX_CHANNELS:
         raise ValueError(f"vals must be [C, N] with 1 <= C <= "
                          f"{MAX_CHANNELS}, got {tuple(vals.shape)}")
     _check(vals, "vals", (torch.float32, torch.int8), (C, N), dev)
-    if not 1 <= num_bins <= 256:
-        raise ValueError(f"num_bins must be in [1, 256], got {num_bins}")
+    if not 1 <= num_bins <= _max_bins(X):
+        raise ValueError(f"num_bins must be in [1, {_max_bins(X)}] for "
+                         f"{X.dtype} bins, got {num_bins}")
     if num_slots < 1 or num_slots * C * F * num_bins >= 2 ** 31:
         raise ValueError(f"num_slots={num_slots} is out of range")
     return C
@@ -291,12 +310,16 @@ class HistTilePlan(NamedTuple):
     of a cell side by side, added by one 128-bit compare-and-swap (f32
     values, C = 2); `direct`: no tiles, a row per thread adds into the
     global accumulators, or at K = 1 into a block's private copy of the
-    whole histogram (little work, see plan_hist_tiles). On the H100 the merge pays where bins are few and
-    popular (B = 256 with Zipf categoricals) and costs at 63 uniform bins,
-    where the pairing pays instead at the root (K = 1); in the waves the
-    pairing was as often slower as faster, and under the merge it costs
-    (PERF.md), so the rule turns on the merge by B and the pairing only
-    for an unmerged root histogram."""
+    whole histogram (little work, see plan_hist_tiles). `bins_per_tile`:
+    0, or where one column's C * B accumulators exceed HIST_SMEM_BUDGET
+    (past 3072 bins in f64 at C = 2, uint16 storage only) the bins of a
+    tile: each column cut into feat_tiles / F tiles of a bin range, one
+    feature and one slot a tile. On the H100 the merge pays where bins are
+    few and popular (B = 256 with Zipf categoricals) and costs at 63
+    uniform bins, where the pairing pays instead at the root (K = 1); in
+    the waves the pairing was as often slower as faster, and under the
+    merge it costs (PERF.md), so the rule turns on the merge by B and the
+    pairing only for an unmerged root histogram."""
     slots_per_tile: int
     feats_per_tile: int
     slot_tiles: int
@@ -307,6 +330,7 @@ class HistTilePlan(NamedTuple):
     grouped: bool
     paired: bool
     direct: bool
+    bins_per_tile: int = 0
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -326,19 +350,31 @@ def plan_hist_tiles(K: int, C: int, F: int, B: int, *,
     rows, and at K = 1 over at most DIRECT_MAX_ADDS (row, feature) pairs
     when one tile holds the histogram: there the grouping, the tiles'
     zeroing and flush and the pieces cost more than the rows' adds (H100,
-    PERF.md). Raises on a shape it cannot tile."""
-    if not (K >= 1 and 1 <= C <= MAX_CHANNELS and F >= 1 and 1 <= B <= 256):
+    PERF.md). Where one column's cell does not fit the budget, the tiles
+    cut its bin range (`bins_per_tile`). Raises on a shape it cannot
+    tile."""
+    if not (K >= 1 and 1 <= C <= MAX_CHANNELS and F >= 1
+            and 1 <= B <= MAX_BINS):
         raise ValueError(f"no tile plan for K={K}, C={C}, F={F}, B={B}")
     if K > MAX_GROUP_SLOTS:
         raise ValueError(f"the slot histogram takes K <= {MAX_GROUP_SLOTS} "
                          f"slots, got {K}")
-    cell = C * B * (4 if quantized else 8)
+    acc = 4 if quantized else 8
+    cell = C * B * acc
     per_tile = HIST_SMEM_BUDGET // cell
-    nft = _cdiv(F, per_tile)
-    fpt = _cdiv(F, nft)
-    nst = _cdiv(K, max(1, per_tile // fpt) if nft == 1 else 1)
-    spt = _cdiv(K, nst)
-    smem = spt * fpt * cell
+    bpt = 0
+    if per_tile == 0:
+        # one column's bins exceed a tile: ranges of them, balanced
+        nbt = _cdiv(B, HIST_SMEM_BUDGET // (C * acc))
+        bpt = _cdiv(B, nbt)
+        fpt, nft, nst, spt = 1, F * nbt, K, 1
+        smem = bpt * C * acc
+    else:
+        nft = _cdiv(F, per_tile)
+        fpt = _cdiv(F, nft)
+        nst = _cdiv(K, max(1, per_tile // fpt) if nft == 1 else 1)
+        spt = _cdiv(K, nst)
+        smem = spt * fpt * cell
     bps = min(MAX_BLOCKS_PER_SM, SM_SMEM_BYTES // (smem + BLOCK_SMEM_RESERVED))
     merge = B >= MERGE_MIN_BINS
     direct = rows is not None and (
@@ -346,7 +382,7 @@ def plan_hist_tiles(K: int, C: int, F: int, B: int, *,
         else nft == 1 and rows * F <= DIRECT_MAX_ADDS)
     return HistTilePlan(spt, fpt, nst, nft, smem, bps, merge, K > 1,
                         K == 1 and C == 2 and not quantized and not merge,
-                        direct)
+                        direct, bpt)
 
 
 def hist_segments(plan: HistTilePlan, N: int, num_sms: int, grouped: bool,
@@ -473,9 +509,10 @@ def group_warps(N: int) -> int:
 def build_histogram_slots_cuda(X: torch.Tensor, vals: torch.Tensor,
                                slot: Optional[torch.Tensor], num_slots: int,
                                num_bins: int) -> torch.Tensor:
-    """[K, C, F, B] histogram of `vals` over the bins of X [F, N] uint8,
-    rows routed by `slot` [N] int32 (None: every row in slot 0). f32 vals
-    give f32 sums, int8 vals exact int32 sums."""
+    """[K, C, F, B] histogram of `vals` over the bins of X [F, N] uint8
+    (or uint16, past 256 bins), rows routed by `slot` [N] int32 (None:
+    every row in slot 0). f32 vals give f32 sums, int8 vals exact int32
+    sums."""
     dev = _cuda_device(X)
     F, N = X.shape
     C = _check_hist_args(X, vals, F, N, num_slots, num_bins, dev)
@@ -569,14 +606,70 @@ def _hist_slots_launch(X, vals, slot, K, B, plan: HistTilePlan,
     tb = tile_buffers(plan, (K, C, F, B), N, slot is not None, quant, dev,
                       sms, min_rows)
     rc = _lib("build_histogram_slots")(
-        X.data_ptr(), vals.data_ptr(), int(quant), _ptr(slot),
-        _ptr(tb.scratch), tb.out.data_ptr(), _ptr(tb.acc), N, F, C, K, B,
+        X.data_ptr(), int(X.dtype == torch.uint16), vals.data_ptr(),
+        int(quant), _ptr(slot), None, None, _ptr(tb.scratch),
+        tb.out.data_ptr(), _ptr(tb.acc), N, F, C, K, B,
         plan.slots_per_tile, plan.feats_per_tile, plan.slot_tiles,
-        plan.feat_tiles, tb.segs, min_rows, int(plan.merge),
-        int(plan.paired), int(plan.direct), tb.W, sms, stream)
+        plan.feat_tiles, plan.bins_per_tile or B, tb.segs, min_rows,
+        int(plan.merge), int(plan.paired), int(plan.direct), tb.W, sms,
+        stream)
     _raise_on(rc, "build_histogram_slots")
     LAUNCHES["build_histogram_slots"] += 1
     return tb.out
+
+
+def build_histogram_window_cuda(X: torch.Tensor, vals: torch.Tensor,
+                                rows: torch.Tensor, win: torch.Tensor,
+                                num_bins: int) -> torch.Tensor:
+    """[C, F, B] histogram of `vals` over the rows rows[win[0] .. win[1])
+    of X [F, N] (uint8 or uint16): `rows` an [N] int32 id list, `win` [2]
+    int32 in device memory, so a captured graph replays it for any window.
+    One launch of #1's engine on its grouped route with the caller's ids
+    (no grouping), planned for N rows: the blocks past the window's pieces
+    exit at once, so the work follows the window. f32 sums (int32 for int8
+    vals)."""
+    dev = _cuda_device(X)
+    F, N = X.shape
+    C = _check_hist_args(X, vals, F, N, 1, num_bins, dev)
+    _check(rows, "rows", (torch.int32,), (N,), dev)
+    _check(win, "win", (torch.int32,), (2,), dev)
+    quant = vals.dtype == torch.int8
+    B = num_bins
+    plan = plan_hist_tiles(1, C, F, B, quantized=quant)
+    sms, stream = _launch_env(dev)
+    segs = hist_segments(plan, N, sms, True)
+    n = C * F * B
+    out = torch.empty((1, C, F, B), device=dev,
+                      dtype=torch.int32 if quant else torch.float32)
+    acc = None if quant else torch.empty(
+        n + _cdiv(plan.slot_tiles * plan.feat_tiles, 2),
+        dtype=torch.float64, device=dev)
+    rc = _lib("build_histogram_slots")(
+        X.data_ptr(), int(X.dtype == torch.uint16), vals.data_ptr(),
+        int(quant), None, rows.data_ptr(), win.data_ptr(), None,
+        out.data_ptr(), _ptr(acc), N, F, C, 1, B, plan.slots_per_tile,
+        plan.feats_per_tile, plan.slot_tiles, plan.feat_tiles,
+        plan.bins_per_tile or B, segs, MIN_SEGMENT_ROWS, int(plan.merge),
+        int(plan.paired), 0, 0, sms, stream)
+    _raise_on(rc, "build_histogram_slots")
+    LAUNCHES["build_histogram_slots"] += 1
+    return out[0]
+
+
+def build_histogram_window_plain(X: torch.Tensor, vals: torch.Tensor,
+                                 rows: torch.Tensor, win: torch.Tensor,
+                                 num_bins: int) -> torch.Tensor:
+    """Plain PyTorch version of build_histogram_window_cuda: the rows
+    gathered in id-list order, the positions outside the window in no
+    slot (fixed shapes, no read of `win` to the host)."""
+    N = rows.shape[0]
+    pos = torch.arange(N, device=rows.device)
+    inw = (pos >= win[0]) & (pos < win[1])
+    r = rows.to(torch.int64)
+    slot = torch.where(inw, 0, -1).to(torch.int32)
+    Xr = indexable_bins(X).index_select(1, r).view(X.dtype)
+    return build_histogram_slots_plain(Xr, vals.index_select(1, r), slot, 1,
+                                       num_bins)[0]
 
 
 def _check_direct(plan: HistTilePlan, K: int) -> None:
@@ -950,7 +1043,9 @@ def _check_apply_args(dec, leaf_of_row, table, num_leaves, dev):
     return Kd, N
 
 
-MAX_CAT_WORDS = 8       # LGBT_AP_MAX_W in csrc/wave_apply.cu
+MAX_CAT_WORDS = 8       # LGBT_AP_MAX_W in csrc/wave_apply.cu: the bitset
+                        # words the uint8 instance stages (the uint16 one
+                        # reads any number from `cats`)
 
 
 def _check_split_args(X, leaf_of_row, table, cats, bundle, num_entries,
@@ -960,9 +1055,10 @@ def _check_split_args(X, leaf_of_row, table, cats, bundle, num_entries,
     if X.dim() != 2 or leaf_of_row.dim() != 1:
         raise ValueError("X must be [C, N] and leaf_of_row [N]")
     C, N = X.shape
-    _check(X, "X", (torch.uint8,), (C, N), dev)
+    _check(X, "X", BIN_DTYPES, (C, N), dev)
     _check(leaf_of_row, "leaf_of_row", (torch.int32,), (N,), dev)
     _check(table, "table", (torch.int32,), (T_ROWS, MAX_SLOTS), dev)
+    wide = X.dtype == torch.uint16
     if not 1 <= num_entries <= MAX_SLOTS:
         raise ValueError(f"num_entries must be in [1, {MAX_SLOTS}], got "
                          f"{num_entries}")
@@ -972,12 +1068,16 @@ def _check_split_args(X, leaf_of_row, table, cats, bundle, num_entries,
     W = 0
     if cats is not None:
         W = cats.shape[-1] - 1 if cats.dim() == 3 else -1
-        if not 1 <= W <= MAX_CAT_WORDS:
+        wmax = MAX_BINS // 32 if wide else MAX_CAT_WORDS
+        if not 1 <= W <= wmax:
             raise ValueError(f"cats must be [2, {MAX_SLOTS}, 1 + W] with "
-                             f"1 <= W <= {MAX_CAT_WORDS}")
+                             f"1 <= W <= {wmax} for {X.dtype} bins")
         _check(cats, "cats", (torch.int32,), (2, MAX_SLOTS, 1 + W), dev)
     F = C
     if bundle is not None:
+        if wide:
+            raise ValueError("EFB bundles are uint8 columns: no bundle map "
+                             "over uint16 storage")
         if bundle.dim() != 2 or bundle.shape[0] != 4:
             raise ValueError("bundle must be [4, F]")
         F = bundle.shape[1]
@@ -991,7 +1091,8 @@ def wave_apply_cuda(X: torch.Tensor, leaf_of_row: torch.Tensor,
                     num_leaves: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """One wave of the wide / categorical / EFB route, each row decided
     from the split records: returns (new leaf_of_row [N] int32, smaller-
-    child slot [N] int32, -1 = none). X [C, N] uint8 holds the storage
+    child slot [N] int32, -1 = none). X [C, N] uint8 (uint16 past 256
+    bins, with no bundle map) holds the storage
     columns; `table` is the [16, 128] wave table with rows 0-15 filled
     (csrc/wave_apply.cu), entries at `num_entries` or above inactive;
     `cats` [2, 128, 1 + W] int32 the applied and candidate entries'
@@ -1006,7 +1107,8 @@ def wave_apply_cuda(X: torch.Tensor, leaf_of_row: torch.Tensor,
     new_lor = torch.empty_like(leaf_of_row)
     slot = torch.empty_like(leaf_of_row)
     sms, stream = _launch_env(dev)
-    rc = _lib("wave_apply")(X.data_ptr(), leaf_of_row.data_ptr(),
+    rc = _lib("wave_apply")(X.data_ptr(), int(X.dtype == torch.uint16),
+                            leaf_of_row.data_ptr(),
                             table.data_ptr(), _ptr(cats), W, _ptr(bundle),
                             F, new_lor.data_ptr(), slot.data_ptr(), N,
                             num_entries, num_leaves, sms, stream)
@@ -1028,7 +1130,7 @@ def _row_go_left(X: torch.Tensor, t: torch.Tensor, row0: int,
     f = feat.clamp(0, F - 1)
     rows = torch.arange(N, device=X.device)
     if bundle is None:
-        b = X[f, rows].to(torch.int64)
+        b = bin_values(indexable_bins(X)[f, rows])
     else:
         bm = bundle.to(torch.int64)[:, f]
         src = X[bm[0], rows].to(torch.int64)
@@ -1115,3 +1217,79 @@ def wave_apply_plain(dec: torch.Tensor, leaf_of_row: torch.Tensor,
     kc = lookup(_leaf_entries(t[7], Kd, cap), new)
     slot = torch.where((kc >= 0) & (((bits(kc) >> 1) & 1) == 1), kc, -1)
     return new.to(torch.int32), slot.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# 11. window partition (the compact grower's split, batched)
+# ---------------------------------------------------------------------------
+PART_HEAD = 9           # LGBT_WP_HEAD in csrc/window_partition.cu
+
+
+def _check_partition_args(X, order, leaf_of_row, rec, dev):
+    if X.dim() != 2:
+        raise ValueError("X must be [F, N]")
+    F, N = X.shape
+    _check(X, "X", BIN_DTYPES, (F, N), dev)
+    _check(order, "order", (torch.int32,), (N,), dev)
+    _check(leaf_of_row, "leaf_of_row", (torch.int32,), (N,), dev)
+    if rec.dim() != 1 or rec.shape[0] <= PART_HEAD:
+        raise ValueError(f"rec must be [{PART_HEAD} + W] with W >= 1")
+    _check(rec, "rec", (torch.int32,), (rec.shape[0],), dev)
+    return F, N
+
+
+def window_partition_cuda(X: torch.Tensor, order: torch.Tensor,
+                          leaf_of_row: torch.Tensor,
+                          rec: torch.Tensor) -> torch.Tensor:
+    """Stable partition of the window order[start .. start + count) under
+    one split, in place: the rows going left first, each side in its order;
+    the rows going right take the new leaf's id in `leaf_of_row`. X [F, N]
+    uint8 or uint16, order / leaf_of_row [N] int32, `rec` the int32 record
+    (start, count, storage column, threshold, default_left, missing bin or
+    -1, is_cat, new leaf, W, then W bitset words; ops/grow_batched.py:
+    partition_record) in device memory. Returns the left count, [1] int32
+    on the device."""
+    dev = _cuda_device(X)
+    F, N = _check_partition_args(X, order, leaf_of_row, rec, dev)
+    W = group_warps(N)
+    wl = torch.empty(W, dtype=torch.int32, device=dev)
+    tmp = torch.empty(N, dtype=torch.int32, device=dev)
+    n_left = torch.empty(1, dtype=torch.int32, device=dev)
+    sms, stream = _launch_env(dev)
+    rc = _lib("window_partition")(
+        X.data_ptr(), int(X.dtype == torch.uint16), order.data_ptr(),
+        leaf_of_row.data_ptr(), rec.data_ptr(), wl.data_ptr(),
+        tmp.data_ptr(), n_left.data_ptr(), N, F, W, sms, stream)
+    _raise_on(rc, "window_partition")
+    LAUNCHES["window_partition"] += 1
+    return n_left
+
+
+def window_partition_plain(X: torch.Tensor, order: torch.Tensor,
+                           leaf_of_row: torch.Tensor,
+                           rec: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of window_partition_cuda: every position's
+    row decided, then a stable sort of the positions by (before the window,
+    left, right, after it), at fixed shapes with no read to the host."""
+    F, N = X.shape
+    dev = X.device
+    r = rec.to(torch.int64)
+    start, count = r[0], r[1]
+    pos = torch.arange(N, device=dev)
+    inw = (pos >= start) & (pos < start + count)
+    rows = order.to(torch.int64)
+    b = bin_values(indexable_bins(X).index_select(
+        0, r[2].clamp(0, F - 1).reshape(1))[0])[rows]
+    words = r[PART_HEAD:] & 0xFFFFFFFF
+    W = words.shape[0]
+    bit = (words[(b >> 5).clamp(max=W - 1)] >> (b & 31)) & 1
+    gl = torch.where(r[6] != 0, bit == 1,
+                     torch.where(b == r[5], r[4] != 0, b <= r[3]))
+    key = torch.where(pos < start, 0,
+                      torch.where(inw, torch.where(gl, 1, 2), 3))
+    perm = torch.sort(key, stable=True).indices
+    right = inw & ~gl
+    leaf_of_row.index_put_((rows,), torch.where(
+        right, r[7].to(torch.int32), leaf_of_row[rows]))
+    order.copy_(order[perm])
+    return (inw & gl).sum().to(torch.int32).reshape(1)

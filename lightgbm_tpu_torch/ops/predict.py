@@ -21,6 +21,7 @@ import torch
 from ..models.tree import (MISSING_NAN, MISSING_ZERO, _CATEGORICAL_MASK,
                            _DEFAULT_LEFT_MASK, _KZERO_THRESHOLD)
 from .split import FeatureMeta
+from ..utils import bin_values, indexable_bins
 
 
 def predict_leaf_binned(split_feature: torch.Tensor,
@@ -47,10 +48,11 @@ def predict_leaf_binned(split_feature: torch.Tensor,
     lc, rc = left_child.to(torch.int64), right_child.to(torch.int64)
     # node >= 0: internal node to test; node < 0: arrived at leaf ~node
     node = torch.zeros(N, dtype=torch.int64, device=dev)
+    Xi = indexable_bins(X_t)
     for step in range(num_leaves - 1):    # depth <= num_leaves - 1
         nd = node.clamp(min=0)
         f = split_feature[nd]
-        bin_v = X_t[f, rows].to(torch.int64)
+        bin_v = bin_values(Xi[f, rows])
         mt = mt_f[f]
         is_missing = ((mt == MISSING_ZERO) & (bin_v == db_f[f])) \
             | ((mt == MISSING_NAN) & (bin_v == nb_f[f] - 1))

@@ -15,11 +15,15 @@ from typing import Tuple
 
 import numpy as np
 
-# Criteo's 26 categorical columns, capped at 250 categories (more than 255
-# bins need uint16 storage, ROADMAP item A14)
+# Criteo's 26 categorical columns, capped at 250 categories: every column
+# fits the uint8 storage of at most 256 bins
 CRITEO_CARDINALITIES = (3, 4, 5, 8, 10, 12, 15, 20, 24, 27, 31, 40, 50, 60,
                         80, 100, 120, 150, 180, 200, 220, 240, 250, 250, 250,
                         250)
+# the same schema with its last six columns past 256 categories, for the
+# uint16 storage of max_bin > 255
+CRITEO_WIDE_CARDINALITIES = CRITEO_CARDINALITIES[:20] + (300, 400, 500, 600,
+                                                         800, 1000)
 CRITEO_NUM_COUNTS = 13
 CRITEO_CAT_COLUMNS = tuple(range(CRITEO_NUM_COUNTS,
                                  CRITEO_NUM_COUNTS
@@ -30,18 +34,21 @@ def _sigmoid(z):
     return 1.0 / (1.0 + np.exp(-z))
 
 
-def criteo_like(n: int, seed: int = 7) -> Tuple[np.ndarray, np.ndarray]:
+def criteo_like(n: int, seed: int = 7,
+                cardinalities: Tuple[int, ...] = CRITEO_CARDINALITIES
+                ) -> Tuple[np.ndarray, np.ndarray]:
     """(X [n, 39] f32, y [n] f32) of the Criteo schema, from
     `np.random.RandomState(seed)`.
 
     Columns 0-12 are counts floor(exp(N(mu_j, sigma_j))) with per-column
     NaN rates in [0, 0.4); columns 13-38 are category codes 0..c-1 drawn
-    Zipf(1.2) over the cardinalities above, 2% NaN. The label is
+    Zipf(1.2) over `cardinalities` (26 of them; CRITEO_CARDINALITIES by
+    default), 2% NaN. The label is
     Bernoulli(sigmoid(sum of per-category effects ~ N(0, 0.5) + sum_j w_j *
     log1p(count_j) - shift)), the shift set for a positive rate near 25%."""
     rng = np.random.RandomState(seed)
     k = CRITEO_NUM_COUNTS
-    X = np.empty((n, k + len(CRITEO_CARDINALITIES)), np.float32)
+    X = np.empty((n, k + len(cardinalities)), np.float32)
     mu = rng.uniform(0.0, 4.0, k)
     sigma = rng.uniform(0.5, 1.5, k)
     nan_rate = rng.uniform(0.0, 0.4, k)
@@ -52,7 +59,7 @@ def criteo_like(n: int, seed: int = 7) -> Tuple[np.ndarray, np.ndarray]:
         z += w[j] * np.log1p(c)
         c[rng.rand(n) < nan_rate[j]] = np.nan
         X[:, j] = c
-    for i, card in enumerate(CRITEO_CARDINALITIES):
+    for i, card in enumerate(cardinalities):
         p = np.arange(1, card + 1, dtype=np.float64) ** -1.2
         cdf = np.cumsum(p / p.sum())
         code = np.minimum(np.searchsorted(cdf, rng.rand(n)), card - 1)

@@ -4,7 +4,7 @@ iteration, and a served batch.
 
     python3 scripts/profile_torch_port.py
         [--config bench|criteo|criteo_rowwise|bench_fused|criteo_fused|
-                  bench_quant]
+                  bench_quant|bench_masked|bench_compact]
         [--rows N] [--iters K] [--trace F] [--root DIR]
 
 --config bench (the default) builds bench.py's data (28 f32 features,
@@ -20,7 +20,10 @@ route (kernel #9) on bench, the general one (kernel #10) on Criteo.
 --config bench_quant trains bench.py's model with quantized gradients
 (use_quantized_grad, 4 bins, stochastic rounding): int8 values through
 the megakernel route, whose stages add the discretizer (scales, int8
-values) and, inside it, the threefry draws of its stochastic rounding.
+values) and, inside it, the threefry draws of its stochastic rounding. --config bench_masked and
+bench_compact train bench.py's model on the serial growers
+(tpu_grower=masked / compact), one split at a time; no stage of theirs
+is wrapped, so their `stages` line holds the score update and the rest.
 Either is ingested with binning_impl=auto, trained with lightgbm_tpu_torch
 on the first CUDA device and served, and the script prints JSON lines:
 
@@ -181,7 +184,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", choices=("bench", "criteo", "criteo_rowwise",
                                          "bench_fused", "criteo_fused",
-                                         "bench_quant"),
+                                         "bench_quant", "bench_masked",
+                                         "bench_compact"),
                     default="bench")
     ap.add_argument("--rows", type=int, default=1 << 20)
     ap.add_argument("--iters", type=int, default=4)
@@ -209,6 +213,8 @@ def main():
         params["force_row_wise"] = True
     if args.config.endswith("_quant"):
         params.update(use_quantized_grad=True, num_grad_quant_bins=4)
+    if args.config in ("bench_masked", "bench_compact"):
+        params["tpu_grower"] = args.config[len("bench_"):]
     if args.config.startswith("criteo"):
         from lightgbm_tpu_torch.utils.synthetic import (CRITEO_CAT_COLUMNS,
                                                         criteo_like)

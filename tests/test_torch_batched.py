@@ -13,10 +13,11 @@ array by array, and its steps read nothing from the host (a dispatch
 guard). The device metrics agree with the host metrics and the JAX
 package's device metrics, `mask_for_iter` with the eager masks and JAX's,
 and the threefry's device keys with its host keys. The per-iteration
-path runs for every JAX veto and for the serial growers masked and
-compact (A12(b)), the latter named in `batched_veto`; the drain stops on
-every exit. The fused routes, monotone intermediate, wave_exact and forced
-splits batch: tests/test_torch_batched_regimes.py. `tests/conftest.py` turns
+path runs for every JAX veto, named in `batched_veto`; the serial growers
+masked and compact, which trained per iteration until A12(b)'s last item,
+batch; the drain stops on every exit. The fused routes, monotone
+intermediate, wave_exact, forced splits and the serial growers batch:
+tests/test_torch_batched_regimes.py. `tests/conftest.py` turns
 batched training off suite-wide; each test here turns it on again.
 """
 
@@ -267,8 +268,9 @@ class _HostReads(TorchDispatchMode):
 
 def test_steps_read_nothing_from_the_host(monkeypatch):
     """After each step's first call (which, on the card, runs eagerly
-    before its capture) the start, wave and finish steps perform no host
-    read and copy no host data in, on every covered regime."""
+    before its capture) the start, wave (or split) and finish steps
+    perform no host read and copy no host data in, on every covered
+    regime, the serial growers masked and compact included."""
     hits = []
     seen = set()
 
@@ -293,7 +295,11 @@ def test_steps_read_nothing_from_the_host(monkeypatch):
                         monotone_constraints=[1, -1, 0, 0, 0, 0, 0, 0],
                         monotone_penalty=0.5, feature_fraction=0.7,
                         interaction_constraints=[[0, 1], [2, 3, 4]]),
-                   dict(feature_fraction_bynode=0.5, extra_trees=True)):
+                   dict(feature_fraction_bynode=0.5, extra_trees=True),
+                   dict(tpu_grower="masked", bagging_fraction=0.7,
+                        bagging_freq=1, feature_fraction=0.7),
+                   dict(tpu_grower="compact", data_sample_strategy="goss",
+                        max_bin=1023)):
         seen.clear()
         ds = lt.Dataset(X, label=y)
         b = lt.train({**BASE, **params}, ds, 3,
@@ -302,13 +308,15 @@ def test_steps_read_nothing_from_the_host(monkeypatch):
         assert b._gbdt.batched_veto == ""
     Xc, yc = criteo_like(1 << 10)
     for params in ({}, {"force_row_wise": True},
-                   {"histogram_impl": "rowwise_packed"}):
+                   {"histogram_impl": "rowwise_packed"},
+                   {"tpu_grower": "compact", "force_row_wise": True}):
         seen.clear()
         b = lt.train({**BASE, "max_bin": 255, **params},
                      lt.Dataset(Xc, label=yc,
                                 categorical_feature=list(CRITEO_CAT_COLUMNS)),
                      2)
-        assert b._gbdt.batched_veto == "" and b._gbdt.grow_route == "apply"
+        assert b._gbdt.batched_veto == "" and b._gbdt.grow_route == \
+            params.get("tpu_grower", "apply")
     assert hits == []
 
 
@@ -486,18 +494,22 @@ def test_rank_xendcg_and_the_env_escape_train_per_iteration(monkeypatch):
 
 
 A12B_VETOES = {
-    "masked": (dict(tpu_grower="masked"), "dense", "the serial grower"),
-    "compact": (dict(tpu_grower="compact"), "dense", "the serial grower"),
+    "masked": (dict(tpu_grower="masked"), "dense", "split"),
+    "compact": (dict(tpu_grower="compact"), "dense", "split"),
 }
 
 
 @pytest.mark.parametrize("case", list(A12B_VETOES))
 def test_a12b_regimes_name_a12b(case):
-    params, data, why = A12B_VETOES[case]
+    """The serial growers waited for A12(b) and named it in batched_veto;
+    they batch now, through the split step of ops/grow_batched.py's
+    SerialStepper (md5 parity: tests/test_torch_batched_regimes.py)."""
+    params, data, step = A12B_VETOES[case]
     g = _veto(params, data)
-    assert g.batched_veto.startswith(why)
-    assert g.batched_veto.endswith("(A12(b))")
-    assert not g._runners
+    assert g.batched_veto == "" and g.grower == case
+    runner = next(iter(g._runners.values()))
+    assert runner.stepper.step_name == step
+    assert runner.stepper.compact == (case == "compact")
 
 
 def test_engine_refusals_train_per_iteration():

@@ -2,17 +2,20 @@
 fixed-shape step (lightgbm_tpu_torch/ops/grow_batched.py), on the CPU:
 the fused routes ("fused" with #9, "fused_tiled" with #10, float and
 quantized, monotone, interaction sets), monotone `intermediate`,
-`wave_exact` and forced splits; then the faults C5 (a NaN label under
-huber, l1 and mape) and C6 (`cv` binning under its own params).
+`wave_exact`, forced splits, and the serial growers `masked` and
+`compact` (SerialStepper: with bagging on uint16 storage past 256 bins,
+compact on the row-wise routes); then the faults C5 (a NaN label
+under huber, l1 and mape) and C6 (`cv` binning under its own params).
 
   * Each regime's batched model is md5-equal to its per-iteration model,
-    the scores bitwise, at most ceil(waves / 4) + 1 blocking reads a
-    tree, and no step after its first call reads the device from the
-    host (test_torch_batched.py's dispatch guard).
+    the scores bitwise, at most ceil(steps / 4) + 1 blocking reads a
+    tree (a step is a wave, or a split on the serial growers), and no
+    step after its first call reads the device from the host
+    (test_torch_batched.py's dispatch guard).
   * The device `exact_order` applies what the serial rule applies, on
     random keys with ties.
-  * The port's batched trees of intermediate, wave_exact and forced splits
-    against the JAX package's per-iteration trees, at
+  * The port's batched trees of intermediate, wave_exact, forced splits,
+    masked and compact against the JAX package's per-iteration trees, at
     tests/test_torch_train.py's tolerance. The fused routes are held to
     the port's own per-iteration run only: the JAX package's fused tiled
     route fails its own parity tests on the CPU (ROADMAP C note 2).
@@ -86,6 +89,21 @@ CASES = {
     "wave_exact_fused": (dict(tpu_grower="wave_exact",
                               histogram_impl="fused"), "dense", "fused", 3),
     "forced": (dict(forcedsplits_filename=FORCED), "dense", "mega", 3),
+    "masked": (dict(tpu_grower="masked"), "dense", "masked", 3),
+    "masked_bagging": (dict(tpu_grower="masked", bagging_fraction=0.7,
+                            bagging_freq=1, max_bin=1023), "dense", "masked",
+                       3),
+    "compact": (dict(tpu_grower="compact"), "dense", "compact", 3),
+    "compact_bagging": (dict(tpu_grower="compact", bagging_fraction=0.7,
+                             bagging_freq=1, max_bin=1023), "dense",
+                        "compact", 3),
+    "compact_criteo": (dict(tpu_grower="compact", max_bin=255), "criteo",
+                       "compact", 2),
+    "compact_rowwise": (dict(tpu_grower="compact", max_bin=255,
+                             force_row_wise=True), "criteo", "compact", 2),
+    "compact_rowwise_packed": (dict(tpu_grower="compact", max_bin=255,
+                                    histogram_impl="rowwise_packed"),
+                               "criteo", "compact", 2),
 }
 
 
@@ -144,10 +162,13 @@ def test_regime_batched_md5_equals_per_iteration(case, tmp_path,
     np.testing.assert_array_equal(g._valid_scores[0].numpy(),
                                   bi._gbdt._valid_scores[0].numpy())
     runner = next(iter(g._runners.values()))
-    waves = [t.num_waves for t in g.models]
-    assert max(waves) > 1
+    serial = g.grower in ("masked", "compact")
+    steps = [t.num_leaves - 1 if serial else t.num_waves for t in g.models]
+    assert max(steps) > 1
     assert all(r <= math.ceil(w / tb.LAG) + 1
-               for r, w in zip(runner.tree_reads, waves))
+               for r, w in zip(runner.tree_reads, steps))
+    if serial:
+        assert runner.stepper.step_name == "split"
     assert hits == []
 
 
@@ -204,6 +225,8 @@ JAX_CASES = {
     "intermediate": dict(INTER),
     "wave_exact": dict(tpu_grower="wave_exact"),
     "forced": dict(forcedsplits_filename=FORCED),
+    "masked": dict(tpu_grower="masked"),
+    "compact": dict(tpu_grower="compact"),
 }
 
 

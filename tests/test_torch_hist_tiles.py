@@ -105,7 +105,8 @@ def test_plan_shapes_of_the_main_path():
 
 
 @pytest.mark.parametrize("args", [
-    (hc.MAX_GROUP_SLOTS + 1, 2, 28, 64), (1, 5, 28, 64), (1, 2, 28, 257),
+    (hc.MAX_GROUP_SLOTS + 1, 2, 28, 64), (1, 5, 28, 64),
+    (1, 2, 28, hc.MAX_BINS + 1),
     (0, 2, 28, 64), (1, 2, 0, 64)])
 def test_plan_raises_on_a_shape_it_cannot_tile(args):
     with pytest.raises(ValueError):

@@ -120,10 +120,10 @@ def test_one_tree_equals_jax(grower, case):
     n = int(tj.num_leaves)
     assert tt.num_leaves == n > 3
     m = n - 1
-    # one host read a split tried; a tree that reaches num_leaves reads
-    # compact's last left count once more
+    # one host read a split tried, none after the split that makes the
+    # last leaf
     L = gt.grow_cfg.num_leaves
-    assert tt.host_reads == (n if n < L else L - 1 + (grower == "compact"))
+    assert tt.host_reads == (n if n < L else L - 1)
     for name in ("split_feature", "threshold_bin", "default_left",
                  "left_child", "right_child", "internal_count",
                  "split_parent_leaf", "split_is_cat"):

@@ -197,18 +197,14 @@ def test_valid_sets_early_stopping_and_logging(data):
 
 @pytest.mark.parametrize("over,item", [
     ({"num_machines": 4}, "A16"),
-    ({"max_bin": 1023}, "A14"),
     ({"tree_learner": "data"}, "A16"),
     ({"num_machines": 8, "tpu_grower": "compact"}, "A16"),
-    ({"max_bin_by_feature": [1000] * 8}, "A14"),
-    ({"max_bin": 300}, "A14"),
     ({"binning_impl": "auto", "autotune": True}, "A14"),
     ({"num_leaves": 8192}, "A11, the leaf cap"),
     ({"tree_learner": "feature"}, "A16"),
     ({"num_machines": 2}, "A16"),
     ({"pre_partition": True}, "A16"),
     ({"tree_learner": "voting", "tpu_grower": "masked"}, "A16"),
-    ({"max_bin_by_feature": [300] * 8}, "A14"),
     ({"tree_learner": "voting"}, "A16"),
     ({"num_leaves": 4097}, "A11, the leaf cap"),
     ({"fault_plan": "kill@iter=5", "tpu_grower": "wave_exact"}, "A17"),
@@ -226,8 +222,10 @@ def test_configurations_outside_the_slice_raise(data, over, item):
 
 
 def test_categorical_and_wide_data_raise(data):
-    """Categorical and wide data train on the wave-apply route; what stays
-    outside the slice there is more than 256 bins per feature (A14)."""
+    """Categorical and wide data train on the wave-apply route, and so does
+    more than 256 bins per feature (uint16 storage, A14's first item),
+    which raised before it was ported; tests/test_torch_wide_bins.py holds
+    it to the JAX package."""
     X, y = data
     cat = lt.train({**PARAMS, **TORCH},
                    lt.Dataset(X, label=y, categorical_feature=[2]), 1)
@@ -236,9 +234,10 @@ def test_categorical_and_wide_data_raise(data):
                  lt.Dataset(wide, label=wide[:, 0] > 0), 1)
     assert cat._gbdt.grow_route == w._gbdt.grow_route == "apply"
     assert cat._gbdt.grow_cfg.has_categorical and w._gbdt.X_t.shape[0] == 40
-    with pytest.raises(NotImplementedError, match="ROADMAP item A14"):
-        lt.train({**PARAMS, **TORCH, "max_bin": 300},
-                 lt.Dataset(X, label=y, categorical_feature=[2]), 1)
+    b300 = lt.train({**PARAMS, **TORCH, "max_bin": 300},
+                    lt.Dataset(X, label=y, categorical_feature=[2]), 1)
+    assert b300._gbdt.grow_route == "apply"
+    assert b300._gbdt.X_t.dtype == torch.uint16
 
 
 def test_pred_early_stop_matches_jax(data, boosters):
