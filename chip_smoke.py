@@ -293,7 +293,41 @@ Phases, each printing one JSON line:
                      route kernel's launches a round above 0 (it ran in
                      the replayed graphs), the wave graph's launches and
                      one replay's device operations and ms recorded
- 18. more than 256 bins a feature (uint16 storage; one line a case):
+ 18. the runtime, the estimators and SHAP values (one line a case, with
+     the card's name and power limit):
+     profile         device_profile=true on bench.py's model, 4 rounds
+                     per iteration and one batched chunk of 8, each beside
+                     the unprofiled run: per-stage ms a round with
+                     `other`, the init-time spans, the run's HBM peak, the
+                     stage probe (#1, the split search, a partition on
+                     16384 rows), profiled and unprofiled ms a round;
+                     every record's stages within 20% of its wall, X_t's
+                     bytes <= the HBM peak <= the card's memory, the model
+                     md5 equal to the unprofiled run's; then the binned
+                     ServingSession with a profiler: margins bitwise those
+                     without one, bin_rows_rows the rows served, one
+                     bin_rows span a bucketize launch
+     autotune        autotune=true with a fresh cache file, bench (the
+                     narrow fused arm, #3 + search against #9) and Criteo
+                     (39 columns, the tiled arm, #4 + #1 + search against
+                     #10), 2 rounds each: the decision and every timing,
+                     the autotune span's seconds; a second construction
+                     cached "memory", a third after the in-process cache
+                     is cleared "disk"; the model md5 equal to the run
+                     pinned to the decision; the fused-wave probe called
+                     directly where a row-wise layout won first, so both
+                     arms run; batched steady ms a round untuned, tuned
+                     and pinned row-wise (order untuned, tuned, rowwise,
+                     rowwise, tuned, untuned); then
+                     the binning decision at bench's shape with #6's ms
+                     and the host loop's
+     sklearn         LGBMClassifier 8 rounds on bench's table (the
+                     fallback base where scikit-learn is missing): md5
+                     equal to lt.train's with its parameters, held-out
+                     AUC; LGBMRanker 2 rounds on the ranking table;
+                     pred_contrib of 4096 held-out rows, each row's sum
+                     within 1e-6 of predict(raw_score=True)
+ 19. more than 256 bins a feature (uint16 storage; one line a case):
      wide_bins       bench.py's table at max_bin=1023, 4 rounds; the
                      Criteo schema with six categorical columns of
                      300-1000 categories at 1023, 2 rounds; the ranking
@@ -4379,6 +4413,300 @@ def wide_bins_phase(lt, hc, torch, dev, smi, X, y):
     return hist, apply_rec, wide, compact_launches
 
 
+def _params_text(b, *flags):
+    """A model text with the runtime parameters `flags` normalized to 0
+    (a profiled run's trees, not its parameter record, are compared)."""
+    text = b.model_to_string()
+    for f in flags:
+        text = text.replace(f"[{f}: 1]", f"[{f}: 0]")
+    return text
+
+
+def _md5(text):
+    import hashlib
+    return hashlib.md5(text.encode()).hexdigest()
+
+
+def profile_phase(lt, hc, torch, smi, params, ds, bst, Xt):
+    """device_profile=true (runtime/profiler.py) on bench.py's model: 4
+    rounds per iteration, then one batched chunk of 8 rounds, each beside
+    the same run without the profiler. Prints the per-stage ms a round
+    (the ring's mean, `other` included), the init-time spans, the HBM
+    watermark of the run (the peak is reset before it), the stage probe
+    and the profiled against the unprofiled ms a round. Checks: every
+    ring record's stages sum to its wall within 20%; X_t's bytes <=
+    hbm_peak_bytes <= the card's memory; the model text's md5 equals the
+    unprofiled run's (the parameters' device_profile flag normalized).
+    Then the main booster's binned ServingSession with a profiler scores
+    the 4096 held-out f32 rows bitwise as one without, its bin_rows span
+    around the bucketize launch, bin_rows_rows equal to the rows served."""
+    from lightgbm_tpu_torch.runtime.profiler import StageProfiler
+    total_mem = torch.cuda.get_device_properties(0).total_memory
+    xt = bst._gbdt.X_t
+    xt_bytes = xt.numel() * xt.element_size()
+
+    def run(p, rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b = lt.train(p, ds, num_boost_round=rounds)
+        torch.cuda.synchronize()
+        return b, (time.perf_counter() - t0) * 1e3 / rounds
+
+    for mode, extra, rounds in (
+            ("per_iteration", {"batched_train": False}, 4),
+            ("batched", {"batched_train": True, "batched_chunk_size": 8},
+             8)):
+        plain, ms_plain = run({**params, **extra}, rounds)
+        plain_md5 = _md5(_params_text(plain))
+        del plain
+        torch.cuda.reset_peak_memory_stats()
+        prof, ms_prof = run({**params, **extra, "device_profile": True},
+                            rounds)
+        p = prof.get_profile()
+        ring = p["ring"]
+        names = sorted({k for r in ring for k in r["stages_s"]})
+        per_round = {k: float(np.mean([r["stages_s"].get(k, 0.0)
+                                       for r in ring])) * 1e3 for k in names}
+        init = {k: v for k, v in p["stages_s"].items() if k not in names}
+        worst = max(abs(sum(r["stages_s"].values()) - r["wall_s"])
+                    / r["wall_s"] for r in ring)
+        hbm = p.get("hbm_peak_bytes")
+        same = _md5(_params_text(prof, "device_profile")) == plain_md5
+        emit({"phase": "profile", "mode": mode, "rows": N_ROWS,
+              "rounds": rounds, "n_iters": p["n_iters"],
+              "stage_ms_per_round": per_round, "init_spans_s": init,
+              "stage_counts": p["stage_counts"],
+              "counters": p.get("counters"),
+              "hbm_peak_bytes": hbm, "X_t_bytes": xt_bytes,
+              "card_bytes": total_mem,
+              "stage_probe": p.get("stage_probe"),
+              "fused_veto_reasons": p.get("fused_veto_reasons"),
+              "hist_rowwise": p.get("hist_rowwise"),
+              "ms_per_round_profiled": ms_prof,
+              "ms_per_round_unprofiled": ms_plain,
+              "ring_sum_worst_rel_err": worst, "md5_equal": same,
+              "nvidia_smi": smi})
+        check(p["n_iters"] == rounds and len(ring) == rounds,
+              f"profile {mode}: {p['n_iters']} records in {rounds} rounds")
+        check(worst <= 0.2, f"profile {mode}: a record's stages miss its "
+                            f"wall by {worst:.3f}")
+        check(hbm is not None and xt_bytes <= hbm <= total_mem,
+              f"profile {mode}: hbm_peak_bytes {hbm} outside "
+              f"[{xt_bytes}, {total_mem}]")
+        check(same, f"profile {mode}: the profiled model differs")
+        if mode == "per_iteration":
+            check(set(p["stage_probe"]) == {"probe_rows", "histogram_s",
+                                            "split_search_s",
+                                            "partition_s"},
+                  "profile: no stage probe")
+        else:
+            check(all(r.get("batched") for r in ring)
+                  and p["counters"]["dispatches"] >= 1,
+                  "profile batched: the chunk was not recorded as batched")
+        del prof
+
+    # the serving stage profiler on the binned engine (raw-f32 route)
+    kw = dict(engine="binned", max_batch=256)
+    ref = bst.serve(**kw).score_margin(Xt)
+    sp = StageProfiler()
+    sess = bst.serve(profiler=sp, **kw)
+    hc.reset_launch_counts()
+    got = sess.score_margin(Xt)
+    launches = dict(hc.LAUNCHES)
+    d = sp.to_dict()
+    emit({"phase": "profile", "mode": "serve", "rows": len(Xt),
+          "bitwise": bool(np.array_equal(got, ref)),
+          "counters": d.get("counters"),
+          "bin_rows_s": d["stages_s"].get("bin_rows"),
+          "bin_rows_spans": d["stage_counts"].get("bin_rows"),
+          "bucketize_launches": launches["bucketize"],
+          "hbm_samples": len(d.get("hbm_watermark", [])),
+          "hbm_peak_bytes": d.get("hbm_peak_bytes"), "nvidia_smi": smi})
+    check(np.array_equal(got, ref), "serving profiler changed the margins")
+    check(d["counters"]["bin_rows_rows"] == len(Xt),
+          f"bin_rows_rows {d['counters']['bin_rows_rows']} != {len(Xt)}")
+    check(launches["bucketize"] == d["stage_counts"]["bin_rows"] > 0,
+          "the bin_rows spans are not the bucketize launches")
+
+
+def autotune_phase(lt, hc, torch, smi, params, ds, params_c, ds_c):
+    """autotune=true (runtime/autotune.py) with a fresh cache file under a
+    temporary directory: bench.py's model (28 columns, the narrow fused
+    arm: #3 + search against #9) and the Criteo table (39 columns, the
+    tiled arm: #4 + #1 + search against #10), each 2 rounds per iteration
+    with device_profile on. Prints the decision (grower, hist_impl, every
+    timing) and the autotune span's seconds. Checks: a second
+    construction reports cached "memory", a third after _MEM_CACHE is
+    cleared "disk"; the model's md5 (parameters left out) equals a run
+    with tpu_grower and histogram_impl pinned to the decision. Where the
+    decision skipped the fused-wave probe (a row-wise layout won first),
+    probe_fused_wave runs directly on the same storage, so both arms run
+    on the card; on Criteo it must time the tiled arm. Then lt.train's
+    default path, batched (chunks of 8), untuned, tuned and pinned to the
+    row-wise layout (the probe's other outcome) in the order untuned,
+    tuned, rowwise, rowwise, tuned, untuned: each trains one chunk (its
+    captures) and times a second, steady, chunk; the ms a round of each
+    and the routes taken are printed, each batched with no veto, the
+    tuned one on the decision's histogram route. Then the binning decision at bench's
+    shape, #6 against the host loop."""
+    import tempfile
+    from lightgbm_tpu_torch.ops.histogram_cuda import MAX_WAVE_FEATURES
+    from lightgbm_tpu_torch.runtime import autotune as at
+    tmp = tempfile.TemporaryDirectory()
+    cache = os.path.join(tmp.name, "autotune.json")
+
+    def trees(b):
+        return _md5(b.model_to_string().split("\nparameters:")[0])
+
+    for name, p0, d in (("bench", params, ds), ("criteo", params_c, ds_c)):
+        at._MEM_CACHE.clear()
+        p = {**p0, "autotune": True, "autotune_cache": cache,
+             "device_profile": True, "batched_train": False}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b = lt.train(p, d, num_boost_round=2)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        g = b._gbdt
+        dec = dict(g.autotune_decision)
+        span_s = b.get_profile()["stages_s"]["autotune"]
+        route = (g.grower, g.grow_route, g.hist_route)
+        cols = int(g.X_t.shape[0])
+        tuned = trees(b)
+        fw = dec["fused_wave_timings"]
+        direct = None if fw else at.probe_fused_wave(g.X_t, g.grow_cfg)
+        del b, g
+        second = lt.Booster(params=p, train_set=d)._gbdt.autotune_decision
+        at._MEM_CACHE.clear()
+        third = lt.Booster(params=p, train_set=d)._gbdt.autotune_decision
+        pinned = {**p0, "batched_train": False, "tpu_grower": dec["grower"],
+                  "histogram_impl": dec["hist_impl"] or "auto"}
+        same = trees(lt.train(pinned, d, num_boost_round=2)) == tuned
+        steady = {"untuned": [], "tuned": [], "rowwise": []}
+        batched_routes = {}
+        for tag in ("untuned", "tuned", "rowwise", "rowwise", "tuned",
+                    "untuned"):
+            q = {**p0, "batched_train": True, "batched_chunk_size": 8}
+            if tag == "tuned":
+                q.update(autotune=True, autotune_cache=cache)
+            elif tag == "rowwise":
+                q["histogram_impl"] = "rowwise"
+            bt = lt.train(q, d, num_boost_round=8)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bt.update_batch(8)
+            torch.cuda.synchronize()
+            steady[tag].append((time.perf_counter() - t0) * 1e3 / 8)
+            gt = bt._gbdt
+            batched_routes[tag] = (gt.grow_route, gt.hist_route,
+                                   gt.batched_veto)
+            del bt, gt
+        emit({"phase": "autotune", "case": name, "rows": N_ROWS,
+              "storage_columns": cols,
+              "grower": dec["grower"], "hist_impl": dec["hist_impl"],
+              "grow_route": route[1], "hist_route": route[2],
+              "timings": dec["timings"],
+              "hist_impl_timings": dec["hist_impl_timings"],
+              "fused_wave_timings": fw,
+              "fused_wave_arm": ("tiled" if cols > MAX_WAVE_FEATURES
+                                 else "narrow"),
+              "fused_wave_timings_direct": direct,
+              "probe_rows": dec["probe_rows"], "key": dec["key"],
+              "autotune_span_s": span_s, "train_2_rounds_s": wall,
+              "cached_second": second["cached"],
+              "cached_third": third["cached"], "md5_equal_pinned": same,
+              "batched_steady_ms_per_round": steady,
+              "batched_routes": batched_routes, "nvidia_smi": smi})
+        check(dec["cached"] is False and dec["grower"] in
+              ("wave", "compact", "masked"), f"autotune {name}: {dec}")
+        check(second["cached"] == "memory" and third["cached"] == "disk",
+              f"autotune {name}: cached {second['cached']} / "
+              f"{third['cached']}")
+        check(same, f"autotune {name}: the model differs from the run "
+                    "pinned to the decision")
+        check(set(fw or direct) == {"two_pass", "fused"},
+              f"autotune {name}: the fused-wave probe did not run")
+        check(name != "criteo" or cols > MAX_WAVE_FEATURES,
+              f"autotune criteo: {cols} storage columns take the narrow "
+              "fused arm")
+        check(all(r[2] == "" for r in batched_routes.values())
+              and batched_routes["tuned"][1] == route[2],
+              f"autotune {name}: batched routes {batched_routes}, the "
+              f"decision's {route}")
+
+    at._MEM_CACHE.clear()
+    h = ds._handle
+    bd = at.autotune_binning_decision(
+        h.mappers, n_rows=N_ROWS, n_features=N_FEAT, max_bin=63,
+        num_leaves=N_LEAVES, cache_path=cache,
+        device=torch.device("cuda", 0))
+    emit({"phase": "autotune", "case": "binning", "rows_probed": 16384,
+          "binning_impl": bd["binning_impl"],
+          "device_ms": bd["binning_timings"].get("device", 0.0) * 1e3,
+          "host_ms": bd["binning_timings"].get("host", 0.0) * 1e3,
+          "key": bd["key"], "nvidia_smi": smi})
+    check(bd["binning_impl"] in ("host", "device")
+          and set(bd["binning_timings"]) == {"host", "device"},
+          f"autotune binning: {bd}")
+    tmp.cleanup()
+
+
+def sklearn_phase(lt, hc, torch, smi, X, y, Xt, yt):
+    """The scikit-learn estimators (sklearn.py) on the card, through the
+    fallback base where scikit-learn is missing: LGBMClassifier 8 rounds
+    on bench's table (its model text's md5 equal to lt.train's with the
+    same parameters; predict_proba's held-out AUC printed), LGBMRanker 2
+    rounds on the ranking table (MSLR-WEB30K's schema, 2^20 documents);
+    then pred_contrib (models/shap.py) on 4096 held-out rows of the
+    classifier's model: each row's sum equals predict(raw_score=True)
+    within 1e-6."""
+    from lightgbm_tpu_torch import sklearn as tsk
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    clf = lt.LGBMClassifier(n_estimators=8, num_leaves=N_LEAVES,
+                            max_bin=63, learning_rate=0.1,
+                            min_child_samples=20)
+    clf.fit(X, y)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    bp = dict(clf.booster_.params)
+    ref = lt.train(bp, lt.Dataset(X, label=y, params=bp), num_boost_round=8)
+    same = _md5(clf.booster_.model_to_string()) == _md5(
+        ref.model_to_string())
+    del ref
+    proba = clf.predict_proba(Xt)
+    auc = _auc(proba[:, 1], yt)
+    t0 = time.perf_counter()
+    contrib = clf.predict(Xt, pred_contrib=True)
+    contrib_s = time.perf_counter() - t0
+    raw = clf.predict(Xt, raw_score=True)
+    err = float(np.max(np.abs(contrib.sum(axis=1) - raw)))
+    rx, ry, sizes = _mslr_like(np.random.RandomState(61), N_ROWS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rk = lt.LGBMRanker(n_estimators=2, num_leaves=N_LEAVES, max_bin=255,
+                       min_child_samples=20)
+    rk.fit(rx, ry, group=sizes)
+    torch.cuda.synchronize()
+    rank_s = time.perf_counter() - t0
+    ndcg = {m: v for _, m, v, _ in rk.booster_.eval_train()}
+    emit({"phase": "sklearn", "sklearn_present": tsk._SKLEARN,
+          "classifier_fit_s": fit_s, "classes": clf.classes_.tolist(),
+          "md5_equal_lt_train": same, "heldout_auc": auc,
+          "grow_route": clf.booster_._gbdt.grow_route,
+          "pred_contrib_rows": len(Xt), "pred_contrib_s": contrib_s,
+          "pred_contrib_shape": list(contrib.shape),
+          "contrib_sum_max_abs_err": err, "ranker_fit_s": rank_s,
+          "ranker_rows": len(rx), "ranker_train_metrics": ndcg,
+          "nvidia_smi": smi})
+    check(same, "LGBMClassifier's model differs from lt.train's")
+    check(auc > 0.85, f"LGBMClassifier held-out AUC {auc}")
+    check(contrib.shape == (len(Xt), N_FEAT + 1) and err <= 1e-6,
+          f"pred_contrib rows miss their raw scores by {err}")
+    check(rk.booster_.current_iteration == 2 and all(
+        np.isfinite(v) for v in ndcg.values()), "LGBMRanker did not train")
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -4606,9 +4934,15 @@ def main():
     # per-iteration path
     batched_phase(lt, hc, torch, smi, params, ds, X, w, params_criteo,
                   ds_criteo)
-    del ds_criteo
 
-    # ---- 18. more than 256 bins a feature: uint16 storage through #1 and
+    # ---- 18. the runtime: device_profile and autotune; the estimators
+    # and SHAP values
+    profile_phase(lt, hc, torch, smi, params, ds, bst, Xt)
+    autotune_phase(lt, hc, torch, smi, params, ds, params_criteo, ds_criteo)
+    del ds_criteo
+    sklearn_phase(lt, hc, torch, smi, X, y, Xt, yt)
+
+    # ---- 19. more than 256 bins a feature: uint16 storage through #1 and
     # #4 on the apply route and the compact grower; the compact grower's
     # window operations (#1 over a window, the partition kernel)
     wide_hist, wide_apply, wide, rank_launches = wide_bins_phase(

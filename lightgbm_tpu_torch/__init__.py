@@ -13,7 +13,7 @@ lightgbm_tpu.
 
 from .basic import Booster, Dataset, Sequence
 from .callback import (EarlyStopException, early_stopping, log_evaluation,
-                       record_evaluation, reset_parameter)
+                       record_evaluation, record_profile, reset_parameter)
 from .config import Config, resolve_params
 from .engine import CVBooster, cv, train
 from .utils.log import FatalError, register_logger
@@ -21,6 +21,19 @@ from .utils.log import FatalError, register_logger
 __all__ = [
     "Booster", "CVBooster", "Config", "Dataset", "EarlyStopException",
     "FatalError", "cv", "early_stopping", "log_evaluation",
-    "record_evaluation", "register_logger", "reset_parameter",
-    "resolve_params", "Sequence", "train",
+    "record_evaluation", "record_profile", "register_logger",
+    "reset_parameter", "resolve_params", "Sequence", "train",
+    "LGBMModel", "LGBMClassifier", "LGBMRegressor", "LGBMRanker",
 ]
+
+_SKLEARN_NAMES = ("LGBMModel", "LGBMClassifier", "LGBMRegressor",
+                  "LGBMRanker")
+
+
+def __getattr__(name):
+    # the scikit-learn estimators load on first use, so importing the
+    # package never imports scikit-learn
+    if name in _SKLEARN_NAMES:
+        from . import sklearn as _sk
+        return getattr(_sk, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -558,6 +558,14 @@ class Booster:
     def num_trees(self) -> int:
         return len(self._gbdt.models)
 
+    def get_profile(self) -> Optional[Dict[str, Any]]:
+        """The device profile (runtime/profiler.py StageProfiler.to_dict):
+        per-stage seconds, the per-iteration ring, row-iters/s, the HBM
+        watermark and the init-time extras; None unless trained with
+        device_profile=true (JAX basic.py:730-735)."""
+        prof = getattr(self._gbdt, "profiler", None)
+        return prof.to_dict() if prof is not None else None
+
     def num_feature(self) -> int:
         return self._gbdt.max_feature_idx_ + 1
 
@@ -621,11 +629,14 @@ class Booster:
         on a CUDA booster (models/gbdt.py:predict_raw); `[N, K]` for K
         models an iteration. `pred_leaf` gives each row's leaf index in
         every tree, `[N, iterations * K]`, columns in iteration then class
-        order. `pred_early_stop` / `_freq` / `_margin`, from the keyword
-        arguments or else from the booster's params, stop a row's walk
-        once its margin clears the bound (host walk only), as the JAX
-        package's Booster.predict. Any other keyword raises (the JAX
-        package ignores them). Sparse and Arrow rows are densified."""
+        order; `pred_contrib` each row's TreeSHAP values, `[N, K * (F +
+        1)]`, the expected value last of each class's block
+        (models/shap.py, on the host). `pred_early_stop` / `_freq` /
+        `_margin`, from the keyword arguments or else from the booster's
+        params, stop a row's walk once its margin clears the bound (host
+        walk only), as the JAX package's Booster.predict. Any other
+        keyword raises (the JAX package ignores them). Sparse and Arrow
+        rows are densified."""
         unknown = sorted(set(kwargs) - set(_EARLY_STOP_KEYS))
         if unknown:
             # the reference's other keywords (validate_features,
@@ -635,13 +646,13 @@ class Booster:
                 "lightgbm_tpu_torch yet (ROADMAP item A18)")
         ni = num_iteration if num_iteration is not None else (
             self.best_iteration if self.best_iteration > 0 else -1)
-        if pred_contrib:
-            raise NotImplementedError(
-                "pred_contrib (SHAP values) is not ported to "
-                "lightgbm_tpu_torch yet (ROADMAP item A18)")
         if pred_leaf:
             return self._gbdt.predict_leaf_index(_to_2d_numpy(data),
                                                  start_iteration, ni)
+        if pred_contrib:
+            from .models.shap import predict_contrib
+            return predict_contrib(self._gbdt, _to_2d_numpy(data),
+                                   start_iteration, ni)
         es_kwargs = {}
         for p in _EARLY_STOP_KEYS:
             if p in kwargs:

@@ -2,9 +2,9 @@
 
 Copy of lightgbm_tpu/callback.py, API-compatible with the reference python
 package (python-package/lightgbm/callback.py): log_evaluation:109,
-record_evaluation:183, reset_parameter:254, early_stopping:278. The
-evaluation result list entries are (dataset_name, metric_name, value,
-is_higher_better) tuples.
+record_evaluation:183, reset_parameter:254, early_stopping:278, and the
+JAX package's record_profile. The evaluation result list entries are
+(dataset_name, metric_name, value, is_higher_better) tuples.
 
 `batched_replay = True` marks a callback that is a function of its
 CallbackEnv alone: the batched trainer replays it row by row from a
@@ -72,6 +72,37 @@ def record_evaluation(eval_result: Dict[str, Dict[str, List[float]]]) -> Callabl
 
     _callback.order = 20  # type: ignore
     _callback.batched_replay = True  # type: ignore
+    return _callback
+
+
+def record_profile(profile_result: Dict[str, Any]) -> Callable:
+    """Collect per-iteration device-profile stage timings into
+    ``profile_result`` (JAX callback.py:75-101; record_evaluation-style;
+    training needs ``device_profile=true`` so the booster carries a
+    StageProfiler, otherwise the dict stays empty).
+
+    After training, ``profile_result["stages_s"]`` maps stage name to the
+    list of per-iteration seconds, ``profile_result["wall_s"]`` is the
+    per-iteration wall time and ``profile_result["profile"]`` the full
+    final export (runtime/profiler.py to_dict). It reads the ring after
+    every iteration, so it has no `batched_replay`: lt.train takes the
+    per-iteration path when it is passed."""
+    if not isinstance(profile_result, dict):
+        raise TypeError("profile_result should be a dictionary")
+
+    def _callback(env: CallbackEnv) -> None:
+        gbdt = getattr(env.model, "_gbdt", env.model)
+        prof = getattr(gbdt, "profiler", None)
+        if prof is None or not prof.ring:
+            return
+        last = prof.ring[-1]
+        profile_result.setdefault("wall_s", []).append(last["wall_s"])
+        stages = profile_result.setdefault("stages_s", {})
+        for name, v in last["stages_s"].items():
+            stages.setdefault(name, []).append(v)
+        profile_result["profile"] = prof.to_dict()
+
+    _callback.order = 25  # type: ignore
     return _callback
 
 

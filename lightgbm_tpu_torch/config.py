@@ -489,7 +489,7 @@ class Config:
     #                                    false = hard-coded ladder, bit-for-bit
     autotune_cache: str = ""           # decision cache path ("" = env
     #                                    LIGHTGBM_TPU_AUTOTUNE_CACHE or
-    #                                    ~/.cache/lightgbm_tpu/autotune.json)
+    #                      ~/.cache/lightgbm_tpu_torch/autotune.json)
     # histogram construction layout (docs/PERF.md):
     #   auto        col-wise, tiered by width class with the hi/lo
     #               wide-bin variant; autotune (autotune=true) may

@@ -133,6 +133,9 @@ class BinnedDataset:
         self.tier_perm: Optional[List[int]] = None
         # "device" | "host": how the rows were binned (construct_from_matrix)
         self.binning_route: str = "host"
+        # the binning probe's decision under autotune with
+        # binning_impl=auto (runtime/autotune.py), else None
+        self.binning_decision: Optional[dict] = None
         # raw feature values, kept only when config.linear_tree needs them
         # at fit time (the reference keeps its Dataset's raw data the same
         # way, linear_tree_learner.cpp raw_index), whatever free_raw_data
@@ -282,20 +285,32 @@ def _alloc_binned(ds: BinnedDataset) -> np.ndarray:
 
 
 def ingest_bin_table(ds: BinnedDataset, config: Config,
-                     device: Optional[torch.device]):
-    """Device-ingest gate: resolve ``binning_impl`` for `device` and pack
-    the train-mode bin table over ``ds.mappers``; None keeps the host
+                     device: Optional[torch.device], n_rows: int = 0):
+    """Device-ingest gate: resolve ``binning_impl`` for `device` (under
+    autotune, "auto" by the binning probe of runtime/autotune.py, cached
+    under the `n_rows` shape key; JAX dataset.py:438-470) and pack the
+    train-mode bin table over ``ds.mappers``; None keeps the host
     ``value_to_bin`` loop. An explicit "device" whose table cannot be
     packed raises; "auto" falls back to the host route and says so."""
     from ..ops.bucketize import (BinningUnavailable, pack_bin_table,
                                  resolve_binning_impl)
-    if config.binning_impl == "auto" and config.autotune:
-        raise NotImplementedError(
-            "autotune of binning_impl=auto is not ported to "
-            "lightgbm_tpu_torch yet (ROADMAP item A14)")
     if not ds.mappers or device is None:
         return None
-    if resolve_binning_impl(config.binning_impl, device) != "device":
+    impl = None
+    if config.binning_impl == "auto" and config.autotune:
+        from ..runtime.autotune import autotune_binning_decision
+        decision = autotune_binning_decision(
+            ds.mappers, n_rows=n_rows, n_features=len(ds.mappers),
+            max_bin=config.max_bin, num_leaves=config.num_leaves,
+            cache_path=config.autotune_cache, seed=int(config.seed or 0),
+            device=device)
+        impl = decision.get("binning_impl")
+        if impl:
+            log_info(f"autotune: binning probe picked binning_impl='{impl}'")
+        ds.binning_decision = decision
+    if impl is None:
+        impl = resolve_binning_impl(config.binning_impl, device)
+    if impl != "device":
         return None
     try:
         return pack_bin_table(ds.mappers, mode="train")
@@ -372,7 +387,7 @@ def construct_from_matrix(
     # vectorized value->bin on the host otherwise
     table = None
     if data.dtype == np.float32:
-        table = ingest_bin_table(ds, config, device)
+        table = ingest_bin_table(ds, config, device, num_data)
     elif config.binning_impl == "device":
         raise ValueError(
             f"binning_impl=device bins float32 input; this matrix is "

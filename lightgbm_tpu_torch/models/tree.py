@@ -281,11 +281,16 @@ class Tree:
         self.shrinkage = 1.0
 
     def expected_value(self) -> float:
-        """Weighted mean output (reference: tree.cpp ExpectedValue)."""
-        total = float(self.internal_weight[0]) if self.num_leaves > 1 else 0.0
-        if total <= 0:
-            return float(self.leaf_value[0]) if self.num_leaves >= 1 else 0.0
-        return float(np.sum(self.leaf_weight * self.leaf_value) / total)
+        """The count-weighted mean output (reference: tree.cpp
+        Tree::ExpectedValue): sum over leaves of leaf_count / the root's
+        internal_count times the leaf's value; a stump's value itself.
+        The JAX package weighs by the leaves' hessian sums (ROADMAP C
+        note 18), which TreeSHAP's count fractions do not sum to."""
+        if self.num_leaves <= 1:
+            return float(self.leaf_value[0])
+        total = float(self.internal_count[0])
+        return float(sum(float(c) / total * float(v) for c, v in zip(
+            self.leaf_count[:self.num_leaves], self.leaf_value)))
 
     def leaf_depths(self) -> np.ndarray:
         depth = np.zeros(self.num_leaves, dtype=np.int32)

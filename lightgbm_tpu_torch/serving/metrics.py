@@ -16,7 +16,7 @@ import threading
 import time
 from typing import Any, Dict, Optional
 
-from ..utils.profiler import LatencyStats, StageProfiler
+from ..runtime.profiler import LatencyStats, StageProfiler
 
 
 class ServingMetrics:

@@ -33,8 +33,17 @@ An explicit ``device`` or ``binned`` engine that cannot be built raises;
 so does ``binning_impl="device"`` whose table cannot be packed. A failing
 device chunk raises too: the host re-score of the JAX package belongs to
 its circuit breaker, which is not ported (``host_fallbacks`` stays 0).
-The ``compiled`` engine, sharded scoring, the breaker, fault plans and the
-stage profiler raise NotImplementedError naming their ROADMAP item.
+The ``compiled`` engine, sharded scoring, the breaker and fault plans
+raise NotImplementedError naming their ROADMAP item.
+
+A ``profiler`` (runtime/profiler.py StageProfiler) records the binning
+stage of the binned engine: a ``bin_rows`` span around the host
+``bin_rows`` of f64 requests and around the bucketize kernel's (#6)
+launch of f32 requests on the raw-f32 route (a launch of its own on the
+card, where the JAX package fuses it into the scoring program), with
+``bin_rows_rows`` / ``bin_rows_bytes_in`` / ``bin_rows_bytes_out``
+counters, and an HBM-watermark sample (``serve_score``) a scored chunk.
+Profiling changes no margin.
 """
 
 from __future__ import annotations
@@ -114,8 +123,7 @@ class ServingSession:
         if breaker is not None or fault_plan is not None:
             _not_ported("the serving circuit breaker and fault plans",
                         "A17/A18")
-        if profiler is not None:
-            _not_ported("the serving stage profiler", "A14")
+        self.profiler = profiler
         self.gbdt = gbdt
         self.version = int(version)
         # where the device engines run: the model's device_type unless the
@@ -267,12 +275,19 @@ class ServingSession:
     def _raw_scorer(self, bucket: int) -> Callable:
         """Raw-f32 scorer: the bucketize kernel then the bin-domain walk,
         f32 [b, F] raw rows -> [K, b] margins with no host binning stage.
-        Bitwise equal to host bin_rows + the binned walk."""
+        Bitwise equal to host bin_rows + the binned walk. Under a
+        profiler the bucketize launch is its ``bin_rows`` span."""
         from ..ops.bucketize import bucketize_rows
         from ..ops.predict_binned import predict_margin_binned
         K, pa, t = self.K, self._pa, self._bin_tensors
-        return lambda Xp: predict_margin_binned(pa, bucketize_rows(Xp, t),
-                                                K)
+
+        def score(Xp: torch.Tensor) -> torch.Tensor:
+            if self.profiler is None:
+                return predict_margin_binned(pa, bucketize_rows(Xp, t), K)
+            with self.profiler.span("bin_rows"):
+                bins = bucketize_rows(Xp, t)
+            return predict_margin_binned(pa, bins, K)
+        return score
 
     def warmup(self) -> List[int]:
         """Run every bucket of the ladder (min_bucket..max_batch, powers of
@@ -331,8 +346,19 @@ class ServingSession:
                              lambda b=b: self._build_scorer(b))
         m = c1 - c0
         Xp = np.zeros((b, self._bm.num_features), np.uint8)
-        Xp[:m] = self._bm.bin_rows(X[c0:c1])
+        if self.profiler is not None:
+            with self.profiler.span("bin_rows"):
+                Xp[:m] = self._bm.bin_rows(X[c0:c1])
+            self._count_bin_rows(m, X[c0:c1].nbytes, Xp[:m].nbytes)
+        else:
+            Xp[:m] = self._bm.bin_rows(X[c0:c1])
         return self._run(fn, Xp, m)
+
+    def _count_bin_rows(self, rows: int, bytes_in: int,
+                        bytes_out: int) -> None:
+        self.profiler.add_counter("bin_rows_rows", rows)
+        self.profiler.add_counter("bin_rows_bytes_in", bytes_in)
+        self.profiler.add_counter("bin_rows_bytes_out", bytes_out)
 
     def _score_binned_raw(self, X: np.ndarray, c0: int, c1: int,
                           b: int) -> np.ndarray:
@@ -343,7 +369,10 @@ class ServingSession:
         m = c1 - c0
         Xp = np.zeros((b, self.num_features), np.float32)
         Xp[:m] = X[c0:c1, :self.num_features]
-        return self._run(fn, Xp, m)
+        out = self._run(fn, Xp, m)
+        if self.profiler is not None:
+            self._count_bin_rows(m, Xp[:m].nbytes, m * self._bm.num_features)
+        return out
 
     def score_margin(self, X: np.ndarray) -> np.ndarray:
         """[K, n] f64 raw margins for X [n, F] (any request size: chunks
@@ -373,6 +402,8 @@ class ServingSession:
                 # walk
                 r = self._host_fn(b)(np.asarray(X[c0:c1], np.float64))
             self.metrics.record_batch(time.perf_counter() - t0, m)
+            if self.profiler is not None:
+                self.profiler.sample_hbm("serve_score")
             out[:, c0:c1] = r
         if self._avg_div:
             out /= self._avg_div

@@ -156,7 +156,7 @@ def test_device_route_valid_set_and_auto_on_cpu():
     assert _construct(X, {"max_bin": 63}).binning_route == "host"
 
 
-def test_device_route_refusals():
+def test_device_route_refusals(tmp_path, monkeypatch):
     X = _matrix(8)
     with pytest.raises(ValueError, match="float32"):
         _construct(X.astype(np.float64), {"binning_impl": "device"})
@@ -166,5 +166,10 @@ def test_device_route_refusals():
     with pytest.raises(ValueError, match="overflow uint8"):
         _construct(W, {"binning_impl": "device", "max_bin": 300,
                        "min_data_in_bin": 1})
-    with pytest.raises(NotImplementedError, match="ROADMAP item A14"):
-        _construct(X, {"autotune": True})
+    # autotune of binning_impl=auto (ported) probes, caches its decision
+    # and bins bitwise as the untuned host route
+    monkeypatch.setenv("LIGHTGBM_TPU_AUTOTUNE_CACHE",
+                       str(tmp_path / "autotune.json"))
+    tuned = _construct(X, {"autotune": True})
+    assert tuned.binning_decision["binning_impl"] in ("host", "device")
+    np.testing.assert_array_equal(tuned.X_binned, _construct(X, {}).X_binned)

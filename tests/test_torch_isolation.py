@@ -58,6 +58,10 @@ def test_import_leaves_jax_unloaded():
             "import lightgbm_tpu_torch.objectives.rank\n"
             "import lightgbm_tpu_torch.metrics.rank_utils\n"
             "import lightgbm_tpu_torch.serving\n"
+            "import lightgbm_tpu_torch.runtime.profiler\n"
+            "import lightgbm_tpu_torch.runtime.autotune\n"
+            "import lightgbm_tpu_torch.models.shap\n"
+            "import lightgbm_tpu_torch.sklearn\n"
             "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', "
             "'lightgbm_tpu') or m.startswith(('jax.', 'jaxlib.', "
             "'lightgbm_tpu.'))]\n"

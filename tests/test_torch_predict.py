@@ -228,7 +228,9 @@ def _port_booster(jbst):
 def test_pred_leaf_matches_jax(models):
     """Booster.predict(pred_leaf=True) of the first 3 iterations is the
     JAX package's [N, 3 K] leaf indices (iteration, then class), and the
-    whole model's too; pred_contrib and unknown keywords raise."""
+    whole model's too; pred_contrib gives the JAX package's SHAP feature
+    values (tests/test_torch_sklearn.py holds them further); unknown
+    keywords raise."""
     jbst, g, q = models
     K = g.num_tree_per_iteration
     bst = _port_booster(jbst)
@@ -239,7 +241,11 @@ def test_pred_leaf_matches_jax(models):
         got, jbst.predict(q64, pred_leaf=True, num_iteration=3))
     np.testing.assert_array_equal(bst.predict(q64, pred_leaf=True),
                                   jbst.predict(q64, pred_leaf=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP item A18"):
-        bst.predict(q64, pred_contrib=True)
+    # the feature columns; the expected values weigh leaves by count in
+    # the port, by hessian sum in JAX (ROADMAP C note 18)
+    F = q.shape[1]
+    np.testing.assert_array_equal(
+        bst.predict(q64[:8], pred_contrib=True).reshape(8, K, F + 1)[..., :F],
+        jbst.predict(q64[:8], pred_contrib=True).reshape(8, K, F + 1)[..., :F])
     with pytest.raises(NotImplementedError, match="ROADMAP item A18"):
         bst.predict(q64, validate_features=True)

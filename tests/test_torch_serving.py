@@ -302,7 +302,8 @@ def test_refusals(binary):
         bst.serve(engine="device", num_shards=2)
     with pytest.raises(NotImplementedError, match="A17/A18"):
         bst.serve(engine="device", breaker=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP item A14"):
-        bst.serve(profiler=object())
+    # the stage profiler is ported (tests/test_torch_runtime.py)
+    from lightgbm_tpu_torch.runtime.profiler import StageProfiler
+    assert bst.serve(profiler=StageProfiler()).profiler is not None
     with pytest.raises(ValueError, match="unknown serving engine"):
         bst.serve(engine="tpu")

@@ -199,7 +199,6 @@ def test_valid_sets_early_stopping_and_logging(data):
     ({"num_machines": 4}, "A16"),
     ({"tree_learner": "data"}, "A16"),
     ({"num_machines": 8, "tpu_grower": "compact"}, "A16"),
-    ({"binning_impl": "auto", "autotune": True}, "A14"),
     ({"num_leaves": 8192}, "A11, the leaf cap"),
     ({"tree_learner": "feature"}, "A16"),
     ({"num_machines": 2}, "A16"),
@@ -212,7 +211,6 @@ def test_valid_sets_early_stopping_and_logging(data):
     ({"checkpoint_dir": "ckpt"}, "A17"),
     ({"resume_from_checkpoint": "/nonexistent"}, "A17"),
     ({"fault_plan": "kill@iter=2"}, "A17"),
-    ({"device_profile": True}, "A14"),
 ])
 def test_configurations_outside_the_slice_raise(data, over, item):
     X, y = data
