@@ -324,15 +324,18 @@ Phases, each printing one JSON line:
      sklearn         LGBMClassifier 8 rounds on bench's table (the
                      fallback base where scikit-learn is missing): md5
                      equal to lt.train's with its parameters, held-out
-                     AUC; LGBMRanker 2 rounds on the ranking table;
-                     pred_contrib of 4096 held-out rows, each row's sum
-                     within 1e-6 of predict(raw_score=True)
+                     AUC; LGBMRanker 2 rounds on the ranking table
+                     (2^18 documents); pred_contrib of 1024 held-out
+                     rows (both cut so that the cli and resilience
+                     lines fit the run's time), each row's sum within
+                     1e-6 of predict(raw_score=True)
  19. more than 256 bins a feature (uint16 storage; one line a case):
      wide_bins       bench.py's table at max_bin=1023, 4 rounds; the
                      Criteo schema with six categorical columns of
                      300-1000 categories at 1023, 2 rounds; the ranking
-                     table (2^18 documents) at 1023, 1 round, where the
-                     histogram_pool_size ladder picks compact: each per
+                     table (2^17 documents) at 1023, 1
+                     round, where the histogram_pool_size ladder picks
+                     compact: each per
                      iteration and batched (md5 equal; bench and Criteo
                      beside a max_bin=255 run), the host
                      binning route, the apply route (compact for
@@ -349,6 +352,38 @@ Phases, each printing one JSON line:
                      order and the partition kernel, windows of half the
                      rows and of 2^14 rows, bitwise against their plain
                      versions and timed
+
+ 20. text files, the command line, checkpoints (one line each, with the
+     card's name and power limit):
+     cli             bench.py's table cut to 2^18 training rows and a
+                     2^16-row valid file (a 2^20-row text file would cost
+                     most of the line's time), written as TSV with %.9g
+                     (f32 round-trips); `python -m lightgbm_tpu_torch
+                     config=train.conf` on the card, 8 rounds, metric=auc,
+                     snapshot_freq=4, device_profile with profile_output;
+                     then task=predict on the valid file, task=refit and
+                     task=convert_model (cpp), these three side by side
+                     (each reads the model only): every exit code 0, the
+                     model file md5-equal to an in-process lt.train with
+                     the same params on load_text_file's arrays, the
+                     prediction file equal to Booster.predict of the same
+                     rows, the snapshots' manifests at 4 and 8 verified,
+                     8 profile records, the native parser named in the
+                     run's log; parse seconds native and Python on the
+                     valid file, seconds from the file to the first round,
+                     each command's wall seconds
+     resilience      the bench table (2^20 x 28, 255 leaves) on
+                     lt.train's batched default, bagging 0.8 every round,
+                     16 rounds, checkpoint_interval=4: (a) uninterrupted
+                     with checkpoints; (b) a child process under
+                     fault_plan=kill@iter=10 exits 17 leaving
+                     ckpt_iter_0000008; (c) resumed from (b); (d) 10
+                     rounds under corrupt_snapshot@iter=8, iteration 8's
+                     manifest failing, resumed to 16 from iteration 4:
+                     (a), (c), (d) and a run without checkpoints md5-equal;
+                     ms and bytes a save, ms to load and to restore a
+                     state, batched ms a round with and without
+                     checkpoints
 
 then a {"kernels": [...]} line (the eleven kernels, #1 and #4 with their
 uint16 times), the nvidia-smi line,
@@ -4250,7 +4285,7 @@ def wide_bins_phase(lt, hc, torch, dev, smi, X, y):
     at max_bin=1023, 4 rounds batched and per iteration, beside a
     max_bin=255 run of the same rounds; the Criteo schema with its last
     six categorical columns at 300-1000 categories, max_bin=1023, 2 rounds
-    of each path beside max_bin=255; the MSLR-shaped ranking table (2^18
+    of each path beside max_bin=255; the MSLR-shaped ranking table (2^17
     documents) at max_bin=1023, where the histogram_pool_size ladder
     picks compact, 1 round of each path beside a max_bin=255 round on
     compact. Each: ingest seconds, model text md5 equal across the paths,
@@ -4272,10 +4307,10 @@ def wide_bins_phase(lt, hc, torch, dev, smi, X, y):
     def md5(b):
         return hashlib.md5(b.model_to_string().encode()).hexdigest()
     Xc, yc = criteo_like(N_ROWS, cardinalities=CRITEO_WIDE_CARDINALITIES)
-    # the ranking table cut to 2^18 documents: the ladder's choice depends
-    # on L, F and B alone, and host binning of 136 columns at 1023 bins
-    # takes 39 s at 2^20
-    Xr, yr, sizes = _mslr_like(np.random.RandomState(61), N_ROWS // 4)
+    # the ranking table cut to 2^17 documents: the ladder's choice depends
+    # on L, F and B alone, host binning of 136 columns at 1023 bins takes
+    # 39 s at 2^20, and at 2^18 the whole run passed 900 s
+    Xr, yr, sizes = _mslr_like(np.random.RandomState(61), N_ROWS // 8)
     base = dict(objective="binary", num_leaves=N_LEAVES, learning_rate=0.1,
                 min_data_in_leaf=20, verbose=-1, binning_impl="auto",
                 device_type="cuda", metric="auc")
@@ -4656,10 +4691,11 @@ def sklearn_phase(lt, hc, torch, smi, X, y, Xt, yt):
     fallback base where scikit-learn is missing: LGBMClassifier 8 rounds
     on bench's table (its model text's md5 equal to lt.train's with the
     same parameters; predict_proba's held-out AUC printed), LGBMRanker 2
-    rounds on the ranking table (MSLR-WEB30K's schema, 2^20 documents);
-    then pred_contrib (models/shap.py) on 4096 held-out rows of the
+    rounds on the ranking table (MSLR-WEB30K's schema, 2^18 documents);
+    then pred_contrib (models/shap.py) on 1024 of the held-out rows of the
     classifier's model: each row's sum equals predict(raw_score=True)
-    within 1e-6."""
+    within 1e-6. (Both cut from 2^20 documents and 4096 rows, so that
+    the whole run stays under 900 s.)"""
     from lightgbm_tpu_torch import sklearn as tsk
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -4676,12 +4712,13 @@ def sklearn_phase(lt, hc, torch, smi, X, y, Xt, yt):
     del ref
     proba = clf.predict_proba(Xt)
     auc = _auc(proba[:, 1], yt)
+    Xs = Xt[:1024]
     t0 = time.perf_counter()
-    contrib = clf.predict(Xt, pred_contrib=True)
+    contrib = clf.predict(Xs, pred_contrib=True)
     contrib_s = time.perf_counter() - t0
-    raw = clf.predict(Xt, raw_score=True)
+    raw = clf.predict(Xs, raw_score=True)
     err = float(np.max(np.abs(contrib.sum(axis=1) - raw)))
-    rx, ry, sizes = _mslr_like(np.random.RandomState(61), N_ROWS)
+    rx, ry, sizes = _mslr_like(np.random.RandomState(61), N_ROWS // 4)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rk = lt.LGBMRanker(n_estimators=2, num_leaves=N_LEAVES, max_bin=255,
@@ -4694,17 +4731,284 @@ def sklearn_phase(lt, hc, torch, smi, X, y, Xt, yt):
           "classifier_fit_s": fit_s, "classes": clf.classes_.tolist(),
           "md5_equal_lt_train": same, "heldout_auc": auc,
           "grow_route": clf.booster_._gbdt.grow_route,
-          "pred_contrib_rows": len(Xt), "pred_contrib_s": contrib_s,
+          "pred_contrib_rows": len(Xs), "pred_contrib_s": contrib_s,
           "pred_contrib_shape": list(contrib.shape),
           "contrib_sum_max_abs_err": err, "ranker_fit_s": rank_s,
           "ranker_rows": len(rx), "ranker_train_metrics": ndcg,
           "nvidia_smi": smi})
     check(same, "LGBMClassifier's model differs from lt.train's")
     check(auc > 0.85, f"LGBMClassifier held-out AUC {auc}")
-    check(contrib.shape == (len(Xt), N_FEAT + 1) and err <= 1e-6,
+    check(contrib.shape == (len(Xs), N_FEAT + 1) and err <= 1e-6,
           f"pred_contrib rows miss their raw scores by {err}")
     check(rk.booster_.current_iteration == 2 and all(
         np.isfinite(v) for v in ndcg.values()), "LGBMRanker did not train")
+
+
+def _run_cli(here, cwd, *commands, timeout=300):
+    """`python -m lightgbm_tpu_torch args...` in `cwd` for each argument
+    list of `commands`, all started together: [(exit code, wall seconds,
+    stdout + stderr)] in order."""
+    env = {**os.environ, "PYTHONPATH": here}
+    env.pop("LIGHTGBM_TPU_FAULT_PLAN", None)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "lightgbm_tpu_torch", *args], cwd=cwd,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for args in commands]
+    out = []
+    for proc in procs:
+        try:
+            log, _ = proc.communicate(timeout=timeout)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        out.append((proc.returncode, time.perf_counter() - t0, log))
+    return out
+
+
+def cli_phase(lt, torch, smi, here, X, y):
+    """The command line on text files (cli.py, data/loader.py, the native
+    parser): see the module docstring's `cli` entry."""
+    import tempfile
+    from lightgbm_tpu_torch import native
+    from lightgbm_tpu_torch.cli import parse_args
+    from lightgbm_tpu_torch.data.loader import load_text_file
+    from lightgbm_tpu_torch.runtime.checkpoint import verify_manifest
+    n_tr, n_va = 1 << 18, 1 << 16
+    with tempfile.TemporaryDirectory(prefix="lgbt_cli_") as d:
+        t0 = time.perf_counter()
+        tr, va = os.path.join(d, "train.tsv"), os.path.join(d, "valid.tsv")
+        np.savetxt(tr, np.column_stack([y[:n_tr], X[:n_tr]]),
+                   delimiter="\t", fmt="%.9g")
+        np.savetxt(va, np.column_stack([y[n_tr:n_tr + n_va],
+                                        X[n_tr:n_tr + n_va]]),
+                   delimiter="\t", fmt="%.9g")
+        write_s = time.perf_counter() - t0
+        # the parsers on the valid file: native, then the Python loop
+        t0 = time.perf_counter()
+        Xv, yv, _, _, _ = load_text_file(va)
+        parse_native_s = time.perf_counter() - t0
+        parser = native.LAST_PARSER
+        os.environ["LIGHTGBM_TPU_DISABLE_NATIVE"] = "1"
+        try:
+            t0 = time.perf_counter()
+            Xp, yp, _, _, _ = load_text_file(va)
+            parse_python_s = time.perf_counter() - t0
+        finally:
+            del os.environ["LIGHTGBM_TPU_DISABLE_NATIVE"]
+        check(parser == "native", f"the {parser} parser ran on the card's "
+                                  "machine, not the native one")
+        check(np.array_equal(Xv, Xp) and np.array_equal(yv, yp),
+              "the native parser's arrays differ from the Python loop's")
+        check(np.array_equal(Xv.astype(np.float32), X[n_tr:n_tr + n_va]),
+              "the text file does not give back the f32 rows")
+        model = os.path.join(d, "model.txt")
+        prof = os.path.join(d, "profile.json")
+        conf = os.path.join(d, "train.conf")
+        with open(conf, "w") as f:
+            f.write("task = train\nobjective = binary\n"
+                    f"data = {tr}\nvalid = {va}\n"
+                    f"num_iterations = 8\nnum_leaves = {N_LEAVES}\n"
+                    "max_bin = 63\nlearning_rate = 0.1\n"
+                    "min_data_in_leaf = 20\nmetric = auc\n"
+                    "snapshot_freq = 4\ndevice_profile = true\n"
+                    f"profile_output = {prof}\noutput_model = {model}\n"
+                    "verbosity = 1\n")
+        [(rc_train, train_s, log)] = _run_cli(here, d, [f"config={conf}"])
+        check(rc_train == 0, f"CLI training exited {rc_train}: {log[-3000:]}")
+        # predict, refit and convert read the model only: side by side
+        pred = os.path.join(d, "pred.tsv")
+        refit = os.path.join(d, "refit.txt")
+        cpp = os.path.join(d, "model.cpp")
+        runs = _run_cli(
+            here, d,
+            ["task=predict", f"data={va}", f"input_model={model}",
+             f"output_result={pred}", "verbosity=-1"],
+            ["task=refit", f"data={tr}", f"input_model={model}",
+             f"output_model={refit}", "verbosity=-1"],
+            ["task=convert_model", f"input_model={model}",
+             f"convert_model={cpp}", "verbosity=-1"])
+        for task, (rc, _, out) in zip(("predict", "refit", "convert"),
+                                      runs):
+            check(rc == 0, f"CLI {task} exited {rc}: {out[-3000:]}")
+        (rc_pred, pred_s, _), (rc_refit, refit_s, _), \
+            (rc_conv, conv_s, _) = runs
+
+        # the same run in process, on load_text_file's arrays
+        params = parse_args([f"config={conf}"])
+        first = []
+
+        def stamp(env):
+            if not first:
+                torch.cuda.synchronize()
+                first.append(time.perf_counter())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Xt, yt, _, _, names = load_text_file(tr)
+        ds = lt.Dataset(Xt, label=yt, feature_name=names)
+        dv = ds.create_valid(Xv, label=yv)
+        bst = lt.train(params, ds, num_boost_round=8, valid_sets=[dv],
+                       valid_names=["valid.tsv"], callbacks=[stamp])
+        file_to_first_round_s = first[0] - t0
+        with open(model) as f:
+            text = f.read()
+        same_model = _md5(text) == _md5(bst.model_to_string())
+        got = np.loadtxt(pred)
+        same_pred = got.shape == (n_va,) and np.array_equal(
+            got, bst.predict(Xv))
+        snaps = {it: verify_manifest(f"{model}.snapshot_iter_{it}.txt")
+                 for it in (4, 8)}
+        with open(prof) as f:
+            profile = json.load(f)
+        with open(refit) as f:
+            refit_trees = f.read().count("Tree=")
+        with open(cpp) as f:
+            cpp_bytes = len(f.read())
+        auc = [v for _, m, v, _ in bst.eval_valid() if m == "auc"]
+    emit({"phase": "cli", "train_rows": n_tr, "valid_rows": n_va,
+          "features": N_FEAT, "reduced": "2^18 training rows of the 2^20 "
+          "(writing a 2^20-row text file costs most of the line's time)",
+          "write_s": write_s, "parse_rows": n_va,
+          "parse_native_s": parse_native_s, "parse_python_s": parse_python_s,
+          "parser": parser, "file_to_first_round_s": file_to_first_round_s,
+          "cli_train_wall_s": train_s, "cli_predict_wall_s": pred_s,
+          "cli_refit_wall_s": refit_s, "cli_convert_wall_s": conv_s,
+          "concurrent": ["predict", "refit", "convert"],
+          "exit_codes": [rc_train, rc_pred, rc_refit, rc_conv],
+          "md5_equal_lt_train": same_model, "prediction_file_equal": same_pred,
+          "snapshot_manifests": {str(k): v[0] for k, v in snaps.items()},
+          "profile_records": len(profile.get("ring", [])),
+          "profile_n_iters": profile.get("n_iters"),
+          "native_parser_in_log": "native parser" in log,
+          "grow_route": bst._gbdt.grow_route,
+          "binning_route": ds._handle.binning_route, "valid_auc": auc,
+          "refit_trees": refit_trees, "cpp_bytes": cpp_bytes,
+          "nvidia_smi": smi})
+    check(same_model, "the CLI's model differs from lt.train's")
+    check(same_pred, "the prediction file differs from Booster.predict")
+    check(all(ok for ok, _ in snaps.values()),
+          f"a snapshot manifest failed: {snaps}")
+    check(profile.get("n_iters") == 8 and len(profile.get("ring", [])) == 8,
+          "the profile does not hold 8 iteration records")
+    check("native parser" in log, "the CLI's log does not name the native "
+                                  "parser")
+    check(refit_trees == 8 and cpp_bytes > 0, "refit or convert wrote no "
+                                              "model")
+
+
+_RESILIENCE_CHILD = """\
+import json, sys
+import numpy as np
+import lightgbm_tpu_torch as lt
+X = np.load(sys.argv[1])
+y = np.load(sys.argv[2])
+params = json.loads(sys.argv[3])
+lt.train(params, lt.Dataset(X, label=y, params=params), 16)
+"""
+
+
+def resilience_phase(lt, torch, smi, here, params, ds, X, y):
+    """Checkpoints, a killed and a corrupted run resumed (runtime/
+    checkpoint.py, runtime/faults.py): see the module docstring's
+    `resilience` entry."""
+    import tempfile
+    from lightgbm_tpu_torch.runtime.checkpoint import (
+        CheckpointManager, capture_trainer_state, load_checkpoint,
+        restore_trainer_state, verify_manifest)
+    p = dict(params, batched_train=True, bagging_fraction=0.8,
+             bagging_freq=1)
+
+    def timed(over, rounds=16):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b = lt.train({**p, **over}, ds, num_boost_round=rounds)
+        torch.cuda.synchronize()
+        return b, (time.perf_counter() - t0) * 1e3 / rounds
+
+    with tempfile.TemporaryDirectory(prefix="lgbt_ckpt_") as d:
+        def ck(name, **kw):
+            return dict(checkpoint_interval=4,
+                        checkpoint_dir=os.path.join(d, name), **kw)
+        plain, plain_ms = timed({})
+        full, full_ms = timed(ck("a"))
+        md5_plain, md5_a = _md5(plain.model_to_string()), _md5(
+            full.model_to_string())
+        veto_a = full._gbdt.batched_veto
+        # one save, timed: the state's capture and its atomic write
+        mgr = CheckpointManager(os.path.join(d, "timed"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = mgr.save(capture_trainer_state(full._gbdt), 16)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        save_bytes = os.path.getsize(path)
+        del plain
+        # (b) a child killed at iteration 10
+        xp, yp = os.path.join(d, "X.npy"), os.path.join(d, "y.npy")
+        np.save(xp, X)
+        np.save(yp, y)
+        child = os.path.join(d, "child.py")
+        with open(child, "w") as f:
+            f.write(_RESILIENCE_CHILD)
+        env = {**os.environ, "PYTHONPATH": here}
+        env.pop("LIGHTGBM_TPU_FAULT_PLAN", None)
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, child, xp, yp,
+             json.dumps({**p, **ck("b", fault_plan="kill@iter=10")})],
+            env=env, capture_output=True, text=True, timeout=600)
+        kill_s = time.perf_counter() - t0
+        left = [it for it, _ in CheckpointManager(
+            os.path.join(d, "b")).checkpoints()]
+        check(r.returncode == 17, f"the killed child exited {r.returncode}:"
+                                  f" {(r.stdout + r.stderr)[-3000:]}")
+        check(left[-1:] == [8], f"the killed run left checkpoints {left}")
+        # resume costs: load the state, restore it into a fresh trainer
+        t0 = time.perf_counter()
+        state = load_checkpoint(os.path.join(d, "b"))
+        load_ms = (time.perf_counter() - t0) * 1e3
+        fresh = lt.Booster(params=p, train_set=ds)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restore_trainer_state(fresh._gbdt, state)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        del fresh, state
+        # (c) resumed from (b)
+        resumed, _ = timed(ck("c", resume_from_checkpoint=os.path.join(
+            d, "b")))
+        md5_c = _md5(resumed.model_to_string())
+        veto_c = resumed._gbdt.batched_veto
+        del resumed
+        # (d) iteration 8's checkpoint corrupted, resumed from 4
+        timed(ck("d", fault_plan="corrupt_snapshot@iter=8"), rounds=10)
+        ok8, why8 = verify_manifest(CheckpointManager(
+            os.path.join(d, "d")).path_for(8))
+        fallback = load_checkpoint(os.path.join(d, "d"))["iteration"]
+        d2, _ = timed(ck("d2", resume_from_checkpoint=os.path.join(d, "d")))
+        md5_d = _md5(d2.model_to_string())
+        del d2, full
+    emit({"phase": "resilience", "rows": N_ROWS, "features": N_FEAT,
+          "leaves": N_LEAVES, "rounds": 16, "checkpoint_interval": 4,
+          "bagging": [0.8, 1], "md5_equal": {
+              "uninterrupted_vs_plain": md5_a == md5_plain,
+              "killed_resumed_vs_uninterrupted": md5_c == md5_a,
+              "corrupt_resumed_vs_uninterrupted": md5_d == md5_a},
+          "batched_veto": [veto_a, veto_c], "kill_exit_code": r.returncode,
+          "kill_child_s": kill_s, "checkpoints_left_by_kill": left,
+          "corrupt_manifest_ok": ok8, "corrupt_reason": why8,
+          "corrupt_fallback_iteration": fallback, "save_ms": save_ms,
+          "save_bytes": save_bytes, "load_ms": load_ms,
+          "restore_ms": restore_ms,
+          "batched_ms_per_round_plain": plain_ms,
+          "batched_ms_per_round_checkpointed": full_ms,
+          "nvidia_smi": smi})
+    check(veto_a == "" and veto_c == "", "a checkpointed run did not batch")
+    check(md5_a == md5_plain, "checkpoints changed the model")
+    check(md5_c == md5_a, "the killed run's resume differs")
+    check(not ok8 and fallback == 4, "the corrupt checkpoint was not "
+                                     "skipped")
+    check(md5_d == md5_a, "the corrupt run's resume differs")
 
 
 def main():
@@ -4951,6 +5255,11 @@ def main():
         hc, torch, dev, [("bench", gbdt.X_t, gbdt.num_bins_padded)]
         + wide[:1] + wide[-1:])
     del wide
+
+    # ---- 20. text files through the command line; checkpoints, resume
+    # and fault plans
+    cli_phase(lt, torch, smi, here, X, y)
+    resilience_phase(lt, torch, smi, here, params, ds, X, y)
 
     src = {"build_histogram_slots": "hist_slots.cu",
            "take_leaf_values": "take_leaf_values.cu",

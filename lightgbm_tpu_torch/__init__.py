@@ -24,16 +24,23 @@ __all__ = [
     "record_evaluation", "record_profile", "register_logger",
     "reset_parameter", "resolve_params", "Sequence", "train",
     "LGBMModel", "LGBMClassifier", "LGBMRegressor", "LGBMRanker",
+    "create_tree_digraph", "plot_importance", "plot_metric", "plot_tree",
 ]
 
 _SKLEARN_NAMES = ("LGBMModel", "LGBMClassifier", "LGBMRegressor",
                   "LGBMRanker")
+_PLOTTING_NAMES = ("create_tree_digraph", "plot_importance", "plot_metric",
+                   "plot_tree")
 
 
 def __getattr__(name):
-    # the scikit-learn estimators load on first use, so importing the
-    # package never imports scikit-learn
+    # the scikit-learn estimators and the plotting functions load on first
+    # use, so importing the package never imports scikit-learn, matplotlib
+    # or graphviz
     if name in _SKLEARN_NAMES:
         from . import sklearn as _sk
         return getattr(_sk, name)
+    if name in _PLOTTING_NAMES:
+        from . import plotting as _pl
+        return getattr(_pl, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -21,12 +21,14 @@ from .config import Config, resolve_params
 from .data.dataset import (BinnedDataset, Metadata, construct_from_matrix,
                            construct_from_sequences, construct_from_sparse,
                            load_binary_file)
+from .data.loader import load_text_file
 from .metrics import Metric, create_metric, default_metric_for_objective
 from .models import create_boosting
 from .models.gbdt import GBDT, _not_ported, check_slice_config
 from .models.linear import fit_linear_models
 from .models.predictor import format_tree_indices, linear_tree_indices
 from .objectives import create_objective
+from .runtime.checkpoint import atomic_write_text
 from .utils import indexable_bins, resolve_device
 from .utils.log import log_fatal, log_warning
 
@@ -124,16 +126,23 @@ class Dataset:
 
     def construct(self) -> "Dataset":
         """Bin the data (JAX basic.py:126-262): a path loads a binary cache
-        (the npz magic) and anything else raises naming A18 (text files);
-        Sequence sources, a scipy sparse matrix, an Arrow table or any
-        2-D array each take their constructor."""
+        (the npz magic) or a text file (CSV / TSV / LibSVM, through the
+        native parser; `header`, `label_column`, `weight_column`,
+        `group_column` and `ignore_column` from the params, the feature
+        names from the header), whose rows are then binned as a matrix;
+        Sequence sources, a scipy sparse matrix, an Arrow table or any 2-D
+        array each take their constructor."""
         if self._handle is not None:
             return self
         cfg = resolve_params(self.params)
         device = resolve_device(cfg.device_type)
         if isinstance(self.data, (str, os.PathLike)):
-            return self._construct_from_path(os.fspath(self.data), cfg,
-                                             device)
+            path = os.fspath(self.data)
+            with open(path, "rb") as f:
+                magic = f.read(4)
+            if magic[:2] == b"PK":
+                return self._construct_from_binary(path, cfg, device)
+            self._load_text(path, cfg)
         seqs = None
         if isinstance(self.data, Sequence):
             seqs = [self.data]
@@ -177,17 +186,37 @@ class Dataset:
             self.data = None
         return self
 
-    def _construct_from_path(self, path: str, cfg: Config,
-                             device) -> "Dataset":
+    def _load_text(self, path: str, cfg: Config) -> None:
+        """A text file's rows become this Dataset's data, and its label,
+        weight, group and header names fill what was not given here (JAX
+        basic.py:169-196)."""
+        if cfg.two_round:
+            # the reference's two_round trades a second file pass for
+            # lower peak memory (dataset_loader.cpp); this loader parses
+            # in one pass with no extra copy, so the flag changes nothing
+            log_warning("two_round is accepted for compatibility; the "
+                        "loader parses in one pass and results are "
+                        "identical")
+        X, y, w, g, names = load_text_file(
+            path, has_header=cfg.header, label_column=cfg.label_column,
+            weight_column=cfg.weight_column, group_column=cfg.group_column,
+            ignore_column=cfg.ignore_column)
+        self.data = X
+        if self.label is None and y is not None:
+            self.label = y
+        if self.weight is None and w is not None:
+            self.weight = w
+        if self.group is None and g is not None:
+            self.group = g
+        if self.feature_name == "auto" and names:
+            self.feature_name = names
+
+    def _construct_from_binary(self, path: str, cfg: Config,
+                               device) -> "Dataset":
         """A binary cache (npz / zip magic) with its own mappers, which a
         `reference` must equal (its raw rows are gone, so they cannot be
         binned again; Dataset::CheckAlign), and the metadata given here
         over the cached (JAX basic.py:131-168)."""
-        with open(path, "rb") as f:
-            magic = f.read(4)
-        if magic[:2] != b"PK":
-            _not_ported("a Dataset from a text file (text-file input and "
-                        "its native loader)", "A18")
         self._handle = load_binary_file(path, cfg, device)
         if self.reference is not None:
             self.reference.construct()
@@ -635,15 +664,9 @@ class Booster:
         `_margin`, from the keyword arguments or else from the booster's
         params, stop a row's walk once its margin clears the bound (host
         walk only), as the JAX package's Booster.predict. Any other
-        keyword raises (the JAX package ignores them). Sparse and Arrow
-        rows are densified."""
-        unknown = sorted(set(kwargs) - set(_EARLY_STOP_KEYS))
-        if unknown:
-            # the reference's other keywords (validate_features,
-            # data_has_header, ...) belong to its file-input surface
-            raise NotImplementedError(
-                f"Booster.predict keyword(s) {unknown} are not ported to "
-                "lightgbm_tpu_torch yet (ROADMAP item A18)")
+        keyword (the reference's validate_features, data_has_header, ...)
+        is accepted and ignored, as the JAX package does (basic.py:
+        795-815). Sparse and Arrow rows are densified."""
         ni = num_iteration if num_iteration is not None else (
             self.best_iteration if self.best_iteration > 0 else -1)
         if pred_leaf:
@@ -766,12 +789,12 @@ class Booster:
     def save_model(self, filename: str, num_iteration: Optional[int] = None,
                    start_iteration: int = 0,
                    importance_type: str = "split") -> "Booster":
-        # write-temp -> rename: a concurrent reader never sees half a file
-        tmp = f"{filename}.tmp.{os.getpid()}"
-        with open(tmp, "w") as f:
-            f.write(self.model_to_string(num_iteration, start_iteration,
-                                         importance_type))
-        os.replace(tmp, filename)
+        # atomic (write-temp -> fsync -> rename): a concurrent reader, a
+        # snapshot watcher above all, never sees half a model file
+        atomic_write_text(filename,
+                          self.model_to_string(num_iteration,
+                                               start_iteration,
+                                               importance_type))
         return self
 
     def model_to_string(self, num_iteration: Optional[int] = None,

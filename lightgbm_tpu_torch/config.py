@@ -877,7 +877,9 @@ def _coerce(name: str, value: Any) -> Any:
             value = [value]
         if name in ("monotone_constraints", "max_bin_by_feature", "eval_at"):
             return [int(v) for v in value]
-        if name == "metric":
+        if name in ("metric", "valid"):
+            # valid files are paths (the JAX package's _coerce takes them
+            # for floats and fails; ROADMAP C note 19)
             return [str(v) for v in value]
         return [float(v) for v in value]
     default = f.default if f.default is not dataclasses.MISSING else None

@@ -7,7 +7,8 @@ frequency, and three missing-value modes (None / Zero / NaN).
 
 The hot sequential loops here run on host over *sampled* values only
 (bin_construct_sample_cnt rows); the full-data value->bin push is vectorized
-NumPy.
+NumPy, or the native OpenMP loop (native/loader.cpp) for columns of 65536
+values and more, bitwise the same bins.
 """
 
 from __future__ import annotations
@@ -377,8 +378,31 @@ class BinMapper:
             hit = keys[pos] == iv
             out = np.where(hit, vals[pos], 0).astype(np.int32)
             return out
+        bins = self._native_value_to_bin(values)
+        if bins is not None:
+            return bins
         return numeric_value_to_bin(values, self.bin_upper_bound,
                                     self.missing_type)
+
+    def _native_value_to_bin(self, values: np.ndarray):
+        """The OpenMP value->bin of native/loader.cpp for large numeric
+        columns (JAX binning.py:389-418; the ingestion-side ValueToBin
+        loop, bin.h:613), bitwise `numeric_value_to_bin`; None, for the
+        NumPy path, under 65536 values, past 256 bins or without the
+        library."""
+        if len(values) < 65536 or self.num_bin > 256:
+            return None
+        from .. import native
+        if self.missing_type == MISSING_NAN:
+            ub = self.bin_upper_bound[:-1]
+            nan_bin = self.num_bin - 1
+        else:
+            ub = self.bin_upper_bound
+            # NaN takes the bin of 0.0 (the NumPy path's where(nan, 0.0, v))
+            nan_bin = int(min(np.searchsorted(ub, 0.0, side="left"),
+                              self.num_bin - 1))
+        out = native.value_to_bin(values, ub, nan_bin)
+        return None if out is None else out.astype(np.int32)
 
     def bin_to_value(self, bin_idx: int) -> float:
         """Real-valued threshold for a bin (the model file stores bin upper

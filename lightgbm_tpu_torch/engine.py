@@ -11,8 +11,13 @@ one is given, then each iteration runs the before-iteration callbacks
 (reset_parameter), updates the booster (on `fobj`'s gradients when
 given), evaluates the training set where it is also a valid set and the
 valid sets (with `feval`), then runs the other callbacks; early stopping
-ends the loop. cv() trains one booster a fold in lockstep and reports
-each metric's mean and standard deviation over the folds every round.
+ends the loop. Both paths save a checkpoint every `checkpoint_interval`
+of the booster's iterations into `checkpoint_dir`, and
+`resume_from_checkpoint` (a checkpoint or its directory) starts a run at
+its save point, so a run killed and resumed writes the same model bytes
+as one never interrupted (runtime/checkpoint.py). cv() trains one
+booster a fold in lockstep and reports each metric's mean and standard
+deviation over the folds every round.
 """
 
 from __future__ import annotations
@@ -26,7 +31,11 @@ import numpy as np
 from .basic import Booster, Dataset, _to_2d_numpy
 from .callback import CallbackEnv, EarlyStopException, early_stopping
 from .config import resolve_params
-from .utils.log import log_warning
+from .runtime.autotune import pinned_decision
+from .runtime.checkpoint import (CheckpointManager, capture_trainer_state,
+                                 load_checkpoint, restore_trainer_state)
+from .runtime.faults import active_plan
+from .utils.log import log_info, log_warning
 
 
 def train(
@@ -54,7 +63,13 @@ def train(
     if cfg.objective in ("none", "custom") and fobj is None:
         log_warning("Using custom objective requires fobj")
 
-    booster = Booster(params=params, train_set=train_set)
+    # resilience (JAX engine.py:77-101): the state is read first, so the
+    # trainer is built on the checkpoint's autotune decision, unprobed
+    state = None
+    if cfg.resume_from_checkpoint:
+        state = load_checkpoint(cfg.resume_from_checkpoint)
+    with pinned_decision(state and state.get("autotune_decision")):
+        booster = Booster(params=params, train_set=train_set)
     if init_model is not None:
         booster._gbdt.load_init_model(
             init_model._gbdt if isinstance(init_model, Booster)
@@ -83,18 +98,38 @@ def train(
                     if not getattr(cb, "before_iteration", False)),
                    key=lambda cb: getattr(cb, "order", 0))
 
-    if _try_batched_train(booster, cfg, params, num_boost_round, before,
-                          after, fobj, feval, valid_contain_train):
+    ckpt = None
+    if cfg.checkpoint_interval > 0:
+        ckpt = CheckpointManager(cfg.checkpoint_dir,
+                                 retention=cfg.checkpoint_retention,
+                                 fault_plan=active_plan(cfg.fault_plan))
+    begin = 0
+    if state is not None:
+        restore_trainer_state(booster._gbdt, state)
+        if int(state.get("best_iteration", -1)) > 0:
+            booster.best_iteration = int(state["best_iteration"])
+        begin = booster._gbdt.iter
+        if begin >= num_boost_round:
+            log_info(f"checkpoint already holds {begin} iterations "
+                     f">= num_boost_round={num_boost_round}; nothing to do")
+
+    if _try_batched_train(booster, cfg, params, num_boost_round, begin,
+                          before, after, fobj, feval, valid_contain_train,
+                          ckpt):
         if booster.best_iteration <= 0:
             booster.best_iteration = booster.current_iteration
         return booster
 
-    for it in range(num_boost_round):
+    for it in range(begin, num_boost_round):
         for cb in before:
             cb(CallbackEnv(model=booster, params=params, iteration=it,
-                           begin_iteration=0, end_iteration=num_boost_round,
+                           begin_iteration=begin,
+                           end_iteration=num_boost_round,
                            evaluation_result_list=None))
         finished = booster.update(fobj=fobj)
+        if ckpt is not None \
+                and booster._gbdt.iter % cfg.checkpoint_interval == 0:
+            _save(ckpt, booster)
         evals = []
         if valid_contain_train:
             evals.extend((train_data_name, m, v, h)
@@ -104,7 +139,7 @@ def train(
         try:
             for cb in after:
                 cb(CallbackEnv(model=booster, params=params, iteration=it,
-                               begin_iteration=0,
+                               begin_iteration=begin,
                                end_iteration=num_boost_round,
                                evaluation_result_list=evals))
         except EarlyStopException as e:
@@ -119,52 +154,68 @@ def train(
     return booster
 
 
+def _save(ckpt: CheckpointManager, booster: Booster) -> None:
+    """Checkpoint the booster at its current iteration."""
+    ckpt.save(capture_trainer_state(booster._gbdt,
+                                    best_iteration=booster.best_iteration),
+              booster._gbdt.iter)
+
+
 def _try_batched_train(booster: Booster, cfg, params: Dict[str, Any],
-                       num_boost_round: int, before: List[Callable],
-                       after: List[Callable], fobj, feval,
-                       valid_contain_train: bool) -> bool:
-    """Train in chunks with callback replay (JAX engine.py:158-278).
-    Each chunk's valid metrics come back as one [n, M] read; the
-    callbacks then run row by row from them, early stopping included: its
-    stop is exact in retrospect (a later tree never changes an earlier
-    iteration's metrics), and the trees past it are cut. Returns False,
-    training nothing, where the per-iteration loop must run: fobj / feval,
-    before-iteration callbacks (reset_parameter), a callback without
-    `batched_replay`, the training set as a valid set, a metric with no
-    device form, or a `can_batch_iters` veto (gbdt.batched_veto)."""
+                       num_boost_round: int, begin: int,
+                       before: List[Callable], after: List[Callable], fobj,
+                       feval, valid_contain_train: bool,
+                       ckpt: Optional[CheckpointManager]) -> bool:
+    """Train iterations begin..num_boost_round in chunks with callback
+    replay (JAX engine.py:158-278). Each chunk's valid metrics come back
+    as one [n, M] read; the callbacks then run row by row from them, early
+    stopping included: its stop is exact in retrospect (a later tree never
+    changes an earlier iteration's metrics), and the trees past it are
+    cut. Chunks end at multiples of the checkpoint interval in the
+    booster's own iterations, so each save point closes a chunk and
+    captures the per-iteration loop's state; a resumed run's chunks end
+    where the uninterrupted run's did. Returns False, training nothing,
+    where the per-iteration loop must run: fobj / feval, before-iteration
+    callbacks (reset_parameter), a callback without `batched_replay`, the
+    training set as a valid set, a metric with no device form, or a
+    `can_batch_iters` veto (gbdt.batched_veto)."""
     gbdt = booster._gbdt
     if fobj is not None or feval is not None or valid_contain_train:
         return False
     if before or any(not getattr(cb, "batched_replay", False)
                      for cb in after):
         return False
-    if num_boost_round <= 0:
+    if begin >= num_boost_round:
         return False
     chunk = max(int(cfg.batched_chunk_size), 1)
+    interval = cfg.checkpoint_interval if ckpt is not None else 0
     # a resample that the chunk cannot draw on the device cuts the
     # chunks at its period: a chunk start resamples as update() would
     strat = gbdt.sample_strategy
     host_period = (strat.resample_period()
                    if gbdt._batched_sampling_mode() == "host" else 0)
 
-    begin = gbdt.iter      # the iterations of an init_model come first
+    # the booster's iteration at loop iteration `it` is base + it: an
+    # init_model's iterations come first; a resumed run starts at
+    # begin = gbdt.iter
+    base = gbdt.iter - begin
 
     def boundary(it: int) -> int:
         b = min(it + chunk, num_boost_round)
-        if host_period > 0:
-            b = min(b, ((begin + it) // host_period + 1) * host_period
-                    - begin)
+        for period in (interval, host_period):
+            if period > 0:
+                b = min(b, ((base + it) // period + 1) * period - base)
         return b
 
     # the first chunk's verdict holds for every later one, cut the same
-    if not gbdt.can_batch_iters(boundary(0)):
+    if not gbdt.can_batch_iters(boundary(begin) - begin):
         return False
     layout = gbdt.batched_eval_layout() if booster.name_valid_sets else []
     if layout is None:
         return False
     gbdt.start_drain()
     try:
-        it, chunks = 0, 0
+        it, chunks = begin, 0
         while it < num_boost_round:
             end = boundary(it)
             mvals = gbdt.train_iters_batched(end - it, n_pad=chunk)
@@ -172,6 +223,11 @@ def _try_batched_train(booster: Booster, cfg, params: Dict[str, Any],
             rows = (mvals.cpu().numpy() if mvals is not None and after
                     else None)
             for j in range(it, end):
+                if interval > 0 and (base + j + 1) % interval == 0:
+                    # only the chunk's end can be a save point, where
+                    # gbdt.iter == base + j + 1: the per-iteration loop
+                    # saves after update(j), before callbacks(j)
+                    _save(ckpt, booster)
                 evals = []
                 if rows is not None:
                     evals = [(name, mname, float(rows[j - it][c]), hib)
@@ -179,7 +235,7 @@ def _try_batched_train(booster: Booster, cfg, params: Dict[str, Any],
                 try:
                     for cb in after:
                         cb(CallbackEnv(model=booster, params=params,
-                                       iteration=j, begin_iteration=0,
+                                       iteration=j, begin_iteration=begin,
                                        end_iteration=num_boost_round,
                                        evaluation_result_list=evals))
                 except EarlyStopException as e:
@@ -187,7 +243,7 @@ def _try_batched_train(booster: Booster, cfg, params: Dict[str, Any],
                     for ds, metric, value, _ in e.best_score:
                         booster.best_score.setdefault(ds, {})[metric] = \
                             value
-                    gbdt.truncate_to_iteration(begin + j + 1)
+                    gbdt.truncate_to_iteration(base + j + 1)
                     return True
             it = end
             # the amortized stop check (one read) at power-of-two chunk

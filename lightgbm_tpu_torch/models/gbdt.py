@@ -29,8 +29,10 @@ the device), valid sets added at any time, iterations on caller-given
 gradients (`train_one_iter(grad, hess)`) and `rollback_one_iter`; random
 forests (models/rf.py) and DART (models/dart.py) subclass it. The runtime
 (runtime/): device_profile's stage spans, batched chunks' records and
-init-time extras (`profiler`), and autotune's probes of the grower and
-the histogram route at init (`autotune_decision`). Everything else raises
+init-time extras (`profiler`), autotune's probes of the grower and the
+histogram route at init (`autotune_decision`), and the fault plan's
+hooks and the step watchdog (`faults`, `_grow_step`; engine.train
+checkpoints and resumes through `checkpoint`). Everything else raises
 NotImplementedError naming the ROADMAP item that ports it. Prediction
 covers every tree the JAX package writes except linear leaves on the
 device routes.
@@ -112,11 +114,6 @@ def check_slice_config(cfg: Config) -> None:
         # #2, #3, #5 and #10 stage the leaf tables in shared memory
         _not_ported(f"num_leaves > {MAX_LEAVES} (the kernels' "
                     f"{MAX_LEAVES}-entry leaf tables)", "A11, the leaf cap")
-    if cfg.checkpoint_interval > 0 or cfg.checkpoint_dir \
-            or cfg.resume_from_checkpoint or cfg.fault_plan:
-        _not_ported("checkpoints, resume and fault plans "
-                    "(checkpoint_interval / checkpoint_dir / "
-                    "resume_from_checkpoint / fault_plan)", "A17")
 
 
 def _parse_interaction_constraints(spec) -> List[List[int]]:
@@ -286,6 +283,11 @@ class GBDT:
         # the decision of autotune
         self.profiler = None
         self.autotune_decision: Optional[Dict] = None
+        # resilience (runtime/faults.py): the fault plan (None, the
+        # default, costs one `is None` check an iteration) and the step
+        # watchdog's count of collective failures
+        self._fault_plan = None
+        self._collective_failures = 0
         if train_set is not None:
             self._init_train(train_set)
 
@@ -294,6 +296,8 @@ class GBDT:
         cfg = self.config
         check_slice_config(cfg)
         self.device = resolve_device(cfg.device_type)
+        from ..runtime.faults import active_plan
+        self._fault_plan = active_plan(cfg.fault_plan)
         if cfg.device_profile:
             from ..runtime.profiler import StageProfiler
             self.profiler = StageProfiler(device=self.device)
@@ -396,34 +400,7 @@ class GBDT:
         # autotune=true: the probes may change the grower and the
         # histogram_impl, before anything that follows from them is made
         self._autotune(ds, bundled, max_bin)
-        hist_impl = self.grow_cfg.hist_impl
-        # the route every tree of this run takes (recorded, so a run can
-        # show it against the kernels' launch counts): "fused",
-        # "fused_tiled", "mega" or "apply" for the wave grower, the serial
-        # grower's name otherwise, and the histogram route; under
-        # histogram_impl=fused, why a fused kernel does not run (empty when
-        # one does; the profile extras entry of gbdt.py:674-687)
-        if self.grower in ("masked", "compact"):
-            self.grow_route = self.grower
-            self.hist_route = serial_hist_route(self.grow_cfg,
-                                                self.X_t.shape[0])
-        else:
-            self.grow_route, self.hist_route = wave_routes(
-                self.grow_cfg, self.X_t.shape[0])
-        self.fused_veto_reasons = (
-            fused_veto_reasons(self.grow_cfg)
-            if hist_impl == "fused" and self.grower in ("wave", "wave_exact")
-            else [])
-        if self.fused_veto_reasons:
-            log_warning("histogram_impl=fused: the fused kernels are "
-                        f"vetoed ({', '.join(self.fused_veto_reasons)}); "
-                        f"route {self.grow_route}")
-        # the row-wise layouts' plan (and the nibble pack) is made once
-        self.hist_plan = make_hist_plan(self.X_t, self.hist_route,
-                                        hist_tiers)
-        log_info(f"grower {self.grower}, route: {self.grow_route} "
-                 f"(histogram: {self.hist_route}, {self.X_t.shape[0]} "
-                 f"storage columns, B={B})")
+        self._set_routes()
         if self.profiler is not None:
             self._profile_init()
 
@@ -449,6 +426,37 @@ class GBDT:
             self.objective.init(md, N)
         for m in self.training_metrics:
             m.init(md, N)
+
+    def _set_routes(self) -> None:
+        """The route every tree of this run takes, from the grower and
+        grow_cfg (recorded, so a run can show it against the kernels'
+        launch counts): "fused", "fused_tiled", "mega" or "apply" for the
+        wave grower, the serial grower's name otherwise, and the histogram
+        route; under histogram_impl=fused, why a fused kernel does not run
+        (empty when one does; the profile extras entry of gbdt.py:
+        674-687); and the row-wise layouts' plan (and the nibble pack),
+        made once. A resumed run calls it again for its pinned grower and
+        histogram_impl (runtime/checkpoint.py)."""
+        if self.grower in ("masked", "compact"):
+            self.grow_route = self.grower
+            self.hist_route = serial_hist_route(self.grow_cfg,
+                                                self.X_t.shape[0])
+        else:
+            self.grow_route, self.hist_route = wave_routes(
+                self.grow_cfg, self.X_t.shape[0])
+        self.fused_veto_reasons = (
+            fused_veto_reasons(self.grow_cfg)
+            if self.grow_cfg.hist_impl == "fused"
+            and self.grower in ("wave", "wave_exact") else [])
+        if self.fused_veto_reasons:
+            log_warning("histogram_impl=fused: the fused kernels are "
+                        f"vetoed ({', '.join(self.fused_veto_reasons)}); "
+                        f"route {self.grow_route}")
+        self.hist_plan = make_hist_plan(self.X_t, self.hist_route,
+                                        self.grow_cfg.hist_tiers)
+        log_info(f"grower {self.grower}, route: {self.grow_route} "
+                 f"(histogram: {self.hist_route}, {self.X_t.shape[0]} "
+                 f"storage columns, B={self.num_bins_padded})")
 
     def _select_grower(self, ds: BinnedDataset, bundled: bool) -> None:
         """The grower (gbdt.py:404-469): a forced tpu_grower passes through;
@@ -589,17 +597,23 @@ class GBDT:
                 "(forced tpu_grower, distributed/linear mode, or a feature "
                 "only the wave grower implements)")
             return
-        from ..runtime.autotune import COL_WISE_HIST_IMPLS, autotune_decision
+        from ..runtime.autotune import (COL_WISE_HIST_IMPLS,
+                                        autotune_decision, current_pin)
         cands = ["wave"] if bundled else list(self._grower_feasible)
-        with self._prof_span("autotune"):
-            decision = autotune_decision(
-                self.X_t, self.meta, self.grow_cfg, cands,
-                n_rows=self.num_data, n_features=len(ds.mappers),
-                max_bin=max_bin, num_leaves=cfg.num_leaves,
-                rows_per_chunk=cfg.tpu_rows_per_block * 8,
-                cache_path=cfg.autotune_cache, seed=int(cfg.seed or 0),
-                hist_impl_candidates=(COL_WISE_HIST_IMPLS
-                                      if cfg.force_col_wise else None))
+        pinned = current_pin()
+        if pinned:
+            # a resumed run takes its checkpoint's decision, unprobed
+            decision = dict(pinned, cached="checkpoint")
+        else:
+            with self._prof_span("autotune"):
+                decision = autotune_decision(
+                    self.X_t, self.meta, self.grow_cfg, cands,
+                    n_rows=self.num_data, n_features=len(ds.mappers),
+                    max_bin=max_bin, num_leaves=cfg.num_leaves,
+                    rows_per_chunk=cfg.tpu_rows_per_block * 8,
+                    cache_path=cfg.autotune_cache, seed=int(cfg.seed or 0),
+                    hist_impl_candidates=(COL_WISE_HIST_IMPLS
+                                          if cfg.force_col_wise else None))
         self.autotune_decision = decision
         if decision.get("grower") in cands:
             if decision["grower"] != self.grower:
@@ -863,6 +877,8 @@ class GBDT:
         iteration is one ring record with the JAX package's spans, "boost",
         "bagging" (where the mask is drawn), "grow" and "score-update" a
         tree, and after the first iteration the stage probe."""
+        if self._fault_plan is not None:
+            self._fault_plan.at_iteration(self.iter)
         K = self.num_tree_per_iteration
         prof = self.profiler
         if prof is not None:
@@ -886,9 +902,9 @@ class GBDT:
         for k in range(K):
             with global_timer.section("GBDT::TrainOneIter/grow"), \
                     self._prof_span("grow"):
-                tree, leaf_of_row = self.grow_one(
+                tree, leaf_of_row = self._grow_step(
                     g[k], h[k], self._in_bag, feat_mask,
-                    self.tree_seed(self.iter, k), cegb_used=self._cegb_used)
+                    self.tree_seed(self.iter, k))
             if self._cegb_used is not None and tree.num_leaves > 1:
                 # the features this tree split on are paid for: later trees,
                 # the round's next class included, use them freely
@@ -936,6 +952,51 @@ class GBDT:
         if (it & (it - 1)) == 0 or it % self._stop_check_interval == 0:
             self._stopped = self._check_stopped()
         return self._stopped
+
+    # ------------------------------------------------------------------
+    # resilience: the step watchdog (JAX gbdt.py:1567-1610)
+    # ------------------------------------------------------------------
+    def _grow_step(self, g: torch.Tensor, h: torch.Tensor,
+                   in_bag: torch.Tensor, feat_mask: Optional[torch.Tensor],
+                   seed: int) -> Tuple[DeviceTree, torch.Tensor]:
+        """One tree under the step watchdog: a failed grow step is retried
+        up to step_max_retries times with exponential backoff, else
+        raised. A tree is a pure function of its inputs, so a retry cannot
+        change the model. A collective failure (fault plan
+        `fail_collective`) is counted; the JAX package's degrade of the
+        histogram exchange after two of them needs a mesh, so on one card
+        it is retried like any failure, as in the JAX package's serial
+        run (the degrade comes with A16)."""
+        retries = int(self.config.step_max_retries)
+        if self._fault_plan is None and retries == 0:
+            return self.grow_one(g, h, in_bag, feat_mask, seed,
+                                 cegb_used=self._cegb_used)
+        from ..runtime.faults import is_collective_error
+        attempt = 0
+        while True:
+            try:
+                if self._fault_plan is not None:
+                    self._fault_plan.maybe_fail_collective(self.iter)
+                return self.grow_one(g, h, in_bag, feat_mask, seed,
+                                     cegb_used=self._cegb_used)
+            except Exception as e:
+                if is_collective_error(e):
+                    self._collective_failures += 1
+                    log_warning(
+                        f"histogram-exchange failure "
+                        f"#{self._collective_failures} at iteration "
+                        f"{self.iter}: {e}")
+                attempt += 1
+                if attempt > retries:
+                    raise
+                backoff = self.config.step_retry_backoff_s \
+                    * (2 ** (attempt - 1))
+                log_warning(
+                    f"grow step failed at iteration {self.iter} (attempt "
+                    f"{attempt}/{retries}): {e}; retrying in "
+                    f"{backoff:.3f}s")
+                if backoff > 0:
+                    time.sleep(backoff)
 
     # ------------------------------------------------------------------
     # batched training: chunks of iterations with no host round trip per
@@ -994,6 +1055,9 @@ class GBDT:
             return "leaf renewal (objective)"
         if self._cegb_used is not None:
             return "CEGB"
+        if self._fault_plan is not None:
+            # its kill / raise / collective hooks fire in train_one_iter
+            return "fault_plan"
         strat = self.sample_strategy
         if self._batched_sampling_mode() == "host":
             if strat.needs_grad:

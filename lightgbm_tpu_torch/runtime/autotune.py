@@ -47,6 +47,8 @@ propagates.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import json
 import os
 import time
@@ -75,6 +77,25 @@ COL_WISE_HIST_IMPLS = ("tiered_hilo", "tiered", "legacy")
 
 # in-process decision cache: key -> decision dict
 _MEM_CACHE: Dict[str, Dict[str, Any]] = {}
+
+# the decision a resumed run carries (runtime/checkpoint.py): a trainer
+# built inside `pinned_decision` takes it instead of probing
+_PINNED: contextvars.ContextVar = contextvars.ContextVar(
+    "lightgbm_tpu_torch_autotune_pinned", default=None)
+
+
+@contextlib.contextmanager
+def pinned_decision(decision: Optional[Dict[str, Any]]):
+    """Trainers built inside take `decision` (None: probe as usual)."""
+    token = _PINNED.set(decision)
+    try:
+        yield
+    finally:
+        _PINNED.reset(token)
+
+
+def current_pin() -> Optional[Dict[str, Any]]:
+    return _PINNED.get()
 
 
 def _device(device: Optional[torch.device]) -> torch.device:

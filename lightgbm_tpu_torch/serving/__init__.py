@@ -7,8 +7,8 @@
  * registry.py  ModelRegistry: named sessions, atomic hot-swap
  * metrics.py   ServingMetrics: QPS / p50 / p99 / occupancy / hit rate
 
-The admission layer, the circuit breaker, the fleet and snapshot watching
-are ROADMAP items A17/A18.
+The admission layer, the circuit breaker with the serving fault hooks,
+the fleet and snapshot watching are ROADMAP item A18(b).
 """
 
 from .batcher import MicroBatcher, QueueFullError, RequestTimeout

@@ -1,7 +1,8 @@
 """Dynamic micro-batching: coalesce concurrent small requests.
 
 Counterpart of lightgbm_tpu/serving/batcher.py (without its fault-plan
-hooks, ROADMAP item A17).
+hook `wedge_worker`, which comes with the circuit breaker, ROADMAP item
+A18(b)).
 
 Single-row latency on an accelerator is dominated by fixed dispatch cost, so
 concurrent batch-1 requests are coalesced into one padded-bucket scoring call
@@ -15,7 +16,8 @@ Back-pressure and failure semantics:
  * queue depth is bounded — ``submit`` raises :class:`QueueFullError`
    immediately when the queue is at ``queue_depth`` requests (fail fast
    rather than building an unbounded latency backlog); the admission
-   layer's shedding policies and health accessors are ROADMAP item A18;
+   layer's shedding policies and health accessors are ROADMAP item
+   A18(b);
  * a request may carry an ABSOLUTE deadline (``submit(deadline=...)``,
    ``time.perf_counter`` domain). Deadlines propagate into batch
    assembly: ``_gather`` fails already-expired requests immediately
@@ -84,8 +86,9 @@ class MicroBatcher:
                  metrics=None, fault_plan=None) -> None:
         if fault_plan is not None:
             raise NotImplementedError(
-                "serving fault plans are not ported to lightgbm_tpu_torch "
-                "yet (ROADMAP item A17)")
+                "serving fault plans (the batcher's wedge_worker hook) are "
+                "not ported to lightgbm_tpu_torch yet (ROADMAP item "
+                "A18(b), with the circuit breaker)")
         self.predict_fn = predict_fn
         self.max_batch = max(int(max_batch), 1)
         self.max_wait_s = max(float(max_wait_ms), 0.0) / 1e3

@@ -7,7 +7,7 @@ registry lock, so in-flight requests keep scoring against the old
 session's arrays (Python references keep them alive) and a hot-swap never
 drops a request. Sessions share one :class:`~.metrics.ServingMetrics`, so
 counters and latency reservoirs survive swaps. Snapshot watching (with its
-validation and backoff) waits for ROADMAP items A17/A18.
+validation and backoff) waits for ROADMAP item A18(b).
 """
 
 from __future__ import annotations
@@ -117,4 +117,4 @@ class ModelRegistry:
         ``<model_prefix>.snapshot_iter_<k>`` files)."""
         raise NotImplementedError(
             "snapshot watching is not ported to lightgbm_tpu_torch yet "
-            "(ROADMAP items A17/A18)")
+            "(ROADMAP item A18(b))")

@@ -121,8 +121,8 @@ class ServingSession:
         if num_shards > 1:
             _not_ported("sharded serving (num_shards > 1)", "A16")
         if breaker is not None or fault_plan is not None:
-            _not_ported("the serving circuit breaker and fault plans",
-                        "A17/A18")
+            _not_ported("the serving circuit breaker and its fault hooks "
+                        "(slow_score, fail_score)", "A18(b)")
         self.profiler = profiler
         self.gbdt = gbdt
         self.version = int(version)
@@ -192,7 +192,7 @@ class ServingSession:
         if engine not in ("auto", "host", "device", "binned", "compiled"):
             raise ValueError(f"unknown serving engine {engine!r}")
         if engine == "compiled":
-            _not_ported("the compiled (exported) serving engine", "A18")
+            _not_ported("the compiled (exported) serving engine", "A18(b)")
         if engine == "host":
             return "host"
         if engine == "binned":

@@ -9,8 +9,8 @@ export of a model, against the JAX package on the CPU.
     raw predictions of the same input within 1e-6 of JAX's;
   * the binary cache: a round trip in the port, and caches written by
     either package loaded by the other; a reference with other mappers is
-    fatal with JAX's message; a path that is not a cache raises naming
-    ROADMAP item A18 (text files);
+    fatal with JAX's message (a path that is not a cache is a text file:
+    tests/test_torch_loader.py);
   * Booster.dump_model_to_cpp byte for byte the JAX package's for the same
     model text (None, Zero and NaN missing types, categorical bitsets),
     and its fatal for linear trees.
@@ -241,13 +241,6 @@ def test_binary_cache_with_its_reference_loads(tmp_path):
                      params=TORCH).construct()._handle
     assert got.reference is src._handle
     _assert_same_bins(src._handle, got)
-
-
-def test_text_path_raises_naming_a18(tmp_path):
-    path = tmp_path / "train.csv"
-    np.savetxt(path, np.column_stack([Y, np.nan_to_num(X)]), delimiter=",")
-    with pytest.raises(NotImplementedError, match="ROADMAP item A18"):
-        lt.Dataset(str(path), params=TORCH).construct()
 
 
 # ---------------------------------------------------------------------------

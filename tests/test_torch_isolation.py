@@ -62,10 +62,20 @@ def test_import_leaves_jax_unloaded():
             "import lightgbm_tpu_torch.runtime.autotune\n"
             "import lightgbm_tpu_torch.models.shap\n"
             "import lightgbm_tpu_torch.sklearn\n"
+            "import lightgbm_tpu_torch.cli, lightgbm_tpu_torch.plotting\n"
+            "import lightgbm_tpu_torch.native\n"
+            "import lightgbm_tpu_torch.data.loader\n"
+            "import lightgbm_tpu_torch.runtime.checkpoint\n"
+            "import lightgbm_tpu_torch.runtime.faults\n"
             "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', "
             "'lightgbm_tpu') or m.startswith(('jax.', 'jaxlib.', "
             "'lightgbm_tpu.'))]\n"
-            "assert not bad, bad\n")
+            "assert not bad, bad\n"
+            "# plotting loads matplotlib and graphviz on first use\n"
+            "assert callable(lightgbm_tpu_torch.plot_importance)\n"
+            "late = [m for m in ('matplotlib', 'graphviz') "
+            "if m in sys.modules]\n"
+            "assert not late, late\n")
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
     r = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), env=env,
                        capture_output=True, text=True, timeout=120)

@@ -247,5 +247,7 @@ def test_pred_leaf_matches_jax(models):
     np.testing.assert_array_equal(
         bst.predict(q64[:8], pred_contrib=True).reshape(8, K, F + 1)[..., :F],
         jbst.predict(q64[:8], pred_contrib=True).reshape(8, K, F + 1)[..., :F])
-    with pytest.raises(NotImplementedError, match="ROADMAP item A18"):
-        bst.predict(q64, validate_features=True)
+    # the reference's other keywords are accepted and ignored, as in the
+    # JAX package
+    np.testing.assert_array_equal(bst.predict(q64, validate_features=True),
+                                  bst.predict(q64))

@@ -206,11 +206,6 @@ def test_valid_sets_early_stopping_and_logging(data):
     ({"tree_learner": "voting", "tpu_grower": "masked"}, "A16"),
     ({"tree_learner": "voting"}, "A16"),
     ({"num_leaves": 4097}, "A11, the leaf cap"),
-    ({"fault_plan": "kill@iter=5", "tpu_grower": "wave_exact"}, "A17"),
-    ({"checkpoint_interval": 2, "checkpoint_dir": "ckpt"}, "A17"),
-    ({"checkpoint_dir": "ckpt"}, "A17"),
-    ({"resume_from_checkpoint": "/nonexistent"}, "A17"),
-    ({"fault_plan": "kill@iter=2"}, "A17"),
 ])
 def test_configurations_outside_the_slice_raise(data, over, item):
     X, y = data
