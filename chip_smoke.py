@@ -362,8 +362,13 @@ Phases, each printing one JSON line:
                      config=train.conf` on the card, 8 rounds, metric=auc,
                      snapshot_freq=4, device_profile with profile_output;
                      then task=predict on the valid file, task=refit and
-                     task=convert_model (cpp), these three side by side
-                     (each reads the model only): every exit code 0, the
+                     task=convert_model (cpp) and task=serve with its
+                     defaults (the device engine behind the default
+                     breaker, the valid file through the micro-batcher),
+                     these four side by side (each reads the model only):
+                     every exit code 0, the serve file within 1e-6 of
+                     Booster.predict with no host fallback and the breaker
+                     closed in its metrics file, the
                      model file md5-equal to an in-process lt.train with
                      the same params on load_text_file's arrays, the
                      prediction file equal to Booster.predict of the same
@@ -385,8 +390,26 @@ Phases, each printing one JSON line:
                      state, batched ms a round with and without
                      checkpoints
 
+ 21. past the leaf cap (after the batched lines):
+     leaf_cap_kernels  #2, #3, #4, #5, #9 and #10 (their global leaf
+                     maps) on a mid-tree wave of 2^20 rows whose leaf ids
+                     are spread over [0, L), L = 8192 and 131072:
+                     bitwise against their plain versions on grid values
+                     and against the same wave under L = 255 (the shared
+                     maps), timed beside it (`ms_255`)
+     leaf_cap        bench at 16384 leaves on the wave grower, 2 rounds
+                     per iteration and batched (md5 equal, more than 4096
+                     leaves a tree); Criteo at 8192 on apply and bench at
+                     8192 under fused, 1 round each; every first tree
+                     equal to the plain versions'
+
+ 22. overload (last): bench.py's model behind the registry, batcher,
+     admission and breaker with fail_score / slow_score / wedge_worker
+     and the HTTP server on 127.0.0.1:0 (overload_phase)
+
 then a {"kernels": [...]} line (the eleven kernels, #1 and #4 with their
-uint16 times), the nvidia-smi line,
+uint16 times, the six changed by the leaf cap with their `leaf_cap`
+times), the nvidia-smi line,
 and last
 {"ok": true, "device": {...}}. Any failed check raises before the last
 line and the exit code is not 0. Without a CUDA device, or without the
@@ -430,7 +453,14 @@ def _ptxas(log):
     return out
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj):
+    """Print one JSON line; a phase's line carries the seconds since the
+    script started (`at_s`), so the run's time splits by phase."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": round(time.perf_counter() - _T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -4821,6 +4851,8 @@ def cli_phase(lt, torch, smi, here, X, y):
         pred = os.path.join(d, "pred.tsv")
         refit = os.path.join(d, "refit.txt")
         cpp = os.path.join(d, "model.cpp")
+        served = os.path.join(d, "served.tsv")
+        serve_m = os.path.join(d, "serve_metrics.json")
         runs = _run_cli(
             here, d,
             ["task=predict", f"data={va}", f"input_model={model}",
@@ -4828,12 +4860,20 @@ def cli_phase(lt, torch, smi, here, X, y):
             ["task=refit", f"data={tr}", f"input_model={model}",
              f"output_model={refit}", "verbosity=-1"],
             ["task=convert_model", f"input_model={model}",
-             f"convert_model={cpp}", "verbosity=-1"])
-        for task, (rc, _, out) in zip(("predict", "refit", "convert"),
-                                      runs):
+             f"convert_model={cpp}", "verbosity=-1"],
+            # task=serve with its defaults: the device engine behind the
+            # default breaker (serve_breaker_failures=3)
+            ["task=serve", f"data={va}", f"input_model={model}",
+             f"output_result={served}", f"serve_metrics_output={serve_m}",
+             "verbosity=-1"])
+        for task, (rc, _, out) in zip(("predict", "refit", "convert",
+                                       "serve"), runs):
             check(rc == 0, f"CLI {task} exited {rc}: {out[-3000:]}")
         (rc_pred, pred_s, _), (rc_refit, refit_s, _), \
-            (rc_conv, conv_s, _) = runs
+            (rc_conv, conv_s, _), (rc_serve, serve_s, _) = runs
+        with open(serve_m) as f:
+            serving = json.load(f)["serving"]
+        got_serve = np.loadtxt(served)
 
         # the same run in process, on load_text_file's arrays
         params = parse_args([f"config={conf}"])
@@ -4866,6 +4906,16 @@ def cli_phase(lt, torch, smi, here, X, y):
         with open(cpp) as f:
             cpp_bytes = len(f.read())
         auc = [v for _, m, v, _ in bst.eval_valid() if m == "auc"]
+        serve_err = float(np.abs(got_serve - bst.predict(Xv)).max()) \
+            if got_serve.shape == (n_va,) else None
+    serve = {"wall_s": serve_s, "rows": n_va,
+             # written on a transition only: None = never left closed
+             "breaker_state": serving.get("states", {}).get("breaker"),
+             "breaker_trips": serving["counters"]["breaker_trips"],
+             "host_fallbacks": serving["counters"]["host_fallbacks"],
+             "batches": serving["counters"]["batches"],
+             "file_equal_predict": bool(np.array_equal(got_serve, got)),
+             "max_abs_err_predict": serve_err}
     emit({"phase": "cli", "train_rows": n_tr, "valid_rows": n_va,
           "features": N_FEAT, "reduced": "2^18 training rows of the 2^20 "
           "(writing a 2^20-row text file costs most of the line's time)",
@@ -4874,8 +4924,9 @@ def cli_phase(lt, torch, smi, here, X, y):
           "parser": parser, "file_to_first_round_s": file_to_first_round_s,
           "cli_train_wall_s": train_s, "cli_predict_wall_s": pred_s,
           "cli_refit_wall_s": refit_s, "cli_convert_wall_s": conv_s,
-          "concurrent": ["predict", "refit", "convert"],
-          "exit_codes": [rc_train, rc_pred, rc_refit, rc_conv],
+          "concurrent": ["predict", "refit", "convert", "serve"],
+          "exit_codes": [rc_train, rc_pred, rc_refit, rc_conv, rc_serve],
+          "serve_default": serve,
           "md5_equal_lt_train": same_model, "prediction_file_equal": same_pred,
           "snapshot_manifests": {str(k): v[0] for k, v in snaps.items()},
           "profile_records": len(profile.get("ring", [])),
@@ -4895,6 +4946,11 @@ def cli_phase(lt, torch, smi, here, X, y):
                                   "parser")
     check(refit_trees == 8 and cpp_bytes > 0, "refit or convert wrote no "
                                               "model")
+    check(serve["breaker_state"] in (None, "closed")
+          and serve["breaker_trips"] == 0 and serve["host_fallbacks"] == 0
+          and serve["batches"] > 0 and serve_err is not None
+          and serve_err <= 1e-6,
+          f"task=serve with its default breaker: {serve}")
 
 
 _RESILIENCE_CHILD = """\
@@ -5009,6 +5065,692 @@ def resilience_phase(lt, torch, smi, here, params, ds, X, y):
     check(not ok8 and fallback == 4, "the corrupt checkpoint was not "
                                      "skipped")
     check(md5_d == md5_a, "the corrupt run's resume differs")
+
+
+def _spread_map(torch, rng, L, first_new, dev):
+    """[first_new + 256] int64: a small tree's leaf ids spread over [0, L),
+    the old leaves [0, first_new) to distinct ids drawn from [0, L - 256),
+    the new leaves first_new + j (right children, consecutive ids) to
+    L - 256 + j, so that a relabel commutes with the map."""
+    base = L - 256
+    old = rng.choice(base, first_new, replace=False)
+    return torch.from_numpy(np.concatenate([old, base + np.arange(256)])) \
+        .to(dev)
+
+
+def _spread_leaves(torch, m, leaves):
+    """Leaf ids (-1 inactive) through the map m."""
+    return torch.where(leaves >= 0, m[leaves.clamp(min=0).long()],
+                       -1).to(torch.int32)
+
+
+def _spread_table(torch, m, t):
+    """A wave table whose leaf rows (0, 7) and first new leaf (15) went
+    through the map m."""
+    t = t.clone()
+    for r in (0, 7):
+        t[r] = _spread_leaves(torch, m, t[r])
+    t[15] = int(m[int(t[15, 0])])
+    return t
+
+
+LEAF_CAP_LS = (8192, 131072)
+
+
+def leaf_cap_kernels(hc, gf, torch, dev):
+    """#2, #3, #4, #5, #9 and #10 past the leaf cap: a mid-tree wave of the
+    kernel phases' shapes (2^20 rows, the bench storage; 64 applied splits
+    among 120 leaves, K = 16 candidates (#4: Kd = 128; #10 with a pending
+    relabel of 8 leaves)) whose leaf ids are spread over [0, L) for L in
+    {8192, 131072}, bitwise against the plain versions on grid values, and
+    timed beside the same wave on its own leaf ids under L = 255 (the
+    shared-memory maps). Returns {kernel: {L: record}}."""
+    gen = torch.Generator(device=dev).manual_seed(31)
+    rng = np.random.RandomState(32)
+    N, F, B, C = N_ROWS, N_FEAT, N_BINS, N_CH
+    X = torch.randint(0, 63, (F, N), generator=gen, device=dev,
+                      dtype=torch.uint8)
+    grid = _grid_vals(torch, gen, C, N, dev)
+    hp = _fused_hp()
+    S = N_LEAVES
+    nl0, napp, K, Kd = 120, 64, 16, 128
+    lor = torch.randint(0, nl0, (N,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    t16 = _wave_table(torch, rng, F, B - 1, nl0, napp, K, dev)
+    t128 = _wave_table(torch, rng, F, B - 1, nl0, napp, Kd, dev)
+    # #9's operands from the real rows of the small wave
+    new_s, slot_small = hc.wave_member_plain(X, lor, t16, K)
+    slot_all = hc._entry_of(new_s, t16[7, :K]).to(torch.int32)
+    sil = t16[14, :K] != 0
+    parent, scal = _fused_operands(torch, hc, X, grid, slot_all, slot_small,
+                                   sil, K, B)
+    fmeta = torch.tensor(np.stack([np.full(F, B - 1), rng.randint(0, 3, F),
+                                   rng.randint(0, B - 1, F), np.zeros(F),
+                                   np.zeros(F)]),
+                         dtype=torch.int32, device=dev)
+    fmask = torch.ones(F, dtype=torch.uint8, device=dev)
+    # #10: a deferred wave split 8 of the 120 leaves into 120-127, this
+    # wave's applied splits name leaves below 128, its right children 128+
+    pend = torch.full((128,), -1, dtype=torch.int32, device=dev)
+    pend[:8] = torch.from_numpy(rng.choice(nl0, 8, replace=False)).to(dev)
+    tt = torch.full((16, 128), -1, dtype=torch.int32, device=dev)
+    tt[0, :12] = torch.from_numpy(rng.choice(nl0 + 8, 12, replace=False))
+    tt[7, :K] = torch.from_numpy(rng.choice(nl0 + 20, K, replace=False))
+    tt[15] = nl0 + 8
+    dec = torch.randint(0, 8, (K, N), generator=gen, device=dev,
+                        dtype=torch.int32).to(torch.uint8)
+    fmask2 = torch.ones((2 * K, F), dtype=torch.uint8, device=dev)
+    # the dec bytes and smaller-child rows #10's wave needs
+    tp = torch.full((16, 128), -1, dtype=torch.int32, device=dev)
+    tp[0], tp[15] = pend, nl0
+    lor1, _ = hc.wave_apply_plain((dec >> 2) & 1, lor, tp, S)
+    new10, slot10 = hc.wave_apply_plain(dec & 3, lor1, tt, S)
+    dec_bytes = int(torch.isin(lor, pend[:8]).sum()
+                    + torch.isin(lor1, tt[0, :12]).sum()
+                    + torch.isin(new10, tt[7, :K]).sum())
+    small10 = int((slot10 >= 0).sum())
+    del tp, lor1, new10, slot10
+    values = torch.randint(-64, 64, (max(LEAF_CAP_LS),), generator=gen,
+                           device=dev).to(torch.float32) / 64
+    scores = torch.randint(-4096, 4096, (N,), generator=gen, device=dev) \
+        .to(torch.float32) / 64
+    out = {}
+
+    def rec(name, L, ms, dms, ms_s, dms_s, plain_ms, nbytes, map_bytes,
+            **kw):
+        bms, by = bound_ms(nbytes + map_bytes, 0)
+        r = dict(name=name, L=L, N=N, max_abs_err=0.0, tol=0.0, ms=ms,
+                 device_ms=dms, ms_255=ms_s, device_ms_255=dms_s,
+                 plain_ms=plain_ms, library_ms=None, bound_ms=bms,
+                 bound_by=by, map_bytes=map_bytes, **kw)
+        emit({"phase": "leaf_cap_kernels", **r})
+        out.setdefault(name, {})[L] = r
+
+    for L in LEAF_CAP_LS:
+        # one buffer for every launch at L, as a booster holds it
+        gm = hc.new_leaf_map(dev, L)
+        m = _spread_map(torch, rng, L, nl0, dev)
+        lor_L = _spread_leaves(torch, m, lor)
+        t16_L, t128_L = (_spread_table(torch, m, t) for t in (t16, t128))
+        n_hi = int((lor_L >= hc.LEAF_CAP).sum())
+        check(n_hi > N // 2, f"L={L}: leaf ids not spread past the cap")
+        # -- 2. the score update and the gather
+        vL = values[:L].contiguous()
+        lv = torch.randint(0, L, (N,), generator=gen, device=dev,
+                           dtype=torch.int32)
+        check(torch.equal(hc.add_leaf_values_cuda(scores.clone(), vL, lv),
+                          hc.add_leaf_values_plain(scores.clone(), vL, lv))
+              and torch.equal(hc.take_leaf_values_cuda(vL, lv),
+                              hc.take_leaf_values_plain(vL, lv)),
+              f"take_leaf_values L={L}: not bitwise")
+        sc = scores.clone()
+        ls = lv % S
+        ms, dms = timings(lambda: hc.add_leaf_values_cuda(sc, vL, lv), 20)
+        ms_s, dms_s = timings(lambda: hc.add_leaf_values_cuda(
+            sc, vL[:S], ls), 20)
+        pms = time_ms(lambda: hc.add_leaf_values_plain(sc, vL, lv), 3, 1)
+        rec("take_leaf_values", L, ms, dms, ms_s, dms_s, pms, 12 * N, 4 * L,
+            timing="warm L2 (one operand pair, back to back)")
+        # -- 3. the wave pass, 5. the relabel
+        gl, gh = hc.wave_pass_cuda(X, grid, lor_L, t16_L, K, B, L, gmap=gm)
+        rl, rh = hc.wave_pass_plain(X, grid, lor_L, t16_L, K, B, L)
+        sl, sh = hc.wave_pass_cuda(X, grid, lor, t16, K, B, S)
+        check(torch.equal(gl, rl) and torch.equal(gh, rh),
+              f"wave_pass L={L}: not bitwise")
+        check(torch.equal(gl, _spread_leaves(torch, m, sl))
+              and torch.equal(gh, sh),
+              f"wave_pass L={L}: differs from the same wave under L=255")
+        small = int((slot_small >= 0).sum())
+        app_rows = int(torch.isin(lor, t16[0, :napp]).sum())
+        cand_rows = int(torch.isin(rl, t16_L[7, :K]).sum())
+        nbytes = 8 * N + app_rows + cand_rows + small * (F + 4 * C) \
+            + K * C * F * B * 4 + 16 * 128 * 4
+        ms, dms = timings(lambda: hc.wave_pass_cuda(X, grid, lor_L, t16_L, K,
+                                                    B, L, gmap=gm), 20)
+        ms_s, dms_s = timings(lambda: hc.wave_pass_cuda(X, grid, lor, t16, K,
+                                                        B, S), 20)
+        pms = time_ms(lambda: hc.wave_pass_plain(X, grid, lor_L, t16_L, K, B,
+                                                 L), 2, 1)
+        rec("wave_pass", L, ms, dms, ms_s, dms_s, pms, nbytes,
+            2 * 4 * (128 + K), K=K, small_rows=small)
+        o = torch.empty_like(lor)
+        check(torch.equal(hc.wave_relabel_cuda(X, lor_L, t16_L, L, gmap=gm),
+                          hc.wave_relabel_plain(X, lor_L, t16_L, L)),
+              f"wave_relabel L={L}: not bitwise")
+        ip = lor_L.clone()
+        hc.wave_relabel_cuda(X, ip, t16_L, L, out=ip, gmap=gm)
+        check(torch.equal(ip, rl), f"wave_relabel L={L} in place")
+        ms, dms = timings(lambda: hc.wave_relabel_cuda(X, lor_L, t16_L, L,
+                                                       out=o, gmap=gm), 50)
+        ms_s, dms_s = timings(lambda: hc.wave_relabel_cuda(X, lor, t16, S,
+                                                           out=o), 50)
+        pms = time_ms(lambda: hc.wave_relabel_plain(X, lor_L, t16_L, L), 2,
+                      1)
+        rec("wave_relabel", L, ms, dms, ms_s, dms_s, pms,
+            8 * N + app_rows + 16 * 128 * 4, 2 * 4 * 128)
+        # -- 4. the decide-and-apply pass, Kd = 128
+        ga = hc.wave_apply_cuda(X, lor_L, t128_L, None, None, Kd, L, gmap=gm)
+        ra = hc.wave_apply_rows_plain(X, lor_L, t128_L, None, None, Kd, L)
+        sa = hc.wave_apply_cuda(X, lor, t128, None, None, Kd, S)
+        check(torch.equal(ga[0], ra[0]) and torch.equal(ga[1], ra[1]),
+              f"wave_apply L={L}: not bitwise")
+        check(torch.equal(ga[0], _spread_leaves(torch, m, sa[0]))
+              and torch.equal(ga[1], sa[1]),
+              f"wave_apply L={L}: differs from the same wave under L=255")
+        tested = int(torch.isin(lor, t128[0, :napp]).sum()
+                     + torch.isin(sa[0], t128[7, :Kd]).sum())
+        ms, dms = timings(lambda: hc.wave_apply_cuda(X, lor_L, t128_L, None,
+                                                     None, Kd, L, gmap=gm), 20)
+        ms_s, dms_s = timings(lambda: hc.wave_apply_cuda(X, lor, t128, None,
+                                                         None, Kd, S), 20)
+        pms = time_ms(lambda: hc.wave_apply_rows_plain(
+            X, lor_L, t128_L, None, None, Kd, L), 2, 1)
+        rec("wave_apply", L, ms, dms, ms_s, dms_s, pms,
+            12 * N + tested + 16 * 128 * 4, 2 * 4 * 2 * Kd, Kd=Kd)
+        # -- 9. the narrow fused wave
+        a9 = (parent, scal, fmeta, fmask, K, B)
+        g9 = gf.wave_pass_fused_cuda(X, grid, lor_L, t16_L, *a9, L, hp,
+                                     gmap=gm)
+        r9 = gf.wave_pass_fused_plain(X, grid, lor_L, t16_L, *a9, L, hp)
+        s9 = gf.wave_pass_fused_cuda(X, grid, lor, t16, *a9, S, hp)
+        check(all(torch.equal(a, b) for a, b in zip(g9, r9))
+              and torch.equal(g9[2], s9[2]),
+              f"wave_pass_fused L={L}: not bitwise")
+        ms, dms = timings(lambda: gf.wave_pass_fused_cuda(
+            X, grid, lor_L, t16_L, *a9, L, hp, gmap=gm), 20)
+        ms_s, dms_s = timings(lambda: gf.wave_pass_fused_cuda(
+            X, grid, lor, t16, *a9, S, hp), 20)
+        pms = time_ms(lambda: gf.wave_pass_fused_plain(
+            X, grid, lor_L, t16_L, *a9, L, hp), 2, 1)
+        rec("wave_pass_fused", L, ms, dms, ms_s, dms_s, pms,
+            nbytes + _scan_nbytes(K, F, B), 2 * 4 * (128 + K), K=K)
+        # -- 10. the general fused wave, with a pending relabel
+        m10 = _spread_map(torch, rng, L, nl0, dev)
+        tt_L = _spread_table(torch, m10, tt)
+        pend_L = _spread_leaves(torch, m10, pend)
+        pn_L = torch.tensor([int(m10[nl0])], dtype=torch.int32, device=dev)
+        pn_s = torch.tensor([nl0], dtype=torch.int32, device=dev)
+        lor10 = _spread_leaves(torch, m10, lor)
+        a10 = (parent, scal, fmeta, fmask2, K, B)
+        g10 = gf.wave_pass_fused_tiled_cuda(X, grid, dec, lor10, tt_L,
+                                            pend_L, pn_L, *a10, L, hp,
+                                            gmap=gm)
+        r10 = gf.wave_pass_fused_tiled_plain(X, grid, dec, lor10, tt_L,
+                                             pend_L, pn_L, *a10, L, hp)
+        s10 = gf.wave_pass_fused_tiled_cuda(X, grid, dec, lor, tt, pend,
+                                            pn_s, *a10, S, hp)
+        check(all(torch.equal(a, b) for a, b in zip(g10, r10))
+              and torch.equal(g10[0], _spread_leaves(torch, m10, s10[0]))
+              and torch.equal(g10[2], s10[2]),
+              f"wave_pass_fused_tiled L={L}: not bitwise")
+        check(not torch.equal(g10[0], lor10), "no row moved in #10's wave")
+        check(bool((gm == hc.GMAP_NONE).all()),
+              f"L={L}: the global leaf maps were not cleared after a wave")
+        ms, dms = timings(lambda: gf.wave_pass_fused_tiled_cuda(
+            X, grid, dec, lor10, tt_L, pend_L, pn_L, *a10, L, hp, gmap=gm),
+            20)
+        ms_s, dms_s = timings(lambda: gf.wave_pass_fused_tiled_cuda(
+            X, grid, dec, lor, tt, pend, pn_s, *a10, S, hp), 20)
+        pms = time_ms(lambda: gf.wave_pass_fused_tiled_plain(
+            X, grid, dec, lor10, tt_L, pend_L, pn_L, *a10, L, hp), 2, 1)
+        rec("wave_pass_fused_tiled", L, ms, dms, ms_s, dms_s, pms,
+            8 * N + dec_bytes + small10 * (F + 8) + K * 2 * F * B * 4
+            + _scan_nbytes(K, F, B), 2 * 4 * (8 + 12 + K), K=K, Kd=K,
+            small_rows=small10)
+    return out
+
+
+def leaf_cap_phase(lt, hc, gf, torch, dev, params, ds, params_c, ds_c):
+    """Past the leaf cap: the kernels (leaf_cap_kernels), then bench.py's
+    data at num_leaves = 16384 on the wave grower (tpu_grower="wave": the
+    ladder at the default histogram_pool_size picks masked, as the JAX
+    package's does) 2 rounds per iteration and batched, md5-equal, more
+    than 4096 leaves a tree, the first tree equal to the plain versions';
+    one Criteo round at 8192 leaves on the apply route (#4; the wave grower
+    named again, the ladder's caches there exceed 512 MB) and one bench
+    round at 8192 leaves under histogram_impl=fused (#9), each first tree
+    equal to the plain versions'. Returns {kernel: {L: record}}."""
+    krec = leaf_cap_kernels(hc, gf, torch, dev)
+    runs = [("bench_16384", {**params, "num_leaves": 16384,
+                             "tpu_grower": "wave"}, ds, 2, "mega",
+             ("wave_pass", "wave_relabel")),
+            ("criteo_8192", {**params_c, "num_leaves": 8192,
+                             "tpu_grower": "wave"}, ds_c, 1, "apply",
+             ("wave_apply",)),
+            ("fused_8192", {**params, "num_leaves": 8192,
+                            "histogram_impl": "fused"}, ds, 1, "fused",
+             ("wave_pass_fused",))]
+    for name, p, d, rounds, route, kernels in runs:
+        hc.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b = lt.train({**p, "batched_train": False}, d, rounds)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / rounds
+        launches = dict(hc.LAUNCHES)
+        g = b._gbdt
+        leaves = [t.num_leaves for t in g.models]
+        lv_err = _same_host_tree(_plain_trees(torch, g, N_ROWS)[0],
+                                 g.models[0])
+        line = {"phase": "leaf_cap", "run": name, "rows": N_ROWS,
+                "num_leaves": p["num_leaves"], "grow_route": g.grow_route,
+                "grower": g.grower, "ms_per_round": ms, "leaves": leaves,
+                "launches": {k: launches[k] for k in kernels
+                             + ("take_leaf_values",)},
+                "first_tree_same": lv_err is not None,
+                "leaf_value_max_abs_err": lv_err}
+        check(g.grow_route == route, f"leaf_cap {name}: route "
+                                     f"{g.grow_route}")
+        for k in kernels + ("take_leaf_values",):
+            check(launches[k] > 0, f"leaf_cap {name}: {k} never launched")
+        check(lv_err is not None and lv_err <= 1e-6,
+              f"leaf_cap {name}: first tree differs from the plain "
+              f"versions' ({lv_err})")
+        if name == "bench_16384":
+            check(min(leaves) > hc.LEAF_CAP, f"leaf_cap {name}: trees of "
+                                            f"{leaves} leaves")
+            hc.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bb = lt.train({**p, "batched_train": True}, d, rounds)
+            torch.cuda.synchronize()
+            line["batched_ms_per_round"] = \
+                (time.perf_counter() - t0) * 1e3 / rounds
+            line["batched_veto"] = bb._gbdt.batched_veto
+            line["md5_equal"] = _md5(bb.model_to_string()) \
+                == _md5(b.model_to_string())
+            check(line["md5_equal"] and bb._gbdt.batched_veto == "",
+                  f"leaf_cap {name}: batched model differs "
+                  f"({bb._gbdt.batched_veto!r})")
+            del bb
+        emit(line)
+        del b, g
+    return krec
+
+
+def _http(server, method, path, body=None, headers=None):
+    """(status, Retry-After, JSON body) of one request to a local server."""
+    import http.client
+    host, port = server.server_address
+    c = http.client.HTTPConnection(host, port, timeout=30)
+    try:
+        c.request(method, path, body=body, headers=headers or {})
+        r = c.getresponse()
+        return r.status, r.getheader("Retry-After"), json.loads(r.read())
+    finally:
+        c.close()
+
+
+def _start_server(cli, reg, mb, m, adm, br):
+    import threading
+    import types
+    cfg = types.SimpleNamespace(serve_host="127.0.0.1", serve_port=0,
+                                serve_deadline_ms=0.0,
+                                serve_deadline_header="X-Deadline-Ms")
+    server = cli.build_http_server(cfg, reg, mb, m, admission=adm,
+                                   breaker=br)
+    t = threading.Thread(target=server.serve_forever, daemon=True)
+    t.start()
+    return server, t
+
+
+def _stop_server(server, t):
+    server.shutdown()
+    server.server_close()
+    t.join(timeout=10)
+
+
+def overload_phase(lt, hc, torch, smi, here, bst, X):
+    """A18(b)'s overload path on the card: bench.py's model behind the
+    registry, the micro-batcher, admission control and the circuit
+    breaker (serving/), with a fault plan, the binned engine on raw f32
+    rows (#6 and the walk) and the HTTP server on 127.0.0.1:0.
+
+      * task=serve's defaults (cli.build_serving): 1024 one-row requests
+        to the model's text on the device engine behind the default
+        breaker (3 failures), within 1e-6 of Booster.predict, the
+        breaker closed, no host fallback;
+
+      * breaker: fail_score on 3 chunks trips it (failure_threshold 3);
+        those chunks and the 2 sent while it is open are scored on the
+        host, bitwise Booster.predict, and host_fallbacks counts exactly
+        them; after the 0.5 s cooldown the half-open probe runs #6 and the
+        walk (bucketize launches) and closes it, its scores bitwise a
+        breaker-free session's; then slow_score (80 ms) on 3 chunks trips
+        the 50 ms latency SLO and the cooldown recovers it again; trip and
+        recovery times from the first faulty chunk;
+      * overload: 16 client threads offer 5x the capacity of a session
+        slowed by slow_score (5 ms a chunk) for 1 s through admission
+        (queue watermarks 0.5 / 0.25, p99 SLO 100 ms): sheds fail at once
+        (503, under 100 ms with 16 threads on the host's cores), accepted
+        requests' p50 / p99 recorded, no host fallback;
+      * HTTP: 200 from /predict (scores equal the session's), 429 with
+        Retry-After past a client's token bucket, 504 for a deadline that
+        expires in the queue and 503 past the queue watermark while
+        wedge_worker stalls the worker 1.5 s, /healthz 503 with
+        worker_wedged, then 200 once the stall ends; 400, 413, 404;
+      * snapshot watching: a snapshot at iteration 8 whose bytes were
+        corrupted after its manifest was written is rejected, with a
+        backoff on its path; then one at iteration 4 with its manifest is
+        promoted at once, its scores those of a session of its own."""
+    import tempfile
+    import threading
+    from lightgbm_tpu_torch import cli
+    from lightgbm_tpu_torch.runtime.checkpoint import write_manifest
+    from lightgbm_tpu_torch.runtime.faults import FaultPlan, corrupt_file
+    from lightgbm_tpu_torch.serving import (AdmissionController,
+                                            CircuitBreaker, MicroBatcher,
+                                            ModelRegistry, OverloadedError,
+                                            ServingMetrics)
+    rows = X[:4096].astype(np.float32)
+    line = {"phase": "overload", "nvidia_smi": smi}
+
+    # -- task=serve's defaults (cli.build_serving, as run_serve builds
+    # them): the device engine behind the default breaker on healthy
+    # traffic, one row a request as the file mode submits them. run_serve
+    # registers a model file: bench's text, which holds the trees up to
+    # its best_iteration (8 of 16), the ones Booster.predict scores
+    from lightgbm_tpu_torch.config import resolve_params
+    md, brd, regd, mbd = cli.build_serving(resolve_params(cli.parse_args(
+        ["task=serve", "verbosity=-1"])))
+    regd.register("default", bst.model_to_string())
+    mbd.start()
+    try:
+        reqs = [mbd.submit(rows[i]) for i in range(1024)]
+        got = np.concatenate([np.asarray(mbd.wait(r)).reshape(-1)
+                              for r in reqs])
+    finally:
+        mbd.stop()
+    default = {"engine": regd.session("default").engine,
+               "breaker": None if brd is None else brd.state,
+               "failure_threshold": None if brd is None
+               else brd.failure_threshold,
+               "host_fallbacks": md.counters["host_fallbacks"],
+               "batches": md.counters["batches"],
+               "max_abs_err_predict": float(np.abs(
+                   got - bst.predict(rows[:1024])).max())}
+    line["serve_default"] = default
+    check(default["engine"] == "device" and default["breaker"] == "closed"
+          and default["failure_threshold"] == 3
+          and default["host_fallbacks"] == 0
+          and default["max_abs_err_predict"] <= 1e-6,
+          f"task=serve's default breaker on healthy traffic: {default}")
+
+    # -- the breaker, by failures then by latency
+    m = ServingMetrics(max_batch=256)
+    br = CircuitBreaker(failure_threshold=3, latency_slo_ms=50.0,
+                        latency_trips=3, cooldown_s=0.5, metrics=m)
+    plan = FaultPlan.parse("fail_score@batch=0:times=3;"
+                           "slow_score@batch=8:ms=80:times=3")
+    reg = ModelRegistry(metrics=m, engine="binned", binning_impl="device",
+                        max_batch=256, breaker=br, fault_plan=plan)
+    reg.register("bench", bst, warmup=True)
+    plain = bst.serve(engine="binned", binning_impl="device", max_batch=256,
+                      warmup=True)
+    host = [], []
+    q = [rows[i * 64:(i + 1) * 64] for i in range(16)]
+    want = [bst.predict(b) for b in q]
+    t0 = time.perf_counter()
+    states, launches = [], []
+    trip_ms = recover_ms = None
+    for i in range(5):
+        got = reg.predict(q[i], name="bench")
+        host[0].append(bool(np.array_equal(got, want[i])))
+        states.append(br.state)
+        if br.state == "open" and trip_ms is None:
+            trip_ms = (time.perf_counter() - t0) * 1e3
+    fallbacks_open = m.counters["host_fallbacks"]
+    time.sleep(0.55)
+    hc.reset_launch_counts()
+    got = reg.predict(q[5], name="bench")
+    launches.append(dict(hc.LAUNCHES))
+    recover_ms = (time.perf_counter() - t0) * 1e3
+    states.append(br.state)
+    probe_bitwise = bool(np.array_equal(got, plain.predict(q[5])))
+    check(host[0] == [True] * 5 and states[:5] == ["closed", "closed",
+                                                   "open", "open", "open"]
+          and fallbacks_open == 5,
+          f"breaker by failures: {states} {host[0]} {fallbacks_open}")
+    check(states[5] == "closed" and launches[0]["bucketize"] > 0
+          and probe_bitwise and m.counters["host_fallbacks"] == 5,
+          f"the half-open probe did not run #6 and the walk: {states} "
+          f"{launches[0]}")
+    # chunks 6-7 on the card, 8-10 slow (80 ms > the 50 ms SLO): open
+    t1 = time.perf_counter()
+    for i in range(6, 11):
+        got = reg.predict(q[i], name="bench")
+        states.append(br.state)
+    slow_trip_ms = (time.perf_counter() - t1) * 1e3
+    got = reg.predict(q[11], name="bench")
+    host[1].append(bool(np.array_equal(got, want[11])))
+    time.sleep(0.55)
+    hc.reset_launch_counts()
+    got = reg.predict(q[12], name="bench")
+    launches.append(dict(hc.LAUNCHES))
+    slow_recover_ms = (time.perf_counter() - t1) * 1e3
+    check(states[-1] == "open" and "latency SLO" in br.last_trip_reason
+          and host[1] == [True] and br.state == "closed"
+          and launches[1]["bucketize"] > 0
+          and m.counters["host_fallbacks"] == 6,
+          f"breaker by latency: {states} {br.to_dict()} {m.counters}")
+    line.update(breaker_states=states, breaker=br.to_dict(),
+                host_chunks_bitwise_predict=host[0] + host[1],
+                probe_bitwise_binned=probe_bitwise,
+                probe_launches=launches[0],
+                host_fallbacks=m.counters["host_fallbacks"],
+                host_fallbacks_expected=6,
+                trip_ms_after_first_failure=trip_ms,
+                recover_ms_after_first_failure=recover_ms,
+                slow_trip_and_recover_ms=slow_recover_ms,
+                slow_chunks_ms=slow_trip_ms,
+                breaker_trips=m.counters["breaker_trips"],
+                breaker_recoveries=m.counters["breaker_recoveries"])
+
+    # -- overload: 5x capacity through admission
+    mo = ServingMetrics(max_batch=8)
+    reg_o = ModelRegistry(metrics=mo, engine="binned", binning_impl="device",
+                          max_batch=8, fault_plan=FaultPlan.parse(
+                              "slow_score@batch=0:ms=5:times=1000000"))
+    reg_o.register("bench", bst, warmup=True)
+    mb = MicroBatcher(lambda b: reg_o.predict(b, name="bench"), max_batch=8,
+                      max_wait_ms=1.0, queue_depth=64, timeout_ms=4000,
+                      metrics=mo)
+    mb.start()
+    adm = AdmissionController(mb, metrics=mo, queue_high=0.5,
+                              queue_low=0.25, p99_slo_ms=100.0)
+    capacity = 8 / 6e-3
+    offered, clients, duration = 5 * capacity, 16, 1.0
+    accepted, shed, failed = [], [], []
+    lock = threading.Lock()
+    import queue as queue_mod
+    inflight = queue_mod.Queue()
+    gen_done = threading.Event()
+
+    def client(k):
+        # submit without waiting (waiter threads collect), so the queue
+        # fills as it would under open-loop traffic
+        period = clients / offered
+        t_end = time.perf_counter() + duration
+        i = k
+        while time.perf_counter() < t_end:
+            ts = time.perf_counter()
+            try:
+                inflight.put((adm.submit(rows[i % 4096][None],
+                                         deadline=ts + 0.2), ts))
+            except OverloadedError:
+                with lock:
+                    shed.append(time.perf_counter() - ts)
+            i += clients
+            time.sleep(max(0.0, period - (time.perf_counter() - ts)))
+
+    def waiter():
+        while True:
+            try:
+                req, ts = inflight.get(timeout=0.05)
+            except queue_mod.Empty:
+                if gen_done.is_set():
+                    return
+                continue
+            try:
+                mb.wait(req)
+                with lock:
+                    accepted.append(time.perf_counter() - ts)
+            except Exception as e:
+                with lock:
+                    failed.append(repr(e))
+
+    th = [threading.Thread(target=client, args=(k,))
+          for k in range(clients)]
+    wt = [threading.Thread(target=waiter) for _ in range(clients)]
+    for t in th + wt:
+        t.start()
+    for t in th:
+        t.join(timeout=60)
+    gen_done.set()
+    for t in wt:
+        t.join(timeout=60)
+    th += wt
+    mb.stop()
+    acc = sorted(accepted)
+    pct = (lambda q_: acc[min(len(acc) - 1, int(round(q_ * (len(acc) - 1))))]
+           * 1e3 if acc else None)
+    line.update(overload_offered_per_s=offered, overload_clients=clients,
+                overload_accepted=len(acc), overload_shed=len(shed),
+                overload_failed=len(failed),
+                accepted_p50_ms=pct(0.5), accepted_p99_ms=pct(0.99),
+                shed_max_ms=max(shed) * 1e3 if shed else None,
+                overload_counters={k: mo.counters[k] for k in (
+                    "admitted", "shed_overload", "expired",
+                    "host_fallbacks")},
+                overload_batches=mo.counters["batches"])
+    check(not any(t.is_alive() for t in th) and len(shed) > 0
+          and len(acc) > 0 and mo.counters["host_fallbacks"] == 0
+          and max(shed) < 0.1,
+          f"overload: {len(acc)} accepted, {len(shed)} shed, "
+          f"{failed[:2]}")
+
+    # -- HTTP, with a worker stall
+    mh = ServingMetrics(max_batch=256)
+    reg_h = ModelRegistry(metrics=mh, engine="binned", binning_impl="device",
+                          max_batch=256)
+    reg_h.register("bench", bst, warmup=True)
+    mbh = MicroBatcher(lambda b: reg_h.predict(b, name="bench"),
+                       max_batch=256, max_wait_ms=1.0, queue_depth=8,
+                       timeout_ms=200, metrics=mh)
+    mbh.start()
+    # a token a row: two 4-row requests empty a client's bucket
+    admh = AdmissionController(mbh, metrics=mh, rate_qps=0.01, burst=8.0,
+                               queue_high=0.5, queue_low=0.25)
+    server, st = _start_server(cli, reg_h, mbh, mh, admh, None)
+    codes = {}
+    try:
+        body = json.dumps({"rows": rows[:4].astype(np.float64).tolist()})
+        c, _, out = _http(server, "POST", "/predict", body, {"X-Client": "a"})
+        codes["predict"] = c
+        http_equal = np.allclose(out["predictions"],
+                                 plain.predict(rows[:4].astype(np.float64)),
+                                 rtol=0, atol=0)
+        _http(server, "POST", "/predict", body, {"X-Client": "a"})
+        c, ra, _ = _http(server, "POST", "/predict", body, {"X-Client": "a"})
+        codes["rate_limited"] = (c, ra)
+        codes["malformed"] = _http(server, "POST", "/predict", "{x",
+                                   {"X-Client": "b"})[0]
+        codes["oversize"] = _http(server, "POST", "/predict", "[]", {
+            "Content-Length": str(40 << 20)})[0]
+        codes["no_route"] = _http(server, "GET", "/nope")[0]
+        codes["healthz"] = _http(server, "GET", "/healthz")[0]
+    finally:
+        mbh.stop()
+        _stop_server(server, st)
+    # the stalled worker: a fresh batcher whose first loop sleeps 1.5 s
+    mw = ServingMetrics(max_batch=256)
+    mbw = MicroBatcher(lambda b: reg_h.predict(b, name="bench"),
+                       max_batch=256, max_wait_ms=1.0, queue_depth=8,
+                       timeout_ms=200, metrics=mw,
+                       fault_plan=FaultPlan.parse(
+                           "wedge_worker@batch=0:ms=1500"))
+    mbw.start()
+    admw = AdmissionController(mbw, metrics=mw, queue_high=0.5,
+                               queue_low=0.25)
+    server, st = _start_server(cli, reg_h, mbw, mw, admw, None)
+    try:
+        body1 = json.dumps({"rows": rows[:1].astype(np.float64).tolist()})
+        c, _, _ = _http(server, "POST", "/predict", body1,
+                        {"X-Deadline-Ms": "100"})
+        codes["deadline"] = c
+        queued = [mbw.submit(rows[i]) for i in range(4)]
+        c, ra, _ = _http(server, "POST", "/predict", body1)
+        codes["shed"] = (c, ra)
+        t_end = time.perf_counter() + 5.0
+        while not mbw.wedged() and time.perf_counter() < t_end:
+            time.sleep(0.01)
+        c, _, hz = _http(server, "GET", "/healthz")
+        codes["healthz_wedged"] = (c, hz["worker_wedged"])
+        for r in queued:
+            try:
+                mbw.wait(r, timeout=10)
+            except Exception:
+                pass
+        c, _, _ = _http(server, "GET", "/healthz")
+        codes["healthz_after"] = c
+        codes["readyz"] = _http(server, "GET", "/readyz")[0]
+    finally:
+        mbw.stop()
+        _stop_server(server, st)
+    line.update(http_codes=codes, http_predict_equal_session=bool(http_equal),
+                wedge_counters={k: mw.counters[k] for k in (
+                    "expired", "shed_overload", "admitted")})
+    check(codes["predict"] == 200 and http_equal
+          and codes["rate_limited"][0] == 429
+          and codes["rate_limited"][1] is not None
+          and codes["malformed"] == 400 and codes["oversize"] == 413
+          and codes["no_route"] == 404 and codes["healthz"] == 200
+          and codes["deadline"] == 504 and codes["shed"][0] == 503
+          and codes["shed"][1] is not None
+          and codes["healthz_wedged"] == (503, True)
+          and codes["healthz_after"] == 200 and codes["readyz"] == 200,
+          f"HTTP status codes: {codes}")
+
+    # -- snapshot watching
+    tmp = tempfile.TemporaryDirectory(dir=here)
+    prefix = os.path.join(tmp.name, "bench.txt")
+    good, bad = (f"{prefix}.snapshot_iter_{k}.txt" for k in (4, 8))
+    bst.save_model(bad, num_iteration=8)
+    write_manifest(bad)
+    corrupt_file(bad)
+    reg_s = ModelRegistry(engine="binned", binning_impl="device",
+                          max_batch=256)
+    reg_s.register("bench", bst)
+    reg_s.watch_snapshots("bench", prefix)
+    w = reg_s._watches["bench"]
+    # the corrupted snapshot alone: rejected by its manifest, backoff on
+    # its path; then a good one at another path promotes at once
+    first = reg_s.poll_snapshots("bench")
+    backoff_s = w.backoff_until - time.perf_counter()
+    streak = w.reject_streak
+    bst.save_model(good, num_iteration=4)
+    write_manifest(good)
+    promoted = reg_s.poll_snapshots("bench")
+    snap_pred = reg_s.predict(rows[:256].astype(np.float64), name="bench")
+    ref4 = lt.Booster(params={"device_type":
+                              bst._gbdt.config.device_type},
+                      model_file=good).serve(
+        engine="binned", binning_impl="device", max_batch=256,
+        bin_mappers=plain.bin_mappers).predict(
+        rows[:256].astype(np.float64))
+    line.update(snapshot_promoted=promoted,
+                snapshot_rejected=reg_s.metrics.counters.get(
+                    "snapshots_rejected", 0),
+                snapshot_backoff_s=backoff_s,
+                snapshot_version=reg_s.session("bench").version,
+                snapshot_scores_equal=bool(np.array_equal(snap_pred, ref4)))
+    check(first is None and streak == 1 and backoff_s > 0
+          and promoted == 4 and line["snapshot_rejected"] == 1
+          and w.reject_streak == 0 and line["snapshot_scores_equal"],
+          f"snapshot watch: promoted {promoted}, {line}")
+    reg_s.stop_watchers()
+    tmp.cleanup()
+    emit(line)
 
 
 def main():
@@ -5239,6 +5981,11 @@ def main():
     batched_phase(lt, hc, torch, smi, params, ds, X, w, params_criteo,
                   ds_criteo)
 
+    # ---- 21. past the leaf cap: the changed kernels at L = 8192 and
+    # 131072, bench at 16384 leaves, Criteo (#4) and fused (#9) at 8192
+    lc_rec = leaf_cap_phase(lt, hc, gf, torch, dev, params, ds,
+                            params_criteo, ds_criteo)
+
     # ---- 18. the runtime: device_profile and autotune; the estimators
     # and SHAP values
     profile_phase(lt, hc, torch, smi, params, ds, bst, Xt)
@@ -5260,6 +6007,10 @@ def main():
     # and fault plans
     cli_phase(lt, torch, smi, here, X, y)
     resilience_phase(lt, torch, smi, here, params, ds, X, y)
+
+    # ---- 22. the overload path: admission, the breaker with the serving
+    # fault hooks, deadlines, the HTTP server, snapshot watching
+    overload_phase(lt, hc, torch, smi, here, bst, X)
 
     src = {"build_histogram_slots": "hist_slots.cu",
            "take_leaf_values": "take_leaf_values.cu",
@@ -5322,7 +6073,12 @@ def main():
             "launches_per_call": r.get("launches_per_call"),
             "shape": {k: r[k] for k in ("K", "Kd", "L", "n", "F", "B",
                                         "total", "rows") if k in r},
-            "uint16": uint16 or None, "pass": True})
+            "uint16": uint16 or None,
+            "leaf_cap": {str(L): {k: w[k] for k in (
+                "ms", "device_ms", "ms_255", "device_ms_255", "plain_ms",
+                "bound_ms", "bound_by", "map_bytes")}
+                for L, w in lc_rec.get(name, {}).items()} or None,
+            "pass": True})
     emit({"kernels": kernels})
     for line in smi:
         print(line)

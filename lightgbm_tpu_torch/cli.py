@@ -5,7 +5,7 @@ Counterpart of lightgbm_tpu/cli.py, which mirrors the reference CLI
 
     python -m lightgbm_tpu_torch config=train.conf [key=value ...]
 
-with task = train | predict | refit | convert_model. Config files are
+with task = train | predict | refit | convert_model | serve. Config files are
 `key = value` lines with `#` comments (Application::LoadParameters,
 application.cpp:54); the command line overrides the file, GNU switches
 (`--profile`, `--key=value`) and aliases included. The run takes
@@ -14,8 +14,11 @@ request. Training reads text files (data/loader.py, through the native
 parser), takes valid files, `input_model`, `snapshot_freq` snapshots with
 checksum manifests, checkpoints and resume (runtime/checkpoint.py), and
 `device_profile` with `profile_output` (runtime/profiler.py).
-`task=serve` and `convert_model_language=stablehlo` raise naming ROADMAP
-item A18(b) (admission, breaker, fleet; export), `task=online` A13.
+`task=serve` serves one model (run_serve: the registry with snapshot
+watching, the micro-batcher, admission control and the circuit breaker,
+over HTTP at serve_port > 0, else a file or stdin); `serve_models` (the
+fleet) and `convert_model_language=stablehlo` raise naming ROADMAP item
+A18(b), `task=online` A13.
 """
 
 from __future__ import annotations
@@ -187,6 +190,280 @@ def run_convert_model(params: Dict[str, Any], cfg) -> None:
     log_info(f"Finished converting model; saved to {out}")
 
 
+def _parse_rows(text: str) -> np.ndarray:
+    """Request body -> [n, F] f64: JSON (list-of-rows or {"rows": ...})
+    or delimited lines (tab / comma / space)."""
+    text = text.strip()
+    if text.startswith("{") or text.startswith("["):
+        import json
+        obj = json.loads(text)
+        if isinstance(obj, dict):
+            obj = obj.get("rows", obj.get("data"))
+        rows = np.asarray(obj, np.float64)
+    else:
+        rows = np.asarray(
+            [[float(t) if t.lower() not in ("", "na", "nan") else np.nan
+              for t in line.replace(",", "\t").split()]
+             for line in text.replace("\t", " ").splitlines() if line.strip()],
+            np.float64)
+    return rows.reshape(1, -1) if rows.ndim == 1 else rows
+
+
+# one POST body may not exceed this many bytes (HTTP 413): bounds the
+# memory one client can pin before admission control even runs
+_MAX_BODY_BYTES = 32 << 20
+
+
+def build_http_server(cfg, registry, batcher, metrics,
+                      admission=None, breaker=None):
+    """Threaded HTTP front-end (lightgbm_tpu/cli.py build_http_server).
+    Routes:
+
+      POST /predict  — score rows; overload protection maps to status
+                       codes: 429 (rate limited) / 503 (shed, queue
+                       full) with ``Retry-After``, 504 (deadline or
+                       timeout), 413 (oversize body), 400 (malformed)
+      GET /metrics   — serving summary JSON
+      GET /health    — legacy liveness (kept for old probes)
+      GET /healthz   — liveness: worker thread alive and not wedged
+      GET /readyz    — readiness: a model is registered and scoring is
+                       possible; body reports breaker/shedding state
+
+    A per-request deadline comes from the ``serve_deadline_header``
+    header (ms, overrides) or ``serve_deadline_ms`` (default budget);
+    clients are keyed for rate limiting by ``X-Client`` or their
+    address. Factory so tests can bind port 0 and read back
+    ``server.server_address``; ``serve_forever`` is the caller's call.
+    """
+    import http.server
+    import json
+    import math
+    import time as _time
+
+    from .serving import QueueFullError, RequestTimeout, ShedError
+
+    deadline_hdr = getattr(cfg, "serve_deadline_header", "") or "X-Deadline-Ms"
+    default_deadline_ms = float(getattr(cfg, "serve_deadline_ms", 0.0) or 0.0)
+
+    class Handler(http.server.BaseHTTPRequestHandler):
+        def log_message(self, *args):   # keep serving stdout quiet
+            pass
+
+        def _send(self, code: int, obj, retry_after_s: float = 0.0) -> None:
+            body = json.dumps(obj).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            if retry_after_s > 0.0:
+                # HTTP Retry-After is integer seconds; round UP so a
+                # compliant client never retries into the same shed
+                self.send_header("Retry-After",
+                                 str(max(int(math.ceil(retry_after_s)), 1)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            if self.path == "/metrics":
+                self._send(200, metrics.to_dict())
+            elif self.path == "/health":
+                self._send(200, {"status": "ok",
+                                 "models": registry.names()})
+            elif self.path == "/healthz":
+                wedged = batcher.wedged()
+                ok = batcher.alive() and not wedged
+                self._send(200 if ok else 503, {
+                    "status": "ok" if ok else "unhealthy",
+                    "worker_alive": batcher.alive(),
+                    "worker_wedged": wedged,
+                })
+            elif self.path == "/readyz":
+                models = registry.names()
+                ok = bool(models) and batcher.alive()
+                body = {"status": "ready" if ok else "not_ready",
+                        "models": models,
+                        "queue_depth": batcher.depth,
+                        "states": dict(metrics.states)}
+                if breaker is not None:
+                    body["breaker"] = breaker.to_dict()
+                # an OPEN breaker or active shedding still serves (host
+                # fallback / partial admission): degraded, not unready
+                self._send(200 if ok else 503, body)
+            else:
+                self._send(404, {"error": f"no route {self.path}"})
+
+        def _deadline(self):
+            ms = self.headers.get(deadline_hdr)
+            ms = float(ms) if ms is not None else default_deadline_ms
+            if ms <= 0.0:
+                return None
+            return _time.perf_counter() + ms / 1e3
+
+        def do_POST(self):
+            if self.path != "/predict":
+                return self._send(404, {"error": f"no route {self.path}"})
+            try:
+                n = int(self.headers.get("Content-Length", 0))
+                if n > _MAX_BODY_BYTES:
+                    return self._send(413, {
+                        "error": f"request body {n} bytes exceeds the "
+                                 f"{_MAX_BODY_BYTES}-byte limit"})
+                raw = self.rfile.read(n).decode()
+                deadline = self._deadline()
+            except Exception as e:
+                return self._send(400, {"error": str(e)})
+            try:
+                rows = _parse_rows(raw)
+                if rows.size == 0 or rows.ndim != 2:
+                    raise ValueError("empty or non-rectangular row block")
+            except Exception as e:
+                return self._send(400, {"error": f"malformed body: {e}"})
+            client = self.headers.get("X-Client") or self.client_address[0]
+            try:
+                if admission is not None:
+                    pred = admission.predict(rows, client=client,
+                                             deadline=deadline)
+                else:
+                    pred = batcher.predict(rows, deadline=deadline)
+                self._send(200, {"predictions":
+                                 np.asarray(pred).tolist()})
+            except ShedError as e:
+                # 429 (rate limit) or 503 (overload) — never queued
+                self._send(e.http_status, {"error": str(e)},
+                           retry_after_s=e.retry_after_s)
+            except QueueFullError as e:
+                self._send(503, {"error": str(e)}, retry_after_s=1.0)
+            except RequestTimeout as e:
+                self._send(504, {"error": str(e)})
+            except Exception as e:
+                self._send(400, {"error": str(e)})
+
+    return http.server.ThreadingHTTPServer(
+        (cfg.serve_host, cfg.serve_port), Handler)
+
+
+def build_serving(cfg):
+    """task=serve's objects from its config: (metrics, breaker or None,
+    registry, batcher), the batcher not started and no model registered.
+    The breaker guards the device scoring path; a host-only deployment has
+    nothing to degrade from, so it exists only when a device engine is in
+    play and a trip condition is set (by default
+    serve_breaker_failures=3)."""
+    from .runtime.faults import active_plan
+    from .serving import (CircuitBreaker, MicroBatcher, ModelRegistry,
+                          ServingMetrics)
+    metrics = ServingMetrics(max_batch=cfg.serve_max_batch)
+    fault_plan = active_plan(cfg.fault_plan)
+    breaker = None
+    if cfg.serve_engine in ("auto", "device", "binned") and (
+            cfg.serve_breaker_failures > 0
+            or cfg.serve_breaker_latency_slo_ms > 0.0):
+        breaker = CircuitBreaker(
+            failure_threshold=cfg.serve_breaker_failures,
+            latency_slo_ms=cfg.serve_breaker_latency_slo_ms,
+            latency_trips=cfg.serve_breaker_latency_trips,
+            cooldown_s=cfg.serve_breaker_cooldown_s, metrics=metrics)
+    registry = ModelRegistry(
+        metrics=metrics, engine=cfg.serve_engine,
+        max_batch=cfg.serve_max_batch, min_bucket=cfg.serve_min_bucket,
+        num_shards=cfg.serve_num_shards, warmup=cfg.serve_warmup,
+        binning_impl=cfg.binning_impl, device_type=cfg.device_type,
+        start_iteration=cfg.start_iteration_predict,
+        num_iteration=cfg.num_iteration_predict,
+        breaker=breaker, fault_plan=fault_plan)
+    batcher = MicroBatcher(
+        lambda X: registry.predict(X, raw_score=cfg.predict_raw_score),
+        max_batch=cfg.serve_max_batch, max_wait_ms=cfg.serve_batch_wait_ms,
+        queue_depth=cfg.serve_queue_depth,
+        timeout_ms=cfg.serve_request_timeout_ms, metrics=metrics,
+        fault_plan=fault_plan)
+    return metrics, breaker, registry, batcher
+
+
+def run_serve(params: Dict[str, Any], cfg) -> None:
+    """task=serve: score via the serving engine (registry + batcher).
+    serve_port > 0 -> HTTP; data=<file> -> batch-score the file (output
+    bit-identical to task=predict on the host engine); else stdin lines.
+    The models run on the run's device_type. serve_models="name=path,..."
+    (the multi-tenant fleet) raises naming ROADMAP item A18(b)."""
+    if cfg.serve_models:
+        _not_ported("serve_models (the multi-tenant fleet)", "A18(b)")
+    if not cfg.input_model:
+        log_fatal("task=serve requires input_model")
+    from .serving import AdmissionController
+    metrics, breaker, registry, batcher = build_serving(cfg)
+    registry.register("default", cfg.input_model)
+    if cfg.serve_watch:
+        # when the process booted on a snapshot file, its iteration seeds
+        # the already-served floor so the watcher doesn't re-promote the
+        # very model it just loaded (registry also persists the floor
+        # across restarts in <prefix>.watch_state.json)
+        from .serving.registry import _SNAP_RE
+        m = _SNAP_RE.search(str(cfg.input_model))
+        registry.watch_snapshots("default", cfg.serve_watch,
+                                 poll_s=cfg.serve_watch_poll_s,
+                                 start=cfg.serve_port > 0,
+                                 initial_iter=int(m.group(1)) if m else -1)
+    batcher.start()
+    # admission control only fronts the HTTP path: file/stdin modes are
+    # the caller's own rows — there is no one to shed for. With default
+    # knobs it is pure depth-watermark shedding (engage at 80% queue);
+    # rate limits and the latency watermark are opt-in
+    admission = None
+    if cfg.serve_port > 0:
+        admission = AdmissionController(
+            batcher, metrics=metrics,
+            rate_qps=cfg.serve_admission_rate_qps,
+            burst=cfg.serve_admission_burst,
+            queue_high=cfg.serve_admission_queue_high,
+            queue_low=cfg.serve_admission_queue_low,
+            p99_slo_ms=cfg.serve_admission_p99_slo_ms,
+            shed_class=cfg.serve_admission_shed_class)
+    try:
+        if cfg.serve_port > 0:
+            server = build_http_server(cfg, registry, batcher, metrics,
+                                       admission=admission, breaker=breaker)
+            log_info(f"serving on http://{server.server_address[0]}:"
+                     f"{server.server_address[1]} (POST /predict, "
+                     f"GET /metrics /health /healthz /readyz)")
+            try:
+                server.serve_forever()
+            except KeyboardInterrupt:
+                pass
+            finally:
+                server.server_close()
+        elif cfg.data:
+            X, _, _, _, _ = _load_text(cfg, cfg.data)
+            # per-row submits in waves: exercises the coalescing path a
+            # live deployment sees, result order preserved
+            results = []
+            pending = []
+            for i in range(X.shape[0]):
+                pending.append(batcher.submit(X[i]))
+                if len(pending) >= min(cfg.serve_queue_depth, 512):
+                    results.extend(batcher.wait(r) for r in pending)
+                    pending = []
+            results.extend(batcher.wait(r) for r in pending)
+            out = np.concatenate([np.asarray(r) for r in results], axis=0)
+            if out.ndim == 1:
+                out = out[:, None]
+            np.savetxt(cfg.output_result, out, delimiter="\t", fmt="%.18g")
+            log_info(f"Finished serving {X.shape[0]} rows; results saved "
+                     f"to {cfg.output_result}")
+        else:
+            for line in sys.stdin:
+                if not line.strip():
+                    continue
+                pred = np.asarray(batcher.predict(_parse_rows(line)))
+                print("\t".join(f"{v:.18g}" for v in pred.reshape(-1)))
+    finally:
+        batcher.stop()
+        registry.stop_watchers()
+        if cfg.serve_metrics_output:
+            metrics.export_json(cfg.serve_metrics_output)
+            log_info(
+                f"Serving metrics saved to {cfg.serve_metrics_output}")
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     argv = argv if argv is not None else sys.argv[1:]
     params = parse_args(argv)
@@ -202,8 +479,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     elif task == "convert_model":
         run_convert_model(params, cfg)
     elif task == "serve":
-        _not_ported("task=serve (the HTTP front-end with admission "
-                    "control, the circuit breaker and the fleet)", "A18(b)")
+        run_serve(params, cfg)
     elif task == "online":
         _not_ported("task=online (the streaming refit loop)", "A13")
     else:

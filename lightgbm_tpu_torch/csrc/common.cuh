@@ -14,6 +14,7 @@
 #define LGBT_THREADS 256      // threads per block of every kernel here
 #define LGBT_SMEM_HIST_BYTES 32768  // private histogram at 4 blocks per SM
 #define LGBT_SMEM_OPTIN_BYTES (200 * 1024)  // largest a block opts into
+#define LGBT_LEAF_CAP 4096    // leaf tables a block stages in shared memory
 
 template <typename V> struct AccOf;
 template <> struct AccOf<float> { typedef double T; };

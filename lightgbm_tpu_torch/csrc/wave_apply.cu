@@ -49,7 +49,13 @@
 // categorical bitset has up to cat_words(B) words (ops/grow.py), more than
 // the staged table holds: that instance reads an entry's word from `cats`
 // in global memory (a few KB, in L1 and L2), one load a categorical test.
-#include "common.cuh"
+// Past LGBT_LEAF_CAP leaves the two maps would not fit a block's shared
+// memory: they live in global memory (wave_table.cuh), built by a
+// one-block prologue and cleared by an epilogue, and a row reads its
+// map words through __ldg.
+#include <type_traits>
+
+#include "wave_table.cuh"
 
 #define LGBT_AP_ENTRIES 128   // LGBT_T_ENTRIES: entries of a wave table
 #define LGBT_AP_MAX_W 8       // bitset words staged (bins <= 256)
@@ -130,9 +136,19 @@ __device__ __forceinline__ void ap_map_entries(const int* __restrict__ t,
   }
 }
 
+// the entry of `leaf` in an int map of the shared form (-1 none, LGBT_DUP)
+struct ApSharedMap {
+  const int* m;
+  int cap;
+  __device__ __forceinline__ int operator()(int leaf) const {
+    return (unsigned)leaf < (unsigned)cap ? m[leaf] : -1;
+  }
+};
+
 // T = uint8_t stages the bitsets (W <= LGBT_AP_MAX_W); uint16_t reads them
-// from `cats`
-template <typename T>
+// from `cats`. GM: the two leaf maps in global memory (gmap, L words each;
+// wave_table.cuh, rule 1), else in dynamic shared memory.
+template <typename T, bool GM>
 __global__ void __launch_bounds__(LGBT_THREADS)
 wave_apply_kernel(const T* __restrict__ X,
                   const int* __restrict__ lor_in,
@@ -140,15 +156,17 @@ wave_apply_kernel(const T* __restrict__ X,
                   const int* __restrict__ cats, int W,
                   const int* __restrict__ bundle, int F,
                   int* __restrict__ lor_out, int* __restrict__ slot_out,
-                  long long N, int Kd, int leaf_cap) {
+                  long long N, int Kd, int leaf_cap,
+                  const int* __restrict__ gmap) {
   constexpr bool kStaged = sizeof(T) == 1;
   __shared__ int4 ent[2 * LGBT_AP_ENTRIES];   // applied, then candidates
   __shared__ unsigned bits[kStaged ? 2 * LGBT_AP_ENTRIES * LGBT_AP_MAX_W
                                    : 1];
-  extern __shared__ int maps[];               // [2, leaf_cap]
+  extern __shared__ int maps[];               // [2, leaf_cap], or none
+  const int scap = GM ? 0 : leaf_cap;
   int* app_of = maps;
-  int* cand_of = maps + leaf_cap;
-  for (int i = threadIdx.x; i < 2 * leaf_cap; i += blockDim.x) maps[i] = -1;
+  int* cand_of = maps + scap;
+  for (int i = threadIdx.x; i < 2 * scap; i += blockDim.x) maps[i] = -1;
   {
     // the active entries' records (the maps name no other)
     const int k = threadIdx.x;
@@ -164,9 +182,14 @@ wave_apply_kernel(const T* __restrict__ X,
     }
   }
   __syncthreads();
-  ap_map_entries(table, Kd, leaf_cap, app_of);
-  ap_map_entries(table + 7 * LGBT_AP_ENTRIES, Kd, leaf_cap, cand_of);
-  __syncthreads();
+  if (!GM) {
+    ap_map_entries(table, Kd, leaf_cap, app_of);
+    ap_map_entries(table + 7 * LGBT_AP_ENTRIES, Kd, leaf_cap, cand_of);
+    __syncthreads();
+  }
+  typedef typename std::conditional<GM, LgbtMap<true>, ApSharedMap>::type M;
+  const M amap = {GM ? gmap : (const int*)app_of, leaf_cap};
+  const M cmap = {GM ? gmap + leaf_cap : (const int*)cand_of, leaf_cap};
 
   const int nl0 = table[15 * LGBT_AP_ENTRIES];
   const long long S = (long long)gridDim.x * blockDim.x;
@@ -182,7 +205,7 @@ wave_apply_kernel(const T* __restrict__ X,
     // the applied split: the row's entry, its byte, its test
 #pragma unroll
     for (int i = 0; i < LGBT_AP_ILP; ++i) {
-      k[i] = (unsigned)leaf[i] < (unsigned)leaf_cap ? app_of[leaf[i]] : -1;
+      k[i] = amap(leaf[i]);
       bin[i] = k[i] >= 0 ? X[(long long)ent[k[i]].x * N + r[i]] : 0;
     }
 #pragma unroll
@@ -198,7 +221,7 @@ wave_apply_kernel(const T* __restrict__ X,
     // the candidate split of the row's new leaf
 #pragma unroll
     for (int i = 0; i < LGBT_AP_ILP; ++i) {
-      k[i] = (unsigned)leaf[i] < (unsigned)leaf_cap ? cand_of[leaf[i]] : -1;
+      k[i] = cmap(leaf[i]);
       bin[i] = k[i] >= 0 ? X[(long long)ent[LGBT_AP_ENTRIES + k[i]].x * N +
                              r[i]]
                          : 0;
@@ -222,26 +245,46 @@ wave_apply_kernel(const T* __restrict__ X,
 // / lor_out / slot_out [N] int32, table [16, 128] int32, cats [2, 128,
 // 1 + W] int32 or null, bundle [4, F] int32 or null (F: the features the
 // table's ids index; C when null); 1 <= Kd <= 128; every leaf id that
-// should match lies below leaf_cap (<= 4096).
+// should match lies below leaf_cap. gmap: null for leaf_cap <=
+// LGBT_LEAF_CAP (the maps in dynamic shared memory), else the global maps'
+// buffer, every word LGBT_GMAP_NONE, left so (wave_table.cuh).
+template <typename T>
+static void ap_launch(const T* X, const int* lor_in, const int* table,
+                      const int* cats, int W, const int* bundle, int F,
+                      int* lor_out, int* slot_out, long long N, int Kd,
+                      int leaf_cap, int* gmap, int grid, cudaStream_t st) {
+  if (!gmap) {
+    // the maps (at most 32 KB) and the static 12 KB stay under 48 KB
+    const size_t smem = 2 * (size_t)leaf_cap * sizeof(int);
+    wave_apply_kernel<T, false><<<grid, LGBT_THREADS, smem, st>>>(
+        X, lor_in, table, cats, W, bundle, F, lor_out, slot_out, N, Kd,
+        leaf_cap, nullptr);
+    return;
+  }
+  const int* cand = table + 7 * LGBT_AP_ENTRIES;
+  lgbt_gmap_launch(gmap, leaf_cap, table, Kd, cand, Kd, nullptr, 0, 1, st);
+  wave_apply_kernel<T, true><<<grid, LGBT_THREADS, 0, st>>>(
+      X, lor_in, table, cats, W, bundle, F, lor_out, slot_out, N, Kd,
+      leaf_cap, gmap);
+  lgbt_gmap_launch(gmap, leaf_cap, table, Kd, cand, Kd, nullptr, 0, 2, st);
+}
+
 extern "C" int lgbt_wave_apply(const void* X, int bin16, const void* lor_in,
                                const void* table, const void* cats, int W,
                                const void* bundle, int F, void* lor_out,
                                void* slot_out, long long N, int Kd,
-                               int leaf_cap, int num_sms, void* stream) {
-  // the maps (at most 32 KB) and the static 12 KB stay under 48 KB
-  const size_t smem = 2 * (size_t)leaf_cap * sizeof(int);
+                               int leaf_cap, void* gmap, int num_sms,
+                               void* stream) {
   const long long quads = (N + LGBT_AP_ILP - 1) / LGBT_AP_ILP;
   const int grid = lgbt_grid(quads, num_sms, 4);
   cudaStream_t st = (cudaStream_t)stream;
   if (bin16)
-    wave_apply_kernel<uint16_t><<<grid, LGBT_THREADS, smem, st>>>(
-        (const uint16_t*)X, (const int*)lor_in, (const int*)table,
-        (const int*)cats, W, (const int*)bundle, F, (int*)lor_out,
-        (int*)slot_out, N, Kd, leaf_cap);
+    ap_launch((const uint16_t*)X, (const int*)lor_in, (const int*)table,
+              (const int*)cats, W, (const int*)bundle, F, (int*)lor_out,
+              (int*)slot_out, N, Kd, leaf_cap, (int*)gmap, grid, st);
   else
-    wave_apply_kernel<uint8_t><<<grid, LGBT_THREADS, smem, st>>>(
-        (const uint8_t*)X, (const int*)lor_in, (const int*)table,
-        (const int*)cats, W, (const int*)bundle, F, (int*)lor_out,
-        (int*)slot_out, N, Kd, leaf_cap);
+    ap_launch((const uint8_t*)X, (const int*)lor_in, (const int*)table,
+              (const int*)cats, W, (const int*)bundle, F, (int*)lor_out,
+              (int*)slot_out, N, Kd, leaf_cap, (int*)gmap, grid, st);
   return (int)cudaGetLastError();
 }

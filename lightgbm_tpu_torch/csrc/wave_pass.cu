@@ -127,12 +127,16 @@ static void lgbt_wave_tiles(const void* X, const void* vals, int vals_int8,
 // (hist_slots.cu). The membership pass zeroes the first zero_acc bytes of
 // acc and zero_out of out (ops/histogram_cuda.py:wave_hist_layout).
 // prefetch > 1: the tiles read a row's bins four columns ahead of its adds
-// (UniformBinsAhead), else one (UniformBins, kernel #1's reader).
+// (UniformBinsAhead), else one (UniformBins, kernel #1's reader). gmap:
+// null for leaf_cap <= LGBT_LEAF_CAP (the shared leaf maps), else the
+// global maps' [3, leaf_cap] int32 buffer, every word LGBT_GMAP_NONE
+// (wave_table.cuh), left so.
 extern "C" int lgbt_wave_pass(const void* X, const void* vals, int vals_int8,
                               const void* lor_in, const void* table,
                               void* lor_out, void* out, void* acc,
                               void* scratch, long long N, int F, int C, int K,
-                              int B, int leaf_cap, int spt, int fpt, int nst,
+                              int B, int leaf_cap, void* gmap, int spt,
+                              int fpt, int nst,
                               int nft, int segs, int min_rows, int merge,
                               int pair, int direct, int group_warps,
                               long long zero_acc, long long zero_out,
@@ -141,8 +145,8 @@ extern "C" int lgbt_wave_pass(const void* X, const void* vals, int vals_int8,
   int* slot = (int*)scratch;
   lgbt_wave_member_launch((const uint8_t*)X, (const int*)lor_in,
                           (const int*)table, (int*)lor_out, slot, N, F, K,
-                          leaf_cap, acc, zero_acc, out, zero_out, num_sms,
-                          st);
+                          leaf_cap, (int*)gmap, acc, zero_acc, out, zero_out,
+                          num_sms, st);
   if (direct) {
     if (vals_int8) {
       lgbt_direct_run<int8_t>((const uint8_t*)X, (const int8_t*)vals, slot,

@@ -36,13 +36,14 @@
 // (ops/histogram_cuda.py:wave_hist_layout); prefetch as lgbt_wave_pass's
 // (wave_pass.cu). parent [K, 2, F, B] f32; scal
 // / fmeta / fmask / rec as lgbt_split_scan_kernel, scan_scratch its [2K]
-// keys and [2K] counters.
+// keys and [2K] counters. gmap as lgbt_wave_pass's (wave_pass.cu).
 extern "C" int lgbt_wave_pass_fused(
     const void* X, const void* vals, const void* lor_in, const void* table,
     void* lor_out, void* out, void* acc, void* scratch, const void* parent,
     const void* scal, const void* fmeta, const void* fmask,
     int fmask_stride, void* rec, void* scan_scratch, long long N, int F,
-    int K, int B, int leaf_cap, int spt, int fpt, int nst, int nft,
+    int K, int B, int leaf_cap, void* gmap, int spt, int fpt, int nst,
+    int nft,
     int segs, int min_rows, int merge, int pair, int direct,
     int group_warps, long long zero_acc, long long zero_out, int prefetch,
     float min_data_slack, float min_hess, float l1, float l2,
@@ -52,8 +53,8 @@ extern "C" int lgbt_wave_pass_fused(
   int* slot = (int*)scratch;
   lgbt_wave_member_launch((const uint8_t*)X, (const int*)lor_in,
                           (const int*)table, (int*)lor_out, slot, N, F, K,
-                          leaf_cap, acc, zero_acc, out, zero_out, num_sms,
-                          st);
+                          leaf_cap, (int*)gmap, acc, zero_acc, out, zero_out,
+                          num_sms, st);
   const LgbtSplitHp hp =
       lgbt_make_hp(min_data_slack, min_hess, l1, l2, max_delta_step,
                    path_smooth, min_gain, use_mds, use_ps);

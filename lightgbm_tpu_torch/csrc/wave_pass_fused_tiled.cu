@@ -23,7 +23,9 @@
 //      so that it matches neither (the TPU kernel's `inP == 1` / `inA ==
 //      1` rule); a row reads at most three dec bytes and writes its new
 //      leaf id and its slot (the candidate whose smaller child it lands
-//      in, else -1);
+//      in, else -1); past LGBT_LEAF_CAP leaves the three maps live in
+//      global memory instead (wave_table.cuh), built by a one-block
+//      prologue and cleared by an epilogue;
 //   2. the smaller children's slot histogram, by the tiled accumulation
 //      engine of hist_tiles.cuh over the uniform storage, on kernel #1's
 //      plan (ops/histogram_cuda.py:plan_hist_tiles): rows grouped by slot,
@@ -46,6 +48,8 @@
 // and C values. The engine's shared-memory adds limit the histogram as
 // they limit hist_slots.cu; the parent histograms (K * 2 * F * B) are read
 // once by the scan.
+#include <type_traits>
+
 #include "fused_tail.cuh"
 #include "wave_table.cuh"
 
@@ -77,9 +81,21 @@ __device__ __forceinline__ int lgbt_entry16(const unsigned short* map,
   return v < LGBT_T_ENTRIES ? v : -1;
 }
 
+// the entry of `leaf` in a shared 16-bit map
+struct Map16 {
+  const unsigned short* m;
+  int cap;
+  __device__ __forceinline__ int operator()(int leaf) const {
+    return lgbt_entry16(m, leaf, cap);
+  }
+};
+
 // The membership pass: lor_out[r] = the row's leaf after the pending and
 // the applied decisions, slot[r] = its candidate if it lands in that
-// candidate's smaller child, else -1.
+// candidate's smaller child, else -1. GM: the three maps in global memory
+// (gmap: pending, applied, candidates, L words each; wave_table.cuh, rule
+// 1), else in the block's shared memory.
+template <bool GM>
 __global__ void __launch_bounds__(LGBT_THREADS)
 fused_member_kernel(const uint8_t* __restrict__ dec,
                     const int* __restrict__ lor_in,
@@ -87,27 +103,37 @@ fused_member_kernel(const uint8_t* __restrict__ dec,
                     const int* __restrict__ pend,
                     const int* __restrict__ pend_nl0,
                     int* __restrict__ lor_out, int* __restrict__ slot,
-                    long long N, int K, int Kd, int leaf_cap) {
-  __shared__ unsigned short pend_of[LGBT_LEAF_CAP], app_of[LGBT_LEAF_CAP],
-      cand_of[LGBT_LEAF_CAP];
-  for (int i = threadIdx.x; i < leaf_cap; i += blockDim.x)
-    pend_of[i] = app_of[i] = cand_of[i] = LGBT_MAP_NONE;
-  __syncthreads();
-  lgbt_map_entries16(pend, Kd, leaf_cap, pend_of);
-  lgbt_map_entries16(table, Kd, leaf_cap, app_of);
-  lgbt_map_entries16(table + 7 * LGBT_T_ENTRIES, K, leaf_cap, cand_of);
-  __syncthreads();
+                    long long N, int K, int Kd, int leaf_cap,
+                    const int* __restrict__ gmap) {
+  constexpr int kCap = GM ? 2 : LGBT_LEAF_CAP;
+  __shared__ unsigned short pend_of[kCap], app_of[kCap], cand_of[kCap];
+  if (!GM) {
+    for (int i = threadIdx.x; i < leaf_cap; i += blockDim.x)
+      pend_of[i] = app_of[i] = cand_of[i] = LGBT_MAP_NONE;
+    __syncthreads();
+    lgbt_map_entries16(pend, Kd, leaf_cap, pend_of);
+    lgbt_map_entries16(table, Kd, leaf_cap, app_of);
+    lgbt_map_entries16(table + 7 * LGBT_T_ENTRIES, K, leaf_cap, cand_of);
+    __syncthreads();
+  }
+  typedef typename std::conditional<GM, LgbtMap<true>, Map16>::type M;
+  typedef typename std::conditional<GM, const int*,
+                                    const unsigned short*>::type P;
+  const M pmap = {GM ? (P)gmap : (P)pend_of, leaf_cap};
+  const M amap = {GM ? (P)(gmap + leaf_cap) : (P)app_of, leaf_cap};
+  const M cmap = {GM ? (P)(gmap + 2 * (long long)leaf_cap) : (P)cand_of,
+                  leaf_cap};
   const int nl0 = table[15 * LGBT_T_ENTRIES], pnl0 = *pend_nl0;
   for (long long r = blockIdx.x * (long long)blockDim.x + threadIdx.x; r < N;
        r += (long long)gridDim.x * blockDim.x) {
     int leaf = lor_in[r];
-    const int kp = lgbt_entry16(pend_of, leaf, leaf_cap);
+    const int kp = pmap(leaf);
     if (kp >= 0 && ((dec[(long long)kp * N + r] >> 2) & 1) == 0)
       leaf = pnl0 + kp;
-    const int ka = lgbt_entry16(app_of, leaf, leaf_cap);
+    const int ka = amap(leaf);
     if (ka >= 0 && (dec[(long long)ka * N + r] & 1) == 0) leaf = nl0 + ka;
     lor_out[r] = leaf;
-    const int kc = lgbt_entry16(cand_of, leaf, leaf_cap);
+    const int kc = cmap(leaf);
     slot[r] = kc >= 0 && ((dec[(long long)kc * N + r] >> 1) & 1) ? kc : -1;
   }
 }
@@ -128,7 +154,9 @@ fused_member_kernel(const uint8_t* __restrict__ dec,
 // int32 (descaled in the scan by scale [2] f32, the grad and hess factors;
 // null with f32 vals). scal / fmeta / fmask /
 // rec as lgbt_split_scan_kernel, scan_scratch its [2K] keys and [2K]
-// counters.
+// counters. gmap: null for leaf_cap <= LGBT_LEAF_CAP (the shared maps),
+// else the global maps' buffer, every word LGBT_GMAP_NONE, left so
+// (wave_table.cuh).
 extern "C" int lgbt_wave_pass_fused_tiled(
     const void* X, const void* vals, int vals_int8, const void* dec,
     const void* lor_in, const void* table, const void* pend,
@@ -136,7 +164,8 @@ extern "C" int lgbt_wave_pass_fused_tiled(
     void* lor_out, void* out, void* acc, void* scratch, const void* parent,
     const void* scal, const void* fmeta, const void* fmask,
     int fmask_stride, void* rec, void* scan_scratch, long long N, int F,
-    int K, int B, int Kd, int leaf_cap, int spt, int fpt, int nst, int nft,
+    int K, int B, int Kd, int leaf_cap, void* gmap, int spt, int fpt,
+    int nst, int nft,
     int segs, int min_rows, int merge, int pair, int direct,
     int group_warps, const void* scale, float min_data_slack,
     float min_hess, float l1, float l2, float max_delta_step,
@@ -147,10 +176,24 @@ extern "C" int lgbt_wave_pass_fused_tiled(
       lgbt_make_hp(min_data_slack, min_hess, l1, l2, max_delta_step,
                    path_smooth, min_gain, use_mds, use_ps);
   int* slot = (int*)scratch;
-  fused_member_kernel<<<lgbt_grid(N, num_sms, 8), LGBT_THREADS, 0, st>>>(
-      (const uint8_t*)dec, (const int*)lor_in, (const int*)table,
-      (const int*)pend, (const int*)pend_nl0, (int*)lor_out, slot, N, K, Kd,
-      leaf_cap);
+  const int grid = lgbt_grid(N, num_sms, 8);
+  const int* t = (const int*)table;
+  if (!gmap) {
+    fused_member_kernel<false><<<grid, LGBT_THREADS, 0, st>>>(
+        (const uint8_t*)dec, (const int*)lor_in, t, (const int*)pend,
+        (const int*)pend_nl0, (int*)lor_out, slot, N, K, Kd, leaf_cap,
+        nullptr);
+  } else {
+    const int* cand = t + 7 * LGBT_T_ENTRIES;
+    lgbt_gmap_launch((int*)gmap, leaf_cap, (const int*)pend, Kd, t, Kd, cand,
+                     K, 1, st);
+    fused_member_kernel<true><<<grid, LGBT_THREADS, 0, st>>>(
+        (const uint8_t*)dec, (const int*)lor_in, t, (const int*)pend,
+        (const int*)pend_nl0, (int*)lor_out, slot, N, K, Kd, leaf_cap,
+        (const int*)gmap);
+    lgbt_gmap_launch((int*)gmap, leaf_cap, (const int*)pend, Kd, t, Kd, cand,
+                     K, 2, st);
+  }
   const LgbtTilePlan p = {spt,  fpt,   nst,  nft,    segs,
                           min_rows, merge, pair, direct, group_warps};
   if (vals_int8)

@@ -38,9 +38,9 @@
 
 // the new leaf ids of rows r .. r+3 of leaf ids v (lgbt_relabel, with the
 // four bin loads issued before any is used)
+template <class Map>
 __device__ __forceinline__ int4 lgbt_relabel4(int4 v, const int* app_p,
-                                              const signed char* app_of,
-                                              int leaf_cap, int nl0,
+                                              Map app_of, int nl0,
                                               const uint8_t* __restrict__ X,
                                               long long N, int F,
                                               long long r) {
@@ -48,7 +48,7 @@ __device__ __forceinline__ int4 lgbt_relabel4(int4 v, const int* app_p,
   int ka[4], p[4], col[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    ka[j] = (unsigned)lor[j] < (unsigned)leaf_cap ? app_of[lor[j]] : -1;
+    ka[j] = app_of(lor[j]);
     p[j] = ka[j] >= 0 ? app_p[ka[j]] : 0;
   }
 #pragma unroll
@@ -70,13 +70,17 @@ __device__ __forceinline__ int4 lgbt_relabel4(int4 v, const int* app_p,
   return make_int4(out[0], out[1], out[2], out[3]);
 }
 
+// GM: the leaf map in global memory (gmap, L words; wave_table.cuh), else
+// in the block's shared memory.
+template <bool GM>
 __global__ void __launch_bounds__(LGBT_RELABEL_THREADS,
                                   LGBT_RELABEL_BLOCKS_PER_SM)
 wave_relabel_kernel(const uint8_t* __restrict__ X, const int* lor_in,
                     const int* __restrict__ table, int* lor_out, long long N,
-                    int F, int leaf_cap, int vec) {
+                    int F, int leaf_cap, const int* __restrict__ gmap,
+                    int vec) {
   __shared__ int app_p[LGBT_T_ENTRIES];
-  __shared__ __align__(4) signed char app_of[LGBT_LEAF_CAP];
+  __shared__ __align__(4) signed char app_of[GM ? 4 : LGBT_LEAF_CAP];
   const long long tid = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   const long long nth = (long long)gridDim.x * blockDim.x;
   const long long n4 = vec ? N >> 2 : 0;
@@ -90,7 +94,9 @@ wave_relabel_kernel(const uint8_t* __restrict__ X, const int* lor_in,
     if (c < n4) v[u] = __ldcs(in4 + c);
   }
   const int nl0 = table[15 * LGBT_T_ENTRIES];
-  lgbt_load_table(table, 0, leaf_cap, false, app_p, nullptr, app_of, nullptr);
+  lgbt_load_table(table, 0, GM ? 0 : leaf_cap, false, app_p, nullptr, app_of,
+                  nullptr);
+  const LgbtMap<GM> amap = lgbt_map<GM>(app_of, gmap, leaf_cap);
   for (long long c0 = tid; c0 < n4; c0 += nth * LGBT_RELABEL_UNROLL) {
     if (c0 != tid) {
 #pragma unroll
@@ -103,18 +109,19 @@ wave_relabel_kernel(const uint8_t* __restrict__ X, const int* lor_in,
     for (int u = 0; u < LGBT_RELABEL_UNROLL; ++u) {
       const long long c = c0 + u * nth;
       if (c < n4)
-        __stcs(out4 + c, lgbt_relabel4(v[u], app_p, app_of, leaf_cap, nl0,
-                                       X, N, F, c << 2));
+        __stcs(out4 + c,
+               lgbt_relabel4(v[u], app_p, amap, nl0, X, N, F, c << 2));
     }
   }
   for (long long r = (n4 << 2) + tid; r < N; r += nth)
-    lor_out[r] = lgbt_relabel(lor_in[r], app_p, app_of, leaf_cap, nl0, X, N,
-                              F, r);
+    lor_out[r] = lgbt_relabel(lor_in[r], app_p, amap, nl0, X, N, F, r);
 }
 
+// gmap: null for leaf_cap <= LGBT_LEAF_CAP (the shared leaf map), else the
+// global maps' buffer, every word LGBT_GMAP_NONE, left so (wave_table.cuh).
 extern "C" int lgbt_wave_relabel(const void* X, const void* lor_in,
                                  const void* table, void* lor_out, long long N,
-                                 int F, int leaf_cap, int num_sms,
+                                 int F, int leaf_cap, void* gmap, int num_sms,
                                  void* stream) {
   // 16-byte accesses need both arrays 16-byte aligned
   const int vec = (((uintptr_t)lor_in | (uintptr_t)lor_out) & 15) == 0;
@@ -123,9 +130,21 @@ extern "C" int lgbt_wave_relabel(const void* X, const void* lor_in,
   long long want = (N + per_block - 1) / per_block;
   const long long cap = (long long)num_sms * LGBT_RELABEL_BLOCKS_PER_SM;
   if (want < 1) want = 1;
-  wave_relabel_kernel<<<(int)(want < cap ? want : cap), LGBT_RELABEL_THREADS,
-                        0, (cudaStream_t)stream>>>(
-      (const uint8_t*)X, (const int*)lor_in, (const int*)table, (int*)lor_out,
-      N, F, leaf_cap, vec);
+  const int grid = (int)(want < cap ? want : cap);
+  cudaStream_t st = (cudaStream_t)stream;
+  const int* t = (const int*)table;
+  if (!gmap) {
+    wave_relabel_kernel<false><<<grid, LGBT_RELABEL_THREADS, 0, st>>>(
+        (const uint8_t*)X, (const int*)lor_in, t, (int*)lor_out, N, F,
+        leaf_cap, nullptr, vec);
+    return (int)cudaGetLastError();
+  }
+  lgbt_gmap_launch((int*)gmap, leaf_cap, t, LGBT_T_ENTRIES, nullptr, 0,
+                   nullptr, 0, 0, st);
+  wave_relabel_kernel<true><<<grid, LGBT_RELABEL_THREADS, 0, st>>>(
+      (const uint8_t*)X, (const int*)lor_in, t, (int*)lor_out, N, F,
+      leaf_cap, (const int*)gmap, vec);
+  lgbt_gmap_launch((int*)gmap, leaf_cap, t, LGBT_T_ENTRIES, nullptr, 0,
+                   nullptr, 0, 2, st);
   return (int)cudaGetLastError();
 }

@@ -20,12 +20,31 @@
 // versions (ops/histogram_cuda.py:_entry_of), whatever order the threads
 // write in; the TPU kernel's masked sum assumes a leaf is named once, and
 // the grower never names one twice.
+//
+// Past the cap (L > LGBT_LEAF_CAP leaves; the JAX package has no cap) the
+// maps live in global memory: up to three maps of L int32 words each
+// (gmap + m * L), which a booster allocates once and fills with
+// LGBT_GMAP_NONE (ops/histogram_cuda.py:new_leaf_map).
+// A prologue launch of one block (lgbt_gmap_kernel) writes the wave's at
+// most 128 entries a map, the main kernel reads a leaf's word through
+// __ldg (at L = 131072 a map is 512 KB, which stays in the 50 MB L2), and
+// an epilogue launch of the same block clears the words it wrote, not L
+// words a wave. The lowest-entry rule is an atomicMin on the leaf's word;
+// the rule of wave_apply.cu and wave_pass_fused_tiled.cu (a leaf named
+// twice matches neither) a compare-and-swap from NONE, then DUP. Every
+// launch is on the caller's stream and reads its leaves from device
+// memory, so a captured graph replays each wave's own. A sorted entry list
+// in shared memory with a binary search a row was the alternative: it
+// costs seven dependent shared loads a lookup where the global map costs
+// one L2 load, and it needs its own sort a block.
 #pragma once
 
 #include "common.cuh"
 
-#define LGBT_LEAF_CAP 4096
 #define LGBT_T_ENTRIES 128
+#define LGBT_GMAP_NONE 0x7FFFFFFF   // a global map's unset word
+#define LGBT_GMAP_DUP 0x7FFFFFFE    // a leaf named twice (rule 1)
+#define LGBT_GMAP_MAPS 3            // maps a global buffer holds
 
 __device__ __forceinline__ int lgbt_pack_entry(const int* __restrict__ t,
                                                int row0, int k, int sil) {
@@ -101,12 +120,78 @@ __device__ __forceinline__ void lgbt_load_table(
 
 // The applied split of row r's leaf, if any: returns the new leaf id (the
 // right child nl0 + entry for rows that go right, else unchanged).
+template <class Map>
 __device__ __forceinline__ int lgbt_relabel(int lor, const int* app_p,
-                                            const signed char* app_of,
-                                            int leaf_cap, int nl0,
+                                            Map app_of, int nl0,
                                             const uint8_t* __restrict__ X,
                                             long long N, int F, long long r) {
-  const int ka = (unsigned)lor < (unsigned)leaf_cap ? app_of[lor] : -1;
+  const int ka = app_of(lor);
   if (ka >= 0 && !lgbt_go_left(app_p[ka], X, N, F, r)) return nl0 + ka;
   return lor;
+}
+
+// The global-map prologue / epilogue, one block of LGBT_GMAP_MAPS *
+// LGBT_T_ENTRIES threads: thread (m, k) takes entry k < n_m of the leaves
+// `l_m` (null: no map m) and, for a leaf in [0, L), sets map m's word.
+// mode 0: the lowest entry (atomicMin); 1: NONE -> k, a second entry DUP;
+// 2: back to NONE (the epilogue, on the same leaves).
+static __global__ void __launch_bounds__(LGBT_GMAP_MAPS * LGBT_T_ENTRIES)
+lgbt_gmap_kernel(int* __restrict__ gmap, int L, const int* l0, int n0,
+                 const int* l1, int n1, const int* l2, int n2, int mode) {
+  const int m = threadIdx.x / LGBT_T_ENTRIES, k = threadIdx.x % LGBT_T_ENTRIES;
+  const int* l = m == 0 ? l0 : (m == 1 ? l1 : l2);
+  const int n = m == 0 ? n0 : (m == 1 ? n1 : n2);
+  if (!l || k >= n) return;
+  const int leaf = l[k];
+  if (leaf < 0 || leaf >= L) return;
+  int* w = gmap + (long long)m * L + leaf;
+  if (mode == 0) {
+    atomicMin(w, k);
+  } else if (mode == 1) {
+    if (atomicCAS(w, LGBT_GMAP_NONE, k) != LGBT_GMAP_NONE)
+      atomicExch(w, LGBT_GMAP_DUP);
+  } else {
+    *w = LGBT_GMAP_NONE;
+  }
+}
+
+static inline void lgbt_gmap_launch(int* gmap, int L, const int* l0, int n0,
+                                    const int* l1, int n1, const int* l2,
+                                    int n2, int mode, cudaStream_t st) {
+  lgbt_gmap_kernel<<<1, LGBT_GMAP_MAPS * LGBT_T_ENTRIES, 0, st>>>(
+      gmap, L, l0, n0, l1, n1, l2, n2, mode);
+}
+
+// A leaf's entry: the shared byte map of a block (L <= LGBT_LEAF_CAP) or
+// a global int map; -1 for a leaf outside [0, cap) or with no entry.
+template <bool GM> struct LgbtMap;
+template <> struct LgbtMap<false> {
+  const signed char* m;
+  int cap;
+  __device__ __forceinline__ int operator()(int leaf) const {
+    return (unsigned)leaf < (unsigned)cap ? m[leaf] : -1;
+  }
+};
+template <> struct LgbtMap<true> {
+  const int* m;
+  int cap;
+  __device__ __forceinline__ int operator()(int leaf) const {
+    if ((unsigned)leaf >= (unsigned)cap) return -1;
+    const int v = __ldg(m + leaf);
+    return v < LGBT_T_ENTRIES ? v : -1;
+  }
+};
+
+template <bool GM>
+__device__ __forceinline__ LgbtMap<GM> lgbt_map(const signed char* s,
+                                                const int* g, int cap);
+template <>
+__device__ __forceinline__ LgbtMap<false> lgbt_map<false>(
+    const signed char* s, const int* g, int cap) {
+  return {s, cap};
+}
+template <>
+__device__ __forceinline__ LgbtMap<true> lgbt_map<true>(
+    const signed char* s, const int* g, int cap) {
+  return {g, cap};
 }

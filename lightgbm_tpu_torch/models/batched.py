@@ -66,7 +66,8 @@ class ChunkRunner:
         self.mode = mode
         st = self.stepper = make_stepper(
             gbdt.grower, gbdt.X_t, gbdt.meta, gbdt.grow_cfg,
-            hist_plan=gbdt.hist_plan, valid_X=gbdt._valid_Xt)
+            hist_plan=gbdt.hist_plan, valid_X=gbdt._valid_Xt,
+            leaf_map=gbdt.leaf_map)
         N, F = gbdt.num_data, len(gbdt.mappers)
 
         def z(shape, dtype=torch.float32):

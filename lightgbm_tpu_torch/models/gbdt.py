@@ -74,8 +74,8 @@ from ..ops.grow import (DeviceTree, GrowConfig, grow_tree,
 from ..ops.grow_fast import grow_tree_fast
 from ..ops.grow_wave import (_wave_buckets, fused_veto_reasons,
                              grow_tree_wave, wave_routes)
+from ..ops import histogram_cuda as hc
 from ..ops.histogram import add_leaf_values_, make_hist_plan
-from ..ops.histogram_cuda import MAX_LEAVES
 from ..ops.predict import predict_leaf_binned
 from ..ops.split import FeatureMeta
 from ..runtime.profiler import global_timer
@@ -110,10 +110,6 @@ def check_slice_config(cfg: Config) -> None:
     if distributed:
         _not_ported("distributed training (tree_learner="
                     f"{cfg.tree_learner})", "A16")
-    if cfg.num_leaves > MAX_LEAVES:
-        # #2, #3, #5 and #10 stage the leaf tables in shared memory
-        _not_ported(f"num_leaves > {MAX_LEAVES} (the kernels' "
-                    f"{MAX_LEAVES}-entry leaf tables)", "A11, the leaf cap")
 
 
 def _parse_interaction_constraints(spec) -> List[List[int]]:
@@ -296,6 +292,9 @@ class GBDT:
         cfg = self.config
         check_slice_config(cfg)
         self.device = resolve_device(cfg.device_type)
+        # the global leaf maps of every wave launch of this booster past
+        # hc.LEAF_CAP leaves (None below it and off the card)
+        self.leaf_map = hc.new_leaf_map(self.device, cfg.num_leaves)
         from ..runtime.faults import active_plan
         self._fault_plan = active_plan(cfg.fault_plan)
         if cfg.device_profile:
@@ -1221,7 +1220,8 @@ class GBDT:
         return grow_tree_wave(self.X_t, g, h, in_bag, self.meta,
                               self.grow_cfg, feat_mask,
                               hist_plan=self.hist_plan, rng_seed=seed,
-                              cegb_used=cegb_used, plain=plain)
+                              cegb_used=cegb_used, plain=plain,
+                              leaf_map=self.leaf_map)
 
     def boost(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """The iteration's [K, N] gradients and hessians (GBDT::Boosting;

@@ -83,6 +83,7 @@ from .grow_wave import (_slack_guard, _split_rows, _top_k, dec_go_left,
                         monotone_penalty_factor, node_masks, pack_wave_cats,
                         refresh_bounds, renew_leaf_values, wave_buckets_for,
                         wave_bundle_map, wave_routes, xt_bins)
+from . import histogram_cuda as hc
 from .histogram import (HistPlan, add_leaf_values_, build_histogram,
                         build_histogram_slots, build_histogram_window,
                         make_hist_plan, wave_apply, wave_pass,
@@ -108,7 +109,8 @@ class WaveStepper:
     def __init__(self, X_t: torch.Tensor, meta: FeatureMeta,
                  cfg: GrowConfig, *, hist_plan: Optional[HistPlan] = None,
                  valid_X: Sequence[torch.Tensor] = (),
-                 plain: bool = False):
+                 plain: bool = False,
+                 leaf_map: Optional[torch.Tensor] = None):
         if cfg.has_cegb:
             # CEGB's used features carry over from tree to tree: the JAX
             # package trains it per iteration too
@@ -122,6 +124,9 @@ class WaveStepper:
         self.fused = self.route in ("fused", "fused_tiled")
         self.hist_plan = hist_plan
         self.L = L = cfg.num_leaves
+        # one buffer for every launch, so the captured graphs replay it
+        self.gmap = leaf_map if leaf_map is not None or plain \
+            else hc.new_leaf_map(dev, L)
         self.M = M = max(L - 1, 1)
         self.B = B = cfg.num_bins_padded
         self.W = W = cfg.cat_words
@@ -614,7 +619,8 @@ class WaveStepper:
             if self.route == "mega":
                 lor, hist_wave = wave_pass(self.X_t, self.vals0,
                                            self.leaf_of_row, tbl, K, self.B,
-                                           L, plain=self.plain)
+                                           L, plain=self.plain,
+                                           gmap=self.gmap)
             else:
                 lor, hist_wave, rec = wave_pass_fused(
                     self.X_t, self.vals0, self.leaf_of_row, tbl,
@@ -622,9 +628,10 @@ class WaveStepper:
                     pack_fused_scalars(bs, smaller_is_left, cons[0],
                                        cons[1]),
                     self.fmeta, fused_feature_mask(self.fmask, self.F, dev),
-                    K, self.B, L, cfg.hp, plain=self.plain)
+                    K, self.B, L, cfg.hp, plain=self.plain, gmap=self.gmap)
             for Xv, vl in zip(self.valid_X, self.valid_leaf):
-                wave_relabel(Xv, vl, tbl, L, out=vl, plain=self.plain)
+                wave_relabel(Xv, vl, tbl, L, out=vl, plain=self.plain,
+                             gmap=self.gmap)
         else:
             cats = None
             if cfg.has_categorical:
@@ -633,7 +640,8 @@ class WaveStepper:
             if self.route == "apply":
                 lor, slot_small = wave_apply(self.X_t, self.leaf_of_row, tbl,
                                              cats, self.bundle_map, K, L,
-                                             plain=self.plain)
+                                             plain=self.plain,
+                                             gmap=self.gmap)
                 hist_wave = build_histogram_slots(
                     self.X_t, self.vals0, slot_small, K, self.B,
                     impl=self.hroute, plan=self.hist_plan, plain=self.plain)
@@ -660,11 +668,12 @@ class WaveStepper:
                     pack_fused_scalars(bs, smaller_is_left, cons[0],
                                        cons[1]),
                     self.fmeta, fm_lr, K, self.B, L, cfg.hp,
-                    self.ch_scale if self.quant else None, plain=self.plain)
+                    self.ch_scale if self.quant else None, plain=self.plain,
+                    gmap=self.gmap)
             for Xv, vl in zip(self.valid_X, self.valid_leaf):
                 # the valid rows hold the original features: no bundle map
                 vl.copy_(wave_apply(Xv, vl, tbl, cats, None, K, L,
-                                    plain=self.plain)[0])
+                                    plain=self.plain, gmap=self.gmap)[0])
         self.leaf_of_row.copy_(lor)
 
         # ---- SEARCH both children of every candidate (the fused kernels
@@ -1188,13 +1197,16 @@ def grow_tree_serial(
 
 
 def make_stepper(grower: str, X_t: torch.Tensor, meta: FeatureMeta,
-                 cfg: GrowConfig, **kw):
+                 cfg: GrowConfig, *, leaf_map: Optional[torch.Tensor] = None,
+                 **kw):
     """The fixed-shape stepper of a grower: SerialStepper for "masked" and
-    "compact", WaveStepper for the wave grower ("wave", "wave_exact")."""
+    "compact", WaveStepper for the wave grower ("wave", "wave_exact"),
+    which takes the booster's global leaf maps `leaf_map` (the serial
+    growers launch no wave kernel)."""
     if grower in ("masked", "compact"):
         return SerialStepper(X_t, meta, cfg, compact=grower == "compact",
                              **kw)
-    return WaveStepper(X_t, meta, cfg, **kw)
+    return WaveStepper(X_t, meta, cfg, leaf_map=leaf_map, **kw)
 
 
 def grow_tree_wave_batched(

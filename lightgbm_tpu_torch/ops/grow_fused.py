@@ -184,14 +184,16 @@ def wave_pass_fused_cuda(X: torch.Tensor, vals: torch.Tensor,
                          parent: torch.Tensor, scal: torch.Tensor,
                          fmeta: torch.Tensor, fmask: torch.Tensor,
                          num_slots: int, num_bins: int, num_leaves: int,
-                         hp: SplitHyperParams
+                         hp: SplitHyperParams, *,
+                         gmap: Optional[torch.Tensor] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One fused wave of the megakernel route: returns (new leaf_of_row [N]
     int32, smaller-child histogram [K, 2, F, B] f32, records [12, 2K]).
     X [F <= 32, N] uint8, vals [2, N] f32, `table` the [16, 128] wave table
     of wave_pass_cuda, `parent` [K, 2 * F * B] f32 the candidates' own
     histograms, `scal` from pack_fused_scalars, `fmeta` from
-    pack_fused_meta, `fmask` uint8 [F] or [2K, F]."""
+    pack_fused_meta, `fmask` uint8 [F] or [2K, F], `gmap` the caller's
+    hc.new_leaf_map past hc.LEAF_CAP leaves (None: one for this launch)."""
     dev = hc._cuda_device(X)
     F, N = hc._check_wave_args(X, leaf_of_row, table, num_leaves, dev)
     _check_slots(num_slots)
@@ -211,7 +213,8 @@ def wave_pass_fused_cuda(X: torch.Tensor, vals: torch.Tensor,
         hc._ptr(tb.acc), hc._ptr(tb.scratch), parent.data_ptr(),
         scal.data_ptr(), fmeta.data_ptr(), fmask.data_ptr(), stride,
         rec.data_ptr(), _scan_scratch(K, F, dev).data_ptr(), N, F, K, B,
-        num_leaves, *hc._wave_hist_args(lay), *_hp_args(hp), sms, stream)
+        num_leaves, hc._ptr(hc._gmap(gmap, dev, num_leaves)),
+        *hc._wave_hist_args(lay), *_hp_args(hp), sms, stream)
     hc._raise_on(rc, "wave_pass_fused")
     hc.LAUNCHES["wave_pass_fused"] += 1
     return new_lor, tb.out, rec
@@ -243,7 +246,8 @@ def wave_pass_fused_tiled_cuda(X: torch.Tensor, vals: torch.Tensor,
                                fmask: torch.Tensor, num_slots: int,
                                num_bins: int, num_leaves: int,
                                hp: SplitHyperParams,
-                               scale: Optional[torch.Tensor] = None
+                               scale: Optional[torch.Tensor] = None, *,
+                               gmap: Optional[torch.Tensor] = None
                                ) -> Tuple[torch.Tensor, torch.Tensor,
                                           torch.Tensor]:
     """One fused wave from decision bits: returns (new leaf_of_row [N]
@@ -257,7 +261,8 @@ def wave_pass_fused_tiled_cuda(X: torch.Tensor, vals: torch.Tensor,
     pend_nl0 + k (`pend_nl0` [1] int32). int8 `vals` accumulate in int32
     and take an int32 `parent`; `scale` [2] f32 = the (grad, hess) descale
     factors. Both live in device memory, so a captured graph replays each
-    wave's own. Every leaf id is below `num_leaves`; K <= Kd."""
+    wave's own. Every leaf id is below `num_leaves`; K <= Kd. `gmap` as in
+    wave_pass_fused_cuda."""
     dev = hc._cuda_device(X)
     if X.dim() != 2:
         raise ValueError("X must be [F, N]")
@@ -293,7 +298,8 @@ def wave_pass_fused_tiled_cuda(X: torch.Tensor, vals: torch.Tensor,
         hc._ptr(tb.acc), hc._ptr(tb.scratch), parent.data_ptr(),
         scal.data_ptr(), fmeta.data_ptr(), fmask.data_ptr(), stride,
         rec.data_ptr(), _scan_scratch(K, F, dev).data_ptr(), N, F, K, B, Kd,
-        num_leaves, plan.slots_per_tile, plan.feats_per_tile,
+        num_leaves, hc._ptr(hc._gmap(gmap, dev, num_leaves)),
+        plan.slots_per_tile, plan.feats_per_tile,
         plan.slot_tiles, plan.feat_tiles, tb.segs, hc.MIN_SEGMENT_ROWS,
         int(plan.merge), int(plan.paired), int(plan.direct), tb.W,
         scale.data_ptr() if quant else None, *_hp_args(hp), sms, stream)

@@ -100,6 +100,7 @@ from .categorical import find_best_split_categorical
 from .grow import DeviceTree, GrowConfig, empty_split_cache
 from .grow_fused import (fused_feature_mask, pack_fused_meta,
                          pack_fused_scalars, unpack_fused_records)
+from . import histogram_cuda as hc
 from .histogram import (ROWWISE_IMPLS, HistPlan, build_histogram,
                         build_histogram_slots, hist_route, make_hist_plan,
                         wave_apply, wave_pass, wave_pass_fused,
@@ -588,7 +589,8 @@ def dec_go_left(X_t: torch.Tensor, feat: torch.Tensor, thr: torch.Tensor,
 
 def _flush_pending(X_t: torch.Tensor, leaf_of_row: torch.Tensor,
                    pend: _Pending, meta: FeatureMeta, cfg: GrowConfig,
-                   buckets: List[int], plain: bool) -> torch.Tensor:
+                   buckets: List[int], plain: bool,
+                   gmap: Optional[torch.Tensor]) -> torch.Tensor:
     """Apply a deferred relabel that no fused launch will run: the wave_apply
     kernel with the pending applies as its applied entries. The JAX package
     computes the same in XLA (grow_wave.py:1619-1630, :2108-2120); with
@@ -605,7 +607,7 @@ def _flush_pending(X_t: torch.Tensor, leaf_of_row: torch.Tensor,
                            cfg.cat_words) if cfg.has_categorical else None)
     return wave_apply(X_t, leaf_of_row, tbl, cats,
                       wave_bundle_map(cfg, dev), Kd, cfg.num_leaves,
-                      plain=plain)[0]
+                      plain=plain, gmap=gmap)[0]
 
 
 def grow_tree_wave(
@@ -621,6 +623,7 @@ def grow_tree_wave(
     rng_seed: int = 0,
     cegb_used: Optional[torch.Tensor] = None,
     plain: bool = False,
+    leaf_map: Optional[torch.Tensor] = None,
 ) -> Tuple[DeviceTree, torch.Tensor]:
     """Grow one tree; returns (DeviceTree, leaf_of_row [N] int32).
 
@@ -635,7 +638,9 @@ def grow_tree_wave(
     `cegb_used` [F] bool marks the features earlier trees of the model
     split on: CEGB's coupled penalty charges only the others (all of them
     when None).
-    `plain=True` runs the kernels' plain PyTorch versions on any device."""
+    `plain=True` runs the kernels' plain PyTorch versions on any device.
+    `leaf_map` is the booster's hc.new_leaf_map, the global leaf maps the
+    wave kernels take past hc.LEAF_CAP leaves (None: one for this tree)."""
     dev = X_t.device
     F_st, N = X_t.shape
     F = meta.num_bins.shape[0]
@@ -644,6 +649,8 @@ def grow_tree_wave(
         hist_plan = make_hist_plan(X_t, hroute, cfg.hist_tiers)
     L = cfg.num_leaves
     M = max(L - 1, 1)
+    gmap = leaf_map if leaf_map is not None or plain \
+        else hc.new_leaf_map(dev, L)
     B = cfg.num_bins_padded
     W = cfg.cat_words
     hp = cfg.hp
@@ -1153,20 +1160,21 @@ def grow_tree_wave(
             if n_cand == 0:
                 # in place: the tree's last wave allocates nothing
                 wave_relabel(X_t, leaf_of_row, tbl, L, out=leaf_of_row,
-                             plain=plain)
+                             plain=plain, gmap=gmap)
                 if n_rs == 0:
                     continue
             elif route == "mega":
                 K = next(k for k in buckets if k >= n_cand)
                 leaf_of_row, hist_wave = wave_pass(X_t, vals0, leaf_of_row,
-                                                   tbl, K, B, L, plain=plain)
+                                                   tbl, K, B, L, plain=plain,
+                                                   gmap=gmap)
             else:
                 K = next(k for k in buckets if k >= n_cand)
                 leaf_of_row, hist_wave, rec = wave_pass_fused(
                     X_t, vals0, leaf_of_row, tbl, hist_cache[cand[:K]],
                     fused_operands(SplitResult(*[x[:K] for x in bs]),
                                    cand[:K], smaller_is_left[:K])[0],
-                    fmeta, fmask, K, B, L, hp, plain=plain)
+                    fmeta, fmask, K, B, L, hp, plain=plain, gmap=gmap)
         elif fusion and n_cand == 0:
             # applies-only wave: its relabel rides into the next fused
             # launch as the pending pass (grow_wave.py:1135-1139); a
@@ -1174,7 +1182,7 @@ def grow_tree_wave(
             # (:1615-1633)
             if pend is not None:
                 leaf_of_row = _flush_pending(X_t, leaf_of_row, pend, meta,
-                                             cfg, buckets, plain)
+                                             cfg, buckets, plain, gmap)
             pend = None if napp == 0 else _Pending(
                 pa, bs2.feature, bs2.threshold, bs2.default_left, iscat2,
                 bits2, nl0)
@@ -1201,7 +1209,7 @@ def grow_tree_wave(
                         best_bitset[ci] if n_cand > 0 else None, W)
                 leaf_of_row, slot_small = wave_apply(
                     X_t, leaf_of_row, tbl, cats, bundle_map, Kd, L,
-                    plain=plain)
+                    plain=plain, gmap=gmap)
                 if n_cand == 0 and n_rs == 0:
                     continue
                 if n_cand > 0:
@@ -1242,7 +1250,7 @@ def grow_tree_wave(
                 leaf_of_row, hist_wave, rec = wave_pass_fused_tiled(
                     X_t, vals0, dec, leaf_of_row, tbl, pend_tbl, pend_nl0,
                     hist_cache[cand[:K]], scal, fmeta, fmask_lr, K, B, L, hp,
-                    ch_scale, plain=plain)
+                    ch_scale, plain=plain, gmap=gmap)
                 pend = None
                 del dec
 
@@ -1358,7 +1366,7 @@ def grow_tree_wave(
     if pend is not None:
         # the tree's last wave applied only: no launch follows it
         leaf_of_row = _flush_pending(X_t, leaf_of_row, pend, meta, cfg,
-                                     buckets, plain)
+                                     buckets, plain, gmap)
 
     if quant and cfg.quant_renew_leaf and cfg.path_smooth <= 1e-15:
         leaf_value = renew_leaf_values(leaf_value, leaf_of_row, g, h,

@@ -157,12 +157,15 @@ def add_leaf_values_(scores: torch.Tensor, values: torch.Tensor,
 
 def wave_pass(X_binned_t: torch.Tensor, vals: torch.Tensor,
               leaf_of_row: torch.Tensor, table: torch.Tensor, num_slots: int,
-              num_bins: int, num_leaves: int, *, plain: bool = False
+              num_bins: int, num_leaves: int, *, plain: bool = False,
+              gmap: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fused relabel + candidate membership + slot histogram of one wave."""
+    """Fused relabel + candidate membership + slot histogram of one wave.
+    `gmap`: the booster's hc.new_leaf_map, which the kernels take past
+    hc.LEAF_CAP leaves (the same below for every wave)."""
     if _use_kernel(X_binned_t, plain):
         return hc.wave_pass_cuda(X_binned_t, vals, leaf_of_row, table,
-                                 num_slots, num_bins, num_leaves)
+                                 num_slots, num_bins, num_leaves, gmap=gmap)
     return hc.wave_pass_plain(X_binned_t, vals, leaf_of_row, table,
                               num_slots, num_bins, num_leaves)
 
@@ -170,25 +173,30 @@ def wave_pass(X_binned_t: torch.Tensor, vals: torch.Tensor,
 def wave_apply(X_binned_t: torch.Tensor, leaf_of_row: torch.Tensor,
                table: torch.Tensor, cats: Optional[torch.Tensor],
                bundle: Optional[torch.Tensor], num_entries: int,
-               num_leaves: int, *, plain: bool = False
+               num_leaves: int, *, plain: bool = False,
+               gmap: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Relabel + candidate slot of one wave of the wide / categorical /
     EFB route, each row decided from the wave's split records."""
-    fn = (hc.wave_apply_cuda if _use_kernel(X_binned_t, plain)
-          else hc.wave_apply_rows_plain)
-    return fn(X_binned_t, leaf_of_row, table, cats, bundle, num_entries,
-              num_leaves)
+    if _use_kernel(X_binned_t, plain):
+        return hc.wave_apply_cuda(X_binned_t, leaf_of_row, table, cats,
+                                  bundle, num_entries, num_leaves, gmap=gmap)
+    return hc.wave_apply_rows_plain(X_binned_t, leaf_of_row, table, cats,
+                                    bundle, num_entries, num_leaves)
 
 
 def wave_relabel(X_binned_t: torch.Tensor, leaf_of_row: torch.Tensor,
                  table: torch.Tensor, num_leaves: int, *,
                  out: Optional[torch.Tensor] = None,
-                 plain: bool = False) -> torch.Tensor:
+                 plain: bool = False,
+                 gmap: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Relabel-only wave (a tree's last wave), into `out` (None: a new
     tensor; leaf_of_row itself: in place)."""
-    fn = (hc.wave_relabel_cuda if _use_kernel(X_binned_t, plain)
-          else hc.wave_relabel_plain)
-    return fn(X_binned_t, leaf_of_row, table, num_leaves, out)
+    if _use_kernel(X_binned_t, plain):
+        return hc.wave_relabel_cuda(X_binned_t, leaf_of_row, table,
+                                    num_leaves, out, gmap=gmap)
+    return hc.wave_relabel_plain(X_binned_t, leaf_of_row, table, num_leaves,
+                                 out)
 
 
 def wave_pass_fused(X_binned_t: torch.Tensor, vals: torch.Tensor,
@@ -196,14 +204,15 @@ def wave_pass_fused(X_binned_t: torch.Tensor, vals: torch.Tensor,
                     parent: torch.Tensor, scal: torch.Tensor,
                     fmeta: torch.Tensor, fmask: torch.Tensor, num_slots: int,
                     num_bins: int, num_leaves: int, hp: SplitHyperParams, *,
-                    plain: bool = False
+                    plain: bool = False, gmap: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused wave of the megakernel route: relabel, slot histogram and the
     split records of both children of every candidate."""
-    fn = (gf.wave_pass_fused_cuda if _use_kernel(X_binned_t, plain)
-          else gf.wave_pass_fused_plain)
-    return fn(X_binned_t, vals, leaf_of_row, table, parent, scal, fmeta,
-              fmask, num_slots, num_bins, num_leaves, hp)
+    args = (X_binned_t, vals, leaf_of_row, table, parent, scal, fmeta,
+            fmask, num_slots, num_bins, num_leaves, hp)
+    if _use_kernel(X_binned_t, plain):
+        return gf.wave_pass_fused_cuda(*args, gmap=gmap)
+    return gf.wave_pass_fused_plain(*args)
 
 
 def wave_pass_fused_tiled(X_binned_t: torch.Tensor, vals: torch.Tensor,
@@ -214,14 +223,16 @@ def wave_pass_fused_tiled(X_binned_t: torch.Tensor, vals: torch.Tensor,
                           fmask: torch.Tensor, num_slots: int, num_bins: int,
                           num_leaves: int, hp: SplitHyperParams,
                           scale: Optional[torch.Tensor] = None, *,
-                          plain: bool = False
+                          plain: bool = False,
+                          gmap: Optional[torch.Tensor] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor,
                                      torch.Tensor]:
     """Fused wave from decision bits (any width, categorical data): the
     pending relabel, this wave's relabel, the slot histogram and the split
     records of both children of every candidate."""
-    fn = (gf.wave_pass_fused_tiled_cuda if _use_kernel(X_binned_t, plain)
-          else gf.wave_pass_fused_tiled_plain)
-    return fn(X_binned_t, vals, dec, leaf_of_row, table, pend_leaf, pend_nl0,
-              parent, scal, fmeta, fmask, num_slots, num_bins, num_leaves,
-              hp, scale)
+    args = (X_binned_t, vals, dec, leaf_of_row, table, pend_leaf, pend_nl0,
+            parent, scal, fmeta, fmask, num_slots, num_bins, num_leaves, hp,
+            scale)
+    if _use_kernel(X_binned_t, plain):
+        return gf.wave_pass_fused_tiled_cuda(*args, gmap=gmap)
+    return gf.wave_pass_fused_tiled_plain(*args)

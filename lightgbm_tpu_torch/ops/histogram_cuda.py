@@ -112,12 +112,47 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 MAX_CHANNELS = 4        # LGBT_MAX_C in csrc/common.cuh
 MAX_WAVE_FEATURES = 32  # the packed table entry holds feat & 31
 MAX_SLOTS = 128         # LGBT_T_ENTRIES in csrc/wave_table.cuh
-MAX_LEAVES = 4096       # LGBT_LEAF_CAP in csrc/wave_table.cuh
+LEAF_CAP = 4096         # LGBT_LEAF_CAP in csrc/common.cuh: leaf
+                        # tables staged in shared memory; past it the
+                        # kernels take the global leaf maps (new_leaf_map)
+MAX_LEAVES = (1 << 31) - 1   # leaf ids are int32
+GMAP_NONE = 0x7FFFFFFF  # LGBT_GMAP_NONE: a global leaf map's unset word
+GMAP_MAPS = 3           # LGBT_GMAP_MAPS: maps a global buffer holds
 T_ROWS = 16             # rows of the semantic wave table
 
 # one build at a time per process: a serving worker thread and the main
 # thread must not race the temporary files of a first-use build
 _BUILD_LOCK = threading.Lock()
+
+
+def new_leaf_map(device: torch.device,
+                 num_leaves: int) -> Optional[torch.Tensor]:
+    """The global leaf -> entry maps of the wave kernels past LEAF_CAP
+    leaves ([GMAP_MAPS * L] int32, every word GMAP_NONE), or None for L <=
+    LEAF_CAP, where each block keeps its maps in shared memory
+    (csrc/wave_table.cuh), and off the card, where the plain versions keep
+    no map. A booster allocates one and passes it to every wave launch
+    (`gmap=`), so a captured graph (models/batched.py) replays a fixed
+    pointer. Each launch writes the wave's entries in a prologue and clears
+    them in an epilogue on the caller's stream, so the buffer is back to
+    GMAP_NONE after every call; its owner launches on it one wave at a
+    time."""
+    if num_leaves <= LEAF_CAP or device.type != "cuda":
+        return None
+    return torch.full((GMAP_MAPS * num_leaves,), GMAP_NONE,
+                      dtype=torch.int32, device=device)
+
+
+def _gmap(gmap: Optional[torch.Tensor], dev: torch.device,
+          num_leaves: int) -> Optional[torch.Tensor]:
+    """A launch's global leaf maps: the caller's, checked, or (none given)
+    a new buffer for this launch alone; None at or below LEAF_CAP."""
+    if num_leaves <= LEAF_CAP:
+        return None
+    if gmap is None:
+        return new_leaf_map(dev, num_leaves)
+    _check(gmap, "gmap", (torch.int32,), (GMAP_MAPS * num_leaves,), dev)
+    return gmap
 
 
 def reset_launch_counts() -> None:
@@ -198,19 +233,19 @@ def _lib(name: str):
         "build_histogram_slots": [P, I, P, I, P, P, P, P, P, P, LL]
         + [I] * 16 + [P],
         "take_leaf_values": [P, I, P, P, LL, I, I, P],
-        "wave_pass": [P, P, I] + [P] * 6 + [LL] + [I] * 15
+        "wave_pass": [P, P, I] + [P] * 6 + [LL] + [I] * 5 + [P] + [I] * 10
         + [LL, LL, I, I, P],
-        "wave_relabel": [P, P, P, P, LL, I, I, I, P],
+        "wave_relabel": [P, P, P, P, LL, I, I, P, I, P],
         "bucketize": [P, LL, LL, P, I, I, I, I, P, P, I, P, P, I, P, LL,
                       LL, I, P],
-        "wave_apply": [P, I, P, P, P, I, P, I, P, P, LL, I, I, I, P],
+        "wave_apply": [P, I, P, P, P, I, P, I, P, P, LL, I, I, P, I, P],
         "hist_rowwise": [P, P, I, P, P, P, P, P, LL] + [I] * 14 + [P],
         "hist_rowwise_packed": [P, P, P, I, P, P, P, P, P, LL] + [I] * 14
         + [P],
-        "wave_pass_fused": [P] * 12 + [I, P, P, LL] + [I] * 14
-        + [LL, LL, I] + HP + [I, P],
+        "wave_pass_fused": [P] * 12 + [I, P, P, LL] + [I] * 4 + [P]
+        + [I] * 10 + [LL, LL, I] + HP + [I, P],
         "wave_pass_fused_tiled": [P, P, I] + [P] * 13
-        + [I, P, P, LL] + [I] * 15 + [P] + HP + [I, P],
+        + [I, P, P, LL] + [I] * 5 + [P] + [I] * 10 + [P] + HP + [I, P],
         "window_partition": [P, I] + [P] * 6 + [LL, I, I, I, P],
     }[name]
     return fn
@@ -730,9 +765,9 @@ def _check_leaf_args(values, leaf_of_row, dev):
     if values.dim() != 1 or leaf_of_row.dim() != 1:
         raise ValueError("values must be [L] and leaf_of_row [N]")
     L, N = values.shape[0], leaf_of_row.shape[0]
-    if L > MAX_LEAVES:
-        raise ValueError(f"the leaf-value kernel stages L <= {MAX_LEAVES} "
-                         f"values in shared memory, got {L}")
+    if not 1 <= L <= MAX_LEAVES:
+        raise ValueError(f"values must hold 1 <= L <= {MAX_LEAVES} leaves, "
+                         f"got {L}")
     _check(values, "values", (torch.float32,), (L,), dev)
     _check(leaf_of_row, "leaf_of_row", (torch.int32,), (N,), dev)
     return L, N
@@ -873,13 +908,15 @@ def _wave_hist_args(lay: WaveHistLayout) -> list:
 
 def wave_pass_cuda(X: torch.Tensor, vals: torch.Tensor,
                    leaf_of_row: torch.Tensor, table: torch.Tensor,
-                   num_slots: int, num_bins: int,
-                   num_leaves: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                   num_slots: int, num_bins: int, num_leaves: int, *,
+                   gmap: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One wave's row sweep: returns (new leaf_of_row [N] int32, smaller-
     child slot histogram [K, C, F, B]). `table` is the [16, 128] int32
     semantic wave table (csrc/wave_table.cuh); every leaf id in it and in
-    leaf_of_row is below `num_leaves`. Two steps on the card: the
-    membership pass (each row's new leaf and slot), then the slot
+    leaf_of_row is below `num_leaves`; `gmap` the caller's new_leaf_map
+    past LEAF_CAP leaves (None: one for this launch). Two steps on the
+    card: the membership pass (each row's new leaf and slot), then the slot
     histogram by the tiled engine or its direct route (wave_hist_layout)."""
     dev = _cuda_device(X)
     F, N = _check_wave_args(X, leaf_of_row, table, num_leaves, dev)
@@ -890,11 +927,12 @@ def wave_pass_cuda(X: torch.Tensor, vals: torch.Tensor,
     lay = wave_hist_layout(num_slots, C, F, num_bins, N,
                            vals.dtype == torch.int8, _sm_count(dev.index))
     return _wave_pass_launch(X, vals, leaf_of_row, table, num_slots,
-                             num_bins, num_leaves, lay)
+                             num_bins, num_leaves, lay,
+                             _gmap(gmap, dev, num_leaves))
 
 
 def _wave_pass_launch(X, vals, leaf_of_row, table, K, B, L,
-                      lay: WaveHistLayout):
+                      lay: WaveHistLayout, gmap: Optional[torch.Tensor]):
     """Launch csrc/wave_pass.cu under `lay` on checked operands."""
     dev = X.device
     F, N = X.shape
@@ -907,7 +945,7 @@ def _wave_pass_launch(X, vals, leaf_of_row, table, K, B, L,
         X.data_ptr(), vals.data_ptr(), int(quant), leaf_of_row.data_ptr(),
         table.data_ptr(), new_lor.data_ptr(), tb.out.data_ptr(),
         _ptr(tb.acc), _ptr(tb.scratch), N, F, C, K, B, L,
-        *_wave_hist_args(lay), sms, stream)
+        _ptr(gmap), *_wave_hist_args(lay), sms, stream)
     _raise_on(rc, "wave_pass")
     LAUNCHES["wave_pass"] += 1
     return new_lor, tb.out
@@ -926,17 +964,21 @@ def _relabel_out(leaf_of_row: torch.Tensor,
 
 def wave_relabel_cuda(X: torch.Tensor, leaf_of_row: torch.Tensor,
                       table: torch.Tensor, num_leaves: int,
-                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      out: Optional[torch.Tensor] = None, *,
+                      gmap: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Apply the wave table's splits only: new leaf_of_row [N] int32,
     written to `out` (None: a new tensor; `out` may be leaf_of_row
-    itself, a relabel in place, as the grower runs it)."""
+    itself, a relabel in place, as the grower runs it); `gmap` as in
+    wave_pass_cuda."""
     dev = _cuda_device(X)
     F, N = _check_wave_args(X, leaf_of_row, table, num_leaves, dev)
     new_lor = _relabel_out(leaf_of_row, out)
     sms, stream = _launch_env(dev)
     rc = _lib("wave_relabel")(X.data_ptr(), leaf_of_row.data_ptr(),
                               table.data_ptr(), new_lor.data_ptr(), N, F,
-                              num_leaves, sms, stream)
+                              num_leaves,
+                              _ptr(_gmap(gmap, dev, num_leaves)), sms,
+                              stream)
     _raise_on(rc, "wave_relabel")
     LAUNCHES["wave_relabel"] += 1
     return new_lor
@@ -1088,7 +1130,8 @@ def _check_split_args(X, leaf_of_row, table, cats, bundle, num_entries,
 def wave_apply_cuda(X: torch.Tensor, leaf_of_row: torch.Tensor,
                     table: torch.Tensor, cats: Optional[torch.Tensor],
                     bundle: Optional[torch.Tensor], num_entries: int,
-                    num_leaves: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                    num_leaves: int, *, gmap: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One wave of the wide / categorical / EFB route, each row decided
     from the split records: returns (new leaf_of_row [N] int32, smaller-
     child slot [N] int32, -1 = none). X [C, N] uint8 (uint16 past 256
@@ -1100,7 +1143,7 @@ def wave_apply_cuda(X: torch.Tensor, leaf_of_row: torch.Tensor,
     `bundle` [4, F] int32 the EFB map of each feature (column, offset or
     -1, num_bin, default bin; None: feature f is column f). Every leaf id
     in the table and in leaf_of_row that should match is below
-    `num_leaves`."""
+    `num_leaves`; `gmap` as in wave_pass_cuda."""
     dev = _cuda_device(X)
     N, F, W = _check_split_args(X, leaf_of_row, table, cats, bundle,
                                 num_entries, num_leaves, dev)
@@ -1111,7 +1154,8 @@ def wave_apply_cuda(X: torch.Tensor, leaf_of_row: torch.Tensor,
                             leaf_of_row.data_ptr(),
                             table.data_ptr(), _ptr(cats), W, _ptr(bundle),
                             F, new_lor.data_ptr(), slot.data_ptr(), N,
-                            num_entries, num_leaves, sms, stream)
+                            num_entries, num_leaves,
+                            _ptr(_gmap(gmap, dev, num_leaves)), sms, stream)
     _raise_on(rc, "wave_apply")
     LAUNCHES["wave_apply"] += 1
     return new_lor, slot

@@ -1,9 +1,11 @@
 """Deterministic fault injection for resilience tests and smoke runs.
 
 Counterpart of lightgbm_tpu/runtime/faults.py: the same plan grammar and
-the same training hooks (models/gbdt.py calls `at_iteration` before each
+the same hooks (models/gbdt.py calls `at_iteration` before each
 iteration and `maybe_fail_collective` inside its step watchdog;
-runtime/checkpoint.py asks `should_corrupt_snapshot`).
+runtime/checkpoint.py asks `should_corrupt_snapshot`; serving/session.py
+calls `slow_score` / `fail_score` per scored chunk and serving/batcher.py
+`wedge_worker` per worker loop).
 
 A fault PLAN is a ``;``/``,``-separated list of directives, each
 ``action@key=value[:key=value...]`` (docs/ROBUSTNESS.md):
@@ -24,9 +26,7 @@ A fault PLAN is a ``;``/``,``-separated list of directives, each
 
 Serving actions (keyed by the 0-based scored-batch / worker-loop index
 instead of the training iteration; ``batch`` defaults to 0, "from the
-first batch"). They parse here, and their hooks stay unwired in the
-port: they drive the serving circuit breaker and the batcher's
-heartbeat, which come with ROADMAP item A18(b):
+first batch"):
 
     slow_score@batch=0:ms=50:times=8   sleep 50ms inside the timed
                                   scoring region of 8 batches (drives
@@ -172,23 +172,25 @@ class FaultPlan:
         return None
 
     def slow_score(self, batch_idx: int) -> None:
-        """Scoring hook, called inside the timed region so the injected
-        delay shows up in batch latency (unwired until A18(b))."""
+        """Scoring hook (serving/session.py score_margin), called inside
+        the timed region so the injected delay shows up in batch latency
+        (and so trips latency-SLO shedding / the breaker's SLO trip)."""
         p = self._consume_serving("slow_score", batch_idx)
         if p is not None:
             time.sleep(float(p.get("ms", 100.0)) / 1e3)
 
     def fail_score(self, batch_idx: int) -> None:
         """Scoring hook: raise so the serving circuit breaker records a
-        failure (unwired until A18(b))."""
+        protected-path failure (consecutive failures -> device->host)."""
         if self._consume_serving("fail_score", batch_idx) is not None:
             raise InjectedFault(
                 f"injected scoring failure at batch {batch_idx}")
 
     def wedge_worker(self, loop_idx: int) -> None:
-        """Micro-batcher worker-loop hook: stall the worker thread
-        (unwired until A18(b)). Default stall is an hour; tests pass a
-        small ``ms``."""
+        """Micro-batcher worker-loop hook: stall the worker thread so
+        its heartbeat goes stale while requests queue (the failure shape
+        /healthz wedge detection exists for). Default stall is an hour;
+        tests pass a small ``ms``."""
         p = self._consume_serving("wedge_worker", loop_idx)
         if p is not None:
             time.sleep(float(p.get("ms", 3_600_000.0)) / 1e3)

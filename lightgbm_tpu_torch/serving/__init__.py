@@ -1,17 +1,27 @@
 """Inference on the port's packed trees (lightgbm_tpu/serving/ counterpart).
 
  * session.py   ServingSession: pinned packed trees, per-bucket scorer
-                cache, pow2 padding, warmup; host / device / binned engines
+                cache, pow2 padding, warmup; host / device / binned engines;
+                breaker-guarded chunks
  * batcher.py   MicroBatcher: coalesce concurrent small requests, deadline
                 propagation, worker heartbeat
- * registry.py  ModelRegistry: named sessions, atomic hot-swap
- * metrics.py   ServingMetrics: QPS / p50 / p99 / occupancy / hit rate
+ * admission.py AdmissionController: per-client token buckets, overload
+                watermarks with hysteresis, reject_new / drop_oldest
+ * breaker.py   CircuitBreaker: device -> host degradation on repeated
+                failures or latency-SLO misses, half-open recovery
+ * registry.py  ModelRegistry: named sessions, atomic hot-swap, snapshot
+                watching
+ * metrics.py   ServingMetrics: QPS / p50 / p99 / occupancy / hit rate,
+                shed and breaker counters, live states
 
-The admission layer, the circuit breaker with the serving fault hooks,
-the fleet and snapshot watching are ROADMAP item A18(b).
+The fleet (several models behind one endpoint) and the compiled engine are
+ROADMAP item A18(b)'s rest.
 """
 
+from .admission import (AdmissionController, OverloadedError,
+                        RateLimitedError, ShedError)
 from .batcher import MicroBatcher, QueueFullError, RequestTimeout
+from .breaker import CircuitBreaker
 from .metrics import ServingMetrics
 from .registry import ModelRegistry
 from .session import CompiledPredictorCache, ServingSession, bucket_for
@@ -19,5 +29,7 @@ from .session import CompiledPredictorCache, ServingSession, bucket_for
 __all__ = [
     "ServingSession", "CompiledPredictorCache", "bucket_for",
     "MicroBatcher", "QueueFullError", "RequestTimeout",
+    "AdmissionController", "ShedError", "RateLimitedError",
+    "OverloadedError", "CircuitBreaker",
     "ModelRegistry", "ServingMetrics",
 ]

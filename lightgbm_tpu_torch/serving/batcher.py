@@ -1,8 +1,6 @@
 """Dynamic micro-batching: coalesce concurrent small requests.
 
-Counterpart of lightgbm_tpu/serving/batcher.py (without its fault-plan
-hook `wedge_worker`, which comes with the circuit breaker, ROADMAP item
-A18(b)).
+Counterpart of lightgbm_tpu/serving/batcher.py.
 
 Single-row latency on an accelerator is dominated by fixed dispatch cost, so
 concurrent batch-1 requests are coalesced into one padded-bucket scoring call
@@ -15,9 +13,9 @@ Back-pressure and failure semantics:
 
  * queue depth is bounded — ``submit`` raises :class:`QueueFullError`
    immediately when the queue is at ``queue_depth`` requests (fail fast
-   rather than building an unbounded latency backlog); the admission
-   layer's shedding policies and health accessors are ROADMAP item
-   A18(b);
+   rather than building an unbounded latency backlog); richer shedding
+   policies (rate limits, watermark hysteresis, drop-oldest) layer on
+   top via :class:`~.admission.AdmissionController`;
  * a request may carry an ABSOLUTE deadline (``submit(deadline=...)``,
    ``time.perf_counter`` domain). Deadlines propagate into batch
    assembly: ``_gather`` fails already-expired requests immediately
@@ -33,7 +31,11 @@ Back-pressure and failure semantics:
    is delivered to every in-flight and queued request, the batcher is
    marked stopped, and subsequent ``submit`` calls fail fast naming the
    original error — a dead worker never strands callers waiting out
-   their timeouts undiagnosed.
+   their timeouts undiagnosed;
+ * the worker updates a heartbeat each loop; ``wedged()`` reports a
+   worker that has stopped making progress while requests queue (the
+   `/healthz` liveness signal; driven in tests by the ``wedge_worker``
+   fault action, runtime/faults.py).
 """
 
 from __future__ import annotations
@@ -84,16 +86,12 @@ class MicroBatcher:
                  max_batch: int = 256, max_wait_ms: float = 2.0,
                  queue_depth: int = 1024, timeout_ms: float = 1000.0,
                  metrics=None, fault_plan=None) -> None:
-        if fault_plan is not None:
-            raise NotImplementedError(
-                "serving fault plans (the batcher's wedge_worker hook) are "
-                "not ported to lightgbm_tpu_torch yet (ROADMAP item "
-                "A18(b), with the circuit breaker)")
         self.predict_fn = predict_fn
         self.max_batch = max(int(max_batch), 1)
         self.max_wait_s = max(float(max_wait_ms), 0.0) / 1e3
         self.timeout_s = float(timeout_ms) / 1e3
         self.metrics = metrics
+        self.fault_plan = fault_plan
         self._q: "queue.Queue[_Request]" = queue.Queue(
             maxsize=max(int(queue_depth), 1))
         self._carry: Optional[_Request] = None   # overflow from last batch
@@ -102,6 +100,7 @@ class MicroBatcher:
         self._fatal: Optional[BaseException] = None  # worker-death cause
         # observability: sizes of the batches actually scored
         self.batch_sizes: List[int] = []
+        self.last_beat = time.perf_counter()     # worker-loop heartbeat
 
     # ------------------------------------------------------------------
     def start(self) -> "MicroBatcher":
@@ -132,6 +131,49 @@ class MicroBatcher:
 
     def __exit__(self, *exc) -> None:
         self.stop()
+
+    # ------------------------------------------------------------------
+    # health / shed accessors (admission.py, cli.py /healthz /readyz)
+    # ------------------------------------------------------------------
+    @property
+    def depth(self) -> int:
+        """Queued requests (approximate; the carry slot counts)."""
+        return self._q.qsize() + (1 if self._carry is not None else 0)
+
+    @property
+    def capacity(self) -> int:
+        return self._q.maxsize
+
+    def alive(self) -> bool:
+        """Worker liveness: started, thread running, no fatal error."""
+        return (self._running and self._fatal is None
+                and self._thread is not None and self._thread.is_alive())
+
+    def wedged(self, threshold_s: Optional[float] = None) -> bool:
+        """True when requests are queued but the worker loop has not
+        beaten its heartbeat for `threshold_s` — a worker stuck inside
+        one batch (wedge_worker fault, a hung device call). Default
+        threshold: generous multiples of the coalescing window and
+        request timeout, never below 0.5 s."""
+        if threshold_s is None:
+            threshold_s = max(0.5, 4.0 * self.max_wait_s,
+                              2.0 * self.timeout_s)
+        return (self.depth > 0
+                and time.perf_counter() - self.last_beat > threshold_s)
+
+    def drop_oldest(self, error: Optional[BaseException] = None) -> bool:
+        """Shed class drop-oldest (admission.py): fail the OLDEST queued
+        request immediately so a fresher one can take its place. False
+        when the queue was empty."""
+        try:
+            r = self._q.get_nowait()
+        except queue.Empty:
+            return False
+        r.abandoned = True
+        r.error = error if error is not None else \
+            RuntimeError("request shed (drop_oldest)")
+        r.event.set()
+        return True
 
     # ------------------------------------------------------------------
     def submit(self, x, deadline: Optional[float] = None) -> _Request:
@@ -242,8 +284,13 @@ class MicroBatcher:
 
     def _loop(self) -> None:
         batch: List[_Request] = []
+        loop_idx = 0
         try:
             while self._running:
+                self.last_beat = time.perf_counter()
+                if self.fault_plan is not None:
+                    self.fault_plan.wedge_worker(loop_idx)
+                loop_idx += 1
                 batch = [r for r in self._gather() if not r.abandoned]
                 if not batch:
                     continue

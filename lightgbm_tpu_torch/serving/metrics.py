@@ -41,19 +41,45 @@ class ServingMetrics:
             "cache_hits": 0, "cache_misses": 0,
             "host_fallbacks": 0, "timeouts": 0, "overflows": 0,
             "swaps": 0, "errors": 0, "worker_deaths": 0,
+            # overload-protection layer (admission.py, breaker.py)
             "expired": 0,            # deadline-expired at batch assembly
+            "admitted": 0,           # passed admission control
+            "shed_rate_limit": 0,    # 429: token bucket empty
+            "shed_overload": 0,      # 503: watermark shed (reject_new)
+            "shed_drop_oldest": 0,   # 503: watermark shed (drop_oldest)
+            "breaker_trips": 0,      # device->host circuit-breaker trips
+            "breaker_recoveries": 0,  # half-open probe closed the breaker
         }
+        # live component states ("breaker": closed/open/half_open,
+        # "shedding": yes/no) — set by breaker.py / admission.py,
+        # exported under serving["states"] and /readyz
+        self.states: Dict[str, str] = {}
+        self._latency_observers: list = []
 
     # -- recording ------------------------------------------------------
     def inc(self, name: str, by: int = 1) -> None:
         with self._lock:
             self.counters[name] = self.counters.get(name, 0) + by
 
+    def set_state(self, name: str, value: str) -> None:
+        with self._lock:
+            self.states[name] = str(value)
+
+    def add_latency_observer(self, fn) -> None:
+        """fn(latency_s) is called after every completed request —
+        outside this object's lock (observers may take their own locks;
+        admission.py feeds its sliding p99 window this way)."""
+        with self._lock:
+            self._latency_observers.append(fn)
+
     def record_request(self, latency_s: float, n_rows: int = 1) -> None:
         with self._lock:
             self.counters["requests"] += 1
             self.counters["rows"] += n_rows
             self.request_latency.record(latency_s)
+            observers = tuple(self._latency_observers)
+        for fn in observers:
+            fn(latency_s)
 
     def record_batch(self, latency_s: float, n_rows: int) -> None:
         """One scored device/host batch (NOT one request): feeds the
@@ -113,6 +139,8 @@ class ServingMetrics:
             if self.counters["batches"]:
                 serving["mean_batch_rows"] = round(
                     self.counters["rows"] / self.counters["batches"], 2)
+            if self.states:
+                serving["states"] = dict(self.states)
             return serving
 
     def to_dict(self) -> Dict[str, Any]:

@@ -30,11 +30,20 @@ Engines:
  * ``auto``   ``device`` on a CUDA device, ``host`` on the CPU.
 
 An explicit ``device`` or ``binned`` engine that cannot be built raises;
-so does ``binning_impl="device"`` whose table cannot be packed. A failing
-device chunk raises too: the host re-score of the JAX package belongs to
-its circuit breaker, which is not ported (``host_fallbacks`` stays 0).
-The ``compiled`` engine, sharded scoring, the breaker and fault plans
-raise NotImplementedError naming their ROADMAP item.
+so does ``binning_impl="device"`` whose table cannot be packed.
+
+Engine degradation: with a circuit breaker (serving/breaker.py) each
+device or binned chunk first asks ``breaker.allow()``; an open breaker
+routes the chunk through the host walk, bitwise ``Booster.predict``'s,
+until a half-open probe succeeds, and a device chunk that fails is
+recorded with the breaker and re-scored on the host. Each chunk routed
+away is counted in ``host_fallbacks`` and logged. Without a breaker a
+failing device chunk raises: nothing is re-scored quietly (the JAX
+package re-scores on the host with or without a breaker, ROADMAP C note
+20). A fault plan (runtime/faults.py) injects ``slow_score`` inside the
+timed region and ``fail_score`` before the chunk's scoring call. The
+``compiled`` engine and sharded scoring raise NotImplementedError naming
+their ROADMAP item.
 
 A ``profiler`` (runtime/profiler.py StageProfiler) records the binning
 stage of the binned engine: a ``bin_rows`` span around the host
@@ -120,9 +129,11 @@ class ServingSession:
                  device_type: Optional[str] = None) -> None:
         if num_shards > 1:
             _not_ported("sharded serving (num_shards > 1)", "A16")
-        if breaker is not None or fault_plan is not None:
-            _not_ported("the serving circuit breaker and its fault hooks "
-                        "(slow_score, fail_score)", "A18(b)")
+        # graceful-degradation circuit breaker (serving/breaker.py): shared
+        # across the versions of one served model (registry.py)
+        self.breaker = breaker
+        self.fault_plan = fault_plan
+        self._n_scored = 0              # chunk counter for fault hooks
         self.profiler = profiler
         self.gbdt = gbdt
         self.version = int(version)
@@ -378,7 +389,9 @@ class ServingSession:
         """[K, n] f64 raw margins for X [n, F] (any request size: chunks
         of up to max_batch, each padded to its bucket). f32 requests keep
         their dtype when the session holds a device bin table and score
-        through the raw-f32 route, bitwise equal to the f64 route."""
+        through the raw-f32 route, bitwise equal to the f64 route. With a
+        breaker, the device chunks are guarded as the module docstring
+        says."""
         X = np.asarray(X)
         raw_f32 = (X.dtype == np.float32 and self._bin_table is not None
                    and self.engine == "binned")
@@ -390,13 +403,35 @@ class ServingSession:
             c1 = min(c0 + self.max_batch, n)
             m = c1 - c0
             b = bucket_for(m, self.min_bucket, self.max_batch)
+            seq, self._n_scored = self._n_scored, self._n_scored + 1
+            use_dev = self.engine in ("device", "binned")
+            if use_dev and self.breaker is not None \
+                    and not self.breaker.allow():
+                use_dev = False
+                self.metrics.inc("host_fallbacks")
+                log_warning(f"serving: breaker open, chunk {seq} "
+                            f"({m} rows) scored on the host")
             t0 = time.perf_counter()
-            if self.engine == "binned":
-                r = (self._score_binned_raw(X, c0, c1, b) if raw_f32
-                     else self._score_binned(X, c0, c1, b))
-            elif self.engine == "device":
-                r = self._score_device(X, c0, c1, b)
+            if self.fault_plan is not None:
+                # inside the timed region: the injected delay must show
+                # up in batch latency (latency-SLO shed / breaker trip)
+                self.fault_plan.slow_score(seq)
+            if use_dev and self.breaker is not None:
+                try:
+                    r = self._score_dev(X, c0, c1, b, raw_f32, seq)
+                    self.breaker.record_success(time.perf_counter() - t0)
+                except BaseException as e:
+                    self.breaker.record_failure(e)
+                    self.metrics.inc("host_fallbacks")
+                    log_warning(f"serving: {self.engine} scoring failed "
+                                f"({e!r}); chunk {seq} re-scored on the "
+                                "host (breaker)")
+                    r = self._host_fn(b)(np.asarray(X[c0:c1], np.float64))
+            elif use_dev:
+                r = self._score_dev(X, c0, c1, b, raw_f32, seq)
             else:
+                if self.fault_plan is not None:
+                    self.fault_plan.fail_score(seq)
                 # the host walk scores the exact rows (padding buys
                 # nothing there), bitwise equal to Booster.predict's host
                 # walk
@@ -408,6 +443,17 @@ class ServingSession:
         if self._avg_div:
             out /= self._avg_div
         return out
+
+    def _score_dev(self, X: np.ndarray, c0: int, c1: int, b: int,
+                   raw_f32: bool, seq: int) -> np.ndarray:
+        """One chunk on the device or binned engine (the fault plan's
+        fail_score first)."""
+        if self.fault_plan is not None:
+            self.fault_plan.fail_score(seq)
+        if self.engine == "binned":
+            return (self._score_binned_raw(X, c0, c1, b) if raw_f32
+                    else self._score_binned(X, c0, c1, b))
+        return self._score_device(X, c0, c1, b)
 
     def _postprocess(self, margins: np.ndarray,
                      raw_score: bool) -> np.ndarray:

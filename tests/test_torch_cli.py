@@ -159,7 +159,7 @@ def test_cli_refit_and_convert(workdir):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["task=serve"], r"A18\(b\)"),
+    (["task=serve", "serve_models=a=m.txt"], r"A18\(b\)"),
     (["task=online"], "A13"),
     (["task=convert_model", "convert_model_language=stablehlo"],
      r"A18\(b\)"),

@@ -347,9 +347,12 @@ def test_new_kernel_wrappers_refuse_cpu_tensors_and_bad_shapes():
     with pytest.raises(ValueError, match="CUDA"):
         hc.build_histogram_slots_cuda(X, torch.zeros((2, 10)),
                                       lor, 16, 64)
-    with pytest.raises(ValueError, match="4096"):
-        hc._check_leaf_args(torch.zeros(hc.MAX_LEAVES + 1), lor,
-                            torch.device("cpu"))
+    # past the leaf cap the kernel reads its values from global memory:
+    # any L >= 1 is taken, an empty table refused
+    assert hc._check_leaf_args(torch.zeros(hc.LEAF_CAP + 1), lor,
+                               torch.device("cpu")) == (hc.LEAF_CAP + 1, 10)
+    with pytest.raises(ValueError, match="1 <= L"):
+        hc._check_leaf_args(torch.zeros(0), lor, torch.device("cpu"))
 
 
 def test_direct_sweep_at_the_root_needs_one_tile():

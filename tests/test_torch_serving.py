@@ -290,8 +290,11 @@ def test_model_text_needs_mappers_for_binned(binary, tmp_path):
     reg.promote("m", path)
     assert reg.session("m").engine == "binned"
     np.testing.assert_array_equal(reg.predict(q, name="m"), ref)
-    with pytest.raises(NotImplementedError, match=r"A18\(b\)"):
-        reg.watch_snapshots("m", path)
+    # snapshot watching is ported (tests/test_torch_serving_slo.py): with
+    # no snapshot beside the model text, a poll promotes nothing
+    reg.watch_snapshots("m", path)
+    assert reg.poll_snapshots("m") is None
+    assert reg.session("m").version == 1
 
 
 def test_refusals(binary):
@@ -300,8 +303,13 @@ def test_refusals(binary):
         bst.serve(engine="compiled")
     with pytest.raises(NotImplementedError, match="ROADMAP item A16"):
         bst.serve(engine="device", num_shards=2)
-    with pytest.raises(NotImplementedError, match=r"A18\(b\)"):
-        bst.serve(engine="device", breaker=object())
+    # the circuit breaker is ported (tests/test_torch_serving_slo.py): a
+    # session with one serves
+    from lightgbm_tpu_torch.serving import CircuitBreaker
+    br = CircuitBreaker()
+    s = bst.serve(engine="device", breaker=br)
+    assert s.breaker is br and s.predict(np.zeros((2, s.num_features))) \
+        .shape == (2,)
     # the stage profiler is ported (tests/test_torch_runtime.py)
     from lightgbm_tpu_torch.runtime.profiler import StageProfiler
     assert bst.serve(profiler=StageProfiler()).profiler is not None

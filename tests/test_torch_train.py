@@ -199,19 +199,42 @@ def test_valid_sets_early_stopping_and_logging(data):
     ({"num_machines": 4}, "A16"),
     ({"tree_learner": "data"}, "A16"),
     ({"num_machines": 8, "tpu_grower": "compact"}, "A16"),
-    ({"num_leaves": 8192}, "A11, the leaf cap"),
     ({"tree_learner": "feature"}, "A16"),
     ({"num_machines": 2}, "A16"),
     ({"pre_partition": True}, "A16"),
     ({"tree_learner": "voting", "tpu_grower": "masked"}, "A16"),
     ({"tree_learner": "voting"}, "A16"),
-    ({"num_leaves": 4097}, "A11, the leaf cap"),
 ])
 def test_configurations_outside_the_slice_raise(data, over, item):
     X, y = data
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
         lt.train({**PARAMS, **TORCH, **over}, lt.Dataset(X, label=y),
                  num_boost_round=1)
+
+
+@pytest.mark.parametrize("num_leaves", [8192, 4097, 131072])
+def test_num_leaves_past_the_leaf_cap_trains(data, num_leaves):
+    """num_leaves past the kernels' 4096-entry shared-memory leaf tables
+    (once refused naming "A11, the leaf cap") trains: the wave kernels
+    take the global leaf maps (ops/histogram_cuda.py:new_leaf_map), on the
+    CPU their plain versions; the tree grows until min_data_in_leaf
+    stops it, as it does under num_leaves = 1024. At 131072 leaves the
+    histogram_pool_size ladder picks masked (the wave grower's caches
+    need GBs), so the wave grower is named."""
+    X, y = data
+    p = {**PARAMS, **TORCH, "min_data_in_leaf": 2}
+    wave = {"tpu_grower": "wave"} if num_leaves == 131072 else {}
+    got = lt.train({**p, **wave, "num_leaves": num_leaves},
+                   lt.Dataset(X, label=y), num_boost_round=2)
+    ref = lt.train({**p, "num_leaves": 1024}, lt.Dataset(X, label=y),
+                   num_boost_round=2)
+    assert got._gbdt.grower == "wave"
+    leaves = [t.num_leaves for t in got._gbdt.models]
+    assert leaves == [t.num_leaves for t in ref._gbdt.models]
+    assert 100 < max(leaves) < 1024
+    assert got.model_to_string().split("parameters:")[0].replace(
+        f"num_leaves: {num_leaves}", "") == ref.model_to_string().split(
+        "parameters:")[0].replace("num_leaves: 1024", "")
 
 
 def test_categorical_and_wide_data_raise(data):
