@@ -161,7 +161,8 @@ Phases, each printing one JSON line:
                      equal to the plain versions', raw scores never against
                      a constraint along a 32-point sweep, histogram_impl=
                      fused vetoed naming monotone_intermediate; waves per
-                     tree, ms per round, train logloss beside basic's
+                     tree, ms per round, train logloss beside basic's;
+                     63 leaves (the serialized waves' depth cut)
      forced_cegb     a forced root and both its children (bench, "mega", 2
                      rounds): trees 0 and 1 carry them in BFS order with
                      the forced bin thresholds, first tree equal to the
@@ -239,7 +240,8 @@ Phases, each printing one JSON line:
                      run
  16. the serial growers and strict leaf-wise order (one line, with the
      card's name and power limit):
-     serial_growers  bench.py's model and table, 2 rounds each of
+     serial_growers  bench.py's model and table at 127 leaves (cut from
+                     255), 2 rounds each of
                      tpu_grower=masked (#1 at K = 2 a split), compact (#1
                      over each split's window), wave_exact on
                      "mega" and under histogram_impl=fused; then the
@@ -403,13 +405,41 @@ Phases, each printing one JSON line:
                      8192 under fused, 1 round each; every first tree
                      equal to the plain versions'
 
- 22. overload (last): bench.py's model behind the registry, batcher,
+ 22. overload: bench.py's model behind the registry, batcher,
      admission and breaker with fail_score / slow_score / wedge_worker
      and the HTTP server on 127.0.0.1:0 (overload_phase)
 
-then a {"kernels": [...]} line (the eleven kernels, #1 and #4 with their
+ 23. A18(b)'s rest (last): bench.py's model, the Criteo model and the
+     5-class softmax model as serving tenants, from their model texts
+     and mappers (one line each, with the card's name and power limit):
+     stacked_bucketize  the stacked bucketize kernel on 4096 Zipf-mixed
+                     rows of the three tenants against their stacked serve
+                     tables: bitwise its plain version and each tenant's
+                     own #6 bins; device / call / plain ms, the bound, and
+                     torch.searchsorted over the gathered table rows
+     fleet           ModelFleet (binned sessions, max_batch 256) under 8
+                     client threads of 400 Zipf-mixed single f32 rows,
+                     unfused then fused=True: every answer bitwise its
+                     tenant's session, fused equal to unfused, no host
+                     fallback, #6 launched unfused and the stacked kernel
+                     fused; one hot swap republishes the supertensor;
+                     per-tenant p50 / p99, batches, tenant switches, the
+                     rebuild seconds
+     export          the bench and Criteo models exported (torch.export
+                     programs of 128 and 256 rows) and loaded on the card:
+                     predict of 4096 rows bitwise Booster.predict, the
+                     compiled engine (#6, then the program) bitwise the
+                     binned engine; export and load seconds, artifact
+                     bytes, a 256-row bucket's ms beside the binned walk's
+     fleet_cli       `python -m lightgbm_tpu_torch task=serve
+                     serve_models=...` on 127.0.0.1: both tenants' routes
+                     within 1e-6 of Booster.predict, /metrics, /healthz,
+                     404 for an unknown tenant, a clean exit on SIGINT
+
+then a {"kernels": [...]} line (the twelve kernels, #1 and #4 with their
 uint16 times, the six changed by the leaf cap with their `leaf_cap`
-times), the nvidia-smi line,
+times, the stacked bucketize with its fused-fleet launches), the
+nvidia-smi line,
 and last
 {"ok": true, "device": {...}}. Any failed check raises before the last
 line and the exit code is not 0. Without a CUDA device, or without the
@@ -486,16 +516,18 @@ def time_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
-def timings(fn, reps, warmup=2, stats=None):
+def timings(fn, reps, warmup=2, stats=None, floor_ms=None):
     """(ms, device_ms) of fn(): `ms` is time_ms's mean call time over
     `reps` back-to-back calls, which includes the host's issue rate where
     that is the slower side; `device_ms` is the sum of the device's
     activity (kernels and memsets) per call under torch.profiler over
     another `reps` calls. A session now and then records no device
     activity, or only part of it, so two sessions that saw some are run
-    (at most eight in all) and the larger is kept; with `stats` (a dict)
-    its kernel launches per call, memsets not counted, are stored under
-    "kernels_per_call"."""
+    (at most eight in all) and the larger is kept; with `floor_ms` (the
+    work's bound) a session counts only where its time a call reaches
+    the floor, and none doing so fails the run. With `stats` (a dict)
+    the kept session's kernel launches per call, memsets not counted,
+    are stored under "kernels_per_call"."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     ms = time_ms(fn, reps, warmup)
@@ -509,13 +541,17 @@ def timings(fn, reps, warmup=2, stats=None):
         dev = [ev for ev in prof.events()
                if ev.device_type == torch.autograd.DeviceType.CUDA]
         us = sum(ev.time_range.elapsed_us() for ev in dev)
+        if floor_ms is not None and us / 1e3 / reps < floor_ms:
+            continue
         if us > best_us:
             best_us = us
             best_n = sum("memset" not in ev.name.lower() for ev in dev)
         seen += us > 0
         if seen == 2:
             break
-    check(best_us > 0, "torch.profiler saw no device activity in 8 sessions")
+    check(best_us > 0, "torch.profiler saw no device activity"
+          + ("" if floor_ms is None else f" reaching the bound {floor_ms} "
+             "ms a call") + " in 8 sessions")
     if stats is not None:
         stats["kernels_per_call"] = best_n / reps
     return ms, best_us / 1e3 / reps
@@ -2745,7 +2781,9 @@ def multiclass_phase(lt, hc, torch, dev, X, w, smi):
     predicts bitwise; a serving session's [5, n] margins equal
     Booster.predict(raw_score=True) (bitwise on the host engine, within
     1e-5 on the binned one); #2 on a row view of the [5, N] scores equals
-    its plain version."""
+    its plain version. Returns the launches by case and the softmax model
+    as (model text, mappers)."""
+    from lightgbm_tpu_torch.ops.predict_binned import mappers_for
     K = 5
     rng = np.random.RandomState(51)
     proj = X @ np.stack([w] + [rng.normal(size=N_FEAT)
@@ -2798,10 +2836,11 @@ def multiclass_phase(lt, hc, torch, dev, X, w, smi):
               f"the plain versions' ({lv_err})")
         if case == "softmax":
             rec.update(_multiclass_outputs(lt, hc, torch, dev, bst, X, K))
+            tenant = (bst.model_to_string(), mappers_for(g))
         emit(rec)
         out[case] = launches
         del bst, g, trees
-    return out
+    return out, tenant
 
 
 def _multiclass_outputs(lt, hc, torch, dev, bst, X, K):
@@ -3124,7 +3163,10 @@ def intermediate_phase(lt, hc, torch, smi, params, ds, w, params_c, ds_c):
     "mega" (#1 the root, #3 the waves, #5 the last relabel, #2 the score
     update), beside the same 2 rounds of `basic`; then the Criteo table
     with its two heaviest count columns constrained, 2 rounds on "apply"
-    (#4, #1). Each: first tree equal to the plain versions', raw scores
+    (#4, #1). Both at 63 leaves (cut from 255: intermediate serializes
+    the waves, about one a split, and the plain versions' first tree
+    walked 255 of them on 2^20 rows, most of the line's time). Each: first
+    tree equal to the plain versions', raw scores
     never against a constraint along a 32-point sweep, histogram_impl=
     fused vetoed naming monotone_intermediate; waves per tree, ms per
     round, train logloss beside basic's."""
@@ -3153,7 +3195,7 @@ def intermediate_phase(lt, hc, torch, smi, params, ds, w, params_c, ds_c):
         for method in ("basic", "intermediate"):
             evals = []
             p = {**base, "metric": ["binary_logloss", "auc"],
-                 "monotone_constraints": mono,
+                 "num_leaves": 63, "monotone_constraints": mono,
                  "monotone_constraints_method": method}
             runs[method] = (_train_timed(lt, hc, torch, p, dset, 2,
                                          evals=evals), evals, p)
@@ -3663,8 +3705,14 @@ def serial_growers_phase(lt, hc, torch, smi, params, ds, X, params_c,
                          ds_c):
     """tpu_grower=masked, compact and wave_exact on the bench table, then
     wave_exact on the Criteo table, then the histogram_pool_size ladder
-    (phase 16)."""
+    (phase 16). Every run of the line, the wave reference and the ladder
+    included, grows 127 leaves (cut from 255: the serial growers'
+    per-iteration splits and the plain versions' first trees over them
+    were most of the line's time, and its batched masked / compact lines'
+    too)."""
     from lightgbm_tpu_torch.utils.synthetic import criteo_like
+    params = {**params, "num_leaves": 127}
+    params_c = {**params_c, "num_leaves": 127}
     t_phase = time.perf_counter()
     out = {"phase": "serial_growers", "model": "bench", "rows": N_ROWS,
            "nvidia_smi": smi}
@@ -3752,7 +3800,7 @@ def serial_growers_phase(lt, hc, torch, smi, params, ds, X, params_c,
     out["tree0_split_by_split"] = pairs
     # the ladder: pools between the wave grower's two [L, 3, F, B] caches
     # plus two [KMAX, 3, F, B] temporaries and one cache, then below one
-    # cache (5.2 and 15.7 MB at F = 28, B = 64, 255 leaves)
+    # cache (L the line's 127 leaves, F = 28, B = 64)
     from lightgbm_tpu_torch.ops.grow_wave import _wave_buckets
     L = params["num_leaves"]
     cache = L * N_FEAT * N_BINS * 3 * 4
@@ -5753,6 +5801,430 @@ def overload_phase(lt, hc, torch, smi, here, bst, X):
     emit(line)
 
 
+# ---------------------------------------------------------------------------
+# A18(b)'s rest: the stacked bucketize, the fleet, the export
+# ---------------------------------------------------------------------------
+def _tenant_queries():
+    """4096 f32 query rows a tenant: bench's held-out rows for bench and
+    the 5-class model (bench's columns), Criteo-shaped rows with unseen,
+    negative and NaN categories for Criteo."""
+    from lightgbm_tpu_torch.utils.synthetic import (CRITEO_CAT_COLUMNS,
+                                                    criteo_like)
+    rng = np.random.RandomState(61)
+    Xb = rng.normal(size=(4096, N_FEAT)).astype(np.float32)
+    Xc, _ = criteo_like(4096, seed=62)
+    cats = np.asarray(CRITEO_CAT_COLUMNS)
+    sub = Xc[:, cats]
+    for vals in ((1000.0, 5000.0), (-1.0, -0.5), (np.nan,)):
+        m = rng.rand(*sub.shape) < 0.03
+        sub[m] = rng.choice(np.asarray(vals, np.float32), size=m.shape)[m]
+    Xc[:, cats] = sub
+    return {"bench": Xb, "criteo": Xc.astype(np.float32), "mc5": Xb}
+
+
+def _tenant_sessions(tenants):
+    from lightgbm_tpu_torch.serving import ServingSession
+    return {n: ServingSession.from_model_string(
+        text, engine="binned", max_batch=256, bin_mappers=mappers,
+        device_type="cuda") for n, (text, mappers) in tenants.items()}
+
+
+def _zipf_tenants(rng, names, n, s=1.1):
+    p = 1.0 / np.arange(1, len(names) + 1) ** s
+    return rng.choice(len(names), size=n, p=p / p.sum())
+
+
+def stacked_bucketize_phase(bk, torch, dev, smi, tenants, qs):
+    """The stacked bucketize kernel (csrc/bucketize_stacked.cu) on 4096
+    Zipf-mixed rows of the bench, Criteo and 5-class tenants against the
+    stacked table of their serve tables: bitwise its plain version and
+    each tenant's own #6 bins (bucketize_cuda on its own table); device
+    ms, call ms, the bytes bound, the plain version's ms and, as the
+    library yardstick, torch.searchsorted over the rows' gathered table
+    rows (the numeric count). Returns the kernels-line record."""
+    sessions = _tenant_sessions(tenants)
+    names = list(tenants)
+    st = bk.upload_stacked_table(bk.stack_bin_tables(
+        [sessions[n]._bin_table for n in names]), dev)
+    F, C, B = st.num_features, st.num_tenants, st.B
+    rng = np.random.RandomState(63)
+    n = 4096
+    tid = _zipf_tenants(rng, names, n).astype(np.int32)
+    X = np.zeros((n, F), np.float32)
+    for c, name in enumerate(names):
+        rows = rng.randint(0, len(qs[name]), size=int((tid == c).sum()))
+        X[tid == c, :qs[name].shape[1]] = qs[name][rows]
+    Xd = torch.from_numpy(X).to(dev)
+    td = torch.from_numpy(tid).to(dev)
+    got = bk.bucketize_stacked_cuda(Xd, td, st)
+    ref = bk.bucketize_stacked_plain(Xd, td, st)
+    torch.cuda.synchronize()
+    check(torch.equal(got, ref), "stacked bucketize differs from its plain "
+          f"version in {int((got != ref).sum())} bins")
+    own_equal = {}
+    for c, name in enumerate(names):
+        s = sessions[name]
+        Fc = s._bm.num_features
+        rows = td == c
+        own = bk.bucketize_cuda(Xd[rows][:, :Fc].contiguous(),
+                                s._bin_tensors)
+        own_equal[name] = bool(torch.equal(got[rows][:, :Fc], own)) and \
+            bool((got[rows][:, Fc:] == 0).all())
+    check(all(own_equal.values()), f"stacked bins differ from a tenant's "
+                                   f"own #6 bins: {own_equal}")
+    CF = C * F
+    nbytes = n * F * 4 + n * 4 + n * F + CF * B * 8 + CF * (2 + B) * 4 \
+        + CF * 32
+    bms, by = bound_ms(nbytes, 0)
+    # a call is a few microseconds: 200 a profiler session, and a session
+    # below the bound (a partial capture) is not kept
+    ms, dms = timings(lambda: bk.bucketize_stacked_cuda(Xd, td, st), 200,
+                      floor_ms=bms)
+    plain_ms = time_ms(lambda: bk.bucketize_stacked_plain(Xd, td, st), 3, 1)
+    r = (td.long()[:, None] * F + torch.arange(F, device=dev)[None]) \
+        .reshape(-1)
+    tab_g = st.table[r].contiguous()
+    x_g = Xd.reshape(-1, 1).contiguous()
+    lib_ms, lib_dms = timings(lambda: torch.searchsorted(tab_g, x_g), 20)
+    del tab_g, x_g
+    rec = dict(name="bucketize_stacked", n=n, F=F, B=B, tenants=names,
+               rows_by_tenant={nm: int((tid == c).sum())
+                               for c, nm in enumerate(names)},
+               max_abs_err=0.0, ms=ms, device_ms=dms, plain_ms=plain_ms,
+               library_ms=lib_ms, library_device_ms=lib_dms, bound_ms=bms,
+               bound_by=by, launches_per_call=1)
+    emit({"phase": "stacked_bucketize", "nvidia_smi": smi,
+          "bitwise_plain": True, "bitwise_own_bins": own_equal, **rec})
+    return rec
+
+
+def _fleet_traffic(fleet, qs, names, threads=8, per_thread=400, seed=64):
+    """Zipf-mixed single f32 rows from client threads: {(tenant, row):
+    answer} and the wall seconds. Each thread's (tenant, row) sequence is
+    drawn from its own seed, the same in every call."""
+    import threading
+    answers, errors = {}, []
+
+    def client(k):
+        rng = np.random.RandomState(seed + k)
+        ts = _zipf_tenants(rng, names, per_thread)
+        try:
+            for t in ts:
+                name = names[t]
+                i = int(rng.randint(len(qs[name])))
+                out = fleet.predict(qs[name][i], tenant=name,
+                                    client=f"c{k}")
+                answers[(name, i)] = np.asarray(out).reshape(-1)
+        except Exception as e:           # reported below, fails the run
+            errors.append(repr(e))
+
+    ths = [threading.Thread(target=client, args=(k,))
+           for k in range(threads)]
+    t0 = time.perf_counter()
+    for t in ths:
+        t.start()
+    for t in ths:
+        t.join(timeout=300)
+    wall = time.perf_counter() - t0
+    check(not errors and not any(t.is_alive() for t in ths),
+          f"fleet clients failed: {errors[:3]}")
+    return answers, wall
+
+
+def _await_generation(fleet, gen, timeout=120.0):
+    deadline = time.perf_counter() + timeout
+    while time.perf_counter() < deadline:
+        if fleet._fused_scorer is not None and fleet.fused_generation > gen:
+            return
+        time.sleep(0.01)
+    raise AssertionError(f"no fused supertensor past generation {gen} in "
+                         f"{timeout} s")
+
+
+def fleet_phase(hc, torch, smi, tenants, qs):
+    """The bench, Criteo and 5-class tenants behind ModelFleet on the card
+    (binned sessions, max_batch 256, raw f32 rows), Zipf-mixed single rows
+    from 8 client threads (400 each): first unfused (each session's #6 then
+    its walk), then fused=True (the stacked kernel, then one fused walk a
+    mixed batch). Every answer is bitwise its tenant's own session's score
+    of the same row, fused equals unfused, no chunk falls back to the
+    host, and the fused run launches the stacked kernel; then one hot swap
+    (bench promoted to its first 4 iterations) republishes the
+    supertensor, whose fused answers are the new session's. Launch counts
+    are reset just before each traffic run and read just after. Records
+    per-tenant p50 / p99, batches and tenant switches, the rebuild
+    seconds."""
+    from lightgbm_tpu_torch.serving import ModelFleet
+    names = list(tenants)
+    sess = _tenant_sessions(tenants)
+    refs = {n: sess[n].predict(qs[n]) for n in names}
+    line = {"phase": "fleet", "nvidia_smi": smi, "tenants": names,
+            "requests": 8 * 400}
+    results, launches = {}, {}
+    for fused in (False, True):
+        fleet = ModelFleet(max_batch=256, max_wait_ms=2.0, queue_depth=1024,
+                           timeout_ms=30000.0, fused=fused,
+                           session_opts={"engine": "binned",
+                                         "device_type": "cuda"})
+        for n, (text, mappers) in tenants.items():
+            fleet.add_model(n, text, bin_mappers=mappers)
+        with fleet:
+            if fused:
+                _await_generation(fleet, 0)
+                check(all(fleet._fused_scorer.can_serve(n) for n in names)
+                      and fleet._fused_scorer._stacked is not None,
+                      "the fused scorer does not cover every tenant")
+            hc.reset_launch_counts()
+            torch.cuda.synchronize()
+            answers, wall = _fleet_traffic(fleet, qs, names)
+            torch.cuda.synchronize()
+            lc = dict(hc.LAUNCHES)
+            m = fleet.metrics_dict()["fleet"]
+            key = "fused" if fused else "unfused"
+            rec = {"wall_s": wall, "requests_per_s": 3200 / wall,
+                   "launches": {k: v for k, v in lc.items() if v},
+                   "batches": m["scheduler"]["batches"],
+                   "tenant_switches": m["scheduler"]["tenant_switches"],
+                   "fused_batches": m["scheduler"]["fused_batches"],
+                   "fused_rows": m["scheduler"]["fused_rows"],
+                   "by_tenant": {n: {
+                       "requests": t["counters"]["requests"],
+                       "p50_ms": t["request_latency"].get("p50_ms"),
+                       "p99_ms": t["request_latency"].get("p99_ms"),
+                       "host_fallbacks": t["counters"]["host_fallbacks"],
+                       "errors": t["counters"]["errors"]}
+                       for n, t in m["tenants"].items()}}
+            for (n, i), a in answers.items():
+                check(np.array_equal(a, np.asarray(refs[n][i]).reshape(-1)),
+                      f"fleet {key}: tenant {n} row {i} differs from its "
+                      "session's score")
+            check(all(t["host_fallbacks"] == 0 and t["errors"] == 0
+                      for t in rec["by_tenant"].values()),
+                  f"fleet {key}: a host fallback or an error: "
+                  f"{rec['by_tenant']}")
+            if fused:
+                check(rec["fused_batches"] > 0
+                      and lc["bucketize_stacked"] > 0,
+                      "the fused fleet never launched the stacked kernel")
+                launches = lc
+                rec["fused_build_s"] = fleet._fused_scorer.build_s
+                # one hot swap: bench to its first 4 iterations
+                gen = fleet.fused_generation
+                text, mappers = tenants["bench"]
+                t0 = time.perf_counter()
+                fleet.promote("bench", text, bin_mappers=mappers,
+                              num_iteration=4)
+                _await_generation(fleet, gen)
+                rec["rebuild_s"] = time.perf_counter() - t0
+                rec["rebuild_build_s"] = fleet._fused_scorer.build_s
+                before = fleet.fused_batches
+                new = fleet.session("bench")
+                got = np.stack([np.asarray(fleet.predict(
+                    qs["bench"][i], tenant="bench")).reshape(-1)
+                    for i in range(16)])
+                check(fleet.fused_batches > before and np.array_equal(
+                    got.reshape(-1), new.predict(qs["bench"][:16])),
+                      "after the hot swap the fused answers are not the "
+                      "new session's")
+                rec["swap_generation"] = fleet.fused_generation
+            else:
+                check(lc["bucketize"] > 0, "the unfused fleet never ran #6")
+            results[key] = answers
+            line[key] = rec
+    check(results["fused"].keys() == results["unfused"].keys() and all(
+        np.array_equal(results["fused"][k], results["unfused"][k])
+        for k in results["fused"]), "fused answers differ from unfused")
+    line["fused_equals_unfused"] = True
+    emit(line)
+    return launches
+
+
+def export_phase(lt, hc, torch, smi, here, tenants, qs):
+    """The bench and Criteo models exported (export_model: a torch.export
+    program a bucket of 128 and 256 rows, uint8 and raw f32; each program
+    takes about a second of host time to export and to load) and loaded
+    on the card
+    (load_compiled, device cuda, which attaches #6): predict of 4096 f32
+    rows (#6 once a 256-row chunk, counted from 0 around the call, then
+    the bucket's uint8 program) and of their f64 copies bitwise
+    Booster.predict of the same model text (the host walk); the compiled
+    engine (f32 rows through #6, then the exported
+    program) bitwise the binned engine; export seconds, artifact bytes,
+    load and warm-up seconds, and the 256-row bucket's ms (CUDA events)
+    beside the binned engine's walk."""
+    import shutil
+    import tempfile
+    from lightgbm_tpu_torch.export import export_model, load_compiled
+    from lightgbm_tpu_torch.ops.predict_binned import predict_margin_binned
+    from lightgbm_tpu_torch.serving import ServingSession
+    tmp = tempfile.mkdtemp(dir=here)
+    line = {"phase": "export", "nvidia_smi": smi}
+    try:
+        for name in ("bench", "criteo"):
+            text, mappers = tenants[name]
+            bst = lt.Booster(model_str=text)
+            Xq = qs[name]
+            art = os.path.join(tmp, name)
+            t0 = time.perf_counter()
+            manifest = export_model(bst, art, bin_mappers=mappers,
+                                    max_batch=256, min_bucket=128)
+            export_s = time.perf_counter() - t0
+            nbytes = sum(os.path.getsize(os.path.join(art, f))
+                         for f in os.listdir(art))
+            t0 = time.perf_counter()
+            cm = load_compiled(art, device=torch.device("cuda"))
+            cm.warmup()
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            check(cm.raw_route == "kernel", f"export {name}: the loaded "
+                  f"artifact bins f32 rows by {cm.raw_route!r}, not #6")
+            want = bst.predict(Xq)
+            hc.reset_launch_counts()
+            got = cm.predict(Xq)
+            art_lc = dict(hc.LAUNCHES)
+            same_f32 = np.array_equal(got, want)
+            same_f64 = np.array_equal(cm.predict(Xq.astype(np.float64)),
+                                      bst.predict(Xq.astype(np.float64)))
+            s_bin = ServingSession.from_model_string(
+                text, engine="binned", max_batch=256, bin_mappers=mappers,
+                device_type="cuda")
+            s_cmp = ServingSession.from_model_string(
+                text, engine="compiled", max_batch=256, bin_mappers=mappers,
+                device_type="cuda")
+            hc.reset_launch_counts()
+            cmp32 = s_cmp.score_margin(Xq)
+            lc = dict(hc.LAUNCHES)
+            same_engine = np.array_equal(cmp32, s_bin.score_margin(Xq)) \
+                and np.array_equal(
+                    s_cmp.score_margin(Xq.astype(np.float64)),
+                    s_bin.score_margin(Xq.astype(np.float64)))
+            same_artifact = np.array_equal(cm.score_margin_f32(Xq), cmp32)
+            xb = torch.from_numpy(s_bin._bm.bin_rows(
+                Xq[:256].astype(np.float64))).to(s_bin.device)
+            prog = cm._fn("bucket", 256)
+            bucket_ms = time_ms(lambda: prog(xb), 20)
+            binned_ms = time_ms(lambda: predict_margin_binned(
+                s_bin._pa, xb, s_bin.K), 20)
+            line[name] = {
+                "export_s": export_s, "artifact_bytes": nbytes,
+                "programs": len([f for f in manifest["files"]
+                                 if f.endswith(".pt2")]),
+                "buckets": manifest["buckets"],
+                "bin_and_score": manifest["bin_and_score"],
+                "load_warm_s": load_s,
+                "predict_bitwise_f32": same_f32,
+                "predict_bitwise_f64": same_f64,
+                "compiled_bitwise_binned": same_engine,
+                "artifact_f32_bitwise_compiled": same_artifact,
+                "compiled_bucketize_launches": lc["bucketize"],
+                "artifact_raw_route": cm.raw_route,
+                "artifact_bucketize_launches": art_lc["bucketize"],
+                "bucket_256_ms": bucket_ms, "binned_256_ms": binned_ms}
+            check(same_f32 and same_f64, f"export {name}: artifact predict "
+                                         "differs from Booster.predict")
+            check(same_engine and same_artifact,
+                  f"export {name}: the compiled engine differs from binned")
+            check(lc["bucketize"] > 0, f"export {name}: the compiled "
+                                       "engine's f32 route never ran #6")
+            check(art_lc["bucketize"] == len(Xq) // 256,
+                  f"export {name}: the artifact's f32 predict launched #6 "
+                  f"{art_lc['bucketize']} times, not one a chunk")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit(line)
+
+
+def fleet_cli_phase(lt, smi, here, tenants, qs):
+    """`python -m lightgbm_tpu_torch task=serve serve_models=bench=...,
+    criteo=...` on 127.0.0.1 (the fleet's HTTP server; serve_engine=auto,
+    the device engine on the card): 64 rows to each tenant's route within
+    1e-6 of Booster.predict, /metrics with both tenants, /healthz 200,
+    an unknown tenant 404; the process is stopped with SIGINT (its
+    finally stops the fleet) and must exit."""
+    import signal
+    import socket
+    import tempfile
+    import urllib.error
+    import urllib.request
+    tmp = tempfile.TemporaryDirectory(dir=here)
+    paths = {}
+    for name in ("bench", "criteo"):
+        paths[name] = os.path.join(tmp.name, f"{name}.txt")
+        with open(paths[name], "w") as f:
+            f.write(tenants[name][0])
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {**os.environ, "PYTHONPATH": here}
+    env.pop("LIGHTGBM_TPU_FAULT_PLAN", None)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "lightgbm_tpu_torch", "task=serve",
+         "serve_models=" + ",".join(f"{n}={p}" for n, p in paths.items()),
+         f"serve_port={port}", "serve_host=127.0.0.1", "verbosity=-1"],
+        cwd=tmp.name, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+    def req(path, body=None):
+        r = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                   data=body)
+        try:
+            with urllib.request.urlopen(r, timeout=60) as resp:
+                return resp.status, json.loads(resp.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    line = {"phase": "fleet_cli", "nvidia_smi": smi}
+    try:
+        ready = None
+        while time.perf_counter() - t0 < 180 and proc.poll() is None:
+            try:
+                ready = req("/readyz")
+                if ready[0] == 200:
+                    break
+            except OSError:
+                time.sleep(0.2)
+        check(ready is not None and ready[0] == 200,
+              f"the fleet server never became ready (exit {proc.poll()})")
+        line["ready_s"] = time.perf_counter() - t0
+        errs = {}
+        for name in ("bench", "criteo"):
+            rows = qs[name][:64]
+            body = json.dumps({"rows": [[None if np.isnan(v) else float(v)
+                                         for v in r] for r in rows]})
+            code, out = req(f"/predict/{name}", body.encode())
+            check(code == 200, f"fleet CLI /predict/{name}: {code} {out}")
+            want = lt.Booster(model_str=tenants[name][0]).predict(rows)
+            errs[name] = float(np.max(np.abs(
+                np.asarray(out["predictions"]) - want)))
+        code_m, met = req("/metrics")
+        code_h, _ = req("/healthz")
+        code_404, _ = req("/predict/nope", b"[[1.0]]")
+        line.update(max_abs_err_vs_predict=errs, metrics_code=code_m,
+                    tenants=sorted(met["fleet"]["tenants"]),
+                    healthz_code=code_h, unknown_tenant_code=code_404)
+        check(all(e <= 1e-6 for e in errs.values()),
+              f"fleet CLI answers vs Booster.predict: {errs}")
+        check(code_m == 200 and line["tenants"] == ["bench", "criteo"]
+              and code_h == 200 and code_404 == 404,
+              f"fleet CLI routes: {line}")
+    finally:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGINT)
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        log = proc.stdout.read() if proc.stdout else ""
+        tmp.cleanup()
+    line["exit_code"] = proc.returncode
+    line["wall_s"] = time.perf_counter() - t0
+    emit(line)
+    check(proc.returncode == 0, f"the fleet server exited "
+                                f"{proc.returncode}: {log[-2000:]}")
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -5766,6 +6238,7 @@ def main():
         from lightgbm_tpu_torch.ops import grow_fused as gf
         from lightgbm_tpu_torch.ops import histogram_cuda as hc
         from lightgbm_tpu_torch.ops import histogram_rowwise as hr
+        from lightgbm_tpu_torch.ops.predict_binned import mappers_for
     except ImportError as e:
         print(f"chip_smoke: the lightgbm_tpu_torch package is not beside "
               f"this script ({e})", file=sys.stderr)
@@ -5952,6 +6425,8 @@ def main():
     rw_launches = rowwise_runs_phase(lt, hc, torch, bst_c, ds_c)
     criteo_serve_phase(hc, torch, bst_c)
     params_criteo, ds_criteo = bst_c.params, ds_c
+    # the Criteo model serves again as a fleet tenant (its text and mappers)
+    criteo_tenant = (bst_c.model_to_string(), mappers_for(g_c))
     del bst_c, ds_c, h_c, g_c
     apply_storages.append(efb_phase(lt, hc, torch))
     narrow_cat_phase(lt, hc, torch)
@@ -5960,7 +6435,8 @@ def main():
 
     # ---- 13. every objective, multiclass [K, N] scores, ranking, and
     # per-node sampling
-    multiclass_phase(lt, hc, torch, dev, X, w, smi)
+    # the softmax model serves again as the fleet's 5-class tenant
+    mc_tenant = multiclass_phase(lt, hc, torch, dev, X, w, smi)[1]
     objectives_phase(lt, hc, torch, X, w, ds, smi)
     bynode_xt_phase(lt, hc, torch, dev, params, ds, smi)
     rank_phase(lt, hc, torch, dev, smi)
@@ -6012,6 +6488,18 @@ def main():
     # fault hooks, deadlines, the HTTP server, snapshot watching
     overload_phase(lt, hc, torch, smi, here, bst, X)
 
+    # ---- 23. A18(b)'s rest: the bench, Criteo and 5-class models as
+    # tenants: the stacked bucketize kernel, the fleet unfused and fused,
+    # the exported artifact and the compiled engine, the fleet's CLI server
+    tenants = {"bench": (bst.model_to_string(), mappers_for(gbdt)),
+               "criteo": criteo_tenant, "mc5": mc_tenant}
+    qs = _tenant_queries()
+    krec["bucketize_stacked"] = stacked_bucketize_phase(
+        bk, torch, dev, smi, tenants, qs)
+    fleet_launches = fleet_phase(hc, torch, smi, tenants, qs)
+    export_phase(lt, hc, torch, smi, here, tenants, qs)
+    fleet_cli_phase(lt, smi, here, tenants, qs)
+
     src = {"build_histogram_slots": "hist_slots.cu",
            "take_leaf_values": "take_leaf_values.cu",
            "wave_pass": "wave_pass.cu", "wave_relabel": "wave_relabel.cu",
@@ -6020,7 +6508,8 @@ def main():
            "hist_rowwise_packed": "hist_rowwise.cu",
            "wave_pass_fused": "wave_pass_fused.cu",
            "wave_pass_fused_tiled": "wave_pass_fused_tiled.cu",
-           "window_partition": "window_partition.cu"}
+           "window_partition": "window_partition.cu",
+           "bucketize_stacked": "bucketize_stacked.cu"}
     replaces = {
         "build_histogram_slots":
             "lightgbm_tpu/ops/histogram_pallas.py:280",
@@ -6035,7 +6524,10 @@ def main():
         "wave_pass_fused_tiled": "lightgbm_tpu/ops/grow_fused.py:656",
         # an XLA partition there, no pallas_call: the port's kernel for the
         # batched compact step
-        "window_partition": "lightgbm_tpu/ops/grow_fast.py:218"}
+        "window_partition": "lightgbm_tpu/ops/grow_fast.py:218",
+        # all-XLA there, no pallas_call: the port's kernel of the fleet's
+        # fused drain
+        "bucketize_stacked": "lightgbm_tpu/ops/bucketize.py:448"}
     krec["bucketize"] = brec["train"]
     # the bucketize kernel's main-path launches: ingest plus serving
     launches["bucketize"] = ingest_launches["bucketize"] \
@@ -6049,6 +6541,8 @@ def main():
     launches["wave_pass_fused_tiled"] = cf_launches["wave_pass_fused_tiled"]
     # the partition kernel's launches on the ranking table's compact run
     launches["window_partition"] = rank_launches["window_partition"]
+    # the stacked bucketize's launches on the fused fleet's traffic
+    launches["bucketize_stacked"] = fleet_launches["bucketize_stacked"]
     # uint16 storage past 256 bins: #1 at the bench and Criteo roots, #4 on
     # the Criteo storage at Kd = 128
     wide_rec = {"build_histogram_slots": wide_hist,
@@ -6079,6 +6573,10 @@ def main():
                 "bound_ms", "bound_by", "map_bytes")}
                 for L, w in lc_rec.get(name, {}).items()} or None,
             "pass": True})
+    low = [(k["name"], k["device_ms"], k["bound_ms"]) for k in kernels
+           if k["device_ms"] < k["bound_ms"]]
+    check(not low, f"device times below their bounds (a partial profiler "
+                   f"capture): {low}")
     emit({"kernels": kernels})
     for line in smi:
         print(line)

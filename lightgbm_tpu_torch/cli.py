@@ -16,9 +16,15 @@ checksum manifests, checkpoints and resume (runtime/checkpoint.py), and
 `device_profile` with `profile_output` (runtime/profiler.py).
 `task=serve` serves one model (run_serve: the registry with snapshot
 watching, the micro-batcher, admission control and the circuit breaker,
-over HTTP at serve_port > 0, else a file or stdin); `serve_models` (the
-fleet) and `convert_model_language=stablehlo` raise naming ROADMAP item
-A18(b), `task=online` A13.
+over HTTP at serve_port > 0, else a file or stdin), or, with
+`serve_models="name=path,..."`, a multi-tenant fleet (run_serve_fleet:
+serving/fleet.py; `serve_fused=true` is fatal there, since a model file
+carries no bin mappers for the fused drain);
+`task=convert_model convert_model_language=torch_export data=<training
+file>` writes the exported serving artifact (export/compile.py).
+`convert_model_language=stablehlo` is fatal (the port writes no
+StableHLO); `task=online` and `serve_fused_shards > 1` raise naming ROADMAP
+items A13 and A16.
 """
 
 from __future__ import annotations
@@ -179,12 +185,52 @@ def run_refit(params: Dict[str, Any], cfg) -> None:
 
 
 def run_convert_model(params: Dict[str, Any], cfg) -> None:
-    """task=convert_model: `convert_model_language=cpp` (or "") writes the
-    standalone if-else C++ (Application::ConvertModel)."""
+    """task=convert_model. `convert_model_language=cpp` (or "") writes the
+    standalone if-else C++ (Application::ConvertModel);
+    `convert_model_language=torch_export` freezes the model into an
+    exported serving artifact directory (export/compile.py), the port's
+    counterpart of the JAX package's `stablehlo` artifact. It needs the
+    frozen per-feature bin edges, which model text files do not carry:
+    pass `data=<training file>` (with the same binning params) and they
+    are re-derived deterministically (lightgbm_tpu/cli.py:796-846)."""
     if cfg.convert_model_language == "stablehlo":
-        _not_ported("convert_model_language=stablehlo (the compiled "
-                    "serving artifact, export)", "A18(b)")
+        log_fatal("convert_model_language=stablehlo writes the JAX "
+                  "package's StableHLO artifact, which lightgbm_tpu_torch "
+                  "cannot write; use convert_model_language=torch_export "
+                  "(the exported serving artifact)")
     booster = _input_booster(params, cfg, "convert_model")
+    if cfg.convert_model_language == "torch_export":
+        if not cfg.data:
+            log_fatal(
+                "convert_model_language=torch_export requires data=<training "
+                "file>: models loaded from text carry no frozen BinMapper "
+                "tables, so the bin edges are re-derived from the training "
+                "data (same data + binning params => identical bins)")
+        from .export.compile import export_model
+        X, y, w, group, names = _load_text(cfg, cfg.data)
+        h = Dataset(X, label=y, weight=w, group=group,
+                    feature_name=list(names),
+                    params=dict(params)).construct()._handle
+        # per-ORIGINAL-feature mappers (the handle's are inner-indexed)
+        mappers = [None] * (int(max(h.real_feature_index)) + 1
+                            if len(h.real_feature_index) else 0)
+        for inner, orig in enumerate(h.real_feature_index):
+            if inner < len(h.mappers):
+                mappers[orig] = h.mappers[inner]
+        out_dir = cfg.convert_model \
+            if cfg.convert_model not in ("", "gbdt_prediction.cpp") \
+            else "compiled_model"
+        try:
+            export_model(booster, out_dir, bin_mappers=mappers,
+                         max_batch=cfg.serve_max_batch,
+                         min_bucket=cfg.serve_min_bucket,
+                         start_iteration=cfg.start_iteration_predict,
+                         num_iteration=cfg.num_iteration_predict)
+        except ValueError as e:
+            log_fatal(str(e))
+        log_info(f"Finished converting model; exported artifact saved to "
+                 f"{out_dir}")
+        return
     out = cfg.convert_model or "gbdt_prediction.cpp"
     atomic_write_text(out, booster.dump_model_to_cpp())
     log_info(f"Finished converting model; saved to {out}")
@@ -214,29 +260,14 @@ def _parse_rows(text: str) -> np.ndarray:
 _MAX_BODY_BYTES = 32 << 20
 
 
-def build_http_server(cfg, registry, batcher, metrics,
-                      admission=None, breaker=None):
-    """Threaded HTTP front-end (lightgbm_tpu/cli.py build_http_server).
-    Routes:
-
-      POST /predict  — score rows; overload protection maps to status
-                       codes: 429 (rate limited) / 503 (shed, queue
-                       full) with ``Retry-After``, 504 (deadline or
-                       timeout), 413 (oversize body), 400 (malformed)
-      GET /metrics   — serving summary JSON
-      GET /health    — legacy liveness (kept for old probes)
-      GET /healthz   — liveness: worker thread alive and not wedged
-      GET /readyz    — readiness: a model is registered and scoring is
-                       possible; body reports breaker/shedding state
-
-    A per-request deadline comes from the ``serve_deadline_header``
-    header (ms, overrides) or ``serve_deadline_ms`` (default budget);
-    clients are keyed for rate limiting by ``X-Client`` or their
-    address. Factory so tests can bind port 0 and read back
-    ``server.server_address``; ``serve_forever`` is the caller's call.
-    """
+def _handler_base(cfg):
+    """The request handler both HTTP front ends share (lightgbm_tpu/cli.py
+    build_http_server / build_fleet_http_server): JSON replies with an
+    integer ``Retry-After`` on a shed, the per-request deadline (the
+    ``serve_deadline_header`` header in ms, else ``serve_deadline_ms``),
+    the body read (413 past _MAX_BODY_BYTES, 400 malformed) and the
+    overload status codes of one prediction."""
     import http.server
-    import json
     import math
     import time as _time
 
@@ -262,35 +293,6 @@ def build_http_server(cfg, registry, batcher, metrics,
             self.end_headers()
             self.wfile.write(body)
 
-        def do_GET(self):
-            if self.path == "/metrics":
-                self._send(200, metrics.to_dict())
-            elif self.path == "/health":
-                self._send(200, {"status": "ok",
-                                 "models": registry.names()})
-            elif self.path == "/healthz":
-                wedged = batcher.wedged()
-                ok = batcher.alive() and not wedged
-                self._send(200 if ok else 503, {
-                    "status": "ok" if ok else "unhealthy",
-                    "worker_alive": batcher.alive(),
-                    "worker_wedged": wedged,
-                })
-            elif self.path == "/readyz":
-                models = registry.names()
-                ok = bool(models) and batcher.alive()
-                body = {"status": "ready" if ok else "not_ready",
-                        "models": models,
-                        "queue_depth": batcher.depth,
-                        "states": dict(metrics.states)}
-                if breaker is not None:
-                    body["breaker"] = breaker.to_dict()
-                # an OPEN breaker or active shedding still serves (host
-                # fallback / partial admission): degraded, not unready
-                self._send(200 if ok else 503, body)
-            else:
-                self._send(404, {"error": f"no route {self.path}"})
-
         def _deadline(self):
             ms = self.headers.get(deadline_hdr)
             ms = float(ms) if ms is not None else default_deadline_ms
@@ -298,9 +300,11 @@ def build_http_server(cfg, registry, batcher, metrics,
                 return None
             return _time.perf_counter() + ms / 1e3
 
-        def do_POST(self):
-            if self.path != "/predict":
-                return self._send(404, {"error": f"no route {self.path}"})
+        def _predict(self, predict) -> None:
+            """Read the body's rows and answer predict(rows, client,
+            deadline) with the status code of its outcome: 200, 429 / 503
+            (shed, queue full) with Retry-After, 504 (deadline or
+            timeout), 413 (oversize body), 400 (malformed)."""
             try:
                 n = int(self.headers.get("Content-Length", 0))
                 if n > _MAX_BODY_BYTES:
@@ -319,15 +323,11 @@ def build_http_server(cfg, registry, batcher, metrics,
                 return self._send(400, {"error": f"malformed body: {e}"})
             client = self.headers.get("X-Client") or self.client_address[0]
             try:
-                if admission is not None:
-                    pred = admission.predict(rows, client=client,
-                                             deadline=deadline)
-                else:
-                    pred = batcher.predict(rows, deadline=deadline)
+                pred = predict(rows, client, deadline)
                 self._send(200, {"predictions":
                                  np.asarray(pred).tolist()})
             except ShedError as e:
-                # 429 (rate limit) or 503 (overload) — never queued
+                # 429 (rate limit) or 503 (overload): never queued
                 self._send(e.http_status, {"error": str(e)},
                            retry_after_s=e.retry_after_s)
             except QueueFullError as e:
@@ -337,8 +337,231 @@ def build_http_server(cfg, registry, batcher, metrics,
             except Exception as e:
                 self._send(400, {"error": str(e)})
 
+        def _health(self, alive: bool, wedged: bool) -> None:
+            ok = alive and not wedged
+            self._send(200 if ok else 503, {
+                "status": "ok" if ok else "unhealthy",
+                "worker_alive": alive, "worker_wedged": wedged})
+
+    return Handler
+
+
+def build_http_server(cfg, registry, batcher, metrics,
+                      admission=None, breaker=None):
+    """Threaded HTTP front-end (lightgbm_tpu/cli.py build_http_server).
+    Routes:
+
+      POST /predict  — score rows; overload protection maps to status
+                       codes: 429 (rate limited) / 503 (shed, queue
+                       full) with ``Retry-After``, 504 (deadline or
+                       timeout), 413 (oversize body), 400 (malformed)
+      GET /metrics   — serving summary JSON
+      GET /health    — legacy liveness (kept for old probes)
+      GET /healthz   — liveness: worker thread alive and not wedged
+      GET /readyz    — readiness: a model is registered and scoring is
+                       possible; body reports breaker/shedding state
+
+    A per-request deadline comes from the ``serve_deadline_header``
+    header (ms, overrides) or ``serve_deadline_ms`` (default budget);
+    clients are keyed for rate limiting by ``X-Client`` or their
+    address. Factory so tests can bind port 0 and read back
+    ``server.server_address``; ``serve_forever`` is the caller's call.
+    """
+    import http.server
+
+    def predict(rows, client, deadline):
+        if admission is not None:
+            return admission.predict(rows, client=client, deadline=deadline)
+        return batcher.predict(rows, deadline=deadline)
+
+    class Handler(_handler_base(cfg)):
+        def do_GET(self):
+            if self.path == "/metrics":
+                self._send(200, metrics.to_dict())
+            elif self.path == "/health":
+                self._send(200, {"status": "ok",
+                                 "models": registry.names()})
+            elif self.path == "/healthz":
+                self._health(batcher.alive(), batcher.wedged())
+            elif self.path == "/readyz":
+                models = registry.names()
+                ok = bool(models) and batcher.alive()
+                body = {"status": "ready" if ok else "not_ready",
+                        "models": models,
+                        "queue_depth": batcher.depth,
+                        "states": dict(metrics.states)}
+                if breaker is not None:
+                    body["breaker"] = breaker.to_dict()
+                # an OPEN breaker or active shedding still serves (host
+                # fallback / partial admission): degraded, not unready
+                self._send(200 if ok else 503, body)
+            else:
+                self._send(404, {"error": f"no route {self.path}"})
+
+        def do_POST(self):
+            if self.path != "/predict":
+                return self._send(404, {"error": f"no route {self.path}"})
+            self._predict(predict)
+
     return http.server.ThreadingHTTPServer(
         (cfg.serve_host, cfg.serve_port), Handler)
+
+
+def build_fleet_http_server(cfg, fleet):
+    """Threaded HTTP front-end for a multi-tenant ModelFleet
+    (lightgbm_tpu/cli.py build_fleet_http_server). Routes:
+
+      POST /predict/<tenant>  — score rows against one tenant's model
+      POST /predict           — tenant from the ``X-Model`` header
+                                (default tenant key: "default")
+      GET /metrics            — fleet export: per-tenant summaries,
+                                scheduler fairness, stages_by_tenant
+      GET /health /healthz /readyz — as the single-model server, with
+                                per-tenant breaker/shedding states
+
+    Per-request deadlines, client keying and status codes are those of
+    :func:`build_http_server`; unknown tenants map to 404."""
+    import http.server
+
+    class Handler(_handler_base(cfg)):
+        def do_GET(self):
+            if self.path == "/metrics":
+                self._send(200, fleet.metrics_dict())
+            elif self.path == "/health":
+                self._send(200, {"status": "ok",
+                                 "tenants": fleet.tenant_names()})
+            elif self.path == "/healthz":
+                self._health(fleet.alive(), fleet.wedged())
+            elif self.path == "/readyz":
+                tenants = fleet.tenant_names()
+                ok = bool(tenants) and fleet.alive()
+                self._send(200 if ok else 503, {
+                    "status": "ready" if ok else "not_ready",
+                    "tenants": tenants,
+                    "queue_depth": fleet.depth,
+                    "states": {n: dict(fleet._tenant(n).metrics.states)
+                               for n in tenants},
+                })
+            else:
+                self._send(404, {"error": f"no route {self.path}"})
+
+        def do_POST(self):
+            if self.path == "/predict":
+                tenant = self.headers.get("X-Model") or "default"
+            elif self.path.startswith("/predict/"):
+                tenant = self.path[len("/predict/"):]
+            else:
+                return self._send(404, {"error": f"no route {self.path}"})
+            if tenant not in fleet.tenant_names():
+                return self._send(404, {
+                    "error": f"no tenant {tenant!r} "
+                             f"(have {fleet.tenant_names()})"})
+            self._predict(lambda rows, client, deadline: fleet.predict(
+                rows, tenant=tenant, client=client, deadline=deadline))
+
+    return http.server.ThreadingHTTPServer(
+        (cfg.serve_host, cfg.serve_port), Handler)
+
+
+def run_serve_fleet(params: Dict[str, Any], cfg) -> None:
+    """task=serve with serve_models="name=path,...": the multi-tenant
+    fleet (lightgbm_tpu/cli.py run_serve_fleet), its models on the run's
+    device_type. serve_port > 0 -> HTTP (POST /predict/<tenant>);
+    data=<file> -> batch-score through the FIRST tenant; else stdin lines
+    (first tenant). With serve_watch set (any non-empty value) every
+    tenant watches its own model path as a snapshot prefix."""
+    from .config import parse_serve_models
+    from .runtime.faults import active_plan
+    from .serving import ModelFleet
+    # fail-fast parse (duplicates, empty names/paths), shared with
+    # Config._validate so the CLI and programmatic configs agree
+    entries = parse_serve_models(cfg.serve_models)
+    if cfg.serve_fused and cfg.serve_fused_shards <= 1:
+        # (serve_fused_shards > 1 is the fleet's refusal, naming A16)
+        log_fatal(
+            "serve_fused=true cannot fuse a tenant of serve_models: the "
+            "fused drain scores binned forests, and a model file carries "
+            "no BinMapper tables, so every tenant would drain unfused; "
+            "fuse in process with ModelFleet(fused=True) and "
+            "add_model(name, model, bin_mappers=...)")
+    fault_plan = active_plan(cfg.fault_plan)
+    fleet = ModelFleet(
+        max_batch=cfg.serve_max_batch,
+        max_wait_ms=cfg.serve_batch_wait_ms,
+        queue_depth=cfg.serve_queue_depth,
+        timeout_ms=cfg.serve_request_timeout_ms,
+        raw_score=cfg.predict_raw_score, fault_plan=fault_plan,
+        fused=cfg.serve_fused, fused_num_shards=cfg.serve_fused_shards,
+        session_opts=dict(
+            engine=cfg.serve_engine, min_bucket=cfg.serve_min_bucket,
+            num_shards=cfg.serve_num_shards, warmup=cfg.serve_warmup,
+            binning_impl=cfg.binning_impl, device_type=cfg.device_type,
+            start_iteration=cfg.start_iteration_predict,
+            num_iteration=cfg.num_iteration_predict),
+        admission_opts=dict(
+            rate_qps=cfg.serve_admission_rate_qps,
+            burst=cfg.serve_admission_burst,
+            queue_high=cfg.serve_admission_queue_high,
+            queue_low=cfg.serve_admission_queue_low,
+            p99_slo_ms=cfg.serve_admission_p99_slo_ms,
+            shed_class=cfg.serve_admission_shed_class,
+            occupancy_high=cfg.serve_admission_occupancy_high),
+        breaker_opts=dict(
+            failure_threshold=cfg.serve_breaker_failures,
+            latency_slo_ms=cfg.serve_breaker_latency_slo_ms,
+            latency_trips=cfg.serve_breaker_latency_trips,
+            cooldown_s=cfg.serve_breaker_cooldown_s))
+    for name, path in entries:
+        fleet.add_model(name, path)
+        if cfg.serve_watch:
+            fleet.watch_snapshots(name, path,
+                                  poll_s=cfg.serve_watch_poll_s,
+                                  start=cfg.serve_port > 0)
+    fleet.start()
+    first = entries[0][0]
+    try:
+        if cfg.serve_port > 0:
+            server = build_fleet_http_server(cfg, fleet)
+            log_info(f"serving fleet ({len(entries)} tenants) on "
+                     f"http://{server.server_address[0]}:"
+                     f"{server.server_address[1]} (POST /predict/<tenant>, "
+                     f"GET /metrics /health /healthz /readyz)")
+            try:
+                server.serve_forever()
+            except KeyboardInterrupt:
+                pass
+            finally:
+                server.server_close()
+        elif cfg.data:
+            X, _, _, _, _ = _load_text(cfg, cfg.data)
+            results = []
+            pending = []
+            for i in range(X.shape[0]):
+                pending.append(fleet.submit(X[i], tenant=first))
+                if len(pending) >= min(cfg.serve_queue_depth, 512):
+                    results.extend(fleet.wait(r, tenant=first)
+                                   for r in pending)
+                    pending = []
+            results.extend(fleet.wait(r, tenant=first) for r in pending)
+            out = np.concatenate([np.asarray(r) for r in results], axis=0)
+            if out.ndim == 1:
+                out = out[:, None]
+            np.savetxt(cfg.output_result, out, delimiter="\t", fmt="%.18g")
+            log_info(f"Finished serving {X.shape[0]} rows through tenant "
+                     f"{first!r}; results saved to {cfg.output_result}")
+        else:
+            for line in sys.stdin:
+                if not line.strip():
+                    continue
+                pred = np.asarray(fleet.predict(_parse_rows(line),
+                                                tenant=first))
+                print("\t".join(f"{v:.18g}" for v in pred.reshape(-1)))
+    finally:
+        fleet.stop()
+        if cfg.serve_metrics_output:
+            fleet.export_json(cfg.serve_metrics_output)
+            log_info(
+                f"Serving metrics saved to {cfg.serve_metrics_output}")
 
 
 def build_serving(cfg):
@@ -384,9 +607,9 @@ def run_serve(params: Dict[str, Any], cfg) -> None:
     serve_port > 0 -> HTTP; data=<file> -> batch-score the file (output
     bit-identical to task=predict on the host engine); else stdin lines.
     The models run on the run's device_type. serve_models="name=path,..."
-    (the multi-tenant fleet) raises naming ROADMAP item A18(b)."""
+    switches to the multi-tenant fleet (run_serve_fleet)."""
     if cfg.serve_models:
-        _not_ported("serve_models (the multi-tenant fleet)", "A18(b)")
+        return run_serve_fleet(params, cfg)
     if not cfg.input_model:
         log_fatal("task=serve requires input_model")
     from .serving import AdmissionController

@@ -743,13 +743,14 @@ class Config:
         if self.serve_fused_shards < 0:
             log_fatal("serve_fused_shards should be >= 0 (0 = no "
                       "replication of the fused scorer)")
-        if self.convert_model_language not in ("", "cpp", "stablehlo"):
+        if self.convert_model_language not in ("", "cpp", "stablehlo",
+                                               "torch_export"):
             log_fatal(
                 f"Unknown convert_model_language "
                 f"'{self.convert_model_language}' (supported: 'cpp' — "
                 "standalone C++ source, '' defaults to it — and "
-                "'stablehlo' — AOT-compiled serving artifact, "
-                "docs/SERVING.md §Compiled serving)")
+                "'torch_export' — the exported serving artifact, "
+                "export/compile.py; 'stablehlo' is the JAX package's)")
         # online-loop knobs fail fast so a bad flag can't surface
         # mid-stream (docs/ONLINE.md)
         if self.online_window_rows < 1:

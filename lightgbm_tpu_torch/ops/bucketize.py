@@ -32,6 +32,13 @@ Two table modes mirror the two host semantics:
 table cannot represent exactly (bin counts over the uint8 cap, categorical
 keys that are not f32-exact). ``bucketize_rows`` sends a CUDA tensor to
 the kernel and a CPU tensor to its plain version, ``bucketize_plain``.
+
+The fleet's fused drain bins a mixed-tenant batch in one launch:
+``stack_bin_tables`` stacks the tenants' serve tables (the JAX package's
+layout), and ``bucketize_rows_stacked`` bins each row against its own
+tenant's rows of it, through ``csrc/bucketize_stacked.cu`` on the card
+(the JAX function is XLA) or ``bucketize_stacked_plain`` on the CPU,
+bitwise each tenant's own bins.
 """
 
 from __future__ import annotations
@@ -399,34 +406,42 @@ def bucketize_cuda(X: torch.Tensor, t: BinTableTensors,
     return out
 
 
+def bin_block_plain(x: torch.Tensor, table: torch.Tensor,
+                    cat_val: torch.Tensor, meta: torch.Tensor
+                    ) -> torch.Tensor:
+    """[r, F] uint8 bins of x [r, F] against table / cat_val [F, B] and meta
+    [F, 8]: the _bin_block predicate form of the JAX package, a count of
+    floored bounds below each value and a key-equality probe over every
+    table lane. Plain tensor operations only (no device of its own), so the
+    exported raw-f32 programs (export/compile.py) carry it as it is."""
+    is_cat = meta[:, _M_IS_CAT] > 0
+    clamp, nan_bin = meta[:, _M_CLAMP], meta[:, _M_NAN_BIN]
+    nan_key, miss_bin = meta[:, _M_NAN_KEY], meta[:, _M_MISS_BIN]
+    neg_inv = meta[:, _M_NEG_INV] > 0
+    nanm = torch.isnan(x)
+    cnt = (table[None] < x[:, :, None]).sum(-1).to(torch.float32)
+    num_out = torch.where(nanm, nan_bin, torch.minimum(cnt, clamp))
+    vi = torch.where(nanm, nan_key.expand_as(x), torch.trunc(x))
+    vi = torch.where((x < 0) & neg_inv, torch.full_like(x, -2.0), vi)
+    eq = table[None] == vi[:, :, None]                       # [r, F, B]
+    catv = torch.where(eq, cat_val[None], 0.0).sum(-1)
+    cat_out = torch.where(eq.any(-1), catv, miss_bin)
+    return torch.where(is_cat, cat_out, num_out).to(torch.uint8)
+
+
 def bucketize_plain(X: torch.Tensor, t: BinTableTensors,
                     out: Optional[torch.Tensor] = None,
                     cols: Optional[torch.Tensor] = None,
                     chunk: int = 8192) -> torch.Tensor:
-    """Plain PyTorch version of bucketize_cuda: the _bin_block predicate
-    form of the JAX package, a count of floored bounds below each value
-    and a key-equality probe over every table lane, in row chunks."""
+    """Plain PyTorch version of bucketize_cuda: ``bin_block_plain`` in row
+    chunks."""
     n, F = _check_args(X, t, out, cols)
     Xs = X[:, :F] if cols is None else X[:, cols.to(torch.int64)]
     if out is None:
         out = torch.empty((n, F), dtype=torch.uint8, device=X.device)
-    m = t.meta
-    is_cat = m[:, _M_IS_CAT] > 0
-    clamp, nan_bin = m[:, _M_CLAMP], m[:, _M_NAN_BIN]
-    nan_key, miss_bin = m[:, _M_NAN_KEY], m[:, _M_MISS_BIN]
-    neg_inv = m[:, _M_NEG_INV] > 0
     for c0 in range(0, n, chunk):
-        x = Xs[c0:c0 + chunk]                                  # [r, F]
-        nanm = torch.isnan(x)
-        cnt = (t.table[None] < x[:, :, None]).sum(-1).to(torch.float32)
-        num_out = torch.where(nanm, nan_bin, torch.minimum(cnt, clamp))
-        vi = torch.where(nanm, nan_key.expand_as(x), torch.trunc(x))
-        vi = torch.where((x < 0) & neg_inv, torch.full_like(x, -2.0), vi)
-        eq = t.table[None] == vi[:, :, None]                   # [r, F, B]
-        catv = torch.where(eq, t.cat_val[None], 0.0).sum(-1)
-        cat_out = torch.where(eq.any(-1), catv, miss_bin)
-        out[c0:c0 + chunk] = torch.where(is_cat, cat_out,
-                                         num_out).to(torch.uint8)
+        out[c0:c0 + chunk] = bin_block_plain(Xs[c0:c0 + chunk], t.table,
+                                             t.cat_val, t.meta)
     return out
 
 
@@ -439,6 +454,137 @@ def bucketize_rows(X: torch.Tensor, t: BinTableTensors,
     if X.device.type == "cuda":
         return bucketize_cuda(X, t, out, cols)
     return bucketize_plain(X, t, out, cols)
+
+
+# ----------------------------------------------------------------------
+# the fleet's fused drain: many tenants' tables, one launch
+# ----------------------------------------------------------------------
+def stack_bin_tables(tables: Sequence[DeviceBinTable]) -> DeviceBinTable:
+    """Stack per-tenant serve tables into one ``[C, F_pad, B]`` super table
+    (the JAX package's stack_bin_tables): every table is re-padded to the
+    common feature and lane width; tenant columns beyond a tenant's own
+    feature count are inert (bin 0, matching the fused supertensor's
+    zero-padded uint8 columns)."""
+    F = max(t.num_features for t in tables)
+    F_pad = max(t.table.shape[0] for t in tables)
+    B = max(t.B for t in tables)
+    tab = np.full((len(tables), F_pad, B), np.inf, np.float32)
+    cv = np.zeros((len(tables), F_pad, B), np.float32)
+    meta = np.zeros((len(tables), F_pad, _META_COLS), np.float32)
+    for c, t in enumerate(tables):
+        if t.mode != "serve":
+            raise ValueError("stack_bin_tables expects serve-mode tables")
+        fp, b = t.table.shape
+        # NaN-padded categorical rows must keep NaN in the widened lanes
+        pad = np.where(np.isnan(t.table[:, :1]), np.nan, np.inf)
+        tab[c, :fp, :] = pad
+        tab[c, :fp, :b] = t.table
+        cv[c, :fp, :b] = t.cat_val
+        meta[c, :fp, :] = t.meta
+    return DeviceBinTable(table=tab, cat_val=cv, meta=meta,
+                          num_features=F, B=B, mode="serve")
+
+
+class StackedTableTensors(NamedTuple):
+    """A stacked table's first ``num_features`` rows of each tenant as
+    ``[C * F, ...]`` tensors on one device (``upload_stacked_table``): row
+    ``c * F + f`` is tenant c's feature f, with #6's meta columns 6 / 7 and
+    search grids of one common ``NB`` = B buckets."""
+    table: torch.Tensor      # [C * F, B] f32
+    cat_val: torch.Tensor    # [C * F, B] f32
+    meta: torch.Tensor       # [C * F, 8] f32
+    grids: torch.Tensor      # [C * F, 2 + B] int32
+    num_tenants: int
+    num_features: int
+    B: int
+
+
+def upload_stacked_table(t: DeviceBinTable,
+                         device: torch.device) -> StackedTableTensors:
+    """A ``stack_bin_tables`` table on `device`, each tenant's rows with the
+    search grids and meta columns that ``upload_bin_table`` gives #6."""
+    C, F = t.table.shape[0], t.num_features
+    table = np.ascontiguousarray(t.table[:, :F].reshape(C * F, t.B))
+    meta = np.array(t.meta[:, :F].reshape(C * F, _META_COLS), np.float32)
+    count = search_counts(table)
+    grids, depth = search_grids(table, count, t.B)
+    meta[:, _M_DEPTH], meta[:, _M_COUNT] = depth, count
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return StackedTableTensors(
+        table=up(table), cat_val=up(t.cat_val[:, :F].reshape(C * F, t.B)),
+        meta=up(meta), grids=up(grids), num_tenants=C, num_features=F,
+        B=t.B)
+
+
+def _check_stacked_args(X, tid, t: StackedTableTensors):
+    if X.dim() != 2 or X.dtype != torch.float32 \
+            or X.shape[1] < t.num_features:
+        raise ValueError(f"X must be a [n, >={t.num_features}] float32 "
+                         f"tensor (got {X.dtype} {tuple(X.shape)})")
+    if tid.dtype != torch.int32 or tuple(tid.shape) != (X.shape[0],):
+        raise ValueError(f"tid must be [{X.shape[0]}] int32 (got "
+                         f"{tid.dtype} {tuple(tid.shape)})")
+    return X.shape[0], t.num_features
+
+
+def bucketize_stacked_cuda(X: torch.Tensor, tid: torch.Tensor,
+                           t: StackedTableTensors) -> torch.Tensor:
+    """[n, F] uint8 bins of X [n, >=F] f32 (unit column stride), row i
+    against tenant ``tid[i]``'s table (``csrc/bucketize_stacked.cu``, one
+    launch): bitwise ``bucketize_cuda`` on that tenant's own table. A row
+    whose tenant id is outside [0, C) bins to 0."""
+    dev = hc._cuda_device(X)
+    n, F = _check_stacked_args(X, tid, t)
+    if X.shape[1] > 1 and X.stride(1) != 1:
+        raise ValueError("X must have unit column stride")
+    CF = t.num_tenants * F
+    for name, a, dt, shape in (
+            ("tid", tid, torch.int32, (n,)),
+            ("table", t.table, torch.float32, (CF, t.B)),
+            ("cat_val", t.cat_val, torch.float32, (CF, t.B)),
+            ("meta", t.meta, torch.float32, (CF, _META_COLS)),
+            ("grids", t.grids, torch.int32, (CF, 2 + t.B))):
+        hc._check(a, name, (dt,), shape, dev)
+    out = torch.empty((n, F), dtype=torch.uint8, device=dev)
+    if n == 0:
+        return out
+    _, stream = hc._launch_env(dev)
+    rc = hc._lib("bucketize_stacked")(
+        X.data_ptr(), n, X.stride(0), tid.data_ptr(), t.num_tenants, F,
+        t.table.data_ptr(), t.grids.data_ptr(), t.B, t.cat_val.data_ptr(),
+        t.meta.data_ptr(), t.B, out.data_ptr(), stream)
+    hc._raise_on(rc, "bucketize_stacked")
+    hc.LAUNCHES["bucketize_stacked"] += 1
+    return out
+
+
+def bucketize_stacked_plain(X: torch.Tensor, tid: torch.Tensor,
+                            t: StackedTableTensors) -> torch.Tensor:
+    """Plain PyTorch version of bucketize_stacked_cuda: each (row, feature)
+    value's tenant table row gathered by tid, then ``bin_block_plain``
+    over the n * F values as one row."""
+    n, F = _check_stacked_args(X, tid, t)
+    C = t.num_tenants
+    ok = (tid >= 0) & (tid < C)
+    rows = (tid.clamp(0, max(C - 1, 0)).to(torch.int64)[:, None] * F
+            + torch.arange(F, device=X.device)[None, :]).reshape(-1)
+    out = bin_block_plain(X[:, :F].reshape(1, n * F), t.table[rows],
+                          t.cat_val[rows], t.meta[rows]).reshape(n, F)
+    return torch.where(ok[:, None], out, torch.zeros_like(out))
+
+
+def bucketize_rows_stacked(X: torch.Tensor, tid: torch.Tensor,
+                           t: StackedTableTensors) -> torch.Tensor:
+    """Cross-tenant bucketize of the fleet's fused drain: X [n, >=F] raw
+    f32 rows, tid [n] int32 tenant ids, against a stacked table; [n, F]
+    uint8, bit-identical to each tenant's own ``bucketize_rows``. The
+    kernel for a CUDA tensor, the plain version for a CPU tensor (the JAX
+    package's bucketize_rows_stacked is XLA)."""
+    if X.device.type == "cuda":
+        return bucketize_stacked_cuda(X, tid, t)
+    return bucketize_stacked_plain(X, tid, t)
 
 
 # ----------------------------------------------------------------------

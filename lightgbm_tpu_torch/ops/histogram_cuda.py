@@ -30,7 +30,11 @@ wave_pass_fused_tiled.cu`` <- lightgbm_tpu/ops/grow_fused.py;
 grower's partition of a leaf's window (``csrc/window_partition.cu`` <- the
 XLA partition of lightgbm_tpu/ops/grow_fast.py), which the batched compact
 step runs with its window in device memory, beside #1's window operand
-(``build_histogram_window_cuda``).
+(``build_histogram_window_cuda``). Another replaces the XLA gather of the
+fleet's fused drain: the stacked bucketize (``csrc/bucketize_stacked.cu``
+<- lightgbm_tpu/ops/bucketize.py::bucketize_rows_stacked; ``ops/
+bucketize.py``), each row of a mixed-tenant batch binned against its own
+tenant's table.
 
 The slot histogram, the two row-wise histograms and the three wave
 kernels (#3 and the two fused waves) sweep their rows with one tiled
@@ -85,7 +89,8 @@ LAUNCHES: Dict[str, int] = {"build_histogram_slots": 0,
                             "hist_rowwise_packed": 0,
                             "wave_pass_fused": 0,
                             "wave_pass_fused_tiled": 0,
-                            "window_partition": 0}
+                            "window_partition": 0,
+                            "bucketize_stacked": 0}
 
 # kernel name -> (source file, C entry point)
 KERNELS = {
@@ -101,6 +106,7 @@ KERNELS = {
     "wave_pass_fused_tiled": ("wave_pass_fused_tiled.cu",
                               "lgbt_wave_pass_fused_tiled"),
     "window_partition": ("window_partition.cu", "lgbt_window_partition"),
+    "bucketize_stacked": ("bucketize_stacked.cu", "lgbt_bucketize_stacked"),
 }
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -247,6 +253,7 @@ def _lib(name: str):
         "wave_pass_fused_tiled": [P, P, I] + [P] * 13
         + [I, P, P, LL] + [I] * 5 + [P] + [I] * 10 + [P] + HP + [I, P],
         "window_partition": [P, I] + [P] * 6 + [LL, I, I, I, P],
+        "bucketize_stacked": [P, LL, LL, P, I, I, P, P, I, P, P, I, P, P],
     }[name]
     return fn
 

@@ -148,13 +148,42 @@ def _cat_go_left(pa: PackedDeviceArrays, fval, nan_mask, g):
     return in_range & (((bits >> (iv & 31)) & 1) == 1)
 
 
+def sum_iterations(x: torch.Tensor) -> torch.Tensor:
+    """[n, K] sums over the iteration axis of x [n, I, K]: a pairwise tree
+    of elementwise adds over I padded with -0.0 to a power of two P. x +
+    (-0.0) is x for every x, so zero-padded iterations past I fold away
+    exactly, and an elementwise add does not depend on the tensor's shape
+    (torch.sum's order depends on the reduced length and, on CUDA, on the
+    number of outputs). A row's sum is therefore the same bits at any
+    batch size and under any tail of padded iterations: what lets the
+    fused cross-tenant walk (export/fusion.py) reproduce each tenant's own
+    margins. The padding is never made: the tree's first level adds
+    iteration i + P/2 to iteration i where i + P/2 < I and carries the
+    other P - I iterations of the first half as they are (x + (-0.0))."""
+    n, I, K = x.shape
+    if I == 0:
+        return x.new_zeros((n, K))
+    h = (1 << (I - 1).bit_length()) // 2
+    if 0 < h < I < 2 * h:
+        r = I - h
+        y = torch.empty((n, h, K), dtype=x.dtype, device=x.device)
+        torch.add(x[:, :r], x[:, h:], out=y[:, :r])
+        y[:, r:] = x[:, r:h]
+        x = y
+    while x.shape[1] > 1:
+        h = x.shape[1] // 2
+        x = x[:, :h] + x[:, h:]
+    return x[:, 0]
+
+
 def sum_leaf_values(lv: torch.Tensor, K: int) -> torch.Tensor:
-    """[K, n] f32 margins from the [n, T] leaf values of one model: the
-    JAX walks' ``lv.reshape(n, T // K, K).sum(axis=1)``. Every engine of
-    the port accumulates through this function, so engines that reach the
-    same leaves give bitwise equal margins."""
+    """[K, n] f32 margins from the [n, T] leaf values of one model, summed
+    over its T // K iterations by ``sum_iterations`` (the JAX walks'
+    ``lv.reshape(n, T // K, K).sum(axis=1)`` in a fixed order). Every
+    engine of the port accumulates through this function, so engines that
+    reach the same leaves give bitwise equal margins."""
     n, T = lv.shape
-    return lv.reshape(n, T // K, K).sum(dim=1).t()
+    return sum_iterations(lv.reshape(n, T // K, K)).t()
 
 
 def predict_margin_packed(pa: PackedDeviceArrays, X: torch.Tensor,

@@ -26,8 +26,11 @@ class ServingMetrics:
     cache hit rate measures exactly that amortization)."""
 
     def __init__(self, max_batch: int = 0,
-                 clock=time.perf_counter) -> None:
+                 clock=time.perf_counter, tenant: str = "") -> None:
         self._lock = threading.Lock()
+        # fleet serving (serving/fleet.py): one ServingMetrics per tenant,
+        # so QPS / p50 / p99 / occupancy never aggregate across models
+        self.tenant = tenant
         self._clock = clock
         self.start_t = clock()
         # per-batch ring; no device fence per batch, which would
@@ -121,7 +124,8 @@ class ServingMetrics:
         return self.counters["requests"] / dt if dt > 0 else 0.0
 
     def summary(self) -> Dict[str, Any]:
-        """The serving summary dict alone (no profiler wrap)."""
+        """The serving summary dict alone (no profiler wrap): what the
+        fleet exports per tenant (serving/fleet.py)."""
         with self._lock:
             serving: Dict[str, Any] = {
                 "uptime_s": round(self._clock() - self.start_t, 3),
@@ -130,6 +134,8 @@ class ServingMetrics:
                 "request_latency": self.request_latency.to_dict(),
                 "batch_latency": self.batch_latency.to_dict(),
             }
+            if self.tenant:
+                serving["tenant"] = self.tenant
             hr = self.cache_hit_rate()
             if hr is not None:
                 serving["cache_hit_rate"] = round(hr, 4)

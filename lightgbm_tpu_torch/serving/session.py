@@ -27,10 +27,18 @@ Engines:
    serve-mode bin table (the raw-f32 route); both then walk uint8 bins on
    the device. The f64 route, the raw-f32 route and the ``device`` engine
    give bitwise equal margins.
+ * ``compiled`` the binned engine through exported programs
+   (export/compile.py): each bucket's walk is ``torch.export``ed with the
+   forest folded in, saved to bytes and loaded back, the in-process twin
+   of a ``task=convert_model convert_model_language=torch_export``
+   artifact; f32 requests bucketize through the kernel (#6) first, then run
+   the uint8 program, bitwise the artifact's ``bin_score`` entry. Its
+   margins are bitwise the ``binned`` engine's;
  * ``auto``   ``device`` on a CUDA device, ``host`` on the CPU.
 
-An explicit ``device`` or ``binned`` engine that cannot be built raises;
-so does ``binning_impl="device"`` whose table cannot be packed.
+An explicit ``device``, ``binned`` or ``compiled`` engine that cannot be
+built raises; so does ``binning_impl="device"`` whose table cannot be
+packed.
 
 Engine degradation: with a circuit breaker (serving/breaker.py) each
 device or binned chunk first asks ``breaker.allow()``; an open breaker
@@ -41,9 +49,8 @@ away is counted in ``host_fallbacks`` and logged. Without a breaker a
 failing device chunk raises: nothing is re-scored quietly (the JAX
 package re-scores on the host with or without a breaker, ROADMAP C note
 20). A fault plan (runtime/faults.py) injects ``slow_score`` inside the
-timed region and ``fail_score`` before the chunk's scoring call. The
-``compiled`` engine and sharded scoring raise NotImplementedError naming
-their ROADMAP item.
+timed region and ``fail_score`` before the chunk's scoring call. Sharded
+scoring raises NotImplementedError naming ROADMAP item A16.
 
 A ``profiler`` (runtime/profiler.py StageProfiler) records the binning
 stage of the binned engine: a ``bin_rows`` span around the host
@@ -168,6 +175,11 @@ class ServingSession:
         self.requested_engine = engine
         self.engine = self._resolve_engine(engine)
         self._pa = None
+        # the compiled engine's exported program of each bucket, built
+        # under a lock: torch.export traces with process-wide state, and a
+        # warmup and a scoring thread may ask for the same bucket
+        self._programs: Dict[int, Callable] = {}
+        self._programs_lock = threading.Lock()
         if self.engine == "device":
             self._pa = self._pm.device_arrays(self.device)
         elif self.engine == "binned":
@@ -177,7 +189,7 @@ class ServingSession:
         self.binning_impl = binning_impl
         self._bin_table = None
         self._bin_tensors = None
-        if self.engine == "binned":
+        if self._bm is not None:
             self._bin_table = self._serve_bin_table(binning_impl)
         if self._bin_table is not None:
             from ..ops.bucketize import upload_bin_table
@@ -202,19 +214,17 @@ class ServingSession:
     def _resolve_engine(self, engine: str) -> str:
         if engine not in ("auto", "host", "device", "binned", "compiled"):
             raise ValueError(f"unknown serving engine {engine!r}")
-        if engine == "compiled":
-            _not_ported("the compiled (exported) serving engine", "A18(b)")
         if engine == "host":
             return "host"
-        if engine == "binned":
+        if engine in ("binned", "compiled"):
             from ..ops.predict_binned import (BinnedUnavailable,
                                               build_binned_model)
             try:
                 self._bm = build_binned_model(self._pm, self.bin_mappers)
             except BinnedUnavailable as e:
                 raise BinnedUnavailable(
-                    f"serving: binned engine unavailable ({e})") from e
-            return "binned"
+                    f"serving: {engine} engine unavailable ({e})") from e
+            return engine
         if self._has_linear:
             if engine == "device":
                 raise ValueError("serving: model has linear leaves; device "
@@ -272,8 +282,9 @@ class ServingSession:
 
     def _build_scorer(self, bucket: int) -> Callable:
         """The scorer of one padded bucket: [b, F] rows (f32 for
-        ``device``, uint8 bins for ``binned``) -> [K, b] f32 margins on
-        the device; the host engine's is the packed host walk."""
+        ``device``, uint8 bins for ``binned`` and ``compiled``) -> [K, b]
+        f32 margins on the device; the host engine's is the packed host
+        walk."""
         K, pa = self.K, self._pa
         if self.engine == "device":
             from ..ops.predict import predict_margin_packed
@@ -281,23 +292,41 @@ class ServingSession:
         if self.engine == "binned":
             from ..ops.predict_binned import predict_margin_binned
             return lambda Xp: predict_margin_binned(pa, Xp, K)
+        if self.engine == "compiled":
+            return self._compiled_scorer(bucket)
         return self._pm.predict_margin
 
+    def _compiled_scorer(self, bucket: int) -> Callable:
+        """One bucket's exported program: the binned walk through
+        ``torch.export``, saved to bytes and loaded back on the session's
+        device (export/compile.py roundtrip_binned_scorer, the JAX
+        package's serving/session.py:288 twin), built once a bucket and
+        shared by the uint8 and raw-f32 routes."""
+        with self._programs_lock:
+            fn = self._programs.get(bucket)
+            if fn is None:
+                from ..export.compile import roundtrip_binned_scorer
+                fn = roundtrip_binned_scorer(self._bm, self.K, bucket,
+                                             self.device)
+                self._programs[bucket] = fn
+        return fn
+
     def _raw_scorer(self, bucket: int) -> Callable:
-        """Raw-f32 scorer: the bucketize kernel then the bin-domain walk,
-        f32 [b, F] raw rows -> [K, b] margins with no host binning stage.
-        Bitwise equal to host bin_rows + the binned walk. Under a
-        profiler the bucketize launch is its ``bin_rows`` span."""
+        """Raw-f32 scorer: the bucketize kernel then the bin-domain walk
+        (``compiled``: the bucket's uint8 program), f32 [b, F] raw rows ->
+        [K, b] margins with no host binning stage. Bitwise equal to host
+        bin_rows + the binned walk. Under a profiler the bucketize launch
+        is its ``bin_rows`` span."""
         from ..ops.bucketize import bucketize_rows
-        from ..ops.predict_binned import predict_margin_binned
-        K, pa, t = self.K, self._pa, self._bin_tensors
+        t = self._bin_tensors
+        walk = self._build_scorer(bucket)
 
         def score(Xp: torch.Tensor) -> torch.Tensor:
             if self.profiler is None:
-                return predict_margin_binned(pa, bucketize_rows(Xp, t), K)
+                return walk(bucketize_rows(Xp, t))
             with self.profiler.span("bin_rows"):
                 bins = bucketize_rows(Xp, t)
-            return predict_margin_binned(pa, bins, K)
+            return walk(bins)
         return score
 
     def warmup(self) -> List[int]:
@@ -314,7 +343,7 @@ class ServingSession:
             if self.engine == "device":
                 fn(self._to_device(np.zeros((b, self.num_features),
                                             np.float32))).cpu()
-            elif self.engine == "binned":
+            elif self._bm is not None:
                 fn(self._to_device(np.zeros((b, self._bm.num_features),
                                             np.uint8))).cpu()
                 if self._bin_table is not None:
@@ -393,8 +422,7 @@ class ServingSession:
         breaker, the device chunks are guarded as the module docstring
         says."""
         X = np.asarray(X)
-        raw_f32 = (X.dtype == np.float32 and self._bin_table is not None
-                   and self.engine == "binned")
+        raw_f32 = X.dtype == np.float32 and self._bin_table is not None
         X = np.ascontiguousarray(X if raw_f32
                                  else np.asarray(X, np.float64))
         n = X.shape[0]
@@ -404,7 +432,7 @@ class ServingSession:
             m = c1 - c0
             b = bucket_for(m, self.min_bucket, self.max_batch)
             seq, self._n_scored = self._n_scored, self._n_scored + 1
-            use_dev = self.engine in ("device", "binned")
+            use_dev = self.engine != "host"
             if use_dev and self.breaker is not None \
                     and not self.breaker.allow():
                 use_dev = False
@@ -446,11 +474,11 @@ class ServingSession:
 
     def _score_dev(self, X: np.ndarray, c0: int, c1: int, b: int,
                    raw_f32: bool, seq: int) -> np.ndarray:
-        """One chunk on the device or binned engine (the fault plan's
-        fail_score first)."""
+        """One chunk on the device, binned or compiled engine (the fault
+        plan's fail_score first)."""
         if self.fault_plan is not None:
             self.fault_plan.fail_score(seq)
-        if self.engine == "binned":
+        if self._bm is not None:
             return (self._score_binned_raw(X, c0, c1, b) if raw_f32
                     else self._score_binned(X, c0, c1, b))
         return self._score_device(X, c0, c1, b)

@@ -5,7 +5,8 @@ equal on the same argv, the CLI's model md5-equal to `lt.train` on
 both CLIs giving equal trees (structure exact, leaf values within 1e-5:
 the JAX search sums in f32, the port in f64, ROADMAP C note 9) and
 prediction files within 1e-5, refit and convert_model (the C++ byte-equal
-to the JAX CLI's), the refusals naming their ROADMAP items, and one
+to the JAX CLI's), the refusals naming their ROADMAP items (and the fleet
+that replaced one), and one
 `python -m lightgbm_tpu_torch` subprocess with snapshots and checkpoints."""
 
 import hashlib
@@ -158,15 +159,43 @@ def test_cli_refit_and_convert(workdir):
     assert "double Predict(const double* arr)" in cpp["torch"]
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["task=serve", "serve_models=a=m.txt"], r"A18\(b\)"),
-    (["task=online"], "A13"),
-    (["task=convert_model", "convert_model_language=stablehlo"],
-     r"A18\(b\)"),
+@pytest.mark.parametrize("argv,want", [
+    # serve_models: the multi-tenant fleet (A18(b), ported) serves the
+    # file through its first tenant, as task=predict writes it
+    pytest.param(["task=serve", "serve_models=a={model},b={model}"],
+                 "fleet", id="argv0-A18\\(b\\)"),
+    pytest.param(["task=online"], "ROADMAP item A13", id="argv1-A13"),
+    # the port writes no StableHLO: fatal, naming its own artifact
+    pytest.param(["task=convert_model", "convert_model_language=stablehlo"],
+                 "convert_model_language=torch_export",
+                 id="argv2-A18\\(b\\)"),
+    # a model file carries no bin mappers, so no serve_models tenant can
+    # join the fused drain: fatal, saying so; sharded fusion names A16
+    pytest.param(["task=serve", "serve_models=a={model}", "serve_fused=true"],
+                 "carries no BinMapper tables", id="argv3-serve_fused"),
+    pytest.param(["task=serve", "serve_models=a={model}", "serve_fused=true",
+                  "serve_fused_shards=2"], "ROADMAP item A16",
+                 id="argv4-A16"),
 ])
-def test_refusals_name_their_items(argv, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-        tcli.main(argv + ["device_type=cpu", "input_model=m.txt"])
+def test_refusals_name_their_items(argv, want, workdir):
+    tmp, path, conf = workdir
+    model = tmp / "model.txt"
+    common = ["device_type=cpu", f"input_model={model}", "verbosity=-1"]
+    argv = [a.format(model=model) for a in argv]
+    if want == "fleet":
+        assert tcli.main([f"config={conf}", "device_type=cpu"]) == 0
+        assert tcli.main(["task=predict", f"data={path}",
+                          f"output_result={tmp / 'p.tsv'}"] + common) == 0
+        assert tcli.main(argv + [f"data={path}",
+                                 f"output_result={tmp / 's.tsv'}"]
+                         + common) == 0
+        assert (tmp / "s.tsv").read_text() == (tmp / "p.tsv").read_text()
+    elif want.startswith("ROADMAP"):
+        with pytest.raises(NotImplementedError, match=want):
+            tcli.main(argv + common)
+    else:
+        with pytest.raises(lt.FatalError, match=want):
+            tcli.main(argv + common)
     with pytest.raises(lt.FatalError, match="Unknown task"):
         tcli.main(["task=explode", "device_type=cpu"])
 

@@ -847,7 +847,8 @@ def test_task_serve_file_and_stdin_match_task_predict(booster, tmp_path,
     registry and the micro-batcher equals task=predict's file bit for bit
     (serve_engine=auto is the host engine on the CPU); stdin lines print the same values; a
     serve_watch prefix and a fault plan are taken; the metrics file
-    carries the breaker's state."""
+    carries the breaker's state; serve_models (the fleet) answers the file
+    with the same bytes."""
     model = tmp_path / "model.txt"
     booster.save_model(str(model))
     X, _ = _data(5, n=50)
@@ -875,9 +876,11 @@ def test_task_serve_file_and_stdin_match_task_predict(booster, tmp_path,
                       "verbosity=-1"]) == 0
     printed = capsys.readouterr().out.split()
     assert [float(v) for v in printed] == [float(v) for v in want[:3]]
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item A18\(b\)"):
-        tcli.main(["task=serve", f"serve_models=a={model}",
-                   "device_type=cpu"])
+    # serve_models: the multi-tenant fleet answers the file as the single
+    # model does, through its first tenant
+    assert tcli.main(["task=serve", f"serve_models=a={model},b={model}",
+                      f"output_result={tmp_path}/f.tsv"] + common) == 0
+    assert open(tmp_path / "f.tsv").read() == open(tmp_path / "s.tsv").read()
     assert not os.path.exists(f"{tmp_path}/model.txt.watch_state.json")
 
 
