@@ -436,6 +436,27 @@ Phases, each printing one JSON line:
                      within 1e-6 of Booster.predict, /metrics, /healthz,
                      404 for an unknown tenant, a clean exit on SIGINT
 
+ 24. A13, streaming and the online loop (last; bench's table, model and
+     Dataset, 28 features, 255 leaves, max_bin 63):
+     streaming       2^20 f32 rows pushed in 16 chunks of 2^16 (one out
+                     of order) into a streaming Dataset: #6 once a chunk,
+                     X_t and X_binned bitwise the bulk Dataset(X,
+                     reference=...); the f64 copy on the host route
+                     bitwise too; warm_continue of 2 trees on a 2^18-row
+                     f32 window launches #6 and the route's kernels; push
+                     seconds beside the bulk ingest's
+     online          a 2^18-row trace in 64 batches, a 2^17-row window
+                     refreshed every 32768 rows (6 refits, 2 continues of
+                     4 trees) published into a co-located binned session
+                     under 4 client threads: summary, manifests, md5 of
+                     every snapshot against its offline arm, every answer
+                     within 1e-6 of a live generation's Booster.predict,
+                     no failed request or host fallback, the first
+                     continued tree the plain versions'; a child killed
+                     at kill@iter=5 (exit 17) resumed to the same bytes;
+                     stall_source / corrupt_batch; task=online by the CLI
+                     (online_phase's docstring has the details)
+
 then a {"kernels": [...]} line (the twelve kernels, #1 and #4 with their
 uint16 times, the six changed by the leaf cap with their `leaf_cap`
 times, the stacked bucketize with its fused-fleet launches), the
@@ -6225,6 +6246,482 @@ def fleet_cli_phase(lt, smi, here, tenants, qs):
                                 f"{proc.returncode}: {log[-2000:]}")
 
 
+STREAM_CHUNK = 1 << 16
+# the online line's traffic: a trace of 2^18 rows in 64 batches of 4096,
+# a window of 2^17 rows refreshed every 32768 (8 refreshes: 6 refits and
+# 2 continues of 4 trees); cut from 2^19 / 2^18 / 65536, which took the
+# whole run past 1000 s on a slow host
+ONLINE_TRACE, ONLINE_BATCH = 1 << 18, 4096
+ONLINE_LOOP = dict(online_window_rows=1 << 17, online_refresh_rows=32768,
+                   online_continue_every=4, online_continue_trees=4)
+
+
+def streaming_phase(lt, hc, torch, smi, params, ds, X, y, anchor):
+    """A13's streaming Dataset on the card: bench's 2^20 x 28 f32 table
+    pushed in 16 chunks of 2^16 rows (chunk 5 last, by start_row) against
+    bench's Dataset as reference: each f32 chunk binned by #6 straight
+    into its columns of X_t (16 launches), X_t and X_binned bitwise the
+    bulk Dataset(X, reference=...); the same rows as f64 on the host route
+    bitwise too; warm_continue of 2 trees onto bench's model on a 2^18-row
+    f32 window launches #6 once and the route's training kernels. Push
+    seconds beside the bulk ingest's."""
+    from lightgbm_tpu_torch.engine import warm_continue
+    n, F = X.shape
+    order = [c for c in range(n // STREAM_CHUNK) if c != 5] + [5]
+
+    def stream(Xs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = lt.Dataset(None, params=params).init_streaming(n, reference=ds)
+        for c in order:
+            lo = c * STREAM_CHUNK
+            s.push_rows(Xs[lo:lo + STREAM_CHUNK],
+                        label=y[lo:lo + STREAM_CHUNK], start_row=lo)
+        s.mark_finished()
+        torch.cuda.synchronize()
+        return s._handle, time.perf_counter() - t0
+
+    hc.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bulk = lt.Dataset(X, label=y, reference=ds, params=params).construct()
+    torch.cuda.synchronize()
+    bulk_s = time.perf_counter() - t0
+    bulk_launches = hc.LAUNCHES["bucketize"]
+    hb = bulk._handle
+    hc.reset_launch_counts()
+    h32, push_s = stream(X)
+    push_launches = dict(hc.LAUNCHES)
+    h64, push64_s = stream(X.astype(np.float64))
+    host_launches = hc.LAUNCHES["bucketize"] - push_launches["bucketize"]
+    same32 = (torch.equal(h32.X_t, hb.X_t)
+              and np.array_equal(h32.X_binned, hb.X_binned)
+              and np.array_equal(h32.metadata.label, hb.metadata.label))
+    same64 = (torch.equal(h64.X_t, hb.X_t)
+              and np.array_equal(h64.X_binned, hb.X_binned))
+    routes = [h32.binning_route, h64.binning_route, hb.binning_route]
+    del bulk, hb, h32, h64
+    nw = 1 << 18
+    hc.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cont = warm_continue(params, X[:nw], y[:nw], 2,
+                         lt.Booster(params=params, model_str=anchor), ds)
+    torch.cuda.synchronize()
+    wc_s = time.perf_counter() - t0
+    wc_launches = dict(hc.LAUNCHES)
+    n_anchor = lt.Booster(params=params, model_str=anchor).num_trees()
+    emit({"phase": "streaming", "rows": n, "features": F,
+          "chunk_rows": STREAM_CHUNK, "push_order": order,
+          "routes_f32_f64_bulk": routes, "bulk_ingest_s": bulk_s,
+          "bulk_bucketize_launches": bulk_launches, "push_s": push_s,
+          "push_f64_host_s": push64_s,
+          "push_bucketize_launches": push_launches["bucketize"],
+          "push_f64_bucketize_launches": host_launches,
+          "bitwise_bulk_f32": same32, "bitwise_bulk_f64_host": same64,
+          "warm_continue_rows": nw, "warm_continue_s": wc_s,
+          "warm_continue_trees": [n_anchor, cont.num_trees()],
+          "warm_continue_launches": wc_launches, "nvidia_smi": smi})
+    check(routes == ["device", "host", "device"],
+          f"streamed / bulk binning routes {routes}")
+    check(push_launches["bucketize"] == n // STREAM_CHUNK,
+          f"#6 launched {push_launches['bucketize']} times for "
+          f"{n // STREAM_CHUNK} f32 chunks")
+    check(host_launches == 0, "the f64 chunks launched #6")
+    check(same32, "the f32 stream's bins differ from the bulk Dataset's")
+    check(same64, "the f64 stream's host bins differ from the bulk "
+                  "Dataset's")
+    check(cont.num_trees() == n_anchor + 2,
+          f"warm_continue holds {cont.num_trees()} trees")
+    check(wc_launches["bucketize"] == 1,
+          f"warm_continue's f32 window launched #6 "
+          f"{wc_launches['bucketize']} times")
+    for name in ("build_histogram_slots", "take_leaf_values", "wave_pass",
+                 "wave_relabel"):
+        check(wc_launches[name] > 0, f"warm_continue never launched {name}")
+
+
+_ONLINE_CHILD = """\
+import json, sys
+import numpy as np
+import lightgbm_tpu_torch as lt
+from lightgbm_tpu_torch.online import (OnlineTrainer, SnapshotPublisher,
+                                       TraceSource)
+from lightgbm_tpu_torch.runtime.faults import active_plan
+spec = json.load(open(sys.argv[1]))
+X, y = np.load(spec["X"]), np.load(spec["y"])
+params = spec["params"]
+ds = lt.Dataset(X, label=y, params=dict(params))
+plan = active_plan(spec["fault_plan"])
+OnlineTrainer(params, spec["anchor"], ds,
+              TraceSource(spec["trace"], fault_plan=plan),
+              SnapshotPublisher(prefix=spec["prefix"], mode="files"),
+              fault_plan=plan, checkpoint_dir=spec["ckpt"]).run()
+"""
+
+
+def _popen(here, d, name, argv, **kw):
+    """Start `argv` with the package on its path, its output to d/name.log
+    (a pipe left unread could fill and stall it)."""
+    env = {**os.environ, "PYTHONPATH": here}
+    env.pop("LIGHTGBM_TPU_FAULT_PLAN", None)
+    with open(os.path.join(d, name + ".log"), "w") as log:
+        proc = subprocess.Popen(argv, env=env, stdout=log,
+                                stderr=subprocess.STDOUT, **kw)
+    proc.log_path = log.name
+    return proc
+
+
+def _spawn(here, d, name, **spec):
+    """Start the online child with `spec` (written to d/name.json)."""
+    path = os.path.join(d, name + ".json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    return _popen(here, d, name,
+                  [sys.executable, os.path.join(d, "child.py"), path])
+
+
+def _finish(proc, timeout=600):
+    """(exit code, output) of a child, killed if it outlives `timeout`."""
+    try:
+        proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    with open(proc.log_path) as f:
+        return proc.returncode, f.read()
+
+
+def _pctl(lat, q):
+    return float(np.percentile(lat, q)) if lat else None
+
+
+def online_phase(lt, hc, cli, torch, smi, here, params, ds, X, y, w,
+                 anchor, mappers):
+    """A13's online loop on the card (online/, engine.warm_continue):
+    bench's model as the anchor and bench's Dataset as the frozen
+    reference; a TraceSource of 2^18 new rows in 64 batches of 4096, a
+    2^17-row window refreshed every 32768 rows: 6 refits and 2 continues
+    of 4 trees, published (mode both) into a co-located binned session of
+    task=online's serving stack (cli.build_serving: the registry, the
+    micro-batcher, the default breaker), which four client threads query
+    with single f32 rows (2 ms apart) through 1 s idle, the loop, 1 s
+    idle. Checks: the summary counts; every snapshot's manifest, and its
+    md5 equal to its offline arm on the card (anchor.refit /
+    warm_continue on the same window); every answer within 1e-6 of
+    Booster.predict of a generation live during its request, never older
+    than the client's last; no failed request, no host fallback; the
+    first continued tree equal to the plain versions'; #6 (the session)
+    and the continues' kernels launched in the loop. Then a child process
+    under kill@iter=5 with a checkpoint directory exits 17, and resumed
+    publishes all 8 snapshots md5-equal to the loop's; a short loop under
+    stall_source / corrupt_batch fires a staleness refresh and skips the
+    corrupt batch; and `python -m lightgbm_tpu_torch task=online` on a
+    small .npz trace exits 0 with output_model its last snapshot. The
+    children and the CLI run beside the offline arms and the answers'
+    check. Recorded: ms per refit, continue and
+    publish; ms from a promote to the first answer of its generation;
+    served p50 / p99 during refreshes and idle; the loop's rows a
+    second."""
+    import tempfile
+    import threading
+    from lightgbm_tpu_torch.engine import warm_continue
+    from lightgbm_tpu_torch.online import (OnlineTrainer, SnapshotPublisher,
+                                           TraceSource, save_trace)
+    from lightgbm_tpu_torch.runtime.checkpoint import verify_manifest
+    from lightgbm_tpu_torch.runtime.faults import FaultPlan
+    from lightgbm_tpu_torch.runtime.profiler import StageProfiler
+    dev = torch.device("cuda", 0)
+    F = X.shape[1]
+    rng = np.random.RandomState(47)
+    Xs = rng.normal(size=(ONLINE_TRACE, F)).astype(np.float32)
+    ys = (Xs @ w + rng.normal(scale=0.5, size=ONLINE_TRACE) > 0) \
+        .astype(np.float64)
+    Xq = np.random.RandomState(48).normal(size=(4096, F)).astype(np.float32)
+    op = dict(params, **ONLINE_LOOP)
+    cfg = lt.resolve_params(dict(op, serve_engine="binned",
+                                 serve_request_timeout_ms=10000.0,
+                                 online_serve=True,
+                                 online_publish_mode="both"))
+    tmp = tempfile.TemporaryDirectory(dir=here, prefix="lgbt_online_")
+    d = tmp.name
+    procs = []
+    try:
+        trace = os.path.join(d, "trace.npz")
+        save_trace(trace, Xs, ys,
+                   batch_sizes=[ONLINE_BATCH] * (ONLINE_TRACE // ONLINE_BATCH))
+        metrics, breaker, registry, batcher = cli.build_serving(cfg)
+        registry.register("default", anchor, bin_mappers=mappers)
+        batcher.start()
+        pub = SnapshotPublisher(prefix=os.path.join(d, "m"), mode="both",
+                                registry=registry)
+        swap_t, publish_ms = {}, []
+        publish = pub.publish
+
+        def timed_publish(text, it, extra=None):
+            t0 = time.perf_counter()
+            info = publish(text, it, extra)
+            swap_t[it] = time.perf_counter()
+            publish_ms.append((swap_t[it] - t0) * 1e3)
+            return info
+        pub.publish = timed_publish
+        prof = StageProfiler(device=dev)
+        trainer = OnlineTrainer(op, anchor, ds, TraceSource(trace), pub,
+                                profiler=prof)
+        state = {"tag": "idle"}
+        refresh = trainer._refresh
+
+        def tagged_refresh(reason):
+            state["tag"] = "refresh"
+            try:
+                refresh(reason)
+            finally:
+                state["tag"] = "loop"
+        trainer._refresh = tagged_refresh
+        seen = [[] for _ in range(4)]
+        errors, stop = [], threading.Event()
+
+        def client(c):
+            r = np.random.RandomState(100 + c)
+            while not stop.is_set():
+                i = int(r.randint(len(Xq)))
+                tag = state["tag"]
+                v0 = registry.session().version
+                t0 = time.perf_counter()
+                try:
+                    p = float(np.asarray(batcher.predict(Xq[i:i + 1]))[0])
+                except Exception as e:
+                    errors.append(repr(e))
+                    continue
+                t1 = time.perf_counter()
+                seen[c].append((i, v0, registry.session().version, p, t1,
+                                (t1 - t0) * 1e3, tag))
+                time.sleep(0.002)
+        threads = [threading.Thread(target=client, args=(c,), daemon=True)
+                   for c in range(4)]
+        for th in threads:
+            th.start()
+        time.sleep(1.0)
+        hc.reset_launch_counts()
+        torch.cuda.synchronize()
+        state["tag"] = "loop"
+        t0 = time.perf_counter()
+        try:
+            summary = trainer.run()
+        finally:
+            torch.cuda.synchronize()
+            loop_s = time.perf_counter() - t0
+            loop_launches = dict(hc.LAUNCHES)
+            state["tag"] = "idle"
+            time.sleep(1.0)
+            stop.set()
+            for th in threads:
+                th.join(timeout=30)
+            batcher.stop()
+            registry.stop_watchers()
+        host_fallbacks = metrics.counters.get("host_fallbacks", 0)
+        swaps = metrics.counters.get("swaps", 0)
+        snaps = [os.path.join(d, f"m.snapshot_iter_{k}.txt")
+                 for k in range(1, 9)]
+        gens = [anchor] + [open(p).read() for p in snaps]
+        manifests = [verify_manifest(p)[0] for p in snaps]
+        kinds = [json.load(open(p + ".manifest.json"))["kind"]
+                 for p in snaps]
+
+        # the killed child beside the offline arms
+        np.save(os.path.join(d, "X.npy"), X)
+        np.save(os.path.join(d, "y.npy"), y)
+        with open(os.path.join(d, "child.py"), "w") as f:
+            f.write(_ONLINE_CHILD)
+        child = dict(X=os.path.join(d, "X.npy"), y=os.path.join(d, "y.npy"),
+                     params=op, anchor=anchor, trace=trace,
+                     prefix=os.path.join(d, "k"), ckpt=os.path.join(d, "ck"))
+        t_kill = time.perf_counter()
+        procs.append(_spawn(here, d, "kill", fault_plan="kill@iter=5",
+                            **child))
+        # task=online through the command line on a small trace
+        nb = 1 << 14
+        np.savetxt(os.path.join(d, "base.tsv"),
+                   np.column_stack([y[:nb], X[:nb]]), delimiter="\t",
+                   fmt="%.9g")
+        save_trace(os.path.join(d, "small.npz"), Xs[:6 * ONLINE_BATCH],
+                   ys[:6 * ONLINE_BATCH], batch_sizes=[ONLINE_BATCH] * 6)
+        cli_out = os.path.join(d, "cli_model.txt")
+        t_cli = time.perf_counter()
+        procs.append(_popen(here, d, "cli", [
+            sys.executable, "-m", "lightgbm_tpu_torch", "task=online",
+            "data=base.tsv", "header=false", "label_column=0",
+            "online_source=small.npz", f"output_model={cli_out}",
+            "device_type=cuda", "objective=binary",
+            f"num_leaves={N_LEAVES}", "max_bin=63", "num_iterations=4",
+            "verbosity=-1", "batched_train=false",
+            "online_window_rows=8192", "online_refresh_rows=8192",
+            "online_continue_every=2", "online_continue_trees=2",
+            "online_publish_mode=both", "online_serve=true",
+            "serve_port=0"], cwd=d))
+
+        # the offline arms on the card, and the first continued tree
+        # against the plain versions'
+        Xw64, anchor_k = Xs.astype(np.float64), anchor
+        offline_md5, first_tree_err = [], None
+        step, cap = ONLINE_LOOP["online_refresh_rows"], \
+            ONLINE_LOOP["online_window_rows"]
+        n_anchor = lt.Booster(params=params, model_str=anchor).num_trees()
+        for k in range(1, 9):
+            sl = slice(max(0, step * k - cap), step * k)
+            if k % ONLINE_LOOP["online_continue_every"] == 0:
+                b = warm_continue(
+                    dict(op), Xw64[sl], ys[sl],
+                    ONLINE_LOOP["online_continue_trees"],
+                    lt.Booster(params={"device_type": "cuda"},
+                               model_str=anchor_k), ds)
+                if k == 4:
+                    dsw = lt.Dataset(None, params=dict(op)).init_streaming(
+                        sl.stop - sl.start, reference=ds)
+                    dsw.push_rows(Xw64[sl], label=ys[sl]).mark_finished()
+                    g = lt.Booster(params=dict(op), train_set=dsw)._gbdt
+                    g.load_init_model(anchor_k)
+                    plain = _plain_trees(torch, g, sl.stop - sl.start,
+                                         scores=g.scores, it=g.iter)[0]
+                    first_tree_err = _same_host_tree(
+                        plain, b._gbdt.models[n_anchor])
+                    del g, dsw
+                anchor_k = b.model_to_string()
+                text = anchor_k
+            else:
+                text = lt.Booster(params={"device_type": "cuda"},
+                                  model_str=anchor_k).refit(
+                    Xw64[sl], ys[sl], decay_rate=0.9).model_to_string()
+            offline_md5.append(_md5(text) == _md5(gens[k]))
+        kill_rc, kill_log = _finish(procs[0])
+        kill_s = time.perf_counter() - t_kill
+        killed_left = [os.path.exists(os.path.join(d, f"k.snapshot_iter_{k}"
+                                                   ".txt")) for k in (4, 5)]
+
+        # the resumed child beside the served answers' check and the
+        # fault loop
+        t_res = time.perf_counter()
+        procs.append(_spawn(here, d, "resume", fault_plan="", **child))
+        preds = [lt.Booster(params={"device_type": "cuda"},
+                            model_str=g).predict(Xq) for g in gens]
+        served = {"idle": [], "loop": [], "refresh": []}
+        bad, back, first_answer = [], 0, {}
+        for rows in seen:
+            last = 0
+            for i, v0, v1, p, t1, ms, tag in rows:
+                served[tag].append(ms)
+                ok = [v for v in range(max(v0, last), v1 + 1)
+                      if abs(preds[v][i] - p) <= 1e-6]
+                if not ok:
+                    bad.append((i, v0, v1, p))
+                    continue
+                back += int(ok[0] < last)
+                last = ok[0]
+                for v in range(1, ok[0] + 1):
+                    if v in swap_t and t1 >= swap_t[v]:
+                        first_answer[v] = min(first_answer.get(v, 1e9),
+                                              (t1 - swap_t[v]) * 1e3)
+        n_req = sum(len(r) for r in seen)
+        rec = list(prof.ring)
+        refit_ms = [r["stages_s"]["online_refit"] * 1e3 for r in rec
+                    if "online_refit" in r["stages_s"]]
+        cont_ms = [r["stages_s"]["online_continue"] * 1e3 for r in rec
+                   if "online_continue" in r["stages_s"]]
+
+        # stall_source and corrupt_batch on a short loop
+        plan = FaultPlan.parse("stall_source@batch=1:ms=500,"
+                               "corrupt_batch@batch=2")
+        fault = OnlineTrainer(
+            dict(op, online_max_staleness_s=0.2, online_continue_every=0),
+            anchor, ds, TraceSource((Xs[:4 * ONLINE_BATCH],
+                                     ys[:4 * ONLINE_BATCH], None,
+                                     [ONLINE_BATCH] * 4), fault_plan=plan),
+            SnapshotPublisher(prefix=os.path.join(d, "f"), mode="files"),
+            fault_plan=plan)
+        fsum = fault.run()
+
+        cli_rc, cli_log = _finish(procs[1])
+        cli_s = time.perf_counter() - t_cli
+        cli_last = cli_out + ".snapshot_iter_3.txt"
+        cli_same = (cli_rc == 0 and os.path.exists(cli_last)
+                    and _md5(open(cli_out).read())
+                    == _md5(open(cli_last).read()))
+        res_rc, res_log = _finish(procs[2])
+        res_s = time.perf_counter() - t_res
+        resumed_md5 = [os.path.exists(os.path.join(
+            d, f"k.snapshot_iter_{k}.txt")) and _md5(open(os.path.join(
+                d, f"k.snapshot_iter_{k}.txt")).read()) == _md5(gens[k])
+            for k in range(1, 9)]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        tmp.cleanup()
+    emit({"phase": "online", "rows_trace": ONLINE_TRACE,
+          "batch_rows": ONLINE_BATCH, **ONLINE_LOOP, "features": F,
+          "leaves": N_LEAVES, "summary": summary, "kinds": kinds,
+          "manifests_ok": manifests, "offline_md5_equal": offline_md5,
+          "loop_s": loop_s, "loop_rows_per_s": ONLINE_TRACE / loop_s,
+          "refit_ms": refit_ms, "continue_ms": cont_ms,
+          "publish_ms": publish_ms,
+          "promote_to_first_answer_ms": [first_answer.get(v)
+                                         for v in range(1, 9)],
+          "served_requests": n_req, "failed_requests": len(errors),
+          "errors": errors[:5], "answers_off": len(bad),
+          "answers_off_first": bad[:3], "generation_went_back": back,
+          "served_ms": {t: {"n": len(v), "p50": _pctl(v, 50),
+                            "p99": _pctl(v, 99)}
+                        for t, v in served.items()},
+          "host_fallbacks": host_fallbacks, "swaps": swaps,
+          "loop_launches": loop_launches,
+          "first_continued_tree_same": first_tree_err is not None,
+          "first_continued_tree_leaf_max_abs_err": first_tree_err,
+          "kill_exit_code": kill_rc, "kill_child_s": kill_s,
+          "killed_left_snapshots_4_5": killed_left,
+          "resume_exit_code": res_rc, "resume_child_s": res_s,
+          "resumed_md5_equal": resumed_md5, "faults_summary": fsum,
+          "corrupted_batches": fault.source.corrupted_batches,
+          "cli_exit_code": cli_rc, "cli_s": cli_s,
+          "cli_output_equals_last_snapshot": cli_same,
+          "hbm_peak_bytes": prof.hbm_peak_bytes, "nvidia_smi": smi})
+    check(summary == {"publishes": 8, "last_iteration": 8, "refits": 6,
+                      "continues": 2,
+                      "consumed_batches": ONLINE_TRACE // ONLINE_BATCH,
+                      "consumed_rows": ONLINE_TRACE, "skipped_batches": 0,
+                      "stale_refreshes": 0,
+                      "window_rows": ONLINE_LOOP["online_window_rows"]},
+          f"online summary {summary}")
+    check(kinds == ["refit"] * 3 + ["continue"] + ["refit"] * 3
+          + ["continue"], f"refresh kinds {kinds}")
+    check(all(manifests), f"snapshot manifests {manifests}")
+    check(all(offline_md5), f"snapshots against their offline arms "
+                            f"{offline_md5}")
+    check(not errors and not bad and back == 0,
+          f"served answers: {len(errors)} failed, {len(bad)} off, "
+          f"{back} older generations ({errors[:2]}, {bad[:2]})")
+    check(host_fallbacks == 0 and swaps == 8,
+          f"host_fallbacks {host_fallbacks}, swaps {swaps}")
+    check(first_tree_err is not None and first_tree_err <= 1e-6,
+          f"the first continued tree differs from the plain versions' "
+          f"({first_tree_err})")
+    for name in ("bucketize", "build_histogram_slots", "take_leaf_values",
+                 "wave_pass", "wave_relabel"):
+        check(loop_launches[name] > 0, f"the online loop never launched "
+                                       f"{name}")
+    check(kill_rc == 17 and killed_left == [True, False],
+          f"the killed child exited {kill_rc} leaving snapshots 4 / 5 "
+          f"{killed_left}: {kill_log[-2000:]}")
+    check(res_rc == 0 and all(resumed_md5),
+          f"the resumed child exited {res_rc}, md5 {resumed_md5}: "
+          f"{res_log[-2000:]}")
+    check(fsum["stale_refreshes"] == 1 and fsum["skipped_batches"] == 1
+          and fsum["publishes"] == 2 and fault.source.corrupted_batches == 1,
+          f"the fault loop's summary {fsum}")
+    check(cli_same, f"task=online exited {cli_rc}: {cli_log[-2000:]}")
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -6499,6 +6996,14 @@ def main():
     fleet_launches = fleet_phase(hc, torch, smi, tenants, qs)
     export_phase(lt, hc, torch, smi, here, tenants, qs)
     fleet_cli_phase(lt, smi, here, tenants, qs)
+
+    # ---- 24. A13: the streaming Dataset through #6, warm_continue, and
+    # the online loop with co-located serving, kill / resume and faults
+    from lightgbm_tpu_torch import cli
+    anchor = tenants["bench"][0]
+    streaming_phase(lt, hc, torch, smi, params, ds, X, y, anchor)
+    online_phase(lt, hc, cli, torch, smi, here, params, ds, X, y, w, anchor,
+                 tenants["bench"][1])
 
     src = {"build_histogram_slots": "hist_slots.cu",
            "take_leaf_values": "take_leaf_values.cu",

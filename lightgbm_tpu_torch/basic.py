@@ -20,11 +20,11 @@ import torch
 from .config import Config, resolve_params
 from .data.dataset import (BinnedDataset, Metadata, construct_from_matrix,
                            construct_from_sequences, construct_from_sparse,
-                           load_binary_file)
+                           ingest_bin_table, load_binary_file)
 from .data.loader import load_text_file
 from .metrics import Metric, create_metric, default_metric_for_objective
 from .models import create_boosting
-from .models.gbdt import GBDT, _not_ported, check_slice_config
+from .models.gbdt import GBDT, check_slice_config
 from .models.linear import fit_linear_models
 from .models.predictor import format_tree_indices, linear_tree_indices
 from .objectives import create_objective
@@ -80,6 +80,9 @@ def _to_2d_numpy(data: Any) -> np.ndarray:
         arr = arr.reshape(-1, 1)
     return arr
 
+
+# a streaming Dataset's bin table before its first f32 push resolves it
+_UNRESOLVED = object()
 
 _EARLY_STOP_KEYS = ("pred_early_stop", "pred_early_stop_freq",
                     "pred_early_stop_margin")
@@ -413,11 +416,137 @@ class Dataset:
             num_total_features=h.num_total_features,
         )
 
-    def init_streaming(self, *args, **kwargs) -> "Dataset":
-        _not_ported("streaming Datasets (init_streaming / push_rows / "
-                    "mark_finished)", "A13")
+    # -- streaming push ingestion --------------------------------------
+    def init_streaming(self, num_rows: int,
+                       reference: Optional["Dataset"] = None) -> "Dataset":
+        """Incremental row-push construction against a reference's bin
+        mappers (JAX basic.py:464-495; LGBM_DatasetInitStreaming,
+        c_api.cpp:1125, and LGBM_DatasetPushRows*, c_api.h:221-324):
+        `reference`, else `self.reference`. Both copies of the bins start
+        at bin 0, the host `X_binned` [N, F] and the feature-major `X_t`
+        [F, N] on the device of this Dataset's `device_type`; the label is
+        zeros until pushed. A streamed Dataset has no EFB bundles."""
+        ref = reference if reference is not None else self.reference
+        if ref is None:
+            log_fatal("init_streaming requires a reference Dataset "
+                      "carrying the bin mappers")
+        ref.construct()
+        rh = ref._handle
+        cfg = resolve_params(self.params)
+        h = BinnedDataset()
+        h.num_data = int(num_rows)
+        h.num_total_features = rh.num_total_features
+        h.mappers = rh.mappers
+        h.real_feature_index = rh.real_feature_index
+        h.used_feature_map = rh.used_feature_map
+        h.tier_perm = rh.tier_perm
+        h.feature_names = list(rh.feature_names)
+        h.max_bin = rh.max_bin
+        h.reference = rh
+        h.X_binned = np.zeros((num_rows, max(len(rh.mappers), 1)),
+                              dtype=rh.X_binned.dtype)
+        h.X_t = torch.zeros(
+            (h.X_binned.shape[1], num_rows),
+            dtype=torch.from_numpy(h.X_binned[:0]).dtype,
+            device=resolve_device(cfg.device_type))
+        md = Metadata(num_rows)
+        md.set_label(np.zeros(num_rows, np.float32))
+        h.metadata = md
+        self._handle = h
+        self._stream_pos = 0
+        self._stream_cfg = cfg
+        self._stream_table = _UNRESOLVED
+        return self
 
-    push_rows = mark_finished = init_streaming
+    def _stream_bin_table(self, dtype: np.dtype):
+        """The bin table a pushed chunk of `dtype` bins through on the
+        device (#6), uploaded once per init_streaming and resolved under
+        the Dataset's `binning_impl` as the matrix path resolves it
+        (data/dataset.py ingest_bin_table); None takes the host
+        `value_to_bin` loop, as other than f32 rows always do, except
+        under binning_impl=device, where they raise."""
+        cfg = self._stream_cfg
+        if dtype != np.float32:
+            if cfg.binning_impl == "device":
+                raise ValueError(
+                    f"binning_impl=device bins float32 input; these rows "
+                    f"are {dtype} (binning them in f32 could round away "
+                    f"precision the host route keeps)")
+            return None
+        if self._stream_table is _UNRESOLVED:
+            from .ops.bucketize import upload_bin_table
+            h = self._handle
+            t = ingest_bin_table(h, cfg, h.X_t.device, h.num_data)
+            self._stream_table = (None if t is None
+                                  else upload_bin_table(t, h.X_t.device))
+        return self._stream_table
+
+    def push_rows(self, data, label=None, weight=None, init_score=None,
+                  start_row: Optional[int] = None) -> "Dataset":
+        """Bin a chunk of raw rows into rows [start_row, start_row + n) of
+        a streaming Dataset (by default the rows after the last push),
+        against the reference's mappers (JAX basic.py:509-554;
+        LGBM_DatasetPushRowsWithMetadata; one writer at a time). An f32
+        chunk whose mapper set packs is binned by #6 straight into its
+        columns of `X_t`, then copied down to `X_binned`; other rows,
+        and tables past 256 bins, take the host `value_to_bin` loop and
+        are copied up. `weight` and `init_score` start as ones and zeros
+        at their first push."""
+        h = self._handle
+        if h is None or not hasattr(self, "_stream_pos"):
+            log_fatal("push_rows requires init_streaming first")
+        batch = _to_2d_numpy(data)
+        n = batch.shape[0]
+        lo = self._stream_pos if start_row is None else int(start_row)
+        hi = lo + n
+        if hi > h.num_data:
+            log_fatal(f"push_rows overflows the dataset "
+                      f"({hi} > {h.num_data})")
+        table = self._stream_bin_table(batch.dtype)
+        if table is not None:
+            from .ops.bucketize import bin_rows_device
+            bin_rows_device(batch, table, h.X_t.device,
+                            cols=h.real_feature_index, out=h.X_t, col0=lo)
+            h.X_binned[lo:hi] = h.X_t[:, lo:hi].t().cpu().numpy()
+            h.binning_route = "device"
+        else:
+            for inner, (m, orig) in enumerate(zip(h.mappers,
+                                                  h.real_feature_index)):
+                h.X_binned[lo:hi, inner] = m.value_to_bin(
+                    np.asarray(batch[:, orig], np.float64))
+            # an int16 view: CUDA copies no uint16 slice
+            rows = np.ascontiguousarray(h.X_binned[lo:hi].T)
+            dst = h.X_t
+            if rows.dtype == np.uint16:
+                rows, dst = rows.view(np.int16), dst.view(torch.int16)
+            dst[:, lo:hi].copy_(torch.from_numpy(rows))
+            h.binning_route = "host"
+        md = h.metadata
+        if label is not None:
+            md.label[lo:hi] = _to_1d_numpy(label)
+        if weight is not None:
+            if md.weight is None:
+                md.set_weight(np.ones(h.num_data, np.float32))
+            md.weight[lo:hi] = _to_1d_numpy(weight)
+        if init_score is not None:
+            if md.init_score is None:
+                md.set_init_score(np.zeros(h.num_data, np.float64))
+            md.init_score[lo:hi] = _to_1d_numpy(init_score)
+        self._stream_pos = hi if start_row is None \
+            else max(self._stream_pos, hi)
+        return self
+
+    def mark_finished(self) -> "Dataset":
+        """End of the pushes (LGBM_DatasetMarkFinished; JAX
+        basic.py:556-564). Rows never pushed keep bin 0 and label 0 in
+        both copies; a short fill only warns."""
+        if not hasattr(self, "_stream_pos"):
+            log_fatal("mark_finished requires init_streaming first")
+        if self._stream_pos < self._handle.num_data:
+            log_warning(f"streaming dataset finished at row "
+                        f"{self._stream_pos} of {self._handle.num_data}")
+        del self._stream_pos, self._stream_cfg, self._stream_table
+        return self
 
     def add_features_from(self, other: "Dataset") -> "Dataset":
         """Append `other`'s features to this Dataset in place (JAX

@@ -179,6 +179,19 @@ class BinnedDataset:
             infos.append("none" if inner < 0 else self.mappers[inner].feature_info())
         return infos
 
+    def schema_signature(self) -> str:
+        """sha256 of the binning schema: the column count, `max_bin`, and
+        each column's name and bin layout (`feature_infos`), the JAX
+        package's digest (data/dataset.py:178-190). The online loop's
+        checkpoint guard compares it: a checkpoint taken under other
+        mappers is never resumed."""
+        import hashlib
+        h = hashlib.sha256()
+        h.update(f"{self.num_total_features}|{self.max_bin}".encode())
+        for name, info in zip(self.feature_names, self.feature_infos()):
+            h.update(f"|{name}:{info}".encode())
+        return h.hexdigest()
+
     @property
     def label(self) -> Optional[np.ndarray]:
         return self.metadata.label if self.metadata else None

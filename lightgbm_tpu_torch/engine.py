@@ -1,4 +1,4 @@
-"""Training entry points: train() and cv().
+"""Training entry points: train(), cv() and warm_continue().
 
 Counterpart of lightgbm_tpu/engine.py (the reference python package's
 engine.py: train:109, cv:626, CVBooster:356). train() runs batched by
@@ -17,7 +17,9 @@ of the booster's iterations into `checkpoint_dir`, and
 its save point, so a run killed and resumed writes the same model bytes
 as one never interrupted (runtime/checkpoint.py). cv() trains one
 booster a fold in lockstep and reports each metric's mean and standard
-deviation over the folds every round.
+deviation over the folds every round. warm_continue() boosts more trees
+onto a model from raw rows binned against a frozen reference (the online
+loop's continue, online/trainer.py).
 """
 
 from __future__ import annotations
@@ -256,6 +258,28 @@ def _try_batched_train(booster: Booster, cfg, params: Dict[str, Any],
     finally:
         gbdt.stop_drain()
     return True
+
+
+def warm_continue(params: Dict[str, Any], X, label,
+                  num_boost_round: int, init_model: Union[str, Booster],
+                  reference: Dataset, weight=None) -> Booster:
+    """Boost `num_boost_round` more trees onto `init_model` on raw rows
+    binned against a frozen reference Dataset's mappers (JAX
+    engine.py:281-303): a streaming Dataset (`init_streaming`, one
+    `push_rows`, `mark_finished`), so the new trees split on the base
+    model's bin boundaries. The online loop's continue and its offline
+    arm both call this, so equal inputs give equal model bytes. f32 rows
+    stay f32, which bins them through #6 on the card; other rows are
+    binned as f64 on the host."""
+    X = np.asarray(X)
+    if X.dtype != np.float32:
+        X = np.asarray(X, np.float64)
+    ds = Dataset(None, params=copy.deepcopy(params))
+    ds.init_streaming(X.shape[0], reference=reference)
+    ds.push_rows(X, label=label, weight=weight)
+    ds.mark_finished()
+    return train(copy.deepcopy(params), ds,
+                 num_boost_round=num_boost_round, init_model=init_model)
 
 
 class CVBooster:

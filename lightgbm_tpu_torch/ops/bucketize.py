@@ -590,23 +590,36 @@ def bucketize_rows_stacked(X: torch.Tensor, tid: torch.Tensor,
 # ----------------------------------------------------------------------
 # ingest: chunked upload of a host matrix
 # ----------------------------------------------------------------------
-def bin_rows_device(X: np.ndarray, t: DeviceBinTable, device: torch.device,
+def bin_rows_device(X: np.ndarray, t, device: torch.device,
                     cols: Optional[Sequence[int]] = None,
-                    chunk: int = 1 << 18) -> torch.Tensor:
-    """Bin a host f32 matrix on `device` into the feature-major [F, n]
-    uint8 matrix training consumes. Row chunks of X are uploaded one at a
-    time (the device never holds a second full f32 copy), and the kernel
-    writes each chunk's bins straight into its columns of the result.
-    ``cols`` selects X's column for each table row (the dataset's
-    ``real_feature_index``) without a host copy of the selection."""
+                    chunk: int = 1 << 18,
+                    out: Optional[torch.Tensor] = None,
+                    col0: int = 0) -> torch.Tensor:
+    """Bin a host f32 matrix on `device` into the feature-major [F, n] uint8
+    matrix training consumes. Row chunks of X are uploaded one at a time
+    (the device never holds a second full f32 copy), and the kernel writes
+    each chunk's bins straight into its columns of the result. ``cols``
+    selects X's column for each table row (the dataset's
+    ``real_feature_index``) without a host copy of the selection. `t` is a
+    DeviceBinTable, or its ``upload_bin_table`` tensors on `device`. With
+    ``out``, an [F, >= col0 + n] uint8 matrix on `device` (a streaming
+    Dataset's ``X_t``), the bins land in its columns [col0, col0 + n) and
+    ``out`` is returned."""
     n = X.shape[0]
     F = t.num_features
-    tt = upload_bin_table(t, device)
+    tt = t if isinstance(t, BinTableTensors) else upload_bin_table(t, device)
     ci = None if cols is None else torch.as_tensor(
         np.asarray(cols, np.int32)).to(device)
-    X_t = torch.empty((F, n), dtype=torch.uint8, device=device)
+    if out is None:
+        out, col0 = torch.empty((F, n), dtype=torch.uint8,
+                                device=device), 0
+    elif (out.dtype != torch.uint8 or out.dim() != 2 or out.shape[0] != F
+          or out.shape[1] < col0 + n):
+        raise ValueError(f"out must be an [{F}, >= {col0 + n}] uint8 "
+                         f"matrix, got {out.dtype} {tuple(out.shape)}")
     for c0 in range(0, n, chunk):
         c1 = min(c0 + chunk, n)
         xc = torch.from_numpy(np.ascontiguousarray(X[c0:c1], np.float32))
-        bucketize_rows(xc.to(device), tt, out=X_t[:, c0:c1].t(), cols=ci)
-    return X_t
+        bucketize_rows(xc.to(device), tt,
+                       out=out[:, col0 + c0:col0 + c1].t(), cols=ci)
+    return out

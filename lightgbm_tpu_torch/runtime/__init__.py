@@ -19,8 +19,9 @@ Counterpart of lightgbm_tpu/runtime/:
    ``resume_from_checkpoint``).
  * `faults` — deterministic fault-injection plans (``fault_plan`` or
    LIGHTGBM_TPU_FAULT_PLAN): kill / raise / sleep / corrupt_snapshot /
-   fail_collective on the training path; the serving and online
-   directives parse and wait for A18(b) and A13.
+   fail_collective on the training path, slow_score / fail_score /
+   wedge_worker on the serving path, stall_source / corrupt_batch on the
+   online loop's sources.
 
 All default off; ``autotune=false`` keeps the ladder's choice and
 ``checkpoint_interval=0`` leaves the training loop untouched.

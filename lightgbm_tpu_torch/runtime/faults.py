@@ -5,7 +5,8 @@ the same hooks (models/gbdt.py calls `at_iteration` before each
 iteration and `maybe_fail_collective` inside its step watchdog;
 runtime/checkpoint.py asks `should_corrupt_snapshot`; serving/session.py
 calls `slow_score` / `fail_score` per scored chunk and serving/batcher.py
-`wedge_worker` per worker loop).
+`wedge_worker` per worker loop; online/source.py calls `stall_source`
+before and `should_corrupt_batch` after each pull).
 
 A fault PLAN is a ``;``/``,``-separated list of directives, each
 ``action@key=value[:key=value...]`` (docs/ROBUSTNESS.md):
@@ -39,9 +40,8 @@ first batch"):
                                   mid-loop (drives the /healthz wedge
                                   detection; default ms is an hour)
 
-Online-loop actions (keyed by the 0-based micro-batch index, the same
-``batch``/``times`` grammar as the serving actions; parsed, unwired
-until the online loop of ROADMAP item A13):
+Online-loop actions (online/source.py; keyed by the 0-based micro-batch
+index, the same ``batch``/``times`` grammar as the serving actions):
 
     stall_source@batch=2:ms=400   the micro-batch source blocks 400ms
                                   before yielding batch 2 (drives the
@@ -196,16 +196,18 @@ class FaultPlan:
             time.sleep(float(p.get("ms", 3_600_000.0)) / 1e3)
 
     def stall_source(self, batch_idx: int) -> None:
-        """Online-source hook, called before a batch is yielded: block so
-        the stream goes quiet (unwired until A13). Default stall is an
-        hour; tests pass a small ``ms``."""
+        """Online-source hook (online/source.py), called before a batch is
+        pulled: block so the stream goes quiet and the trainer's staleness
+        watchdog fires. Default stall is an hour; tests pass a small
+        ``ms``."""
         p = self._consume_serving("stall_source", batch_idx)
         if p is not None:
             time.sleep(float(p.get("ms", 3_600_000.0)) / 1e3)
 
     def should_corrupt_batch(self, batch_idx: int) -> bool:
-        """Online-source hook: mangle the batch about to be yielded
-        (unwired until A13)."""
+        """Online-source hook: mangle the batch about to be yielded (the
+        source widens it by one column), so the trainer's bin-compat guard
+        rejects it and the loop skips it."""
         return self._consume_serving("corrupt_batch", batch_idx) is not None
 
     def should_corrupt_snapshot(self, iteration: int) -> bool:

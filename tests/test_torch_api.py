@@ -245,12 +245,17 @@ def test_cv_early_stopping_and_raw_data():
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda p: lt.Dataset(None, params=TORCH).init_streaming(), "A13"),
-    (lambda p: lt.Dataset(None, params=TORCH).push_rows(X), "A13"),
-    (lambda p: lt.Dataset(None, params=TORCH).mark_finished(), "A13"),
+    (lambda mod, p: mod.Dataset(None, params=p).init_streaming(10), "A13"),
+    (lambda mod, p: mod.Dataset(None, params=p).push_rows(X), "A13"),
+    (lambda mod, p: mod.Dataset(None, params=p).mark_finished(), "A13"),
 ])
 def test_surface_left_out_raises(tmp_path, call, item):
-    # streaming Datasets are ROADMAP item A13; text files are ported
-    # (tests/test_torch_loader.py)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-        call(tmp_path)
+    # streaming Datasets, ROADMAP item A13, are ported
+    # (tests/test_torch_streaming.py): called out of order (no reference,
+    # no init_streaming) they are fatal with the JAX package's messages
+    with pytest.raises(lj.utils.log.FatalError) as ej:
+        call(lj, {})
+    with pytest.raises(lt.FatalError) as et:
+        call(lt, TORCH)
+    assert str(et.value) == str(ej.value)
+    assert "init_streaming" in str(et.value), item
