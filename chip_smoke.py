@@ -198,7 +198,8 @@ Phases, each printing one JSON line:
                      to the plain versions', AUC > 0.85, and under fused
                      the veto naming the parameter
      rank            MSLR-WEB30K's schema (136 numeric features, relevance
-                     0-4, queries of 64-256 documents), 2^20 documents,
+                     0-4, queries of 64-256 documents), 2^19 documents
+                     (cut from 2^20 so that the run fits its time),
                      max_bin 255, the apply route: 2 rounds of lambdarank
                      (ndcg@1,3,5,10) and 2 of rank_xendcg; the first tree
                      equal to the plain versions', the card's lambdarank
@@ -327,9 +328,9 @@ Phases, each printing one JSON line:
                      fallback base where scikit-learn is missing): md5
                      equal to lt.train's with its parameters, held-out
                      AUC; LGBMRanker 2 rounds on the ranking table
-                     (2^18 documents); pred_contrib of 1024 held-out
-                     rows (both cut so that the cli and resilience
-                     lines fit the run's time), each row's sum within
+                     (2^17 documents); pred_contrib of 512 held-out
+                     rows (both cut so that the later lines fit the
+                     run's time), each row's sum within
                      1e-6 of predict(raw_score=True)
  19. more than 256 bins a feature (uint16 storage; one line a case):
      wide_bins       bench.py's table at max_bin=1023, 4 rounds; the
@@ -357,8 +358,8 @@ Phases, each printing one JSON line:
 
  20. text files, the command line, checkpoints (one line each, with the
      card's name and power limit):
-     cli             bench.py's table cut to 2^18 training rows and a
-                     2^16-row valid file (a 2^20-row text file would cost
+     cli             bench.py's table cut to 2^17 training rows and a
+                     2^15-row valid file (a 2^20-row text file would cost
                      most of the line's time), written as TSV with %.9g
                      (f32 round-trips); `python -m lightgbm_tpu_torch
                      config=train.conf` on the card, 8 rounds, metric=auc,
@@ -456,6 +457,41 @@ Phases, each printing one JSON line:
                      at kill@iter=5 (exit 17) resumed to the same bytes;
                      stall_source / corrupt_batch; task=online by the CLI
                      (online_phase's docstring has the details)
+
+ 25. A16, multi-device training (last; bench's model at full width):
+     distributed     two rank processes (launch_local; this script's
+                     `dist_rank`) of one gloo group on cuda:0, the
+                     collectives staged through host buffers, each
+                     ingesting bench's 2^20 x 28 table through #6 and
+                     keeping its row block: data-parallel 4 rounds under
+                     allreduce and under reduce_scatter, quantized 2 under
+                     each (and on 4096 rows, where the (grad, hess) pair
+                     crosses as one packed lane), feature 2, voting
+                     (top_k 20) 2, pre_partition 2 (each rank its 2^19
+                     rows, binning its 14 features), and
+                     fail_collective@iter=1:times=2 in rank 1's parameters
+                     only, under reduce_scatter 4
+                     (device_profile: the straggler report). Checks: every
+                     rank's model text (minus its parameter lines)
+                     md5-equal; the modes md5-equal (float, quantized,
+                     packed); the degraded run md5-equal to reduce_scatter,
+                     every rank's mode allreduce after 2 failures and a pinned
+                     _mesh2 decision in its autotune cache; tree 0 of the
+                     data- and feature-parallel runs the single process's
+                     or parting from it only at gains within 1e-5
+                     relative; the plain versions' first tree over the
+                     group equal to the kernels'; train AUC after 4 rounds
+                     within 1e-3 of the single process's; #1 / #2 / #3 /
+                     #5 (#4 under feature) launched on every rank, #6 in
+                     every rank's ingest. Then a group whose rank 1 runs
+                     kill@iter=2: the launcher raises naming exit code 17
+                     within time_out + 30 s of the last round, no worker
+                     left; and a two-shard device session on the one card
+                     warns, runs unsharded and scores bitwise its twin.
+                     Records ms a round beside the single process's, the
+                     exchange's share of a round (this rank's seconds in
+                     collectives over the run's), bytes a tree, the comm
+                     probe's two timings
 
 then a {"kernels": [...]} line (the twelve kernels, #1 and #4 with their
 uint16 times, the six changed by the leaf cap with their `leaf_cap`
@@ -2943,7 +2979,8 @@ def _mslr_like(rng, n):
 
 def rank_phase(lt, hc, torch, dev, smi):
     """MSLR-WEB30K's schema (136 numeric features, relevance 0-4, queries
-    of 64-256 documents), synthetic from a seed, 2^20 documents,
+    of 64-256 documents), synthetic from a seed, 2^19 documents (cut from
+    2^20 so that the run fits its time),
     max_bin=255, 255 leaves: the apply route (#4). 2 rounds of lambdarank
     (ndcg@1,3,5,10), then 2 of rank_xendcg (host gradients). Checks: the
     first tree equals the plain versions'; the card's lambdarank
@@ -2954,7 +2991,8 @@ def rank_phase(lt, hc, torch, dev, smi):
     from lightgbm_tpu_torch.config import resolve_params
     from lightgbm_tpu_torch.metrics import create_metric
     rng = np.random.RandomState(61)
-    X, y, sizes = _mslr_like(rng, N_ROWS)
+    n_docs = N_ROWS // 2
+    X, y, sizes = _mslr_like(rng, n_docs)
     params = dict(objective="lambdarank", num_leaves=N_LEAVES, max_bin=255,
                   learning_rate=0.1, min_data_in_leaf=20, verbose=-1,
                   binning_impl="auto", device_type="cuda", metric="ndcg",
@@ -2965,8 +3003,8 @@ def rank_phase(lt, hc, torch, dev, smi):
     ingest_s = time.perf_counter() - t0
     md = ds._handle.metadata
     m0 = create_metric("ndcg", resolve_params(params))
-    m0.init(md, N_ROWS)
-    ndcg0 = {k: float(v) for k, v, _ in m0.eval(np.zeros(N_ROWS), None)}
+    m0.init(md, n_docs)
+    ndcg0 = {k: float(v) for k, v, _ in m0.eval(np.zeros(n_docs), None)}
     snaps = []
 
     def keep(env):
@@ -2981,7 +3019,7 @@ def rank_phase(lt, hc, torch, dev, smi):
             evals)
         g = bst._gbdt
         trees = g.models
-        rec = {"phase": "rank", "objective": obj, "rows": N_ROWS,
+        rec = {"phase": "rank", "objective": obj, "rows": n_docs,
                "queries": len(sizes), "features": 136, "card": smi,
                "ingest_s": ingest_s, "grow_route": g.grow_route,
                "hist_route": g.hist_route, "iter_ms": iter_ms,
@@ -2994,7 +3032,7 @@ def rank_phase(lt, hc, torch, dev, smi):
               f"rank {obj}: ndcg@10 {evals[-1]['ndcg@10']} after 2 rounds "
               f"<= {ndcg0['ndcg@10']} of the initial scores")
         if obj == "lambdarank":
-            lv_err = _first_iteration_err(torch, g, N_ROWS, trees[:1])
+            lv_err = _first_iteration_err(torch, g, n_docs, trees[:1])
             check(lv_err is not None and lv_err <= 1e-6,
                   f"rank: first tree differs from the plain versions' "
                   f"({lv_err})")
@@ -4790,11 +4828,11 @@ def sklearn_phase(lt, hc, torch, smi, X, y, Xt, yt):
     fallback base where scikit-learn is missing: LGBMClassifier 8 rounds
     on bench's table (its model text's md5 equal to lt.train's with the
     same parameters; predict_proba's held-out AUC printed), LGBMRanker 2
-    rounds on the ranking table (MSLR-WEB30K's schema, 2^18 documents);
-    then pred_contrib (models/shap.py) on 1024 of the held-out rows of the
+    rounds on the ranking table (MSLR-WEB30K's schema, 2^17 documents);
+    then pred_contrib (models/shap.py) on 512 of the held-out rows of the
     classifier's model: each row's sum equals predict(raw_score=True)
     within 1e-6. (Both cut from 2^20 documents and 4096 rows, so that
-    the whole run stays under 900 s.)"""
+    the whole run stays in its time.)"""
     from lightgbm_tpu_torch import sklearn as tsk
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -4811,13 +4849,13 @@ def sklearn_phase(lt, hc, torch, smi, X, y, Xt, yt):
     del ref
     proba = clf.predict_proba(Xt)
     auc = _auc(proba[:, 1], yt)
-    Xs = Xt[:1024]
+    Xs = Xt[:512]
     t0 = time.perf_counter()
     contrib = clf.predict(Xs, pred_contrib=True)
     contrib_s = time.perf_counter() - t0
     raw = clf.predict(Xs, raw_score=True)
     err = float(np.max(np.abs(contrib.sum(axis=1) - raw)))
-    rx, ry, sizes = _mslr_like(np.random.RandomState(61), N_ROWS // 4)
+    rx, ry, sizes = _mslr_like(np.random.RandomState(61), N_ROWS // 8)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rk = lt.LGBMRanker(n_estimators=2, num_leaves=N_LEAVES, max_bin=255,
@@ -4874,7 +4912,7 @@ def cli_phase(lt, torch, smi, here, X, y):
     from lightgbm_tpu_torch.cli import parse_args
     from lightgbm_tpu_torch.data.loader import load_text_file
     from lightgbm_tpu_torch.runtime.checkpoint import verify_manifest
-    n_tr, n_va = 1 << 18, 1 << 16
+    n_tr, n_va = 1 << 17, 1 << 15
     with tempfile.TemporaryDirectory(prefix="lgbt_cli_") as d:
         t0 = time.perf_counter()
         tr, va = os.path.join(d, "train.tsv"), os.path.join(d, "valid.tsv")
@@ -4986,7 +5024,7 @@ def cli_phase(lt, torch, smi, here, X, y):
              "file_equal_predict": bool(np.array_equal(got_serve, got)),
              "max_abs_err_predict": serve_err}
     emit({"phase": "cli", "train_rows": n_tr, "valid_rows": n_va,
-          "features": N_FEAT, "reduced": "2^18 training rows of the 2^20 "
+          "features": N_FEAT, "reduced": "2^17 training rows of the 2^20 "
           "(writing a 2^20-row text file costs most of the line's time)",
           "write_s": write_s, "parse_rows": n_va,
           "parse_native_s": parse_native_s, "parse_python_s": parse_python_s,
@@ -6722,6 +6760,350 @@ def online_phase(lt, hc, cli, torch, smi, here, params, ds, X, y, w,
     check(cli_same, f"task=online exited {cli_rc}: {cli_log[-2000:]}")
 
 
+DIST_W = 2                    # rank processes on the one card
+DIST_TIME_OUT = 60            # the group's time_out (s)
+DIST_ROUNDS = 4               # data-parallel rounds (2 for the others)
+# the kernels of the slice's path (#1-#6)
+DIST_KERNELS = ("build_histogram_slots", "take_leaf_values", "wave_pass",
+                "wave_apply", "wave_relabel", "bucketize")
+
+
+def _tree_fields(t):
+    """A host tree's structure and values as JSON lists (`_split_divergence`
+    and `_same_host_tree` read them back through `_TreeView`)."""
+    keys = ("split_feature", "threshold_in_bin", "decision_type",
+            "left_child", "right_child", "split_gain", "leaf_value",
+            "cat_boundaries", "cat_threshold")
+    out = {k: np.asarray(getattr(t, k)).tolist() for k in keys}
+    out.update(num_leaves=int(t.num_leaves), num_cat=int(t.num_cat))
+    return out
+
+
+class _TreeView:
+    def __init__(self, d):
+        for k, v in d.items():
+            setattr(self, k, np.asarray(v) if isinstance(v, list) else v)
+
+
+def _trees_md5(bst):
+    """md5 of a model text without its `[...]` parameter lines (the runs
+    of one configuration differ there only by the parameters asked)."""
+    return _md5("\n".join(ln for ln in bst.model_to_string().splitlines()
+                          if not ln.startswith("[")))
+
+
+def dist_rank(spec_path):
+    """One rank of the `distributed` line (a process of `launch_local`):
+    joins the gloo group on the card, ingests bench's table through #6,
+    keeps its row block, and trains every configuration of the line in
+    turn, writing its results to the spec's directory."""
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import histogram_cuda as hc
+    from lightgbm_tpu_torch.parallel import DistContext, init_distributed
+    from lightgbm_tpu_torch.runtime.autotune import probe_comm_modes
+    with open(spec_path) as f:
+        spec = json.load(f)
+    rank = int(os.environ["LIGHTGBM_TPU_RANK"])
+    W = int(os.environ["LIGHTGBM_TPU_NPROC"])
+    # the ranks share the host's cores: a pool of one a core in each
+    # would oversubscribe them
+    torch.set_num_threads(2)
+    out = {"rank": rank, "pid": os.getpid()}
+    t_start = time.perf_counter()
+    init_distributed(num_machines=W, device_type="cuda",
+                     time_out=DIST_TIME_OUT)
+    out["device"] = str(torch.device("cuda", torch.cuda.current_device()))
+    rng = np.random.RandomState(42)
+    X = rng.normal(size=(N_ROWS, N_FEAT)).astype(np.float32)
+    w = rng.normal(size=N_FEAT)
+    y = (X @ w + rng.normal(scale=0.5, size=N_ROWS) > 0).astype(np.float32)
+    base = dict(spec["params"], num_machines=W, tree_learner="data",
+                time_out=DIST_TIME_OUT, autotune_cache=spec["cache"])
+    if spec["mode"] == "kill":
+        # rank 1 dies before iteration 2 (on 2^16 rows: the check is of
+        # the group's end, not of its work); the survivor blocks in a
+        # collective until the launcher ends it
+        with open(os.path.join(spec["dir"], f"pid{rank}.txt"), "w") as f:
+            f.write(str(os.getpid()))
+
+        def mark(env):
+            with open(os.path.join(spec["dir"], f"iter{rank}.txt"),
+                      "w") as f:
+                f.write(repr(time.time()))
+        n = 1 << 16
+        lt.train({**base, "fault_plan": "kill@iter=2" if rank == 1
+                  else ""}, lt.Dataset(X[:n], label=y[:n], params=base), 3,
+                 callbacks=[mark])
+        return 0
+    hc.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ds = lt.Dataset(X, label=y, params=base).construct()
+    torch.cuda.synchronize()
+    out["ingest_s"] = time.perf_counter() - t0
+    out["ingest_launches"] = dict(hc.LAUNCHES)
+    out["ready_s"] = time.perf_counter() - t_start
+    runs = {}
+
+    def run(name, over, rounds, d=None):
+        p = {**base, **over}
+        t_run = time.perf_counter()
+        bst, launches, iter_ms, aucs = _train_timed(lt, hc, torch, p,
+                                                    d or ds, rounds)
+        g = bst._gbdt
+        train_s = time.perf_counter() - t_run
+        rec = {"md5": _trees_md5(bst), "ms_per_round": iter_ms,
+               "auc_per_round": aucs, "launches": launches,
+               "grow_route": g.grow_route, "use_dist": g.use_dist,
+               "mode": g.grow_cfg.parallel_hist_mode,
+               "comm": g._comm_profile,
+               "comm_s": g.dist.comm_seconds,
+               "comm_calls": g.dist.comm_calls,
+               "comm_bytes_sent": g.dist.comm_bytes,
+               "exchange_share": g.dist.comm_seconds / train_s,
+               "tree0": _tree_fields(g.models[0]),
+               "leaves": [t.num_leaves for t in g.models]}
+        runs[name] = rec
+        return bst, rec
+    bst, rec = run("allreduce", {"parallel_hist_mode": "allreduce"},
+                   DIST_ROUNDS)
+    # the first tree again from the same gradients with the plain
+    # versions on the card, over the group
+    rec["plain_leaf_value_max_abs_err"] = _same_host_tree(
+        _plain_trees(torch, bst._gbdt, N_ROWS)[0], bst._gbdt.models[0])
+    del bst
+    run("reduce_scatter", {"parallel_hist_mode": "reduce_scatter"},
+        DIST_ROUNDS)
+    for mode in ("allreduce", "reduce_scatter"):
+        run(f"quantized_{mode}", {"parallel_hist_mode": mode,
+                                  "use_quantized_grad": True}, 2)
+    # packed lanes need a global row count pack_safe admits (at most
+    # 6553 rows at num_grad_quant_bins=4): the first 4096 rows
+    small = lt.Dataset(X[:4096], label=y[:4096], params=base)
+    for mode in ("allreduce", "reduce_scatter"):
+        run(f"packed_{mode}", {"parallel_hist_mode": mode,
+                               "use_quantized_grad": True}, 2, small)
+    run("feature", {"tree_learner": "feature"}, 2)
+    run("voting", {"tree_learner": "voting", "top_k": 20}, 2)
+    # pre_partition: the rank's 2^19 rows only, its 14 features binned
+    half = N_ROWS // W
+    pp = {**base, "pre_partition": True}
+    lo = rank * half
+    dpp = lt.Dataset(X[lo:lo + half], label=y[lo:lo + half], params=pp)
+    _, rec = run("pre_partition", {"pre_partition": True}, 2, dpp)
+    rec["local_rows"] = half
+    rec["mappers_md5"] = _md5(json.dumps(
+        [m.to_dict() for m in dpp._handle.mappers], sort_keys=True))
+    # planted in rank 1's parameters only: every rank learns of it
+    bst, rec = run("fail_collective", {
+        "parallel_hist_mode": "reduce_scatter",
+        "fault_plan": "fail_collective@iter=1:times=2" if rank == 1
+        else "",
+        "device_profile": True},
+        DIST_ROUNDS)
+    g = bst._gbdt
+    rec.update(collective_failures=g._collective_failures,
+               decision=g.autotune_decision,
+               stragglers=g.profiler.straggler_report())
+    del bst, g
+    dist = DistContext()
+    out["probe_comm_modes_s"] = probe_comm_modes(dist, N_FEAT, N_BINS)
+    out["runs"] = runs
+    with open(os.path.join(spec["dir"], f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _launch_ranks(here, d, mode, params, timeout):
+    """launch_local of DIST_W ranks of `dist_rank` in `mode`; (seconds,
+    the launcher's error or None, the wall clock when it returned)."""
+    from lightgbm_tpu_torch.launch import launch_local
+    spec = os.path.join(d, f"{mode}.json")
+    with open(spec, "w") as f:
+        json.dump({"mode": mode, "dir": d, "params": params,
+                   "cache": os.path.join(d, "autotune.json")}, f)
+    env = {"PYTHONPATH": here, "LIGHTGBM_TPU_FAULT_PLAN": ""}
+    t0 = time.perf_counter()
+    err = None
+    try:
+        launch_local(DIST_W, [sys.executable, "-c",
+                              "import sys, chip_smoke; "
+                              "sys.exit(chip_smoke.dist_rank(sys.argv[1]))",
+                              spec], env_extra=env, timeout=timeout)
+    except RuntimeError as e:
+        err = str(e)
+    return time.perf_counter() - t0, err, time.time()
+
+
+def distributed_phase(lt, torch, smi, here, params, bst, X, y,
+                      single_ms, auc4):
+    """A16 on the card: DIST_W = 2 rank processes of one gloo group on
+    cuda:0 (host-staged collectives; see the module docstring's
+    `distributed` entry), beside the single-process bench run (`bst`, its
+    per-iteration ms a round `single_ms`, its train AUC after 4 rounds
+    `auc4`); then a group whose rank 1 is killed, and a two-shard serving
+    session on the one card."""
+    import tempfile
+    from lightgbm_tpu_torch.runtime.autotune import load_disk_cache
+    p = {k: v for k, v in params.items() if k != "binning_impl"}
+    p["binning_impl"] = "auto"
+    with tempfile.TemporaryDirectory(prefix="lgbt_dist_") as d:
+        group_s, err, _ = _launch_ranks(here, d, "train", p, 600)
+        check(err is None, f"the distributed group failed: {err}")
+        res = [json.load(open(os.path.join(d, f"rank{r}.json")))
+               for r in range(DIST_W)]
+        cache = load_disk_cache(os.path.join(d, "autotune.json"))
+        kill_s, kill_err, t_end = _launch_ranks(here, d, "kill", p,
+                                                DIST_TIME_OUT + 120)
+
+        def read(name):
+            paths = [os.path.join(d, f"{name}{r}.txt")
+                     for r in range(DIST_W)]
+            return [float(open(q).read()) for q in paths
+                    if os.path.exists(q)]
+        marks, kill_pids = read("iter"), [int(v) for v in read("pid")]
+        kill_after_mark_s = t_end - max(marks) if marks else None
+    runs = [r["runs"] for r in res]
+    names = list(runs[0])
+    r0 = runs[0]
+    t0 = bst._gbdt.models[0]
+    line = {"phase": "distributed", "ranks": DIST_W, "rows": N_ROWS,
+            "features": N_FEAT, "leaves": N_LEAVES, "max_bin": 63,
+            "backend": "gloo (host-staged, ranks sharing cuda:0)",
+            "nvidia_smi": smi, "group_s": group_s,
+            "rank_ready_s": [r["ready_s"] for r in res],
+            "ingest_s": [r["ingest_s"] for r in res],
+            "ingest_bucketize_by_rank": [r["ingest_launches"]["bucketize"]
+                                         for r in res],
+            "single_process_ms_per_round": single_ms,
+            "probe_comm_modes_s": [r["probe_comm_modes_s"] for r in res]}
+    checks = []
+    for n in names:
+        md5s = {rr[n]["md5"] for rr in runs}
+        rec = r0[n]
+        line[n] = {k: rec[k] for k in (
+            "ms_per_round", "auc_per_round", "grow_route", "mode", "comm",
+            "exchange_share", "comm_calls", "comm_bytes_sent", "leaves")}
+        line[n]["launches_by_rank"] = [
+            {k: rr[n]["launches"][k] for k in DIST_KERNELS}
+            for rr in runs]
+        line[n]["ranks_md5_equal"] = len(md5s) == 1
+        checks.append((len(md5s) == 1, f"{n}: the ranks' models differ"))
+        checks.append((all(rr[n]["use_dist"] for rr in runs),
+                       f"{n}: a rank trained serially"))
+        kernels = ["build_histogram_slots", "take_leaf_values"]
+        kernels += ["wave_apply"] if n == "feature" else ["wave_pass",
+                                                          "wave_relabel"]
+        for rr in runs:
+            checks.append((all(rr[n]["launches"][k] > 0 for k in kernels),
+                           f"{n}: {kernels} not all launched on a rank: "
+                           f"{rr[n]['launches']}"))
+    for r in res:
+        checks.append((r["ingest_launches"]["bucketize"] > 0,
+                       "a rank's ingest did not launch bucketize"))
+        checks.append((r["runs"]["pre_partition"]["launches"]
+                       ["bucketize"] > 0,
+                       "a rank's pre-partitioned ingest did not launch "
+                       "bucketize"))
+    checks += [
+        (r0["allreduce"]["md5"] == r0["reduce_scatter"]["md5"],
+         "allreduce and reduce_scatter grew different models"),
+        (r0["quantized_allreduce"]["md5"]
+         == r0["quantized_reduce_scatter"]["md5"],
+         "quantized allreduce and reduce_scatter grew different models"),
+        (r0["quantized_allreduce"]["comm"]["comm_packed"] is False,
+         "packed lanes at 2^20 rows (pack_safe should refuse)"),
+        (r0["packed_allreduce"]["md5"] == r0["packed_reduce_scatter"]["md5"]
+         and r0["packed_allreduce"]["comm"]["comm_packed"] is True,
+         "packed lanes on 4096 rows: modes differ or lanes not packed"),
+        (r0["feature"]["grow_route"] == "apply"
+         and r0["allreduce"]["grow_route"] == "mega"
+         and r0["voting"]["grow_route"] == "mega",
+         "routes: feature apply, data and voting mega"),
+        (len({rr["pre_partition"]["mappers_md5"] for rr in runs}) == 1,
+         "pre_partition: the ranks' merged mappers differ")]
+    # the first trees: the single process's, parted only at float ties
+    div = {}
+    for n in ("allreduce", "feature"):
+        n_eq, at, gains = _split_divergence(
+            t0, _TreeView(r0[n]["tree0"]))
+        div[n] = {"equal_splits": n_eq, "first_divergence": at,
+                  "gains_at_divergence": gains}
+        tie = (at is None or (gains[0] is not None and abs(
+            gains[0] - gains[1]) <= 1e-5 * max(abs(gains[0]),
+                                               abs(gains[1]))))
+        checks.append((tie, f"{n}: tree 0 parts from the single process's "
+                            f"at node {at} with gains {gains}"))
+    line["tree0_vs_single_process"] = div
+    plain = r0["allreduce"]["plain_leaf_value_max_abs_err"]
+    line["plain_first_tree_leaf_value_max_abs_err"] = plain
+    checks.append((plain is not None and plain <= 1e-6,
+                   f"the plain versions' first tree differs ({plain})"))
+    auc_d = r0["allreduce"]["auc_per_round"][-1]
+    line["auc_single_4_rounds"] = auc4
+    checks.append((abs(auc_d - auc4) <= 1e-3,
+                   f"data-parallel AUC {auc_d} vs single process {auc4}"))
+    fc = r0["fail_collective"]
+    pinned = [k for k, v in cache.items() if k.endswith("_mesh2")
+              and v.get("pinned") and v.get("parallel_hist_mode")
+              == "allreduce"]
+    fails_by_rank = [r["runs"]["fail_collective"]["collective_failures"]
+                     for r in res]
+    line["fail_collective"].update(
+        collective_failures=fails_by_rank,
+        pinned_cache_keys=pinned, stragglers=fc["stragglers"])
+    checks += [
+        (fc["md5"] == r0["reduce_scatter"]["md5"],
+         "the degraded run differs from the reduce_scatter run"),
+        (all(r["runs"]["fail_collective"]["mode"] == "allreduce"
+             for r in res) and fails_by_rank == [2] * DIST_W,
+         f"no degrade on every rank: mode {fc['mode']}, failures by rank "
+         f"{fails_by_rank}"),
+        (bool(pinned), f"no pinned _mesh2 decision in the cache: {cache}")]
+    # the kill: the launcher raises, every worker gone, within time_out
+    alive = []
+    for pid in kill_pids:
+        try:
+            os.kill(pid, 0)
+            alive.append(pid)
+        except ProcessLookupError:
+            pass
+    line["kill"] = {"launcher_error": kill_err, "launch_s": kill_s,
+                    "raise_after_last_round_s": kill_after_mark_s}
+    checks += [
+        (kill_err is not None and "worker exit codes" in kill_err
+         and "17" in kill_err, f"the killed group: {kill_err}"),
+        (kill_after_mark_s is not None
+         and kill_after_mark_s <= DIST_TIME_OUT + 30,
+         f"the killed group ended {kill_after_mark_s} s after its last "
+         "round"),
+        (len(kill_pids) == DIST_W and not alive,
+         f"workers left alive: {alive} of {kill_pids}")]
+    # sharded serving on the one card: rounds to 1, scores as unsharded
+    from lightgbm_tpu_torch.utils import log as tlog
+    logs, prev, verb = [], tlog._logger, tlog._verbosity
+    tlog.register_logger(type("L", (), {"info": logs.append,
+                                        "warning": logs.append})())
+    tlog.set_verbosity(0)
+    try:
+        sh = bst.serve(engine="device", num_shards=2)
+    finally:
+        tlog.register_logger(prev)
+        tlog.set_verbosity(verb)
+    Xq = X[:4096]
+    same = np.array_equal(sh.predict(Xq),
+                          bst.serve(engine="device").predict(Xq))
+    warned = any("num_shards=2 rounded to 1" in m for m in logs)
+    line["serve_num_shards_2"] = {"num_shards": sh.num_shards,
+                                  "warned": warned, "bitwise": same}
+    checks.append((sh.num_shards == 0 and warned and same,
+                   f"num_shards=2 on one card: {line['serve_num_shards_2']}"))
+    emit(line)
+    for ok, what in checks:
+        check(ok, "distributed: " + what)
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -7004,6 +7386,13 @@ def main():
     streaming_phase(lt, hc, torch, smi, params, ds, X, y, anchor)
     online_phase(lt, hc, cli, torch, smi, here, params, ds, X, y, w, anchor,
                  tenants["bench"][1])
+
+    # ---- 25. A16: data-parallel, feature-parallel and voting training
+    # over a gloo group of rank processes on the card, the comm probe, the
+    # collective degrade, a killed rank; sharded serving on one card
+    auc4 = _auc(bst.predict(X, num_iteration=4, raw_score=True), y > 0.5)
+    distributed_phase(lt, torch, smi, here, params, bst, X, y,
+                      float(np.mean(iter_ms[1:])), auc4)
 
     src = {"build_histogram_slots": "hist_slots.cu",
            "take_leaf_values": "take_leaf_values.cu",

@@ -606,6 +606,15 @@ class Booster:
 
         if train_set is not None:
             cfg = resolve_params(self.params)
+            # multi-process bring-up (reference: Booster.__init__ network
+            # setup from the `machines` param, python-package basic.py:
+            # 3531-3563; JAX basic.py:614-618)
+            if cfg.num_machines > 1 or cfg.machines:
+                from .parallel import init_distributed
+                init_distributed(machines=cfg.machines,
+                                 num_machines=cfg.num_machines,
+                                 device_type=cfg.device_type,
+                                 time_out=cfg.time_out)
             check_slice_config(cfg)
             resolve_device(cfg.device_type)
             if train_set._handle is None:

@@ -26,7 +26,11 @@ file>` writes the exported serving artifact (export/compile.py).
 `task=online` runs the online loop (run_online: online/, with
 co-located serving under `online_serve=true`).
 `convert_model_language=stablehlo` is fatal (the port writes no
-StableHLO); `serve_fused_shards > 1` raises naming ROADMAP item A16.
+StableHLO). `task=train` with a distributed tree_learner and
+`num_machines=N` under the launcher (`python -m lightgbm_tpu_torch.launch
+-n N -- python -m lightgbm_tpu_torch config=...`) trains through the same
+Booster path, one rank a process; `serve_num_shards` /
+`serve_fused_shards` shard scoring over the local cards.
 """
 
 from __future__ import annotations
@@ -477,8 +481,7 @@ def run_serve_fleet(params: Dict[str, Any], cfg) -> None:
     # fail-fast parse (duplicates, empty names/paths), shared with
     # Config._validate so the CLI and programmatic configs agree
     entries = parse_serve_models(cfg.serve_models)
-    if cfg.serve_fused and cfg.serve_fused_shards <= 1:
-        # (serve_fused_shards > 1 is the fleet's refusal, naming A16)
+    if cfg.serve_fused:
         log_fatal(
             "serve_fused=true cannot fuse a tenant of serve_models: the "
             "fused drain scores binned forests, and a model file carries "

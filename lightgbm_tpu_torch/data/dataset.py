@@ -263,6 +263,26 @@ def _fit_or_adopt_mappers(ds: BinnedDataset, config: Config,
         return
     num_cols = ds.num_total_features
     cat_set = set(int(c) for c in categorical_feature)
+    if config.pre_partition and config.num_machines > 1:
+        # pre-partitioned multi-rank data: each rank bins a FEATURE SLICE
+        # from its local sample, mappers all-gathered so every rank holds
+        # the identical set (dataset_loader.cpp:741; JAX dataset.py:383-400)
+        from .dist_binning import distributed_find_mappers
+        sample_mat = np.column_stack(
+            [np.asarray(sample_col(j), np.float64)
+             for j in range(num_cols)])
+        mappers = distributed_find_mappers(sample_mat, n_sample, config,
+                                           sorted(cat_set))
+        ds.mappers, ds.real_feature_index, ds.used_feature_map = [], [], []
+        for j, m in enumerate(mappers):
+            if m.is_trivial:
+                ds.used_feature_map.append(-1)
+            else:
+                ds.used_feature_map.append(len(ds.mappers))
+                ds.mappers.append(m)
+                ds.real_feature_index.append(j)
+        _apply_tier_order(ds)
+        return
     max_bins = list(config.max_bin_by_feature) if config.max_bin_by_feature \
         else [config.max_bin] * num_cols
     ds.mappers, ds.real_feature_index, ds.used_feature_map = [], [], []

@@ -28,7 +28,9 @@ table, raw f32 rows binned against the stacked table by the stacked
 bucketize kernel (``ops/bucketize.py bucketize_rows_stacked``, one
 launch), column padding to the widest tenant, power-of-two bucket padding,
 and atomic republish on hot-swap (serving/fleet.py rebuilds on
-``promote()``). Sharded scoring (``num_shards > 1``) is ROADMAP item A16.
+``promote()``). ``num_shards > 1`` scores each batch data-parallel over
+the local cards, the tenant-id vector split with the rows
+(serving/session.py:resolve_shards; one card rounds it to 1).
 """
 
 from __future__ import annotations
@@ -228,9 +230,7 @@ class FusedScorer:
         """`sessions`: tenant name -> ServingSession whose ``_bm`` (binned
         model) is set, i.e. engine "binned" or "compiled", all on one
         device."""
-        from ..serving.session import _not_ported, bucket_for
-        if num_shards > 1:
-            _not_ported("sharded fused scoring (num_shards > 1)", "A16")
+        from ..serving.session import bucket_for, resolve_shards
         self.generation = int(generation)
         self.sessions = dict(sessions)
         devices = {s.device for s in self.sessions.values()}
@@ -242,8 +242,14 @@ class FusedScorer:
             {n: s._bm for n, s in sessions.items()})
         self.fa = self.forest.device_arrays(self.device)
         self.max_batch = 1 << max(int(max_batch) - 1, 0).bit_length()
-        self.min_bucket = bucket_for(max(int(min_bucket), 1), 1,
-                                     self.max_batch)
+        # sharded scoring over the local cards, the tenant ids split with
+        # the rows (fusion.py:193-212, :247-280)
+        self._shard_devs = (resolve_shards(num_shards, self.device,
+                                           "fused num_shards")
+                            if num_shards > 1 else [])
+        self.num_shards = len(self._shard_devs)
+        self.min_bucket = bucket_for(
+            max(int(min_bucket), self.num_shards or 1), 1, self.max_batch)
         # cross-tenant device binning: when EVERY tenant session holds a
         # serve-mode bin table, stack them so all-f32 mixed batches bin in
         # one launch of the stacked bucketize kernel
@@ -259,6 +265,7 @@ class FusedScorer:
                 # be the one that runs a first-use nvcc build
                 from ..ops import histogram_cuda as hc
                 hc._lib("bucketize_stacked")
+        self._walk, self._raw = self._scorers()
         self.build_s = 0.0
         t0 = time.perf_counter()
         if warmup:
@@ -266,13 +273,39 @@ class FusedScorer:
         self.build_s = time.perf_counter() - t0
 
     # ------------------------------------------------------------------
+    def _scorers(self):
+        """(uint8 walk, raw-f32 drain): [n, Fmax] rows + [n] tenant ids ->
+        [Kmax, n]; under sharding each is `build_sharded_score_fn` over
+        per-card copies of the supertensor (and stacked table)."""
+        from ..ops.bucketize import (bucketize_rows_stacked,
+                                     stack_bin_tables, upload_stacked_table)
+
+        def make(fa, st):
+            def walk(Xb, tid):
+                return predict_margin_fused(fa, Xb, tid)
+
+            def raw(Xf, tid):
+                return predict_margin_fused(
+                    fa, bucketize_rows_stacked(Xf, tid, st), tid)
+            return walk, raw
+        if not self._shard_devs:
+            return make(self.fa, self._stacked)
+        from ..parallel import build_sharded_score_fn
+        tables = [self.sessions[n]._bin_table for n in self.forest.names]
+        per = [make(self.forest.device_arrays(d),
+                    upload_stacked_table(stack_bin_tables(tables), d)
+                    if self._stacked is not None else None)
+               for d in self._shard_devs]
+        return (build_sharded_score_fn(self._shard_devs,
+                                       [w for w, _ in per], 1),
+                build_sharded_score_fn(self._shard_devs,
+                                       [r for _, r in per], 1))
+
     def _score_raw(self, Xf: torch.Tensor, tid: torch.Tensor) -> torch.Tensor:
         """Raw-f32 fused drain: the stacked bucketize (one launch), then
         the fused walk; bit-identical to per-tenant binning + the uint8
         path."""
-        from ..ops.bucketize import bucketize_rows_stacked
-        return predict_margin_fused(
-            self.fa, bucketize_rows_stacked(Xf, tid, self._stacked), tid)
+        return self._raw(Xf, tid)
 
     def warmup(self) -> List[int]:
         """Run the whole bucket ladder once before the scorer is
@@ -285,8 +318,8 @@ class FusedScorer:
         F = self.forest.Fmax
         for b in ladder:
             tid = torch.zeros(b, dtype=torch.int32, device=self.device)
-            predict_margin_fused(self.fa, torch.zeros(
-                (b, F), dtype=torch.uint8, device=self.device), tid).cpu()
+            self._walk(torch.zeros((b, F), dtype=torch.uint8,
+                                   device=self.device), tid).cpu()
             if self._stacked is not None:
                 self._score_raw(torch.zeros((b, F), dtype=torch.float32,
                                             device=self.device), tid).cpu()
@@ -326,7 +359,7 @@ class FusedScorer:
         Xt = torch.from_numpy(Xb).to(self.device)
         tt = torch.from_numpy(tid).to(self.device)
         out = (self._score_raw(Xt, tt) if raw
-               else predict_margin_fused(self.fa, Xt, tt)).cpu().numpy()
+               else self._walk(Xt, tt)).cpu().numpy()
         results = []
         off = 0
         for name, X in groups:

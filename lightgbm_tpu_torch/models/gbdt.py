@@ -32,10 +32,14 @@ forests (models/rf.py) and DART (models/dart.py) subclass it. The runtime
 init-time extras (`profiler`), autotune's probes of the grower and the
 histogram route at init (`autotune_decision`), and the fault plan's
 hooks and the step watchdog (`faults`, `_grow_step`; engine.train
-checkpoints and resumes through `checkpoint`). Everything else raises
-NotImplementedError naming the ROADMAP item that ports it. Prediction
-covers every tree the JAX package writes except linear leaves on the
-device routes.
+checkpoints and resumes through `checkpoint`). Multi-device training
+(`_init_dist`; parallel/): under tree_learner data / feature / voting in
+a torch.distributed group of W > 1 ranks each rank grows the same tree
+on its row block (every row under feature-parallel; its own rows under
+pre_partition), the growers exchanging histograms over the group, and
+the histogram exchange degrades to allreduce after two collective
+failures. Prediction covers every tree the JAX package writes except
+linear leaves on the device routes.
 
 Batched training (`can_batch_iters`, `train_iters_batched`, JAX gbdt.py:
 1108-1418) runs chunks of iterations with no host round trip per
@@ -78,6 +82,7 @@ from ..ops import histogram_cuda as hc
 from ..ops.histogram import add_leaf_values_, make_hist_plan
 from ..ops.predict import predict_leaf_binned
 from ..ops.split import FeatureMeta
+from ..parallel.data_parallel import shard_rows
 from ..runtime.profiler import global_timer
 from ..utils import resolve_device, round_up
 from ..utils.log import log_fatal, log_info, log_warning
@@ -91,25 +96,15 @@ _KEPS = 1e-15
 MODEL_VERSION = "v4"
 
 
-def _not_ported(what: str, item: str) -> None:
-    raise NotImplementedError(
-        f"{what} is not ported to lightgbm_tpu_torch yet (ROADMAP item "
-        f"{item})")
-
-
 def check_slice_config(cfg: Config) -> None:
-    """Refuse every configuration outside this slice, naming the ROADMAP
-    item that will port it; none may quietly take another route. Linear
-    trees with a distributed learner are fatal first, as in the JAX package
-    (gbdt.py:494-496)."""
+    """Configurations refused before a booster builds: linear trees with a
+    distributed learner (gbdt.py:494-496; the reference's parallel learners
+    refuse them too)."""
     distributed = (cfg.tree_learner != "serial" or cfg.num_machines > 1
                    or cfg.pre_partition)
     if cfg.linear_tree and distributed:
         log_fatal("linear_tree is not supported with distributed tree "
                   "learners (matches the reference)")
-    if distributed:
-        _not_ported("distributed training (tree_learner="
-                    f"{cfg.tree_learner})", "A16")
 
 
 def _parse_interaction_constraints(spec) -> List[List[int]]:
@@ -284,19 +279,129 @@ class GBDT:
         # watchdog's count of collective failures
         self._fault_plan = None
         self._collective_failures = 0
+        # under distribution: some rank's plan holds fail_collective, so
+        # every rank learns each grow step whether one fired
+        self._dist_faults = False
+        # multi-device training (parallel/): serial until _init_dist finds
+        # a group of more than one rank under a distributed tree_learner
+        self.use_dist = False
+        self._pre_part = False
+        self._feat_par = False
+        self.dist = None
+        self.n_shards = 1
+        self._comm_profile = None
         if train_set is not None:
             self._init_train(train_set)
 
     # ------------------------------------------------------------------
+    def _init_dist(self, ds: BinnedDataset) -> None:
+        """The device layout (gbdt.py:222-287): serial, or over the
+        torch.distributed group's W ranks under tree_learner data / feature
+        / voting. Data-parallel and voting: rank r grows on its block
+        [r * per, (r + 1) * per) of the rows padded to pad_rows_to(N, W, 8)
+        (padding rows carry in_bag 0), every rank holding the full labels,
+        gradients, sample masks, scores and metrics; one all_gather of
+        leaf_of_row a tree feeds the full score update. Feature-parallel:
+        every rank holds all rows. pre_partition: a rank holds only its own
+        rows (the global count by an all_gather of the local ones), padded
+        to the largest rank's block; its scores, gradients, sampling and
+        metrics are its rows'."""
+        from ..parallel.context import world
+        from ..parallel.data_parallel import lane_multiple, pad_rows_to
+        cfg = self.config
+        W, rank, _ = world()
+        learner = cfg.tree_learner in ("data", "feature", "voting")
+        self.use_dist = learner and W > 1
+        if learner and not self.use_dist:
+            log_info(f"tree_learner={cfg.tree_learner} with one rank: "
+                     "training serially")
+        self._pre_part = bool(cfg.pre_partition) and self.use_dist
+        self._feat_par = self.use_dist and cfg.tree_learner == "feature"
+        if self._feat_par and self._pre_part:
+            log_fatal("tree_learner=feature requires the full dataset on "
+                      "every machine (pre_partition=true contradicts it)")
+        N = ds.num_data
+        self.n_shards, self.rank = (W, rank) if self.use_dist else (1, 0)
+        self.N_pad = self._host_pad = N
+        self._row_shard = None      # (shards, rank, block) of shard_rows
+        if not self.use_dist:
+            return
+        from ..parallel import DistContext
+        self.dist = DistContext()
+        if self._feat_par:
+            log_info(f"Feature-parallel training over {W} ranks (rows "
+                     "replicated, features partitioned)")
+        elif self._pre_part:
+            counts = self.dist.all_gather(
+                torch.tensor([N], dtype=torch.int64, device=self.device))
+            self._local_rows = N
+            self.global_num_data = int(counts.sum())
+            per = max(int(counts.max()), 1)
+            self._host_pad = pad_rows_to(per, 1, multiple=lane_multiple())
+            self.N_pad = self._host_pad * W
+            self._row_shard = (1, 0, self._host_pad)
+            log_info(f"Pre-partitioned data-parallel training: rank {rank}/"
+                     f"{W} holds {N} of {self.global_num_data} rows; rows "
+                     f"padded to {self._host_pad} a rank")
+            self._dist_guards(cfg)
+        else:
+            self.N_pad = pad_rows_to(N, W, multiple=lane_multiple())
+            per = self.N_pad // W
+            lo = min(rank * per, N)
+            self._row_shard = (W, rank, per)
+            log_info(f"Data-parallel training over {W} ranks ({N} rows "
+                     f"padded to {self.N_pad}; rank {rank} grows rows "
+                     f"[{lo}, {lo + per}))")
+
+    def _dist_guards(self, cfg: Config) -> None:
+        """Features whose paths need every row on one process fail loudly
+        under pre_partition (gbdt.py:858-870)."""
+        if self.objective is not None and (
+                self.objective.runs_on_host
+                or self.objective.need_renew_tree_output):
+            log_fatal("pre_partition supports device-side objectives "
+                      "without leaf renewal only (got "
+                      f"{cfg.objective})")
+        if cfg.boosting in ("dart", "rf"):
+            log_fatal("pre_partition does not support boosting="
+                      f"{cfg.boosting} yet")
+
+    def _rows(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's row block of `t` (rows on the last axis), padded with
+        zeros to the block's size; `t` itself when serial."""
+        if self._row_shard is None:
+            return t
+        shards, rank, per = self._row_shard
+        return shard_rows(t, -1, shards, rank, block=per)
+
+    def _all_rows(self, leaf_of_row: torch.Tensor) -> torch.Tensor:
+        """A tree's leaf_of_row on this rank's rows -> on the rows the
+        scores hold: every row under data-parallel and voting (one
+        all_gather), the rank's own under pre_partition."""
+        if not self.use_dist or self._feat_par:
+            return leaf_of_row
+        if not self._pre_part:
+            leaf_of_row = self.dist.all_gather(leaf_of_row)
+        return leaf_of_row[:self.num_data]
+
     def _init_train(self, ds: BinnedDataset) -> None:
         cfg = self.config
         check_slice_config(cfg)
         self.device = resolve_device(cfg.device_type)
+        self._init_dist(ds)
         # the global leaf maps of every wave launch of this booster past
         # hc.LEAF_CAP leaves (None below it and off the card)
         self.leaf_map = hc.new_leaf_map(self.device, cfg.num_leaves)
         from ..runtime.faults import active_plan
         self._fault_plan = active_plan(cfg.fault_plan)
+        if self.use_dist:
+            # one collective at set-up, on every rank: a plan may be one
+            # rank's alone
+            mine = self._fault_plan is not None and any(
+                d.action == "fail_collective"
+                for d in self._fault_plan.directives)
+            self._dist_faults = bool(self.dist.pmax(torch.tensor(
+                [int(mine)], dtype=torch.int32, device=self.device))[0])
         if cfg.device_profile:
             from ..runtime.profiler import StageProfiler
             self.profiler = StageProfiler(device=self.device)
@@ -327,6 +432,8 @@ class GBDT:
                 self.X_t = (ds.X_t if ds.X_t is not None
                             else torch.from_numpy(np.ascontiguousarray(
                                 ds.X_binned.T))).to(self.device)
+            # a data-parallel rank keeps its row block only
+            self.X_t = self._rows(self.X_t)
         self.meta = build_feature_meta(ds, self.device,
                                        cfg.monotone_constraints,
                                        cfg.interaction_constraints)
@@ -341,6 +448,7 @@ class GBDT:
                 bundle_expand=torch.from_numpy(expand).to(self.device),
                 bundle_mfb=torch.from_numpy(mfb).to(self.device))
         self._select_grower(ds, bundled)
+        self._learner_guards(ds, bundled)
         self._init_cegb(ds, bundled)
         self._init_linear(ds)
         # per-STORAGE-COLUMN bin counts (gbdt.py:345-348); force_row_wise
@@ -395,13 +503,24 @@ class GBDT:
                        if bundled else ()),
             bundle_db=(tuple(int(m.default_bin) for m in ds.mappers)
                        if bundled else ()),
+            n_shards=self.n_shards,
+            voting_top_k=(cfg.top_k if cfg.tree_learner == "voting"
+                          and self.use_dist else 0),
+            feature_parallel=self._feat_par,
+            parallel_hist_mode=str(cfg.parallel_hist_mode),
         )
+        self._max_bin = max_bin
         # autotune=true: the probes may change the grower and the
         # histogram_impl, before anything that follows from them is made
         self._autotune(ds, bundled, max_bin)
         self._set_routes()
         if self.profiler is not None:
             self._profile_init()
+        # the histogram exchange's wire profile, fixed once the grower and
+        # parallel_hist_mode are settled (gbdt.py:693-698)
+        self._comm_profile = self._comm_iter_profile()
+        if self.profiler is not None and self._comm_profile:
+            self.profiler.extras["comm"] = dict(self._comm_profile)
 
         md = ds.metadata
         N = self.num_data
@@ -418,7 +537,13 @@ class GBDT:
             md.init_score, N)).to(self.device)
         # bagging / GOSS (sample_strategy.cpp:16); the mask is drawn at
         # the first iteration and again where the strategy resamples
-        self.sample_strategy = create_sample_strategy(cfg, N, md,
+        cfg_bag = cfg
+        if self._pre_part:
+            # de-correlate the ranks' bagging draws (each rank bags its own
+            # rows; equal seeds would tie the masks row for row)
+            cfg_bag = dataclasses.replace(
+                cfg, bagging_seed=cfg.bagging_seed + self.rank * 7919)
+        self.sample_strategy = create_sample_strategy(cfg_bag, N, md,
                                                       self.device)
         self._in_bag: Optional[torch.Tensor] = None
         if self.objective is not None:
@@ -517,6 +642,38 @@ class GBDT:
                         "the wave grower; switching tpu_grower to 'wave'")
             self.grower = "wave"
 
+    def _learner_guards(self, ds: BinnedDataset, bundled: bool) -> None:
+        """The distributed learners' restrictions, with the JAX package's
+        messages (gbdt.py:468-490): voting refuses forced splits,
+        categorical features and EFB, feature-parallel EFB; both take the
+        wave grower."""
+        if not self.use_dist:
+            return
+        cfg = self.config
+        wave = ("wave", "wave_exact")
+        if cfg.tree_learner == "voting":
+            if self.meta.forced is not None \
+                    or bool(ds.feature_is_categorical().any()):
+                log_fatal("tree_learner=voting does not support forced "
+                          "splits or categorical features yet")
+            if bundled:
+                log_fatal("tree_learner=voting does not support EFB "
+                          "bundling yet; set enable_bundle=false")
+            if self.grower not in wave:
+                log_warning("tree_learner=voting is implemented by the "
+                            "wave grower; switching tpu_grower to 'wave'")
+                self.grower = "wave"
+        if self._feat_par:
+            # the serial growers psum histograms: with replicated rows that
+            # would overcount W-fold
+            if bundled:
+                log_fatal("tree_learner=feature does not support EFB "
+                          "bundling yet; set enable_bundle=false")
+            if self.grower not in wave:
+                log_warning("tree_learner=feature is implemented by the "
+                            "wave grower; switching tpu_grower to 'wave'")
+                self.grower = "wave"
+
     def _init_linear(self, ds: BinnedDataset) -> None:
         """Linear trees (gbdt.py:491-507; linear_tree_learner.cpp): the fit
         reads the training rows' raw values, which the Dataset keeps only
@@ -561,6 +718,9 @@ class GBDT:
                 cpl[inner] = cfg.cegb_penalty_feature_coupled[real]
             self.meta = self.meta._replace(
                 cegb_coupled=torch.from_numpy(cpl).to(self.device))
+        if self.use_dist:
+            log_fatal("cegb_* is not supported with distributed "
+                      "tree learners yet")
         if self.grower not in ("wave", "wave_exact"):
             log_warning("cegb_* is implemented by the wave grower; "
                         "switching tpu_grower to 'wave'")
@@ -590,11 +750,15 @@ class GBDT:
         if not cfg.autotune:
             return
         if cfg.tpu_grower != "auto" or self.grower != self._ladder_choice \
-                or self._linear:
+                or self._linear or self.use_dist:
             log_warning(
                 "autotune=true ignored: the grower choice is constrained "
                 "(forced tpu_grower, distributed/linear mode, or a feature "
                 "only the wave grower implements)")
+            if self.use_dist and not self._feat_par \
+                    and cfg.tree_learner == "data" \
+                    and cfg.parallel_hist_mode == "auto":
+                self._autotune_comm(ds, max_bin)
             return
         from ..runtime.autotune import (COL_WISE_HIST_IMPLS,
                                         autotune_decision, current_pin)
@@ -631,6 +795,68 @@ class GBDT:
         if self.profiler is not None:
             self.profiler.extras["autotune"] = decision
 
+    def _autotune_comm(self, ds: BinnedDataset, max_bin: int) -> None:
+        """parallel_hist_mode=auto on a data-parallel group, under
+        autotune (gbdt.py:599-630): the histogram exchange is still a free
+        variable (both modes grow the same trees), so the comm probe times
+        allreduce against reduce_scatter at the real payload shape and its
+        pick goes into grow_cfg."""
+        from ..runtime.autotune import autotune_comm_decision
+        with self._prof_span("autotune"):
+            comm = autotune_comm_decision(
+                self.dist, n_rows=self.num_data,
+                n_features=int(self.X_t.shape[0]), max_bin=max_bin,
+                num_leaves=self.config.num_leaves,
+                num_bins_padded=self.num_bins_padded,
+                cache_path=self.config.autotune_cache,
+                seed=int(self.config.seed or 0), device=self.device)
+        self.autotune_decision = comm
+        mode = comm.get("parallel_hist_mode")
+        if mode:
+            log_info("autotune: comm probe picked "
+                     f"parallel_hist_mode='{mode}'")
+            self.grow_cfg = self.grow_cfg._replace(
+                parallel_hist_mode=str(mode))
+        if self.profiler is not None:
+            self.profiler.extras["autotune_comm"] = comm
+
+    def _comm_iter_profile(self) -> Optional[Dict]:
+        """The analytic on-wire bytes of one tree's histogram exchange
+        (gbdt.py:786-831): the payload shape, the exchange count bound (the
+        root's [C, F, B] and one per later leaf) and the ring algorithm's
+        wire factor, 2 (W - 1) / W for a psum, (W - 1) / W for a
+        psum_scatter; packed quantized lanes halve the channels. None unless
+        data-parallel (nothing crosses ranks per split otherwise)."""
+        if not self.use_dist or self._feat_par:
+            return None
+        gcfg = self.grow_cfg
+        k = int(self.n_shards)
+        F = int(self.X_t.shape[0])
+        B = int(gcfg.num_bins_padded)
+        L = int(gcfg.num_leaves)
+        wave = self.grower in ("wave", "wave_exact")
+        mode = str(gcfg.parallel_hist_mode)
+        if mode == "auto":
+            # each grower's default exchange (grow.py, grow_wave.py)
+            mode = "reduce_scatter" if wave else "allreduce"
+        Fx = round_up(F, k) if mode == "reduce_scatter" else F
+        packed = False
+        if wave:
+            channels = 2
+            if gcfg.use_quantized_grad:
+                from ..parallel.packed import pack_safe
+                packed = bool(pack_safe(self.N_pad,
+                                        gcfg.num_grad_quant_bins))
+                if packed:
+                    channels = 1
+            elems = (1 + (L - 1)) * channels * Fx * B
+        else:
+            # serial grower: root [2, F, B], then both children's [4, F, B]
+            elems = (2 + 4 * max(L - 2, 0)) * Fx * B
+        factor = (k - 1) / k * (1.0 if mode == "reduce_scatter" else 2.0)
+        return {"comm_mode": mode, "comm_packed": packed, "mesh_size": k,
+                "comm_bytes_per_tree": int(elems * 4 * factor)}
+
     def _prof_span(self, name: str):
         """The active profiler's span, or a no-op context."""
         return (self.profiler.span(name) if self.profiler is not None
@@ -653,7 +879,8 @@ class GBDT:
             self.profiler.extras["fused_veto_reasons"] = list(vetoes)
             if not vetoes:
                 self._profile_fused_wave()
-        if self.grow_cfg.hist_tiers:
+        # a rank's probes would time its block only (gbdt.py:724, :767)
+        if self.grow_cfg.hist_tiers and not self.use_dist:
             self._profile_hist_tiers()
 
     def _profile_fused_wave(self) -> None:
@@ -799,6 +1026,12 @@ class GBDT:
             return init_scores
         for k in range(K):
             init_scores[k] = init = float(self.objective.boost_from_score(k))
+            if self._pre_part:
+                # the reference averages the ranks' init scores
+                # (GlobalSyncUpByMean, gbdt.cpp:322-325; gbdt.py:1826-1832)
+                init_scores[k] = init = float(self.dist.all_gather(
+                    torch.tensor([init], dtype=torch.float64,
+                                 device=self.device)).mean())
             if abs(init) > _KEPS:
                 self.scores[k] += float(np.float32(init))
                 for vs in self._valid_scores:
@@ -882,6 +1115,12 @@ class GBDT:
         prof = self.profiler
         if prof is not None:
             prof.iter_start()
+        cp = self._comm_profile
+        if prof is not None and cp:
+            cb = int(cp["comm_bytes_per_tree"]) * K
+            prof.iter_meta(comm_mode=cp["comm_mode"], comm_bytes=cb)
+            prof.add_counter("comm_bytes", cb)
+        comm_s0 = self.dist.comm_seconds if self.use_dist else 0.0
         init_scores = np.zeros(K)
         with self._prof_span("boost"):
             if grad is None or hess is None:
@@ -898,6 +1137,7 @@ class GBDT:
                 self._in_bag = strat.sample(self.iter, g, h)
         feat_mask = self._feature_mask_for_iter()
         lr = self.shrinkage_rate
+        t_grow0 = time.perf_counter()
         for k in range(K):
             with global_timer.section("GBDT::TrainOneIter/grow"), \
                     self._prof_span("grow"):
@@ -933,10 +1173,16 @@ class GBDT:
                         tree.split_is_cat, tree.split_cat_bitset)
                     self._valid_scores[vi][k] += (tree.leaf_value * lr)[leaf]
             self._pending.append((tree, float(init_scores[k]), lr))
+        if self.use_dist and prof is not None:
+            # the exchange's share of the round: this rank's wall seconds in
+            # collectives (host staging included), and the grow spans of
+            # every rank for the straggler report
+            prof.iter_meta(comm_s=self.dist.comm_seconds - comm_s0)
+            self._record_grow_skew(time.perf_counter() - t_grow0)
         self.iter += 1
         if prof is not None:
             prof.iter_end(n_rows=self.num_data)
-            if "stage_probe" not in prof.extras:
+            if "stage_probe" not in prof.extras and not self.use_dist:
                 # once: the grow span's decomposition into #1, the split
                 # search and a partition (runtime/profiler.py)
                 from ..runtime.profiler import probe_stage_breakdown
@@ -962,29 +1208,46 @@ class GBDT:
         up to step_max_retries times with exponential backoff, else
         raised. A tree is a pure function of its inputs, so a retry cannot
         change the model. A collective failure (fault plan
-        `fail_collective`) is counted; the JAX package's degrade of the
-        histogram exchange after two of them needs a mesh, so on one card
-        it is retried like any failure, as in the JAX package's serial
-        run (the degrade comes with A16)."""
+        `fail_collective`, or a runtime error naming a collective) is
+        counted; from the second one on a data-parallel run degrades its
+        reduce_scatter exchange to allreduce (`_degrade_comm_mode`) and
+        retries at once (gbdt.py:1571-1610).
+
+        Under distribution the ranks must stay in step: a planted fault is
+        shared (`_planted_collective_fault`), so every rank counts it,
+        degrades and retries together, and any error raised inside
+        `grow_one` is fatal at once, since the peers are then inside other
+        collectives of the tree and a rank retrying alone would pair its
+        calls with theirs wrongly; the group then fails and the launcher
+        ends it."""
         retries = int(self.config.step_max_retries)
-        if self._fault_plan is None and retries == 0:
+        if self._fault_plan is None and retries == 0 \
+                and not self._dist_faults:
             return self.grow_one(g, h, in_bag, feat_mask, seed,
                                  cegb_used=self._cegb_used)
-        from ..runtime.faults import is_collective_error
+        from ..runtime.faults import CollectiveFault, is_collective_error
         attempt = 0
         while True:
             try:
-                if self._fault_plan is not None:
-                    self._fault_plan.maybe_fail_collective(self.iter)
+                self._planted_collective_fault()
                 return self.grow_one(g, h, in_bag, feat_mask, seed,
                                      cegb_used=self._cegb_used)
             except Exception as e:
+                if self.use_dist and not isinstance(e, CollectiveFault):
+                    log_warning(f"grow step failed at iteration {self.iter} "
+                                f"on rank {self.rank} of {self.n_shards}: "
+                                f"{e}; not retried (the group's collectives "
+                                "would no longer pair)")
+                    raise
                 if is_collective_error(e):
                     self._collective_failures += 1
                     log_warning(
                         f"histogram-exchange failure "
                         f"#{self._collective_failures} at iteration "
                         f"{self.iter}: {e}")
+                    if self._collective_failures >= 2 \
+                            and self._degrade_comm_mode(reason=repr(e)):
+                        continue        # degraded exchange; retry at once
                 attempt += 1
                 if attempt > retries:
                     raise
@@ -996,6 +1259,76 @@ class GBDT:
                     f"{backoff:.3f}s")
                 if backoff > 0:
                     time.sleep(backoff)
+
+    def _planted_collective_fault(self) -> None:
+        """Raise the fault plan's `fail_collective` for this grow step. In
+        a group where some rank's plan holds one, every rank first learns
+        (one pmax) whether any rank's fired, and all raise together."""
+        from ..runtime.faults import CollectiveFault
+        fault = None
+        if self._fault_plan is not None:
+            try:
+                self._fault_plan.maybe_fail_collective(self.iter)
+            except CollectiveFault as e:
+                fault = e
+        if self._dist_faults:
+            fired = self.dist.pmax(torch.tensor(
+                [int(fault is not None)], dtype=torch.int32,
+                device=self.device))
+            if fault is None and int(fired[0]):
+                fault = CollectiveFault(
+                    "injected collective failure on a peer at iteration "
+                    f"{self.iter}")
+        if fault is not None:
+            raise fault
+
+    def _degrade_comm_mode(self, reason: str = "") -> bool:
+        """reduce_scatter -> allreduce (gbdt.py:1612-1647): allreduce moves
+        more bytes but is the simpler collective, the safe harbour when the
+        scatter keeps failing; both grow the same trees. In the port both
+        exchanges start with the same all-to-all (parallel/context.py), so
+        what the degrade changes is the all-gather after it and the merge
+        of the bests (a gather and an argmax in place of the pmax keys and
+        the masked psum), not the transport. One-way; the choice is pinned
+        in the autotune cache (`pin_comm_decision`) so the next run of this
+        shape and group size starts on it. Returns True when a degrade
+        happened."""
+        if not (self.use_dist and not self._feat_par):
+            return False
+        mode = str(self.grow_cfg.parallel_hist_mode)
+        if mode == "auto":
+            mode = str((self._comm_profile or {}).get("comm_mode",
+                                                      "allreduce"))
+        if mode == "allreduce":
+            return False
+        log_warning(f"degrading histogram exchange '{mode}' -> "
+                    "'allreduce' after repeated collective failures; "
+                    "pinning the choice in the autotune cache")
+        self.grow_cfg = self.grow_cfg._replace(
+            parallel_hist_mode="allreduce")
+        try:
+            from ..runtime.autotune import pin_comm_decision
+            self.autotune_decision = pin_comm_decision(
+                n_rows=self.num_data, n_features=int(self.X_t.shape[0]),
+                max_bin=self._max_bin, num_leaves=self.config.num_leaves,
+                mesh_size=self.n_shards, mode="allreduce",
+                cache_path=self.config.autotune_cache,
+                reason=reason or "repeated collective failures",
+                device=self.device, write=self.rank == 0)
+        except Exception:
+            pass    # a cache miss next run, never a training failure
+        self._comm_profile = self._comm_iter_profile()
+        if self.profiler is not None and self._comm_profile:
+            self.profiler.extras["comm"] = dict(self._comm_profile)
+        return True
+
+    def _record_grow_skew(self, span_s: float) -> None:
+        """This rank's grow wall seconds of the round, all-gathered into
+        the profiler's straggler report (gbdt.py:1649-1660); every rank is
+        a process of its own, so the skew is observable in every layout."""
+        spans = self.dist.all_gather(
+            torch.tensor([span_s], dtype=torch.float64, device=self.device))
+        self.profiler.record_rank_spans("grow", spans.tolist())
 
     # ------------------------------------------------------------------
     # batched training: chunks of iterations with no host round trip per
@@ -1039,6 +1372,9 @@ class GBDT:
         they can. The JAX package's vetoes (gbdt.py:1155-1204)."""
         if type(self) is not GBDT:
             return f"boosting={self.config.boosting}"
+        if self.use_dist:
+            # every collective is an eager call of the rank's process
+            return "distributed training"
         if not self.config.batched_train:
             return "batched_train=false"
         if os.environ.get("LIGHTGBM_TPU_DISABLE_BATCHED", "") \
@@ -1212,16 +1548,23 @@ class GBDT:
                  plain: bool = False) -> Tuple[DeviceTree, torch.Tensor]:
         """One tree on this run's grower (gbdt.py:886-893): the wave grower
         (with its seed and CEGB's used features) or a serial one, which
-        takes no seed; `plain=True` runs the kernels' plain versions."""
+        takes no seed; `plain=True` runs the kernels' plain versions. Under
+        distribution g / h / in_bag hold the rows the scores hold and the
+        tree grows over the group (`_rows`, `_all_rows`)."""
+        if self.use_dist and not self._feat_par:
+            # the rank grows on its row block
+            g, h, in_bag = self._rows(g), self._rows(h), self._rows(in_bag)
         if self.grower in ("masked", "compact"):
             fn = grow_tree if self.grower == "masked" else grow_tree_fast
-            return fn(self.X_t, g, h, in_bag, self.meta, self.grow_cfg,
-                      feat_mask, hist_plan=self.hist_plan, plain=plain)
-        return grow_tree_wave(self.X_t, g, h, in_bag, self.meta,
-                              self.grow_cfg, feat_mask,
-                              hist_plan=self.hist_plan, rng_seed=seed,
-                              cegb_used=cegb_used, plain=plain,
-                              leaf_map=self.leaf_map)
+            tree, lor = fn(self.X_t, g, h, in_bag, self.meta, self.grow_cfg,
+                           feat_mask, hist_plan=self.hist_plan, plain=plain,
+                           dist=self.dist)
+        else:
+            tree, lor = grow_tree_wave(
+                self.X_t, g, h, in_bag, self.meta, self.grow_cfg, feat_mask,
+                hist_plan=self.hist_plan, rng_seed=seed, cegb_used=cegb_used,
+                plain=plain, leaf_map=self.leaf_map, dist=self.dist)
+        return tree, self._all_rows(lor)
 
     def boost(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """The iteration's [K, N] gradients and hessians (GBDT::Boosting;
@@ -1558,6 +1901,16 @@ class GBDT:
             for metric in metrics:
                 for mn, val, hib in metric.eval(s, self.objective):
                     out.append((name, mn, val, hib))
+        if self._pre_part and out:
+            # each rank evaluates its own rows; every rank must see the same
+            # values, or metric-driven callbacks (early stopping) part the
+            # group: the mean of the ranks' values (gbdt.py:2006-2018; the
+            # reference syncs exact sums, GlobalSum in binary_metric.hpp)
+            vals = torch.tensor([v for (_, _, v, _) in out],
+                                dtype=torch.float64, device=self.device)
+            mean = self.dist.all_gather(vals, tiled=False).mean(dim=0)
+            out = [(n_, m_, float(mean[i]), h_)
+                   for i, (n_, m_, _, h_) in enumerate(out)]
         return out
 
     # ------------------------------------------------------------------

@@ -113,6 +113,15 @@ class GrowConfig(NamedTuple):
     bundle_off: tuple = ()      # offset in the bundle, -1 = raw singleton
     bundle_nb: tuple = ()       # orig feature num_bin
     bundle_db: tuple = ()       # orig feature default bin
+    # multi-device training (parallel/, grow.py:GrowConfig): the ranks of
+    # the process group a tree grows over (1: serial), the voting learner's
+    # top_k (0: not voting), feature-parallel (every rank holds all rows
+    # and histograms its own feature slice), and the histogram exchange
+    # (parallel_hist_mode: "auto", "allreduce" or "reduce_scatter")
+    n_shards: int = 1
+    voting_top_k: int = 0
+    feature_parallel: bool = False
+    parallel_hist_mode: str = "auto"
 
     @property
     def bundled(self) -> bool:
@@ -236,6 +245,59 @@ def serial_search(hist2: torch.Tensor, sum_g: torch.Tensor,
     return merged, use_cat, torch.where(use_cat[:, None], bits, 0)
 
 
+class SerialDist:
+    """The serial growers' collective hooks over a process group (JAX
+    grow.py:271-410, grow_fast.py:92-104), inert without one: the root's
+    sums, the exact child counts and every histogram summed over the ranks
+    (`psum`). Under an explicit parallel_hist_mode=reduce_scatter the
+    masked grower exchanges each histogram by a psum_scatter of the
+    feature-padded buffer instead, searches its rank's FeatureSlice and
+    elects the winner with the order-encoded keys in the single-device
+    scan order (numerical over categorical, then default direction, then
+    feature: the full-search allreduce path's tie order) and one masked
+    psum (parallel/packed.py). The compact grower always psums (its
+    windows are the rank's own rows)."""
+
+    def __init__(self, dist, cfg: GrowConfig, F: int, compact: bool):
+        self.dist = dist if dist is not None and cfg.n_shards > 1 else None
+        self.rs = (self.dist is not None and not compact
+                   and cfg.parallel_hist_mode == "reduce_scatter"
+                   and not cfg.bundled and not cfg.feature_parallel)
+        self.fsl = None
+        if self.rs:
+            from ..parallel.data_parallel import FeatureSlice
+            self.fsl = FeatureSlice.of(F, cfg.n_shards,
+                                       self.dist.axis_index())
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.dist is None else self.dist.psum(x)
+
+    def exchange(self, hist: torch.Tensor) -> torch.Tensor:
+        """[..., F, B] local histograms -> summed ([..., Fs, B], the owned
+        slice, under reduce_scatter)."""
+        if not self.rs:
+            return self.psum(hist)
+        ax = hist.dim() - 2
+        return self.dist.psum_scatter(self.fsl.pad(hist, ax), axis=ax)
+
+    def search(self, hist2, sum_g, sum_h, count, out, meta: FeatureMeta,
+               cfg: GrowConfig, feature_mask):
+        """`serial_search` of the exchanged histograms: on the owned slice
+        with the winner elected over the ranks under reduce_scatter."""
+        if not self.rs:
+            return serial_search(hist2, sum_g, sum_h, count, out, meta, cfg,
+                                 feature_mask)
+        from ..parallel.packed import masked_psum_record, pmax_winner_mask
+        res, use_cat, bits = serial_search(
+            hist2, sum_g, sum_h, count, out, self.fsl.meta(meta), cfg,
+            self.fsl.take(feature_mask))
+        res = res._replace(feature=res.feature + self.fsl.foff)
+        mask = pmax_winner_mask(self.dist, res.gain, res.feature,
+                                res.threshold, res.default_left, use_cat,
+                                scan_order=True)
+        return masked_psum_record(self.dist, mask, (res, use_cat, bits))
+
+
 def split_go_left(X_t: torch.Tensor, bs: SplitResult, is_cat, bits,
                   meta: FeatureMeta, cfg: GrowConfig) -> torch.Tensor:
     """[N] bool: which rows of X_t go left under one split (its best `bs`,
@@ -295,24 +357,28 @@ class _TreeRecord:
 def serial_root(X_t: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
                 in_bag: torch.Tensor, meta: FeatureMeta, cfg: GrowConfig,
                 feature_mask: Optional[torch.Tensor], hroute: str,
-                hist_plan: Optional[HistPlan], plain: bool):
+                hist_plan: Optional[HistPlan], plain: bool,
+                sd: Optional[SerialDist] = None):
     """The root of both serial growers (BeforeTrain, serial_tree_learner.
-    cpp:292-342): (g, h, in-bag row indicator, root histogram [2, F, B],
-    tree record with the root's best split)."""
+    cpp:292-342): (g, h, in-bag row indicator, root histogram [2, F, B]
+    (the owned [2, Fs, B] slice under reduce_scatter), tree record with the
+    root's best split). `sd`: the collective hooks (None: serial)."""
+    sd = sd or SerialDist(None, cfg, 0, False)
     hp = cfg.hp
     g = grad.to(torch.float32) * in_bag
     h = hess.to(torch.float32) * in_bag
     # the in-bag ROW indicator for exact counts (GOSS amplification rides
     # only on g / h in the reference, goss.hpp)
     cnt_row = (in_bag > 0).to(torch.float32)
-    root_g, root_h, root_c = g.sum(), h.sum(), cnt_row.sum()
+    root_g, root_h, root_c = sd.psum(torch.stack(
+        [g.sum(), h.sum(), cnt_row.sum()])).unbind()
     root_out = (-torch.sign(root_g)
                 * torch.clamp(torch.abs(root_g) - hp.lambda_l1, min=0.0)
                 / (root_h + hp.lambda_l2))
-    hist_root = build_histogram(X_t, torch.stack([g, h]),
-                                cfg.num_bins_padded, impl=hroute,
-                                plan=hist_plan, plain=plain)  # [2, F, B]
-    root_split, root_cat, root_bits = serial_search(
+    hist_root = sd.exchange(build_histogram(
+        X_t, torch.stack([g, h]), cfg.num_bins_padded, impl=hroute,
+        plan=hist_plan, plain=plain))                        # [2, F, B]
+    root_split, root_cat, root_bits = sd.search(
         hist_root[None], root_g[None], root_h[None], root_c[None],
         root_out[None], meta, cfg, feature_mask)
     rec = _TreeRecord(cfg.num_leaves, cfg.cat_words, X_t.device, root_g,
@@ -332,6 +398,7 @@ def grow_tree(
     *,
     hist_plan: Optional[HistPlan] = None,
     plain: bool = False,
+    dist=None,
 ) -> Tuple[DeviceTree, torch.Tensor]:
     """Grow one tree leaf-wise, one split at a time over all rows (the
     masked grower); returns (DeviceTree, leaf_of_row [N] int32).
@@ -343,7 +410,10 @@ def grow_tree(
     one slot-histogram pass and their splits searched (SerialStepper's
     split, driven by grow_tree_serial). `hist_plan` is `make_hist_plan`'s
     plan of a row-wise histogram route (made here when not given);
-    `plain=True` runs the kernels' plain versions on any device."""
+    `plain=True` runs the kernels' plain versions on any device. `dist`
+    (parallel.DistContext) grows the tree over the process group, each
+    rank on its row block (`SerialDist`)."""
     from .grow_batched import grow_tree_serial
     return grow_tree_serial(X_t, grad, hess, in_bag, meta, cfg, feature_mask,
-                            compact=False, hist_plan=hist_plan, plain=plain)
+                            compact=False, hist_plan=hist_plan, plain=plain,
+                            dist=dist)

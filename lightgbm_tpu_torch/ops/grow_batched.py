@@ -72,7 +72,7 @@ import torch
 
 from ..models.tree import MISSING_NAN, MISSING_ZERO
 from .categorical import find_best_split_categorical
-from .grow import (DeviceTree, GrowConfig, empty_split_cache,
+from .grow import (DeviceTree, GrowConfig, SerialDist, empty_split_cache,
                    serial_hist_route, serial_root, serial_search,
                    split_go_left)
 from .grow_fused import (fused_feature_mask, pack_fused_meta,
@@ -900,9 +900,10 @@ class SerialStepper:
                  cfg: GrowConfig, *, compact: bool,
                  hist_plan: Optional[HistPlan] = None,
                  valid_X: Sequence[torch.Tensor] = (),
-                 plain: bool = False):
+                 plain: bool = False, dist=None):
         self.X_t, self.meta, self.cfg = X_t, meta, cfg
         self.compact = compact
+        self.sd = SerialDist(dist, cfg, meta.num_bins.shape[0], compact)
         self.plain = plain
         dev = self.dev = X_t.device
         F_st, N = X_t.shape
@@ -971,7 +972,7 @@ class SerialStepper:
         self.fmask = feature_mask
         g, h, cnt_row, hist_root, rec = serial_root(
             self.X_t, grad, hess, in_bag, self.meta, self.cfg, feature_mask,
-            self.hroute, self.hist_plan, self.plain)
+            self.hroute, self.hist_plan, self.plain, self.sd)
         self.vals.copy_(torch.stack([g, h]))
         self.cnt_row.copy_(cnt_row)
         for name in ("split_feature", "threshold_bin", "default_left",
@@ -1038,8 +1039,9 @@ class SerialStepper:
                                torch.full_like(lor, -1))
             self.leaf_of_row.copy_(torch.where(in_p & ~gl,
                                                r.to(torch.int32), lor))
-            n_left = (self.cnt_row * (in_p & gl).to(torch.float32)).sum() \
-                .reshape(1)
+            n_left = self.sd.psum(
+                (self.cnt_row * (in_p & gl).to(torch.float32)).sum()
+                .reshape(1))
             n_right = self.leaf_count.index_select(0, p).to(torch.float32) \
                 - n_left
             bs = bs._replace(left_count=n_left, right_count=n_right)
@@ -1059,9 +1061,9 @@ class SerialStepper:
             a = lo + torch.where(sil, 0, nl)
             m = torch.where(sil, nl, n - nl)
             self.win.copy_(torch.cat([a, a + m]).to(torch.int32))
-            hist_small = build_histogram_window(self.X_t, self.vals,
-                                                self.order, self.win, self.B,
-                                                plain=self.plain)
+            hist_small = self.sd.psum(build_histogram_window(
+                self.X_t, self.vals, self.order, self.win, self.B,
+                plain=self.plain))
             hist_large = self.hist_cache.index_select(0, p)[0] - hist_small
             hist_l = torch.where(sil, hist_small, hist_large)
             hist_r = torch.where(sil, hist_large, hist_small)
@@ -1069,10 +1071,10 @@ class SerialStepper:
             self.hist_cache[r_w] = hist_r[None]
             hist_lr = torch.stack([hist_l, hist_r])
         else:
-            hist_lr = build_histogram_slots(
+            hist_lr = self.sd.exchange(build_histogram_slots(
                 self.X_t, self.vals, slot, 2, self.B, impl=self.hroute,
-                plan=self.hist_plan, plain=self.plain)
-        s_lr, cat_lr, bits_lr = serial_search(
+                plan=self.hist_plan, plain=self.plain))
+        s_lr, cat_lr, bits_lr = self.sd.search(
             hist_lr, torch.cat([bs.left_sum_g, bs.right_sum_g]),
             torch.cat([bs.left_sum_h, bs.right_sum_h]),
             torch.cat([n_left, n_right]),
@@ -1176,13 +1178,14 @@ def grow_tree_serial(
     X_t: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     in_bag: torch.Tensor, meta: FeatureMeta, cfg: GrowConfig,
     feature_mask: Optional[torch.Tensor] = None, *, compact: bool,
-    hist_plan: Optional[HistPlan] = None, plain: bool = False) -> tuple:
+    hist_plan: Optional[HistPlan] = None, plain: bool = False,
+    dist=None) -> tuple:
     """One tree of a serial grower (masked, or compact when `compact`)
     through SerialStepper's steps, eagerly: before each split one host read
     of `more`, and none after the split that makes the last leaf. Returns
     (DeviceTree with host counts and its reads, leaf_of_row)."""
     st = SerialStepper(X_t, meta, cfg, compact=compact, hist_plan=hist_plan,
-                       plain=plain)
+                       plain=plain, dist=dist)
     st.start(grad, hess, in_bag, feature_mask, None)
     splits = reads = 0
     while splits < st.L - 1:

@@ -48,8 +48,12 @@ def grow_tree_fast(
     *,
     hist_plan: Optional[HistPlan] = None,
     plain: bool = False,
+    dist=None,
 ) -> Tuple[DeviceTree, torch.Tensor]:
-    """Compacted leaf-wise growth; the contract of ops/grow.py:grow_tree."""
+    """Compacted leaf-wise growth; the contract of ops/grow.py:grow_tree.
+    Under `dist` each rank's windows hold its own rows and the smaller
+    child's histogram is psum'd (grow_fast.py:92-104, :302)."""
     from .grow_batched import grow_tree_serial
     return grow_tree_serial(X_t, grad, hess, in_bag, meta, cfg, feature_mask,
-                            compact=True, hist_plan=hist_plan, plain=plain)
+                            compact=True, hist_plan=hist_plan, plain=plain,
+                            dist=dist)

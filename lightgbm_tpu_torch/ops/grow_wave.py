@@ -177,6 +177,10 @@ def fused_veto_reasons(cfg: GrowConfig) -> List[str]:
         reasons.append("LIGHTGBM_TPU_DISABLE_FUSED")
     if cfg.bundled:
         reasons.append("efb_bundled")
+    if cfg.n_shards > 1:
+        reasons.append("distributed")
+    if cfg.feature_parallel:
+        reasons.append("feature_parallel")
     if cfg.has_forced:
         reasons.append("forced_splits")
     if cfg.has_cegb:
@@ -212,7 +216,10 @@ def wave_routes(cfg: GrowConfig, num_storage_cols: int) -> Tuple[str, str]:
                    or cfg.use_quantized_grad)
         return ("fused" if narrow and not general else "fused_tiled"), \
             "slots"
-    if narrow and cfg.hist_impl not in ROWWISE_IMPLS:
+    # feature-parallel histograms its feature slice on every wave, which
+    # the megakernel's fused histogram cannot (grow_wave.py:286-290)
+    if narrow and cfg.hist_impl not in ROWWISE_IMPLS \
+            and not cfg.feature_parallel:
         return "mega", "slots"
     # per-storage-column bin counts that do not match the storage choose
     # the uniform layout (histogram.py:96)
@@ -233,7 +240,7 @@ def wave_buckets_for(cfg: GrowConfig, route: str) -> List[int]:
 
 
 def discretize_gradients(g: torch.Tensor, h: torch.Tensor, num_bins: int,
-                         stochastic: bool, seed: int
+                         stochastic: bool, seed: int, pmax=None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The int8 (grad, hess) of use_quantized_grad and their descale
     factors: ([2, N] int8, [2] f32 (grad scale, hess scale)), as
@@ -244,14 +251,20 @@ def discretize_gradients(g: torch.Tensor, h: torch.Tensor, num_bins: int,
     uniform draws of the split of PRNGKey(seed) (`seed` an int, or an
     int64 device tensor), or 0.5 without `stochastic`. The scales are tensors on g's device and every division
     divides by a tensor: torch on CUDA divides by a Python scalar as a
-    multiply by its f32 reciprocal, not the IEEE quotient JAX computes."""
+    multiply by its f32 reciprocal, not the IEEE quotient JAX computes.
+    `pmax`, under distribution, takes the maxima over the ranks (the scales
+    are global, grow_wave.py:386-390); the draws stay local: every rank
+    draws its own block's length from the same key (:391-396)."""
     dev = g.device
 
     def f32(v):
         # a fill, not a copy from the host: a captured graph may hold it
         return torch.full((), v, dtype=torch.float32, device=dev)
-    g_scale = torch.maximum(g.abs().max() / f32(num_bins // 2), f32(1e-30))
-    h_scale = torch.maximum(h.max() / f32(num_bins), f32(1e-30))
+    max_g, max_h = g.abs().max(), h.max()
+    if pmax is not None:
+        max_g, max_h = pmax(torch.stack([max_g, max_h])).unbind()
+    g_scale = torch.maximum(max_g / f32(num_bins // 2), f32(1e-30))
+    h_scale = torch.maximum(max_h / f32(num_bins), f32(1e-30))
     if stochastic:
         kg, kh = split(PRNGKey(seed))
         ug = uniform(kg, g.shape, dev)
@@ -610,6 +623,195 @@ def _flush_pending(X_t: torch.Tensor, leaf_of_row: torch.Tensor,
                       plain=plain, gmap=gmap)[0]
 
 
+class _DistHooks:
+    """The wave grower's collective hooks over a process group
+    (grow_wave.py:352-358, :445-527, :775-800, :1715-1760, :1872-1900,
+    :2000-2030), inert without one (`on` False):
+
+      * `fo`, data-parallel ownership (tree_learner=data): each rank's
+        histograms are exchanged right after the kernel writes them, the
+        root's by a full psum, a wave's by a psum of the full buffer that
+        the rank then slices (allreduce) or a psum_scatter of the
+        feature-padded buffer (auto, reduce_scatter); the caches, the
+        parent - smaller subtraction and the search then hold the rank's
+        `FeatureSlice` only, and the per-leaf bests merge by a gather and
+        an argmax over ranks (ties to the lowest rank, i.e. the lowest
+        feature), or under an explicit reduce_scatter by the order-encoded
+        keys and one masked psum (parallel/packed.py). Ownership stays on
+        in every mode, so the modes grow the same trees. The port's psum
+        is psum_scatter's all-to-all plus an all-gather
+        (parallel/context.py), so allreduce's wave exchange is
+        reduce_scatter's plus an all-gather whose result the slice then
+        drops: the modes differ in that and in the merge.
+      * `vo`, voting (tree_learner=voting, PV-Tree): the caches hold local
+        histograms; each wave votes every child's top_k features by local
+        gain (exact local counts), psums the votes, and psums only the 2
+        top_k voted features' columns for the search.
+      * `fp`, feature-parallel (tree_learner=feature): every rank holds
+        all rows and histograms its own feature slice (`X_hist`); no
+        histogram crosses ranks, the per-leaf bests merge by the gather.
+
+    Row statistics are psum'd except under feature-parallel, whose rows
+    are the full set on every rank. Under quantized gradients the (grad,
+    hess) int32 pair crosses as one packed lane when `pack_safe` holds for
+    the global padded row count."""
+
+    def __init__(self, dist, cfg: GrowConfig, meta: FeatureMeta,
+                 X_t: torch.Tensor, N: int, F: int):
+        from ..parallel.data_parallel import FeatureSlice
+        from ..parallel.packed import pack_safe
+        self.dist = dist
+        nsh = cfg.n_shards if dist is not None else 1
+        self.on = nsh > 1
+        self.vo = self.on and cfg.voting_top_k > 0 and not cfg.bundled
+        self.fp = (self.on and cfg.feature_parallel and not cfg.bundled
+                   and not self.vo)
+        self.fo = self.on and not cfg.bundled and not self.vo and not self.fp
+        self.sharded = self.fo or self.fp
+        # explicit reduce_scatter syncs the bests broadcast-free
+        self.pmax_sync = self.fo and cfg.parallel_hist_mode == \
+            "reduce_scatter"
+        self.allreduce = cfg.parallel_hist_mode == "allreduce"
+        self.row_local = not self.on or cfg.feature_parallel
+        self.pack = (cfg.use_quantized_grad and self.on
+                     and not cfg.feature_parallel
+                     and pack_safe(N * nsh, cfg.num_grad_quant_bins))
+        self.fsl = (FeatureSlice.of(F, nsh, dist.axis_index())
+                    if self.sharded else None)
+        self.meta_sh = self.fsl.meta(meta) if self.sharded else meta
+        self.X_hist = (self.fsl.take(X_t, 0).contiguous() if self.fp
+                       else X_t)
+
+    def psum(self, x):
+        return x if self.row_local else self.dist.psum(x)
+
+    def pmax(self, x):
+        return x if self.row_local else self.dist.pmax(x)
+
+    def _exchange(self, hist, collective, caxis: int):
+        if self.pack:
+            from ..parallel.packed import pack_gh, unpack_gh
+            return unpack_gh(collective(pack_gh(hist, caxis)), caxis)
+        return collective(hist)
+
+    def root_hist(self, hist_local: torch.Tensor) -> torch.Tensor:
+        """The root's [C, F, B] histogram: summed over ranks (the rank's
+        slice, already global, under feature-parallel)."""
+        return self._exchange(hist_local, self.psum, 0)
+
+    def cache0(self, hist_root: torch.Tensor,
+               hist_local: torch.Tensor) -> torch.Tensor:
+        """What the root's cache entry holds (grow_wave.py:803-818)."""
+        if self.fo:
+            return self.fsl.take(hist_root, 1)
+        return hist_local if self.vo else hist_root
+
+    def wave_hist(self, hist: torch.Tensor) -> torch.Tensor:
+        """A wave's [n, C, F, B] smaller-child histograms, exchanged as
+        the caches hold them (grow_wave.py:1715-1745)."""
+        if self.fo:
+            if self.allreduce:
+                return self.fsl.take(
+                    self._exchange(hist, self.dist.psum, 1), 2)
+            return self._exchange(
+                self.fsl.pad(hist, 2),
+                lambda x: self.dist.psum_scatter(x, axis=2), 1)
+        if self.vo or self.fp:
+            return hist
+        return self._exchange(hist, self.psum, 1)
+
+    def merge(self, rec, has_forced: bool, pmax_sync: bool):
+        """The global bests from each rank's bests over its own features
+        (slice-local ids): a forced split outranks every gain (key 2e18),
+        then the gain, ties to the lowest feature (SyncUpGlobalBestSplit,
+        parallel_tree_learner.h:210-233)."""
+        from ..parallel.packed import (gather_records, map_record,
+                                       masked_psum_record, pmax_winner_mask)
+        res, is_cat, bits, forced = rec
+        res = res._replace(feature=res.feature + self.fsl.foff)
+        key = torch.where(forced, torch.full_like(res.gain, 2e18),
+                          res.gain) if has_forced else res.gain
+        rec = (res, is_cat, bits, forced)
+        if pmax_sync:
+            win = pmax_winner_mask(self.dist, key, res.feature,
+                                   res.threshold, res.default_left, is_cat)
+            return masked_psum_record(self.dist, win, rec)
+        keys, allr = gather_records(self.dist, (key, rec))
+        pick = torch.argmax(keys, dim=0)                 # [n], lowest rank
+
+        def take(a):
+            idx = pick.reshape((1,) + pick.shape + (1,) * (a.dim() - 2))
+            return torch.gather(a, 0, idx.expand((1,) + a.shape[1:]))[0]
+        return map_record(take, allr)
+
+
+def _vote(dh: _DistHooks, cfg: GrowConfig, meta: FeatureMeta, hp,
+          X_t: torch.Tensor, hist_lr: torch.Tensor, to_f32,
+          leaf_of_row: torch.Tensor, cnt_row: torch.Tensor,
+          bs: SplitResult, c_idx: torch.Tensor, sil: torch.Tensor,
+          cand_is_cat: torch.Tensor, cand_bits: torch.Tensor, L: int,
+          sg_lr, sh_lr, c_lr, o_lr, fmask_lr) -> dict:
+    """The PV-Tree vote of one wave (voting_parallel_tree_learner.cpp;
+    grow_wave.py:1872-1964) over the 2n children of its n candidates,
+    whose [2n, C, F, B] histograms `hist_lr` are this rank's: each child's
+    top_k features by local gain (local sums, EXACT local counts: the
+    parent's by leaf, the smaller child's by the candidates' decisions, as
+    the reference screens min_data_in_leaf against each rank's true
+    counts), the votes psum'd, the 2 top_k features of most votes (ties to
+    the lower id) kept, and only their columns psum'd. Returns the search's
+    arguments: the global histograms of the voted columns (zero
+    elsewhere), the global sums, and the feature mask of the voted
+    features. The search then orders equal gains by feature id where the
+    JAX package's voted search orders them by vote rank (ROADMAP C note
+    24)."""
+    from .split import per_feature_best_gain
+    n2 = hist_lr.shape[0]
+    n = n2 // 2
+    F = meta.num_bins.shape[0]
+    dev = hist_lr.device
+    kv = cfg.voting_top_k
+    kv2 = min(2 * kv, F)
+    hist_v = to_f32(hist_lr)
+    loc_g = hist_v[:, 0, 0, :].sum(dim=-1)
+    loc_h = hist_v[:, 1, 0, :].sum(dim=-1)
+    leafc = torch.zeros(L, dtype=torch.float32, device=dev).index_add_(
+        0, leaf_of_row.to(torch.int64), cnt_row)
+    par_loc = leafc[c_idx]
+    small_loc = torch.zeros(n, dtype=torch.float32, device=dev)
+    for j0 in range(0, n, 8):
+        j1 = min(j0 + 8, n)
+        gl = dec_go_left(X_t, bs.feature[j0:j1], bs.threshold[j0:j1],
+                         bs.default_left[j0:j1], cand_is_cat[j0:j1],
+                         cand_bits[j0:j1], meta, cfg)
+        inside = (leaf_of_row[None, :] == c_idx[j0:j1, None]) \
+            & (gl == sil[j0:j1, None])
+        small_loc[j0:j1] = (inside.to(torch.float32)
+                            * cnt_row[None, :]).sum(dim=1)
+    loc_c_left = torch.where(sil, small_loc, par_loc - small_loc)
+    loc_c = torch.cat([loc_c_left, par_loc - loc_c_left])
+    hist3 = synth_count_channel(hist_v, loc_c, loc_h)
+    lgains = per_feature_best_gain(hist3, loc_g, loc_h, loc_c, o_lr, meta,
+                                   hp, fmask_lr)                 # [2n, F]
+    top_v, top_i = torch.sort(lgains, dim=1, descending=True, stable=True)
+    top_v, top_i = top_v[:, :min(kv, F)], top_i[:, :min(kv, F)]
+    votes = torch.zeros((n2, F), dtype=torch.float32, device=dev)
+    votes.scatter_add_(1, top_i, torch.isfinite(top_v).to(torch.float32))
+    votes = dh.dist.psum(votes)
+    iota = torch.arange(F, device=dev)
+    score = votes * (F + 1) + (F - iota).to(torch.float32)[None, :]
+    vf = torch.sort(score, dim=1, descending=True, stable=True
+                    ).indices[:, :kv2]                           # [2n, kv2]
+    C, B = hist_lr.shape[1], hist_lr.shape[3]
+    idx = vf[:, None, :, None].expand(n2, C, kv2, B)
+    hv = dh.dist.psum(torch.gather(hist_lr, 2, idx))
+    hist = torch.zeros_like(hist_lr).scatter_(2, idx, hv)
+    voted = torch.zeros((n2, F), dtype=torch.bool, device=dev)
+    voted.scatter_(1, vf, True)
+    fmask = voted if fmask_lr is None else voted & fmask_lr
+    return dict(hist2=hist, sum_g=sg_lr, sum_h=sh_lr, count=c_lr, out=o_lr,
+                fmask=fmask)
+
+
 def grow_tree_wave(
     X_t: torch.Tensor,            # [F_storage, N] uint8, feature-major
     grad: torch.Tensor,           # [N] f32
@@ -624,6 +826,7 @@ def grow_tree_wave(
     cegb_used: Optional[torch.Tensor] = None,
     plain: bool = False,
     leaf_map: Optional[torch.Tensor] = None,
+    dist=None,
 ) -> Tuple[DeviceTree, torch.Tensor]:
     """Grow one tree; returns (DeviceTree, leaf_of_row [N] int32).
 
@@ -640,7 +843,10 @@ def grow_tree_wave(
     when None).
     `plain=True` runs the kernels' plain PyTorch versions on any device.
     `leaf_map` is the booster's hc.new_leaf_map, the global leaf maps the
-    wave kernels take past hc.LEAF_CAP leaves (None: one for this tree)."""
+    wave kernels take past hc.LEAF_CAP leaves (None: one for this tree).
+    `dist` (parallel.DistContext, with cfg.n_shards its size) grows the
+    tree over the process group, every rank on its own row block (all rows
+    under cfg.feature_parallel): see `_DistHooks`."""
     dev = X_t.device
     F_st, N = X_t.shape
     F = meta.num_bins.shape[0]
@@ -659,18 +865,25 @@ def grow_tree_wave(
     slack = cfg.wave_gain_slack
     buckets = wave_buckets_for(cfg, route)
     KMAX = buckets[-1]
+    dh = _DistHooks(dist, cfg, meta, X_t, N, F)
+    if dh.fp:
+        # feature-parallel histograms the rank's feature slice of all rows
+        # on the uniform layout (the JAX package's per-column tiers do not
+        # match the slice)
+        hroute, hist_plan = "slots", None
 
     g = grad.to(torch.float32) * in_bag
     h = hess.to(torch.float32) * in_bag
     cnt_row = (in_bag > 0).to(torch.float32)
-    root_g, root_h, root_c = g.sum(), h.sum(), cnt_row.sum()
+    root_g, root_h, root_c = dh.psum(torch.stack(
+        [g.sum(), h.sum(), cnt_row.sum()])).unbind()
     quant = cfg.use_quantized_grad
     if quant:
         # int8 values, exact int32 histograms (grow_wave.py:381-404); the
-        # root sums above stay the float sums
+        # root sums above stay the float sums; the scales are global
         vals0, ch_scale = discretize_gradients(
             g, h, cfg.num_grad_quant_bins, cfg.stochastic_rounding,
-            rng_seed)
+            rng_seed, pmax=dh.pmax if dh.on else None)
     else:
         vals0 = torch.stack([g, h], dim=0)                   # [2, N] f32
         ch_scale = None
@@ -699,6 +912,12 @@ def grow_tree_wave(
     has_cegb = cfg.has_cegb
     feat_used = (cegb_used.clone() if cegb_used is not None
                  else torch.zeros(F, dtype=torch.bool, device=dev))
+    if dh.vo and (has_forced or has_cat or cfg.extra_trees
+                  or (has_mono and (mono_inter or use_mpen))):
+        raise NotImplementedError(
+            "tree_learner=voting does not support forced splits, "
+            "categorical features, extra_trees, monotone_penalty or "
+            "monotone_constraints_method=intermediate yet")
 
     def sel_key(gain, is_forced, fid):
         """The wave's selection key (grow_wave.py:431-439): a leaf whose
@@ -796,7 +1015,8 @@ def grow_tree_wave(
                                         2 * leaves.shape[0])
 
     def search(hist2, sum_g, sum_h, count, out, num=None, bmin=None,
-               bmax=None, fmask=None, mpf=None, rand_bins=None, fid=None):
+               bmax=None, fmask=None, mpf=None, rand_bins=None, fid=None,
+               sharded=False):
         """Best splits of n histograms [n, C, F_st, B] of storage columns:
         (SplitResult [n], is_cat [n], bitset [n, W], forced [n]). `num` is
         the numeric search's result when a fused kernel already ran it;
@@ -806,9 +1026,15 @@ def grow_tree_wave(
         extra_trees' one threshold a feature (numeric features only, as in
         JAX), fid [n] the leaves' forced-node ids (-1: none): a forced
         split that can be made replaces the best, and `forced` marks it
-        (grow_wave.py:600-643)."""
+        (grow_wave.py:600-643). `sharded`: hist2 holds the rank's
+        FeatureSlice, searched against its metadata; the features of the
+        result are slice-local (`_DistHooks.merge` makes them global)."""
         n = count.shape[0]
         unforced = torch.zeros(n, dtype=torch.bool, device=dev)
+        m_use, foff = meta, 0
+        if sharded:
+            m_use, foff = dh.meta_sh, dh.fsl.foff
+            fmask, rand_bins = dh.fsl.take(fmask), dh.fsl.take(rand_bins)
         if num is not None and not has_cat:
             return (num, unforced,
                     torch.zeros((n, W), dtype=torch.int64, device=dev),
@@ -832,18 +1058,20 @@ def grow_tree_wave(
         if num is None and has_forced:
             # one gain map gives the normal best and the forced cell's
             fc = fid.clamp(0, meta.forced.shape[1] - 1)
+            # a forced feature another rank owns is out of this slice's
+            # range: its cell never matches, the owner wins the merge
             num, fres = find_best_split_and_forced(
-                hist, sum_g, sum_h, count, out, meta, hp, fmask, bmin, bmax,
-                meta.forced[0, fc], meta.forced[1, fc], cegb_pen=pen,
-                rand_bins=rand_bins, mono_pen_factor=mpf)
+                hist, sum_g, sum_h, count, out, m_use, hp, fmask, bmin,
+                bmax, meta.forced[0, fc] - foff, meta.forced[1, fc],
+                cegb_pen=pen, rand_bins=rand_bins, mono_pen_factor=mpf)
         elif num is None:
-            num = find_best_split(hist, sum_g, sum_h, count, out, meta, hp,
+            num = find_best_split(hist, sum_g, sum_h, count, out, m_use, hp,
                                   fmask, leaf_min=bmin, leaf_max=bmax,
                                   mono_pen_factor=mpf, rand_bins=rand_bins,
                                   cegb_pen=pen)
         if has_cat:
             catres, bits = find_best_split_categorical(
-                hist, sum_g, sum_h, count, out, meta, hp, cfg.cat, fmask,
+                hist, sum_g, sum_h, count, out, m_use, hp, cfg.cat, fmask,
                 leaf_min=bmin, leaf_max=bmax, cegb_pen=pen)
             # numeric wins ties (grow_wave.py:629)
             use_cat = catres.gain > num.gain
@@ -865,8 +1093,10 @@ def grow_tree_wave(
     root_out = (-torch.sign(root_g)
                 * torch.clamp(torch.abs(root_g) - hp.lambda_l1, min=0.0)
                 / (root_h + hp.lambda_l2))
-    hist_root = build_histogram(X_t, vals0, B, impl=hroute, plan=hist_plan,
-                                plain=plain)                 # [2, F_st, B]
+    # feature-parallel builds the root on its feature slice only
+    hist_root_local = build_histogram(dh.X_hist, vals0, B, impl=hroute,
+                                      plan=hist_plan, plain=plain)
+    hist_root = dh.root_hist(hist_root_local)                # [2, F_st, B]
     one = torch.ones(1, dtype=torch.float32, device=dev)
     root_fmask = (sets_to_fmask(torch.ones((1, S), dtype=torch.bool,
                                            device=dev))
@@ -882,7 +1112,12 @@ def grow_tree_wave(
         bmax=torch.inf * one if has_mono else None,
         fmask=and_masks(root_fmask, root_bn),
         mpf=mpen_factor(0 * one) if use_mpen else None, rand_bins=root_rb,
-        fid=root_fid)
+        fid=root_fid, sharded=dh.fp)
+    if dh.fp:
+        # merge the ranks' root bests (SyncUpGlobalBestSplit)
+        root_split, root_cat, root_bits, root_forced = dh.merge(
+            (root_split, root_cat, root_bits, root_forced), has_forced,
+            False)
     if max_depth < 1:
         root_split = root_split._replace(
             gain=torch.full_like(root_split.gain, NEG_INF))
@@ -927,10 +1162,13 @@ def grow_tree_wave(
     leaf_min = torch.full((L,), -torch.inf, device=dev)
     leaf_max = torch.full((L,), torch.inf, device=dev)
     leaf_sets = torch.ones((L, S), dtype=torch.bool, device=dev)
-    # int32 under quantized gradients (grow_wave.py:1027, :1108)
-    hist_cache = torch.zeros((L, C * hist_root[0].numel()),
-                             dtype=hist_root.dtype, device=dev)
-    hist_cache[0] = hist_root.reshape(-1)
+    # int32 under quantized gradients (grow_wave.py:1027, :1108); under
+    # distribution the entry `_DistHooks.cache0` keeps
+    hist0 = dh.cache0(hist_root, hist_root_local)
+    hshape = tuple(hist0.shape)
+    hist_cache = torch.zeros((L, hist0.numel()), dtype=hist0.dtype,
+                             device=dev)
+    hist_cache[0] = hist0.reshape(-1)
     small_hist = torch.zeros_like(hist_cache)
     small_is_left = zeros(L, torch.bool)
     ready = zeros(L, torch.bool)
@@ -1215,7 +1453,7 @@ def grow_tree_wave(
                 if n_cand > 0:
                     K = next(k for k in buckets if k >= n_cand)
                     hist_wave = build_histogram_slots(
-                        X_t, vals0, slot_small, K, B, impl=hroute,
+                        dh.X_hist, vals0, slot_small, K, B, impl=hroute,
                         plan=hist_plan, plain=plain)
             else:
                 # kernel #10 reads go-left bits per (entry, row): bit 0
@@ -1259,7 +1497,7 @@ def grow_tree_wave(
         # the stale leaves' own bests as a third block (grow_wave.py:
         # 1766-1800)
         c_idx = cand[:n_cand]
-        hist_small = hist_wave[:n_cand].reshape(n_cand, -1) \
+        hist_small = dh.wave_hist(hist_wave[:n_cand]).reshape(n_cand, -1) \
             if n_cand > 0 else None
         num = unpack_fused_records(rec, n_cand) if fused else None
         hist_lr = None
@@ -1268,8 +1506,7 @@ def grow_tree_wave(
             hist_large = hist_cache[c_idx] - hist_small
             hist_lr = torch.cat([torch.where(sl, hist_small, hist_large),
                                  torch.where(sl, hist_large, hist_small)]
-                                ).reshape((2 * n_cand,)
-                                          + tuple(hist_root.shape))
+                                ).reshape((2 * n_cand,) + hshape)
         bsc = SplitResult(*[x[:n_cand] for x in bs])
 
         def both(a, b):
@@ -1305,8 +1542,7 @@ def grow_tree_wave(
             rs_gain = torch.where(stale, torch.clamp(best.gain, min=0.0),
                                   torch.full_like(best.gain, NEG_INF))
             rs_i = _top_k(rs_gain, KMAX)[1][:n_rs]
-            hist_own = hist_cache[rs_i].reshape((n_rs,)
-                                                + tuple(hist_root.shape))
+            hist_own = hist_cache[rs_i].reshape((n_rs,) + hshape)
             hist_lr = hist_own if hist_lr is None \
                 else torch.cat([hist_lr, hist_own])
             sg_lr = torch.cat([sg_lr, leaf_sum_g[rs_i]])
@@ -1332,9 +1568,22 @@ def grow_tree_wave(
                                       (3 if mono_inter else 2) * KMAX,
                                       draw_rows)
             fmask_lr = and_masks(fmask_lr, bn_lr)
-        s_lr, cat_lr, bits_lr, forced_lr = search(
-            hist_lr, sg_lr, sh_lr, c_lr, o_lr, num, bmin_lr, bmax_lr,
-            fmask_lr, mpf_lr, rb_lr, fid_lr)
+        if dh.vo:
+            s_lr, cat_lr, bits_lr, forced_lr = search(
+                **_vote(dh, cfg, meta, hp, X_t, hist_lr, to_f32,
+                       leaf_of_row, cnt_row, bs, c_idx,
+                       smaller_is_left[:n_cand], best_is_cat[c_idx],
+                       best_bitset[c_idx], L, sg_lr, sh_lr, c_lr, o_lr,
+                       fmask_lr),
+                bmin=bmin_lr, bmax=bmax_lr)
+        else:
+            s_lr, cat_lr, bits_lr, forced_lr = search(
+                hist_lr, sg_lr, sh_lr, c_lr, o_lr, num, bmin_lr, bmax_lr,
+                fmask_lr, mpf_lr, rb_lr, fid_lr, sharded=dh.sharded)
+            if dh.sharded:
+                s_lr, cat_lr, bits_lr, forced_lr = dh.merge(
+                    (s_lr, cat_lr, bits_lr, forced_lr), has_forced,
+                    dh.pmax_sync)
         s_lr = s_lr._replace(gain=torch.where(
             can, s_lr.gain, torch.full_like(s_lr.gain, NEG_INF)))
         forced_lr = forced_lr & can

@@ -240,6 +240,25 @@ def _numeric_gain_map(hist, parent_sum_g, parent_sum_h, parent_count,
     return gain, ok, (lg, lh, lc, rg, rh, rc, lout, rout), min_gain_shift
 
 
+def per_feature_best_gain(hist: torch.Tensor, parent_sum_g: torch.Tensor,
+                          parent_sum_h: torch.Tensor,
+                          parent_count: torch.Tensor,
+                          parent_output: torch.Tensor, meta: FeatureMeta,
+                          hp: SplitHyperParams,
+                          feature_mask: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """[..., F] best numerical split gain per feature (-inf where none is
+    valid), the voting learner's local ranking signal (PV-Tree local
+    voting, voting_parallel_tree_learner.cpp; split.py:262-279)."""
+    gain, ok, _, min_gain_shift = _numeric_gain_map(
+        hist, parent_sum_g, parent_sum_h, parent_count, parent_output,
+        meta, hp, feature_mask)
+    mgs = min_gain_shift[..., None, None, None]
+    gain = torch.where(ok & (gain > mgs), gain,
+                       torch.full_like(gain, NEG_INF))
+    return gain.amax(dim=-1).amax(dim=-2) - min_gain_shift[..., None]
+
+
 def find_best_split(hist: torch.Tensor, parent_sum_g: torch.Tensor,
                     parent_sum_h: torch.Tensor, parent_count: torch.Tensor,
                     parent_output: torch.Tensor, meta: FeatureMeta,

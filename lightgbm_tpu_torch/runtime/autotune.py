@@ -22,8 +22,16 @@ degrees of freedom:
 ``rows_per_chunk`` has no counterpart: the Hopper kernels plan their own
 tiles (ops/histogram_cuda.py:plan_hist_tiles), so a decision carries the
 configured value (``tpu_rows_per_block * 8``) and empty ``chunk_timings``.
-The communication probes wait for distributed training, which the port
-refuses before they could run.
+
+On a data-parallel process group the histogram exchange is a free
+variable too: ``probe_comm_modes`` times one psum against one
+psum_scatter of the grower's payload shape over the group, and
+``autotune_comm_decision`` resolves ``parallel_hist_mode=auto`` by it
+(key suffix ``_mesh{W}``); the training watchdog's degrade pins its
+choice with ``pin_comm_decision``. Every rank takes the same decision: a
+cache entry counts only when every rank holds the same one, and the
+winner comes from the slowest rank's timings; rank 0 writes the disk
+cache.
 
 Decisions are cached in-process and on disk under the JAX package's key,
 (n_rows, n_features, max_bin, num_leaves, device kind[, fused variant]);
@@ -56,6 +64,10 @@ from typing import Any, Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
+
+# histogram-exchange modes, preferred on a timing tie (the JAX package's
+# order: reduce_scatter moves (W - 1) / W of allreduce's bytes)
+COMM_MODE_PREFERENCE = ("reduce_scatter", "allreduce")
 
 # ladder order (models/gbdt.py grower selection): on a timing tie the
 # autotuner must agree with the memory ladder's preference
@@ -443,6 +455,126 @@ def probe_fused_wave(X_t: torch.Tensor, cfg,
 
     return {name: _best_of_2(fn, timer, dev)
             for name, fn in (("two_pass", two_pass), ("fused", fused))}
+
+
+def probe_comm_modes(dist, n_features: int, num_bins_padded: int,
+                     channels: int = 3, seed: int = 0,
+                     timer: Callable[[], float] = time.perf_counter,
+                     device: Optional[torch.device] = None
+                     ) -> Dict[str, float]:
+    """Time the two histogram exchanges over the process group `dist`
+    (parallel.DistContext): one full-buffer psum (allreduce) against one
+    psum_scatter over the feature-padded axis (reduce_scatter), at the
+    per-leaf payload shape the growers exchange, [C, F_pad, B] f32 from a
+    fixed seed, on the rank's device (JAX autotune.py:576-619). Best of two
+    fenced calls after a warm one, this rank's clock. The port's psum is
+    the psum_scatter's all-to-all plus an all-gather (parallel/context.py),
+    so this probe picks allreduce only by noise; it does not time the
+    merge of the bests, where the two modes also differ."""
+    device = _device(device)
+    k = int(dist.axis_size())
+    Fh = max(-(-int(n_features) // k) * k, k)
+    B = max(int(num_bins_padded), 8)
+    rng = np.random.RandomState(seed)
+    buf = torch.from_numpy(rng.uniform(
+        -1.0, 1.0, size=(channels, Fh, B)).astype(np.float32)).to(device)
+    candidates = {
+        "allreduce": lambda: dist.psum(buf),
+        "reduce_scatter": lambda: dist.psum_scatter(buf, axis=1),
+    }
+    return {name: _best_of_2(fn, timer, device)
+            for name, fn in candidates.items()}
+
+
+def _comm_key(n_rows: int, n_features: int, max_bin: int, num_leaves: int,
+              mesh_size: int, device: Optional[torch.device]) -> str:
+    return make_key(n_rows, n_features, max_bin, num_leaves,
+                    device_kind_of(device)) + f"_mesh{int(mesh_size)}"
+
+
+def _cached_comm(key: str, path: str) -> Optional[Dict[str, Any]]:
+    if key in _MEM_CACHE:
+        return dict(_MEM_CACHE[key], cached="memory")
+    hit = load_disk_cache(path).get(key)
+    if isinstance(hit, dict) and hit.get("parallel_hist_mode") in (
+            None, *COMM_MODE_PREFERENCE):
+        _MEM_CACHE[key] = hit
+        return dict(hit, cached="disk")
+    return None
+
+
+def autotune_comm_decision(dist, *, n_rows: int, n_features: int,
+                           max_bin: int, num_leaves: int,
+                           num_bins_padded: int, channels: int = 3,
+                           cache_path: str = "", seed: int = 0,
+                           timer: Callable[[], float] = time.perf_counter,
+                           device: Optional[torch.device] = None
+                           ) -> Dict[str, Any]:
+    """Resolve ``parallel_hist_mode=auto`` for a data-parallel run by a
+    timed probe, cached like the grower decision under the shape key plus
+    the group size (JAX autotune.py:622-663). Every rank returns the same
+    ``{"parallel_hist_mode", "comm_timings", "key", "mesh_size",
+    "cached"}``: a cached entry is used only when every rank holds the
+    same mode, and the probe's winner is picked from the slowest rank's
+    time of each mode."""
+    k = int(dist.axis_size())
+    key = _comm_key(n_rows, n_features, max_bin, num_leaves, k, device)
+    path = cache_path or default_cache_path()
+    hit = _cached_comm(key, path)
+    codes = [None, *COMM_MODE_PREFERENCE]
+    code = codes.index(hit["parallel_hist_mode"]) if hit else -1
+    agree = dist.pmin(torch.tensor([code, -code], dtype=torch.int64,
+                                   device=_device(device)))
+    if hit is not None and code >= 0 and int(agree[0]) == -int(agree[1]):
+        return hit
+    timings = probe_comm_modes(dist, n_features, num_bins_padded,
+                               channels=channels, seed=seed, timer=timer,
+                               device=device)
+    slowest = dist.pmax(torch.tensor(list(timings.values()),
+                                     dtype=torch.float64,
+                                     device=_device(device))).tolist()
+    timings = dict(zip(timings, slowest))
+    mode = _pick_winner(timings, COMM_MODE_PREFERENCE)
+    decision: Dict[str, Any] = {
+        "parallel_hist_mode": mode,
+        "comm_timings": {n: round(v, 6) for n, v in timings.items()},
+        "key": key,
+        "mesh_size": k,
+    }
+    _MEM_CACHE[key] = decision
+    if dist.axis_index() == 0:
+        disk = load_disk_cache(path)
+        disk[key] = decision
+        save_disk_cache(path, disk)
+    return dict(decision, cached=False)
+
+
+def pin_comm_decision(*, n_rows: int, n_features: int, max_bin: int,
+                      num_leaves: int, mesh_size: int, mode: str,
+                      cache_path: str = "", reason: str = "",
+                      device: Optional[torch.device] = None,
+                      write: bool = True) -> Dict[str, Any]:
+    """Overwrite the cached comm decision with a forced ``mode`` under
+    the key ``autotune_comm_decision`` reads (JAX autotune.py:666-692):
+    the training watchdog's reduce_scatter -> allreduce degrade poisons the
+    broken mode, so the next run of the same shape and group size starts
+    on the safe exchange. `write`: also into the disk cache (rank 0)."""
+    key = _comm_key(n_rows, n_features, max_bin, num_leaves, mesh_size,
+                    device)
+    decision: Dict[str, Any] = {
+        "parallel_hist_mode": str(mode),
+        "key": key,
+        "mesh_size": int(mesh_size),
+        "pinned": True,
+        "reason": str(reason),
+    }
+    _MEM_CACHE[key] = decision
+    if write:
+        path = cache_path or default_cache_path()
+        disk = load_disk_cache(path)
+        disk[key] = decision
+        save_disk_cache(path, disk)
+    return decision
 
 
 def probe_binning(mappers, *, probe_rows: int = 16384, seed: int = 0,

@@ -18,12 +18,12 @@ A fault PLAN is a ``;``/``,``-separated list of directives, each
                                   iteration 8 (its manifest then fails)
     fail_collective@iter=2:times=2  the histogram exchange raises
                                   CollectiveFault `times` times starting
-                                  at iteration 2 (on one card, as in the
-                                  JAX package's serial run: the step
-                                  watchdog retries it up to
-                                  step_max_retries times, else raises;
-                                  the reduce_scatter -> allreduce degrade
-                                  comes with multi-device training, A16)
+                                  at iteration 2 (the step watchdog
+                                  retries it up to step_max_retries
+                                  times, else raises; after two of them
+                                  a data-parallel run degrades its
+                                  reduce_scatter exchange to allreduce
+                                  and pins that choice)
 
 Serving actions (keyed by the 0-based scored-batch / worker-loop index
 instead of the training iteration; ``batch`` defaults to 0, "from the
@@ -93,9 +93,10 @@ class _Directive:
 
 
 def _rank() -> int:
-    """This process's rank: 0, one process trains until multi-device
-    training (ROADMAP item A16)."""
-    return 0
+    """This process's rank in the torch.distributed group, 0 without one
+    (the JAX package's jax.process_index())."""
+    from ..parallel.context import world
+    return world().rank
 
 
 class FaultPlan:
@@ -241,11 +242,18 @@ def corrupt_file(path: str, offset_frac: float = 0.4,
 
 
 # the words by which a runtime error names a failed collective (JAX
-# parallel/__init__.py:16-29)
+# parallel/__init__.py:16-29), and those a failed torch.distributed
+# collective raises: gloo's transport errors name the library or say
+# "Connection closed by peer" / "Connection reset by peer" when a rank
+# dies, or "Timed out" when one stalls past the group's timeout; torch
+# wraps them as DistBackendError; NCCL's name "nccl" (above)
 COLLECTIVE_ERROR_MARKERS = ("collective", "all-reduce", "allreduce",
                             "all-gather", "allgather", "reduce-scatter",
                             "reduce_scatter", "psum", "ppermute",
-                            "nccl", "megascale")
+                            "nccl", "megascale", "gloo",
+                            "connection closed by peer",
+                            "connection reset by peer", "timed out",
+                            "distbackenderror")
 
 
 def is_collective_error(exc: BaseException) -> bool:
@@ -253,5 +261,5 @@ def is_collective_error(exc: BaseException) -> bool:
     injected CollectiveFault or a runtime error naming one)."""
     if isinstance(exc, CollectiveFault):
         return True
-    msg = str(exc).lower()
+    msg = f"{type(exc).__name__} {exc}".lower()
     return any(m in msg for m in COLLECTIVE_ERROR_MARKERS)

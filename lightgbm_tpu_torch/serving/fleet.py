@@ -58,6 +58,7 @@ import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..runtime.profiler import StageProfiler
 from ..utils.log import log_info, log_warning
@@ -225,9 +226,14 @@ class ModelFleet:
         # rebuilt off-worker and republished atomically on hot-swap
         self.fused = bool(fused)
         if fused_num_shards > 1:
-            from .session import _not_ported
-            _not_ported("sharded fused scoring (fused_num_shards > 1)",
-                        "A16")
+            # the fused scorer shards over the local cards; the count
+            # rounds here, once, with the JAX package's warning
+            from .session import resolve_shards
+            dt = self._session_opts.get("device_type")
+            dev = torch.device("cuda" if dt in (None, "cuda")
+                               and torch.cuda.is_available() else "cpu")
+            fused_num_shards = len(resolve_shards(
+                fused_num_shards, dev, "fused num_shards")) or 1
         self.fused_num_shards = int(fused_num_shards)
         self._fused_scorer = None
         self._fused_dirty = False

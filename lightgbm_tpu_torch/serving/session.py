@@ -49,8 +49,15 @@ away is counted in ``host_fallbacks`` and logged. Without a breaker a
 failing device chunk raises: nothing is re-scored quietly (the JAX
 package re-scores on the host with or without a breaker, ROADMAP C note
 20). A fault plan (runtime/faults.py) injects ``slow_score`` inside the
-timed region and ``fail_score`` before the chunk's scoring call. Sharded
-scoring raises NotImplementedError naming ROADMAP item A16.
+timed region and ``fail_score`` before the chunk's scoring call.
+
+With ``num_shards > 1`` the device engine scores each bucket data-parallel
+over the local cards (parallel/data_parallel.py:build_sharded_score_fn:
+one row block a card, each with its own copy of the model, no
+collective): the count rounds to a power of two no larger than the card
+count, with the JAX package's warning, and ``min_bucket`` to at least the
+shard count. On one card (or the CPU) it rounds to 1 and scores unsharded,
+as a JAX session does on one device.
 
 A ``profiler`` (runtime/profiler.py StageProfiler) records the binning
 stage of the binned engine: a ``bin_rows`` span around the host
@@ -76,10 +83,26 @@ from ..utils.log import log_info, log_warning
 from .metrics import ServingMetrics
 
 
-def _not_ported(what: str, item: str) -> None:
-    raise NotImplementedError(
-        f"{what} is not ported to lightgbm_tpu_torch yet (ROADMAP item "
-        f"{item})")
+def shard_devices(device: torch.device) -> List[torch.device]:
+    """The devices a sharded scorer on `device` may spread over: every
+    local card on CUDA, the one CPU otherwise."""
+    if device.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [device]
+
+
+def resolve_shards(num_shards: int, device: torch.device,
+                   what: str = "serving num_shards") -> List[torch.device]:
+    """The devices of `num_shards`-way sharded scoring: a power of two no
+    larger than `shard_devices(device)`'s count, with the JAX package's
+    warning when that rounds (serving/session.py:173-190); [] for one."""
+    avail = shard_devices(device)
+    shards = 1 << (min(int(num_shards), len(avail)).bit_length() - 1)
+    if shards != num_shards:
+        log_warning(f"{what}={num_shards} rounded to {shards} (power of "
+                    f"two, {len(avail)} devices)")
+    return avail[:shards] if shards > 1 else []
 
 
 def bucket_for(n: int, min_bucket: int, max_bucket: int) -> int:
@@ -134,8 +157,6 @@ class ServingSession:
                  profiler=None, bin_mappers=None,
                  binning_impl: str = "auto",
                  device_type: Optional[str] = None) -> None:
-        if num_shards > 1:
-            _not_ported("sharded serving (num_shards > 1)", "A16")
         # graceful-degradation circuit breaker (serving/breaker.py): shared
         # across the versions of one served model (registry.py)
         self.breaker = breaker
@@ -205,8 +226,16 @@ class ServingSession:
         if self.metrics.max_batch == 0:
             self.metrics.max_batch = self.max_batch
         self._cache = CompiledPredictorCache(self.metrics)
-        self.min_bucket = bucket_for(max(int(min_bucket), 1), 1,
-                                     self.max_batch)
+        self.num_shards = 0
+        self._shard_devs: List[torch.device] = []
+        if num_shards > 1 and self.engine == "device":
+            self._shard_devs = resolve_shards(num_shards, self.device)
+            self.num_shards = len(self._shard_devs)
+        elif num_shards > 1:
+            log_warning(f"serving num_shards ignored on engine "
+                        f"{self.engine!r}")
+        self.min_bucket = bucket_for(
+            max(int(min_bucket), self.num_shards or 1), 1, self.max_batch)
         if warmup:
             self.warmup()
 
@@ -288,6 +317,12 @@ class ServingSession:
         K, pa = self.K, self._pa
         if self.engine == "device":
             from ..ops.predict import predict_margin_packed
+            if self._shard_devs:
+                from ..parallel import build_sharded_score_fn
+                fns = [lambda Xp, a=self._pm.device_arrays(d):
+                       predict_margin_packed(a, Xp, K)
+                       for d in self._shard_devs]
+                return build_sharded_score_fn(self._shard_devs, fns)
             return lambda Xp: predict_margin_packed(pa, Xp, K)
         if self.engine == "binned":
             from ..ops.predict_binned import predict_margin_binned

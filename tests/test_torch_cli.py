@@ -173,11 +173,13 @@ def test_cli_refit_and_convert(workdir):
                  "convert_model_language=torch_export",
                  id="argv2-A18\\(b\\)"),
     # a model file carries no bin mappers, so no serve_models tenant can
-    # join the fused drain: fatal, saying so; sharded fusion names A16
+    # join the fused drain: fatal, saying so
     pytest.param(["task=serve", "serve_models=a={model}", "serve_fused=true"],
                  "carries no BinMapper tables", id="argv3-serve_fused"),
-    pytest.param(["task=serve", "serve_models=a={model}", "serve_fused=true",
-                  "serve_fused_shards=2"], "ROADMAP item A16",
+    # sharded fusion on one device: the fleet rounds serve_fused_shards to
+    # 1 with the JAX package's warning and serves as task=predict writes
+    pytest.param(["task=serve", "serve_models=a={model}",
+                  "serve_fused_shards=2"], "fleet_rounded",
                  id="argv4-A16"),
 ])
 def test_refusals_name_their_items(argv, want, workdir):
@@ -185,14 +187,25 @@ def test_refusals_name_their_items(argv, want, workdir):
     model = tmp / "model.txt"
     common = ["device_type=cpu", f"input_model={model}", "verbosity=-1"]
     argv = [a.format(model=model) for a in argv]
-    if want == "fleet":
+    if want.startswith("fleet"):
+        from lightgbm_tpu_torch.utils import log as tlog
         assert tcli.main([f"config={conf}", "device_type=cpu"]) == 0
         assert tcli.main(["task=predict", f"data={path}",
                           f"output_result={tmp / 'p.tsv'}"] + common) == 0
-        assert tcli.main(argv + [f"data={path}",
-                                 f"output_result={tmp / 's.tsv'}"]
-                         + common) == 0
+        logs, prev = [], tlog._logger
+        tlog.register_logger(type("L", (), {"info": logs.append,
+                                            "warning": logs.append})())
+        try:
+            # verbosity=0: the rounding warning is printed
+            assert tcli.main(argv + [f"data={path}",
+                                     f"output_result={tmp / 's.tsv'}"]
+                             + common[:-1] + ["verbosity=0"]) == 0
+        finally:
+            tlog.register_logger(prev)
         assert (tmp / "s.tsv").read_text() == (tmp / "p.tsv").read_text()
+        if want == "fleet_rounded":
+            assert any("fused num_shards=2 rounded to 1" in m
+                       for m in logs), logs
     elif want.startswith("ROADMAP"):
         with pytest.raises(NotImplementedError, match=want):
             tcli.main(argv + common)

@@ -427,8 +427,29 @@ def test_fused_ineligible_tenant_drains_unfused(models, tmp_path):
 
 
 def test_fused_shards_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP item A16"):
-        ModelFleet(fused=True, fused_num_shards=2)
+    """fused_num_shards=2 on one device rounds to 1 at construction, with
+    the JAX package's warning; the fused scorer then runs unsharded."""
+    fleet, logs = _with_warnings(lambda: ModelFleet(
+        fused=True, fused_num_shards=2,
+        session_opts={"device_type": "cpu"}))
+    assert fleet.fused_num_shards == 1
+    assert any("fused num_shards=2 rounded to 1 (power of two, 1 devices)"
+               in m for m in logs), logs
+
+
+def _with_warnings(fn):
+    """(fn(), the log lines it wrote, warnings included)."""
+    from lightgbm_tpu_torch.utils import log as tlog
+    logs, prev, verb = [], tlog._logger, tlog._verbosity
+    tlog.register_logger(type("L", (), {"info": logs.append,
+                                        "warning": logs.append})())
+    tlog.set_verbosity(0)
+    try:
+        out = fn()
+    finally:
+        tlog.register_logger(prev)
+        tlog.set_verbosity(verb)
+    return out, logs
 
 
 def _http(host, port, path, data=None, headers=None):

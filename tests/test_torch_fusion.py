@@ -81,6 +81,21 @@ def _both(bst):
             lj.Booster(model_str=text), tm, jm)
 
 
+def _with_warnings(fn):
+    """(fn(), the log lines it wrote, warnings included)."""
+    from lightgbm_tpu_torch.utils import log as tlog
+    logs, prev, verb = [], tlog._logger, tlog._verbosity
+    tlog.register_logger(type("L", (), {"info": logs.append,
+                                        "warning": logs.append})())
+    tlog.set_verbosity(0)
+    try:
+        out = fn()
+    finally:
+        tlog.register_logger(prev)
+        tlog.set_verbosity(verb)
+    return out, logs
+
+
 @pytest.fixture(scope="module")
 def tenants():
     """Heterogeneous on purpose: K 1 / 3, tree counts 6 / 12 / 5, feature
@@ -265,7 +280,16 @@ def test_fused_scorer_within_1e6_of_jax(tenants):
 
 def test_fused_scorer_refusals(tenants):
     sessions = _sessions(tenants)
-    with pytest.raises(NotImplementedError, match="ROADMAP item A16"):
-        FusedScorer(sessions, num_shards=2)
+    # num_shards=2 on one device: rounded to 1 with the JAX package's
+    # warning, bitwise the unsharded scorer
+    sh, logs = _with_warnings(lambda: FusedScorer(sessions, num_shards=2))
+    assert sh.num_shards == 0
+    assert any("fused num_shards=2 rounded to 1 (power of two, 1 devices)"
+               in m for m in logs), logs
+    qs = _queries(7, tenants)
+    groups = [("mc", qs["mc"][:5]), ("bin", qs["bin"][:4])]
+    for got, want in zip(sh.score_groups(groups),
+                         FusedScorer(sessions).score_groups(groups)):
+        assert _md5(got) == _md5(want)
     with pytest.raises(ValueError, match="at least one tenant"):
         FusedForest({})

@@ -93,6 +93,21 @@ def binary_v2():
     return jbst, _port(jbst)
 
 
+def _with_warnings(fn):
+    """(fn(), the log lines it wrote, warnings included)."""
+    from lightgbm_tpu_torch.utils import log as tlog
+    logs, prev, verb = [], tlog._logger, tlog._verbosity
+    tlog.register_logger(type("L", (), {"info": logs.append,
+                                        "warning": logs.append})())
+    tlog.set_verbosity(0)
+    try:
+        out = fn()
+    finally:
+        tlog.register_logger(prev)
+        tlog.set_verbosity(verb)
+    return out, logs
+
+
 def test_bucket_for():
     assert bucket_for(1, 8, 256) == 8
     assert bucket_for(9, 8, 256) == 16
@@ -302,8 +317,16 @@ def test_refusals(binary):
     # the compiled engine is ported (tests/test_torch_export.py): a
     # session builds; its programs are exported when a bucket first scores
     assert bst.serve(engine="compiled", max_batch=8).engine == "compiled"
-    with pytest.raises(NotImplementedError, match="ROADMAP item A16"):
-        bst.serve(engine="device", num_shards=2)
+    # sharded serving on one device rounds to 1 with the JAX package's
+    # warning and scores bitwise as its unsharded twin
+    sh, logs = _with_warnings(lambda: bst.serve(engine="device",
+                                                num_shards=2))
+    assert sh.num_shards == 0
+    assert any("serving num_shards=2 rounded to 1 (power of two, 1 "
+               "devices)" in m for m in logs), logs
+    Xq = np.random.RandomState(3).normal(size=(37, sh.num_features))
+    assert np.array_equal(sh.predict(Xq),
+                          bst.serve(engine="device").predict(Xq))
     # the circuit breaker is ported (tests/test_torch_serving_slo.py): a
     # session with one serves
     from lightgbm_tpu_torch.serving import CircuitBreaker

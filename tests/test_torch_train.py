@@ -22,6 +22,7 @@ import pytest
 
 import lightgbm_tpu as lj
 import lightgbm_tpu_torch as lt
+from lightgbm_tpu.utils.log import FatalError as JFatalError
 from lightgbm_tpu_torch.convert import booster_from_state
 from lightgbm_tpu_torch.utils import log as tlog
 
@@ -195,21 +196,47 @@ def test_valid_sets_early_stopping_and_logging(data):
     np.testing.assert_allclose(raw, kept, rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("over,item", [
-    ({"num_machines": 4}, "A16"),
-    ({"tree_learner": "data"}, "A16"),
-    ({"num_machines": 8, "tpu_grower": "compact"}, "A16"),
-    ({"tree_learner": "feature"}, "A16"),
-    ({"num_machines": 2}, "A16"),
-    ({"pre_partition": True}, "A16"),
-    ({"tree_learner": "voting", "tpu_grower": "masked"}, "A16"),
-    ({"tree_learner": "voting"}, "A16"),
+def _trees_only(text):
+    """Model text minus the bracketed parameter dump."""
+    return "\n".join(l for l in text.splitlines() if not l.startswith("["))
+
+
+@pytest.mark.parametrize("over,want", [
+    pytest.param({"num_machines": 4}, "no machine rank given",
+                 id="over0-A16"),
+    pytest.param({"tree_learner": "data"}, "serial", id="over1-A16"),
+    pytest.param({"num_machines": 8, "tpu_grower": "compact"},
+                 "no machine rank given", id="over2-A16"),
+    pytest.param({"tree_learner": "feature"}, "serial", id="over3-A16"),
+    pytest.param({"num_machines": 2}, "no machine rank given",
+                 id="over4-A16"),
+    pytest.param({"pre_partition": True}, "serial", id="over5-A16"),
+    pytest.param({"tree_learner": "voting", "tpu_grower": "masked"},
+                 "serial", id="over6-A16"),
+    pytest.param({"tree_learner": "voting"}, "serial", id="over7-A16"),
 ])
-def test_configurations_outside_the_slice_raise(data, over, item):
+def test_configurations_outside_the_slice_raise(data, over, want):
+    """The distributed configurations in one process (no group): a
+    distributed tree_learner or pre_partition trains serially and grows
+    the serial model, as the JAX package does on one device; num_machines
+    > 1 with no rank given is fatal with the JAX package's message
+    (tests/test_torch_parallel.py trains them over process groups)."""
     X, y = data
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-        lt.train({**PARAMS, **TORCH, **over}, lt.Dataset(X, label=y),
-                 num_boost_round=1)
+    p = {**PARAMS, **TORCH, **over}
+    if want != "serial":
+        with pytest.raises(lt.FatalError, match=want):
+            lt.train(p, lt.Dataset(X, label=y), num_boost_round=1)
+        with pytest.raises(JFatalError, match=want):
+            lj.train({**PARAMS, **over}, lj.Dataset(X, label=y),
+                     num_boost_round=1)
+        return
+    serial = {**PARAMS, **TORCH,
+              **{k: v for k, v in over.items() if k == "tpu_grower"}}
+    got = lt.train(p, lt.Dataset(X, label=y), num_boost_round=2)
+    ref = lt.train(serial, lt.Dataset(X, label=y), num_boost_round=2)
+    assert got._gbdt.use_dist is False
+    assert _trees_only(got.model_to_string()) == \
+        _trees_only(ref.model_to_string())
 
 
 @pytest.mark.parametrize("num_leaves", [8192, 4097, 131072])
